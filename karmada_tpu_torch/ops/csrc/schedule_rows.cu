@@ -1,0 +1,719 @@
+// K2 schedule_rows: one wave's binding rows, one thread block per row.
+//
+// Replaces karmada_tpu/ops/solver.py: _schedule_one with _gather_lanes,
+// _assign_lanes, _select_by_cluster, _locality_score and webster_divide
+// (vmapped over the wave's rows), the per-row prologue of wave_step
+// (feasibility, avail_cal, the prev/evict COO scatter) and its consumption
+// charge (used += max(rep - prev, 0) per resource, pod and class).
+//
+// Per row:
+//   1. scalars, and the row's prev/evict COO entries into shared memory
+//      (no dense [B, C] prev/evict planes);
+//   2. the lane set: every lane when C <= 528 (direct), else the union of
+//      top-16 by prev key and top-128 by each of three (four with plugin
+//      scores) packed keys.  Keys go to a per-row scratch in device memory;
+//      an 8-pass radix select finds each group's k-th largest key (the
+//      non-negative keys are distinct), and the lowest-index lanes with key
+//      -1 fill a group that has fewer eligible lanes, exactly as lax.top_k
+//      breaks ties.  An ordered scan writes the union ascending.  Works for
+//      any C up to 2^21: only the <= 656 gathered lanes live in shared memory;
+//   3. the lane math on those lanes in shared memory: locality score,
+//      selection by packed key (bitonic sort of (key, lane) pairs = a stable
+//      argsort) and the capacity swap loop, strategy and mode, Aggregated
+//      capacity-descending prefix (sort + scan); the row's Webster problem
+//      (ranks densified in rank_eff order) goes to device memory;
+//   -- K4 webster_batch (webster_batch.cu) solves every row's problem --
+//   4. schedule_rows_finish: the dense rep/sel row (wide Duplicated /
+//      selection formulas over all lanes, then the gathered lanes) and
+//      status, and the row's new consumption added into used_* with 64-bit
+//      integer atomics (exact and order-free).
+//
+// Bound on the card: at 4096 x 8192 the dense output (rep int64 + sel) and
+// the key scratch dominate the bytes; the bisections of Webster and the
+// sorts are block-local operations on shared memory.  Design: simple and
+// right first -- one block per row keeps every row's control flow
+// independent (rows diverge in strategy and loop counts).
+#include "webster.cuh"
+
+constexpr int NT = 256;
+constexpr int G_PREV = 16;
+constexpr int G_TOPK = 128;
+constexpr int NG_MAX = 5;
+constexpr int LMAX = G_PREV + NG_MAX * G_TOPK;  // 656 gathered lanes at most
+constexpr int SORTN = 1024;                     // pow2 >= LMAX
+constexpr int DIRECT_MAX = 528;
+constexpr int LANE_BITS = 21;
+constexpr i64 LANE_MASK = (1LL << LANE_BITS) - 1;
+constexpr int AVAIL_BITS = 34;
+constexpr i64 AVAIL_CAP = (1LL << AVAIL_BITS) - 1;
+constexpr int STRAT_DUPLICATED = 0, STRAT_STATIC = 1, STRAT_DYNAMIC = 2,
+              STRAT_AGGREGATED = 3;
+constexpr int STATUS_OK = 0, STATUS_FIT_ERROR = 1, STATUS_UNSCHEDULABLE = 2,
+              STATUS_NO_CLUSTER = 3;
+
+struct RowsArgs {
+  const unsigned char* cluster_valid;  // [C]
+  const unsigned char* deleting;       // [C]
+  const i64* name_rank;                // [C]
+  const unsigned char* api_ok;         // [G, C]
+  const i64* req_milli;                // [Q, R]
+  const unsigned char* req_is_cpu;     // [R]
+  const i64* req_pods;                 // [Q]
+  const unsigned char* pl_mask;        // [P, C]
+  const unsigned char* pl_tol_bypass;  // [P, C]
+  const int* pl_strategy;              // [P]
+  const i64* pl_static_w;              // [P, C]
+  const unsigned char* pl_has_cluster_sc;  // [P]
+  const int* pl_sc_min;                // [P]
+  const int* pl_sc_max;                // [P]
+  const unsigned char* pl_ignore_avail;  // [P]
+  const i64* pl_extra_score;           // [P, C]
+  const unsigned char* b_valid;        // [B]
+  const int* placement_id;             // [B]
+  const int* gvk_id;                   // [B]
+  const int* class_id;                 // [B]
+  const i64* replicas;                 // [B]
+  const unsigned char* uid_desc;       // [B]
+  const unsigned char* fresh;          // [B]
+  const unsigned char* non_workload;   // [B]
+  const unsigned char* nw_shortcut;    // [B]
+  const int* prev_idx;                 // [B, Kp]
+  const int* prev_val;                 // [B, Kp]
+  const int* evict_idx;                // [B, Ke]
+  const i64* est;                      // [Q + 1, C]
+  i64* used_milli;                     // [C, R]
+  i64* used_pods;                      // [C]
+  i64* used_sets;                      // [Q, C]
+  i64* rep;                            // [B, C]
+  unsigned char* sel;                  // [B, C]
+  int* status;                         // [B]
+  i64* scratch;                        // [rows, NG, C] keys (gather path)
+  // per-row work of one launch slice ([rows] / [rows, LMAX]): the Webster
+  // problems K4 solves, and what the finish step needs
+  i64* web_n;
+  i64* web_w;
+  unsigned char* web_active;
+  i64* web_rank;
+  const i64* seats;
+  int* wk_lane;
+  i64* wk_base;
+  i64* wk_prev;
+  unsigned char* wk_sel;
+  unsigned char* wk_feas;
+  int* wk_U;
+  int* wk_flags;
+  i64 r0, r1, C, Q, R, Kp, Ke, use_extra, charge;
+};
+
+constexpr int FLAG_OK = 1 << 8, FLAG_SEATS = 1 << 9, FLAG_DUP_WIDE = 1 << 10,
+              FLAG_HAS_SC = 1 << 11, FLAG_VALID = 1 << 12;
+
+// shared memory of one row (dynamic; carved in this order, 8-byte first)
+struct Smem {
+  i64 *avail_cal, *prev_rep, *extra, *nr, *static_w, *avail, *w, *rest_pos,
+      *rank_w, *skey, *pval;
+  int *lane, *pos, *order, *sidx, *pidx, *eidx, *hist;
+  unsigned char *feas, *pp, *sel, *in_sel, *active, *inc;
+};
+
+__host__ __device__ inline size_t smem_bytes(i64 Kp, i64 Ke) {
+  return (size_t)(9 * LMAX + SORTN + Kp) * 8 +
+         (size_t)(3 * LMAX + SORTN + Kp + Ke + NG_MAX * 256) * 4 +
+         (size_t)6 * LMAX;
+}
+
+__device__ inline Smem carve(char* base, i64 Kp, i64 Ke) {
+  Smem s;
+  i64* p = (i64*)base;
+  s.avail_cal = p; p += LMAX;
+  s.prev_rep = p; p += LMAX;
+  s.extra = p; p += LMAX;
+  s.nr = p; p += LMAX;
+  s.static_w = p; p += LMAX;
+  s.avail = p; p += LMAX;
+  s.w = p; p += LMAX;
+  s.rest_pos = p; p += LMAX;
+  s.rank_w = p; p += LMAX;
+  s.skey = p; p += SORTN;
+  s.pval = p; p += Kp;
+  int* q = (int*)p;
+  s.lane = q; q += LMAX;
+  s.pos = q; q += LMAX;
+  s.order = q; q += LMAX;
+  s.sidx = q; q += SORTN;
+  s.pidx = q; q += Kp;
+  s.eidx = q; q += Ke;
+  s.hist = q; q += NG_MAX * 256;
+  unsigned char* u = (unsigned char*)q;
+  s.feas = u; u += LMAX;
+  s.pp = u; u += LMAX;
+  s.sel = u; u += LMAX;
+  s.in_sel = u; u += LMAX;
+  s.active = u; u += LMAX;
+  s.inc = u; u += LMAX;
+  return s;
+}
+
+// Stable ascending argsort of key[0..U) (ties by lane index): pos[i] is
+// lane i's rank, order[p] the lane at rank p.
+__device__ void block_argsort(const i64* key, int U, Smem& s) {
+  int N = 2;
+  while (N < U) N <<= 1;
+  for (int i = threadIdx.x; i < N; i += NT) {
+    s.skey[i] = i < U ? key[i] : KT_MAX_INT64;
+    s.sidx[i] = i;
+  }
+  __syncthreads();
+  for (int k = 2; k <= N; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < N; i += NT) {
+        const int ixj = i ^ j;
+        if (ixj > i) {
+          const i64 ka = s.skey[i], kb = s.skey[ixj];
+          const int ia = s.sidx[i], ib = s.sidx[ixj];
+          const bool gt = ka > kb || (ka == kb && ia > ib);
+          if (gt == ((i & k) == 0)) {
+            s.skey[i] = kb; s.skey[ixj] = ka;
+            s.sidx[i] = ib; s.sidx[ixj] = ia;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int p = threadIdx.x; p < U; p += NT) {
+    s.order[p] = s.sidx[p];
+    s.pos[s.sidx[p]] = p;
+  }
+  __syncthreads();
+}
+
+struct Row {
+  i64 b, slot, pid, gvk, cid, n;
+  int strategy, n_prev, n_evict;
+  bool has_sc, ignore, uid_desc, fresh, nw, nw_shortcut;
+  i64 sc_min, sc_max;
+};
+
+struct LaneInfo {
+  bool feas, pp;
+  i64 pr, ac;
+};
+
+__device__ __forceinline__ LaneInfo lane_info(const RowsArgs& a, const Row& row,
+                                              const Smem& s, i64 c) {
+  LaneInfo l;
+  l.pp = false;
+  l.pr = 0;
+  for (int e = 0; e < row.n_prev; ++e)
+    if (s.pidx[e] == c) { l.pp = true; l.pr += s.pval[e]; }
+  bool ev = false;
+  for (int e = 0; e < row.n_evict; ++e) ev |= s.eidx[e] == c;
+  const i64 est_b = a.est[row.cid * a.C + c];
+  l.ac = est_b == KT_MAX_INT32 ? row.n : est_b;
+  if (row.nw_shortcut) l.ac = KT_MAX_INT32;
+  const i64 pc = row.pid * a.C + c;
+  l.feas = a.cluster_valid[c] && !a.deleting[c] && a.pl_mask[pc] &&
+           (a.pl_tol_bypass[pc] || l.pp) &&
+           (a.api_ok[row.gvk * a.C + c] || l.pp) && !ev;
+  return l;
+}
+
+__device__ __forceinline__ i64 rank_eff_of(const RowsArgs& a, const Row& row,
+                                           i64 c) {
+  const i64 nr = a.name_rank[c];
+  return row.uid_desc ? a.C - 1 - nr : nr;
+}
+
+// packed gather key of group g for lane c (-1: ineligible)
+__device__ __forceinline__ i64 gather_key(const RowsArgs& a, const Row& row,
+                                          const LaneInfo& l, bool has_prev,
+                                          int g, i64 c) {
+  const i64 nr = a.name_rank[c];
+  const i64 avail_sel = l.ac + (l.pp ? l.pr : 0);
+  if (g == 0) return l.pp ? LANE_MASK - nr : -1;
+  if (!l.feas) return -1;
+  const i64 pc = row.pid * a.C + c;
+  if (g == 1 || g == 2) {
+    const i64 wg = row.strategy == STRAT_STATIC ? a.pl_static_w[pc] : avail_sel;
+    const i64 wq = shl(clampll(wg, 0, AVAIL_CAP), LANE_BITS);
+    return wq | (LANE_MASK - (g == 1 ? rank_eff_of(a, row, c) : nr));
+  }
+  const i64 aq = shl(clampll(avail_sel, 0, AVAIL_CAP), LANE_BITS);
+  if (g == 3) return aq | (LANE_MASK - nr);
+  const i64 score = ((has_prev && l.pp) ? 100 : 0) + a.pl_extra_score[pc];
+  return shl(clampll(score, 0, 255), AVAIL_BITS + LANE_BITS) | aq |
+         (LANE_MASK - nr);
+}
+
+// Step 2 of the gather path: the union of the groups' top-k lanes into
+// s.lane (ascending); returns its size.
+__device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
+                            i64* red, int* wsum) {
+  const int ng = a.use_extra ? 5 : 4;
+  i64* keys = a.scratch + row.slot * ng * a.C;
+  __shared__ int cnt[NG_MAX];
+  __shared__ i64 thr[NG_MAX];
+  __shared__ i64 cut[NG_MAX];
+  __shared__ int remaining[NG_MAX];
+  if (threadIdx.x < NG_MAX) {
+    cnt[threadIdx.x] = 0;
+    thr[threadIdx.x] = 0;
+    cut[threadIdx.x] = -1;
+  }
+  __syncthreads();
+  const bool has_prev = row.n_prev > 0;
+  int my_cnt[NG_MAX] = {0, 0, 0, 0, 0};
+  for (i64 c = threadIdx.x; c < a.C; c += NT) {
+    const LaneInfo l = lane_info(a, row, s, c);
+    for (int g = 0; g < ng; ++g) {
+      const i64 k = gather_key(a, row, l, has_prev, g, c);
+      keys[g * a.C + c] = k;
+      my_cnt[g] += k >= 0;
+    }
+  }
+  for (int g = 0; g < ng; ++g) atomicAdd(&cnt[g], my_cnt[g]);
+  __syncthreads();
+  // radix select of the k-th largest non-negative key per group
+  if (threadIdx.x < NG_MAX) remaining[threadIdx.x] =
+      threadIdx.x == 0 ? G_PREV : G_TOPK;
+  __syncthreads();
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < NG_MAX * 256; i += NT) s.hist[i] = 0;
+    __syncthreads();
+    const u64 high = shift >= 56 ? 0ULL : (~0ULL << (shift + 8));
+    for (i64 c = threadIdx.x; c < a.C; c += NT) {
+      for (int g = 0; g < ng; ++g) {
+        const int kg = g == 0 ? G_PREV : G_TOPK;
+        if (cnt[g] <= kg) continue;
+        const i64 k = keys[g * a.C + c];
+        if (k < 0 || (((u64)k ^ (u64)thr[g]) & high) != 0) continue;
+        atomicAdd(&s.hist[g * 256 + (int)(((u64)k >> shift) & 255)], 1);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < ng) {
+      const int g = threadIdx.x;
+      const int kg = g == 0 ? G_PREV : G_TOPK;
+      if (cnt[g] > kg) {
+        int cum = 0;
+        for (int d = 255; d >= 0; --d) {
+          const int h = s.hist[g * 256 + d];
+          if (cum + h >= remaining[g]) {
+            remaining[g] -= cum;
+            thr[g] = (i64)((u64)thr[g] | ((u64)d << shift));
+            break;
+          }
+          cum += h;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // fill: the lowest-index lanes with key -1, for groups short of k
+  for (int g = 0; g < ng; ++g) {
+    const int kg = g == 0 ? G_PREV : G_TOPK;
+    const int fill = kg - cnt[g];
+    if (fill <= 0) continue;
+    int seen = 0;
+    for (i64 base = 0; base < a.C && seen < fill; base += NT) {
+      const i64 c = base + threadIdx.x;
+      const bool f = c < a.C && keys[g * a.C + c] == -1;
+      int total;
+      const int pre = block_scan_flag<NT>(f, wsum, &total);
+      if (f && seen + pre + 1 == fill) cut[g] = c;
+      seen += total;
+    }
+    __syncthreads();
+  }
+  // ordered union of the members
+  int U = 0;
+  for (i64 base = 0; base < a.C; base += NT) {
+    const i64 c = base + threadIdx.x;
+    bool m = false;
+    if (c < a.C) {
+      for (int g = 0; g < ng; ++g) {
+        const i64 k = keys[g * a.C + c];
+        m |= k >= 0 ? k >= thr[g] : c <= cut[g];
+      }
+    }
+    int total;
+    const int pre = block_scan_flag<NT>(m, wsum, &total);
+    if (m) s.lane[U + pre] = (int)c;
+    U += total;
+  }
+  __syncthreads();
+  return U;
+}
+
+// Steps 1-3: the row's lane set and lane math up to its Webster problem
+// (web_*), plus what step 4 needs (wk_*).
+__global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  __shared__ i64 red[33];
+  __shared__ int wsum[NT / 32];
+  __shared__ int n_prev, n_evict;
+  Smem s = carve(smem_raw, a.Kp, a.Ke);
+  Row row;
+  row.slot = blockIdx.x;
+  row.b = a.r0 + blockIdx.x;
+  const i64 b = row.b;
+  const i64 C = a.C;
+  if (!a.b_valid[b]) {
+    // host-owned / padding rows: no Webster problem, finish writes zeros
+    const i64 wo = row.slot * LMAX;
+    for (int i = threadIdx.x; i < LMAX; i += NT) {
+      a.web_w[wo + i] = 0;
+      a.web_active[wo + i] = 0;
+      a.web_rank[wo + i] = i;
+    }
+    if (threadIdx.x == 0) { a.web_n[row.slot] = 0; a.wk_flags[row.slot] = 0; }
+    return;
+  }
+  row.pid = a.placement_id[b];
+  row.gvk = a.gvk_id[b];
+  row.cid = a.class_id[b] >= 0 ? a.class_id[b] : a.Q;
+  row.n = a.replicas[b];
+  row.strategy = a.pl_strategy[row.pid];
+  row.has_sc = a.pl_has_cluster_sc[row.pid];
+  row.sc_min = a.pl_sc_min[row.pid];
+  row.sc_max = a.pl_sc_max[row.pid];
+  row.ignore = a.pl_ignore_avail[row.pid];
+  row.uid_desc = a.uid_desc[b];
+  row.fresh = a.fresh[b];
+  row.nw = a.non_workload[b];
+  row.nw_shortcut = a.nw_shortcut[b];
+  // 1. the row's prev / evict COO entries
+  if (threadIdx.x == 0) { n_prev = 0; n_evict = 0; }
+  __syncthreads();
+  for (i64 j = threadIdx.x; j < a.Kp; j += NT) {
+    const int c = a.prev_idx[b * a.Kp + j];
+    if (c >= 0) {
+      const int e = atomicAdd(&n_prev, 1);
+      s.pidx[e] = c;
+      s.pval[e] = a.prev_val[b * a.Kp + j];
+    }
+  }
+  for (i64 j = threadIdx.x; j < a.Ke; j += NT) {
+    const int c = a.evict_idx[b * a.Ke + j];
+    if (c >= 0) s.eidx[atomicAdd(&n_evict, 1)] = c;
+  }
+  __syncthreads();
+  row.n_prev = n_prev;
+  row.n_evict = n_evict;
+
+  // 2. the lane set
+  const bool direct = C <= DIRECT_MAX;
+  int U;
+  if (direct) {
+    U = (int)C;
+    for (int i = threadIdx.x; i < U; i += NT) s.lane[i] = i;
+    __syncthreads();
+  } else {
+    U = gather_lanes(a, row, s, red, wsum);
+  }
+  for (int i = threadIdx.x; i < U; i += NT) {
+    const i64 c = s.lane[i];
+    const LaneInfo l = lane_info(a, row, s, c);
+    const i64 pc = row.pid * C + c;
+    s.feas[i] = l.feas;
+    s.pp[i] = l.pp;
+    s.prev_rep[i] = l.pr;
+    s.avail_cal[i] = l.ac;
+    s.extra[i] = a.pl_extra_score[pc];
+    s.nr[i] = a.name_rank[c];
+    s.static_w[i] = a.pl_static_w[pc];
+    s.rank_w[i] = rank_eff_of(a, row, c);  // sort key; densified below
+  }
+  __syncthreads();
+  block_argsort(s.rank_w, U, s);
+  for (int i = threadIdx.x; i < U; i += NT) s.rank_w[i] = s.pos[i];
+  __syncthreads();
+
+  // 3. the lane math (JAX _assign_lanes)
+  i64 t_fc = 0, t_pp = 0;
+  for (int i = threadIdx.x; i < U; i += NT) { t_fc += s.feas[i]; t_pp += s.pp[i]; }
+  const i64 fcount = block_sum<NT>(t_fc, red);
+  const bool has_prev = block_sum<NT>(t_pp, red) > 0;
+  for (int i = threadIdx.x; i < U; i += NT)
+    s.avail[i] = s.avail_cal[i] + (s.pp[i] ? s.prev_rep[i] : 0);
+  __syncthreads();
+  bool unsched_sel = false;
+  if (row.has_sc) {
+    // selection by cluster: packed key (score desc, avail desc, name asc)
+    for (int i = threadIdx.x; i < U; i += NT) {
+      const i64 score = ((has_prev && s.pp[i]) ? 100 : 0) + s.extra[i];
+      const i64 ac = clampll(s.avail[i], 0, AVAIL_CAP);
+      s.w[i] = s.feas[i] ? (shl(200 - score, AVAIL_BITS + LANE_BITS) |
+                            shl(AVAIL_CAP - ac, LANE_BITS) | s.nr[i])
+                         : KT_MAX_INT64;
+    }
+    __syncthreads();
+    block_argsort(s.w, U, s);
+    const i64 need = minll(row.sc_max, fcount);
+    for (int i = threadIdx.x; i < U; i += NT) {
+      s.in_sel[i] = s.feas[i] && s.pos[i] < need;
+      s.rest_pos[i] = s.pos[i];
+    }
+    __syncthreads();
+    auto total_sel = [&]() -> i64 {
+      i64 t = 0;
+      for (int i = threadIdx.x; i < U; i += NT) t += s.in_sel[i] ? s.avail[i] : 0;
+      return block_sum<NT>(t, red);
+    };
+    if (!row.ignore) {
+      __shared__ i64 wbest[NT / 32];
+      __shared__ int ibest[NT / 32];
+      for (i64 update_id = need - 1;; --update_id) {
+        if (!(total_sel() < row.n && update_id >= 0)) break;
+        const int cur = s.order[update_id];
+        // argmax of the candidate key, first index on ties
+        i64 bv = -2;
+        int bi = 0x7fffffff;
+        for (int i = threadIdx.x; i < U; i += NT) {
+          const i64 cand =
+              (s.feas[i] && !s.in_sel[i])
+                  ? (shl(clampll(s.avail[i], 0, AVAIL_CAP), LANE_BITS) |
+                     (LANE_MASK - clampll(s.rest_pos[i], 0, LANE_MASK)))
+                  : -1;
+          if (cand > bv) { bv = cand; bi = i; }
+        }
+        for (int o = 16; o > 0; o >>= 1) {
+          const i64 ov = __shfl_down_sync(KT_FULL_MASK, bv, o);
+          const int oi = __shfl_down_sync(KT_FULL_MASK, bi, o);
+          if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
+        }
+        if ((threadIdx.x & 31) == 0) {
+          wbest[threadIdx.x >> 5] = bv;
+          ibest[threadIdx.x >> 5] = bi;
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+          for (int wi = 1; wi < NT / 32; ++wi)
+            if (wbest[wi] > bv || (wbest[wi] == bv && ibest[wi] < bi)) {
+              bv = wbest[wi];
+              bi = ibest[wi];
+            }
+          if (bv >= 0 && s.avail[bi] > s.avail[cur]) {
+            s.in_sel[bi] = 1;
+            s.in_sel[cur] = 0;
+            s.rest_pos[cur] = s.rest_pos[bi];
+          }
+        }
+        __syncthreads();
+      }
+    }
+    const i64 tot = total_sel();
+    unsched_sel = fcount < row.sc_min || (!row.ignore && tot < row.n);
+    for (int i = threadIdx.x; i < U; i += NT) s.sel[i] = s.in_sel[i];
+  } else {
+    for (int i = threadIdx.x; i < U; i += NT) s.sel[i] = s.feas[i];
+  }
+  __syncthreads();
+  i64 t_sc = 0, t_as = 0;
+  for (int i = threadIdx.x; i < U; i += NT) {
+    t_sc += s.sel[i];
+    t_as += (s.sel[i] && s.pp[i]) ? s.prev_rep[i] : 0;
+  }
+  const i64 sel_count = block_sum<NT>(t_sc, red);
+  const i64 assigned = block_sum<NT>(t_as, red);
+  const i64 n = row.n;
+  const bool is_dynamic =
+      row.strategy == STRAT_DYNAMIC || row.strategy == STRAT_AGGREGATED;
+  const bool scale_down = is_dynamic && !row.fresh && assigned > n;
+  const bool scale_up = is_dynamic && !row.fresh && assigned < n;
+  const bool steady_eq = is_dynamic && !row.fresh && assigned == n;
+  const bool is_fresh = is_dynamic && row.fresh;
+  const bool is_static = row.strategy == STRAT_STATIC;
+  bool static_pos = false;
+  if (is_static) {
+    i64 t = 0;
+    for (int i = threadIdx.x; i < U; i += NT) t += s.static_w[i] * s.sel[i];
+    static_pos = block_sum<NT>(t, red) > 0;
+  }
+  i64 t_w = 0;
+  for (int i = threadIdx.x; i < U; i += NT) {
+    const i64 sl = s.sel[i];
+    const i64 sched = (s.sel[i] && s.pp[i]) ? s.prev_rep[i] : 0;
+    i64 w = 0;
+    if (is_static) w = static_pos ? s.static_w[i] * sl : sl;
+    if (is_fresh) w = s.avail_cal[i] * sl + sched;
+    if (scale_up) w = s.avail_cal[i] * sl;
+    if (scale_down) w = s.pp[i] ? s.prev_rep[i] : 0;
+    s.w[i] = w;
+    s.active[i] = scale_down ? s.pp[i] : s.sel[i];
+    t_w += w;
+  }
+  i64 target = is_static ? n : 0;
+  if (is_fresh || scale_down) target = n;
+  if (scale_up) target = n - assigned;
+  const bool unsched_div = is_dynamic && block_sum<NT>(t_w, red) < target;
+  // Aggregated: trim to the capacity-descending prefix reaching target
+  if (row.strategy == STRAT_AGGREGATED && (is_fresh || scale_up || scale_down)) {
+    for (int i = threadIdx.x; i < U; i += NT) {
+      const bool prior = scale_up && s.pp[i] && s.sel[i] && s.prev_rep[i] > 0;
+      s.rest_pos[i] = s.active[i]
+          ? (shl(prior ? 0 : 1, AVAIL_BITS + LANE_BITS) |
+             shl(AVAIL_CAP - clampll(s.w[i], 0, AVAIL_CAP), LANE_BITS) | s.nr[i])
+          : KT_MAX_INT64;
+    }
+    __syncthreads();
+    block_argsort(s.rest_pos, U, s);
+    // exclusive cumsum of active w in sorted order, each thread a chunk
+    const int per = (U + NT - 1) / NT;
+    const int p0 = threadIdx.x * per;
+    i64 local = 0;
+    for (int p = p0; p < p0 + per && p < U; ++p) {
+      const int i = s.order[p];
+      local += s.active[i] ? s.w[i] : 0;
+    }
+    i64 run = block_scan_excl<NT>(local, red);
+    for (int p = p0; p < p0 + per && p < U; ++p) {
+      const int i = s.order[p];
+      s.inc[i] = run < target;
+      run += s.active[i] ? s.w[i] : 0;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < U; i += NT) {
+      if (!s.inc[i]) { s.w[i] = 0; s.active[i] = 0; }
+    }
+    __syncthreads();
+  }
+  const bool run_webster =
+      !row.nw && (is_static || ((is_fresh || scale_up || scale_down) && !unsched_div));
+  int status = STATUS_OK;
+  if (fcount == 0) status = STATUS_FIT_ERROR;
+  else if (unsched_sel || unsched_div) status = STATUS_UNSCHEDULABLE;
+  else if (sel_count == 0) status = STATUS_NO_CLUSTER;
+  const bool ok = status == STATUS_OK;
+  const bool is_dup = row.strategy == STRAT_DUPLICATED;
+  // rep = base + seats, except Duplicated (n * sel), non-workload and
+  // failed rows (0): only then do the seats matter
+  const bool use_seats = ok && !row.nw && !is_dup;
+  const bool base_keep = scale_up || steady_eq;
+  const i64 wo = row.slot * LMAX;
+  for (int i = threadIdx.x; i < LMAX; i += NT) {
+    const bool live = i < U;
+    const bool sl = live && s.sel[i];
+    const i64 sched = (sl && s.pp[i]) ? s.prev_rep[i] : 0;
+    i64 base = 0;
+    if (use_seats) base = base_keep ? sched : 0;
+    else if (is_dup && ok && !row.nw) base = n * (i64)sl;
+    a.web_w[wo + i] = live ? s.w[i] : 0;
+    a.web_active[wo + i] = live && s.active[i];
+    a.web_rank[wo + i] = live ? s.rank_w[i] : i;
+    a.wk_base[wo + i] = base;
+    a.wk_sel[wo + i] = sl && ok;
+    a.wk_prev[wo + i] = live ? s.prev_rep[i] : 0;
+    a.wk_feas[wo + i] = live && s.feas[i];
+    a.wk_lane[wo + i] = live ? s.lane[i] : -1;
+  }
+  if (threadIdx.x == 0) {
+    a.web_n[row.slot] = (use_seats && run_webster) ? target : 0;
+    a.wk_U[row.slot] = U;
+    a.wk_flags[row.slot] = status | (ok ? FLAG_OK : 0) |
+                           (use_seats ? FLAG_SEATS : 0) |
+                           (is_dup && !row.has_sc && ok && !row.nw ? FLAG_DUP_WIDE : 0) |
+                           (row.has_sc ? FLAG_HAS_SC : 0) | FLAG_VALID;
+  }
+}
+
+// Step 4, after K4 solved the rows' Webster problems (seats): the dense
+// rep/sel row -- wide formulas over every lane, then the gathered lanes
+// (the same global addresses, ordered by the barrier) -- the status, and
+// the row's new consumption max(rep - prev, 0) added into used_* with
+// 64-bit integer atomics (exact and order-free).
+__global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
+  const i64 slot = blockIdx.x;
+  const i64 b = a.r0 + slot;
+  const i64 C = a.C;
+  i64* rep_row = a.rep + b * C;
+  unsigned char* sel_row = a.sel + b * C;
+  const int flags = a.wk_flags[slot];
+  if (!(flags & FLAG_VALID)) {
+    // host-owned / padding rows: no result, no consumption
+    for (i64 c = threadIdx.x; c < C; c += NT) { rep_row[c] = 0; sel_row[c] = 0; }
+    if (threadIdx.x == 0) a.status[b] = STATUS_OK;
+    return;
+  }
+  const int U = a.wk_U[slot];
+  const bool ok = flags & FLAG_OK;
+  const bool use_seats = flags & FLAG_SEATS;
+  const bool dup_wide = flags & FLAG_DUP_WIDE;
+  const bool has_sc = flags & FLAG_HAS_SC;
+  const i64 n = a.replicas[b];
+  const i64 wo = slot * LMAX;
+  const bool direct = C <= DIRECT_MAX;
+  const int ng = a.use_extra ? 5 : 4;
+  const i64* wkeys = a.scratch + slot * ng * C + C;  // key_w_rank
+  auto feas_at = [&](i64 c) -> bool {
+    // key_w_rank >= 0 exactly on feasible lanes (gather path); the
+    // direct path's lane set is every lane, in order
+    return direct ? (bool)a.wk_feas[wo + c] : wkeys[c] >= 0;
+  };
+  for (i64 c = threadIdx.x; c < C; c += NT) {
+    const bool f = (dup_wide || (!has_sc && ok)) ? feas_at(c) : false;
+    rep_row[c] = (dup_wide && f) ? n : 0;
+    sel_row[c] = !has_sc && ok && f;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < U; i += NT) {
+    const i64 c = a.wk_lane[wo + i];
+    if (!dup_wide)
+      rep_row[c] = a.wk_base[wo + i] + (use_seats ? a.seats[wo + i] : 0);
+    if (has_sc) sel_row[c] = a.wk_sel[wo + i];
+  }
+  if (threadIdx.x == 0) a.status[b] = flags & 0xff;
+  if (!a.charge) return;
+  // new consumption max(rep - prev, 0), added per resource / pod / class
+  const i64 cid = a.class_id[b] >= 0 ? a.class_id[b] : a.Q;
+  const bool has_class = cid < a.Q;
+  const i64 pods_per = has_class ? a.req_pods[cid] : 1;
+  auto charge = [&](i64 c, i64 delta) {
+    if (delta <= 0) return;
+    if (has_class) {
+      for (i64 r = 0; r < a.R; ++r) {
+        const i64 req = a.req_milli[cid * a.R + r] * (a.req_is_cpu[r] ? 1 : 1000);
+        if (req != 0)
+          atomicAdd((u64*)&a.used_milli[c * a.R + r], (u64)(delta * req));
+      }
+      atomicAdd((u64*)&a.used_sets[cid * C + c], (u64)delta);
+    }
+    atomicAdd((u64*)&a.used_pods[c], (u64)(delta * pods_per));
+  };
+  if (dup_wide) {
+    // every feasible lane holds n: its prev from the row's COO entries
+    for (i64 c = threadIdx.x; c < C; c += NT) {
+      if (!feas_at(c)) continue;
+      i64 pr = 0;
+      for (i64 j = 0; j < a.Kp; ++j)
+        if (a.prev_idx[b * a.Kp + j] == c) pr += a.prev_val[b * a.Kp + j];
+      charge(c, n - pr);
+    }
+  } else {
+    for (int i = threadIdx.x; i < U; i += NT) {
+      const i64 rep = a.wk_base[wo + i] + (use_seats ? a.seats[wo + i] : 0);
+      charge(a.wk_lane[wo + i], rep - a.wk_prev[wo + i]);
+    }
+  }
+}
+
+extern "C" int kt_schedule_rows_prepare(const RowsArgs* a, void* stream) {
+  const i64 rows = a->r1 - a->r0;
+  if (rows <= 0) return 0;
+  const size_t smem = smem_bytes(a->Kp, a->Ke);
+  cudaError_t e = cudaFuncSetAttribute(
+      schedule_rows_prepare, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  schedule_rows_prepare<<<(unsigned)rows, NT, smem, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kt_schedule_rows_finish(const RowsArgs* a, void* stream) {
+  const i64 rows = a->r1 - a->r0;
+  if (rows <= 0) return 0;
+  schedule_rows_finish<<<(unsigned)rows, NT, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+

@@ -1,0 +1,839 @@
+"""The device solve of one scheduling cycle, in PyTorch with Hopper kernels.
+
+Counterpart of the JAX package's ``ops/solver.py`` (``schedule_compact``,
+one jitted XLA program per chunk).  The same integer-only algorithm runs
+here as a Python loop of kernel launches per chunk:
+
+  for each of `waves` capacity-contention waves:
+      K1 capacity        est[Q+1, C] from the snapshot minus what earlier
+                         waves (and earlier chunks, through the carry) used
+      K2 schedule_rows   one block per binding row: feasibility, lane
+                         gather, selection, strategy, Webster; writes the
+                         dense rep/sel/status rows and charges the row's new
+                         consumption into the used accumulators (atomics)
+  K3 compact             row-major COO extraction of (rep > 0 | wanted sel)
+
+K4 webster_batch runs the Webster allocation K2 uses on its own, so that
+it can be held against its plain version by itself.
+
+Every kernel has a plain PyTorch version in this module
+(``capacity_plain``, ``schedule_rows_plain``, ``compact_plain``,
+``webster_plain``): batched int64 code that repeats the JAX program's
+arithmetic with bounded loops in place of ``while_loop``, stable sorts and
+explicit lowest-index tie breaks.  A wrapper takes the plain version only
+for tensors that lie on the CPU; for CUDA tensors it launches its kernel or
+raises.  All arithmetic is int64 with floor division where the JAX program
+divides, so results are bit-exact.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.ops import kernels
+from karmada_tpu_torch.ops.tensors import (
+    COMPACT_DIVISION_CAP,
+    COMPACT_LANES,
+    COMPACT_PREV_CAP,
+    STATUS_FIT_ERROR,
+    STATUS_NO_CLUSTER,
+    STATUS_OK,
+    STATUS_UNSCHEDULABLE,
+    STRAT_AGGREGATED,
+    STRAT_DUPLICATED,
+    STRAT_DYNAMIC,
+    STRAT_STATIC,
+)
+from karmada_tpu_torch.ops.webster import PRIORITY_QBITS
+
+MAX_INT32 = (1 << 31) - 1
+MAX_INT64 = (1 << 63) - 1
+
+_W_CAP = (1 << 34) - 1  # weights clamped so (w << QBITS) fits int64
+_N_CAP = (1 << 25) - 1  # seat targets clamped (2^25 replicas per binding)
+
+_AVAIL_BITS = 34  # avail values clamped below 2^34 for key packing
+_AVAIL_CAP = (1 << _AVAIL_BITS) - 1
+_LANE_BITS = 21
+_LANE_MASK = (1 << _LANE_BITS) - 1
+MAX_CLUSTER_LANES = 1 << _LANE_BITS
+
+# std lane tier: prev gather, per-key top-K gather, direct-path ceiling
+G_PREV, G_TOPK = COMPACT_PREV_CAP, 2 * COMPACT_DIVISION_CAP
+DIRECT_MAX = COMPACT_LANES
+assert COMPACT_LANES == G_PREV + 4 * G_TOPK, "lane geometry out of sync"
+
+I64 = torch.int64
+
+
+def _floordiv(a, b):
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _positions(key: torch.Tensor) -> torch.Tensor:
+    """Rank of every lane under a stable ascending sort of `key` (last
+    axis), and the sort order itself."""
+    order = torch.sort(key, dim=-1, stable=True).indices
+    ar = torch.arange(key.shape[-1], device=key.device).expand_as(order)
+    return torch.empty_like(order).scatter_(-1, order, ar), order
+
+
+# ---------------------------------------------------------------------------
+# The batch on the device
+# ---------------------------------------------------------------------------
+
+_CLUSTER_FIELDS = (
+    "cluster_valid", "deleting", "name_rank", "pods_allowed", "has_summary",
+    "avail_milli", "has_alloc", "api_ok",
+    "req_milli", "req_is_cpu", "req_pods", "est_override",
+    "pl_mask", "pl_tol_bypass", "pl_strategy", "pl_static_w",
+    "pl_has_cluster_sc", "pl_sc_min", "pl_sc_max", "pl_ignore_avail",
+    "pl_extra_score",
+)
+_BINDING_FIELDS = (
+    "b_valid", "placement_id", "gvk_id", "class_id", "replicas", "uid_desc",
+    "fresh", "non_workload", "nw_shortcut", "prev_idx", "prev_val",
+    "evict_idx",
+)
+
+
+@dataclass
+class DeviceBatch:
+    """A SolverBatch's solver operands as contiguous tensors on one device
+    (same names, same dtypes as ops/tensors.FIELD_DTYPES)."""
+
+    B: int
+    C: int
+    device: torch.device
+    t: dict  # field name -> tensor
+
+    def __getattr__(self, name):
+        try:
+            return self.__dict__["t"][name]
+        except KeyError:
+            raise AttributeError(name) from None
+
+
+def _to_dev(a, device):
+    a = np.asarray(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = a.copy()  # torch aliases numpy memory; keep frozen arrays frozen
+    return torch.from_numpy(a).to(device)
+
+
+def device_batch(batch, device) -> DeviceBatch:
+    """Upload a SolverBatch's solver operands to `device`."""
+    device = resolve_device(device)
+    if batch.C > MAX_CLUSTER_LANES:
+        raise ValueError(f"cluster axis {batch.C} exceeds the packed keys' "
+                         f"{MAX_CLUSTER_LANES} lanes per solve call")
+    t = {f: _to_dev(getattr(batch, f), device)
+         for f in _CLUSTER_FIELDS + _BINDING_FIELDS}
+    return DeviceBatch(B=int(batch.B), C=int(batch.C), device=device, t=t)
+
+
+def _use_extra(batch) -> bool:
+    """Plugin-score mode: the encoder's extra-score rows are all-zero
+    unless an out-of-tree score plugin is registered."""
+    return bool(np.asarray(batch.pl_extra_score).any())
+
+
+def _effective_waves(B: int, waves: int) -> int:
+    """The nearest divisor of B at or below the requested wave count."""
+    waves = max(1, min(waves, B))
+    while B % waves:
+        waves -= 1
+    return waves
+
+
+def _on_cuda(*ts) -> bool:
+    """True when every tensor is on a CUDA device, False when all are on
+    the CPU; a mix is a caller error."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"tensors on mixed devices: {sorted(kinds)}")
+
+
+# ---------------------------------------------------------------------------
+# K1 capacity
+# ---------------------------------------------------------------------------
+
+def capacity_plain(req_milli, req_is_cpu, req_pods, avail_milli, used_milli,
+                   has_alloc, pods_allowed, used_pods, has_summary,
+                   est_override, used_sets):
+    """est int64[Q+1, C]: GeneralEstimator max replicas per request class
+    against the snapshot minus `used` (JAX: _capacity_estimates plus the
+    accurate-override decrement in wave_step).  Row Q is the
+    no-requirements row."""
+    avail_eff = avail_milli - used_milli
+    pods_eff = torch.clamp(pods_allowed - used_pods, min=0)
+    unit_avail = torch.where(req_is_cpu[None, :], avail_eff,
+                             -_floordiv(-avail_eff, 1000))  # [C, R]
+    req = req_milli[:, None, :]  # [Q, 1, R]
+    avail = unit_avail[None, :, :]
+    ok = has_alloc[None, :, :] & (avail > 0)
+    cnt = torch.where(ok, _floordiv(avail, torch.clamp(req, min=1)),
+                      torch.zeros((), dtype=I64, device=avail.device))
+    cnt = torch.where(req > 0, cnt, torch.full((), MAX_INT64, dtype=I64,
+                                               device=avail.device))
+    if cnt.shape[2]:
+        est = cnt.min(dim=2).values
+    else:
+        est = torch.full(cnt.shape[:2], MAX_INT64, dtype=I64,
+                         device=avail.device)
+    pods_bound = _floordiv(pods_eff[None, :],
+                           torch.clamp(req_pods[:, None], min=1))
+    est = torch.minimum(est, pods_bound)
+    live = has_summary & (pods_eff > 0)
+    est = torch.where(live[None, :], est, 0)
+    est = torch.clamp(est, 0, MAX_INT32)
+    ovr = torch.clamp(est_override - used_sets, min=0)
+    est = torch.where(est_override >= 0, ovr, est)
+    none_row = torch.where(live, torch.clamp(pods_eff, max=MAX_INT32), 0)
+    return torch.cat([est, none_row[None, :]], dim=0)
+
+
+def capacity(req_milli, req_is_cpu, req_pods, avail_milli, used_milli,
+             has_alloc, pods_allowed, used_pods, has_summary, est_override,
+             used_sets):
+    """K1 (ops/csrc/capacity.cu) on CUDA tensors, capacity_plain on CPU."""
+    args = (req_milli, req_is_cpu, req_pods, avail_milli, used_milli,
+            has_alloc, pods_allowed, used_pods, has_summary, est_override,
+            used_sets)
+    if not _on_cuda(*args):
+        return capacity_plain(*args)
+    Q, R = req_milli.shape
+    C = avail_milli.shape[0]
+    kernels.check(req_milli, I64, (Q, R))
+    kernels.check(req_is_cpu, torch.bool, (R,))
+    kernels.check(req_pods, I64, (Q,))
+    kernels.check(avail_milli, I64, (C, R))
+    kernels.check(used_milli, I64, (C, R))
+    kernels.check(has_alloc, torch.bool, (C, R))
+    kernels.check(pods_allowed, I64, (C,))
+    kernels.check(used_pods, I64, (C,))
+    kernels.check(has_summary, torch.bool, (C,))
+    kernels.check(est_override, I64, (Q, C))
+    kernels.check(used_sets, I64, (Q, C))
+    est = torch.empty((Q + 1, C), dtype=I64, device=avail_milli.device)
+    kernels.launch("capacity", kernels.CapacityArgs(
+        *(kernels.ptr(a) for a in args), kernels.ptr(est), Q, R, C))
+    return est
+
+
+# ---------------------------------------------------------------------------
+# K4 Webster (closed form)
+# ---------------------------------------------------------------------------
+
+def webster_plain(n, w, s0, active, rank):
+    """Closed-form Sainte-Laguë over a batch: seats int64[B, L] (JAX:
+    webster_divide_batch).  n int64[B]; w, s0, rank int64[B, L]; active
+    bool[B, L].  rank must be distinct among active lanes."""
+    L = w.shape[1]
+    dev = w.device
+    zero = torch.zeros((), dtype=I64, device=dev)
+    w = torch.where(active, torch.clamp(w, 0, _W_CAP), zero)
+    s0 = torch.where(active, torch.clamp(s0, 0, _N_CAP), zero)
+    totw = w.sum(1)
+    n_eff = torch.where(totw > 0, torch.clamp(n, 0, _N_CAP), zero)
+    wq = w << PRIORITY_QBITS
+    pos_mask = active & (w > 0)
+
+    def count_above(t):
+        m = (_floordiv(wq, (t + 1)[:, None]) + 1) >> 1
+        c = torch.minimum(torch.clamp(m - s0, min=0), n_eff[:, None])
+        return torch.where(pos_mask, c, zero)
+
+    def cnt(t):
+        return count_above(t).sum(1)
+
+    lo = torch.zeros_like(n_eff)
+    hi = torch.clamp(wq.max(1).values if L else torch.zeros_like(n_eff),
+                     min=1)
+    while True:
+        go = hi - lo > 1
+        if not bool(go.any()):
+            break
+        mid = (lo + hi) >> 1
+        over = cnt(mid) > n_eff
+        lo = torch.where(go & over, mid, lo)
+        hi = torch.where(go & ~over, mid, hi)
+    t_star = torch.where(cnt(torch.zeros_like(n_eff)) <= n_eff, zero, hi)
+    full = count_above(t_star)
+    r = n_eff - full.sum(1)
+    tm1 = torch.clamp(t_star - 1, min=0)
+    k = torch.where((t_star > 0)[:, None], count_above(tm1) - full, zero)
+    base = s0 + full
+
+    def cnt_key(K):
+        c = _floordiv(K[:, None] - 1 - rank, L) - base + 1
+        return torch.minimum(torch.clamp(c, min=0), k)
+
+    lo = torch.zeros_like(n_eff)
+    hi = torch.full_like(n_eff, (1 << 27) * L)
+    while True:
+        go = hi - lo > 1
+        if not bool(go.any()):
+            break
+        mid = (lo + hi) >> 1
+        ge = cnt_key(mid).sum(1) >= r
+        lo = torch.where(go & ~ge, mid, lo)
+        hi = torch.where(go & ge, mid, hi)
+    award = torch.where((r > 0)[:, None], cnt_key(hi), zero)
+    return torch.where(active, s0 + full + award, zero)
+
+
+def webster_batch(n, w, s0, active, rank):
+    """K4 (ops/csrc/webster_batch.cu) on CUDA tensors, webster_plain on
+    CPU."""
+    if not _on_cuda(n, w, s0, active, rank):
+        return webster_plain(n, w, s0, active, rank)
+    B, L = w.shape
+    kernels.check(n, I64, (B,))
+    for a in (w, s0, rank):
+        kernels.check(a, I64, (B, L))
+    kernels.check(active, torch.bool, (B, L))
+    seats = torch.empty((B, L), dtype=I64, device=w.device)
+    kernels.launch("webster_batch", kernels.WebsterArgs(
+        kernels.ptr(n), kernels.ptr(w), kernels.ptr(s0), kernels.ptr(active),
+        kernels.ptr(rank), kernels.ptr(seats), B, L))
+    return seats
+
+
+# ---------------------------------------------------------------------------
+# K2 schedule_rows: one wave's binding rows
+# ---------------------------------------------------------------------------
+
+def _select_by_cluster(feasible, score, avail, name_rank, n_need, sc_min,
+                       sc_max, ignore_avail):
+    """select_clusters_by_cluster as batched masked ops (JAX:
+    _select_by_cluster): packed-key selection plus the capacity swap
+    loop, run for at most need_cnt steps per row."""
+    dev = feasible.device
+    fcount = feasible.sum(1)
+    avail_c = torch.clamp(avail, 0, _AVAIL_CAP)
+    key = (((200 - score) << (_AVAIL_BITS + _LANE_BITS))
+           | ((_AVAIL_CAP - avail_c) << _LANE_BITS) | name_rank)
+    key = torch.where(feasible, key, torch.full((), MAX_INT64, dtype=I64,
+                                                device=dev))
+    pos, order = _positions(key)
+    need_cnt = torch.minimum(sc_max, fcount)
+    in_sel = feasible & (pos < need_cnt[:, None])
+    rest_pos = pos.clone()
+    update_id = need_cnt - 1
+    rows = torch.arange(feasible.shape[0], device=dev)
+
+    def total():
+        return torch.where(in_sel, avail, 0).sum(1)
+
+    while True:
+        go = ~ignore_avail & (total() < n_need) & (update_id >= 0)
+        if not bool(go.any()):
+            break
+        cur = order[rows, torch.clamp(update_id, min=0)]
+        rest = feasible & ~in_sel
+        cand = torch.where(
+            rest, (avail_c << _LANE_BITS)
+            | (_LANE_MASK - torch.clamp(rest_pos, 0, _LANE_MASK)),
+            torch.full((), -1, dtype=I64, device=dev))
+        best = cand.argmax(1)
+        found = go & (cand[rows, best] >= 0) & (avail[rows, best]
+                                                > avail[rows, cur])
+        fr = rows[found]
+        in_sel[fr, best[found]] = True
+        in_sel[fr, cur[found]] = False
+        rest_pos[fr, cur[found]] = rest_pos[fr, best[found]]
+        update_id = torch.where(go, update_id - 1, update_id)
+    unsched = (fcount < sc_min) | (~ignore_avail & (total() < n_need))
+    return in_sel, unsched
+
+
+def _locality_score(prev_present, extra_score):
+    has_prev = prev_present.any(-1, keepdim=True)
+    return torch.where(has_prev & prev_present, 100, 0) + extra_score
+
+
+def _assign_lanes(feasible, avail_cal, prev_present, prev_rep, extra_score,
+                  name_rank, rank_webster, n, strategy, has_sc, sc_min,
+                  sc_max, ignore_avail, static_w, fresh, non_workload,
+                  valid):
+    """Rows against their lane axis (full C or the compact gather): JAX
+    _assign_lanes, batched.  Per-row scalars are [N] tensors."""
+    dev = feasible.device
+    zero = torch.zeros((), dtype=I64, device=dev)
+    col = lambda x: x[:, None]  # noqa: E731
+    fcount = feasible.sum(1)
+    score = _locality_score(prev_present, extra_score)
+    sel_sc, unsched_sel = _select_by_cluster(
+        feasible, score, avail_cal + prev_rep * prev_present, name_rank,
+        n, sc_min, sc_max, ignore_avail)
+    sel = torch.where(col(has_sc), sel_sc, feasible)
+    unsched_sel = has_sc & unsched_sel
+    sel_count = sel.sum(1)
+
+    scheduled_rep = torch.where(sel & prev_present, prev_rep, zero)
+    assigned = scheduled_rep.sum(1)
+    is_dynamic = (strategy == STRAT_DYNAMIC) | (strategy == STRAT_AGGREGATED)
+    scale_down = is_dynamic & ~fresh & (assigned > n)
+    scale_up = is_dynamic & ~fresh & (assigned < n)
+    steady_eq = is_dynamic & ~fresh & (assigned == n)
+    is_fresh = is_dynamic & fresh
+    is_static = strategy == STRAT_STATIC
+
+    sel64 = sel.to(I64)
+    static_eff = static_w * sel64
+    static_eff = torch.where(col(static_eff.sum(1) > 0), static_eff, sel64)
+    w = torch.zeros_like(avail_cal)
+    w = torch.where(col(is_static), static_eff, w)
+    w = torch.where(col(is_fresh), avail_cal * sel64 + scheduled_rep, w)
+    w = torch.where(col(scale_up), avail_cal * sel64, w)
+    w = torch.where(col(scale_down),
+                    torch.where(prev_present, prev_rep, zero), w)
+    active = torch.where(col(scale_down), prev_present, sel)
+    target = torch.where(is_static, n, zero)
+    target = torch.where(is_fresh | scale_down, n, target)
+    target = torch.where(scale_up, n - assigned, target)
+    base = torch.where(col(scale_up | steady_eq), scheduled_rep, zero)
+    unsched_div = is_dynamic & (w.sum(1) < target)
+
+    # Aggregated: trim to the capacity-descending prefix reaching target
+    prior = col(scale_up) & (scheduled_rep > 0)
+    wc = torch.clamp(w, 0, _AVAIL_CAP)
+    agg_key = ((torch.where(prior, 0, 1).to(I64)
+                << (_AVAIL_BITS + _LANE_BITS))
+               | ((_AVAIL_CAP - wc) << _LANE_BITS) | name_rank)
+    agg_key = torch.where(active, agg_key,
+                          torch.full((), MAX_INT64, dtype=I64, device=dev))
+    agg_pos, _ = _positions(agg_key)
+    w_sorted = torch.zeros_like(w).scatter_(
+        1, agg_pos, torch.where(active, w, zero))
+    cum_excl = torch.cumsum(w_sorted, 1) - w_sorted
+    inc = (cum_excl < col(target)).gather(1, agg_pos)
+    use_prefix = (strategy == STRAT_AGGREGATED) & (is_fresh | scale_up
+                                                   | scale_down)
+    w = torch.where(col(use_prefix), torch.where(inc, w, zero), w)
+    active = torch.where(col(use_prefix), active & inc, active)
+
+    run_webster = valid & ~non_workload & (
+        is_static | ((is_fresh | scale_up | scale_down) & ~unsched_div))
+    seats = webster_plain(torch.where(run_webster, target, zero), w,
+                          torch.zeros_like(w), active & col(run_webster),
+                          rank_webster)
+    rep = base + seats
+    rep = torch.where(col(strategy == STRAT_DUPLICATED), col(n) * sel64, rep)
+    rep = torch.where(col(non_workload), zero, rep)
+
+    status = torch.where(
+        fcount == 0, STATUS_FIT_ERROR,
+        torch.where(unsched_sel | unsched_div, STATUS_UNSCHEDULABLE,
+                    torch.where(sel_count == 0, STATUS_NO_CLUSTER,
+                                STATUS_OK)))
+    status = torch.where(valid, status, STATUS_OK).to(torch.int32)
+    ok = (status == STATUS_OK) & valid
+    rep = torch.where(col(ok), rep, zero)
+    sel = sel & col(ok)
+    return rep, sel, status
+
+
+def _top_lanes(key, k):
+    """lax.top_k's index set: the k largest keys, ties (the -1 keys of
+    ineligible lanes) broken toward the lowest lane index."""
+    return torch.sort(key, dim=1, descending=True, stable=True).indices[:, :k]
+
+
+def _gather_lanes(feasible, avail_sel, w_gather, prev_present, score,
+                  name_rank, rank_eff, use_extra):
+    """The union-of-top-K lane set per row: lanes[N, K] ascending plus a
+    validity mask (duplicates disabled) — JAX _gather_lanes."""
+    dev = feasible.device
+    neg = torch.full((), -1, dtype=I64, device=dev)
+    wq = torch.clamp(w_gather, 0, _AVAIL_CAP) << _LANE_BITS
+    aq = torch.clamp(avail_sel, 0, _AVAIL_CAP) << _LANE_BITS
+    key_prev = torch.where(prev_present, _LANE_MASK - name_rank, neg)
+    key_w_rank = torch.where(feasible, wq | (_LANE_MASK - rank_eff), neg)
+    key_w_name = torch.where(feasible, wq | (_LANE_MASK - name_rank), neg)
+    key_a_name = torch.where(feasible, aq | (_LANE_MASK - name_rank), neg)
+    groups = [_top_lanes(key_prev, G_PREV), _top_lanes(key_w_rank, G_TOPK),
+              _top_lanes(key_w_name, G_TOPK), _top_lanes(key_a_name, G_TOPK)]
+    if use_extra:
+        key_sel = torch.where(
+            feasible, (torch.clamp(score, 0, 255) << (_AVAIL_BITS
+                                                      + _LANE_BITS))
+            | aq | (_LANE_MASK - name_rank), neg)
+        groups.append(_top_lanes(key_sel, G_TOPK))
+    lanes = torch.sort(torch.cat(groups, 1), dim=1).values
+    dup = torch.zeros_like(lanes, dtype=torch.bool)
+    dup[:, 1:] = lanes[:, 1:] == lanes[:, :-1]
+    return lanes, ~dup
+
+
+def _row_inputs(db: DeviceBatch, r0: int, r1: int, est):
+    """Per-row operands of one wave (JAX: the wave_step prologue):
+    feasibility, avail_cal and the dense prev/evict lanes."""
+    C = db.C
+    Q = db.req_milli.shape[0]
+    rows = slice(r0, r1)
+    N = r1 - r0
+    dev = db.device
+    zero = torch.zeros((), dtype=I64, device=dev)
+    pid = db.placement_id[rows].long()
+    gvk = db.gvk_id[rows].long()
+    cid_raw = db.class_id[rows].long()
+    cid = torch.where(cid_raw >= 0, cid_raw, Q)
+    # prev/evict COO -> dense lanes (additive; padding collapses onto
+    # lane 0 with zero contribution, so duplicates are safe)
+    pidx = db.prev_idx[rows].long()
+    pmask = pidx >= 0
+    pic = torch.where(pmask, pidx, 0)
+    prev_rep = torch.zeros((N, C), dtype=I64, device=dev).scatter_add_(
+        1, pic, torch.where(pmask, db.prev_val[rows].long(), zero))
+    prev_present = torch.zeros((N, C), dtype=I64, device=dev).scatter_add_(
+        1, pic, pmask.long()) > 0
+    eidx = db.evict_idx[rows].long()
+    emask = eidx >= 0
+    evict = torch.zeros((N, C), dtype=I64, device=dev).scatter_add_(
+        1, torch.where(emask, eidx, 0), emask.long()) > 0
+
+    replicas = db.replicas[rows]
+    est_b = est[cid]
+    avail_cal = torch.where(est_b == MAX_INT32, replicas[:, None], est_b)
+    avail_cal = torch.where(db.nw_shortcut[rows][:, None],
+                            torch.full((), MAX_INT32, dtype=I64, device=dev),
+                            avail_cal)
+    lanes_ok = db.cluster_valid & ~db.deleting
+    feasible = (lanes_ok[None, :] & db.pl_mask[pid]
+                & (db.pl_tol_bypass[pid] | prev_present)
+                & (db.api_ok[gvk] | prev_present) & ~evict)
+    return pid, cid, prev_rep, prev_present, avail_cal, feasible
+
+
+def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
+                        used_pods, used_sets, rep_out, sel_out, status_out,
+                        *, use_extra: bool, charge: bool) -> None:
+    """Rows [r0, r1) of one wave against est (JAX: one wave_step with the
+    vmapped _schedule_one), written into rep_out/sel_out/status_out; with
+    `charge` the rows' new consumption max(rep - prev, 0) is added into the
+    used accumulators in place."""
+    C = db.C
+    dev = db.device
+    zero = torch.zeros((), dtype=I64, device=dev)
+    rows = slice(r0, r1)
+    pid, cid, prev_rep, prev_present, avail_cal, feasible = _row_inputs(
+        db, r0, r1, est)
+    n = db.replicas[rows]
+    strategy = db.pl_strategy[pid].long()
+    has_sc = db.pl_has_cluster_sc[pid]
+    sc_min = db.pl_sc_min[pid].long()
+    sc_max = db.pl_sc_max[pid].long()
+    ignore = db.pl_ignore_avail[pid]
+    static_w = db.pl_static_w[pid]
+    extra = db.pl_extra_score[pid]
+    uid_desc = db.uid_desc[rows]
+    fresh = db.fresh[rows]
+    nw = db.non_workload[rows]
+    valid = db.b_valid[rows]
+    name_rank = db.name_rank[None, :].expand(r1 - r0, C)
+    rank_eff = torch.where(uid_desc[:, None], C - 1 - name_rank, name_rank)
+    scalars = (n, strategy, has_sc, sc_min, sc_max, ignore)
+    tail = (fresh, nw, valid)
+    if C <= DIRECT_MAX:
+        rep, sel, status = _assign_lanes(
+            feasible, avail_cal, prev_present, prev_rep, extra, name_rank,
+            rank_eff, *scalars, static_w, *tail)
+    else:
+        avail_sel = avail_cal + prev_rep * prev_present
+        w_gather = torch.where((strategy == STRAT_STATIC)[:, None], static_w,
+                               avail_sel)
+        score_full = _locality_score(prev_present, extra)
+        lanes, lane_ok = _gather_lanes(feasible, avail_sel, w_gather,
+                                       prev_present, score_full, name_rank,
+                                       rank_eff, use_extra)
+        g = lambda a: a.gather(1, lanes)  # noqa: E731
+        rank_webster, _ = _positions(torch.where(
+            lane_ok, g(rank_eff), (1 << 40) + lanes))
+        rep_k, sel_k, status = _assign_lanes(
+            g(feasible) & lane_ok, g(avail_cal), g(prev_present) & lane_ok,
+            g(prev_rep), g(extra), g(name_rank), rank_webster, *scalars,
+            g(static_w), *tail)
+        rep = torch.zeros((r1 - r0, C), dtype=I64, device=dev).scatter_add_(
+            1, lanes, torch.where(lane_ok, rep_k, zero))
+        sel_scatter = torch.zeros((r1 - r0, C), dtype=I64,
+                                  device=dev).scatter_add_(
+            1, lanes, (sel_k & lane_ok).long()) > 0
+        ok = ((status == STATUS_OK) & valid)[:, None]
+        dup_wide = ((strategy == STRAT_DUPLICATED) & ~has_sc)[:, None]
+        rep = torch.where(dup_wide & ok, n[:, None] * feasible, rep)
+        rep = torch.where(nw[:, None], zero, rep)
+        sel = torch.where(has_sc[:, None], sel_scatter, feasible & ok)
+    rep_out[rows] = rep
+    sel_out[rows] = sel
+    status_out[rows] = status
+    if charge:
+        Q = db.req_milli.shape[0]
+        delta = torch.clamp(rep - prev_rep, min=0)
+        req_consume = db.req_milli * torch.where(db.req_is_cpu[None, :], 1,
+                                                 1000)
+        req_ext = torch.cat([req_consume, torch.zeros_like(req_consume[:1])])
+        pods_ext = torch.cat([db.req_pods, torch.ones_like(db.req_pods[:1])])
+        used_milli += (delta[:, :, None] * req_ext[cid][:, None, :]).sum(0)
+        used_pods += (delta * pods_ext[cid][:, None]).sum(0)
+        sets = torch.zeros((Q + 1, C), dtype=I64, device=dev).index_add_(
+            0, cid, delta)
+        used_sets += sets[:Q]
+
+
+def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
+                  used_pods, used_sets, rep_out, sel_out, status_out, *,
+                  use_extra: bool, charge: bool,
+                  capture: Optional[dict] = None) -> None:
+    """K2 (ops/csrc/schedule_rows.cu) on a CUDA batch, schedule_rows_plain
+    on a CPU one.  Same contract as schedule_rows_plain.  On CUDA the
+    rows' Webster problems run through K4 (webster_batch); `capture`, when
+    given, receives the last launch slice's K4 operands (n, w, s0, active,
+    rank) so they can be held against webster_plain."""
+    if not _on_cuda(est, used_milli, rep_out, db.b_valid):
+        return schedule_rows_plain(
+            db, r0, r1, est, used_milli, used_pods, used_sets, rep_out,
+            sel_out, status_out, use_extra=use_extra, charge=charge)
+    B, C = db.B, db.C
+    Q, R = db.req_milli.shape
+    P = db.pl_mask.shape[0]
+    G = db.api_ok.shape[0]
+    Kp = db.prev_idx.shape[1]
+    Ke = db.evict_idx.shape[1]
+    if not 0 <= r0 <= r1 <= B:
+        raise ValueError(f"row range [{r0}, {r1}) outside the batch of {B}")
+    spec = {
+        "cluster_valid": (torch.bool, (C,)), "deleting": (torch.bool, (C,)),
+        "name_rank": (I64, (C,)), "api_ok": (torch.bool, (G, C)),
+        "req_milli": (I64, (Q, R)), "req_is_cpu": (torch.bool, (R,)),
+        "req_pods": (I64, (Q,)),
+        "pl_mask": (torch.bool, (P, C)), "pl_tol_bypass": (torch.bool, (P, C)),
+        "pl_strategy": (torch.int32, (P,)), "pl_static_w": (I64, (P, C)),
+        "pl_has_cluster_sc": (torch.bool, (P,)),
+        "pl_sc_min": (torch.int32, (P,)), "pl_sc_max": (torch.int32, (P,)),
+        "pl_ignore_avail": (torch.bool, (P,)),
+        "pl_extra_score": (I64, (P, C)),
+        "b_valid": (torch.bool, (B,)), "placement_id": (torch.int32, (B,)),
+        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
+        "replicas": (I64, (B,)), "uid_desc": (torch.bool, (B,)),
+        "fresh": (torch.bool, (B,)), "non_workload": (torch.bool, (B,)),
+        "nw_shortcut": (torch.bool, (B,)),
+        "prev_idx": (torch.int32, (B, Kp)), "prev_val": (torch.int32, (B, Kp)),
+        "evict_idx": (torch.int32, (B, Ke)),
+    }
+    for f, (dt, shape) in spec.items():
+        kernels.check(db.t[f], dt, shape)
+    kernels.check(est, I64, (Q + 1, C))
+    kernels.check(used_milli, I64, (C, R))
+    kernels.check(used_pods, I64, (C,))
+    kernels.check(used_sets, I64, (Q, C))
+    kernels.check(rep_out, I64, (B, C))
+    kernels.check(sel_out, torch.bool, (B, C))
+    kernels.check(status_out, torch.int32, (B,))
+    if r1 == r0:
+        return
+    direct = C <= DIRECT_MAX
+    n_groups = 5 if use_extra else 4
+    # per-row key scratch of the lane gather (the radix select reads each
+    # row's keys several times); rows launch in slices that bound it
+    step = r1 - r0
+    if not direct:
+        step = max(1, min(step, (1 << 28) // (n_groups * C * 8)))
+    dev = est.device
+    L = kernels.LMAX
+    scratch = torch.empty((0 if direct else step * n_groups * C,),
+                          dtype=I64, device=dev)
+    work = {
+        "web_n": torch.empty((step,), dtype=I64, device=dev),
+        "web_w": torch.empty((step, L), dtype=I64, device=dev),
+        "web_active": torch.empty((step, L), dtype=torch.bool, device=dev),
+        "web_rank": torch.empty((step, L), dtype=I64, device=dev),
+        "wk_lane": torch.empty((step, L), dtype=torch.int32, device=dev),
+        "wk_base": torch.empty((step, L), dtype=I64, device=dev),
+        "wk_prev": torch.empty((step, L), dtype=I64, device=dev),
+        "wk_sel": torch.empty((step, L), dtype=torch.bool, device=dev),
+        "wk_feas": torch.empty((step, L), dtype=torch.bool, device=dev),
+        "wk_U": torch.empty((step,), dtype=torch.int32, device=dev),
+        "wk_flags": torch.empty((step,), dtype=torch.int32, device=dev),
+    }
+    s0_zero = torch.zeros((step, L), dtype=I64, device=dev)
+    t = db.t
+    for a0 in range(r0, r1, step):
+        a1 = min(r1, a0 + step)
+        rows = a1 - a0
+        work["seats"] = torch.empty((0,), dtype=I64, device=dev)
+
+        def args():
+            return kernels.RowsArgs(
+                *(kernels.ptr(t[f]) for f in kernels.ROWS_TENSOR_FIELDS),
+                kernels.ptr(est), kernels.ptr(used_milli),
+                kernels.ptr(used_pods), kernels.ptr(used_sets),
+                kernels.ptr(rep_out), kernels.ptr(sel_out),
+                kernels.ptr(status_out), kernels.ptr(scratch),
+                *(kernels.ptr(work[f]) for f in kernels.ROWS_WORK_FIELDS),
+                a0, a1, C, Q, R, Kp, Ke, int(use_extra), int(charge))
+
+        # steps 1-3 per row, the rows' Webster problems through K4, then
+        # the dense rows and the consumption charge
+        kernels.launch("schedule_rows", args(), "schedule_rows_prepare",
+                       count=False)
+        web = (work["web_n"][:rows], work["web_w"][:rows], s0_zero[:rows],
+               work["web_active"][:rows], work["web_rank"][:rows])
+        work["seats"] = webster_batch(*web)
+        if capture is not None:
+            capture["webster"] = tuple(x.clone() for x in web)
+        kernels.launch("schedule_rows", args(), "schedule_rows_finish")
+
+
+# ---------------------------------------------------------------------------
+# K3 compact
+# ---------------------------------------------------------------------------
+
+def compact_plain(rep, sel, status, non_workload, keep_sel: bool):
+    """Row-major COO of (rep > 0 | wanted sel): (idx int32[nnz] flat
+    b*C+c, val int32[nnz], status int32[B], nnz int64 scalar tensor) —
+    JAX _compact_of with the extraction sized exactly."""
+    wanted = sel if keep_sel else sel & non_workload[:, None]
+    mask = (wanted | (rep > 0)).reshape(-1)
+    idx = torch.nonzero(mask).reshape(-1)
+    val = rep.reshape(-1)[idx]
+    nnz = torch.tensor(idx.numel(), dtype=I64, device=rep.device)
+    return (idx.to(torch.int32), val.to(torch.int32),
+            status.to(torch.int32), nnz)
+
+
+def compact(rep, sel, status, non_workload, keep_sel: bool):
+    """K3 (ops/csrc/compact.cu) on CUDA tensors, compact_plain on CPU.
+    The kernel counts each row's entries, scans the counts, then writes
+    every row's run in place: the output holds B*C slots, nnz of which
+    are filled (idx[:nnz], val[:nnz]) — it never overflows, so the JAX
+    path's nnz-escalation re-solve has no counterpart here."""
+    if not _on_cuda(rep, sel, status, non_workload):
+        return compact_plain(rep, sel, status, non_workload, keep_sel)
+    B, C = rep.shape
+    if B * C >= (1 << 31):
+        raise ValueError("flat COO index b*C+c must fit int32")
+    kernels.check(rep, I64, (B, C))
+    kernels.check(sel, torch.bool, (B, C))
+    kernels.check(status, torch.int32, (B,))
+    kernels.check(non_workload, torch.bool, (B,))
+    dev = rep.device
+    idx = torch.empty((B * C,), dtype=torch.int32, device=dev)
+    val = torch.empty((B * C,), dtype=torch.int32, device=dev)
+    offsets = torch.empty((B + 1,), dtype=I64, device=dev)
+    kernels.launch("compact", kernels.CompactArgs(
+        kernels.ptr(rep), kernels.ptr(sel), kernels.ptr(non_workload),
+        kernels.ptr(idx), kernels.ptr(val), kernels.ptr(offsets),
+        B, C, int(keep_sel)))
+    return idx, val, status, offsets[B]
+
+
+# ---------------------------------------------------------------------------
+# The cycle: wave loop, dense and compact entry points
+# ---------------------------------------------------------------------------
+
+def _zeros_used(db: DeviceBatch):
+    return (torch.zeros_like(db.avail_milli), torch.zeros_like(db.pods_allowed),
+            torch.zeros_like(db.est_override))
+
+
+def _as_used(used0, db: DeviceBatch):
+    """A fresh copy of the carry-in on the batch's device (numpy or
+    tensors); the solve adds into it in place."""
+    return tuple(torch.as_tensor(np.asarray(u) if not torch.is_tensor(u)
+                                 else u).to(db.device, I64).clone()
+                 for u in used0)
+
+
+def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
+                  used0=None, with_used: bool = False):
+    """The full chunk (JAX: _schedule_core): `waves` sequential waves of
+    K1 + K2.  Returns (rep int64[B,C], sel bool[B,C], status int32[B],
+    used) where used is the consumed-capacity triple (carry-in plus this
+    chunk's consumption) — charged only when waves > 1 or with_used, as in
+    the JAX program."""
+    B, C = db.B, db.C
+    waves = _effective_waves(B, waves)
+    Bw = B // waves
+    dev = db.device
+    used = _zeros_used(db) if used0 is None else _as_used(used0, db)
+    rep = torch.empty((B, C), dtype=I64, device=dev)
+    sel = torch.empty((B, C), dtype=torch.bool, device=dev)
+    status = torch.empty((B,), dtype=torch.int32, device=dev)
+    charge = waves > 1 or with_used
+    for wv in range(waves):
+        est = capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                       db.avail_milli, used[0], db.has_alloc,
+                       db.pods_allowed, used[1], db.has_summary,
+                       db.est_override, used[2])
+        schedule_rows(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel,
+                      status, use_extra=use_extra, charge=charge)
+    return rep, sel, status, used
+
+
+def solve(batch, waves: int = 1, device=None):
+    """Dense results (numpy rep[B,C], sel[B,C], status[B]) for tests and
+    small callers; the cycle uses solve_compact."""
+    db = device_batch(batch, device)
+    rep, sel, status, _ = schedule_core(db, waves=waves,
+                                        use_extra=_use_extra(batch))
+    return rep.cpu().numpy(), sel.cpu().numpy(), status.cpu().numpy()
+
+
+@dataclass
+class CompactHandle:
+    """A dispatched chunk: device tensors not yet read back."""
+
+    idx: torch.Tensor
+    val: torch.Tensor
+    status: torch.Tensor
+    nnz: torch.Tensor
+    # with_used: the live consumed-capacity accumulators (used_milli [C,R],
+    # used_pods [C], used_sets [Q,C]) the next chunk's dispatch reads
+    used: Optional[tuple]
+
+
+def dispatch_compact(batch, waves: int = 1, keep_sel: bool = False,
+                     with_used: bool = False, used0=None, device=None
+                     ) -> CompactHandle:
+    """Enqueue the chunk's solve and COO extraction without waiting for
+    the card (kernel launches are asynchronous): returns a handle for
+    finalize_compact.  `used0` (numpy or tensors) carries a previous
+    chunk's consumption in; it is copied, never updated in place: the JAX
+    package's donated variant becomes this chunk's own accumulator buffers
+    (handle.used), which the next chunk's dispatch reads."""
+    db = device_batch(batch, device)
+    rep, sel, status, used = schedule_core(
+        db, waves=waves, use_extra=_use_extra(batch), used0=used0,
+        with_used=with_used)
+    idx, val, st, nnz = compact(rep, sel, status, db.non_workload, keep_sel)
+    return CompactHandle(idx, val, st, nnz, used if with_used else None)
+
+
+def finalize_compact(handle: CompactHandle):
+    """(idx, val, status, nnz) numpy — plus the used triple (numpy) when
+    dispatched with_used.  Reads nnz first, then copies only idx[:nnz]
+    and val[:nnz] back."""
+    nnz = int(handle.nnz)
+    out = (handle.idx[:nnz].cpu().numpy(), handle.val[:nnz].cpu().numpy(),
+           handle.status.cpu().numpy(), nnz)
+    if handle.used is not None:
+        out = out + (tuple(u.cpu().numpy() for u in handle.used),)
+    return out
+
+
+def solve_compact(batch, waves: int = 1, keep_sel: bool = False,
+                  with_used: bool = False, used0=None, device=None):
+    """dispatch_compact + finalize_compact."""
+    return finalize_compact(dispatch_compact(
+        batch, waves=waves, keep_sel=keep_sel, with_used=with_used,
+        used0=used0, device=device))

@@ -1,0 +1,1380 @@
+"""Snapshot encoder: clusters + pending bindings -> dense solver tensors.
+
+The port's copy of the JAX package's ops/tensors.py (Python encode and
+decode paths; the native C fast paths are not copied).  The reference
+scheduler evaluates (binding, cluster) pairs one binding at a time
+(pkg/scheduler/core/generic_scheduler.go:71).  The device path instead
+encodes one scheduling cycle as dense arrays and solves every binding of a
+chunk with a few kernel launches (ops/solver).  Encoding exploits the
+natural dedup axes of the domain:
+
+  * placements dedupe to P rows (bindings created by the same policy share
+    affinity / toleration / spread / strategy configuration) -- all
+    cluster-level predicates are evaluated host-side once per placement,
+    O(P x C), not per binding;
+  * replica requirements dedupe to Q request classes -- the capacity
+    estimate est[Q, C] is computed once on device and gathered per binding;
+  * clusters encode to capacity rows avail[C, R] (milli-units, int64) plus
+    a host-computed override for clusters using resource-model histograms
+    (pkg/estimator/client/general.go:336 math stays bit-equal via
+    estimator/general.py).
+
+Bindings the kernel cannot represent (provider/zone-only spread selection,
+groupless topologies, vanished previous clusters, counts beyond every
+compact tier's exactness caps) are routed back to the serial host path;
+`route` marks them.  Region and spread-by-label topologies route to the
+device spread plane and bindings beyond the tier-1 compact caps to the big
+lane tier (ROUTE_*_BIG), exactly as the JAX package routes them; the port
+does not run those planes yet (scheduler/pipeline raises on their rows).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from karmada_tpu_torch.estimator.general import GeneralEstimator
+from karmada_tpu_torch.models.cluster import Cluster
+from karmada_tpu_torch.models.policy import (
+    REPLICA_SCHEDULING_DUPLICATED,
+    SPREAD_BY_FIELD_CLUSTER,
+    SPREAD_BY_FIELD_PROVIDER,
+    SPREAD_BY_FIELD_REGION,
+    SPREAD_BY_FIELD_ZONE,
+    Placement,
+)
+from karmada_tpu_torch.models.work import (
+    ResourceBindingSpec,
+    ResourceBindingStatus,
+    TargetCluster,
+)
+from karmada_tpu_torch.ops import serial
+from karmada_tpu_torch.ops.webster import (
+    fnv32a_batch_odd,
+)
+from karmada_tpu_torch.utils.quantity import RESOURCE_CPU
+
+MAX_INT32 = (1 << 31) - 1
+
+# explain-plane static filter bits (the JAX package's obs/decisions layout,
+# kept here as plain ints: the encoder fills pl_fail_bits under explain=True)
+VERDICT_AFFINITY = 1 << 2
+VERDICT_SPREAD_PROP = 1 << 3
+VERDICT_PLUGIN = 1 << 5
+
+# strategy ids (solver-side dispatch)
+STRAT_DUPLICATED = 0
+STRAT_STATIC = 1
+STRAT_DYNAMIC = 2
+STRAT_AGGREGATED = 3
+STRAT_NON_WORKLOAD = 4
+
+# route reasons
+ROUTE_DEVICE = 0
+ROUTE_TOPOLOGY_SPREAD = 1  # provider/zone-only spread, or no groups -> serial
+ROUTE_UNSUPPORTED = 3  # (2 was ROUTE_MULTI_COMPONENT, retired in r4)
+ROUTE_VANISHED_PREV = 4  # prev assignment names a cluster outside the snapshot
+ROUTE_HUGE_REPLICAS = 5  # replica count beyond the kernel's 2^25 cap
+ROUTE_DEVICE_SPREAD = 6  # region/label spread: device group math + host DFS
+ROUTE_COMPACT_CAP = 7  # beyond EVERY compact tier's exactness caps -> host
+ROUTE_DEVICE_BIG = 8  # beyond tier-1 caps: the big-tier device sub-solve
+ROUTE_DEVICE_SPREAD_BIG = 9  # spread whose assignment needs the big tier
+
+# the device kernel clamps seat targets at 2^25-1 (ops/solver._N_CAP) and
+# Webster weights at 2^34-1 (ops/solver._W_CAP); bindings above either cap
+# must take the arbitrary-precision host path
+KERNEL_REPLICA_CAP = (1 << 25) - 1
+KERNEL_WEIGHT_CAP = (1 << 34) - 1
+
+# compact-lane geometry (ops/solver._schedule_one): above COMPACT_LANES
+# clusters the kernel runs its division/selection loops on a top-K gather
+# whose exactness holds only under these per-binding bounds; bindings
+# exceeding them route to the serial host path (ROUTE_COMPACT_CAP)
+COMPACT_LANES = 528  # prev(16) + 4 x top-K(128): w-rank, w-name, avail, sel-key
+COMPACT_DIVISION_CAP = 64    # replicas (and thus any Webster target)
+COMPACT_SELECTION_CAP = 64   # cluster spread-constraint MaxGroups
+COMPACT_PREV_CAP = 16        # previous-assignment cluster count
+
+# tier-2 ("big") geometry: bindings beyond the tier-1 caps run in a
+# SEPARATE big-lane sub-solve (ROUTE_DEVICE_BIG, solver tier="big") with
+# 8x the caps instead of falling to the serial host; only counts beyond
+# the big caps route to host (ROUTE_COMPACT_CAP)
+COMPACT_DIVISION_CAP_BIG = 512
+COMPACT_SELECTION_CAP_BIG = 512
+COMPACT_PREV_CAP_BIG = 128
+COMPACT_LANES_BIG = 4224  # prev(128) + 4 x top-K(1024)
+
+# result status codes (must match ops/solver.py)
+STATUS_OK = 0
+STATUS_FIT_ERROR = 1
+STATUS_UNSCHEDULABLE = 2
+STATUS_NO_CLUSTER = 3
+
+# ---------------------------------------------------------------------------
+# Canonical dtype / axis contract for SolverBatch tensors.
+#
+# The single authority on what dtype every field carries, identical to the
+# JAX package's table: batch_from_arrays casts by it, and the kernel
+# wrappers (ops/solver) check the same dtypes before every launch.
+FIELD_DTYPES = {
+    "cluster_valid": "bool", "deleting": "bool",
+    "name_rank": "int64", "pods_allowed": "int64", "has_summary": "bool",
+    "avail_milli": "int64", "has_alloc": "bool", "api_ok": "bool",
+    "req_milli": "int64", "req_is_cpu": "bool", "req_pods": "int64",
+    "est_override": "int64",
+    "pl_mask": "bool", "pl_tol_bypass": "bool", "pl_strategy": "int32",
+    "pl_static_w": "int64", "pl_has_cluster_sc": "bool",
+    "pl_sc_min": "int32", "pl_sc_max": "int32", "pl_ignore_avail": "bool",
+    "pl_extra_score": "int64",
+    "b_valid": "bool", "placement_id": "int32", "gvk_id": "int32",
+    "class_id": "int32", "replicas": "int64", "uid_desc": "bool",
+    "fresh": "bool", "non_workload": "bool", "nw_shortcut": "bool",
+    "prev_idx": "int32", "prev_val": "int32", "evict_idx": "int32",
+    "route": "int32", "region_id": "int32",
+    "pl_has_region_sc": "bool", "pl_region_min": "int32",
+    "pl_region_max": "int32",
+    "pl_fail_bits": "int32",
+    # shortlist plane (ops/shortlist): the tier-1 kernel's candidate
+    # outputs and the sub-vocabulary lane map the tier-2 remap carries
+    "shortlist_idx": "int32", "shortlist_fcount": "int32",
+    "sub_lanes": "int64",
+}
+
+# axis names per field (B/C extents are checked against the batch by the
+# armed runtime mode; the other letters document dimensionality only)
+FIELD_AXES = {
+    "cluster_valid": ("C",), "deleting": ("C",), "name_rank": ("C",),
+    "pods_allowed": ("C",), "has_summary": ("C",),
+    "avail_milli": ("C", "R"), "has_alloc": ("C", "R"),
+    "api_ok": ("G", "C"),
+    "req_milli": ("Q", "R"), "req_is_cpu": ("R",), "req_pods": ("Q",),
+    "est_override": ("Q", "C"),
+    "pl_mask": ("P", "C"), "pl_tol_bypass": ("P", "C"),
+    "pl_strategy": ("P",), "pl_static_w": ("P", "C"),
+    "pl_has_cluster_sc": ("P",), "pl_sc_min": ("P",), "pl_sc_max": ("P",),
+    "pl_ignore_avail": ("P",), "pl_extra_score": ("P", "C"),
+    "b_valid": ("B",), "placement_id": ("B",), "gvk_id": ("B",),
+    "class_id": ("B",), "replicas": ("B",), "uid_desc": ("B",),
+    "fresh": ("B",), "non_workload": ("B",), "nw_shortcut": ("B",),
+    "prev_idx": ("B", "Kp"), "prev_val": ("B", "Kp"),
+    "evict_idx": ("B", "Ke"),
+    "route": ("nB",), "region_id": ("C",),
+    "pl_has_region_sc": ("P",), "pl_region_min": ("P",),
+    "pl_region_max": ("P",),
+    "pl_fail_bits": ("P", "C"),
+    # shortlist plane: candidate lanes per binding [B, k], eligible-lane
+    # counts [B], and the sub-vocabulary's full-vocab lane per sub lane
+    "shortlist_idx": ("B", "k"), "shortlist_fcount": ("B",),
+    "sub_lanes": ("sC",),
+}
+
+# the consumed-capacity carry triple (solver with_used / CarryState):
+# used_milli [C, R], used_pods [C], used_sets [Q, C]
+CARRY_DTYPES = {
+    "used_milli": "int64", "used_pods": "int64", "used_sets": "int64",
+}
+
+def _next_pow2(n: int, lo: int = 1) -> int:
+    v = lo
+    while v < n:
+        v *= 2
+    return v
+
+
+@dataclass
+class ClusterIndex:
+    """Host-side cluster catalogue for one scheduling cycle."""
+
+    clusters: List[Cluster]
+    names: List[str]
+    index: Dict[str, int]
+    name_rank: np.ndarray  # int64[C]: position in ascending name sort
+
+    @staticmethod
+    def build(clusters: Sequence[Cluster]) -> "ClusterIndex":
+        clusters = list(clusters)
+        names = [c.name for c in clusters]
+        order = sorted(range(len(names)), key=lambda i: names[i])
+        rank = np.zeros(len(names), np.int64)
+        for pos, i in enumerate(order):
+            rank[i] = pos
+        return ClusterIndex(clusters, names, {n: i for i, n in enumerate(names)}, rank)
+
+
+@dataclass
+class SolverBatch:
+    """Dense pytree for ops/solver.schedule_batch (numpy; moved by jit)."""
+
+    # shapes
+    B: int  # padded bindings
+    C: int  # padded clusters
+    n_bindings: int
+    n_clusters: int
+
+    # cluster axis
+    cluster_valid: np.ndarray  # bool[C]
+    deleting: np.ndarray  # bool[C]
+    name_rank: np.ndarray  # int64[C]
+    pods_allowed: np.ndarray  # int64[C] (0 when no summary)
+    has_summary: np.ndarray  # bool[C]
+    avail_milli: np.ndarray  # int64[C, R] available milli per resource
+    has_alloc: np.ndarray  # bool[C, R] allocatable present
+    api_ok: np.ndarray  # bool[G, C]
+
+    # request classes
+    req_milli: np.ndarray  # int64[Q, R] requested (cpu: milli, other: units)
+    req_is_cpu: np.ndarray  # bool[R]
+    req_pods: np.ndarray  # int64[Q] pods per unit (1; pods-per-set for sets)
+    est_override: np.ndarray  # int64[Q, C]; >=0 overrides device estimate
+
+    # placements
+    pl_mask: np.ndarray  # bool[P, C] affinity & toleration & spread-prop
+    pl_tol_bypass: np.ndarray  # bool[P, C] passes api/taint WITHOUT prev bypass
+    pl_strategy: np.ndarray  # int32[P]
+    pl_static_w: np.ndarray  # int64[P, C]
+    pl_has_cluster_sc: np.ndarray  # bool[P]
+    pl_sc_min: np.ndarray  # int32[P]
+    pl_sc_max: np.ndarray  # int32[P]
+    pl_ignore_avail: np.ndarray  # bool[P] (duplicated: capacity ignored)
+
+    # binding axis
+    b_valid: np.ndarray  # bool[B]
+    placement_id: np.ndarray  # int32[B]
+    gvk_id: np.ndarray  # int32[B]
+    class_id: np.ndarray  # int32[B] (-1: no requirements)
+    replicas: np.ndarray  # int64[B]
+    uid_desc: np.ndarray  # bool[B]
+    fresh: np.ndarray  # bool[B]
+    non_workload: np.ndarray  # bool[B]
+    nw_shortcut: np.ndarray  # bool[B] replicas==0 and no components (cal fast path)
+    # previous assignment / eviction, SPARSE: the dense [B, C] forms would
+    # dominate host<->device transfer (hundreds of MB per chunk over a
+    # skinny PCIe/tunnel link) for data that is ~8 entries per binding;
+    # the kernel scatters them back to dense lanes on device.
+    prev_idx: np.ndarray  # int32[B, Kp] cluster lane, -1 padding
+    prev_val: np.ndarray  # int32[B, Kp] previous replicas
+    evict_idx: np.ndarray  # int32[B, Ke] cluster lane, -1 padding
+
+    # host-side routing / metadata
+    route: np.ndarray = field(default=None)  # int32[n_bindings] ROUTE_*
+    cluster_index: ClusterIndex = field(default=None)
+    # group topology (device spread path, ops/spread.py)
+    region_id: np.ndarray = field(default=None)  # int32[C]; -1 = no region
+    region_names: List[str] = field(default=None)  # vocabulary
+    # spread-by-label group axes: label key -> (group_id int32[C], values)
+    label_axes: Dict[str, Tuple[np.ndarray, List[str]]] = field(default=None)
+    pl_has_region_sc: np.ndarray = field(default=None)  # bool[P]
+    # out-of-tree score-plugin contributions (scheduler/plugins.py),
+    # pre-clamped sums per (placement, cluster)
+    pl_extra_score: np.ndarray = field(default=None)  # int64[P, C]
+    # axis vocabularies, for remapping carry-over capacity accumulators
+    # between batches of one cycle (scheduler second-pass repack)
+    res_names: List[str] = field(default=None)  # R-axis order
+    class_keys: List = field(default=None)  # Q-axis order (canonical keys)
+    pl_region_min: np.ndarray = field(default=None)  # int32[P]
+    pl_region_max: np.ndarray = field(default=None)  # int32[P]
+    # explain plane (obs/decisions bit layout): per-(placement, cluster)
+    # static filter-failure bits — affinity | spread-property | plugin —
+    # populated only by encode_batch(explain=True); all-zero otherwise
+    # (the `explain` flag below distinguishes "no failures" from
+    # "not computed" for dispatch-time validation)
+    pl_fail_bits: np.ndarray = field(default=None)  # int32[P, C]
+    explain: bool = False
+    # vocabulary identities: the Placement objects per P row, the
+    # (api_version, kind) keys per G row, and the request objects per Q row
+    placements: List = field(default=None)  # P-axis order
+    gvk_keys: List[Tuple[str, str]] = field(default=None)  # G-axis order
+    class_reqs: List = field(default=None)  # Q-axis order (rr | _SetClass)
+
+
+def _effective_placement(
+    spec: ResourceBindingSpec, status: ResourceBindingStatus
+) -> Placement:
+    """Resolve ClusterAffinities terms to the observed one (the scheduler
+    service drives the failover loop; the kernel sees one affinity).
+    Single implementation shared with the serial path so out-of-tree
+    plugins see the identical placement object on every backend."""
+    return serial.effective_placement(spec, status)
+
+
+def _placement_key(p: Placement) -> str:
+    return repr(p)
+
+
+def _route_for(
+    spec: ResourceBindingSpec, placement: Placement, n_regions: int = 0,
+    compact: bool = False, label_axis_fn=None,
+) -> int:
+    scs = placement.spread_constraints
+    big = False
+    if scs and not serial.should_ignore_spread_constraint(placement):
+        has_region = has_cluster = has_other_field = False
+        cluster_max = region_max = label_max = 0
+        label_key = None
+        for sc in scs:
+            if sc.spread_by_field in (
+                SPREAD_BY_FIELD_PROVIDER,
+                SPREAD_BY_FIELD_ZONE,
+            ):
+                # provider/zone constraints only FILTER (clusters missing
+                # the property drop out — already encoded in pl_mask via
+                # serial.filter_spread_constraint); selection itself is by
+                # region, then cluster (select_clusters.go:44-55), so these
+                # placements stay on device alongside region/cluster
+                has_other_field = True
+            if sc.spread_by_field == SPREAD_BY_FIELD_REGION:
+                has_region = True
+                region_max = max(region_max, sc.max_groups)
+            if sc.spread_by_field == SPREAD_BY_FIELD_CLUSTER:
+                has_cluster = True
+                cluster_max = max(cluster_max, sc.max_groups)
+            if sc.spread_by_label and label_key is None:
+                # first label key is the group axis (ops/spread.py);
+                # further label constraints filter only
+                label_key = sc.spread_by_label
+                label_max = sc.max_groups
+        if has_region or label_key is not None:
+            # grouped-topology selection (region axis wins over label)
+            if has_region:
+                n_groups, group_max = n_regions, region_max
+            else:
+                n_groups = label_axis_fn(label_key) if label_axis_fn else 0
+                group_max = label_max
+            # the pick selects first-of-each-chosen-group plus extras up to
+            # the cluster constraint: its lane bound decides the tier
+            sel_bound = max(cluster_max, min(group_max, n_groups))
+            if compact and sel_bound > COMPACT_SELECTION_CAP_BIG:
+                return ROUTE_COMPACT_CAP
+            spread_big = compact and sel_bound > COMPACT_SELECTION_CAP
+            if n_groups > 0 and len(spec.components) <= 1:
+                return (ROUTE_DEVICE_SPREAD_BIG if spread_big
+                        else ROUTE_DEVICE_SPREAD)
+            return ROUTE_TOPOLOGY_SPREAD
+        if compact and cluster_max > COMPACT_SELECTION_CAP:
+            if cluster_max > COMPACT_SELECTION_CAP_BIG:
+                return ROUTE_COMPACT_CAP
+            big = True  # tier-2 selection: the big-lane sub-solve
+        if has_other_field and not has_cluster:
+            # provider/zone with NEITHER region nor cluster: the reference
+            # fails these ('just support cluster and region spread
+            # constraint', select_clusters.go:55) — serial host raises the
+            # identical UnschedulableError, O(1)
+            return ROUTE_TOPOLOGY_SPREAD
+    rs = placement.replica_scheduling
+    if rs is not None and rs.weight_preference is not None and any(
+        w.weight > KERNEL_WEIGHT_CAP
+        for w in rs.weight_preference.static_weight_list
+    ):
+        return ROUTE_HUGE_REPLICAS
+    # multi-template scheduling (estimation.go:42-64): applicable shapes
+    # encode component-set capacity as a request class (per-set aggregate +
+    # pods-per-set divisor); non-applicable multi-component shapes estimate
+    # per-replica with nil requirements (the allowed-pods row) and replicas
+    # 0, which is exactly the kernel's non_workload selection path — both
+    # run on device (VERDICT r3 item 4; ROUTE_MULTI_COMPONENT retired)
+    return ROUTE_DEVICE_BIG if big else ROUTE_DEVICE
+
+
+# spec-free probe for the placement-only route: _route_for reads only
+# spec.components (empty here), so one call per distinct placement suffices
+_ROUTE_PROBE_SPEC = ResourceBindingSpec()
+
+
+@dataclass
+class _SetClass:
+    """Request class for a multi-template workload: capacity is counted in
+    whole component SETS (per-set aggregate requirement + pods-per-set)."""
+
+    per_set: Dict[str, int]  # request units (cpu milli, others Value)
+    pods_per_set: int
+
+
+class EncoderCache:
+    """Memoizes the cluster-and-placement side of the encoding across chunks.
+
+    One scheduling cycle encodes many binding chunks against the SAME
+    cluster snapshot; placement predicate rows (O(C) Python each) and the
+    per-class estimator overrides are computed once per distinct
+    placement/class, not once per chunk.
+    """
+
+    def __init__(self) -> None:
+        self.placement_rows: Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray]] = {}
+        # explain plane: per-placement static filter-failure bit rows
+        # (obs/decisions layout), built only under encode_batch(explain=True),
+        # plus the assembled [P, C] plane for one vocabulary.  Kept OUT of
+        # `assembled` on purpose: explain sampling alternates armed and
+        # disarmed cycles over one cache, and folding the plane into the
+        # assembled slot would thrash it (and the solver's device-transfer
+        # cache) on every toggle.
+        self.fail_rows: Dict[str, np.ndarray] = {}
+        self.fail_plane: Optional[Tuple[tuple, np.ndarray]] = None
+        self.gvk_rows: Dict[Tuple[str, str], np.ndarray] = {}
+        self.override_rows: Dict[Tuple, np.ndarray] = {}
+        # id(placement) -> (placement, repr key): placements are shared
+        # objects across a cycle's bindings, and repr() of the dataclass
+        # tree dominates warm encode time without this.  The object itself
+        # is pinned in the entry so a GC'd id can never alias a stale key.
+        self.placement_keys: Dict[int, Tuple[object, str]] = {}
+        # cluster lane -> allowed pod count (snapshot-stable per cycle)
+        self.pods_allowed: Optional[np.ndarray] = None
+        # cluster-axis bundle (cluster_valid, region_names, region_id,
+        # deleting, has_summary, name_rank): snapshot-stable per cycle,
+        # rebuilt once per cycle instead of once per chunk (the deleting/
+        # region Python loops are O(C) each — ~15k iterations per 5000-
+        # cluster chunk without this)
+        self.cluster_axis: Optional[tuple] = None
+        # spread-by-label group axes, keyed by label key (cluster labels
+        # are part of the owner's cache signature — scheduler/service.py
+        # builds a fresh cache when any cluster label changes)
+        self.label_rows: Dict[str, Tuple[np.ndarray, List[str]]] = {}
+
+        # assembled cluster/placement tensor set, reused VERBATIM (same
+        # numpy objects) across chunks whose vocabulary matches — the
+        # solver's device-put cache then skips re-transferring the ~5MB of
+        # cluster-side tensors per chunk (they dominate per-chunk H2D)
+        self.assembled_sig: Optional[tuple] = None
+        self.assembled: Optional[Dict[str, np.ndarray]] = None
+        # plugin-registry generation the memoized placement rows were
+        # built against (encode_batch invalidates on change)
+        self.plugins_gen: Optional[int] = None
+
+    def reset_for_cycle(self) -> None:
+        """Drop the STATUS-derived fields before a new cycle's snapshot:
+        pod allowances and modeled-capacity override rows track live usage,
+        and placement-key pins hold the previous cycle's objects.  The
+        spec-derived rows (placement masks) and api-enablement rows survive
+        — their owners invalidate them on their own signatures."""
+        self.pods_allowed = None
+        self.cluster_axis = None
+        self.override_rows = {}
+        self.placement_keys = {}
+        self.assembled_sig = None
+        self.assembled = None
+
+
+def encode_batch(
+    items: Sequence[Tuple[ResourceBindingSpec, ResourceBindingStatus]],
+    cindex: ClusterIndex,
+    estimator: Optional[GeneralEstimator] = None,
+    pad_bindings: bool = True,
+    cache: Optional[EncoderCache] = None,
+    explain: bool = False,
+) -> SolverBatch:
+    """Encode one scheduling cycle.  `items` are (spec, status) pairs.
+
+    Pass the same `cache` across chunks of one cycle to amortize the
+    placement/cluster/override host work (cluster snapshot must not change
+    between cached calls).
+
+    `explain` additionally decomposes each placement's predicate row into
+    per-stage failure bits (pl_fail_bits, obs/decisions layout) — the
+    host-side half of the explain plane; the device solve emits the
+    per-binding verdicts from them (ops/solver dispatch_compact(explain)).
+    Disarmed encodes leave the plane all-zero and skip the extra filter
+    evaluations entirely.
+    """
+    estimator = estimator or GeneralEstimator()
+    from karmada_tpu_torch.scheduler.plugins import REGISTRY as _PLUGINS
+
+    if cache is not None and cache.plugins_gen != _PLUGINS.generation:
+        # out-of-tree plugin set changed: every memoized placement row
+        # (mask/score, and the explain fail-bit rows that fold plugin
+        # rejections) is stale
+        cache.placement_rows = {}
+        cache.fail_rows = {}
+        cache.fail_plane = None
+        cache.assembled_sig = None
+        cache.assembled = None
+        cache.plugins_gen = _PLUGINS.generation
+    clusters = cindex.clusters
+    nC = len(clusters)
+    C = _next_pow2(max(nC, 1), 8)
+    nB = len(items)
+    B = _next_pow2(max(nB, 1), 8) if pad_bindings else max(nB, 1)
+
+    # ---- cluster axis (chunk-stable: built once per cycle) ----------------
+    if cache is not None and cache.cluster_axis is not None:
+        (cluster_valid, region_names, region_id, deleting, has_summary,
+         name_rank) = cache.cluster_axis
+    else:
+        cluster_valid = np.zeros(C, bool)
+        cluster_valid[:nC] = True
+        # region vocabulary (device spread path routes on its size)
+        region_names = []
+        region_ids: Dict[str, int] = {}
+        region_id = np.full(C, -1, np.int32)
+        for i, c in enumerate(clusters):
+            r = c.spec.region
+            if not r:
+                continue
+            if r not in region_ids:
+                region_ids[r] = len(region_names)
+                region_names.append(r)
+            region_id[i] = region_ids[r]
+        deleting = np.zeros(C, bool)
+        has_summary = np.zeros(C, bool)
+        name_rank = np.full(C, 0, np.int64)
+        name_rank[:nC] = cindex.name_rank
+        # padding lanes need distinct ranks above real ones
+        name_rank[nC:] = np.arange(nC, C)
+        for i, c in enumerate(clusters):
+            deleting[i] = c.metadata.deleting
+            if c.status.resource_summary is not None:
+                has_summary[i] = True
+        if cache is not None:
+            cache.cluster_axis = (cluster_valid, region_names, region_id,
+                                  deleting, has_summary, name_rank)
+    if cache is not None and cache.pods_allowed is not None:
+        pods_allowed = cache.pods_allowed
+    else:
+        pods_allowed = np.zeros(C, np.int64)
+        for i, c in enumerate(clusters):
+            s = c.status.resource_summary
+            if s is not None:
+                pods_allowed[i] = _allowed_pods(s)
+        if cache is not None:
+            cache.pods_allowed = pods_allowed
+
+    # resource vocabulary: everything any request mentions
+    placements: List[Placement] = []
+    pkeys: Dict[str, int] = {}
+    gvks: Dict[Tuple[str, str], int] = {}
+    classes: Dict[Tuple, int] = {}
+    class_reqs: List = []
+    res_names: Dict[str, int] = {}
+
+    route = np.zeros(nB, np.int32)
+    placement_id = np.zeros(B, np.int32)
+    gvk_id = np.zeros(B, np.int32)
+    class_id = np.full(B, -1, np.int32)
+    replicas = np.zeros(B, np.int64)
+    uid_desc = np.zeros(B, bool)
+    fresh = np.zeros(B, bool)
+    non_workload = np.zeros(B, bool)
+    nw_shortcut = np.zeros(B, bool)
+    b_valid = np.zeros(B, bool)
+    b_valid[:nB] = True
+    # sparse (most bindings carry no prev assignment / eviction tasks):
+    # dict-of-rows keeps the per-chunk cost proportional to the rows that
+    # HAVE entries instead of allocating B empty lists per chunk
+    prev_entries: Dict[int, List[Tuple[int, int]]] = {}
+    evict_entries: Dict[int, List[int]] = {}
+
+    n_regions = len(region_names)
+    # spread-by-label group axes, built lazily per label key (O(C) each,
+    # memoized across chunks via the cache — cluster labels are stable
+    # within a cycle's snapshot)
+    label_axes: Dict[str, Tuple[np.ndarray, List[str]]] = {}
+
+    def label_axis(key: str) -> int:
+        entry = label_axes.get(key)
+        if entry is None:
+            entry = None if cache is None else cache.label_rows.get(key)
+            if entry is None:
+                gid = np.full(C, -1, np.int32)
+                values: List[str] = []
+                vids: Dict[str, int] = {}
+                for ci_, c_ in enumerate(clusters):
+                    v = c_.metadata.labels.get(key)
+                    if not v:
+                        continue
+                    vid = vids.get(v)
+                    if vid is None:
+                        vid = vids[v] = len(values)
+                        values.append(v)
+                    gid[ci_] = vid
+                entry = (gid, values)
+                if cache is not None:
+                    cache.label_rows[key] = entry
+            label_axes[key] = entry
+        return len(entry[1])
+
+    # per-call pid -> placement-only route (spec-free: _route_for reads only
+    # spec.components, empty on the common path)
+    route_by_pid: Dict[int, int] = {}
+    uids: List[str] = []
+    on_device = (ROUTE_DEVICE, ROUTE_DEVICE_SPREAD, ROUTE_DEVICE_BIG,
+                 ROUTE_DEVICE_SPREAD_BIG)
+    cindex_get = cindex.index.get
+    compact = C > COMPACT_LANES
+
+    def encode_one(b: int) -> None:
+        """The per-binding encoding (registers vocabulary as it goes)."""
+        spec, status = items[b]
+        placement = _effective_placement(spec, status)
+        # only SHARED placement objects (placement is spec.placement) are
+        # worth memoizing — _effective_placement builds fresh objects for
+        # the affinity-resolution path, which would never hit and would pin
+        # one entry per binding
+        if cache is not None and placement is spec.placement:
+            entry = cache.placement_keys.get(id(placement))
+            if entry is not None and entry[0] is placement:
+                key = entry[1]
+            else:
+                key = _placement_key(placement)
+                cache.placement_keys[id(placement)] = (placement, key)
+        else:
+            key = _placement_key(placement)
+        pid = pkeys.get(key)
+        if pid is None:
+            pid = pkeys[key] = len(placements)
+            placements.append(placement)
+            route_by_pid[pid] = _route_for(_ROUTE_PROBE_SPEC, placement,
+                                           n_regions, compact, label_axis)
+        placement_id[b] = pid
+        r = (route_by_pid[pid] if not spec.components
+             else _route_for(spec, placement, n_regions, compact, label_axis))
+
+        g = (spec.resource.api_version, spec.resource.kind)
+        gid = gvks.get(g)
+        if gid is None:
+            gid = gvks[g] = len(gvks)
+        gvk_id[b] = gid
+
+        rr = spec.replica_requirements
+        if (len(spec.components) > 1 and r == ROUTE_DEVICE
+                and serial.is_multi_template_applicable(spec)):
+            # multi-template: the request class is the per-set aggregate
+            from karmada_tpu_torch.estimator.general import (
+                per_set_requirement,
+                pods_in_set,
+            )
+
+            per_set = per_set_requirement(spec.components)
+            pods_per_set = pods_in_set(spec.components)
+            ck = ("__sets__", pods_per_set, tuple(sorted(per_set.items())))
+            if ck not in classes:
+                classes[ck] = len(classes)
+                class_reqs.append(_SetClass(per_set, pods_per_set))
+                for n in per_set:
+                    if n not in res_names:
+                        res_names[n] = len(res_names)
+            class_id[b] = classes[ck]
+        elif rr is not None and rr.resource_request:
+            # canonical (sorted) key: permutations of the same request must
+            # dedup into ONE class row, or the class axis inflates past pow2
+            # boundaries (recompiles) and assembled_sig misses its cache
+            ck = tuple(sorted((n, q.milli) for n, q in rr.resource_request.items()))
+            cid = classes.get(ck)
+            if cid is None:
+                cid = classes[ck] = len(classes)
+                class_reqs.append(rr)
+                for n in rr.resource_request:
+                    if n not in res_names:
+                        res_names[n] = len(res_names)
+            class_id[b] = cid
+
+        nrep = spec.replicas
+        replicas[b] = nrep
+        uids.append(spec.resource.uid)
+        fresh[b] = serial.reschedule_required(spec, status)
+        is_workload = (nrep > 0 or rr is not None) and len(spec.components) <= 1
+        non_workload[b] = not is_workload
+        nw_shortcut[b] = nrep == 0 and not spec.components
+        # prev entries naming clusters absent from the current snapshot
+        # cannot be addressed by the dense encoding, and the reference CAN
+        # re-assign to a vanished cluster during scale-down
+        # (division_algorithm.go:103-119 weights by spec.clusters regardless
+        # of snapshot membership) -- route those bindings to the serial host.
+        # Duplicate names keep the LAST entry (serial paths build
+        # {name: replicas} dicts, serial.py:658 -- last wins).
+        if spec.clusters:
+            prev_by_lane: Dict[int, int] = {}
+            for tc in spec.clusters:
+                ci = cindex_get(tc.name)
+                if ci is not None:
+                    prev_by_lane[ci] = tc.replicas
+                elif r in on_device:
+                    r = ROUTE_VANISHED_PREV
+            prev_entries[b] = list(prev_by_lane.items())
+            if r in on_device and (
+                nrep > KERNEL_REPLICA_CAP
+                or any(v > KERNEL_REPLICA_CAP for v in prev_by_lane.values())
+            ):
+                r = ROUTE_HUGE_REPLICAS
+        elif nrep > KERNEL_REPLICA_CAP and r in on_device:
+            r = ROUTE_HUGE_REPLICAS
+        if compact and r in on_device:
+            # compact-lane exactness bounds (see COMPACT_* above); the
+            # division cap does not apply to Duplicated, whose replica
+            # count is a wide broadcast rather than a Webster target
+            divides = (placement.replica_scheduling_type()
+                       != REPLICA_SCHEDULING_DUPLICATED)
+            nprev = len(prev_entries.get(b, ()))
+            over1 = ((divides and nrep > COMPACT_DIVISION_CAP)
+                     or nprev > COMPACT_PREV_CAP)
+            over2 = ((divides and nrep > COMPACT_DIVISION_CAP_BIG)
+                     or nprev > COMPACT_PREV_CAP_BIG)
+            if r in (ROUTE_DEVICE_SPREAD, ROUTE_DEVICE_SPREAD_BIG):
+                # the spread pipeline's assignment picks its tier like the
+                # main path: tier-1 caps -> big tier, big caps -> host
+                if over2:
+                    r = ROUTE_COMPACT_CAP
+                elif over1:
+                    r = ROUTE_DEVICE_SPREAD_BIG
+            elif over2:
+                r = ROUTE_COMPACT_CAP
+            elif over1 or r == ROUTE_DEVICE_BIG:
+                r = ROUTE_DEVICE_BIG
+        if spec.graceful_eviction_tasks:
+            for task in spec.graceful_eviction_tasks:
+                ci = cindex_get(task.from_cluster)
+                if ci is not None:
+                    evict_entries.setdefault(b, []).append(ci)
+        route[b] = r
+
+    for b in range(nB):
+        encode_one(b)
+    if nB:
+        uid_desc[:nB] = fnv32a_batch_odd(uids)
+
+    # rows the host path owns must not schedule NOR consume wave capacity on
+    # device (their device results are discarded; charging them would price
+    # later waves against phantom usage)
+    b_valid[:nB] = route == ROUTE_DEVICE
+
+    Kp = _next_pow2(
+        max((len(e) for e in prev_entries.values()), default=0) or 1, 4)
+    Ke = _next_pow2(
+        max((len(e) for e in evict_entries.values()), default=0) or 1, 4)
+    prev_idx = np.full((B, Kp), -1, np.int32)
+    prev_val = np.zeros((B, Kp), np.int32)
+    evict_idx = np.full((B, Ke), -1, np.int32)
+    for b, entries in prev_entries.items():
+        for j, (ci, r) in enumerate(entries):
+            prev_idx[b, j] = ci
+            prev_val[b, j] = min(r, MAX_INT32)
+    for b, entries in evict_entries.items():
+        for j, ci in enumerate(entries):
+            evict_idx[b, j] = ci
+
+    # the cluster/placement-side tensors below are fully determined by the
+    # vocabulary discovered above plus the (cache-contract-stable) cluster
+    # snapshot; chunks of one cycle with the same vocabulary reuse the
+    # previous chunk's assembled set VERBATIM and skip this whole section
+    assembled_sig = (
+        C, tuple(pkeys), tuple(classes), tuple(gvks),
+        tuple(res_names), tuple(region_names),
+    )
+    if (
+        cache is not None
+        and cache.assembled is not None
+        and cache.assembled_sig == assembled_sig
+    ):
+        shared_hit = cache.assembled
+        P_hit = shared_hit["pl_strategy"].shape[0]
+        fail_plane = (_fail_plane(placements, clusters, C, P_hit, cache,
+                                  assembled_sig)
+                      if explain else np.zeros((P_hit, C), np.int32))
+        batch = _build_solver_batch(
+            shared_hit, B, C, nB, nC, b_valid, placement_id, gvk_id,
+            class_id, replicas, uid_desc, fresh, non_workload, nw_shortcut,
+            prev_idx, prev_val, evict_idx, route, cindex, region_names,
+            list(res_names), list(classes), label_axes, explain, fail_plane,
+        )
+        batch.placements = list(placements)
+        batch.gvk_keys = list(gvks)
+        batch.class_reqs = list(class_reqs)
+        return batch
+
+    # ---- capacity tensors -------------------------------------------------
+    # Every axis the jit signature depends on is pow2-bucketed: B, C, and
+    # the four vocabulary axes Q/P/G/R below.  Unbucketed vocabulary sizes
+    # recompile schedule_batch whenever a cycle sees a new number of
+    # distinct placements/request classes/GVKs/resources — a real control
+    # plane would thrash the compile cache.  Padding lanes are inert: zero
+    # requests never constrain (req>0 guard), -1 overrides are ignored,
+    # and padded placement/GVK rows are never indexed by a real binding.
+    R = _next_pow2(max(len(res_names), 1), 4)
+    Q = _next_pow2(max(len(class_reqs), 1), 4)
+    avail_milli = np.zeros((C, R), np.int64)
+    has_alloc = np.zeros((C, R), bool)
+    req_is_cpu = np.zeros(R, bool)
+    for n, r in res_names.items():
+        req_is_cpu[r] = n == RESOURCE_CPU
+    for i, c in enumerate(clusters):
+        s = c.status.resource_summary
+        if s is None:
+            continue
+        for n, r in res_names.items():
+            alloc = s.allocatable.get(n)
+            if alloc is None:
+                continue
+            has_alloc[i, r] = True
+            m = alloc.milli
+            used = s.allocated.get(n)
+            if used is not None:
+                m -= used.milli
+            ing = s.allocating.get(n)
+            if ing is not None:
+                m -= ing.milli
+            avail_milli[i, r] = m
+
+    req_milli = np.zeros((Q, R), np.int64)
+    req_pods = np.ones(Q, np.int64)
+    for q, cr in enumerate(class_reqs):
+        if isinstance(cr, _SetClass):
+            for n, v in cr.per_set.items():
+                req_milli[q, res_names[n]] = v
+            req_pods[q] = max(cr.pods_per_set, 1)
+        else:
+            for n, qty in cr.resource_request.items():
+                r = res_names[n]
+                req_milli[q, r] = qty.milli_value() if n == RESOURCE_CPU else qty.value()
+
+    # histogram-modeled clusters: host-side exact override (general.go:336)
+    est_override = np.full((Q, C), -1, np.int64)
+    modeled = [
+        i for i, c in enumerate(clusters)
+        if (
+            estimator.enable_resource_modeling
+            and c.status.resource_summary is not None
+            and c.status.resource_summary.allocatable_modelings
+        )
+    ]
+    if modeled:
+        for q, (ck, rr) in enumerate(zip(classes, class_reqs)):
+            if isinstance(rr, _SetClass):
+                # sets math has no model-histogram refinement (the reference
+                # getMaximumSetsBasedOnResourceModels is a no-op placeholder)
+                continue
+            row = None if cache is None else cache.override_rows.get(ck)
+            if row is None:
+                row = np.full(C, -1, np.int64)
+                for i in modeled:
+                    row[i] = estimator._max_for_cluster(clusters[i], rr)
+                if cache is not None:
+                    cache.override_rows[ck] = row
+            est_override[q] = row
+
+    # ---- placement axis ---------------------------------------------------
+    P = _next_pow2(max(len(placements), 1), 8)
+    pl_mask = np.zeros((P, C), bool)
+    pl_tol_bypass = np.zeros((P, C), bool)
+    pl_strategy = np.zeros(P, np.int32)
+    pl_static_w = np.zeros((P, C), np.int64)
+    pl_has_cluster_sc = np.zeros(P, bool)
+    pl_sc_min = np.zeros(P, np.int32)
+    pl_sc_max = np.zeros(P, np.int32)
+    pl_ignore_avail = np.zeros(P, bool)
+    pl_has_region_sc = np.zeros(P, bool)
+    pl_extra_score = np.zeros((P, C), np.int64)
+    pl_region_min = np.zeros(P, np.int32)
+    pl_region_max = np.zeros(P, np.int32)
+    pl_fail_bits = np.zeros((P, C), np.int32)
+
+    dummy_status = ResourceBindingStatus()
+    # one registry snapshot per encode: single lock acquisition, and every
+    # placement row of this batch sees the same plugin set
+    from karmada_tpu_torch.scheduler.plugins import eval_filters, eval_scores
+
+    plug_filters = _PLUGINS.enabled_filters()
+    plug_scores = _PLUGINS.enabled_scores()
+    for p, placement in enumerate(placements):
+        strategy = serial.strategy_type(_spec_with(placement))
+        pl_strategy[p] = {
+            serial.DUPLICATED: STRAT_DUPLICATED,
+            serial.STATIC_WEIGHT: STRAT_STATIC,
+            serial.DYNAMIC_WEIGHT: STRAT_DYNAMIC,
+            serial.AGGREGATED: STRAT_AGGREGATED,
+        }.get(strategy, STRAT_DUPLICATED)
+        pl_ignore_avail[p] = serial.should_ignore_available_resource(placement)
+        if not serial.should_ignore_spread_constraint(placement):
+            label_sc = None
+            for sc in placement.spread_constraints:
+                if sc.spread_by_field == SPREAD_BY_FIELD_CLUSTER:
+                    pl_has_cluster_sc[p] = True
+                    pl_sc_min[p] = sc.min_groups
+                    pl_sc_max[p] = sc.max_groups
+                elif sc.spread_by_field == SPREAD_BY_FIELD_REGION:
+                    pl_has_region_sc[p] = True
+                    pl_region_min[p] = sc.min_groups
+                    pl_region_max[p] = sc.max_groups
+                elif sc.spread_by_label and label_sc is None:
+                    label_sc = sc
+            if label_sc is not None and not pl_has_region_sc[p]:
+                # label group axis (region wins when both are present —
+                # spread_axis_of): the group min/max rows are shared
+                pl_region_min[p] = label_sc.min_groups
+                pl_region_max[p] = label_sc.max_groups
+
+        pkey = _placement_key(placement)
+        rows = None if cache is None else cache.placement_rows.get(pkey)
+        fb = (cache.fail_rows.get(pkey) if explain and cache is not None
+              else None)
+        if rows is None:
+            mask_row = np.zeros(C, bool)
+            tol_row = np.zeros(C, bool)
+            extra_row = np.zeros(C, np.int64)
+            probe = _spec_with(placement)
+            # explain decomposition rides the SAME pass: each stage is
+            # evaluated once (without the folded mask's short-circuit)
+            # and the mask derives from the bits — never a second O(C)
+            # filter sweep for the armed encode
+            build_fb = explain and fb is None
+            fb_new = np.zeros(C, np.int32) if build_fb else None
+            for i, c in enumerate(clusters):
+                if build_fb:
+                    bits = 0
+                    if serial.filter_cluster_affinity(
+                            probe, dummy_status, c) is not None:
+                        bits |= VERDICT_AFFINITY
+                    if serial.filter_spread_constraint(
+                            probe, dummy_status, c) is not None:
+                        bits |= VERDICT_SPREAD_PROP
+                    if plug_filters and eval_filters(
+                            plug_filters, placement, c) is not None:
+                        bits |= VERDICT_PLUGIN
+                    fb_new[i] = bits
+                    mask_row[i] = bits == 0
+                else:
+                    # affinity + spread-property predicates (no prev
+                    # bypass); out-of-tree registry filters fold into the
+                    # same mask
+                    mask_row[i] = (
+                        serial.filter_cluster_affinity(probe, dummy_status, c) is None
+                        and serial.filter_spread_constraint(probe, dummy_status, c) is None
+                        and (not plug_filters
+                             or eval_filters(plug_filters, placement, c) is None)
+                    )
+                # taint toleration WITHOUT the target_contains bypass
+                tol_row[i] = _tolerated(placement, c)
+                if plug_scores:
+                    extra_row[i] = eval_scores(plug_scores, placement, c)
+            if build_fb:
+                fb = fb_new
+                if cache is not None:
+                    cache.fail_rows[pkey] = fb
+            # static weights (division_algorithm.go:38-72) per cluster
+            static_row = np.zeros(C, np.int64)
+            s = placement.replica_scheduling
+            wl = (
+                s.weight_preference.static_weight_list
+                if s is not None and s.weight_preference is not None
+                else []
+            )
+            if pl_strategy[p] == STRAT_STATIC:
+                if not wl:
+                    static_row[:nC] = 1
+                else:
+                    for i, c in enumerate(clusters):
+                        weight = 0
+                        for rule in wl:
+                            if rule.target_cluster.matches(c):
+                                weight = max(weight, rule.weight)
+                        static_row[i] = weight
+            rows = (mask_row, tol_row, static_row, extra_row)
+            if cache is not None:
+                cache.placement_rows[pkey] = rows
+        pl_mask[p], pl_tol_bypass[p], pl_static_w[p], pl_extra_score[p] = rows
+        if explain:
+            # mask rows cached from a disarmed encode: decompose the
+            # stages standalone (a cluster failing affinity AND the
+            # spread property carries both bits; the serial-parity
+            # contract compares the lowest set bit only)
+            if fb is None:
+                fb = _fail_row(placement, clusters, C, plug_filters,
+                               dummy_status)
+                if cache is not None:
+                    cache.fail_rows[pkey] = fb
+            pl_fail_bits[p] = fb
+
+    # ---- api enablement ---------------------------------------------------
+    G = _next_pow2(max(len(gvks), 1), 4)
+    api_ok = np.zeros((G, C), bool)
+    for gk, g in gvks.items():
+        row = None if cache is None else cache.gvk_rows.get(gk)
+        if row is None:
+            api_version, kind = gk
+            row = np.array(
+                [c.api_enablement(api_version, kind) == serial.API_ENABLED
+                 for c in clusters]
+                + [False] * (C - nC),
+                dtype=bool,
+            )
+            if cache is not None:
+                cache.gvk_rows[gk] = row
+        api_ok[g] = row
+
+    # assemble the cluster/placement tensor set; with a cache it is frozen
+    # (read-only: an in-place mutation must fail loudly, not silently serve
+    # a stale device copy) and stored for verbatim reuse by later chunks
+    shared = {
+        "cluster_valid": cluster_valid, "deleting": deleting,
+        "name_rank": name_rank, "pods_allowed": pods_allowed,
+        "has_summary": has_summary, "avail_milli": avail_milli,
+        "has_alloc": has_alloc, "api_ok": api_ok,
+        "req_milli": req_milli, "req_is_cpu": req_is_cpu,
+        "req_pods": req_pods, "est_override": est_override,
+        "pl_mask": pl_mask, "pl_tol_bypass": pl_tol_bypass,
+        "pl_strategy": pl_strategy, "pl_static_w": pl_static_w,
+        "pl_has_cluster_sc": pl_has_cluster_sc, "pl_sc_min": pl_sc_min,
+        "pl_sc_max": pl_sc_max, "pl_ignore_avail": pl_ignore_avail,
+        "pl_extra_score": pl_extra_score,
+        "region_id": region_id,
+        "pl_has_region_sc": pl_has_region_sc, "pl_region_min": pl_region_min,
+        "pl_region_max": pl_region_max,
+    }
+    if cache is not None:
+        for arr in shared.values():
+            if arr.flags.owndata:
+                arr.flags.writeable = False
+        cache.assembled_sig = assembled_sig
+        cache.assembled = shared
+    if explain and cache is not None:
+        # the explain plane caches beside — never inside — the assembled
+        # slot (see EncoderCache.fail_plane)
+        if pl_fail_bits.flags.owndata:
+            pl_fail_bits.flags.writeable = False
+        cache.fail_plane = (assembled_sig, pl_fail_bits)
+
+    batch = _build_solver_batch(
+        shared, B, C, nB, nC, b_valid, placement_id, gvk_id, class_id,
+        replicas, uid_desc, fresh, non_workload, nw_shortcut,
+        prev_idx, prev_val, evict_idx, route, cindex, region_names,
+        list(res_names), list(classes), label_axes, explain, pl_fail_bits,
+    )
+    batch.placements = list(placements)
+    batch.gvk_keys = list(gvks)
+    batch.class_reqs = list(class_reqs)
+    return batch
+
+
+def _fail_row(placement, clusters, C, plug_filters, dummy_status
+              ) -> np.ndarray:
+    """One placement's static filter-failure bits per cluster lane
+    (obs/decisions layout: affinity | spread-property | plugin)."""
+    from karmada_tpu_torch.scheduler.plugins import eval_filters
+
+    fb = np.zeros(C, np.int32)
+    probe = _spec_with(placement)
+    for i, c in enumerate(clusters):
+        if serial.filter_cluster_affinity(probe, dummy_status, c) is not None:
+            fb[i] |= VERDICT_AFFINITY
+        if serial.filter_spread_constraint(probe, dummy_status, c) is not None:
+            fb[i] |= VERDICT_SPREAD_PROP
+        if plug_filters and eval_filters(plug_filters, placement,
+                                         c) is not None:
+            fb[i] |= VERDICT_PLUGIN
+    return fb
+
+
+def _fail_plane(placements, clusters, C, P, cache, sig) -> np.ndarray:
+    """The assembled [P, C] fail-bit plane for one vocabulary —
+    single-slot cached on the assembled signature so armed chunks reuse
+    it verbatim and armed/disarmed alternation (explain sampling) never
+    disturbs the assembled/device-transfer caches."""
+    if (cache is not None and cache.fail_plane is not None
+            and cache.fail_plane[0] == sig):
+        return cache.fail_plane[1]
+    from karmada_tpu_torch.scheduler.plugins import REGISTRY as _PLUGINS
+
+    plug_filters = _PLUGINS.enabled_filters()
+    dummy_status = ResourceBindingStatus()
+    plane = np.zeros((P, C), np.int32)
+    for p, placement in enumerate(placements):
+        pkey = _placement_key(placement)
+        fb = cache.fail_rows.get(pkey) if cache is not None else None
+        if fb is None:
+            fb = _fail_row(placement, clusters, C, plug_filters,
+                           dummy_status)
+            if cache is not None:
+                cache.fail_rows[pkey] = fb
+        plane[p] = fb
+    if cache is not None:
+        if plane.flags.owndata:
+            plane.flags.writeable = False
+        cache.fail_plane = (sig, plane)
+    return plane
+
+
+def _build_solver_batch(
+    shared, B, C, nB, nC, b_valid, placement_id, gvk_id, class_id,
+    replicas, uid_desc, fresh, non_workload, nw_shortcut,
+    prev_idx, prev_val, evict_idx, route, cindex, region_names,
+    res_names=None, class_keys=None, label_axes=None, explain=False,
+    pl_fail_bits=None,
+) -> SolverBatch:
+    return SolverBatch(
+        B=B, C=C, n_bindings=nB, n_clusters=nC,
+        cluster_valid=shared["cluster_valid"], deleting=shared["deleting"],
+        name_rank=shared["name_rank"], pods_allowed=shared["pods_allowed"],
+        has_summary=shared["has_summary"],
+        avail_milli=shared["avail_milli"], has_alloc=shared["has_alloc"],
+        api_ok=shared["api_ok"],
+        req_milli=shared["req_milli"], req_is_cpu=shared["req_is_cpu"],
+        req_pods=shared["req_pods"], est_override=shared["est_override"],
+        pl_mask=shared["pl_mask"], pl_tol_bypass=shared["pl_tol_bypass"],
+        pl_strategy=shared["pl_strategy"], pl_static_w=shared["pl_static_w"],
+        pl_has_cluster_sc=shared["pl_has_cluster_sc"],
+        pl_sc_min=shared["pl_sc_min"], pl_sc_max=shared["pl_sc_max"],
+        pl_ignore_avail=shared["pl_ignore_avail"],
+        pl_extra_score=shared["pl_extra_score"],
+        b_valid=b_valid, placement_id=placement_id, gvk_id=gvk_id,
+        class_id=class_id, replicas=replicas, uid_desc=uid_desc, fresh=fresh,
+        non_workload=non_workload, nw_shortcut=nw_shortcut,
+        prev_idx=prev_idx, prev_val=prev_val, evict_idx=evict_idx,
+        route=route, cluster_index=cindex,
+        region_id=shared["region_id"], region_names=region_names,
+        label_axes=label_axes or {},
+        pl_has_region_sc=shared["pl_has_region_sc"],
+        pl_region_min=shared["pl_region_min"],
+        pl_region_max=shared["pl_region_max"],
+        pl_fail_bits=(pl_fail_bits if pl_fail_bits is not None
+                      else np.zeros_like(shared["pl_mask"], np.int32)),
+        res_names=res_names or [], class_keys=class_keys or [],
+        explain=explain,
+    )
+
+
+def remap_used(used, from_batch: SolverBatch, to_batch: SolverBatch):
+    """Transport consumed-capacity accumulators (solver carry-out) between
+    TWO batches of the same cycle whose resource/class vocabularies may
+    differ: columns map by resource NAME, class rows by canonical key.
+    Resources/classes absent from the target batch are dropped (nothing in
+    it consults them); absent-from-source entries start at zero.
+
+    For a CHAIN of batches use CarryState instead — pairwise remapping
+    through an intermediate batch whose vocabulary lacks a resource would
+    silently drop that resource's accumulated consumption."""
+    um, up, us = used
+    um2 = np.zeros_like(to_batch.avail_milli)
+    r1 = {n: i for i, n in enumerate(from_batch.res_names)}
+    for r2, name in enumerate(to_batch.res_names):
+        if name in r1:
+            um2[:, r2] = um[:, r1[name]]
+    us2 = np.zeros_like(to_batch.est_override)
+    q1 = {k: i for i, k in enumerate(from_batch.class_keys)}
+    for q2, key in enumerate(to_batch.class_keys):
+        if key in q1:
+            us2[q2] = us[q1[key]]
+    return um2, np.asarray(up), us2
+
+
+class CarryState:
+    """Vocabulary-stable transport for chained consumed-capacity carry.
+
+    Accumulators live keyed by resource NAME / class KEY (never by a
+    batch's padded axis), so a resource absent from an intermediate
+    batch's vocabulary survives to the next batch that requests it.
+    Per batch: `used0_for(batch)` renders the carry into the batch's
+    vocabulary; after the solve, `absorb(batch, used_out, used0)` adds the
+    batch's OWN consumption (carry-out minus carry-in) back into the
+    stable store.  Arrays here are host numpy (int64[C])."""
+
+    def __init__(self) -> None:
+        self.milli: Dict[str, np.ndarray] = {}  # name -> int64[C]
+        self.pods: Optional[np.ndarray] = None  # int64[C]
+        self.sets: Dict = {}  # class key -> int64[C]
+
+    def empty(self) -> bool:
+        """True when no consumption has been absorbed yet (used0_for would
+        render all-zero accumulators)."""
+        return not self.milli and not self.sets and self.pods is None
+
+    def copy(self) -> "CarryState":
+        out = CarryState()
+        out.merge(self)
+        return out
+
+    def merge(self, other: "CarryState") -> None:
+        """Fold another keyed store into this one (additive)."""
+        for name, arr in other.milli.items():
+            self.milli[name] = (self.milli[name] + arr if name in self.milli
+                                else arr.copy())
+        if other.pods is not None:
+            self.pods = (other.pods.copy() if self.pods is None
+                         else self.pods + other.pods)
+        for key, arr in other.sets.items():
+            self.sets[key] = (self.sets[key] + arr if key in self.sets
+                              else arr.copy())
+
+    def used0_for(self, batch: SolverBatch):
+        um = np.zeros_like(batch.avail_milli)
+        for r, name in enumerate(batch.res_names):
+            if name in self.milli:
+                um[:, r] = self.milli[name]
+        up = (self.pods.copy() if self.pods is not None
+              else np.zeros_like(batch.pods_allowed))
+        us = np.zeros_like(batch.est_override)
+        for q, key in enumerate(batch.class_keys):
+            if key in self.sets:
+                us[q] = self.sets[key]
+        return um, up, us
+
+    def absorb(self, batch: SolverBatch, used_out, used0) -> None:
+        um_out, up_out, us_out = (np.asarray(u) for u in used_out)
+        for r, name in enumerate(batch.res_names):
+            own = um_out[:, r] - used0[0][:, r]
+            self.milli[name] = (self.milli[name] + own if name in self.milli
+                                else own.copy())
+        own_p = up_out - used0[1]
+        self.pods = own_p.copy() if self.pods is None else self.pods + own_p
+        for q, key in enumerate(batch.class_keys):
+            own_s = us_out[q] - used0[2][q]
+            self.sets[key] = (self.sets[key] + own_s if key in self.sets
+                              else own_s.copy())
+
+
+def _spec_with(placement: Placement) -> ResourceBindingSpec:
+    return ResourceBindingSpec(placement=placement)
+
+
+def _allowed_pods(summary) -> int:
+    from karmada_tpu_torch.estimator.general import allowed_pod_number
+
+    return allowed_pod_number(summary)
+
+
+def _tolerated(placement: Placement, cluster: Cluster) -> bool:
+    """TaintToleration predicate (without the per-binding prev bypass)."""
+    from karmada_tpu_torch.models.cluster import EFFECT_NO_EXECUTE, EFFECT_NO_SCHEDULE
+
+    tolerations = placement.cluster_tolerations
+    for taint in cluster.spec.taints:
+        if taint.effect not in (EFFECT_NO_SCHEDULE, EFFECT_NO_EXECUTE):
+            continue
+        if not any(t.tolerates(taint) for t in tolerations):
+            return False
+    return True
+
+
+def _status_error(batch, b: int, st: int, items) -> Optional[Exception]:
+    """Map a solver status code to the serial path's exception (or None)."""
+    if st == STATUS_FIT_ERROR:
+        # host-routed rows are re-scheduled serially anyway; don't pay
+        # the O(C) filter pass for a result the caller discards
+        if items is not None and batch.route[b] == ROUTE_DEVICE:
+            spec_b, status_b = items[b]
+            _, diagnosis = serial.find_clusters_that_fit(
+                spec_b, status_b, batch.cluster_index.clusters
+            )
+            return serial.FitError(diagnosis)
+        return serial.FitError({})
+    if st == STATUS_UNSCHEDULABLE:
+        return serial.UnschedulableError("insufficient capacity (batched)")
+    if st == STATUS_NO_CLUSTER:
+        return serial.NoClusterAvailableError("no clusters available to schedule")
+    return None
+
+
+def decode_compact(
+    batch: SolverBatch,
+    idx: np.ndarray,
+    val: np.ndarray,
+    status: np.ndarray,
+    *,
+    enable_empty_workload_propagation: bool = False,
+    items: Optional[Sequence[Tuple[ResourceBindingSpec, ResourceBindingStatus]]] = None,
+) -> List:
+    """Per-binding results from the sparse COO form of solver.solve_compact:
+    a list of length n_bindings whose entries are List[TargetCluster]
+    (name-ascending) or an Exception mirroring the serial path
+    (FitError / UnschedulableError / NoClusterAvailableError); pass `items`
+    for the full per-cluster FitError diagnosis.
+
+    idx/val carry every (selected OR replicas>0) lane: replicas>0 entries
+    are assignments; val==0 entries are selected-only lanes, meaningful for
+    non-workload propagation and empty-workload propagation.
+
+    CONTRACT: idx must be ascending among its >=0 entries (row-major
+    binding order) — the compact kernel guarantees this; any other
+    producer must sort first (asserted below).
+    """
+    names = batch.cluster_index.names
+    C = batch.C
+    nb = batch.n_bindings
+    coo_status = np.asarray(status)
+    non_workload = np.asarray(batch.non_workload)
+    out: List = [None] * nb
+    # error slots first (diagnosis construction); unknown nonzero statuses
+    # with no mapped error fall through to target construction
+    for b in np.nonzero(coo_status[:nb] != 0)[0]:
+        err = _status_error(batch, int(b), int(coo_status[b]), items)
+        if err is not None:
+            out[int(b)] = err
+
+    # vectorized COO split: row-major (b ascending) order, so per-binding
+    # runs are contiguous and searchsorted finds them
+    idx = np.asarray(idx)
+    val = np.asarray(val)
+    keep = idx >= 0
+    iv = idx[keep].astype(np.int64)
+    vv = val[keep]
+    b_arr = iv // C
+    c_arr = iv - b_arr * C
+    in_range = (b_arr < nb) & (c_arr < batch.n_clusters)
+    b_arr = b_arr[in_range]
+    c_arr = c_arr[in_range]
+    vv = vv[in_range]
+    assert b_arr.size == 0 or np.all(np.diff(b_arr) >= 0), (
+        "decode_compact requires row-major (ascending) COO input"
+    )
+    bounds = np.searchsorted(b_arr, np.arange(nb + 1))
+    for b in range(nb):
+        if out[b] is not None:
+            continue
+        lo, hi = bounds[b], bounds[b + 1]
+        cs = c_arr[lo:hi].tolist()
+        vs = vv[lo:hi].tolist()
+        if non_workload[b]:
+            targets = [TargetCluster(name=names[c], replicas=0) for c in cs]
+        else:
+            targets = [
+                TargetCluster(name=names[c], replicas=v)
+                for c, v in zip(cs, vs) if v > 0
+            ]
+            if enable_empty_workload_propagation:
+                targets += [
+                    TargetCluster(name=names[c], replicas=0)
+                    for c, v in zip(cs, vs)
+                    if v == 0
+                ]
+        targets.sort(key=lambda t: t.name)
+        out[b] = targets
+    return out
+
+
+# -- carrying state across from another producer ------------------------------
+# The JAX package encodes the identical SolverBatch field by field; these two
+# turn its arrays into the port's batch and carry triple, dtype by dtype per
+# FIELD_DTYPES / CARRY_DTYPES, so both solvers can be fed the same input.
+
+_BATCH_ARRAY_FIELDS = tuple(
+    f for f in FIELD_DTYPES if f in SolverBatch.__dataclass_fields__)
+_BATCH_META = ("B", "C", "n_bindings", "n_clusters")
+
+
+def batch_from_arrays(fields: Dict[str, np.ndarray], meta) -> SolverBatch:
+    """A SolverBatch from plain arrays.  `fields` maps FIELD_DTYPES names to
+    arrays (any array-like; each is copied and cast to its contract dtype);
+    `meta` is a dict or an object carrying B, C, n_bindings and n_clusters,
+    plus optionally any other SolverBatch attribute (route, res_names,
+    class_keys, cluster_index, ...), which is passed through unchanged."""
+    get = (meta.get if isinstance(meta, dict)
+           else lambda k, d=None: getattr(meta, k, d))
+    kw = {k: int(get(k)) for k in _BATCH_META}
+    for f in _BATCH_ARRAY_FIELDS:
+        a = fields.get(f)
+        if a is not None:
+            kw[f] = np.array(a, dtype=FIELD_DTYPES[f], copy=True)
+    for k in ("cluster_index", "region_names", "label_axes", "res_names",
+              "class_keys", "placements", "gvk_keys", "class_reqs",
+              "explain"):
+        v = get(k, None)
+        if v is not None:
+            kw[k] = v
+    if kw.get("pl_extra_score") is None:
+        kw["pl_extra_score"] = np.zeros(kw["pl_mask"].shape, np.int64)
+    return SolverBatch(**kw)
+
+
+def carry_from_arrays(used_milli, used_pods, used_sets):
+    """The consumed-capacity carry triple (used_milli [C, R], used_pods [C],
+    used_sets [Q, C]) as contiguous int64 numpy arrays (CARRY_DTYPES)."""
+    return tuple(np.array(a, dtype=CARRY_DTYPES[k], copy=True)
+                 for k, a in zip(("used_milli", "used_pods", "used_sets"),
+                                 (used_milli, used_pods, used_sets)))

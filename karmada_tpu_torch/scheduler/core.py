@@ -1,0 +1,69 @@
+"""schedule_items: one scheduling cycle of the port, the entry point a
+caller uses.
+
+Counterpart of the JAX package's ``Scheduler._solve`` with
+``backend="device"`` (scheduler/service.py): rows the encoder routes
+ROUTE_DEVICE run through the chunked device pipeline on the card; rows on
+a host route (topology spread, unsupported, vanished previous cluster,
+huge replicas, beyond the compact caps) run the serial golden path, as
+the JAX scheduler does.  Rows routed to the device spread plane or the big
+lane tier raise NotImplementedError: those planes are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.estimator.general import GeneralEstimator
+from karmada_tpu_torch.ops import serial, tensors
+from karmada_tpu_torch.scheduler.pipeline import PipelineResult, run_pipeline
+
+
+def schedule_items(
+    items: Sequence[Tuple],
+    clusters: Sequence,
+    *,
+    chunk: int = 4096,
+    waves: int = 8,
+    device=None,
+    estimator: Optional[GeneralEstimator] = None,
+    enable_empty_workload_propagation: bool = False,
+    stats: Optional[PipelineResult] = None,
+) -> List[object]:
+    """Per item, List[TargetCluster] or the Exception the scheduler would
+    record.  `device` defaults to the first CUDA card and raises without
+    one; pass ``device="cpu"`` to run the kernels' plain versions.  Carry
+    is on when the cycle spans more than one chunk.  `stats`, when given,
+    receives the pipeline's counts and stage times."""
+    device = resolve_device(device)
+    estimator = estimator or GeneralEstimator()
+    out: List[object] = [None] * len(items)
+    if not items:
+        return out
+    cindex = tensors.ClusterIndex.build(clusters)
+    cache = tensors.EncoderCache()
+    cache.reset_for_cycle()
+    res = run_pipeline(
+        items, cindex, estimator, chunk=chunk, waves=waves, cache=cache,
+        carry=len(items) > chunk,
+        enable_empty_workload_propagation=enable_empty_workload_propagation,
+        device=device)
+    for i, r in res.results.items():
+        out[i] = r
+    cal = serial.make_cal_available([estimator])
+    for i in range(len(items)):
+        if i in res.results:
+            continue
+        spec, status = items[i]
+        try:
+            out[i] = serial.schedule(
+                spec, status, list(clusters), cal,
+                enable_empty_workload_propagation=(
+                    enable_empty_workload_propagation))
+        # the binding's outcome object, as the scheduler records it
+        except Exception as e:  # noqa: BLE001
+            out[i] = e
+    if stats is not None:
+        stats.__dict__.update(res.__dict__)
+    return out

@@ -1,0 +1,251 @@
+"""Chunked executor of one scheduling cycle: the port's main device path.
+
+Counterpart of the JAX package's ``scheduler/pipeline.run_pipeline`` on
+its main route.  Per chunk:
+
+  Encode   (host)    items[lo:hi] -> SolverBatch (ops/tensors.encode_batch)
+                     against one cycle-shared EncoderCache
+  Dispatch (async)   ops/solver.dispatch_compact launches the chunk's
+                     kernels and returns without waiting for the card
+  Finalize (host)    read back the COO (idx/val/status/nnz) and decode it
+                     (ops/tensors.decode_compact)
+
+Chunk k's finalize runs after chunk k+1 was encoded and dispatched, so the
+host's encode of the next chunk overlaps the card's work on this one.
+
+Carry (`carry=True`): the consumed-capacity accumulators thread chunk to
+chunk, so chunk k+1 prices against the snapshot minus everything chunks
+<= k consumed.  The chain stays on the card while consecutive chunks share
+a resource/class vocabulary (the next dispatch reads the previous one's
+live accumulators); lossless vocabulary growth re-keys them on the card
+(``_device_remap``, an index_select without a host sync); a lossy change
+closes the segment into a host-side, name-keyed CarryState.
+
+This slice runs the main route (ROUTE_DEVICE) only.  Rows the encoder
+routes to the device spread plane or the big lane tier raise
+NotImplementedError naming the route; host routes are absent from the
+result, for the caller's serial path (scheduler/core.schedule_items).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.ops import solver, tensors
+
+#: device routes of the JAX package not ported yet (spread plane, big tier)
+UNPORTED_ROUTES = {
+    tensors.ROUTE_DEVICE_SPREAD: "ROUTE_DEVICE_SPREAD",
+    tensors.ROUTE_DEVICE_BIG: "ROUTE_DEVICE_BIG",
+    tensors.ROUTE_DEVICE_SPREAD_BIG: "ROUTE_DEVICE_SPREAD_BIG",
+}
+
+
+@dataclass
+class PipelineResult:
+    """Aggregate outcome of one run_pipeline call; times are host-clock
+    seconds of each stage, summed over chunks."""
+
+    results: Dict[int, object] = field(default_factory=dict)  # global index
+    scheduled: int = 0
+    failures: Dict[str, int] = field(default_factory=dict)
+    chunks: int = 0
+    encode_s: float = 0.0
+    dispatch_s: float = 0.0
+    finalize_s: float = 0.0  # device wait + COO read-back
+    decode_s: float = 0.0
+
+
+class _CarryChain:
+    """Chunk-to-chunk consumed-capacity threading (JAX: _CarryChain).
+
+    Invariant: the latest dispatched handle's used-out equals the
+    cumulative consumption of every chunk dispatched so far, rendered in
+    the open segment's vocabulary, plus the segment base (everything
+    absorbed before the segment opened).  `total` holds closed segments
+    keyed by resource name / class key."""
+
+    def __init__(self) -> None:
+        self.total = tensors.CarryState()
+        # open segment: [sig, batch, base (numpy triple), handle | None]
+        self._seg: Optional[list] = None
+
+    @staticmethod
+    def _sig(batch) -> tuple:
+        return (batch.C, tuple(batch.res_names), tuple(batch.class_keys),
+                batch.est_override.shape[0], batch.avail_milli.shape[1])
+
+    @staticmethod
+    def _subset(from_batch, to_batch) -> bool:
+        """True when re-keying from_batch -> to_batch drops nothing."""
+        return (from_batch.C == to_batch.C
+                and set(from_batch.res_names) <= set(to_batch.res_names)
+                and set(from_batch.class_keys) <= set(to_batch.class_keys))
+
+    @staticmethod
+    def _device_remap(used, from_batch, to_batch):
+        """Re-key live device accumulators into to_batch's vocabulary on
+        the card (index_select + where; no host sync).  Caller guarantees
+        _subset(from_batch, to_batch)."""
+        um, up, us = used
+        dev = um.device
+
+        def plan(src_keys, dst_keys, n):
+            src = {k: i for i, k in enumerate(src_keys)}
+            idx = np.zeros(n, np.int64)
+            ok = np.zeros(n, bool)
+            for j, k in enumerate(dst_keys):
+                if k in src:
+                    idx[j], ok[j] = src[k], True
+            return (torch.from_numpy(idx).to(dev),
+                    torch.from_numpy(ok).to(dev))
+
+        idx_r, ok_r = plan(from_batch.res_names, to_batch.res_names,
+                           to_batch.avail_milli.shape[1])
+        um2 = torch.where(ok_r[None, :], um.index_select(1, idx_r), 0)
+        idx_q, ok_q = plan(from_batch.class_keys, to_batch.class_keys,
+                           to_batch.est_override.shape[0])
+        us2 = torch.where(ok_q[:, None], us.index_select(0, idx_q), 0)
+        return um2, up, us2
+
+    def _close(self) -> None:
+        """Fold the open segment's consumption into the keyed store (host
+        sync on the segment's last dispatched chunk)."""
+        if self._seg is None:
+            return
+        _sig, batch, base, handle = self._seg
+        self._seg = None
+        if handle is None:
+            return
+        used = tuple(u.cpu().numpy() for u in handle.used)
+        self.total.absorb(batch, used, base)
+
+    def carry_in(self, batch):
+        """The used0 operands for this chunk's dispatch (device tensors on
+        the chained path, numpy after a segment close)."""
+        sig = self._sig(batch)
+        seg = self._seg
+        if seg is not None and seg[3] is not None:
+            if seg[0] == sig:
+                return seg[3].used
+            if self._subset(seg[1], batch):
+                used = self._device_remap(seg[3].used,
+                                          seg[1], batch)
+                base = tensors.remap_used(seg[2], seg[1], batch)
+                self._seg = [sig, batch, base, None]
+                return used
+        self._close()
+        base = self.total.used0_for(batch)
+        self._seg = [sig, batch, base, None]
+        return base
+
+    def dispatched(self, batch, handle) -> None:
+        if self._seg is None or self._seg[0] != self._sig(batch):
+            raise AssertionError("dispatched() without a carry_in() segment")
+        self._seg[3] = handle
+
+
+@dataclass
+class _InFlight:
+    offset: int
+    part: Sequence
+    batch: object
+    handle: Optional[solver.CompactHandle]
+
+
+def _refuse_unported(batch) -> None:
+    routes = np.asarray(batch.route)
+    for r, name in UNPORTED_ROUTES.items():
+        if (routes == r).any():
+            raise NotImplementedError(
+                f"{name} rows are not ported to the PyTorch/CUDA path yet "
+                f"({int((routes == r).sum())} in this chunk)")
+
+
+def run_pipeline(
+    items: Sequence[Tuple],
+    cindex: "tensors.ClusterIndex",
+    estimator,
+    *,
+    chunk: int,
+    waves: int = 8,
+    cache: Optional["tensors.EncoderCache"] = None,
+    carry: bool = True,
+    enable_empty_workload_propagation: bool = False,
+    device=None,
+) -> PipelineResult:
+    """Schedule `items` ((spec, status) pairs) chunk by chunk on `device`
+    (the card by default).  `results` maps global item index ->
+    List[TargetCluster] | Exception for every ROUTE_DEVICE row (FitErrors
+    carry the per-cluster diagnosis); host-routed rows are absent."""
+    device = resolve_device(device)
+    res = PipelineResult()
+    n = len(items)
+    if n == 0:
+        return res
+    if chunk <= 0:
+        raise ValueError("chunk size must be positive")
+    cache = cache if cache is not None else tensors.EncoderCache()
+    keep_sel = enable_empty_workload_propagation
+    chain = _CarryChain() if carry else None
+
+    def finalize(entry: _InFlight) -> None:
+        batch, part = entry.batch, entry.part
+        if entry.handle is None:
+            return
+        t0 = time.perf_counter()
+        idx, val, status = solver.finalize_compact(entry.handle)[:3]
+        t1 = time.perf_counter()
+        decoded = tensors.decode_compact(
+            batch, idx, val, status,
+            enable_empty_workload_propagation=keep_sel,
+            items=part)
+        t2 = time.perf_counter()
+        res.finalize_s += t1 - t0
+        res.decode_s += t2 - t1
+        res.chunks += 1
+        for i in range(len(part)):
+            if batch.route[i] != tensors.ROUTE_DEVICE:
+                continue
+            r = decoded[i]
+            res.results[entry.offset + i] = r
+            if isinstance(r, Exception):
+                k = type(r).__name__
+                res.failures[k] = res.failures.get(k, 0) + 1
+            else:
+                res.scheduled += 1
+
+    pending: Optional[_InFlight] = None
+    for lo in range(0, n, chunk):
+        part = items[lo:lo + chunk]
+        t0 = time.perf_counter()
+        batch = tensors.encode_batch(part, cindex, estimator, cache=cache)
+        _refuse_unported(batch)
+        t1 = time.perf_counter()
+        handle = None
+        # with carry every chunk dispatches so the chain stays contiguous
+        # (an all-host batch consumes nothing); without it an all-host
+        # chunk skips the card
+        if chain is not None or bool(
+                np.any(np.asarray(batch.route) == tensors.ROUTE_DEVICE)):
+            used0 = chain.carry_in(batch) if chain is not None else None
+            handle = solver.dispatch_compact(
+                batch, waves=waves, keep_sel=keep_sel,
+                with_used=chain is not None, used0=used0, device=device)
+            if chain is not None:
+                chain.dispatched(batch, handle)
+        res.encode_s += t1 - t0
+        res.dispatch_s += time.perf_counter() - t1
+        entry = _InFlight(offset=lo, part=part, batch=batch, handle=handle)
+        if pending is not None:
+            finalize(pending)
+        pending = entry
+    if pending is not None:
+        finalize(pending)
+    return res

@@ -1,0 +1,103 @@
+"""Isolation of the port: karmada_tpu_torch and chip_smoke.py import
+neither jax nor anything of the JAX package karmada_tpu (whose name is a
+prefix of the port's: `karmada_tpu` followed by a boundary other than
+`_torch`), a cycle runs with neither in sys.modules, and the entry
+points never drift to the CPU unless asked."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "karmada_tpu_torch"
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "karmada_tpu")
+
+
+def _port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 15
+    return files
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_static_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and _forbidden(node.args[0].value)):
+            bad.append(node.args[0].value)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_forbidden_matches_prefix_boundary():
+    assert _forbidden("karmada_tpu.ops.solver")
+    assert _forbidden("karmada_tpu")
+    assert not _forbidden("karmada_tpu_torch.ops.solver")
+    assert _forbidden("jax.numpy")
+
+
+_CYCLE = r"""
+import random, sys
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {tests!r})
+import torch_scenarios as S
+from karmada_tpu_torch.scheduler.core import schedule_items
+M = S.models_of("karmada_tpu_torch")
+clusters, items = S.random_scenario(M, 1, n_clusters=11, n_bindings=20)
+out = schedule_items(items, clusters, chunk=8, waves=2, device="cpu")
+assert len(out) == 20 and all(r is not None for r in out)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_cycle_loads_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    code = _CYCLE.format(root=str(ROOT), tests=str(ROOT / "tests"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_entry_points_refuse_cpu_drift():
+    """Without device= the entry points ask for the card; with no card they
+    raise instead of running on the CPU."""
+    from karmada_tpu_torch.device import resolve_device
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    import torch_scenarios as S
+
+    M = S.models_of("karmada_tpu_torch")
+    clusters, items = S.random_scenario(M, 1, n_clusters=4, n_bindings=2)
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        schedule_items(items, clusters)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device("cuda")

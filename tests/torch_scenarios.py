@@ -1,0 +1,293 @@
+"""Scenario builders shared by the tests/test_torch_*.py parity suites.
+
+Every builder takes `M`, a namespace of one package's model classes
+(`models_of("karmada_tpu")` or `models_of("karmada_tpu_torch")`), and a
+`random.Random`: the same seed builds the same objects in both packages,
+so the JAX reference and the PyTorch port see identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import random
+from types import SimpleNamespace
+
+GVK = ("apps/v1", "Deployment")
+
+
+def models_of(pkg: str) -> SimpleNamespace:
+    ns = {}
+    for mod in ("models.meta", "models.cluster", "models.policy",
+                "models.work", "utils.quantity"):
+        m = importlib.import_module(f"{pkg}.{mod}")
+        ns.update({k: v for k, v in vars(m).items() if not k.startswith("_")})
+    return SimpleNamespace(**ns)
+
+
+# -- the randomized mix of tests/test_solver_batch.py -------------------------
+
+def mk_cluster(M, rng, name):
+    labels = {}
+    if rng.random() < 0.5:
+        labels["tier"] = rng.choice(["gold", "silver"])
+    taints = []
+    if rng.random() < 0.3:
+        taints.append(M.Taint(key="dedicated", value="infra",
+                              effect="NoSchedule"))
+    summary = None
+    models = []
+    Q = M.Quantity
+    if rng.random() < 0.9:
+        summary = M.ResourceSummary(
+            allocatable={
+                "cpu": Q.from_milli(rng.randint(0, 64000)),
+                "memory": Q.from_units(rng.randint(0, 256)),
+                "pods": Q.from_units(rng.randint(0, 200)),
+            },
+            allocated={
+                "cpu": Q.from_milli(rng.randint(0, 16000)),
+                "memory": Q.from_units(rng.randint(0, 64)),
+                "pods": Q.from_units(rng.randint(0, 50)),
+            },
+        )
+        if rng.random() < 0.2:
+            models = [
+                M.ResourceModel(grade=0, ranges=[
+                    M.ResourceModelRange("cpu", Q.from_milli(0),
+                                         Q.from_milli(2000)),
+                    M.ResourceModelRange("memory", Q.from_units(0),
+                                         Q.from_units(8)),
+                ]),
+                M.ResourceModel(grade=1, ranges=[
+                    M.ResourceModelRange("cpu", Q.from_milli(2000),
+                                         Q.from_milli(64000)),
+                    M.ResourceModelRange("memory", Q.from_units(8),
+                                         Q.from_units(256)),
+                ]),
+            ]
+            summary.allocatable_modelings = [
+                M.AllocatableModeling(grade=0, count=rng.randint(0, 5)),
+                M.AllocatableModeling(grade=1, count=rng.randint(0, 5)),
+            ]
+    enablements = ([M.APIEnablement(GVK[0], [GVK[1]])]
+                   if rng.random() < 0.9 else [])
+    meta = M.ObjectMeta(name=name, labels=labels)
+    if rng.random() < 0.05:
+        meta.deletion_timestamp = 1.0
+    return M.Cluster(
+        metadata=meta,
+        spec=M.ClusterSpec(region=rng.choice(["us", "eu"]),
+                           provider=rng.choice(["aws", ""]), taints=taints,
+                           resource_models=models),
+        status=M.ClusterStatus(api_enablements=enablements,
+                               resource_summary=summary),
+    )
+
+
+def mk_placement(M, rng, names, spread_p: float = 0.4):
+    affinity = None
+    r = rng.random()
+    if r < 0.3:
+        affinity = M.ClusterAffinity(
+            cluster_names=rng.sample(names, rng.randint(1, len(names))))
+    elif r < 0.5:
+        affinity = M.ClusterAffinity(
+            label_selector=M.LabelSelector(match_labels={"tier": "gold"}))
+    tolerations = []
+    if rng.random() < 0.5:
+        tolerations.append(M.Toleration(key="dedicated", operator="Exists"))
+    spread = []
+    if rng.random() < spread_p:
+        mn = rng.randint(1, 3)
+        spread.append(M.SpreadConstraint(
+            spread_by_field=M.SPREAD_BY_FIELD_CLUSTER, min_groups=mn,
+            max_groups=rng.randint(mn, 5)))
+        if rng.random() < 0.3:
+            spread.append(M.SpreadConstraint(
+                spread_by_field=rng.choice([M.SPREAD_BY_FIELD_PROVIDER,
+                                            M.SPREAD_BY_FIELD_ZONE]),
+                min_groups=1, max_groups=rng.randint(1, 3)))
+    strat = rng.choice(["dup", "static", "dynamic", "agg"])
+    if strat == "dup":
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)
+    elif strat == "static":
+        wl = []
+        if rng.random() < 0.7:
+            for nm in rng.sample(names, rng.randint(1, len(names))):
+                wl.append(M.StaticClusterWeight(
+                    target_cluster=M.ClusterAffinity(cluster_names=[nm]),
+                    weight=rng.randint(0, 3)))
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+            weight_preference=(M.ClusterPreferences(static_weight_list=wl)
+                               if wl else None))
+    elif strat == "dynamic":
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+            weight_preference=M.ClusterPreferences(
+                dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+    else:
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)
+    return M.Placement(cluster_affinity=affinity,
+                       cluster_tolerations=tolerations,
+                       spread_constraints=spread, replica_scheduling=rs)
+
+
+def mk_binding(M, rng, b, names, placements, replicas=(0, 1, 3, 10, 40)):
+    reqs = None
+    if rng.random() < 0.7:
+        reqs = M.ReplicaRequirements(resource_request={
+            "cpu": M.Quantity.from_milli(rng.choice([100, 250, 500, 1000])),
+            "memory": M.Quantity.from_units(rng.choice([1, 2, 4])),
+        })
+    spec = M.ResourceBindingSpec(
+        resource=M.ObjectReference(
+            api_version=GVK[0], kind=GVK[1], namespace="default",
+            name=f"app-{b}", uid=f"uid-{rng.randint(0, 10**9)}"),
+        replicas=rng.choice(replicas),
+        replica_requirements=reqs,
+        placement=rng.choice(placements),
+    )
+    status = M.ResourceBindingStatus()
+    if rng.random() < 0.4:
+        prev = rng.sample(names, rng.randint(1, min(3, len(names))))
+        spec.clusters = [M.TargetCluster(name=n, replicas=rng.randint(0, 20))
+                         for n in prev]
+        status.last_scheduled_time = 100.0
+        if rng.random() < 0.3:
+            spec.reschedule_triggered_at = 200.0
+    if rng.random() < 0.15:
+        spec.graceful_eviction_tasks = [
+            M.GracefulEvictionTask(from_cluster=rng.choice(names))]
+    return spec, status
+
+
+def random_scenario(M, seed, n_clusters=11, n_bindings=24, n_placements=5,
+                    spread_p=0.4):
+    rng = random.Random(seed)
+    names = [f"member-{i:03d}" for i in range(n_clusters)]
+    clusters = [mk_cluster(M, rng, nm) for nm in names]
+    placements = [mk_placement(M, rng, names, spread_p)
+                  for _ in range(n_placements)]
+    items = [mk_binding(M, rng, b, names, placements)
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+# -- the bench.py mix (without its region-spread class) ----------------------
+
+def build_fleet(M, rng, n_clusters):
+    Q = M.Quantity
+    out = []
+    for i in range(n_clusters):
+        out.append(M.Cluster(
+            metadata=M.ObjectMeta(name=f"member-{i:05d}"),
+            spec=M.ClusterSpec(region=f"r{i % 8}", provider=f"p{i % 3}"),
+            status=M.ClusterStatus(
+                api_enablements=[M.APIEnablement(GVK[0], [GVK[1]])],
+                resource_summary=M.ResourceSummary(
+                    allocatable={
+                        "cpu": Q.from_milli(rng.randint(16000, 128000)),
+                        "memory": Q.from_units(rng.randint(64, 512)),
+                        "pods": Q.from_units(rng.randint(110, 256)),
+                    },
+                    allocated={
+                        "cpu": Q.from_milli(rng.randint(0, 8000)),
+                        "memory": Q.from_units(rng.randint(0, 32)),
+                        "pods": Q.from_units(rng.randint(0, 40)),
+                    },
+                ),
+            ),
+        ))
+    return out
+
+
+def build_placements(M, rng, names):
+    """bench.py's placement mix minus the region-spread class: Duplicated,
+    StaticWeight, DynamicWeight, Aggregated + cluster spread (8 each)."""
+    out = []
+
+    def subset_affinity():
+        k = rng.randint(3, min(24, len(names)))
+        start = rng.randrange(len(names))
+        return M.ClusterAffinity(
+            cluster_names=[names[(start + j) % len(names)] for j in range(k)])
+
+    for _ in range(8):
+        out.append(M.Placement(
+            cluster_affinity=subset_affinity(),
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)))
+    for _ in range(8):
+        out.append(M.Placement(
+            cluster_affinity=subset_affinity(),
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=M.REPLICA_DIVISION_WEIGHTED)))
+    for _ in range(8):
+        out.append(M.Placement(
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+                weight_preference=M.ClusterPreferences(
+                    dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))))
+    for _ in range(8):
+        out.append(M.Placement(
+            spread_constraints=[M.SpreadConstraint(
+                spread_by_field=M.SPREAD_BY_FIELD_CLUSTER, min_groups=2,
+                max_groups=6)],
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)))
+    return out
+
+
+def build_bindings(M, rng, n_bindings, placements):
+    Q = M.Quantity
+    items = []
+    for b in range(n_bindings):
+        spec = M.ResourceBindingSpec(
+            resource=M.ObjectReference(
+                api_version=GVK[0], kind=GVK[1], namespace=f"ns-{b % 64}",
+                name=f"app-{b}", uid=f"uid-{b}"),
+            replicas=rng.choice([1, 2, 3, 5, 10, 20, 50]),
+            replica_requirements=M.ReplicaRequirements(resource_request={
+                "cpu": Q.from_milli(rng.choice([100, 250, 500])),
+                "memory": Q.from_units(rng.choice([1, 2, 4])),
+            }),
+            placement=placements[b % len(placements)],
+        )
+        items.append((spec, M.ResourceBindingStatus()))
+    return items
+
+
+def build_rebalance_items(M, rng, items, names):
+    """bench.py's second cycle: prev assignments plus a reschedule trigger
+    on a third of the bindings (scale-up/down, steady and fresh modes)."""
+    out = []
+    for k, (spec, _status) in enumerate(items):
+        prev_n = rng.randint(1, 4)
+        start = rng.randrange(len(names))
+        per = max(1, spec.replicas // prev_n)
+        prev = [M.TargetCluster(name=names[(start + j) % len(names)],
+                                replicas=per) for j in range(prev_n)]
+        new_spec = dataclasses.replace(
+            spec, clusters=prev,
+            reschedule_triggered_at=(100.0 if k % 3 == 0 else None))
+        out.append((new_spec, M.ResourceBindingStatus()))
+    return out
+
+
+def bench_scenario(M, seed, n_clusters, n_bindings):
+    rng = random.Random(seed)
+    clusters = build_fleet(M, rng, n_clusters)
+    names = [c.name for c in clusters]
+    placements = build_placements(M, rng, names)
+    items = build_bindings(M, rng, n_bindings, placements)
+    return clusters, items, rng, names

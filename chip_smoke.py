@@ -6,22 +6,29 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's kernels from ops/csrc/ with nvcc (sm_90a), then
-drives the device scheduling cycle at the synthetic-stress size
-(100,000 bindings x 5,000 clusters; chunk 4096, 8 waves, carry on):
+drives the device scheduling cycle at the synthetic-stress size of
+BASELINE config 5 (bench.py's mix: 100,000 bindings x 5,000 clusters,
+region spread included; chunk 4096, 8 waves, carry on):
 
   1. device and build: the card's name and power limit, nvcc's register /
-     shared-memory report per kernel;
-  2. kernel vs plain: each kernel against its plain PyTorch version on the
-     first chunk of the forward cycle (4096 x 8192 lanes), bit-exact, with
-     CUDA-event times, the plain version's time, the least time the card
-     could take (bound) and, for the COO extraction, a torch.nonzero
-     yardstick;
+     shared-memory report per kernel source;
+  2. kernel vs plain: each kernel against its plain PyTorch version,
+     bit-exact, with CUDA-event times, the plain version's time, the least
+     time the card could take (bound) and, for the COO extraction, a
+     torch.nonzero yardstick -- K1-K4 on the first chunk of the forward
+     cycle (4096 x 8192 lanes), K5 spread_group_info and K6 spread_pick on
+     that chunk's spread sub-batch, K2 on the big tier (and its K4
+     problems) on the first wide chunk's big sub-batch;
   3. forward cycle through scheduler.core.schedule_items, launch counters
      reset just before and read just after;
   4. rebalance cycle (prev assignments, reschedule triggers) the same way;
-  5. chunk parity: one chunk of each cycle through the kernel path on the
-     card and the plain path on the CPU, bit-exact (COO, status, nnz and
-     the carry accumulators), and result invariants over every binding.
+  5. chunk parity: one chunk of every cycle through solve_compact on the
+     card and on the CPU (COO, status, nnz and the carry accumulators),
+     and through schedule_items on the card and on the CPU, row by row (main, spread
+     and big-tier rows), plus result invariants over every binding;
+  6. the wide cycle: 16,384 bindings over the same fleet, every eighth
+     beyond the tier-1 compact caps (ROUTE_DEVICE_BIG and
+     ROUTE_DEVICE_SPREAD_BIG), so all four device routes run.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -33,6 +40,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import random
 import subprocess
@@ -43,6 +51,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
+WIDE_BINDINGS = 16_384     # phase 6's cycle
 
 
 def log(msg: str) -> None:
@@ -50,8 +59,6 @@ def log(msg: str) -> None:
 
 
 # -- the bench.py workload mix, written against the port's models --------------
-# (bench.py's generators, minus its region-spread placement class, which is
-# the spread plane's and not ported yet)
 
 GVK = ("apps/v1", "Deployment")
 
@@ -115,7 +122,81 @@ def build_placements(M, rng, names):
             replica_scheduling=M.ReplicaSchedulingStrategy(
                 replica_scheduling_type=divided,
                 replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)))
+    for _ in range(8):  # region topology spread (the device spread plane)
+        rmin = rng.randint(1, 2)
+        out.append(M.Placement(
+            spread_constraints=[
+                M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                                   min_groups=rmin,
+                                   max_groups=rng.randint(rmin, 3)),
+                M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                                   min_groups=2, max_groups=6)],
+            replica_scheduling=dynamic(M)))
     return out
+
+
+def dynamic(M):
+    return M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+
+
+def big_binding(M, rng, b, names, style):
+    """A binding beyond the tier-1 compact caps (after
+    tests/test_solver_batch.py:584-627 and tests/test_spread_device.py
+    :179-207): (0) DynamicWeight with 65-400 replicas, (1) Aggregated with
+    cluster MaxGroups 65-300, (2) DynamicWeight with 17-100 previous
+    clusters, (3) region spread over 1-3 regions with cluster MaxGroups
+    65-300 (ROUTE_DEVICE_SPREAD_BIG); the others route ROUTE_DEVICE_BIG."""
+    Q = M.Quantity
+    spec = M.ResourceBindingSpec(
+        resource=M.ObjectReference(
+            api_version=GVK[0], kind=GVK[1], namespace=f"ns-{b % 64}",
+            name=f"app-{b}", uid=f"uid-{b}"),
+        replica_requirements=M.ReplicaRequirements(resource_request={
+            "cpu": Q.from_milli(rng.choice([100, 250, 500])),
+            "memory": Q.from_units(rng.choice([1, 2, 4]))}))
+    if style == 0:
+        spec.replicas = rng.randint(65, 400)
+        spec.placement = M.Placement(replica_scheduling=dynamic(M))
+    elif style == 1:
+        spec.replicas = rng.randint(5, 60)
+        spec.placement = M.Placement(
+            spread_constraints=[M.SpreadConstraint(
+                spread_by_field=M.SPREAD_BY_FIELD_CLUSTER, min_groups=2,
+                max_groups=rng.randint(65, 300))],
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=M.REPLICA_DIVISION_AGGREGATED))
+    elif style == 2:
+        spec.replicas = rng.randint(30, 120)
+        spec.placement = M.Placement(replica_scheduling=dynamic(M))
+        spec.clusters = [M.TargetCluster(name=n, replicas=1)
+                         for n in rng.sample(names, rng.randint(17, 100))]
+    else:
+        rmin = rng.randint(1, 3)
+        spec.replicas = rng.randint(5, 60)
+        spec.placement = M.Placement(
+            spread_constraints=[
+                M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                                   min_groups=rmin,
+                                   max_groups=rng.randint(rmin, 3)),
+                M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                                   min_groups=2,
+                                   max_groups=rng.randint(65, 300))],
+            replica_scheduling=dynamic(M))
+    return spec, M.ResourceBindingStatus()
+
+
+def build_wide_items(M, rng, n_bindings, placements, names):
+    """Seven bindings in eight from bench.py's placements, every eighth one
+    of the four big styles in turn."""
+    items = build_bindings(M, rng, n_bindings, placements)
+    for b in range(7, n_bindings, 8):
+        items[b] = big_binding(M, rng, b, names, (b // 8) % 4)
+    return items
 
 
 def build_bindings(M, rng, n_bindings, placements):
@@ -219,19 +300,85 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     kernels.build(verbose=True)  # prints nvcc -Xptxas -v per source
     dt = time.perf_counter() - t0
-    log(f"phase 1 build: {len(kernels.KERNELS)} kernels in {dt:.1f} s "
+    log(f"phase 1 build: {len(kernels.SOURCES)} sources ({len(kernels.KERNELS)} "
+        f"kernels) in {dt:.1f} s "
         f"(sources {kernels.CSRC})")
 
 
-def phase_kernels(batch, waves: int, dev, reps: int) -> list:
-    """Each kernel vs its plain version on the same card inputs."""
+def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
+    """K2 (with K4 inside) on tier `tier` over a whole batch, wave by wave,
+    kernel path and plain path from the same zero carry; then one wave's
+    launch timed on wave 0's inputs.  Returns (max_abs_err, ms, plain_ms,
+    bound, the wave-0 K4 operands)."""
     from karmada_tpu_torch.ops import solver as S
 
+    B, C = db.B, db.C
+    waves = S._effective_waves(B, waves)
+    Bw = B // waves
+    zeros = S._zeros_used(db)
+    cap_in = (db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
+              zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
+              db.has_summary, db.est_override, zeros[2])
+
+    def run(rows_fn, cap_fn, capture=None):
+        used = tuple(u.clone() for u in zeros)
+        rep = torch.empty((B, C), dtype=torch.int64, device=dev)
+        sel = torch.empty((B, C), dtype=torch.bool, device=dev)
+        st = torch.empty((B,), dtype=torch.int32, device=dev)
+        for wv in range(waves):
+            est = cap_fn(db.req_milli, db.req_is_cpu, db.req_pods,
+                         db.avail_milli, used[0], db.has_alloc,
+                         db.pods_allowed, used[1], db.has_summary,
+                         db.est_override, used[2])
+            kw = {"capture": capture} if capture is not None and wv == 0 else {}
+            rows_fn(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel, st,
+                    use_extra=use_extra, charge=True, tier=tier, **kw)
+        return rep, sel, st, used
+
+    cap = {}
+    got = run(S.schedule_rows, S.capacity, cap)
+    want = run(S.schedule_rows_plain, S.capacity_plain)
+    err = max_abs_err(list(zip(got[:3], want[:3]))
+                      + list(zip(got[3], want[3])))
+    est0 = S.capacity(*cap_in)
+    out = (torch.empty((B, C), dtype=torch.int64, device=dev),
+           torch.empty((B, C), dtype=torch.bool, device=dev),
+           torch.empty((B,), dtype=torch.int32, device=dev))
+    it = iter([tuple(u.clone() for u in zeros) for _ in range(reps + 1)])
+
+    def wave(fn):
+        return lambda: fn(db, 0, Bw, est0, *next(it), *out,
+                          use_extra=use_extra, charge=True, tier=tier)
+
+    ms = cuda_ms(wave(S.schedule_rows), reps)
+    it = iter([tuple(u.clone() for u in zeros) for _ in range(4)])
+    plain_ms = cuda_ms(wave(S.schedule_rows_plain), 2)
+    row_in = nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_static_w,
+                    db.pl_extra_score, db.api_ok, db.cluster_valid,
+                    db.deleting, db.name_rank) + sum(
+        nbytes(db.t[f][:Bw]) for f in S._BINDING_FIELDS)
+    row_out = Bw * C * (8 + 1) + Bw * 4 + 2 * nbytes(*zeros)
+    return err, ms, plain_ms, bound_ms(row_in + row_out, Bw * C), \
+        cap["webster"], got
+
+
+def sort_ops(rows: int, C: int) -> float:
+    """Comparisons of a comparison sort of each row's C lanes."""
+    return rows * C * max(1.0, math.log2(C))
+
+
+def phase_kernels(batch, items, wide_items, fleet, args, dev,
+                  reps: int) -> list:
+    """Each kernel vs its plain version on the same card inputs."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import spread as SP
+    from karmada_tpu_torch.ops import tensors as T
+
+    waves = args.waves
     db = S.device_batch(batch, dev)
     B, C = db.B, db.C
     Q, R = db.req_milli.shape
-    waves = S._effective_waves(B, waves)
-    Bw = B // waves
     use_extra = S._use_extra(batch)
     zeros = S._zeros_used(db)
     rows = []
@@ -252,55 +399,42 @@ def phase_kernels(batch, waves: int, dev, reps: int) -> list:
         plain_ms=cuda_ms(lambda: S.capacity_plain(*cap_in), reps),
         bound_ms=b1[0], bound_by=b1[1], library_ms=None))
 
-    # K2 schedule_rows (+ K4 inside), the whole chunk wave by wave, kernel
-    # path and plain path from the same zero carry
-    def run(rows_fn, cap_fn, capture=None):
-        used = tuple(u.clone() for u in zeros)
-        rep = torch.empty((B, C), dtype=torch.int64, device=dev)
-        sel = torch.empty((B, C), dtype=torch.bool, device=dev)
-        st = torch.empty((B,), dtype=torch.int32, device=dev)
-        for wv in range(waves):
-            est = cap_fn(db.req_milli, db.req_is_cpu, db.req_pods,
-                         db.avail_milli, used[0], db.has_alloc,
-                         db.pods_allowed, used[1], db.has_summary,
-                         db.est_override, used[2])
-            kw = {"capture": capture} if capture is not None and wv == 0 else {}
-            rows_fn(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel, st,
-                    use_extra=use_extra, charge=True, **kw)
-        return rep, sel, st, used
-
-    cap = {}
-    rep_k, sel_k, st_k, used_k = run(S.schedule_rows, S.capacity, cap)
-    rep_p, sel_p, st_p, used_p = run(S.schedule_rows_plain, S.capacity_plain)
-    err2 = max_abs_err([(rep_k, rep_p), (sel_k, sel_p), (st_k, st_p)]
-                       + list(zip(used_k, used_p)))
-    # one wave's launch on wave 0's inputs, fresh accumulators per call
-    est0 = S.capacity(*cap_in)
-    out = (torch.empty((B, C), dtype=torch.int64, device=dev),
-           torch.empty((B, C), dtype=torch.bool, device=dev),
-           torch.empty((B,), dtype=torch.int32, device=dev))
-    pool = [tuple(u.clone() for u in zeros) for _ in range(reps + 1)]
-    it = iter(pool * 2)
-
-    def wave(fn):
-        return lambda: fn(db, 0, Bw, est0, *next(it), *out,
-                          use_extra=use_extra, charge=True)
-
-    k2_ms = cuda_ms(wave(S.schedule_rows), reps)
-    it = iter([tuple(u.clone() for u in zeros) for _ in range(4)])
-    k2_plain = cuda_ms(wave(S.schedule_rows_plain), 2)
-    row_in = nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_static_w,
-                    db.pl_extra_score, db.api_ok, db.cluster_valid,
-                    db.deleting, db.name_rank) + sum(
-        nbytes(db.t[f][:Bw]) for f in S._BINDING_FIELDS)
-    row_out = Bw * C * (8 + 1) + Bw * 4 + 2 * nbytes(*zeros)
-    b2 = bound_ms(row_in + row_out, Bw * C)
+    # K2 schedule_rows (+ K4 inside), the whole chunk wave by wave
+    err2, k2_ms, k2_plain, b2, web, (rep_k, sel_k, st_k, _) = hold_rows(
+        db, waves, use_extra, "std", dev, reps)
     rows.append(dict(
         name="schedule_rows", route="cuda",
         source="karmada_tpu_torch/ops/csrc/schedule_rows.cu",
         replaces="karmada_tpu/ops/solver.py:602",
         max_abs_err=err2, ms=k2_ms, plain_ms=k2_plain,
         bound_ms=b2[0], bound_by=b2[1], library_ms=None))
+
+    # K2 on the big tier: the first wide chunk's ROUTE_DEVICE_BIG rows as
+    # solve_big encodes them
+    cindex = T.ClusterIndex.build(fleet)
+    wide = wide_items[:args.chunk]
+    wb = T.encode_batch(wide, cindex, GeneralEstimator())
+    big_idx = [i for i in range(len(wide))
+               if wb.route[i] == T.ROUTE_DEVICE_BIG]
+    sub = T.encode_batch([wide[i] for i in big_idx], cindex,
+                         GeneralEstimator())
+    sub.b_valid[:len(big_idx)] = sub.route == T.ROUTE_DEVICE_BIG
+    dbig = S.device_batch(sub, dev)
+    err_b, kb_ms, kb_plain, bb, web_big, _ = hold_rows(
+        dbig, waves, S._use_extra(sub), "big", dev, reps)
+    # its K4 problems (5,248 lanes per row) against webster_plain too
+    sb_k = S.webster_batch(*web_big)
+    err_b = max(err_b, max_abs_err([(sb_k, S.webster_plain(*web_big))]))
+    wb_ms = cuda_ms(lambda: S.webster_batch(*web_big), reps)
+    log(f"phase 2 webster_batch on the big tier: {tuple(web_big[1].shape)} "
+        f"ms={wb_ms:.4f} (inside schedule_rows_big)")
+    rows.append(dict(
+        name="schedule_rows_big", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/schedule_rows.cu",
+        replaces="karmada_tpu/ops/solver.py:553",
+        max_abs_err=err_b, ms=kb_ms, plain_ms=kb_plain,
+        bound_ms=bb[0], bound_by=bb[1], library_ms=None))
+    log(f"phase 2 big sub-batch: {len(big_idx)} rows -> {dbig.B}x{dbig.C}")
 
     # K3 compact on the chunk's dense result
     nw = db.non_workload
@@ -331,7 +465,6 @@ def phase_kernels(batch, waves: int, dev, reps: int) -> list:
         library_ms=cuda_ms(library, reps)))
 
     # K4 webster_batch on the Webster problems K2 handed it in wave 0
-    web = cap["webster"]
     s_k = S.webster_batch(*web)
     s_p = S.webster_plain(*web)
     err4 = max_abs_err([(s_k, s_p)])
@@ -343,6 +476,52 @@ def phase_kernels(batch, waves: int, dev, reps: int) -> list:
         max_abs_err=err4, ms=cuda_ms(lambda: S.webster_batch(*web), reps),
         plain_ms=cuda_ms(lambda: S.webster_plain(*web), 2),
         bound_ms=b4[0], bound_by=b4[1], library_ms=None))
+
+    # K5 / K6 on the first chunk's region-spread sub-batch, with the
+    # operands solve_spread handed them
+    part = items[:args.chunk]
+    groups = T.spread_groups(batch, part)
+    cap = {}
+    SP.solve_spread(batch, part, groups[("", "std")], waves=waves,
+                    device=dev, capture=cap)
+    gi = cap["group_info"]
+    got = SP.spread_group_info(*gi)
+    err5 = max_abs_err(zip(got, SP.spread_group_info_plain(*gi)))
+    db5 = gi[0]
+    b5 = bound_ms(
+        nbytes(gi[1], gi[2], db5.cluster_valid, db5.deleting, db5.name_rank,
+               db5.api_ok, db5.pl_mask, db5.pl_tol_bypass,
+               db5.pl_extra_score, *gi[3:6], *got)
+        + sum(nbytes(db5.t[f]) for f in S._BINDING_FIELDS),
+        sort_ops(db5.B, C))
+    rows.append(dict(
+        name="spread_group_info", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/spread_group_info.cu",
+        replaces="karmada_tpu/ops/spread.py:222",
+        max_abs_err=err5, ms=cuda_ms(lambda: SP.spread_group_info(*gi), reps),
+        plain_ms=cuda_ms(lambda: SP.spread_group_info_plain(*gi), 2),
+        bound_ms=b5[0], bound_by=b5[1], library_ms=None))
+    pk = cap["pick"]
+    pick = SP.spread_pick(*pk)
+    err6 = max_abs_err([(pick, SP.spread_pick_plain(*pk))])
+    db6 = pk[0]
+    b6 = bound_ms(
+        nbytes(pk[1], pk[2], pk[3], pk[4], db6.cluster_valid, db6.deleting,
+               db6.name_rank, db6.api_ok, db6.pl_mask, db6.pl_tol_bypass,
+               db6.pl_extra_score, pick)
+        + sum(nbytes(db6.t[f]) for f in S._BINDING_FIELDS),
+        sort_ops(db6.B, C))
+    rows.append(dict(
+        name="spread_pick", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/spread_pick.cu",
+        replaces="karmada_tpu/ops/spread.py:251",
+        max_abs_err=err6, ms=cuda_ms(lambda: SP.spread_pick(*pk), reps),
+        plain_ms=cuda_ms(lambda: SP.spread_pick_plain(*pk), 2),
+        bound_ms=b6[0], bound_by=b6[1], library_ms=None))
+    log(f"phase 2 spread sub-batch: {len(groups[('', 'std')])} rows -> "
+        f"phase A {db5.B}x{C} G={gi[6]}, phase B {db6.B}x{C}, "
+        f"{int(pick.sum())} lanes picked")
+
     # the whole chunk's dispatch (upload, 8 waves of K1 + K2/K4, then K3)
     # between two events on the stream: host launch gaps included
     chunk_ms = cuda_ms(lambda: S.dispatch_compact(
@@ -388,8 +567,10 @@ def check_results(items, results, names) -> dict:
     return counts
 
 
-def phase_cycle(label, items, fleet, names, args, dev,
-                chunk_ms: float) -> dict:
+def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
+                need, routes) -> dict:
+    """One cycle through schedule_items; `need` names the kernels its path
+    must launch, `routes` the routes its rows must take."""
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.scheduler.core import schedule_items
     from karmada_tpu_torch.scheduler.pipeline import PipelineResult
@@ -407,38 +588,63 @@ def phase_cycle(label, items, fleet, names, args, dev,
     log(f"phase {label}: {len(items)} bindings x {len(fleet)} clusters in "
         f"{wall:.3f} s ({len(items) / wall:.0f} bindings/s); chunks="
         f"{stats.chunks} encode_s={stats.encode_s:.3f} "
-        f"dispatch_s={stats.dispatch_s:.3f} finalize_s={stats.finalize_s:.3f}"
-        f" decode_s={stats.decode_s:.3f}; results={counts}; "
-        f"launches={launches}; device busy share (chunks x phase-2 chunk "
+        f"dispatch_s={stats.dispatch_s:.3f} wait_s={stats.wait_s:.3f} "
+        f"finalize_s={stats.finalize_s:.3f}"
+        f" decode_s={stats.decode_s:.3f} spread_s={stats.spread_s:.3f} "
+        f"big_s={stats.big_s:.3f}; routes={stats.routes}; results={counts}; "
+        f"launches={launches}; main-path busy share (chunks x phase-2 chunk "
         f"time / wall) ~{stats.chunks * chunk_ms / 1e3 / wall:.3f}")
-    for k, v in launches.items():
-        if v <= 0:
+    for k in need:
+        if launches[k] <= 0:
             raise AssertionError(f"{label}: kernel {k} never launched")
+    for r in routes:
+        if stats.routes.get(r, 0) <= 0:
+            raise AssertionError(f"{label}: no row took route {r}")
     return launches
+
+
+def norm(r):
+    if isinstance(r, Exception):
+        return type(r).__name__
+    return sorted((t.name, t.replicas) for t in r)
 
 
 def phase_parity(label, items, fleet, args, dev) -> None:
     """One chunk through the kernel path on the card and the plain path on
-    the CPU; bit-exact COO, status, nnz and carry accumulators."""
+    the CPU: solve_compact's COO, status, nnz and carry accumulators, and
+    schedule_items' results row by row."""
+    import numpy as np
+
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import solver as S
     from karmada_tpu_torch.ops import tensors as T
+    from karmada_tpu_torch.scheduler.core import schedule_items
 
     part = items[:args.chunk]
     batch = T.encode_batch(part, T.ClusterIndex.build(fleet),
                            GeneralEstimator(), cache=T.EncoderCache())
     k = S.solve_compact(batch, waves=args.waves, with_used=True, device=dev)
-    p = S.solve_compact(batch, waves=args.waves, with_used=True,
-                        device="cpu")
-    import numpy as np
-
+    p = S.solve_compact(batch, waves=args.waves, with_used=True, device="cpu")
     same = (k[3] == p[3] and np.array_equal(k[0], p[0])
             and np.array_equal(k[1], p[1]) and np.array_equal(k[2], p[2])
             and all(np.array_equal(a, b) for a, b in zip(k[4], p[4])))
     log(f"phase 5 parity {label}: chunk {batch.B}x{batch.C} nnz={k[3]} "
-        f"kernel==plain(cpu): {same}")
+        f"solve_compact kernel==plain(cpu): {same}")
     if not same:
         raise AssertionError(f"{label}: kernel path != plain path")
+    t0 = time.perf_counter()
+    card = [norm(r) for r in schedule_items(
+        part, fleet, chunk=args.chunk, waves=args.waves, device=dev)]
+    t1 = time.perf_counter()
+    cpu = [norm(r) for r in schedule_items(
+        part, fleet, chunk=args.chunk, waves=args.waves, device="cpu")]
+    bad = [i for i, (a, b) in enumerate(zip(card, cpu)) if a != b]
+    log(f"phase 5 parity {label}: schedule_items on {len(part)} bindings, "
+        f"card {t1 - t0:.2f} s, cpu {time.perf_counter() - t1:.2f} s, "
+        f"rows differing: {len(bad)}")
+    if bad:
+        raise AssertionError(f"{label}: rows {bad[:10]} differ: card "
+                             f"{card[bad[0]]} cpu {cpu[bad[0]]}")
 
 
 def main() -> int:
@@ -468,25 +674,37 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet = build_fleet(M, rng, args.clusters)
     names = [c.name for c in fleet]
-    items = build_bindings(M, rng, args.bindings,
-                           build_placements(M, rng, names))
-    log(f"workload: {args.bindings} bindings x {args.clusters} clusters "
-        f"built in {time.perf_counter() - t0:.1f} s (seed {args.seed})")
+    placements = build_placements(M, rng, names)
+    items = build_bindings(M, rng, args.bindings, placements)
+    wide_items = build_wide_items(M, random.Random(args.seed + 1),
+                                  WIDE_BINDINGS, placements, names)
+    log(f"workload: {args.bindings} bindings x {args.clusters} clusters, "
+        f"wide {WIDE_BINDINGS}, built in {time.perf_counter() - t0:.1f}"
+        f" s (seed {args.seed})")
 
     first = T.encode_batch(items[:args.chunk], T.ClusterIndex.build(fleet),
                            GeneralEstimator(), cache=T.EncoderCache())
-    report, chunk_ms = phase_kernels(first, args.waves, dev, args.reps)
+    report, chunk_ms = phase_kernels(first, items, wide_items, fleet, args,
+                                     dev, args.reps)
 
-    fwd = phase_cycle("3 forward", items, fleet, names, args, dev,
-                      chunk_ms)
+    main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
+                 "spread_group_info", "spread_pick")
+    cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
+    fwd = phase_cycle("3 forward", items, fleet, names, args, dev, chunk_ms,
+                      main_path, cfg5)
     reb_items = build_rebalance_items(M, rng, items, names)
-    reb = phase_cycle("4 rebalance", reb_items, fleet, names, args,
-                      dev, chunk_ms)
+    reb = phase_cycle("4 rebalance", reb_items, fleet, names, args, dev,
+                      chunk_ms, main_path, cfg5)
+    wide = phase_cycle(
+        "6 wide", wide_items, fleet, names, args, dev, chunk_ms,
+        main_path + ("schedule_rows_big",),
+        cfg5 + (T.ROUTE_DEVICE_BIG, T.ROUTE_DEVICE_SPREAD_BIG))
     for r in report:
-        r["launches"] = fwd[r["name"]] + reb[r["name"]]
+        r["launches"] = fwd[r["name"]] + reb[r["name"]] + wide[r["name"]]
 
     phase_parity("forward", items, fleet, args, dev)
     phase_parity("rebalance", reb_items, fleet, args, dev)
+    phase_parity("wide", wide_items, fleet, args, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

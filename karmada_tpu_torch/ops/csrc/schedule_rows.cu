@@ -1,27 +1,32 @@
-// K2 schedule_rows: one wave's binding rows, one thread block per row.
+// K2 schedule_rows: one wave's binding rows, one thread block per row, on
+// either lane tier.
 //
 // Replaces karmada_tpu/ops/solver.py: _schedule_one with _gather_lanes,
 // _assign_lanes, _select_by_cluster, _locality_score and webster_divide
 // (vmapped over the wave's rows), the per-row prologue of wave_step
-// (feasibility, avail_cal, the prev/evict COO scatter) and its consumption
-// charge (used += max(rep - prev, 0) per resource, pod and class).
+// (feasibility, avail_cal, the prev/evict COO scatter; rows.cuh) and its
+// consumption charge (used += max(rep - prev, 0) per resource, pod and
+// class) -- for the std lane tier (_TIERS["std"]) and the big one
+// (_TIERS["big"], the ROUTE_DEVICE_BIG / SPREAD_BIG sub-solves).
 //
 // Per row:
 //   1. scalars, and the row's prev/evict COO entries into shared memory
 //      (no dense [B, C] prev/evict planes);
-//   2. the lane set: every lane when C <= 528 (direct), else the union of
-//      top-16 by prev key and top-128 by each of three (four with plugin
-//      scores) packed keys.  Keys go to a per-row scratch in device memory;
-//      an 8-pass radix select finds each group's k-th largest key (the
+//   2. the lane set: every lane when C <= DIRECT_MAX (528 std, 4224 big),
+//      else the union of top-G_PREV by prev key and top-G_TOPK by each of
+//      three (four with plugin scores) packed keys (16 / 128 std, 128 /
+//      1024 big).  Keys go to a per-row scratch in device memory; an
+//      8-pass radix select finds each group's k-th largest key (the
 //      non-negative keys are distinct), and the lowest-index lanes with key
 //      -1 fill a group that has fewer eligible lanes, exactly as lax.top_k
 //      breaks ties.  An ordered scan writes the union ascending.  Works for
-//      any C up to 2^21: only the <= 656 gathered lanes live in shared memory;
-//   3. the lane math on those lanes in shared memory: locality score,
-//      selection by packed key (bitonic sort of (key, lane) pairs = a stable
-//      argsort) and the capacity swap loop, strategy and mode, Aggregated
-//      capacity-descending prefix (sort + scan); the row's Webster problem
-//      (ranks densified in rank_eff order) goes to device memory;
+//      any C up to 2^21;
+//   3. the lane math on those lanes (<= LMAX: 656 std, 5248 big): locality
+//      score, selection by packed key (bitonic sort of (key, lane) pairs =
+//      a stable argsort) and the capacity swap loop, strategy and mode,
+//      Aggregated capacity-descending prefix (sort + scan); the row's
+//      Webster problem (ranks densified in rank_eff order) goes to device
+//      memory;
 //   -- K4 webster_batch (webster_batch.cu) solves every row's problem --
 //   4. schedule_rows_finish: the dense rep/sel row (wide Duplicated /
 //      selection formulas over all lanes, then the gathered lanes) and
@@ -30,26 +35,39 @@
 //
 // Bound on the card: at 4096 x 8192 the dense output (rep int64 + sel) and
 // the key scratch dominate the bytes; the bisections of Webster and the
-// sorts are block-local operations on shared memory.  Design: simple and
-// right first -- one block per row keeps every row's control flow
-// independent (rows diverge in strategy and loop counts).
+// sorts are block-local operations.  Design: simple and right first -- one
+// block per row keeps every row's control flow independent (rows diverge
+// in strategy and loop counts).  The std tier keeps a row's lane working
+// set (~8.6 KB) and sort buffer in shared memory.  The big tier's working
+// set (~470 KB at 5,248 lanes) exceeds a block's 227 KB, so it lives in a
+// per-row scratch in device memory (`work`; at sub-batch row counts it
+// stays in L2), and shared memory holds only the (key, lane) sort buffer
+// (8,192 entries, 96 KB), the COO entries and the reductions.
 #include "webster.cuh"
+#include "rows.cuh"
 
 constexpr int NT = 256;
-constexpr int G_PREV = 16;
-constexpr int G_TOPK = 128;
 constexpr int NG_MAX = 5;
-constexpr int LMAX = G_PREV + NG_MAX * G_TOPK;  // 656 gathered lanes at most
-constexpr int SORTN = 1024;                     // pow2 >= LMAX
-constexpr int DIRECT_MAX = 528;
-constexpr int LANE_BITS = 21;
-constexpr i64 LANE_MASK = (1LL << LANE_BITS) - 1;
-constexpr int AVAIL_BITS = 34;
-constexpr i64 AVAIL_CAP = (1LL << AVAIL_BITS) - 1;
 constexpr int STRAT_DUPLICATED = 0, STRAT_STATIC = 1, STRAT_DYNAMIC = 2,
               STRAT_AGGREGATED = 3;
 constexpr int STATUS_OK = 0, STATUS_FIT_ERROR = 1, STATUS_UNSCHEDULABLE = 2,
               STATUS_NO_CLUSTER = 3;
+
+// gather geometry per lane tier (solver.py TIERS): LMAX = G_PREV + 5 *
+// G_TOPK gathered lanes at most, SORTN a power of two >= LMAX
+template <int G_PREV_, int G_TOPK_, int DIRECT_MAX_, bool WORK_SMEM_>
+struct Tier {
+  static constexpr int G_PREV = G_PREV_;
+  static constexpr int G_TOPK = G_TOPK_;
+  static constexpr int DIRECT_MAX = DIRECT_MAX_;
+  static constexpr int LMAX = G_PREV_ + NG_MAX * G_TOPK_;
+  static constexpr int SORTN = LMAX <= 1024 ? 1024 : 8192;
+  static constexpr bool WORK_SMEM = WORK_SMEM_;
+};
+using TierStd = Tier<16, 128, 528, true>;
+using TierBig = Tier<128, 1024, 4224, false>;
+static_assert(TierStd::LMAX == 656 && TierBig::LMAX == 5248, "lane geometry");
+static_assert(TierBig::SORTN >= TierBig::LMAX, "sort buffer");
 
 struct RowsArgs {
   const unsigned char* cluster_valid;  // [C]
@@ -88,6 +106,7 @@ struct RowsArgs {
   unsigned char* sel;                  // [B, C]
   int* status;                         // [B]
   i64* scratch;                        // [rows, NG, C] keys (gather path)
+  char* work;                          // [rows, work_bytes] big tier only
   // per-row work of one launch slice ([rows] / [rows, LMAX]): the Webster
   // problems K4 solves, and what the finish step needs
   i64* web_n;
@@ -108,7 +127,9 @@ struct RowsArgs {
 constexpr int FLAG_OK = 1 << 8, FLAG_SEATS = 1 << 9, FLAG_DUP_WIDE = 1 << 10,
               FLAG_HAS_SC = 1 << 11, FLAG_VALID = 1 << 12;
 
-// shared memory of one row (dynamic; carved in this order, 8-byte first)
+// one row's working memory: the lane arrays (`work`: shared memory on the
+// std tier, device memory on the big tier) and the sort buffer, COO
+// entries and radix histograms (`sort`: always shared memory)
 struct Smem {
   i64 *avail_cal, *prev_rep, *extra, *nr, *static_w, *avail, *w, *rest_pos,
       *rank_w, *skey, *pval;
@@ -116,46 +137,53 @@ struct Smem {
   unsigned char *feas, *pp, *sel, *in_sel, *active, *inc;
 };
 
-__host__ __device__ inline size_t smem_bytes(i64 Kp, i64 Ke) {
-  return (size_t)(9 * LMAX + SORTN + Kp) * 8 +
-         (size_t)(3 * LMAX + SORTN + Kp + Ke + NG_MAX * 256) * 4 +
-         (size_t)6 * LMAX;
+__host__ __device__ inline size_t work_bytes(int lmax) {
+  return ((size_t)9 * lmax * 8 + (size_t)3 * lmax * 4 + (size_t)6 * lmax +
+          15) / 16 * 16;
 }
 
-__device__ inline Smem carve(char* base, i64 Kp, i64 Ke) {
+__host__ __device__ inline size_t sort_bytes(int sortn, i64 Kp, i64 Ke) {
+  return (size_t)(sortn + Kp) * 8 + (size_t)(sortn + Kp + Ke + NG_MAX * 256) * 4;
+}
+
+__device__ inline Smem carve(char* work, char* sort, int lmax, int sortn,
+                             i64 Kp, i64 Ke) {
   Smem s;
-  i64* p = (i64*)base;
-  s.avail_cal = p; p += LMAX;
-  s.prev_rep = p; p += LMAX;
-  s.extra = p; p += LMAX;
-  s.nr = p; p += LMAX;
-  s.static_w = p; p += LMAX;
-  s.avail = p; p += LMAX;
-  s.w = p; p += LMAX;
-  s.rest_pos = p; p += LMAX;
-  s.rank_w = p; p += LMAX;
-  s.skey = p; p += SORTN;
-  s.pval = p; p += Kp;
+  i64* p = (i64*)work;
+  s.avail_cal = p; p += lmax;
+  s.prev_rep = p; p += lmax;
+  s.extra = p; p += lmax;
+  s.nr = p; p += lmax;
+  s.static_w = p; p += lmax;
+  s.avail = p; p += lmax;
+  s.w = p; p += lmax;
+  s.rest_pos = p; p += lmax;
+  s.rank_w = p; p += lmax;
   int* q = (int*)p;
-  s.lane = q; q += LMAX;
-  s.pos = q; q += LMAX;
-  s.order = q; q += LMAX;
-  s.sidx = q; q += SORTN;
+  s.lane = q; q += lmax;
+  s.pos = q; q += lmax;
+  s.order = q; q += lmax;
+  unsigned char* u = (unsigned char*)q;
+  s.feas = u; u += lmax;
+  s.pp = u; u += lmax;
+  s.sel = u; u += lmax;
+  s.in_sel = u; u += lmax;
+  s.active = u; u += lmax;
+  s.inc = u; u += lmax;
+  p = (i64*)sort;
+  s.skey = p; p += sortn;
+  s.pval = p; p += Kp;
+  q = (int*)p;
+  s.sidx = q; q += sortn;
   s.pidx = q; q += Kp;
   s.eidx = q; q += Ke;
   s.hist = q; q += NG_MAX * 256;
-  unsigned char* u = (unsigned char*)q;
-  s.feas = u; u += LMAX;
-  s.pp = u; u += LMAX;
-  s.sel = u; u += LMAX;
-  s.in_sel = u; u += LMAX;
-  s.active = u; u += LMAX;
-  s.inc = u; u += LMAX;
   return s;
 }
 
-// Stable ascending argsort of key[0..U) (ties by lane index): pos[i] is
-// lane i's rank, order[p] the lane at rank p.
+// Stable ascending argsort of key[0..U) (ties by lane index; rows.cuh
+// block_sort): pos[i] is lane i's rank, order[p] the lane at rank p.
+// U <= the tier's SORTN.
 __device__ void block_argsort(const i64* key, int U, Smem& s) {
   int N = 2;
   while (N < U) N <<= 1;
@@ -164,59 +192,12 @@ __device__ void block_argsort(const i64* key, int U, Smem& s) {
     s.sidx[i] = i;
   }
   __syncthreads();
-  for (int k = 2; k <= N; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < N; i += NT) {
-        const int ixj = i ^ j;
-        if (ixj > i) {
-          const i64 ka = s.skey[i], kb = s.skey[ixj];
-          const int ia = s.sidx[i], ib = s.sidx[ixj];
-          const bool gt = ka > kb || (ka == kb && ia > ib);
-          if (gt == ((i & k) == 0)) {
-            s.skey[i] = kb; s.skey[ixj] = ka;
-            s.sidx[i] = ib; s.sidx[ixj] = ia;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
+  block_sort<NT, false, false>(nullptr, s.skey, s.sidx, N);
   for (int p = threadIdx.x; p < U; p += NT) {
     s.order[p] = s.sidx[p];
     s.pos[s.sidx[p]] = p;
   }
   __syncthreads();
-}
-
-struct Row {
-  i64 b, slot, pid, gvk, cid, n;
-  int strategy, n_prev, n_evict;
-  bool has_sc, ignore, uid_desc, fresh, nw, nw_shortcut;
-  i64 sc_min, sc_max;
-};
-
-struct LaneInfo {
-  bool feas, pp;
-  i64 pr, ac;
-};
-
-__device__ __forceinline__ LaneInfo lane_info(const RowsArgs& a, const Row& row,
-                                              const Smem& s, i64 c) {
-  LaneInfo l;
-  l.pp = false;
-  l.pr = 0;
-  for (int e = 0; e < row.n_prev; ++e)
-    if (s.pidx[e] == c) { l.pp = true; l.pr += s.pval[e]; }
-  bool ev = false;
-  for (int e = 0; e < row.n_evict; ++e) ev |= s.eidx[e] == c;
-  const i64 est_b = a.est[row.cid * a.C + c];
-  l.ac = est_b == KT_MAX_INT32 ? row.n : est_b;
-  if (row.nw_shortcut) l.ac = KT_MAX_INT32;
-  const i64 pc = row.pid * a.C + c;
-  l.feas = a.cluster_valid[c] && !a.deleting[c] && a.pl_mask[pc] &&
-           (a.pl_tol_bypass[pc] || l.pp) &&
-           (a.api_ok[row.gvk * a.C + c] || l.pp) && !ev;
-  return l;
 }
 
 __device__ __forceinline__ i64 rank_eff_of(const RowsArgs& a, const Row& row,
@@ -248,8 +229,10 @@ __device__ __forceinline__ i64 gather_key(const RowsArgs& a, const Row& row,
 
 // Step 2 of the gather path: the union of the groups' top-k lanes into
 // s.lane (ascending); returns its size.
+template <class T>
 __device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
                             i64* red, int* wsum) {
+  constexpr int G_PREV = T::G_PREV, G_TOPK = T::G_TOPK;
   const int ng = a.use_extra ? 5 : 4;
   i64* keys = a.scratch + row.slot * ng * a.C;
   __shared__ int cnt[NG_MAX];
@@ -265,7 +248,7 @@ __device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
   const bool has_prev = row.n_prev > 0;
   int my_cnt[NG_MAX] = {0, 0, 0, 0, 0};
   for (i64 c = threadIdx.x; c < a.C; c += NT) {
-    const LaneInfo l = lane_info(a, row, s, c);
+    const LaneInfo l = lane_info(a, row, c);
     for (int g = 0; g < ng; ++g) {
       const i64 k = gather_key(a, row, l, has_prev, g, c);
       keys[g * a.C + c] = k;
@@ -348,16 +331,19 @@ __device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
 
 // Steps 1-3: the row's lane set and lane math up to its Webster problem
 // (web_*), plus what step 4 needs (wk_*).
+template <class T>
 __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
+  constexpr int LMAX = T::LMAX;
   extern __shared__ __align__(16) char smem_raw[];
   __shared__ i64 red[33];
   __shared__ int wsum[NT / 32];
-  __shared__ int n_prev, n_evict;
-  Smem s = carve(smem_raw, a.Kp, a.Ke);
+  const i64 slot = blockIdx.x;
+  Smem s = carve(T::WORK_SMEM ? smem_raw : a.work + slot * work_bytes(LMAX),
+                 T::WORK_SMEM ? smem_raw + work_bytes(LMAX) : smem_raw, LMAX,
+                 T::SORTN, a.Kp, a.Ke);
   Row row;
-  row.slot = blockIdx.x;
-  row.b = a.r0 + blockIdx.x;
-  const i64 b = row.b;
+  row.slot = slot;
+  const i64 b = a.r0 + slot;
   const i64 C = a.C;
   if (!a.b_valid[b]) {
     // host-owned / padding rows: no Webster problem, finish writes zeros
@@ -370,10 +356,8 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
     if (threadIdx.x == 0) { a.web_n[row.slot] = 0; a.wk_flags[row.slot] = 0; }
     return;
   }
-  row.pid = a.placement_id[b];
-  row.gvk = a.gvk_id[b];
-  row.cid = a.class_id[b] >= 0 ? a.class_id[b] : a.Q;
-  row.n = a.replicas[b];
+  // 1. the row's scalars and prev / evict COO entries
+  load_row<NT>(a, b, row, s.pidx, s.pval, s.eidx);
   row.strategy = a.pl_strategy[row.pid];
   row.has_sc = a.pl_has_cluster_sc[row.pid];
   row.sc_min = a.pl_sc_min[row.pid];
@@ -382,39 +366,20 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
   row.uid_desc = a.uid_desc[b];
   row.fresh = a.fresh[b];
   row.nw = a.non_workload[b];
-  row.nw_shortcut = a.nw_shortcut[b];
-  // 1. the row's prev / evict COO entries
-  if (threadIdx.x == 0) { n_prev = 0; n_evict = 0; }
-  __syncthreads();
-  for (i64 j = threadIdx.x; j < a.Kp; j += NT) {
-    const int c = a.prev_idx[b * a.Kp + j];
-    if (c >= 0) {
-      const int e = atomicAdd(&n_prev, 1);
-      s.pidx[e] = c;
-      s.pval[e] = a.prev_val[b * a.Kp + j];
-    }
-  }
-  for (i64 j = threadIdx.x; j < a.Ke; j += NT) {
-    const int c = a.evict_idx[b * a.Ke + j];
-    if (c >= 0) s.eidx[atomicAdd(&n_evict, 1)] = c;
-  }
-  __syncthreads();
-  row.n_prev = n_prev;
-  row.n_evict = n_evict;
 
   // 2. the lane set
-  const bool direct = C <= DIRECT_MAX;
+  const bool direct = C <= T::DIRECT_MAX;
   int U;
   if (direct) {
     U = (int)C;
     for (int i = threadIdx.x; i < U; i += NT) s.lane[i] = i;
     __syncthreads();
   } else {
-    U = gather_lanes(a, row, s, red, wsum);
+    U = gather_lanes<T>(a, row, s, red, wsum);
   }
   for (int i = threadIdx.x; i < U; i += NT) {
     const i64 c = s.lane[i];
-    const LaneInfo l = lane_info(a, row, s, c);
+    const LaneInfo l = lane_info(a, row, c);
     const i64 pc = row.pid * C + c;
     s.feas[i] = l.feas;
     s.pp[i] = l.pp;
@@ -623,7 +588,9 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
 // (the same global addresses, ordered by the barrier) -- the status, and
 // the row's new consumption max(rep - prev, 0) added into used_* with
 // 64-bit integer atomics (exact and order-free).
+template <class T>
 __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
+  constexpr int LMAX = T::LMAX;
   const i64 slot = blockIdx.x;
   const i64 b = a.r0 + slot;
   const i64 C = a.C;
@@ -643,7 +610,7 @@ __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
   const bool has_sc = flags & FLAG_HAS_SC;
   const i64 n = a.replicas[b];
   const i64 wo = slot * LMAX;
-  const bool direct = C <= DIRECT_MAX;
+  const bool direct = C <= T::DIRECT_MAX;
   const int ng = a.use_extra ? 5 : 4;
   const i64* wkeys = a.scratch + slot * ng * C + C;  // key_w_rank
   auto feas_at = [&](i64 c) -> bool {
@@ -698,22 +665,41 @@ __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
   }
 }
 
-extern "C" int kt_schedule_rows_prepare(const RowsArgs* a, void* stream) {
+template <class T>
+int launch_prepare(const RowsArgs* a, void* stream) {
   const i64 rows = a->r1 - a->r0;
   if (rows <= 0) return 0;
-  const size_t smem = smem_bytes(a->Kp, a->Ke);
+  const size_t smem = sort_bytes(T::SORTN, a->Kp, a->Ke) +
+                      (T::WORK_SMEM ? work_bytes(T::LMAX) : 0);
   cudaError_t e = cudaFuncSetAttribute(
-      schedule_rows_prepare, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      schedule_rows_prepare<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  schedule_rows_prepare<<<(unsigned)rows, NT, smem, (cudaStream_t)stream>>>(*a);
+  schedule_rows_prepare<T>
+      <<<(unsigned)rows, NT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_finish(const RowsArgs* a, void* stream) {
+  const i64 rows = a->r1 - a->r0;
+  if (rows <= 0) return 0;
+  schedule_rows_finish<T><<<(unsigned)rows, NT, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kt_schedule_rows_prepare(const RowsArgs* a, void* stream) {
+  return launch_prepare<TierStd>(a, stream);
 }
 
 extern "C" int kt_schedule_rows_finish(const RowsArgs* a, void* stream) {
-  const i64 rows = a->r1 - a->r0;
-  if (rows <= 0) return 0;
-  schedule_rows_finish<<<(unsigned)rows, NT, 0, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+  return launch_finish<TierStd>(a, stream);
 }
 
+extern "C" int kt_schedule_rows_big_prepare(const RowsArgs* a, void* stream) {
+  return launch_prepare<TierBig>(a, stream);
+}
+
+extern "C" int kt_schedule_rows_big_finish(const RowsArgs* a, void* stream) {
+  return launch_finish<TierBig>(a, stream);
+}

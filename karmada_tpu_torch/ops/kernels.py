@@ -26,11 +26,21 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("capacity", "schedule_rows", "compact", "webster_batch")
-#: C entry points (kt_<entry>) of each kernel's library
+#: kernel sources (ops/csrc/<source>.cu), one library each
+SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
+           "spread_group_info", "spread_pick")
+#: C entry points (kt_<entry>) of each source's library
 ENTRIES = {"capacity": ("capacity",),
-           "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish"),
-           "compact": ("compact",), "webster_batch": ("webster_batch",)}
+           "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish",
+                             "schedule_rows_big_prepare",
+                             "schedule_rows_big_finish"),
+           "compact": ("compact",), "webster_batch": ("webster_batch",),
+           "spread_group_info": ("spread_group_info",),
+           "spread_pick": ("spread_pick",)}
+#: the kernels, by launch counter: K2's big-tier instantiation counts
+#: apart from the std one it shares a source with
+KERNELS = ("capacity", "schedule_rows", "schedule_rows_big", "compact",
+           "webster_batch", "spread_group_info", "spread_pick")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -80,14 +90,14 @@ def build(verbose: bool = False) -> Dict[str, Path]:
     together) unless this source hash was built already; load them all.
     Raises with nvcc's output when a build fails."""
     with _LOCK:
-        if len(_LIBS) == len(KERNELS):
-            return {k: Path(_LIBS[k]._name) for k in KERNELS}
+        if len(_LIBS) == len(SOURCES):
+            return {k: Path(_LIBS[k]._name) for k in SOURCES}
         out_dir = build_dir() / _digest()
         out_dir.mkdir(parents=True, exist_ok=True)
-        paths = {k: out_dir / f"lib{k}.so" for k in KERNELS}
+        paths = {k: out_dir / f"lib{k}.so" for k in SOURCES}
         procs = {}
         nvcc = _nvcc()
-        for k in KERNELS:
+        for k in SOURCES:
             if paths[k].exists():
                 continue
             tmp = out_dir / f"lib{k}.so.tmp{os.getpid()}"
@@ -108,7 +118,7 @@ def build(verbose: bool = False) -> Dict[str, Path]:
                 os.replace(tmp, paths[k])
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-        for k in KERNELS:
+        for k in SOURCES:
             lib = ctypes.CDLL(str(paths[k]))
             for entry in ENTRIES[k]:
                 fn = getattr(lib, f"kt_{entry}")
@@ -136,21 +146,23 @@ def check(t: torch.Tensor, dtype, shape) -> None:
         raise ValueError("kernel operand is not contiguous")
 
 
-def launch(name: str, args: ctypes.Structure, entry: Optional[str] = None,
-           count: bool = True) -> None:
-    """Launch a kernel's C entry (default: the kernel's own name) on the
-    current stream; raises when the launch is refused.  `count` adds one
-    to the kernel's launch counter (a wrapper whose kernel runs as
-    several entries counts once)."""
+def launch(source: str, args: ctypes.Structure, entry: Optional[str] = None,
+           count: Optional[str] = None) -> None:
+    """Launch a C entry of a source's library (default: the source's own
+    name) on the current stream; raises when the launch is refused.
+    `count` names the kernel whose launch counter gets one (a wrapper
+    whose kernel runs as several entries counts once; default: the
+    source's own name when `entry` is omitted)."""
     build()
-    entry = entry or name
-    rc = getattr(_LIBS[name], f"kt_{entry}")(
+    if entry is None:
+        entry, count = source, count or source
+    rc = getattr(_LIBS[source], f"kt_{entry}")(
         ctypes.byref(args),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"kernel {entry} launch failed: CUDA error {rc}")
     if count:
-        LAUNCHES[name] += 1
+        LAUNCHES[count] += 1
 
 
 # -- argument structs (mirror ops/csrc/*.cu) ---------------------------------
@@ -189,8 +201,38 @@ ROWS_WORK_FIELDS = (
 
 RowsArgs = _struct("RowsArgs", ROWS_TENSOR_FIELDS + (
     "est", "used_milli", "used_pods", "used_sets", "rep", "sel", "status",
-    "scratch") + ROWS_WORK_FIELDS,
+    "scratch", "work") + ROWS_WORK_FIELDS,
     ("r0", "r1", "C", "Q", "R", "Kp", "Ke", "use_extra", "charge"))
 
-#: gathered lanes per row at most (G_PREV + 5 * G_TOPK; schedule_rows.cu)
-LMAX = 656
+#: gathered lanes per row at most, per lane tier (g_prev + 5 * g_topk;
+#: schedule_rows.cu TierStd / TierBig)
+LMAX = {"std": 656, "big": 5248}
+
+
+def rows_work_bytes(tier: str) -> int:
+    """Bytes of one row's lane working set (schedule_rows.cu work_bytes):
+    in shared memory on the std tier, in the `work` scratch in device
+    memory on the big tier."""
+    L = LMAX[tier]
+    return (9 * L * 8 + 3 * L * 4 + 6 * L + 15) // 16 * 16
+
+
+SPREAD_TENSOR_FIELDS = (
+    "cluster_valid", "deleting", "name_rank", "api_ok", "pl_mask",
+    "pl_tol_bypass", "pl_extra_score", "placement_id", "gvk_id", "class_id",
+    "replicas", "nw_shortcut", "prev_idx", "prev_val", "evict_idx")
+
+SpreadInfoArgs = _struct("SpreadInfoArgs", SPREAD_TENSOR_FIELDS + (
+    "est", "group_id", "region_min", "cluster_min", "duplicated",
+    "sort_key", "sort_idx", "sort_gid", "firstpos", "segbuf", "score_g",
+    "avail_g", "value_g", "feas_any"),
+    ("B", "C", "Q", "Kp", "Ke", "G", "N", "smem"))
+
+SpreadPickArgs = _struct("SpreadPickArgs", SPREAD_TENSOR_FIELDS + (
+    "est", "group_id", "chosen", "cluster_max", "sort_key", "sort_idx",
+    "sort_gid", "firstpos", "pick"),
+    ("B", "C", "Q", "Kp", "Ke", "G", "N", "smem"))
+
+#: lanes the spread kernels sort in shared memory (16 B each); wider rows
+#: sort in their device-memory scratch
+SPREAD_SMEM_LANES = 8192

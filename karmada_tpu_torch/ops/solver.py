@@ -16,6 +16,11 @@ here as a Python loop of kernel launches per chunk:
 K4 webster_batch runs the Webster allocation K2 uses on its own, so that
 it can be held against its plain version by itself.
 
+K2 runs on one of two lane tiers (JAX: _TIERS): "std" for the main route,
+"big" for the rows beyond the tier-1 compact caps (ROUTE_DEVICE_BIG, run
+as their own sub-batch by solve_big, and the ROUTE_DEVICE_SPREAD_BIG
+assignments of ops/spread).
+
 Every kernel has a plain PyTorch version in this module
 (``capacity_plain``, ``schedule_rows_plain``, ``compact_plain``,
 ``webster_plain``): batched int64 code that repeats the JAX program's
@@ -35,11 +40,15 @@ import numpy as np
 import torch
 
 from karmada_tpu_torch.device import resolve_device
-from karmada_tpu_torch.ops import kernels
+from karmada_tpu_torch.ops import kernels, tensors
 from karmada_tpu_torch.ops.tensors import (
     COMPACT_DIVISION_CAP,
+    COMPACT_DIVISION_CAP_BIG,
     COMPACT_LANES,
+    COMPACT_LANES_BIG,
     COMPACT_PREV_CAP,
+    COMPACT_PREV_CAP_BIG,
+    ROUTE_DEVICE_BIG,
     STATUS_FIT_ERROR,
     STATUS_NO_CLUSTER,
     STATUS_OK,
@@ -63,10 +72,15 @@ _LANE_BITS = 21
 _LANE_MASK = (1 << _LANE_BITS) - 1
 MAX_CLUSTER_LANES = 1 << _LANE_BITS
 
-# std lane tier: prev gather, per-key top-K gather, direct-path ceiling
-G_PREV, G_TOPK = COMPACT_PREV_CAP, 2 * COMPACT_DIVISION_CAP
-DIRECT_MAX = COMPACT_LANES
-assert COMPACT_LANES == G_PREV + 4 * G_TOPK, "lane geometry out of sync"
+# gather geometry per lane tier: (g_prev, g_topk, direct_max) -- the prev
+# gather, the per-key top-K gather and the direct-path ceiling
+TIERS = {
+    "std": (COMPACT_PREV_CAP, 2 * COMPACT_DIVISION_CAP, COMPACT_LANES),
+    "big": (COMPACT_PREV_CAP_BIG, 2 * COMPACT_DIVISION_CAP_BIG,
+            COMPACT_LANES_BIG),
+}
+for _gp, _gk, _dm in TIERS.values():
+    assert _dm == _gp + 4 * _gk, "lane geometry out of sync"
 
 I64 = torch.int64
 
@@ -126,15 +140,28 @@ def _to_dev(a, device):
     return torch.from_numpy(a).to(device)
 
 
-def device_batch(batch, device) -> DeviceBatch:
-    """Upload a SolverBatch's solver operands to `device`."""
+def device_batch(batch, device, rows=None) -> DeviceBatch:
+    """Upload a SolverBatch's solver operands to `device`; with `rows` (an
+    index array) only those binding rows, in that order."""
     device = resolve_device(device)
     if batch.C > MAX_CLUSTER_LANES:
         raise ValueError(f"cluster axis {batch.C} exceeds the packed keys' "
                          f"{MAX_CLUSTER_LANES} lanes per solve call")
-    t = {f: _to_dev(getattr(batch, f), device)
-         for f in _CLUSTER_FIELDS + _BINDING_FIELDS}
-    return DeviceBatch(B=int(batch.B), C=int(batch.C), device=device, t=t)
+    t = {f: _to_dev(getattr(batch, f), device) for f in _CLUSTER_FIELDS}
+    arrs = {f: np.asarray(getattr(batch, f)) for f in _BINDING_FIELDS}
+    if rows is not None:
+        arrs = {f: a[rows] for f, a in arrs.items()}
+        # keep the COO columns up to the last one these rows use
+        for key, fs in (("prev_idx", ("prev_idx", "prev_val")),
+                        ("evict_idx", ("evict_idx",))):
+            cols = np.nonzero((arrs[key] >= 0).any(0))[0]
+            k = int(cols[-1]) + 1 if cols.size else min(1, arrs[key].shape[1])
+            for f in fs:
+                arrs[f] = arrs[f][:, :k]
+    for f, a in arrs.items():
+        t[f] = _to_dev(a, device)
+    B = int(batch.B) if rows is None else len(rows)
+    return DeviceBatch(B=B, C=int(batch.C), device=device, t=t)
 
 
 def _use_extra(batch) -> bool:
@@ -450,9 +477,10 @@ def _top_lanes(key, k):
 
 
 def _gather_lanes(feasible, avail_sel, w_gather, prev_present, score,
-                  name_rank, rank_eff, use_extra):
+                  name_rank, rank_eff, use_extra, g_prev, g_topk):
     """The union-of-top-K lane set per row: lanes[N, K] ascending plus a
-    validity mask (duplicates disabled) — JAX _gather_lanes."""
+    validity mask (duplicates disabled) — JAX _gather_lanes with the
+    tier's group sizes."""
     dev = feasible.device
     neg = torch.full((), -1, dtype=I64, device=dev)
     wq = torch.clamp(w_gather, 0, _AVAIL_CAP) << _LANE_BITS
@@ -461,14 +489,14 @@ def _gather_lanes(feasible, avail_sel, w_gather, prev_present, score,
     key_w_rank = torch.where(feasible, wq | (_LANE_MASK - rank_eff), neg)
     key_w_name = torch.where(feasible, wq | (_LANE_MASK - name_rank), neg)
     key_a_name = torch.where(feasible, aq | (_LANE_MASK - name_rank), neg)
-    groups = [_top_lanes(key_prev, G_PREV), _top_lanes(key_w_rank, G_TOPK),
-              _top_lanes(key_w_name, G_TOPK), _top_lanes(key_a_name, G_TOPK)]
+    groups = [_top_lanes(key_prev, g_prev), _top_lanes(key_w_rank, g_topk),
+              _top_lanes(key_w_name, g_topk), _top_lanes(key_a_name, g_topk)]
     if use_extra:
         key_sel = torch.where(
             feasible, (torch.clamp(score, 0, 255) << (_AVAIL_BITS
                                                       + _LANE_BITS))
             | aq | (_LANE_MASK - name_rank), neg)
-        groups.append(_top_lanes(key_sel, G_TOPK))
+        groups.append(_top_lanes(key_sel, g_topk))
     lanes = torch.sort(torch.cat(groups, 1), dim=1).values
     dup = torch.zeros_like(lanes, dtype=torch.bool)
     dup[:, 1:] = lanes[:, 1:] == lanes[:, :-1]
@@ -517,11 +545,13 @@ def _row_inputs(db: DeviceBatch, r0: int, r1: int, est):
 
 def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                         used_pods, used_sets, rep_out, sel_out, status_out,
-                        *, use_extra: bool, charge: bool) -> None:
+                        *, use_extra: bool, charge: bool,
+                        tier: str = "std") -> None:
     """Rows [r0, r1) of one wave against est (JAX: one wave_step with the
-    vmapped _schedule_one), written into rep_out/sel_out/status_out; with
-    `charge` the rows' new consumption max(rep - prev, 0) is added into the
-    used accumulators in place."""
+    vmapped _schedule_one on lane tier `tier`), written into
+    rep_out/sel_out/status_out; with `charge` the rows' new consumption
+    max(rep - prev, 0) is added into the used accumulators in place."""
+    g_prev, g_topk, direct_max = TIERS[tier]
     C = db.C
     dev = db.device
     zero = torch.zeros((), dtype=I64, device=dev)
@@ -544,7 +574,7 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     rank_eff = torch.where(uid_desc[:, None], C - 1 - name_rank, name_rank)
     scalars = (n, strategy, has_sc, sc_min, sc_max, ignore)
     tail = (fresh, nw, valid)
-    if C <= DIRECT_MAX:
+    if C <= direct_max:
         rep, sel, status = _assign_lanes(
             feasible, avail_cal, prev_present, prev_rep, extra, name_rank,
             rank_eff, *scalars, static_w, *tail)
@@ -555,7 +585,7 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
         score_full = _locality_score(prev_present, extra)
         lanes, lane_ok = _gather_lanes(feasible, avail_sel, w_gather,
                                        prev_present, score_full, name_rank,
-                                       rank_eff, use_extra)
+                                       rank_eff, use_extra, g_prev, g_topk)
         g = lambda a: a.gather(1, lanes)  # noqa: E731
         rank_webster, _ = _positions(torch.where(
             lane_ok, g(rank_eff), (1 << 40) + lanes))
@@ -592,17 +622,20 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
 
 def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                   used_pods, used_sets, rep_out, sel_out, status_out, *,
-                  use_extra: bool, charge: bool,
+                  use_extra: bool, charge: bool, tier: str = "std",
                   capture: Optional[dict] = None) -> None:
-    """K2 (ops/csrc/schedule_rows.cu) on a CUDA batch, schedule_rows_plain
-    on a CPU one.  Same contract as schedule_rows_plain.  On CUDA the
-    rows' Webster problems run through K4 (webster_batch); `capture`, when
-    given, receives the last launch slice's K4 operands (n, w, s0, active,
-    rank) so they can be held against webster_plain."""
+    """K2 (ops/csrc/schedule_rows.cu; launch counter "schedule_rows", or
+    "schedule_rows_big" on the big tier) on a CUDA batch,
+    schedule_rows_plain on a CPU one.  Same contract as
+    schedule_rows_plain.  On CUDA the rows' Webster problems run through
+    K4 (webster_batch); `capture`, when given, receives the last launch
+    slice's K4 operands (n, w, s0, active, rank) so they can be held
+    against webster_plain."""
     if not _on_cuda(est, used_milli, rep_out, db.b_valid):
         return schedule_rows_plain(
             db, r0, r1, est, used_milli, used_pods, used_sets, rep_out,
-            sel_out, status_out, use_extra=use_extra, charge=charge)
+            sel_out, status_out, use_extra=use_extra, charge=charge,
+            tier=tier)
     B, C = db.B, db.C
     Q, R = db.req_milli.shape
     P = db.pl_mask.shape[0]
@@ -641,17 +674,23 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     kernels.check(status_out, torch.int32, (B,))
     if r1 == r0:
         return
-    direct = C <= DIRECT_MAX
+    direct = C <= TIERS[tier][2]
     n_groups = 5 if use_extra else 4
     # per-row key scratch of the lane gather (the radix select reads each
-    # row's keys several times); rows launch in slices that bound it
+    # row's keys several times) and, on the big tier, the per-row lane
+    # working set; rows launch in slices that bound them
     step = r1 - r0
     if not direct:
         step = max(1, min(step, (1 << 28) // (n_groups * C * 8)))
+    work_row = kernels.rows_work_bytes(tier) if tier == "big" else 0
+    if work_row:
+        step = max(1, min(step, (1 << 28) // work_row))
     dev = est.device
-    L = kernels.LMAX
+    L = kernels.LMAX[tier]
+    entry = "schedule_rows" if tier == "std" else "schedule_rows_big"
     scratch = torch.empty((0 if direct else step * n_groups * C,),
                           dtype=I64, device=dev)
+    work_buf = torch.empty((step * work_row,), dtype=torch.uint8, device=dev)
     work = {
         "web_n": torch.empty((step,), dtype=I64, device=dev),
         "web_w": torch.empty((step, L), dtype=I64, device=dev),
@@ -679,19 +718,20 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                 kernels.ptr(used_pods), kernels.ptr(used_sets),
                 kernels.ptr(rep_out), kernels.ptr(sel_out),
                 kernels.ptr(status_out), kernels.ptr(scratch),
+                kernels.ptr(work_buf),
                 *(kernels.ptr(work[f]) for f in kernels.ROWS_WORK_FIELDS),
                 a0, a1, C, Q, R, Kp, Ke, int(use_extra), int(charge))
 
         # steps 1-3 per row, the rows' Webster problems through K4, then
         # the dense rows and the consumption charge
-        kernels.launch("schedule_rows", args(), "schedule_rows_prepare",
-                       count=False)
+        kernels.launch("schedule_rows", args(), f"{entry}_prepare")
         web = (work["web_n"][:rows], work["web_w"][:rows], s0_zero[:rows],
                work["web_active"][:rows], work["web_rank"][:rows])
         work["seats"] = webster_batch(*web)
         if capture is not None:
             capture["webster"] = tuple(x.clone() for x in web)
-        kernels.launch("schedule_rows", args(), "schedule_rows_finish")
+        kernels.launch("schedule_rows", args(), f"{entry}_finish",
+                       count=entry)
 
 
 # ---------------------------------------------------------------------------
@@ -755,11 +795,11 @@ def _as_used(used0, db: DeviceBatch):
 
 
 def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
-                  used0=None, with_used: bool = False):
+                  used0=None, with_used: bool = False, tier: str = "std"):
     """The full chunk (JAX: _schedule_core): `waves` sequential waves of
-    K1 + K2.  Returns (rep int64[B,C], sel bool[B,C], status int32[B],
-    used) where used is the consumed-capacity triple (carry-in plus this
-    chunk's consumption) — charged only when waves > 1 or with_used, as in
+    K1 + K2 on lane tier `tier`.  Returns (rep int64[B,C], sel bool[B,C],
+    status int32[B], used) where used is the consumed-capacity triple
+    (carry-in plus this chunk's consumption) — charged only when waves > 1 or with_used, as in
     the JAX program."""
     B, C = db.B, db.C
     waves = _effective_waves(B, waves)
@@ -776,16 +816,17 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
                        db.pods_allowed, used[1], db.has_summary,
                        db.est_override, used[2])
         schedule_rows(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel,
-                      status, use_extra=use_extra, charge=charge)
+                      status, use_extra=use_extra, charge=charge, tier=tier)
     return rep, sel, status, used
 
 
-def solve(batch, waves: int = 1, device=None):
+def solve(batch, waves: int = 1, device=None, tier: str = "std"):
     """Dense results (numpy rep[B,C], sel[B,C], status[B]) for tests and
     small callers; the cycle uses solve_compact."""
     db = device_batch(batch, device)
     rep, sel, status, _ = schedule_core(db, waves=waves,
-                                        use_extra=_use_extra(batch))
+                                        use_extra=_use_extra(batch),
+                                        tier=tier)
     return rep.cpu().numpy(), sel.cpu().numpy(), status.cpu().numpy()
 
 
@@ -803,8 +844,8 @@ class CompactHandle:
 
 
 def dispatch_compact(batch, waves: int = 1, keep_sel: bool = False,
-                     with_used: bool = False, used0=None, device=None
-                     ) -> CompactHandle:
+                     with_used: bool = False, used0=None, device=None,
+                     tier: str = "std") -> CompactHandle:
     """Enqueue the chunk's solve and COO extraction without waiting for
     the card (kernel launches are asynchronous): returns a handle for
     finalize_compact.  `used0` (numpy or tensors) carries a previous
@@ -814,7 +855,7 @@ def dispatch_compact(batch, waves: int = 1, keep_sel: bool = False,
     db = device_batch(batch, device)
     rep, sel, status, used = schedule_core(
         db, waves=waves, use_extra=_use_extra(batch), used0=used0,
-        with_used=with_used)
+        with_used=with_used, tier=tier)
     idx, val, st, nnz = compact(rep, sel, status, db.non_workload, keep_sel)
     return CompactHandle(idx, val, st, nnz, used if with_used else None)
 
@@ -832,8 +873,74 @@ def finalize_compact(handle: CompactHandle):
 
 
 def solve_compact(batch, waves: int = 1, keep_sel: bool = False,
-                  with_used: bool = False, used0=None, device=None):
+                  with_used: bool = False, used0=None, device=None,
+                  tier: str = "std"):
     """dispatch_compact + finalize_compact."""
     return finalize_compact(dispatch_compact(
         batch, waves=waves, keep_sel=keep_sel, with_used=with_used,
-        used0=used0, device=device))
+        used0=used0, device=device, tier=tier))
+
+
+# ---------------------------------------------------------------------------
+# Sub-batches: a chunk's rows on another route, solved as their own batch
+# ---------------------------------------------------------------------------
+
+def solve_rows(items, idx_list, cindex, estimator, cache, *, route,
+               tier: str = "std", waves: int = 1,
+               enable_empty_workload_propagation: bool = False,
+               collect_used: bool = False, used0=None, from_batch=None,
+               device=None):
+    """Solve a subset of a chunk's bindings as their own sub-batch (JAX:
+    solve_rows): encode items[idx_list] with the encoder's own padding,
+    mark the rows carrying `route` valid, solve on lane tier `tier`.
+    Returns {original_index: List[TargetCluster] | Exception}.
+
+    `used0` carries a previous batch's consumption in: an accumulator
+    triple in `from_batch`'s vocabulary (re-keyed with
+    tensors.remap_used) or a tensors.CarryState.  With collect_used the
+    return is (out, (sub_batch, used_out, used0_sub)), what
+    CarryState.absorb takes to fold the sub-batch's own consumption back
+    into a keyed store."""
+    if not idx_list:
+        return ({}, None) if collect_used else {}
+    sub = [items[i] for i in idx_list]
+    batch2 = tensors.encode_batch(sub, cindex, estimator, cache=cache)
+    # rows host-invalid in the parent batch are this sub-batch's payload
+    batch2.b_valid[:len(sub)] = batch2.route == route
+    used0_sub = None
+    if isinstance(used0, tensors.CarryState):
+        used0_sub = used0.used0_for(batch2)
+    elif used0 is not None and from_batch is not None:
+        used0_sub = tensors.remap_used(used0, from_batch, batch2)
+    res = solve_compact(
+        batch2, waves=waves, tier=tier,
+        keep_sel=enable_empty_workload_propagation,
+        with_used=collect_used, used0=used0_sub, device=device)
+    idx, val, st = res[0], res[1], res[2]
+    decoded = tensors.decode_compact(
+        batch2, idx, val, st,
+        enable_empty_workload_propagation=enable_empty_workload_propagation,
+        items=sub)
+    out = {idx_list[j]: decoded[j] for j in range(len(sub))
+           if batch2.route[j] == route}
+    if collect_used:
+        if used0_sub is None:
+            used0_sub = tuple(np.zeros_like(a) for a in
+                              (batch2.avail_milli, batch2.pods_allowed,
+                               batch2.est_override))
+        return out, (batch2, res[4], used0_sub)
+    return out
+
+
+def solve_big(items, idx_list, cindex, estimator, cache, waves: int = 1,
+              enable_empty_workload_propagation: bool = False,
+              collect_used: bool = False, used0=None, from_batch=None,
+              device=None):
+    """Solve one chunk's ROUTE_DEVICE_BIG bindings (beyond the tier-1
+    compact caps) as their own sub-batch on the big lane tier."""
+    return solve_rows(
+        items, idx_list, cindex, estimator, cache, route=ROUTE_DEVICE_BIG,
+        tier="big", waves=waves,
+        enable_empty_workload_propagation=enable_empty_workload_propagation,
+        collect_used=collect_used, used0=used0, from_batch=from_batch,
+        device=device)

@@ -23,9 +23,9 @@ Bindings the kernel cannot represent (provider/zone-only spread selection,
 groupless topologies, vanished previous clusters, counts beyond every
 compact tier's exactness caps) are routed back to the serial host path;
 `route` marks them.  Region and spread-by-label topologies route to the
-device spread plane and bindings beyond the tier-1 compact caps to the big
-lane tier (ROUTE_*_BIG), exactly as the JAX package routes them; the port
-does not run those planes yet (scheduler/pipeline raises on their rows).
+device spread plane (ops/spread) and bindings beyond the tier-1 compact
+caps to the big lane tier (ROUTE_*_BIG, ops/solver tier "big"), exactly as
+the JAX package routes them.
 """
 
 from __future__ import annotations
@@ -380,6 +380,37 @@ def _route_for(
 # spec-free probe for the placement-only route: _route_for reads only
 # spec.components (empty here), so one call per distinct placement suffices
 _ROUTE_PROBE_SPEC = ResourceBindingSpec()
+
+
+def spread_groups(batch: "SolverBatch", items) -> Dict[Tuple[str, str], List[int]]:
+    """Group a chunk's ROUTE_DEVICE_SPREAD(_BIG) bindings by (axis, tier)
+    -- the unit of one ops/spread.solve_spread call (the group-id plane
+    differs per axis, the assignment lane budget per tier)."""
+    groups: Dict[Tuple[str, str], List[int]] = {}
+    for i in range(batch.n_bindings):
+        r = batch.route[i]
+        if r in (ROUTE_DEVICE_SPREAD, ROUTE_DEVICE_SPREAD_BIG):
+            spec, status = items[i]
+            axis = spread_axis_of(serial.effective_placement(spec, status)) or ""
+            tier = "big" if r == ROUTE_DEVICE_SPREAD_BIG else "std"
+            groups.setdefault((axis, tier), []).append(i)
+    return groups
+
+
+def spread_axis_of(placement: Placement) -> Optional[str]:
+    """The group axis a ROUTE_DEVICE_SPREAD(_BIG) placement selects over:
+    "" = region (batch.region_id), a label key = batch.label_axes[key],
+    None = no grouped-topology selection."""
+    scs = placement.spread_constraints
+    if not scs or serial.should_ignore_spread_constraint(placement):
+        return None
+    label_key = None
+    for sc in scs:
+        if sc.spread_by_field == SPREAD_BY_FIELD_REGION:
+            return ""
+        if sc.spread_by_label and label_key is None:
+            label_key = sc.spread_by_label
+    return label_key
 
 
 @dataclass

@@ -2,12 +2,12 @@
 caller uses.
 
 Counterpart of the JAX package's ``Scheduler._solve`` with
-``backend="device"`` (scheduler/service.py): rows the encoder routes
-ROUTE_DEVICE run through the chunked device pipeline on the card; rows on
-a host route (topology spread, unsupported, vanished previous cluster,
-huge replicas, beyond the compact caps) run the serial golden path, as
-the JAX scheduler does.  Rows routed to the device spread plane or the big
-lane tier raise NotImplementedError: those planes are not ported yet.
+``backend="device"`` (scheduler/service.py): rows on a device route run
+through the chunked device pipeline on the card -- the main route, the
+spread plane (region and spread-by-label grouping) and the big lane tier;
+rows on a host route (provider/zone-only topology spread, unsupported,
+vanished previous cluster, huge replicas, beyond every compact tier's
+caps) run the serial golden path, as the JAX scheduler does.
 """
 
 from __future__ import annotations
@@ -34,8 +34,9 @@ def schedule_items(
     """Per item, List[TargetCluster] or the Exception the scheduler would
     record.  `device` defaults to the first CUDA card and raises without
     one; pass ``device="cpu"`` to run the kernels' plain versions.  Carry
-    is on when the cycle spans more than one chunk.  `stats`, when given,
-    receives the pipeline's counts and stage times."""
+    is on when the cycle spans more than one chunk, for the spread and
+    big-tier sub-solves too (JAX: ``carry_spread=carry``).  `stats`, when
+    given, receives the pipeline's counts and stage times."""
     device = resolve_device(device)
     estimator = estimator or GeneralEstimator()
     out: List[object] = [None] * len(items)

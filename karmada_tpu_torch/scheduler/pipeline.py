@@ -7,7 +7,11 @@ its main route.  Per chunk:
                      against one cycle-shared EncoderCache
   Dispatch (async)   ops/solver.dispatch_compact launches the chunk's
                      kernels and returns without waiting for the card
-  Finalize (host)    read back the COO (idx/val/status/nnz) and decode it
+  Finalize (host)    wait for the card's queued work, then the chunk's
+                     spread sub-solves (ops/spread.solve_spread, one per
+                     (axis, tier)) and big-tier sub-solve
+                     (ops/solver.solve_big), then read back the main COO
+                     (idx/val/status/nnz) and decode it
                      (ops/tensors.decode_compact)
 
 Chunk k's finalize runs after chunk k+1 was encoded and dispatched, so the
@@ -19,12 +23,16 @@ chunk, so chunk k+1 prices against the snapshot minus everything chunks
 a resource/class vocabulary (the next dispatch reads the previous one's
 live accumulators); lossless vocabulary growth re-keys them on the card
 (``_device_remap``, an index_select without a host sync); a lossy change
-closes the segment into a host-side, name-keyed CarryState.
+closes the segment into a host-side, name-keyed CarryState.  With carry
+on, each sub-solve also prices against its chunk's carry-in, and its own
+consumption is folded back into the chain at the next dispatch boundary
+(`extras`: a lazy add on the card when it fits the next chunk's
+vocabulary).  That is one chunk late: chunk k's sub-solves run at its
+finalize, after chunk k+1 dispatched, so their consumption reaches chunk
+k+2's carry-in -- the JAX package's accounting, reproduced as it is.
 
-This slice runs the main route (ROUTE_DEVICE) only.  Rows the encoder
-routes to the device spread plane or the big lane tier raise
-NotImplementedError naming the route; host routes are absent from the
-result, for the caller's serial path (scheduler/core.schedule_items).
+Every device route runs here (DEVICE_ROUTES); host routes are absent from
+the result, for the caller's serial path (scheduler/core.schedule_items).
 """
 
 from __future__ import annotations
@@ -37,14 +45,16 @@ import numpy as np
 import torch
 
 from karmada_tpu_torch.device import resolve_device
-from karmada_tpu_torch.ops import solver, tensors
+from karmada_tpu_torch.ops import solver, spread, tensors
 
-#: device routes of the JAX package not ported yet (spread plane, big tier)
-UNPORTED_ROUTES = {
-    tensors.ROUTE_DEVICE_SPREAD: "ROUTE_DEVICE_SPREAD",
-    tensors.ROUTE_DEVICE_BIG: "ROUTE_DEVICE_BIG",
-    tensors.ROUTE_DEVICE_SPREAD_BIG: "ROUTE_DEVICE_SPREAD_BIG",
-}
+#: routes whose results the device path owns; every other row falls back
+#: to the serial host path
+DEVICE_ROUTES = (
+    tensors.ROUTE_DEVICE,
+    tensors.ROUTE_DEVICE_SPREAD,
+    tensors.ROUTE_DEVICE_SPREAD_BIG,
+    tensors.ROUTE_DEVICE_BIG,
+)
 
 
 @dataclass
@@ -58,8 +68,14 @@ class PipelineResult:
     chunks: int = 0
     encode_s: float = 0.0
     dispatch_s: float = 0.0
-    finalize_s: float = 0.0  # device wait + COO read-back
+    # device wait at finalize's start: the stream holds this chunk's main
+    # solve and the next chunk's, which any read-back would wait for
+    wait_s: float = 0.0
+    finalize_s: float = 0.0  # main COO read-back
     decode_s: float = 0.0
+    spread_s: float = 0.0    # spread sub-solves (phases A and B, host DFS)
+    big_s: float = 0.0       # big-tier sub-solves
+    routes: Dict[int, int] = field(default_factory=dict)  # rows per route
 
 
 class _CarryChain:
@@ -69,10 +85,12 @@ class _CarryChain:
     cumulative consumption of every chunk dispatched so far, rendered in
     the open segment's vocabulary, plus the segment base (everything
     absorbed before the segment opened).  `total` holds closed segments
-    keyed by resource name / class key."""
+    keyed by resource name / class key; `extras` holds sub-solve
+    consumption pending its fold into the chain."""
 
     def __init__(self) -> None:
         self.total = tensors.CarryState()
+        self.extras = tensors.CarryState()
         # open segment: [sig, batch, base (numpy triple), handle | None]
         self._seg: Optional[list] = None
 
@@ -87,6 +105,12 @@ class _CarryChain:
         return (from_batch.C == to_batch.C
                 and set(from_batch.res_names) <= set(to_batch.res_names)
                 and set(from_batch.class_keys) <= set(to_batch.class_keys))
+
+    def _extras_fit(self, batch) -> bool:
+        """True when the pending extras render losslessly into batch's
+        vocabulary (they can ride the device chain)."""
+        return (set(self.extras.milli) <= set(batch.res_names)
+                and set(self.extras.sets) <= set(batch.class_keys))
 
     @staticmethod
     def _device_remap(used, from_batch, to_batch):
@@ -131,16 +155,32 @@ class _CarryChain:
         the chained path, numpy after a segment close)."""
         sig = self._sig(batch)
         seg = self._seg
-        if seg is not None and seg[3] is not None:
+        if seg is not None and seg[3] is not None and (
+                self.extras.empty() or self._extras_fit(batch)):
+            used = None
             if seg[0] == sig:
-                return seg[3].used
-            if self._subset(seg[1], batch):
+                used = seg[3].used
+            elif self._subset(seg[1], batch):
                 used = self._device_remap(seg[3].used,
                                           seg[1], batch)
                 base = tensors.remap_used(seg[2], seg[1], batch)
                 self._seg = [sig, batch, base, None]
+            if used is not None:
+                if not self.extras.empty():
+                    # pending sub-solve consumption rides the chain from
+                    # here (adds on the card, no host sync); it reaches
+                    # the keyed store at segment close via used - base
+                    extra = self.extras.used0_for(batch)
+                    used = tuple(u + torch.from_numpy(e).to(u.device)
+                                 for u, e in zip(used, extra))
+                    self.extras = tensors.CarryState()
                 return used
+        # slow path (a lossy vocabulary change): close the segment and
+        # retire the pending extras into the keyed store
         self._close()
+        if not self.extras.empty():
+            self.total.merge(self.extras)
+            self.extras = tensors.CarryState()
         base = self.total.used0_for(batch)
         self._seg = [sig, batch, base, None]
         return base
@@ -157,15 +197,12 @@ class _InFlight:
     part: Sequence
     batch: object
     handle: Optional[solver.CompactHandle]
+    used0: Optional[tuple]  # the dispatch's carry-in
 
 
-def _refuse_unported(batch) -> None:
-    routes = np.asarray(batch.route)
-    for r, name in UNPORTED_ROUTES.items():
-        if (routes == r).any():
-            raise NotImplementedError(
-                f"{name} rows are not ported to the PyTorch/CUDA path yet "
-                f"({int((routes == r).sum())} in this chunk)")
+def _host(used) -> tuple:
+    return tuple(u.cpu().numpy() if torch.is_tensor(u) else np.asarray(u)
+                 for u in used)
 
 
 def run_pipeline(
@@ -182,8 +219,11 @@ def run_pipeline(
 ) -> PipelineResult:
     """Schedule `items` ((spec, status) pairs) chunk by chunk on `device`
     (the card by default).  `results` maps global item index ->
-    List[TargetCluster] | Exception for every ROUTE_DEVICE row (FitErrors
-    carry the per-cluster diagnosis); host-routed rows are absent."""
+    List[TargetCluster] | Exception for every row on a device route
+    (DEVICE_ROUTES; main-route FitErrors carry the per-cluster
+    diagnosis); host-routed rows are absent.  With `carry`, the spread and
+    big-tier sub-solves price against their chunk's carry-in and feed
+    their consumption back (module docstring)."""
     device = resolve_device(device)
     res = PipelineResult()
     n = len(items)
@@ -197,23 +237,60 @@ def run_pipeline(
 
     def finalize(entry: _InFlight) -> None:
         batch, part = entry.batch, entry.part
-        if entry.handle is None:
-            return
-        t0 = time.perf_counter()
-        idx, val, status = solver.finalize_compact(entry.handle)[:3]
-        t1 = time.perf_counter()
-        decoded = tensors.decode_compact(
-            batch, idx, val, status,
-            enable_empty_workload_propagation=keep_sel,
-            items=part)
-        t2 = time.perf_counter()
-        res.finalize_s += t1 - t0
-        res.decode_s += t2 - t1
+        t_start = time.perf_counter()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t_wait = time.perf_counter()
+        res.wait_s += t_wait - t_start
+        # the sub-solves first: they need no main result
+        sub: Dict[int, object] = {}
+        groups = tensors.spread_groups(batch, part)
+        big_idx = [i for i in range(len(part))
+                   if batch.route[i] == tensors.ROUTE_DEVICE_BIG]
+        used0 = None
+        if chain is not None and entry.used0 is not None and (
+                groups or big_idx):
+            used0 = _host(entry.used0)
+        collect = used0 is not None
+        for (axis, tier), idxs in groups.items():
+            ret = spread.solve_spread(
+                batch, part, idxs, waves=waves,
+                enable_empty_workload_propagation=keep_sel,
+                collect_used=collect, used0=used0, axis=axis, tier=tier,
+                device=device)
+            out, used = ret if collect else (ret, None)
+            if used is not None:
+                chain.extras.absorb(batch, used, used0)
+            sub.update(out)
+        t_spread = time.perf_counter()
+        if big_idx:
+            ret = solver.solve_big(
+                part, big_idx, cindex, estimator, cache, waves=waves,
+                enable_empty_workload_propagation=keep_sel,
+                collect_used=collect, used0=used0, from_batch=batch,
+                device=device)
+            out, big_used = ret if collect else (ret, None)
+            if big_used is not None:
+                chain.extras.absorb(*big_used)
+            sub.update(out)
+        t_big = time.perf_counter()
+        res.spread_s += t_spread - t_wait
+        res.big_s += t_big - t_spread
+        local: Dict[int, object] = {}
+        if entry.handle is not None:
+            idx, val, status = solver.finalize_compact(entry.handle)[:3]
+            t_read = time.perf_counter()
+            decoded = tensors.decode_compact(
+                batch, idx, val, status,
+                enable_empty_workload_propagation=keep_sel,
+                items=part)
+            res.finalize_s += t_read - t_big
+            res.decode_s += time.perf_counter() - t_read
+            local = {i: decoded[i] for i in range(len(part))
+                     if batch.route[i] == tensors.ROUTE_DEVICE}
+        local.update(sub)
         res.chunks += 1
-        for i in range(len(part)):
-            if batch.route[i] != tensors.ROUTE_DEVICE:
-                continue
-            r = decoded[i]
+        for i, r in local.items():
             res.results[entry.offset + i] = r
             if isinstance(r, Exception):
                 k = type(r).__name__
@@ -226,9 +303,11 @@ def run_pipeline(
         part = items[lo:lo + chunk]
         t0 = time.perf_counter()
         batch = tensors.encode_batch(part, cindex, estimator, cache=cache)
-        _refuse_unported(batch)
         t1 = time.perf_counter()
-        handle = None
+        for r, k in zip(*np.unique(batch.route[:len(part)],
+                                   return_counts=True)):
+            res.routes[int(r)] = res.routes.get(int(r), 0) + int(k)
+        handle = used0 = None
         # with carry every chunk dispatches so the chain stays contiguous
         # (an all-host batch consumes nothing); without it an all-host
         # chunk skips the card
@@ -242,7 +321,8 @@ def run_pipeline(
                 chain.dispatched(batch, handle)
         res.encode_s += t1 - t0
         res.dispatch_s += time.perf_counter() - t1
-        entry = _InFlight(offset=lo, part=part, batch=batch, handle=handle)
+        entry = _InFlight(offset=lo, part=part, batch=batch, handle=handle,
+                          used0=used0)
         if pending is not None:
             finalize(pending)
         pending = entry

@@ -80,7 +80,8 @@ def test_encode_compact_fleet_routes():
 
 
 def test_encode_bench_mix():
-    """bench.py's mix (without region spread) and its rebalance cycle."""
+    """bench.py's mix (its region-spread fifth included) and its rebalance
+    cycle: every row on the main route or the spread plane."""
     def build(M, rebalance):
         clusters, items, rng, names = S.bench_scenario(M, 3, 600, 64)
         if rebalance:
@@ -90,7 +91,8 @@ def test_encode_bench_mix():
     for rebalance in (False, True):
         jb, pb = _encode_both(lambda M: build(M, rebalance))
         _assert_same(jb, pb)
-        assert (pb.route == PT.ROUTE_DEVICE).all()
+        assert set(pb.route.tolist()) == {PT.ROUTE_DEVICE,
+                                          PT.ROUTE_DEVICE_SPREAD}
 
 
 def test_batch_and_carry_from_arrays():

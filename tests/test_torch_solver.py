@@ -89,7 +89,7 @@ def test_dense_parity(path, waves):
     jb, pb = _pair(*build(3))
     w = jb.B if waves == "B" else waves
     rep, sel, status = _assert_dense(jb, pb, w)
-    assert (path == "direct") == (pb.C <= PS.DIRECT_MAX)
+    assert (path == "direct") == (pb.C <= PS.TIERS["std"][2])
     # the scenario reaches several strategies and result classes
     strat = pb.pl_strategy[pb.placement_id[pb.b_valid]]
     assert len(set(strat.tolist())) >= 3

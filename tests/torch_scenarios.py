@@ -180,7 +180,273 @@ def random_scenario(M, seed, n_clusters=11, n_bindings=24, n_placements=5,
     return clusters, items
 
 
-# -- the bench.py mix (without its region-spread class) ----------------------
+# -- the spread fixtures of tests/test_spread_device.py ----------------------
+
+def mk_region_cluster(M, rng, name, region):
+    c = mk_cluster(M, rng, name)
+    c.spec.region = region
+    if rng.random() < 0.5:
+        c.spec.zones = [f"z{rng.randint(0, 2)}"]
+    return c
+
+
+def mk_spread_placement(M, rng, names):
+    region_min = rng.randint(1, 2)
+    scs = [M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                              min_groups=region_min,
+                              max_groups=rng.randint(region_min, 3))]
+    if rng.random() < 0.7:
+        cmin = rng.randint(1, 3)
+        scs.append(M.SpreadConstraint(
+            spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+            min_groups=cmin, max_groups=rng.randint(cmin, 6)))
+    if rng.random() < 0.3:
+        scs.append(M.SpreadConstraint(
+            spread_by_field=rng.choice([M.SPREAD_BY_FIELD_PROVIDER,
+                                        M.SPREAD_BY_FIELD_ZONE]),
+            min_groups=1, max_groups=rng.randint(1, 3)))
+    strat = rng.choice(["dup", "dynamic", "agg"])
+    if strat == "dup":
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)
+    elif strat == "dynamic":
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+            weight_preference=M.ClusterPreferences(
+                dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+    else:
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)
+    return M.Placement(spread_constraints=scs, replica_scheduling=rs)
+
+
+RING = "topology.karmada.io/ring"
+
+
+def mk_label_cluster(M, rng, name, value, key=RING):
+    c = mk_cluster(M, rng, name)
+    if value is not None:
+        c.metadata.labels[key] = value
+    return c
+
+
+def mk_label_placement(M, rng, key=RING):
+    gmin = rng.randint(1, 2)
+    scs = [M.SpreadConstraint(spread_by_label=key, min_groups=gmin,
+                              max_groups=rng.randint(gmin, 3))]
+    if rng.random() < 0.7:
+        cmin = rng.randint(1, 3)
+        scs.append(M.SpreadConstraint(
+            spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+            min_groups=cmin, max_groups=rng.randint(cmin, 6)))
+    rs = M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS),
+    ) if rng.random() < 0.5 else M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)
+    return M.Placement(spread_constraints=scs, replica_scheduling=rs)
+
+
+def region_scenario(M, seed, n_clusters=13, n_bindings=16, n_regions=4):
+    """test_spread_device.run_parity's default fleet and placements."""
+    rng = random.Random(seed)
+    names = [f"member-{i:02d}" for i in range(n_clusters)]
+    regions = [f"region-{r}" for r in range(n_regions)]
+    clusters = [mk_region_cluster(M, rng, nm, rng.choice(regions))
+                for nm in names]
+    placements = [mk_spread_placement(M, rng, names) for _ in range(4)]
+    items = [mk_binding(M, rng, b, names, placements)
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+def one_cluster_regions_scenario(M, seed, n_bindings=10):
+    """40 one-cluster regions (test_spread_device.py:147-156)."""
+    rng = random.Random(400 + seed)
+    names = [f"m-{i:02d}" for i in range(40)]
+    clusters = [mk_region_cluster(M, rng, nm, f"r{i}")
+                for i, nm in enumerate(names)]
+    rng = random.Random(400 + seed)
+    placements = [mk_spread_placement(M, rng, names) for _ in range(4)]
+    items = [mk_binding(M, rng, b, names, placements)
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+def label_scenario(M, seed, n_bindings=12):
+    """Spread by label over four ring values (test_spread_device.py
+    :267-282)."""
+    rng = random.Random(800 + seed)
+    names = [f"m-{i:02d}" for i in range(14)]
+    values = [f"ring-{v}" for v in range(4)]
+    clusters = [
+        mk_label_cluster(M, rng, nm,
+                         rng.choice(values) if rng.random() < 0.85 else None)
+        for nm in names]
+    placements = [mk_label_placement(M, rng) for _ in range(3)]
+    rng = random.Random(800 + seed)
+    items = [mk_binding(M, rng, b, names, placements)
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+def spread_big_scenario(M, n=560, n_bindings=8):
+    """Spread rows beyond the tier-1 caps (test_spread_device.py:170-213):
+    cluster MaxGroups 100 and replicas above 64 on a 1,024-lane fleet."""
+    rng = random.Random(7)
+    names = [f"m-{i:03d}" for i in range(n)]
+    clusters = [mk_region_cluster(M, rng, nm, f"r{i % 6}")
+                for i, nm in enumerate(names)]
+    dyn = M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+    p_wide_sel = M.Placement(spread_constraints=[
+        M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                           min_groups=1, max_groups=3),
+        M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                           min_groups=2, max_groups=100)],
+        replica_scheduling=dyn)
+    p_many_reps = M.Placement(spread_constraints=[
+        M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                           min_groups=1, max_groups=2),
+        M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                           min_groups=2, max_groups=6)],
+        replica_scheduling=M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_AGGREGATED))
+    items = [mk_binding(M, rng, b, names, [p_wide_sel, p_many_reps])
+             for b in range(n_bindings)]
+    for spec, _ in items:
+        if spec.placement is p_many_reps:
+            spec.replicas = 100 + rng.randint(0, 50)
+    return clusters, items
+
+
+# -- capacity-bound fixtures (after tests/test_contention.py) ----------------
+
+def capacity_cluster(M, name, cpu_milli, region=""):
+    Q = M.Quantity
+    return M.Cluster(
+        metadata=M.ObjectMeta(name=name),
+        spec=M.ClusterSpec(region=region),
+        status=M.ClusterStatus(
+            api_enablements=[M.APIEnablement(GVK[0], [GVK[1]])],
+            resource_summary=M.ResourceSummary(allocatable={
+                "cpu": Q.from_milli(cpu_milli),
+                "memory": Q.from_units(10**6),
+                "pods": Q.from_units(10**6)})))
+
+
+def capacity_binding(M, b, replicas, cpu_milli, placement=None):
+    spec = M.ResourceBindingSpec(
+        resource=M.ObjectReference(api_version=GVK[0], kind=GVK[1],
+                                   namespace="default", name=f"app-{b}",
+                                   uid=f"uid-{b}"),
+        replicas=replicas,
+        replica_requirements=M.ReplicaRequirements(resource_request={
+            "cpu": M.Quantity.from_milli(cpu_milli),
+            "memory": M.Quantity.from_units(0)}),
+        placement=placement or M.Placement(replica_scheduling=_dynamic(M)))
+    return spec, M.ResourceBindingStatus()
+
+
+def region_spread_placement(M, region_max=1, cluster_max=1):
+    return M.Placement(
+        spread_constraints=[
+            M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                               min_groups=1, max_groups=region_max),
+            M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                               min_groups=1, max_groups=cluster_max)],
+        replica_scheduling=_dynamic(M))
+
+
+def tight_region_scenario(M, n_bindings=11):
+    """Six 2-core clusters in two regions and region-spread bindings that
+    each take about one cluster's cores: which rows share a capacity wave
+    decides who is placed."""
+    clusters = [capacity_cluster(M, f"m{i}", 2000, f"r{i % 2}")
+                for i in range(6)]
+    pl = region_spread_placement(M, region_max=1, cluster_max=2)
+    items = [capacity_binding(M, b, 4, 400 + 50 * (b % 3), pl)
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+# -- the big lane tier (tests/test_solver_batch.py:575-650) ------------------
+
+def _dynamic(M):
+    return M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+
+
+def big_binding(M, rng, b, names, style):
+    """One binding beyond the tier-1 compact caps: (0) a big replica
+    count, (1) a wide cluster selection, (2) many previous clusters, (3)
+    region spread with a wide cluster selection (ROUTE_DEVICE_SPREAD_BIG
+    on a gather-lane fleet)."""
+    ref = M.ObjectReference(api_version=GVK[0], kind=GVK[1], namespace="d",
+                            name=f"a{b}", uid=f"u{b}")
+    if style == 0:
+        spec = M.ResourceBindingSpec(
+            resource=ref, replicas=rng.randint(65, 400),
+            placement=M.Placement(replica_scheduling=_dynamic(M)))
+    elif style == 1:
+        spec = M.ResourceBindingSpec(
+            resource=ref, replicas=rng.randint(5, 60),
+            placement=M.Placement(
+                spread_constraints=[M.SpreadConstraint(
+                    spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                    min_groups=2, max_groups=rng.randint(65, 300))],
+                replica_scheduling=M.ReplicaSchedulingStrategy(
+                    replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                    replica_division_preference=(
+                        M.REPLICA_DIVISION_AGGREGATED))))
+    elif style == 2:
+        spec = M.ResourceBindingSpec(
+            resource=ref, replicas=rng.randint(30, 120),
+            placement=M.Placement(replica_scheduling=_dynamic(M)),
+            clusters=[M.TargetCluster(name=n, replicas=1)
+                      for n in rng.sample(names, rng.randint(17, 100))])
+    else:
+        rmin = rng.randint(1, 3)
+        spec = M.ResourceBindingSpec(
+            resource=ref, replicas=rng.randint(5, 60),
+            placement=M.Placement(
+                spread_constraints=[
+                    M.SpreadConstraint(
+                        spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                        min_groups=rmin, max_groups=rng.randint(rmin, 3)),
+                    M.SpreadConstraint(
+                        spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                        min_groups=2, max_groups=rng.randint(65, 300))],
+                replica_scheduling=_dynamic(M)))
+    if rng.random() < 0.4:
+        spec.replica_requirements = M.ReplicaRequirements(resource_request={
+            "cpu": M.Quantity.from_milli(rng.choice([100, 250]))})
+    return spec, M.ResourceBindingStatus()
+
+
+def big_scenario(M, seed, n_clusters=700, n_bindings=6, styles=3):
+    """test_solver_batch.test_big_tier_parity's fixture: bindings of the
+    first `styles` big styles in turn on a randomized fleet."""
+    rng = random.Random(seed)
+    names = [f"member-{i:03d}" for i in range(n_clusters)]
+    clusters = [mk_cluster(M, rng, nm) for nm in names]
+    items = [big_binding(M, rng, b, names, b % styles)
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+# -- the bench.py mix ----------------------------------------------------------
 
 def build_fleet(M, rng, n_clusters):
     Q = M.Quantity
@@ -209,8 +475,9 @@ def build_fleet(M, rng, n_clusters):
 
 
 def build_placements(M, rng, names):
-    """bench.py's placement mix minus the region-spread class: Duplicated,
-    StaticWeight, DynamicWeight, Aggregated + cluster spread (8 each)."""
+    """bench.py's placement mix (bench.py:530-592): Duplicated,
+    StaticWeight, DynamicWeight, Aggregated + cluster spread, and region
+    spread + cluster spread on DynamicWeight (8 each)."""
     out = []
 
     def subset_affinity():
@@ -245,6 +512,16 @@ def build_placements(M, rng, names):
             replica_scheduling=M.ReplicaSchedulingStrategy(
                 replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
                 replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)))
+    for _ in range(8):  # region spread (the device spread plane)
+        rmin = rng.randint(1, 2)
+        out.append(M.Placement(
+            spread_constraints=[
+                M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                                   min_groups=rmin,
+                                   max_groups=rng.randint(rmin, 3)),
+                M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                                   min_groups=2, max_groups=6)],
+            replica_scheduling=_dynamic(M)))
     return out
 
 

@@ -28,7 +28,26 @@ region spread included; chunk 4096, 8 waves, carry on):
      and big-tier rows), plus result invariants over every binding;
   6. the wide cycle: 16,384 bindings over the same fleet, every eighth
      beyond the tier-1 compact caps (ROUTE_DEVICE_BIG and
-     ROUTE_DEVICE_SPREAD_BIG), so all four device routes run.
+     ROUTE_DEVICE_SPREAD_BIG), so all four device routes run;
+  7. the explain cycle: 2,048 of phase 6's bindings (main, region-spread
+     and big rows; every sixteenth asks for more CPU than any cluster
+     has), chunk 1,024, explain armed with a DecisionRecorder -- one
+     Decision per binding, full verdict tables for main and spread rows,
+     a reason on every unschedulable one, K7 explain_rows after every
+     wave;
+  8. the megafleet cycle: bench.py's --megafleet shape at the scale of
+     MEGAFLEET_r01.json -- 10,000 clusters in 200 regions, one
+     DynamicWeight placement per region, MEGAFLEET_BINDINGS bindings --
+     with the two-tier shortlist armed (K1 + K8 shortlist_topk over each
+     chunk's profiles, K9 group_sums, the solver over the candidate
+     union): every chunk shortlisted, no fallback.
+
+Phase 2 also holds K7 (on the first forward chunk and on its spread
+sub-batch), K8 (on a megafleet chunk's profile rows, and on rows wider
+than its shared-memory path) and K9 (on the 10k fleet) against their
+plain versions; phase 5 also compares one phase-7 chunk's explain planes
+and decisions, and one shortlisted megafleet chunk, card against CPU, and
+the first 2,048 megafleet bindings shortlisted against dense on the card.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -47,11 +66,19 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
 WIDE_BINDINGS = 16_384     # phase 6's cycle
+EXPLAIN_BINDINGS = 2_048   # phase 7's cycle
+EXPLAIN_CHUNK = 1_024      # the JAX Scheduler's default pipeline_chunk
+MEGAFLEET_BINDINGS = 1_000_000  # phase 8's cycle (MEGAFLEET_r01.json's scale)
+MEGA_CLUSTERS = 10_000
+MEGA_REGIONS = 200
+MEGA_K = 64
+RECALL_BINDINGS = 2_048    # phase 5's shortlisted-vs-dense sample
 
 
 def log(msg: str) -> None:
@@ -199,6 +226,18 @@ def build_wide_items(M, rng, n_bindings, placements, names):
     return items
 
 
+def starve_items(M, items, every=16):
+    """`items` with every `every`-th binding (from the sixth on, never a
+    big-style one) asking for more CPU per replica than any cluster has,
+    so that the explain cycle meets unschedulable rows."""
+    huge = M.ReplicaRequirements(resource_request={
+        "cpu": M.Quantity.from_milli(10**9),
+        "memory": M.Quantity.from_units(1)})
+    return [(dataclasses.replace(spec, replica_requirements=huge), status)
+            if b % every == 5 else (spec, status)
+            for b, (spec, status) in enumerate(items)]
+
+
 def build_bindings(M, rng, n_bindings, placements):
     Q = M.Quantity
     items = []
@@ -231,6 +270,43 @@ def build_rebalance_items(M, rng, items, names):
             reschedule_triggered_at=(100.0 if k % 3 == 0 else None)),
             M.ResourceBindingStatus()))
     return out
+
+
+def build_megafleet(M, rng, n_clusters, n_regions):
+    """bench.py build_megafleet: clusters round-robined into regions, one
+    Divided/DynamicWeight placement per region whose affinity names
+    exactly that region's clusters."""
+    clusters = build_fleet(M, rng, n_clusters)
+    for i, c in enumerate(clusters):
+        c.spec.region = f"r{i % n_regions}"
+    by_region = {}
+    for c in clusters:
+        by_region.setdefault(c.spec.region, []).append(c.metadata.name)
+    return clusters, [
+        M.Placement(cluster_affinity=M.ClusterAffinity(
+            cluster_names=by_region[r]), replica_scheduling=dynamic(M))
+        for r in sorted(by_region, key=lambda s: int(s[1:]))]
+
+
+def build_mega_bindings(M, rng, n, placements, block):
+    """bench.py build_mega_bindings: 9 shared request classes, replicas
+    1-3, the placement advancing every `block` bindings."""
+    Q = M.Quantity
+    reqs = [M.ReplicaRequirements(resource_request={
+        "cpu": Q.from_milli(cpu), "memory": Q.from_units(mem)})
+        for cpu in (100, 250, 500) for mem in (1, 2, 4)]
+    status = M.ResourceBindingStatus()
+    items = []
+    for b in range(n):
+        spec = M.ResourceBindingSpec(
+            resource=M.ObjectReference(
+                api_version=GVK[0], kind=GVK[1], namespace=f"ns-{b % 64}",
+                name=f"mega-{b}", uid=f"uid-mega-{b}"),
+            replicas=rng.choice([1, 2, 3]),
+            replica_requirements=reqs[rng.randrange(len(reqs))],
+            placement=placements[(b // max(block, 1)) % len(placements)])
+        items.append((spec, status))
+    return items
 
 
 def models():
@@ -539,6 +615,158 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
     return rows, chunk_ms
 
 
+def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps) -> list:
+    """K7 explain_rows, K8 shortlist_topk and K9 group_sums against their
+    plain versions at the main path's shapes: K7 on the first forward
+    chunk's wave 0 (its est and K2 outputs) and on that chunk's spread
+    phase B (solve_spread's operands); K8 on the first megafleet chunk's
+    profile rows (16,384 lanes, shared-memory keys) and on the same rows
+    tiled to 32,768 lanes (device-memory keys); K9 on the 10k fleet."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import spread as SP
+    from karmada_tpu_torch.ops import tensors as T
+
+    rows = []
+    # -- K7 on the first forward chunk, wave 0 --------------------------------
+    part = items[:args.chunk]
+    batch = T.encode_batch(part, T.ClusterIndex.build(fleet),
+                           GeneralEstimator(), cache=T.EncoderCache(),
+                           explain=True)
+    db = S.device_batch(batch, dev, explain=True)
+    B, C = db.B, db.C
+    Bw = B // S._effective_waves(B, args.waves)
+    zeros = S._zeros_used(db)
+    est0 = S.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                      db.avail_milli, zeros[0], db.has_alloc,
+                      db.pods_allowed, zeros[1], db.has_summary,
+                      db.est_override, zeros[2])
+    rep = torch.empty((B, C), dtype=torch.int64, device=dev)
+    sel = torch.zeros((B, C), dtype=torch.bool, device=dev)
+    st = torch.zeros((B,), dtype=torch.int32, device=dev)
+    S.schedule_rows(db, 0, Bw, est0, *(u.clone() for u in zeros), rep, sel,
+                    st, use_extra=S._use_extra(batch), charge=True)
+    k7_in = (db, 0, Bw, est0, db.pl_fail_bits, sel, st)
+    out_k = S.explain_planes(B, C, dev)
+    out_p = S.explain_planes(B, C, dev)
+    S.explain_rows(*k7_in, out_k)
+    S.explain_rows_plain(*k7_in, out_p)
+    err7 = max_abs_err(zip(out_k, out_p))
+    b7 = bound_ms(
+        3 * Bw * C * 4 + Bw * 4 + Bw * C
+        + nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_extra_score,
+                 db.pl_fail_bits, db.api_ok, db.cluster_valid, db.deleting)
+        + sum(nbytes(db.t[f][:Bw]) for f in S._BINDING_FIELDS),
+        20 * Bw * C)
+    ms7 = cuda_ms(lambda: S.explain_rows(*k7_in, out_k), reps)
+    plain7 = cuda_ms(lambda: S.explain_rows_plain(*k7_in, out_p), 2)
+    # its spread flavour on the chunk's region-spread phase B
+    groups = T.spread_groups(batch, part)
+    cap = {}
+    SP.solve_spread(batch, part, groups[("", "std")], waves=args.waves,
+                    device=dev, capture=cap, explain=True)
+    ex = cap["explain"]
+    sp_k = S.explain_planes(ex[0].B, C, dev)
+    sp_p = S.explain_planes(ex[0].B, C, dev)
+    S.explain_rows(*ex[:7], sp_k, pick=ex[7])
+    S.explain_rows_plain(*ex[:7], sp_p, pick=ex[7])
+    err7s = max_abs_err(zip(sp_k, sp_p))
+    ms7s = cuda_ms(lambda: S.explain_rows(*ex[:7], sp_k, pick=ex[7]), reps)
+    log(f"phase 2 explain_rows spread flavour: {ex[0].B}x{C} "
+        f"max_abs_err={err7s} ms={ms7s:.4f}")
+    rows.append(dict(
+        name="explain_rows", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/explain.cu",
+        replaces="karmada_tpu/ops/solver.py:229",
+        max_abs_err=max(err7, err7s), ms=ms7, plain_ms=plain7,
+        bound_ms=b7[0], bound_by=b7[1], library_ms=None))
+    log(f"phase 2 explain_rows: wave 0 of the forward chunk, {Bw}x{C}")
+
+    # -- K8 on the first megafleet chunk's profile rows -------------------------
+    mfleet, mitems = mega
+    mbatch = T.encode_batch(mitems[:args.chunk], T.ClusterIndex.build(mfleet),
+                            GeneralEstimator(), cache=T.EncoderCache())
+    prof_keys, _prof_of, rep_max = SL._profiles(mbatch)
+    agg = SL.cycle_aggregates(mbatch, dev)
+    pdb = SL.profile_batch(mbatch, prof_keys, rep_max, dev)
+    pz = S._zeros_used(pdb)
+    pest = S.capacity(pdb.req_milli, pdb.req_is_cpu, pdb.req_pods,
+                      pdb.avail_milli, pz[0], pdb.has_alloc,
+                      pdb.pods_allowed, pz[1], pdb.has_summary,
+                      pdb.est_override, pz[2])
+    pref = torch.from_numpy(agg["group_pref"]).to(dev)
+    k8 = SL.shortlist_topk(pdb, pest, pref, MEGA_K)
+    err8 = max_abs_err(zip(k8, SL.shortlist_topk_plain(pdb, pest, pref,
+                                                       MEGA_K)))
+    Cm = pdb.C
+    b8 = bound_ms(
+        nbytes(pest, pref, pdb.cluster_valid, pdb.deleting, pdb.name_rank,
+               pdb.api_ok, pdb.pl_mask, pdb.pl_tol_bypass, *k8)
+        + sum(nbytes(pdb.t[f]) for f in S._BINDING_FIELDS if f in pdb.t),
+        pdb.B * Cm)
+    ms8 = cuda_ms(lambda: SL.shortlist_topk(pdb, pest, pref, MEGA_K), reps)
+    plain8 = cuda_ms(lambda: SL.shortlist_topk_plain(pdb, pest, pref,
+                                                     MEGA_K), 2)
+    # the same rows tiled to twice the lanes: wider than the shared-memory
+    # key path, so the keys go to the device-memory scratch
+    wt = dict(pdb.t)
+    for f in ("cluster_valid", "deleting"):
+        wt[f] = torch.cat([pdb.t[f], pdb.t[f]])
+    wt["name_rank"] = torch.cat([pdb.name_rank, pdb.name_rank + Cm])
+    for f in ("api_ok", "pl_mask", "pl_tol_bypass"):
+        wt[f] = torch.cat([pdb.t[f], pdb.t[f]], dim=1).contiguous()
+    wdb = S.DeviceBatch(B=pdb.B, C=2 * Cm, device=pdb.device, t=wt)
+    west = torch.cat([pest, pest], dim=1).contiguous()
+    wpref = torch.cat([pref, pref])
+    wk = SL.shortlist_topk(wdb, west, wpref, MEGA_K)
+    err8w = max_abs_err(zip(wk, SL.shortlist_topk_plain(wdb, west, wpref,
+                                                        MEGA_K)))
+    ms8w = cuda_ms(lambda: SL.shortlist_topk(wdb, west, wpref, MEGA_K), reps)
+    log(f"phase 2 shortlist_topk device-memory keys: {wdb.B}x{wdb.C} "
+        f"(> {kernels.TOPK_SMEM_LANES} shared-memory lanes) "
+        f"max_abs_err={err8w} ms={ms8w:.4f}")
+    rows.append(dict(
+        name="shortlist_topk", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/shortlist.cu",
+        replaces="karmada_tpu/ops/shortlist.py:174",
+        max_abs_err=max(err8, err8w), ms=ms8, plain_ms=plain8,
+        bound_ms=b8[0], bound_by=b8[1], library_ms=None))
+    log(f"phase 2 shortlist_topk: {prof_keys.shape[0]} profiles -> "
+        f"{pdb.B}x{Cm}, k={MEGA_K}; fcount {k8[1][:prof_keys.shape[0]]}"
+        .replace("\n", " "))
+
+    # -- K9 on the 10k fleet ------------------------------------------------------
+    G = agg["n_groups"]
+    gid = torch.from_numpy(np.array(mbatch.region_id, np.int32)).to(dev)
+    capx = torch.from_numpy(agg["cap_proxy"]).to(dev)
+    g_k = SL.group_sums(gid, capx, G)
+    err9 = max_abs_err([(g_k, SL.group_sums_plain(gid, capx, G))])
+    gid_eff = torch.where(gid >= 0, gid.long(), G)
+    b9 = bound_ms(nbytes(gid, capx, g_k), gid.numel())
+    rows.append(dict(
+        name="group_sums", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/shortlist.cu",
+        replaces="karmada_tpu/ops/shortlist.py:259",
+        max_abs_err=err9, ms=cuda_ms(lambda: SL.group_sums(gid, capx, G),
+                                     reps),
+        plain_ms=cuda_ms(lambda: SL.group_sums_plain(gid, capx, G), reps),
+        bound_ms=b9[0], bound_by=b9[1],
+        library_ms=cuda_ms(lambda: torch.zeros(
+            G + 1, dtype=torch.int64, device=dev).index_add_(0, gid_eff,
+                                                             capx), reps)))
+    for r in rows:
+        log(f"phase 2 {r['name']}: max_abs_err={r['max_abs_err']} "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']}")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['name']} disagrees with its plain "
+                                 "version")
+    return rows
+
+
 def check_results(items, results, names) -> dict:
     """Result classes per cycle, and the invariants every result must meet:
     targets on known clusters with positive (Divided: summing to the
@@ -568,19 +796,22 @@ def check_results(items, results, names) -> dict:
 
 
 def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
-                need, routes) -> dict:
+                need, routes, chunk=None, **kw):
     """One cycle through schedule_items; `need` names the kernels its path
-    must launch, `routes` the routes its rows must take."""
+    must launch, `routes` the routes its rows must take; `kw` goes to
+    schedule_items (explain=, shortlist=).  Returns the launch counts, the
+    pipeline stats, the results and the wall seconds."""
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.scheduler.core import schedule_items
     from karmada_tpu_torch.scheduler.pipeline import PipelineResult
 
+    chunk = chunk or args.chunk
     stats = PipelineResult()
     torch.cuda.synchronize()
     kernels.reset_counts()
     t0 = time.perf_counter()
-    results = schedule_items(items, fleet, chunk=args.chunk,
-                             waves=args.waves, device=dev, stats=stats)
+    results = schedule_items(items, fleet, chunk=chunk, waves=args.waves,
+                             device=dev, stats=stats, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -588,10 +819,12 @@ def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
     log(f"phase {label}: {len(items)} bindings x {len(fleet)} clusters in "
         f"{wall:.3f} s ({len(items) / wall:.0f} bindings/s); chunks="
         f"{stats.chunks} encode_s={stats.encode_s:.3f} "
+        f"shortlist_s={stats.shortlist_s:.3f} "
         f"dispatch_s={stats.dispatch_s:.3f} wait_s={stats.wait_s:.3f} "
         f"finalize_s={stats.finalize_s:.3f}"
         f" decode_s={stats.decode_s:.3f} spread_s={stats.spread_s:.3f} "
-        f"big_s={stats.big_s:.3f}; routes={stats.routes}; results={counts}; "
+        f"big_s={stats.big_s:.3f} explain_s={stats.explain_s:.3f}; "
+        f"routes={stats.routes}; results={counts}; "
         f"launches={launches}; main-path busy share (chunks x phase-2 chunk "
         f"time / wall) ~{stats.chunks * chunk_ms / 1e3 / wall:.3f}")
     for k in need:
@@ -600,6 +833,99 @@ def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
     for r in routes:
         if stats.routes.get(r, 0) <= 0:
             raise AssertionError(f"{label}: no row took route {r}")
+    return launches, stats, results, wall
+
+
+def phase_explain(items, fleet, names, args, dev, chunk_ms, need):
+    """Phase 7: the explain cycle.  Every binding gets exactly one
+    Decision; main and spread rows full verdict tables, big-tier rows
+    outcome-level ones; every unschedulable result with a verdict table
+    carries its dominant reason."""
+    from collections import Counter
+
+    from karmada_tpu_torch.obs import decisions as D
+    from karmada_tpu_torch.ops import tensors as T
+
+    class Recorder(D.DecisionRecorder):
+        """The default ring, plus a tally of every record."""
+
+        def __init__(self):
+            super().__init__()
+            self.tally = []
+
+        def record(self, decision):
+            self.tally.append((decision["key"], decision["backend"],
+                               decision["clusters_total"],
+                               decision["clusters"], decision["reason"]))
+            super().record(decision)
+
+    rec = Recorder()
+    launches, stats, results, _wall = phase_cycle(
+        "7 explain", items, fleet, names, args, dev, chunk_ms, need,
+        (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD, T.ROUTE_DEVICE_BIG),
+        chunk=EXPLAIN_CHUNK, explain=rec)
+    keys = [D.default_key(spec) for spec, _st in items]
+    per_key = Counter(k for k, *_ in rec.tally)
+    if len(set(keys)) != len(items) or per_key != Counter(keys):
+        raise AssertionError("phase 7: not exactly one decision per binding")
+    backends = Counter(b for _k, b, *_ in rec.tally)
+    device_rows = sum(stats.routes.get(r, 0) for r in (
+        T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD, T.ROUTE_DEVICE_SPREAD_BIG,
+        T.ROUTE_DEVICE_BIG))
+    if (backends["device"] != stats.routes.get(T.ROUTE_DEVICE, 0)
+            or backends["device-spread"] <= 0
+            or backends["device-big"] < stats.routes.get(T.ROUTE_DEVICE_BIG, 1)
+            or backends["serial"] != len(items) - device_rows):
+        raise AssertionError(f"phase 7: decisions by backend {backends} "
+                             f"do not match the routes {stats.routes}")
+    with_table = set()
+    for key, backend, total, rows, _reason in rec.tally:
+        if total != len(fleet):
+            raise AssertionError(f"phase 7: {key} covers {total} clusters")
+        full = bool(rows) and all("score" in r for r in rows)
+        if backend in ("device", "device-spread"):
+            if not full:
+                raise AssertionError(f"phase 7: {key} has no verdict table")
+            with_table.add(key)
+        elif any("score" in r for r in rows):
+            raise AssertionError(f"phase 7: {key} ({backend}) is not "
+                                 "outcome-level")
+    errs = [(k, r) for k, r in zip(keys, results) if isinstance(r, Exception)]
+    missing = [k for k, r in errs
+               if k in with_table and not getattr(r, "reason", None)]
+    if not any(k in with_table for k, _r in errs):
+        raise AssertionError("phase 7: no unschedulable row with a verdict "
+                             "table to check a reason on")
+    if missing:
+        raise AssertionError(f"phase 7: {len(missing)} unschedulable results "
+                             f"without a reason, e.g. {missing[:3]}")
+    log(f"phase 7 explain: decisions by backend {dict(backends)}; reasons of "
+        f"the {len(errs)} unschedulable results "
+        f"{dict(Counter(getattr(r, 'reason', None) for _k, r in errs))}; "
+        f"decision reasons {dict(Counter(x[4] for x in rec.tally))}; "
+        f"ring {rec.stats()}")
+    return launches
+
+
+def phase_megafleet(items, fleet, names, args, dev, chunk_ms, need):
+    """Phase 8: the megafleet cycle with the shortlist armed -- every
+    chunk shortlisted, no fallback."""
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.ops import tensors as T
+
+    launches, stats, _results, _wall = phase_cycle(
+        "8 megafleet", items, fleet, names, args, dev, chunk_ms, need,
+        (T.ROUTE_DEVICE,), shortlist=SL.ShortlistConfig(k=MEGA_K))
+    st = stats.shortlist
+    unions = np.asarray(st["unions"])
+    log(f"phase 8 megafleet: {st['chunks']} of {stats.chunks} chunks "
+        f"shortlisted, fallbacks {st['fallbacks']}, widened {st['widened']}, "
+        f"residual rows {st['residual_rows']}; union widths "
+        f"min {unions.min()} mean {unions.mean():.1f} max {unions.max()}; "
+        f"tier-2 cells {st['cells_solve']} vs dense {st['cells_dense']} "
+        f"({st['cells_dense'] / st['cells_solve']:.0f}x fewer)")
+    if st["fallbacks"] or st["chunks"] != stats.chunks:
+        raise AssertionError(f"phase 8: not every chunk shortlisted: {st}")
     return launches
 
 
@@ -613,8 +939,6 @@ def phase_parity(label, items, fleet, args, dev) -> None:
     """One chunk through the kernel path on the card and the plain path on
     the CPU: solve_compact's COO, status, nnz and carry accumulators, and
     schedule_items' results row by row."""
-    import numpy as np
-
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import solver as S
     from karmada_tpu_torch.ops import tensors as T
@@ -645,6 +969,102 @@ def phase_parity(label, items, fleet, args, dev) -> None:
     if bad:
         raise AssertionError(f"{label}: rows {bad[:10]} differ: card "
                              f"{card[bad[0]]} cpu {cpu[bad[0]]}")
+
+
+def phase_parity_explain(items, fleet, args, dev) -> None:
+    """One phase-7 chunk: its explain planes (and COO, carry) card vs CPU
+    bit for bit, and its decisions through schedule_items equal apart
+    from ts/id."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.obs import decisions as D
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import tensors as T
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    part = items[:EXPLAIN_CHUNK]
+    batch = T.encode_batch(part, T.ClusterIndex.build(fleet),
+                           GeneralEstimator(), cache=T.EncoderCache(),
+                           explain=True)
+    k = S.solve_compact(batch, waves=args.waves, with_used=True,
+                        explain=True, device=dev)
+    p = S.solve_compact(batch, waves=args.waves, with_used=True,
+                        explain=True, device="cpu")
+    same = (k[3] == p[3] and all(np.array_equal(a, b) for a, b in zip(
+        k[:3] + k[4] + k[5], p[:3] + p[4] + p[5])))
+    log(f"phase 5 parity explain: chunk {batch.B}x{batch.C} planes "
+        f"kernel==plain(cpu): {same}")
+    if not same:
+        raise AssertionError("explain: kernel planes != plain planes")
+    decs = []
+    for d in (dev, "cpu"):
+        rec = D.DecisionRecorder(capacity=len(part))
+        t0 = time.perf_counter()
+        schedule_items(part, fleet, chunk=EXPLAIN_CHUNK, waves=args.waves,
+                       device=d, explain=rec)
+        decs.append([{x: v for x, v in dec.items() if x not in ("ts", "id")}
+                     for dec in rec.recent()])
+        log(f"phase 5 parity explain: schedule_items on {d}, "
+            f"{len(decs[-1])} decisions in {time.perf_counter() - t0:.2f} s")
+    if decs[0] != decs[1]:
+        bad = next(i for i, (a, b) in enumerate(zip(*decs)) if a != b)
+        raise AssertionError(f"explain: decision {bad} differs card vs cpu")
+
+
+def phase_parity_shortlist(items, fleet, args, dev) -> None:
+    """One shortlisted megafleet chunk card vs CPU (sub-batch, COO, carry,
+    schedule_items row by row), and the first RECALL_BINDINGS megafleet
+    bindings shortlisted vs dense on the card (bench.py's recall leg)."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import tensors as T
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    cfg = SL.ShortlistConfig(k=MEGA_K)
+    part = items[:args.chunk]
+    batch = T.encode_batch(part, T.ClusterIndex.build(fleet),
+                           GeneralEstimator(), cache=T.EncoderCache())
+    subs = []
+    for d in (dev, "cpu"):
+        SL.reset_for_tests()
+        subs.append(SL.shrink_chunk(batch, cfg, device=d))
+    (sk, ik), (sp, ip) = subs
+    if sk is None or sp is None or ik != ip or not np.array_equal(
+            sk.sub_lanes, sp.sub_lanes):
+        raise AssertionError(f"shortlist: tier 1 differs card vs cpu: {ik} "
+                             f"{ip}")
+    k = S.solve_compact(sk, waves=args.waves, with_used=True, device=dev)
+    p = S.solve_compact(sk, waves=args.waves, with_used=True, device="cpu")
+    same = (k[3] == p[3] and all(np.array_equal(a, b) for a, b in zip(
+        k[:3] + k[4], p[:3] + p[4])))
+    log(f"phase 5 parity shortlist: chunk {batch.B}x{batch.C} -> "
+        f"{sk.B}x{sk.C} (union {ik['union']}), solve_compact "
+        f"kernel==plain(cpu): {same}")
+    if not same:
+        raise AssertionError("shortlist: kernel path != plain path")
+    out = {}
+    for d, sl in ((dev, cfg), ("cpu", cfg), ("dense", None)):
+        t0 = time.perf_counter()
+        out[str(d)] = [norm(r) for r in schedule_items(
+            part, fleet, chunk=args.chunk, waves=args.waves,
+            device=dev if d == "dense" else d, shortlist=sl)]
+        log(f"phase 5 parity shortlist: schedule_items {d} "
+            f"{time.perf_counter() - t0:.2f} s")
+    bad = [i for i, (a, b) in enumerate(zip(out[str(dev)], out["cpu"]))
+           if a != b]
+    if bad:
+        raise AssertionError(f"shortlist: rows {bad[:10]} differ card vs cpu")
+    sample = items[:RECALL_BINDINGS]
+    dense = [norm(r) for r in schedule_items(
+        sample, fleet, chunk=args.chunk, waves=args.waves, device=dev)]
+    short = [norm(r) for r in schedule_items(
+        sample, fleet, chunk=args.chunk, waves=args.waves, device=dev,
+        shortlist=cfg)]
+    bad = [i for i, (a, b) in enumerate(zip(dense, short)) if a != b]
+    log(f"phase 5 parity shortlist: {len(sample)} megafleet bindings "
+        f"shortlisted vs dense on the card, rows differing: {len(bad)}")
+    if bad:
+        raise AssertionError(f"shortlist: rows {bad[:10]} differ from dense")
 
 
 def main() -> int:
@@ -682,29 +1102,51 @@ def main() -> int:
         f"wide {WIDE_BINDINGS}, built in {time.perf_counter() - t0:.1f}"
         f" s (seed {args.seed})")
 
+    explain_items = starve_items(M, wide_items[:EXPLAIN_BINDINGS])
+    t0 = time.perf_counter()
+    mfleet, mplacements = build_megafleet(M, random.Random(args.seed + 2),
+                                          MEGA_CLUSTERS, MEGA_REGIONS)
+    mitems = build_mega_bindings(M, random.Random(args.seed + 3),
+                                 MEGAFLEET_BINDINGS, mplacements, args.chunk)
+    mnames = [c.name for c in mfleet]
+    log(f"workload: megafleet {MEGAFLEET_BINDINGS} bindings x "
+        f"{MEGA_CLUSTERS} clusters in {MEGA_REGIONS} regions, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     first = T.encode_batch(items[:args.chunk], T.ClusterIndex.build(fleet),
                            GeneralEstimator(), cache=T.EncoderCache())
     report, chunk_ms = phase_kernels(first, items, wide_items, fleet, args,
                                      dev, args.reps)
+    report += phase_kernels_k7_k9(items, fleet, (mfleet, mitems), args, dev,
+                                  args.reps)
 
     main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
                  "spread_group_info", "spread_pick")
     cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
     fwd = phase_cycle("3 forward", items, fleet, names, args, dev, chunk_ms,
-                      main_path, cfg5)
+                      main_path, cfg5)[0]
     reb_items = build_rebalance_items(M, rng, items, names)
     reb = phase_cycle("4 rebalance", reb_items, fleet, names, args, dev,
-                      chunk_ms, main_path, cfg5)
+                      chunk_ms, main_path, cfg5)[0]
     wide = phase_cycle(
         "6 wide", wide_items, fleet, names, args, dev, chunk_ms,
         main_path + ("schedule_rows_big",),
-        cfg5 + (T.ROUTE_DEVICE_BIG, T.ROUTE_DEVICE_SPREAD_BIG))
+        cfg5 + (T.ROUTE_DEVICE_BIG, T.ROUTE_DEVICE_SPREAD_BIG))[0]
+    expl = phase_explain(explain_items, fleet, names, args, dev, chunk_ms,
+                         main_path + ("schedule_rows_big", "explain_rows"))
+    mega = phase_megafleet(
+        mitems, mfleet, mnames, args, dev, chunk_ms,
+        ("capacity", "schedule_rows", "webster_batch", "compact",
+         "shortlist_topk", "group_sums"))
     for r in report:
-        r["launches"] = fwd[r["name"]] + reb[r["name"]] + wide[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
+                                                      mega))
 
     phase_parity("forward", items, fleet, args, dev)
     phase_parity("rebalance", reb_items, fleet, args, dev)
     phase_parity("wide", wide_items, fleet, args, dev)
+    phase_parity_explain(explain_items, fleet, args, dev)
+    phase_parity_shortlist(mitems, mfleet, args, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

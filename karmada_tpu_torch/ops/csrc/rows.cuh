@@ -1,5 +1,6 @@
-// The per-row prologue K2 schedule_rows, K5 spread_group_info and K6
-// spread_pick share, and the block sort all three use.
+// The per-row prologue K2 schedule_rows, K5 spread_group_info, K6
+// spread_pick, K7 explain_rows and K8 shortlist_topk share, the block sort
+// K2/K5/K6/K8 use, and the top-k selection K2 and K8 share.
 //
 // Replaces the dense [B, C] planes the JAX programs build before their
 // per-row math -- karmada_tpu/ops/solver.py _schedule_core (the prev/evict
@@ -34,8 +35,8 @@ struct Row {
 };
 
 struct LaneInfo {
-  bool feas, pp;  // feasible; previously assigned here
-  i64 pr, ac;     // previous replicas; calibrated availability
+  bool feas, pp, ev;  // feasible; previously assigned here; evicting here
+  i64 pr, ac;         // previous replicas; calibrated availability
 };
 
 // Row b's plane scalars and COO entries.  pidx/pval/eidx are shared memory
@@ -82,15 +83,15 @@ __device__ __forceinline__ LaneInfo lane_info(const A& a, const Row& row,
   l.pr = 0;
   for (int e = 0; e < row.n_prev; ++e)
     if (row.pidx[e] == c) { l.pp = true; l.pr += row.pval[e]; }
-  bool ev = false;
-  for (int e = 0; e < row.n_evict; ++e) ev |= row.eidx[e] == c;
+  l.ev = false;
+  for (int e = 0; e < row.n_evict; ++e) l.ev |= row.eidx[e] == c;
   const i64 est_b = a.est[row.cid * a.C + c];
   l.ac = est_b == KT_MAX_INT32 ? row.n : est_b;
   if (row.nw_shortcut) l.ac = KT_MAX_INT32;
   const i64 pc = row.pid * a.C + c;
   l.feas = a.cluster_valid[c] && !a.deleting[c] && a.pl_mask[pc] &&
            (a.pl_tol_bypass[pc] || l.pp) &&
-           (a.api_ok[row.gvk * a.C + c] || l.pp) && !ev;
+           (a.api_ok[row.gvk * a.C + c] || l.pp) && !l.ev;
   return l;
 }
 
@@ -134,5 +135,78 @@ __device__ void block_sort(int* g, i64* key, int* idx, int N) {
       }
       __syncthreads();
     }
+  }
+}
+
+// lax.top_k's index set over ng key arrays of n lanes each (keys[g * n +
+// c], shared or device memory): array g keeps its kg largest keys (kg = k0
+// for g == 0, else k1).  The non-negative keys of one array must be
+// distinct; -1 marks an ineligible lane.  cnt[g] is array g's count of
+// non-negative keys (the caller counts them as it writes the keys).  An
+// 8-pass radix select finds thr[g], the kg-th largest key (0 when every
+// non-negative key fits); with `fill`, cut[g] is the last of the
+// lowest-index -1 lanes that fill an array short of kg, as lax.top_k
+// breaks ties (without it cut stays -1).  On return lane c is a member of
+// array g iff (key >= 0 ? key >= thr[g] : c <= cut[g]).  thr, cut, rem:
+// shared, ng entries; hist: shared, ng * 256 ints; wsum: NT / 32 ints.
+// Every thread of the block calls.
+template <int NT>
+__device__ void topk_select(const i64* keys, i64 n, int ng, int k0, int k1,
+                            const int* cnt, i64* thr, i64* cut, int* rem,
+                            int* hist, int* wsum, bool fill) {
+  if (threadIdx.x < ng) {
+    thr[threadIdx.x] = 0;
+    cut[threadIdx.x] = -1;
+    rem[threadIdx.x] = threadIdx.x == 0 ? k0 : k1;
+  }
+  __syncthreads();
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < ng * 256; i += NT) hist[i] = 0;
+    __syncthreads();
+    const u64 high = shift >= 56 ? 0ULL : (~0ULL << (shift + 8));
+    for (i64 c = threadIdx.x; c < n; c += NT) {
+      for (int g = 0; g < ng; ++g) {
+        const int kg = g == 0 ? k0 : k1;
+        if (cnt[g] <= kg) continue;
+        const i64 k = keys[g * n + c];
+        if (k < 0 || (((u64)k ^ (u64)thr[g]) & high) != 0) continue;
+        atomicAdd(&hist[g * 256 + (int)(((u64)k >> shift) & 255)], 1);
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < ng) {
+      const int g = threadIdx.x;
+      const int kg = g == 0 ? k0 : k1;
+      if (cnt[g] > kg) {
+        int cum = 0;
+        for (int d = 255; d >= 0; --d) {
+          const int h = hist[g * 256 + d];
+          if (cum + h >= rem[g]) {
+            rem[g] -= cum;
+            thr[g] = (i64)((u64)thr[g] | ((u64)d << shift));
+            break;
+          }
+          cum += h;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (!fill) return;
+  // the lowest-index lanes with key -1, for arrays short of kg
+  for (int g = 0; g < ng; ++g) {
+    const int kg = g == 0 ? k0 : k1;
+    const int need = kg - cnt[g];
+    if (need <= 0) continue;
+    int seen = 0;
+    for (i64 base = 0; base < n && seen < need; base += NT) {
+      const i64 c = base + threadIdx.x;
+      const bool f = c < n && keys[g * n + c] == -1;
+      int total;
+      const int pre = block_scan_flag<NT>(f, wsum, &total);
+      if (f && seen + pre + 1 == need) cut[g] = c;
+      seen += total;
+    }
+    __syncthreads();
   }
 }

@@ -15,12 +15,10 @@
 //   2. the lane set: every lane when C <= DIRECT_MAX (528 std, 4224 big),
 //      else the union of top-G_PREV by prev key and top-G_TOPK by each of
 //      three (four with plugin scores) packed keys (16 / 128 std, 128 /
-//      1024 big).  Keys go to a per-row scratch in device memory; an
-//      8-pass radix select finds each group's k-th largest key (the
-//      non-negative keys are distinct), and the lowest-index lanes with key
-//      -1 fill a group that has fewer eligible lanes, exactly as lax.top_k
-//      breaks ties.  An ordered scan writes the union ascending.  Works for
-//      any C up to 2^21;
+//      1024 big).  Keys go to a per-row scratch in device memory;
+//      rows.cuh topk_select (shared with K8) finds each group's members
+//      as lax.top_k does, and an ordered scan writes the union ascending.
+//      Works for any C up to 2^21;
 //   3. the lane math on those lanes (<= LMAX: 656 std, 5248 big): locality
 //      score, selection by packed key (bitonic sort of (key, lane) pairs =
 //      a stable argsort) and the capacity swap loop, strategy and mode,
@@ -239,11 +237,7 @@ __device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
   __shared__ i64 thr[NG_MAX];
   __shared__ i64 cut[NG_MAX];
   __shared__ int remaining[NG_MAX];
-  if (threadIdx.x < NG_MAX) {
-    cnt[threadIdx.x] = 0;
-    thr[threadIdx.x] = 0;
-    cut[threadIdx.x] = -1;
-  }
+  if (threadIdx.x < NG_MAX) cnt[threadIdx.x] = 0;
   __syncthreads();
   const bool has_prev = row.n_prev > 0;
   int my_cnt[NG_MAX] = {0, 0, 0, 0, 0};
@@ -257,58 +251,8 @@ __device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
   }
   for (int g = 0; g < ng; ++g) atomicAdd(&cnt[g], my_cnt[g]);
   __syncthreads();
-  // radix select of the k-th largest non-negative key per group
-  if (threadIdx.x < NG_MAX) remaining[threadIdx.x] =
-      threadIdx.x == 0 ? G_PREV : G_TOPK;
-  __syncthreads();
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < NG_MAX * 256; i += NT) s.hist[i] = 0;
-    __syncthreads();
-    const u64 high = shift >= 56 ? 0ULL : (~0ULL << (shift + 8));
-    for (i64 c = threadIdx.x; c < a.C; c += NT) {
-      for (int g = 0; g < ng; ++g) {
-        const int kg = g == 0 ? G_PREV : G_TOPK;
-        if (cnt[g] <= kg) continue;
-        const i64 k = keys[g * a.C + c];
-        if (k < 0 || (((u64)k ^ (u64)thr[g]) & high) != 0) continue;
-        atomicAdd(&s.hist[g * 256 + (int)(((u64)k >> shift) & 255)], 1);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < ng) {
-      const int g = threadIdx.x;
-      const int kg = g == 0 ? G_PREV : G_TOPK;
-      if (cnt[g] > kg) {
-        int cum = 0;
-        for (int d = 255; d >= 0; --d) {
-          const int h = s.hist[g * 256 + d];
-          if (cum + h >= remaining[g]) {
-            remaining[g] -= cum;
-            thr[g] = (i64)((u64)thr[g] | ((u64)d << shift));
-            break;
-          }
-          cum += h;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  // fill: the lowest-index lanes with key -1, for groups short of k
-  for (int g = 0; g < ng; ++g) {
-    const int kg = g == 0 ? G_PREV : G_TOPK;
-    const int fill = kg - cnt[g];
-    if (fill <= 0) continue;
-    int seen = 0;
-    for (i64 base = 0; base < a.C && seen < fill; base += NT) {
-      const i64 c = base + threadIdx.x;
-      const bool f = c < a.C && keys[g * a.C + c] == -1;
-      int total;
-      const int pre = block_scan_flag<NT>(f, wsum, &total);
-      if (f && seen + pre + 1 == fill) cut[g] = c;
-      seen += total;
-    }
-    __syncthreads();
-  }
+  topk_select<NT>(keys, a.C, ng, G_PREV, G_TOPK, cnt, thr, cut, remaining,
+                  s.hist, wsum, true);
   // ordered union of the members
   int U = 0;
   for (i64 base = 0; base < a.C; base += NT) {

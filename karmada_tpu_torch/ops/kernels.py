@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources (ops/csrc/<source>.cu), one library each
 SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
-           "spread_group_info", "spread_pick")
+           "spread_group_info", "spread_pick", "explain", "shortlist")
 #: C entry points (kt_<entry>) of each source's library
 ENTRIES = {"capacity": ("capacity",),
            "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish",
@@ -36,11 +36,15 @@ ENTRIES = {"capacity": ("capacity",),
                              "schedule_rows_big_finish"),
            "compact": ("compact",), "webster_batch": ("webster_batch",),
            "spread_group_info": ("spread_group_info",),
-           "spread_pick": ("spread_pick",)}
+           "spread_pick": ("spread_pick",),
+           "explain": ("explain_rows", "explain_rows_spread"),
+           "shortlist": ("shortlist_topk", "group_sums")}
 #: the kernels, by launch counter: K2's big-tier instantiation counts
-#: apart from the std one it shares a source with
+#: apart from the std one it shares a source with; K7's spread flavour
+#: counts as explain_rows; K8 and K9 share a source
 KERNELS = ("capacity", "schedule_rows", "schedule_rows_big", "compact",
-           "webster_batch", "spread_group_info", "spread_pick")
+           "webster_batch", "spread_group_info", "spread_pick",
+           "explain_rows", "shortlist_topk", "group_sums")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -236,3 +240,30 @@ SpreadPickArgs = _struct("SpreadPickArgs", SPREAD_TENSOR_FIELDS + (
 #: lanes the spread kernels sort in shared memory (16 B each); wider rows
 #: sort in their device-memory scratch
 SPREAD_SMEM_LANES = 8192
+
+ExplainArgs = _struct("ExplainArgs", (
+    "cluster_valid", "deleting", "api_ok", "pl_mask", "pl_tol_bypass",
+    "pl_extra_score", "b_valid", "placement_id", "gvk_id", "class_id",
+    "replicas", "non_workload", "nw_shortcut", "prev_idx", "prev_val",
+    "evict_idx", "est", "fail_bits", "sel", "pick", "status", "verdict",
+    "score", "avail", "outcome"),
+    ("r0", "r1", "C", "Q", "Kp", "Ke"))
+
+TOPK_TENSOR_FIELDS = (
+    "cluster_valid", "deleting", "name_rank", "api_ok", "pl_mask",
+    "pl_tol_bypass")
+
+TopkArgs = _struct("TopkArgs", TOPK_TENSOR_FIELDS + (
+    "group_pref", "b_valid", "placement_id", "gvk_id", "class_id",
+    "replicas", "nw_shortcut", "prev_idx", "prev_val", "evict_idx", "est",
+    "scratch", "cand", "fcount"),
+    ("B", "C", "Q", "Kp", "Ke", "k", "nk", "smem"))
+
+GroupSumArgs = _struct("GroupSumArgs", ("group_id", "cap", "out"),
+                       ("C", "G"))
+
+#: lanes K8 keeps in shared memory (8 B each); wider rows use a [B, C]
+#: device-memory key scratch
+TOPK_SMEM_LANES = 16384
+#: K8's member sort holds a power of two >= k entries in shared memory
+TOPK_MAX_K = 4096

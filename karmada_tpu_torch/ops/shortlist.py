@@ -1,0 +1,630 @@
+"""Tier-1 candidate shortlist: the hierarchical two-tier solve.
+
+Counterpart of the JAX package's ``ops/shortlist.py``.  The dense solve is
+O(B*C): every binding prices every cluster.  At fleet scale (1M bindings,
+10k clusters) the reference's own hierarchy -- group selection before
+per-cluster division -- becomes two tiers:
+
+  tier 1 (card)   K1 capacity on the raw snapshot, then K8 shortlist_topk
+                  over the chunk's DISTINCT profiles (bindings sharing
+                  (placement, GVK, request class) have identical static
+                  rows): per profile the top-k cluster lanes by a packed
+                  key -- previous-assignment bit, capacity estimate, a
+                  coarse per-region capacity rank (K9 group_sums, once per
+                  cycle), name order -- and the eligible-lane count.
+  tier 2 (card)   the existing solver (ops/solver) over the chunk's
+                  candidate-union sub-vocabulary: a [B, C'] problem with
+                  C' ~ O(k) instead of C, via the per-chunk lane remap
+                  _sub_batch.  The solver's lane math compares name ranks
+                  only by order, which the remap preserves, so a covered
+                  chunk's result is bit-exact against the dense solve.
+
+A binding is COVERED when its whole eligible lane set (feasible lanes plus
+its previous-assignment lanes) fits k.  A chunk with an uncovered binding
+widens k and retries; rows whose eligible set outgrows k_max leave the
+chunk as a per-binding dense residual (truncation, exact at waves=1) or
+drag the chunk back to the dense dispatch.  Every fallback keeps the dense
+batch: it costs time and never changes a placement.
+
+K8 and K9 have plain PyTorch versions here (shortlist_topk_plain,
+group_sums_plain), taken only for tensors on the CPU.  Counts of
+dispatches, rows, widenings, cells and fallbacks go in the module dicts
+COUNTS and FALLBACKS (plain ints, reset by reset_for_tests()).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.ops import kernels
+from karmada_tpu_torch.ops import tensors as T
+from karmada_tpu_torch.ops.solver import (
+    _AVAIL_BITS,
+    _AVAIL_CAP,
+    _LANE_BITS,
+    _LANE_MASK,
+    I64,
+    DeviceBatch,
+    _on_cuda,
+    _row_inputs,
+    _to_dev,
+    _zeros_used,
+    capacity,
+)
+
+# packed score-key geometry: prev-assignment bit above a 34-bit capacity
+# field above a 5-bit coarse group-rank field above the 21-bit lane field
+# (1+34+5+21 = 61 bits)
+_GROUP_BITS = 5
+_GROUP_MASK = (1 << _GROUP_BITS) - 1
+
+#: tier-1 work and fallbacks since the last reset_for_tests(): dispatches
+#: (K8 launches of _t1_rows, one per memo miss set), rows solved over a
+#: sub-vocabulary, widen-and-retry rounds, tier-2 cells (B*C' solved and
+#: B*C the dense dispatch would have priced), rows priced at full width by
+#: kind (`needed`: their own eligible set or route asked for it;
+#: `chunk_drag`: dragged along by a per-chunk fallback)
+COUNTS: Dict[str, int] = {
+    "dispatches": 0, "rows": 0, "widenings": 0, "cells_solve": 0,
+    "cells_dense": 0, "fallback_rows_needed": 0,
+    "fallback_rows_chunk_drag": 0}
+#: chunks that fell back to the dense dispatch, by reason
+FALLBACKS: Dict[str, int] = {
+    "uncovered": 0, "mixed_routes": 0, "union_wide": 0, "fused": 0}
+
+
+@dataclass(frozen=True)
+class ShortlistConfig:
+    """Tier selection knobs (the JAX Scheduler's shortlist_k= / serve
+    --shortlist).
+
+    k: candidate lanes per binding (tier-1 top-k width).
+    min_cells: a chunk shortlists only when its dense B*C cell count is at
+      least this; <= 0 arms every chunk.
+    k_max: widen-and-retry ceiling -- k doubles toward this while any
+      binding's eligible set does not fit, then the offending rows are
+      truncated out or the chunk falls back.
+    union_frac: dense fallback when the candidate union exceeds this
+      fraction of the real cluster count.
+    truncate: rows whose eligible set exceeds k_max leave the chunk as a
+      per-binding dense residual (the pipeline solves them at full width
+      against the chunk's starting consumption) instead of dragging the
+      chunk dense; the pipeline allows it only at waves=1 without
+      keep_sel.
+    """
+
+    k: int = 64
+    min_cells: int = 1 << 21
+    k_max: int = 256
+    union_frac: float = 0.5
+    truncate: bool = True
+
+
+# ---------------------------------------------------------------------------
+# K8 shortlist_topk
+# ---------------------------------------------------------------------------
+
+def shortlist_topk_plain(db: DeviceBatch, est, group_pref, k: int):
+    """The candidate plane of every row of db (JAX: _shortlist_core after
+    its capacity estimate): (cand int32[B, k] -- cluster lanes best first,
+    -1 padded -- and fcount int32[B], the eligible-lane count).  est is K1
+    on the raw snapshot; group_pref int64[C]."""
+    B, C = db.B, db.C
+    _pid, cid, _pr, prev_present, _ac, feasible, _ev = _row_inputs(
+        db, 0, B, est)
+    est_b = est[cid]
+    avail = torch.clamp(torch.where(est_b == (1 << 31) - 1,
+                                    db.replicas[:, None], est_b),
+                        0, _AVAIL_CAP)
+    eligible = (feasible | prev_present) & db.b_valid[:, None]
+    key = ((prev_present.long() << (_AVAIL_BITS + _GROUP_BITS + _LANE_BITS))
+           | (avail << (_GROUP_BITS + _LANE_BITS))
+           | (group_pref[None, :] << _LANE_BITS)
+           | (_LANE_MASK - db.name_rank)[None, :])
+    key = torch.where(eligible, key, torch.full((), -1, dtype=I64,
+                                                device=key.device))
+    # lax.top_k: descending, ties (only among -1 keys) to the lowest lane
+    srt = torch.sort(key, dim=1, descending=True, stable=True)
+    vals, idx = srt.values[:, :k], srt.indices[:, :k]
+    cand = torch.where(vals >= 0, idx, -1).to(torch.int32)
+    return cand, eligible.sum(1).to(torch.int32)
+
+
+def shortlist_topk(db: DeviceBatch, est, group_pref, k: int):
+    """K8 (ops/csrc/shortlist.cu; launch counter "shortlist_topk") on a
+    CUDA batch, shortlist_topk_plain on a CPU one; same contract.  db's
+    nw_shortcut must be all false (profile rows never take it)."""
+    if not _on_cuda(est, group_pref, db.b_valid):
+        return shortlist_topk_plain(db, est, group_pref, k)
+    B, C = db.B, db.C
+    Q = db.req_milli.shape[0]
+    P = db.pl_mask.shape[0]
+    Kp = db.prev_idx.shape[1]
+    Ke = db.evict_idx.shape[1]
+    if not 1 <= k <= min(C, kernels.TOPK_MAX_K):
+        raise ValueError(f"k={k} outside [1, min(C={C}, "
+                         f"{kernels.TOPK_MAX_K})]")
+    spec = {
+        "cluster_valid": (torch.bool, (C,)), "deleting": (torch.bool, (C,)),
+        "name_rank": (I64, (C,)),
+        "api_ok": (torch.bool, (db.api_ok.shape[0], C)),
+        "pl_mask": (torch.bool, (P, C)), "pl_tol_bypass": (torch.bool, (P, C)),
+        "b_valid": (torch.bool, (B,)), "placement_id": (torch.int32, (B,)),
+        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
+        "replicas": (I64, (B,)), "nw_shortcut": (torch.bool, (B,)),
+        "prev_idx": (torch.int32, (B, Kp)), "prev_val": (torch.int32, (B, Kp)),
+        "evict_idx": (torch.int32, (B, Ke)),
+    }
+    for f, (dt, shape) in spec.items():
+        kernels.check(db.t[f], dt, shape)
+    kernels.check(est, I64, (Q + 1, C))
+    kernels.check(group_pref, I64, (C,))
+    if bool(db.nw_shortcut.any()):
+        raise ValueError("tier-1 profile rows take no non-workload shortcut")
+    dev = est.device
+    smem = C <= kernels.TOPK_SMEM_LANES
+    scratch = torch.empty((0 if smem else B * C,), dtype=I64, device=dev)
+    cand = torch.empty((B, k), dtype=torch.int32, device=dev)
+    fcount = torch.empty((B,), dtype=torch.int32, device=dev)
+    nk = T._next_pow2(k, 2)  # noqa: SLF001
+    t = db.t
+    kernels.launch("shortlist", kernels.TopkArgs(
+        *(kernels.ptr(t[f]) for f in kernels.TOPK_TENSOR_FIELDS),
+        kernels.ptr(group_pref),
+        *(kernels.ptr(t[f]) for f in (
+            "b_valid", "placement_id", "gvk_id", "class_id", "replicas",
+            "nw_shortcut", "prev_idx", "prev_val", "evict_idx")),
+        kernels.ptr(est), kernels.ptr(scratch), kernels.ptr(cand),
+        kernels.ptr(fcount), B, C, Q, Kp, Ke, k, nk, int(smem)),
+        "shortlist_topk", count="shortlist_topk")
+    return cand, fcount
+
+
+# ---------------------------------------------------------------------------
+# K9 group_sums
+# ---------------------------------------------------------------------------
+
+def group_sums_plain(group_id, cap_proxy, n_groups: int):
+    """Per-group sum of the capacity proxy, int64[n_groups + 1] (JAX:
+    _group_sums): groupless lanes (-1) land in the trailing bucket; ids
+    beyond it are dropped, as segment_sum drops them."""
+    gid = torch.where(group_id >= 0, group_id.long(), n_groups)
+    keep = gid <= n_groups
+    out = torch.zeros((n_groups + 1,), dtype=I64, device=cap_proxy.device)
+    return out.index_add_(0, gid[keep], cap_proxy[keep])
+
+
+def group_sums(group_id, cap_proxy, n_groups: int):
+    """K9 (ops/csrc/shortlist.cu; launch counter "group_sums") on CUDA
+    tensors, group_sums_plain on CPU ones; same contract."""
+    if not _on_cuda(group_id, cap_proxy):
+        return group_sums_plain(group_id, cap_proxy, n_groups)
+    C = group_id.shape[0]
+    kernels.check(group_id, torch.int32, (C,))
+    kernels.check(cap_proxy, I64, (C,))
+    out = torch.zeros((n_groups + 1,), dtype=I64, device=cap_proxy.device)
+    kernels.launch("shortlist", kernels.GroupSumArgs(
+        kernels.ptr(group_id), kernels.ptr(cap_proxy), kernels.ptr(out),
+        C, n_groups), "group_sums", count="group_sums")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Memos: the cycle's coarse aggregates and the per-profile tier-1 rows
+# ---------------------------------------------------------------------------
+
+# one-slot per-cycle memo for the coarse aggregates: the encoder hands
+# back the SAME frozen numpy cluster planes across the chunks of a cycle
+# that share a vocabulary (EncoderCache.assembled), so identity keying
+# aggregates once per such run.  The memo pins the source arrays it keyed
+# on, so a collected id can never alias a fresh plane.
+_AGG_MEMO: List[Optional[dict]] = [None]
+_AGG_LOCK = threading.Lock()
+# per-profile tier-1 memo (see _dispatch_profiles): one master-set slot,
+# {(placement, gvk, class, k) -> (cand_row, fcount)} under it, a bounded
+# LRU; same pinning discipline
+_T1_MEMO: List[Optional[dict]] = [None]
+_T1_LOCK = threading.Lock()
+_T1_ROWS_CAP = 4096  # LRU bound on cached profile rows per master epoch
+
+
+def reset_for_tests() -> None:
+    """Drop both memos and zero the counters."""
+    with _AGG_LOCK:
+        _AGG_MEMO[0] = None
+    with _T1_LOCK:
+        _T1_MEMO[0] = None
+    for d in (COUNTS, FALLBACKS):
+        for k in d:
+            d[k] = 0
+
+
+def cycle_aggregates(batch, device=None) -> dict:
+    """The cycle's coarse per-group aggregates, built once from the
+    cluster planes: group_cap int64[G+1] (free-pod proxy summed per region
+    by K9; trailing bucket = groupless), group_pref int64[C] (the 5-bit
+    capacity-rank preference the score key packs -- richer regions rank
+    higher), cap_proxy int64[C], and the cluster names they align to."""
+    src = (batch.avail_milli, batch.pods_allowed, batch.region_id)
+    with _AGG_LOCK:
+        memo = _AGG_MEMO[0]
+        if (memo is not None and memo["c"] == batch.C
+                and all(a is b for a, b in zip(memo["src"], src))):
+            return memo
+    device = resolve_device(device)
+    region_id = (batch.region_id if batch.region_id is not None
+                 else np.full(batch.C, -1, np.int32))
+    n_groups = len(batch.region_names or [])
+    valid = np.asarray(batch.cluster_valid) & ~np.asarray(batch.deleting)
+    cap_proxy = np.where(valid, np.asarray(batch.pods_allowed), 0)
+    group_cap = group_sums(
+        _to_dev(np.ascontiguousarray(region_id, np.int32), device),
+        _to_dev(np.ascontiguousarray(cap_proxy, np.int64), device),
+        n_groups).cpu().numpy()
+    # rank groups by aggregate capacity (desc); the key packs 5 bits
+    order = np.argsort(-group_cap, kind="stable")
+    rank = np.zeros(n_groups + 1, np.int64)
+    rank[order] = np.arange(n_groups + 1)
+    pref = _GROUP_MASK - np.minimum(rank, _GROUP_MASK)
+    gid = np.where(region_id >= 0, region_id, n_groups)
+    memo = {
+        "src": src,
+        "c": batch.C,
+        "group_cap": group_cap,
+        "group_pref": np.ascontiguousarray(pref[gid], np.int64),
+        "cap_proxy": np.ascontiguousarray(cap_proxy, np.int64),
+        "names": tuple(batch.cluster_index.names)
+        if batch.cluster_index is not None else (),
+        "n_groups": n_groups,
+    }
+    with _AGG_LOCK:
+        _AGG_MEMO[0] = memo
+    return memo
+
+
+def _fallback(reason: str, detail: str) -> Tuple[None, dict]:
+    """The counted dense-fallback path: a shortlisted chunk never changes
+    width silently."""
+    FALLBACKS[reason] += 1
+    return None, {"fallback": reason, "detail": detail}
+
+
+def _profiles(batch):
+    """Profile dedup: bindings sharing (placement, gvk, request class)
+    have identical static feasibility and capacity rows, so tier 1 scores
+    one row per distinct profile.  Per-binding deltas (prev assignments,
+    evictions) rejoin host-side: prev lanes append to the candidate union,
+    evict lanes only ever remove feasibility.
+
+    Returns (prof_keys int32[nprof, 3], prof_of int64[B], replicas_max
+    int64[nprof])."""
+    keys = np.stack([
+        np.asarray(batch.placement_id, np.int32),
+        np.asarray(batch.gvk_id, np.int32),
+        np.asarray(batch.class_id, np.int32),
+    ], axis=1)
+    prof_keys, prof_of = np.unique(keys, axis=0, return_inverse=True)
+    prof_of = prof_of.reshape(-1)
+    rep_max = np.zeros(prof_keys.shape[0], np.int64)
+    np.maximum.at(rep_max, prof_of, np.asarray(batch.replicas, np.int64))
+    return prof_keys, prof_of, rep_max
+
+
+_PROFILE_CLUSTER_FIELDS = (
+    "cluster_valid", "deleting", "name_rank", "pods_allowed", "has_summary",
+    "avail_milli", "has_alloc", "api_ok", "req_milli", "req_is_cpu",
+    "req_pods", "est_override", "pl_mask", "pl_tol_bypass")
+
+
+def profile_batch(batch, prof_keys, rep_max, device) -> DeviceBatch:
+    """The tier-1 operands of the given profile rows on `device`: the
+    cluster planes and one row per profile, padded to a power of two >= 8
+    rows (padding rows invalid), with no prev/evict lanes and no
+    non-workload shortcut -- the rows _shortlist_core is called with."""
+    nprof = prof_keys.shape[0]
+    Bp = T._next_pow2(max(nprof, 1), 8)  # noqa: SLF001
+
+    def pad1(a, fill, dtype):
+        out = np.full(Bp, fill, dtype)
+        out[:nprof] = a
+        return out
+
+    b_valid = np.zeros(Bp, bool)
+    b_valid[:nprof] = True
+    rows = {
+        "b_valid": b_valid,
+        "placement_id": pad1(prof_keys[:, 0], 0, np.int32),
+        "gvk_id": pad1(prof_keys[:, 1], 0, np.int32),
+        "class_id": pad1(prof_keys[:, 2], -1, np.int32),
+        "replicas": pad1(rep_max, 0, np.int64),
+        "nw_shortcut": np.zeros(Bp, bool),
+        "prev_idx": np.full((Bp, 1), -1, np.int32),
+        "prev_val": np.zeros((Bp, 1), np.int32),
+        "evict_idx": np.full((Bp, 1), -1, np.int32),
+    }
+    t = {f: _to_dev(getattr(batch, f), device)
+         for f in _PROFILE_CLUSTER_FIELDS}
+    t.update({f: _to_dev(a, device) for f, a in rows.items()})
+    return DeviceBatch(B=Bp, C=int(batch.C), device=device, t=t)
+
+
+def _t1_rows(batch, prof_keys, rep_max, k: int, agg, device):
+    """Run tier 1 over the given profile rows (uncached): K1 on the raw
+    snapshot, then K8.  Returns (cand int32[nprof, k], fcount
+    int32[nprof]) as numpy."""
+    nprof = prof_keys.shape[0]
+    db = profile_batch(batch, prof_keys, rep_max, device)
+    zeros = _zeros_used(db)
+    est = capacity(db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
+                   zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
+                   db.has_summary, db.est_override, zeros[2])
+    cand, fcount = shortlist_topk(db, est, _to_dev(agg["group_pref"], device),
+                                  k)
+    COUNTS["dispatches"] += 1
+    return cand.cpu().numpy()[:nprof], fcount.cpu().numpy()[:nprof]
+
+
+def _dispatch_profiles(batch, prof_keys, rep_max, k: int, device):
+    """Tier-1 candidates for the chunk's profile rows: (cand int32[nprof,
+    k], fcount int32[nprof]) as numpy.
+
+    Cached per profile across calls: tier 1 reads only the frozen
+    lane/class masters (never the carried capacity ledger -- tier 2 owns
+    pricing), so for an unchanged master set its output is a pure function
+    of (profile key, k).  rep_max is not part of the key: profile rows
+    carry no prev/evict lanes, so the eligible mask (and fcount) is
+    replica-independent, and for every covered profile the widen loop
+    makes cand the full eligible set whatever the order; an uncovered
+    profile's truncated cand only adds superset lanes to the union, which
+    never changes the sub-solve's result.  Identity-keyed on the masters
+    like the aggregates memo, pinning them."""
+    agg = cycle_aggregates(batch, device)
+    masters = tuple(getattr(batch, f) for f in _PROFILE_CLUSTER_FIELDS) + (
+        agg["group_pref"],)
+    nprof = prof_keys.shape[0]
+    pkeys = [(int(prof_keys[i, 0]), int(prof_keys[i, 1]),
+              int(prof_keys[i, 2]), k) for i in range(nprof)]
+    with _T1_LOCK:
+        memo = _T1_MEMO[0]
+        if (memo is None or memo["device"] != device
+                or not all(a is b for a, b in zip(memo["src"], masters))):
+            memo = {"src": masters, "device": device, "rows": OrderedDict()}
+            _T1_MEMO[0] = memo
+        have = {key: memo["rows"].get(key) for key in pkeys}
+        for key in pkeys:  # LRU touch: this cycle's profiles stay warm
+            if have[key] is not None:
+                memo["rows"].move_to_end(key)
+    miss = [i for i, key in enumerate(pkeys) if have[key] is None]
+    if miss:
+        cand_m, fcount_m = _t1_rows(
+            batch, prof_keys[miss], rep_max[np.asarray(miss)], k, agg,
+            device)
+        fresh = {pkeys[i]: (cand_m[j], fcount_m[j])
+                 for j, i in enumerate(miss)}
+        have.update(fresh)
+        with _T1_LOCK:
+            memo["rows"].update(fresh)
+            while len(memo["rows"]) > _T1_ROWS_CAP:
+                memo["rows"].popitem(last=False)  # evict the coldest
+    cand = (np.stack([have[key][0] for key in pkeys]) if nprof
+            else np.zeros((0, k), np.int32))
+    fcount = np.asarray([have[key][1] for key in pkeys], np.int32)
+    return cand, fcount
+
+
+def binding_candidates(batch, k: int, device=None):
+    """Per-binding candidate lane sets (profile candidates plus the
+    binding's own prev lanes) -- the recall measurement's view of tier 1.
+    Host-side; small slices only."""
+    device = resolve_device(device)
+    prof_keys, prof_of, rep_max = _profiles(batch)
+    cand, _fcount = _dispatch_profiles(batch, prof_keys, rep_max,
+                                       min(k, batch.C), device)
+    prev = np.asarray(batch.prev_idx)
+    out = []
+    for b in range(batch.n_bindings):
+        s = set(int(c) for c in cand[prof_of[b]] if c >= 0)
+        s.update(int(c) for c in prev[b] if c >= 0)
+        out.append(s)
+    return out
+
+
+def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
+                 device=None):
+    """Tier selection for one encoded chunk: (sub_batch, info).
+
+    sub_batch is a SolverBatch over the chunk's candidate-union
+    sub-vocabulary whose tier-2 solve is bit-exact against the full dense
+    dispatch, or None when the chunk stays dense (info["fallback"] says
+    why; every fallback but `below_threshold` is counted in FALLBACKS).
+
+    With cfg.truncate and allow_truncate, rows whose eligible set exceeds
+    k_max leave the chunk as info["residual"] (chunk-local row indices)
+    for the pipeline's per-binding dense solve instead of dragging all B
+    rows dense."""
+    if cfg.min_cells > 0 and batch.B * batch.C < cfg.min_cells:
+        return None, {"fallback": "below_threshold"}
+    if batch.C <= cfg.k:
+        return None, {"fallback": "below_threshold"}
+    if getattr(batch, "fused", False):
+        return _fallback("fused", "a fused batch keeps the dense path")
+    device = resolve_device(device)
+    valid = np.asarray(batch.b_valid)
+    route = np.asarray(batch.route)
+    if route.size and not bool(np.all(route == T.ROUTE_DEVICE)):
+        n_other = int(np.sum(route != T.ROUTE_DEVICE))
+        COUNTS["fallback_rows_needed"] += n_other
+        COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
+        return _fallback("mixed_routes",
+                         f"{n_other} row(s) owned by spread/big/host tiers")
+    prof_keys, prof_of, rep_max = _profiles(batch)
+    # coverage is judged conservatively as profile-eligible + prev lanes
+    prev_count = np.sum(np.asarray(batch.prev_idx) >= 0, axis=1)
+    k = min(cfg.k, batch.C)
+    k_cap = min(cfg.k_max, batch.C)
+    widened = 0
+    drop = np.zeros(batch.B, bool)
+    residual: List[int] = []
+    while True:
+        cand, fcount = _dispatch_profiles(batch, prof_keys, rep_max, k,
+                                          device)
+        need = fcount[prof_of] + prev_count
+        active = valid & ~drop
+        worst = int(need[active].max()) if bool(active.any()) else 0
+        if worst > k_cap:
+            # the eligible count does not depend on k: rows beyond k_max
+            # can never be covered, however far k widens
+            offenders = np.flatnonzero(active & (need > k_cap))
+            if cfg.truncate and allow_truncate:
+                drop[offenders] = True
+                residual = [int(i) for i in offenders]
+                COUNTS["fallback_rows_needed"] += len(residual)
+                active = valid & ~drop
+                worst = int(need[active].max()) if bool(active.any()) else 0
+            else:
+                COUNTS["fallback_rows_needed"] += len(offenders)
+                COUNTS["fallback_rows_chunk_drag"] += (
+                    int(active.sum()) - len(offenders))
+                return _fallback(
+                    "uncovered", f"eligible set of {worst} lane(s) exceeds "
+                    f"k_max={cfg.k_max} for {len(offenders)} row(s)")
+        if worst <= k:
+            break
+        k = min(max(k * 2, worst), k_cap)
+        widened += 1
+        COUNTS["widenings"] += 1
+    prev_np = np.asarray(batch.prev_idx)
+    # every kept row's prev lanes join the union (residual rows are priced
+    # at full width and excluded)
+    prev_keep = prev_np[valid & ~drop]
+    lanes = np.unique(np.concatenate([
+        cand[cand >= 0].astype(np.int64).reshape(-1),
+        prev_keep[prev_keep >= 0].astype(np.int64).reshape(-1),
+    ]))
+    max_union = max(cfg.k, int(cfg.union_frac * max(batch.n_clusters, 1)))
+    if lanes.size > max_union:
+        COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
+        return _fallback(
+            "union_wide", f"candidate union of {lanes.size} lane(s) exceeds "
+            f"{max_union} ({cfg.union_frac:.0%} of {batch.n_clusters})")
+    sub = _sub_batch(batch, lanes, drop=drop if residual else None)
+    if sub is None:
+        # a covered binding's prev lane missing from the union would be a
+        # tier-1 bug; refuse the shortlist rather than mis-solve
+        COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
+        return _fallback("uncovered",
+                         "prev-assignment lane absent from the union")
+    COUNTS["rows"] += int(batch.n_bindings) - len(residual)
+    COUNTS["cells_solve"] += batch.B * sub.C
+    COUNTS["cells_dense"] += batch.B * batch.C
+    info = {"k": k, "widened": widened, "union": int(lanes.size),
+            "sub_c": sub.C, "profiles": int(prof_keys.shape[0]),
+            "residual": residual,
+            "cells_solve": batch.B * sub.C,
+            "cells_dense": batch.B * batch.C}
+    return sub, info
+
+
+def _sub_batch(batch, lanes: np.ndarray, drop=None):
+    """The per-chunk vocabulary remap: the full batch's planes gathered to
+    the candidate union (cluster axis only -- placements, request classes
+    and the binding axis keep their vocabularies), name_rank re-densified
+    order-preserving, sparse prev/evict lane indices remapped.  An
+    ordinary SolverBatch the dispatch/decode/carry machinery runs
+    unchanged; sub_lanes / sub_full_c / sub_sig tag it for the keyed carry
+    (tensors.CarryState renders accumulators across the lane remap).
+    `drop` bool[B] marks rows routed out of the sub-solve (the truncation
+    residual): their b_valid clears.  None when a kept row's prev lane
+    lies outside the union."""
+    n2 = int(lanes.size)
+    C2 = T._next_pow2(max(n2, 1), 8)  # noqa: SLF001
+    inv = np.full(batch.C, -1, np.int32)
+    inv[lanes] = np.arange(n2, dtype=np.int32)
+
+    def g1(a, fill):
+        out = np.full(C2, fill, a.dtype)
+        out[:n2] = a[lanes]
+        return out
+
+    def g_rows(a, fill):  # [C, R] -> [C2, R]
+        out = np.full((C2,) + a.shape[1:], fill, a.dtype)
+        out[:n2] = a[lanes]
+        return out
+
+    def g_cols(a, fill):  # [.., C] -> [.., C2]
+        out = np.full(a.shape[:-1] + (C2,), fill, a.dtype)
+        out[..., :n2] = a[..., lanes]
+        return out
+
+    cindex2 = T.ClusterIndex.build(
+        [batch.cluster_index.clusters[int(i)] for i in lanes])
+    name_rank = np.zeros(C2, np.int64)
+    name_rank[:n2] = cindex2.name_rank
+    name_rank[n2:] = np.arange(n2, C2)
+
+    def remap_sparse(idx):
+        m = idx >= 0
+        out_idx = np.where(m, inv[np.where(m, idx, 0)], -1).astype(np.int32)
+        return out_idx, m & (out_idx < 0)
+
+    kept = np.asarray(batch.b_valid)
+    if drop is not None:
+        kept = kept & ~drop
+    prev_idx, prev_dropped = remap_sparse(np.asarray(batch.prev_idx))
+    if bool(prev_dropped[kept].any()):
+        return None
+    prev_val = np.where(prev_idx >= 0, batch.prev_val, 0).astype(np.int32)
+    evict_idx, _ = remap_sparse(np.asarray(batch.evict_idx))
+    label_axes = {key: (g1(gid, -1), values)
+                  for key, (gid, values) in (batch.label_axes or {}).items()}
+    return T.SolverBatch(
+        B=batch.B, C=C2, n_bindings=batch.n_bindings, n_clusters=n2,
+        cluster_valid=g1(batch.cluster_valid, False),
+        deleting=g1(batch.deleting, False),
+        name_rank=name_rank,
+        pods_allowed=g1(batch.pods_allowed, 0),
+        has_summary=g1(batch.has_summary, False),
+        avail_milli=g_rows(batch.avail_milli, 0),
+        has_alloc=g_rows(batch.has_alloc, False),
+        api_ok=g_cols(batch.api_ok, False),
+        req_milli=batch.req_milli, req_is_cpu=batch.req_is_cpu,
+        req_pods=batch.req_pods,
+        est_override=g_cols(batch.est_override, -1),
+        pl_mask=g_cols(batch.pl_mask, False),
+        pl_tol_bypass=g_cols(batch.pl_tol_bypass, False),
+        pl_strategy=batch.pl_strategy,
+        pl_static_w=g_cols(batch.pl_static_w, 0),
+        pl_has_cluster_sc=batch.pl_has_cluster_sc,
+        pl_sc_min=batch.pl_sc_min, pl_sc_max=batch.pl_sc_max,
+        pl_ignore_avail=batch.pl_ignore_avail,
+        b_valid=kept if drop is not None else batch.b_valid,
+        placement_id=batch.placement_id, gvk_id=batch.gvk_id,
+        class_id=batch.class_id, replicas=batch.replicas,
+        uid_desc=batch.uid_desc, fresh=batch.fresh,
+        non_workload=batch.non_workload, nw_shortcut=batch.nw_shortcut,
+        prev_idx=prev_idx, prev_val=prev_val, evict_idx=evict_idx,
+        route=batch.route, cluster_index=cindex2,
+        region_id=(g1(batch.region_id, -1)
+                   if batch.region_id is not None else None),
+        region_names=batch.region_names,
+        label_axes=label_axes,
+        pl_has_region_sc=batch.pl_has_region_sc,
+        pl_region_min=batch.pl_region_min,
+        pl_region_max=batch.pl_region_max,
+        pl_extra_score=g_cols(batch.pl_extra_score, 0),
+        res_names=batch.res_names, class_keys=batch.class_keys,
+        pl_fail_bits=g_cols(batch.pl_fail_bits, 0),
+        explain=batch.explain,
+        placements=batch.placements, gvk_keys=batch.gvk_keys,
+        class_reqs=batch.class_reqs,
+        sub_lanes=np.concatenate([lanes, np.full(C2 - n2, -1, np.int64)]),
+        sub_full_c=batch.C,
+        sub_sig=hash((batch.C, C2, lanes.tobytes())),
+    )

@@ -13,6 +13,12 @@ here as a Python loop of kernel launches per chunk:
                          consumption into the used accumulators (atomics)
   K3 compact             row-major COO extraction of (rep > 0 | wanted sel)
 
+With `explain` (the explain plane, obs/decisions) each wave also launches
+  K7 explain_rows        one block per binding row: the verdict bitmask,
+                         score and avail planes [B, C] and the outcome code
+                         [B] from the wave's est and K2's dense outputs
+after its K2 and before the next wave's K1.
+
 K4 webster_batch runs the Webster allocation K2 uses on its own, so that
 it can be held against its plain version by itself.
 
@@ -23,7 +29,7 @@ assignments of ops/spread).
 
 Every kernel has a plain PyTorch version in this module
 (``capacity_plain``, ``schedule_rows_plain``, ``compact_plain``,
-``webster_plain``): batched int64 code that repeats the JAX program's
+``webster_plain``, ``explain_rows_plain``): batched int64 code that repeats the JAX program's
 arithmetic with bounded loops in place of ``while_loop``, stable sorts and
 explicit lowest-index tie breaks.  A wrapper takes the plain version only
 for tensors that lie on the CPU; for CUDA tensors it launches its kernel or
@@ -40,6 +46,16 @@ import numpy as np
 import torch
 
 from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.obs.decisions import (
+    N_VERDICT_BITS,
+    VERDICT_API_ENABLEMENT,
+    VERDICT_BIT_CAPACITY,
+    VERDICT_CAPACITY,
+    VERDICT_CLUSTER_GONE,
+    VERDICT_EVICTION,
+    VERDICT_NOT_SELECTED,
+    VERDICT_TOLERATION,
+)
 from karmada_tpu_torch.ops import kernels, tensors
 from karmada_tpu_torch.ops.tensors import (
     COMPACT_DIVISION_CAP,
@@ -140,14 +156,23 @@ def _to_dev(a, device):
     return torch.from_numpy(a).to(device)
 
 
-def device_batch(batch, device, rows=None) -> DeviceBatch:
+def device_batch(batch, device, rows=None, explain: bool = False
+                 ) -> DeviceBatch:
     """Upload a SolverBatch's solver operands to `device`; with `rows` (an
-    index array) only those binding rows, in that order."""
+    index array) only those binding rows, in that order.  With `explain`
+    the encoder's static fail-bit plane pl_fail_bits [P, C] rides along
+    (the batch must be encoded with explain=True)."""
     device = resolve_device(device)
     if batch.C > MAX_CLUSTER_LANES:
         raise ValueError(f"cluster axis {batch.C} exceeds the packed keys' "
                          f"{MAX_CLUSTER_LANES} lanes per solve call")
-    t = {f: _to_dev(getattr(batch, f), device) for f in _CLUSTER_FIELDS}
+    fields = _CLUSTER_FIELDS
+    if explain:
+        if not batch.explain:
+            raise ValueError("the explain plane needs a batch encoded with "
+                             "explain=True")
+        fields = fields + ("pl_fail_bits",)
+    t = {f: _to_dev(getattr(batch, f), device) for f in fields}
     arrs = {f: np.asarray(getattr(batch, f)) for f in _BINDING_FIELDS}
     if rows is not None:
         arrs = {f: a[rows] for f, a in arrs.items()}
@@ -540,7 +565,7 @@ def _row_inputs(db: DeviceBatch, r0: int, r1: int, est):
     feasible = (lanes_ok[None, :] & db.pl_mask[pid]
                 & (db.pl_tol_bypass[pid] | prev_present)
                 & (db.api_ok[gvk] | prev_present) & ~evict)
-    return pid, cid, prev_rep, prev_present, avail_cal, feasible
+    return pid, cid, prev_rep, prev_present, avail_cal, feasible, evict
 
 
 def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
@@ -556,7 +581,7 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     dev = db.device
     zero = torch.zeros((), dtype=I64, device=dev)
     rows = slice(r0, r1)
-    pid, cid, prev_rep, prev_present, avail_cal, feasible = _row_inputs(
+    pid, cid, prev_rep, prev_present, avail_cal, feasible, _ = _row_inputs(
         db, r0, r1, est)
     n = db.replicas[rows]
     strategy = db.pl_strategy[pid].long()
@@ -735,6 +760,119 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
 
 
 # ---------------------------------------------------------------------------
+# K7 explain_rows: the explain plane of one wave's rows
+# ---------------------------------------------------------------------------
+
+def explain_planes(B: int, C: int, device):
+    """Fresh (verdict, score, avail [B, C], outcome [B]) int32 planes."""
+    return (torch.zeros((B, C), dtype=torch.int32, device=device),
+            torch.zeros((B, C), dtype=torch.int32, device=device),
+            torch.zeros((B, C), dtype=torch.int32, device=device),
+            torch.zeros((B,), dtype=torch.int32, device=device))
+
+
+def explain_rows_plain(db: DeviceBatch, r0: int, r1: int, est, fail_bits,
+                       sel, status, out, *, pick=None) -> None:
+    """The explain plane of rows [r0, r1) (JAX: _explain_verdict and
+    _explain_outcome as wave_step calls them), written into out =
+    (verdict, score, avail [B, C], outcome [B]) int32.  est is the wave's
+    K1 output, sel/status K2's dense rows.  fail_bits is the encoder's
+    per-placement plane [P, C]; with `pick` (spread phase B) it is one row
+    per binding [B, C] and a lane counts as selected where pick AND sel
+    hold."""
+    rows = slice(r0, r1)
+    pid, _cid, _prev_rep, prev_present, avail_cal, feasible, evict = \
+        _row_inputs(db, r0, r1, est)
+    gvk = db.gvk_id[rows].long()
+    i32 = torch.int32
+
+    def bit(cond, b):
+        return torch.where(cond, b, 0).to(i32)
+
+    fb = (fail_bits[rows] if pick is not None else fail_bits[pid]).to(i32)
+    workload = (~db.non_workload[rows] & ~db.nw_shortcut[rows])[:, None]
+    st = status[rows]
+    unsched = (st == STATUS_UNSCHEDULABLE)[:, None]
+    sel_r = sel[rows] if pick is None else sel[rows] & pick[rows]
+    lanes_ok = (db.cluster_valid & ~db.deleting)[None, :]
+    v = fb
+    v = v | bit(~(db.pl_tol_bypass[pid] | prev_present), VERDICT_TOLERATION)
+    v = v | bit(~(db.api_ok[gvk] | prev_present), VERDICT_API_ENABLEMENT)
+    v = v | bit(evict, VERDICT_EVICTION)
+    v = v | bit(~lanes_ok, VERDICT_CLUSTER_GONE)
+    v = v | bit(((avail_cal <= 0) | (unsched & feasible)) & workload,
+                VERDICT_CAPACITY)
+    v = v | bit(feasible & ~sel_r & ~unsched, VERDICT_NOT_SELECTED)
+    v = torch.where(db.b_valid[rows][:, None], v, 0).to(i32)
+    score = _locality_score(prev_present, db.pl_extra_score[pid])
+    low = v & (-v)  # lowest set bit per lane (0 when clean)
+    counts = torch.stack(
+        [((low == (1 << k)) & db.cluster_valid[None, :]).sum(1)
+         for k in range(N_VERDICT_BITS)], dim=1)
+    dom = counts.argmax(1)  # the first maximum
+    code = torch.where(counts.max(1).values > 0, dom + 1, 0)
+    code = torch.where(st == STATUS_UNSCHEDULABLE, VERDICT_BIT_CAPACITY + 1,
+                       code)
+    verdict, score_out, avail_out, outcome = out
+    verdict[rows] = v
+    score_out[rows] = torch.clamp(score, 0, MAX_INT32).to(i32)
+    avail_out[rows] = torch.clamp(avail_cal, 0, MAX_INT32).to(i32)
+    outcome[rows] = (st.to(I64) | (code << 8)).to(i32)
+
+
+def explain_rows(db: DeviceBatch, r0: int, r1: int, est, fail_bits, sel,
+                 status, out, *, pick=None) -> None:
+    """K7 (ops/csrc/explain.cu; launch counter "explain_rows") on a CUDA
+    batch, explain_rows_plain on a CPU one; same contract."""
+    if not _on_cuda(est, sel, status, db.b_valid):
+        return explain_rows_plain(db, r0, r1, est, fail_bits, sel, status,
+                                  out, pick=pick)
+    B, C = db.B, db.C
+    Q = db.req_milli.shape[0]
+    P = db.pl_mask.shape[0]
+    Kp = db.prev_idx.shape[1]
+    Ke = db.evict_idx.shape[1]
+    if not 0 <= r0 <= r1 <= B:
+        raise ValueError(f"row range [{r0}, {r1}) outside the batch of {B}")
+    spec = {
+        "cluster_valid": (torch.bool, (C,)), "deleting": (torch.bool, (C,)),
+        "api_ok": (torch.bool, (db.api_ok.shape[0], C)),
+        "pl_mask": (torch.bool, (P, C)), "pl_tol_bypass": (torch.bool, (P, C)),
+        "pl_extra_score": (I64, (P, C)),
+        "b_valid": (torch.bool, (B,)), "placement_id": (torch.int32, (B,)),
+        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
+        "replicas": (I64, (B,)), "non_workload": (torch.bool, (B,)),
+        "nw_shortcut": (torch.bool, (B,)),
+        "prev_idx": (torch.int32, (B, Kp)), "prev_val": (torch.int32, (B, Kp)),
+        "evict_idx": (torch.int32, (B, Ke)),
+    }
+    for f, (dt, shape) in spec.items():
+        kernels.check(db.t[f], dt, shape)
+    kernels.check(est, I64, (Q + 1, C))
+    kernels.check(fail_bits, torch.int32, (B if pick is not None else P, C))
+    kernels.check(sel, torch.bool, (B, C))
+    if pick is not None:
+        kernels.check(pick, torch.bool, (B, C))
+    kernels.check(status, torch.int32, (B,))
+    for o, shape in zip(out, ((B, C), (B, C), (B, C), (B,))):
+        kernels.check(o, torch.int32, shape)
+    if r1 == r0:
+        return
+    t = db.t
+    kernels.launch("explain", kernels.ExplainArgs(
+        *(kernels.ptr(t[f]) for f in (
+            "cluster_valid", "deleting", "api_ok", "pl_mask", "pl_tol_bypass",
+            "pl_extra_score", "b_valid", "placement_id", "gvk_id",
+            "class_id", "replicas", "non_workload", "nw_shortcut",
+            "prev_idx", "prev_val", "evict_idx")),
+        kernels.ptr(est), kernels.ptr(fail_bits), kernels.ptr(sel),
+        kernels.ptr(pick) if pick is not None else 0, kernels.ptr(status),
+        *(kernels.ptr(o) for o in out), r0, r1, C, Q, Kp, Ke),
+        "explain_rows_spread" if pick is not None else "explain_rows",
+        count="explain_rows")
+
+
+# ---------------------------------------------------------------------------
 # K3 compact
 # ---------------------------------------------------------------------------
 
@@ -795,12 +933,16 @@ def _as_used(used0, db: DeviceBatch):
 
 
 def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
-                  used0=None, with_used: bool = False, tier: str = "std"):
+                  used0=None, with_used: bool = False, tier: str = "std",
+                  explain: bool = False):
     """The full chunk (JAX: _schedule_core): `waves` sequential waves of
     K1 + K2 on lane tier `tier`.  Returns (rep int64[B,C], sel bool[B,C],
-    status int32[B], used) where used is the consumed-capacity triple
-    (carry-in plus this chunk's consumption) — charged only when waves > 1 or with_used, as in
-    the JAX program."""
+    status int32[B], used, expl) where used is the consumed-capacity triple
+    (carry-in plus this chunk's consumption) -- charged only when waves > 1
+    or with_used, as in the JAX program -- and expl the explain planes
+    (verdict, score, avail [B, C], outcome [B], int32) when `explain`
+    (db uploaded with explain=True; K7 runs after each wave's K2), else
+    None: the disarmed solve launches and allocates nothing for it."""
     B, C = db.B, db.C
     waves = _effective_waves(B, waves)
     Bw = B // waves
@@ -809,25 +951,36 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
     rep = torch.empty((B, C), dtype=I64, device=dev)
     sel = torch.empty((B, C), dtype=torch.bool, device=dev)
     status = torch.empty((B,), dtype=torch.int32, device=dev)
+    expl = explain_planes(B, C, dev) if explain else None
     charge = waves > 1 or with_used
     for wv in range(waves):
+        r0, r1 = wv * Bw, (wv + 1) * Bw
         est = capacity(db.req_milli, db.req_is_cpu, db.req_pods,
                        db.avail_milli, used[0], db.has_alloc,
                        db.pods_allowed, used[1], db.has_summary,
                        db.est_override, used[2])
-        schedule_rows(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel,
-                      status, use_extra=use_extra, charge=charge, tier=tier)
-    return rep, sel, status, used
+        schedule_rows(db, r0, r1, est, *used, rep, sel, status,
+                      use_extra=use_extra, charge=charge, tier=tier)
+        if explain:
+            explain_rows(db, r0, r1, est, db.pl_fail_bits, sel, status, expl)
+    return rep, sel, status, used, expl
 
 
-def solve(batch, waves: int = 1, device=None, tier: str = "std"):
+def _host_planes(expl):
+    return tuple(x.cpu().numpy() for x in expl)
+
+
+def solve(batch, waves: int = 1, device=None, tier: str = "std",
+          explain: bool = False):
     """Dense results (numpy rep[B,C], sel[B,C], status[B]) for tests and
-    small callers; the cycle uses solve_compact."""
-    db = device_batch(batch, device)
-    rep, sel, status, _ = schedule_core(db, waves=waves,
-                                        use_extra=_use_extra(batch),
-                                        tier=tier)
-    return rep.cpu().numpy(), sel.cpu().numpy(), status.cpu().numpy()
+    small callers; the cycle uses solve_compact.  With `explain` the
+    (verdict, score, avail, outcome) planes follow as a fourth element."""
+    db = device_batch(batch, device, explain=explain)
+    rep, sel, status, _, expl = schedule_core(
+        db, waves=waves, use_extra=_use_extra(batch), tier=tier,
+        explain=explain)
+    out = (rep.cpu().numpy(), sel.cpu().numpy(), status.cpu().numpy())
+    return out + (_host_planes(expl),) if explain else out
 
 
 @dataclass
@@ -841,44 +994,53 @@ class CompactHandle:
     # with_used: the live consumed-capacity accumulators (used_milli [C,R],
     # used_pods [C], used_sets [Q,C]) the next chunk's dispatch reads
     used: Optional[tuple]
+    # explain: the (verdict, score, avail, outcome) planes on the device
+    explain: Optional[tuple] = None
 
 
 def dispatch_compact(batch, waves: int = 1, keep_sel: bool = False,
                      with_used: bool = False, used0=None, device=None,
-                     tier: str = "std") -> CompactHandle:
+                     tier: str = "std", explain: bool = False
+                     ) -> CompactHandle:
     """Enqueue the chunk's solve and COO extraction without waiting for
     the card (kernel launches are asynchronous): returns a handle for
     finalize_compact.  `used0` (numpy or tensors) carries a previous
     chunk's consumption in; it is copied, never updated in place: the JAX
     package's donated variant becomes this chunk's own accumulator buffers
-    (handle.used), which the next chunk's dispatch reads."""
-    db = device_batch(batch, device)
-    rep, sel, status, used = schedule_core(
+    (handle.used), which the next chunk's dispatch reads.  `explain` runs
+    the explain plane too (K7 per wave; the batch must be encoded with
+    explain=True)."""
+    db = device_batch(batch, device, explain=explain)
+    rep, sel, status, used, expl = schedule_core(
         db, waves=waves, use_extra=_use_extra(batch), used0=used0,
-        with_used=with_used, tier=tier)
+        with_used=with_used, tier=tier, explain=explain)
     idx, val, st, nnz = compact(rep, sel, status, db.non_workload, keep_sel)
-    return CompactHandle(idx, val, st, nnz, used if with_used else None)
+    return CompactHandle(idx, val, st, nnz, used if with_used else None,
+                         expl)
 
 
 def finalize_compact(handle: CompactHandle):
-    """(idx, val, status, nnz) numpy — plus the used triple (numpy) when
-    dispatched with_used.  Reads nnz first, then copies only idx[:nnz]
-    and val[:nnz] back."""
+    """(idx, val, status, nnz) numpy -- plus the used triple (numpy) when
+    dispatched with_used, then the (verdict, score, avail, outcome) numpy
+    planes when dispatched with explain.  Reads nnz first, then copies
+    only idx[:nnz] and val[:nnz] back."""
     nnz = int(handle.nnz)
     out = (handle.idx[:nnz].cpu().numpy(), handle.val[:nnz].cpu().numpy(),
            handle.status.cpu().numpy(), nnz)
     if handle.used is not None:
         out = out + (tuple(u.cpu().numpy() for u in handle.used),)
+    if handle.explain is not None:
+        out = out + (_host_planes(handle.explain),)
     return out
 
 
 def solve_compact(batch, waves: int = 1, keep_sel: bool = False,
                   with_used: bool = False, used0=None, device=None,
-                  tier: str = "std"):
+                  tier: str = "std", explain: bool = False):
     """dispatch_compact + finalize_compact."""
     return finalize_compact(dispatch_compact(
         batch, waves=waves, keep_sel=keep_sel, with_used=with_used,
-        used0=used0, device=device, tier=tier))
+        used0=used0, device=device, tier=tier, explain=explain))
 
 
 # ---------------------------------------------------------------------------

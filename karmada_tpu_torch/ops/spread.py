@@ -25,6 +25,10 @@ Flow (solve_spread), per (axis, tier) group of one chunk's spread rows:
                    per wave) with the pick as each row's placement mask,
                    and K3 compact.  Only [Bp, G] scalars, the chosen
                    groups and the compact result cross the host boundary.
+  explain (card)   with `explain`, K7 explain_rows (its spread flavour)
+                   over the live rows: the real placement's fail bits, the
+                   raw snapshot's planes, the pick AND the assignment's
+                   selection, the assignment's status.
 
 K5 and K6 have plain PyTorch versions here (spread_group_info_plain,
 spread_pick_plain), taken only for tensors that lie on the CPU.
@@ -58,6 +62,8 @@ from karmada_tpu_torch.ops.solver import (
     capacity,
     compact,
     device_batch,
+    explain_planes,
+    explain_rows,
     schedule_core,
 )
 
@@ -82,7 +88,7 @@ def _sort_key(score, avail, name_rank, feasible):
 def _planes(db: DeviceBatch, est):
     """feasible, avail_sel, score [B, C] of every row of db against est
     (JAX: _spread_planes)."""
-    pid, _cid, prev_rep, prev_present, avail_cal, feasible = _row_inputs(
+    pid, _cid, prev_rep, prev_present, avail_cal, feasible, _ = _row_inputs(
         db, 0, db.B, est)
     score = _locality_score(prev_present, db.pl_extra_score[pid])
     return feasible, avail_cal + prev_rep * prev_present, score
@@ -313,7 +319,8 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
                  enable_empty_workload_propagation: bool = False,
                  collect_used: bool = False, used0=None, axis: str = "",
                  tier: str = "std", device=None,
-                 capture: Optional[dict] = None):
+                 capture: Optional[dict] = None, explain: bool = False,
+                 explain_cb=None):
     """Schedule the ROUTE_DEVICE_SPREAD(_BIG) bindings `spread_idx` of one
     chunk (JAX: solve_spread) on `device` (the card by default).
 
@@ -333,11 +340,20 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
     ones, repeating the first row as an invalid pad): the pad decides how
     many rows each capacity wave holds.
 
-    `capture`, when given, receives the operands of K5 ("group_info") and
-    K6 ("pick") as the call passed them, so they can be held against the
-    plain versions."""
+    `explain` runs the explain plane of the live rows (K7, spread flavour;
+    the batch must be encoded with explain=True) and hands each live
+    binding's rows to `explain_cb(binding_index, verdict_row, score_row,
+    avail_row, outcome_code)` -- numpy [n_clusters] slices in lane order.
+    Bindings the group DFS failed before assignment never reach the cb.
+
+    `capture`, when given, receives the operands of K5 ("group_info"), K6
+    ("pick") and, with explain, K7 ("explain") as the call passed them, so
+    they can be held against the plain versions."""
     if not len(spread_idx):
         return ({}, None) if collect_used else {}
+    if explain and not batch.explain:
+        raise ValueError("the explain plane needs a batch encoded with "
+                         "explain=True")
     device = resolve_device(device)
     if axis == "":
         group_id_np, group_names = batch.region_id, batch.region_names
@@ -439,9 +455,28 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
         pl_sc_max=torch.zeros((Bs,), dtype=torch.int32, device=device),
         b_valid=dev_t(b_valid, bool),
         placement_id=torch.arange(Bs, dtype=torch.int32, device=device))
-    rep, sel, status, used = schedule_core(
+    rep, sel, status, used, _ = schedule_core(
         rows, waves=waves, use_extra=_use_extra(batch), used0=used0,
         with_used=collect_used, tier=tier)
+    if explain:
+        # the live rows with their REAL placement planes (rows.t now
+        # holds the pick-as-placement rows) and the sub-batch's validity
+        ex_rows = _rows_of(db, dev_t(live_np, np.int64))
+        ex_rows.t["b_valid"] = dev_t(b_valid, bool)
+        ex_in = (ex_rows, 0, Bs, est,
+                 dev_t(batch.pl_fail_bits[pid[live_np]], np.int32), sel,
+                 status)
+        if capture is not None:
+            capture["explain"] = ex_in + (pick,)
+        planes = explain_planes(Bs, C, device)
+        explain_rows(*ex_in, planes, pick=pick)
+        if explain_cb is not None:
+            verdict, score, avail, outcome = (x.cpu().numpy() for x in planes)
+            nc = batch.n_clusters
+            for row in range(n_live):
+                explain_cb(int(lidx[row]), verdict[row, :nc],
+                           score[row, :nc], avail[row, :nc],
+                           int(outcome[row]))
     cidx, cval, status, nnz = compact(rep, sel, status, rows.non_workload,
                                       enable_empty_workload_propagation)
     nnz = int(nnz)

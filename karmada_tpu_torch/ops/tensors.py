@@ -50,6 +50,12 @@ from karmada_tpu_torch.models.work import (
     ResourceBindingStatus,
     TargetCluster,
 )
+from karmada_tpu_torch.obs.decisions import (  # the explain bit layout
+    VERDICT_AFFINITY,
+    VERDICT_BIT_NAMES,
+    VERDICT_PLUGIN,
+    VERDICT_SPREAD_PROP,
+)
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.ops.webster import (
     fnv32a_batch_odd,
@@ -57,12 +63,6 @@ from karmada_tpu_torch.ops.webster import (
 from karmada_tpu_torch.utils.quantity import RESOURCE_CPU
 
 MAX_INT32 = (1 << 31) - 1
-
-# explain-plane static filter bits (the JAX package's obs/decisions layout,
-# kept here as plain ints: the encoder fills pl_fail_bits under explain=True)
-VERDICT_AFFINITY = 1 << 2
-VERDICT_SPREAD_PROP = 1 << 3
-VERDICT_PLUGIN = 1 << 5
 
 # strategy ids (solver-side dispatch)
 STRAT_DUPLICATED = 0
@@ -287,6 +287,16 @@ class SolverBatch:
     placements: List = field(default=None)  # P-axis order
     gvk_keys: List[Tuple[str, str]] = field(default=None)  # G-axis order
     class_reqs: List = field(default=None)  # Q-axis order (rr | _SetClass)
+    # shortlist plane (ops/shortlist): a tier-2 sub-vocabulary batch -- the
+    # chunk's cluster planes gathered to the candidate union.  sub_lanes
+    # maps each sub lane to its FULL-vocabulary lane (-1 on pow2 padding),
+    # sub_full_c is the full batch's padded C, and sub_sig identifies the
+    # lane set (the carry chain keys its segments on it: two sub-batches
+    # with equal shapes but different lane sets must never chain device
+    # accumulators).  Host-side bookkeeping, never uploaded.
+    sub_lanes: np.ndarray = field(default=None)
+    sub_full_c: Optional[int] = None
+    sub_sig: Optional[int] = None
 
 
 def _effective_placement(
@@ -1194,12 +1204,29 @@ class CarryState:
     Per batch: `used0_for(batch)` renders the carry into the batch's
     vocabulary; after the solve, `absorb(batch, used_out, used0)` adds the
     batch's OWN consumption (carry-out minus carry-in) back into the
-    stable store.  Arrays here are host numpy (int64[C])."""
+    stable store.  Arrays here are host numpy (int64[C]).
+
+    Shortlisted sub-vocabulary batches (ops/shortlist: `sub_lanes` maps
+    sub lane -> full-vocabulary lane) render and absorb through the lane
+    map: the store's arrays stay in the FULL cluster vocabulary
+    (`sub_full_c` lanes), used0_for gathers the sub-batch's lanes out of
+    them, and absorb scatter-adds the sub-batch's own consumption back --
+    so consumption crosses per-chunk cluster vocabularies losslessly."""
 
     def __init__(self) -> None:
         self.milli: Dict[str, np.ndarray] = {}  # name -> int64[C]
         self.pods: Optional[np.ndarray] = None  # int64[C]
         self.sets: Dict = {}  # class key -> int64[C]
+
+    @staticmethod
+    def _lanes_of(batch):
+        """(full_C, lanes, ok_mask) for a sub-vocabulary batch, else
+        (batch.C, None, None) -- the identity rendering."""
+        lanes = batch.sub_lanes
+        if lanes is None:
+            return batch.C, None, None
+        ok = lanes >= 0
+        return int(batch.sub_full_c), np.where(ok, lanes, 0), ok
 
     def empty(self) -> bool:
         """True when no consumption has been absorbed yet (used0_for would
@@ -1224,28 +1251,46 @@ class CarryState:
                               else arr.copy())
 
     def used0_for(self, batch: SolverBatch):
+        _full_c, lanes, ok = self._lanes_of(batch)
+
+        def render(full_row):
+            if lanes is None:
+                return full_row.copy()
+            return np.where(ok, full_row[lanes], 0)
+
         um = np.zeros_like(batch.avail_milli)
         for r, name in enumerate(batch.res_names):
             if name in self.milli:
-                um[:, r] = self.milli[name]
-        up = (self.pods.copy() if self.pods is not None
+                um[:, r] = render(self.milli[name])
+        up = (render(self.pods) if self.pods is not None
               else np.zeros_like(batch.pods_allowed))
         us = np.zeros_like(batch.est_override)
         for q, key in enumerate(batch.class_keys):
             if key in self.sets:
-                us[q] = self.sets[key]
+                us[q] = render(self.sets[key])
         return um, up, us
 
     def absorb(self, batch: SolverBatch, used_out, used0) -> None:
+        full_c, lanes, ok = self._lanes_of(batch)
+
+        def widen(own):
+            """A sub-batch's own consumption scattered back to the full
+            vocabulary (additive; padding lanes carry zero)."""
+            if lanes is None:
+                return own
+            full = np.zeros(full_c, own.dtype)
+            np.add.at(full, lanes[ok], own[ok])
+            return full
+
         um_out, up_out, us_out = (np.asarray(u) for u in used_out)
         for r, name in enumerate(batch.res_names):
-            own = um_out[:, r] - used0[0][:, r]
+            own = widen(um_out[:, r] - used0[0][:, r])
             self.milli[name] = (self.milli[name] + own if name in self.milli
                                 else own.copy())
-        own_p = up_out - used0[1]
+        own_p = widen(up_out - used0[1])
         self.pods = own_p.copy() if self.pods is None else self.pods + own_p
         for q, key in enumerate(batch.class_keys):
-            own_s = us_out[q] - used0[2][q]
+            own_s = widen(us_out[q] - used0[2][q])
             self.sets[key] = (self.sets[key] + own_s if key in self.sets
                               else own_s.copy())
 
@@ -1300,12 +1345,16 @@ def decode_compact(
     *,
     enable_empty_workload_propagation: bool = False,
     items: Optional[Sequence[Tuple[ResourceBindingSpec, ResourceBindingStatus]]] = None,
+    outcome: Optional[np.ndarray] = None,
 ) -> List:
     """Per-binding results from the sparse COO form of solver.solve_compact:
     a list of length n_bindings whose entries are List[TargetCluster]
     (name-ascending) or an Exception mirroring the serial path
     (FitError / UnschedulableError / NoClusterAvailableError); pass `items`
-    for the full per-cluster FitError diagnosis.
+    for the full per-cluster FitError diagnosis.  `outcome` (the explain
+    plane's outcome vector, when the chunk ran the explain variant)
+    attaches the dominant rejection reason to the error objects
+    (`exc.reason`, obs/decisions layout).
 
     idx/val carry every (selected OR replicas>0) lane: replicas>0 entries
     are assignments; val==0 entries are selected-only lanes, meaningful for
@@ -1366,6 +1415,15 @@ def decode_compact(
                 ]
         targets.sort(key=lambda t: t.name)
         out[b] = targets
+    if outcome is not None:
+        # bits 8+ of an outcome code hold 1 + the dominant stage's bit
+        # index (obs/decisions.split_outcome)
+        outcome = np.asarray(outcome)
+        for b in range(nb):
+            dom = int(outcome[b]) >> 8
+            if 0 < dom <= len(VERDICT_BIT_NAMES) and isinstance(out[b],
+                                                               Exception):
+                out[b].reason = VERDICT_BIT_NAMES[dom - 1]
     return out
 
 
@@ -1394,7 +1452,7 @@ def batch_from_arrays(fields: Dict[str, np.ndarray], meta) -> SolverBatch:
             kw[f] = np.array(a, dtype=FIELD_DTYPES[f], copy=True)
     for k in ("cluster_index", "region_names", "label_axes", "res_names",
               "class_keys", "placements", "gvk_keys", "class_reqs",
-              "explain"):
+              "explain", "sub_full_c", "sub_sig"):
         v = get(k, None)
         if v is not None:
             kw[k] = v

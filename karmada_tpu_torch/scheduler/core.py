@@ -16,7 +16,9 @@ from typing import List, Optional, Sequence, Tuple
 
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.estimator.general import GeneralEstimator
+from karmada_tpu_torch.obs import decisions as obs_decisions
 from karmada_tpu_torch.ops import serial, tensors
+from karmada_tpu_torch.ops.shortlist import ShortlistConfig
 from karmada_tpu_torch.scheduler.pipeline import PipelineResult, run_pipeline
 
 
@@ -30,13 +32,22 @@ def schedule_items(
     estimator: Optional[GeneralEstimator] = None,
     enable_empty_workload_propagation: bool = False,
     stats: Optional[PipelineResult] = None,
+    explain: Optional[obs_decisions.DecisionRecorder] = None,
+    shortlist: Optional[ShortlistConfig] = None,
+    keys: Optional[Sequence[str]] = None,
 ) -> List[object]:
     """Per item, List[TargetCluster] or the Exception the scheduler would
     record.  `device` defaults to the first CUDA card and raises without
     one; pass ``device="cpu"`` to run the kernels' plain versions.  Carry
     is on when the cycle spans more than one chunk, for the spread and
     big-tier sub-solves too (JAX: ``carry_spread=carry``).  `stats`, when
-    given, receives the pipeline's counts and stage times."""
+    given, receives the pipeline's counts and stage times.
+
+    `explain` (a DecisionRecorder) records one Decision per binding: the
+    device rows' from the explain plane, the host rows' outcome-level
+    (backend "serial"), keyed by `keys` (per item "namespace/name"; the
+    workload's identity when omitted).  `shortlist` arms the two-tier
+    solve (ops/shortlist)."""
     device = resolve_device(device)
     estimator = estimator or GeneralEstimator()
     out: List[object] = [None] * len(items)
@@ -49,13 +60,12 @@ def schedule_items(
         items, cindex, estimator, chunk=chunk, waves=waves, cache=cache,
         carry=len(items) > chunk,
         enable_empty_workload_propagation=enable_empty_workload_propagation,
-        device=device)
+        explain=explain, keys=keys, shortlist=shortlist, device=device)
     for i, r in res.results.items():
         out[i] = r
     cal = serial.make_cal_available([estimator])
-    for i in range(len(items)):
-        if i in res.results:
-            continue
+    host_idx = [i for i in range(len(items)) if i not in res.results]
+    for i in host_idx:
         spec, status = items[i]
         try:
             out[i] = serial.schedule(
@@ -65,6 +75,14 @@ def schedule_items(
         # the binding's outcome object, as the scheduler records it
         except Exception as e:  # noqa: BLE001
             out[i] = e
+    if explain is not None:
+        # the serial path records decisions too: a FitError's per-cluster
+        # diagnosis maps onto the same verdict bits
+        for i in host_idx:
+            key = (keys[i] if keys is not None
+                   else obs_decisions.default_key(items[i][0]))
+            explain.record(obs_decisions.decision_from_result(
+                key, out[i], len(clusters), backend="serial"))
     if stats is not None:
         stats.__dict__.update(res.__dict__)
     return out

@@ -33,18 +33,35 @@ k+2's carry-in -- the JAX package's accounting, reproduced as it is.
 
 Every device route runs here (DEVICE_ROUTES); host routes are absent from
 the result, for the caller's serial path (scheduler/core.schedule_items).
+
+Explain (`explain=DecisionRecorder`): chunks encode the placements' static
+fail bits and dispatch the explain variant (K7 after each wave's K2, and
+after each spread sub-solve); finalize turns the planes into Decision
+records (obs/decisions) and attaches the dominant rejection reason to
+every unschedulable result (`exc.reason`).
+
+Shortlist (`shortlist=ShortlistConfig`): chunks at or above its cell
+threshold run tier 1 (ops/shortlist: K1 + K8 over the chunk's profiles)
+and dispatch the solver over the candidate-union sub-vocabulary.  Each
+shortlisted chunk has its own lane set, so the carry chain keys its
+segments on the lane set too and crosses vocabularies through the keyed
+CarryState.  Rows truncated out of a chunk (eligible set beyond k_max,
+waves=1 only) are solved per binding at full width in its finalize,
+against the full-vocabulary consumption of every chunk before it.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.obs import decisions as obs_decisions
+from karmada_tpu_torch.ops import shortlist as sl
 from karmada_tpu_torch.ops import solver, spread, tensors
 
 #: routes whose results the device path owns; every other row falls back
@@ -74,8 +91,14 @@ class PipelineResult:
     finalize_s: float = 0.0  # main COO read-back
     decode_s: float = 0.0
     spread_s: float = 0.0    # spread sub-solves (phases A and B, host DFS)
-    big_s: float = 0.0       # big-tier sub-solves
+    big_s: float = 0.0       # big-tier and shortlist-residual sub-solves
+    shortlist_s: float = 0.0  # tier 1 and the sub-batch build
+    explain_s: float = 0.0   # Decision records from the explain planes
     routes: Dict[int, int] = field(default_factory=dict)  # rows per route
+    # the run's shortlist counts: chunks shortlisted, dense fallbacks by
+    # reason, widen rounds, residual rows, per-chunk union widths and the
+    # tier-2 cells solved vs the dense equivalent
+    shortlist: Dict[str, object] = field(default_factory=dict)
 
 
 class _CarryChain:
@@ -96,13 +119,20 @@ class _CarryChain:
 
     @staticmethod
     def _sig(batch) -> tuple:
+        # sub_sig joins the signature: two shortlisted sub-vocabulary
+        # batches can share every shape while holding different cluster
+        # lane sets -- chaining their live accumulators would misalign
+        # lanes silently
         return (batch.C, tuple(batch.res_names), tuple(batch.class_keys),
-                batch.est_override.shape[0], batch.avail_milli.shape[1])
+                batch.est_override.shape[0], batch.avail_milli.shape[1],
+                batch.sub_sig)
 
     @staticmethod
     def _subset(from_batch, to_batch) -> bool:
-        """True when re-keying from_batch -> to_batch drops nothing."""
+        """True when re-keying from_batch -> to_batch drops nothing (one
+        lane set: crossing lane sets goes through the keyed store)."""
         return (from_batch.C == to_batch.C
+                and from_batch.sub_sig == to_batch.sub_sig
                 and set(from_batch.res_names) <= set(to_batch.res_names)
                 and set(from_batch.class_keys) <= set(to_batch.class_keys))
 
@@ -190,6 +220,67 @@ class _CarryChain:
             raise AssertionError("dispatched() without a carry_in() segment")
         self._seg[3] = handle
 
+    def snapshot(self) -> "tensors.CarryState":
+        """The consumption of every chunk dispatched so far as a fresh
+        keyed store in the full vocabulary, without closing the open
+        segment (host sync on its last dispatched chunk)."""
+        out = self.total.copy()
+        if not self.extras.empty():
+            out.merge(self.extras)
+        if self._seg is not None and self._seg[3] is not None:
+            _sig, batch, base, handle = self._seg
+            out.absorb(batch, tuple(u.cpu().numpy() for u in handle.used),
+                       base)
+        return out
+
+
+def _record_decisions(recorder, batch, part, offset, keys, out_local,
+                      expl_planes, sp_expl) -> None:
+    """One finalized chunk's explain planes as Decision records (JAX:
+    pipeline._record_decisions).  Main-route rows decode from the dense
+    planes, spread rows from their callback rows, every other device row
+    (big tier, group-DFS failures, the shortlist residual) gets an
+    outcome-level decision from its result.  The dominant unschedulable
+    reason is attached to the result exceptions (`exc.reason`)."""
+    names = batch.cluster_index.names
+    nc = batch.n_clusters
+
+    def key_of(i: int) -> str:
+        if keys is not None:
+            return keys[offset + i]
+        return obs_decisions.default_key(part[i][0])
+
+    def attach_reason(res, outcome_code) -> None:
+        _st, dom = obs_decisions.split_outcome(int(outcome_code))
+        if dom is not None and isinstance(res, Exception):
+            res.reason = dom
+
+    def planes_row(i, vrow, srow, arow, oc, backend):
+        res_i = out_local.get(i)
+        attach_reason(res_i, oc)
+        pid = int(batch.placement_id[i])
+        recorder.record(obs_decisions.decision_from_planes(
+            key_of(i), names, vrow, srow, arow, int(oc), res_i,
+            backend=backend, static_w_row=batch.pl_static_w[pid, :nc],
+            plugin_row=batch.pl_extra_score[pid, :nc]))
+
+    covered = set()
+    if expl_planes is not None:
+        verdict, score, avail, outcome = expl_planes
+        for i in range(len(part)):
+            if batch.route[i] != tensors.ROUTE_DEVICE:
+                continue
+            covered.add(i)
+            planes_row(i, verdict[i, :nc], score[i, :nc], avail[i, :nc],
+                       outcome[i], "device")
+    for b, (vrow, srow, arow, oc) in sp_expl.items():
+        covered.add(b)
+        planes_row(b, vrow, srow, arow, oc, "device-spread")
+    for i, r in out_local.items():
+        if i not in covered:
+            recorder.record(obs_decisions.decision_from_result(
+                key_of(i), r, nc, backend="device-big"))
+
 
 @dataclass
 class _InFlight:
@@ -198,6 +289,12 @@ class _InFlight:
     batch: object
     handle: Optional[solver.CompactHandle]
     used0: Optional[tuple]  # the dispatch's carry-in
+    # shortlist truncation residual: chunk-local rows solved per binding
+    # at full width in finalize, and the full-vocabulary carry snapshot
+    # they price against (the chunk's own used0 lives in the sub
+    # vocabulary, blind to lanes outside the union)
+    residual: List[int] = field(default_factory=list)
+    resid_used0: Optional["tensors.CarryState"] = None
 
 
 def _host(used) -> tuple:
@@ -215,6 +312,9 @@ def run_pipeline(
     cache: Optional["tensors.EncoderCache"] = None,
     carry: bool = True,
     enable_empty_workload_propagation: bool = False,
+    explain: Optional["obs_decisions.DecisionRecorder"] = None,
+    keys: Optional[Sequence[str]] = None,
+    shortlist: Optional["sl.ShortlistConfig"] = None,
     device=None,
 ) -> PipelineResult:
     """Schedule `items` ((spec, status) pairs) chunk by chunk on `device`
@@ -223,7 +323,15 @@ def run_pipeline(
     (DEVICE_ROUTES; main-route FitErrors carry the per-cluster
     diagnosis); host-routed rows are absent.  With `carry`, the spread and
     big-tier sub-solves price against their chunk's carry-in and feed
-    their consumption back (module docstring)."""
+    their consumption back (module docstring).
+
+    explain: a DecisionRecorder arming the explain plane; every device
+      row gets one Decision (main and spread rows with per-cluster verdict
+      tables, the others outcome-level).  None launches nothing for it.
+    keys: per-item binding identities ("namespace/name") for the
+      decisions; derived from each spec's workload when omitted.
+    shortlist: a ShortlistConfig arming the two-tier solve (module
+      docstring); None keeps every chunk dense."""
     device = resolve_device(device)
     res = PipelineResult()
     n = len(items)
@@ -234,6 +342,11 @@ def run_pipeline(
     cache = cache if cache is not None else tensors.EncoderCache()
     keep_sel = enable_empty_workload_propagation
     chain = _CarryChain() if carry else None
+    armed = explain is not None
+    if shortlist is not None:
+        res.shortlist = {"chunks": 0, "fallbacks": {}, "widened": 0,
+                         "residual_rows": 0, "unions": [],
+                         "cells_solve": 0, "cells_dense": 0}
 
     def finalize(entry: _InFlight) -> None:
         batch, part = entry.batch, entry.part
@@ -242,6 +355,12 @@ def run_pipeline(
             torch.cuda.synchronize(device)
         t_wait = time.perf_counter()
         res.wait_s += t_wait - t_start
+        # spread-route explain rows land here via solve_spread's callback
+        sp_expl: Dict[int, tuple] = {}
+
+        def sp_cb(b, vrow, srow, arow, oc):
+            sp_expl[b] = (vrow, srow, arow, oc)
+
         # the sub-solves first: they need no main result
         sub: Dict[int, object] = {}
         groups = tensors.spread_groups(batch, part)
@@ -257,7 +376,8 @@ def run_pipeline(
                 batch, part, idxs, waves=waves,
                 enable_empty_workload_propagation=keep_sel,
                 collect_used=collect, used0=used0, axis=axis, tier=tier,
-                device=device)
+                device=device, explain=armed,
+                explain_cb=sp_cb if armed else None)
             out, used = ret if collect else (ret, None)
             if used is not None:
                 chain.extras.absorb(batch, used, used0)
@@ -273,22 +393,48 @@ def run_pipeline(
             if big_used is not None:
                 chain.extras.absorb(*big_used)
             sub.update(out)
+        if entry.residual:
+            # rows whose eligible set outgrew k_max, at full width against
+            # the consumption of every chunk before this one (exact at
+            # waves=1: a chunk's rows never see each other there); their
+            # results override the sub-solve's invalidated rows below
+            collect_r = chain is not None and entry.resid_used0 is not None
+            ret = solver.solve_rows(
+                part, entry.residual, cindex, estimator, cache,
+                route=tensors.ROUTE_DEVICE, waves=waves,
+                enable_empty_workload_propagation=keep_sel,
+                collect_used=collect_r, used0=entry.resid_used0,
+                device=device)
+            out, r_used = ret if collect_r else (ret, None)
+            if r_used is not None:
+                chain.extras.absorb(*r_used)
+            sub.update(out)
         t_big = time.perf_counter()
         res.spread_s += t_spread - t_wait
         res.big_s += t_big - t_spread
         local: Dict[int, object] = {}
+        expl_planes = None
         if entry.handle is not None:
-            idx, val, status = solver.finalize_compact(entry.handle)[:3]
+            fin = solver.finalize_compact(entry.handle)
+            idx, val, status = fin[:3]
+            if armed:
+                expl_planes = fin[-1]  # (verdict, score, avail, outcome)
             t_read = time.perf_counter()
             decoded = tensors.decode_compact(
                 batch, idx, val, status,
                 enable_empty_workload_propagation=keep_sel,
-                items=part)
+                items=part,
+                outcome=expl_planes[3] if expl_planes is not None else None)
             res.finalize_s += t_read - t_big
             res.decode_s += time.perf_counter() - t_read
             local = {i: decoded[i] for i in range(len(part))
                      if batch.route[i] == tensors.ROUTE_DEVICE}
         local.update(sub)
+        if armed:
+            t_ex = time.perf_counter()
+            _record_decisions(explain, batch, part, entry.offset, keys,
+                              local, expl_planes, sp_expl)
+            res.explain_s += time.perf_counter() - t_ex
         res.chunks += 1
         for i, r in local.items():
             res.results[entry.offset + i] = r
@@ -302,11 +448,41 @@ def run_pipeline(
     for lo in range(0, n, chunk):
         part = items[lo:lo + chunk]
         t0 = time.perf_counter()
-        batch = tensors.encode_batch(part, cindex, estimator, cache=cache)
+        batch = tensors.encode_batch(part, cindex, estimator, cache=cache,
+                                     explain=armed)
         t1 = time.perf_counter()
         for r, k in zip(*np.unique(batch.route[:len(part)],
                                    return_counts=True)):
             res.routes[int(r)] = res.routes.get(int(r), 0) + int(k)
+        residual: List[int] = []
+        resid_used0 = None
+        if shortlist is not None:
+            # tier selection: a covered chunk swaps in its sub-vocabulary
+            # batch, which the dispatch/decode/carry below run unchanged;
+            # a fallback keeps the dense batch.  Truncation only at
+            # waves=1 (rows never see each other's consumption there)
+            # and without keep_sel (it needs the full selection plane).
+            sub_b, info = sl.shrink_chunk(
+                batch, shortlist, allow_truncate=(waves == 1 and not keep_sel),
+                device=device)
+            st = res.shortlist
+            if sub_b is not None:
+                batch = sub_b
+                residual = info["residual"]
+                st["chunks"] += 1
+                st["widened"] += info["widened"]
+                st["residual_rows"] += len(residual)
+                st["unions"].append(info["union"])
+                st["cells_solve"] += info["cells_solve"]
+                st["cells_dense"] += info["cells_dense"]
+                if residual and chain is not None:
+                    # the full-vocabulary carry-in, taken BEFORE this
+                    # chunk's dispatch: the chunks before it, exactly
+                    resid_used0 = chain.snapshot()
+            else:
+                why = info["fallback"]
+                st["fallbacks"][why] = st["fallbacks"].get(why, 0) + 1
+        t2 = time.perf_counter()
         handle = used0 = None
         # with carry every chunk dispatches so the chain stays contiguous
         # (an all-host batch consumes nothing); without it an all-host
@@ -316,13 +492,16 @@ def run_pipeline(
             used0 = chain.carry_in(batch) if chain is not None else None
             handle = solver.dispatch_compact(
                 batch, waves=waves, keep_sel=keep_sel,
-                with_used=chain is not None, used0=used0, device=device)
+                with_used=chain is not None, used0=used0, device=device,
+                explain=armed)
             if chain is not None:
                 chain.dispatched(batch, handle)
         res.encode_s += t1 - t0
-        res.dispatch_s += time.perf_counter() - t1
+        res.shortlist_s += t2 - t1
+        res.dispatch_s += time.perf_counter() - t2
         entry = _InFlight(offset=lo, part=part, batch=batch, handle=handle,
-                          used0=used0)
+                          used0=used0, residual=residual,
+                          resid_used0=resid_used0)
         if pending is not None:
             finalize(pending)
         pending = entry

@@ -1,4 +1,4 @@
-"""Kernels K1-K6 and K2's big-tier instantiation on the card against their
+"""Kernels K1-K9 and K2's big-tier instantiation on the card against their
 plain versions, bit-exact.
 
 Marked `gpu`: these need a CUDA card and nvcc, decide inside the test
@@ -15,7 +15,10 @@ deleting clusters, histogram overrides, evictions, spread constraints
 wide prev axis; solve_big on the big tier's direct and gather lane paths;
 and solve_spread on region and label axes, with K5 and K6 held against
 their plain versions on shared-memory rows and on 16,384-lane rows (the
-device-memory sort path).
+device-memory sort path); K7 explain_rows in both flavours (the main
+solve's waves and the spread phase B); K8 shortlist_topk on its
+shared-memory and device-memory key paths; K9 group_sums; and a
+shortlisted megafleet cycle, card against CPU.
 """
 
 import numpy as np
@@ -24,7 +27,9 @@ import torch
 
 import torch_scenarios as S
 from karmada_tpu_torch.estimator.general import GeneralEstimator
+from karmada_tpu_torch.obs import decisions as PD
 from karmada_tpu_torch.ops import kernels
+from karmada_tpu_torch.ops import shortlist as PSL
 from karmada_tpu_torch.ops import solver as PS
 from karmada_tpu_torch.ops import spread as PSP
 from karmada_tpu_torch.ops import tensors as PT
@@ -238,3 +243,176 @@ def test_spread_kernels_device_memory_path_on_card():
     assert batch.C == 16384 > kernels.SPREAD_SMEM_LANES
     (axis, _), idxs = next(iter(groups.items()))
     _hold_spread_kernels(batch, idxs, axis)
+
+
+# -- K7 explain_rows, K8 shortlist_topk, K9 group_sums ---------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["every_stage", "direct", "gather"])
+def test_explain_kernel_matches_plain_on_card(case):
+    """solve_compact(explain=True): K7 after every wave's K2, planes equal
+    to the CPU plain path, at waves 4 with a carry-in."""
+    from karmada_tpu_torch.scheduler.plugins import REGISTRY
+
+    dev = _card()
+    build = {"every_stage": S.explain_scenario,
+             "direct": lambda M: S.random_scenario(M, 3, n_clusters=11,
+                                                   n_bindings=32),
+             "gather": lambda M: S.random_scenario(M, 4, n_clusters=700,
+                                                   n_bindings=32)}[case]
+    REGISTRY.register_filter("explainPlug", S.plugin_filter)
+    try:
+        clusters, items = build(MP)
+        batch = PT.encode_batch(items, PT.ClusterIndex.build(clusters),
+                                GeneralEstimator(), explain=True)
+        rng = np.random.default_rng(7)
+        used0 = PT.carry_from_arrays(
+            rng.integers(0, 30_000, batch.avail_milli.shape),
+            rng.integers(0, 60, batch.pods_allowed.shape),
+            rng.integers(0, 4, batch.est_override.shape))
+        kernels.reset_counts()
+        got = PS.solve_compact(batch, waves=4, with_used=True, used0=used0,
+                               explain=True, device=dev)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["explain_rows"] == 4
+        want = PS.solve_compact(batch, waves=4, with_used=True, used0=used0,
+                                explain=True, device="cpu")
+    finally:
+        REGISTRY.unregister("explainPlug")
+    assert got[3] == want[3]
+    for a, b in zip(got[:3] + got[4] + got[5], want[:3] + want[4] + want[5]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["region", "big_tier"])
+def test_spread_explain_kernel_matches_plain_on_card(case):
+    """K7's spread flavour: solve_spread(explain=True) hands the same
+    callback rows on the card as on the CPU."""
+    dev = _card()
+    build = {"region": lambda M: S.region_scenario(M, 3),
+             "big_tier": S.spread_big_scenario}[case]
+    clusters, items = build(MP)
+    batch = PT.encode_batch(items, PT.ClusterIndex.build(clusters),
+                            GeneralEstimator(), explain=True)
+    for (axis, tier), idxs in PT.spread_groups(batch, items).items():
+        rows = {}
+        for d in (dev, "cpu"):
+            got = rows.setdefault(str(d), {})
+            kernels.reset_counts()
+            PSP.solve_spread(batch, items, idxs, waves=8, axis=axis,
+                             tier=tier, explain=True, device=d,
+                             explain_cb=lambda b, *r, got=got:
+                             got.__setitem__(b, r))
+            if d is dev:
+                torch.cuda.synchronize()
+                _launched(("explain_rows",))
+        card, cpu = rows[str(dev)], rows["cpu"]
+        assert card.keys() == cpu.keys() and card
+        for b in cpu:
+            for x, y in zip(card[b][:3], cpu[b][:3]):
+                assert np.array_equal(x, y)
+            assert card[b][3] == cpu[b][3]
+
+
+def _profile_db(C, B, dev, seed):
+    """Synthetic tier-1 rows at any lane count: random cluster planes,
+    placements, classes, previous and evicting lanes (K8's full operand
+    set), and a K1-shaped est with MAX_INT32 entries."""
+    rng = np.random.default_rng(seed)
+    P, G, Q, Kp, Ke = 8, 4, 5, 4, 4
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    prev = np.full((B, Kp), -1, np.int32)
+    prev[::3, :2] = rng.integers(0, C, (len(prev[::3]), 2))
+    evict = np.full((B, Ke), -1, np.int32)
+    evict[1::4, 0] = rng.integers(0, C, len(evict[1::4]))
+    tt = {
+        "cluster_valid": t(rng.random(C) < 0.97),
+        "deleting": t(rng.random(C) < 0.02),
+        "name_rank": t(rng.permutation(C).astype(np.int64)),
+        "api_ok": t(rng.random((G, C)) < 0.95),
+        "pl_mask": t(rng.random((P, C)) < rng.random((P, 1))),
+        "pl_tol_bypass": t(rng.random((P, C)) < 0.9),
+        "req_milli": t(np.ones((Q, 2), np.int64)),
+        "b_valid": t(np.arange(B) % 7 != 6),
+        "placement_id": t(rng.integers(0, P, B).astype(np.int32)),
+        "gvk_id": t(rng.integers(0, G, B).astype(np.int32)),
+        "class_id": t(rng.integers(-1, Q, B).astype(np.int32)),
+        "replicas": t(rng.integers(0, 50, B).astype(np.int64)),
+        "nw_shortcut": t(np.zeros(B, bool)),
+        "prev_idx": t(prev),
+        "prev_val": t(rng.integers(1, 5, (B, Kp)).astype(np.int32)),
+        "evict_idx": t(evict),
+    }
+    est = rng.integers(0, 300, (Q + 1, C)).astype(np.int64)
+    est[rng.random((Q + 1, C)) < 0.05] = PS.MAX_INT32
+    pref = rng.integers(0, 32, C).astype(np.int64)
+    return PS.DeviceBatch(B=B, C=C, device=torch.device(dev), t=tt), t(est), \
+        t(pref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,k", [(2048, 64), (16384, 64), (32768, 256)])
+def test_shortlist_topk_kernel_matches_plain_on_card(C, k):
+    """K8 against its plain version: cand equal as arrays (order included)
+    on the shared-memory key path and, at 32,768 lanes, the device-memory
+    scratch path."""
+    dev = _card()
+    db, est, pref = _profile_db(C, 24, dev, C)
+    kernels.reset_counts()
+    got = PSL.shortlist_topk(db, est, pref, k)
+    torch.cuda.synchronize()
+    _launched(("shortlist_topk",))
+    want = PSL.shortlist_topk_plain(db, est, pref, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fc = want[1].cpu().numpy()
+    assert (fc > k).any() and (fc == 0).any()
+
+
+@pytest.mark.gpu
+def test_group_sums_kernel_matches_plain_on_card():
+    dev = _card()
+    rng = np.random.default_rng(1)
+    gid = torch.from_numpy(rng.integers(-1, 200, 16384).astype(np.int32))
+    cap = torch.from_numpy(rng.integers(0, 256, 16384).astype(np.int64))
+    kernels.reset_counts()
+    got = PSL.group_sums(gid.to(dev), cap.to(dev), 200)
+    torch.cuda.synchronize()
+    _launched(("group_sums",))
+    assert torch.equal(got.cpu(), PSL.group_sums_plain(gid, cap, 200))
+
+
+@pytest.mark.gpu
+def test_shortlisted_megafleet_cycle_on_card():
+    """A small megafleet cycle with the shortlist armed and explain on:
+    every chunk shortlisted, results and decisions equal card vs CPU."""
+    import random
+
+    from karmada_tpu_torch.scheduler.pipeline import PipelineResult
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    dev = _card()
+    rng = random.Random(3)
+    clusters, pls = S.build_megafleet(MP, rng, 1200, 24)
+    items = S.build_mega_bindings(MP, rng, 768, pls, block=256)
+    cfg = PSL.ShortlistConfig(k=64, min_cells=0)
+    out = {}
+    for d in (dev, "cpu"):
+        PSL.reset_for_tests()
+        kernels.reset_counts()
+        st = PipelineResult()
+        rec = PD.DecisionRecorder(capacity=1024)
+        res = schedule_items(items, clusters, chunk=256, waves=8, device=d,
+                             shortlist=cfg, stats=st, explain=rec)
+        if d is dev:
+            torch.cuda.synchronize()
+            _launched(("shortlist_topk", "group_sums", "explain_rows")
+                      + MAIN_PATH)
+        assert st.shortlist["chunks"] == 3 and not st.shortlist["fallbacks"]
+        out[str(d)] = ([_norm(r) for r in res],
+                       [{k: v for k, v in x.items() if k not in ("ts", "id")}
+                        for x in rec.recent()])
+    assert out[str(dev)] == out["cpu"]

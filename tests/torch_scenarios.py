@@ -568,3 +568,184 @@ def bench_scenario(M, seed, n_clusters, n_bindings):
     placements = build_placements(M, rng, names)
     items = build_bindings(M, rng, n_bindings, placements)
     return clusters, items, rng, names
+
+
+# -- the explain plane: every verdict stage (tests/test_explain.py:58-180) -----
+
+def explain_cluster(M, name, cpu_milli=64_000, pods=100, labels=None,
+                    taints=(), api=True, provider="aws", region="us",
+                    deleting=False):
+    meta = M.ObjectMeta(name=name, labels=dict(labels or {"tier": "gold"}))
+    if deleting:
+        meta.deletion_timestamp = 1.0
+    Q = M.Quantity
+    return M.Cluster(
+        metadata=meta,
+        spec=M.ClusterSpec(region=region, provider=provider,
+                           taints=list(taints)),
+        status=M.ClusterStatus(
+            api_enablements=([M.APIEnablement(GVK[0], [GVK[1]])] if api
+                             else []),
+            resource_summary=M.ResourceSummary(
+                allocatable={"cpu": Q.from_milli(cpu_milli),
+                             "pods": Q.from_units(pods)},
+                allocated={})))
+
+
+def explain_spec(M, placement, name, replicas=5, evict_from=(),
+                 prev=None, cpu_milli=100):
+    return M.ResourceBindingSpec(
+        resource=M.ObjectReference(api_version=GVK[0], kind=GVK[1],
+                                   namespace="default", name=name,
+                                   uid=f"uid-{name}"),
+        replicas=replicas,
+        replica_requirements=M.ReplicaRequirements(resource_request={
+            "cpu": M.Quantity.from_milli(cpu_milli)}),
+        placement=placement,
+        clusters=[M.TargetCluster(name=n, replicas=r)
+                  for n, r in (prev or [])],
+        graceful_eviction_tasks=[M.GracefulEvictionTask(from_cluster=c)
+                                 for c in evict_from])
+
+
+PLUGIN_REJECTS = "m-plug"  # the cluster the tests' filter plugin rejects
+
+
+def explain_scenario(M):
+    """Clusters and bindings that together set all nine verdict bits: API
+    enablement, toleration, affinity, spread property (provider),
+    eviction, plugin filter (with the tests' plugin registered), capacity
+    (an unschedulable binding and an empty cluster), not-selected
+    (cluster MaxGroups 2 over more feasible clusters) and cluster-gone (a
+    deleting cluster and the padding lanes); plus previous assignments
+    (the locality score and the prev bypass) and a non-workload row."""
+    clusters = [
+        explain_cluster(M, "m-ok1"),
+        explain_cluster(M, "m-ok2", cpu_milli=8_000),
+        explain_cluster(M, "m-ok3", pods=3),
+        explain_cluster(M, "m-noapi", api=False),
+        explain_cluster(M, "m-taint", taints=[M.Taint(
+            key="dedicated", value="infra", effect="NoSchedule")]),
+        explain_cluster(M, "m-aff", labels={"tier": "silver"}),
+        explain_cluster(M, "m-noprov", provider=""),
+        explain_cluster(M, "m-evict"),
+        explain_cluster(M, PLUGIN_REJECTS),
+        explain_cluster(M, "m-del", deleting=True),
+        explain_cluster(M, "m-empty", cpu_milli=0, pods=0),
+    ]
+    divided = M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+    every_stage = M.Placement(
+        cluster_affinity=M.ClusterAffinity(
+            label_selector=M.LabelSelector(match_labels={"tier": "gold"})),
+        spread_constraints=[
+            M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                               min_groups=1, max_groups=2),
+            M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_PROVIDER,
+                               min_groups=1, max_groups=2)],
+        replica_scheduling=divided)
+    cluster_spread = M.Placement(
+        spread_constraints=[M.SpreadConstraint(
+            spread_by_field=M.SPREAD_BY_FIELD_CLUSTER, min_groups=1,
+            max_groups=2)],
+        replica_scheduling=divided)
+    plain = M.Placement(replica_scheduling=divided)
+    dup = M.Placement(replica_scheduling=M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED))
+    st = M.ResourceBindingStatus
+    items = [
+        (explain_spec(M, every_stage, "every", evict_from=["m-evict"]), st()),
+        (explain_spec(M, cluster_spread, "spread", replicas=6), st()),
+        (explain_spec(M, plain, "too-big", replicas=100_000), st()),
+        (explain_spec(M, plain, "prev", replicas=4,
+                      prev=[("m-taint", 2), ("m-ok2", 1)]), st()),
+        (explain_spec(M, dup, "dup", replicas=2), st()),
+        (explain_spec(M, plain, "nw", replicas=0), st()),
+        (explain_spec(M, cluster_spread, "evicting", replicas=3,
+                      evict_from=["m-ok1", "m-ok2"]), st()),
+        (explain_spec(M, plain, "heavy", replicas=30, cpu_milli=2_000),
+         st()),
+    ]
+    return clusters, items
+
+
+def plugin_filter(placement, cluster):
+    """The filter plugin explain_scenario's tests register in both
+    packages: rejects one cluster by name."""
+    return ("plugin rejected this cluster"
+            if cluster.metadata.name == PLUGIN_REJECTS else None)
+
+
+# -- the shortlist plane (tests/test_shortlist.py) -----------------------------
+
+def affinity_placements(M, rng, names, n=12, lo=3, hi=16):
+    """Device-routed strategy mix over affinity subsets (the shape whose
+    eligible sets a small k covers): Duplicated, StaticWeight, and
+    DynamicWeight-Divided, all restricted to [lo, hi] clusters."""
+    out = []
+    for j in range(n):
+        k = rng.randint(lo, min(hi, len(names)))
+        start = rng.randrange(len(names))
+        picked = [names[(start + i) % len(names)] for i in range(k)]
+        aff = M.ClusterAffinity(cluster_names=picked)
+        if j % 3 == 0:
+            rs = M.ReplicaSchedulingStrategy(
+                replica_scheduling_type="Duplicated")
+        elif j % 3 == 1:
+            rs = M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=M.REPLICA_DIVISION_WEIGHTED)
+        else:
+            rs = _dynamic(M)
+        out.append(M.Placement(cluster_affinity=aff, replica_scheduling=rs))
+    return out
+
+
+def shortlist_items(M, rng, n, placements, prev_of=None):
+    items = build_bindings(M, rng, n, placements)
+    for b, targets in (prev_of or {}).items():
+        items[b][0].clusters = [M.TargetCluster(name=nm, replicas=rep)
+                                for nm, rep in targets]
+    return items
+
+
+def build_megafleet(M, rng, n_clusters, n_regions):
+    """bench.py build_megafleet: `n_clusters` clusters round-robined into
+    `n_regions` regions, and one Divided/DynamicWeight placement per
+    region whose affinity names exactly that region's clusters."""
+    clusters = build_fleet(M, rng, n_clusters)
+    for i, c in enumerate(clusters):
+        c.spec.region = f"r{i % n_regions}"
+    by_region = {}
+    for c in clusters:
+        by_region.setdefault(c.spec.region, []).append(c.metadata.name)
+    placements = [
+        M.Placement(cluster_affinity=M.ClusterAffinity(
+            cluster_names=by_region[r]), replica_scheduling=_dynamic(M))
+        for r in sorted(by_region, key=lambda s: int(s[1:]))]
+    return clusters, placements
+
+
+def build_mega_bindings(M, rng, n, placements, block):
+    """bench.py build_mega_bindings: 9 shared request classes, replicas
+    1-3, the placement advancing every `block` bindings."""
+    Q = M.Quantity
+    reqs = [M.ReplicaRequirements(resource_request={
+        "cpu": Q.from_milli(cpu), "memory": Q.from_units(mem)})
+        for cpu in (100, 250, 500) for mem in (1, 2, 4)]
+    status = M.ResourceBindingStatus()
+    items = []
+    for b in range(n):
+        pl = placements[(b // max(block, 1)) % len(placements)]
+        spec = M.ResourceBindingSpec(
+            resource=M.ObjectReference(
+                api_version=GVK[0], kind=GVK[1], namespace=f"ns-{b % 64}",
+                name=f"mega-{b}", uid=f"uid-mega-{b}"),
+            replicas=rng.choice([1, 2, 3]),
+            replica_requirements=reqs[rng.randrange(len(reqs))],
+            placement=pl)
+        items.append((spec, status))
+    return items

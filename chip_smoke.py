@@ -40,14 +40,26 @@ region spread included; chunk 4096, 8 waves, carry on):
      DynamicWeight placement per region, MEGAFLEET_BINDINGS bindings --
      with the two-tier shortlist armed (K1 + K8 shortlist_topk over each
      chunk's profiles, K9 group_sums, the solver over the candidate
-     union): every chunk shortlisted, no fallback.
+     union): every chunk shortlisted, no fallback;
+  9. the incremental steady state (bench.py --incremental's legs) on
+     phase 8's fleet shape with INCREMENTAL_BINDINGS bindings: a fused
+     resident plane (slot store and cluster tensors kept on the card, K10
+     scatter_lanes, K11 gather_rows) under the incremental solver (K12
+     dirty_codes, the shortlist armed), adopt -> write-back -> settle ->
+     cluster-status catch-up -> STEADY_CYCLES cycles at 0.1% churn -> a
+     capacity flap -> a forced dense audit that must come out "ok"; the
+     steady cycles upload no binding field.
 
 Phase 2 also holds K7 (on the first forward chunk and on its spread
 sub-batch), K8 (on a megafleet chunk's profile rows, and on rows wider
 than its shared-memory path) and K9 (on the 10k fleet) against their
-plain versions; phase 5 also compares one phase-7 chunk's explain planes
-and decisions, and one shortlisted megafleet chunk, card against CPU, and
-the first 2,048 megafleet bindings shortlisted against dense on the card.
+plain versions, and, after phase 9 on its plane, K10 (cluster rows,
+cluster columns, slot-store rows), K11 (both flavours) and K12; phase 5
+also compares one phase-7 chunk's explain planes and decisions, and one
+shortlisted megafleet chunk, card against CPU, the first 2,048 megafleet
+bindings shortlisted against dense on the card, and the resident plane
+(fused and host, every batch audited) against plain cycles over two
+churn windows of config 5's first 16,384 bindings.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -79,6 +91,10 @@ MEGA_CLUSTERS = 10_000
 MEGA_REGIONS = 200
 MEGA_K = 64
 RECALL_BINDINGS = 2_048    # phase 5's shortlisted-vs-dense sample
+RESIDENT_BINDINGS = 16_384  # phase 5's resident-plane sample
+INCREMENTAL_BINDINGS = 1_000_000  # phase 9's roster (MEGAFLEET_r02.json's)
+INCREMENTAL_CHURN = 1_000  # bindings churned per steady cycle (0.1%)
+STEADY_CYCLES = 4
 
 
 def log(msg: str) -> None:
@@ -929,6 +945,328 @@ def phase_megafleet(items, fleet, names, args, dev, chunk_ms, need):
     return launches
 
 
+def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
+    """Phase 9: the incremental steady state at megafleet scale, on the
+    legs of bench.py --incremental (its steady-fit fleet: three times the
+    pods).  A fused ResidentState (audit off) under the IncrementalSolver
+    with the shortlist (k = MEGA_K, every chunk), chunk `chunk`, waves 1:
+    adopt -> write-back -> settle -> cluster-status catch-up (every
+    cluster's rv bumped) -> STEADY_CYCLES cycles at INCREMENTAL_CHURN
+    bindings (replicas +-1, rv bumped) -> a capacity flap (2 clusters,
+    pods -16) -> a forced dense audit.  Checks: steady cycles incremental,
+    no binding field uploaded in them, the audit "ok".  Returns the
+    launch counts of the whole run (counts reset before the adopt), the
+    plane, the solver and the roster."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.resident import CycleDeltas, ResidentState
+    from karmada_tpu_torch.scheduler.incremental import IncrementalSolver
+
+    rng = random.Random(seed)
+    for c in fleet:
+        q = c.status.resource_summary.allocatable["pods"]
+        c.status.resource_summary.allocatable["pods"] = (
+            M.Quantity.from_units(int(q.value()) * 3))
+    t0 = time.perf_counter()
+    bindings = [M.ResourceBinding(
+        metadata=M.ObjectMeta(namespace=spec.resource.namespace,
+                              name=spec.resource.name, resource_version=1),
+        spec=spec, status=status) for spec, status in build_mega_bindings(
+            M, rng, n_bindings, placements, chunk)]
+    log(f"phase 9 incremental: {n_bindings} bindings x {len(fleet)} "
+        f"clusters built in {time.perf_counter() - t0:.1f} s")
+    state = ResidentState(audit_interval=0, fused=True, device=dev)
+    solver = IncrementalSolver(
+        state, GeneralEstimator(), chunk=chunk, audit_every=0,
+        shortlist=SL.ShortlistConfig(k=MEGA_K, min_cells=0))
+    SL.reset_for_tests()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    steady = []
+
+    def leg(name, run, write_back=True):
+        fb0 = sum(SL.FALLBACKS.values())
+        h0 = S.TRANSFERS["h2d_binding_fields"]
+        t = time.perf_counter()
+        rep = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        h2d = S.TRANSFERS["h2d_binding_fields"] - h0
+        t = time.perf_counter()
+        wrote = solver.write_back() if write_back else 0
+        wb = time.perf_counter() - t
+        log(f"phase 9 {name}: {rep.mode} ({rep.reason or 'dirty set'}) "
+            f"wall {wall:.3f} s, dirty {rep.dirty} of {rep.total}, groups "
+            f"{len(rep.groups)} (of {rep.chunk_groups} chunk groups), "
+            f"shortlist fallbacks {sum(SL.FALLBACKS.values()) - fb0}, "
+            f"binding fields uploaded {h2d}; write-back {wrote} in "
+            f"{wb:.3f} s; audit {rep.audit_outcome}; host seconds by stage "
+            f"{ {k: round(v, 3) for k, v in rep.stages.items()} }")
+        return rep, wall, h2d
+
+    t_all = time.perf_counter()
+    leg("adopt", lambda: solver.adopt(fleet, bindings))
+    leg("settle", lambda: solver.cycle(fleet, bindings, CycleDeltas()))
+    for c in fleet:  # every member reports: the adopt-era ledger retires
+        c.metadata.resource_version += 1
+    leg("catch-up", lambda: solver.cycle(fleet, bindings, CycleDeltas()))
+    live = sum(int(np.count_nonzero(a)) for a in solver.ledger.milli.values())
+    log(f"phase 9 catch-up: {live} live ledger lanes")
+    for cyc in range(STEADY_CYCLES):
+        touched = []
+        for pos in rng.sample(range(n_bindings), INCREMENTAL_CHURN):
+            rb = bindings[pos]
+            rb.spec.replicas = max(1, rb.spec.replicas + rng.choice((-1, 1)))
+            rb.metadata.resource_version += 1
+            touched.append((rb.namespace, rb.name))
+        rep, wall, h2d = leg(f"steady {cyc + 1}", lambda: solver.cycle(
+            fleet, bindings, CycleDeltas(bindings_touched=touched)))
+        if rep.mode != "incremental" or h2d:
+            raise AssertionError(f"phase 9: steady cycle {cyc + 1} ran "
+                                 f"{rep.mode} with {h2d} binding fields "
+                                 "uploaded")
+        steady.append(wall)
+    for c in rng.sample(fleet, 2):
+        q = c.status.resource_summary.allocatable["pods"]
+        c.status.resource_summary.allocatable["pods"] = (
+            M.Quantity.from_units(max(8, int(q.value()) - 16)))
+        c.metadata.resource_version += 1
+    leg("capacity flap", lambda: solver.cycle(fleet, bindings, CycleDeltas()))
+    rep, _wall, _h2d = leg("audit", lambda: solver.cycle(
+        fleet, bindings, CycleDeltas(), force_audit=True), write_back=False)
+    launches = dict(kernels.LAUNCHES)
+    log(f"phase 9 incremental: steady p50 {np.percentile(steady, 50):.3f} s "
+        f"(walls {[round(w, 3) for w in steady]}); whole run "
+        f"{time.perf_counter() - t_all:.1f} s; plane {state.stats()['fused']}"
+        f", hits {state.hits} misses {state.misses}; launches "
+        f"scatter_lanes={launches['scatter_lanes']} gather_rows="
+        f"{launches['gather_rows']} dirty_codes={launches['dirty_codes']}; "
+        f"all {launches}")
+    if rep.audit_outcome != "ok":
+        raise AssertionError(f"phase 9: forced audit {rep.audit_outcome}")
+    for k in ("scatter_lanes", "gather_rows", "dirty_codes", "capacity",
+              "schedule_rows", "webster_batch", "compact", "shortlist_topk",
+              "group_sums"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 9: kernel {k} never launched")
+    return launches, state, solver, bindings
+
+
+def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
+    """K10 scatter_lanes, K11 gather_rows and K12 dirty_codes against their
+    plain versions on phase 9's plane: K10 on the fleet's avail_milli
+    [C, R] (64 churned lanes), est_override [Q, C] columns (64 lanes) and
+    the slot store's prev_idx at its capacity (1,024 churned slots); K11 on
+    the first chunk's rows of the slot store, in both flavours (the sub
+    flavour with a 64-lane union and every 16th row dropped); K12 on the
+    whole slot store with 1,000 rv slots (slot 0 among them) and 8 flip
+    lanes."""
+    from karmada_tpu_torch.ops import dirty as DM
+    from karmada_tpu_torch.ops import resident_gather as RG
+    from karmada_tpu_torch.ops import resident_update as RU
+
+    g = np.random.default_rng(0)
+    p = state.plane
+    mirrors = state.device_rows.mirrors
+    rows = []
+
+    def up(a):  # a writable copy: the plane's masters are frozen
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+    # -- K10 ----------------------------------------------------------------
+    def hold_scatter(label, master, lanes, cols):
+        vals = master[..., lanes] if cols else master[lanes]
+        vals = (vals ^ 1) if vals.dtype == np.bool_ else vals + 1
+        lp, vp = (RU.pad_lanes_cols if cols else RU.pad_lanes)(lanes, vals)
+        lt, vt = up(lp), up(vp)
+        fn = RU.scatter_cols if cols else RU.scatter_rows
+        plain = RU.scatter_cols_plain if cols else RU.scatter_rows_plain
+        dk, dp = up(master), up(master)
+        fn(dk, lt, vt)
+        plain(dp, lt, vt)
+        err = max_abs_err([(dk, dp)])
+        ms = cuda_ms(lambda: fn(dk, lt, vt), reps)
+        plain_ms = cuda_ms(lambda: plain(dp, lt, vt), reps)
+        lib_ms = cuda_ms(lambda: dp.index_copy_(1 if cols else 0, lt, vt),
+                         reps)
+        # the lane list and the new values read once, as many elements
+        # written
+        b = bound_ms(nbytes(lt) + 2 * nbytes(vt), 0)
+        log(f"phase 2 scatter_lanes {label}: {tuple(master.shape)} "
+            f"{master.dtype}, {len(lanes)} lanes (padded {len(lp)}) "
+            f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b[0]:.6f} library_ms={lib_ms:.4f}")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b[0], bound_by=b[1], library_ms=lib_ms)
+
+    nC = state.nC
+    r_avail = hold_scatter("avail_milli rows", p.avail_milli,
+                           np.sort(g.choice(nC, 64, replace=False)), False)
+    r_est = hold_scatter("est_override columns", p.est_override,
+                         np.sort(g.choice(nC, 64, replace=False)), True)
+    cap = p.prev_idx.shape[0]
+    r_slot = hold_scatter("slot-store prev_idx rows", p.prev_idx,
+                          np.sort(g.choice(cap, 1024, replace=False)), False)
+    rows.append(dict(
+        name="scatter_lanes", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/resident.cu",
+        replaces="karmada_tpu/ops/resident_update.py:40",
+        **{**r_slot, "max_abs_err": max(r["max_abs_err"] for r in (
+            r_avail, r_est, r_slot))}))
+
+    # -- K11 on the first chunk's rows ----------------------------------------
+    B = 4096
+    slots = up(np.asarray(solver._slots[:B], np.int64))
+    got = RG.gather_batch(slots, mirrors)
+    err11 = max_abs_err(zip(got, RG.gather_batch_plain(slots, mirrors)))
+    pid0 = int(p.placement_id[int(solver._slots[0])])
+    union = np.flatnonzero(p.pl_mask[pid0][:nC])
+    extra = np.setdiff1d(np.arange(nC), union)
+    union = np.sort(np.concatenate([union, g.choice(
+        extra, 64 - union.size, replace=False)]))
+    inv = np.full(p.pl_mask.shape[1], -1, np.int32)
+    inv[union] = np.arange(union.size, dtype=np.int32)
+    drop = np.zeros(B, bool)
+    drop[::16] = True
+    sub_in = (slots, mirrors, up(inv), up(drop))
+    got_s = RG.sub_gather_batch(*sub_in)
+    err11s = max_abs_err(zip(got_s, RG.sub_gather_batch_plain(*sub_in)))
+    Kp, Ke = p.prev_idx.shape[1], p.evict_idx.shape[1]
+    per_row = 28 + 8 * Kp + 4 * Ke  # the twelve fields read, route included
+    b11 = bound_ms(nbytes(slots) + B * per_row + nbytes(*got), 0)
+    ms11s = cuda_ms(lambda: RG.sub_gather_batch(*sub_in), reps)
+    log(f"phase 2 gather_rows sub flavour: {B} rows, union {union.size} "
+        f"lanes, {int(drop.sum())} dropped, max_abs_err={err11s} "
+        f"ms={ms11s:.4f}")
+    rows.append(dict(
+        name="gather_rows", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/resident.cu",
+        replaces="karmada_tpu/ops/resident_gather.py:100",
+        max_abs_err=max(err11, err11s),
+        ms=cuda_ms(lambda: RG.gather_batch(slots, mirrors), reps),
+        plain_ms=cuda_ms(lambda: RG.gather_batch_plain(slots, mirrors),
+                         reps),
+        bound_ms=b11[0], bound_by=b11[1], library_ms=None))
+    log(f"phase 2 gather_rows: {B} rows of a {cap}-slot store, "
+        f"Kp={Kp} Ke={Ke}")
+
+    # -- K12 on the whole slot store ------------------------------------------
+    flips = DM._pad_lanes(np.sort(g.choice(nC, 8, replace=False)))
+    rv = DM._pad_lanes(np.concatenate([[0], g.choice(
+        np.arange(1, cap), 999, replace=False)]))
+    ins = ([mirrors[f] for f in DM.SLOT_FIELDS]
+           + [up(getattr(p, f)) for f in DM.PLANE_FIELDS]
+           + [up(flips), up(rv)])
+    k12 = DM.dirty_kernel(*ins)
+    err12 = max_abs_err([(k12, DM.dirty_kernel_plain(*ins))])
+    if not int(k12[0]) & DM.DIRTY:
+        raise AssertionError("dirty_codes: rv slot 0 not dirty")
+    b12 = bound_ms(nbytes(*ins) + nbytes(k12), 0)
+    rows.append(dict(
+        name="dirty_codes", route="cuda",
+        source="karmada_tpu_torch/ops/csrc/dirty.cu",
+        replaces="karmada_tpu/ops/dirty.py:96",
+        max_abs_err=err12, ms=cuda_ms(lambda: DM.dirty_kernel(*ins), reps),
+        plain_ms=cuda_ms(lambda: DM.dirty_kernel_plain(*ins), reps),
+        bound_ms=b12[0], bound_by=b12[1], library_ms=None))
+    log(f"phase 2 dirty_codes: {cap} slots, {len(rv)} rv slots (1,000 "
+        f"real), {len(flips)} flip lanes (8 real), P x C "
+        f"{tuple(p.pl_mask.shape)}; dirty rows "
+        f"{int((k12 & DM.DIRTY).count_nonzero())}")
+    for r in rows:
+        log(f"phase 2 {r['name']}: max_abs_err={r['max_abs_err']} "
+            f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+            f"library_ms={r['library_ms']}")
+        if r["max_abs_err"] != 0:
+            raise AssertionError(f"{r['name']} disagrees with its plain "
+                                 "version")
+    return rows
+
+
+def phase_parity_resident(items, fleet, args, dev) -> None:
+    """The resident plane on the card with config 5's mix: the first
+    RESIDENT_BINDINGS forward bindings (main and region-spread rows) on
+    the 5,000-cluster fleet, through schedule_items with a fused and a
+    host-assemble ResidentState (both auditing every batch against a fresh
+    encode_batch) and without one: adopt, then two churn windows, each
+    bumping 1% of the bindings (replicas +-1, rv), the pods of 1% of the
+    clusters and one cluster's `deleting` (on in the first window, off in
+    the second).  Placements equal across fused, host and fresh; every
+    audit ok; the fused windows upload no binding field."""
+    import copy
+
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.resident import ResidentState, RowToken
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    part = list(items[:RESIDENT_BINDINGS])
+    clusters = copy.deepcopy(fleet)
+    rng = random.Random(args.seed + 4)
+    n = len(part)
+    rvs = [1] * n
+    planes = {"fused": ResidentState(audit_interval=1, fused=True,
+                                     device=dev),
+              "host": ResidentState(audit_interval=1, device=dev)}
+    flip = clusters[7]
+    for window in range(3):
+        if window:
+            for i in rng.sample(range(n), n // 100):
+                spec, status = part[i]
+                part[i] = (dataclasses.replace(spec, replicas=max(
+                    1, spec.replicas + rng.choice((-1, 1)))), status)
+                rvs[i] += 1
+            for c in rng.sample(clusters, len(clusters) // 100):
+                q = c.status.resource_summary.allocatable["pods"]
+                c.status.resource_summary.allocatable["pods"] = (
+                    type(q).from_units(max(8, int(q.value())
+                                           + rng.choice((-4, 4)))))
+                c.metadata.resource_version += 1
+            flip.metadata.deletion_timestamp = 1.0 if window == 1 else None
+            flip.metadata.resource_version += 1
+        toks = [RowToken(f"b/{i}", rvs[i]) for i in range(n)]
+        out = {}
+        for name, state in list(planes.items()) + [("fresh", None)]:
+            h0 = S.TRANSFERS["h2d_binding_fields"]
+            t0 = time.perf_counter()
+            kw = ({"resident": state, "tokens": toks} if state is not None
+                  else {})
+            out[name] = [norm(r) for r in schedule_items(
+                part, clusters, chunk=args.chunk, waves=args.waves,
+                device=dev, **kw)]
+            h2d = S.TRANSFERS["h2d_binding_fields"] - h0
+            extra = ""
+            if state is not None:
+                extra = (f", flip lanes {state.last_flip_lanes.tolist()}, "
+                         f"audits {state.audits_ok} ok / "
+                         f"{state.audit_mismatches} mismatch")
+            log(f"phase 5 parity resident window {window} {name}: "
+                f"{time.perf_counter() - t0:.2f} s, binding fields uploaded "
+                f"{h2d}{extra}")
+            if name == "fused" and window and h2d:
+                raise AssertionError("resident: a fused window uploaded "
+                                     f"{h2d} binding fields")
+            if state is not None and window and not len(
+                    state.last_flip_lanes):
+                raise AssertionError("resident: the deleting flip was not "
+                                     "seen")
+        bad = [i for i in range(n) if not (
+            out["fused"][i] == out["host"][i] == out["fresh"][i])]
+        if bad:
+            raise AssertionError(f"resident: window {window} rows {bad[:10]}"
+                                 " differ across fused / host / fresh")
+    for name, state in planes.items():
+        st = state.stats()
+        log(f"phase 5 parity resident {name}: {st['audits']}, "
+            f"rebuilds {st['rebuilds']}, fused {st['fused']}")
+        if state.audit_mismatches or not state.audits_ok:
+            raise AssertionError(f"resident: {name} audits {st['audits']}")
+    if not planes["fused"].fused_cycles:
+        raise AssertionError("resident: the fused plane never gathered")
+
+
 def norm(r):
     if isinstance(r, Exception):
         return type(r).__name__
@@ -1138,15 +1476,22 @@ def main() -> int:
         mitems, mfleet, mnames, args, dev, chunk_ms,
         ("capacity", "schedule_rows", "webster_batch", "compact",
          "shortlist_topk", "group_sums"))
-    for r in report:
-        r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
-                                                      mega))
-
     phase_parity("forward", items, fleet, args, dev)
     phase_parity("rebalance", reb_items, fleet, args, dev)
     phase_parity("wide", wide_items, fleet, args, dev)
     phase_parity_explain(explain_items, fleet, args, dev)
     phase_parity_shortlist(mitems, mfleet, args, dev)
+    del mitems, reb_items, wide_items, explain_items  # phase 9 builds 1M
+
+    inc, state, solver, roster = phase_incremental(
+        M, mfleet, mplacements, INCREMENTAL_BINDINGS, args.chunk, dev,
+        args.seed + 5)
+    report += phase_kernels_k10_k12(state, solver, dev, args.reps)
+    del state, solver, roster
+    for r in report:
+        r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
+                                                      mega, inc))
+    phase_parity_resident(items, fleet, args, dev)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

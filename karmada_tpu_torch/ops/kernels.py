@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources (ops/csrc/<source>.cu), one library each
 SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
-           "spread_group_info", "spread_pick", "explain", "shortlist")
+           "spread_group_info", "spread_pick", "explain", "shortlist",
+           "resident", "dirty")
 #: C entry points (kt_<entry>) of each source's library
 ENTRIES = {"capacity": ("capacity",),
            "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish",
@@ -38,13 +39,16 @@ ENTRIES = {"capacity": ("capacity",),
            "spread_group_info": ("spread_group_info",),
            "spread_pick": ("spread_pick",),
            "explain": ("explain_rows", "explain_rows_spread"),
-           "shortlist": ("shortlist_topk", "group_sums")}
+           "shortlist": ("shortlist_topk", "group_sums"),
+           "resident": ("scatter_lanes", "gather_rows"),
+           "dirty": ("dirty_codes",)}
 #: the kernels, by launch counter: K2's big-tier instantiation counts
 #: apart from the std one it shares a source with; K7's spread flavour
-#: counts as explain_rows; K8 and K9 share a source
+#: counts as explain_rows; K8 and K9 share a source, as do K10 and K11
 KERNELS = ("capacity", "schedule_rows", "schedule_rows_big", "compact",
            "webster_batch", "spread_group_info", "spread_pick",
-           "explain_rows", "shortlist_topk", "group_sums")
+           "explain_rows", "shortlist_topk", "group_sums", "scatter_lanes",
+           "gather_rows", "dirty_codes")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -267,3 +271,26 @@ GroupSumArgs = _struct("GroupSumArgs", ("group_id", "cap", "out"),
 TOPK_SMEM_LANES = 16384
 #: K8's member sort holds a power of two >= k entries in shared memory
 TOPK_MAX_K = 4096
+
+ScatterArgs = _struct("ScatterArgs", ("dst", "src", "lanes"),
+                      ("outer", "D", "inner", "L", "elem"))
+
+#: K11's slot-store operands (resident_gather.GATHER_FIELDS order) and
+#: outputs (resident_gather.OUT_FIELDS order)
+GatherArgs = _struct("GatherArgs", (
+    "slots", "lane_inv", "drop",
+    "s_placement_id", "s_gvk_id", "s_class_id", "s_replicas", "s_uid_desc",
+    "s_fresh", "s_non_workload", "s_nw_shortcut", "s_route", "s_prev_idx",
+    "s_prev_val", "s_evict_idx",
+    "b_valid", "placement_id", "gvk_id", "class_id", "replicas", "uid_desc",
+    "fresh", "non_workload", "nw_shortcut", "prev_idx", "prev_val",
+    "evict_idx"), ("B", "Kp", "Ke"))
+
+DIRTY_TENSOR_FIELDS = (
+    "placement_id", "replicas", "fresh", "non_workload", "route", "prev_idx",
+    "prev_val", "evict_idx", "cluster_valid", "deleting", "pl_mask",
+    "pl_strategy", "pl_has_cluster_sc", "pl_has_region_sc")
+
+DirtyArgs = _struct("DirtyArgs", DIRTY_TENSOR_FIELDS + (
+    "flip_lanes", "rv_slots", "pl_flags", "rv_mark", "out"),
+    ("cap", "C", "P", "Kp", "Ke", "F", "S"))

@@ -44,6 +44,7 @@ import torch
 
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.ops import kernels
+from karmada_tpu_torch.ops import resident_gather as rg
 from karmada_tpu_torch.ops import tensors as T
 from karmada_tpu_torch.ops.solver import (
     _AVAIL_BITS,
@@ -427,7 +428,7 @@ def binding_candidates(batch, k: int, device=None):
     prof_keys, prof_of, rep_max = _profiles(batch)
     cand, _fcount = _dispatch_profiles(batch, prof_keys, rep_max,
                                        min(k, batch.C), device)
-    prev = np.asarray(batch.prev_idx)
+    prev = np.asarray(T.host_rows(batch).prev_idx)
     out = []
     for b in range(batch.n_bindings):
         s = set(int(c) for c in cand[prof_of[b]] if c >= 0)
@@ -453,10 +454,14 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
         return None, {"fallback": "below_threshold"}
     if batch.C <= cfg.k:
         return None, {"fallback": "below_threshold"}
-    if getattr(batch, "fused", False):
-        return _fallback("fused", "a fused batch keeps the dense path")
+    if batch.fused and batch.fused_src is None:
+        return _fallback("fused", "a fused batch without a fused_src "
+                         "handle keeps the dense path")
     device = resolve_device(device)
-    valid = np.asarray(batch.b_valid)
+    # a fused batch's binding fields live on the card: tier 1 reads the
+    # host slot-store masters instead (same values)
+    hv = T.host_rows(batch)
+    valid = np.asarray(hv.b_valid)
     route = np.asarray(batch.route)
     if route.size and not bool(np.all(route == T.ROUTE_DEVICE)):
         n_other = int(np.sum(route != T.ROUTE_DEVICE))
@@ -464,9 +469,10 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
         COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
         return _fallback("mixed_routes",
                          f"{n_other} row(s) owned by spread/big/host tiers")
-    prof_keys, prof_of, rep_max = _profiles(batch)
+    prof_keys, prof_of, rep_max = _profiles(hv)
     # coverage is judged conservatively as profile-eligible + prev lanes
-    prev_count = np.sum(np.asarray(batch.prev_idx) >= 0, axis=1)
+    prev_np = np.asarray(hv.prev_idx)
+    prev_count = np.sum(prev_np >= 0, axis=1)
     k = min(cfg.k, batch.C)
     k_cap = min(cfg.k_max, batch.C)
     widened = 0
@@ -500,7 +506,6 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
         k = min(max(k * 2, worst), k_cap)
         widened += 1
         COUNTS["widenings"] += 1
-    prev_np = np.asarray(batch.prev_idx)
     # every kept row's prev lanes join the union (residual rows are priced
     # at full width and excluded)
     prev_keep = prev_np[valid & ~drop]
@@ -514,7 +519,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
         return _fallback(
             "union_wide", f"candidate union of {lanes.size} lane(s) exceeds "
             f"{max_union} ({cfg.union_frac:.0%} of {batch.n_clusters})")
-    sub = _sub_batch(batch, lanes, drop=drop if residual else None)
+    sub = _sub_batch(batch, lanes, hv, drop=drop if residual else None)
     if sub is None:
         # a covered binding's prev lane missing from the union would be a
         # tier-1 bug; refuse the shortlist rather than mis-solve
@@ -532,7 +537,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
     return sub, info
 
 
-def _sub_batch(batch, lanes: np.ndarray, drop=None):
+def _sub_batch(batch, lanes: np.ndarray, hv, drop=None):
     """The per-chunk vocabulary remap: the full batch's planes gathered to
     the candidate union (cluster axis only -- placements, request classes
     and the binding axis keep their vocabularies), name_rank re-densified
@@ -542,7 +547,10 @@ def _sub_batch(batch, lanes: np.ndarray, drop=None):
     (tensors.CarryState renders accumulators across the lane remap).
     `drop` bool[B] marks rows routed out of the sub-solve (the truncation
     residual): their b_valid clears.  None when a kept row's prev lane
-    lies outside the union."""
+    lies outside the union.  `hv` is the batch's host view (host_rows): on
+    a fused batch the binding rows never touch the host -- K11's sub
+    flavour gathers them from the device slot store straight into the
+    union vocabulary."""
     n2 = int(lanes.size)
     C2 = T._next_pow2(max(n2, 1), 8)  # noqa: SLF001
     inv = np.full(batch.C, -1, np.int32)
@@ -574,14 +582,35 @@ def _sub_batch(batch, lanes: np.ndarray, drop=None):
         out_idx = np.where(m, inv[np.where(m, idx, 0)], -1).astype(np.int32)
         return out_idx, m & (out_idx < 0)
 
-    kept = np.asarray(batch.b_valid)
+    kept = np.asarray(hv.b_valid)
     if drop is not None:
         kept = kept & ~drop
-    prev_idx, prev_dropped = remap_sparse(np.asarray(batch.prev_idx))
+    prev_idx, prev_dropped = remap_sparse(np.asarray(hv.prev_idx))
     if bool(prev_dropped[kept].any()):
         return None
-    prev_val = np.where(prev_idx >= 0, batch.prev_val, 0).astype(np.int32)
-    evict_idx, _ = remap_sparse(np.asarray(batch.evict_idx))
+    if batch.fused:
+        src = batch.fused_src
+        rows = rg.dispatch_sub_gather(
+            src["slots_b"], src["mirrors"], inv,
+            drop if drop is not None else np.zeros(batch.B, bool))
+        # the JAX solver's donation-safety bound over the sub width
+        strat = np.asarray(batch.pl_strategy)[np.asarray(hv.placement_id)]
+        wide = kept & ((strat == T.STRAT_DUPLICATED)
+                       | np.asarray(hv.non_workload))
+        per_row = (np.minimum(np.asarray(hv.replicas, np.int64), C2)
+                   + np.asarray(hv.prev_idx).shape[1])
+        nnz_bound = (int(np.sum(wide)) * C2
+                     + int(np.sum(per_row[kept & ~wide])))
+    else:
+        prev_val = np.where(prev_idx >= 0, batch.prev_val, 0).astype(
+            np.int32)
+        evict_idx, _ = remap_sparse(np.asarray(batch.evict_idx))
+        rows = (kept if drop is not None else batch.b_valid,
+                batch.placement_id, batch.gvk_id, batch.class_id,
+                batch.replicas, batch.uid_desc, batch.fresh,
+                batch.non_workload, batch.nw_shortcut, prev_idx, prev_val,
+                evict_idx)
+        nnz_bound = None
     label_axes = {key: (g1(gid, -1), values)
                   for key, (gid, values) in (batch.label_axes or {}).items()}
     return T.SolverBatch(
@@ -604,12 +633,7 @@ def _sub_batch(batch, lanes: np.ndarray, drop=None):
         pl_has_cluster_sc=batch.pl_has_cluster_sc,
         pl_sc_min=batch.pl_sc_min, pl_sc_max=batch.pl_sc_max,
         pl_ignore_avail=batch.pl_ignore_avail,
-        b_valid=kept if drop is not None else batch.b_valid,
-        placement_id=batch.placement_id, gvk_id=batch.gvk_id,
-        class_id=batch.class_id, replicas=batch.replicas,
-        uid_desc=batch.uid_desc, fresh=batch.fresh,
-        non_workload=batch.non_workload, nw_shortcut=batch.nw_shortcut,
-        prev_idx=prev_idx, prev_val=prev_val, evict_idx=evict_idx,
+        **dict(zip(rg.OUT_FIELDS, rows)),
         route=batch.route, cluster_index=cindex2,
         region_id=(g1(batch.region_id, -1)
                    if batch.region_id is not None else None),
@@ -627,4 +651,6 @@ def _sub_batch(batch, lanes: np.ndarray, drop=None):
         sub_lanes=np.concatenate([lanes, np.full(C2 - n2, -1, np.int64)]),
         sub_full_c=batch.C,
         sub_sig=hash((batch.C, C2, lanes.tobytes())),
+        fused=batch.fused, nnz_bound_hint=nnz_bound,
+        non_workload_host=batch.non_workload_host,
     )

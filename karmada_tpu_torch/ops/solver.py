@@ -40,7 +40,7 @@ divides, so results are bit-exact.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -156,35 +156,115 @@ def _to_dev(a, device):
     return torch.from_numpy(a).to(device)
 
 
+# One device copy per frozen cluster-side tensor set (JAX: _DEVICE_SLOT):
+# the encoder hands back the SAME frozen numpy objects across the chunks of
+# a cycle (EncoderCache.assembled), and the resident plane the same frozen
+# masters across quiet cycles, so their device copies upload once instead
+# of once per chunk.  One slot per device, keyed by the identity of every
+# array of the tuple, which it pins so a collected id can never alias.
+_DEVICE_SLOT: dict = {}  # str(device) -> (numpy tuple, tensor tuple)
+
+#: host-to-device traffic of device_batch since the last reset:
+#: binding-axis fields uploaded from numpy (a fused batch's are already on
+#: the card and add nothing -- the JAX package's H2D_BINDING_FIELDS), and
+#: cluster-side tensor sets served from _DEVICE_SLOT or uploaded
+TRANSFERS: Dict[str, int] = {"h2d_binding_fields": 0, "cluster_hits": 0,
+                             "cluster_uploads": 0}
+
+
+def _frozen(arrs) -> bool:
+    return all(not (isinstance(a, np.ndarray) and a.flags.writeable)
+               for a in arrs)
+
+
+def prime_cluster_slot(np_args, dev_args, device) -> bool:
+    """Seed the device-transfer cache with cluster tensors already on
+    `device` (the resident plane's mirrors): a dispatch whose batch holds
+    these exact numpy objects then uploads none of them.  Both tuples
+    follow _CLUSTER_FIELDS.  Refuses writable arrays: the identity check
+    must never serve a stale copy."""
+    np_args = tuple(np_args)
+    if len(np_args) != len(_CLUSTER_FIELDS) or not _frozen(np_args):
+        return False
+    _DEVICE_SLOT[str(device)] = (np_args, tuple(dev_args))
+    return True
+
+
+def _cluster_args(batch, device) -> dict:
+    np_args = tuple(getattr(batch, f) for f in _CLUSTER_FIELDS)
+    slot = _DEVICE_SLOT.get(str(device))
+    if slot is not None and all(a is b for a, b in zip(slot[0], np_args)):
+        TRANSFERS["cluster_hits"] += 1
+        return dict(zip(_CLUSTER_FIELDS, slot[1]))
+    dev = tuple(_to_dev(a, device) for a in np_args)
+    TRANSFERS["cluster_uploads"] += 1
+    # only frozen arrays are cached: a writable one could change in place
+    # between solves and the identity check would serve a stale copy
+    if _frozen(np_args):
+        _DEVICE_SLOT[str(device)] = (np_args, dev)
+    return dict(zip(_CLUSTER_FIELDS, dev))
+
+
+def _binding_rows(batch, rows, device) -> dict:
+    """The binding-axis operands on `device`: numpy fields upload (and
+    count), a fused batch's device tensors pass as they are.  With `rows`
+    only those rows, in that order, and the prev/evict columns up to the
+    last one they use (read off the operands themselves: a fused batch's
+    host masters may be rewritten by a later chunk's encode)."""
+    t = {}
+    rows_t = None
+    for f in _BINDING_FIELDS:
+        a = getattr(batch, f)
+        if torch.is_tensor(a):
+            if a.device != device:
+                raise ValueError(f"{f} lives on {a.device}, not {device}")
+            if rows is not None:
+                if rows_t is None:
+                    rows_t = torch.from_numpy(
+                        np.asarray(rows, np.int64)).to(device)
+                a = a.index_select(0, rows_t)
+        else:
+            a = np.asarray(a)
+            if rows is not None:
+                a = a[rows]
+        t[f] = a
+    if rows is not None:
+        for key, fs in (("prev_idx", ("prev_idx", "prev_val")),
+                        ("evict_idx", ("evict_idx",))):
+            used = (t[key] >= 0).any(0)
+            cols = (torch.nonzero(used).reshape(-1).cpu().numpy()
+                    if torch.is_tensor(used) else np.nonzero(used)[0])
+            k = int(cols[-1]) + 1 if cols.size else min(1, t[key].shape[1])
+            for f in fs:
+                t[f] = t[f][:, :k]
+    for f, a in t.items():
+        if torch.is_tensor(a):
+            t[f] = a.contiguous()
+        else:
+            t[f] = _to_dev(a, device)
+            TRANSFERS["h2d_binding_fields"] += 1
+    return t
+
+
 def device_batch(batch, device, rows=None, explain: bool = False
                  ) -> DeviceBatch:
-    """Upload a SolverBatch's solver operands to `device`; with `rows` (an
-    index array) only those binding rows, in that order.  With `explain`
-    the encoder's static fail-bit plane pl_fail_bits [P, C] rides along
-    (the batch must be encoded with explain=True)."""
+    """A SolverBatch's solver operands on `device`; with `rows` (an index
+    array) only those binding rows, in that order.  The cluster-side
+    tensors come from the one-slot device cache when the batch holds the
+    same frozen arrays as the last upload.  With `explain` the encoder's
+    static fail-bit plane pl_fail_bits [P, C] rides along (the batch must
+    be encoded with explain=True)."""
     device = resolve_device(device)
     if batch.C > MAX_CLUSTER_LANES:
         raise ValueError(f"cluster axis {batch.C} exceeds the packed keys' "
                          f"{MAX_CLUSTER_LANES} lanes per solve call")
-    fields = _CLUSTER_FIELDS
+    t = _cluster_args(batch, device)
     if explain:
         if not batch.explain:
             raise ValueError("the explain plane needs a batch encoded with "
                              "explain=True")
-        fields = fields + ("pl_fail_bits",)
-    t = {f: _to_dev(getattr(batch, f), device) for f in fields}
-    arrs = {f: np.asarray(getattr(batch, f)) for f in _BINDING_FIELDS}
-    if rows is not None:
-        arrs = {f: a[rows] for f, a in arrs.items()}
-        # keep the COO columns up to the last one these rows use
-        for key, fs in (("prev_idx", ("prev_idx", "prev_val")),
-                        ("evict_idx", ("evict_idx",))):
-            cols = np.nonzero((arrs[key] >= 0).any(0))[0]
-            k = int(cols[-1]) + 1 if cols.size else min(1, arrs[key].shape[1])
-            for f in fs:
-                arrs[f] = arrs[f][:, :k]
-    for f, a in arrs.items():
-        t[f] = _to_dev(a, device)
+        t["pl_fail_bits"] = _to_dev(batch.pl_fail_bits, device)
+    t.update(_binding_rows(batch, rows, device))
     B = int(batch.B) if rows is None else len(rows)
     return DeviceBatch(B=B, C=int(batch.C), device=device, t=t)
 

@@ -367,7 +367,10 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
     # pow2-bucketed group axis: segments beyond n_groups are empty
     G = T._next_pow2(max(n_groups, 1), 8)  # noqa: SLF001
 
-    pid = batch.placement_id[idx]
+    # a fused batch's placement_id lives on the card: read it back
+    pid = batch.placement_id
+    pid = (pid.cpu().numpy() if torch.is_tensor(pid)
+           else np.asarray(pid))[idx]
     duplicated = batch.pl_strategy[pid] == T.STRAT_DUPLICATED
     region_min = batch.pl_region_min[pid]
     region_max = batch.pl_region_max[pid]

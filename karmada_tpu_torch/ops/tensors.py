@@ -31,6 +31,7 @@ the JAX package routes them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -297,6 +298,22 @@ class SolverBatch:
     sub_lanes: np.ndarray = field(default=None)
     sub_full_c: Optional[int] = None
     sub_sig: Optional[int] = None
+    # fused resident-gather batches (resident/state._assemble_fused): the
+    # binding-axis fields are live device tensors gathered from the device
+    # slot store (ops/resident_gather), never uploaded at dispatch.
+    # nnz_bound_hint is the host-computed COO size bound of the JAX
+    # solver's donation check (solver._nnz_bound), kept for parity.
+    fused: bool = False
+    nnz_bound_hint: Optional[int] = None
+    # host copy of non_workload[:n] on fused batches: decode reads it per
+    # binding without reading the card
+    non_workload_host: np.ndarray = field(default=None)  # bool[n]
+    # fused-source handle: the plane whose host slot-store masters hold
+    # the binding fields, this chunk's slot vector (and its padded [B]
+    # form) and the live device slot mirrors -- the shortlist reads the
+    # binding fields host-side (host_rows) and gathers the sub-batch rows
+    # on the card.  Host bookkeeping, never uploaded.
+    fused_src: Optional[Dict] = field(default=None)
 
 
 def _effective_placement(
@@ -1171,6 +1188,37 @@ def _build_solver_batch(
     )
 
 
+def host_rows(batch: SolverBatch):
+    """Host (numpy) view of a batch's binding-axis fields.  A plain batch
+    is its own view.  A fused batch carries them as device tensors, so its
+    view is gathered off the plane's host slot-store masters (the
+    fused_src handle) with the gather's pad fill -- equal to the device
+    rows by the resident plane's sync contract, and no read of the card.
+    A fused view holds only until the plane's next encode_cycle: a later
+    chunk's merge may rewrite the slots (the shortlist reads it at shrink
+    time, right after this chunk's encode)."""
+    if not batch.fused:
+        return batch
+    src = batch.fused_src
+    p, sl = src["plane"], src["slots"]
+    n, B = int(sl.shape[0]), batch.B
+
+    def pad(a, fill):
+        out = np.full((B,) + a.shape[1:], fill, a.dtype)
+        out[:n] = a[sl]
+        return out
+
+    b_valid = np.zeros(B, bool)
+    b_valid[:n] = np.asarray(batch.route) == ROUTE_DEVICE
+    return SimpleNamespace(
+        b_valid=b_valid, placement_id=pad(p.placement_id, 0),
+        gvk_id=pad(p.gvk_id, 0), class_id=pad(p.class_id, -1),
+        replicas=pad(p.replicas, 0), uid_desc=pad(p.uid_desc, False),
+        fresh=pad(p.fresh, False), non_workload=pad(p.non_workload, False),
+        nw_shortcut=pad(p.nw_shortcut, False), prev_idx=pad(p.prev_idx, -1),
+        prev_val=pad(p.prev_val, 0), evict_idx=pad(p.evict_idx, -1))
+
+
 def remap_used(used, from_batch: SolverBatch, to_batch: SolverBatch):
     """Transport consumed-capacity accumulators (solver carry-out) between
     TWO batches of the same cycle whose resource/class vocabularies may
@@ -1237,6 +1285,22 @@ class CarryState:
         out = CarryState()
         out.merge(self)
         return out
+
+    def retire_lanes(self, lanes: np.ndarray) -> None:
+        """Zero the accumulators at these full-vocabulary cluster lanes:
+        a status write for a cluster (the resident plane's last_cap_lanes)
+        means its reported availability now embeds whatever the carried
+        placements landed.  Lanes beyond an accumulator's length are
+        ignored."""
+        lanes = np.asarray(lanes, np.int64)
+        if lanes.size == 0:
+            return
+        for arr in self.milli.values():
+            arr[lanes[lanes < arr.shape[0]]] = 0
+        if self.pods is not None:
+            self.pods[lanes[lanes < self.pods.shape[0]]] = 0
+        for arr in self.sets.values():
+            arr[lanes[lanes < arr.shape[0]]] = 0
 
     def merge(self, other: "CarryState") -> None:
         """Fold another keyed store into this one (additive)."""
@@ -1368,7 +1432,10 @@ def decode_compact(
     C = batch.C
     nb = batch.n_bindings
     coo_status = np.asarray(status)
-    non_workload = np.asarray(batch.non_workload)
+    # a fused batch's non_workload lives on the card: read its host copy
+    non_workload = np.asarray(
+        batch.non_workload_host if batch.non_workload_host is not None
+        else batch.non_workload)
     out: List = [None] * nb
     # error slots first (diagnosis construction); unknown nonzero statuses
     # with no mapped error fall through to target construction
@@ -1452,7 +1519,8 @@ def batch_from_arrays(fields: Dict[str, np.ndarray], meta) -> SolverBatch:
             kw[f] = np.array(a, dtype=FIELD_DTYPES[f], copy=True)
     for k in ("cluster_index", "region_names", "label_axes", "res_names",
               "class_keys", "placements", "gvk_keys", "class_reqs",
-              "explain", "sub_full_c", "sub_sig"):
+              "explain", "sub_full_c", "sub_sig", "fused", "nnz_bound_hint",
+              "non_workload_host", "fused_src"):
         v = get(k, None)
         if v is not None:
             kw[k] = v

@@ -1,0 +1,20 @@
+"""Resident-state plane: solver tensors kept on the device between cycles.
+
+  state.py    ResidentState -- frozen copy-on-write masters advanced by
+              deltas, their device mirrors (K10 scatters, primed into the
+              solver's transfer cache), the per-binding slot store (K11
+              gather on the fused path) and the bit-exact audit
+  deltas.py   the classes of cluster change and one cycle's change set
+
+Counterpart of the JAX package's ``karmada_tpu/resident``; its watch-event
+DeltaTracker and debug endpoint wait for the port's control plane.
+"""
+
+from __future__ import annotations
+
+from karmada_tpu_torch.resident.deltas import CycleDeltas  # noqa: F401
+from karmada_tpu_torch.resident.state import (  # noqa: F401
+    ResidentState,
+    RowToken,
+    compare_batches,
+)

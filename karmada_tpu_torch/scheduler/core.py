@@ -7,7 +7,9 @@ through the chunked device pipeline on the card -- the main route, the
 spread plane (region and spread-by-label grouping) and the big lane tier;
 rows on a host route (provider/zone-only topology spread, unsupported,
 vanished previous cluster, huge replicas, beyond every compact tier's
-caps) run the serial golden path, as the JAX scheduler does.
+caps) run the serial golden path, as the JAX scheduler does.  With a
+resident plane (`resident=`, resident/state.py) the cycle encodes through
+it, as the JAX Scheduler does under `serve --resident[-fused]`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,9 @@ def schedule_items(
     explain: Optional[obs_decisions.DecisionRecorder] = None,
     shortlist: Optional[ShortlistConfig] = None,
     keys: Optional[Sequence[str]] = None,
+    resident=None,
+    deltas=None,
+    tokens: Optional[Sequence] = None,
 ) -> List[object]:
     """Per item, List[TargetCluster] or the Exception the scheduler would
     record.  `device` defaults to the first CUDA card and raises without
@@ -47,20 +52,43 @@ def schedule_items(
     device rows' from the explain plane, the host rows' outcome-level
     (backend "serial"), keyed by `keys` (per item "namespace/name"; the
     workload's identity when omitted).  `shortlist` arms the two-tier
-    solve (ops/shortlist)."""
+    solve (ops/shortlist).
+
+    `resident` (a resident.ResidentState on the same device) keeps the
+    solver tensors between calls (JAX: Scheduler(resident=True)): the
+    cycle first advances the plane to `clusters` with the window's
+    `deltas` (resident.CycleDeltas, or None: the plane's own
+    resourceVersion sweep finds the changes), then encodes each chunk
+    through ResidentState.encode_cycle, which re-encodes only the rows
+    whose `tokens` (per item a resident.RowToken, or None: no cached row)
+    changed."""
     device = resolve_device(device)
     estimator = estimator or GeneralEstimator()
     out: List[object] = [None] * len(items)
     if not items:
         return out
-    cindex = tensors.ClusterIndex.build(clusters)
-    cache = tensors.EncoderCache()
-    cache.reset_for_cycle()
+    encode = None
+    if resident is not None:
+        if resident.device != device:
+            raise ValueError(f"the resident plane lives on {resident.device}"
+                             f", the cycle runs on {device}")
+        resident.begin_cycle(clusters, deltas)
+        cindex, cache = resident.cindex, resident.enc_cache
+        toks = list(tokens) if tokens is not None else [None] * len(items)
+
+        def encode(part, offset, armed):
+            return resident.encode_cycle(
+                part, toks[offset:offset + len(part)], explain=armed)
+    else:
+        cindex = tensors.ClusterIndex.build(clusters)
+        cache = tensors.EncoderCache()
+        cache.reset_for_cycle()
     res = run_pipeline(
         items, cindex, estimator, chunk=chunk, waves=waves, cache=cache,
         carry=len(items) > chunk,
         enable_empty_workload_propagation=enable_empty_workload_propagation,
-        explain=explain, keys=keys, shortlist=shortlist, device=device)
+        explain=explain, keys=keys, shortlist=shortlist, device=device,
+        encode=encode)
     for i, r in res.results.items():
         out[i] = r
     cal = serial.make_cal_available([estimator])

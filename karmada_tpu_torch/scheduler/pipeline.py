@@ -34,6 +34,13 @@ k+2's carry-in -- the JAX package's accounting, reproduced as it is.
 Every device route runs here (DEVICE_ROUTES); host routes are absent from
 the result, for the caller's serial path (scheduler/core.schedule_items).
 
+Resident and incremental cycles: `encode=` replaces the chunk encoder
+(the resident plane's gather plus miss re-encode, resident/state.py; its
+fused batches carry device binding fields, and every host-side read goes
+through the host `route` or tensors.host_rows); `carry_state=` seeds the
+carry chain with a ledger carried from earlier runs and `collect_carry=`
+returns the run's cumulative consumption (scheduler/incremental.py).
+
 Explain (`explain=DecisionRecorder`): chunks encode the placements' static
 fail bits and dispatch the explain variant (K7 after each wave's K2, and
 after each spread sub-solve); finalize turns the planes into Decision
@@ -54,7 +61,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +106,9 @@ class PipelineResult:
     # reason, widen rounds, residual rows, per-chunk union widths and the
     # tier-2 cells solved vs the dense equivalent
     shortlist: Dict[str, object] = field(default_factory=dict)
+    # collect_carry: the run's cumulative consumption (seed + every
+    # chunk's own), keyed in the full vocabulary
+    carry: Optional["tensors.CarryState"] = None
 
 
 class _CarryChain:
@@ -316,6 +326,10 @@ def run_pipeline(
     keys: Optional[Sequence[str]] = None,
     shortlist: Optional["sl.ShortlistConfig"] = None,
     device=None,
+    encode: Optional[Callable[[Sequence, int, bool], object]] = None,
+    carry_state: Optional["tensors.CarryState"] = None,
+    collect_carry: bool = False,
+    carry_spread: bool = True,
 ) -> PipelineResult:
     """Schedule `items` ((spec, status) pairs) chunk by chunk on `device`
     (the card by default).  `results` maps global item index ->
@@ -331,7 +345,21 @@ def run_pipeline(
     keys: per-item binding identities ("namespace/name") for the
       decisions; derived from each spec's workload when omitted.
     shortlist: a ShortlistConfig arming the two-tier solve (module
-      docstring); None keeps every chunk dense."""
+      docstring); None keeps every chunk dense.
+    encode: the chunk encoder, `encode(part, offset, explain) ->
+      SolverBatch`; the resident plane (resident/state.py) substitutes its
+      gather-plus-miss-re-encode here.  The batch must equal a fresh full
+      encode (the plane's audit enforces that).  Default:
+      tensors.encode_batch against `cindex` / `cache`.
+    carry_state: seed the carry chain with consumption from a previous run
+      (needs carry=True): the incremental plane's ledger.  The seed object
+      is not mutated.
+    collect_carry: return the run's cumulative consumption (seed + every
+      chunk's own) as PipelineResult.carry (one host sync at the end).
+    carry_spread: with carry, the spread and big-tier sub-solves price
+      against their chunk's carry-in and feed their consumption back (the
+      JAX Scheduler's carry_spread=carry); False prices them against the
+      raw snapshot, as the JAX incremental solver runs them."""
     device = resolve_device(device)
     res = PipelineResult()
     n = len(items)
@@ -342,6 +370,12 @@ def run_pipeline(
     cache = cache if cache is not None else tensors.EncoderCache()
     keep_sel = enable_empty_workload_propagation
     chain = _CarryChain() if carry else None
+    if carry_state is not None:
+        if chain is None:
+            raise ValueError("carry_state seeding requires carry=True")
+        # merge copies every array on first insert: the caller's seed
+        # stays untouched however the chain mutates its store
+        chain.total.merge(carry_state)
     armed = explain is not None
     if shortlist is not None:
         res.shortlist = {"chunks": 0, "fallbacks": {}, "widened": 0,
@@ -367,8 +401,8 @@ def run_pipeline(
         big_idx = [i for i in range(len(part))
                    if batch.route[i] == tensors.ROUTE_DEVICE_BIG]
         used0 = None
-        if chain is not None and entry.used0 is not None and (
-                groups or big_idx):
+        if carry_spread and chain is not None and (
+                entry.used0 is not None) and (groups or big_idx):
             used0 = _host(entry.used0)
         collect = used0 is not None
         for (axis, tier), idxs in groups.items():
@@ -448,8 +482,9 @@ def run_pipeline(
     for lo in range(0, n, chunk):
         part = items[lo:lo + chunk]
         t0 = time.perf_counter()
-        batch = tensors.encode_batch(part, cindex, estimator, cache=cache,
-                                     explain=armed)
+        batch = (encode(part, lo, armed) if encode is not None
+                 else tensors.encode_batch(part, cindex, estimator,
+                                           cache=cache, explain=armed))
         t1 = time.perf_counter()
         for r, k in zip(*np.unique(batch.route[:len(part)],
                                    return_counts=True)):
@@ -486,7 +521,8 @@ def run_pipeline(
         handle = used0 = None
         # with carry every chunk dispatches so the chain stays contiguous
         # (an all-host batch consumes nothing); without it an all-host
-        # chunk skips the card
+        # chunk skips the card.  The check reads the host `route`, never a
+        # fused batch's device b_valid
         if chain is not None or bool(
                 np.any(np.asarray(batch.route) == tensors.ROUTE_DEVICE)):
             used0 = chain.carry_in(batch) if chain is not None else None
@@ -507,4 +543,6 @@ def run_pipeline(
         pending = entry
     if pending is not None:
         finalize(pending)
+    if chain is not None and collect_carry:
+        res.carry = chain.snapshot()
     return res

@@ -1,4 +1,4 @@
-"""Kernels K1-K9 and K2's big-tier instantiation on the card against their
+"""Kernels K1-K12 and K2's big-tier instantiation on the card against their
 plain versions, bit-exact.
 
 Marked `gpu`: these need a CUDA card and nvcc, decide inside the test
@@ -17,8 +17,10 @@ and solve_spread on region and label axes, with K5 and K6 held against
 their plain versions on shared-memory rows and on 16,384-lane rows (the
 device-memory sort path); K7 explain_rows in both flavours (the main
 solve's waves and the spread phase B); K8 shortlist_topk on its
-shared-memory and device-memory key paths; K9 group_sums; and a
-shortlisted megafleet cycle, card against CPU.
+shared-memory and device-memory key paths; K9 group_sums; a
+shortlisted megafleet cycle, card against CPU; K10 scatter_lanes (both
+layouts, 1-, 4- and 8-byte elements), K11 gather_rows (both flavours),
+K12 dirty_codes, and a fused incremental run card against CPU.
 """
 
 import numpy as np
@@ -415,4 +417,159 @@ def test_shortlisted_megafleet_cycle_on_card():
         out[str(d)] = ([_norm(r) for r in res],
                        [{k: v for k, v in x.items() if k not in ("ts", "id")}
                         for x in rec.recent()])
+    assert out[str(dev)] == out["cpu"]
+
+
+# -- the resident plane and the incremental solve: K10, K11, K12 -------------
+
+def _on(d, dev):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in d.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["rows", "cols"])
+@pytest.mark.parametrize("dtype", [np.bool_, np.int32, np.int64])
+def test_scatter_lanes_kernel_matches_plain_on_card(mode, dtype):
+    """K10 in both layouts and all three element sizes, with the padded
+    duplicate lanes the resident plane sends, against the plain scatter."""
+    from karmada_tpu_torch.ops import resident_update as RU
+
+    dev = _card()
+    rng = np.random.default_rng(5)
+    C = 4096
+    lanes = rng.choice(C, 37, replace=False)
+    shape = (C, 3) if mode == "rows" else (6, C)
+    dst = (rng.integers(-50, 50, shape) % 2 if dtype is np.bool_
+           else rng.integers(-50, 50, shape)).astype(dtype)
+    vals = (rng.integers(0, 2, (37, 3) if mode == "rows" else (6, 37))
+            .astype(dtype))
+    if mode == "rows":
+        lp, vp = RU.pad_lanes(lanes, vals)
+        fn, plain = RU.scatter_rows, RU.scatter_rows_plain
+    else:
+        lp, vp = RU.pad_lanes_cols(lanes, vals)
+        fn, plain = RU.scatter_cols, RU.scatter_cols_plain
+    assert lp.shape[0] == 64  # padded with the last pair repeated
+    kernels.reset_counts()
+    got = fn(torch.from_numpy(dst.copy()).to(dev),
+             torch.from_numpy(lp).to(dev),
+             torch.from_numpy(np.ascontiguousarray(vp)).to(dev))
+    torch.cuda.synchronize()
+    _launched(("scatter_lanes",))
+    want = plain(torch.from_numpy(dst.copy()), torch.from_numpy(lp),
+                 torch.from_numpy(np.ascontiguousarray(vp)))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flavour", ["plain", "sub"])
+def test_gather_rows_kernel_matches_plain_on_card(flavour):
+    """K11 on pad rows, every route, and (sub flavour) a 64-lane union with
+    out-of-union prev lanes and dropped rows, against the plain gather:
+    every output row and dtype."""
+    from karmada_tpu_torch.ops import resident_gather as RG
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    C, cap, B = 2048, 4096, 512
+    store = S.slot_store(rng, cap, 4, 2, C, 16)
+    slots = rng.integers(0, cap, B).astype(np.int64)
+    slots[-40:] = -1
+    args = []
+    if flavour == "sub":
+        inv = np.full(C, -1, np.int32)
+        lanes = rng.choice(C, 64, replace=False)
+        inv[lanes] = np.arange(64, dtype=np.int32)
+        args = [inv, rng.random(B) < 0.2]
+    cpu = [torch.from_numpy(a) for a in [slots] + args]
+    card = [a.to(dev) for a in cpu]
+    kernels.reset_counts()
+    if flavour == "sub":
+        got = RG.sub_gather_batch(card[0], _on(store, dev), *card[1:])
+        want = RG.sub_gather_batch_plain(cpu[0], _on(store, "cpu"), *cpu[1:])
+    else:
+        got = RG.gather_batch(card[0], _on(store, dev))
+        want = RG.gather_batch_plain(cpu[0], _on(store, "cpu"))
+    torch.cuda.synchronize()
+    _launched(("gather_rows",))
+    for f, a, b in zip(RG.OUT_FIELDS, got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+
+
+@pytest.mark.gpu
+def test_dirty_codes_kernel_matches_plain_on_card():
+    """K12 with rv slots holding slot 0 plus -1 padding, absent prev lanes,
+    real prev lane 0, -1 evict pads and flip lanes, against the plain
+    pass."""
+    from karmada_tpu_torch.ops import dirty as DM
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    C, P, cap = 1024, 24, 8192
+    store = S.slot_store(rng, cap, 4, 2, C, P)
+    store["prev_idx"][:8, 0] = 0  # a real prev lane 0
+    plane = {
+        "cluster_valid": rng.random(C) < 0.95,
+        "deleting": rng.random(C) < 0.05,
+        "pl_mask": rng.random((P, C)) < 0.3,
+        "pl_strategy": rng.integers(0, 5, P).astype(np.int32),
+        "pl_has_cluster_sc": rng.random(P) < 0.2,
+        "pl_has_region_sc": rng.random(P) < 0.1,
+    }
+    flips = DM._pad_lanes(rng.choice(C, 5, replace=False))
+    rv = DM._pad_lanes(np.concatenate([[0], rng.choice(cap, 20)]))
+    ins = [store[f] for f in DM.SLOT_FIELDS] + [
+        plane[f] for f in DM.PLANE_FIELDS] + [flips, rv]
+    kernels.reset_counts()
+    got = DM.dirty_kernel(*(torch.from_numpy(a).to(dev) for a in ins))
+    torch.cuda.synchronize()
+    _launched(("dirty_codes",))
+    want = DM.dirty_kernel_plain(*(torch.from_numpy(a) for a in ins))
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0]) & DM.DIRTY
+
+
+@pytest.mark.gpu
+def test_fused_incremental_steady_state_on_card():
+    """The fused resident plane with the shortlist under the incremental
+    solver, card against CPU: the same reports, results and ledgers; K10,
+    K11 and K12 on the card; no binding field uploaded in a warm cycle."""
+    import random
+
+    from karmada_tpu_torch.resident import ResidentState
+    from karmada_tpu_torch.resident.deltas import CycleDeltas
+    from karmada_tpu_torch.scheduler.incremental import IncrementalSolver
+
+    dev = _card()
+    out = {}
+    for d in (dev, "cpu"):
+        PSL.reset_for_tests()
+        rng = random.Random(3)
+        clusters, pls = S.build_megafleet(MP, rng, 1200, 24)
+        items = S.build_mega_bindings(MP, rng, 768, pls, block=256)
+        bindings = S.as_bindings(MP, items)
+        state = ResidentState(audit_interval=0, fused=True, device=d)
+        solver = IncrementalSolver(
+            state, GeneralEstimator(), chunk=256, audit_every=0,
+            shortlist=PSL.ShortlistConfig(k=64, min_cells=0))
+        kernels.reset_counts()
+        reps = [solver.adopt(clusters, bindings)]
+        solver.write_back()
+        reps.append(solver.cycle(clusters, bindings, CycleDeltas()))
+        solver.write_back()
+        d0 = PS.TRANSFERS["h2d_binding_fields"]
+        deltas = S.churn(CycleDeltas, rng, clusters, bindings, 8, n_caps=2)
+        reps.append(solver.cycle(clusters, bindings, deltas,
+                                 force_audit=True))
+        assert reps[-1].audit_outcome == "ok"
+        assert PS.TRANSFERS["h2d_binding_fields"] == d0
+        if d is dev:
+            torch.cuda.synchronize()
+            _launched(("scatter_lanes", "gather_rows", "dirty_codes",
+                       "shortlist_topk") + MAIN_PATH)
+        out[str(d)] = ([(r.mode, r.dirty, r.groups, r.audit_outcome)
+                        for r in reps],
+                       {p: _norm(r) for p, r in solver.results.items()},
+                       {k: v.tolist() for k, v in solver.ledger.milli.items()})
     assert out[str(dev)] == out["cpu"]

@@ -1,7 +1,8 @@
 """Isolation of the port: karmada_tpu_torch and chip_smoke.py import
 neither jax nor anything of the JAX package karmada_tpu (whose name is a
 prefix of the port's: `karmada_tpu` followed by a boundary other than
-`_torch`), a cycle runs with neither in sys.modules, and the entry
+`_torch`), a cycle -- and a resident adopt plus an incremental cycle --
+runs with neither in sys.modules, and the entry
 points never drift to the CPU unless asked."""
 
 import ast
@@ -66,6 +67,20 @@ M = S.models_of("karmada_tpu_torch")
 clusters, items = S.random_scenario(M, 1, n_clusters=11, n_bindings=20)
 out = schedule_items(items, clusters, chunk=8, waves=2, device="cpu")
 assert len(out) == 20 and all(r is not None for r in out)
+# the resident plane and the incremental solve: adopt, write back, and
+# one watch-driven cycle on the fused plane
+from karmada_tpu_torch.estimator.general import GeneralEstimator
+from karmada_tpu_torch.resident import CycleDeltas, ResidentState
+from karmada_tpu_torch.scheduler.incremental import IncrementalSolver
+state = ResidentState(audit_interval=0, fused=True, device="cpu")
+solver = IncrementalSolver(state, GeneralEstimator(), chunk=8,
+                           audit_every=0)
+bindings = S.as_bindings(M, items)
+assert solver.adopt(clusters, bindings).mode == "full"
+solver.write_back()
+rep = solver.cycle(clusters, bindings, CycleDeltas(), force_audit=True)
+assert rep.mode == "incremental" and rep.audit_outcome == "ok", rep
+assert state.fused_cycles > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
 print("LOADED", bad)

@@ -749,3 +749,57 @@ def build_mega_bindings(M, rng, n, placements, block):
             placement=pl)
         items.append((spec, status))
     return items
+
+
+# -- the incremental roster of tests/test_incremental_solve.py ---------------
+
+def as_bindings(M, items, tag=""):
+    """ResourceBinding objects around (spec, status) items, resourceVersion
+    1: the incremental roster is binding-addressed (keys, rvs, in-place
+    write-back)."""
+    return [M.ResourceBinding(
+        metadata=M.ObjectMeta(namespace=spec.resource.namespace,
+                              name=f"{tag}{spec.resource.name}",
+                              resource_version=1),
+        spec=spec, status=status) for spec, status in items]
+
+
+def churn(CycleDeltas, rng, clusters, bindings, n_rows, n_caps=0):
+    """One watch window (test_incremental_solve._churn): bump n_rows
+    bindings' replica targets and n_caps clusters' reported pod capacity;
+    returns the CycleDeltas of the touched bindings (cluster churn rides
+    the resident plane's own rv sweep)."""
+    touched = []
+    for pos in rng.sample(range(len(bindings)), n_rows):
+        rb = bindings[pos]
+        rb.spec.replicas = max(1, rb.spec.replicas + rng.choice((-1, 1)))
+        rb.metadata.resource_version += 1
+        touched.append((rb.namespace, rb.name))
+    for c in rng.sample(clusters, n_caps):
+        q = c.status.resource_summary.allocatable["pods"]
+        c.status.resource_summary.allocatable["pods"] = (
+            type(q).from_units(max(8, int(q.value()) + rng.choice(
+                (-4, 4)))))
+        c.metadata.resource_version += 1
+    return CycleDeltas(bindings_touched=touched)
+
+
+def slot_store(rng, cap, Kp, Ke, C, P=16):
+    """A random binding-row slot store (the resident plane's
+    GATHER_FIELDS, numpy) from a numpy Generator: every route, -1 padded
+    prev/evict lanes, and nonzero prev values under -1 lanes (the sub
+    gather must zero those)."""
+    return {
+        "placement_id": rng.integers(0, P, cap).astype("int32"),
+        "gvk_id": rng.integers(0, 3, cap).astype("int32"),
+        "class_id": rng.integers(-1, 5, cap).astype("int32"),
+        "replicas": rng.integers(0, 12, cap).astype("int64"),
+        "uid_desc": rng.random(cap) < 0.5,
+        "fresh": rng.random(cap) < 0.3,
+        "non_workload": rng.random(cap) < 0.1,
+        "nw_shortcut": rng.random(cap) < 0.1,
+        "route": rng.choice([0, 0, 0, 6, 8, 1], cap).astype("int32"),
+        "prev_idx": rng.integers(-1, C, (cap, Kp)).astype("int32"),
+        "prev_val": rng.integers(0, 6, (cap, Kp)).astype("int32"),
+        "evict_idx": rng.integers(-1, C, (cap, Ke)).astype("int32"),
+    }

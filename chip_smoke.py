@@ -48,13 +48,42 @@ region spread included; chunk 4096, 8 waves, carry on):
      dirty_codes, the shortlist armed), adopt -> write-back -> settle ->
      cluster-status catch-up -> STEADY_CYCLES cycles at 0.1% churn -> a
      capacity flap -> a forced dense audit that must come out "ok"; the
-     steady cycles upload no binding field.
+     steady cycles upload no binding field;
+ 10. the rebalance loop on the port's control plane (store, runtime,
+     scheduling queue, Scheduler, graceful eviction, rebalance plane):
+     config 5's fleet and forward bindings restored into an ObjectStore
+     with phase 3's placements, as after a restart on a converged fleet
+     (members report what they run as allocated pods, and at least that
+     as allocatable pods), then the 8 clusters with the most Divided
+     replicas among those no Duplicated or StaticWeight affinity names
+     crushed to 60% of the pods they hold; a Scheduler (chunk 4096, 8
+     waves, rebalance every 30 s, threshold 1000 milli, spread
+     report-only, at most 512 evictions a cycle, 128 per cluster a
+     minute) and a GracefulEvictionController (600 s grace) on one fake
+     clock; advance 30 s and tick until the plane converges (at most 40
+     rounds), then past the grace period until every drain settled.
+     10a: REBALANCE_PARITY_BINDINGS bindings, no headroom, the loop on
+     the card and on the CPU -- converged, equal per-cycle snapshots,
+     eviction tasks, promotions and final placements; then the recipe as
+     first specified (configured pods kept, the 8 clusters with the most
+     Divided replicas crushed) for REBALANCE_AS_STATED_ROUNDS rounds on
+     the card, with a census of the placements against the configured
+     pods.  10b: REBALANCE_BINDINGS bindings on the card, allocatable
+     pods REBALANCE_HEADROOM_MILLI/1000 of what a member holds --
+     converged with every cluster within its capacity, no conservation
+     violation, no pending drain, every evicted binding re-placed, no
+     contained fault (scheduler, plane, runtime), K13 once per detect
+     cycle and K1-K4 launched; the census, and per detect cycle and per
+     scheduler cycle a line of host seconds by stage.
 
 Phase 2 also holds K7 (on the first forward chunk and on its spread
 sub-batch), K8 (on a megafleet chunk's profile rows, and on rows wider
 than its shared-memory path) and K9 (on the 10k fleet) against their
 plain versions, and, after phase 9 on its plane, K10 (cluster rows,
-cluster columns, slot-store rows), K11 (both flavours) and K12; phase 5
+cluster columns, slot-store rows), K11 (both flavours) and K12, and,
+after phase 5, K13 (on config 5's 5,000 lanes committed from phase 3's
+placements and on 16,384 random lanes, negatives, zero capacity with
+load and invalid lanes mixed in, four threshold settings); phase 5
 also compares one phase-7 chunk's explain planes and decisions, and one
 shortlisted megafleet chunk, card against CPU, the first 2,048 megafleet
 bindings shortlisted against dense on the card, and the resident plane
@@ -1405,6 +1434,412 @@ def phase_parity_shortlist(items, fleet, args, dev) -> None:
         raise AssertionError(f"shortlist: rows {bad[:10]} differ from dense")
 
 
+# -- phase 10: the rebalance loop on the control plane ------------------------
+
+REBALANCE_PARITY_BINDINGS = 2_000   # phase 10a's roster
+REBALANCE_BINDINGS = 25_000         # phase 10b's roster (config 5's first 25k)
+REBALANCE_CRUSHED = 8
+REBALANCE_ROUNDS = 40
+REBALANCE_AS_STATED_ROUNDS = 3      # the recipe as first specified, bounded
+REBALANCE_GRACE_S = 600.0
+#: phase 10b's allocatable pods on a member that is not crushed, x1000 of
+#: the pods it runs (at least its configured pods); 10a runs at 1000
+REBALANCE_HEADROOM_MILLI = 1250
+
+
+class FakeClock:
+    """The loop's one clock (queue, plane, budget, eviction controller)."""
+
+    def __init__(self, t: float = 1_000.0) -> None:
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, s: float) -> None:
+        self.t += s
+
+
+def restore_store(M, fleet, items, results, headroom_milli=None):
+    """An ObjectStore holding the fleet and `items` as phase 3 placed them,
+    as after a restart: each placed binding carries its targets,
+    Scheduled=True and its observed generation; each binding phase 3
+    could not place carries Scheduled=False.  Then REBALANCE_CRUSHED
+    clusters have their allocatable pods crushed to 60% of what they hold.
+
+    With `headroom_milli` None, the recipe as first specified: members
+    keep their configured pods, and the crushed clusters are those with
+    the most Divided replicas.  Otherwise the fleet restored converged:
+    every member reports the replicas placed on it as allocated pods and
+    as allocatable pods its configured pods or `headroom_milli`/1000 times
+    what it runs, the larger; the crushed clusters are those with the
+    most Divided replicas among the ones no Duplicated or StaticWeight
+    affinity names (a re-solve puts capacity-blind placements back, and
+    Duplicated load is never drained).
+
+    Returns the store, the crushed names, the seconds the creates took,
+    and a census of the placements against the configured pods."""
+    import copy
+
+    from karmada_tpu_torch.ops import serial
+    from karmada_tpu_torch.store import ObjectStore
+
+    held, dup, div, pinned = {}, {}, {}, set()
+    for (spec, _st), r in zip(items, results):
+        strat = serial.strategy_type(spec)
+        aff = spec.placement.cluster_affinity if spec.placement else None
+        if aff is not None and strat in (serial.DUPLICATED,
+                                         serial.STATIC_WEIGHT):
+            pinned.update(aff.cluster_names)
+        if isinstance(r, list):
+            for t in r:
+                held[t.name] = held.get(t.name, 0) + t.replicas
+                to = dup if strat == serial.DUPLICATED else div
+                to[t.name] = to.get(t.name, 0) + t.replicas
+    pods = {c.name: int(c.status.resource_summary.allocatable["pods"].value())
+            for c in fleet}
+    over = [n for n in held if held[n] > pods[n]]
+    stuck = [n for n in dup if dup[n] > pods[n]]
+    census = dict(
+        committed=sum(held.values()), duplicated=sum(dup.values()),
+        allocatable=sum(pods.values()), over=len(over),
+        over_excess=sum(held[n] - pods[n] for n in over),
+        duplicated_over=len(stuck),
+        duplicated_excess=sum(dup[n] - pods[n] for n in stuck))
+    fullest = sorted(div, key=lambda n: (-div[n], n))
+    census["fullest_pinned"] = sum(
+        n in pinned for n in fullest[:REBALANCE_CRUSHED])
+    converged = headroom_milli is not None
+    crushed = [n for n in fullest
+               if not (converged and n in pinned)][:REBALANCE_CRUSHED]
+    t0 = time.perf_counter()
+    store = ObjectStore()
+    for c in fleet:
+        c = copy.deepcopy(c)
+        h = held.get(c.name, 0)
+        s = c.status.resource_summary
+        if c.name in crushed:
+            s.allocatable["pods"] = M.Quantity.from_units(h * 600 // 1000)
+        elif converged:
+            s.allocatable["pods"] = M.Quantity.from_units(
+                max(pods[c.name], h * headroom_milli // 1000))
+        if converged:
+            s.allocated["pods"] = M.Quantity.from_units(h)
+        store.create(c)
+    for (spec, _st), r in zip(items, results):
+        rb = M.ResourceBinding(
+            metadata=M.ObjectMeta(namespace=spec.resource.namespace,
+                                  name=spec.resource.name),
+            spec=dataclasses.replace(
+                spec, clusters=list(r) if isinstance(r, list) else []))
+        rb.status.scheduler_observed_generation = 1  # create sets gen 1
+        ok = isinstance(r, list)
+        rb.status.conditions.append(M.Condition(
+            type="Scheduled", status="True" if ok else "False",
+            reason=("BindingScheduled" if ok else
+                    "NoClusterFit" if isinstance(r, serial.FitError)
+                    else "Unschedulable")))
+        store.create(rb)
+    return store, crushed, time.perf_counter() - t0, census
+
+
+def census_line(census) -> str:
+    return (f"{census['committed']} replicas committed "
+            f"({census['duplicated']} Duplicated) against "
+            f"{census['allocatable']} configured allocatable pods; "
+            f"{census['over']} clusters hold {census['over_excess']} above "
+            f"their configured pods, {census['duplicated_over']} of them "
+            f"{census['duplicated_excess']} Duplicated replicas alone, which "
+            f"no drain moves; {census['fullest_pinned']} of the "
+            f"{REBALANCE_CRUSHED} clusters with the most Divided replicas are "
+            f"named by a Duplicated or StaticWeight affinity")
+
+
+def rebalance_loop(store, dev, label, verbose, rounds=REBALANCE_ROUNDS):
+    """Phase 10's closed loop on `store`: a Scheduler (config 5's chunk
+    and waves, rebalance armed per BASELINE config 5's loop) and a
+    GracefulEvictionController on one clock.  Advance 30 s and tick until
+    the plane converges (at most `rounds` rounds), then, if it did,
+    advance past the grace period until every drain settled.  Returns
+    what the run observed."""
+    from karmada_tpu_torch.controllers.failover import (
+        GracefulEvictionController,
+    )
+    from karmada_tpu_torch.rebalance import RebalanceConfig
+    from karmada_tpu_torch.scheduler import Scheduler, SchedulingQueue
+    from karmada_tpu_torch.store import Runtime
+
+    clock = FakeClock()
+    rt = Runtime()
+    sched = Scheduler(
+        store, rt, device=dev, batch_window=4096, pipeline_chunk=4096,
+        waves=8, queue=SchedulingQueue(now=clock), rebalance=30.0,
+        rebalance_cfg=RebalanceConfig(
+            interval_s=30, overcommit_threshold_milli=1000,
+            spread_tolerance_milli=0, max_evictions_per_cycle=512,
+            budget_per_cluster=128, budget_interval_s=60),
+        rebalance_clock=clock)
+    GracefulEvictionController(store, rt, grace_period_s=REBALANCE_GRACE_S,
+                               clock=clock)
+    plane = sched.rebalance_plane
+    promoted = []
+    promote = sched.promote
+
+    def record(key, priority=0, origin="rebalance"):
+        promoted.append((key, priority, origin))
+        return promote(key, priority=priority, origin=origin)
+    sched.promote = record
+
+    snaps, seen, cycles = [], 0, 0
+    t_loop = time.perf_counter()
+
+    def tick():
+        nonlocal seen, cycles
+        t0 = time.perf_counter()
+        rt.tick()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = plane.stats()
+        if st["cycles"] > cycles:
+            cycles = st["cycles"]
+            last = st["last"]
+            snaps.append(last)
+            tm = plane.last_timing
+            if verbose:
+                log(f"phase {label} detect {cycles}: evicted "
+                    f"{last['evicted']}, drain_need "
+                    f"{sum(r['drain_need'] for r in last['clusters'].values())}"
+                    f" over {sum(r['drain_need'] > 0 for r in last['clusters'].values())}"
+                    f" cluster(s), K13 {tm.get('kernel_ms', 0.0):.4f} ms, "
+                    f"list {tm['list_s']:.3f} s assemble "
+                    f"{tm['assemble_s']:.3f} s detect {tm['detect_s']:.4f} s"
+                    f" drain {tm['drain_s']:.3f} s audit "
+                    f"{tm['audit_s']:.3f} s; tick wall {wall:.3f} s")
+        for c in list(sched.cycle_log):
+            if c["cycle_id"] <= seen:
+                continue
+            seen = c["cycle_id"]
+            if verbose:
+                stages = " ".join(
+                    f"{k}={c[k]:.3f}" for k in (
+                        "encode_s", "dispatch_s", "wait_s", "finalize_s",
+                        "decode_s", "spread_s", "big_s"))
+                log(f"phase {label} scheduler cycle {c['cycle_id']}: "
+                    f"{c['bindings']} bindings ({c['scheduled']} placed, "
+                    f"{c['unschedulable']} unschedulable) in "
+                    f"{c['wall_s']:.3f} s "
+                    f"({c['bindings'] / max(c['wall_s'], 1e-9):.0f} "
+                    f"bindings/s), {c['chunks']} chunk(s): {stages}")
+
+    cap, rounds = rounds, 0
+    while rounds < cap:
+        clock.advance(30.0)
+        tick()
+        rounds += 1
+        if plane.converged():
+            break
+    converged_snap = snaps[-1] if snaps else {}
+    tasks = {(rb.namespace, rb.name): [
+        (t.from_cluster, t.replicas, t.producer, t.creation_timestamp)
+        for t in rb.spec.graceful_eviction_tasks]
+        for rb in store.list("ResourceBinding")
+        if rb.spec.graceful_eviction_tasks}
+    drain_rounds = 0
+    while (plane.converged() and plane.pending_drains()
+           and drain_rounds < 8):
+        clock.advance(REBALANCE_GRACE_S)
+        tick()
+        drain_rounds += 1
+    wall = time.perf_counter() - t_loop
+    t0 = time.perf_counter()
+    final = {(rb.namespace, rb.name): (
+        [(t.name, t.replicas) for t in rb.spec.clusters],
+        [(c.type, c.status, c.reason) for c in rb.status.conditions],
+        rb.metadata.generation, rb.status.scheduler_observed_generation)
+        for rb in store.list("ResourceBinding")}
+    list_s = time.perf_counter() - t0
+    return dict(snaps=snaps, promoted=promoted, tasks=tasks, final=final,
+                converged=plane.converged(), converged_snap=converged_snap,
+                rounds=rounds, drain_rounds=drain_rounds,
+                pending=plane.pending_drains(), stats=plane.stats(),
+                faults=sched.faults(), errors=rt.reconcile_errors(),
+                wall=wall, list_s=list_s, cycles=plane.stats()["cycles"])
+
+
+def phase_rebalance_parity(M, fleet, items, results, dev) -> None:
+    """Phase 10a: the closed loop on the first REBALANCE_PARITY_BINDINGS
+    of config 5's bindings over the 5,000-cluster fleet, restored
+    converged with no headroom, once with the Scheduler and plane on the
+    card and once on the CPU: equal per-cycle snapshots, eviction tasks,
+    promotions and final placements.  Then the recipe as first specified
+    on the same roster, REBALANCE_AS_STATED_ROUNDS rounds on the card:
+    what it drains and what it leaves over threshold."""
+    n = REBALANCE_PARITY_BINDINGS
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        store, crushed, _, census = restore_store(
+            M, fleet, items[:n], results[:n], headroom_milli=1000)
+        runs[d.type] = rebalance_loop(store, d, "10a", verbose=False)
+    a, b = runs["cuda"], runs["cpu"]
+    log(f"phase 10a rebalance parity: {n} bindings x {len(fleet)} clusters,"
+        f" crushed {crushed}; card: {a['cycles']} detect cycles, "
+        f"{a['stats']['evictions']} evictions, converged {a['converged']} "
+        f"in {a['rounds']} round(s), drains settled in {a['drain_rounds']} "
+        f"grace round(s), {a['wall']:.2f} s; cpu: {b['cycles']} cycles, "
+        f"{b['stats']['evictions']} evictions, {b['wall']:.2f} s")
+    for k in ("snaps", "promoted", "tasks", "final"):
+        if a[k] != b[k]:
+            raise AssertionError(f"phase 10a: {k} differ card vs cpu")
+    if not a["stats"]["evictions"]:
+        raise AssertionError("phase 10a: the loop evicted nothing")
+    if not a["converged"] or a["pending"]:
+        raise AssertionError(f"phase 10a: converged {a['converged']}, "
+                             f"{a['pending']} pending drains")
+    for r in (a, b):
+        if r["faults"] or any(r["errors"].values()):
+            raise AssertionError(f"phase 10a: contained faults "
+                                 f"{r['faults']} {r['errors']}")
+
+    store, crushed, _, census = restore_store(M, fleet, items[:n],
+                                              results[:n])
+    r = rebalance_loop(store, dev, "10a", verbose=False,
+                       rounds=REBALANCE_AS_STATED_ROUNDS)
+    need = [sum(c["drain_need"] for c in snap["clusters"].values())
+            for snap in r["snaps"]]
+    over = sum(c["drain_need"] > 0 for c in r["snaps"][-1]["clusters"].values())
+    log(f"phase 10a as first specified: {census_line(census)}; crushed "
+        f"{crushed}; {r['rounds']} round(s): converged "
+        f"{r['converged']}, {r['stats']['evictions']} evictions, drain_need "
+        f"by cycle {need}, {over} clusters over threshold")
+    if r["faults"] or any(r["errors"].values()):
+        raise AssertionError(f"phase 10a as first specified: contained "
+                             f"faults {r['faults']} {r['errors']}")
+
+
+def phase_rebalance(M, fleet, items, results, dev) -> dict:
+    """Phase 10b: the closed loop at config 5's scale on the card, the
+    fleet restored converged with REBALANCE_HEADROOM_MILLI.  Returns the
+    launch counts of the loop."""
+    from karmada_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    store, crushed, create_s, census = restore_store(
+        M, fleet, items, results, headroom_milli=REBALANCE_HEADROOM_MILLI)
+    log(f"phase 10b restore: {len(items)} bindings x {len(fleet)} clusters "
+        f"created in {create_s:.2f} s; {census_line(census)}; crushed "
+        f"{crushed}")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    run = rebalance_loop(store, dev, "10b", verbose=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    st = run["stats"]
+    log(f"phase 10b rebalance loop: converged {run['converged']} in "
+        f"{run['rounds']} round(s), drains settled in {run['drain_rounds']}"
+        f" grace round(s); {run['cycles']} detect cycles, {st['evictions']}"
+        f" evictions, {st['conservation_violations']} violations, "
+        f"{run['pending']} pending drains; loop wall {run['wall']:.2f} s, "
+        f"final store.list {run['list_s']:.2f} s, phase "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    bad = []
+    if not run["converged"]:
+        bad.append("not converged")
+    if st["conservation_violations"]:
+        bad.append(f"{st['conservation_violations']} violations")
+    if run["pending"]:
+        bad.append(f"{run['pending']} pending drains")
+    if run["faults"] or any(run["errors"].values()):
+        bad.append(f"contained faults {run['faults']} {run['errors']}")
+    if not st["evictions"]:
+        bad.append("no eviction")
+    over = [n for n, r in run["converged_snap"].get("clusters", {}).items()
+            if r["capacity"] > 0 and r["over_milli"] > 1000]
+    if over:
+        bad.append(f"over threshold at convergence: {over[:8]}")
+    evicted = {key for key, _p, _o in run["promoted"]}
+    unplaced = [k for k in evicted
+                if not run["final"][k][1]
+                or run["final"][k][1][0][:2] != ("Scheduled", "True")
+                or run["final"][k][2] != run["final"][k][3]]
+    if unplaced:
+        bad.append(f"{len(unplaced)} evicted bindings not re-placed")
+    if launches["rebalance_score"] != run["cycles"]:
+        bad.append(f"K13 launched {launches['rebalance_score']} times in "
+                   f"{run['cycles']} detect cycles")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} never launched")
+    if bad:
+        raise AssertionError("phase 10b: " + "; ".join(bad))
+    return launches
+
+
+def phase_kernel_k13(fleet, results, dev, reps) -> dict:
+    """K13 rebalance_score against its plain version: config 5's 5,000
+    lanes (committed from phase 3's placements, capacity the fleet's
+    pods) and 16,384 random lanes, with zero-capacity-with-load lanes,
+    invalid lanes and negatives mixed in; thresholds 1000 and 800, spread
+    tolerance off (the plane's sentinel) and 50."""
+    from karmada_tpu_torch.ops import rebalance_detect as RD
+    from karmada_tpu_torch.rebalance.plane import SPREAD_REPORT_ONLY
+
+    g = np.random.default_rng(13)
+    idx = {c.name: i for i, c in enumerate(fleet)}
+    com = np.zeros(len(fleet), np.int64)
+    for r in results:
+        if isinstance(r, list):
+            for t in r:
+                com[idx[t.name]] += t.replicas
+    cap = np.array([int(c.status.resource_summary.allocatable["pods"].value())
+                    for c in fleet], np.int64)
+
+    def mix(com, cap):
+        C = len(com)
+        com, cap = com.copy(), cap.copy()
+        cap[g.random(C) < 0.02] = 0       # zero capacity, with load
+        com[g.random(C) < 0.01] *= -1     # negatives (clamped)
+        cap[g.random(C) < 0.01] *= -1
+        valid = g.random(C) >= 0.03       # invalid lanes
+        return [torch.from_numpy(a).to(dev) for a in (com, cap, valid)]
+
+    cases = {5000: mix(com, cap),
+             16384: mix(g.integers(0, 1 << 16, 16384),
+                        g.integers(0, 1 << 12, 16384))}
+    err = 0.0
+    for C, ins in cases.items():
+        for thr in (1000, 800):
+            for tol in (SPREAD_REPORT_ONLY, 50):
+                got = RD.score_kernel(*ins, thr, tol)
+                want = RD.score_kernel_plain(*ins, thr, tol)
+                e = max_abs_err(zip(got, want))
+                log(f"phase 2 rebalance_score: C={C} threshold={thr} "
+                    f"tolerance={tol} max_abs_err={e} drain_need total "
+                    f"{int(got[0].sum())}")
+                err = max(err, e)
+    ins = cases[5000]
+    args = (*ins, 1000, SPREAD_REPORT_ONLY)
+    outs = RD.score_kernel(*args)
+    b = bound_ms(nbytes(*ins) + nbytes(*outs), 0)
+    row = dict(name="rebalance_score", route="cuda",
+               source="karmada_tpu_torch/ops/csrc/rebalance.cu",
+               replaces="karmada_tpu/ops/rebalance_detect.py:40",
+               max_abs_err=err,
+               ms=cuda_ms(lambda: RD.score_kernel(*args), reps),
+               plain_ms=cuda_ms(lambda: RD.score_kernel_plain(*args), reps),
+               bound_ms=b[0], bound_by=b[1], library_ms=None)
+    ms16 = cuda_ms(lambda: RD.score_kernel(*cases[16384], 1000,
+                                           SPREAD_REPORT_ONLY), reps)
+    log(f"phase 2 rebalance_score: max_abs_err={err} ms={row['ms']:.4f} "
+        f"(C=5000) ms={ms16:.4f} (C=16384) plain_ms={row['plain_ms']:.4f} "
+        f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+        f"library_ms=None (no single call)")
+    if err != 0:
+        raise AssertionError("rebalance_score disagrees with its plain "
+                             "version")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bindings", type=int, default=100_000)
@@ -1461,8 +1896,9 @@ def main() -> int:
     main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
                  "spread_group_info", "spread_pick")
     cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
-    fwd = phase_cycle("3 forward", items, fleet, names, args, dev, chunk_ms,
-                      main_path, cfg5)[0]
+    fwd, _, fwd_results, _ = phase_cycle(
+        "3 forward", items, fleet, names, args, dev, chunk_ms, main_path,
+        cfg5)
     reb_items = build_rebalance_items(M, rng, items, names)
     reb = phase_cycle("4 rebalance", reb_items, fleet, names, args, dev,
                       chunk_ms, main_path, cfg5)[0]
@@ -1488,10 +1924,15 @@ def main() -> int:
         args.seed + 5)
     report += phase_kernels_k10_k12(state, solver, dev, args.reps)
     del state, solver, roster
+    phase_parity_resident(items, fleet, args, dev)
+
+    report.append(phase_kernel_k13(fleet, fwd_results, dev, args.reps))
+    phase_rebalance_parity(M, fleet, items, fwd_results, dev)
+    n = min(REBALANCE_BINDINGS, len(items))
+    loop = phase_rebalance(M, fleet, items[:n], fwd_results[:n], dev)
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
-                                                      mega, inc))
-    phase_parity_resident(items, fleet, args, dev)
+                                                      mega, inc, loop))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources (ops/csrc/<source>.cu), one library each
 SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
            "spread_group_info", "spread_pick", "explain", "shortlist",
-           "resident", "dirty")
+           "resident", "dirty", "rebalance")
 #: C entry points (kt_<entry>) of each source's library
 ENTRIES = {"capacity": ("capacity",),
            "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish",
@@ -41,14 +41,15 @@ ENTRIES = {"capacity": ("capacity",),
            "explain": ("explain_rows", "explain_rows_spread"),
            "shortlist": ("shortlist_topk", "group_sums"),
            "resident": ("scatter_lanes", "gather_rows"),
-           "dirty": ("dirty_codes",)}
+           "dirty": ("dirty_codes",),
+           "rebalance": ("rebalance_score",)}
 #: the kernels, by launch counter: K2's big-tier instantiation counts
 #: apart from the std one it shares a source with; K7's spread flavour
 #: counts as explain_rows; K8 and K9 share a source, as do K10 and K11
 KERNELS = ("capacity", "schedule_rows", "schedule_rows_big", "compact",
            "webster_batch", "spread_group_info", "spread_pick",
            "explain_rows", "shortlist_topk", "group_sums", "scatter_lanes",
-           "gather_rows", "dirty_codes")
+           "gather_rows", "dirty_codes", "rebalance_score")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -294,3 +295,7 @@ DIRTY_TENSOR_FIELDS = (
 DirtyArgs = _struct("DirtyArgs", DIRTY_TENSOR_FIELDS + (
     "flip_lanes", "rv_slots", "pl_flags", "rv_mark", "out"),
     ("cap", "C", "P", "Kp", "Ke", "F", "S"))
+
+ScoreArgs = _struct("ScoreArgs", (
+    "committed", "capacity", "valid", "drain_need", "over_milli",
+    "div_milli"), ("C", "threshold_milli", "spread_tol_milli"))

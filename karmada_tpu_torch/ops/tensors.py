@@ -1535,3 +1535,33 @@ def carry_from_arrays(used_milli, used_pods, used_sets):
     return tuple(np.array(a, dtype=CARRY_DTYPES[k], copy=True)
                  for k, a in zip(("used_milli", "used_pods", "used_sets"),
                                  (used_milli, used_pods, used_sets)))
+
+
+def fleet_capacity(clusters, memo: Dict[str, Tuple[int, int]]) -> np.ndarray:
+    """Per-cluster allocatable-pod capacity int64[C] (JAX: the same
+    function; the rebalance detect's denominator), memoized in `memo`
+    (name -> (resourceVersion, pods)): the store hands back deep copies,
+    so only clusters whose rv moved re-parse their Quantity dicts.  Names
+    absent from this call are pruned.
+
+    The memo belongs to the caller (one per rebalance plane): within one
+    store an rv names one state, across stores it does not."""
+    out = np.zeros(len(clusters), np.int64)
+    live: Dict[str, Tuple[int, int]] = {}
+    for i, c in enumerate(clusters):
+        name = c.metadata.name
+        rv = int(c.metadata.resource_version or 0)
+        ent = memo.get(name)
+        if ent is None or ent[0] != rv:
+            cap = 0
+            s = c.status.resource_summary
+            if s is not None:
+                pods = s.allocatable.get("pods")
+                if pods is not None:
+                    cap = int(pods.value())
+            ent = (rv, cap)
+        out[i] = ent[1]
+        live[name] = ent
+    memo.clear()
+    memo.update(live)
+    return out

@@ -4,15 +4,20 @@
               deltas, their device mirrors (K10 scatters, primed into the
               solver's transfer cache), the per-binding slot store (K11
               gather on the fused path) and the bit-exact audit
-  deltas.py   the classes of cluster change and one cycle's change set
+  deltas.py   the classes of cluster change, one cycle's change set and
+              the DeltaTracker that coalesces it from the store's watch
 
-Counterpart of the JAX package's ``karmada_tpu/resident``; its watch-event
-DeltaTracker and debug endpoint wait for the port's control plane.
+Counterpart of the JAX package's ``karmada_tpu/resident``; its debug
+endpoint waits for the port's debug server.
 """
 
 from __future__ import annotations
 
-from karmada_tpu_torch.resident.deltas import CycleDeltas  # noqa: F401
+from karmada_tpu_torch.resident.deltas import (  # noqa: F401
+    CycleDeltas,
+    DeltaTracker,
+    classify_cluster_event,
+)
 from karmada_tpu_torch.resident.state import (  # noqa: F401
     ResidentState,
     RowToken,

@@ -1,0 +1,25 @@
+"""The port's control-plane substrate.
+
+  store.py    ObjectStore -- apiserver semantics in process (rv,
+              generation, watch events, finalizer-gated deletion)
+  worker.py   AsyncWorker + Runtime -- de-duplicating reconcile queues,
+              pumped deterministically (tick/pump) or served on threads
+
+Counterpart of the JAX package's ``karmada_tpu/store`` (persistence waits
+for the port's CLI).
+"""
+
+from __future__ import annotations
+
+from karmada_tpu_torch.store.store import (  # noqa: F401
+    ADDED,
+    DELETED,
+    MODIFIED,
+    AlreadyExistsError,
+    ConflictError,
+    Event,
+    NotFoundError,
+    ObjectStore,
+    WatchBus,
+)
+from karmada_tpu_torch.store.worker import AsyncWorker, Runtime  # noqa: F401

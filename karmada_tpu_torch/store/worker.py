@@ -1,0 +1,204 @@
+"""Reconcile worker queues and the controller runtime.
+
+Counterpart of the JAX package's ``store/worker.py``.  Every controller
+runs off a de-duplicating work queue (AsyncWorker) in one of two modes:
+
+  * pump mode  -- deterministic: `Runtime.pump()` drains every queue to
+    quiescence on the calling thread; `tick()` runs the periodic hooks
+    first (the test harness and chip_smoke drive this);
+  * serve mode -- threaded: one thread per worker with full-jitter
+    exponential backoff when idle, and one for the periodic hooks.
+
+A reconcile that raises is requeued with a retry budget, as the
+reference's rate-limited workqueue does.  The raise is contained, so it
+is counted: `AsyncWorker.reconcile_errors` per worker and
+`Runtime.reconcile_errors()` over all of them (a kernel failure inside a
+reconcile shows there, never only as a requeue).
+"""
+
+from __future__ import annotations
+
+import random
+import threading
+import time
+import traceback
+import zlib
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, List, Optional
+
+
+class AsyncWorker:
+    """Dedup-ing work queue: enqueueing an in-queue key is a no-op; a key
+    re-enqueued while being processed is processed again afterwards."""
+
+    def __init__(self, name: str,
+                 reconcile: Callable[[Hashable], Optional[bool]],
+                 max_retries: int = 10) -> None:
+        self.name = name
+        self.reconcile = reconcile
+        self.max_retries = max_retries
+        self._queue: "OrderedDict[Hashable, None]" = OrderedDict()
+        self._retries: Dict[Hashable, int] = {}
+        self._processing: set = set()
+        self._dirty: set = set()
+        self._cv = threading.Condition()
+        self._stopped = False
+        #: reconciles that raised (contained and requeued)
+        self.reconcile_errors = 0
+
+    def enqueue(self, key: Hashable) -> None:
+        with self._cv:
+            if key in self._processing:
+                self._dirty.add(key)
+                return
+            self._queue[key] = None
+            self._cv.notify()
+
+    def _pop(self, block: bool) -> Optional[Hashable]:
+        with self._cv:
+            while not self._queue:
+                if not block or self._stopped:
+                    return None
+                self._cv.wait(timeout=0.2)
+            key, _ = self._queue.popitem(last=False)
+            self._processing.add(key)
+            return key
+
+    def _done(self, key: Hashable, requeue: bool) -> None:
+        with self._cv:
+            self._processing.discard(key)
+            redo = key in self._dirty
+            self._dirty.discard(key)
+            if requeue:
+                retries = self._retries.get(key, 0) + 1
+                if retries <= self.max_retries:
+                    self._retries[key] = retries
+                    self._queue[key] = None
+                    return
+            # done, or dropped at max retries (workqueue Forget semantics):
+            # forget the budget and honor any concurrent enqueue
+            self._retries.pop(key, None)
+            if redo:
+                self._queue[key] = None
+
+    def process_one(self, block: bool = False) -> bool:
+        """Run one reconcile; returns False when the queue was empty.  A
+        reconcile that raises (or returns False) is requeued with a retry
+        budget."""
+        key = self._pop(block)
+        if key is None:
+            return False
+        requeue = False
+        try:
+            requeue = self.reconcile(key) is False
+        except Exception:  # noqa: BLE001 — controller loops never die
+            self.reconcile_errors += 1
+            traceback.print_exc()
+            requeue = True
+        self._done(key, requeue)
+        return True
+
+    def pending(self) -> int:
+        with self._cv:
+            return len(self._queue) + len(self._processing)
+
+    def stop(self) -> None:
+        with self._cv:
+            self._stopped = True
+            self._cv.notify_all()
+
+
+class Runtime:
+    """Holds every controller's worker; runs them deterministically (pump)
+    or in background threads (serve)."""
+
+    def __init__(self, periodic_interval_s: float = 0.5) -> None:
+        self.workers: List[AsyncWorker] = []
+        self._threads: List[threading.Thread] = []
+        self._periodic: List[Callable[[], None]] = []
+        self._periodic_interval_s = periodic_interval_s
+        self._stop_event = threading.Event()
+        #: periodic hooks that raised in serve mode (contained)
+        self.periodic_errors = 0
+
+    def register(self, worker: AsyncWorker) -> AsyncWorker:
+        self.workers.append(worker)
+        return worker
+
+    def register_periodic(self, fn: Callable[[], None]) -> None:
+        """A resync-style hook invoked once per tick (pump mode) or per
+        periodic interval (serve mode)."""
+        self._periodic.append(fn)
+
+    def reconcile_errors(self) -> Dict[str, int]:
+        """Contained raises by worker name ("periodic" for serve-mode
+        hooks)."""
+        out: Dict[str, int] = {}
+        for w in self.workers:
+            out[w.name] = out.get(w.name, 0) + w.reconcile_errors
+        out["periodic"] = self.periodic_errors
+        return out
+
+    # -- deterministic mode ------------------------------------------------
+    def pump(self, max_rounds: int = 200) -> int:
+        """Drain all queues until quiescent.  Returns reconciles executed."""
+        total = 0
+        for _ in range(max_rounds):
+            progressed = False
+            for w in self.workers:
+                while w.process_one(block=False):
+                    progressed = True
+                    total += 1
+            if not progressed:
+                return total
+        raise RuntimeError("runtime did not quiesce (reconcile livelock?)")
+
+    def tick(self) -> int:
+        """One periodic round followed by a pump."""
+        for fn in self._periodic:
+            fn()
+        return self.pump()
+
+    # -- threaded mode -----------------------------------------------------
+    def serve(self) -> None:
+        for w in self.workers:
+            t = threading.Thread(target=self._run_worker, args=(w,),
+                                 daemon=True, name=f"worker-{w.name}")
+            t.start()
+            self._threads.append(t)
+        if self._periodic:
+            t = threading.Thread(target=self._run_periodic, daemon=True,
+                                 name="periodic")
+            t.start()
+            self._threads.append(t)
+
+    def _run_periodic(self) -> None:
+        while not self._stop_event.wait(self._periodic_interval_s):
+            for fn in self._periodic:
+                try:
+                    fn()
+                except Exception:  # noqa: BLE001 — periodic hooks never die
+                    self.periodic_errors += 1
+                    traceback.print_exc()
+
+    def _run_worker(self, w: AsyncWorker) -> None:
+        # full-jitter exponential backoff, the stream seeded per worker
+        # name so runs replay
+        rng = random.Random(zlib.crc32(w.name.encode("utf-8")))
+        base, cap = 0.005, 0.5
+        attempt = 0
+        while not w._stopped:  # noqa: SLF001
+            if w.process_one(block=True):
+                attempt = 0
+            else:
+                time.sleep(rng.uniform(0.0, min(cap, base * (2 ** attempt))))
+                attempt = min(attempt + 1, 10)
+
+    def stop(self) -> None:
+        """Stop every worker and the periodic thread, and wait for them."""
+        self._stop_event.set()
+        for w in self.workers:
+            w.stop()
+        for t in self._threads:
+            t.join(timeout=5.0)
+        self._threads = []

@@ -1,4 +1,4 @@
-"""Kernels K1-K12 and K2's big-tier instantiation on the card against their
+"""Kernels K1-K13 and K2's big-tier instantiation on the card against their
 plain versions, bit-exact.
 
 Marked `gpu`: these need a CUDA card and nvcc, decide inside the test
@@ -20,7 +20,9 @@ solve's waves and the spread phase B); K8 shortlist_topk on its
 shared-memory and device-memory key paths; K9 group_sums; a
 shortlisted megafleet cycle, card against CPU; K10 scatter_lanes (both
 layouts, 1-, 4- and 8-byte elements), K11 gather_rows (both flavours),
-K12 dirty_codes, and a fused incremental run card against CPU.
+K12 dirty_codes, and a fused incremental run card against CPU; K13
+rebalance_score (and no launch on zero lanes), and one rebalance-plane
+cycle card against CPU.
 """
 
 import numpy as np
@@ -572,4 +574,85 @@ def test_fused_incremental_steady_state_on_card():
                         for r in reps],
                        {p: _norm(r) for p, r in solver.results.items()},
                        {k: v.tolist() for k, v in solver.ledger.milli.items()})
+    assert out[str(dev)] == out["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [1, 7, 5000, 16384])
+def test_rebalance_score_kernel_matches_plain_on_card(C):
+    """K13 against score_kernel_plain: negatives, zero capacity with load,
+    invalid lanes; thresholds 800 and 1000, spread off and 50."""
+    from karmada_tpu_torch.ops import rebalance_detect as PRD
+
+    dev = _card()
+    rng = np.random.default_rng(C)
+    com = rng.integers(-50, 1 << 20, C)
+    cap = rng.integers(-50, 1 << 20, C)
+    cap[rng.random(C) < 0.15] = 0
+    valid = rng.random(C) < 0.85
+    args = [torch.from_numpy(a) for a in (com, cap, valid)]
+    for thr in (800, 1000):
+        for tol in (1 << 20, 50):
+            kernels.reset_counts()
+            got = PRD.score_kernel(*(a.to(dev) for a in args), thr, tol)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["rebalance_score"] == 1
+            want = PRD.score_kernel_plain(*args, thr, tol)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+    kernels.reset_counts()
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    out = PRD.score_kernel(empty, empty, empty.bool(), 1000, 50)
+    assert all(o.shape == (0,) for o in out)
+    assert kernels.LAUNCHES["rebalance_score"] == 0  # no lanes, no launch
+
+
+@pytest.mark.gpu
+def test_rebalance_plane_cycle_on_card():
+    """One rebalance cycle on the card and on the CPU over the same store
+    contents: equal snapshots and evictions; K13 launched once."""
+    import random
+
+    from karmada_tpu_torch.rebalance import RebalanceConfig, RebalancePlane
+    from karmada_tpu_torch.store import ObjectStore
+
+    class Stub:
+        def __init__(self, clock):
+            self.queue = type("Q", (), {"now": staticmethod(clock)})()
+            self.promoted = []
+
+        def promote(self, key, priority=0, origin="rebalance"):
+            self.promoted.append((key, priority, origin))
+
+    dev = _card()
+    out = {}
+    for d in (dev, "cpu"):
+        rng = random.Random(4)
+        store = ObjectStore()
+        fleet = S.control_fleet(MP, rng, 64)
+        names = [c.name for c in fleet]
+        for c in fleet:
+            store.create(c)
+        bindings = S.control_bindings(MP, rng, 400,
+                                      S.control_placements(MP, rng, names))
+        for rb in bindings:
+            rb.spec.clusters = [MP.TargetCluster(name=n,
+                                                 replicas=rb.spec.replicas)
+                                for n in sorted(rng.sample(names[:16], 2))]
+            store.create(rb)
+        held = S.committed_by_cluster(bindings)
+        for n in sorted(held, key=lambda n: (-held[n], n))[:4]:
+            S.crush(MP, store, n, held[n])
+        clock = S.FakeClock()
+        stub = Stub(clock)
+        plane = RebalancePlane(store, stub, clock=clock, device=d,
+                               cfg=RebalanceConfig(max_evictions_per_cycle=64))
+        kernels.reset_counts()
+        snap = plane.run_cycle()
+        if d is dev:
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["rebalance_score"] == 1
+            assert plane.last_timing["kernel_ms"] > 0
+        out[str(d)] = (snap, stub.promoted)
+    assert out[str(dev)][0]["evicted"] > 0
     assert out[str(dev)] == out["cpu"]

@@ -2,8 +2,9 @@
 neither jax nor anything of the JAX package karmada_tpu (whose name is a
 prefix of the port's: `karmada_tpu` followed by a boundary other than
 `_torch`), a cycle -- and a resident adopt plus an incremental cycle --
-runs with neither in sys.modules, and the entry
-points never drift to the CPU unless asked."""
+runs with neither in sys.modules, as does a control-plane
+Scheduler with the rebalance plane armed, and the entry points never
+drift to the CPU unless asked."""
 
 import ast
 import os
@@ -81,6 +82,28 @@ solver.write_back()
 rep = solver.cycle(clusters, bindings, CycleDeltas(), force_audit=True)
 assert rep.mode == "incremental" and rep.audit_outcome == "ok", rep
 assert state.fused_cycles > 0
+# the control plane: a Scheduler with the rebalance plane armed and the
+# graceful-eviction controller, two ticks on one clock
+from karmada_tpu_torch.controllers.failover import GracefulEvictionController
+from karmada_tpu_torch.scheduler import Scheduler, SchedulingQueue
+from karmada_tpu_torch.store import ObjectStore, Runtime
+rng = random.Random(2)
+clock = S.FakeClock()
+store, rt = ObjectStore(), Runtime()
+fleet = S.control_fleet(M, rng, 6)
+for c in fleet:
+    store.create(c)
+sched = Scheduler(store, rt, device="cpu", queue=SchedulingQueue(now=clock),
+                  rebalance=30.0, rebalance_clock=clock)
+GracefulEvictionController(store, rt, clock=clock)
+for rb in S.control_bindings(M, rng, 30, S.control_placements(
+        M, rng, [c.name for c in fleet])):
+    store.create(rb)
+for _ in range(2):
+    clock.advance(30.0)
+    rt.tick()
+assert sched.rebalance_plane.stats()["cycles"] == 2
+assert sched.faults() == {{}} and not any(rt.reconcile_errors().values())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
 print("LOADED", bad)
@@ -116,3 +139,20 @@ def test_entry_points_refuse_cpu_drift():
         schedule_items(items, clusters)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
+
+
+def test_scheduler_refuses_cpu_drift():
+    """Scheduler(store, runtime) without device= runs on the card, and its
+    rebalance plane with it; with no card it raises."""
+    from karmada_tpu_torch.scheduler import Scheduler
+    from karmada_tpu_torch.store import ObjectStore, Runtime
+
+    if torch.cuda.is_available():
+        sched = Scheduler(ObjectStore(), Runtime(), rebalance=30.0)
+        assert sched.device.type == "cuda"
+        assert sched.rebalance_plane.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scheduler(ObjectStore(), Runtime())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scheduler(ObjectStore(), Runtime(), rebalance=30.0)

@@ -803,3 +803,149 @@ def slot_store(rng, cap, Kp, Ke, C, P=16):
         "prev_val": rng.integers(0, 6, (cap, Kp)).astype("int32"),
         "evict_idx": rng.integers(-1, C, (cap, Ke)).astype("int32"),
     }
+
+
+# -- the control plane and the rebalance loop ----------------------------------
+
+class FakeClock:
+    """An injectable clock (the queue's, the plane's, the eviction
+    controller's): time moves only when a test advances it."""
+
+    def __init__(self, t=1_000.0):
+        self.t = t
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, s):
+        self.t += s
+
+
+def pods_cluster(M, name, pods, cpu_milli=512_000, region="r0"):
+    """A cluster whose binding constraint is its pod count (nothing
+    allocated): the rebalance detect's capacity is exactly `pods`."""
+    Q = M.Quantity
+    return M.Cluster(
+        metadata=M.ObjectMeta(name=name),
+        spec=M.ClusterSpec(region=region),
+        status=M.ClusterStatus(
+            api_enablements=[M.APIEnablement(GVK[0], [GVK[1]])],
+            resource_summary=M.ResourceSummary(
+                allocatable={"cpu": Q.from_milli(cpu_milli),
+                             "memory": Q.from_units(4096),
+                             "pods": Q.from_units(pods)},
+                allocated={})))
+
+
+def control_fleet(M, rng, n_clusters, pods=(300, 600)):
+    return [pods_cluster(M, f"m{i:03d}", rng.randint(*pods),
+                         region=f"r{i % 3}") for i in range(n_clusters)]
+
+
+def control_placements(M, rng, names):
+    """The mix a control-plane run schedules: DynamicWeight, Aggregated
+    and StaticWeight Divided placements (the rebalance plane drains
+    these), Duplicated on a subset (never drained), a region spread, and
+    a two-term ClusterAffinities placement whose first term names a
+    cluster that does not exist (the affinity-failover loop)."""
+    k = max(2, len(names) // 3)
+    sub = sorted(rng.sample(names, k))
+    return [
+        M.Placement(replica_scheduling=_dynamic(M)),
+        M.Placement(replica_scheduling=M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)),
+        M.Placement(cluster_affinity=M.ClusterAffinity(cluster_names=sub),
+                    replica_scheduling=M.ReplicaSchedulingStrategy(
+                        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                        replica_division_preference=(
+                            M.REPLICA_DIVISION_WEIGHTED))),
+        M.Placement(cluster_affinity=M.ClusterAffinity(
+            cluster_names=sub[:2]),
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)),
+        region_spread_placement(M, region_max=2, cluster_max=4),
+        M.Placement(
+            cluster_affinities=[
+                M.ClusterAffinityTerm(
+                    affinity_name="primary",
+                    affinity=M.ClusterAffinity(cluster_names=["gone"])),
+                M.ClusterAffinityTerm(
+                    affinity_name="backup",
+                    affinity=M.ClusterAffinity(cluster_names=sub))],
+            replica_scheduling=_dynamic(M)),
+    ]
+
+
+def control_bindings(M, rng, n, placements, replicas=(1, 2, 3, 5, 8, 13)):
+    """ResourceBindings (namespace/name keyed, as a store holds them)
+    over `placements` round-robin, with schedule priorities 0-2."""
+    out = []
+    for b in range(n):
+        spec = M.ResourceBindingSpec(
+            resource=M.ObjectReference(
+                api_version=GVK[0], kind=GVK[1], namespace=f"ns{b % 4}",
+                name=f"app-{b:04d}", uid=f"uid-{b}"),
+            replicas=rng.choice(replicas),
+            replica_requirements=M.ReplicaRequirements(resource_request={
+                "cpu": M.Quantity.from_milli(rng.choice([100, 250, 500])),
+                "memory": M.Quantity.from_units(rng.choice([1, 2]))}),
+            placement=placements[b % len(placements)],
+            schedule_priority=rng.choice([None, 0, 1, 2]))
+        out.append(M.ResourceBinding(
+            metadata=M.ObjectMeta(namespace=spec.resource.namespace,
+                                  name=spec.resource.name),
+            spec=spec))
+    return out
+
+
+def crush(M, store, name, held, share_milli=600):
+    """Cut a cluster's allocatable pods to share_milli/1000 of the
+    replicas it holds, its member reporting those replicas' pods as
+    allocated (a capacity flap that overcommits it and leaves the
+    estimator no room there)."""
+    pods = held * share_milli // 1000
+
+    def fn(c):
+        s = c.status.resource_summary
+        s.allocatable["pods"] = M.Quantity.from_units(pods)
+        s.allocated["pods"] = M.Quantity.from_units(held)
+    store.mutate(M.Cluster.KIND, "", name, fn)
+    return pods
+
+
+def committed_by_cluster(bindings):
+    out = {}
+    for rb in bindings:
+        for t in rb.spec.clusters:
+            out[t.name] = out.get(t.name, 0) + t.replicas
+    return out
+
+
+def report_allocated(M, store):
+    """A member-status refresh: every cluster reports the replicas its
+    bindings place there as allocated pods (one update per cluster whose
+    report changes)."""
+    held = committed_by_cluster(store.list(M.ResourceBinding.KIND))
+    for c in store.list(M.Cluster.KIND):
+        s = c.status.resource_summary
+        cur = s.allocated.get("pods")
+        want = held.get(c.name, 0)
+        if cur is not None and int(cur.value()) == want:
+            continue
+
+        def fn(obj, want=want):
+            obj.status.resource_summary.allocated["pods"] = (
+                M.Quantity.from_units(want))
+        store.mutate(M.Cluster.KIND, "", c.name, fn)
+
+
+def placements_of(store, kind="ResourceBinding"):
+    """Per binding key: targets, Scheduled conditions (type, status,
+    reason), generation, observed generation and observed affinity."""
+    return {(rb.namespace, rb.name): (
+        [(t.name, t.replicas) for t in rb.spec.clusters],
+        [(c.type, c.status, c.reason) for c in rb.status.conditions],
+        rb.metadata.generation, rb.status.scheduler_observed_generation,
+        rb.status.scheduler_observed_affinity_name)
+        for rb in store.list(kind)}

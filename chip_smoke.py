@@ -78,9 +78,13 @@ region spread included; chunk 4096, 8 waves, carry on):
 
 Phase 2 also holds K7 (on the first forward chunk and on its spread
 sub-batch), K8 (on a megafleet chunk's profile rows, and on rows wider
-than its shared-memory path) and K9 (on the 10k fleet) against their
-plain versions, and, after phase 9 on its plane, K10 (cluster rows,
-cluster columns, slot-store rows), K11 (both flavours) and K12, and,
+than its shared-memory path) and K9 (on the 10k fleet, and with more
+groups than one shared-memory tile) against their plain versions, and,
+after phase 9 on its plane, K10 (cluster rows, cluster columns,
+slot-store rows, and the two mirror syncs whole: twelve slot-store
+fields at 1,024 slots and nine cluster-side fields at 64 lanes in one
+fused launch each, against one index_copy_ per field and timed as sync
+walls), K11 (both flavours) and K12, and,
 after phase 5, K13 (on config 5's 5,000 lanes committed from phase 3's
 placements and on 16,384 random lanes, negatives, zero capacity with
 load and invalid lanes mixed in, four threshold settings); phase 5
@@ -89,6 +93,11 @@ shortlisted megafleet chunk, card against CPU, the first 2,048 megafleet
 bindings shortlisted against dense on the card, and the resident plane
 (fused and host, every batch audited) against plain cycles over two
 churn windows of config 5's first 16,384 bindings.
+
+With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
+TREE) phase 2 also times the parent's port against this one on the same
+card, in turns (old, new, new, old; TURN_ROUNDS rounds): K10 on one
+field, both mirror syncs kernel side and as walls, and K9.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -122,6 +131,7 @@ MEGA_K = 64
 RECALL_BINDINGS = 2_048    # phase 5's shortlisted-vs-dense sample
 RESIDENT_BINDINGS = 16_384  # phase 5's resident-plane sample
 INCREMENTAL_BINDINGS = 1_000_000  # phase 9's roster (MEGAFLEET_r02.json's)
+TURN_ROUNDS = 3            # old-vs-new rounds (with --parent)
 INCREMENTAL_CHURN = 1_000  # bindings churned per steady cycle (0.1%)
 STEADY_CYCLES = 4
 
@@ -381,6 +391,29 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def split_ms(fn, reps: int):
+    """Where one call's time goes: (host, device) milliseconds per call --
+    the host clock over `reps` calls enqueued back to back (nothing waits
+    inside), and torch.profiler's device time of the kernels the calls
+    ran (None when the profiler records no device time).  A kernel whose
+    cuda_ms is near its host time is held back by its launch path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
+    return host, (us / reps / 1e3 if us > 0 else None)
 
 
 def max_abs_err(pairs) -> float:
@@ -790,6 +823,22 @@ def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps) -> list:
     err9 = max_abs_err([(g_k, SL.group_sums_plain(gid, capx, G))])
     gid_eff = torch.where(gid >= 0, gid.long(), G)
     b9 = bound_ms(nbytes(gid, capx, g_k), gid.numel())
+    # the tiled branch: more groups than one shared-memory tile of bins
+    Gt = kernels.GROUP_SUM_TILE_BINS + 1000
+    gidt = torch.from_numpy(np.random.default_rng(9).integers(
+        -2, Gt + 2, gid.numel()).astype(np.int32)).to(dev)
+    errt = max_abs_err([(SL.group_sums(gidt, capx, Gt),
+                         SL.group_sums_plain(gidt, capx, Gt))])
+    tiles = -(-(Gt + 1) // kernels.GROUP_SUM_TILE_BINS)
+    log(f"phase 2 group_sums tiled branch: G={Gt} ({tiles} tiles of "
+        f"{kernels.GROUP_SUM_TILE_BINS} bins), {gid.numel()} lanes, "
+        f"max_abs_err={errt} ms="
+        f"{cuda_ms(lambda: SL.group_sums(gidt, capx, Gt), reps):.4f}, split "
+        f"{split_ms(lambda: SL.group_sums(gidt, capx, Gt), 10 * reps)}")
+    err9 = max(err9, errt)
+    h9, d9 = split_ms(lambda: SL.group_sums(gid, capx, G), 10 * reps)
+    log(f"phase 2 group_sums split: host {h9:.4f} ms, device {d9} ms per "
+        f"call (G={G}, {gid.numel()} lanes)")
     rows.append(dict(
         name="group_sums", route="cuda",
         source="karmada_tpu_torch/ops/csrc/shortlist.cu",
@@ -988,6 +1037,7 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
     plane, the solver and the roster."""
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import resident_gather as RG
     from karmada_tpu_torch.ops import shortlist as SL
     from karmada_tpu_torch.ops import solver as S
     from karmada_tpu_torch.resident import CycleDeltas, ResidentState
@@ -1013,6 +1063,7 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
     SL.reset_for_tests()
     torch.cuda.synchronize()
     kernels.reset_counts()
+    fields0 = RG.COUNTS["scatter_fields"]
     steady = []
 
     def leg(name, run, write_back=True):
@@ -1070,7 +1121,8 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
         f"(walls {[round(w, 3) for w in steady]}); whole run "
         f"{time.perf_counter() - t_all:.1f} s; plane {state.stats()['fused']}"
         f", hits {state.hits} misses {state.misses}; launches "
-        f"scatter_lanes={launches['scatter_lanes']} gather_rows="
+        f"scatter_lanes={launches['scatter_lanes']} (scatter_fields="
+        f"{RG.COUNTS['scatter_fields'] - fields0}) gather_rows="
         f"{launches['gather_rows']} dirty_codes={launches['dirty_codes']}; "
         f"all {launches}")
     if rep.audit_outcome != "ok":
@@ -1081,6 +1133,127 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
         if launches[k] <= 0:
             raise AssertionError(f"phase 9: kernel {k} never launched")
     return launches, state, solver, bindings
+
+
+def sync_items(state, kind, lanes):
+    """The scatter entries of one mirror sync of phase 9's plane, as the
+    plane's own sync builds them: the twelve slot-store fields at `lanes`
+    (kind "slot") or the nine scatterable cluster-side fields at `lanes`
+    (kind "cluster"), into fresh device copies of the mirrors, with every
+    value changed (so the scatter is visible)."""
+    from karmada_tpu_torch.resident import state as RS
+
+    p = state.plane
+    if kind == "slot":
+        fields = [(f, "rows") for f in RS.DEVICE_SLOT_FIELDS]
+        src = state.device_rows.mirrors
+    else:
+        fields = [(f, "rows" if f in RS.ROW_SCATTER_FIELDS else "cols")
+                  for f in RS.CLUSTER_SIDE_FIELDS
+                  if f in RS.ROW_SCATTER_FIELDS | RS.COL_SCATTER_FIELDS]
+        src = state.device_mirrors.mirrors
+    items = []
+    for f, mode in fields:
+        m = getattr(p, f)
+        vals = m[lanes] if mode == "rows" else m[..., lanes]
+        vals = ~vals if vals.dtype == np.bool_ else vals + 1
+        items.append((src[f].clone(), lanes, np.ascontiguousarray(vals),
+                      mode))
+    return items
+
+
+def hold_sync(state, slot_lanes, clus_lanes, dev, reps) -> list:
+    """K10's whole mirror syncs on phase 9's plane: all twelve slot-store
+    fields at the 1,024 churned slots and the nine cluster-side fields at
+    64 churned lanes.  Per sync: the fused launch (values already staged on
+    the card) against its plain version, bit for bit, and timed against
+    one index_copy_ per field (the library yardstick, lanes and values on
+    the card); then the sync wall (host clock to synchronize(), staging
+    and the upload included) of the plane's own _DeviceRows.sync /
+    _DevicePlane.sync.  Returns the max_abs_err of each sync."""
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import resident_update as RU
+
+    errs = []
+    for kind, lanes in (("slot", slot_lanes), ("cluster", clus_lanes)):
+        items = sync_items(state, kind, lanes)
+        st = RU.stage_fields(items)
+        staged = torch.from_numpy(st.buf).to(dev)
+        host = [t.cpu() for t in st.dsts]
+        kernels.reset_counts()
+        RU.scatter_staged(st.dsts, staged, st.desc)
+        torch.cuda.synchronize()
+        launched = kernels.LAUNCHES["scatter_lanes"]
+        RU.scatter_fields_plain(host, torch.from_numpy(st.buf), st.desc)
+        err = max_abs_err(zip(st.dsts, (h.to(dev) for h in host)))
+        if launched != 1 or sum(kernels.LAUNCHES.values()) != 1:
+            raise AssertionError(f"{kind} sync: {kernels.LAUNCHES}")
+        ms = cuda_ms(lambda: RU.scatter_staged(st.dsts, staged, st.desc),
+                     reps)
+        lib = [(t, 0 if m == "rows" else 1, up_to(la, dev), up_to(v, dev))
+               for t, la, v, m in items]
+        lib_ms = cuda_ms(lambda: [t.index_copy_(ax, la, v)
+                                  for t, ax, la, v in lib], reps)
+        # bound: the staged lanes and values read once, as many elements
+        # written
+        b = bound_ms(st.buf.nbytes + sum(v.nbytes for *_x, v, _m in items),
+                     0)
+        wall = sync_wall_ms(state, kind, lanes, dev, reps)
+        split = split_ms(lambda: RU.scatter_staged(st.dsts, staged, st.desc),
+                         10 * reps)
+        log(f"phase 2 scatter_lanes {kind} sync split (host, device ms): "
+            f"{split}")
+        log(f"phase 2 scatter_lanes {kind} sync: {len(items)} fields, "
+            f"{len(lanes)} lanes, staged {st.buf.nbytes} B in one upload; "
+            f"max_abs_err={err} fused ms={ms:.4f} (1 launch) "
+            f"library_ms={lib_ms:.4f} ({len(items)} index_copy_) "
+            f"bound_ms={b[0]:.6f} sync wall ms={wall:.4f}")
+        errs.append(err)
+    return errs
+
+
+def up_to(a, dev):
+    """`a` on `dev`, from a writable copy (the plane's masters are
+    frozen)."""
+    return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+
+def sync_wall_ms(state, kind, lanes, dev, reps, pkg=None) -> float:
+    """Mean host-clock milliseconds of one mirror sync of phase 9's plane
+    (`kind` "slot": _DeviceRows.sync of `lanes` over the twelve fields;
+    "cluster": _DevicePlane.sync of the nine scatterable fields at
+    `lanes`), each ended by torch.cuda.synchronize(), on copies of the
+    mirrors; `pkg` is the resident.state module to drive (default: this
+    checkout's)."""
+    if pkg is None:
+        from karmada_tpu_torch.resident import state as pkg
+    p = state.plane
+    if kind == "slot":
+        rows = pkg._DeviceRows(dev)
+        rows.mirrors = {f: t.clone()
+                        for f, t in state.device_rows.mirrors.items()}
+
+        def run():
+            rows.sync(p, lanes)
+    else:
+        plane = pkg._DevicePlane(dev)
+        plane.mirrors = {f: t.clone()
+                         for f, t in state.device_mirrors.mirrors.items()}
+        fields = [f for f in pkg.CLUSTER_SIDE_FIELDS
+                  if f in pkg.ROW_SCATTER_FIELDS | pkg.COL_SCATTER_FIELDS]
+        dirty = {f: lanes for f in fields}
+        refs = {f: getattr(p, f) for f in pkg.CLUSTER_SIDE_FIELDS}
+
+        def run():
+            plane.np_refs = dict(refs, **{f: None for f in fields})
+            plane.sync(p, dirty)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
@@ -1101,15 +1274,14 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
     mirrors = state.device_rows.mirrors
     rows = []
 
-    def up(a):  # a writable copy: the plane's masters are frozen
-        return torch.from_numpy(np.array(a, order="C")).to(dev)
+    def up(a):
+        return up_to(a, dev)
 
     # -- K10 ----------------------------------------------------------------
     def hold_scatter(label, master, lanes, cols):
         vals = master[..., lanes] if cols else master[lanes]
-        vals = (vals ^ 1) if vals.dtype == np.bool_ else vals + 1
-        lp, vp = (RU.pad_lanes_cols if cols else RU.pad_lanes)(lanes, vals)
-        lt, vt = up(lp), up(vp)
+        vals = ~vals if vals.dtype == np.bool_ else vals + 1
+        lt, vt = up(lanes), up(vals)
         fn = RU.scatter_cols if cols else RU.scatter_rows
         plain = RU.scatter_cols_plain if cols else RU.scatter_rows_plain
         dk, dp = up(master), up(master)
@@ -1123,8 +1295,9 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
         # the lane list and the new values read once, as many elements
         # written
         b = bound_ms(nbytes(lt) + 2 * nbytes(vt), 0)
+        split = split_ms(lambda: fn(dk, lt, vt), 10 * reps)
         log(f"phase 2 scatter_lanes {label}: {tuple(master.shape)} "
-            f"{master.dtype}, {len(lanes)} lanes (padded {len(lp)}) "
+            f"{master.dtype}, {len(lanes)} lanes split {split} "
             f"max_abs_err={err} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"bound_ms={b[0]:.6f} library_ms={lib_ms:.4f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1138,12 +1311,15 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
     cap = p.prev_idx.shape[0]
     r_slot = hold_scatter("slot-store prev_idx rows", p.prev_idx,
                           np.sort(g.choice(cap, 1024, replace=False)), False)
+    slot_lanes = np.sort(g.choice(cap, 1024, replace=False))
+    clus_lanes = np.sort(g.choice(nC, 64, replace=False))
+    r_sync = hold_sync(state, slot_lanes, clus_lanes, dev, reps)
     rows.append(dict(
         name="scatter_lanes", route="cuda",
         source="karmada_tpu_torch/ops/csrc/resident.cu",
         replaces="karmada_tpu/ops/resident_update.py:40",
-        **{**r_slot, "max_abs_err": max(r["max_abs_err"] for r in (
-            r_avail, r_est, r_slot))}))
+        **{**r_slot, "max_abs_err": max(
+            [r["max_abs_err"] for r in (r_avail, r_est, r_slot)] + r_sync)}))
 
     # -- K11 on the first chunk's rows ----------------------------------------
     B = 4096
@@ -1213,6 +1389,112 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
             raise AssertionError(f"{r['name']} disagrees with its plain "
                                  "version")
     return rows
+
+
+def load_parent(tree: str):
+    """The parent commit's port, importable beside this checkout's: `tree`
+    holds its karmada_tpu_torch/ unpacked (git archive <parent>
+    karmada_tpu_torch | tar -x -C <tree>).  It is copied to
+    <tree>/karmada_tpu_torch_parent with its imports renamed to that
+    name, built (its own kernel sources, its own build directory) and
+    imported."""
+    import importlib
+    import shutil
+
+    src = os.path.join(tree, "karmada_tpu_torch")
+    dst = os.path.join(tree, "karmada_tpu_torch_parent")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns(
+        "_build", "__pycache__"))
+    for root, _dirs, files in os.walk(dst):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                with open(path) as fh:
+                    text = fh.read()
+                with open(path, "w") as fh:
+                    fh.write(text.replace("karmada_tpu_torch",
+                                          "karmada_tpu_torch_parent"))
+    sys.path.insert(0, os.path.abspath(tree))
+    mods = {m: importlib.import_module(f"karmada_tpu_torch_parent.{m}")
+            for m in ("ops.kernels", "ops.resident_update", "ops.shortlist",
+                      "resident.state")}
+    t0 = time.perf_counter()
+    mods["ops.kernels"].build()
+    log(f"phase 2 turns: the parent's port built in "
+        f"{time.perf_counter() - t0:.1f} s from {src}")
+    return mods
+
+
+def phase_turns(parent, state, dev, reps, rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns (old,
+    new, new, old) for `rounds` rounds, on phase 9's plane: K10 on one
+    field (prev_idx, 1,024 slots), K10 over a whole slot-store sync (1,024
+    slots, 12 fields) and a cluster-side sync (64 lanes, 9 fields) kernel
+    side (lanes and values already on the card: the parent's 12 / 9
+    single-field launches against one fused launch) and as sync walls
+    (host clock to synchronize(), uploads included), and K9 at the
+    megafleet's region layout (G = 200).  CUDA-event ms for the kernel
+    sides, host-clock ms for the walls."""
+    from karmada_tpu_torch.ops import resident_update as NRU
+    from karmada_tpu_torch.ops import shortlist as NSL
+    from karmada_tpu_torch.resident import state as NST
+
+    ORU, OSL, OST = (parent["ops.resident_update"], parent["ops.shortlist"],
+                     parent["resident.state"])
+    g = np.random.default_rng(7)
+    p = state.plane
+    cap, nC = p.prev_idx.shape[0], state.nC
+    slot_lanes = np.sort(g.choice(cap, 1024, replace=False))
+    clus_lanes = np.sort(g.choice(nC, 64, replace=False))
+    dk = up_to(p.prev_idx, dev)
+    lt = up_to(slot_lanes, dev)
+    vt = up_to(p.prev_idx[slot_lanes] + 1, dev)
+    cases = {"K10 single field": (
+        lambda: cuda_ms(lambda: ORU.scatter_rows(dk, lt, vt), reps),
+        lambda: cuda_ms(lambda: NRU.scatter_rows(dk, lt, vt), reps))}
+    for kind, lanes in (("slot", slot_lanes), ("cluster", clus_lanes)):
+        items = sync_items(state, kind, lanes)
+        st = NRU.stage_fields(items)
+        staged = up_to(st.buf, dev)
+        lt_k = up_to(lanes, dev)
+        old = [(t, ORU.scatter_rows if m == "rows" else ORU.scatter_cols,
+                up_to(v, dev)) for t, _la, v, m in items]
+
+        def old_kernel(old=old, lt_k=lt_k):
+            for t, fn, v in old:
+                fn(t, lt_k, v)
+
+        def new_kernel(st=st, staged=staged):
+            NRU.scatter_staged(st.dsts, staged, st.desc)
+
+        cases[f"K10 {kind} sync kernel side"] = (
+            lambda f=old_kernel: cuda_ms(f, reps),
+            lambda f=new_kernel: cuda_ms(f, reps))
+        cases[f"K10 {kind} sync wall"] = (
+            lambda k=kind, la=lanes: sync_wall_ms(state, k, la, dev, reps,
+                                                   OST),
+            lambda k=kind, la=lanes: sync_wall_ms(state, k, la, dev, reps,
+                                                   NST))
+    gid = up_to(np.asarray(p.region_id[:nC], np.int32), dev)
+    capx = up_to(g.integers(0, 1 << 20, nC), dev)
+    G = int(p.region_id[:nC].max()) + 1
+    if not torch.equal(OSL.group_sums(gid, capx, G),
+                       NSL.group_sums(gid, capx, G)):
+        raise AssertionError("turns: K9 old and new disagree")
+    cases["K9 group_sums"] = (
+        lambda: cuda_ms(lambda: OSL.group_sums(gid, capx, G), reps),
+        lambda: cuda_ms(lambda: NSL.group_sums(gid, capx, G), reps))
+    out = {name: {"old": [], "new": []} for name in cases}
+    for _r in range(rounds):
+        for which in ("old", "new", "new", "old"):
+            for name, fns in cases.items():
+                out[name][which].append(fns[which == "new"]())
+    for name, v in out.items():
+        log(f"phase 2 turns {name}: old mean {np.mean(v['old']):.4f} ms "
+            f"{[round(x, 4) for x in v['old']]}, new mean "
+            f"{np.mean(v['new']):.4f} ms {[round(x, 4) for x in v['new']]}")
+    return out
 
 
 def phase_parity_resident(items, fleet, args, dev) -> None:
@@ -1848,6 +2130,10 @@ def main() -> int:
     ap.add_argument("--waves", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--parent", metavar="TREE", default=None,
+                    help="a directory holding the parent commit's "
+                         "karmada_tpu_torch/ unpacked: phase 2 then also "
+                         "times old against new in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1923,6 +2209,8 @@ def main() -> int:
         M, mfleet, mplacements, INCREMENTAL_BINDINGS, args.chunk, dev,
         args.seed + 5)
     report += phase_kernels_k10_k12(state, solver, dev, args.reps)
+    if args.parent:
+        phase_turns(load_parent(args.parent), state, dev, args.reps)
     del state, solver, roster
     phase_parity_resident(items, fleet, args, dev)
 

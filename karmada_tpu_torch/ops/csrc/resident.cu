@@ -3,18 +3,27 @@
 //
 // K10 replaces karmada_tpu/ops/resident_update.py: scatter_rows,
 // scatter_cols and scatter_rows_cow (dst[lanes] = rows, dst[:, lanes] =
-// cols).  dst is viewed as [outer, D, inner] with the lane axis D; src is
-// the contiguous [outer, L, inner] block of new values.  Row mode
-// (outer = 1) serves the C-leading cluster tensors and the cap-leading
-// slot store, column mode (inner = 1) the [Q, C] / [G, C] planes.  The
-// element size (1, 4 or 8 bytes) is a template argument, so one kernel
-// serves bool, int32 and int64.  Callers pad the lane list by repeating
-// the last (lane, value) pair: duplicate writes carry equal values, so
-// the order they land in does not matter.  The JAX package's copy-on-write
-// flavour exists only to avoid a donation stall behind an in-flight
-// gather; on one CUDA stream a scatter is ordered after every gather
-// enqueued before it, and K11 writes fresh output buffers, so the port
-// scatters in place.
+// cols).  One launch applies a table of up to KT_SCATTER_FIELDS entries:
+// a mirror sync scatters every changed field of the plane at once (12
+// slot-store fields, up to 9 cluster-side ones), and the single-field
+// calls are one-entry tables.  Entry i views its dst as [outer, D,
+// inner] with the lane axis D, and its new values as the contiguous
+// [outer, L, inner] block at base + vals; its L lanes (int64) are at
+// base + lanes.  The wrapper stages every entry's lanes and values in one
+// host buffer (16-byte aligned segments, one H2D copy) and passes base =
+// the staged buffer's address with byte offsets, or base = 0 with the
+// operands' own addresses.  Row mode (outer = 1) serves the C-leading
+// cluster tensors and the cap-leading slot store, column mode (inner = 1)
+// the [Q, C] / [G, C] planes; the element size (1, 4 or 8 bytes) is per
+// entry, so one launch serves bool, int32 and int64 fields.  The table
+// rides in the kernel's parameter block (__grid_constant__): no copy of
+// it goes to device memory.  The kernel takes any L, so nothing pads the
+// lane list and no lane is written twice; duplicate lanes a caller does
+// pass must carry equal values (the order they land in is not fixed).
+// The JAX package's copy-on-write flavour exists only to avoid a donation
+// stall behind an in-flight gather; on one CUDA stream a scatter is
+// ordered after every gather enqueued before it, and K11 writes fresh
+// output buffers, so the port scatters in place.
 //
 // K11 replaces karmada_tpu/ops/resident_gather.py: gather_batch and
 // sub_gather_batch.  Per batch row b with slot s = slots[b]: the twelve
@@ -27,35 +36,60 @@
 //
 // Bound on the card: bytes for both (each element is read once and
 // written once; a few hundred bytes per churned lane for K10, ~70 B per
-// row for K11).  Design: one thread per element (K10) or per (row,
-// column) (K11), consecutive threads on consecutive addresses of the
-// output, so the writes coalesce; the reads are as scattered as the lanes
-// or slots are.
+// row for K11).  Both are launch-bound at the main path's sizes, so K10's
+// design is about launches: one per sync instead of one per field.
+// Design: one thread per element (K10, over the table's running element
+// starts, as in a multi-tensor apply) or per (row, column) (K11),
+// consecutive threads on consecutive addresses of one entry's values or
+// of the output, so those accesses coalesce; the dst writes are as
+// scattered as the lanes, the K11 reads as the slots.
 #include "common.cuh"
 
 constexpr int NT = 256;
 constexpr int ROUTE_DEVICE = 0;
+// entries of one K10 launch (ops/kernels.py SCATTER_FIELDS)
+constexpr int KT_SCATTER_FIELDS = 16;
 
-struct ScatterArgs {
-  void* dst;          // [outer, D, inner] elements of elem bytes
-  const void* src;    // [outer, L, inner]
-  const i64* lanes;   // [L], each in [0, D)
-  i64 outer, D, inner, L, elem;
+// One table entry; every field is 8 bytes, in the order of the wrapper's
+// descriptor columns (ops/resident_update.py DESC_COLUMNS).
+struct ScatterEntry {
+  i64 dst;    // address of dst's first element
+  i64 lanes;  // byte offset of the int64 [L] lane list from base
+  i64 vals;   // byte offset of the [outer, L, inner] values from base
+  i64 outer, D, inner, L;
+  i64 elem;   // element size in bytes: 1, 4 or 8
+  i64 start;  // running element start: outer * L * inner summed over
+              // the table's entries before this one
 };
 
-template <typename T>
-__global__ void __launch_bounds__(NT) scatter_kernel(ScatterArgs a) {
-  const i64 n = a.outer * a.L * a.inner;
-  const i64 per = a.L * a.inner;
-  T* dst = (T*)a.dst;
-  const T* src = (const T*)a.src;
-  for (i64 t = (i64)blockIdx.x * NT + threadIdx.x; t < n;
+struct ScatterTable {
+  i64 base;   // staged buffer address (0: the offsets are addresses)
+  i64 n;      // entries used
+  ScatterEntry e[KT_SCATTER_FIELDS];
+};
+
+__global__ void __launch_bounds__(NT)
+    scatter_kernel(const __grid_constant__ ScatterTable a, i64 total) {
+  int i = 0;
+  for (i64 t = (i64)blockIdx.x * NT + threadIdx.x; t < total;
        t += (i64)gridDim.x * NT) {
-    const i64 o = t / per;
-    const i64 r = t - o * per;
-    const i64 l = r / a.inner;
-    const i64 i = r - l * a.inner;
-    dst[(o * a.D + a.lanes[l]) * a.inner + i] = src[t];
+    while (i + 1 < a.n && t >= a.e[i + 1].start) ++i;
+    const ScatterEntry& d = a.e[i];
+    const i64 r = t - d.start;
+    const i64 per = d.L * d.inner;
+    const i64 o = r / per;
+    const i64 q = r - o * per;
+    const i64 l = q / d.inner;
+    const i64 j = q - l * d.inner;
+    const i64 lane = ((const i64*)(a.base + d.lanes))[l];
+    const i64 at = (o * d.D + lane) * d.inner + j;
+    const char* src = (const char*)(a.base + d.vals);
+    switch (d.elem) {
+      case 1: ((unsigned char*)d.dst)[at] = ((const unsigned char*)src)[r];
+        break;
+      case 4: ((int*)d.dst)[at] = ((const int*)src)[r]; break;
+      default: ((i64*)d.dst)[at] = ((const i64*)src)[r]; break;
+    }
   }
 }
 
@@ -64,17 +98,29 @@ static unsigned grid_for(i64 n) {
   return (unsigned)(g < 65535 * 4 ? g : 65535 * 4);
 }
 
-extern "C" int kt_scatter_lanes(const ScatterArgs* a, void* stream) {
-  const i64 n = a->outer * a->L * a->inner;
-  if (n <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  const unsigned g = grid_for(n);
-  switch (a->elem) {
-    case 1: scatter_kernel<unsigned char><<<g, NT, 0, s>>>(*a); break;
-    case 4: scatter_kernel<int><<<g, NT, 0, s>>>(*a); break;
-    case 8: scatter_kernel<i64><<<g, NT, 0, s>>>(*a); break;
-    default: return (int)cudaErrorInvalidValue;
+// `h` is the host table: base, n, then n entries of 9 int64 each.
+extern "C" int kt_scatter_lanes(const i64* h, void* stream) {
+  ScatterTable a;
+  a.base = h[0];
+  a.n = h[1];
+  if (a.n <= 0) return 0;
+  if (a.n > KT_SCATTER_FIELDS) return (int)cudaErrorInvalidValue;
+  const ScatterEntry* src = (const ScatterEntry*)(h + 2);
+  for (int i = 0; i < KT_SCATTER_FIELDS; ++i) {
+    if (i < a.n) {
+      a.e[i] = src[i];
+      const i64 el = a.e[i].elem;
+      if ((el != 1 && el != 4 && el != 8) || a.e[i].L <= 0 ||
+          a.e[i].outer <= 0 || a.e[i].inner <= 0)
+        return (int)cudaErrorInvalidValue;
+    } else {
+      a.e[i] = ScatterEntry{};
+    }
   }
+  if (a.e[0].start != 0) return (int)cudaErrorInvalidValue;
+  const ScatterEntry& last = a.e[a.n - 1];
+  const i64 total = last.start + last.outer * last.L * last.inner;
+  scatter_kernel<<<grid_for(total), NT, 0, (cudaStream_t)stream>>>(a, total);
   return (int)cudaGetLastError();
 }
 

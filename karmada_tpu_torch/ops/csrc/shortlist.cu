@@ -28,11 +28,31 @@
 // profile rows (8 padded rows in the megafleet cycle), so most SMs idle.
 //
 // K9 replaces karmada_tpu/ops/shortlist.py _group_sums: the segment sum of
-// the capacity proxy by group id into G + 1 buckets (groupless lanes in
-// bucket G; ids beyond G dropped, as segment_sum drops them), one thread
-// per lane with 64-bit integer atomics -- exact and order-free.  Bound:
-// bytes (the two [C] planes read once).
+// the capacity proxy by group id into G + 1 buckets (groupless lanes, any
+// negative id, in bucket G; ids beyond G dropped, as segment_sum drops
+// them; sums wrap as int64 adds do).  Bound: bytes (the two [C] planes
+// read once, G + 1 sums written) -- nanoseconds at C = 10,000-16,384, so
+// the launch is the cost and the design is one launch that writes every
+// bin: the wrapper allocates its output with torch.empty and launches no
+// fill kernel.  The launch is one thread block cluster of GS_CLUSTER
+// blocks of GS_NT threads (Hopper): each block strides over its share of
+// the lanes and keeps the bins in its own dynamic shared memory (u64,
+// shared-memory 64-bit atomics); after a cluster barrier the blocks sum
+// the GS_CLUSTER copies of each bin through distributed shared memory and
+// write it.  (One block, tried first, was slower than the PyTorch
+// yardstick on the megafleet's round-robin layout: one SM's shared-memory
+// atomics take every add, and each warp walks its lanes in sequence.)
+// Lanes of one group that share a warp (fleets laid out by region) are
+// summed in the warp first (__match_any_sync and a shuffle tree over the
+// peers) and added by one atomic.  When G + 1 bins do not fit the shared
+// memory a block can opt into, the blocks walk the bins in tiles of
+// GS_TILE_BINS, reading the lanes once per tile; integer sums do not
+// depend on order, so every path is exact.
+#include <cooperative_groups.h>
+
 #include "rows.cuh"
+
+namespace cg = cooperative_groups;
 
 constexpr int NT = 256;
 constexpr int GROUP_BITS = 5;
@@ -134,22 +154,87 @@ extern "C" int kt_shortlist_topk(const TopkArgs* a, void* stream) {
 struct GroupSumArgs {
   const int* group_id;  // [C]
   const i64* cap;       // [C]
-  i64* out;             // [G + 1], zeroed by the caller
+  i64* out;             // [G + 1], every bin written
   i64 C, G;
 };
 
-__global__ void group_sums(GroupSumArgs a) {
-  const i64 c = (i64)blockIdx.x * NT + threadIdx.x;
-  if (c >= a.C) return;
-  const int g = a.group_id[c];
-  const i64 gid = g >= 0 ? g : a.G;
-  if (gid > a.G) return;
-  atomicAdd((u64*)&a.out[gid], (u64)a.cap[c]);
+constexpr int GS_NT = 1024;
+constexpr int GS_CLUSTER = 8;  // blocks of the one cluster (portable size)
+// bins of one shared-memory tile: 227 KB a block can opt into, in u64
+// (ops/kernels.py GROUP_SUM_TILE_BINS)
+constexpr i64 GS_TILE_BINS = 232448 / 8;
+
+// Sum `x` over the lanes of this warp whose mask bit is in `peers` (the
+// lanes holding the same key, this one included); the lowest peer gets
+// the group's sum.  Every lane of the warp must call it.  A tree over
+// the peers' ranks: in round k each lane adds the value of its next
+// remaining peer, then the peers whose rank has bit k set drop out.
+__device__ __forceinline__ u64 reduce_peers(unsigned peers, u64 x) {
+  const int lane = threadIdx.x & 31;
+  int rank = __popc(peers & ((1u << lane) - 1u));
+  peers &= 0xfffffffeu << lane;  // the peers above this lane
+  while (__any_sync(KT_FULL_MASK, peers != 0)) {
+    const int next = __ffs(peers);
+    const u64 t = __shfl_sync(KT_FULL_MASK, x, (next - 1) & 31);
+    if (next) x += t;
+    peers &= ~__ballot_sync(KT_FULL_MASK, rank & 1);
+    rank >>= 1;
+  }
+  return x;
+}
+
+__global__ void __cluster_dims__(GS_CLUSTER, 1, 1) __launch_bounds__(GS_NT)
+    group_sums(GroupSumArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ u64 bins[];
+  const i64 nb = a.G + 1;
+  const int lane = threadIdx.x & 31;
+  const i64 stride = (i64)GS_CLUSTER * GS_NT;
+  const i64 warp0 = (i64)rank * GS_NT + (i64)(threadIdx.x >> 5) * 32;
+  for (i64 t0 = 0; t0 < nb; t0 += GS_TILE_BINS) {
+    const i64 tn = nb - t0 < GS_TILE_BINS ? nb - t0 : GS_TILE_BINS;
+    for (i64 i = threadIdx.x; i < tn; i += GS_NT) bins[i] = 0;
+    __syncthreads();
+    // a warp-uniform loop, so every lane reaches the warp intrinsics
+    for (i64 base = warp0; base < a.C; base += stride) {
+      const i64 c = base + lane;
+      i64 key = -1;  // -1: nothing to add (past C, dropped, other tile)
+      u64 v = 0;
+      if (c < a.C) {
+        const int g = a.group_id[c];
+        const i64 gid = g >= 0 ? (i64)g : a.G;
+        if (gid <= a.G && gid >= t0 && gid < t0 + tn) {
+          key = gid - t0;
+          v = (u64)a.cap[c];
+        }
+      }
+      const unsigned peers = __match_any_sync(KT_FULL_MASK, key);
+      v = reduce_peers(peers, v);
+      if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(&bins[key], v);
+    }
+    // every block's bins complete and visible to the cluster
+    cluster.sync();
+    for (i64 i = (i64)rank * GS_NT + threadIdx.x; i < tn; i += stride) {
+      u64 sum = 0;
+      for (int r = 0; r < GS_CLUSTER; ++r)
+        sum += cluster.map_shared_rank(bins, r)[i];
+      a.out[t0 + i] = (i64)sum;
+    }
+    // no block zeroes its bins (or exits) while another still reads them
+    cluster.sync();
+  }
 }
 
 extern "C" int kt_group_sums(const GroupSumArgs* a, void* stream) {
-  if (a->C <= 0) return 0;
-  const unsigned blocks = (unsigned)((a->C + NT - 1) / NT);
-  group_sums<<<blocks, NT, 0, (cudaStream_t)stream>>>(*a);
+  if (a->G < 0) return (int)cudaErrorInvalidValue;
+  const i64 nb = a->G + 1;
+  const size_t smem = (size_t)(nb < GS_TILE_BINS ? nb : GS_TILE_BINS) * 8;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        group_sums, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  group_sums<<<GS_CLUSTER, GS_NT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -5,8 +5,17 @@ The CUDA C++ sources live in ``ops/csrc/``.  Each ``*.cu`` compiles with
 (no PyTorch headers, so a build takes seconds), all sources at once in
 parallel, at first use, into a build directory keyed by the sources'
 hash.  The libraries load with ``ctypes``; each C entry takes a pointer to
-an argument struct (mirrored below) and the CUDA stream, launches on that
-stream, and returns ``cudaGetLastError()``.
+an argument block and the CUDA stream, launches on that stream, and
+returns ``cudaGetLastError()``.  An argument block is a ctypes struct
+(mirrored below) or, where the launch is on a hot path, an
+``array.array("q")`` laid out like the C struct (a pointer and an int64
+are both 8 bytes), which is cheaper to build.
+
+The launch path is lean because the small kernels' time on the card is
+their host cost: once every library is loaded, ``build()`` returns
+without taking its lock, each C entry is resolved once into ``_FNS``,
+and the stream handle is read from ``torch.cuda.current_stream(index)``
+with the operands' device index.
 
 Nothing here runs at import time: the CPU tests import every module, and
 ``nvcc`` is needed only once a CUDA tensor reaches a kernel wrapper.
@@ -14,6 +23,7 @@ Nothing here runs at import time: the CPU tests import every module, and
 
 from __future__ import annotations
 
+import array
 import ctypes
 import hashlib
 import os
@@ -21,7 +31,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -58,6 +68,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: the C entries, by entry name, resolved once when the libraries load
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
+#: the built libraries' paths once every one is loaded (build's fast path)
+_PATHS: Dict[str, Path] = {}
 _LOCK = threading.Lock()
 #: nvcc's output (registers, shared memory, spills) per kernel source
 BUILD_LOG: Dict[str, str] = {}
@@ -97,10 +111,13 @@ def _digest() -> str:
 def build(verbose: bool = False) -> Dict[str, Path]:
     """Compile every kernel source (one nvcc per source, all started
     together) unless this source hash was built already; load them all.
-    Raises with nvcc's output when a build fails."""
+    Raises with nvcc's output when a build fails.  Once every library is
+    loaded it returns without taking the lock."""
+    if _PATHS:
+        return _PATHS
     with _LOCK:
-        if len(_LIBS) == len(SOURCES):
-            return {k: Path(_LIBS[k]._name) for k in SOURCES}
+        if _PATHS:
+            return _PATHS
         out_dir = build_dir() / _digest()
         out_dir.mkdir(parents=True, exist_ok=True)
         paths = {k: out_dir / f"lib{k}.so" for k in SOURCES}
@@ -133,8 +150,10 @@ def build(verbose: bool = False) -> Dict[str, Path]:
                 fn = getattr(lib, f"kt_{entry}")
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+                _FNS[entry] = fn
             _LIBS[k] = lib
-        return paths
+        _PATHS.update(paths)
+        return _PATHS
 
 
 def ptr(t: torch.Tensor) -> int:
@@ -155,19 +174,25 @@ def check(t: torch.Tensor, dtype, shape) -> None:
         raise ValueError("kernel operand is not contiguous")
 
 
-def launch(source: str, args: ctypes.Structure, entry: Optional[str] = None,
-           count: Optional[str] = None) -> None:
+def launch(source: str, args: Union[ctypes.Structure, array.array],
+           entry: Optional[str] = None, count: Optional[str] = None,
+           device: Optional[int] = None) -> None:
     """Launch a C entry of a source's library (default: the source's own
-    name) on the current stream; raises when the launch is refused.
-    `count` names the kernel whose launch counter gets one (a wrapper
-    whose kernel runs as several entries counts once; default: the
-    source's own name when `entry` is omitted)."""
-    build()
+    name) on the current stream of CUDA device `device` (default: the
+    current device); raises when the launch is refused.  `args` is a
+    ctypes struct or an ``array.array("q")`` argument block.  `count`
+    names the kernel whose launch counter gets one (a wrapper whose
+    kernel runs as several entries counts once; default: the source's
+    own name when `entry` is omitted)."""
     if entry is None:
         entry, count = source, count or source
-    rc = getattr(_LIBS[source], f"kt_{entry}")(
-        ctypes.byref(args),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    fn = _FNS.get(entry)
+    if fn is None:
+        build()
+        fn = _FNS[entry]
+    block = (args.buffer_info()[0] if isinstance(args, array.array)
+             else ctypes.addressof(args))
+    rc = fn(block, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {entry} launch failed: CUDA error {rc}")
     if count:
@@ -264,17 +289,14 @@ TopkArgs = _struct("TopkArgs", TOPK_TENSOR_FIELDS + (
     "scratch", "cand", "fcount"),
     ("B", "C", "Q", "Kp", "Ke", "k", "nk", "smem"))
 
-GroupSumArgs = _struct("GroupSumArgs", ("group_id", "cap", "out"),
-                       ("C", "G"))
-
 #: lanes K8 keeps in shared memory (8 B each); wider rows use a [B, C]
 #: device-memory key scratch
 TOPK_SMEM_LANES = 16384
 #: K8's member sort holds a power of two >= k entries in shared memory
 TOPK_MAX_K = 4096
-
-ScatterArgs = _struct("ScatterArgs", ("dst", "src", "lanes"),
-                      ("outer", "D", "inner", "L", "elem"))
+#: K9's bins in one shared-memory tile (227 KB of u64); more groups walk
+#: the bins tile by tile (shortlist.cu GS_TILE_BINS)
+GROUP_SUM_TILE_BINS = 232448 // 8
 
 #: K11's slot-store operands (resident_gather.GATHER_FIELDS order) and
 #: outputs (resident_gather.OUT_FIELDS order)

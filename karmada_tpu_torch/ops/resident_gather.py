@@ -16,7 +16,8 @@ slot vector (solver.TRANSFERS["h2d_binding_fields"] stays flat).
 
 K11 (ops/csrc/resident.cu; launch counter "gather_rows") runs on CUDA
 tensors, gather_batch_plain / sub_gather_batch_plain on CPU ones.
-Dispatches, gathered rows and scattered slot rows are counted in COUNTS
+Dispatches, gathered rows, scattered slot rows and the mirror syncs'
+fused scatters (ops/resident_update.scatter_fields) are counted in COUNTS
 (plain ints).
 """
 
@@ -57,8 +58,14 @@ _FILL = {
 }
 
 #: gathers dispatched (one per fused chunk and per fused shortlist
-#: sub-batch), rows gathered, slot rows scattered into the mirrors
-COUNTS: Dict[str, int] = {"dispatches": 0, "rows": 0, "row_scatters": 0}
+#: sub-batch), rows gathered, slot rows scattered into the mirrors; of the
+#: fused scatters (resident_update.scatter_fields): entries scattered,
+#: staged buffers (one H2D copy each on the card), descriptor tables
+#: applied (one K10 launch each on the card, one plain pass on the CPU)
+#: and calls split for holding more than one table's entries
+COUNTS: Dict[str, int] = {"dispatches": 0, "rows": 0, "row_scatters": 0,
+                          "scatter_fields": 0, "scatter_staged": 0,
+                          "scatter_tables": 0, "scatter_splits": 0}
 
 
 def _gather_plain(slots, lane_inv, drop, m):

@@ -35,6 +35,7 @@ COUNTS and FALLBACKS (plain ints, reset by reset_for_tests()).
 from __future__ import annotations
 
 import threading
+from array import array
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -204,16 +205,29 @@ def group_sums_plain(group_id, cap_proxy, n_groups: int):
 
 def group_sums(group_id, cap_proxy, n_groups: int):
     """K9 (ops/csrc/shortlist.cu; launch counter "group_sums") on CUDA
-    tensors, group_sums_plain on CPU ones; same contract."""
-    if not _on_cuda(group_id, cap_proxy):
+    tensors, group_sums_plain on CPU ones; same contract.  One launch: the
+    kernel writes every bin, so the output is allocated uninitialised
+    (torch.empty, no fill kernel)."""
+    if not (group_id.is_cuda or cap_proxy.is_cuda):
         return group_sums_plain(group_id, cap_proxy, n_groups)
+    if not (group_id.is_cuda and cap_proxy.is_cuda):
+        raise ValueError("group_sums operands on mixed devices")
+    if group_id.dtype != torch.int32 or cap_proxy.dtype != I64:
+        raise TypeError(f"group_sums operands {group_id.dtype}, "
+                        f"{cap_proxy.dtype}: expected int32, int64")
     C = group_id.shape[0]
-    kernels.check(group_id, torch.int32, (C,))
-    kernels.check(cap_proxy, I64, (C,))
-    out = torch.zeros((n_groups + 1,), dtype=I64, device=cap_proxy.device)
-    kernels.launch("shortlist", kernels.GroupSumArgs(
-        kernels.ptr(group_id), kernels.ptr(cap_proxy), kernels.ptr(out),
-        C, n_groups), "group_sums", count="group_sums")
+    if group_id.dim() != 1 or tuple(cap_proxy.shape) != (C,):
+        raise ValueError(f"group_sums operands {tuple(group_id.shape)}, "
+                         f"{tuple(cap_proxy.shape)}: expected [C], [C]")
+    if not (group_id.is_contiguous() and cap_proxy.is_contiguous()):
+        raise ValueError("group_sums operands are not contiguous")
+    if n_groups < 0:
+        raise ValueError(f"n_groups={n_groups} < 0")
+    out = cap_proxy.new_empty(n_groups + 1)
+    kernels.launch("shortlist", array("q", (  # GroupSumArgs
+        group_id.data_ptr(), cap_proxy.data_ptr(), out.data_ptr(), C,
+        n_groups)), "group_sums", count="group_sums",
+        device=out.get_device())
     return out
 
 

@@ -8,10 +8,10 @@ encode_batch).  The plane keeps instead:
     per ops/tensors.FIELD_DTYPES) as FROZEN copy-on-write numpy masters
     between cycles, advanced by coalesced cluster deltas
     (resident/deltas.py): a capacity flap recomputes one cluster's lanes;
-  * their device mirrors, advanced by K10 scatters of the churned lanes
-    (ops/resident_update) and primed into the solver's device-transfer
-    cache (ops/solver.prime_cluster_slot), so a dispatch uploads none of
-    them;
+  * their device mirrors, advanced by one fused K10 scatter of the
+    churned lanes per sync (ops/resident_update.scatter_fields) and
+    primed into the solver's device-transfer cache
+    (ops/solver.prime_cluster_slot), so a dispatch uploads none of them;
   * per-binding encoded rows in a slot store keyed by (namespace/name,
     resourceVersion): a cycle re-encodes only churned bindings, through
     the real encode_batch on the miss subset, whose vocabulary (placement,
@@ -48,7 +48,6 @@ from karmada_tpu_torch.models.work import ResourceBindingStatus
 from karmada_tpu_torch.ops import resident_gather, resident_update, serial
 from karmada_tpu_torch.ops import solver as solver_mod
 from karmada_tpu_torch.ops import tensors
-from karmada_tpu_torch.ops.solver import _to_dev
 from karmada_tpu_torch.resident.deltas import (
     API,
     CAPACITY,
@@ -195,8 +194,11 @@ class _DevicePlane:
     def sync(self, plane: ResidentPlane, dirty: Dict[str, object]) -> bool:
         """Advance the mirrors to the current masters and prime the
         solver's cache.  `dirty` maps field -> lane array for fields whose
-        change is a pure lane/column rewrite (scatter); any other identity
-        change re-places the whole field.  Returns True when primed."""
+        change is a pure lane/column rewrite: those scatter, all in one
+        resident_update.scatter_fields call (one staged upload, one K10
+        launch); any other identity change re-places the whole field.
+        Returns True when primed."""
+        items = []
         for f in CLUSTER_SIDE_FIELDS:
             master = getattr(plane, f)
             if self.np_refs.get(f) is master:
@@ -207,19 +209,14 @@ class _DevicePlane:
                     and tuple(mirror.shape) == master.shape
                     and f in ROW_SCATTER_FIELDS | COL_SCATTER_FIELDS):
                 if f in ROW_SCATTER_FIELDS:
-                    lp, vals = resident_update.pad_lanes(
-                        lanes, master[lanes])
-                    scatter = resident_update.scatter_rows
+                    items.append((mirror, lanes, master[lanes], "rows"))
                 else:
-                    lp, vals = resident_update.pad_lanes_cols(
-                        lanes, master[..., lanes])
-                    scatter = resident_update.scatter_cols
-                scatter(mirror, _to_dev(lp, self.device),
-                        _to_dev(vals, self.device))
+                    items.append((mirror, lanes, master[..., lanes], "cols"))
             else:
                 mirror = resident_gather.place_slot(master, self.device)
             self.mirrors[f] = mirror
             self.np_refs[f] = master
+        resident_update.scatter_fields(items, self.device)
         return solver_mod.prime_cluster_slot(
             tuple(self.np_refs[f] for f in CLUSTER_SIDE_FIELDS),
             tuple(self.mirrors[f] for f in CLUSTER_SIDE_FIELDS),
@@ -229,8 +226,9 @@ class _DevicePlane:
 class _DeviceRows:
     """Device mirrors of the binding-axis slot store (the fused gather
     path).  The masters stay the host source of truth; the mirrors advance
-    by K10 row scatters of exactly the churned slots, in place, and are
-    re-placed whole on geometry changes (slot-capacity growth,
+    by one fused K10 scatter of exactly the churned slots per sync (every
+    field's rows staged in one buffer, one upload, one launch), in place,
+    and are re-placed whole on geometry changes (slot-capacity growth,
     sparse-width growth, rebuild).  In place is safe on the one stream:
     every gather enqueued before a scatter has run before it, and wrote
     its own output buffers."""
@@ -245,20 +243,17 @@ class _DeviceRows:
         full = isinstance(dirty, str) or not self.mirrors
         if not full and dirty is None:
             return
-        lanes_t = None
+        items = []
         for f in DEVICE_SLOT_FIELDS:
             master = getattr(plane, f)
             mirror = self.mirrors.get(f)
             if (not full and mirror is not None
                     and tuple(mirror.shape) == master.shape):
-                lp, rows = resident_update.pad_lanes(dirty, master[dirty])
-                if lanes_t is None:
-                    lanes_t = _to_dev(lp, self.device)
-                resident_update.scatter_rows(mirror, lanes_t,
-                                             _to_dev(rows, self.device))
+                items.append((mirror, dirty, master[dirty], "rows"))
             else:
                 self.mirrors[f] = resident_gather.place_slot(
                     master, self.device)
+        resident_update.scatter_fields(items, self.device)
         if not full:
             resident_gather.COUNTS["row_scatters"] += len(dirty)
 

@@ -17,9 +17,11 @@ and solve_spread on region and label axes, with K5 and K6 held against
 their plain versions on shared-memory rows and on 16,384-lane rows (the
 device-memory sort path); K7 explain_rows in both flavours (the main
 solve's waves and the spread phase B); K8 shortlist_topk on its
-shared-memory and device-memory key paths; K9 group_sums; a
-shortlisted megafleet cycle, card against CPU; K10 scatter_lanes (both
-layouts, 1-, 4- and 8-byte elements), K11 gather_rows (both flavours),
+shared-memory and device-memory key paths; K9 group_sums (round-robin
+and region-run layouts, the tiled branch, one group); a shortlisted
+megafleet cycle, card against CPU; K10 scatter_lanes (both layouts, 1-,
+4- and 8-byte elements, and the fused multi-field scatter of a mirror
+sync, one launch per table), K11 gather_rows (both flavours),
 K12 dirty_codes, and a fused incremental run card against CPU; K13
 rebalance_score (and no launch on zero lanes), and one rebalance-plane
 cycle card against CPU.
@@ -390,6 +392,40 @@ def test_group_sums_kernel_matches_plain_on_card():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["round_robin", "region_runs", "tiled",
+                                    "one_group"])
+def test_group_sums_layouts_on_card(layout):
+    """K9 on the megafleet's round-robin region layout, on region runs (the
+    warp-level peer reduction), with more groups than one shared-memory
+    tile (the tiled branch) and with every lane in one group: one launch
+    and no other, every bin written (the output block is reused from a
+    freed block of garbage), equal to the plain sums."""
+    dev = _card()
+    g = np.random.default_rng(3)
+    C, G = 10_000, 200
+    if layout == "round_robin":
+        gid = np.arange(C) % G
+        gid[::97] = -1
+    elif layout == "region_runs":
+        gid = np.sort(g.integers(-1, G, C))
+    elif layout == "tiled":
+        G = 2 * kernels.GROUP_SUM_TILE_BINS + 5
+        gid = g.integers(-3, G + 3, C)
+    else:
+        gid = np.full(C, 7)
+    gid = torch.from_numpy(gid.astype(np.int32))
+    cap = torch.from_numpy(g.integers(0, 1 << 40, C).astype(np.int64))
+    gd, cd = gid.to(dev), cap.to(dev)
+    torch.full((G + 1,), -7, dtype=torch.int64, device=dev)  # freed garbage
+    kernels.reset_counts()
+    got = PSL.group_sums(gd, cd, G)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["group_sums"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert torch.equal(got.cpu(), PSL.group_sums_plain(gid, cap, G))
+
+
+@pytest.mark.gpu
 def test_shortlisted_megafleet_cycle_on_card():
     """A small megafleet cycle with the shortlist armed and explain on:
     every chunk shortlisted, results and decisions equal card vs CPU."""
@@ -462,6 +498,59 @@ def test_scatter_lanes_kernel_matches_plain_on_card(mode, dtype):
     want = plain(torch.from_numpy(dst.copy()), torch.from_numpy(lp),
                  torch.from_numpy(np.ascontiguousarray(vp)))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", S.SCATTER_CASES)
+def test_scatter_fields_kernel_matches_plain_on_card(name):
+    """The fused K10 over tests/torch_scenarios.scatter_case's items (mixed
+    dtypes and layouts, a shared lane list, duplicates with equal values,
+    the split, the twelve slot-store fields at 1,024 slots, the nine
+    cluster-side fields at 64 lanes) against scatter_fields_plain over the
+    same staging, bit for bit: one scatter_lanes launch per table of
+    SCATTER_FIELDS entries and no other launch."""
+    from karmada_tpu_torch.ops import resident_update as RU
+
+    dev = _card()
+    items = S.scatter_case(name, np.random.default_rng(sum(map(ord, name))))
+    card = [torch.from_numpy(d.copy()).to(dev) for d, *_rest in items]
+    host = [torch.from_numpy(d.copy()) for d, *_rest in items]
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    RU.scatter_fields([(t, la, v, m) for t, (_d, la, v, m)
+                       in zip(card, items)], dev)
+    torch.cuda.synchronize()
+    tables = -(-len(items) // RU.SCATTER_FIELDS)
+    assert kernels.LAUNCHES["scatter_lanes"] == tables
+    assert sum(kernels.LAUNCHES.values()) == tables
+    st = RU.stage_fields([(t, la, v, m) for t, (_d, la, v, m)
+                          in zip(host, items)])
+    RU.scatter_fields_plain(st.dsts, torch.from_numpy(st.buf), st.desc)
+    for a, b in zip(card, host):
+        assert torch.equal(a.cpu(), b)
+    kernels.reset_counts()
+    RU.scatter_fields([], dev)
+    assert sum(kernels.LAUNCHES.values()) == 0
+
+
+@pytest.mark.gpu
+def test_mirror_syncs_one_launch_each_on_card():
+    """The fused resident plane's mirror syncs on the card
+    (tests/torch_scenarios.fused_plane_syncs: mirrors equal a fresh
+    placement of their masters after every cycle): every sync that
+    scatters stages one upload and makes exactly one K10 launch."""
+    from karmada_tpu_torch.resident import state as ST
+
+    per_sync = S.fused_plane_syncs(MP, _card())
+    torch.cuda.synchronize()
+    scattered = [name for name, d, _k in per_sync if d["scatter_fields"]]
+    assert set(scattered) == {"_DeviceRows", "_DevicePlane"}
+    for name, d, launched in per_sync:
+        assert d["scatter_staged"] == d["scatter_tables"] == launched == int(
+            d["scatter_fields"] > 0), (name, d, launched)
+    assert any(name == "_DeviceRows"
+               and d["scatter_fields"] == len(ST.DEVICE_SLOT_FIELDS)
+               for name, d, _k in per_sync)
 
 
 @pytest.mark.gpu

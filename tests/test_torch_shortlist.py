@@ -149,6 +149,43 @@ def test_shortlist_topk_plain_matches_jax(k):
     assert np.array_equal(want, got.numpy())
 
 
+@pytest.mark.parametrize("case", ["beyond_tile", "below_minus_one",
+                                  "above_groups", "wrap", "one_group"])
+def test_group_sums_plain_edge_cases_match_jax(case):
+    """K9's contract at its edges, plain against JAX _group_sums: more
+    groups than one shared-memory tile of bins holds (the kernel's tiled
+    branch), ids below -1 (the trailing bucket), ids above G (dropped), an
+    int64 sum that wraps, every lane in one group."""
+    from karmada_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    C, G = 16384, 200
+    gid = rng.integers(-1, G, C)
+    cap = rng.integers(0, 256, C)
+    if case == "beyond_tile":
+        G = kernels.GROUP_SUM_TILE_BINS + 1000
+        gid = rng.integers(-1, G, C)
+        gid[::7] = G - 1 - rng.integers(0, 500, gid[::7].size)
+    elif case == "below_minus_one":
+        gid[::3] = rng.integers(-(1 << 31), -1, gid[::3].size)
+    elif case == "above_groups":
+        gid[::5] = rng.integers(G + 1, G + 40, gid[::5].size)
+        gid[1] = G  # the trailing bucket by id, kept
+    elif case == "wrap":
+        cap = rng.integers(1 << 61, 1 << 62, C)
+        gid = np.sort(gid)  # runs of one group, as a region layout has
+    else:
+        gid = np.full(C, 3)
+    gid, cap = gid.astype(np.int32), cap.astype(np.int64)
+    want = np.asarray(JSL._group_sums(gid, cap, n_groups=G))
+    got = PSL.group_sums(torch.from_numpy(gid), torch.from_numpy(cap), G)
+    assert got.dtype == torch.int64 and got.shape == (G + 1,)
+    assert np.array_equal(want, got.numpy())
+    if case == "wrap":
+        exact = [sum(int(v) for v in cap[gid == g]) for g in range(3)]
+        assert any(not -(1 << 63) <= x < (1 << 63) for x in exact)
+
+
 def test_cycle_aggregates_equal_and_memoized():
     cj, ij = _scenario(MJ, 73, 32, 16, n_pl=3)
     cp, ip = _scenario(MP, 73, 32, 16, n_pl=3)

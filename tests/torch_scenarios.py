@@ -949,3 +949,161 @@ def placements_of(store, kind="ResourceBinding"):
         rb.metadata.generation, rb.status.scheduler_observed_generation,
         rb.status.scheduler_observed_affinity_name)
         for rb in store.list(kind)}
+
+
+# -- the fused mirror-sync scatter (ops/resident_update.scatter_fields) -------
+
+#: scatter_case names: mixed dtypes and layouts, one lane list shared by
+#: twelve fields, duplicate lanes with equal values, more entries than one
+#: K10 table holds (16), and the two mirror syncs' own shapes
+SCATTER_CASES = ("mixed", "shared_lanes", "duplicates", "split",
+                 "slot_store", "cluster_side")
+
+
+def _scatter_values(g, dtype, shape):
+    import numpy as np
+
+    if dtype is np.bool_:
+        return g.random(shape) < 0.5
+    return g.integers(-(1 << 40) if dtype is np.int64 else -999, 1 << 20,
+                      shape).astype(dtype)
+
+
+def scatter_entry(g, dtype, mode, D, L, other=3, lanes=None):
+    """One (dst, lanes, values, mode) scatter from a numpy Generator: a
+    numpy destination ([D] or [D, other] rows, [other, D] columns) and L
+    distinct sorted int64 lanes (or `lanes`) with new values."""
+    import numpy as np
+
+    if mode == "rows":
+        shape = (D,) if other == 0 else (D, other)
+    else:
+        shape = (other, D)
+    dst = _scatter_values(g, dtype, shape)
+    if lanes is None:
+        lanes = np.sort(g.choice(D, L, replace=False)).astype(np.int64)
+    vshape = ((len(lanes),) + shape[1:] if mode == "rows"
+              else (other, len(lanes)))
+    return dst, lanes, _scatter_values(g, dtype, vshape), mode
+
+
+def scatter_case(name, g):
+    """The (dst, lanes, values, mode) items of one SCATTER_CASES case."""
+    import numpy as np
+
+    b, i32, i64 = np.bool_, np.int32, np.int64
+    if name == "mixed":
+        # every dtype in both layouts, a lane list each; L = 1 and L not a
+        # power of two among them
+        spec = [(b, "rows", 1, 1), (i32, "rows", 7, 2), (i64, "rows", 13, 3),
+                (b, "cols", 5, 4), (i32, "cols", 1, 1), (i64, "cols", 24, 2),
+                (i64, "rows", 3, 0)]
+        return [scatter_entry(g, dt, mode, 64 + 8 * k, L, other=o)
+                for k, (dt, mode, L, o) in enumerate(spec)]
+    if name == "shared_lanes":
+        lanes = np.sort(g.choice(256, 37, replace=False)).astype(np.int64)
+        return [scatter_entry(g, (b, i32, i64)[k % 3], "rows", 256, 0,
+                              other=(0, 4, 2)[k % 3], lanes=lanes)
+                for k in range(12)]
+    if name == "duplicates":
+        out = []
+        for dt, mode in ((i64, "rows"), (b, "cols"), (i32, "rows")):
+            dst, lanes, vals, _ = scatter_entry(g, dt, mode, 40, 6)
+            dup = [0, 3, 3]
+            vals = (np.concatenate([vals, vals[dup]]) if mode == "rows"
+                    else np.concatenate([vals, vals[:, dup]], axis=1))
+            out.append((dst, np.concatenate([lanes, lanes[dup]]), vals, mode))
+        return out
+    if name == "split":
+        return [scatter_entry(g, (b, i32, i64)[k % 3], ("rows", "cols")[k % 2],
+                              50, 1 + k, other=2) for k in range(20)]
+    if name == "slot_store":
+        # the slot store's twelve fields at 1,024 churned slots of 16,384
+        store = slot_store(g, 1 << 14, 4, 4, 10_000)
+        lanes = np.sort(g.choice(1 << 14, 1024, replace=False)).astype(i64)
+        out = []
+        for arr in store.values():
+            new = slot_store(g, len(lanes), 4, 4, 10_000)
+            vals = next(v for v in new.values() if v.dtype == arr.dtype
+                        and v.shape[1:] == arr.shape[1:])
+            out.append((arr, lanes, vals, "rows"))
+        return out
+    assert name == "cluster_side", name
+    # the cluster-side sync's scatterable fields at 64 churned lanes of a
+    # 10,000-lane fleet (4 resources, 9 request classes, 3 GVKs)
+    C = 10_000
+    lanes = np.sort(g.choice(C, 64, replace=False)).astype(np.int64)
+    spec = [(b, "rows", 0), (b, "rows", 0), (i64, "rows", 0),
+            (i64, "rows", 0), (b, "rows", 0), (i64, "rows", 4),
+            (b, "rows", 4), (i64, "cols", 9), (b, "cols", 3)]
+    return [scatter_entry(g, dt, mode, C, 0, other=o, lanes=lanes)
+            for dt, mode, o in spec]
+
+
+def fused_plane_syncs(M, device, n_windows=4):
+    """A fused resident plane of the port on `device` under its
+    incremental solver (300 clusters, 384 bindings, the shortlist armed):
+    adopt, then `n_windows` churn windows of bindings and cluster
+    capacity, the last with a forced audit that must be "ok".  After every
+    cycle each slot-store and cluster-side mirror must equal a fresh
+    place_slot of its master.  Returns, per mirror sync, (the sync's
+    class name, its deltas of resident_gather.COUNTS and of K10's launch
+    counter)."""
+    import torch
+
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import resident_gather as RG
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.resident import ResidentState
+    from karmada_tpu_torch.resident import state as ST
+    from karmada_tpu_torch.resident.deltas import CycleDeltas
+    from karmada_tpu_torch.scheduler.incremental import IncrementalSolver
+
+    SL.reset_for_tests()
+    rng = random.Random(5)
+    clusters, pls = build_megafleet(M, rng, 300, 12)
+    bindings = as_bindings(M, build_mega_bindings(M, rng, 384, pls, 128))
+    state = ResidentState(audit_interval=0, fused=True, device=device)
+    solver = IncrementalSolver(state, GeneralEstimator(), chunk=128,
+                               audit_every=0,
+                               shortlist=SL.ShortlistConfig(k=32,
+                                                            min_cells=0))
+    per_sync = []
+
+    def spied(cls, orig):
+        def sync(self, *a):
+            c0, k0 = dict(RG.COUNTS), kernels.LAUNCHES["scatter_lanes"]
+            out = orig(self, *a)
+            per_sync.append((cls.__name__,
+                             {k: RG.COUNTS[k] - c0[k] for k in c0},
+                             kernels.LAUNCHES["scatter_lanes"] - k0))
+            return out
+        return sync
+
+    origs = {cls: cls.sync for cls in (ST._DeviceRows, ST._DevicePlane)}
+    for cls, orig in origs.items():
+        cls.sync = spied(cls, orig)
+    try:
+        solver.adopt(clusters, bindings)
+        solver.write_back()
+        for window in range(n_windows):
+            deltas = churn(CycleDeltas, rng, clusters, bindings, 9,
+                           n_caps=window % 3)
+            rep = solver.cycle(clusters, bindings, deltas,
+                               force_audit=window == n_windows - 1)
+            solver.write_back()
+            p = state.plane
+            assert state.stats()["fused"]["rows_synced"]
+            for f in ST.DEVICE_SLOT_FIELDS:
+                assert torch.equal(state.device_rows.mirrors[f].cpu(),
+                                   RG.place_slot(getattr(p, f), "cpu")), f
+            for f in ST.CLUSTER_SIDE_FIELDS:
+                assert state.device_mirrors.np_refs[f] is getattr(p, f)
+                assert torch.equal(state.device_mirrors.mirrors[f].cpu(),
+                                   RG.place_slot(getattr(p, f), "cpu")), f
+        assert rep.audit_outcome == "ok"
+    finally:
+        for cls, orig in origs.items():
+            cls.sync = orig
+    return per_sync

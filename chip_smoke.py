@@ -15,10 +15,14 @@ region spread included; chunk 4096, 8 waves, carry on):
   2. kernel vs plain: each kernel against its plain PyTorch version,
      bit-exact, with CUDA-event times, the plain version's time, the least
      time the card could take (bound) and, for the COO extraction, a
-     torch.nonzero yardstick -- K1-K4 on the first chunk of the forward
-     cycle (4096 x 8192 lanes), K5 spread_group_info and K6 spread_pick on
-     that chunk's spread sub-batch, K2 on the big tier (and its K4
-     problems) on the first wide chunk's big sub-batch;
+     yardstick that computes the same function (the mask from rep, sel
+     and non_workload, torch.nonzero and a gather) -- K1-K4 on the first
+     chunk of the forward cycle (4096 x 8192 lanes), K5 spread_group_info
+     and K6 spread_pick on that chunk's spread sub-batch, K2 on the big
+     tier (and its K4 problems) on the first wide chunk's big sub-batch;
+     K2's wave 0 split into its stream operations (prepare, K4, finish;
+     CUDA events around each launch) and into host enqueue and device
+     time, on both tiers;
   3. forward cycle through scheduler.core.schedule_items, launch counters
      reset just before and read just after;
   4. rebalance cycle (prev assignments, reschedule triggers) the same way;
@@ -96,8 +100,11 @@ churn windows of config 5's first 16,384 bindings.
 
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE) phase 2 also times the parent's port against this one on the same
-card, in turns (old, new, new, old; TURN_ROUNDS rounds): K10 on one
-field, both mirror syncs kernel side and as walls, and K9.
+card, in turns (old, new, new, old; TURN_ROUNDS rounds): K3 and K2 std's
+wave 0 (with the parent's K2 split) on the first forward chunk, and,
+after phase 9, K10 on one field, both mirror syncs kernel side and as
+walls, and K9.  Before the JSON lines the run checks that K2's std tier
+allocated no key scratch.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -416,6 +423,36 @@ def split_ms(fn, reps: int):
     return host, (us / reps / 1e3 if us > 0 else None)
 
 
+def stage_ms(kmod, fn, reps: int) -> dict:
+    """Mean CUDA-event milliseconds of each kernel launch that one call of
+    `fn` makes through `kmod.launch` (a kernels module: this port's or the
+    parent's), by C entry, over `reps` calls after one warm-up: events
+    recorded on the stream just before and just after each launch."""
+    fn()
+    torch.cuda.synchronize()
+    orig, marks = kmod.launch, []
+
+    def timed(source, args, entry=None, count=None, device=None):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        orig(source, args, entry, count, device)
+        e1.record()
+        marks.append((entry or source, e0, e1))
+
+    kmod.launch = timed
+    try:
+        for _ in range(reps):
+            fn()
+    finally:
+        kmod.launch = orig
+    torch.cuda.synchronize()
+    out = {}
+    for name, e0, e1 in marks:
+        out.setdefault(name, []).append(e0.elapsed_time(e1))
+    return {k: sum(v) / len(v) for k, v in out.items()}
+
+
 def max_abs_err(pairs) -> float:
     err = 0.0
     for a, b in pairs:
@@ -498,14 +535,23 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
     out = (torch.empty((B, C), dtype=torch.int64, device=dev),
            torch.empty((B, C), dtype=torch.bool, device=dev),
            torch.empty((B,), dtype=torch.int32, device=dev))
-    it = iter([tuple(u.clone() for u in zeros) for _ in range(reps + 1)])
+    # the wave charges its rows into a carry; est0 stays wave 0's, so a
+    # carry reused across timed calls changes no call's work
+    used = tuple(u.clone() for u in zeros)
 
     def wave(fn):
-        return lambda: fn(db, 0, Bw, est0, *next(it), *out,
+        return lambda: fn(db, 0, Bw, est0, *used, *out,
                           use_extra=use_extra, charge=True, tier=tier)
 
+    from karmada_tpu_torch.ops import kernels
     ms = cuda_ms(wave(S.schedule_rows), reps)
-    it = iter([tuple(u.clone() for u in zeros) for _ in range(4)])
+    split = stage_ms(kernels, wave(S.schedule_rows), reps)
+    host, device = split_ms(wave(S.schedule_rows), reps)
+    log(f"phase 2 K2 split ({tier}, wave 0: {Bw} x {C}): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; split_ms host enqueue {host:.4f} ms, device "
+        + (f"{device:.4f} ms" if device is not None else "not measured")
+        + f"; key scratch allocated so far {S.KEY_SCRATCH_BYTES[tier]} B")
     plain_ms = cuda_ms(wave(S.schedule_rows_plain), 2)
     row_in = nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_static_w,
                     db.pl_extra_score, db.api_ok, db.cluster_valid,
@@ -522,7 +568,7 @@ def sort_ops(rows: int, C: int) -> float:
 
 
 def phase_kernels(batch, items, wide_items, fleet, args, dev,
-                  reps: int) -> list:
+                  reps: int, parent=None) -> list:
     """Each kernel vs its plain version on the same card inputs."""
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import solver as S
@@ -599,14 +645,16 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         raise AssertionError(f"compact nnz {nnz} != plain {int(c_p[3])}")
     err3 = max_abs_err([(c_k[0][:nnz], c_p[0]), (c_k[1][:nnz], c_p[1]),
                         (c_k[2], c_p[2])])
-    mask = ((sel_k & nw[:, None]) | (rep_k > 0)).reshape(-1)
     flat = rep_k.reshape(-1)
 
     def library():
+        # the same function as K3: the mask from rep, sel and nw, then
+        # torch.nonzero and a gather
+        mask = ((sel_k & nw[:, None]) | (rep_k > 0)).reshape(-1)
         i = torch.nonzero(mask).reshape(-1)
-        return flat[i]
+        return i, flat[i]
 
-    b3 = bound_ms(nbytes(rep_k, sel_k, nw) + nnz * 8 + (B + 1) * 8, B * C)
+    b3 = bound_ms(nbytes(rep_k, sel_k, nw) + nnz * 8 + 8, B * C)
     rows.append(dict(
         name="compact", route="cuda",
         source="karmada_tpu_torch/ops/csrc/compact.cu",
@@ -617,6 +665,8 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
                                                  False), reps),
         bound_ms=b3[0], bound_by=b3[1],
         library_ms=cuda_ms(library, reps)))
+    if parent is not None:
+        phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps)
 
     # K4 webster_batch on the Webster problems K2 handed it in wave 0
     s_k = S.webster_batch(*web)
@@ -1418,7 +1468,7 @@ def load_parent(tree: str):
     sys.path.insert(0, os.path.abspath(tree))
     mods = {m: importlib.import_module(f"karmada_tpu_torch_parent.{m}")
             for m in ("ops.kernels", "ops.resident_update", "ops.shortlist",
-                      "resident.state")}
+                      "ops.solver", "resident.state")}
     t0 = time.perf_counter()
     mods["ops.kernels"].build()
     log(f"phase 2 turns: the parent's port built in "
@@ -1485,6 +1535,69 @@ def phase_turns(parent, state, dev, reps, rounds=TURN_ROUNDS) -> dict:
     cases["K9 group_sums"] = (
         lambda: cuda_ms(lambda: OSL.group_sums(gid, capx, G), reps),
         lambda: cuda_ms(lambda: NSL.group_sums(gid, capx, G), reps))
+    return run_turns(cases, rounds)
+
+
+def phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps,
+                     rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns, at phase
+    2's shapes: K3 on the first forward chunk's dense result, and K2 std's
+    wave 0 (512 rows x 8192 lanes, K4 inside) on that chunk; the two
+    ports' results must agree first.  The parent's K2 split (prepare, K4,
+    finish) is logged once beside it."""
+    from karmada_tpu_torch.ops import solver as NS
+
+    OS, OK = parent["ops.solver"], parent["ops.kernels"]
+    nw = NS.device_batch(batch, dev).non_workload
+    old_c = OS.compact(rep_k, sel_k, st_k, nw, False)
+    new_c = NS.compact(rep_k, sel_k, st_k, nw, False)
+    nnz = int(new_c[3])
+    if int(old_c[3]) != nnz or not all(
+            torch.equal(a[:nnz], b[:nnz]) for a, b in zip(old_c[:2], new_c[:2])):
+        raise AssertionError("turns: K3 old and new disagree")
+    cases = {"K3 compact": (
+        lambda: cuda_ms(lambda: OS.compact(rep_k, sel_k, st_k, nw, False),
+                        reps),
+        lambda: cuda_ms(lambda: NS.compact(rep_k, sel_k, st_k, nw, False),
+                        reps))}
+    waves = {}
+    use_extra = NS._use_extra(batch)
+    for which, P in (("old", OS), ("new", NS)):
+        db = P.device_batch(batch, dev)
+        B, C = db.B, db.C
+        Bw = B // P._effective_waves(B, 8)
+        zeros = P._zeros_used(db)
+        est0 = P.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                          db.avail_milli, zeros[0], db.has_alloc,
+                          db.pods_allowed, zeros[1], db.has_summary,
+                          db.est_override, zeros[2])
+        used = tuple(u.clone() for u in zeros)
+        out = (torch.zeros((B, C), dtype=torch.int64, device=dev),
+               torch.zeros((B, C), dtype=torch.bool, device=dev),
+               torch.zeros((B,), dtype=torch.int32, device=dev))
+        waves[which] = (lambda P=P, db=db, est0=est0, used=used, out=out,
+                        Bw=Bw: P.schedule_rows(
+                            db, 0, Bw, est0, *used, *out,
+                            use_extra=use_extra, charge=True),
+                        used, out)
+    for which in ("old", "new"):
+        waves[which][0]()
+    if not all(torch.equal(a, b) for a, b in zip(
+            waves["old"][1] + waves["old"][2],
+            waves["new"][1] + waves["new"][2])):
+        raise AssertionError("turns: K2 old and new disagree")
+    split = stage_ms(OK, waves["old"][0], reps)
+    log("phase 2 turns K2 split of the parent (std, wave 0): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+    cases["K2 std wave (K4 inside)"] = (
+        lambda: cuda_ms(waves["old"][0], reps),
+        lambda: cuda_ms(waves["new"][0], reps))
+    return run_turns(cases, rounds)
+
+
+def run_turns(cases, rounds) -> dict:
+    """Each case's (old, new) timers in turns: old, new, new, old, for
+    `rounds` rounds; logs every reading and the means."""
     out = {name: {"old": [], "new": []} for name in cases}
     for _r in range(rounds):
         for which in ("old", "new", "new", "old"):
@@ -2142,9 +2255,11 @@ def main() -> int:
     import karmada_tpu_torch  # noqa: F401 — fails outside a checkout
 
     from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import solver as PS
     from karmada_tpu_torch.ops import tensors as T
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     power = phase_device()
     phase_build()
 
@@ -2174,8 +2289,9 @@ def main() -> int:
 
     first = T.encode_batch(items[:args.chunk], T.ClusterIndex.build(fleet),
                            GeneralEstimator(), cache=T.EncoderCache())
+    parent = load_parent(args.parent) if args.parent else None
     report, chunk_ms = phase_kernels(first, items, wide_items, fleet, args,
-                                     dev, args.reps)
+                                     dev, args.reps, parent)
     report += phase_kernels_k7_k9(items, fleet, (mfleet, mitems), args, dev,
                                   args.reps)
 
@@ -2209,8 +2325,8 @@ def main() -> int:
         M, mfleet, mplacements, INCREMENTAL_BINDINGS, args.chunk, dev,
         args.seed + 5)
     report += phase_kernels_k10_k12(state, solver, dev, args.reps)
-    if args.parent:
-        phase_turns(load_parent(args.parent), state, dev, args.reps)
+    if parent is not None:
+        phase_turns(parent, state, dev, args.reps)
     del state, solver, roster
     phase_parity_resident(items, fleet, args, dev)
 
@@ -2221,9 +2337,14 @@ def main() -> int:
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
                                                       mega, inc, loop))
+    log(f"K2 key scratch allocated in the run, bytes by tier: "
+        f"{PS.KEY_SCRATCH_BYTES}")
+    if PS.KEY_SCRATCH_BYTES["std"]:
+        raise AssertionError("K2's std tier allocated a key scratch")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the report")
     log(f"card: {power}")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,10 +15,21 @@
 //   2. the lane set: every lane when C <= DIRECT_MAX (528 std, 4224 big),
 //      else the union of top-G_PREV by prev key and top-G_TOPK by each of
 //      three (four with plugin scores) packed keys (16 / 128 std, 128 /
-//      1024 big).  Keys go to a per-row scratch in device memory;
-//      rows.cuh topk_select (shared with K8) finds each group's members
-//      as lax.top_k does, and an ordered scan writes the union ascending.
-//      Works for any C up to 2^21;
+//      1024 big), each group's members as lax.top_k finds them.  Works for
+//      any C up to 2^21.  The std tier keeps no key in device memory: its
+//      select (gather_lanes_std) recomputes every lane's keys (lane_std,
+//      rows.cuh lane_info's result) on each pass over C -- from the wave's
+//      est row, the [P, C] and [C] planes and the row's COO entries, which
+//      every row of the wave shares in L2 -- and narrows each group by a
+//      radix select with filtering: one pass counts each group's keys and
+//      reduces their OR and AND (the bits above the highest one that
+//      varies are common), a histogram pass per 8-bit digit below it until
+//      the boundary bucket holds at most SEL_SHARE keys, one pass that
+//      collects that bucket into shared memory where the group's threshold
+//      is found, a fill scan for groups short of k, and one pass for the
+//      ordered union (membership words by warp ballot).  The big tier
+//      writes its keys to a per-row scratch in device memory and selects
+//      with rows.cuh topk_select (shared with K8);
 //   3. the lane math on those lanes (<= LMAX: 656 std, 5248 big): locality
 //      score, selection by packed key (bitonic sort of (key, lane) pairs =
 //      a stable argsort) and the capacity swap loop, strategy and mode,
@@ -29,18 +40,23 @@
 //   4. schedule_rows_finish: the dense rep/sel row (wide Duplicated /
 //      selection formulas over all lanes, then the gathered lanes) and
 //      status, and the row's new consumption added into used_* with 64-bit
-//      integer atomics (exact and order-free).
+//      integer atomics (exact and order-free).  Lane feasibility comes
+//      from lane_std on the std tier (est is fixed for the wave and
+//      lane_std reads no used_*), from the key scratch on the big tier.
 //
-// Bound on the card: at 4096 x 8192 the dense output (rep int64 + sel) and
-// the key scratch dominate the bytes; the bisections of Webster and the
-// sorts are block-local operations.  Design: simple and right first -- one
-// block per row keeps every row's control flow independent (rows diverge
-// in strategy and loop counts).  The std tier keeps a row's lane working
-// set (~8.6 KB) and sort buffer in shared memory.  The big tier's working
-// set (~470 KB at 5,248 lanes) exceeds a block's 227 KB, so it lives in a
+// Bound on the card: at 4096 x 8192 the dense output (rep int64 + sel)
+// dominates the bytes; the bisections of Webster and the sorts are
+// block-local operations.  Design: one block per row keeps every row's
+// control flow independent (rows diverge in strategy and loop counts).
+// The std tier keeps a row's lane working set and sort buffer in shared
+// memory, 48 KB a block at Kp = Ke = 4 (work_bytes(656) 35,424 B, of
+// which the select's histograms and candidates borrow 15,360 B before
+// the lane math runs, and sort_bytes 12,352 B), so four blocks fit on an
+// SM and a 512-row wave runs in one round.  The big tier's working set
+// (~283 KB at 5,248 lanes) exceeds a block's 227 KB, so it lives in a
 // per-row scratch in device memory (`work`; at sub-batch row counts it
 // stays in L2), and shared memory holds only the (key, lane) sort buffer
-// (8,192 entries, 96 KB), the COO entries and the reductions.
+// (8,192 entries, 96 KB), the COO entries and the radix histograms.
 #include "webster.cuh"
 #include "rows.cuh"
 
@@ -52,8 +68,13 @@ constexpr int STATUS_OK = 0, STATUS_FIT_ERROR = 1, STATUS_UNSCHEDULABLE = 2,
               STATUS_NO_CLUSTER = 3;
 
 // gather geometry per lane tier (solver.py TIERS): LMAX = G_PREV + 5 *
-// G_TOPK gathered lanes at most, SORTN a power of two >= LMAX
-template <int G_PREV_, int G_TOPK_, int DIRECT_MAX_, bool WORK_SMEM_>
+// G_TOPK gathered lanes at most, SORTN a power of two >= LMAX; WORK_SMEM:
+// the lane working set in shared memory (else the device-memory `work`
+// scratch); SCRATCH_KEYS: the gather's keys in the device-memory key
+// scratch, selected by topk_select (else recomputed, gather_lanes_std);
+// MIN_BLOCKS: blocks an SM must hold at once
+template <int G_PREV_, int G_TOPK_, int DIRECT_MAX_, bool WORK_SMEM_,
+          bool SCRATCH_KEYS_, int MIN_BLOCKS_>
 struct Tier {
   static constexpr int G_PREV = G_PREV_;
   static constexpr int G_TOPK = G_TOPK_;
@@ -61,11 +82,16 @@ struct Tier {
   static constexpr int LMAX = G_PREV_ + NG_MAX * G_TOPK_;
   static constexpr int SORTN = LMAX <= 1024 ? 1024 : 8192;
   static constexpr bool WORK_SMEM = WORK_SMEM_;
+  static constexpr bool SCRATCH_KEYS = SCRATCH_KEYS_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
 };
-using TierStd = Tier<16, 128, 528, true>;
-using TierBig = Tier<128, 1024, 4224, false>;
+using TierStd = Tier<16, 128, 528, true, false, 4>;
+using TierBig = Tier<128, 1024, 4224, false, true, 1>;
 static_assert(TierStd::LMAX == 656 && TierBig::LMAX == 5248, "lane geometry");
 static_assert(TierBig::SORTN >= TierBig::LMAX, "sort buffer");
+
+// candidates one group of gather_lanes_std holds in shared memory
+constexpr int SEL_SHARE = 256;
 
 struct RowsArgs {
   const unsigned char* cluster_valid;  // [C]
@@ -103,7 +129,7 @@ struct RowsArgs {
   i64* rep;                            // [B, C]
   unsigned char* sel;                  // [B, C]
   int* status;                         // [B]
-  i64* scratch;                        // [rows, NG, C] keys (gather path)
+  i64* scratch;                        // [rows, NG, C] keys (big tier)
   char* work;                          // [rows, work_bytes] big tier only
   // per-row work of one launch slice ([rows] / [rows, LMAX]): the Webster
   // problems K4 solves, and what the finish step needs
@@ -126,38 +152,45 @@ constexpr int FLAG_OK = 1 << 8, FLAG_SEATS = 1 << 9, FLAG_DUP_WIDE = 1 << 10,
               FLAG_HAS_SC = 1 << 11, FLAG_VALID = 1 << 12;
 
 // one row's working memory: the lane arrays (`work`: shared memory on the
-// std tier, device memory on the big tier) and the sort buffer, COO
-// entries and radix histograms (`sort`: always shared memory)
+// std tier, device memory on the big tier) and the sort buffer and COO
+// entries (`sort`: always shared memory).  The radix histograms live in
+// `sort` on the big tier; on the std tier they and the select's
+// candidates borrow the int64 lane arrays, which the gather precedes.
+// Lane ids, positions and ranks are int32 (< 2^21 lanes).
 struct Smem {
-  i64 *avail_cal, *prev_rep, *extra, *nr, *static_w, *avail, *w, *rest_pos,
-      *rank_w, *skey, *pval;
-  int *lane, *pos, *order, *sidx, *pidx, *eidx, *hist;
+  i64 *avail_cal, *prev_rep, *w, *skey, *pval, *cand;
+  int *nr, *rank_w, *rest_pos, *lane, *pos, *order, *sidx, *pidx, *eidx,
+      *hist;
   unsigned char *feas, *pp, *sel, *in_sel, *active, *inc;
 };
 
 __host__ __device__ inline size_t work_bytes(int lmax) {
-  return ((size_t)9 * lmax * 8 + (size_t)3 * lmax * 4 + (size_t)6 * lmax +
+  return ((size_t)3 * lmax * 8 + (size_t)6 * lmax * 4 + (size_t)6 * lmax +
           15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t sort_bytes(int sortn, i64 Kp, i64 Ke) {
-  return (size_t)(sortn + Kp) * 8 + (size_t)(sortn + Kp + Ke + NG_MAX * 256) * 4;
+__host__ __device__ inline size_t sort_bytes(int sortn, i64 Kp, i64 Ke,
+                                             bool with_hist) {
+  return (size_t)(sortn + Kp) * 8 +
+         (size_t)(sortn + Kp + Ke + (with_hist ? NG_MAX * 256 : 0)) * 4;
 }
 
-__device__ inline Smem carve(char* work, char* sort, int lmax, int sortn,
-                             i64 Kp, i64 Ke) {
+static_assert((size_t)NG_MAX * 256 * 4 + (size_t)NG_MAX * SEL_SHARE * 8 <=
+                  (size_t)3 * TierStd::LMAX * 8,
+              "the std select's histograms and candidates fit the lane arrays");
+
+template <class T>
+__device__ inline Smem carve(char* work, char* sort, i64 Kp, i64 Ke) {
+  constexpr int lmax = T::LMAX, sortn = T::SORTN;
   Smem s;
   i64* p = (i64*)work;
   s.avail_cal = p; p += lmax;
   s.prev_rep = p; p += lmax;
-  s.extra = p; p += lmax;
-  s.nr = p; p += lmax;
-  s.static_w = p; p += lmax;
-  s.avail = p; p += lmax;
   s.w = p; p += lmax;
-  s.rest_pos = p; p += lmax;
-  s.rank_w = p; p += lmax;
   int* q = (int*)p;
+  s.nr = q; q += lmax;
+  s.rank_w = q; q += lmax;
+  s.rest_pos = q; q += lmax;
   s.lane = q; q += lmax;
   s.pos = q; q += lmax;
   s.order = q; q += lmax;
@@ -175,18 +208,25 @@ __device__ inline Smem carve(char* work, char* sort, int lmax, int sortn,
   s.sidx = q; q += sortn;
   s.pidx = q; q += Kp;
   s.eidx = q; q += Ke;
-  s.hist = q; q += NG_MAX * 256;
+  if constexpr (T::SCRATCH_KEYS) {
+    s.hist = q;
+    s.cand = nullptr;
+  } else {
+    s.hist = (int*)work;
+    s.cand = (i64*)(work + NG_MAX * 256 * 4);
+  }
   return s;
 }
 
-// Stable ascending argsort of key[0..U) (ties by lane index; rows.cuh
+// Stable ascending argsort of key(0..U) (ties by lane index; rows.cuh
 // block_sort): pos[i] is lane i's rank, order[p] the lane at rank p.
 // U <= the tier's SORTN.
-__device__ void block_argsort(const i64* key, int U, Smem& s) {
+template <class K>
+__device__ void block_argsort(int U, Smem& s, K key) {
   int N = 2;
   while (N < U) N <<= 1;
   for (int i = threadIdx.x; i < N; i += NT) {
-    s.skey[i] = i < U ? key[i] : KT_MAX_INT64;
+    s.skey[i] = i < U ? key(i) : KT_MAX_INT64;
     s.sidx[i] = i;
   }
   __syncthreads();
@@ -273,18 +313,362 @@ __device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
   return U;
 }
 
+// One row's [P, C], [G, C] and [Q + 1, C] plane rows, for K2 std's
+// passes over every lane (lane_std, lane_keys)
+struct RowPlanes {
+  const unsigned char *mask, *tol, *api;
+  const i64 *est, *static_w, *extra;
+};
+
+__device__ __forceinline__ RowPlanes row_planes(const RowsArgs& a,
+                                                const Row& row) {
+  const i64 pc = row.pid * a.C;
+  return {a.pl_mask + pc, a.pl_tol_bypass + pc, a.api_ok + row.gvk * a.C,
+          a.est + row.cid * a.C, a.pl_static_w + pc, a.pl_extra_score + pc};
+}
+
+// rows.cuh lane_info for K2 std's passes over C, with the same result:
+// every load issued up front, on no condition but the row's, and the
+// feasibility test without short circuits, so a lane costs one round
+// trip to L2, not one per test.  *nr receives the lane's name rank, *sw
+// its static weight on a StaticWeight row (else 0).
+__device__ __forceinline__ LaneInfo lane_std(const RowsArgs& a,
+                                             const Row& row,
+                                             const RowPlanes& P, int c,
+                                             i64* nr, i64* sw) {
+  const bool valid = a.cluster_valid[c], del = a.deleting[c];
+  const bool mask = P.mask[c], tol = P.tol[c], api = P.api[c];
+  const i64 est_b = P.est[c];
+  *nr = a.name_rank[c];
+  *sw = row.strategy == STRAT_STATIC ? P.static_w[c] : 0;
+  LaneInfo l;
+  l.pp = false;
+  l.pr = 0;
+  for (int e = 0; e < row.n_prev; ++e)
+    if (row.pidx[e] == c) { l.pp = true; l.pr += row.pval[e]; }
+  l.ev = false;
+  for (int e = 0; e < row.n_evict; ++e) l.ev |= row.eidx[e] == c;
+  l.ac = est_b == KT_MAX_INT32 ? row.n : est_b;
+  if (row.nw_shortcut) l.ac = KT_MAX_INT32;
+  l.feas = valid & !del & mask & (tol | l.pp) & (api | l.pp) & !l.ev;
+  return l;
+}
+
+// Every group's packed gather key of lane c at once (k[g], g < ng; the
+// rest untouched): gather_key's keys from lane_std.
+__device__ __forceinline__ void lane_keys(const RowsArgs& a, const Row& row,
+                                          const RowPlanes& P, bool has_prev,
+                                          int ng, int c, i64* k) {
+  i64 nr, sw;
+  const LaneInfo l = lane_std(a, row, P, c, &nr, &sw);
+  const i64 xs = ng > 4 ? P.extra[c] : 0;
+  const i64 avail_sel = l.ac + (l.pp ? l.pr : 0);
+  const i64 by_name = LANE_MASK - nr;
+  k[0] = l.pp ? by_name : -1;
+  const i64 wg = row.strategy == STRAT_STATIC ? sw : avail_sel;
+  const i64 wq = shl(clampll(wg, 0, AVAIL_CAP), LANE_BITS);
+  const i64 aq = shl(clampll(avail_sel, 0, AVAIL_CAP), LANE_BITS);
+  k[1] = l.feas ? wq | (LANE_MASK - (row.uid_desc ? a.C - 1 - nr : nr)) : -1;
+  k[2] = l.feas ? wq | by_name : -1;
+  k[3] = l.feas ? aq | by_name : -1;
+  if (ng > 4) {
+    const i64 score = ((has_prev && l.pp) ? 100 : 0) + xs;
+    k[4] = l.feas ? shl(clampll(score, 0, 255), AVAIL_BITS + LANE_BITS) |
+                        aq | by_name
+                  : -1;
+  }
+}
+
+// f(k) with the keys k (lane_keys) of every lane c < C, the block's
+// threads striding over the lanes two at a time: a thread computes both
+// lanes' keys before either call, so the loads of two lanes are in flight
+// together.
+template <class F>
+__device__ __forceinline__ void for_lane_keys(const RowsArgs& a,
+                                              const Row& row,
+                                              const RowPlanes& P,
+                                              bool has_prev, int ng, F f) {
+  const int C = (int)a.C;
+  for (int c = threadIdx.x; c < C; c += 2 * NT) {
+    const int c1 = c + NT;
+    i64 k0[NG_MAX], k1[NG_MAX];
+    lane_keys(a, row, P, has_prev, ng, c, k0);
+    if (c1 < C) lane_keys(a, row, P, has_prev, ng, c1, k1);
+    f(k0);
+    if (c1 < C) f(k1);
+  }
+}
+
+// the select's per-group state (gather_lanes_std)
+constexpr int SEL_DONE = 0, SEL_FILL = 1, SEL_REFINE = 2, SEL_COLLECT = 3;
+
+// Step 2 of the gather path on the std tier: the union of the groups'
+// top-k lanes into s.lane (ascending); returns its size.  The same index
+// sets as gather_lanes + topk_select, without a key in device memory: a
+// group's threshold thr[g] is its kg-th largest key, found by narrowing a
+// prefix `pre` of the key's bits above `shift` (the candidates: eligible
+// keys that share it) until at most SEL_SHARE candidates remain, which
+// one more pass collects into shared memory.  A group with at most kg
+// eligible keys takes them all (thr 0) and, short of kg, the lowest-index
+// -1 lanes up to cut[g] (lax.top_k's tie order; rows.cuh topk_select's
+// fill).  Non-negative keys of one group are distinct (their low 21 bits
+// hold the lane's rank), so every candidate set holds the threshold once.
+template <class T>
+__device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
+                                int* wsum) {
+  constexpr int G_PREV = T::G_PREV, G_TOPK = T::G_TOPK;
+  const int ng = a.use_extra ? 5 : 4;
+  const bool has_prev = row.n_prev > 0;
+  const RowPlanes P = row_planes(a, row);
+  const int C = (int)a.C;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  __shared__ int cnt[NG_MAX], rem[NG_MAX], shift[NG_MAX], state[NG_MAX],
+      ccount[NG_MAX];
+  __shared__ u64 kor[NG_MAX], kand[NG_MAX], pre[NG_MAX];
+  __shared__ i64 thr[NG_MAX], cut[NG_MAX];
+  if (threadIdx.x < NG_MAX) {
+    cnt[threadIdx.x] = 0;
+    kor[threadIdx.x] = 0;
+    kand[threadIdx.x] = ~0ULL;
+  }
+  __syncthreads();
+  // pass 1: each group's eligible count, and the OR / AND of its keys
+  {
+    int my_cnt[NG_MAX] = {0, 0, 0, 0, 0};
+    u64 my_or[NG_MAX] = {0, 0, 0, 0, 0};
+    u64 my_and[NG_MAX] = {~0ULL, ~0ULL, ~0ULL, ~0ULL, ~0ULL};
+    for_lane_keys(a, row, P, has_prev, ng, [&](const i64* k) {
+#pragma unroll
+      for (int g = 0; g < NG_MAX; ++g)
+        if (g < ng && k[g] >= 0) {
+          ++my_cnt[g];
+          my_or[g] |= (u64)k[g];
+          my_and[g] &= (u64)k[g];
+        }
+    });
+#pragma unroll
+    for (int g = 0; g < NG_MAX; ++g) {
+      if (g >= ng) break;
+      for (int o = 16; o > 0; o >>= 1) {
+        my_cnt[g] += __shfl_xor_sync(KT_FULL_MASK, my_cnt[g], o);
+        my_or[g] |= __shfl_xor_sync(KT_FULL_MASK, my_or[g], o);
+        my_and[g] &= __shfl_xor_sync(KT_FULL_MASK, my_and[g], o);
+      }
+      if (lane == 0 && my_cnt[g] > 0) {
+        atomicAdd(&cnt[g], my_cnt[g]);
+        atomicOr((unsigned long long*)&kor[g], my_or[g]);
+        atomicAnd((unsigned long long*)&kand[g], my_and[g]);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < ng) {
+    const int g = threadIdx.x;
+    const int kg = g == 0 ? G_PREV : G_TOPK;
+    thr[g] = 0;
+    cut[g] = -1;
+    rem[g] = kg;
+    if (cnt[g] > kg) {
+      // the bits above the highest one that varies are common to all
+      const u64 diff = kor[g] ^ kand[g];
+      const int sh = diff ? 64 - __clzll((long long)diff) : 0;
+      shift[g] = sh;
+      pre[g] = sh ? kand[g] & ~((1ULL << sh) - 1) : kand[g];
+      state[g] = (cnt[g] <= SEL_SHARE || sh == 0) ? SEL_COLLECT : SEL_REFINE;
+    } else {
+      state[g] = cnt[g] < kg ? SEL_FILL : SEL_DONE;
+    }
+  }
+  __syncthreads();
+  int* hist = s.hist;
+  // histogram passes: each refining group takes the next digit (up to 8
+  // bits) below its prefix
+  for (;;) {
+    bool refine[NG_MAX];
+    bool any = false;
+#pragma unroll
+    for (int g = 0; g < NG_MAX; ++g) {
+      refine[g] = g < ng && state[g] == SEL_REFINE;
+      any |= refine[g];
+    }
+    if (!any) break;
+    int sh[NG_MAX], lo[NG_MAX];
+    u64 pf[NG_MAX];
+#pragma unroll
+    for (int g = 0; g < NG_MAX; ++g) {
+      sh[g] = refine[g] ? shift[g] : 0;
+      lo[g] = sh[g] > 8 ? sh[g] - 8 : 0;
+      pf[g] = refine[g] ? pre[g] >> sh[g] : 0;
+    }
+    for (int i = threadIdx.x; i < ng * 256; i += NT)
+      if (refine[i >> 8]) hist[i] = 0;
+    __syncthreads();
+    for_lane_keys(a, row, P, has_prev, ng, [&](const i64* k) {
+#pragma unroll
+      for (int g = 0; g < NG_MAX; ++g)
+        if (refine[g] && k[g] >= 0 && ((u64)k[g] >> sh[g]) == pf[g])
+          atomicAdd(&hist[g * 256 + (int)(((u64)k[g] >> lo[g]) &
+                                          ((1u << (sh[g] - lo[g])) - 1u))],
+                    1);
+    });
+    __syncthreads();
+    // warp g walks group g's bins from the top: lane j holds bins
+    // 8j..8j+7; the bin where the count from the top reaches rem[g]
+    if (wid < ng && refine[wid]) {
+      const int g = wid;
+      int loc[8], sum = 0;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        loc[q] = hist[g * 256 + lane * 8 + q];
+        sum += loc[q];
+      }
+      int incl = sum;  // bins at and above this lane's
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_down_sync(KT_FULL_MASK, incl, o);
+        if (lane + o < 32) incl += t;
+      }
+      const int r = rem[g];
+      int above = incl - sum;
+      if (above < r && r <= incl) {
+        for (int q = 7; q >= 0; --q) {
+          if (above + loc[q] >= r) {
+            rem[g] = r - above;
+            pre[g] |= (u64)(lane * 8 + q) << lo[g];
+            shift[g] = lo[g];
+            state[g] = (loc[q] <= SEL_SHARE || lo[g] == 0) ? SEL_COLLECT
+                                                           : SEL_REFINE;
+            break;
+          }
+          above += loc[q];
+        }
+      }
+    }
+    __syncthreads();
+  }
+  // the collect pass: each selecting group's candidates into shared
+  // memory, then the one with rem[g] - 1 larger candidates is thr[g]
+  bool coll[NG_MAX];
+  bool any_coll = false;
+#pragma unroll
+  for (int g = 0; g < NG_MAX; ++g) {
+    coll[g] = g < ng && state[g] == SEL_COLLECT;
+    any_coll |= coll[g];
+  }
+  if (any_coll) {
+    int sh[NG_MAX];
+    u64 pf[NG_MAX];
+#pragma unroll
+    for (int g = 0; g < NG_MAX; ++g) {
+      sh[g] = coll[g] ? shift[g] : 0;
+      pf[g] = coll[g] ? pre[g] >> sh[g] : 0;
+    }
+    if (threadIdx.x < NG_MAX) ccount[threadIdx.x] = 0;
+    __syncthreads();
+    i64* cand = s.cand;
+    for_lane_keys(a, row, P, has_prev, ng, [&](const i64* k) {
+#pragma unroll
+      for (int g = 0; g < NG_MAX; ++g)
+        if (coll[g] && k[g] >= 0 && ((u64)k[g] >> sh[g]) == pf[g]) {
+          const int at = atomicAdd(&ccount[g], 1);
+          if (at < SEL_SHARE) cand[g * SEL_SHARE + at] = k[g];
+        }
+    });
+    __syncthreads();
+    for (int i = threadIdx.x; i < ng * SEL_SHARE; i += NT) {
+      const int g = i / SEL_SHARE;
+      const int m = min(ccount[g], SEL_SHARE);
+      if (!coll[g] || i - g * SEL_SHARE >= m) continue;
+      const i64 k = cand[i];
+      int larger = 0;
+      for (int j = 0; j < m; ++j) larger += cand[g * SEL_SHARE + j] > k;
+      if (larger == rem[g] - 1) thr[g] = k;
+    }
+  }
+  // the fill: lax.top_k takes the lowest-index -1 lanes of a group short
+  // of kg; the scan stops once every such group has its cut
+  {
+    int need[NG_MAX], seen[NG_MAX];
+    bool open = false;
+#pragma unroll
+    for (int g = 0; g < NG_MAX; ++g) {
+      need[g] = (g < ng && state[g] == SEL_FILL)
+                    ? (g == 0 ? G_PREV : G_TOPK) - cnt[g] : 0;
+      seen[g] = 0;
+      open |= need[g] > 0;
+    }
+    for (i64 base = 0; open && base < a.C; base += NT) {
+      const i64 c = base + threadIdx.x;
+      i64 k[NG_MAX] = {0, 0, 0, 0, 0};
+      if (c < a.C) lane_keys(a, row, P, has_prev, ng, (int)c, k);
+      open = false;
+#pragma unroll
+      for (int g = 0; g < NG_MAX; ++g) {
+        if (seen[g] >= need[g]) continue;
+        const bool f = c < a.C && k[g] == -1;
+        int total;
+        const int p = block_scan_flag<NT>(f, wsum, &total);
+        if (f && seen[g] + p + 1 == need[g]) cut[g] = c;
+        seen[g] += total;
+        open |= seen[g] < need[g];
+      }
+    }
+  }
+  __syncthreads();
+  // ordered union of the members, NT * 32 lanes a chunk: warp ballots
+  // give one membership word per 32 consecutive lanes (word t: lanes
+  // base + 32t ..), then one scan over the words places each word's lanes
+  auto member = [&](int c) -> bool {
+    if (c >= C) return false;
+    i64 k[NG_MAX];
+    lane_keys(a, row, P, has_prev, ng, c, k);
+    bool m = false;
+#pragma unroll
+    for (int g = 0; g < NG_MAX; ++g)
+      if (g < ng) m |= k[g] >= 0 ? k[g] >= thr[g] : c <= cut[g];
+    return m;
+  };
+  __shared__ i64 ubuf[33];
+  __shared__ int utotal;
+  unsigned* words = (unsigned*)hist;  // NT words; the histograms are done
+  int U = 0;
+  for (int base = 0; base < C; base += NT * 32) {
+    __syncthreads();
+    for (int q = 0; q < 32; q += 2) {
+      const int c0 = base + q * NT + (int)threadIdx.x, c1 = c0 + NT;
+      const bool m0 = member(c0), m1 = member(c1);
+      const unsigned w0 = __ballot_sync(KT_FULL_MASK, m0);
+      const unsigned w1 = __ballot_sync(KT_FULL_MASK, m1);
+      if (lane == 0) {
+        words[q * (NT / 32) + wid] = w0;
+        words[(q + 1) * (NT / 32) + wid] = w1;
+      }
+    }
+    __syncthreads();
+    unsigned w = words[threadIdx.x];
+    const int n_w = __popc(w);
+    int at = U + (int)block_scan_excl<NT>(n_w, ubuf);
+    if (threadIdx.x == NT - 1) utotal = at - U + n_w;
+    for (; w; w &= w - 1) s.lane[at++] = base + 32 * threadIdx.x + __ffs(w) - 1;
+    __syncthreads();
+    U += utotal;
+  }
+  __syncthreads();
+  return U;
+}
+
 // Steps 1-3: the row's lane set and lane math up to its Webster problem
 // (web_*), plus what step 4 needs (wk_*).
 template <class T>
-__global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
+__global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
+    schedule_rows_prepare(RowsArgs a) {
   constexpr int LMAX = T::LMAX;
   extern __shared__ __align__(16) char smem_raw[];
   __shared__ i64 red[33];
   __shared__ int wsum[NT / 32];
   const i64 slot = blockIdx.x;
-  Smem s = carve(T::WORK_SMEM ? smem_raw : a.work + slot * work_bytes(LMAX),
-                 T::WORK_SMEM ? smem_raw + work_bytes(LMAX) : smem_raw, LMAX,
-                 T::SORTN, a.Kp, a.Ke);
+  Smem s = carve<T>(
+      T::WORK_SMEM ? smem_raw : a.work + slot * work_bytes(LMAX),
+      T::WORK_SMEM ? smem_raw + work_bytes(LMAX) : smem_raw, a.Kp, a.Ke);
   Row row;
   row.slot = slot;
   const i64 b = a.r0 + slot;
@@ -319,46 +703,47 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
     for (int i = threadIdx.x; i < U; i += NT) s.lane[i] = i;
     __syncthreads();
   } else {
-    U = gather_lanes<T>(a, row, s, red, wsum);
+    if constexpr (T::SCRATCH_KEYS) U = gather_lanes<T>(a, row, s, red, wsum);
+    else U = gather_lanes_std<T>(a, row, s, wsum);
   }
   for (int i = threadIdx.x; i < U; i += NT) {
     const i64 c = s.lane[i];
     const LaneInfo l = lane_info(a, row, c);
-    const i64 pc = row.pid * C + c;
     s.feas[i] = l.feas;
     s.pp[i] = l.pp;
     s.prev_rep[i] = l.pr;
     s.avail_cal[i] = l.ac;
-    s.extra[i] = a.pl_extra_score[pc];
-    s.nr[i] = a.name_rank[c];
-    s.static_w[i] = a.pl_static_w[pc];
-    s.rank_w[i] = rank_eff_of(a, row, c);  // sort key; densified below
+    s.nr[i] = (int)a.name_rank[c];
   }
   __syncthreads();
-  block_argsort(s.rank_w, U, s);
+  // the lanes' ranks, densified in rank_eff order
+  block_argsort(U, s, [&](int i) { return rank_eff_of(a, row, s.lane[i]); });
   for (int i = threadIdx.x; i < U; i += NT) s.rank_w[i] = s.pos[i];
   __syncthreads();
+  // what the lane math reads and the working set does not keep
+  auto avail = [&](int i) -> i64 {
+    return s.avail_cal[i] + (s.pp[i] ? s.prev_rep[i] : 0);
+  };
+  auto static_w = [&](int i) -> i64 {
+    return a.pl_static_w[row.pid * C + s.lane[i]];
+  };
 
   // 3. the lane math (JAX _assign_lanes)
   i64 t_fc = 0, t_pp = 0;
   for (int i = threadIdx.x; i < U; i += NT) { t_fc += s.feas[i]; t_pp += s.pp[i]; }
   const i64 fcount = block_sum<NT>(t_fc, red);
   const bool has_prev = block_sum<NT>(t_pp, red) > 0;
-  for (int i = threadIdx.x; i < U; i += NT)
-    s.avail[i] = s.avail_cal[i] + (s.pp[i] ? s.prev_rep[i] : 0);
-  __syncthreads();
   bool unsched_sel = false;
   if (row.has_sc) {
     // selection by cluster: packed key (score desc, avail desc, name asc)
-    for (int i = threadIdx.x; i < U; i += NT) {
-      const i64 score = ((has_prev && s.pp[i]) ? 100 : 0) + s.extra[i];
-      const i64 ac = clampll(s.avail[i], 0, AVAIL_CAP);
-      s.w[i] = s.feas[i] ? (shl(200 - score, AVAIL_BITS + LANE_BITS) |
-                            shl(AVAIL_CAP - ac, LANE_BITS) | s.nr[i])
-                         : KT_MAX_INT64;
-    }
-    __syncthreads();
-    block_argsort(s.w, U, s);
+    block_argsort(U, s, [&](int i) -> i64 {
+      if (!s.feas[i]) return KT_MAX_INT64;
+      const i64 score = ((has_prev && s.pp[i]) ? 100 : 0) +
+                        a.pl_extra_score[row.pid * C + s.lane[i]];
+      const i64 ac = clampll(avail(i), 0, AVAIL_CAP);
+      return shl(200 - score, AVAIL_BITS + LANE_BITS) |
+             shl(AVAIL_CAP - ac, LANE_BITS) | s.nr[i];
+    });
     const i64 need = minll(row.sc_max, fcount);
     for (int i = threadIdx.x; i < U; i += NT) {
       s.in_sel[i] = s.feas[i] && s.pos[i] < need;
@@ -367,7 +752,7 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
     __syncthreads();
     auto total_sel = [&]() -> i64 {
       i64 t = 0;
-      for (int i = threadIdx.x; i < U; i += NT) t += s.in_sel[i] ? s.avail[i] : 0;
+      for (int i = threadIdx.x; i < U; i += NT) t += s.in_sel[i] ? avail(i) : 0;
       return block_sum<NT>(t, red);
     };
     if (!row.ignore) {
@@ -382,7 +767,7 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
         for (int i = threadIdx.x; i < U; i += NT) {
           const i64 cand =
               (s.feas[i] && !s.in_sel[i])
-                  ? (shl(clampll(s.avail[i], 0, AVAIL_CAP), LANE_BITS) |
+                  ? (shl(clampll(avail(i), 0, AVAIL_CAP), LANE_BITS) |
                      (LANE_MASK - clampll(s.rest_pos[i], 0, LANE_MASK)))
                   : -1;
           if (cand > bv) { bv = cand; bi = i; }
@@ -403,7 +788,7 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
               bv = wbest[wi];
               bi = ibest[wi];
             }
-          if (bv >= 0 && s.avail[bi] > s.avail[cur]) {
+          if (bv >= 0 && avail(bi) > avail(cur)) {
             s.in_sel[bi] = 1;
             s.in_sel[cur] = 0;
             s.rest_pos[cur] = s.rest_pos[bi];
@@ -437,7 +822,7 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
   bool static_pos = false;
   if (is_static) {
     i64 t = 0;
-    for (int i = threadIdx.x; i < U; i += NT) t += s.static_w[i] * s.sel[i];
+    for (int i = threadIdx.x; i < U; i += NT) t += static_w(i) * s.sel[i];
     static_pos = block_sum<NT>(t, red) > 0;
   }
   i64 t_w = 0;
@@ -445,7 +830,7 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
     const i64 sl = s.sel[i];
     const i64 sched = (s.sel[i] && s.pp[i]) ? s.prev_rep[i] : 0;
     i64 w = 0;
-    if (is_static) w = static_pos ? s.static_w[i] * sl : sl;
+    if (is_static) w = static_pos ? static_w(i) * sl : sl;
     if (is_fresh) w = s.avail_cal[i] * sl + sched;
     if (scale_up) w = s.avail_cal[i] * sl;
     if (scale_down) w = s.pp[i] ? s.prev_rep[i] : 0;
@@ -459,15 +844,13 @@ __global__ void __launch_bounds__(NT) schedule_rows_prepare(RowsArgs a) {
   const bool unsched_div = is_dynamic && block_sum<NT>(t_w, red) < target;
   // Aggregated: trim to the capacity-descending prefix reaching target
   if (row.strategy == STRAT_AGGREGATED && (is_fresh || scale_up || scale_down)) {
-    for (int i = threadIdx.x; i < U; i += NT) {
-      const bool prior = scale_up && s.pp[i] && s.sel[i] && s.prev_rep[i] > 0;
-      s.rest_pos[i] = s.active[i]
-          ? (shl(prior ? 0 : 1, AVAIL_BITS + LANE_BITS) |
-             shl(AVAIL_CAP - clampll(s.w[i], 0, AVAIL_CAP), LANE_BITS) | s.nr[i])
-          : KT_MAX_INT64;
-    }
     __syncthreads();
-    block_argsort(s.rest_pos, U, s);
+    block_argsort(U, s, [&](int i) -> i64 {
+      if (!s.active[i]) return KT_MAX_INT64;
+      const bool prior = scale_up && s.pp[i] && s.sel[i] && s.prev_rep[i] > 0;
+      return shl(prior ? 0 : 1, AVAIL_BITS + LANE_BITS) |
+             shl(AVAIL_CAP - clampll(s.w[i], 0, AVAIL_CAP), LANE_BITS) | s.nr[i];
+    });
     // exclusive cumsum of active w in sorted order, each thread a chunk
     const int per = (U + NT - 1) / NT;
     const int p0 = threadIdx.x * per;
@@ -555,12 +938,30 @@ __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
   const i64 n = a.replicas[b];
   const i64 wo = slot * LMAX;
   const bool direct = C <= T::DIRECT_MAX;
+  // a lane's feasibility: the direct path's lane set is every lane, in
+  // order; on the gather path the std tier recomputes it (lane_std, on
+  // the row's COO entries in shared memory), the big tier reads it off its
+  // key scratch (key_w_rank >= 0 exactly on feasible lanes)
+  extern __shared__ __align__(16) char smem_raw[];
+  Row row;
+  RowPlanes P{};
+  if (!direct && !T::SCRATCH_KEYS && (dup_wide || (!has_sc && ok))) {
+    i64* pval = (i64*)smem_raw;
+    int* pidx = (int*)(pval + a.Kp);
+    load_row<NT>(a, b, row, pidx, pval, pidx + a.Kp);
+    row.strategy = a.pl_strategy[row.pid];
+    P = row_planes(a, row);
+  }
   const int ng = a.use_extra ? 5 : 4;
-  const i64* wkeys = a.scratch + slot * ng * C + C;  // key_w_rank
+  const i64* wkeys = T::SCRATCH_KEYS ? a.scratch + slot * ng * C + C : nullptr;
   auto feas_at = [&](i64 c) -> bool {
-    // key_w_rank >= 0 exactly on feasible lanes (gather path); the
-    // direct path's lane set is every lane, in order
-    return direct ? (bool)a.wk_feas[wo + c] : wkeys[c] >= 0;
+    if (direct) return a.wk_feas[wo + c];
+    if constexpr (T::SCRATCH_KEYS) {
+      return wkeys[c] >= 0;
+    } else {
+      i64 nr, sw;
+      return lane_std(a, row, P, (int)c, &nr, &sw).feas;
+    }
   };
   for (i64 c = threadIdx.x; c < C; c += NT) {
     const bool f = (dup_wide || (!has_sc && ok)) ? feas_at(c) : false;
@@ -613,7 +1014,7 @@ template <class T>
 int launch_prepare(const RowsArgs* a, void* stream) {
   const i64 rows = a->r1 - a->r0;
   if (rows <= 0) return 0;
-  const size_t smem = sort_bytes(T::SORTN, a->Kp, a->Ke) +
+  const size_t smem = sort_bytes(T::SORTN, a->Kp, a->Ke, T::SCRATCH_KEYS) +
                       (T::WORK_SMEM ? work_bytes(T::LMAX) : 0);
   cudaError_t e = cudaFuncSetAttribute(
       schedule_rows_prepare<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -628,7 +1029,16 @@ template <class T>
 int launch_finish(const RowsArgs* a, void* stream) {
   const i64 rows = a->r1 - a->r0;
   if (rows <= 0) return 0;
-  schedule_rows_finish<T><<<(unsigned)rows, NT, 0, (cudaStream_t)stream>>>(*a);
+  // the std tier's row COO entries (feasibility recomputed)
+  const size_t smem = T::SCRATCH_KEYS ? 0 : (size_t)a->Kp * 12 + a->Ke * 4;
+  if (!T::SCRATCH_KEYS) {
+    cudaError_t e = cudaFuncSetAttribute(
+        schedule_rows_finish<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  schedule_rows_finish<T>
+      <<<(unsigned)rows, NT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -218,8 +218,12 @@ WebsterArgs = _struct("WebsterArgs", (
     "n", "w", "s0", "active", "rank", "seats"), ("B", "L"))
 
 CompactArgs = _struct("CompactArgs", (
-    "rep", "sel", "non_workload", "idx", "val", "offsets"),
-    ("B", "C", "keep_sel"))
+    "rep", "sel", "non_workload", "idx", "val", "state"),
+    ("B", "C", "keep_sel", "state_len"))
+
+#: flat positions per K3 tile (compact.cu TILE); the kernel's state holds
+#: a tile counter, nnz and one look-back status word per tile
+COMPACT_TILE = 6144
 
 ROWS_TENSOR_FIELDS = (
     "cluster_valid", "deleting", "name_rank", "api_ok", "req_milli",
@@ -248,7 +252,7 @@ def rows_work_bytes(tier: str) -> int:
     in shared memory on the std tier, in the `work` scratch in device
     memory on the big tier."""
     L = LMAX[tier]
-    return (9 * L * 8 + 3 * L * 4 + 6 * L + 15) // 16 * 16
+    return (3 * L * 8 + 6 * L * 4 + 6 * L + 15) // 16 * 16
 
 
 SPREAD_TENSOR_FIELDS = (

@@ -725,6 +725,11 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
         used_sets += sets[:Q]
 
 
+#: bytes of per-row gather key scratch K2's wrapper allocated, by lane
+#: tier (the std tier recomputes its keys and allocates none)
+KEY_SCRATCH_BYTES: Dict[str, int] = {"std": 0, "big": 0}
+
+
 def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                   used_pods, used_sets, rep_out, sel_out, status_out, *,
                   use_extra: bool, charge: bool, tier: str = "std",
@@ -779,22 +784,23 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     kernels.check(status_out, torch.int32, (B,))
     if r1 == r0:
         return
-    direct = C <= TIERS[tier][2]
-    n_groups = 5 if use_extra else 4
-    # per-row key scratch of the lane gather (the radix select reads each
-    # row's keys several times) and, on the big tier, the per-row lane
-    # working set; rows launch in slices that bound them
+    # the big tier's per-row key scratch of the lane gather (its radix
+    # select reads each row's keys several times; the std tier recomputes
+    # them) and per-row lane working set; rows launch in slices that bound
+    # them
+    big = tier == "big"
+    gather = C > TIERS[tier][2]
+    key_row = (5 if use_extra else 4) * C * 8 if big and gather else 0
+    work_row = kernels.rows_work_bytes(tier) if big else 0
     step = r1 - r0
-    if not direct:
-        step = max(1, min(step, (1 << 28) // (n_groups * C * 8)))
-    work_row = kernels.rows_work_bytes(tier) if tier == "big" else 0
-    if work_row:
-        step = max(1, min(step, (1 << 28) // work_row))
+    for per_row in (key_row, work_row):
+        if per_row:
+            step = max(1, min(step, (1 << 28) // per_row))
     dev = est.device
     L = kernels.LMAX[tier]
-    entry = "schedule_rows" if tier == "std" else "schedule_rows_big"
-    scratch = torch.empty((0 if direct else step * n_groups * C,),
-                          dtype=I64, device=dev)
+    entry = "schedule_rows_big" if big else "schedule_rows"
+    scratch = torch.empty((step * key_row // 8,), dtype=I64, device=dev)
+    KEY_SCRATCH_BYTES[tier] += scratch.numel() * 8
     work_buf = torch.empty((step * work_row,), dtype=torch.uint8, device=dev)
     work = {
         "web_n": torch.empty((step,), dtype=I64, device=dev),
@@ -971,10 +977,11 @@ def compact_plain(rep, sel, status, non_workload, keep_sel: bool):
 
 def compact(rep, sel, status, non_workload, keep_sel: bool):
     """K3 (ops/csrc/compact.cu) on CUDA tensors, compact_plain on CPU.
-    The kernel counts each row's entries, scans the counts, then writes
-    every row's run in place: the output holds B*C slots, nnz of which
-    are filled (idx[:nnz], val[:nnz]) — it never overflows, so the JAX
-    path's nnz-escalation re-solve has no counterpart here."""
+    One launch reads rep and sel once and writes every tile's run in
+    place, its offset found by decoupled look-back: the output holds B*C
+    slots, nnz of which are filled (idx[:nnz], val[:nnz]) — it never
+    overflows, so the JAX path's nnz-escalation re-solve has no
+    counterpart here."""
     if not _on_cuda(rep, sel, status, non_workload):
         return compact_plain(rep, sel, status, non_workload, keep_sel)
     B, C = rep.shape
@@ -984,15 +991,19 @@ def compact(rep, sel, status, non_workload, keep_sel: bool):
     kernels.check(sel, torch.bool, (B, C))
     kernels.check(status, torch.int32, (B,))
     kernels.check(non_workload, torch.bool, (B,))
+    if rep.data_ptr() % 16 or sel.data_ptr() % 2:
+        raise ValueError("compact: rep must be 16-byte aligned, sel 2-byte "
+                         "aligned (the kernel's vector loads)")
     dev = rep.device
     idx = torch.empty((B * C,), dtype=torch.int32, device=dev)
     val = torch.empty((B * C,), dtype=torch.int32, device=dev)
-    offsets = torch.empty((B + 1,), dtype=I64, device=dev)
+    tiles = -(-B * C // kernels.COMPACT_TILE)
+    state = torch.empty((2 + tiles,), dtype=I64, device=dev)
     kernels.launch("compact", kernels.CompactArgs(
         kernels.ptr(rep), kernels.ptr(sel), kernels.ptr(non_workload),
-        kernels.ptr(idx), kernels.ptr(val), kernels.ptr(offsets),
-        B, C, int(keep_sel)))
-    return idx, val, status, offsets[B]
+        kernels.ptr(idx), kernels.ptr(val), kernels.ptr(state),
+        B, C, int(keep_sel), state.numel()))
+    return idx, val, status, state[1]
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ the full 4096 x 8192 chunk size).  Here the randomized scenario mix runs
 through solve_compact on the card and on the CPU: both lane paths, taints,
 deleting clusters, histogram overrides, evictions, spread constraints
 (selection swap loop), plugin scores, empty-workload propagation and a
-wide prev axis; solve_big on the big tier's direct and gather lane paths;
+wide prev axis; K3 compact over test_torch_select_compact.py's cases
+and phase 2's 4096 x 8192 shape (one launch a call), and K2's std tier
+over that file's gather cases, the select's bucket overflow included
+(no key scratch); solve_big on the big tier's direct and gather lane paths;
 and solve_spread on region and label axes, with K5 and K6 held against
 their plain versions on shared-memory rows and on 16,384-lane rows (the
 device-memory sort path); K7 explain_rows in both flavours (the main
@@ -121,6 +124,45 @@ def test_webster_kernel_matches_plain_on_card():
     assert torch.equal(got, want)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("keep_sel", [False, True])
+@pytest.mark.parametrize("name", list(S.COMPACT_CASES) + ["phase2"])
+def test_compact_kernel_matches_plain_on_card(name, keep_sel):
+    """K3 against compact_plain, bit for bit, in one launch a call, over
+    the CPU cases and at phase 2's 4096 x 8192 chunk (random density)."""
+    dev = _card()
+    rep, sel, status, nw = (torch.from_numpy(a).to(dev) for a in (
+        S.compact_case(name, shape=(4096, 8192) if name == "phase2"
+                       else None)))
+    kernels.reset_counts()
+    got = PS.compact(rep, sel, status, nw, keep_sel)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["compact"] == 1
+    want = PS.compact_plain(rep, sel, status, nw, keep_sel)
+    nnz = int(want[3])
+    assert int(got[3]) == nnz
+    assert torch.equal(got[0][:nnz], want[0])
+    assert torch.equal(got[1][:nnz], want[1])
+    assert torch.equal(got[2], want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", S.SELECT_CASES)
+def test_schedule_rows_std_gather_on_card(name):
+    """K2 std (with K1, K4, K3) against the plain path over the gather
+    cases, every wave charged; the std tier allocates no key scratch."""
+    _card()
+    clusters, items, lanes, extra_seed = S.select_case(MP, name)
+    batch = S.shape_select_batch(
+        PT.encode_batch(items, PT.ClusterIndex.build(clusters),
+                        GeneralEstimator()), lanes, extra_seed)
+    assert batch.C > PS.TIERS["std"][2]
+    before = dict(PS.KEY_SCRATCH_BYTES)
+    _same(batch, waves=4)
+    assert kernels.LAUNCHES["compact"] == 1
+    assert PS.KEY_SCRATCH_BYTES["std"] == before["std"]
+
+
 def _big_batch(n_clusters, seed, n_bindings=8):
     clusters, items = S.big_scenario(MP, seed, n_clusters=n_clusters,
                                      n_bindings=n_bindings)
@@ -142,7 +184,11 @@ def test_big_tier_kernel_matches_plain_on_card(n_clusters, plugin):
     if plugin:
         rng = np.random.default_rng(4)
         batch.pl_extra_score = rng.integers(0, 101, batch.pl_mask.shape)
+    before = PS.KEY_SCRATCH_BYTES["big"]
     _same(batch, waves=4, tier="big")
+    # the big tier's gather keeps its keys in a device-memory scratch
+    assert (PS.KEY_SCRATCH_BYTES["big"] > before) == (
+        batch.C > PS.TIERS["big"][2])
 
 
 def _spread_case(build):

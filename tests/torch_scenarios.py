@@ -13,6 +13,8 @@ import importlib
 import random
 from types import SimpleNamespace
 
+import numpy as np
+
 GVK = ("apps/v1", "Deployment")
 
 
@@ -1107,3 +1109,144 @@ def fused_plane_syncs(M, device, n_windows=4):
         for cls, orig in origs.items():
             cls.sync = orig
     return per_sync
+
+
+# -- K3 compact and K2 std's gather select (test_torch_select_compact.py) ---
+
+#: K3 cases: name -> (B, C)
+COMPACT_CASES = {"empty": (8, 1024), "full": (6, 700), "odd_tail": (7, 5000),
+                 "one_row": (1, 9000), "non_workload": (12, 600),
+                 "mixed": (40, 1536)}
+
+
+def compact_case(name, seed=0, shape=None):
+    """K3's operands (rep int64 [B, C], sel bool [B, C], status int32 [B],
+    non_workload bool [B]) as numpy, from a seed: `empty` wants nothing
+    (nnz 0 whatever keep_sel), `full` every lane (rep > 0 everywhere),
+    `odd_tail` C = 5,000 with B*C a multiple of neither K3's tile (4,096)
+    nor a warp's span (512), `one_row` one row, `non_workload` every other
+    row wholly non-workload (a selection and no replicas), `mixed` random;
+    `shape` overrides the case's (B, C)."""
+    B, C = shape or COMPACT_CASES[name]
+    g = np.random.default_rng(seed)
+    rep = np.where(g.random((B, C)) < 0.1, g.integers(1, 60, (B, C)), 0)
+    sel = g.random((B, C)) < 0.3
+    nw = g.random(B) < 0.25
+    if name == "empty":
+        rep[:] = 0
+        sel[:] = False
+    elif name == "full":
+        rep = g.integers(1, 60, (B, C))
+    elif name == "non_workload":
+        nw[:] = False
+        nw[::2] = True
+        rep[nw] = 0
+    status = g.integers(0, 4, B).astype(np.int32)
+    return rep.astype(np.int64), sel, status, nw
+
+
+#: K2 std gather-path cases (select_case)
+SELECT_CASES = ("c529", "c700", "extra", "short_groups", "overflow",
+                "prev_evict_uid")
+
+#: a batch's lane-axis fields: [C], [C, R] and [X, C]
+_LANES_1D = ("cluster_valid", "deleting", "name_rank", "pods_allowed",
+             "has_summary", "region_id")
+_LANES_ROWS = ("avail_milli", "has_alloc")
+_LANES_COLS = ("api_ok", "est_override", "pl_mask", "pl_tol_bypass",
+               "pl_static_w", "pl_extra_score", "pl_fail_bits")
+
+
+def narrow_lanes(batch, C):
+    """The batch on its first C lanes (n_clusters <= C: only padding lanes
+    go): a lane count that the encoder, which pads to a power of two,
+    never makes."""
+    assert batch.n_clusters <= C <= batch.C
+    kw = {"C": C}
+    for f in _LANES_1D + _LANES_ROWS:
+        if getattr(batch, f, None) is not None:
+            kw[f] = getattr(batch, f)[:C]
+    for f in _LANES_COLS:
+        if getattr(batch, f, None) is not None:
+            kw[f] = getattr(batch, f)[:, :C]
+    return dataclasses.replace(batch, **kw)
+
+
+def overflow_scenario(M, n_clusters=700, n_bindings=24):
+    """Lanes whose gather keys share their high bits: identical clusters
+    but two far larger ones, StaticWeight placements with equal weights
+    (in one, a weight past the keys' 2^34 clamp on one cluster), so a
+    group's boundary bucket holds more candidates than K2 std's
+    shared-memory room (256) digit after digit."""
+    names = [f"member-{i:04d}" for i in range(n_clusters)]
+    big = {n_clusters // 7, n_clusters // 2}
+    clusters = [capacity_cluster(M, nm, 10**9 if i in big else 64_000)
+                for i, nm in enumerate(names)]
+
+    def static(weights):
+        return M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+            weight_preference=M.ClusterPreferences(static_weight_list=[
+                M.StaticClusterWeight(
+                    target_cluster=M.ClusterAffinity(cluster_names=[nm]),
+                    weight=w) for nm, w in zip(names, weights)]))
+
+    placements = [
+        M.Placement(replica_scheduling=static([5] * n_clusters)),
+        M.Placement(replica_scheduling=static(
+            [1 << 36 if i == 3 else 5 for i in range(n_clusters)])),
+        M.Placement(replica_scheduling=_dynamic(M)),
+        M.Placement(replica_scheduling=M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)),
+    ]
+    items = [capacity_binding(M, b, (1, 7, 40, 300)[b % 4], 500,
+                              placements[b % len(placements)])
+             for b in range(n_bindings)]
+    return clusters, items
+
+
+def select_case(M, name):
+    """(clusters, items, lanes, extra_seed) of one K2 std gather case:
+    `lanes` cuts the encoded batch to that many lanes (narrow_lanes; None
+    keeps the encoder's), `extra_seed` (None: none) draws plugin scores,
+    which add the fifth gather group.  c529: C just above DIRECT_MAX;
+    c700: bench.py's rebalance mix (prev lanes, scale up / down) on a C
+    that is no power of two; extra: five groups; short_groups: affinity
+    subsets of 3-100 clusters, so groups hold fewer eligible lanes than k
+    and take -1 lanes; overflow: overflow_scenario; prev_evict_uid: the
+    randomized mix's prev lanes, eviction lanes and uid_desc rows."""
+    if name == "c529":
+        return (*random_scenario(M, 1, n_clusters=529, n_bindings=24),
+                529, None)
+    if name == "c700":
+        clusters, items, rng, names = bench_scenario(M, 2, 700, 32)
+        return clusters, build_rebalance_items(M, rng, items, names), 700, None
+    if name == "extra":
+        return (*random_scenario(M, 3, n_clusters=600, n_bindings=24),
+                600, 3)
+    if name == "short_groups":
+        rng = random.Random(4)
+        clusters = build_fleet(M, rng, 700)
+        names = [c.name for c in clusters]
+        pls = affinity_placements(M, rng, names, n=6, lo=3, hi=100)
+        return clusters, build_bindings(M, rng, 24, pls), None, None
+    if name == "overflow":
+        return (*overflow_scenario(M), None, None)
+    if name == "prev_evict_uid":
+        return (*random_scenario(M, 5, n_clusters=900, n_bindings=32),
+                900, None)
+    raise KeyError(name)
+
+
+def shape_select_batch(batch, lanes, extra_seed):
+    """select_case's batch as the case asks: cut to `lanes`, plugin
+    scores from `extra_seed` (numpy arrays; either package's batch)."""
+    if lanes is not None:
+        batch = narrow_lanes(batch, lanes)
+    if extra_seed is not None:
+        rng = np.random.default_rng(extra_seed)
+        batch = dataclasses.replace(batch, pl_extra_score=rng.integers(
+            0, 101, batch.pl_mask.shape))
+    return batch

@@ -22,7 +22,11 @@ region spread included; chunk 4096, 8 waves, carry on):
      tier (and its K4 problems) on the first wide chunk's big sub-batch;
      K2's wave 0 split into its stream operations (prepare, K4, finish;
      CUDA events around each launch) and into host enqueue and device
-     time, on both tiers;
+     time, on both tiers; a census of K4's problems over the chunk's 8
+     waves and the big sub-batch (n_eff, positive and kept lanes, t* = 0,
+     r > 0, both designs' bisection steps, the brackets checked against
+     the plain bisection), and K4's host / device split on each tier's
+     wave 0;
   3. forward cycle through scheduler.core.schedule_items, launch counters
      reset just before and read just after;
   4. rebalance cycle (prev assignments, reschedule triggers) the same way;
@@ -83,12 +87,15 @@ region spread included; chunk 4096, 8 waves, carry on):
 Phase 2 also holds K7 (on the first forward chunk and on its spread
 sub-batch), K8 (on a megafleet chunk's profile rows, and on rows wider
 than its shared-memory path) and K9 (on the 10k fleet, and with more
-groups than one shared-memory tile) against their plain versions, and,
+groups than one shared-memory tile; each beside torch.zeros + index_add_)
+against their plain versions, and,
 after phase 9 on its plane, K10 (cluster rows, cluster columns,
 slot-store rows, and the two mirror syncs whole: twelve slot-store
 fields at 1,024 slots and nine cluster-side fields at 64 lanes in one
 fused launch each, against one index_copy_ per field and timed as sync
-walls), K11 (both flavours) and K12, and,
+walls), K11 (both flavours, each with its host / device split, and
+through dispatch_gather / dispatch_sub_gather from host slots, their
+staged uploads included) and K12, and,
 after phase 5, K13 (on config 5's 5,000 lanes committed from phase 3's
 placements and on 16,384 random lanes, negatives, zero capacity with
 load and invalid lanes mixed in, four threshold settings); phase 5
@@ -101,10 +108,11 @@ churn windows of config 5's first 16,384 bindings.
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE) phase 2 also times the parent's port against this one on the same
 card, in turns (old, new, new, old; TURN_ROUNDS rounds): K3 and K2 std's
-wave 0 (with the parent's K2 split) on the first forward chunk, and,
-after phase 9, K10 on one field, both mirror syncs kernel side and as
-walls, and K9.  Before the JSON lines the run checks that K2's std tier
-allocated no key scratch.
+wave 0 (with the parent's K2 split) on the first forward chunk, K4 on
+wave 0's problems of both tiers, and, after phase 9, K10 on one field,
+both mirror syncs kernel side and as walls, K9, and K11 (both flavours
+on card slots, and dispatch_gather from host slots).  Before the JSON
+lines the run checks that K2's std tier allocated no key scratch.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -500,7 +508,7 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
     """K2 (with K4 inside) on tier `tier` over a whole batch, wave by wave,
     kernel path and plain path from the same zero carry; then one wave's
     launch timed on wave 0's inputs.  Returns (max_abs_err, ms, plain_ms,
-    bound, the wave-0 K4 operands)."""
+    bound, every wave's K4 operands, the kernel path's outputs)."""
     from karmada_tpu_torch.ops import solver as S
 
     B, C = db.B, db.C
@@ -511,7 +519,7 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
               zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
               db.has_summary, db.est_override, zeros[2])
 
-    def run(rows_fn, cap_fn, capture=None):
+    def run(rows_fn, cap_fn, problems=None):
         used = tuple(u.clone() for u in zeros)
         rep = torch.empty((B, C), dtype=torch.int64, device=dev)
         sel = torch.empty((B, C), dtype=torch.bool, device=dev)
@@ -521,13 +529,16 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
                          db.avail_milli, used[0], db.has_alloc,
                          db.pods_allowed, used[1], db.has_summary,
                          db.est_override, used[2])
-            kw = {"capture": capture} if capture is not None and wv == 0 else {}
+            cap = {} if problems is not None else None
+            kw = {"capture": cap} if cap is not None else {}
             rows_fn(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel, st,
                     use_extra=use_extra, charge=True, tier=tier, **kw)
+            if cap is not None:
+                problems.append(cap["webster"])
         return rep, sel, st, used
 
-    cap = {}
-    got = run(S.schedule_rows, S.capacity, cap)
+    problems = []
+    got = run(S.schedule_rows, S.capacity, problems)
     want = run(S.schedule_rows_plain, S.capacity_plain)
     err = max_abs_err(list(zip(got[:3], want[:3]))
                       + list(zip(got[3], want[3])))
@@ -559,7 +570,7 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
         nbytes(db.t[f][:Bw]) for f in S._BINDING_FIELDS)
     row_out = Bw * C * (8 + 1) + Bw * 4 + 2 * nbytes(*zeros)
     return err, ms, plain_ms, bound_ms(row_in + row_out, Bw * C), \
-        cap["webster"], got
+        problems, got
 
 
 def sort_ops(rows: int, C: int) -> float:
@@ -567,10 +578,124 @@ def sort_ops(rows: int, C: int) -> float:
     return rows * C * max(1.0, math.log2(C))
 
 
+def bisect_steps(lo, hi, pred, live):
+    """A `while hi - lo > 1` bisection per row (rows where `live`), with
+    pred(mid) moving hi down: (iterations, final hi) per row."""
+    steps = torch.zeros_like(lo)
+    lo, hi = lo.clone(), hi.clone()
+    while True:
+        go = live & (hi - lo > 1)
+        if not bool(go.any()):
+            return steps, hi
+        mid = (lo + hi) >> 1
+        p = pred(mid)
+        lo = torch.where(go & ~p, mid, lo)
+        hi = torch.where(go & p, mid, hi)
+        steps += go
+
+
+def webster_census(problems) -> dict:
+    """Facts of K4 problems (a list of (n, w, s0, active, rank) batches),
+    from webster_plain's arithmetic: per row n_eff, the lanes of positive
+    weight P, whether the threshold t* is 0, whether a tie block is
+    awarded (r > 0), its candidate lanes (the lanes whose rank the
+    function reads), and the bisection steps of the parent's design
+    (threshold over (0, max wq], tie keys over (0, 2^27 L])."""
+    from karmada_tpu_torch.ops import solver as S
+
+    cols = {k: [] for k in ("n_eff", "P", "t0", "r", "tie_lanes",
+                            "thr_old", "tie_old")}
+    for n, w, s0, active, rank in problems:
+        L = w.shape[1]
+        z = torch.zeros((), dtype=torch.int64, device=w.device)
+        zr = torch.zeros_like(n)
+        w = torch.where(active, w.clamp(0, S._W_CAP), z)
+        s0 = torch.where(active, s0.clamp(0, S._N_CAP), z)
+        pos = active & (w > 0)
+        P = pos.sum(1)
+        n_eff = torch.where(P > 0, n.clamp(0, S._N_CAP), zr)
+        live = n_eff > 0
+        wq = w << S.PRIORITY_QBITS
+
+        def lanes(t, wq=wq, s0=s0, pos=pos, n_eff=n_eff, z=z):
+            m = (S._floordiv(wq, (t + 1)[:, None]) + 1) >> 1
+            return torch.where(pos, torch.minimum(
+                (m - s0).clamp(min=0), n_eff[:, None]), z)
+
+        def fits(t, lanes=lanes, n_eff=n_eff):
+            return lanes(t).sum(1) <= n_eff
+
+        thr_old, hi = bisect_steps(zr, wq.max(1).values.clamp(min=1), fits,
+                                   live)
+        t0 = fits(zr)
+        t_star = torch.where(t0, zr, hi)
+        full = lanes(t_star)
+        r = n_eff - full.sum(1)
+        k = torch.where((t_star > 0)[:, None],
+                        lanes((t_star - 1).clamp(min=0)) - full, z)
+        base = s0 + full
+        tie = live & (r > 0)
+
+        def reach(K, rank=rank, L=L, base=base, k=k, r=r):
+            c = S._floordiv(K[:, None] - 1 - rank, L) - base + 1
+            return torch.minimum(c.clamp(min=0), k).sum(1) >= r
+
+        tie_old, _ = bisect_steps(
+            zr, torch.full_like(n, (1 << 27) * L), reach, tie)
+        tie_lanes = torch.where(tie, (k > 0).sum(1), zr)
+        for name, v in (("n_eff", n_eff), ("P", P), ("t0", t0),
+                        ("r", r > 0), ("tie_lanes", tie_lanes),
+                        ("thr_old", thr_old), ("tie_old", tie_old)):
+            cols[name].append(v.cpu().numpy())
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def k4_census_line(tier: str, c: dict) -> str:
+    """One log line of webster_census over a tier's problems."""
+    live = c["n_eff"] > 0
+    rows = len(live)
+
+    def q(v, among=live):
+        v = v[among]
+        if not v.size:
+            return "-"
+        return (f"p50 {np.percentile(v, 50):.0f} "
+                f"p90 {np.percentile(v, 90):.0f} max {v.max()}")
+
+    def st(name, among):
+        v = c[name][among]
+        return (f"mean {v.mean():.1f} max {v.max()}" if v.size else "-")
+
+    tie = live & c["r"]
+    return (f"phase 2 K4 census ({tier}): {rows} rows, n_eff = 0 in "
+            f"{np.mean(~live):.3f}; of the rest n_eff {q(c['n_eff'])}, "
+            f"positive lanes P {q(c['P'])}, "
+            f"t* = 0 in {np.mean(c['t0'][live]) if live.any() else 0:.3f}, "
+            f"r > 0 in {np.mean(c['r'][live]) if live.any() else 0:.3f} "
+            f"with tie-block lanes {q(c['tie_lanes'], tie)}; steps of the "
+            f"parent's design: threshold {st('thr_old', live)}, tie "
+            f"{st('tie_old', tie)}")
+
+
+def big_subbatch(wide, fleet):
+    """The ROUTE_DEVICE_BIG rows of the bindings `wide` as solve_big
+    encodes them: (their SolverBatch, the row count)."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import tensors as T
+
+    cindex = T.ClusterIndex.build(fleet)
+    wb = T.encode_batch(wide, cindex, GeneralEstimator())
+    big_idx = [i for i in range(len(wide))
+               if wb.route[i] == T.ROUTE_DEVICE_BIG]
+    sub = T.encode_batch([wide[i] for i in big_idx], cindex,
+                         GeneralEstimator())
+    sub.b_valid[:len(big_idx)] = sub.route == T.ROUTE_DEVICE_BIG
+    return sub, len(big_idx)
+
+
 def phase_kernels(batch, items, wide_items, fleet, args, dev,
                   reps: int, parent=None) -> list:
     """Each kernel vs its plain version on the same card inputs."""
-    from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import solver as S
     from karmada_tpu_torch.ops import spread as SP
     from karmada_tpu_torch.ops import tensors as T
@@ -600,8 +725,9 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         bound_ms=b1[0], bound_by=b1[1], library_ms=None))
 
     # K2 schedule_rows (+ K4 inside), the whole chunk wave by wave
-    err2, k2_ms, k2_plain, b2, web, (rep_k, sel_k, st_k, _) = hold_rows(
+    err2, k2_ms, k2_plain, b2, webs, (rep_k, sel_k, st_k, _) = hold_rows(
         db, waves, use_extra, "std", dev, reps)
+    web = webs[0]
     rows.append(dict(
         name="schedule_rows", route="cuda",
         source="karmada_tpu_torch/ops/csrc/schedule_rows.cu",
@@ -611,30 +737,34 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
 
     # K2 on the big tier: the first wide chunk's ROUTE_DEVICE_BIG rows as
     # solve_big encodes them
-    cindex = T.ClusterIndex.build(fleet)
-    wide = wide_items[:args.chunk]
-    wb = T.encode_batch(wide, cindex, GeneralEstimator())
-    big_idx = [i for i in range(len(wide))
-               if wb.route[i] == T.ROUTE_DEVICE_BIG]
-    sub = T.encode_batch([wide[i] for i in big_idx], cindex,
-                         GeneralEstimator())
-    sub.b_valid[:len(big_idx)] = sub.route == T.ROUTE_DEVICE_BIG
+    sub, n_big = big_subbatch(wide_items[:args.chunk], fleet)
     dbig = S.device_batch(sub, dev)
-    err_b, kb_ms, kb_plain, bb, web_big, _ = hold_rows(
+    err_b, kb_ms, kb_plain, bb, webs_big, _ = hold_rows(
         dbig, waves, S._use_extra(sub), "big", dev, reps)
+    web_big = webs_big[0]
+    for tier, probs in (("std, the chunk's 8 waves", webs),
+                        ("big, the wide chunk's big rows", webs_big)):
+        log(k4_census_line(tier, webster_census(probs)))
     # its K4 problems (5,248 lanes per row) against webster_plain too
     sb_k = S.webster_batch(*web_big)
     err_b = max(err_b, max_abs_err([(sb_k, S.webster_plain(*web_big))]))
     wb_ms = cuda_ms(lambda: S.webster_batch(*web_big), reps)
     log(f"phase 2 webster_batch on the big tier: {tuple(web_big[1].shape)} "
         f"ms={wb_ms:.4f} (inside schedule_rows_big)")
+    for tier, wv in (("std", web), ("big", web_big)):
+        host, device = split_ms(lambda wv=wv: S.webster_batch(*wv), 10 * reps)
+        log(f"phase 2 webster_batch split ({tier}, wave 0 "
+            f"{tuple(wv[1].shape)}): host enqueue {host:.4f} ms, device "
+            + (f"{device:.4f} ms" if device is not None else "not measured"))
+    if parent is not None:
+        phase_turns_k4(parent, web, web_big, reps)
     rows.append(dict(
         name="schedule_rows_big", route="cuda",
         source="karmada_tpu_torch/ops/csrc/schedule_rows.cu",
         replaces="karmada_tpu/ops/solver.py:553",
         max_abs_err=err_b, ms=kb_ms, plain_ms=kb_plain,
         bound_ms=bb[0], bound_by=bb[1], library_ms=None))
-    log(f"phase 2 big sub-batch: {len(big_idx)} rows -> {dbig.B}x{dbig.C}")
+    log(f"phase 2 big sub-batch: {n_big} rows -> {dbig.B}x{dbig.C}")
 
     # K3 compact on the chunk's dense result
     nw = db.non_workload
@@ -672,7 +802,13 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
     s_k = S.webster_batch(*web)
     s_p = S.webster_plain(*web)
     err4 = max_abs_err([(s_k, s_p)])
-    b4 = bound_ms(nbytes(*web) + nbytes(s_k), web[1].numel())
+    # the function's need: n, w, s0 and active read once, seats written
+    # once, rank read only on the tie blocks' candidate lanes
+    tie_lanes = int(webster_census([web])["tie_lanes"].sum())
+    b4 = bound_ms(nbytes(*web[:4]) + nbytes(s_k)
+                  + tie_lanes * web[4].element_size(), web[1].numel())
+    log(f"phase 2 webster_batch bound: {tie_lanes} tie-block lanes of "
+        f"{web[1].numel()} read rank")
     rows.append(dict(
         name="webster_batch", route="cuda",
         source="karmada_tpu_torch/ops/csrc/webster_batch.cu",
@@ -879,12 +1015,21 @@ def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps) -> list:
         -2, Gt + 2, gid.numel()).astype(np.int32)).to(dev)
     errt = max_abs_err([(SL.group_sums(gidt, capx, Gt),
                          SL.group_sums_plain(gidt, capx, Gt))])
+    gidt_eff = torch.where(gidt >= 0, gidt.long(), Gt)
+
+    def library_tiled():
+        # ids beyond the last bin land in two spare bins, cut off
+        return torch.zeros(Gt + 3, dtype=torch.int64, device=dev).index_add_(
+            0, gidt_eff, capx)[:Gt + 1]
+
     tiles = -(-(Gt + 1) // kernels.GROUP_SUM_TILE_BINS)
     log(f"phase 2 group_sums tiled branch: G={Gt} ({tiles} tiles of "
         f"{kernels.GROUP_SUM_TILE_BINS} bins), {gid.numel()} lanes, "
         f"max_abs_err={errt} ms="
         f"{cuda_ms(lambda: SL.group_sums(gidt, capx, Gt), reps):.4f}, split "
-        f"{split_ms(lambda: SL.group_sums(gidt, capx, Gt), 10 * reps)}")
+        f"{split_ms(lambda: SL.group_sums(gidt, capx, Gt), 10 * reps)}, "
+        f"library_ms={cuda_ms(library_tiled, reps):.4f} (torch.zeros + "
+        "index_add_)")
     err9 = max(err9, errt)
     h9, d9 = split_ms(lambda: SL.group_sums(gid, capx, G), 10 * reps)
     log(f"phase 2 group_sums split: host {h9:.4f} ms, device {d9} ms per "
@@ -1395,6 +1540,22 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
     log(f"phase 2 gather_rows sub flavour: {B} rows, union {union.size} "
         f"lanes, {int(drop.sum())} dropped, max_abs_err={err11s} "
         f"ms={ms11s:.4f}")
+    host_slots = np.asarray(solver._slots[:B], np.int64)
+    got_d = RG.dispatch_sub_gather(host_slots, mirrors, inv, drop)
+    err11s = max(err11s, max_abs_err(zip(got_d, RG.sub_gather_batch_plain(
+        *sub_in))))
+    for name, fn in (
+            ("gather_batch", lambda: RG.gather_batch(slots, mirrors)),
+            ("sub_gather_batch", lambda: RG.sub_gather_batch(*sub_in)),
+            ("dispatch_gather (upload included)",
+             lambda: RG.dispatch_gather(host_slots, mirrors)),
+            ("dispatch_sub_gather (upload included)",
+             lambda: RG.dispatch_sub_gather(host_slots, mirrors, inv, drop))):
+        host, device = split_ms(fn, 10 * reps)
+        log(f"phase 2 gather_rows split, {name}: {B} rows, CUDA events "
+            f"{cuda_ms(fn, reps):.4f} ms, host enqueue {host:.4f} ms, "
+            "device "
+            + (f"{device:.4f} ms" if device is not None else "not measured"))
     rows.append(dict(
         name="gather_rows", route="cuda",
         source="karmada_tpu_torch/ops/csrc/resident.cu",
@@ -1467,8 +1628,9 @@ def load_parent(tree: str):
                                           "karmada_tpu_torch_parent"))
     sys.path.insert(0, os.path.abspath(tree))
     mods = {m: importlib.import_module(f"karmada_tpu_torch_parent.{m}")
-            for m in ("ops.kernels", "ops.resident_update", "ops.shortlist",
-                      "ops.solver", "resident.state")}
+            for m in ("ops.kernels", "ops.resident_gather",
+                      "ops.resident_update", "ops.shortlist", "ops.solver",
+                      "resident.state")}
     t0 = time.perf_counter()
     mods["ops.kernels"].build()
     log(f"phase 2 turns: the parent's port built in "
@@ -1476,7 +1638,8 @@ def load_parent(tree: str):
     return mods
 
 
-def phase_turns(parent, state, dev, reps, rounds=TURN_ROUNDS) -> dict:
+def phase_turns(parent, state, solver, dev, reps,
+                rounds=TURN_ROUNDS) -> dict:
     """Old (the parent's port) against new on one card, in turns (old,
     new, new, old) for `rounds` rounds, on phase 9's plane: K10 on one
     field (prev_idx, 1,024 slots), K10 over a whole slot-store sync (1,024
@@ -1486,12 +1649,14 @@ def phase_turns(parent, state, dev, reps, rounds=TURN_ROUNDS) -> dict:
     (host clock to synchronize(), uploads included), and K9 at the
     megafleet's region layout (G = 200).  CUDA-event ms for the kernel
     sides, host-clock ms for the walls."""
+    from karmada_tpu_torch.ops import resident_gather as NRG
     from karmada_tpu_torch.ops import resident_update as NRU
     from karmada_tpu_torch.ops import shortlist as NSL
     from karmada_tpu_torch.resident import state as NST
 
     ORU, OSL, OST = (parent["ops.resident_update"], parent["ops.shortlist"],
                      parent["resident.state"])
+    ORG = parent["ops.resident_gather"]
     g = np.random.default_rng(7)
     p = state.plane
     cap, nC = p.prev_idx.shape[0], state.nC
@@ -1535,6 +1700,32 @@ def phase_turns(parent, state, dev, reps, rounds=TURN_ROUNDS) -> dict:
     cases["K9 group_sums"] = (
         lambda: cuda_ms(lambda: OSL.group_sums(gid, capx, G), reps),
         lambda: cuda_ms(lambda: NSL.group_sums(gid, capx, G), reps))
+    # K11 on the first chunk's rows, a 64-lane union, every 16th row dropped
+    mirrors = state.device_rows.mirrors
+    host_slots = np.asarray(solver._slots[:4096], np.int64)
+    sl = up_to(host_slots, dev)
+    inv = np.full(p.pl_mask.shape[1], -1, np.int32)
+    inv[np.sort(g.choice(nC, 64, replace=False))] = np.arange(
+        64, dtype=np.int32)
+    drop = np.zeros(host_slots.size, bool)
+    drop[::16] = True
+    it, dt = up_to(inv, dev), up_to(drop, dev)
+    for flavour, args in (("gather_batch", (sl, mirrors)),
+                          ("sub_gather_batch", (sl, mirrors, it, dt))):
+        if not all(torch.equal(a, b) for a, b in zip(
+                getattr(ORG, flavour)(*args), getattr(NRG, flavour)(*args))):
+            raise AssertionError(f"turns: K11 {flavour} old and new "
+                                 "disagree")
+        cases[f"K11 {flavour}"] = (
+            lambda f=flavour, a=args: cuda_ms(
+                lambda: getattr(ORG, f)(*a), reps),
+            lambda f=flavour, a=args: cuda_ms(
+                lambda: getattr(NRG, f)(*a), reps))
+    cases["K11 dispatch_gather (upload included)"] = (
+        lambda: cuda_ms(lambda: ORG.dispatch_gather(host_slots, mirrors),
+                        reps),
+        lambda: cuda_ms(lambda: NRG.dispatch_gather(host_slots, mirrors),
+                        reps))
     return run_turns(cases, rounds)
 
 
@@ -1592,6 +1783,24 @@ def phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps,
     cases["K2 std wave (K4 inside)"] = (
         lambda: cuda_ms(waves["old"][0], reps),
         lambda: cuda_ms(waves["new"][0], reps))
+    return run_turns(cases, rounds)
+
+
+def phase_turns_k4(parent, web, web_big, reps, rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns: K4 on
+    wave 0's Webster problems of the first forward chunk (std, 656 lanes)
+    and of the wide chunk's big rows (5,248 lanes); the two ports' seats
+    must agree first."""
+    from karmada_tpu_torch.ops import solver as NS
+
+    OS = parent["ops.solver"]
+    cases = {}
+    for tier, wv in (("std", web), ("big", web_big)):
+        if not torch.equal(OS.webster_batch(*wv), NS.webster_batch(*wv)):
+            raise AssertionError(f"turns: K4 ({tier}) old and new disagree")
+        cases[f"K4 webster_batch {tier} wave 0"] = (
+            lambda wv=wv: cuda_ms(lambda: OS.webster_batch(*wv), reps),
+            lambda wv=wv: cuda_ms(lambda: NS.webster_batch(*wv), reps))
     return run_turns(cases, rounds)
 
 
@@ -2326,7 +2535,7 @@ def main() -> int:
         args.seed + 5)
     report += phase_kernels_k10_k12(state, solver, dev, args.reps)
     if parent is not None:
-        phase_turns(parent, state, dev, args.reps)
+        phase_turns(parent, state, solver, dev, args.reps)
     del state, solver, roster
     phase_parity_resident(items, fleet, args, dev)
 

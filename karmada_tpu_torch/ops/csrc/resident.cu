@@ -37,7 +37,13 @@
 // Bound on the card: bytes for both (each element is read once and
 // written once; a few hundred bytes per churned lane for K10, ~70 B per
 // row for K11).  Both are launch-bound at the main path's sizes, so K10's
-// design is about launches: one per sync instead of one per field.
+// design is about launches: one per sync instead of one per field, and
+// K11's about its launch path (ops/resident_gather.py): the mirror set
+// checked once, GatherArgs an int64 block whose mirror pointers are filled
+// once per set, the twelve outputs carved from one device slab per call,
+// and from host slots the inputs uploaded into the front of that slab by
+// one non-blocking copy from pinned memory.  The kernel takes its inputs
+// and outputs wherever the pointers say.
 // Design: one thread per element (K10, over the table's running element
 // starts, as in a multi-tensor apply) or per (row, column) (K11),
 // consecutive threads on consecutive addresses of one entry's values or

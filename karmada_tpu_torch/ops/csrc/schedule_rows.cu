@@ -57,7 +57,6 @@
 // per-row scratch in device memory (`work`; at sub-batch row counts it
 // stays in L2), and shared memory holds only the (key, lane) sort buffer
 // (8,192 entries, 96 KB), the COO entries and the radix histograms.
-#include "webster.cuh"
 #include "rows.cuh"
 
 constexpr int NT = 256;

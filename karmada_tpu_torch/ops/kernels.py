@@ -45,7 +45,8 @@ ENTRIES = {"capacity": ("capacity",),
            "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish",
                              "schedule_rows_big_prepare",
                              "schedule_rows_big_finish"),
-           "compact": ("compact",), "webster_batch": ("webster_batch",),
+           "compact": ("compact",),
+           "webster_batch": ("webster_batch", "webster_floordiv"),
            "spread_group_info": ("spread_group_info",),
            "spread_pick": ("spread_pick",),
            "explain": ("explain_rows", "explain_rows_spread"),
@@ -215,7 +216,26 @@ CapacityArgs = _struct("CapacityArgs", (
     "used_sets", "est"), ("Q", "R", "C"))
 
 WebsterArgs = _struct("WebsterArgs", (
-    "n", "w", "s0", "active", "rank", "seats"), ("B", "L"))
+    "n", "w", "s0", "active", "rank", "seats", "scratch"), ("B", "L"))
+
+_WEBSTER_LAYOUT: list = []
+
+
+def webster_layout() -> tuple:
+    """K4's row layout, read from its library once (webster_batch.cu
+    kt_webster_layout): (the lanes a row keeps in shared memory, the
+    device-memory scratch bytes a lane of a wider row takes)."""
+    if not _WEBSTER_LAYOUT:
+        build()
+        out = (ctypes.c_longlong * 2)()
+        _LIBS["webster_batch"].kt_webster_layout(out)
+        _WEBSTER_LAYOUT[:] = out
+    return tuple(_WEBSTER_LAYOUT)
+
+
+#: webster_batch.cu kt_webster_floordiv: K4's division helper alone, for
+#: the card tests (not a kernel of the path; it counts no launch)
+FloordivArgs = _struct("FloordivArgs", ("a", "d", "q"), ("n",))
 
 CompactArgs = _struct("CompactArgs", (
     "rep", "sel", "non_workload", "idx", "val", "state"),

@@ -425,7 +425,9 @@ def webster_plain(n, w, s0, active, rank):
 
 def webster_batch(n, w, s0, active, rank):
     """K4 (ops/csrc/webster_batch.cu) on CUDA tensors, webster_plain on
-    CPU."""
+    CPU.  Rows wider than the kernel keeps in shared memory
+    (kernels.webster_layout) keep their lanes in a device-memory scratch
+    allocated here."""
     if not _on_cuda(n, w, s0, active, rank):
         return webster_plain(n, w, s0, active, rank)
     B, L = w.shape
@@ -434,9 +436,15 @@ def webster_batch(n, w, s0, active, rank):
         kernels.check(a, I64, (B, L))
     kernels.check(active, torch.bool, (B, L))
     seats = torch.empty((B, L), dtype=I64, device=w.device)
+    scratch = None
+    smem_lanes, lane_bytes = kernels.webster_layout()
+    if L > smem_lanes:
+        scratch = torch.empty((B * L * lane_bytes,), dtype=torch.uint8,
+                              device=w.device)
     kernels.launch("webster_batch", kernels.WebsterArgs(
         kernels.ptr(n), kernels.ptr(w), kernels.ptr(s0), kernels.ptr(active),
-        kernels.ptr(rank), kernels.ptr(seats), B, L))
+        kernels.ptr(rank), kernels.ptr(seats),
+        None if scratch is None else kernels.ptr(scratch), B, L))
     return seats
 
 

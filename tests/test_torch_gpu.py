@@ -15,7 +15,10 @@ deleting clusters, histogram overrides, evictions, spread constraints
 wide prev axis; K3 compact over test_torch_select_compact.py's cases
 and phase 2's 4096 x 8192 shape (one launch a call), and K2's std tier
 over that file's gather cases, the select's bucket overflow included
-(no key scratch); solve_big on the big tier's direct and gather lane paths;
+(no key scratch); K4 webster_batch on the main path's shapes, a row in its
+device-memory scratch and the contract's edges, and its division helper
+over the int64 range; solve_big on the big tier's direct and gather lane
+paths;
 and solve_spread on region and label axes, with K5 and K6 held against
 their plain versions on shared-memory rows and on 16,384-lane rows (the
 device-memory sort path); K7 explain_rows in both flavours (the main
@@ -24,7 +27,9 @@ shared-memory and device-memory key paths; K9 group_sums (round-robin
 and region-run layouts, the tiled branch, one group); a shortlisted
 megafleet cycle, card against CPU; K10 scatter_lanes (both layouts, 1-,
 4- and 8-byte elements, and the fused multi-field scatter of a mirror
-sync, one launch per table), K11 gather_rows (both flavours),
+sync, one launch per table), K11 gather_rows (both flavours; its launch
+path: one launch a call, staged uploads, outputs of calls in flight
+apart, a re-placed mirror checked again),
 K12 dirty_codes, and a fused incremental run card against CPU; K13
 rebalance_score (and no launch on zero lanes), and one rebalance-plane
 cycle card against CPU.
@@ -122,6 +127,56 @@ def test_webster_kernel_matches_plain_on_card():
     got = PS.webster_batch(n, w, s0, active, rank)
     want = PS.webster_plain(n, w, s0, active, rank)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", S.WEBSTER_CASES)
+def test_webster_kernel_cases_on_card(name):
+    """K4 against webster_plain, bit for bit, in one launch a call, on
+    tests/torch_scenarios.webster_case: the main path's shapes (656 lanes
+    with n <= 64 and s0 = 0, 5,248 with n <= 512), a row wider than the
+    kernel's shared memory (its device-memory scratch), and the contract's
+    edges (w = 2^34 - 1 with n = 2^25 - 1 and values beyond the caps, s0
+    at its cap, all weights equal, w = 1 with n >> L, inactive rows and
+    n = 0, ranks beyond the lane count)."""
+    dev = _card()
+    cols = [torch.from_numpy(a).to(dev) for a in S.webster_case(name)]
+    kernels.reset_counts()
+    got = PS.webster_batch(*cols)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["webster_batch"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert torch.equal(got, PS.webster_plain(*cols))
+
+
+@pytest.mark.gpu
+def test_webster_floordiv_on_card():
+    """K4's division by an FP64 reciprocal with its exact correction
+    (webster.cuh floordiv_r) against torch's floor division: numerators
+    over the whole int64 range, negatives and the extremes included,
+    divisors from 1 to 2^62 + 1 (powers of two and their neighbours, the
+    lane counts, random)."""
+    dev = _card()
+    g = np.random.default_rng(11)
+    edges_d = [1, 2, 3, 656, 5248, (1 << 62) + 1, 1 << 62, (1 << 62) - 1]
+    for k in range(1, 62):
+        edges_d += [(1 << k) - 1, 1 << k, (1 << k) + 1]
+    d = np.concatenate([np.array(edges_d, np.int64),
+                        g.integers(1, (1 << 62) + 2, 200_000),
+                        g.integers(1, 1 << 20, 200_000)])
+    a = g.integers(-(1 << 63), (1 << 63) - 1, d.size, dtype=np.int64,
+                   endpoint=True)
+    a[: len(edges_d)] = (1 << 63) - 1
+    a[len(edges_d): 2 * len(edges_d)] = -(1 << 63)
+    a[-100_000:] = g.integers(-(1 << 40), 1 << 40, 100_000)
+    # the threshold's numerators, w << 28
+    a[-150_000:-100_000] = g.integers(0, 1 << 34, 50_000) << 28
+    at, dt = torch.from_numpy(a).to(dev), torch.from_numpy(d).to(dev)
+    q = torch.empty_like(at)
+    kernels.launch("webster_batch", kernels.FloordivArgs(
+        kernels.ptr(at), kernels.ptr(dt), kernels.ptr(q), at.shape[0]),
+        "webster_floordiv")
+    assert torch.equal(q, torch.div(at, dt, rounding_mode="floor"))
 
 
 @pytest.mark.gpu
@@ -632,6 +687,56 @@ def test_gather_rows_kernel_matches_plain_on_card(flavour):
     _launched(("gather_rows",))
     for f, a, b in zip(RG.OUT_FIELDS, got, want):
         assert a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+
+
+@pytest.mark.gpu
+def test_gather_rows_launch_path_on_card():
+    """K11's launch path: one launch a call from card slots and from host
+    slots (the staged upload), two calls in flight whose outputs do not
+    alias and both equal the plain gather, slots on the host with the
+    mirrors on the card raise, and a re-placed mirror of the wrong dtype
+    raises (the validated mirror set is checked again)."""
+    from karmada_tpu_torch.ops import resident_gather as RG
+
+    dev = _card()
+    rng = np.random.default_rng(8)
+    C, cap, B = 1024, 8192, 256
+    store = S.slot_store(rng, cap, 4, 4, C)
+    mirrors = _on(store, dev)
+    cpu = _on(store, "cpu")
+    slots = [rng.integers(-1, cap, B).astype(np.int64) for _ in range(2)]
+    inv = np.full(C, -1, np.int32)
+    inv[rng.choice(C, 64, replace=False)] = np.arange(64, dtype=np.int32)
+    drop = rng.random(B) < 0.2
+    kernels.reset_counts()
+    first = RG.gather_batch(torch.from_numpy(slots[0]).to(dev), mirrors)
+    second = RG.dispatch_gather(slots[1], mirrors)  # nothing waited between
+    third = RG.dispatch_sub_gather(slots[0], mirrors, inv, drop)
+    assert kernels.LAUNCHES["gather_rows"] == 3
+    assert sum(kernels.LAUNCHES.values()) == 3
+    torch.cuda.synchronize()
+
+    def span(out):
+        lo = min(t.data_ptr() for t in out)
+        return lo, max(t.data_ptr() + t.numel() * t.element_size()
+                       for t in out)
+
+    (a0, a1), (b0, b1) = span(first), span(second)
+    assert a1 <= b0 or b1 <= a0
+    for got, want in (
+            (first, RG.gather_batch_plain(torch.from_numpy(slots[0]), cpu)),
+            (second, RG.gather_batch_plain(torch.from_numpy(slots[1]), cpu)),
+            (third, RG.sub_gather_batch_plain(
+                torch.from_numpy(slots[0]), cpu, torch.from_numpy(inv),
+                torch.from_numpy(drop)))):
+        for f, x, y in zip(RG.OUT_FIELDS, got, want):
+            assert x.dtype == y.dtype and x.is_contiguous(), f
+            assert torch.equal(x.cpu(), y), f
+    with pytest.raises(ValueError):
+        RG.gather_batch(torch.from_numpy(slots[0]), mirrors)
+    mirrors["replicas"] = mirrors["replicas"].to(torch.int32)
+    with pytest.raises(TypeError):
+        RG.gather_batch(torch.from_numpy(slots[0]).to(dev), mirrors)
 
 
 @pytest.mark.gpu

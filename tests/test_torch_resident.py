@@ -7,7 +7,7 @@ the same inputs, tolerance 0:
     padded duplicate lanes included (a padded scatter equals the unpadded
     one);
   * K11 plain against JAX gather_batch / sub_gather_batch on every row,
-    padding and dtypes included;
+    padding and dtypes included, and the layout of K11's call slab;
   * port ResidentState against JAX ResidentState over the same churn
     stream (after tests/test_resident_churn.py and test_resident_fused.py):
     capacity-only deltas, binding churn with vocabulary growth, a
@@ -100,6 +100,39 @@ def test_scatter_plain_matches_jax(layout, dtype, n_lanes):
     assert (got is src) == (layout != "cow")
     if layout == "cow":
         assert np.array_equal(src.numpy(), dst)
+
+
+@pytest.mark.parametrize("B,staged", [(64, 0), (4096, 4096 * 8),
+                                      (7, 16 + 1024 * 4 + 16)])
+def test_gather_slab_layout(B, staged):
+    """K11's call slab (ops/resident_gather._layout, carved by _views as on
+    the card): the staged inputs first, then the twelve outputs with the
+    solver's dtypes and shapes, contiguous, each 16-byte aligned region
+    after the last, no two outputs sharing a byte, the argument block's
+    output addresses those of the views."""
+    store = {f: torch.from_numpy(a) for f, a in S.slot_store(
+        np.random.default_rng(0), 32, 4, 3, 16).items()}
+    plan = PRG._Plan([store[f] for f in PRG.GATHER_FIELDS], 4, 3)
+    nbytes, spec, offs = PRG._layout(plan, B, staged)
+    assert PRG._layout(plan, B, staged) is PRG._layout(plan, B, staged)
+    slab = torch.zeros((nbytes,), dtype=torch.uint8)
+    out = PRG._views(slab, spec)
+    base = slab.data_ptr()
+    spans = []
+    for f, t, off in zip(PRG.OUT_FIELDS, out, offs):
+        want = ((B, 4) if f in ("prev_idx", "prev_val")
+                else (B, 3) if f == "evict_idx" else (B,))
+        assert tuple(t.shape) == want and t.is_contiguous(), f
+        assert t.dtype == getattr(torch, PT.FIELD_DTYPES[f]), f
+        assert t.data_ptr() == base + off >= base + staged, f
+        spans.append((off, off + t.numel() * t.element_size()))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= nbytes and nbytes % 16 == 0
+    assert all(off % 16 == 0 for off in (offs[PRG.OUT_FIELDS.index(f)]
+                                         for f in ("replicas",
+                                                   "placement_id",
+                                                   "b_valid")))
 
 
 @pytest.mark.parametrize("flavour", ["plain", "sub"])

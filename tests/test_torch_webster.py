@@ -1,7 +1,8 @@
 """Webster parity: the port's webster_plain (the plain version of K4,
 karmada_tpu_torch/ops/csrc/webster_batch.cu) equals the JAX package's
 webster_divide_batch and its serial ops/webster.py golden path, exactly,
-on the cases and seeds of tests/test_solver_webster.py."""
+on the cases and seeds of tests/test_solver_webster.py and on K4's
+card-test cases."""
 
 import random
 
@@ -10,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_scenarios as S
 from karmada_tpu.ops.solver import webster_divide_batch
 from karmada_tpu.ops.webster import allocate_webster_seats, dispense_by_weight
 from karmada_tpu_torch.ops.solver import webster_batch, webster_plain
@@ -143,3 +145,16 @@ def test_wrapper_takes_plain_version_on_cpu():
     _, prob = _problem(11, {"a": 3, "b": 5, "c": 8}, pad_to=8)
     cols = [torch.from_numpy(np.asarray(x)[None]) for x in prob]
     assert torch.equal(webster_batch(*cols), webster_plain(*cols))
+
+
+@pytest.mark.parametrize("name", S.WEBSTER_CASES)
+def test_kernel_cases_plain_matches_jax(name):
+    """webster_plain equals JAX webster_divide_batch on K4's card-test
+    cases (tests/torch_scenarios.webster_case, CPU-sized): the main path's
+    layouts and the contract's edges (caps, equal weights, many seats of a
+    lane in one tie block, inactive rows, ranks beyond the lane count)."""
+    cols = S.webster_case(name, small=True)
+    jax_seats = np.asarray(webster_divide_batch(*map(jnp.asarray, cols)))
+    port = webster_plain(*map(torch.from_numpy, cols)).numpy()
+    assert np.array_equal(port, jax_seats)
+

@@ -1250,3 +1250,64 @@ def shape_select_batch(batch, lanes, extra_seed):
         batch = dataclasses.replace(batch, pl_extra_score=rng.integers(
             0, 101, batch.pl_mask.shape))
     return batch
+
+
+# -- K4 webster_batch problems --------------------------------------------------
+
+#: K4 cases: the main path's shapes (std: 656 lanes, n <= 64, s0 = 0; big:
+#: 5,248 lanes, n <= 512), a row wider than the kernel's shared memory,
+#: and the contract's edges
+WEBSTER_CASES = ("std", "big", "scratch", "caps", "s0_cap", "equal",
+                 "w1_many_seats", "inactive", "ranks")
+
+
+def webster_case(name, seed=0, small=False):
+    """(n, w, s0, active, rank) numpy int64/bool [B], [B, L] of one K4
+    case.  `small` shrinks the main-path shapes for the CPU tests.  Rows
+    carry K2's layout where it applies: lanes at or beyond a row's U
+    inactive, ranks a permutation of the row's lanes."""
+    g = np.random.default_rng(seed + sum(map(ord, name)))
+    shapes = {"std": (512, 656), "big": (64, 5248), "scratch": (4, 9000)}
+    B, L = shapes.get(name, (48, 40))
+    if small:
+        B, L = min(B, 24), min(L, 96)
+    rank = np.stack([g.permutation(L) for _ in range(B)]).astype(np.int64)
+    s0 = np.zeros((B, L), np.int64)
+    if name in ("std", "big", "scratch"):
+        U = g.integers(0, L + 1, B)
+        U[: B // 8] = L
+        active = np.arange(L)[None, :] < U[:, None]
+        w = np.where(g.random((B, L)) < 0.8, g.integers(0, 5000, (B, L)), 0)
+        n = g.integers(0, {"std": 65, "big": 513, "scratch": 300}[name], B)
+        n[::5] = 0
+        if name == "std":
+            w[1::6] = 7  # equal weights: a full tie block
+    else:
+        active = g.random((B, L)) < 0.85
+        w = g.integers(0, 10_000, (B, L))
+        n = g.integers(0, 400, B)
+    if name == "caps":
+        w = g.choice([(1 << 34) - 1, 1 << 36, -5, 0, 3, 1 << 20], (B, L))
+        n = g.choice([(1 << 25) - 1, 1 << 30, -7, 0, 5, 1000], B)
+        s0 = g.choice([0, 1, (1 << 25) - 1, 1 << 27, -3], (B, L))
+    elif name == "s0_cap":
+        s0 = g.integers(0, 1 << 25, (B, L))
+        s0[::3] = (1 << 25) - 1
+        n = g.integers(0, 1 << 25, B)
+        w = g.integers(1, (1 << 34) - 1, (B, L))
+    elif name == "equal":
+        w = np.full((B, L), 12, np.int64)
+        n = g.integers(1, 5 * L, B)
+    elif name == "w1_many_seats":
+        w = np.ones((B, L), np.int64)
+        n = g.integers(L << 14, L << 16, B)  # many seats a lane share a q
+        s0 = g.integers(0, 3, (B, L))
+    elif name == "inactive":
+        active[::2] = False
+        n[1::4] = 0
+        w[3::8] = 0
+    elif name == "ranks":
+        rank = np.stack([g.permutation(10 * L)[:L] for _ in range(B)]).astype(
+            np.int64) - 3 * L
+    return (np.asarray(n, np.int64), np.asarray(w, np.int64),
+            np.asarray(s0, np.int64), np.asarray(active, bool), rank)

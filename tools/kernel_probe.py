@@ -1,29 +1,38 @@
 #!/usr/bin/env python3
-"""Probe of the port's K3 compact and K2 schedule_rows (std tier) on one
-CUDA card, at chip_smoke phase 2's shape.
+"""Probe of single kernels of the port on one CUDA card, at chip_smoke
+phase 2's shapes: K3 compact and K2 schedule_rows (std tier), K4
+webster_batch, K11 gather_rows.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
-    python3 tools/kernel_probe.py
+    python3 tools/kernel_probe.py [k3k2] [k4] [k11] [--parent TREE]
 
 It builds the first forward chunk of chip_smoke's workload (bench.py's
-config-5 mix, seed 0: 4096 bindings x 8192 lanes), solves it, and
-prints, after the card's name and power limit:
+config-5 mix, seed 0: 4096 bindings x 8192 lanes) and prints, after the
+card's name and power limit, the parts named (default: all):
 
-  - K3: the wrapper's CUDA-event ms; its yardsticks, torch.nonzero and a
-    gather on a mask built outside the timed call (the one chip_smoke
-    used before) and with the mask built inside it (the same function);
-    and torch.sum over rep, a plain read of it at the card's practical
-    rate;
-  - K3 shapes: compact.cu rebuilt with other steps per warp and blocks
-    per SM (constants substituted into the same source), each held
-    against compact_plain and timed, called directly;
-  - K2 std: wave 0's stream operations (prepare, K4, finish; CUDA events
-    around each launch) and a clock64 profile of the prepare kernel
-    (markers substituted into schedule_rows.cu), in cycles per row.
+  k3k2  K3: the wrapper's CUDA-event ms; its yardsticks, torch.nonzero
+        and a gather on a mask built outside the timed call and with the
+        mask built inside it (the same function); torch.sum over rep, a
+        plain read of it.  K3 shapes: compact.cu rebuilt with other steps
+        per warp and blocks per SM, each held against compact_plain and
+        timed.  K2 std: wave 0's stream operations (prepare, K4, finish)
+        and a clock64 profile of the prepare kernel, in cycles per row.
+  k4    chip_smoke's K4 census of the chunk's 8 waves and of the wide
+        chunk's big rows; then on wave 0 of each tier, per tree: K4's
+        CUDA-event ms, host enqueue against device time, and a clock64
+        profile of its phases in cycles a row (K4_MARKS: markers
+        substituted into the tree's webster.cuh, held against
+        webster_plain).
+  k11   K11 at 4,096 rows of a 2^20-slot store, per tree: CUDA-event ms
+        and host enqueue against device time of gather_batch,
+        sub_gather_batch, dispatch_gather and dispatch_sub_gather.
 
-The variant libraries build into a temporary directory.  Exits non-zero
-without a card, or when a variant disagrees with its plain version.
+With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
+TREE, as chip_smoke.py --parent takes it) k4 and k11 also run on the
+parent's port.  The variant libraries build into a temporary directory.
+Exits non-zero without a card, or when a variant disagrees with its
+plain version.
 """
 
 from __future__ import annotations
@@ -48,10 +57,11 @@ K2_PHASES = ("pass 1", "histogram passes", "collect", "fill", "union",
              "lane info + rank sort", "lane math + write")
 
 
-def build_variant(kernels, src, subs, name, out_dir):
-    """compact.cu / schedule_rows.cu with `subs` substituted, built with
-    nvcc into out_dir; returns the loaded library."""
-    text = open(src).read()
+def build_variant(kernels, src, subs, name, out_dir, text=None, inc=None):
+    """A kernel source (`src`, or its `text`) with `subs` substituted,
+    built with nvcc into out_dir against the headers of `inc` (default:
+    this checkout's ops/csrc); returns the loaded library."""
+    text = open(src).read() if text is None else text
     for old, new in subs:
         if text.count(old) != 1:
             raise AssertionError(f"{name}: {old!r} is not in {src} once")
@@ -61,7 +71,7 @@ def build_variant(kernels, src, subs, name, out_dir):
     with open(cu, "w") as fh:
         fh.write(text)
     out = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
-                          str(kernels.CSRC), "-o", so, cu],
+                          str(inc or kernels.CSRC), "-o", so, cu],
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{out.stdout}{out.stderr}")
@@ -78,26 +88,12 @@ def entry(lib, name):
     return fn
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("kernel_probe: no CUDA device", file=sys.stderr)
-        return 2
-    import chip_smoke as CS
-    from karmada_tpu_torch.estimator.general import GeneralEstimator
+def probe_k3_k2(CS, batch, dev):
+    """K3's yardsticks and shapes, K2 std's wave-0 split and its prepare
+    profile."""
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import solver as S
-    from karmada_tpu_torch.ops import tensors as T
 
-    dev = torch.device("cuda", 0)
-    CS.phase_device()
-    kernels.build()
-    M = CS.models()
-    rng = random.Random(0)
-    fleet = CS.build_fleet(M, rng, 5000)
-    placements = CS.build_placements(M, rng, [c.name for c in fleet])
-    items = CS.build_bindings(M, rng, 4096, placements)
-    batch = T.encode_batch(items, T.ClusterIndex.build(fleet),
-                           GeneralEstimator())
     db = S.device_batch(batch, dev)
     use_extra = S._use_extra(batch)
     rep, sel, st, _, _ = S.schedule_core(db, waves=8, use_extra=use_extra)
@@ -223,6 +219,305 @@ def main() -> int:
     rows = h[:, 7] - h[:, 0]
     print(f"K2 std prepare, a row: mean {rows.mean():.0f} cycles, max "
           f"{rows.max()} ({len(rows)} rows)", flush=True)
+
+
+#: the clock64 marks of a K4 design, by a line of its webster.cuh that
+#: names the design: the phase names, (anchor, replacement) pairs, and
+#: the searches whose rounds it counts, each by the mark it follows.  One
+#: thread of a row makes its marks: "kt_mark(row, k)" (slots 0-6 of the
+#: row hold clock64 readings, slot 7 is 1 where it took the n_eff = 0
+#: exit), "kt_round(row)" once per search round (slot 8 + the last mark),
+#: "kt_kept(row, K)" the lanes kept after the select (slot 16)
+K4_MARKS = {
+    # the parent's: one 256-thread block a row, every lane re-read and
+    # re-clamped in every step of both bisections
+    "struct WebsterLane {": (
+        ("sums", "threshold bisection", "full award", "tie bisection",
+         "award"),
+        (("  i64 tw = 0;\n",
+          "  if (threadIdx.x == 0) kt_mark(blockIdx.x, 0);\n  i64 tw = 0;\n"),
+         ("    __syncthreads();\n    return;\n",
+          "    if (threadIdx.x == 0) kt_mark(blockIdx.x, -1);\n"
+          "    __syncthreads();\n    return;\n"),
+         ("  const i64 hi0 = maxll(block_max<NT>(mx, red), 1);\n",
+          "  const i64 hi0 = maxll(block_max<NT>(mx, red), 1);\n"
+          "  if (threadIdx.x == 0) kt_mark(blockIdx.x, 1);\n"),
+         ("  const i64 t_star = cnt(0) <= n_eff ? 0 : hi;\n",
+          "  const i64 t_star = cnt(0) <= n_eff ? 0 : hi;\n"
+          "  if (threadIdx.x == 0) kt_mark(blockIdx.x, 2);\n"),
+         ("  const i64 r = n_eff - block_sum<NT>(fsum, red);\n",
+          "  const i64 r = n_eff - block_sum<NT>(fsum, red);\n"
+          "  if (threadIdx.x == 0) kt_mark(blockIdx.x, 3);\n"),
+         ("    k_star = hi;\n  }\n",
+          "    k_star = hi;\n  }\n"
+          "  if (threadIdx.x == 0) kt_mark(blockIdx.x, 4);\n"),
+         ("    seats[i] = active[i] ? l.s0 + full + award : 0;\n  }\n"
+          "  __syncthreads();\n",
+          "    seats[i] = active[i] ? l.s0 + full + award : 0;\n  }\n"
+          "  __syncthreads();\n"
+          "  if (threadIdx.x == 0) kt_mark(blockIdx.x, 5);\n")),
+        ()),
+    # this one: a row per warp (std) or per block (big), lanes compacted
+    # once, a select that drops the lanes below G, tight brackets
+    "struct Recip {": (
+        ("lanes", "select", "threshold search", "full award",
+         "tie search", "award"),
+        tuple((anchor, text.replace(
+            "MARK", "if (tid == 0) kt_mark(ROW, ").replace(
+            "KEPT", "if (tid == 0) kt_kept(ROW, ").replace(
+            "ROW", "blockIdx.x * (blockDim.x / NT) + threadIdx.x / NT"))
+              for anchor, text in (
+            ("  // 1. lanes, once: default seats, positive lanes compacted\n",
+             "  MARK0);\n"
+             "  // 1. lanes, once: default seats, positive lanes compacted\n"),
+            ("  if (n == 0) return;  // every lane keeps its default seats\n",
+             "  if (n == 0) { MARK-1); return; }\n  MARK1);\n"),
+            ("  // 3. threshold search on the kept lanes\n",
+             "  MARK2);\n  KEPT K);\n"
+             "  // 3. threshold search on the kept lanes\n"),
+            ("  while (hi - lo > 1) {\n    const u64 D = hi - lo;\n",
+             "  while (hi - lo > 1) {\n    const u64 D = hi - lo;\n"
+             "    if (tid == 0) kt_round(ROW);\n"),
+            ("  // 4. full award above t*; the tie block at q == t* "
+             "(t* > 0)\n",
+             "  MARK3);\n"
+             "  // 4. full award above t*; the tie block at q == t* (t* > 0)"
+             "\n"),
+            ("  i64 k_star = 0;\n", "  MARK4);\n  i64 k_star = 0;\n"),
+            ("    seats[idx[j]] = (i64)s0v[j] + award;\n  }\n}\n",
+             "    seats[idx[j]] = (i64)s0v[j] + award;\n  }\n  MARK6);\n}\n"),
+            ("  for (u32 j = tid; j < K; j += NT) {\n    const u32 award",
+             "  MARK5);\n"
+             "  for (u32 j = tid; j < K; j += NT) {\n    const u32 award"))),
+        (("select", 1), ("threshold", 2), ("tie", 4))),
+}
+#: rows the K4 profile holds
+K4_PROF_ROWS = 4096
+#: profile slots a row
+K4_SLOTS = 24
+K4_PROLOGUE = (
+    "__device__ long long kt_prof[%d * %d];\n"
+    "__device__ __forceinline__ void kt_mark(long long row, int k) {\n"
+    "  long long* p = kt_prof + row * %d;\n"
+    "  if (k < 0) { p[7] = 1; return; }\n"
+    "  p[k] = clock64();\n"
+    "  p[15] = k;\n"
+    "}\n"
+    "__device__ __forceinline__ void kt_round(long long row) {\n"
+    "  long long* p = kt_prof + row * %d;\n"
+    "  p[8 + p[15]] += 1;\n"
+    "}\n"
+    "__device__ __forceinline__ void kt_kept(long long row, long long K) {\n"
+    "  kt_prof[row * %d + 16] = K;\n"
+    "}\n"
+    'extern "C" int kt_prof_read(long long* h) { return '
+    "(int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof)); }\n"
+    % ((K4_PROF_ROWS,) + (K4_SLOTS,) * 4))
+
+
+def profile_k4(kmod, smod, web, out_dir, name):
+    """clock64 profile of one K4 launch on `web` (n, w, s0, active, rank):
+    the tree's webster.cuh with its design's marks, built beside its
+    webster_batch.cu and launched through its wrapper (smod.webster_batch
+    with kmod's entry swapped); held against webster_plain.  Returns
+    (phase names, [rows, phases] cycles of the rows that solved, their
+    row indices, {search: rounds of those rows}, their kept lanes or
+    None)."""
+    csrc = str(kmod.CSRC)
+    head = open(os.path.join(csrc, "webster.cuh")).read()
+    found = [k for k in K4_MARKS if k in head]
+    if len(found) != 1:
+        raise AssertionError(f"{csrc}/webster.cuh: no K4 design to mark")
+    phases, subs, searches = K4_MARKS[found[0]]
+    for old, new in subs:
+        if head.count(old) != 1:
+            raise AssertionError(f"K4 mark anchor not in webster.cuh once: "
+                                 f"{old!r}")
+        head = head.replace(old, new)
+    head = head.replace("#pragma once\n", "").replace(
+        '#include "common.cuh"\n', '#include "common.cuh"\n' + K4_PROLOGUE)
+    lib = build_variant(kmod, os.path.join(csrc, "webster_batch.cu"),
+                        [('#include "webster.cuh"\n', head)], name, out_dir,
+                        inc=csrc)
+    saved = kmod._FNS["webster_batch"]
+    try:
+        kmod._FNS["webster_batch"] = entry(lib, "kt_webster_batch")
+        got = smod.webster_batch(*web)
+        torch.cuda.synchronize()
+    finally:
+        kmod._FNS["webster_batch"] = saved
+    if not torch.equal(got, smod.webster_plain(*web)):
+        raise AssertionError(f"{name}: the profiled K4 disagrees")
+    h = np.zeros(K4_PROF_ROWS * K4_SLOTS, np.int64)
+    fn = lib.kt_prof_read
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.c_void_p(h.ctypes.data)):
+        raise RuntimeError("reading the K4 profile failed")
+    h = h.reshape(K4_PROF_ROWS, K4_SLOTS)[:web[0].shape[0]]
+    rows = np.flatnonzero(h[:, 7] == 0)
+    rounds = {name: h[rows, 8 + mark] for name, mark in searches}
+    kept = h[rows, 16] if searches else None
+    return (phases, np.diff(h[rows, :len(phases) + 1], axis=1), rows,
+            rounds, kept)
+
+
+def probe_k4(CS, batch, wide, fleet, dev, trees):
+    """K4 on the main path's problems: the census of every wave of the
+    forward chunk (std) and of the wide chunk's big rows, then per tree
+    (this checkout, the parent) on wave 0 of each tier: CUDA-event ms,
+    host enqueue against device time, and the clock64 profile of its
+    phases, in cycles a row."""
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import solver as S
+
+    for ln in kernels.BUILD_LOG.get("webster_batch", "").splitlines():
+        if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            print(f"K4 ptxas: {ln.strip()}", flush=True)
+    db = S.device_batch(batch, dev)
+    webs = CS.hold_rows(db, 8, S._use_extra(batch), "std", dev, 10)[4]
+    sub, _ = CS.big_subbatch(wide, fleet)
+    webs_big = CS.hold_rows(S.device_batch(sub, dev), 8, S._use_extra(sub),
+                            "big", dev, 10)[4]
+    for tier, probs in (("std, the chunk's 8 waves", webs),
+                        ("big, the wide chunk's big rows", webs_big)):
+        print(CS.k4_census_line(tier, CS.webster_census(probs)), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kmod, smod in trees:
+            for tier, web in (("std", webs[0]), ("big", webs_big[0])):
+                def call(smod=smod, web=web):
+                    return smod.webster_batch(*web)
+
+                ms = CS.cuda_ms(call, 50)
+                host, device = CS.split_ms(call, 50)
+                phases, d, solved, rounds, kept = profile_k4(
+                    kmod, smod, web, tmp, f"webster_{label}_{tier}")
+                print(f"K4 {label}, {tier} wave 0 {tuple(web[1].shape)}: "
+                      f"{ms:.4f} ms; split_ms host {host:.4f} ms, device "
+                      f"{device} ms; clock64 cycles a row (mean / max over "
+                      f"{len(d)} rows that solved): " + "; ".join(
+                          f"{p} {d[:, i].mean():.0f} / {d[:, i].max()}"
+                          for i, p in enumerate(phases))
+                      + f"; a row {d.sum(1).mean():.0f} / {d.sum(1).max()}"
+                      + "".join(f"; {p} rounds {v.mean():.1f} / {v.max()}"
+                                for p, v in rounds.items()), flush=True)
+                # the rows that set the kernel's time, with their census
+                # and the kernel's own counts
+                c = CS.webster_census([web])
+                for i in np.argsort(-d.sum(1))[:5]:
+                    row = solved[i]
+                    print(f"K4 {label}, {tier}: row {row} took "
+                          f"{d[i].sum()} cycles ("
+                          + ", ".join(f"{p} {d[i, k]}"
+                                      for k, p in enumerate(phases))
+                          + f"); n_eff {c['n_eff'][row]} P {c['P'][row]} "
+                          f"r>0 {bool(c['r'][row])} tie-block lanes "
+                          f"{c['tie_lanes'][row]}"
+                          + ("" if kept is None else f"; kept lanes {kept[i]}")
+                          + "".join(f", {p} rounds {v[i]}"
+                                    for p, v in rounds.items()), flush=True)
+
+
+def probe_k11(CS, dev, trees):
+    """K11 per tree at phase 2's shape (4,096 rows of a 2^20-slot store,
+    Kp = Ke = 4; a 64-lane union and every 16th row dropped in the sub
+    flavour): CUDA-event ms and host enqueue against device time of
+    gather_batch and sub_gather_batch on card operands, and of
+    dispatch_gather and dispatch_sub_gather from host slots (their uploads
+    included)."""
+    rng = np.random.default_rng(0)
+    cap, B, C, Kp, Ke = 1 << 20, 4096, 10_000, 4, 4
+    store = {
+        "placement_id": rng.integers(0, 200, cap).astype(np.int32),
+        "gvk_id": rng.integers(0, 3, cap).astype(np.int32),
+        "class_id": rng.integers(-1, 9, cap).astype(np.int32),
+        "replicas": rng.integers(0, 12, cap).astype(np.int64),
+        "uid_desc": rng.random(cap) < 0.5,
+        "fresh": rng.random(cap) < 0.3,
+        "non_workload": rng.random(cap) < 0.1,
+        "nw_shortcut": rng.random(cap) < 0.1,
+        "route": rng.choice([0, 0, 0, 6, 8, 1], cap).astype(np.int32),
+        "prev_idx": rng.integers(-1, C, (cap, Kp)).astype(np.int32),
+        "prev_val": rng.integers(0, 6, (cap, Kp)).astype(np.int32),
+        "evict_idx": rng.integers(-1, C, (cap, Ke)).astype(np.int32),
+    }
+    mirrors = {k: torch.from_numpy(v).to(dev) for k, v in store.items()}
+    slots = rng.choice(cap, B, replace=False).astype(np.int64)
+    slots[-40:] = -1
+    inv = np.full(C, -1, np.int32)
+    inv[rng.choice(C, 64, replace=False)] = np.arange(64, dtype=np.int32)
+    drop = np.zeros(B, bool)
+    drop[::16] = True
+    st, it, dt = (torch.from_numpy(a).to(dev) for a in (slots, inv, drop))
+    for label, _kmod, smod in trees:
+        RG = smod.RG
+        calls = (
+            ("gather_batch", lambda RG=RG: RG.gather_batch(st, mirrors)),
+            ("sub_gather_batch",
+             lambda RG=RG: RG.sub_gather_batch(st, mirrors, it, dt)),
+            ("dispatch_gather",
+             lambda RG=RG: RG.dispatch_gather(slots, mirrors)),
+            ("dispatch_sub_gather",
+             lambda RG=RG: RG.dispatch_sub_gather(slots, mirrors, inv,
+                                                  drop)))
+        for name, fn in calls:
+            ms = CS.cuda_ms(fn, 200)
+            host, device = CS.split_ms(fn, 200)
+            print(f"K11 {label}, {name} ({B} rows of {cap} slots): "
+                  f"{ms:.4f} ms; split_ms host {host:.4f} ms, device "
+                  f"{device} ms", flush=True)
+
+
+def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parts", nargs="*", default=["k3k2", "k4", "k11"],
+                    help="k3k2, k4, k11 (default: all)")
+    ap.add_argument("--parent", metavar="TREE", default=None,
+                    help="a directory holding the parent commit's "
+                         "karmada_tpu_torch/ unpacked: K4 and K11 are then "
+                         "probed on it too")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_probe: no CUDA device", file=sys.stderr)
+        return 2
+    import types
+
+    import chip_smoke as CS
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import resident_gather as RG
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import tensors as T
+
+    dev = torch.device("cuda", 0)
+    CS.phase_device()
+    kernels.build()
+    trees = [("this tree", kernels, types.SimpleNamespace(
+        webster_batch=S.webster_batch, webster_plain=S.webster_plain,
+        RG=RG))]
+    if args.parent:
+        par = CS.load_parent(args.parent)
+        trees.append(("the parent", par["ops.kernels"], types.SimpleNamespace(
+            webster_batch=par["ops.solver"].webster_batch,
+            webster_plain=par["ops.solver"].webster_plain,
+            RG=par["ops.resident_gather"])))
+    M = CS.models()
+    rng = random.Random(0)
+    fleet = CS.build_fleet(M, rng, 5000)
+    placements = CS.build_placements(M, rng, [c.name for c in fleet])
+    items = CS.build_bindings(M, rng, 4096, placements)
+    batch = T.encode_batch(items, T.ClusterIndex.build(fleet),
+                           GeneralEstimator())
+    if "k3k2" in args.parts:
+        probe_k3_k2(CS, batch, dev)
+    if "k4" in args.parts:
+        names = [c.name for c in fleet]
+        wide = CS.build_wide_items(M, random.Random(1), CS.WIDE_BINDINGS,
+                                   placements, names)
+        probe_k4(CS, batch, wide[:4096], fleet, dev, trees)
+    if "k11" in args.parts:
+        probe_k11(CS, dev, trees)
     return 0
 
 

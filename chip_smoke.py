@@ -26,7 +26,11 @@ region spread included; chunk 4096, 8 waves, carry on):
      waves and the big sub-batch (n_eff, positive and kept lanes, t* = 0,
      r > 0, both designs' bisection steps, the brackets checked against
      the plain bisection), and K4's host / device split on each tier's
-     wave 0;
+     wave 0; a census of K5's and K6's sub-batch (spread_census: feasible
+     lanes, members a group, the Divided walks' members walked and the
+     exhausted groups, Duplicated rows, the chosen groups, the lanes in
+     them and rest), their host / device split, and their bounds by the
+     function's need beside the sort-based figure of earlier designs;
   3. forward cycle through scheduler.core.schedule_items, launch counters
      reset just before and read just after;
   4. rebalance cycle (prev assignments, reschedule triggers) the same way;
@@ -109,7 +113,9 @@ With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE) phase 2 also times the parent's port against this one on the same
 card, in turns (old, new, new, old; TURN_ROUNDS rounds): K3 and K2 std's
 wave 0 (with the parent's K2 split) on the first forward chunk, K4 on
-wave 0's problems of both tiers, and, after phase 9, K10 on one field,
+wave 0's problems of both tiers, K5 and K6 on the chunk's spread
+sub-batch (each side's host / device split beside them), and, after
+phase 9, K10 on one field,
 both mirror syncs kernel side and as walls, K9, and K11 (both flavours
 on card slots, and dispatch_gather from host slots).  Before the JSON
 lines the run checks that K2's std tier allocated no key scratch.
@@ -677,6 +683,136 @@ def k4_census_line(tier: str, c: dict) -> str:
             f"{st('tie_old', tie)}")
 
 
+def spread_census(gi, pk) -> dict:
+    """Facts of a spread sub-batch from the plain arithmetic of K5 and K6
+    (spread.py's planes and key) on their operands `gi` (K5's, as
+    solve_spread handed them) and `pk` (K6's): per phase-A row its
+    feasible lanes and its groups' members; per Divided group with
+    members its walk -- the members taken in key order until the running
+    count reaches cmin and the running availability the target -- or
+    that it is exhausted, and whether a count below cmin, or a total
+    availability below the target with no negative member availability,
+    decides that without a walk; the Duplicated rows; per phase-B row its
+    chosen groups that hold members, the lanes inside them and rest."""
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import spread as SP
+
+    db, est, gid, rmin, cmin, dup, G = gi
+    f, av, sc = SP._planes(db, est)
+    B, C = f.shape
+    seg = torch.where(f & (gid >= 0)[None, :], gid.long()[None, :], G)
+    key = SP._sort_key(sc, av, db.name_rank[None, :], f)
+    o1 = torch.sort(key, dim=1, stable=True).indices
+    order = o1.gather(1, torch.sort(seg.gather(1, o1), dim=1,
+                                    stable=True).indices)
+    s = seg.gather(1, order)
+    mem = s < G
+    a = torch.where(mem, av.gather(1, order), 0)
+    pos = torch.arange(C, device=f.device).expand(B, C)
+    bnd = torch.ones_like(mem)
+    bnd[:, 1:] = s[:, 1:] != s[:, :-1]
+    start = torch.cummax(torch.where(bnd, pos, 0), dim=1).values
+    cnt = pos - start + 1
+    ca = torch.cumsum(a, 1)
+    cum_av = ca - ca.gather(1, start) + a.gather(1, start)
+    reps = db.replicas
+    target = torch.where(rmin > 0, -S._floordiv(-reps, rmin.clamp(min=1)),
+                         reps)
+    cm = torch.maximum(cmin, rmin)
+    ok = mem & (cnt >= cm[:, None]) & (cum_av >= target[:, None])
+    big = torch.full((B, G + 1), C + 1, dtype=torch.int64, device=f.device)
+    walked = big.scatter_reduce(1, s, torch.where(ok, cnt, C + 1),
+                                reduce="amin")[:, :G]
+    zero = torch.zeros((B, G + 1), dtype=torch.int64, device=f.device)
+    value = zero.scatter_add(1, s, mem.long())[:, :G]
+    tot_av = zero.scatter_add(1, s, a)[:, :G]
+    neg = zero.scatter_add(1, s, (mem & (a < 0)).long())[:, :G] > 0
+    div = (value > 0) & ~dup[:, None]
+    exh = div & (walked > C)
+    short = exh & ((value < cm[:, None])
+                   | ((tot_av < target[:, None]) & ~neg))
+    rows, est6, gid6, chosen, cmax = pk[:5]
+    f6, av6, sc6 = SP._planes(rows, est6)
+    seg6 = torch.where(f6 & (gid6 >= 0)[None, :], gid6.long()[None, :], G)
+    ext = torch.cat([chosen, torch.zeros_like(chosen[:, :1])], 1)
+    inch = ext.gather(1, seg6)
+    z6 = torch.zeros((rows.B, G + 1), dtype=torch.int64, device=f.device)
+    per_g = z6.scatter_add(1, seg6, inch.long())[:, :G]
+    total = inch.sum(1)
+    n_sel = (per_g > 0).sum(1)
+    rest = (torch.minimum(total, cmax) - n_sel).clamp(min=0)
+
+    def np_(t):
+        return t.cpu().numpy()
+
+    walk_steps = int(walked[div & ~exh].sum()) + int(value[exh & ~short].sum())
+    return dict(rows=B, C=C, G=G, feasible=np_(f.sum(1)),
+                walk_steps=walk_steps,
+                pick_steps=int((rest + n_sel).sum()),
+                members=np_(value[value > 0]), walked=np_(walked[div & ~exh]),
+                divided_groups=int(div.sum()), exhausted=int(exh.sum()),
+                exhausted_short=int(short.sum()),
+                duplicated_rows=int(dup.sum()), pick_rows=rows.B,
+                chosen=np_(n_sel), in_chosen=np_(total), rest=np_(rest))
+
+
+def spread_census_line(label: str, c: dict) -> str:
+    """One log line of spread_census."""
+    def q(v):
+        if not v.size:
+            return "-"
+        return (f"p50 {np.percentile(v, 50):.0f} "
+                f"p90 {np.percentile(v, 90):.0f} max {v.max()}")
+
+    return (f"spread census ({label}): phase A {c['rows']} rows x "
+            f"{c['C']} lanes, G = {c['G']}: feasible lanes {q(c['feasible'])}"
+            f"; members a group {q(c['members'])}; {c['duplicated_rows']} "
+            f"Duplicated rows; {c['divided_groups']} Divided groups with "
+            f"members, members walked until the walk qualifies "
+            f"{q(c['walked'])}, exhausted {c['exhausted']} (decided without "
+            f"a walk {c['exhausted_short']}), {c['walk_steps']} walk steps in "
+            f"all; phase B {c['pick_rows']} rows:"
+            f" chosen groups with members {q(c['chosen'])}, lanes in them "
+            f"{q(c['in_chosen'])}, rest {q(c['rest'])}")
+
+
+def spread_operands(batch, part, dev, waves) -> dict:
+    """K5's and K6's operands as solve_spread hands them, for each (axis,
+    tier) group of the chunk `part` (encoded as `batch`)."""
+    from karmada_tpu_torch.ops import spread as SP
+    from karmada_tpu_torch.ops import tensors as T
+
+    out = {}
+    for (axis, tier), idxs in T.spread_groups(batch, part).items():
+        cap = {}
+        SP.solve_spread(batch, part, idxs, waves=waves, axis=axis,
+                        tier=tier, device=dev, capture=cap)
+        if "pick" in cap:
+            out[(axis, tier)] = (cap["group_info"], cap["pick"])
+    return out
+
+
+def spread_need_bytes(db, est, use_extra: bool, per_row: int) -> int:
+    """The bytes a spread kernel's function needs on a sub-batch `db`:
+    the distinct operand rows its rows read, each once -- the est rows of
+    their classes (8 B a lane), the pl_mask and pl_tol_bypass rows of
+    their placements (2 B) and, with use_extra, their pl_extra_score rows
+    (8 B; without, they are known to be 0), the api_ok rows of their GVKs
+    (1 B) -- the cluster vectors (cluster_valid, deleting, name_rank,
+    group_id: 14 B a lane), each row's valid COO entries (prev 8 B, evict
+    4 B), and `per_row` bytes a row of row scalars and outputs."""
+    C = db.C
+    Q = est.shape[0] - 1
+    cid = db.class_id.long()
+    n_est = torch.unique(torch.where(cid >= 0, cid, Q)).numel()
+    n_pl = torch.unique(db.placement_id).numel()
+    n_gvk = torch.unique(db.gvk_id).numel()
+    coo = (int((db.prev_idx >= 0).sum()) * 8
+           + int((db.evict_idx >= 0).sum()) * 4)
+    return (n_est * C * 8 + n_pl * C * (10 if use_extra else 2)
+            + n_gvk * C + C * 14 + coo + db.B * per_row)
+
+
 def big_subbatch(wide, fleet):
     """The ROUTE_DEVICE_BIG rows of the bindings `wide` as solve_big
     encodes them: (their SolverBatch, the row count)."""
@@ -824,11 +960,21 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
     cap = {}
     SP.solve_spread(batch, part, groups[("", "std")], waves=waves,
                     device=dev, capture=cap)
-    gi = cap["group_info"]
-    got = SP.spread_group_info(*gi)
+    gi, pk = cap["group_info"], cap["pick"]
+    census = spread_census(gi, pk)
+    # use_extra as solve_spread passed it
+    ux = dict(use_extra=use_extra)
+    got = SP.spread_group_info(*gi, **ux)
     err5 = max_abs_err(zip(got, SP.spread_group_info_plain(*gi)))
-    db5 = gi[0]
-    b5 = bound_ms(
+    db5, G5 = gi[0], gi[6]
+    # the function's need (spread_need_bytes; row scalars 38 B, outputs
+    # 3 x 8 B a group and feas_any) and its work: a key a lane and the
+    # walk's steps; beside it the figure of a full comparison sort of every
+    # lane over every operand byte, which the parent's design was held to
+    b5 = bound_ms(spread_need_bytes(db5, gi[1], use_extra,
+                                    38 + 24 * G5 + 1),
+                  db5.B * C + census["walk_steps"])
+    b5_sort = bound_ms(
         nbytes(gi[1], gi[2], db5.cluster_valid, db5.deleting, db5.name_rank,
                db5.api_ok, db5.pl_mask, db5.pl_tol_bypass,
                db5.pl_extra_score, *gi[3:6], *got)
@@ -838,14 +984,19 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         name="spread_group_info", route="cuda",
         source="karmada_tpu_torch/ops/csrc/spread_group_info.cu",
         replaces="karmada_tpu/ops/spread.py:222",
-        max_abs_err=err5, ms=cuda_ms(lambda: SP.spread_group_info(*gi), reps),
+        max_abs_err=err5,
+        ms=cuda_ms(lambda: SP.spread_group_info(*gi, **ux), reps),
         plain_ms=cuda_ms(lambda: SP.spread_group_info_plain(*gi), 2),
         bound_ms=b5[0], bound_by=b5[1], library_ms=None))
-    pk = cap["pick"]
-    pick = SP.spread_pick(*pk)
+    pick = SP.spread_pick(*pk, **ux)
     err6 = max_abs_err([(pick, SP.spread_pick_plain(*pk))])
     db6 = pk[0]
-    b6 = bound_ms(
+    # its need: row scalars 21 B, chosen G B, cluster_max 8 B and the pick
+    # row C B; its work: a key a lane and the lanes selected
+    b6 = bound_ms(spread_need_bytes(db6, pk[1], use_extra,
+                                    21 + G5 + 8 + C),
+                  db6.B * C + census["pick_steps"])
+    b6_sort = bound_ms(
         nbytes(pk[1], pk[2], pk[3], pk[4], db6.cluster_valid, db6.deleting,
                db6.name_rank, db6.api_ok, db6.pl_mask, db6.pl_tol_bypass,
                db6.pl_extra_score, pick)
@@ -855,12 +1006,26 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         name="spread_pick", route="cuda",
         source="karmada_tpu_torch/ops/csrc/spread_pick.cu",
         replaces="karmada_tpu/ops/spread.py:251",
-        max_abs_err=err6, ms=cuda_ms(lambda: SP.spread_pick(*pk), reps),
+        max_abs_err=err6, ms=cuda_ms(lambda: SP.spread_pick(*pk, **ux), reps),
         plain_ms=cuda_ms(lambda: SP.spread_pick_plain(*pk), 2),
         bound_ms=b6[0], bound_by=b6[1], library_ms=None))
+    for name, b, old in (("spread_group_info", b5, b5_sort),
+                         ("spread_pick", b6, b6_sort)):
+        log(f"phase 2 {name} bound: {b[0]:.6f} ms ({b[1]}; the function's "
+            f"need); a full sort of every lane over every operand byte: "
+            f"{old[0]:.6f} ms ({old[1]})")
+    for name, fn in (("spread_group_info",
+                      lambda: SP.spread_group_info(*gi, **ux)),
+                     ("spread_pick", lambda: SP.spread_pick(*pk, **ux))):
+        host, device = split_ms(fn, 10 * reps)
+        log(f"phase 2 {name} split: host enqueue {host:.4f} ms, device "
+            + (f"{device:.4f} ms" if device is not None else "not measured"))
+    if parent is not None:
+        phase_turns_spread(parent, gi, pk, use_extra, reps)
     log(f"phase 2 spread sub-batch: {len(groups[('', 'std')])} rows -> "
         f"phase A {db5.B}x{C} G={gi[6]}, phase B {db6.B}x{C}, "
         f"{int(pick.sum())} lanes picked")
+    log(spread_census_line("phase 2, the first forward chunk", census))
 
     # the whole chunk's dispatch (upload, 8 waves of K1 + K2/K4, then K3)
     # between two events on the stream: host launch gaps included
@@ -868,6 +1033,33 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         batch, waves=waves, with_used=True, device=dev), reps)
     log(f"phase 2 chunk: {B}x{C} dispatch_compact stream time "
         f"{chunk_ms:.4f} ms (CUDA events, mean of {reps})")
+    # the carry chain's vocabulary remap (not a kernel: index_select and
+    # where) on the chunk's accumulators, into the same vocabulary; its
+    # need is one read and one write of avail and est accumulators
+    from karmada_tpu_torch.scheduler.pipeline import _CarryChain
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    used = tuple(torch.randint(0, 1 << 20, u.shape, generator=g, device=dev)
+                 for u in zeros)
+    got = _CarryChain._device_remap(used, batch, batch)
+    # the vocabulary's own columns and classes kept, its padding zeroed
+    nr, nq = len(batch.res_names), len(batch.class_keys)
+    want = (torch.cat([used[0][:, :nr], torch.zeros_like(used[0][:, nr:])], 1),
+            used[1],
+            torch.cat([used[2][:nq], torch.zeros_like(used[2][nq:])], 0))
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the identity remap changed the accumulators")
+    remap_ms = cuda_ms(lambda: _CarryChain._device_remap(used, batch, batch),
+                       reps)
+    host, device = split_ms(
+        lambda: _CarryChain._device_remap(used, batch, batch), 10 * reps)
+    br = bound_ms(2 * nbytes(used[0], used[2]),
+                  used[0].numel() + used[2].numel())
+    log(f"phase 2 _CarryChain._device_remap: avail {tuple(used[0].shape)} "
+        f"est {tuple(used[2].shape)}: {remap_ms:.4f} ms (CUDA events, index "
+        f"uploads included); host {host:.4f} ms, device "
+        + (f"{device:.4f} ms" if device is not None else "not measured")
+        + f"; bound {br[0]:.6f} ms ({br[1]})")
     for r in rows:
         log(f"phase 2 {r['name']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -1630,7 +1822,7 @@ def load_parent(tree: str):
     mods = {m: importlib.import_module(f"karmada_tpu_torch_parent.{m}")
             for m in ("ops.kernels", "ops.resident_gather",
                       "ops.resident_update", "ops.shortlist", "ops.solver",
-                      "resident.state")}
+                      "ops.spread", "resident.state")}
     t0 = time.perf_counter()
     mods["ops.kernels"].build()
     log(f"phase 2 turns: the parent's port built in "
@@ -1802,6 +1994,40 @@ def phase_turns_k4(parent, web, web_big, reps, rounds=TURN_ROUNDS) -> dict:
             lambda wv=wv: cuda_ms(lambda: OS.webster_batch(*wv), reps),
             lambda wv=wv: cuda_ms(lambda: NS.webster_batch(*wv), reps))
     return run_turns(cases, rounds)
+
+
+def phase_turns_spread(parent, gi, pk, use_extra, reps,
+                       rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns: K5 and
+    K6 on phase 2's spread sub-batch (solve_spread's operands; the new
+    wrappers also get solve_spread's use_extra, the parent's are called
+    with its operands alone); the two ports' results must agree first.
+    Each side's host enqueue and device time is logged beside the
+    turns."""
+    from karmada_tpu_torch.ops import spread as NSP
+
+    OSP = parent["ops.spread"]
+    ux = dict(use_extra=use_extra)
+    if not all(torch.equal(a, b) for a, b in zip(
+            OSP.spread_group_info(*gi), NSP.spread_group_info(*gi, **ux))):
+        raise AssertionError("turns: K5 old and new disagree")
+    if not torch.equal(OSP.spread_pick(*pk), NSP.spread_pick(*pk, **ux)):
+        raise AssertionError("turns: K6 old and new disagree")
+    calls = {"K5 spread_group_info": (
+                 lambda: OSP.spread_group_info(*gi),
+                 lambda: NSP.spread_group_info(*gi, **ux)),
+             "K6 spread_pick": (lambda: OSP.spread_pick(*pk),
+                                lambda: NSP.spread_pick(*pk, **ux))}
+    for name, fns in calls.items():
+        for which, fn in zip(("old", "new"), fns):
+            host, device = split_ms(fn, 10 * reps)
+            log(f"phase 2 turns {name} split ({which}): host enqueue "
+                f"{host:.4f} ms, device "
+                + (f"{device:.4f} ms" if device is not None
+                   else "not measured"))
+    return run_turns({name: (lambda f=fns[0]: cuda_ms(f, reps),
+                             lambda f=fns[1]: cuda_ms(f, reps))
+                      for name, fns in calls.items()}, rounds)
 
 
 def run_turns(cases, rounds) -> dict:

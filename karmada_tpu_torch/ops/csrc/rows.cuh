@@ -1,6 +1,6 @@
 // The per-row prologue K2 schedule_rows, K5 spread_group_info, K6
 // spread_pick, K7 explain_rows and K8 shortlist_topk share, the block sort
-// K2/K5/K6/K8 use, and the top-k selection K2 and K8 share.
+// K2 and K8 use, and the top-k selection K2 and K8 share.
 //
 // Replaces the dense [B, C] planes the JAX programs build before their
 // per-row math -- karmada_tpu/ops/solver.py _schedule_core (the prev/evict
@@ -104,30 +104,22 @@ __device__ __forceinline__ i64 spread_key(i64 score, i64 avail, i64 name_rank,
          shl(AVAIL_CAP - clampll(avail, 0, AVAIL_CAP), LANE_BITS) | name_rank;
 }
 
-// In-place ascending bitonic sort of N (a power of two) entries
-// (g, key, idx), ordered by (g, key, idx) when BY_G, else by (key, idx)
-// with g carried along; without HAS_G there is no group array (g is
-// ignored; a compile-time choice, so K5/K6's loop is unchanged).  idx
-// is distinct, so the order is total: the result equals a stable sort by
-// (g, key) (resp. key) of lanes idx -- the tie order of lax.top_k and
-// argsort that K2's selections need.  The buffers are shared or device
-// memory of this block.  K2, K5 and K6 all sort with it.
-template <int NT, bool BY_G, bool HAS_G = true>
-__device__ void block_sort(int* g, i64* key, int* idx, int N) {
-  static_assert(HAS_G || !BY_G, "a sort by group needs the group array");
+// In-place ascending bitonic sort of N (a power of two) entries (key,
+// idx), ordered by (key, idx).  idx is distinct, so the order is total:
+// the result equals a stable sort by key of lanes idx -- the tie order of
+// lax.top_k and argsort that K2's and K8's selections need.  The buffers
+// are shared or device memory of this block.
+template <int NT>
+__device__ void block_sort(i64* key, int* idx, int N) {
   for (int k = 2; k <= N; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
       for (int i = threadIdx.x; i < N; i += NT) {
         const int ixj = i ^ j;
         if (ixj > i) {
-          const int ga = HAS_G ? g[i] : 0, gb = HAS_G ? g[ixj] : 0;
           const i64 ka = key[i], kb = key[ixj];
           const int ia = idx[i], ib = idx[ixj];
-          bool gt;
-          if (BY_G && ga != gb) gt = ga > gb;
-          else gt = ka > kb || (ka == kb && ia > ib);
+          const bool gt = ka > kb || (ka == kb && ia > ib);
           if (gt == ((i & k) == 0)) {
-            if (HAS_G) { g[i] = gb; g[ixj] = ga; }
             key[i] = kb; key[ixj] = ka;
             idx[i] = ib; idx[ixj] = ia;
           }

@@ -229,7 +229,7 @@ __device__ void block_argsort(int U, Smem& s, K key) {
     s.sidx[i] = i;
   }
   __syncthreads();
-  block_sort<NT, false, false>(nullptr, s.skey, s.sidx, N);
+  block_sort<NT>(s.skey, s.sidx, N);
   for (int p = threadIdx.x; p < U; p += NT) {
     s.order[p] = s.sidx[p];
     s.pos[s.sidx[p]] = p;

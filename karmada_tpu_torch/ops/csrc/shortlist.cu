@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(NT) shortlist_topk(TopkArgs a) {
     midx[i] = (int)(C + i);
   }
   __syncthreads();
-  block_sort<NT, false, false>(nullptr, mkey, midx, (int)a.nk);
+  block_sort<NT>(mkey, midx, (int)a.nk);
   for (i64 j = threadIdx.x; j < a.k; j += NT)
     a.cand[b * a.k + j] = j < m ? midx[j] : -1;
   if (threadIdx.x == 0) a.fcount[b] = cnt[0];

@@ -281,19 +281,38 @@ SPREAD_TENSOR_FIELDS = (
     "replicas", "nw_shortcut", "prev_idx", "prev_val", "evict_idx")
 
 SpreadInfoArgs = _struct("SpreadInfoArgs", SPREAD_TENSOR_FIELDS + (
-    "est", "group_id", "region_min", "cluster_min", "duplicated",
-    "sort_key", "sort_idx", "sort_gid", "firstpos", "segbuf", "score_g",
-    "avail_g", "value_g", "feas_any"),
-    ("B", "C", "Q", "Kp", "Ke", "G", "N", "smem"))
+    "est", "group_id", "region_min", "cluster_min", "duplicated", "groups",
+    "score_g", "avail_g", "value_g", "feas_any"),
+    ("B", "C", "Q", "Kp", "Ke", "G", "vec", "use_extra", "grp_smem"))
 
 SpreadPickArgs = _struct("SpreadPickArgs", SPREAD_TENSOR_FIELDS + (
-    "est", "group_id", "chosen", "cluster_max", "sort_key", "sort_idx",
-    "sort_gid", "firstpos", "pick"),
-    ("B", "C", "Q", "Kp", "Ke", "G", "N", "smem"))
+    "est", "group_id", "chosen", "cluster_max", "keys", "gmin", "pick"),
+    ("B", "C", "Q", "Kp", "Ke", "G", "vec", "use_extra", "key_smem",
+     "grp_smem"))
 
-#: lanes the spread kernels sort in shared memory (16 B each); wider rows
-#: sort in their device-memory scratch
+#: lanes whose spread keys K6 keeps in shared memory (8 B each); wider
+#: rows keep them in a [B, C] device-memory scratch
 SPREAD_SMEM_LANES = 8192
+#: groups whose state K5 keeps in shared memory (spread_info_fields()
+#: int64 each); more groups use a [B, fields, G] device-memory scratch
+INFO_SMEM_GROUPS = 64
+#: groups whose least key and chosen flag K6 keeps in shared memory (9 B
+#: each); more groups use a [B, G] device-memory scratch
+PICK_SMEM_GROUPS = 1024
+
+_SPREAD_INFO_LAYOUT: list = []
+
+
+def spread_info_fields() -> int:
+    """The int64 fields of a group's state in K5, read from its library
+    once (spread_group_info.cu kt_spread_info_layout)."""
+    if not _SPREAD_INFO_LAYOUT:
+        build()
+        out = (ctypes.c_longlong * 1)()
+        _LIBS["spread_group_info"].kt_spread_info_layout(out)
+        _SPREAD_INFO_LAYOUT[:] = out
+    return _SPREAD_INFO_LAYOUT[0]
+
 
 ExplainArgs = _struct("ExplainArgs", (
     "cluster_valid", "deleting", "api_ok", "pl_mask", "pl_tol_bypass",

@@ -9,8 +9,11 @@ within the chosen groups (select_clusters_by_region.go:27-118).
 The group axis is generic: region spread uses the fleet's region ids,
 spread-by-label placements a per-label-key vocabulary of label values
 (``tensors.encode_batch`` builds both), with identical group math.  The
-group math is segmented (a (group, key) sort plus segment reductions), so
-nothing is sized by the group count but the [B, G] results.
+plain versions' group math is segmented (a (group, key) sort plus segment
+reductions); the kernels sort nothing: one pass over a row's lanes gives
+the per-group sums and least keys, and a selection the rest (K5's walk in
+key order, K6's rest-th least key).  Nothing is sized by the group count
+but the [B, G] results and, beyond a few groups, a per-group scratch.
 
 Flow (solve_spread), per (axis, tier) group of one chunk's spread rows:
 
@@ -183,8 +186,9 @@ def spread_group_info_plain(db: DeviceBatch, est, group_id, region_min,
     return score_g, avail_g, value_g, feasible.any(1)
 
 
-def _spread_common(db: DeviceBatch, est, group_id, G: int):
-    """Checks shared by K5 and K6, the sort geometry and sort scratch."""
+def _spread_checks(db: DeviceBatch, est, group_id):
+    """Operand checks K5 and K6 share; returns whether a row's keys fit
+    in the kernel's shared memory (else they go to a [B, C] scratch)."""
     B, C = db.B, db.C
     Q = db.req_milli.shape[0]
     P = db.pl_mask.shape[0]
@@ -206,24 +210,43 @@ def _spread_common(db: DeviceBatch, est, group_id, G: int):
         kernels.check(db.t[f], dt, shape)
     kernels.check(est, I64, (Q + 1, C))
     kernels.check(group_id, torch.int32, (C,))
-    N = T._next_pow2(C)  # noqa: SLF001
-    # rows up to SPREAD_SMEM_LANES sort in shared memory (16 B per lane);
-    # wider ones in a device-memory scratch of the same layout
-    smem = N <= kernels.SPREAD_SMEM_LANES and Kp * 12 + Ke * 4 <= 1 << 16
-    n_scr = 0 if smem else B * N
-    dev = est.device
-    scratch = (torch.empty((n_scr,), dtype=I64, device=dev),
-               torch.empty((n_scr,), dtype=torch.int32, device=dev),
-               torch.empty((n_scr,), dtype=torch.int32, device=dev))
-    firstpos = torch.full((B, G), N, dtype=torch.int32, device=dev)
-    ints = (B, C, Q, Kp, Ke, G, N, int(smem))
-    return scratch, firstpos, ints
+    if C >= 1 << _LANE_BITS:
+        # the key's low bits are the lane's name_rank; the kernels mark a
+        # lane outside the order with a key whose low bits are all ones
+        raise ValueError(f"{C} lanes: the spread key holds fewer than "
+                         f"2^{_LANE_BITS}")
+    return C <= kernels.SPREAD_SMEM_LANES and Kp * 12 + Ke * 4 <= 1 << 16
+
+
+def _ints(db: DeviceBatch, est, group_id, G: int):
+    """The kernels' leading ints: B, C, Q, Kp, Ke, G and whether a lane
+    group loads as 16-byte vectors (C a multiple of 4, the cluster-axis
+    operands 16-byte aligned)."""
+    vec = db.C % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (
+            est, group_id, db.name_rank, db.pl_extra_score, db.cluster_valid,
+            db.deleting, db.pl_mask, db.pl_tol_bypass, db.api_ok))
+    return (db.B, db.C, db.req_milli.shape[0], db.prev_idx.shape[1],
+            db.evict_idx.shape[1], G, int(vec))
+
+
+def _scratch(n: int, dev):
+    """A device-memory scratch of n int64 and its pointer (0: none)."""
+    if not n:
+        return None, 0
+    t = torch.empty((n,), dtype=I64, device=dev)
+    return t, kernels.ptr(t)
 
 
 def spread_group_info(db: DeviceBatch, est, group_id, region_min,
-                      cluster_min, duplicated, G: int):
+                      cluster_min, duplicated, G: int,
+                      use_extra: bool = True):
     """K5 (ops/csrc/spread_group_info.cu) on a CUDA batch,
-    spread_group_info_plain on a CPU one; same contract."""
+    spread_group_info_plain on a CPU one; same contract.  use_extra False
+    promises that db's extra-score rows are all 0 (solver._use_extra); the
+    kernel then skips them.  The kernel writes every element of its
+    outputs; a scratch exists only for more than INFO_SMEM_GROUPS
+    groups."""
     if not _on_cuda(est, group_id, db.b_valid):
         return spread_group_info_plain(db, est, group_id, region_min,
                                        cluster_min, duplicated, G)
@@ -231,18 +254,19 @@ def spread_group_info(db: DeviceBatch, est, group_id, region_min,
     kernels.check(region_min, I64, (B,))
     kernels.check(cluster_min, I64, (B,))
     kernels.check(duplicated, torch.bool, (B,))
-    scratch, firstpos, ints = _spread_common(db, est, group_id, G)
+    _spread_checks(db, est, group_id)
+    grp_smem = G <= kernels.INFO_SMEM_GROUPS
     dev = est.device
-    segbuf = torch.zeros((B, G, 4), dtype=I64, device=dev)
-    out = [torch.zeros((B, G), dtype=I64, device=dev) for _ in range(3)]
+    groups, gp = _scratch(
+        0 if grp_smem else B * kernels.spread_info_fields() * G, dev)
+    out = torch.empty((3, B, G), dtype=I64, device=dev)
     feas_any = torch.empty((B,), dtype=torch.bool, device=dev)
     kernels.launch("spread_group_info", kernels.SpreadInfoArgs(
         *(kernels.ptr(db.t[f]) for f in kernels.SPREAD_TENSOR_FIELDS),
         kernels.ptr(est), kernels.ptr(group_id), kernels.ptr(region_min),
-        kernels.ptr(cluster_min), kernels.ptr(duplicated),
-        *(kernels.ptr(s) for s in scratch), kernels.ptr(firstpos),
-        kernels.ptr(segbuf), *(kernels.ptr(o) for o in out),
-        kernels.ptr(feas_any), *ints))
+        kernels.ptr(cluster_min), kernels.ptr(duplicated), gp,
+        *(kernels.ptr(o) for o in out), kernels.ptr(feas_any),
+        *_ints(db, est, group_id, G), int(use_extra), int(grp_smem)))
     return out[0], out[1], out[2], feas_any
 
 
@@ -284,21 +308,29 @@ def spread_pick_plain(db: DeviceBatch, est, group_id, chosen, cluster_max,
 
 
 def spread_pick(db: DeviceBatch, est, group_id, chosen, cluster_max,
-                G: int):
+                G: int, use_extra: bool = True):
     """K6 (ops/csrc/spread_pick.cu) on a CUDA batch, spread_pick_plain on
-    a CPU one; same contract.  The pick stays on the card."""
+    a CPU one; same contract; use_extra as in spread_group_info.  The pick
+    stays on the card; the kernel writes every lane of it.  A scratch
+    exists only for rows wider than SPREAD_SMEM_LANES lanes or more than
+    PICK_SMEM_GROUPS groups."""
     if not _on_cuda(est, group_id, db.b_valid):
         return spread_pick_plain(db, est, group_id, chosen, cluster_max, G)
     B, C = db.B, db.C
     kernels.check(chosen, torch.bool, (B, G))
     kernels.check(cluster_max, I64, (B,))
-    scratch, firstpos, ints = _spread_common(db, est, group_id, G)
-    pick = torch.empty((B, C), dtype=torch.bool, device=est.device)
+    key_smem = _spread_checks(db, est, group_id)
+    grp_smem = G <= kernels.PICK_SMEM_GROUPS
+    dev = est.device
+    keys, kp = _scratch(0 if key_smem else B * C, dev)
+    gmin, gp = _scratch(0 if grp_smem else B * G, dev)
+    pick = torch.empty((B, C), dtype=torch.bool, device=dev)
     kernels.launch("spread_pick", kernels.SpreadPickArgs(
         *(kernels.ptr(db.t[f]) for f in kernels.SPREAD_TENSOR_FIELDS),
         kernels.ptr(est), kernels.ptr(group_id), kernels.ptr(chosen),
-        kernels.ptr(cluster_max), *(kernels.ptr(s) for s in scratch),
-        kernels.ptr(firstpos), kernels.ptr(pick), *ints))
+        kernels.ptr(cluster_max), kp, gp, kernels.ptr(pick),
+        *_ints(db, est, group_id, G), int(use_extra), int(key_smem),
+        int(grp_smem)))
     return pick
 
 
@@ -348,7 +380,8 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
 
     `capture`, when given, receives the operands of K5 ("group_info"), K6
     ("pick") and, with explain, K7 ("explain") as the call passed them, so
-    they can be held against the plain versions."""
+    they can be held against the plain versions; K5 and K6 were also
+    passed use_extra=solver._use_extra(batch)."""
     if not len(spread_idx):
         return ({}, None) if collect_used else {}
     if explain and not batch.explain:
@@ -386,12 +419,14 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
     est = capacity(db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
                    zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
                    db.has_summary, db.est_override, zeros[2])
+    extra = _use_extra(batch)
     info_in = (db, est, group_id, dev_t(region_min, np.int64),
                dev_t(cluster_min, np.int64), dev_t(duplicated, bool), G)
     if capture is not None:
         capture["group_info"] = info_in
     score_g, avail_g, value_g, feas_any = (
-        x.cpu().numpy() for x in spread_group_info(*info_in))
+        x.cpu().numpy()
+        for x in spread_group_info(*info_in, use_extra=extra))
 
     # -- host DFS over G-level scalars: serial.select_groups itself --------
     out = {}
@@ -443,7 +478,7 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
     if capture is not None:
         capture["pick"] = (_rows_of(rows, dev_t(np.arange(Bs), np.int64)),
                            *pick_in[1:])
-    pick = spread_pick(*pick_in)
+    pick = spread_pick(*pick_in, use_extra=extra)
     # phase B: the placement axis becomes the binding axis -- row i's
     # placement mask is its pick, tolerations and the cluster spread are
     # folded into the pick, the strategy rows are gathered per binding
@@ -459,7 +494,7 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
         b_valid=dev_t(b_valid, bool),
         placement_id=torch.arange(Bs, dtype=torch.int32, device=device))
     rep, sel, status, used, _ = schedule_core(
-        rows, waves=waves, use_extra=_use_extra(batch), used0=used0,
+        rows, waves=waves, use_extra=extra, used0=used0,
         with_used=collect_used, tier=tier)
     if explain:
         # the live rows with their REAL placement planes (rows.t now

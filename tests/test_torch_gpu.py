@@ -20,8 +20,10 @@ device-memory scratch and the contract's edges, and its division helper
 over the int64 range; solve_big on the big tier's direct and gather lane
 paths;
 and solve_spread on region and label axes, with K5 and K6 held against
-their plain versions on shared-memory rows and on 16,384-lane rows (the
-device-memory sort path); K7 explain_rows in both flavours (the main
+their plain versions on shared-memory rows, on 16,384-lane rows (the
+device-memory key buffer) and on the scenarios of their branches (long
+walks, exhausted walks, Duplicated and infeasible rows, cluster caps at
+their edges, 4,100 label groups); K7 explain_rows in both flavours (the main
 solve's waves and the spread phase B); K8 shortlist_topk on its
 shared-memory and device-memory key paths; K9 group_sums (round-robin
 and region-run layouts, the tiled branch, one group); a shortlisted
@@ -327,6 +329,13 @@ def _hold_spread_kernels(batch, idxs, axis):
     want = PSP.spread_pick_plain(db, est, gid, chosen, cmax, G)
     assert torch.equal(got, want) and bool(got.any())
     _launched(("spread_group_info", "spread_pick"))
+    # group_id 4 bytes off a 16-byte boundary: the lanes load one at a time
+    odd = torch.cat([gid[:1], gid])[1:]
+    assert odd.data_ptr() % 16
+    for a, b in zip(PSP.spread_group_info(db, est, odd, *extra, G),
+                    PSP.spread_group_info_plain(db, est, gid, *extra, G)):
+        assert torch.equal(a, b)
+    assert torch.equal(PSP.spread_pick(db, est, odd, chosen, cmax, G), want)
 
 
 @pytest.mark.gpu
@@ -340,8 +349,8 @@ def test_spread_kernels_match_plain_on_card():
 
 @pytest.mark.gpu
 def test_spread_kernels_device_memory_path_on_card():
-    """K5 and K6 at 16,384 lanes: wider than the shared-memory sort, so
-    the rows sort in their device-memory scratch."""
+    """K5 and K6 at 16,384 lanes: wider than the shared-memory key
+    buffer, so the rows keep their keys in a device-memory scratch."""
     def build(M):
         clusters, items = S.region_scenario(M, 6, n_clusters=9000,
                                             n_bindings=8, n_regions=5)
@@ -351,6 +360,72 @@ def test_spread_kernels_device_memory_path_on_card():
     (axis, _), idxs = next(iter(groups.items()))
     _hold_spread_kernels(batch, idxs, axis)
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(S.SPREAD_EDGE_CASES))
+def test_spread_kernels_edges_on_card(case):
+    """K5 and K6 bit for bit against their plain versions on the scenarios
+    of their branches (torch_scenarios.spread_edge_scenario at full size):
+    Divided walks that qualify only deep in their group (K5's long-walk
+    branch, past a sort chunk), walks exhausted by members and by
+    availability, Duplicated rows, rows with no feasible lane, lanes that
+    share score and availability (name_rank decides), prev and evict
+    entries, cluster_max 0, 1 and beyond every row's members, a label axis
+    of 4,100 groups (the device-memory group state of both kernels),
+    16,384-lane rows (the device-memory key buffer) and plugin scores up
+    to 300 (the extra-score loads; keys that do not hold their lane's
+    score, so K5's long walk starts from the group's least key).  Each
+    kernel runs with use_extra as solve_spread passes it and, where the
+    extra scores are 0, also with the rows read, both with group_id on
+    and off a 16-byte boundary; then every (axis, tier) group but the
+    label axis's (whose host DFS over 4,100 groups would take minutes)
+    through solve_spread, card against CPU."""
+    dev = _card()
+    batch, items, groups = _spread_case(
+        lambda M: S.spread_edge_scenario(M, case))
+    xs = S.spread_edge_scores(case, batch.pl_extra_score.shape)
+    if xs is not None:
+        batch.pl_extra_score = xs
+    use_extra = PS._use_extra(batch)
+    assert use_extra == (xs is not None)
+    if case == "label_many":
+        assert PT._next_pow2(len(batch.label_axes[S.RING][1]), 8) > \
+            kernels.PICK_SMEM_GROUPS
+    if case == "wide_deep":
+        assert batch.C > kernels.SPREAD_SMEM_LANES
+    rng = np.random.default_rng(3)
+    for (axis, tier), idxs in groups.items():
+        db, est, gid, G, extra = _spread_rows(batch, idxs, axis, dev)
+        # group_id 4 bytes off a 16-byte boundary: one load a lane
+        odd = torch.cat([gid[:1], gid])[1:]
+        assert odd.data_ptr() % 16
+        n_groups = len(batch.region_names if axis == ""
+                       else batch.label_axes[axis][1])
+        chosen, cmax = S.spread_edge_chosen(rng, db.B, G, n_groups)
+        chosen, cmax = (torch.from_numpy(x).to(dev) for x in (chosen, cmax))
+        want = PSP.spread_group_info_plain(db, est, gid, *extra, G)
+        want_pick = PSP.spread_pick_plain(db, est, gid, chosen, cmax, G)
+        assert bool(want_pick.any())
+        kernels.reset_counts()
+        for ux in sorted({use_extra, True}):
+            for g in (gid, odd):
+                got = PSP.spread_group_info(db, est, g, *extra, G,
+                                            use_extra=ux)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b)
+                got = PSP.spread_pick(db, est, g, chosen, cmax, G,
+                                      use_extra=ux)
+                assert torch.equal(got, want_pick)
+        _launched(("spread_group_info", "spread_pick"))
+        if case == "label_many":
+            continue  # the host group DFS over 4,100 groups is the cost
+        kw = dict(waves=8, axis=axis, tier=tier)
+        got = PSP.solve_spread(batch, items, idxs, device=dev, **kw)
+        torch.cuda.synchronize()
+        want = PSP.solve_spread(batch, items, idxs, device="cpu", **kw)
+        assert {k: _norm(v) for k, v in got.items()} == \
+            {k: _norm(v) for k, v in want.items()}
 
 # -- K7 explain_rows, K8 shortlist_topk, K9 group_sums ---------------------------
 

@@ -181,3 +181,98 @@ def test_hazard_raw_snapshot_for_phase_a():
     both packages alike."""
     jside, pside = _both(SCENARIOS["region_many"])
     _assert_spread(jside, pside, 2, used=_carry(jside[0], 6, scale=50))
+
+
+@pytest.mark.parametrize("case", sorted(S.SPREAD_EDGE_CASES))
+def test_spread_plain_matches_jax_on_edges(case):
+    """K5's and K6's plain versions against the JAX programs on the
+    scenarios of the kernels' branches (tests/torch_scenarios.py
+    spread_edge_scenario at its CPU size): spread_group_info on score_g,
+    avail_g, value_g and feas_any, and spread_pick_plain against
+    _pick_one vmapped over the same planes' key order, with chosen groups
+    and cluster caps of 0, 1, beyond every row's members and 2-8 (and on
+    plugin_scores the case's plugin scores, some lanes above 200).  The
+    card tests hold the kernels against these plain versions on the same
+    scenarios at full size."""
+    import jax.numpy as jnp
+
+    cj, ij = S.spread_edge_scenario(MJ, case, small=True)
+    jb = JT.encode_batch(ij, JT.ClusterIndex.build(cj), JaxEstimator())
+    xs = S.spread_edge_scores(case, jb.pl_extra_score.shape)
+    if xs is not None:
+        jb.pl_extra_score = xs
+    fields = {f: getattr(jb, f) for f in PT.FIELD_DTYPES
+              if getattr(jb, f, None) is not None}
+    pb = PT.batch_from_arrays(fields, jb)
+    groups = JT.spread_groups(jb, ij)
+    assert groups
+    rng = np.random.default_rng(11)
+    seen = dict(rows=0, dup=0, infeasible=0, exhausted=0, deep=0, nodec=0)
+    for (axis, _tier), idxs in groups.items():
+        gid, names = ((jb.region_id, jb.region_names) if axis == ""
+                      else jb.label_axes[axis])
+        G = JT._next_pow2(len(names), 8)
+        Bp = JT._next_pow2(len(idxs), 8)
+        idx = np.asarray(idxs + [idxs[0]] * (Bp - len(idxs)))
+        pid = jb.placement_id[idx]
+        rmin, cmin = jb.pl_region_min[pid], jb.pl_sc_min[pid]
+        dup = jb.pl_strategy[pid] == JT.STRAT_DUPLICATED
+        rows = (pid, jb.gvk_id[idx], jb.class_id[idx], jb.replicas[idx])
+        coo = (jb.nw_shortcut[idx], jb.prev_idx[idx], jb.prev_val[idx],
+               jb.evict_idx[idx])
+        want = JSP.spread_group_info(
+            jb.cluster_valid, jb.deleting, jb.name_rank, jb.pods_allowed,
+            jb.has_summary, jb.avail_milli, jb.has_alloc, jb.api_ok, gid,
+            jb.req_milli, jb.req_is_cpu, jb.req_pods, jb.est_override,
+            jb.pl_mask, jb.pl_tol_bypass, jb.pl_extra_score, *rows, rmin,
+            cmin, dup, *coo, G=G)
+        db = PS.device_batch(pb, "cpu", rows=idx)
+        z = PS._zeros_used(db)
+        est = PS.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                          db.avail_milli, z[0], db.has_alloc,
+                          db.pods_allowed, z[1], db.has_summary,
+                          db.est_override, z[2])
+        t = torch.from_numpy
+        gid_t = t(np.asarray(gid, np.int32))
+        got = PSP.spread_group_info(
+            db, est, gid_t, t(rmin.astype(np.int64)),
+            t(cmin.astype(np.int64)), t(dup), G)
+        for name_, a, b in zip(("score_g", "avail_g", "value_g", "feas_any"),
+                               want, got):
+            assert np.array_equal(np.asarray(a), b.numpy()), name_
+        feasible, avail_sel, score, *_ = JSP._spread_planes(
+            jb.cluster_valid, jb.deleting, jb.pods_allowed, jb.has_summary,
+            jb.avail_milli, jb.has_alloc, jb.api_ok, jb.req_milli,
+            jb.req_is_cpu, jb.req_pods, jb.est_override, jb.pl_mask,
+            jb.pl_tol_bypass, jb.pl_extra_score, pid, rows[1], rows[2],
+            rows[3], *coo)
+        order = jnp.argsort(JSP._sort_key(score, avail_sel,
+                                          jb.name_rank[None, :], feasible),
+                            axis=1)
+        chosen, cmax = S.spread_edge_chosen(rng, Bp, G, len(names))
+        want_pick = JSP._pick_vmap(order, feasible, jnp.asarray(gid),
+                                   jnp.asarray(chosen), jnp.asarray(cmax), G)
+        got_pick = PSP.spread_pick_plain(db, est, gid_t, t(chosen), t(cmax),
+                                         G)
+        assert np.array_equal(np.asarray(want_pick), got_pick.numpy())
+        assert got_pick.any()
+        # what the case drove
+        val = np.asarray(want[2])
+        seen["rows"] += len(idxs)
+        seen["dup"] += int(dup.sum())
+        seen["infeasible"] += int((~np.asarray(want[3])).sum())
+        tgt = np.where(rmin > 0, -(-jb.replicas[idx] // np.maximum(rmin, 1)),
+                       jb.replicas[idx])
+        avail_g = np.asarray(want[1])
+        seen["exhausted"] += int(((val > 0) & ~dup[:, None]
+                                  & (avail_g < tgt[:, None])).sum())
+        seen["deep"] += int(((val > 0) & ~dup[:, None]
+                             & (tgt[:, None] > 8 * 16)).sum())
+        seen["nodec"] += int((np.asarray(feasible) & ~dup[:, None]
+                              & (np.asarray(score) > 200)).sum())
+    assert seen["rows"] > 0
+    need = {"duplicated": "dup", "infeasible": "infeasible",
+            "exhausted": "exhausted", "deep_walk": "deep",
+            "wide_deep": "deep", "plugin_scores": "nodec"}.get(case)
+    if need:
+        assert seen[need] > 0, seen

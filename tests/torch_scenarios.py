@@ -380,6 +380,140 @@ def tight_region_scenario(M, n_bindings=11):
     return clusters, items
 
 
+
+# -- K5 / K6 edge cases: the branches of the spread kernels -------------------
+
+#: spread_edge_scenario's cases, with their fleet sizes on the card and on
+#: the CPU (where only the plain versions and the JAX program run)
+SPREAD_EDGE_CASES = {
+    "deep_walk": (600, 90),     # walks past the rounds and a sort chunk
+    "exhausted": (48, 48),      # walks that run out: members, availability
+    "duplicated": (200, 40),    # Duplicated rows: members fitting replicas
+    "infeasible": (120, 30),    # a row with no feasible lane
+    "label_many": (4100, 40),   # a label axis with G >= 4,096 (card)
+    "wide_deep": (9000, 90),    # C > 8,192 lanes (card), deep walks
+    "plugin_scores": (600, 90),  # deep walks, plugin scores up to 300
+}
+
+
+def _edge_placement(M, rng, region_min, cluster_min, cluster_max, strat,
+                    label=None, names=None):
+    by = (dict(spread_by_label=label) if label
+          else dict(spread_by_field=M.SPREAD_BY_FIELD_REGION))
+    scs = [M.SpreadConstraint(min_groups=region_min,
+                              max_groups=region_min + rng.randint(0, 2),
+                              **by),
+           M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                              min_groups=cluster_min,
+                              max_groups=cluster_max)]
+    if strat == "dup":
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)
+    elif strat == "agg":
+        rs = M.ReplicaSchedulingStrategy(
+            replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+            replica_division_preference=M.REPLICA_DIVISION_AGGREGATED)
+    else:
+        rs = _dynamic(M)
+    affinity = (M.ClusterAffinity(cluster_names=names)
+                if names is not None else None)
+    return M.Placement(cluster_affinity=affinity, spread_constraints=scs,
+                       replica_scheduling=rs)
+
+
+def spread_edge_scenario(M, case, small=False):
+    """A fleet and spread bindings that drive one branch of K5 / K6 (the
+    fleet size of SPREAD_EDGE_CASES, the CPU one with `small`).  Clusters
+    have 8 or 16 cores and bindings ask 1 core a replica, so many lanes
+    share score and availability and name_rank decides their order; 40%
+    of the bindings carry previous clusters (score 100, their replicas in
+    the availability) and 15% an eviction task.
+      deep_walk / wide_deep / plugin_scores: 3 regions, targets of
+        3-2,500 replicas, so Divided walks run past the kernel's rounds
+        and past a sort chunk; a target above a region's total exhausts
+        it (plugin_scores adds spread_edge_scores);
+      exhausted: 8 regions of ~6 clusters, cluster minimums of 4-9 and
+        targets above a region's total;
+      duplicated: Duplicated rows whose replicas some clusters fit;
+      infeasible: rows whose affinity names no cluster (no feasible lane)
+        beside ordinary rows;
+      label_many: one distinct ring label value per cluster."""
+    n = SPREAD_EDGE_CASES[case][1 if small else 0]
+    rng = random.Random(900 + sorted(SPREAD_EDGE_CASES).index(case))
+    names = [f"m-{i:05d}" for i in range(n)]
+    n_regions = {"exhausted": 8, "duplicated": 4}.get(case, 3)
+    clusters = []
+    for i, nm in enumerate(names):
+        c = capacity_cluster(M, nm, rng.choice([8000, 8000, 16000]),
+                             f"region-{rng.randrange(n_regions)}")
+        if case == "label_many":
+            c.metadata.labels[RING] = f"ring-{i}"
+        clusters.append(c)
+    label = RING if case == "label_many" else None
+    if case in ("deep_walk", "wide_deep", "plugin_scores"):
+        pls = [_edge_placement(M, rng, rm, cm, 6, st)
+               for rm, cm, st in ((1, 1, "dyn"), (1, 2, "agg"),
+                                  (2, 1, "dyn"), (1, 3, "agg"))]
+        reps = (3, 40, 200, 900, 2500)
+    elif case == "exhausted":
+        pls = [_edge_placement(M, rng, 1, cm, 12, st)
+               for cm, st in ((4, "dyn"), (7, "agg"), (9, "dyn"))]
+        reps = (5, 60, 400)
+    elif case == "duplicated":
+        pls = [_edge_placement(M, rng, 1, 1, 4, "dup"),
+               _edge_placement(M, rng, 2, 2, 6, "dup"),
+               _edge_placement(M, rng, 1, 2, 5, "dyn")]
+        reps = (1, 8, 12, 20)
+    elif case == "infeasible":
+        pls = [_edge_placement(M, rng, 1, 1, 3, "dyn", names=["absent"]),
+               _edge_placement(M, rng, 1, 2, 4, "agg")]
+        reps = (1, 5, 30)
+    else:
+        pls = [_edge_placement(M, rng, 1, 1, 4, "dyn", label=label),
+               _edge_placement(M, rng, 2, 2, 6, "agg", label=label),
+               _edge_placement(M, rng, 1, 1, 3, "dup", label=label)]
+        reps = (1, 4, 30)
+    items = []
+    for b in range(24):
+        spec, status = capacity_binding(M, b, rng.choice(reps), 1000,
+                                        rng.choice(pls))
+        if rng.random() < 0.4:
+            spec.clusters = [M.TargetCluster(name=nm,
+                                             replicas=rng.randint(0, 20))
+                             for nm in rng.sample(names, 3)]
+            status.last_scheduled_time = 100.0
+        if rng.random() < 0.15:
+            spec.graceful_eviction_tasks = [
+                M.GracefulEvictionTask(from_cluster=rng.choice(names))]
+        items.append((spec, status))
+    return clusters, items
+
+
+def spread_edge_scores(case, shape):
+    """The placements' plugin scores (pl_extra_score, `shape` [P, C]) a
+    case sets on its encoded batch, else None: on plugin_scores 0-300
+    from a seed, so lanes score above 100 and, with a previous cluster's
+    100, above 200 -- where a spread key no longer holds its lane's
+    score (K5's walk then reads the planes, not the keys)."""
+    if case != "plugin_scores":
+        return None
+    return np.random.default_rng(31).integers(0, 301, shape).astype(np.int64)
+
+
+def spread_edge_chosen(rng, B, G, n_groups):
+    """Chosen groups and cluster caps for holding K6 on its branches: each
+    row chooses about half of the groups that exist (at least one), and
+    cluster_max cycles through 0, 1, more than any row's members, a
+    random 2-8 (K6 selects in rounds) and a random 40-120 (K6's radix
+    select, where the chosen groups hold more members)."""
+    chosen = rng.random((B, G)) < 0.5
+    chosen[:, n_groups:] = False
+    chosen[np.arange(B), rng.integers(0, n_groups, B)] = True
+    cmax = np.array([(0, 1, 1 << 40, int(rng.integers(2, 9)),
+                      int(rng.integers(40, 121)))[i % 5]
+                     for i in range(B)], np.int64)
+    return chosen, cmax
+
 # -- the big lane tier (tests/test_solver_batch.py:575-650) ------------------
 
 def _dynamic(M):

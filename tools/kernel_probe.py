@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Probe of single kernels of the port on one CUDA card, at chip_smoke
 phase 2's shapes: K3 compact and K2 schedule_rows (std tier), K4
-webster_batch, K11 gather_rows.
+webster_batch, K11 gather_rows, K5 spread_group_info and K6 spread_pick.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
-    python3 tools/kernel_probe.py [k3k2] [k4] [k11] [--parent TREE]
+    python3 tools/kernel_probe.py [k3k2] [k4] [k11] [k5k6] [--parent TREE]
 
 It builds the first forward chunk of chip_smoke's workload (bench.py's
 config-5 mix, seed 0: 4096 bindings x 8192 lanes) and prints, after the
@@ -27,10 +27,17 @@ card's name and power limit, the parts named (default: all):
   k11   K11 at 4,096 rows of a 2^20-slot store, per tree: CUDA-event ms
         and host enqueue against device time of gather_batch,
         sub_gather_batch, dispatch_gather and dispatch_sub_gather.
+  k5k6  chip_smoke's spread census of the spread sub-batches of the first
+        forward chunk (phase 2's), the first wide chunk and the first
+        explain chunk; then on phase 2's sub-batch, per tree: K5's and
+        K6's CUDA-event ms, host enqueue against device time, and, where
+        the tree's sources hold KT_MARK points (spread.cuh), a clock64
+        profile of each kernel's phases in cycles a row (built with
+        -DKT_PROFILE; held against the unmarked kernel).
 
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
-TREE, as chip_smoke.py --parent takes it) k4 and k11 also run on the
-parent's port.  The variant libraries build into a temporary directory.
+TREE, as chip_smoke.py --parent takes it) k4, k11 and k5k6 also run on
+the parent's port.  The variant libraries build into a temporary directory.
 Exits non-zero without a card, or when a variant disagrees with its
 plain version.
 """
@@ -57,10 +64,12 @@ K2_PHASES = ("pass 1", "histogram passes", "collect", "fill", "union",
              "lane info + rank sort", "lane math + write")
 
 
-def build_variant(kernels, src, subs, name, out_dir, text=None, inc=None):
+def build_variant(kernels, src, subs, name, out_dir, text=None, inc=None,
+                  flags=()):
     """A kernel source (`src`, or its `text`) with `subs` substituted,
-    built with nvcc into out_dir against the headers of `inc` (default:
-    this checkout's ops/csrc); returns the loaded library."""
+    built with nvcc (and `flags`) into out_dir against the headers of
+    `inc` (default: this checkout's ops/csrc); returns the loaded
+    library."""
     text = open(src).read() if text is None else text
     for old, new in subs:
         if text.count(old) != 1:
@@ -70,7 +79,7 @@ def build_variant(kernels, src, subs, name, out_dir, text=None, inc=None):
     so = os.path.join(out_dir, f"lib{name}.so")
     with open(cu, "w") as fh:
         fh.write(text)
-    out = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+    out = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, *flags, "-I",
                           str(inc or kernels.CSRC), "-o", so, cu],
                          capture_output=True, text=True)
     if out.returncode:
@@ -417,6 +426,110 @@ def probe_k4(CS, batch, wide, fleet, dev, trees):
                                     for p, v in rounds.items()), flush=True)
 
 
+#: the phases between the KT_MARK(k) points of a K5 / K6 source
+#: (spread.cuh; compiled in with -DKT_PROFILE), by source
+K5K6_PHASES = {
+    "spread_group_info": ("init + row + pass 1", "decide + walk",
+                          "long walks", "scores"),
+    "spread_pick": ("init + row + pass 1", "rest", "select", "write"),
+}
+#: rows the K5 / K6 profile holds (the value of KT_PROFILE)
+K5K6_PROF_ROWS = 4096
+
+
+def profile_k5k6(kmod, call, source, out_dir, name):
+    """clock64 profile of one launch of a K5 / K6 source (`call` runs it
+    through the tree's wrapper and returns its outputs): the tree's
+    source built beside its headers with -DKT_PROFILE (its KT_MARK points
+    compiled in), launched with kmod's entry swapped, held against the
+    unmarked kernel's outputs.  Returns (phase names, [rows, phases]
+    cycles), or None for a tree whose source has no marks."""
+    csrc = str(kmod.CSRC)
+    src = os.path.join(csrc, f"{source}.cu")
+    if "KT_MARK(" not in open(src).read():
+        return None
+    lib = build_variant(kmod, src, [], name, out_dir, inc=csrc,
+                        flags=(f"-DKT_PROFILE={K5K6_PROF_ROWS}",))
+    want = call()
+    torch.cuda.synchronize()
+    saved = kmod._FNS[source]
+    try:
+        kmod._FNS[source] = entry(lib, "kt_" + source)
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        kmod._FNS[source] = saved
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the profiled kernel disagrees")
+    h = np.zeros(K5K6_PROF_ROWS * 8, np.int64)
+    fn = lib.kt_prof_read
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.c_void_p(h.ctypes.data)):
+        raise RuntimeError("reading the K5 / K6 profile failed")
+    phases = K5K6_PHASES[source]
+    rows = got[0].shape[0]
+    h = h.reshape(K5K6_PROF_ROWS, 8)[:rows]
+    return phases, np.diff(h[:, :len(phases) + 1], axis=1)
+
+
+def probe_k5k6(CS, batch, items, wide, explain, fleet, dev, trees):
+    """K5 and K6: spread_census of the spread sub-batches of the first
+    forward chunk (phase 2's), the first wide chunk and the first explain
+    chunk; then per tree on phase 2's sub-batch: CUDA-event ms, host
+    enqueue against device time, and the clock64 profile of each
+    kernel's phases in cycles a row."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import tensors as T
+
+    for src in ("spread_group_info", "spread_pick"):
+        for ln in kernels.BUILD_LOG.get(src, "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"{src} ptxas: {ln.strip()}", flush=True)
+    cindex = T.ClusterIndex.build(fleet)
+    ops = CS.spread_operands(batch, items, dev, 8)
+    for label, part, chunk in (("the first wide chunk", wide, 4096),
+                               ("the first explain chunk", explain, 1024)):
+        b = T.encode_batch(part[:chunk], cindex, GeneralEstimator())
+        for (axis, tier), (gi, pk) in CS.spread_operands(
+                b, part[:chunk], dev, 8).items():
+            print(CS.spread_census_line(f"{label}, {tier} tier",
+                                        CS.spread_census(gi, pk)),
+                  flush=True)
+    gi, pk = ops[("", "std")]
+    print(CS.spread_census_line("phase 2, the first forward chunk",
+                                CS.spread_census(gi, pk)), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kmod, smod in trees:
+            SP = smod.SP
+            # every tree's wrappers with the operands alone (their default
+            # use_extra), so that trees whose wrappers differ in it are
+            # timed alike
+            for source, call in (
+                    ("spread_group_info",
+                     lambda SP=SP: SP.spread_group_info(*gi)),
+                    ("spread_pick", lambda SP=SP: SP.spread_pick(*pk))):
+                ms = CS.cuda_ms(call, 50)
+                host, device = CS.split_ms(call, 50)
+                prof = profile_k5k6(kmod, call, source, tmp,
+                                    f"{source}_{label.split()[-1]}")
+                line = (f"{source} {label}, phase 2 ({gi[0].B} / {pk[0].B} "
+                        f"rows x {gi[0].C}): {ms:.4f} ms; split_ms host "
+                        f"{host:.4f} ms, device {device} ms")
+                if prof is not None:
+                    phases, d = prof
+                    line += (
+                        f"; clock64 cycles a row (mean / max over {len(d)} "
+                        "rows): " + "; ".join(
+                            f"{p} {d[:, i].mean():.0f} / {d[:, i].max()}"
+                            for i, p in enumerate(phases))
+                        + f"; a row {d.sum(1).mean():.0f} / "
+                        f"{d.sum(1).max()}")
+                print(line, flush=True)
+
+
 def probe_k11(CS, dev, trees):
     """K11 per tree at phase 2's shape (4,096 rows of a 2^20-slot store,
     Kp = Ke = 4; a 64-lane union and every 16th row dropped in the sub
@@ -471,12 +584,13 @@ def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parts", nargs="*", default=["k3k2", "k4", "k11"],
-                    help="k3k2, k4, k11 (default: all)")
+    ap.add_argument("parts", nargs="*",
+                    default=["k3k2", "k4", "k11", "k5k6"],
+                    help="k3k2, k4, k11, k5k6 (default: all)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
-                         "karmada_tpu_torch/ unpacked: K4 and K11 are then "
-                         "probed on it too")
+                         "karmada_tpu_torch/ unpacked: K4, K11, K5 and K6 "
+                         "are then probed on it too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -488,6 +602,7 @@ def main() -> int:
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import resident_gather as RG
     from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import spread as SP
     from karmada_tpu_torch.ops import tensors as T
 
     dev = torch.device("cuda", 0)
@@ -495,13 +610,13 @@ def main() -> int:
     kernels.build()
     trees = [("this tree", kernels, types.SimpleNamespace(
         webster_batch=S.webster_batch, webster_plain=S.webster_plain,
-        RG=RG))]
+        RG=RG, SP=SP))]
     if args.parent:
         par = CS.load_parent(args.parent)
         trees.append(("the parent", par["ops.kernels"], types.SimpleNamespace(
             webster_batch=par["ops.solver"].webster_batch,
             webster_plain=par["ops.solver"].webster_plain,
-            RG=par["ops.resident_gather"])))
+            RG=par["ops.resident_gather"], SP=par["ops.spread"])))
     M = CS.models()
     rng = random.Random(0)
     fleet = CS.build_fleet(M, rng, 5000)
@@ -518,6 +633,12 @@ def main() -> int:
         probe_k4(CS, batch, wide[:4096], fleet, dev, trees)
     if "k11" in args.parts:
         probe_k11(CS, dev, trees)
+    if "k5k6" in args.parts:
+        names = [c.name for c in fleet]
+        wide = CS.build_wide_items(M, random.Random(1), CS.WIDE_BINDINGS,
+                                   placements, names)
+        explain = CS.starve_items(M, wide[:CS.EXPLAIN_BINDINGS])
+        probe_k5k6(CS, batch, items, wide, explain, fleet, dev, trees)
     return 0
 
 

@@ -22,8 +22,10 @@ region spread included; chunk 4096, 8 waves, carry on):
      tier (and its K4 problems) on the first wide chunk's big sub-batch;
      K2's wave 0 split into its stream operations (prepare, K4, finish;
      CUDA events around each launch) and into host enqueue and device
-     time, on both tiers; a census of K4's problems over the chunk's 8
-     waves and the big sub-batch (n_eff, positive and kept lanes, t* = 0,
+     time, on both tiers, and wave 0 with its K1 (enqueued by K2's first
+     launch) with K1's device time in it; K1 alone's host / device
+     split; a census of K4's problems over the chunk's 8 waves and the
+     big sub-batch (n_eff, positive and kept lanes, t* = 0,
      r > 0, both designs' bisection steps, the brackets checked against
      the plain bisection), and K4's host / device split on each tier's
      wave 0; a census of K5's and K6's sub-batch (spread_census: feasible
@@ -50,9 +52,10 @@ region spread included; chunk 4096, 8 waves, carry on):
   8. the megafleet cycle: bench.py's --megafleet shape at the scale of
      MEGAFLEET_r01.json -- 10,000 clusters in 200 regions, one
      DynamicWeight placement per region, MEGAFLEET_BINDINGS bindings --
-     with the two-tier shortlist armed (K1 + K8 shortlist_topk over each
-     chunk's profiles, K9 group_sums, the solver over the candidate
-     union): every chunk shortlisted, no fallback;
+     with the two-tier shortlist armed (K8 shortlist_topk, which computes
+     the lanes' capacity itself, over each chunk's profiles, K9
+     group_sums, the solver over the candidate union): every chunk
+     shortlisted, no fallback;
   9. the incremental steady state (bench.py --incremental's legs) on
      phase 8's fleet shape with INCREMENTAL_BINDINGS bindings: a fused
      resident plane (slot store and cluster tensors kept on the card, K10
@@ -89,8 +92,10 @@ region spread included; chunk 4096, 8 waves, carry on):
      scheduler cycle a line of host seconds by stage.
 
 Phase 2 also holds K7 (on the first forward chunk and on its spread
-sub-batch), K8 (on a megafleet chunk's profile rows, and on rows wider
-than its shared-memory path) and K9 (on the 10k fleet, and with more
+sub-batch), K8 (on a megafleet chunk's profile rows, its host / device
+split and torch.topk over its key plane beside it, and on the same rows
+over twice and 128 times the lanes, the latter in its device-memory pair
+scratch) and K9 (on the 10k fleet, and with more
 groups than one shared-memory tile; each beside torch.zeros + index_add_)
 against their plain versions, and,
 after phase 9 on its plane, K10 (cluster rows, cluster columns,
@@ -112,7 +117,10 @@ churn windows of config 5's first 16,384 bindings.
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE) phase 2 also times the parent's port against this one on the same
 card, in turns (old, new, new, old; TURN_ROUNDS rounds): K3 and K2 std's
-wave 0 (with the parent's K2 split) on the first forward chunk, K4 on
+wave 0 (with the parent's K2 split) on the first forward chunk, K1 alone
+and K2 std's wave 0 with its K1 (launched from Python in the parent),
+tier 1 on the megafleet chunk's profile rows at 16,384 and 32,768 lanes
+(the parent's K1 + K8 against the fused K8), K4 on
 wave 0's problems of both tiers, K5 and K6 on the chunk's spread
 sub-batch (each side's host / device split beside them), and, after
 phase 9, K10 on one field,
@@ -129,6 +137,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import math
 import os
@@ -437,6 +446,23 @@ def split_ms(fn, reps: int):
     return host, (us / reps / 1e3 if us > 0 else None)
 
 
+def kernel_device_ms(fn, reps: int) -> dict:
+    """torch.profiler's device milliseconds per call of `fn`, by kernel
+    name (the CUDA kernels' symbols), over `reps` calls after one warm-up;
+    empty when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "device_time_total", 0) / reps / 1e3
+            for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0}
+
+
 def stage_ms(kmod, fn, reps: int) -> dict:
     """Mean CUDA-event milliseconds of each kernel launch that one call of
     `fn` makes through `kmod.launch` (a kernels module: this port's or the
@@ -465,6 +491,73 @@ def stage_ms(kmod, fn, reps: int) -> dict:
     for name, e0, e1 in marks:
         out.setdefault(name, []).append(e0.elapsed_time(e1))
     return {k: sum(v) / len(v) for k, v in out.items()}
+
+
+def fills_est(S) -> bool:
+    """True for a tree whose K2 wrapper enqueues the wave's K1 itself
+    (schedule_rows(..., fill_est=True)); the parent's launches K1 from
+    Python before every wave."""
+    return "fill_est" in inspect.signature(S.schedule_rows).parameters
+
+
+def fused_k8(SL) -> bool:
+    """True for a tree whose K8 computes its own capacity
+    (shortlist_topk(db, group_pref, k)); the parent's takes K1's est."""
+    return "est" not in inspect.signature(SL.shortlist_topk).parameters
+
+
+def wave_call(S, db, used, out, use_extra, tier, fill):
+    """Wave 0 of `db` on lane tier `tier` as the tree's schedule_core runs
+    it: its K1 (from Python, or enqueued by K2's first launch) and K2
+    with K4 inside, charging into `used`."""
+    B = db.B
+    Bw = B // S._effective_waves(B, 8)
+    Q = db.req_milli.shape[0]
+    if fill:
+        est = torch.empty((Q + 1, db.C), dtype=torch.int64,
+                          device=db.req_milli.device)
+        return lambda: S.schedule_rows(db, 0, Bw, est, *used, *out,
+                                       use_extra=use_extra, charge=True,
+                                       tier=tier, fill_est=True)
+
+    def wave():
+        est = S.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                         db.avail_milli, used[0], db.has_alloc,
+                         db.pods_allowed, used[1], db.has_summary,
+                         db.est_override, used[2])
+        S.schedule_rows(db, 0, Bw, est, *used, *out, use_extra=use_extra,
+                        charge=True, tier=tier)
+    return wave
+
+
+def tile_lanes(S, db, times=2):
+    """db's rows over `times` copies of its cluster lanes, name ranks
+    shifted per copy: the same profile rows on a wider fleet."""
+    C = db.C
+    t = dict(db.t)
+    for f in ("cluster_valid", "deleting", "pods_allowed", "has_summary",
+              "avail_milli", "has_alloc"):
+        t[f] = torch.cat([db.t[f]] * times).contiguous()
+    t["name_rank"] = torch.cat([db.name_rank + i * C for i in range(times)])
+    for f in ("api_ok", "pl_mask", "pl_tol_bypass", "est_override"):
+        t[f] = torch.cat([db.t[f]] * times, dim=1).contiguous()
+    return S.DeviceBatch(B=db.B, C=times * C, device=db.device, t=t)
+
+
+def tier1_call(S, SL, db, pref, k):
+    """The tree's tier-1 device work for db's profile rows, as _t1_rows
+    runs it: the parent's K1 on a zero used triple then K8, or the fused
+    K8 alone."""
+    if fused_k8(SL):
+        return lambda: SL.shortlist_topk(db, pref, k)
+
+    def pair():
+        z = S._zeros_used(db)
+        est = S.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                         db.avail_milli, z[0], db.has_alloc, db.pods_allowed,
+                         z[1], db.has_summary, db.est_override, z[2])
+        return SL.shortlist_topk(db, est, pref, k)
+    return pair
 
 
 def max_abs_err(pairs) -> float:
@@ -512,12 +605,16 @@ def phase_build() -> None:
 
 def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
     """K2 (with K4 inside) on tier `tier` over a whole batch, wave by wave,
-    kernel path and plain path from the same zero carry; then one wave's
-    launch timed on wave 0's inputs.  Returns (max_abs_err, ms, plain_ms,
-    bound, every wave's K4 operands, the kernel path's outputs)."""
+    kernel path (each wave's K1 enqueued by its first K2 launch, as in
+    schedule_core) and plain path (capacity_plain, schedule_rows_plain)
+    from the same zero carry; then one wave's launch timed on wave 0's
+    inputs, and wave 0 with its K1 split into host enqueue and device
+    time by kernel.  Returns (max_abs_err, ms, plain_ms, bound, every
+    wave's K4 operands, the kernel path's outputs)."""
     from karmada_tpu_torch.ops import solver as S
 
     B, C = db.B, db.C
+    Q = db.req_milli.shape[0]
     waves = S._effective_waves(B, waves)
     Bw = B // waves
     zeros = S._zeros_used(db)
@@ -525,27 +622,33 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
               zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
               db.has_summary, db.est_override, zeros[2])
 
-    def run(rows_fn, cap_fn, problems=None):
+    def run(kernel, problems=None):
         used = tuple(u.clone() for u in zeros)
         rep = torch.empty((B, C), dtype=torch.int64, device=dev)
         sel = torch.empty((B, C), dtype=torch.bool, device=dev)
         st = torch.empty((B,), dtype=torch.int32, device=dev)
+        est = torch.empty((Q + 1, C), dtype=torch.int64, device=dev)
         for wv in range(waves):
-            est = cap_fn(db.req_milli, db.req_is_cpu, db.req_pods,
-                         db.avail_milli, used[0], db.has_alloc,
-                         db.pods_allowed, used[1], db.has_summary,
-                         db.est_override, used[2])
-            cap = {} if problems is not None else None
-            kw = {"capture": cap} if cap is not None else {}
-            rows_fn(db, wv * Bw, (wv + 1) * Bw, est, *used, rep, sel, st,
-                    use_extra=use_extra, charge=True, tier=tier, **kw)
-            if cap is not None:
+            rows = (wv * Bw, (wv + 1) * Bw)
+            if kernel:
+                cap = {}
+                S.schedule_rows(db, *rows, est, *used, rep, sel, st,
+                                use_extra=use_extra, charge=True, tier=tier,
+                                fill_est=True, capture=cap)
                 problems.append(cap["webster"])
+            else:
+                est = S.capacity_plain(
+                    db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
+                    used[0], db.has_alloc, db.pods_allowed, used[1],
+                    db.has_summary, db.est_override, used[2])
+                S.schedule_rows_plain(db, *rows, est, *used, rep, sel, st,
+                                      use_extra=use_extra, charge=True,
+                                      tier=tier)
         return rep, sel, st, used
 
     problems = []
-    got = run(S.schedule_rows, S.capacity, problems)
-    want = run(S.schedule_rows_plain, S.capacity_plain)
+    got = run(True, problems)
+    want = run(False)
     err = max_abs_err(list(zip(got[:3], want[:3]))
                       + list(zip(got[3], want[3])))
     est0 = S.capacity(*cap_in)
@@ -569,6 +672,14 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
         + f"; split_ms host enqueue {host:.4f} ms, device "
         + (f"{device:.4f} ms" if device is not None else "not measured")
         + f"; key scratch allocated so far {S.KEY_SCRATCH_BYTES[tier]} B")
+    # wave 0 as schedule_core runs it: K1 enqueued by K2's first launch
+    whole = wave_call(S, db, used, out, use_extra, tier, True)
+    by = kernel_device_ms(whole, reps)
+    host, _d = split_ms(whole, reps)
+    log(f"phase 2 K1 in the wave ({tier}, wave 0 with its K1): CUDA events "
+        f"{cuda_ms(whole, reps):.4f} ms, host enqueue {host:.4f} ms, device "
+        f"{sum(by.values()):.4f} ms, of which capacity_kernel "
+        f"{sum(v for k, v in by.items() if 'capacity' in k):.4f} ms")
     plain_ms = cuda_ms(wave(S.schedule_rows_plain), 2)
     row_in = nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_static_w,
                     db.pl_extra_score, db.api_ok, db.cluster_valid,
@@ -859,6 +970,10 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         max_abs_err=err1, ms=cuda_ms(lambda: S.capacity(*cap_in), reps),
         plain_ms=cuda_ms(lambda: S.capacity_plain(*cap_in), reps),
         bound_ms=b1[0], bound_by=b1[1], library_ms=None))
+    host, device = split_ms(lambda: S.capacity(*cap_in), 10 * reps)
+    log(f"phase 2 capacity split (alone, [{Q + 1}, {C}]): host enqueue "
+        f"{host:.4f} ms, device "
+        + (f"{device:.4f} ms" if device is not None else "not measured"))
 
     # K2 schedule_rows (+ K4 inside), the whole chunk wave by wave
     err2, k2_ms, k2_plain, b2, webs, (rep_k, sel_k, st_k, _) = hold_rows(
@@ -1071,13 +1186,15 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
     return rows, chunk_ms
 
 
-def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps) -> list:
+def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps,
+                        parent=None) -> list:
     """K7 explain_rows, K8 shortlist_topk and K9 group_sums against their
     plain versions at the main path's shapes: K7 on the first forward
     chunk's wave 0 (its est and K2 outputs) and on that chunk's spread
     phase B (solve_spread's operands); K8 on the first megafleet chunk's
-    profile rows (16,384 lanes, shared-memory keys) and on the same rows
-    tiled to 32,768 lanes (device-memory keys); K9 on the 10k fleet."""
+    profile rows (16,384 lanes) and on the same rows over 32,768 and
+    2,097,152 lanes (the pair scratch); K9 on the 10k fleet.  With
+    `parent`, the tier-1 turns (phase_turns_tier1)."""
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import shortlist as SL
@@ -1147,51 +1264,74 @@ def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps) -> list:
     prof_keys, _prof_of, rep_max = SL._profiles(mbatch)
     agg = SL.cycle_aggregates(mbatch, dev)
     pdb = SL.profile_batch(mbatch, prof_keys, rep_max, dev)
-    pz = S._zeros_used(pdb)
-    pest = S.capacity(pdb.req_milli, pdb.req_is_cpu, pdb.req_pods,
-                      pdb.avail_milli, pz[0], pdb.has_alloc,
-                      pdb.pods_allowed, pz[1], pdb.has_summary,
-                      pdb.est_override, pz[2])
     pref = torch.from_numpy(agg["group_pref"]).to(dev)
-    k8 = SL.shortlist_topk(pdb, pest, pref, MEGA_K)
-    err8 = max_abs_err(zip(k8, SL.shortlist_topk_plain(pdb, pest, pref,
-                                                       MEGA_K)))
+
+    def k8(db=pdb, p=pref):
+        return SL.shortlist_topk(db, p, MEGA_K)
+
+    got8 = k8()
+    err8 = max_abs_err(zip(got8, SL.shortlist_topk_plain(pdb, pref,
+                                                         MEGA_K)))
     Cm = pdb.C
+    nprof = prof_keys.shape[0]
+    # the function's need: the cluster planes and the snapshot's [C] and
+    # [C, R] planes, the placement, GVK and override rows the profile rows
+    # name, group_pref and the row scalars read once; cand and fcount
+    # written once; a key a lane
+    pid, gvk, cid = (np.unique(prof_keys[:, i]) for i in range(3))
     b8 = bound_ms(
-        nbytes(pest, pref, pdb.cluster_valid, pdb.deleting, pdb.name_rank,
-               pdb.api_ok, pdb.pl_mask, pdb.pl_tol_bypass, *k8)
+        nbytes(pref, pdb.cluster_valid, pdb.deleting, pdb.name_rank,
+               pdb.pods_allowed, pdb.has_summary, pdb.avail_milli,
+               pdb.has_alloc, pdb.req_milli, pdb.req_is_cpu, pdb.req_pods,
+               *got8)
+        + 2 * Cm * pid.size + Cm * gvk.size + 8 * Cm * int((cid >= 0).sum())
         + sum(nbytes(pdb.t[f]) for f in S._BINDING_FIELDS if f in pdb.t),
         pdb.B * Cm)
-    ms8 = cuda_ms(lambda: SL.shortlist_topk(pdb, pest, pref, MEGA_K), reps)
-    plain8 = cuda_ms(lambda: SL.shortlist_topk_plain(pdb, pest, pref,
-                                                     MEGA_K), 2)
-    # the same rows tiled to twice the lanes: wider than the shared-memory
-    # key path, so the keys go to the device-memory scratch
-    wt = dict(pdb.t)
-    for f in ("cluster_valid", "deleting"):
-        wt[f] = torch.cat([pdb.t[f], pdb.t[f]])
-    wt["name_rank"] = torch.cat([pdb.name_rank, pdb.name_rank + Cm])
-    for f in ("api_ok", "pl_mask", "pl_tol_bypass"):
-        wt[f] = torch.cat([pdb.t[f], pdb.t[f]], dim=1).contiguous()
-    wdb = S.DeviceBatch(B=pdb.B, C=2 * Cm, device=pdb.device, t=wt)
-    west = torch.cat([pest, pest], dim=1).contiguous()
-    wpref = torch.cat([pref, pref])
-    wk = SL.shortlist_topk(wdb, west, wpref, MEGA_K)
-    err8w = max_abs_err(zip(wk, SL.shortlist_topk_plain(wdb, west, wpref,
-                                                        MEGA_K)))
-    ms8w = cuda_ms(lambda: SL.shortlist_topk(wdb, west, wpref, MEGA_K), reps)
-    log(f"phase 2 shortlist_topk device-memory keys: {wdb.B}x{wdb.C} "
-        f"(> {kernels.TOPK_SMEM_LANES} shared-memory lanes) "
-        f"max_abs_err={err8w} ms={ms8w:.4f}")
+    ms8 = cuda_ms(k8, reps)
+    plain8 = cuda_ms(lambda: SL.shortlist_topk_plain(pdb, pref, MEGA_K), 2)
+    # the select alone as one library call: torch.topk over the ready key
+    # plane and the where to -1 (eligible keys are distinct: exact)
+    keys = SL.topk_keys_plain(pdb, pref)
+
+    def library():
+        v, i = torch.topk(keys, MEGA_K, dim=1)
+        return torch.where(v >= 0, i, -1).to(torch.int32)
+
+    if not torch.equal(library(), got8[0]):
+        raise AssertionError("torch.topk over the key plane disagrees with "
+                             "K8")
+    lib8 = cuda_ms(library, reps)
+    h8, _d8 = split_ms(k8, 10 * reps)
+    by8 = kernel_device_ms(k8, 10 * reps)
+    log(f"phase 2 shortlist_topk split: host enqueue {h8:.4f} ms, device "
+        + ", ".join(f"{k.split('(')[0]} {v:.4f} ms" for k, v in by8.items())
+        + f" (one call, {pdb.B}x{Cm}, k={MEGA_K})")
+    # the same rows over twice the lanes (the wide shape) and over 128
+    # times them (rows wider than shared memory: the pair scratch)
+    for times in (2, 128):
+        wdb = tile_lanes(S, pdb, times)
+        wpref = torch.cat([pref] * times)
+        wk = SL.shortlist_topk(wdb, wpref, MEGA_K)
+        err8 = max(err8, max_abs_err(zip(wk, SL.shortlist_topk_plain(
+            wdb, wpref, MEGA_K))))
+        wms = cuda_ms(lambda: SL.shortlist_topk(wdb, wpref, MEGA_K), reps)
+        log(f"phase 2 shortlist_topk {wdb.B}x{wdb.C} ("
+            + ("shared memory" if wdb.C <= kernels.TOPK_SMEM_LANES
+               else "device-memory pair scratch")
+            + f"): max_abs_err={err8} ms={wms:.4f}")
+        del wdb, wpref, wk
     rows.append(dict(
         name="shortlist_topk", route="cuda",
         source="karmada_tpu_torch/ops/csrc/shortlist.cu",
         replaces="karmada_tpu/ops/shortlist.py:174",
-        max_abs_err=max(err8, err8w), ms=ms8, plain_ms=plain8,
-        bound_ms=b8[0], bound_by=b8[1], library_ms=None))
-    log(f"phase 2 shortlist_topk: {prof_keys.shape[0]} profiles -> "
-        f"{pdb.B}x{Cm}, k={MEGA_K}; fcount {k8[1][:prof_keys.shape[0]]}"
+        max_abs_err=err8, ms=ms8, plain_ms=plain8,
+        bound_ms=b8[0], bound_by=b8[1], library_ms=lib8))
+    log(f"phase 2 shortlist_topk: {nprof} profiles -> {pdb.B}x{Cm}, "
+        f"k={MEGA_K}; fcount {got8[1][:nprof]}; library_ms is torch.topk "
+        "over the ready key plane and the where to -1 (the select alone)"
         .replace("\n", " "))
+    if parent is not None:
+        phase_turns_tier1(parent, mbatch, prof_keys, rep_max, dev, reps)
 
     # -- K9 on the 10k fleet ------------------------------------------------------
     G = agg["n_groups"]
@@ -1975,6 +2115,76 @@ def phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps,
     cases["K2 std wave (K4 inside)"] = (
         lambda: cuda_ms(waves["old"][0], reps),
         lambda: cuda_ms(waves["new"][0], reps))
+    # K1: alone, and wave 0 with its K1 (from Python in the parent, from
+    # K2's first launch here); each side's host / device split logged
+    whole, alone = [], []
+    for which, P in (("old", OS), ("new", NS)):
+        db = P.device_batch(batch, dev)
+        zeros = P._zeros_used(db)
+        out = (torch.zeros((db.B, db.C), dtype=torch.int64, device=dev),
+               torch.zeros((db.B, db.C), dtype=torch.bool, device=dev),
+               torch.zeros((db.B,), dtype=torch.int32, device=dev))
+        w = wave_call(P, db, tuple(u.clone() for u in zeros), out,
+                      use_extra, "std", fills_est(P))
+        w()
+        whole.append((w, out))
+        cap_in = (db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
+                  zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
+                  db.has_summary, db.est_override, zeros[2])
+        alone.append(lambda P=P, c=cap_in: P.capacity(*c))
+        host, _d = split_ms(w, reps)
+        by = kernel_device_ms(w, reps)
+        log(f"phase 2 turns K1 + K2 std wave 0 split ({which}): host enqueue "
+            f"{host:.4f} ms, device {sum(by.values()):.4f} ms, of which "
+            f"capacity_kernel "
+            f"{sum(v for k, v in by.items() if 'capacity' in k):.4f} ms")
+    if not all(torch.equal(a, b) for a, b in zip(whole[0][1], whole[1][1])):
+        raise AssertionError("turns: K1 + K2 wave old and new disagree")
+    if not torch.equal(alone[0](), alone[1]()):
+        raise AssertionError("turns: K1 old and new disagree")
+    cases["K1 + K2 std wave 0"] = (
+        lambda: cuda_ms(whole[0][0], reps),
+        lambda: cuda_ms(whole[1][0], reps))
+    cases["K1 capacity alone"] = (lambda: cuda_ms(alone[0], reps),
+                                  lambda: cuda_ms(alone[1], reps))
+    return run_turns(cases, rounds)
+
+
+def phase_turns_tier1(parent, mbatch, prof_keys, rep_max, dev, reps,
+                      rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's tier 1: K1 on a zero used triple, then K8) against
+    new (K8 alone) on one card, in turns, on the first megafleet chunk's
+    profile rows (16 x 16,384, k = MEGA_K) and on the same rows over
+    twice the lanes; each tree's rows built by its own profile_batch, the
+    results equal first.  Each side's host enqueue and device time by
+    kernel is logged beside the turns."""
+    from karmada_tpu_torch.ops import shortlist as NSL
+    from karmada_tpu_torch.ops import solver as NS
+
+    cases = {}
+    for times in (1, 2):
+        calls = []
+        for S, SL in ((parent["ops.solver"], parent["ops.shortlist"]),
+                      (NS, NSL)):
+            db = SL.profile_batch(mbatch, prof_keys, rep_max, dev)
+            pref = torch.from_numpy(
+                SL.cycle_aggregates(mbatch, dev)["group_pref"]).to(dev)
+            if times > 1:
+                db = tile_lanes(S, db, times)
+                pref = torch.cat([pref] * times)
+            calls.append(tier1_call(S, SL, db, pref, MEGA_K))
+        if not all(torch.equal(a, b) for a, b in zip(calls[0](),
+                                                      calls[1]())):
+            raise AssertionError("turns: tier 1 old and new disagree")
+        name = f"tier 1 (K1 + K8 -> K8) x{times} lanes"
+        for which, fn in zip(("old", "new"), calls):
+            host, _d = split_ms(fn, 10 * reps)
+            by = kernel_device_ms(fn, 10 * reps)
+            log(f"phase 2 turns {name} split ({which}): host enqueue "
+                f"{host:.4f} ms, device " + ", ".join(
+                    f"{k.split('(')[0]} {v:.4f}" for k, v in by.items()))
+        cases[name] = (lambda f=calls[0]: cuda_ms(f, reps),
+                       lambda f=calls[1]: cuda_ms(f, reps))
     return run_turns(cases, rounds)
 
 
@@ -2728,7 +2938,7 @@ def main() -> int:
     report, chunk_ms = phase_kernels(first, items, wide_items, fleet, args,
                                      dev, args.reps, parent)
     report += phase_kernels_k7_k9(items, fleet, (mfleet, mitems), args, dev,
-                                  args.reps)
+                                  args.reps, parent)
 
     main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
                  "spread_group_info", "spread_pick")

@@ -13,6 +13,28 @@ typedef unsigned long long u64;
 #define KT_MAX_INT64 9223372036854775807LL
 #define KT_FULL_MASK 0xffffffffu
 
+// clock64 marks of a block's phases, compiled in only with
+// -DKT_PROFILE=<blocks> (tools/kernel_probe.py k5k6, k8): KT_MARK(k)
+// syncs the block, then its thread 0 writes clock64() into slot k (0-7)
+// of the block's row of kt_prof; kt_prof_read copies the rows to the
+// host.
+#ifdef KT_PROFILE
+__device__ long long kt_prof[KT_PROFILE * 8];
+extern "C" int kt_prof_read(long long* h) {
+  return (int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof));
+}
+#define KT_MARK(k)                                         \
+  do {                                                     \
+    __syncthreads();                                       \
+    if (threadIdx.x == 0 && blockIdx.x < KT_PROFILE)       \
+      kt_prof[blockIdx.x * 8 + (k)] = clock64();           \
+  } while (0)
+#else
+#define KT_MARK(k) \
+  do {             \
+  } while (0)
+#endif
+
 // Python/JAX `//`: rounds toward minus infinity (C's `/` truncates).
 __device__ __forceinline__ i64 floordiv(i64 a, i64 b) {
   i64 q = a / b;

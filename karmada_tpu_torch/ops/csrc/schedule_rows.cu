@@ -44,6 +44,14 @@
 //      from lane_std on the std tier (est is fixed for the wave and
 //      lane_std reads no used_*), from the key scratch on the big tier.
 //
+// The wave's est comes from the same C call as its first K2 launch: with
+// fill_est the prepare entry enqueues K1 (capacity.cuh) from the argument
+// block's snapshot and used_* pointers, then the prepare kernel, on one
+// stream.  The wrapper sets fill_est on a wave's first launch slice only,
+// so a wave launched in slices (the big tier's scratch bound) reads the
+// est of the wave's start in every slice, as the JAX program's wave does,
+// though each slice's finish charges used_*.
+//
 // Bound on the card: at 4096 x 8192 the dense output (rep int64 + sel)
 // dominates the bytes; the bisections of Webster and the sorts are
 // block-local operations.  Design: one block per row keeps every row's
@@ -57,6 +65,7 @@
 // per-row scratch in device memory (`work`; at sub-batch row counts it
 // stays in L2), and shared memory holds only the (key, lane) sort buffer
 // (8,192 entries, 96 KB), the COO entries and the radix histograms.
+#include "capacity.cuh"
 #include "rows.cuh"
 
 constexpr int NT = 256;
@@ -121,6 +130,12 @@ struct RowsArgs {
   const int* prev_idx;                 // [B, Kp]
   const int* prev_val;                 // [B, Kp]
   const int* evict_idx;                // [B, Ke]
+  // the snapshot K1 reads (fill_est)
+  const i64* avail_milli;              // [C, R]
+  const unsigned char* has_alloc;      // [C, R]
+  const i64* pods_allowed;             // [C]
+  const unsigned char* has_summary;    // [C]
+  const i64* est_override;             // [Q, C]
   const i64* est;                      // [Q + 1, C]
   i64* used_milli;                     // [C, R]
   i64* used_pods;                      // [C]
@@ -144,7 +159,10 @@ struct RowsArgs {
   unsigned char* wk_feas;
   int* wk_U;
   int* wk_flags;
-  i64 r0, r1, C, Q, R, Kp, Ke, use_extra, charge;
+  // fill_est: the prepare entry first enqueues K1 into est (the wave's
+  // capacity from the snapshot minus used_*), once before a wave's first
+  // launch slice
+  i64 r0, r1, C, Q, R, Kp, Ke, use_extra, charge, fill_est;
 };
 
 constexpr int FLAG_OK = 1 << 8, FLAG_SEATS = 1 << 9, FLAG_DUP_WIDE = 1 << 10,
@@ -1011,6 +1029,16 @@ __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
 
 template <class T>
 int launch_prepare(const RowsArgs* a, void* stream) {
+  if (a->fill_est) {
+    // K1 for the wave, from the same argument block (capacity.cuh)
+    const CapacityArgs c{a->req_milli,    a->req_is_cpu,   a->req_pods,
+                         a->avail_milli,  a->used_milli,   a->has_alloc,
+                         a->pods_allowed, a->used_pods,    a->has_summary,
+                         a->est_override, a->used_sets,    (i64*)a->est,
+                         a->Q,            a->R,            a->C};
+    const int e = launch_capacity(c, (cudaStream_t)stream);
+    if (e != 0) return e;
+  }
   const i64 rows = a->r1 - a->r0;
   if (rows <= 0) return 0;
   const size_t smem = sort_bytes(T::SORTN, a->Kp, a->Ke, T::SCRATCH_KEYS) +

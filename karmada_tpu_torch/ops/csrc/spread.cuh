@@ -268,27 +268,6 @@ __device__ i64 select_smallest(K key_of, i64 n, i64 k, i64 lo, i64 hi,
   }
 }
 
-// clock64 marks of a row's phases, compiled in only with
-// -DKT_PROFILE=<rows> (tools/kernel_probe.py k5k6): KT_MARK(k) syncs the
-// block, then its thread 0 writes clock64() into slot k (0-7) of the
-// block's row of kt_prof; kt_prof_read copies the rows to the host.
-#ifdef KT_PROFILE
-__device__ long long kt_prof[KT_PROFILE * 8];
-extern "C" int kt_prof_read(long long* h) {
-  return (int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof));
-}
-#define KT_MARK(k)                                         \
-  do {                                                     \
-    __syncthreads();                                       \
-    if (threadIdx.x == 0 && blockIdx.x < KT_PROFILE)       \
-      kt_prof[blockIdx.x * 8 + (k)] = clock64();           \
-  } while (0)
-#else
-#define KT_MARK(k) \
-  do {             \
-  } while (0)
-#endif
-
 // dynamic shared memory regions, each 16-byte aligned
 __host__ __device__ inline size_t spread_align(size_t x) {
   return (x + 15) & ~(size_t)15;

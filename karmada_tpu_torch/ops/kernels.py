@@ -175,6 +175,16 @@ def check(t: torch.Tensor, dtype, shape) -> None:
         raise ValueError("kernel operand is not contiguous")
 
 
+def check_fields(t: dict, spec: dict) -> None:
+    """kernels.check over a dict of operands, {name: (dtype, shape)}, in
+    one loop (the launch path's cost is its host time)."""
+    for f, (dtype, shape) in spec.items():
+        a = t[f]
+        if not (a.is_cuda and a.dtype == dtype and a.shape == shape
+                and a.is_contiguous()):
+            check(a, dtype, shape)  # raises with the reason
+
+
 def launch(source: str, args: Union[ctypes.Structure, array.array],
            entry: Optional[str] = None, count: Optional[str] = None,
            device: Optional[int] = None) -> None:
@@ -251,7 +261,9 @@ ROWS_TENSOR_FIELDS = (
     "pl_static_w", "pl_has_cluster_sc", "pl_sc_min", "pl_sc_max",
     "pl_ignore_avail", "pl_extra_score", "b_valid", "placement_id", "gvk_id",
     "class_id", "replicas", "uid_desc", "fresh", "non_workload",
-    "nw_shortcut", "prev_idx", "prev_val", "evict_idx")
+    "nw_shortcut", "prev_idx", "prev_val", "evict_idx",
+    "avail_milli", "has_alloc", "pods_allowed", "has_summary",
+    "est_override")
 
 ROWS_WORK_FIELDS = (
     "web_n", "web_w", "web_active", "web_rank", "seats", "wk_lane", "wk_base",
@@ -260,7 +272,8 @@ ROWS_WORK_FIELDS = (
 RowsArgs = _struct("RowsArgs", ROWS_TENSOR_FIELDS + (
     "est", "used_milli", "used_pods", "used_sets", "rep", "sel", "status",
     "scratch", "work") + ROWS_WORK_FIELDS,
-    ("r0", "r1", "C", "Q", "R", "Kp", "Ke", "use_extra", "charge"))
+    ("r0", "r1", "C", "Q", "R", "Kp", "Ke", "use_extra", "charge",
+     "fill_est"))
 
 #: gathered lanes per row at most, per lane tier (g_prev + 5 * g_topk;
 #: schedule_rows.cu TierStd / TierBig)
@@ -322,20 +335,23 @@ ExplainArgs = _struct("ExplainArgs", (
     "score", "avail", "outcome"),
     ("r0", "r1", "C", "Q", "Kp", "Ke"))
 
+#: K8's DeviceBatch operands, in its argument block's order (shortlist.cu
+#: TopkArgs: these, then group_pref, the two key scratches, cand and
+#: fcount, then B, C, Q, R, Kp, Ke, k, nk, smem)
 TOPK_TENSOR_FIELDS = (
     "cluster_valid", "deleting", "name_rank", "api_ok", "pl_mask",
-    "pl_tol_bypass")
+    "pl_tol_bypass", "pods_allowed", "has_summary", "avail_milli",
+    "has_alloc", "req_milli", "req_is_cpu", "req_pods", "est_override",
+    "b_valid", "placement_id", "gvk_id", "class_id", "replicas", "prev_idx",
+    "evict_idx")
 
-TopkArgs = _struct("TopkArgs", TOPK_TENSOR_FIELDS + (
-    "group_pref", "b_valid", "placement_id", "gvk_id", "class_id",
-    "replicas", "nw_shortcut", "prev_idx", "prev_val", "evict_idx", "est",
-    "scratch", "cand", "fcount"),
-    ("B", "C", "Q", "Kp", "Ke", "k", "nk", "smem"))
-
-#: lanes K8 keeps in shared memory (8 B each); wider rows use a [B, C]
-#: device-memory key scratch
-TOPK_SMEM_LANES = 16384
-#: K8's member sort holds a power of two >= k entries in shared memory
+#: lanes of a row K8 keeps in shared memory: the row's thread block
+#: cluster of TOPK_CLUSTER blocks holds TOPK_SMEM_LANES / TOPK_CLUSTER
+#: (key, lane) pairs a block (12 B each); wider rows use [B, C]
+#: device-memory scratches of the same layout
+TOPK_CLUSTER = 8
+TOPK_SMEM_LANES = TOPK_CLUSTER * 8192
+#: K8's leader block sorts a power of two >= k members in shared memory
 TOPK_MAX_K = 4096
 #: K9's bins in one shared-memory tile (227 KB of u64); more groups walk
 #: the bins tile by tile (shortlist.cu GS_TILE_BINS)

@@ -5,8 +5,9 @@ O(B*C): every binding prices every cluster.  At fleet scale (1M bindings,
 10k clusters) the reference's own hierarchy -- group selection before
 per-cluster division -- becomes two tiers:
 
-  tier 1 (card)   K1 capacity on the raw snapshot, then K8 shortlist_topk
-                  over the chunk's DISTINCT profiles (bindings sharing
+  tier 1 (card)   K8 shortlist_topk, one launch that computes each lane's
+                  capacity on the raw snapshot itself, over the chunk's
+                  DISTINCT profiles (bindings sharing
                   (placement, GVK, request class) have identical static
                   rows): per profile the top-k cluster lanes by a packed
                   key -- previous-assignment bit, capacity estimate, a
@@ -58,7 +59,7 @@ from karmada_tpu_torch.ops.solver import (
     _row_inputs,
     _to_dev,
     _zeros_used,
-    capacity,
+    capacity_plain,
 )
 
 # packed score-key geometry: prev-assignment bit above a 34-bit capacity
@@ -113,12 +114,16 @@ class ShortlistConfig:
 # K8 shortlist_topk
 # ---------------------------------------------------------------------------
 
-def shortlist_topk_plain(db: DeviceBatch, est, group_pref, k: int):
-    """The candidate plane of every row of db (JAX: _shortlist_core after
-    its capacity estimate): (cand int32[B, k] -- cluster lanes best first,
-    -1 padded -- and fcount int32[B], the eligible-lane count).  est is K1
-    on the raw snapshot; group_pref int64[C]."""
-    B, C = db.B, db.C
+def topk_keys_plain(db: DeviceBatch, group_pref):
+    """Every row's packed tier-1 key plane, int64[B, C]: -1 where the lane
+    is not eligible (JAX: _shortlist_core before lax.top_k).  Each lane's
+    capacity is capacity_plain's on db's raw snapshot (no used triple)."""
+    B = db.B
+    zeros = _zeros_used(db)
+    est = capacity_plain(db.req_milli, db.req_is_cpu, db.req_pods,
+                         db.avail_milli, zeros[0], db.has_alloc,
+                         db.pods_allowed, zeros[1], db.has_summary,
+                         db.est_override, zeros[2])
     _pid, cid, _pr, prev_present, _ac, feasible, _ev = _row_inputs(
         db, 0, B, est)
     est_b = est[cid]
@@ -130,62 +135,76 @@ def shortlist_topk_plain(db: DeviceBatch, est, group_pref, k: int):
            | (avail << (_GROUP_BITS + _LANE_BITS))
            | (group_pref[None, :] << _LANE_BITS)
            | (_LANE_MASK - db.name_rank)[None, :])
-    key = torch.where(eligible, key, torch.full((), -1, dtype=I64,
-                                                device=key.device))
+    return torch.where(eligible, key, torch.full((), -1, dtype=I64,
+                                                 device=key.device))
+
+
+def shortlist_topk_plain(db: DeviceBatch, group_pref, k: int):
+    """The candidate plane of every row of db (JAX: _shortlist_core):
+    (cand int32[B, k] -- cluster lanes best first, -1 padded -- and fcount
+    int32[B], the eligible-lane count), from topk_keys_plain's keys;
+    group_pref int64[C].  k may exceed C (the columns past C are -1)."""
+    B, C = db.B, db.C
+    key = topk_keys_plain(db, group_pref)
     # lax.top_k: descending, ties (only among -1 keys) to the lowest lane
     srt = torch.sort(key, dim=1, descending=True, stable=True)
     vals, idx = srt.values[:, :k], srt.indices[:, :k]
     cand = torch.where(vals >= 0, idx, -1).to(torch.int32)
-    return cand, eligible.sum(1).to(torch.int32)
+    if k > C:
+        cand = torch.cat([cand, cand.new_full((B, k - C), -1)], dim=1)
+    return cand, (key >= 0).sum(1).to(torch.int32)
 
 
-def shortlist_topk(db: DeviceBatch, est, group_pref, k: int):
+def shortlist_topk(db: DeviceBatch, group_pref, k: int):
     """K8 (ops/csrc/shortlist.cu; launch counter "shortlist_topk") on a
-    CUDA batch, shortlist_topk_plain on a CPU one; same contract.  db's
-    nw_shortcut must be all false (profile rows never take it)."""
-    if not _on_cuda(est, group_pref, db.b_valid):
-        return shortlist_topk_plain(db, est, group_pref, k)
+    CUDA batch, shortlist_topk_plain on a CPU one; same contract.  One
+    launch, no device sync: db's operands are checked once per
+    DeviceBatch, group_pref on every call, and the call allocates cand
+    and fcount (and, for rows wider than kernels.TOPK_SMEM_LANES, the
+    kernel's [B, C] pair scratch)."""
+    if not _on_cuda(group_pref, db.b_valid):
+        return shortlist_topk_plain(db, group_pref, k)
     B, C = db.B, db.C
-    Q = db.req_milli.shape[0]
-    P = db.pl_mask.shape[0]
+    Q, R = db.req_milli.shape
     Kp = db.prev_idx.shape[1]
     Ke = db.evict_idx.shape[1]
-    if not 1 <= k <= min(C, kernels.TOPK_MAX_K):
-        raise ValueError(f"k={k} outside [1, min(C={C}, "
-                         f"{kernels.TOPK_MAX_K})]")
-    spec = {
-        "cluster_valid": (torch.bool, (C,)), "deleting": (torch.bool, (C,)),
-        "name_rank": (I64, (C,)),
-        "api_ok": (torch.bool, (db.api_ok.shape[0], C)),
-        "pl_mask": (torch.bool, (P, C)), "pl_tol_bypass": (torch.bool, (P, C)),
-        "b_valid": (torch.bool, (B,)), "placement_id": (torch.int32, (B,)),
-        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
-        "replicas": (I64, (B,)), "nw_shortcut": (torch.bool, (B,)),
-        "prev_idx": (torch.int32, (B, Kp)), "prev_val": (torch.int32, (B, Kp)),
-        "evict_idx": (torch.int32, (B, Ke)),
-    }
-    for f, (dt, shape) in spec.items():
-        kernels.check(db.t[f], dt, shape)
-    kernels.check(est, I64, (Q + 1, C))
+    if not 1 <= k <= kernels.TOPK_MAX_K:
+        raise ValueError(f"k={k} outside [1, {kernels.TOPK_MAX_K}]")
+    t = db.t
+    if "topk" not in db.checked:
+        P = db.pl_mask.shape[0]
+        kernels.check_fields(t, {
+            "cluster_valid": (torch.bool, (C,)),
+            "deleting": (torch.bool, (C,)), "name_rank": (I64, (C,)),
+            "api_ok": (torch.bool, (db.api_ok.shape[0], C)),
+            "pl_mask": (torch.bool, (P, C)),
+            "pl_tol_bypass": (torch.bool, (P, C)),
+            "pods_allowed": (I64, (C,)), "has_summary": (torch.bool, (C,)),
+            "avail_milli": (I64, (C, R)), "has_alloc": (torch.bool, (C, R)),
+            "req_milli": (I64, (Q, R)), "req_is_cpu": (torch.bool, (R,)),
+            "req_pods": (I64, (Q,)), "est_override": (I64, (Q, C)),
+            "b_valid": (torch.bool, (B,)),
+            "placement_id": (torch.int32, (B,)),
+            "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
+            "replicas": (I64, (B,)), "prev_idx": (torch.int32, (B, Kp)),
+            "evict_idx": (torch.int32, (B, Ke))})
+        db.checked.add("topk")
     kernels.check(group_pref, I64, (C,))
-    if bool(db.nw_shortcut.any()):
-        raise ValueError("tier-1 profile rows take no non-workload shortcut")
-    dev = est.device
-    smem = C <= kernels.TOPK_SMEM_LANES
-    scratch = torch.empty((0 if smem else B * C,), dtype=I64, device=dev)
+    dev = group_pref.device
     cand = torch.empty((B, k), dtype=torch.int32, device=dev)
     fcount = torch.empty((B,), dtype=torch.int32, device=dev)
-    nk = T._next_pow2(k, 2)  # noqa: SLF001
-    t = db.t
-    kernels.launch("shortlist", kernels.TopkArgs(
-        *(kernels.ptr(t[f]) for f in kernels.TOPK_TENSOR_FIELDS),
-        kernels.ptr(group_pref),
-        *(kernels.ptr(t[f]) for f in (
-            "b_valid", "placement_id", "gvk_id", "class_id", "replicas",
-            "nw_shortcut", "prev_idx", "prev_val", "evict_idx")),
-        kernels.ptr(est), kernels.ptr(scratch), kernels.ptr(cand),
-        kernels.ptr(fcount), B, C, Q, Kp, Ke, k, nk, int(smem)),
-        "shortlist_topk", count="shortlist_topk")
+    smem = C <= kernels.TOPK_SMEM_LANES
+    # the (key, lane) pair scratch of rows wider than shared memory holds
+    pair = () if smem else (
+        torch.empty((B * C,), dtype=I64, device=dev),
+        torch.empty((B * C,), dtype=torch.int32, device=dev))
+    nk = T._next_pow2(k, 1)  # noqa: SLF001
+    kernels.launch("shortlist", array("q", (  # TopkArgs
+        *(t[f].data_ptr() for f in kernels.TOPK_TENSOR_FIELDS),
+        group_pref.data_ptr(), *(x.data_ptr() for x in pair),
+        *((0, 0) if smem else ()), cand.data_ptr(), fcount.data_ptr(),
+        B, C, Q, R, Kp, Ke, k, nk, int(smem))),
+        "shortlist_topk", count="shortlist_topk", device=dev.index)
     return cand, fcount
 
 
@@ -371,17 +390,12 @@ def profile_batch(batch, prof_keys, rep_max, device) -> DeviceBatch:
 
 
 def _t1_rows(batch, prof_keys, rep_max, k: int, agg, device):
-    """Run tier 1 over the given profile rows (uncached): K1 on the raw
-    snapshot, then K8.  Returns (cand int32[nprof, k], fcount
-    int32[nprof]) as numpy."""
+    """Run tier 1 over the given profile rows (uncached): one K8 launch,
+    which computes the rows' capacity on the raw snapshot itself.
+    Returns (cand int32[nprof, k], fcount int32[nprof]) as numpy."""
     nprof = prof_keys.shape[0]
     db = profile_batch(batch, prof_keys, rep_max, device)
-    zeros = _zeros_used(db)
-    est = capacity(db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
-                   zeros[0], db.has_alloc, db.pods_allowed, zeros[1],
-                   db.has_summary, db.est_override, zeros[2])
-    cand, fcount = shortlist_topk(db, est, _to_dev(agg["group_pref"], device),
-                                  k)
+    cand, fcount = shortlist_topk(db, _to_dev(agg["group_pref"], device), k)
     COUNTS["dispatches"] += 1
     return cand.cpu().numpy()[:nprof], fcount.cpu().numpy()[:nprof]
 

@@ -6,7 +6,9 @@ here as a Python loop of kernel launches per chunk:
 
   for each of `waves` capacity-contention waves:
       K1 capacity        est[Q+1, C] from the snapshot minus what earlier
-                         waves (and earlier chunks, through the carry) used
+                         waves (and earlier chunks, through the carry) used,
+                         enqueued by the C call of the wave's first K2
+                         launch (one est buffer a chunk)
       K2 schedule_rows   one block per binding row: feasibility, lane
                          gather, selection, strategy, Webster; writes the
                          dense rep/sel/status rows and charges the row's new
@@ -39,7 +41,7 @@ divides, so results are bit-exact.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
@@ -141,6 +143,9 @@ class DeviceBatch:
     C: int
     device: torch.device
     t: dict  # field name -> tensor
+    # the operand sets a kernel wrapper has checked on this batch ("snapshot":
+    # K1's; "topk": K8's), each once
+    checked: set = field(default_factory=set)
 
     def __getattr__(self, name):
         try:
@@ -336,7 +341,9 @@ def capacity_plain(req_milli, req_is_cpu, req_pods, avail_milli, used_milli,
 def capacity(req_milli, req_is_cpu, req_pods, avail_milli, used_milli,
              has_alloc, pods_allowed, used_pods, has_summary, est_override,
              used_sets):
-    """K1 (ops/csrc/capacity.cu) on CUDA tensors, capacity_plain on CPU."""
+    """K1 (ops/csrc/capacity.cu) on CUDA tensors, capacity_plain on CPU:
+    the standalone call (spread phase A, the tests).  The solve's waves
+    enqueue K1 from K2's first launch instead (schedule_rows' fill_est)."""
     args = (req_milli, req_is_cpu, req_pods, avail_milli, used_milli,
             has_alloc, pods_allowed, used_pods, has_summary, est_override,
             used_sets)
@@ -736,11 +743,31 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
 #: bytes of per-row gather key scratch K2's wrapper allocated, by lane
 #: tier (the std tier recomputes its keys and allocates none)
 KEY_SCRATCH_BYTES: Dict[str, int] = {"std": 0, "big": 0}
+#: the big tier's per-row key scratch and lane working set of one launch
+#: slice stay within this many bytes each: a wave whose rows need more
+#: launches in slices
+SLICE_BYTES = 1 << 28
+
+
+def _check_snapshot(db: DeviceBatch) -> None:
+    """K1's snapshot operands on db (the used triple is K2's operand too),
+    checked once per DeviceBatch: a chunk's waves launch K1 without
+    checking them again."""
+    if "snapshot" in db.checked:
+        return
+    Q, R = db.req_milli.shape
+    C = db.C
+    kernels.check_fields(db.t, {
+        "avail_milli": (I64, (C, R)), "has_alloc": (torch.bool, (C, R)),
+        "pods_allowed": (I64, (C,)), "has_summary": (torch.bool, (C,)),
+        "est_override": (I64, (Q, C))})
+    db.checked.add("snapshot")
 
 
 def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                   used_pods, used_sets, rep_out, sel_out, status_out, *,
                   use_extra: bool, charge: bool, tier: str = "std",
+                  fill_est: bool = False,
                   capture: Optional[dict] = None) -> None:
     """K2 (ops/csrc/schedule_rows.cu; launch counter "schedule_rows", or
     "schedule_rows_big" on the big tier) on a CUDA batch,
@@ -748,8 +775,21 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     schedule_rows_plain.  On CUDA the rows' Webster problems run through
     K4 (webster_batch); `capture`, when given, receives the last launch
     slice's K4 operands (n, w, s0, active, rank) so they can be held
-    against webster_plain."""
+    against webster_plain.
+
+    With `fill_est`, est (int64[Q+1, C], any contents) first becomes the
+    wave's capacity: K1 on db's snapshot minus the used triple, as
+    capacity() computes it.  On CUDA the C call of the rows' first launch
+    enqueues K1 (counted under "capacity") before the rows' first kernel,
+    once however many launch slices the rows take, so every slice reads
+    the est of the wave's start (an empty row range launches nothing and
+    leaves est as it was); on the CPU capacity_plain fills it."""
     if not _on_cuda(est, used_milli, rep_out, db.b_valid):
+        if fill_est:
+            est.copy_(capacity_plain(
+                db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
+                used_milli, db.has_alloc, db.pods_allowed, used_pods,
+                db.has_summary, db.est_override, used_sets))
         return schedule_rows_plain(
             db, r0, r1, est, used_milli, used_pods, used_sets, rep_out,
             sel_out, status_out, use_extra=use_extra, charge=charge,
@@ -790,6 +830,8 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     kernels.check(rep_out, I64, (B, C))
     kernels.check(sel_out, torch.bool, (B, C))
     kernels.check(status_out, torch.int32, (B,))
+    if fill_est:
+        _check_snapshot(db)
     if r1 == r0:
         return
     # the big tier's per-row key scratch of the lane gather (its radix
@@ -803,7 +845,7 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
     step = r1 - r0
     for per_row in (key_row, work_row):
         if per_row:
-            step = max(1, min(step, (1 << 28) // per_row))
+            step = max(1, min(step, SLICE_BYTES // per_row))
     dev = est.device
     L = kernels.LMAX[tier]
     entry = "schedule_rows_big" if big else "schedule_rows"
@@ -839,11 +881,15 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                 kernels.ptr(status_out), kernels.ptr(scratch),
                 kernels.ptr(work_buf),
                 *(kernels.ptr(work[f]) for f in kernels.ROWS_WORK_FIELDS),
-                a0, a1, C, Q, R, Kp, Ke, int(use_extra), int(charge))
+                a0, a1, C, Q, R, Kp, Ke, int(use_extra), int(charge),
+                int(fill))
 
-        # steps 1-3 per row, the rows' Webster problems through K4, then
-        # the dense rows and the consumption charge
-        kernels.launch("schedule_rows", args(), f"{entry}_prepare")
+        # K1 before the first slice only (fill_est), steps 1-3 per row,
+        # the rows' Webster problems through K4, then the dense rows and
+        # the consumption charge
+        fill = fill_est and a0 == r0
+        kernels.launch("schedule_rows", args(), f"{entry}_prepare",
+                       count="capacity" if fill else None)
         web = (work["web_n"][:rows], work["web_w"][:rows], s0_zero[:rows],
                work["web_active"][:rows], work["web_rank"][:rows])
         work["seats"] = webster_batch(*web)
@@ -1035,8 +1081,9 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
                   used0=None, with_used: bool = False, tier: str = "std",
                   explain: bool = False):
     """The full chunk (JAX: _schedule_core): `waves` sequential waves of
-    K1 + K2 on lane tier `tier`.  Returns (rep int64[B,C], sel bool[B,C],
-    status int32[B], used, expl) where used is the consumed-capacity triple
+    K1 + K2 on lane tier `tier`, K1 enqueued by each wave's first K2
+    launch into one est buffer of the chunk.  Returns (rep int64[B,C],
+    sel bool[B,C], status int32[B], used, expl) where used is the consumed-capacity triple
     (carry-in plus this chunk's consumption) -- charged only when waves > 1
     or with_used, as in the JAX program -- and expl the explain planes
     (verdict, score, avail [B, C], outcome [B], int32) when `explain`
@@ -1052,14 +1099,14 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
     status = torch.empty((B,), dtype=torch.int32, device=dev)
     expl = explain_planes(B, C, dev) if explain else None
     charge = waves > 1 or with_used
+    # each wave's K1 overwrites it; the wave's K2 and K7 read it after, on
+    # the same stream
+    est = torch.empty((db.req_milli.shape[0] + 1, C), dtype=I64, device=dev)
     for wv in range(waves):
         r0, r1 = wv * Bw, (wv + 1) * Bw
-        est = capacity(db.req_milli, db.req_is_cpu, db.req_pods,
-                       db.avail_milli, used[0], db.has_alloc,
-                       db.pods_allowed, used[1], db.has_summary,
-                       db.est_override, used[2])
         schedule_rows(db, r0, r1, est, *used, rep, sel, status,
-                      use_extra=use_extra, charge=charge, tier=tier)
+                      use_extra=use_extra, charge=charge, tier=tier,
+                      fill_est=True)
         if explain:
             explain_rows(db, r0, r1, est, db.pl_fail_bits, sel, status, expl)
     return rep, sel, status, used, expl

@@ -498,11 +498,13 @@ def test_spread_explain_kernel_matches_plain_on_card(case):
 
 
 def _profile_db(C, B, dev, seed):
-    """Synthetic tier-1 rows at any lane count: random cluster planes,
-    placements, classes, previous and evicting lanes (K8's full operand
-    set), and a K1-shaped est with MAX_INT32 entries."""
+    """Synthetic tier-1 rows at any lane count: random cluster planes and
+    snapshot (overrides, clusters without a summary or pods, a class that
+    requests nothing so its capacity is MAX_INT32), placements, classes
+    (class -1 included), previous and evicting lanes: K8's full operand
+    set."""
     rng = np.random.default_rng(seed)
-    P, G, Q, Kp, Ke = 8, 4, 5, 4, 4
+    P, G, Q, R, Kp, Ke = 8, 4, 5, 3, 4, 4
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -511,6 +513,13 @@ def _profile_db(C, B, dev, seed):
     prev[::3, :2] = rng.integers(0, C, (len(prev[::3]), 2))
     evict = np.full((B, Ke), -1, np.int32)
     evict[1::4, 0] = rng.integers(0, C, len(evict[1::4]))
+    req = rng.integers(0, 4000, (Q, R)).astype(np.int64)
+    req[req < 500] = 0
+    req[0] = 0  # class 0 requests nothing
+    pods = rng.integers(0, 120, C).astype(np.int64)
+    pods[rng.random(C) < 0.05] = 1 << 40
+    ovr = np.where(rng.random((Q, C)) < 0.05,
+                   rng.integers(0, 40, (Q, C)), -1).astype(np.int64)
     tt = {
         "cluster_valid": t(rng.random(C) < 0.97),
         "deleting": t(rng.random(C) < 0.02),
@@ -518,7 +527,14 @@ def _profile_db(C, B, dev, seed):
         "api_ok": t(rng.random((G, C)) < 0.95),
         "pl_mask": t(rng.random((P, C)) < rng.random((P, 1))),
         "pl_tol_bypass": t(rng.random((P, C)) < 0.9),
-        "req_milli": t(np.ones((Q, 2), np.int64)),
+        "pods_allowed": t(pods),
+        "has_summary": t(rng.random(C) < 0.95),
+        "avail_milli": t(rng.integers(-2000, 1 << 22, (C, R))),
+        "has_alloc": t(rng.random((C, R)) < 0.9),
+        "req_milli": t(req),
+        "req_is_cpu": t(np.array([True, False, False])),
+        "req_pods": t(rng.integers(0, 3, Q).astype(np.int64)),
+        "est_override": t(ovr),
         "b_valid": t(np.arange(B) % 7 != 6),
         "placement_id": t(rng.integers(0, P, B).astype(np.int32)),
         "gvk_id": t(rng.integers(0, G, B).astype(np.int32)),
@@ -529,29 +545,37 @@ def _profile_db(C, B, dev, seed):
         "prev_val": t(rng.integers(1, 5, (B, Kp)).astype(np.int32)),
         "evict_idx": t(evict),
     }
-    est = rng.integers(0, 300, (Q + 1, C)).astype(np.int64)
-    est[rng.random((Q + 1, C)) < 0.05] = PS.MAX_INT32
     pref = rng.integers(0, 32, C).astype(np.int64)
-    return PS.DeviceBatch(B=B, C=C, device=torch.device(dev), t=tt), t(est), \
-        t(pref)
+    return PS.DeviceBatch(B=B, C=C, device=torch.device(dev), t=tt), t(pref)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C,k", [(2048, 64), (16384, 64), (32768, 256)])
-def test_shortlist_topk_kernel_matches_plain_on_card(C, k):
+@pytest.mark.parametrize("C,k,B", [
+    (1, 1, 24), (1, 64, 1), (31, 1, 1), (31, 64, 24), (2048, 64, 24),
+    (2048, 4096, 24), (16384, 64, 24), (16384, 256, 1), (16384, 4096, 24),
+    (16385, 64, 24), (32768, 64, 24), (32768, 256, 24), (1 << 21, 64, 1),
+    (1 << 21, 4096, 1)])
+def test_shortlist_topk_kernel_matches_plain_on_card(C, k, B):
     """K8 against its plain version: cand equal as arrays (order included)
-    on the shared-memory key path and, at 32,768 lanes, the device-memory
-    scratch path."""
+    and fcount, one launch and no other kernel: lanes below, at and past
+    a multiple of the row's cluster, k from 1 to kernels.TOPK_MAX_K and
+    past C, rows in shared memory up to kernels.TOPK_SMEM_LANES and in
+    the device-memory pair scratch at 2^21 lanes; padding rows, rows with
+    no eligible lane and rows with fewer than k."""
     dev = _card()
-    db, est, pref = _profile_db(C, 24, dev, C)
+    db, pref = _profile_db(C, B, dev, C + k + B)
     kernels.reset_counts()
-    got = PSL.shortlist_topk(db, est, pref, k)
+    got = PSL.shortlist_topk(db, pref, k)
     torch.cuda.synchronize()
-    _launched(("shortlist_topk",))
-    want = PSL.shortlist_topk_plain(db, est, pref, k)
+    assert kernels.LAUNCHES["shortlist_topk"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    want = PSL.shortlist_topk_plain(db, pref, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     fc = want[1].cpu().numpy()
-    assert (fc > k).any() and (fc == 0).any()
+    if B == 24:
+        assert (fc == 0).any()
+    if 8 * k <= C:
+        assert (fc > k).any()
 
 
 @pytest.mark.gpu
@@ -627,11 +651,83 @@ def test_shortlisted_megafleet_cycle_on_card():
             torch.cuda.synchronize()
             _launched(("shortlist_topk", "group_sums", "explain_rows")
                       + MAIN_PATH)
+            # K1 runs once per tier-2 wave and never for tier 1
+            assert (kernels.LAUNCHES["capacity"]
+                    == kernels.LAUNCHES["schedule_rows"])
         assert st.shortlist["chunks"] == 3 and not st.shortlist["fallbacks"]
         out[str(d)] = ([_norm(r) for r in res],
                        [{k: v for k, v in x.items() if k not in ("ts", "id")}
                         for x in rec.recent()])
     assert out[str(dev)] == out["cpu"]
+
+
+@pytest.mark.gpu
+def test_shortlist_tier1_launches_no_capacity_on_card():
+    """Tier 1 of a shortlisted chunk (shrink_chunk: profiles, K9, K8) is
+    K8 alone: no "capacity" launch, and the candidates equal the CPU's."""
+    import random
+
+    dev = _card()
+    rng = random.Random(5)
+    clusters, pls = S.build_megafleet(MP, rng, 1200, 24)
+    items = S.build_mega_bindings(MP, rng, 256, pls, block=64)
+    batch = PT.encode_batch(items, PT.ClusterIndex.build(clusters),
+                            GeneralEstimator())
+    cfg = PSL.ShortlistConfig(k=64, min_cells=0)
+    out = {}
+    for d in (dev, "cpu"):
+        PSL.reset_for_tests()
+        kernels.reset_counts()
+        sub, info = PSL.shrink_chunk(batch, cfg, device=d)
+        assert sub is not None, info
+        out[str(d)] = (sub.sub_lanes.tolist(), info["k"], info["union"])
+        if d is dev:
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["capacity"] == 0
+            assert kernels.LAUNCHES["shortlist_topk"] >= 1
+    assert out[str(dev)] == out["cpu"]
+
+
+# -- K1 in the wave: enqueued by K2's first launch -----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier,waves,slices", [
+    ("std", 1, False), ("std", 4, False), ("std", 8, False),
+    ("big", 1, True), ("big", 4, True), ("big", 4, False)])
+def test_wave_capacity_from_k2_on_card(tier, waves, slices, monkeypatch):
+    """solve_compact with a carry-in, the batch's histogram overrides, on
+    the card and on the CPU, bit for bit (COO, status, the carry): each
+    wave's K1 enqueued by its first K2 launch, once a wave.  With
+    `slices` the big tier's slice bound is cut to two rows, so each wave
+    launches in several slices and every slice must read the est of the
+    wave's start."""
+    dev = _card()
+    if tier == "std":
+        batch = _batch(700, 5)
+    else:
+        batch = _big_batch(5000, 4, n_bindings=16)
+    assert (batch.est_override >= 0).any()
+    if slices:
+        monkeypatch.setattr(PS, "SLICE_BYTES",
+                            2 * kernels.rows_work_bytes("big"))
+    rng = np.random.default_rng(waves)
+    used0 = PT.carry_from_arrays(
+        rng.integers(0, 30_000, batch.avail_milli.shape),
+        rng.integers(0, 60, batch.pods_allowed.shape),
+        rng.integers(0, 4, batch.est_override.shape))
+    kernels.reset_counts()
+    got = PS.solve_compact(batch, waves=waves, with_used=True, used0=used0,
+                           device=dev, tier=tier)
+    torch.cuda.synchronize()
+    k2 = "schedule_rows" if tier == "std" else "schedule_rows_big"
+    w = PS._effective_waves(batch.B, waves)
+    assert kernels.LAUNCHES["capacity"] == w
+    assert (kernels.LAUNCHES[k2] > w) == slices
+    want = PS.solve_compact(batch, waves=waves, with_used=True, used0=used0,
+                            device="cpu", tier=tier)
+    assert got[3] == want[3]
+    for a, b in zip(got[:3] + got[4], want[:3] + want[4]):
+        assert np.array_equal(a, b)
 
 
 # -- the resident plane and the incremental solve: K10, K11, K12 -------------

@@ -108,12 +108,49 @@ def _port_counts():
 
 # -- tier 1: K8 and K9 plain against the JAX kernels ---------------------------
 
-@pytest.mark.parametrize("k", [3, 16])
-def test_shortlist_topk_plain_matches_jax(k):
+def _topk_case(batch, case):
+    """Edit an encoded batch (either package's) for one case of the
+    tier-1 contract; the same edit lands in both packages' batches."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    C = batch.C
+    for f in ("est_override", "class_id", "has_summary", "pods_allowed",
+              "req_milli", "pl_mask", "b_valid"):
+        setattr(batch, f, np.array(getattr(batch, f)))
+    if case == "override":
+        # overrides >= 0 (zero included) on every class, some lanes each
+        mask = rng.random(batch.est_override.shape) < 0.3
+        batch.est_override[mask] = rng.integers(0, 6, int(mask.sum()))
+    elif case == "class_none":
+        batch.class_id[1::3] = -1  # the no-requirements row Q
+    elif case == "no_summary":
+        batch.has_summary[rng.random(C) < 0.3] = False
+        batch.pods_allowed[rng.random(C) < 0.3] = 0
+    elif case == "max_int32":
+        # class 0 requests nothing and the pods bound passes MAX_INT32:
+        # its capacity is MAX_INT32, read as the row's replicas
+        batch.req_milli[0, :] = 0
+        batch.pods_allowed[::2] = 1 << 40
+        batch.class_id[::4] = 0
+        batch.est_override[0, ::3] = (1 << 31) - 1
+    elif case == "ineligible":
+        # a valid row whose placement admits no lane and with no prev lane
+        r = int(np.flatnonzero(batch.b_valid & (batch.prev_idx < 0).all(1))[0])
+        batch.pl_mask[batch.placement_id[r], :] = False
+    return batch
+
+
+@pytest.mark.parametrize("case", ["base", "override", "class_none",
+                                  "no_summary", "max_int32", "ineligible"])
+@pytest.mark.parametrize("k", [3, 16, 40])
+def test_shortlist_topk_plain_matches_jax(k, case):
     """The candidate plane of real binding rows -- prev and evict lanes,
     taints, histogram-override classes, invalid rows -- through JAX
-    shortlist_topk and the port's K1 + shortlist_topk_plain: cand equal
-    as arrays (order included), fcount equal."""
+    shortlist_topk (its own capacity estimate) and the port's
+    shortlist_topk_plain (capacity_plain's, no est argument): cand equal
+    as arrays (order included), fcount equal.  Cases: overrides >= 0,
+    class -1 rows, clusters without a summary or pods, capacity MAX_INT32
+    (read as replicas), a valid row with no eligible lane; k = 40 is the
+    whole fleet, beyond every row's eligible count."""
     cj, ij = S.random_scenario(MJ, 11, n_clusters=40, n_bindings=32)
     cp, ip = S.random_scenario(MP, 11, n_clusters=40, n_bindings=32)
     jb = JT.encode_batch(ij, JT.ClusterIndex.build(cj), JaxEstimator())
@@ -121,6 +158,7 @@ def test_shortlist_topk_plain_matches_jax(k):
     assert (pb.prev_idx >= 0).any() and (pb.evict_idx >= 0).any()
     jb.b_valid[::5] = False  # padding-like rows: every lane ineligible
     pb.b_valid[::5] = False
+    jb, pb = _topk_case(jb, case), _topk_case(pb, case)
     assert (pb.est_override >= 0).any()
     rng = np.random.default_rng(5)
     pref = rng.integers(0, 32, pb.C).astype(np.int64)
@@ -132,21 +170,44 @@ def test_shortlist_topk_plain_matches_jax(k):
         jb.gvk_id, jb.class_id, jb.replicas, jb.prev_idx, jb.prev_val,
         jb.evict_idx, k=k)
     db = PS.device_batch(pb, "cpu")
-    db.t["nw_shortcut"] = torch.zeros_like(db.nw_shortcut)
-    zeros = PS._zeros_used(db)
-    est = PS.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
-                      db.avail_milli, zeros[0], db.has_alloc,
-                      db.pods_allowed, zeros[1], db.has_summary,
-                      db.est_override, zeros[2])
-    cand_p, fc_p = PSL.shortlist_topk(db, est, torch.from_numpy(pref), k)
+    cand_p, fc_p = PSL.shortlist_topk(db, torch.from_numpy(pref), k)
     assert np.array_equal(np.asarray(cand_j), cand_p.numpy())
     assert np.array_equal(np.asarray(fc_j), fc_p.numpy())
-    assert (fc_p.numpy() > k).any() and (fc_p.numpy() < k).any()
+    fc = fc_p.numpy()
+    assert (fc < k).any()
+    if k < 40:
+        assert (fc > k).any()
+    if case == "ineligible":
+        assert ((fc == 0) & pb.b_valid[:len(fc)]).any()
+    if case == "max_int32":
+        z = PS._zeros_used(db)
+        est = PS.capacity_plain(db.req_milli, db.req_is_cpu, db.req_pods,
+                                db.avail_milli, z[0], db.has_alloc,
+                                db.pods_allowed, z[1], db.has_summary,
+                                db.est_override, z[2])
+        assert (est[0] == PS.MAX_INT32).any()
+    if case == "class_none":
+        assert (pb.class_id[pb.b_valid] == -1).any()
     gid = rng.integers(-1, 5, pb.C).astype(np.int32)
     cap = rng.integers(0, 300, pb.C).astype(np.int64)
     want = np.asarray(JSL._group_sums(gid, cap, n_groups=5))
     got = PSL.group_sums(torch.from_numpy(gid), torch.from_numpy(cap), 5)
     assert np.array_equal(want, got.numpy())
+
+
+def test_shortlist_topk_plain_k_beyond_lanes():
+    """k above C (the kernel takes up to kernels.TOPK_MAX_K): the plain
+    version's columns past C are -1, the first C as at k = C."""
+    _cp, ip = S.random_scenario(MP, 11, n_clusters=40, n_bindings=32)
+    pb = PT.encode_batch(ip, PT.ClusterIndex.build(_cp), GeneralEstimator())
+    db = PS.device_batch(pb, "cpu")
+    pref = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 32, pb.C).astype(np.int64))
+    at_c = PSL.shortlist_topk(db, pref, pb.C)
+    beyond = PSL.shortlist_topk(db, pref, pb.C + 25)
+    assert torch.equal(beyond[0][:, :pb.C], at_c[0])
+    assert (beyond[0][:, pb.C:] == -1).all()
+    assert torch.equal(beyond[1], at_c[1])
 
 
 @pytest.mark.parametrize("case", ["beyond_tile", "below_minus_one",

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Probe of single kernels of the port on one CUDA card, at chip_smoke
 phase 2's shapes: K3 compact and K2 schedule_rows (std tier), K4
-webster_batch, K11 gather_rows, K5 spread_group_info and K6 spread_pick.
+webster_batch, K11 gather_rows, K5 spread_group_info, K6 spread_pick, K1
+capacity and K8 shortlist_topk.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
-    python3 tools/kernel_probe.py [k3k2] [k4] [k11] [k5k6] [--parent TREE]
+    python3 tools/kernel_probe.py [k3k2] [k4] [k11] [k5k6] [k1] [k8]
+        [k8census] [--parent TREE]
 
 It builds the first forward chunk of chip_smoke's workload (bench.py's
 config-5 mix, seed 0: 4096 bindings x 8192 lanes) and prints, after the
@@ -34,10 +36,24 @@ card's name and power limit, the parts named (default: all):
         the tree's sources hold KT_MARK points (spread.cuh), a clock64
         profile of each kernel's phases in cycles a row (built with
         -DKT_PROFILE; held against the unmarked kernel).
+  k1    K1 per tree: alone at [Q+1, 8,192] (CUDA-event ms, host enqueue
+        against device time), and wave 0 of each tier with its K1 (std
+        on the forward chunk, big on the first wide chunk's big rows):
+        CUDA-event ms, host enqueue, device time by kernel (K1's apart)
+        and each launch's CUDA events.
+  k8    K8 per tree on the first megafleet chunk's profile rows (16 x
+        16,384, k = 64) and over twice the lanes: the tier-1 call's
+        CUDA-event ms (the parent's K1 + K8 pair, or the fused K8), host
+        enqueue and device time by kernel; a clock64 profile of K8's
+        phases in cycles a block (KT_MARK points built with -DKT_PROFILE,
+        or K8_OLD_MARKS substituted into a source without them).
+  k8census  not in the default set: what the main path hands K8 in
+        chip_smoke's phases 8 and 9 (profile rows a launch, C, k,
+        eligible lanes a row), from those phases' runs (~4 min).
 
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
-TREE, as chip_smoke.py --parent takes it) k4, k11 and k5k6 also run on
-the parent's port.  The variant libraries build into a temporary directory.
+TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1 and k8 also
+run on the parent's port.  The variant libraries build into a temporary directory.
 Exits non-zero without a card, or when a variant disagrees with its
 plain version.
 """
@@ -580,13 +596,264 @@ def probe_k11(CS, dev, trees):
                   f"{device} ms", flush=True)
 
 
+# -- K1 capacity and K8 shortlist_topk -----------------------------------------
+
+def _dev_line(by):
+    """The profiler's device ms per call by kernel, K1's and the sum."""
+    k1 = sum(v for k, v in by.items() if "capacity" in k)
+    return (f"device {sum(by.values()):.4f} ms (K1 capacity_kernel "
+            f"{k1:.4f}; " + ", ".join(f"{k.split('(')[0]} {v:.4f}"
+                                      for k, v in sorted(by.items())) + ")")
+
+
+def probe_k1(CS, batch, wide, fleet, dev, trees):
+    """K1 per tree: the standalone call at phase 2's shape (the forward
+    chunk's [Q+1, 8,192] est) -- CUDA-event ms, host enqueue against
+    device time -- and one whole wave 0 of each tier (K1, K2's prepare,
+    K4, K2's finish), std on the forward chunk and big on the first wide
+    chunk's big rows: CUDA-event ms, host enqueue, device time by kernel
+    and each launch's CUDA events.  The trees' waves must agree."""
+    sub, _n = CS.big_subbatch(wide, fleet)
+    outs = {}
+    for label, kmod, smod in trees:
+        S = smod.S
+        db = S.device_batch(batch, dev)
+        Q, C = db.req_milli.shape[0], db.C
+        z = S._zeros_used(db)
+        cap_in = (db.req_milli, db.req_is_cpu, db.req_pods, db.avail_milli,
+                  z[0], db.has_alloc, db.pods_allowed, z[1],
+                  db.has_summary, db.est_override, z[2])
+
+        def cap(S=S, cap_in=cap_in):
+            return S.capacity(*cap_in)
+        ms = CS.cuda_ms(cap, 200)
+        host, device = CS.split_ms(cap, 200)
+        print(f"K1 {label}, capacity [{Q + 1}, {C}]: {ms:.4f} ms; split_ms "
+              f"host {host:.4f} ms, device {device} ms", flush=True)
+        for tier, b in (("std", batch), ("big", sub)):
+            dbx = S.device_batch(b, dev)
+            used = tuple(u.clone() for u in S._zeros_used(dbx))
+            out = (torch.zeros((dbx.B, dbx.C), dtype=torch.int64,
+                               device=dev),
+                   torch.zeros((dbx.B, dbx.C), dtype=torch.bool, device=dev),
+                   torch.zeros((dbx.B,), dtype=torch.int32, device=dev))
+            wave = CS.wave_call(S, dbx, used, out, S._use_extra(b), tier,
+                                CS.fills_est(S))
+            wave()
+            torch.cuda.synchronize()
+            outs.setdefault(tier, []).append(tuple(t.clone() for t in out))
+            ms = CS.cuda_ms(wave, 20)
+            host, _d = CS.split_ms(wave, 20)
+            by = CS.kernel_device_ms(wave, 20)
+            st = CS.stage_ms(kmod, wave, 20)
+            Bw = dbx.B // S._effective_waves(dbx.B, 8)
+            print(f"K1 {label}, {tier} wave 0 ({Bw} x {dbx.C}): {ms:.4f} "
+                  f"ms; host enqueue {host:.4f} ms; " + _dev_line(by)
+                  + "; launches (CUDA events) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items()),
+                  flush=True)
+    for tier, v in outs.items():
+        if not all(all(torch.equal(a, b) for a, b in zip(v[0], x))
+                   for x in v[1:]):
+            raise AssertionError(f"K1 probe: the trees' {tier} waves "
+                                 "disagree")
+
+
+#: the clock64 marks of the parent's K8 (one block a row, rows.cuh
+#: topk_select): (anchor, replacement) pairs in its shortlist.cu; the
+#: first holds the profile buffer's size (K8_PROF_BLOCKS)
+K8_OLD_MARK = ("__syncthreads(); if (threadIdx.x == 0) "
+               "kt_prof[blockIdx.x * 8 + (%d)] = clock64();\n")
+K8_OLD_MARKS = (
+    ('#include "rows.cuh"\n', '#include "rows.cuh"\n'
+     "__device__ long long kt_prof[%d * 8];\n"
+     'extern "C" int kt_prof_read(long long* h) { return '
+     "(int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof)); }\n"),
+    ("  Row row;\n  row.slot = b;\n",
+     "  " + K8_OLD_MARK % 0 + "  Row row;\n  row.slot = b;\n"),
+    ("  topk_select<NT>(keys, C, 1,", "  " + K8_OLD_MARK % 1
+     + "  topk_select<NT>(keys, C, 1,"),
+    ("  // the members (min(fcount, k) of them)", "  " + K8_OLD_MARK % 2
+     + "  // the members (min(fcount, k) of them)"),
+    ("  block_sort<NT>(mkey, midx, (int)a.nk);\n",
+     "  " + K8_OLD_MARK % 3 + "  block_sort<NT>(mkey, midx, (int)a.nk);\n  "
+     + K8_OLD_MARK % 4),
+    ("  if (threadIdx.x == 0) a.fcount[b] = cnt[0];\n}",
+     "  if (threadIdx.x == 0) a.fcount[b] = cnt[0];\n  "
+     + K8_OLD_MARK % 5 + "}"))
+#: the phases between the marks of a K8 design, by a line of its
+#: shortlist.cu that names the design
+K8_PHASES = {
+    "  topk_select<NT>(keys, C, 1,": (
+        "row + lane pass", "select (8 radix passes)", "member gather",
+        "sort", "write"),
+    # a row over a cluster of blocks; the leader (rank 0) sorts and writes
+    "__cluster_dims__(TK_CLUSTER, 1, 1)": (
+        "row + lane pass + counts", "select + member push", "cluster wait",
+        "sort (leader)", "write (leader)"),
+}
+#: blocks the K8 profile holds
+K8_PROF_BLOCKS = 4096
+
+
+def profile_k8(kmod, call, out_dir, name):
+    """clock64 profile of one K8 launch (`call` runs the tree's tier-1
+    call and returns (cand, fcount)): the tree's shortlist.cu with its
+    design's marks -- compiled in with -DKT_PROFILE where the source holds
+    KT_MARK points, else K8_OLD_MARKS substituted -- launched with kmod's
+    entry swapped and held against the unmarked kernel.  Returns (phase
+    names, [blocks, phases] cycles)."""
+    csrc = str(kmod.CSRC)
+    src = os.path.join(csrc, "shortlist.cu")
+    text = open(src).read()
+    phases = next(v for k, v in K8_PHASES.items() if k in text)
+    if "KT_MARK(" in text:
+        lib = build_variant(kmod, src, [], name, out_dir, inc=csrc,
+                            flags=(f"-DKT_PROFILE={K8_PROF_BLOCKS}",))
+    else:
+        subs = [(a, b % K8_PROF_BLOCKS if i == 0 else b)
+                for i, (a, b) in enumerate(K8_OLD_MARKS)]
+        lib = build_variant(kmod, src, subs, name, out_dir, inc=csrc)
+    want = call()
+    torch.cuda.synchronize()
+    saved = kmod._FNS["shortlist_topk"]
+    try:
+        kmod._FNS["shortlist_topk"] = entry(lib, "kt_shortlist_topk")
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        kmod._FNS["shortlist_topk"] = saved
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the profiled kernel disagrees")
+    h = np.zeros(K8_PROF_BLOCKS * 8, np.int64)
+    fn = lib.kt_prof_read
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.c_void_p(h.ctypes.data)):
+        raise RuntimeError("reading the K8 profile failed")
+    h = h.reshape(K8_PROF_BLOCKS, 8)
+    blocks = np.flatnonzero(h[:, 0] != 0)
+    return phases, np.diff(h[blocks, :len(phases) + 1], axis=1), blocks
+
+
+def mega_profile_rows(CS, M, n=4096):
+    """The first megafleet chunk's tier-1 operands, as chip_smoke phase 2
+    holds K8 on them: (its SolverBatch, the profile keys, rep_max)."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.ops import tensors as T
+
+    mfleet, mpl = CS.build_megafleet(M, random.Random(2), CS.MEGA_CLUSTERS,
+                                     CS.MEGA_REGIONS)
+    mitems = CS.build_mega_bindings(M, random.Random(3), n, mpl, n)
+    mbatch = T.encode_batch(mitems, T.ClusterIndex.build(mfleet),
+                            GeneralEstimator(), cache=T.EncoderCache())
+    prof_keys, _of, rep_max = SL._profiles(mbatch)
+    return mbatch, prof_keys, rep_max
+
+
+def probe_k8(CS, M, dev, trees, k=64):
+    """K8 per tree on the first megafleet chunk's profile rows (16 x
+    16,384, k = 64) and on the same rows over twice the lanes (the
+    parent's device-memory key path): the tier-1 call's CUDA-event ms
+    (the parent's K1 + K8, or the fused K8), host enqueue and device time
+    by kernel, and the clock64 phase profile of K8 at 16,384 lanes.  The
+    trees must agree."""
+    mbatch, prof_keys, rep_max = mega_profile_rows(CS, M)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kmod, smod in trees:
+            S, SL = smod.S, smod.SL
+            agg = SL.cycle_aggregates(mbatch, dev)
+            pref = torch.from_numpy(agg["group_pref"]).to(dev)
+            db = SL.profile_batch(mbatch, prof_keys, rep_max, dev)
+            for shape, d, p in (("", db, pref),
+                                (" wide", CS.tile_lanes(S, db),
+                                 torch.cat([pref, pref]))):
+                call = CS.tier1_call(S, SL, d, p, k)
+                res.setdefault(shape, []).append(call())
+                ms = CS.cuda_ms(call, 200)
+                host, _dv = CS.split_ms(call, 200)
+                by = CS.kernel_device_ms(call, 200)
+                print(f"K8 {label}{shape}, tier-1 call ({d.B} x {d.C}, k = "
+                      f"{k}): {ms:.4f} ms; host enqueue {host:.4f} ms; "
+                      + _dev_line(by), flush=True)
+            phases, cyc, blocks = profile_k8(
+                kmod, CS.tier1_call(S, SL, db, pref, k), tmp,
+                f"shortlist_{label.split()[-1]}")
+            groups = [("a block", cyc)]
+            if len(blocks) > db.B:  # a row over a cluster: its leaders too
+                groups.append(("a leader block", cyc[
+                    blocks % (len(blocks) // db.B) == 0]))
+            for what, c in groups:
+                print(f"K8 {label}, clock64 cycles {what} ({len(c)}, mean / "
+                      "max): " + "; ".join(
+                          f"{p} {c[:, i].mean():.0f} / {c[:, i].max()}"
+                          for i, p in enumerate(phases))
+                      + f"; in all {c.sum(1).mean():.0f} / {c.sum(1).max()}",
+                      flush=True)
+    for shape, v in res.items():
+        if not all(all(torch.equal(a, b) for a, b in zip(v[0], x))
+                   for x in v[1:]):
+            raise AssertionError(f"K8 probe{shape}: the trees disagree")
+
+
+def probe_k8_census(CS, M, dev):
+    """What the main path hands K8: every tier-1 dispatch (_t1_rows) of
+    chip_smoke's phase 8 (the megafleet cycle) and phase 9 (the
+    incremental steady state), by phase: launches, profile rows a launch
+    (real and padded), C, k, and the eligible lanes a row (fcount)."""
+    from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.ops import tensors as T
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    calls = []
+    orig = SL._t1_rows
+
+    def hooked(batch, prof_keys, rep_max, k, agg, device):
+        cand, fcount = orig(batch, prof_keys, rep_max, k, agg, device)
+        n = prof_keys.shape[0]
+        calls.append((n, T._next_pow2(max(n, 1), 8), int(batch.C), k,
+                      np.asarray(fcount)))
+        return cand, fcount
+
+    def report(label):
+        rows = np.array([c[0] for c in calls])
+        fc = np.concatenate([c[4] for c in calls])
+        print(f"K8 census, {label}: {len(calls)} launches; profile rows a "
+              f"launch p50 {np.percentile(rows, 50):.0f} max {rows.max()} "
+              f"(padded {sorted({c[1] for c in calls})}); C "
+              f"{sorted({c[2] for c in calls})}; k "
+              f"{sorted({c[3] for c in calls})}; eligible lanes a row "
+              f"(fcount) p50 {np.percentile(fc, 50):.0f} max {fc.max()} "
+              f"over {fc.size} rows", flush=True)
+        calls.clear()
+
+    SL._t1_rows = hooked
+    try:
+        mfleet, mpl = CS.build_megafleet(M, random.Random(2),
+                                         CS.MEGA_CLUSTERS, CS.MEGA_REGIONS)
+        mitems = CS.build_mega_bindings(M, random.Random(3),
+                                        CS.MEGAFLEET_BINDINGS, mpl, 4096)
+        SL.reset_for_tests()
+        schedule_items(mitems, mfleet, chunk=4096, waves=8, device=dev,
+                       shortlist=SL.ShortlistConfig(k=CS.MEGA_K))
+        report("phase 8 (the megafleet cycle)")
+        del mitems
+        CS.phase_incremental(M, mfleet, mpl, CS.INCREMENTAL_BINDINGS, 4096,
+                             dev, 5)
+        report("phase 9 (the incremental steady state)")
+    finally:
+        SL._t1_rows = orig
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parts", nargs="*",
-                    default=["k3k2", "k4", "k11", "k5k6"],
-                    help="k3k2, k4, k11, k5k6 (default: all)")
+                    default=["k3k2", "k4", "k11", "k5k6", "k1", "k8"],
+                    help="k3k2, k4, k11, k5k6, k1, k8, k8census (default: "
+                         "all but k8census)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
                          "karmada_tpu_torch/ unpacked: K4, K11, K5 and K6 "
@@ -601,6 +868,7 @@ def main() -> int:
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import resident_gather as RG
+    from karmada_tpu_torch.ops import shortlist as SL
     from karmada_tpu_torch.ops import solver as S
     from karmada_tpu_torch.ops import spread as SP
     from karmada_tpu_torch.ops import tensors as T
@@ -610,13 +878,14 @@ def main() -> int:
     kernels.build()
     trees = [("this tree", kernels, types.SimpleNamespace(
         webster_batch=S.webster_batch, webster_plain=S.webster_plain,
-        RG=RG, SP=SP))]
+        RG=RG, SP=SP, S=S, SL=SL))]
     if args.parent:
         par = CS.load_parent(args.parent)
         trees.append(("the parent", par["ops.kernels"], types.SimpleNamespace(
             webster_batch=par["ops.solver"].webster_batch,
             webster_plain=par["ops.solver"].webster_plain,
-            RG=par["ops.resident_gather"], SP=par["ops.spread"])))
+            RG=par["ops.resident_gather"], SP=par["ops.spread"],
+            S=par["ops.solver"], SL=par["ops.shortlist"])))
     M = CS.models()
     rng = random.Random(0)
     fleet = CS.build_fleet(M, rng, 5000)
@@ -639,6 +908,14 @@ def main() -> int:
                                    placements, names)
         explain = CS.starve_items(M, wide[:CS.EXPLAIN_BINDINGS])
         probe_k5k6(CS, batch, items, wide, explain, fleet, dev, trees)
+    if "k1" in args.parts:
+        wide = CS.build_wide_items(M, random.Random(1), CS.WIDE_BINDINGS,
+                                   placements, [c.name for c in fleet])
+        probe_k1(CS, batch, wide[:4096], fleet, dev, trees)
+    if "k8" in args.parts:
+        probe_k8(CS, M, dev, trees)
+    if "k8census" in args.parts:
+        probe_k8_census(CS, M, dev)
     return 0
 
 

@@ -20,10 +20,13 @@ region spread included; chunk 4096, 8 waves, carry on):
      chunk of the forward cycle (4096 x 8192 lanes), K5 spread_group_info
      and K6 spread_pick on that chunk's spread sub-batch, K2 on the big
      tier (and its K4 problems) on the first wide chunk's big sub-batch;
-     K2's wave 0 split into its stream operations (prepare, K4, finish;
-     CUDA events around each launch) and into host enqueue and device
+     K2's wave 0 (one C call a launch slice) split into its kernels'
+     device time (prepare, K4, finish) and into host enqueue and device
      time, on both tiers, and wave 0 with its K1 (enqueued by K2's first
-     launch) with K1's device time in it; K1 alone's host / device
+     launch) with K1's device time in it; a census of the big rows K2-big
+     gets (each gather group's eligible lanes against k, the select's
+     histogram passes, U, strategy, has_sc); the chunk's bound (its 8
+     waves' K1 + K2 + K4 bounds and K3's); K1 alone's host / device
      split; a census of K4's problems over the chunk's 8 waves and the
      big sub-batch (n_eff, positive and kept lanes, t* = 0,
      r > 0, both designs' bisection steps, the brackets checked against
@@ -117,7 +120,10 @@ churn windows of config 5's first 16,384 bindings.
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE) phase 2 also times the parent's port against this one on the same
 card, in turns (old, new, new, old; TURN_ROUNDS rounds): K3 and K2 std's
-wave 0 (with the parent's K2 split) on the first forward chunk, K1 alone
+wave 0 (with the parent's K2 split) on the first forward chunk, K2-big's
+wave 0 (K4 inside) on the first wide chunk's big rows, the forward
+chunk's dispatch (8 waves + K3; each side's host enqueue and device time
+by kernel beside it), K1 alone
 and K2 std's wave 0 with its K1 (launched from Python in the parent),
 tier 1 on the megafleet chunk's profile rows at 16,384 and 32,768 lanes
 (the parent's K1 + K8 against the fused K8), K4 on
@@ -126,7 +132,7 @@ sub-batch (each side's host / device split beside them), and, after
 phase 9, K10 on one field,
 both mirror syncs kernel side and as walls, K9, and K11 (both flavours
 on card slots, and dispatch_gather from host slots).  Before the JSON
-lines the run checks that K2's std tier allocated no key scratch.
+lines the run checks that neither K2 tier allocated a key scratch.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -663,12 +669,11 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
         return lambda: fn(db, 0, Bw, est0, *used, *out,
                           use_extra=use_extra, charge=True, tier=tier)
 
-    from karmada_tpu_torch.ops import kernels
     ms = cuda_ms(wave(S.schedule_rows), reps)
-    split = stage_ms(kernels, wave(S.schedule_rows), reps)
+    by = kernel_device_ms(wave(S.schedule_rows), reps)
     host, device = split_ms(wave(S.schedule_rows), reps)
-    log(f"phase 2 K2 split ({tier}, wave 0: {Bw} x {C}): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+    log(f"phase 2 K2 split ({tier}, wave 0: {Bw} x {C}): device by kernel "
+        + ", ".join(f"{k.split('(')[0]} {v:.4f} ms" for k, v in by.items())
         + f"; split_ms host enqueue {host:.4f} ms, device "
         + (f"{device:.4f} ms" if device is not None else "not measured")
         + f"; key scratch allocated so far {S.KEY_SCRATCH_BYTES[tier]} B")
@@ -924,6 +929,142 @@ def spread_need_bytes(db, est, use_extra: bool, per_row: int) -> int:
             + n_gvk * C + C * 14 + coo + db.B * per_row)
 
 
+def gather_keys(S, db, r0, r1, est, use_extra):
+    """The gather keys of rows [r0, r1) on est, as the plain path makes
+    them (JAX _gather_lanes): [groups, rows, C] int64, -1 ineligible."""
+    pid, _cid, prev_rep, pp, avail_cal, feas, _ev = S._row_inputs(
+        db, r0, r1, est)
+    C = db.C
+    nr = db.name_rank[None, :].expand(r1 - r0, C)
+    uid = db.uid_desc[r0:r1][:, None]
+    rank_eff = torch.where(uid, C - 1 - nr, nr)
+    avail_sel = avail_cal + prev_rep * pp
+    static = db.pl_strategy[pid].long() == 1
+    wg = torch.where(static[:, None], db.pl_static_w[pid], avail_sel)
+    cap, mask = (1 << 34) - 1, (1 << 21) - 1
+    wq = torch.clamp(wg, 0, cap) << 21
+    aq = torch.clamp(avail_sel, 0, cap) << 21
+    neg = torch.full((), -1, dtype=torch.int64, device=db.device)
+    keys = [torch.where(pp, mask - nr, neg),
+            torch.where(feas, wq | (mask - rank_eff), neg),
+            torch.where(feas, wq | (mask - nr), neg),
+            torch.where(feas, aq | (mask - nr), neg)]
+    if use_extra:
+        has_prev = pp.any(1, keepdim=True)
+        score = torch.where(has_prev & pp, 100, 0) + db.pl_extra_score[pid]
+        keys.append(torch.where(
+            feas, (torch.clamp(score, 0, 255) << 55) | aq | (mask - nr), neg))
+    return torch.stack(keys)
+
+
+def select_passes(keys, k, share=256):
+    """The histogram passes K2's select (schedule_rows.cu select_lanes)
+    makes on one group's keys (numpy int64, -1 ineligible) to find its
+    k-th largest: 0 when the eligible keys number at most k or their
+    boundary bucket is already within `share`."""
+    ks = keys[keys >= 0].astype(np.uint64)
+    if ks.size <= k:
+        return 0
+    kor = np.bitwise_or.reduce(ks)
+    kand = np.bitwise_and.reduce(ks)
+    sh = int(kor ^ kand).bit_length()
+    if ks.size <= share or sh == 0:
+        return 0
+    rem, n = k, 0
+    while True:
+        n += 1
+        lo = max(sh - 8, 0)
+        dig = ((ks >> np.uint64(lo)) & np.uint64((1 << (sh - lo)) - 1)
+               ).astype(np.int64)
+        cnt = np.bincount(dig, minlength=256)
+        above = 0
+        for d in range(255, -1, -1):
+            if above + cnt[d] >= rem:
+                break
+            above += cnt[d]
+        rem -= above
+        ks = ks[dig == d]
+        sh = lo
+        if ks.size <= share or lo == 0:
+            return n
+
+
+def union_size(keys, ks):
+    """The gathered lane count of one row: the union over its groups
+    (keys [groups, C], -1 ineligible) of each group's k largest keys, a
+    group short of k filled with its lowest-index -1 lanes."""
+    members = np.zeros(keys.shape[1], bool)
+    for g, k in zip(keys, ks):
+        elig = g >= 0
+        n = int(elig.sum())
+        if n > k:
+            members |= g >= np.sort(g[elig])[-k]
+        else:
+            members |= elig
+            members[np.flatnonzero(~elig)[:k - n]] = True
+    return int(members.sum())
+
+
+def big_census(S, db, r0, r1, est, use_extra) -> dict:
+    """What one K2-big launch on rows [r0, r1) of db gets, on est: the
+    valid rows' strategy and has_sc and, on the gather path (C >
+    DIRECT_MAX), each gather group's eligible lanes, the select's
+    histogram passes (select_passes) and the union's size U."""
+    g_prev, g_topk, direct_max = S.TIERS["big"]
+    valid = db.b_valid[r0:r1].cpu().numpy()
+    pid = db.placement_id[r0:r1].long()
+    out = dict(rows=r1 - r0, valid=int(valid.sum()), C=db.C,
+               direct=db.C <= direct_max,
+               strat=db.pl_strategy[pid].cpu().numpy()[valid].tolist(),
+               has_sc=db.pl_has_cluster_sc[pid].cpu().numpy()[valid]
+               .tolist(), elig=[], passes=[], U=[])
+    if out["direct"]:
+        return out
+    ks = (g_prev,) + (g_topk,) * 4
+    keys = gather_keys(S, db, r0, r1, est, use_extra).cpu().numpy()
+    for i in np.flatnonzero(valid):
+        row = keys[:, i]
+        out["elig"].append([int((g >= 0).sum()) for g in row])
+        out["passes"].append([select_passes(g, k) for g, k in zip(row, ks)])
+        out["U"].append(union_size(row, ks))
+    return out
+
+
+def big_census_lines(label, calls) -> list:
+    """big_census over launches `calls`, as log lines."""
+    if not calls:
+        return [f"K2-big census, {label}: no launch"]
+    rows = np.array([c["valid"] for c in calls])
+    strat = np.concatenate([c["strat"] for c in calls]).astype(int)
+    sc = np.concatenate([c["has_sc"] for c in calls]).astype(bool)
+    out = [f"K2-big census, {label}: {len(calls)} launches; rows a launch "
+           f"{sorted({c['rows'] for c in calls})} (valid p50 "
+           f"{np.percentile(rows, 50):.0f} max {rows.max()}); C "
+           f"{sorted({c['C'] for c in calls})}; gather path in "
+           f"{sum(not c['direct'] for c in calls)}; {strat.size} valid "
+           f"rows, strategy (0 Duplicated, 1 Static, 2 Dynamic, 3 "
+           f"Aggregated) {np.bincount(strat, minlength=4).tolist()}, "
+           f"has_sc {int(sc.sum())}"]
+    el = [e for c in calls for e in c["elig"]]
+    if el:
+        ng = max(len(e) for e in el)
+        el = np.array([e + [0] * (ng - len(e)) for e in el])
+        ps = np.array([p + [0] * (ng - len(p))
+                       for c in calls for p in c["passes"]])
+        U = np.concatenate([c["U"] for c in calls])
+        for g, k in enumerate((128, 1024, 1024, 1024, 1024)[:ng]):
+            e = el[:, g]
+            out.append(f"K2-big census, {label}, group {g} (k {k}): eligible "
+                       f"p50 {np.percentile(e, 50):.0f} min {e.min()} max "
+                       f"{e.max()}; select (> k) {int((e > k).sum())}, fill "
+                       f"(< k) {int((e < k).sum())} of {e.size} rows; rows "
+                       f"by histogram passes "
+                       f"{np.bincount(ps[:, g]).tolist()}")
+        out.append(f"K2-big census, {label}: U p50 "
+                   f"{np.percentile(U, 50):.0f} max {int(U.max())}")
+    return out
+
+
 def big_subbatch(wide, fleet):
     """The ROUTE_DEVICE_BIG rows of the bindings `wide` as solve_big
     encodes them: (their SolverBatch, the row count)."""
@@ -1016,6 +1157,21 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         max_abs_err=err_b, ms=kb_ms, plain_ms=kb_plain,
         bound_ms=bb[0], bound_by=bb[1], library_ms=None))
     log(f"phase 2 big sub-batch: {n_big} rows -> {dbig.B}x{dbig.C}")
+    # what the main path hands K2-big there, on the chunk's starting est
+    z = S._zeros_used(dbig)
+    est_big = S.capacity(dbig.req_milli, dbig.req_is_cpu, dbig.req_pods,
+                         dbig.avail_milli, z[0], dbig.has_alloc,
+                         dbig.pods_allowed, z[1], dbig.has_summary,
+                         dbig.est_override, z[2])
+    Bwb = dbig.B // S._effective_waves(dbig.B, waves)
+    for ln in big_census_lines(
+            "phase 2, the first wide chunk's big rows (the chunk's "
+            "starting est)",
+            [big_census(S, dbig, r0, r0 + Bwb, est_big, S._use_extra(sub))
+             for r0 in range(0, dbig.B, Bwb)]):
+        log(ln)
+    if parent is not None:
+        phase_turns_big(parent, sub, dev, reps)
 
     # K3 compact on the chunk's dense result
     nw = db.non_workload
@@ -1060,6 +1216,18 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
                   + tie_lanes * web[4].element_size(), web[1].numel())
     log(f"phase 2 webster_batch bound: {tie_lanes} tie-block lanes of "
         f"{web[1].numel()} read rank")
+    # the chunk's bound: its waves' K1 + K2 + K4 bounds (every wave's K1
+    # and K2 need the same bytes as wave 0's) and K3's
+    k4_bounds = []
+    for wv in webs:
+        tl = int(webster_census([wv])["tie_lanes"].sum())
+        k4_bounds.append(bound_ms(nbytes(*wv[:4]) + nbytes(wv[1])
+                                  + tl * wv[4].element_size(),
+                                  wv[1].numel())[0])
+    chunk_bound = len(webs) * (b1[0] + b2[0]) + sum(k4_bounds) + b3[0]
+    log(f"phase 2 chunk bound: {chunk_bound:.6f} ms ({len(webs)} waves x "
+        f"(K1 {b1[0]:.6f} + K2 {b2[0]:.6f}) + K4 {sum(k4_bounds):.6f} + "
+        f"K3 {b3[0]:.6f})")
     rows.append(dict(
         name="webster_batch", route="cuda",
         source="karmada_tpu_torch/ops/csrc/webster_batch.cu",
@@ -1148,6 +1316,8 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
         batch, waves=waves, with_used=True, device=dev), reps)
     log(f"phase 2 chunk: {B}x{C} dispatch_compact stream time "
         f"{chunk_ms:.4f} ms (CUDA events, mean of {reps})")
+    if parent is not None:
+        phase_turns_dispatch(parent, batch, dev, reps)
     # the carry chain's vocabulary remap (not a kernel: index_select and
     # where) on the chunk's accumulators, into the same vocabulary; its
     # need is one read and one write of avail and est accumulators
@@ -2240,6 +2410,81 @@ def phase_turns_spread(parent, gi, pk, use_extra, reps,
                       for name, fns in calls.items()}, rounds)
 
 
+def big_wave0(P, sub, dev):
+    """Wave 0 of the big rows `sub` on tree P's K2-big, as hold_rows times
+    it: est fixed at wave 0's (K1 on a zero carry), K4 inside, the rows
+    charged into a carry no call reads, so every call does the same work.
+    Returns (the call, its outputs and carry)."""
+    db = P.device_batch(sub, dev)
+    z = P._zeros_used(db)
+    est0 = P.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                      db.avail_milli, z[0], db.has_alloc, db.pods_allowed,
+                      z[1], db.has_summary, db.est_override, z[2])
+    used = tuple(u.clone() for u in z)
+    out = (torch.zeros((db.B, db.C), dtype=torch.int64, device=dev),
+           torch.zeros((db.B, db.C), dtype=torch.bool, device=dev),
+           torch.zeros((db.B,), dtype=torch.int32, device=dev))
+    Bw = db.B // P._effective_waves(db.B, 8)
+    use_extra = P._use_extra(sub)
+    return (lambda: P.schedule_rows(db, 0, Bw, est0, *used, *out,
+                                    use_extra=use_extra, charge=True,
+                                    tier="big")), out + used
+
+
+def phase_turns_big(parent, sub, dev, reps, rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns: K2-big's
+    wave 0 (K4 inside, big_wave0) on the first wide chunk's big rows; the
+    two ports' results and carries must agree first.  Each side's host
+    enqueue and device time by kernel is logged beside the turns."""
+    from karmada_tpu_torch.ops import solver as NS
+
+    calls = [big_wave0(P, sub, dev) for P in (parent["ops.solver"], NS)]
+    for fn, _o in calls:
+        fn()
+    if not all(torch.equal(a, b) for a, b in zip(calls[0][1], calls[1][1])):
+        raise AssertionError("turns: K2-big wave 0 old and new disagree")
+    for which, (fn, _o) in zip(("old", "new"), calls):
+        host, _d = split_ms(fn, reps)
+        by = kernel_device_ms(fn, reps)
+        log(f"phase 2 turns K2-big wave 0 split ({which}): host enqueue "
+            f"{host:.4f} ms, device {sum(by.values()):.4f} ms: " + ", ".join(
+                f"{k.split('(')[0]} {v:.4f}" for k, v in by.items()))
+    return run_turns({"K2-big wave 0 (K4 inside)": (
+        lambda: cuda_ms(calls[0][0], reps),
+        lambda: cuda_ms(calls[1][0], reps))}, rounds)
+
+
+def phase_turns_dispatch(parent, batch, dev, reps,
+                         rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns: the
+    forward chunk's dispatch_compact (upload, 8 waves of K1 + K2 with K4,
+    K3) between two events on the stream; the two ports' COO, status and
+    carry must agree first.  Each side's host enqueue and device time by
+    kernel (split_ms, kernel_device_ms) is logged beside the turns."""
+    from karmada_tpu_torch.ops import solver as NS
+
+    fns = [lambda P=P: P.dispatch_compact(batch, waves=8, with_used=True,
+                                          device=dev)
+           for P in (parent["ops.solver"], NS)]
+    got = [P.finalize_compact(fn()) for P, fn in
+           zip((parent["ops.solver"], NS), fns)]
+    if got[0][3] != got[1][3] or not all(
+            np.array_equal(a, b) for a, b in zip(got[0][:3] + got[0][4],
+                                                 got[1][:3] + got[1][4])):
+        raise AssertionError("turns: forward chunk dispatch old and new "
+                             "disagree")
+    for which, fn in zip(("old", "new"), fns):
+        host, _d = split_ms(fn, reps)
+        by = kernel_device_ms(fn, reps)
+        log(f"phase 2 turns forward chunk dispatch split ({which}): host "
+            f"enqueue {host:.4f} ms, device {sum(by.values()):.4f} ms: "
+            + ", ".join(f"{k.split('(')[0]} {v:.4f}"
+                        for k, v in sorted(by.items(), key=lambda x: -x[1])))
+    return run_turns({"forward chunk dispatch (8 waves + K3)": (
+        lambda: cuda_ms(fns[0], reps), lambda: cuda_ms(fns[1], reps))},
+        rounds)
+
+
 def run_turns(cases, rounds) -> dict:
     """Each case's (old, new) timers in turns: old, new, new, old, for
     `rounds` rounds; logs every reading and the means."""
@@ -2984,8 +3229,8 @@ def main() -> int:
                                                       mega, inc, loop))
     log(f"K2 key scratch allocated in the run, bytes by tier: "
         f"{PS.KEY_SCRATCH_BYTES}")
-    if PS.KEY_SCRATCH_BYTES["std"]:
-        raise AssertionError("K2's std tier allocated a key scratch")
+    if any(PS.KEY_SCRATCH_BYTES.values()):
+        raise AssertionError("K2 allocated a key scratch")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

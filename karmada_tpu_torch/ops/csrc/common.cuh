@@ -14,20 +14,24 @@ typedef unsigned long long u64;
 #define KT_FULL_MASK 0xffffffffu
 
 // clock64 marks of a block's phases, compiled in only with
-// -DKT_PROFILE=<blocks> (tools/kernel_probe.py k5k6, k8): KT_MARK(k)
-// syncs the block, then its thread 0 writes clock64() into slot k (0-7)
-// of the block's row of kt_prof; kt_prof_read copies the rows to the
-// host.
+// -DKT_PROFILE=<blocks> (tools/kernel_probe.py k5k6, k8, k2big): KT_MARK(k)
+// syncs the block, then its thread 0 writes clock64() into slot k (0 to
+// KT_PROF_SLOTS - 1; a source may define more than 8 before its first
+// include) of the block's row of kt_prof; kt_prof_read copies the rows to
+// the host.
+#ifndef KT_PROF_SLOTS
+#define KT_PROF_SLOTS 8
+#endif
 #ifdef KT_PROFILE
-__device__ long long kt_prof[KT_PROFILE * 8];
+__device__ long long kt_prof[KT_PROFILE * KT_PROF_SLOTS];
 extern "C" int kt_prof_read(long long* h) {
   return (int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof));
 }
-#define KT_MARK(k)                                         \
-  do {                                                     \
-    __syncthreads();                                       \
-    if (threadIdx.x == 0 && blockIdx.x < KT_PROFILE)       \
-      kt_prof[blockIdx.x * 8 + (k)] = clock64();           \
+#define KT_MARK(k)                                                \
+  do {                                                            \
+    __syncthreads();                                              \
+    if (threadIdx.x == 0 && blockIdx.x < KT_PROFILE)              \
+      kt_prof[blockIdx.x * KT_PROF_SLOTS + (k)] = clock64();      \
   } while (0)
 #else
 #define KT_MARK(k) \

@@ -1,6 +1,6 @@
 // The per-row prologue K2 schedule_rows, K5 spread_group_info, K6
-// spread_pick, K7 explain_rows and K8 shortlist_topk share, the block sort
-// K2 and K8 use, and the top-k selection K2 and K8 share.
+// spread_pick, K7 explain_rows and K8 shortlist_topk share, and the block
+// sort K2 and K8 use.
 //
 // Replaces the dense [B, C] planes the JAX programs build before their
 // per-row math -- karmada_tpu/ops/solver.py _schedule_core (the prev/evict
@@ -104,15 +104,49 @@ __device__ __forceinline__ i64 spread_key(i64 score, i64 avail, i64 name_rank,
          shl(AVAIL_CAP - clampll(avail, 0, AVAIL_CAP), LANE_BITS) | name_rank;
 }
 
+// The compare-exchange stages (k, j) of block_sort for k = k0, 2 k0, ..
+// k1 and each k's j < min(k, 32), in registers: a warp holds 32
+// consecutive entries, so j < 32 pairs lanes of one warp (shuffles, no
+// barrier).  The entries are read from and written back to key / idx;
+// the caller syncs the block before and after.
+template <int NT>
+__device__ __forceinline__ void warp_stages(i64* key, int* idx, int N,
+                                            int k0, int k1) {
+  const int lane = threadIdx.x & 31;
+  for (int i0 = threadIdx.x - lane; i0 < N; i0 += NT) {
+    const int i = i0 + lane;
+    const bool live = i < N;  // N < 32: lanes past N pair among themselves
+    i64 k_ = live ? key[i] : 0;
+    int x = live ? idx[i] : 0;
+    for (int k = k0; k <= k1; k <<= 1) {
+      for (int j = min(k >> 1, 16); j > 0; j >>= 1) {
+        const i64 ko = __shfl_xor_sync(KT_FULL_MASK, k_, j);
+        const int xo = __shfl_xor_sync(KT_FULL_MASK, x, j);
+        const bool gt = k_ > ko || (k_ == ko && x > xo);
+        // the pair's lower entry keeps the minimum where (i & k) == 0
+        const bool keep_min = ((i & j) == 0) == ((i & k) == 0);
+        if (gt == keep_min) { k_ = ko; x = xo; }
+      }
+    }
+    if (live) { key[i] = k_; idx[i] = x; }
+  }
+}
+
 // In-place ascending bitonic sort of N (a power of two) entries (key,
 // idx), ordered by (key, idx).  idx is distinct, so the order is total:
 // the result equals a stable sort by key of lanes idx -- the tie order of
 // lax.top_k and argsort that K2's and K8's selections need.  The buffers
-// are shared or device memory of this block.
+// are shared or device memory of this block.  The stages whose partners
+// lie in one warp (j < 32) run in registers (warp_stages), the rest
+// through the buffers with a block barrier each: for N = 2,048, 21
+// barriers' worth of buffer stages and 7 register phases in place of 66
+// buffer stages.
 template <int NT>
 __device__ void block_sort(i64* key, int* idx, int N) {
-  for (int k = 2; k <= N; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
+  warp_stages<NT>(key, idx, N, 2, min(N, 32));
+  __syncthreads();
+  for (int k = 64; k <= N; k <<= 1) {
+    for (int j = k >> 1; j >= 32; j >>= 1) {
       for (int i = threadIdx.x; i < N; i += NT) {
         const int ixj = i ^ j;
         if (ixj > i) {
@@ -127,78 +161,7 @@ __device__ void block_sort(i64* key, int* idx, int N) {
       }
       __syncthreads();
     }
-  }
-}
-
-// lax.top_k's index set over ng key arrays of n lanes each (keys[g * n +
-// c], shared or device memory): array g keeps its kg largest keys (kg = k0
-// for g == 0, else k1).  The non-negative keys of one array must be
-// distinct; -1 marks an ineligible lane.  cnt[g] is array g's count of
-// non-negative keys (the caller counts them as it writes the keys).  An
-// 8-pass radix select finds thr[g], the kg-th largest key (0 when every
-// non-negative key fits); with `fill`, cut[g] is the last of the
-// lowest-index -1 lanes that fill an array short of kg, as lax.top_k
-// breaks ties (without it cut stays -1).  On return lane c is a member of
-// array g iff (key >= 0 ? key >= thr[g] : c <= cut[g]).  thr, cut, rem:
-// shared, ng entries; hist: shared, ng * 256 ints; wsum: NT / 32 ints.
-// Every thread of the block calls.
-template <int NT>
-__device__ void topk_select(const i64* keys, i64 n, int ng, int k0, int k1,
-                            const int* cnt, i64* thr, i64* cut, int* rem,
-                            int* hist, int* wsum, bool fill) {
-  if (threadIdx.x < ng) {
-    thr[threadIdx.x] = 0;
-    cut[threadIdx.x] = -1;
-    rem[threadIdx.x] = threadIdx.x == 0 ? k0 : k1;
-  }
-  __syncthreads();
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = threadIdx.x; i < ng * 256; i += NT) hist[i] = 0;
-    __syncthreads();
-    const u64 high = shift >= 56 ? 0ULL : (~0ULL << (shift + 8));
-    for (i64 c = threadIdx.x; c < n; c += NT) {
-      for (int g = 0; g < ng; ++g) {
-        const int kg = g == 0 ? k0 : k1;
-        if (cnt[g] <= kg) continue;
-        const i64 k = keys[g * n + c];
-        if (k < 0 || (((u64)k ^ (u64)thr[g]) & high) != 0) continue;
-        atomicAdd(&hist[g * 256 + (int)(((u64)k >> shift) & 255)], 1);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < ng) {
-      const int g = threadIdx.x;
-      const int kg = g == 0 ? k0 : k1;
-      if (cnt[g] > kg) {
-        int cum = 0;
-        for (int d = 255; d >= 0; --d) {
-          const int h = hist[g * 256 + d];
-          if (cum + h >= rem[g]) {
-            rem[g] -= cum;
-            thr[g] = (i64)((u64)thr[g] | ((u64)d << shift));
-            break;
-          }
-          cum += h;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (!fill) return;
-  // the lowest-index lanes with key -1, for arrays short of kg
-  for (int g = 0; g < ng; ++g) {
-    const int kg = g == 0 ? k0 : k1;
-    const int need = kg - cnt[g];
-    if (need <= 0) continue;
-    int seen = 0;
-    for (i64 base = 0; base < n && seen < need; base += NT) {
-      const i64 c = base + threadIdx.x;
-      const bool f = c < n && keys[g * n + c] == -1;
-      int total;
-      const int pre = block_scan_flag<NT>(f, wsum, &total);
-      if (f && seen + pre + 1 == need) cut[g] = c;
-      seen += total;
-    }
+    warp_stages<NT>(key, idx, N, k, k);
     __syncthreads();
   }
 }

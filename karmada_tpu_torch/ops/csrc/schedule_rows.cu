@@ -16,8 +16,8 @@
 //      else the union of top-G_PREV by prev key and top-G_TOPK by each of
 //      three (four with plugin scores) packed keys (16 / 128 std, 128 /
 //      1024 big), each group's members as lax.top_k finds them.  Works for
-//      any C up to 2^21.  The std tier keeps no key in device memory: its
-//      select (gather_lanes_std) recomputes every lane's keys (lane_std,
+//      any C up to 2^21.  Neither tier keeps a key in device memory: the
+//      select (select_lanes) recomputes every lane's keys (lane_planes,
 //      rows.cuh lane_info's result) on each pass over C -- from the wave's
 //      est row, the [P, C] and [C] planes and the row's COO entries, which
 //      every row of the wave shares in L2 -- and narrows each group by a
@@ -27,30 +27,33 @@
 //      the boundary bucket holds at most SEL_SHARE keys, one pass that
 //      collects that bucket into shared memory where the group's threshold
 //      is found, a fill scan for groups short of k, and one pass for the
-//      ordered union (membership words by warp ballot).  The big tier
-//      writes its keys to a per-row scratch in device memory and selects
-//      with rows.cuh topk_select (shared with K8);
+//      ordered union (membership words by warp ballot);
 //   3. the lane math on those lanes (<= LMAX: 656 std, 5248 big): locality
 //      score, selection by packed key (bitonic sort of (key, lane) pairs =
 //      a stable argsort) and the capacity swap loop, strategy and mode,
 //      Aggregated capacity-descending prefix (sort + scan); the row's
 //      Webster problem (ranks densified in rank_eff order) goes to device
 //      memory;
-//   -- K4 webster_batch (webster_batch.cu) solves every row's problem --
+//   -- K4 webster_batch (webster.cuh) solves every row's problem --
 //   4. schedule_rows_finish: the dense rep/sel row (wide Duplicated /
 //      selection formulas over all lanes, then the gathered lanes) and
 //      status, and the row's new consumption added into used_* with 64-bit
-//      integer atomics (exact and order-free).  Lane feasibility comes
-//      from lane_std on the std tier (est is fixed for the wave and
-//      lane_std reads no used_*), from the key scratch on the big tier.
+//      integer atomics (exact and order-free).  Lane feasibility is
+//      recomputed with lane_planes (est is fixed for the wave and
+//      lane_planes reads no used_*).
 //
-// The wave's est comes from the same C call as its first K2 launch: with
-// fill_est the prepare entry enqueues K1 (capacity.cuh) from the argument
-// block's snapshot and used_* pointers, then the prepare kernel, on one
-// stream.  The wrapper sets fill_est on a wave's first launch slice only,
-// so a wave launched in slices (the big tier's scratch bound) reads the
-// est of the wave's start in every slice, as the JAX program's wave does,
-// though each slice's finish charges used_*.
+// One C call a launch slice (kt_schedule_rows_wave, and its big twin)
+// enqueues the slice's work on one stream from one argument block: with
+// fill_est first K1 (capacity.cuh) into est -- the wave's capacity from
+// the block's snapshot and used_* pointers -- then the prepare kernel, K4
+// (webster.cuh) on the rows' Webster problems, and the finish kernel.
+// The wrapper sets fill_est on a wave's first launch slice only, so a wave
+// launched in slices (the big tier's `work` bound) reads the est of the
+// wave's start in every slice, as the JAX program's wave does, though
+// each slice's finish charges used_*.  The argument block's per-slice
+// buffers (web_*, wk_*, seats, the s0 zero plane, K4's wide-row scratch,
+// the big tier's `work`) belong to one chunk's waves, which run in order
+// on one stream.
 //
 // Bound on the card: at 4096 x 8192 the dense output (rep int64 + sel)
 // dominates the bytes; the bisections of Webster and the sorts are
@@ -63,12 +66,16 @@
 // SM and a 512-row wave runs in one round.  The big tier's working set
 // (~283 KB at 5,248 lanes) exceeds a block's 227 KB, so it lives in a
 // per-row scratch in device memory (`work`; at sub-batch row counts it
-// stays in L2), and shared memory holds only the (key, lane) sort buffer
-// (8,192 entries, 96 KB), the COO entries and the radix histograms.
+// stays in L2), and shared memory holds the (key, lane) sort buffer
+// (8,192 entries, 96 KB), whose key half lends the select its histograms
+// and candidates until the first sort, and the COO entries.
+#define KT_PROF_SLOTS 16
+#include <atomic>
+
 #include "capacity.cuh"
 #include "rows.cuh"
+#include "webster.cuh"
 
-constexpr int NT = 256;
 constexpr int NG_MAX = 5;
 constexpr int STRAT_DUPLICATED = 0, STRAT_STATIC = 1, STRAT_DYNAMIC = 2,
               STRAT_AGGREGATED = 3;
@@ -78,11 +85,13 @@ constexpr int STATUS_OK = 0, STATUS_FIT_ERROR = 1, STATUS_UNSCHEDULABLE = 2,
 // gather geometry per lane tier (solver.py TIERS): LMAX = G_PREV + 5 *
 // G_TOPK gathered lanes at most, SORTN a power of two >= LMAX; WORK_SMEM:
 // the lane working set in shared memory (else the device-memory `work`
-// scratch); SCRATCH_KEYS: the gather's keys in the device-memory key
-// scratch, selected by topk_select (else recomputed, gather_lanes_std);
-// MIN_BLOCKS: blocks an SM must hold at once
+// scratch); NT: threads a row; MIN_BLOCKS: blocks an SM must hold at once;
+// BITS_LANES: up to this many lanes the passes over C find a lane's prev
+// and evict entries in shared-memory bitmaps of the row's COO entries
+// (row_bits; else by a loop over the entries -- the std tier's rows hold
+// at most 16 prev entries, the big tier's up to 128)
 template <int G_PREV_, int G_TOPK_, int DIRECT_MAX_, bool WORK_SMEM_,
-          bool SCRATCH_KEYS_, int MIN_BLOCKS_>
+          int NT_, int MIN_BLOCKS_, int BITS_LANES_>
 struct Tier {
   static constexpr int G_PREV = G_PREV_;
   static constexpr int G_TOPK = G_TOPK_;
@@ -90,15 +99,16 @@ struct Tier {
   static constexpr int LMAX = G_PREV_ + NG_MAX * G_TOPK_;
   static constexpr int SORTN = LMAX <= 1024 ? 1024 : 8192;
   static constexpr bool WORK_SMEM = WORK_SMEM_;
-  static constexpr bool SCRATCH_KEYS = SCRATCH_KEYS_;
+  static constexpr int NT = NT_;
   static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int BITS_LANES = BITS_LANES_;
 };
-using TierStd = Tier<16, 128, 528, true, false, 4>;
-using TierBig = Tier<128, 1024, 4224, false, true, 1>;
+using TierStd = Tier<16, 128, 528, true, 256, 4, 0>;
+using TierBig = Tier<128, 1024, 4224, false, 1024, 1, 1 << 18>;
 static_assert(TierStd::LMAX == 656 && TierBig::LMAX == 5248, "lane geometry");
 static_assert(TierBig::SORTN >= TierBig::LMAX, "sort buffer");
 
-// candidates one group of gather_lanes_std holds in shared memory
+// candidates one group of select_lanes holds in shared memory
 constexpr int SEL_SHARE = 256;
 
 struct RowsArgs {
@@ -143,15 +153,17 @@ struct RowsArgs {
   i64* rep;                            // [B, C]
   unsigned char* sel;                  // [B, C]
   int* status;                         // [B]
-  i64* scratch;                        // [rows, NG, C] keys (big tier)
   char* work;                          // [rows, work_bytes] big tier only
   // per-row work of one launch slice ([rows] / [rows, LMAX]): the Webster
-  // problems K4 solves, and what the finish step needs
+  // problems K4 solves (s0: zeros), its seats and wide-row scratch, and
+  // what the finish step needs
   i64* web_n;
   i64* web_w;
+  const i64* web_s0;
   unsigned char* web_active;
   i64* web_rank;
-  const i64* seats;
+  i64* seats;
+  unsigned char* web_scratch;          // null unless LMAX > KT_SMEM_LANES
   int* wk_lane;
   i64* wk_base;
   i64* wk_prev;
@@ -159,7 +171,7 @@ struct RowsArgs {
   unsigned char* wk_feas;
   int* wk_U;
   int* wk_flags;
-  // fill_est: the prepare entry first enqueues K1 into est (the wave's
+  // fill_est: the wave entry first enqueues K1 into est (the wave's
   // capacity from the snapshot minus used_*), once before a wave's first
   // launch slice
   i64 r0, r1, C, Q, R, Kp, Ke, use_extra, charge, fill_est;
@@ -170,15 +182,17 @@ constexpr int FLAG_OK = 1 << 8, FLAG_SEATS = 1 << 9, FLAG_DUP_WIDE = 1 << 10,
 
 // one row's working memory: the lane arrays (`work`: shared memory on the
 // std tier, device memory on the big tier) and the sort buffer and COO
-// entries (`sort`: always shared memory).  The radix histograms live in
-// `sort` on the big tier; on the std tier they and the select's
-// candidates borrow the int64 lane arrays, which the gather precedes.
-// Lane ids, positions and ranks are int32 (< 2^21 lanes).
+// entries (`sort`: always shared memory).  The select's histograms and
+// candidates borrow shared memory that is idle until the lane math: the
+// int64 lane arrays on the std tier, the sort buffer's keys on the big
+// tier (the gather precedes both).  Lane ids, positions and ranks are
+// int32 (< 2^21 lanes).
 struct Smem {
   i64 *avail_cal, *prev_rep, *w, *skey, *pval, *cand;
   int *nr, *rank_w, *rest_pos, *lane, *pos, *order, *sidx, *pidx, *eidx,
       *hist;
   unsigned char *feas, *pp, *sel, *in_sel, *active, *inc;
+  unsigned* bits;  // row_bits' bitmaps after the COO entries, or null
 };
 
 __host__ __device__ inline size_t work_bytes(int lmax) {
@@ -186,18 +200,30 @@ __host__ __device__ inline size_t work_bytes(int lmax) {
           15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t sort_bytes(int sortn, i64 Kp, i64 Ke,
-                                             bool with_hist) {
-  return (size_t)(sortn + Kp) * 8 +
-         (size_t)(sortn + Kp + Ke + (with_hist ? NG_MAX * 256 : 0)) * 4;
+__host__ __device__ inline size_t sort_bytes(int sortn, i64 Kp, i64 Ke) {
+  return (size_t)(sortn + Kp) * 8 + (size_t)(sortn + Kp + Ke) * 4;
 }
 
-static_assert((size_t)NG_MAX * 256 * 4 + (size_t)NG_MAX * SEL_SHARE * 8 <=
-                  (size_t)3 * TierStd::LMAX * 8,
+// the row_bits bitmaps' bytes for C lanes on tier T (0: none)
+template <class T>
+__host__ __device__ inline size_t bits_bytes(i64 C) {
+  return C > T::DIRECT_MAX && C <= T::BITS_LANES ? (size_t)(C + 31) / 32 * 8
+                                                 : 0;
+}
+
+// the select's histograms and candidates
+constexpr size_t SEL_BYTES =
+    (size_t)NG_MAX * 256 * 4 + (size_t)NG_MAX * SEL_SHARE * 8;
+static_assert(SEL_BYTES <= (size_t)3 * TierStd::LMAX * 8,
               "the std select's histograms and candidates fit the lane arrays");
+static_assert(SEL_BYTES <= (size_t)TierBig::SORTN * 8,
+              "the big select's histograms and candidates fit the sort keys");
+static_assert(TierStd::NT <= NG_MAX * 256 && TierBig::NT <= NG_MAX * 256,
+              "the union's membership words fit the histograms");
 
 template <class T>
-__device__ inline Smem carve(char* work, char* sort, i64 Kp, i64 Ke) {
+__device__ inline Smem carve(char* work, char* sort, i64 Kp, i64 Ke,
+                            i64 C) {
   constexpr int lmax = T::LMAX, sortn = T::SORTN;
   Smem s;
   i64* p = (i64*)work;
@@ -225,20 +251,17 @@ __device__ inline Smem carve(char* work, char* sort, i64 Kp, i64 Ke) {
   s.sidx = q; q += sortn;
   s.pidx = q; q += Kp;
   s.eidx = q; q += Ke;
-  if constexpr (T::SCRATCH_KEYS) {
-    s.hist = q;
-    s.cand = nullptr;
-  } else {
-    s.hist = (int*)work;
-    s.cand = (i64*)(work + NG_MAX * 256 * 4);
-  }
+  s.bits = bits_bytes<T>(C) ? (unsigned*)q : nullptr;
+  char* sel = T::WORK_SMEM ? work : (char*)s.skey;
+  s.hist = (int*)sel;
+  s.cand = (i64*)(sel + NG_MAX * 256 * 4);
   return s;
 }
 
 // Stable ascending argsort of key(0..U) (ties by lane index; rows.cuh
 // block_sort): pos[i] is lane i's rank, order[p] the lane at rank p.
 // U <= the tier's SORTN.
-template <class K>
+template <int NT, class K>
 __device__ void block_argsort(int U, Smem& s, K key) {
   int N = 2;
   while (N < U) N <<= 1;
@@ -261,95 +284,48 @@ __device__ __forceinline__ i64 rank_eff_of(const RowsArgs& a, const Row& row,
   return row.uid_desc ? a.C - 1 - nr : nr;
 }
 
-// packed gather key of group g for lane c (-1: ineligible)
-__device__ __forceinline__ i64 gather_key(const RowsArgs& a, const Row& row,
-                                          const LaneInfo& l, bool has_prev,
-                                          int g, i64 c) {
-  const i64 nr = a.name_rank[c];
-  const i64 avail_sel = l.ac + (l.pp ? l.pr : 0);
-  if (g == 0) return l.pp ? LANE_MASK - nr : -1;
-  if (!l.feas) return -1;
-  const i64 pc = row.pid * a.C + c;
-  if (g == 1 || g == 2) {
-    const i64 wg = row.strategy == STRAT_STATIC ? a.pl_static_w[pc] : avail_sel;
-    const i64 wq = shl(clampll(wg, 0, AVAIL_CAP), LANE_BITS);
-    return wq | (LANE_MASK - (g == 1 ? rank_eff_of(a, row, c) : nr));
-  }
-  const i64 aq = shl(clampll(avail_sel, 0, AVAIL_CAP), LANE_BITS);
-  if (g == 3) return aq | (LANE_MASK - nr);
-  const i64 score = ((has_prev && l.pp) ? 100 : 0) + a.pl_extra_score[pc];
-  return shl(clampll(score, 0, 255), AVAIL_BITS + LANE_BITS) | aq |
-         (LANE_MASK - nr);
-}
-
-// Step 2 of the gather path: the union of the groups' top-k lanes into
-// s.lane (ascending); returns its size.
-template <class T>
-__device__ int gather_lanes(const RowsArgs& a, const Row& row, Smem& s,
-                            i64* red, int* wsum) {
-  constexpr int G_PREV = T::G_PREV, G_TOPK = T::G_TOPK;
-  const int ng = a.use_extra ? 5 : 4;
-  i64* keys = a.scratch + row.slot * ng * a.C;
-  __shared__ int cnt[NG_MAX];
-  __shared__ i64 thr[NG_MAX];
-  __shared__ i64 cut[NG_MAX];
-  __shared__ int remaining[NG_MAX];
-  if (threadIdx.x < NG_MAX) cnt[threadIdx.x] = 0;
-  __syncthreads();
-  const bool has_prev = row.n_prev > 0;
-  int my_cnt[NG_MAX] = {0, 0, 0, 0, 0};
-  for (i64 c = threadIdx.x; c < a.C; c += NT) {
-    const LaneInfo l = lane_info(a, row, c);
-    for (int g = 0; g < ng; ++g) {
-      const i64 k = gather_key(a, row, l, has_prev, g, c);
-      keys[g * a.C + c] = k;
-      my_cnt[g] += k >= 0;
-    }
-  }
-  for (int g = 0; g < ng; ++g) atomicAdd(&cnt[g], my_cnt[g]);
-  __syncthreads();
-  topk_select<NT>(keys, a.C, ng, G_PREV, G_TOPK, cnt, thr, cut, remaining,
-                  s.hist, wsum, true);
-  // ordered union of the members
-  int U = 0;
-  for (i64 base = 0; base < a.C; base += NT) {
-    const i64 c = base + threadIdx.x;
-    bool m = false;
-    if (c < a.C) {
-      for (int g = 0; g < ng; ++g) {
-        const i64 k = keys[g * a.C + c];
-        m |= k >= 0 ? k >= thr[g] : c <= cut[g];
-      }
-    }
-    int total;
-    const int pre = block_scan_flag<NT>(m, wsum, &total);
-    if (m) s.lane[U + pre] = (int)c;
-    U += total;
-  }
-  __syncthreads();
-  return U;
-}
-
-// One row's [P, C], [G, C] and [Q + 1, C] plane rows, for K2 std's
-// passes over every lane (lane_std, lane_keys)
+// One row's [P, C], [G, C] and [Q + 1, C] plane rows, for the passes over
+// every lane (lane_planes, lane_keys), and its row_bits bitmaps (pbits,
+// ebits; null: none)
 struct RowPlanes {
   const unsigned char *mask, *tol, *api;
   const i64 *est, *static_w, *extra;
+  const unsigned *pbits, *ebits;
 };
 
 __device__ __forceinline__ RowPlanes row_planes(const RowsArgs& a,
                                                 const Row& row) {
   const i64 pc = row.pid * a.C;
   return {a.pl_mask + pc, a.pl_tol_bypass + pc, a.api_ok + row.gvk * a.C,
-          a.est + row.cid * a.C, a.pl_static_w + pc, a.pl_extra_score + pc};
+          a.est + row.cid * a.C, a.pl_static_w + pc, a.pl_extra_score + pc,
+          nullptr, nullptr};
 }
 
-// rows.cuh lane_info for K2 std's passes over C, with the same result:
-// every load issued up front, on no condition but the row's, and the
+// The row's prev and evict lanes as bitmaps over its C lanes in shared
+// memory (`bits`: 2 * ceil(C / 32) words; lane c is bit c % 32 of word
+// c / 32, the evict bitmap after the prev one), into P; every thread of
+// the block calls.
+template <int NT>
+__device__ void row_bits(const Row& row, i64 C, unsigned* bits,
+                         RowPlanes& P) {
+  const int words = (int)((C + 31) / 32);
+  for (int i = threadIdx.x; i < 2 * words; i += NT) bits[i] = 0;
+  __syncthreads();
+  for (int e = threadIdx.x; e < row.n_prev; e += NT)
+    atomicOr(&bits[row.pidx[e] >> 5], 1u << (row.pidx[e] & 31));
+  for (int e = threadIdx.x; e < row.n_evict; e += NT)
+    atomicOr(&bits[words + (row.eidx[e] >> 5)], 1u << (row.eidx[e] & 31));
+  __syncthreads();
+  P.pbits = bits;
+  P.ebits = bits + words;
+}
+
+// rows.cuh lane_info for the passes over C, with the same result: every
+// load issued up front, on no condition but the row's, and the
 // feasibility test without short circuits, so a lane costs one round
 // trip to L2, not one per test.  *nr receives the lane's name rank, *sw
 // its static weight on a StaticWeight row (else 0).
-__device__ __forceinline__ LaneInfo lane_std(const RowsArgs& a,
+__device__ __forceinline__ LaneInfo lane_planes(const RowsArgs& a,
                                              const Row& row,
                                              const RowPlanes& P, int c,
                                              i64* nr, i64* sw) {
@@ -359,12 +335,21 @@ __device__ __forceinline__ LaneInfo lane_std(const RowsArgs& a,
   *nr = a.name_rank[c];
   *sw = row.strategy == STRAT_STATIC ? P.static_w[c] : 0;
   LaneInfo l;
-  l.pp = false;
   l.pr = 0;
-  for (int e = 0; e < row.n_prev; ++e)
-    if (row.pidx[e] == c) { l.pp = true; l.pr += row.pval[e]; }
-  l.ev = false;
-  for (int e = 0; e < row.n_evict; ++e) l.ev |= row.eidx[e] == c;
+  if (P.pbits != nullptr) {
+    // the entries' lanes from the bitmaps; a prev lane sums its entries
+    l.pp = (P.pbits[c >> 5] >> (c & 31)) & 1u;
+    l.ev = (P.ebits[c >> 5] >> (c & 31)) & 1u;
+    if (l.pp)
+      for (int e = 0; e < row.n_prev; ++e)
+        if (row.pidx[e] == c) l.pr += row.pval[e];
+  } else {
+    l.pp = false;
+    for (int e = 0; e < row.n_prev; ++e)
+      if (row.pidx[e] == c) { l.pp = true; l.pr += row.pval[e]; }
+    l.ev = false;
+    for (int e = 0; e < row.n_evict; ++e) l.ev |= row.eidx[e] == c;
+  }
   l.ac = est_b == KT_MAX_INT32 ? row.n : est_b;
   if (row.nw_shortcut) l.ac = KT_MAX_INT32;
   l.feas = valid & !del & mask & (tol | l.pp) & (api | l.pp) & !l.ev;
@@ -372,12 +357,13 @@ __device__ __forceinline__ LaneInfo lane_std(const RowsArgs& a,
 }
 
 // Every group's packed gather key of lane c at once (k[g], g < ng; the
-// rest untouched): gather_key's keys from lane_std.
+// rest untouched; -1: ineligible), from lane_planes: JAX _gather_lanes'
+// keys.
 __device__ __forceinline__ void lane_keys(const RowsArgs& a, const Row& row,
                                           const RowPlanes& P, bool has_prev,
                                           int ng, int c, i64* k) {
   i64 nr, sw;
-  const LaneInfo l = lane_std(a, row, P, c, &nr, &sw);
+  const LaneInfo l = lane_planes(a, row, P, c, &nr, &sw);
   const i64 xs = ng > 4 ? P.extra[c] : 0;
   const i64 avail_sel = l.ac + (l.pp ? l.pr : 0);
   const i64 by_name = LANE_MASK - nr;
@@ -396,11 +382,11 @@ __device__ __forceinline__ void lane_keys(const RowsArgs& a, const Row& row,
   }
 }
 
-// f(k) with the keys k (lane_keys) of every lane c < C, the block's
+// f(k) with the keys k (lane_keys) of every lane c < C, the block's NT
 // threads striding over the lanes two at a time: a thread computes both
 // lanes' keys before either call, so the loads of two lanes are in flight
 // together.
-template <class F>
+template <int NT, class F>
 __device__ __forceinline__ void for_lane_keys(const RowsArgs& a,
                                               const Row& row,
                                               const RowPlanes& P,
@@ -416,27 +402,27 @@ __device__ __forceinline__ void for_lane_keys(const RowsArgs& a,
   }
 }
 
-// the select's per-group state (gather_lanes_std)
+// the select's per-group state (select_lanes)
 constexpr int SEL_DONE = 0, SEL_FILL = 1, SEL_REFINE = 2, SEL_COLLECT = 3;
 
-// Step 2 of the gather path on the std tier: the union of the groups'
-// top-k lanes into s.lane (ascending); returns its size.  The same index
-// sets as gather_lanes + topk_select, without a key in device memory: a
-// group's threshold thr[g] is its kg-th largest key, found by narrowing a
-// prefix `pre` of the key's bits above `shift` (the candidates: eligible
-// keys that share it) until at most SEL_SHARE candidates remain, which
-// one more pass collects into shared memory.  A group with at most kg
-// eligible keys takes them all (thr 0) and, short of kg, the lowest-index
-// -1 lanes up to cut[g] (lax.top_k's tie order; rows.cuh topk_select's
-// fill).  Non-negative keys of one group are distinct (their low 21 bits
-// hold the lane's rank), so every candidate set holds the threshold once.
+// Step 2 of the gather path: the union of the groups' top-k lanes into
+// s.lane (ascending); returns its size.  lax.top_k's index sets without a
+// key in device memory: a group's threshold thr[g] is its kg-th largest
+// key, found by narrowing a prefix `pre` of the key's bits above `shift`
+// (the candidates: eligible keys that share it) until at most SEL_SHARE
+// candidates remain, which one more pass collects into shared memory.  A
+// group with at most kg eligible keys takes them all (thr 0) and, short
+// of kg, the lowest-index -1 lanes up to cut[g] (lax.top_k's tie order).
+// Non-negative keys of one group are distinct (their low 21 bits hold the
+// lane's rank), so every candidate set holds the threshold once.
 template <class T>
-__device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
-                                int* wsum) {
-  constexpr int G_PREV = T::G_PREV, G_TOPK = T::G_TOPK;
+__device__ int select_lanes(const RowsArgs& a, const Row& row, Smem& s,
+                            int* wsum) {
+  constexpr int G_PREV = T::G_PREV, G_TOPK = T::G_TOPK, NT = T::NT;
   const int ng = a.use_extra ? 5 : 4;
   const bool has_prev = row.n_prev > 0;
-  const RowPlanes P = row_planes(a, row);
+  RowPlanes P = row_planes(a, row);
+  if (s.bits != nullptr) row_bits<NT>(row, a.C, s.bits, P);
   const int C = (int)a.C;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   __shared__ int cnt[NG_MAX], rem[NG_MAX], shift[NG_MAX], state[NG_MAX],
@@ -454,7 +440,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
     int my_cnt[NG_MAX] = {0, 0, 0, 0, 0};
     u64 my_or[NG_MAX] = {0, 0, 0, 0, 0};
     u64 my_and[NG_MAX] = {~0ULL, ~0ULL, ~0ULL, ~0ULL, ~0ULL};
-    for_lane_keys(a, row, P, has_prev, ng, [&](const i64* k) {
+    for_lane_keys<NT>(a, row, P, has_prev, ng, [&](const i64* k) {
 #pragma unroll
       for (int g = 0; g < NG_MAX; ++g)
         if (g < ng && k[g] >= 0) {
@@ -479,6 +465,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
     }
   }
   __syncthreads();
+  KT_MARK(1);
   if (threadIdx.x < ng) {
     const int g = threadIdx.x;
     const int kg = g == 0 ? G_PREV : G_TOPK;
@@ -520,7 +507,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
     for (int i = threadIdx.x; i < ng * 256; i += NT)
       if (refine[i >> 8]) hist[i] = 0;
     __syncthreads();
-    for_lane_keys(a, row, P, has_prev, ng, [&](const i64* k) {
+    for_lane_keys<NT>(a, row, P, has_prev, ng, [&](const i64* k) {
 #pragma unroll
       for (int g = 0; g < NG_MAX; ++g)
         if (refine[g] && k[g] >= 0 && ((u64)k[g] >> sh[g]) == pf[g])
@@ -562,6 +549,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
     }
     __syncthreads();
   }
+  KT_MARK(2);
   // the collect pass: each selecting group's candidates into shared
   // memory, then the one with rem[g] - 1 larger candidates is thr[g]
   bool coll[NG_MAX];
@@ -582,7 +570,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
     if (threadIdx.x < NG_MAX) ccount[threadIdx.x] = 0;
     __syncthreads();
     i64* cand = s.cand;
-    for_lane_keys(a, row, P, has_prev, ng, [&](const i64* k) {
+    for_lane_keys<NT>(a, row, P, has_prev, ng, [&](const i64* k) {
 #pragma unroll
       for (int g = 0; g < NG_MAX; ++g)
         if (coll[g] && k[g] >= 0 && ((u64)k[g] >> sh[g]) == pf[g]) {
@@ -601,6 +589,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
       if (larger == rem[g] - 1) thr[g] = k;
     }
   }
+  KT_MARK(3);
   // the fill: lax.top_k takes the lowest-index -1 lanes of a group short
   // of kg; the scan stops once every such group has its cut
   {
@@ -631,6 +620,7 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
     }
   }
   __syncthreads();
+  KT_MARK(4);
   // ordered union of the members, NT * 32 lanes a chunk: warp ballots
   // give one membership word per 32 consecutive lanes (word t: lanes
   // base + 32t ..), then one scan over the words places each word's lanes
@@ -676,16 +666,17 @@ __device__ int gather_lanes_std(const RowsArgs& a, const Row& row, Smem& s,
 // Steps 1-3: the row's lane set and lane math up to its Webster problem
 // (web_*), plus what step 4 needs (wk_*).
 template <class T>
-__global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
+__global__ void __launch_bounds__(T::NT, T::MIN_BLOCKS)
     schedule_rows_prepare(RowsArgs a) {
-  constexpr int LMAX = T::LMAX;
+  constexpr int LMAX = T::LMAX, NT = T::NT;
   extern __shared__ __align__(16) char smem_raw[];
   __shared__ i64 red[33];
   __shared__ int wsum[NT / 32];
   const i64 slot = blockIdx.x;
   Smem s = carve<T>(
       T::WORK_SMEM ? smem_raw : a.work + slot * work_bytes(LMAX),
-      T::WORK_SMEM ? smem_raw + work_bytes(LMAX) : smem_raw, a.Kp, a.Ke);
+      T::WORK_SMEM ? smem_raw + work_bytes(LMAX) : smem_raw, a.Kp, a.Ke,
+      a.C);
   Row row;
   row.slot = slot;
   const i64 b = a.r0 + slot;
@@ -703,6 +694,7 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
   }
   // 1. the row's scalars and prev / evict COO entries
   load_row<NT>(a, b, row, s.pidx, s.pval, s.eidx);
+  KT_MARK(0);
   row.strategy = a.pl_strategy[row.pid];
   row.has_sc = a.pl_has_cluster_sc[row.pid];
   row.sc_min = a.pl_sc_min[row.pid];
@@ -720,9 +712,9 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
     for (int i = threadIdx.x; i < U; i += NT) s.lane[i] = i;
     __syncthreads();
   } else {
-    if constexpr (T::SCRATCH_KEYS) U = gather_lanes<T>(a, row, s, red, wsum);
-    else U = gather_lanes_std<T>(a, row, s, wsum);
+    U = select_lanes<T>(a, row, s, wsum);
   }
+  KT_MARK(5);
   for (int i = threadIdx.x; i < U; i += NT) {
     const i64 c = s.lane[i];
     const LaneInfo l = lane_info(a, row, c);
@@ -733,10 +725,13 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
     s.nr[i] = (int)a.name_rank[c];
   }
   __syncthreads();
+  KT_MARK(6);
   // the lanes' ranks, densified in rank_eff order
-  block_argsort(U, s, [&](int i) { return rank_eff_of(a, row, s.lane[i]); });
+  block_argsort<NT>(U, s,
+                    [&](int i) { return rank_eff_of(a, row, s.lane[i]); });
   for (int i = threadIdx.x; i < U; i += NT) s.rank_w[i] = s.pos[i];
   __syncthreads();
+  KT_MARK(7);
   // what the lane math reads and the working set does not keep
   auto avail = [&](int i) -> i64 {
     return s.avail_cal[i] + (s.pp[i] ? s.prev_rep[i] : 0);
@@ -753,7 +748,7 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
   bool unsched_sel = false;
   if (row.has_sc) {
     // selection by cluster: packed key (score desc, avail desc, name asc)
-    block_argsort(U, s, [&](int i) -> i64 {
+    block_argsort<NT>(U, s, [&](int i) -> i64 {
       if (!s.feas[i]) return KT_MAX_INT64;
       const i64 score = ((has_prev && s.pp[i]) ? 100 : 0) +
                         a.pl_extra_score[row.pid * C + s.lane[i]];
@@ -761,6 +756,7 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
       return shl(200 - score, AVAIL_BITS + LANE_BITS) |
              shl(AVAIL_CAP - ac, LANE_BITS) | s.nr[i];
     });
+    KT_MARK(8);
     const i64 need = minll(row.sc_max, fcount);
     for (int i = threadIdx.x; i < U; i += NT) {
       s.in_sel[i] = s.feas[i] && s.pos[i] < need;
@@ -814,6 +810,7 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
         __syncthreads();
       }
     }
+    KT_MARK(9);
     const i64 tot = total_sel();
     unsched_sel = fcount < row.sc_min || (!row.ignore && tot < row.n);
     for (int i = threadIdx.x; i < U; i += NT) s.sel[i] = s.in_sel[i];
@@ -862,12 +859,14 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
   // Aggregated: trim to the capacity-descending prefix reaching target
   if (row.strategy == STRAT_AGGREGATED && (is_fresh || scale_up || scale_down)) {
     __syncthreads();
-    block_argsort(U, s, [&](int i) -> i64 {
+    KT_MARK(10);
+    block_argsort<NT>(U, s, [&](int i) -> i64 {
       if (!s.active[i]) return KT_MAX_INT64;
       const bool prior = scale_up && s.pp[i] && s.sel[i] && s.prev_rep[i] > 0;
       return shl(prior ? 0 : 1, AVAIL_BITS + LANE_BITS) |
              shl(AVAIL_CAP - clampll(s.w[i], 0, AVAIL_CAP), LANE_BITS) | s.nr[i];
     });
+    KT_MARK(11);
     // exclusive cumsum of active w in sorted order, each thread a chunk
     const int per = (U + NT - 1) / NT;
     const int p0 = threadIdx.x * per;
@@ -888,6 +887,7 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
     }
     __syncthreads();
   }
+  KT_MARK(12);
   const bool run_webster =
       !row.nw && (is_static || ((is_fresh || scale_up || scale_down) && !unsched_div));
   int status = STATUS_OK;
@@ -925,6 +925,7 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
                            (is_dup && !row.has_sc && ok && !row.nw ? FLAG_DUP_WIDE : 0) |
                            (row.has_sc ? FLAG_HAS_SC : 0) | FLAG_VALID;
   }
+  KT_MARK(13);
 }
 
 // Step 4, after K4 solved the rows' Webster problems (seats): the dense
@@ -933,8 +934,8 @@ __global__ void __launch_bounds__(NT, T::MIN_BLOCKS)
 // the row's new consumption max(rep - prev, 0) added into used_* with
 // 64-bit integer atomics (exact and order-free).
 template <class T>
-__global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
-  constexpr int LMAX = T::LMAX;
+__global__ void __launch_bounds__(T::NT) schedule_rows_finish(RowsArgs a) {
+  constexpr int LMAX = T::LMAX, NT = T::NT;
   const i64 slot = blockIdx.x;
   const i64 b = a.r0 + slot;
   const i64 C = a.C;
@@ -956,29 +957,24 @@ __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
   const i64 wo = slot * LMAX;
   const bool direct = C <= T::DIRECT_MAX;
   // a lane's feasibility: the direct path's lane set is every lane, in
-  // order; on the gather path the std tier recomputes it (lane_std, on
-  // the row's COO entries in shared memory), the big tier reads it off its
-  // key scratch (key_w_rank >= 0 exactly on feasible lanes)
+  // order; on the gather path it is recomputed (lane_planes, on the row's
+  // COO entries in shared memory)
   extern __shared__ __align__(16) char smem_raw[];
   Row row;
   RowPlanes P{};
-  if (!direct && !T::SCRATCH_KEYS && (dup_wide || (!has_sc && ok))) {
+  if (!direct && (dup_wide || (!has_sc && ok))) {
     i64* pval = (i64*)smem_raw;
     int* pidx = (int*)(pval + a.Kp);
     load_row<NT>(a, b, row, pidx, pval, pidx + a.Kp);
     row.strategy = a.pl_strategy[row.pid];
     P = row_planes(a, row);
+    if (bits_bytes<T>(C))
+      row_bits<NT>(row, C, (unsigned*)(pidx + a.Kp + a.Ke), P);
   }
-  const int ng = a.use_extra ? 5 : 4;
-  const i64* wkeys = T::SCRATCH_KEYS ? a.scratch + slot * ng * C + C : nullptr;
   auto feas_at = [&](i64 c) -> bool {
     if (direct) return a.wk_feas[wo + c];
-    if constexpr (T::SCRATCH_KEYS) {
-      return wkeys[c] >= 0;
-    } else {
-      i64 nr, sw;
-      return lane_std(a, row, P, (int)c, &nr, &sw).feas;
-    }
+    i64 nr, sw;
+    return lane_planes(a, row, P, (int)c, &nr, &sw).feas;
   };
   for (i64 c = threadIdx.x; c < C; c += NT) {
     const bool f = (dup_wide || (!has_sc && ok)) ? feas_at(c) : false;
@@ -1027,8 +1023,25 @@ __global__ void __launch_bounds__(NT) schedule_rows_finish(RowsArgs a) {
   }
 }
 
+// Kernel's dynamic shared memory limit raised to at least `bytes`, the
+// attribute set only when a launch needs more than any before it (one
+// cached limit per kernel; a stale reading only sets it again).
+template <auto Kernel>
+static cudaError_t allow_smem(size_t bytes) {
+  static std::atomic<size_t> allowed{0};
+  if (bytes <= allowed.load(std::memory_order_relaxed)) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) allowed.store(bytes, std::memory_order_relaxed);
+  return e;
+}
+
+// One launch slice: K1 (fill_est), the prepare kernel, K4 on the rows'
+// Webster problems, the finish kernel, in order on one stream.  An empty
+// slice enqueues K1 alone (fill_est) or nothing.
 template <class T>
-int launch_prepare(const RowsArgs* a, void* stream) {
+int launch_wave(const RowsArgs* a, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
   if (a->fill_est) {
     // K1 for the wave, from the same argument block (capacity.cuh)
     const CapacityArgs c{a->req_milli,    a->req_is_cpu,   a->req_pods,
@@ -1036,51 +1049,37 @@ int launch_prepare(const RowsArgs* a, void* stream) {
                          a->pods_allowed, a->used_pods,    a->has_summary,
                          a->est_override, a->used_sets,    (i64*)a->est,
                          a->Q,            a->R,            a->C};
-    const int e = launch_capacity(c, (cudaStream_t)stream);
+    const int e = launch_capacity(c, st);
     if (e != 0) return e;
   }
   const i64 rows = a->r1 - a->r0;
   if (rows <= 0) return 0;
-  const size_t smem = sort_bytes(T::SORTN, a->Kp, a->Ke, T::SCRATCH_KEYS) +
+  const size_t smem = sort_bytes(T::SORTN, a->Kp, a->Ke) +
+                      bits_bytes<T>(a->C) +
                       (T::WORK_SMEM ? work_bytes(T::LMAX) : 0);
-  cudaError_t e = cudaFuncSetAttribute(
-      schedule_rows_prepare<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t e = allow_smem<schedule_rows_prepare<T>>(smem);
   if (e != cudaSuccess) return (int)e;
-  schedule_rows_prepare<T>
-      <<<(unsigned)rows, NT, smem, (cudaStream_t)stream>>>(*a);
+  schedule_rows_prepare<T><<<(unsigned)rows, T::NT, smem, st>>>(*a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const WebsterArgs w{a->web_n,    a->web_w,    a->web_s0,
+                      a->web_active, a->web_rank, a->seats,
+                      a->web_scratch, rows,      T::LMAX};
+  const int ew = launch_webster(w, st);
+  if (ew != 0) return ew;
+  // the row's COO entries and bitmaps (feasibility recomputed on the
+  // gather path)
+  const size_t fsmem = (size_t)a->Kp * 12 + a->Ke * 4 + bits_bytes<T>(a->C);
+  e = allow_smem<schedule_rows_finish<T>>(fsmem);
+  if (e != cudaSuccess) return (int)e;
+  schedule_rows_finish<T><<<(unsigned)rows, T::NT, fsmem, st>>>(*a);
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int launch_finish(const RowsArgs* a, void* stream) {
-  const i64 rows = a->r1 - a->r0;
-  if (rows <= 0) return 0;
-  // the std tier's row COO entries (feasibility recomputed)
-  const size_t smem = T::SCRATCH_KEYS ? 0 : (size_t)a->Kp * 12 + a->Ke * 4;
-  if (!T::SCRATCH_KEYS) {
-    cudaError_t e = cudaFuncSetAttribute(
-        schedule_rows_finish<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  schedule_rows_finish<T>
-      <<<(unsigned)rows, NT, smem, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
+extern "C" int kt_schedule_rows_wave(const RowsArgs* a, void* stream) {
+  return launch_wave<TierStd>(a, stream);
 }
 
-extern "C" int kt_schedule_rows_prepare(const RowsArgs* a, void* stream) {
-  return launch_prepare<TierStd>(a, stream);
-}
-
-extern "C" int kt_schedule_rows_finish(const RowsArgs* a, void* stream) {
-  return launch_finish<TierStd>(a, stream);
-}
-
-extern "C" int kt_schedule_rows_big_prepare(const RowsArgs* a, void* stream) {
-  return launch_prepare<TierBig>(a, stream);
-}
-
-extern "C" int kt_schedule_rows_big_finish(const RowsArgs* a, void* stream) {
-  return launch_finish<TierBig>(a, stream);
+extern "C" int kt_schedule_rows_big_wave(const RowsArgs* a, void* stream) {
+  return launch_wave<TierBig>(a, stream);
 }

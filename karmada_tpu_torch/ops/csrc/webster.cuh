@@ -453,3 +453,75 @@ __device__ void webster_row(i64 n_in, const i64* w, const i64* s0,
     seats[idx[j]] = (i64)s0v[j] + award;
   }
 }
+
+// K4's launch, from one argument block: webster_batch.cu's
+// kt_webster_batch (K4 alone) and schedule_rows.cu's wave entries (K4
+// between K2's prepare and finish kernels, in one C call) enqueue it.
+// Rows of up to KT_WARP_LANES lanes (K2's std tier, 656) run a row per
+// warp, KT_WARP_ROWS to a block, with no block barrier; wider rows (the
+// big tier, 5,248) a row per NT_WIDE-thread block.  A row's lanes live
+// in shared memory up to KT_SMEM_LANES lanes, in the caller's
+// device-memory scratch beyond.
+constexpr int KT_WARP_LANES = 1024;
+constexpr int KT_WARP_ROWS = 4;
+constexpr int KT_SMEM_LANES = 8192;
+constexpr int NT_WIDE = 512;
+
+struct WebsterArgs {
+  const i64* n;
+  const i64* w;
+  const i64* s0;
+  const unsigned char* active;
+  const i64* rank;
+  i64* seats;
+  unsigned char* scratch;  // B * L * KT_LANE_BYTES bytes, or null
+  i64 B, L;
+};
+
+template <int NT, int R>
+__global__ void __launch_bounds__(NT * R) webster_rows(WebsterArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ u64 red[2 * (NT / 32)];
+  const int g = threadIdx.x / NT;
+  const i64 b = (i64)blockIdx.x * R + g;
+  if (b >= a.B) return;  // R > 1 only with NT == 32: no block barrier
+  const i64 row_bytes = a.L * KT_LANE_BYTES;
+  unsigned char* buf = a.scratch != nullptr ? a.scratch + b * row_bytes
+                                            : smem + g * row_bytes;
+  const i64 off = b * a.L;
+  webster_row<NT>(a.n[b], a.w + off, a.s0 + off, a.active + off,
+                  a.rank + off, a.seats + off, a.L, make_recip((u64)a.L),
+                  buf, red);
+}
+
+template <typename K>
+static cudaError_t webster_allow_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              KT_SMEM_LANES * KT_LANE_BYTES);
+}
+
+// static: each library that includes this header keeps its own copy, and
+// with it its own once-per-kernel attribute flags below (an inline
+// function's static locals would be one object across the libraries of a
+// process, set for the first library's kernels only)
+static int launch_webster(const WebsterArgs& a, cudaStream_t s) {
+  if (a.B <= 0 || a.L <= 0) return 0;
+  if ((a.L > KT_SMEM_LANES) != (a.scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const size_t row_bytes = (size_t)a.L * KT_LANE_BYTES;
+  if (a.L <= KT_WARP_LANES) {
+    static const cudaError_t ok =
+        webster_allow_smem(webster_rows<32, KT_WARP_ROWS>);
+    if (ok != cudaSuccess) return (int)ok;
+    const unsigned grid = (unsigned)((a.B + KT_WARP_ROWS - 1) / KT_WARP_ROWS);
+    webster_rows<32, KT_WARP_ROWS>
+        <<<grid, 32 * KT_WARP_ROWS, KT_WARP_ROWS * row_bytes, s>>>(a);
+  } else {
+    static const cudaError_t ok = webster_allow_smem(webster_rows<NT_WIDE, 1>);
+    if (ok != cudaSuccess) return (int)ok;
+    webster_rows<NT_WIDE, 1><<<(unsigned)a.B, NT_WIDE,
+                               a.scratch ? 0 : row_bytes, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}

@@ -42,9 +42,7 @@ SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
            "resident", "dirty", "rebalance")
 #: C entry points (kt_<entry>) of each source's library
 ENTRIES = {"capacity": ("capacity",),
-           "schedule_rows": ("schedule_rows_prepare", "schedule_rows_finish",
-                             "schedule_rows_big_prepare",
-                             "schedule_rows_big_finish"),
+           "schedule_rows": ("schedule_rows_wave", "schedule_rows_big_wave"),
            "compact": ("compact",),
            "webster_batch": ("webster_batch", "webster_floordiv"),
            "spread_group_info": ("spread_group_info",),
@@ -265,15 +263,31 @@ ROWS_TENSOR_FIELDS = (
     "avail_milli", "has_alloc", "pods_allowed", "has_summary",
     "est_override")
 
+#: one launch slice's work buffers (a chunk's K2 workspace): the big
+#: tier's lane working set, the rows' Webster problems (web_s0: zeros),
+#: K4's seats and wide-row scratch, what the finish kernel reads
 ROWS_WORK_FIELDS = (
-    "web_n", "web_w", "web_active", "web_rank", "seats", "wk_lane", "wk_base",
-    "wk_prev", "wk_sel", "wk_feas", "wk_U", "wk_flags")
+    "work", "web_n", "web_w", "web_s0", "web_active", "web_rank", "seats",
+    "web_scratch", "wk_lane", "wk_base", "wk_prev", "wk_sel", "wk_feas",
+    "wk_U", "wk_flags")
+
+#: RowsArgs' integer fields (r0, r1 and fill_est change per launch slice)
+ROWS_INT_FIELDS = ("r0", "r1", "C", "Q", "R", "Kp", "Ke", "use_extra",
+                   "charge", "fill_est")
 
 RowsArgs = _struct("RowsArgs", ROWS_TENSOR_FIELDS + (
-    "est", "used_milli", "used_pods", "used_sets", "rep", "sel", "status",
-    "scratch", "work") + ROWS_WORK_FIELDS,
-    ("r0", "r1", "C", "Q", "R", "Kp", "Ke", "use_extra", "charge",
-     "fill_est"))
+    "est", "used_milli", "used_pods", "used_sets", "rep", "sel", "status")
+    + ROWS_WORK_FIELDS, ROWS_INT_FIELDS)
+
+#: RowsArgs' fields in order, each 8 bytes (a pointer or an int64)
+ROWS_FIELDS = tuple(f for f, _t in RowsArgs._fields_)
+
+
+def rows_block(values: dict) -> array.array:
+    """K2's argument block as the hot path builds it: an ``array("q")``
+    laid out like RowsArgs (one int64 a field, pointers as integers),
+    from {field: int} for every field of ROWS_FIELDS."""
+    return array.array("q", [values[f] for f in ROWS_FIELDS])
 
 #: gathered lanes per row at most, per lane tier (g_prev + 5 * g_topk;
 #: schedule_rows.cu TierStd / TierBig)

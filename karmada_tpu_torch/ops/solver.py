@@ -4,15 +4,18 @@ Counterpart of the JAX package's ``ops/solver.py`` (``schedule_compact``,
 one jitted XLA program per chunk).  The same integer-only algorithm runs
 here as a Python loop of kernel launches per chunk:
 
-  for each of `waves` capacity-contention waves:
+  for each of `waves` capacity-contention waves, one C call a launch slice
+  (the chunk's RowsWorkspace: work buffers and argument block made once):
       K1 capacity        est[Q+1, C] from the snapshot minus what earlier
                          waves (and earlier chunks, through the carry) used,
-                         enqueued by the C call of the wave's first K2
-                         launch (one est buffer a chunk)
+                         enqueued by the wave's first slice (one est buffer
+                         a chunk)
       K2 schedule_rows   one block per binding row: feasibility, lane
-                         gather, selection, strategy, Webster; writes the
-                         dense rep/sel/status rows and charges the row's new
-                         consumption into the used accumulators (atomics)
+                         gather, selection, strategy, the row's Webster
+                         problem (K4 webster_batch solves it, enqueued by
+                         the same C call); writes the dense rep/sel/status
+                         rows and charges the row's new consumption into
+                         the used accumulators (atomics)
   K3 compact             row-major COO extraction of (rep > 0 | wanted sel)
 
 With `explain` (the explain plane, obs/decisions) each wave also launches
@@ -21,8 +24,8 @@ With `explain` (the explain plane, obs/decisions) each wave also launches
                          [B] from the wave's est and K2's dense outputs
 after its K2 and before the next wave's K1.
 
-K4 webster_batch runs the Webster allocation K2 uses on its own, so that
-it can be held against its plain version by itself.
+webster_batch runs K4, the Webster allocation K2's C call enqueues, on
+its own, so that it can be held against its plain version by itself.
 
 K2 runs on one of two lane tiers (JAX: _TIERS): "std" for the main route,
 "big" for the rows beyond the tier-1 compact caps (ROUTE_DEVICE_BIG, run
@@ -242,13 +245,41 @@ def _binding_rows(batch, rows, device) -> dict:
             k = int(cols[-1]) + 1 if cols.size else min(1, t[key].shape[1])
             for f in fs:
                 t[f] = t[f][:, :k]
+    host = {}
     for f, a in t.items():
         if torch.is_tensor(a):
             t[f] = a.contiguous()
         else:
-            t[f] = _to_dev(a, device)
+            host[f] = a
             TRANSFERS["h2d_binding_fields"] += 1
+    if device.type == "cuda" and host:
+        t.update(_staged_upload(host, device))
+    else:
+        t.update({f: _to_dev(a, device) for f, a in host.items()})
     return t
+
+
+def _staged_upload(arrays: dict, device) -> dict:
+    """numpy arrays onto a CUDA device in one non-blocking copy: staged
+    in one pinned buffer (16-byte aligned offsets) and uploaded into one
+    device buffer, whose slices are the fields.  PyTorch's pinned-memory
+    allocator records the copy's stream event on the buffer and hands it
+    out again only once that event has completed, so the host never waits
+    for the stream here (a pageable copy a field would wait for it)."""
+    arrays = {f: np.ascontiguousarray(a) for f, a in arrays.items()}
+    offs, n = {}, 0
+    for f, a in arrays.items():
+        offs[f] = n
+        n += -(-a.nbytes // 16) * 16
+    host = torch.empty((n,), dtype=torch.uint8, pin_memory=True)
+    hv = host.numpy()
+    for f, a in arrays.items():
+        hv[offs[f]:offs[f] + a.nbytes] = a.reshape(-1).view(np.uint8)
+    slab = torch.empty((n,), dtype=torch.uint8, device=device)
+    slab.copy_(host, non_blocking=True)
+    return {f: slab[offs[f]:offs[f] + a.nbytes].view(
+        torch.from_numpy(a[:0].reshape(-1)).dtype).view(a.shape)
+        for f, a in arrays.items()}
 
 
 def device_batch(batch, device, rows=None, explain: bool = False
@@ -741,12 +772,35 @@ def schedule_rows_plain(db: DeviceBatch, r0: int, r1: int, est, used_milli,
 
 
 #: bytes of per-row gather key scratch K2's wrapper allocated, by lane
-#: tier (the std tier recomputes its keys and allocates none)
+#: tier: neither tier keeps a key in device memory (the select recomputes
+#: its keys), so both stay 0
 KEY_SCRATCH_BYTES: Dict[str, int] = {"std": 0, "big": 0}
-#: the big tier's per-row key scratch and lane working set of one launch
-#: slice stay within this many bytes each: a wave whose rows need more
-#: launches in slices
+#: the big tier's per-row lane working set (`work`) of one launch slice
+#: stays within this many bytes: a wave whose rows need more launches in
+#: slices
 SLICE_BYTES = 1 << 28
+
+#: K2's batch operands: (dtype, shape) by field, the shape from the batch's
+#: B, C, P, G, Q, R, Kp, Ke
+_ROWS_SPEC = {
+    "cluster_valid": (torch.bool, "C"), "deleting": (torch.bool, "C"),
+    "name_rank": (I64, "C"), "api_ok": (torch.bool, "GC"),
+    "req_milli": (I64, "QR"), "req_is_cpu": (torch.bool, "R"),
+    "req_pods": (I64, "Q"),
+    "pl_mask": (torch.bool, "PC"), "pl_tol_bypass": (torch.bool, "PC"),
+    "pl_strategy": (torch.int32, "P"), "pl_static_w": (I64, "PC"),
+    "pl_has_cluster_sc": (torch.bool, "P"),
+    "pl_sc_min": (torch.int32, "P"), "pl_sc_max": (torch.int32, "P"),
+    "pl_ignore_avail": (torch.bool, "P"),
+    "pl_extra_score": (I64, "PC"),
+    "b_valid": (torch.bool, "B"), "placement_id": (torch.int32, "B"),
+    "gvk_id": (torch.int32, "B"), "class_id": (torch.int32, "B"),
+    "replicas": (I64, "B"), "uid_desc": (torch.bool, "B"),
+    "fresh": (torch.bool, "B"), "non_workload": (torch.bool, "B"),
+    "nw_shortcut": (torch.bool, "B"),
+    "prev_idx": (torch.int32, "BK"), "prev_val": (torch.int32, "BK"),
+    "evict_idx": (torch.int32, "BE"),
+}
 
 
 def _check_snapshot(db: DeviceBatch) -> None:
@@ -764,26 +818,150 @@ def _check_snapshot(db: DeviceBatch) -> None:
     db.checked.add("snapshot")
 
 
+def _check_rows(db: DeviceBatch) -> None:
+    """K2's batch operands on db, checked once per DeviceBatch."""
+    if "rows" in db.checked:
+        return
+    dims = {"B": db.B, "C": db.C, "P": db.pl_mask.shape[0],
+            "G": db.api_ok.shape[0], "Q": db.req_milli.shape[0],
+            "R": db.req_milli.shape[1], "K": db.prev_idx.shape[1],
+            "E": db.evict_idx.shape[1]}
+    kernels.check_fields(db.t, {
+        f: (dt, torch.Size(dims[d] for d in shape))
+        for f, (dt, shape) in _ROWS_SPEC.items()})
+    db.checked.add("rows")
+
+
+class RowsWorkspace:
+    """K2's work buffers and argument block for the waves of one chunk on
+    a CUDA batch: the per-slice buffers (web_*, wk_*, seats, the s0 zero
+    plane -- zeroed once -- K4's wide-row scratch, the big tier's `work`)
+    sized for `rows` rows a launch slice (fewer on the big tier when
+    SLICE_BYTES bounds `work`), and an ``array("q")`` block laid out like
+    RowsArgs (kernels.rows_block) with every pointer filled once; a launch
+    patches r0, r1 and fill_est (the C entry copies the block into the
+    kernels' parameters, so a patch after a call returns is safe).  The
+    chunk's waves run in order on one stream, so a wave may overwrite what
+    the previous wave's finish kernel read.  Checks db's operands once
+    (DeviceBatch.checked) and the outputs here."""
+
+    def __init__(self, db: DeviceBatch, rows: int, est, used_milli,
+                 used_pods, used_sets, rep_out, sel_out, status_out, *,
+                 tier: str, use_extra: bool, charge: bool):
+        B, C = db.B, db.C
+        Q, R = db.req_milli.shape
+        _check_rows(db)
+        _check_snapshot(db)
+        kernels.check(est, I64, (Q + 1, C))
+        kernels.check(used_milli, I64, (C, R))
+        kernels.check(used_pods, I64, (C,))
+        kernels.check(used_sets, I64, (Q, C))
+        kernels.check(rep_out, I64, (B, C))
+        kernels.check(sel_out, torch.bool, (B, C))
+        kernels.check(status_out, torch.int32, (B,))
+        self.db, self.tier = db, tier
+        self.flags = (bool(use_extra), bool(charge))
+        self.operands = (est, used_milli, used_pods, used_sets, rep_out,
+                         sel_out, status_out)
+        self.entry = "schedule_rows_big" if tier == "big" else "schedule_rows"
+        work_row = kernels.rows_work_bytes(tier) if tier == "big" else 0
+        step = max(1, rows)
+        if work_row:
+            step = max(1, min(step, SLICE_BYTES // work_row))
+        self.step = step
+        L = kernels.LMAX[tier]
+        dev = est.device
+        smem_lanes, lane_bytes = kernels.webster_layout()
+        e = torch.empty
+        self.t = {
+            "work": e((step * work_row,), dtype=torch.uint8, device=dev),
+            "web_n": e((step,), dtype=I64, device=dev),
+            "web_w": e((step, L), dtype=I64, device=dev),
+            "web_s0": torch.zeros((step, L), dtype=I64, device=dev),
+            "web_active": e((step, L), dtype=torch.bool, device=dev),
+            "web_rank": e((step, L), dtype=I64, device=dev),
+            "seats": e((step, L), dtype=I64, device=dev),
+            "wk_lane": e((step, L), dtype=torch.int32, device=dev),
+            "wk_base": e((step, L), dtype=I64, device=dev),
+            "wk_prev": e((step, L), dtype=I64, device=dev),
+            "wk_sel": e((step, L), dtype=torch.bool, device=dev),
+            "wk_feas": e((step, L), dtype=torch.bool, device=dev),
+            "wk_U": e((step,), dtype=torch.int32, device=dev),
+            "wk_flags": e((step,), dtype=torch.int32, device=dev),
+        }
+        ptrs = {f: kernels.ptr(db.t[f]) for f in kernels.ROWS_TENSOR_FIELDS}
+        ptrs.update(zip(("est", "used_milli", "used_pods", "used_sets",
+                         "rep", "sel", "status"),
+                        (kernels.ptr(x) for x in self.operands)))
+        ptrs.update({f: kernels.ptr(x) for f, x in self.t.items()})
+        ptrs["web_scratch"] = 0
+        if L > smem_lanes:
+            self.t["web_scratch"] = e((step * L * lane_bytes,),
+                                      dtype=torch.uint8, device=dev)
+            ptrs["web_scratch"] = kernels.ptr(self.t["web_scratch"])
+        ptrs.update(r0=0, r1=0, C=C, Q=Q, R=R, Kp=db.prev_idx.shape[1],
+                    Ke=db.evict_idx.shape[1], use_extra=int(use_extra),
+                    charge=int(charge), fill_est=0)
+        self.blk = kernels.rows_block(ptrs)
+        self._dev = est.device.index
+
+    def matches(self, db, operands, tier, use_extra, charge) -> bool:
+        """True when this workspace was built for these operands."""
+        return (db is self.db and tier == self.tier
+                and (bool(use_extra), bool(charge)) == self.flags
+                and all(a is b for a, b in zip(operands, self.operands)))
+
+    def launch(self, r0: int, r1: int, fill: bool) -> None:
+        """One launch slice, rows [r0, r1) (at most `step`): one C call
+        enqueues K1 (with `fill`), the prepare kernel, K4 and the finish
+        kernel.  Counts capacity (with `fill`), K2 and webster_batch once
+        each."""
+        blk = self.blk
+        blk[_R0] = r0
+        blk[_R1] = r1
+        blk[_FILL] = int(fill)
+        kernels.launch("schedule_rows", blk, f"{self.entry}_wave",
+                       count=self.entry, device=self._dev)
+        if fill:
+            kernels.LAUNCHES["capacity"] += 1
+        kernels.LAUNCHES["webster_batch"] += 1
+
+    def webster_operands(self, rows: int):
+        """The last slice's K4 operands (n, w, s0, active, rank), as
+        copies taken on the stream after it."""
+        t = self.t
+        return tuple(t[f][:rows].clone() for f in (
+            "web_n", "web_w", "web_s0", "web_active", "web_rank"))
+
+
+_R0 = kernels.ROWS_FIELDS.index("r0")
+_R1 = kernels.ROWS_FIELDS.index("r1")
+_FILL = kernels.ROWS_FIELDS.index("fill_est")
+
+
 def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
                   used_pods, used_sets, rep_out, sel_out, status_out, *,
                   use_extra: bool, charge: bool, tier: str = "std",
-                  fill_est: bool = False,
-                  capture: Optional[dict] = None) -> None:
+                  fill_est: bool = False, capture: Optional[dict] = None,
+                  workspace: Optional[RowsWorkspace] = None) -> None:
     """K2 (ops/csrc/schedule_rows.cu; launch counter "schedule_rows", or
     "schedule_rows_big" on the big tier) on a CUDA batch,
     schedule_rows_plain on a CPU one.  Same contract as
-    schedule_rows_plain.  On CUDA the rows' Webster problems run through
-    K4 (webster_batch); `capture`, when given, receives the last launch
-    slice's K4 operands (n, w, s0, active, rank) so they can be held
-    against webster_plain.
+    schedule_rows_plain.  On CUDA each launch slice is one C call that
+    enqueues the rows' prepare kernel, K4 (webster_batch) on their Webster
+    problems and the finish kernel; `capture`, when given, receives the
+    last launch slice's K4 operands (n, w, s0, active, rank) so they can
+    be held against webster_plain.  `workspace` (a RowsWorkspace built on
+    these operands; schedule_core makes one a chunk) holds the work
+    buffers and the argument block; without one the call builds its own.
 
     With `fill_est`, est (int64[Q+1, C], any contents) first becomes the
     wave's capacity: K1 on db's snapshot minus the used triple, as
     capacity() computes it.  On CUDA the C call of the rows' first launch
-    enqueues K1 (counted under "capacity") before the rows' first kernel,
-    once however many launch slices the rows take, so every slice reads
-    the est of the wave's start (an empty row range launches nothing and
-    leaves est as it was); on the CPU capacity_plain fills it."""
+    slice enqueues K1 (counted under "capacity") before the rows' first
+    kernel, once however many launch slices the rows take, so every slice
+    reads the est of the wave's start (an empty row range launches nothing
+    and leaves est as it was); on the CPU capacity_plain fills it."""
     if not _on_cuda(est, used_milli, rep_out, db.b_valid):
         if fill_est:
             est.copy_(capacity_plain(
@@ -794,109 +972,24 @@ def schedule_rows(db: DeviceBatch, r0: int, r1: int, est, used_milli,
             db, r0, r1, est, used_milli, used_pods, used_sets, rep_out,
             sel_out, status_out, use_extra=use_extra, charge=charge,
             tier=tier)
-    B, C = db.B, db.C
-    Q, R = db.req_milli.shape
-    P = db.pl_mask.shape[0]
-    G = db.api_ok.shape[0]
-    Kp = db.prev_idx.shape[1]
-    Ke = db.evict_idx.shape[1]
-    if not 0 <= r0 <= r1 <= B:
-        raise ValueError(f"row range [{r0}, {r1}) outside the batch of {B}")
-    spec = {
-        "cluster_valid": (torch.bool, (C,)), "deleting": (torch.bool, (C,)),
-        "name_rank": (I64, (C,)), "api_ok": (torch.bool, (G, C)),
-        "req_milli": (I64, (Q, R)), "req_is_cpu": (torch.bool, (R,)),
-        "req_pods": (I64, (Q,)),
-        "pl_mask": (torch.bool, (P, C)), "pl_tol_bypass": (torch.bool, (P, C)),
-        "pl_strategy": (torch.int32, (P,)), "pl_static_w": (I64, (P, C)),
-        "pl_has_cluster_sc": (torch.bool, (P,)),
-        "pl_sc_min": (torch.int32, (P,)), "pl_sc_max": (torch.int32, (P,)),
-        "pl_ignore_avail": (torch.bool, (P,)),
-        "pl_extra_score": (I64, (P, C)),
-        "b_valid": (torch.bool, (B,)), "placement_id": (torch.int32, (B,)),
-        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
-        "replicas": (I64, (B,)), "uid_desc": (torch.bool, (B,)),
-        "fresh": (torch.bool, (B,)), "non_workload": (torch.bool, (B,)),
-        "nw_shortcut": (torch.bool, (B,)),
-        "prev_idx": (torch.int32, (B, Kp)), "prev_val": (torch.int32, (B, Kp)),
-        "evict_idx": (torch.int32, (B, Ke)),
-    }
-    for f, (dt, shape) in spec.items():
-        kernels.check(db.t[f], dt, shape)
-    kernels.check(est, I64, (Q + 1, C))
-    kernels.check(used_milli, I64, (C, R))
-    kernels.check(used_pods, I64, (C,))
-    kernels.check(used_sets, I64, (Q, C))
-    kernels.check(rep_out, I64, (B, C))
-    kernels.check(sel_out, torch.bool, (B, C))
-    kernels.check(status_out, torch.int32, (B,))
-    if fill_est:
-        _check_snapshot(db)
+    if not 0 <= r0 <= r1 <= db.B:
+        raise ValueError(f"row range [{r0}, {r1}) outside the batch of "
+                         f"{db.B}")
+    operands = (est, used_milli, used_pods, used_sets, rep_out, sel_out,
+                status_out)
+    if workspace is None:
+        workspace = RowsWorkspace(db, r1 - r0, *operands, tier=tier,
+                                  use_extra=use_extra, charge=charge)
+    elif not workspace.matches(db, operands, tier, use_extra, charge):
+        raise ValueError("the workspace was built for other operands")
     if r1 == r0:
         return
-    # the big tier's per-row key scratch of the lane gather (its radix
-    # select reads each row's keys several times; the std tier recomputes
-    # them) and per-row lane working set; rows launch in slices that bound
-    # them
-    big = tier == "big"
-    gather = C > TIERS[tier][2]
-    key_row = (5 if use_extra else 4) * C * 8 if big and gather else 0
-    work_row = kernels.rows_work_bytes(tier) if big else 0
-    step = r1 - r0
-    for per_row in (key_row, work_row):
-        if per_row:
-            step = max(1, min(step, SLICE_BYTES // per_row))
-    dev = est.device
-    L = kernels.LMAX[tier]
-    entry = "schedule_rows_big" if big else "schedule_rows"
-    scratch = torch.empty((step * key_row // 8,), dtype=I64, device=dev)
-    KEY_SCRATCH_BYTES[tier] += scratch.numel() * 8
-    work_buf = torch.empty((step * work_row,), dtype=torch.uint8, device=dev)
-    work = {
-        "web_n": torch.empty((step,), dtype=I64, device=dev),
-        "web_w": torch.empty((step, L), dtype=I64, device=dev),
-        "web_active": torch.empty((step, L), dtype=torch.bool, device=dev),
-        "web_rank": torch.empty((step, L), dtype=I64, device=dev),
-        "wk_lane": torch.empty((step, L), dtype=torch.int32, device=dev),
-        "wk_base": torch.empty((step, L), dtype=I64, device=dev),
-        "wk_prev": torch.empty((step, L), dtype=I64, device=dev),
-        "wk_sel": torch.empty((step, L), dtype=torch.bool, device=dev),
-        "wk_feas": torch.empty((step, L), dtype=torch.bool, device=dev),
-        "wk_U": torch.empty((step,), dtype=torch.int32, device=dev),
-        "wk_flags": torch.empty((step,), dtype=torch.int32, device=dev),
-    }
-    s0_zero = torch.zeros((step, L), dtype=I64, device=dev)
-    t = db.t
+    step = workspace.step
     for a0 in range(r0, r1, step):
         a1 = min(r1, a0 + step)
-        rows = a1 - a0
-        work["seats"] = torch.empty((0,), dtype=I64, device=dev)
-
-        def args():
-            return kernels.RowsArgs(
-                *(kernels.ptr(t[f]) for f in kernels.ROWS_TENSOR_FIELDS),
-                kernels.ptr(est), kernels.ptr(used_milli),
-                kernels.ptr(used_pods), kernels.ptr(used_sets),
-                kernels.ptr(rep_out), kernels.ptr(sel_out),
-                kernels.ptr(status_out), kernels.ptr(scratch),
-                kernels.ptr(work_buf),
-                *(kernels.ptr(work[f]) for f in kernels.ROWS_WORK_FIELDS),
-                a0, a1, C, Q, R, Kp, Ke, int(use_extra), int(charge),
-                int(fill))
-
-        # K1 before the first slice only (fill_est), steps 1-3 per row,
-        # the rows' Webster problems through K4, then the dense rows and
-        # the consumption charge
-        fill = fill_est and a0 == r0
-        kernels.launch("schedule_rows", args(), f"{entry}_prepare",
-                       count="capacity" if fill else None)
-        web = (work["web_n"][:rows], work["web_w"][:rows], s0_zero[:rows],
-               work["web_active"][:rows], work["web_rank"][:rows])
-        work["seats"] = webster_batch(*web)
-        if capture is not None:
-            capture["webster"] = tuple(x.clone() for x in web)
-        kernels.launch("schedule_rows", args(), f"{entry}_finish",
-                       count=entry)
+        workspace.launch(a0, a1, fill_est and a0 == r0)
+    if capture is not None:
+        capture["webster"] = workspace.webster_operands(a1 - a0)
 
 
 # ---------------------------------------------------------------------------
@@ -1082,7 +1175,8 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
                   explain: bool = False):
     """The full chunk (JAX: _schedule_core): `waves` sequential waves of
     K1 + K2 on lane tier `tier`, K1 enqueued by each wave's first K2
-    launch into one est buffer of the chunk.  Returns (rep int64[B,C],
+    launch into one est buffer of the chunk, every wave on the chunk's one
+    RowsWorkspace (on CUDA).  Returns (rep int64[B,C],
     sel bool[B,C], status int32[B], used, expl) where used is the consumed-capacity triple
     (carry-in plus this chunk's consumption) -- charged only when waves > 1
     or with_used, as in the JAX program -- and expl the explain planes
@@ -1102,11 +1196,15 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
     # each wave's K1 overwrites it; the wave's K2 and K7 read it after, on
     # the same stream
     est = torch.empty((db.req_milli.shape[0] + 1, C), dtype=I64, device=dev)
+    # one workspace (work buffers, argument block) for the chunk's waves
+    ws = (RowsWorkspace(db, Bw, est, *used, rep, sel, status, tier=tier,
+                        use_extra=use_extra, charge=charge)
+          if dev.type == "cuda" else None)
     for wv in range(waves):
         r0, r1 = wv * Bw, (wv + 1) * Bw
         schedule_rows(db, r0, r1, est, *used, rep, sel, status,
                       use_extra=use_extra, charge=charge, tier=tier,
-                      fill_est=True)
+                      fill_est=True, workspace=ws)
         if explain:
             explain_rows(db, r0, r1, est, db.pl_fail_bits, sel, status, expl)
     return rep, sel, status, used, expl

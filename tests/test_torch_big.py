@@ -8,7 +8,12 @@ Covered: the ROUTE_DEVICE_BIG fixture of tests/test_solver_batch.py
 clusters) on the big tier's direct lane path (700 clusters, 1,024 lanes)
 and its gather path (5,000 clusters, 8,192 lanes: the union of top-128
 prev lanes and top-1,024 lanes per key), waves 1 and 4, and the sub-batch
-carry (collect_used with a nonzero used0 remapped into the sub-batch)."""
+carry (collect_used with a nonzero used0 remapped into the sub-batch);
+and the big tier's gather select on torch_scenarios.BIG_SELECT_CASES (C
+just above DIRECT_MAX, five groups, groups short of k, boundary buckets
+that overflow the select's shared-memory room, prev / evict / uid_desc
+rows), dense over four charged waves.  tests/test_torch_gpu.py holds
+K2-big against these plain versions on the same cases."""
 
 import numpy as np
 import pytest
@@ -117,3 +122,47 @@ def test_dense_big_tier_matches_jax(waves, plugin):
     for name, a, b in zip(("rep", "sel", "status"), want, got):
         assert np.array_equal(np.asarray(a), b), name
     assert got[0].sum() > 0
+
+
+def _big_select_pair(name):
+    clusters, items, lanes, extra_seed = S.big_select_case(MJ, name)
+    jb = JT.encode_batch(items, JT.ClusterIndex.build(clusters),
+                         JaxEstimator())
+    jb = S.shape_big_select_batch(jb, lanes, extra_seed, JT)
+    fields = {f: getattr(jb, f) for f in PT.FIELD_DTYPES
+              if getattr(jb, f, None) is not None}
+    return jb, PT.batch_from_arrays(fields, jb)
+
+
+@pytest.mark.parametrize("name", S.BIG_SELECT_CASES)
+def test_big_tier_gather_select_matches_jax(name):
+    """Dense solve(tier="big") over four charged waves on the big tier's
+    gather path: rep, sel and status equal the JAX package's."""
+    jb, pb = _big_select_pair(name)
+    g_prev, g_topk, direct_max = PS.TIERS["big"]
+    assert pb.C > direct_max  # the gather path
+    want = JS.solve(jb, waves=4, tier="big")
+    got = PS.solve(pb, waves=4, device="cpu", tier="big")
+    for field, a, b in zip(("rep", "sel", "status"), want, got):
+        a = np.asarray(a)
+        assert a.shape == b.shape and np.array_equal(a, b), field
+    rows = pb.b_valid
+    n = pb.n_bindings
+    assert (got[0][rows] > 0).any()
+    if name == "c4225":
+        assert pb.C == direct_max + 1
+    if name == "extra":
+        assert PS._use_extra(pb)
+    else:
+        assert not PS._use_extra(pb)
+    if name == "short_groups":
+        # every placement leaves fewer eligible lanes than k
+        assert (pb.pl_mask.sum(1) < g_topk).all()
+    if name == "overflow":
+        w = pb.pl_static_w[pb.pl_strategy == 1]
+        assert (w >= 1 << 34).any() and (w == 5).sum() > 4 * 256
+    if name == "prev_evict_uid":
+        # a valid row whose prev group selects its g_prev of 300
+        assert ((pb.prev_idx[:n] >= 0).sum(1)[rows[:n]] > 2 * g_prev).any()
+        assert (pb.evict_idx[:n] >= 0).any()
+        assert set(pb.uid_desc[:n].tolist()) == {False, True}

@@ -15,7 +15,10 @@ deleting clusters, histogram overrides, evictions, spread constraints
 wide prev axis; K3 compact over test_torch_select_compact.py's cases
 and phase 2's 4096 x 8192 shape (one launch a call), and K2's std tier
 over that file's gather cases, the select's bucket overflow included
-(no key scratch); K4 webster_batch on the main path's shapes, a row in its
+(no key scratch), and K2-big over tests/test_torch_big.py's gather cases
+(1 and 4 waves; no key scratch either); the wave's launch path (one
+workspace a chunk, two chunks in flight each on its own, a workspace
+for other operands refused); K4 webster_batch on the main path's shapes, a row in its
 device-memory scratch and the contract's edges, and its division helper
 over the int64 range; solve_big on the big tier's direct and gather lane
 paths;
@@ -243,9 +246,95 @@ def test_big_tier_kernel_matches_plain_on_card(n_clusters, plugin):
         batch.pl_extra_score = rng.integers(0, 101, batch.pl_mask.shape)
     before = PS.KEY_SCRATCH_BYTES["big"]
     _same(batch, waves=4, tier="big")
-    # the big tier's gather keeps its keys in a device-memory scratch
-    assert (PS.KEY_SCRATCH_BYTES["big"] > before) == (
-        batch.C > PS.TIERS["big"][2])
+    # the big tier's gather recomputes its keys: no key scratch
+    assert PS.KEY_SCRATCH_BYTES["big"] == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("waves", [1, 4])
+@pytest.mark.parametrize("name", S.BIG_SELECT_CASES)
+def test_schedule_rows_big_gather_on_card(name, waves):
+    """K2-big (with K1, K4, K3) against the plain path over the big
+    tier's gather cases (tests/test_torch_big.py holds the plain path
+    against the JAX package on them), 1 and 4 waves; no key scratch."""
+    _card()
+    clusters, items, lanes, extra_seed = S.big_select_case(MP, name)
+    batch = S.shape_big_select_batch(
+        PT.encode_batch(items, PT.ClusterIndex.build(clusters),
+                        GeneralEstimator()), lanes, extra_seed, PT)
+    assert batch.C > PS.TIERS["big"][2]
+    before = dict(PS.KEY_SCRATCH_BYTES)
+    _same(batch, waves=waves, tier="big")
+    assert kernels.LAUNCHES["compact"] == 1
+    assert PS.KEY_SCRATCH_BYTES == before == {"std": 0, "big": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["std", "big"])
+def test_chunks_in_flight_keep_their_workspaces_on_card(tier):
+    """Two chunks dispatched back to back before either is finalized, each
+    on its own RowsWorkspace (schedule_core makes one a chunk): each
+    equals its own plain solve, so one chunk's work buffers never alias
+    the other's in flight."""
+    dev = _card()
+    if tier == "std":
+        batches = [_batch(700, 21), _batch(1500, 22)]
+    else:
+        batches = [_big_batch(5000, 7, n_bindings=16),
+                   _big_batch(5000, 8, n_bindings=16)]
+    kernels.reset_counts()
+    handles = [PS.dispatch_compact(b, waves=4, with_used=True, device=dev,
+                                   tier=tier) for b in batches]
+    got = [PS.finalize_compact(h) for h in handles]
+    k2 = "schedule_rows" if tier == "std" else "schedule_rows_big"
+    assert kernels.LAUNCHES["capacity"] == 8
+    assert kernels.LAUNCHES[k2] == kernels.LAUNCHES["webster_batch"] >= 8
+    for g, b in zip(got, batches):
+        want = PS.solve_compact(b, waves=4, with_used=True, device="cpu",
+                                tier=tier)
+        assert g[3] == want[3]
+        for x, y in zip(g[:3] + g[4], want[:3] + want[4]):
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.gpu
+def test_rows_workspace_launch_path_on_card():
+    """The wave's launch path: a chunk's waves share one workspace (one C
+    call a slice; capacity once a wave, K2 and K4 once a slice), a
+    workspace built for other operands is refused, and a call without one
+    builds its own with the same results."""
+    dev = _card()
+    batch = _batch(700, 23)
+    db = PS.device_batch(batch, dev)
+    B, C = db.B, db.C
+    Q = db.req_milli.shape[0]
+    use_extra = PS._use_extra(batch)
+
+    def operands():
+        return (torch.empty((Q + 1, C), dtype=torch.int64, device=dev),
+                *PS._zeros_used(db),
+                torch.empty((B, C), dtype=torch.int64, device=dev),
+                torch.empty((B, C), dtype=torch.bool, device=dev),
+                torch.empty((B,), dtype=torch.int32, device=dev))
+
+    a, b = operands(), operands()
+    ws = PS.RowsWorkspace(db, B // 4, *a, tier="std", use_extra=use_extra,
+                          charge=True)
+    kernels.reset_counts()
+    for wv in range(4):
+        PS.schedule_rows(db, wv * (B // 4), (wv + 1) * (B // 4), *a,
+                         use_extra=use_extra, charge=True, fill_est=True,
+                         workspace=ws)
+        PS.schedule_rows(db, wv * (B // 4), (wv + 1) * (B // 4), *b,
+                         use_extra=use_extra, charge=True, fill_est=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["capacity"] == 8
+    assert kernels.LAUNCHES["schedule_rows"] == 8
+    assert kernels.LAUNCHES["webster_batch"] == 8
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    with pytest.raises(ValueError):
+        PS.schedule_rows(db, 0, B // 4, *b, use_extra=use_extra, charge=True,
+                         workspace=ws)
 
 
 def _spread_case(build):

@@ -1374,6 +1374,62 @@ def select_case(M, name):
     raise KeyError(name)
 
 
+#: K2-big gather-path cases (big_select_case): SELECT_CASES' counterparts
+#: on the big tier (direct up to 4,224 lanes; k = 128 prev, 1,024 others)
+BIG_SELECT_CASES = ("c4225", "extra", "short_groups", "overflow",
+                    "prev_evict_uid")
+
+
+def big_select_case(M, name):
+    """(clusters, items, lanes, extra_seed) of one K2-big gather case, as
+    select_case's: c4225: C just above the big tier's DIRECT_MAX; extra:
+    five groups (plugin scores); short_groups: affinity subsets of 3-1,000
+    clusters, so groups hold fewer eligible lanes than k = 1,024 and take
+    -1 lanes; overflow: overflow_scenario on 4,300 clusters, boundary
+    buckets of more than 256 candidates digit after digit; prev_evict_uid:
+    the randomized mix's prev lanes, eviction lanes and uid_desc rows, one
+    row with 300 previous clusters (the prev group selects its 128)."""
+    if name == "c4225":
+        return (*random_scenario(M, 21, n_clusters=4225, n_bindings=16),
+                4225, None)
+    if name == "extra":
+        return (*random_scenario(M, 23, n_clusters=4400, n_bindings=16),
+                4400, 23)
+    if name == "short_groups":
+        rng = random.Random(24)
+        clusters = build_fleet(M, rng, 4300)
+        names = [c.name for c in clusters]
+        pls = affinity_placements(M, rng, names, n=6, lo=3, hi=1000)
+        return clusters, build_bindings(M, rng, 16, pls), None, None
+    if name == "overflow":
+        return (*overflow_scenario(M, n_clusters=4300, n_bindings=16), None,
+                None)
+    if name == "prev_evict_uid":
+        clusters, items = random_scenario(M, 25, n_clusters=4500,
+                                          n_bindings=24)
+        names = [c.metadata.name for c in clusters]
+        spec = next(sp for sp, _st in items
+                    if not sp.placement.spread_constraints)
+        spec.clusters = [M.TargetCluster(name=n, replicas=1)
+                         for n in names[::15]]
+        return clusters, items, 4500, None
+    raise KeyError(name)
+
+
+def shape_big_select_batch(batch, lanes, extra_seed, T):
+    """shape_select_batch for a big_select_case batch, with every real row
+    the encoder routes to the device (T.ROUTE_DEVICE or
+    T.ROUTE_DEVICE_BIG; T: the package's tensors module) valid, and the
+    rows beyond every compact cap (T.ROUTE_COMPACT_CAP: more than 128
+    previous clusters, which the cycle solves on the host) too: the dense
+    big-tier solve takes them all, the prev group selecting its 128."""
+    batch = shape_select_batch(batch, lanes, extra_seed)
+    n = batch.n_bindings
+    batch.b_valid[:n] = np.isin(batch.route[:n], (
+        T.ROUTE_DEVICE, T.ROUTE_DEVICE_BIG, T.ROUTE_COMPACT_CAP))
+    return batch
+
+
 def shape_select_batch(batch, lanes, extra_seed):
     """select_case's batch as the case asks: cut to `lanes`, plugin
     scores from `extra_seed` (numpy arrays; either package's batch)."""

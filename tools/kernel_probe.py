@@ -7,7 +7,7 @@ capacity and K8 shortlist_topk.
 Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 tools/kernel_probe.py [k3k2] [k4] [k11] [k5k6] [k1] [k8]
-        [k8census] [--parent TREE]
+        [k8census] [k2big] [k2launch] [k2census] [--parent TREE]
 
 It builds the first forward chunk of chip_smoke's workload (bench.py's
 config-5 mix, seed 0: 4096 bindings x 8192 lanes) and prints, after the
@@ -18,8 +18,9 @@ card's name and power limit, the parts named (default: all):
         mask built inside it (the same function); torch.sum over rep, a
         plain read of it.  K3 shapes: compact.cu rebuilt with other steps
         per warp and blocks per SM, each held against compact_plain and
-        timed.  K2 std: wave 0's stream operations (prepare, K4, finish)
-        and a clock64 profile of the prepare kernel, in cycles per row.
+        timed.  K2 std: wave 0's device time by kernel (prepare, K4,
+        finish) and a clock64 profile of the prepare kernel, in cycles
+        per row (its KT_MARK points, K2BIG_PHASES["marks"]).
   k4    chip_smoke's K4 census of the chunk's 8 waves and of the wide
         chunk's big rows; then on wave 0 of each tier, per tree: K4's
         CUDA-event ms, host enqueue against device time, and a clock64
@@ -50,10 +51,25 @@ card's name and power limit, the parts named (default: all):
   k8census  not in the default set: what the main path hands K8 in
         chip_smoke's phases 8 and 9 (profile rows a launch, C, k,
         eligible lanes a row), from those phases' runs (~4 min).
+  k2big K2-big per tree on the first wide chunk's big rows (64 x 8,192):
+        wave 0 with its K1 and K4 -- CUDA-event ms, host enqueue, device
+        time by kernel, each launch's CUDA events -- and a clock64
+        profile of its prepare kernel in cycles a row (K2BIG_PHASES: the
+        select's phases, the lane_info loop, each sort, the swap loop,
+        the Aggregated prefix, the web_* / wk_* writes; KT_MARK points
+        built with -DKT_PROFILE, or K2BIG_OLD_MARKS substituted into a
+        copy of a source without them).
+  k2launch  where a K2 std wave's host enqueue goes, per tree (wave 0 of
+        the forward chunk): the whole call with and without the chunk's
+        workspace, and its pieces each timed alone.
+  k2census  not in the default set: what the main path hands K2-big in
+        chip_smoke's phases 6 and 7 (rows a launch, C, U, each gather
+        group's eligible lanes against k, the select's histogram passes,
+        strategy and has_sc), from those phases' runs (~3 min).
 
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
-TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1 and k8 also
-run on the parent's port.  The variant libraries build into a temporary directory.
+TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1, k8, k2big
+and k2launch also run on the parent's port.  The variant libraries build into a temporary directory.
 Exits non-zero without a card, or when a variant disagrees with its
 plain version.
 """
@@ -63,6 +79,7 @@ from __future__ import annotations
 import ctypes
 import os
 import random
+import re
 import subprocess
 import sys
 import tempfile
@@ -75,17 +92,15 @@ sys.path.insert(0, ROOT)
 
 #: compact.cu shapes: (steps per warp, blocks an SM)
 K3_SHAPES = ((8, 4), (12, 3), (16, 2), (24, 2))
-#: K2 std prepare phases between the clock64 markers
-K2_PHASES = ("pass 1", "histogram passes", "collect", "fill", "union",
-             "lane info + rank sort", "lane math + write")
 
 
 def build_variant(kernels, src, subs, name, out_dir, text=None, inc=None,
-                  flags=()):
+                  flags=(), show=None):
     """A kernel source (`src`, or its `text`) with `subs` substituted,
     built with nvcc (and `flags`) into out_dir against the headers of
     `inc` (default: this checkout's ops/csrc); returns the loaded
-    library."""
+    library.  Prints ptxas' last register line, or with `show` the report
+    of every entry whose mangled name holds it."""
     text = open(src).read() if text is None else text
     for old, new in subs:
         if text.count(old) != 1:
@@ -100,9 +115,18 @@ def build_variant(kernels, src, subs, name, out_dir, text=None, inc=None,
                          capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{out.stdout}{out.stderr}")
-    regs = [ln.strip() for ln in (out.stdout + out.stderr).splitlines()
-            if "registers" in ln]
-    print(f"{name}: {regs[-1] if regs else ''}", flush=True)
+    lines = (out.stdout + out.stderr).splitlines()
+    if show:
+        # each entry whose name holds `show`: its registers and spills
+        keep = False
+        for ln in lines:
+            if "Compiling entry" in ln:
+                keep = show in ln
+            if keep:
+                print(f"{name}: {ln.strip()}", flush=True)
+    else:
+        regs = [ln.strip() for ln in lines if "registers" in ln]
+        print(f"{name}: {regs[-1] if regs else ''}", flush=True)
     return ctypes.CDLL(so)
 
 
@@ -186,64 +210,19 @@ def probe_k3_k2(CS, batch, dev):
         def wave():
             S.schedule_rows(db, 0, Bw, est0, *used, *out,
                             use_extra=use_extra, charge=True)
+            return out
 
-        split = CS.stage_ms(kernels, wave, 20)
-        print("K2 std wave 0: " + ", ".join(
-            f"{k} {v:.4f} ms" for k, v in split.items()), flush=True)
-        mark = ("if (threadIdx.x == 0) kt_prof[row.slot * 8 + (%d)] = "
-                "clock64();\n")
-        lib = build_variant(kernels, src2, [
-            ('#include "rows.cuh"\n', '#include "rows.cuh"\n'
-             "__device__ long long kt_prof[4096 * 8];\n"
-             'extern "C" int kt_prof_read(long long* h) { return '
-             "(int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof)); }\n"),
-            ("  load_row<NT>(a, b, row, s.pidx, s.pval, s.eidx);\n",
-             "  load_row<NT>(a, b, row, s.pidx, s.pval, s.eidx);\n  "
-             + mark % 0),
-            ("  if (threadIdx.x < ng) {\n    const int g = threadIdx.x;",
-             "  " + mark % 1
-             + "  if (threadIdx.x < ng) {\n    const int g = threadIdx.x;"),
-            ("  // the collect pass: each", "  " + mark % 2
-             + "  // the collect pass: each"),
-            ("  // the fill: lax.top_k takes", "  " + mark % 3
-             + "  // the fill: lax.top_k takes"),
-            ("  // ordered union of the members, NT", "  " + mark % 4
-             + "  // ordered union of the members, NT"),
-            ("    else U = gather_lanes_std<T>(a, row, s, wsum);\n  }\n",
-             "    else U = gather_lanes_std<T>(a, row, s, wsum);\n  }\n  "
-             + mark % 5),
-            ("  // 3. the lane math (JAX _assign_lanes)", "  " + mark % 6
-             + "  // 3. the lane math (JAX _assign_lanes)"),
-            ("    a.web_n[row.slot] = (use_seats && run_webster) ? target : 0;",
-             "    a.web_n[row.slot] = (use_seats && run_webster) ? target : 0;"
-             "\n    kt_prof[row.slot * 8 + 7] = clock64();")],
-            "schedule_rows_prof", tmp)
-        saved = {e: kernels._FNS[e] for e in ("schedule_rows_prepare",
-                                              "schedule_rows_finish")}
-        try:
-            for e in saved:
-                kernels._FNS[e] = entry(lib, "kt_" + e)
-            ref = tuple(t.clone() for t in out)
-            wave()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(out, ref)):
-                raise AssertionError("the profiled K2 disagrees")
-            h = np.zeros(4096 * 8, np.int64)
-            fn = lib.kt_prof_read
-            fn.argtypes = [ctypes.c_void_p]
-            if fn(ctypes.c_void_p(h.ctypes.data)):
-                raise RuntimeError("reading the profile failed")
-        finally:
-            kernels._FNS.update(saved)
-    h = h.reshape(4096, 8)[:Bw][db.b_valid[:Bw].cpu().numpy()]
-    d = np.diff(h, axis=1)
-    for i, name in enumerate(K2_PHASES):
-        print(f"K2 std prepare, {name}: mean {d[:, i].mean():.0f} cycles, "
-              f"p90 {np.percentile(d[:, i], 90):.0f}, max {d[:, i].max()}",
+        print("K2 std wave 0: " + _dev_line(CS.kernel_device_ms(wave, 20)),
               flush=True)
-    rows = h[:, 7] - h[:, 0]
-    print(f"K2 std prepare, a row: mean {rows.mean():.0f} cycles, max "
-          f"{rows.max()} ({len(rows)} rows)", flush=True)
+        phases, h = profile_k2big(kernels, wave, tmp, "schedule_rows_prof",
+                                  tier="std")
+    for p, a, b in phases:
+        m = (h[:, a] != 0) & (h[:, b] != 0)
+        if m.any():
+            d = h[m, b] - h[m, a]
+            print(f"K2 std prepare, {p}: mean {d.mean():.0f} cycles, p90 "
+                  f"{np.percentile(d, 90):.0f}, max {d.max()} "
+                  f"({int(m.sum())} rows)", flush=True)
 
 
 #: the clock64 marks of a K4 design, by a line of its webster.cuh that
@@ -846,14 +825,460 @@ def probe_k8_census(CS, M, dev):
         SL._t1_rows = orig
 
 
+#: K2-big's prepare profile: slots a row holds (a source with KT_MARK
+#: points: its KT_PROF_SLOTS), rows it holds
+K2BIG_SLOTS = 32
+K2BIG_PROF_ROWS = 4096
+#: the parent's K2-big (gather_lanes over the device-memory key scratch,
+#: rows.cuh topk_select): (file, anchor, replacement) marks substituted
+#: into a copy of its sources; KT_PMARK(k) syncs the block and its thread
+#: 0 writes clock64() into slot k of the block's row
+K2BIG_OLD_MARKS = (
+    ("rows.cuh", '#include "common.cuh"\n',
+     '#include "common.cuh"\n'
+     "__device__ long long kt_prof[%d * %d];\n"
+     'extern "C" int kt_prof_read(long long* h) { return '
+     "(int)cudaMemcpyFromSymbol(h, kt_prof, sizeof(kt_prof)); }\n"
+     "#define KT_PMARK(k) do { __syncthreads(); if (threadIdx.x == 0 && "
+     "blockIdx.x < %d) kt_prof[blockIdx.x * %d + (k)] = clock64(); "
+     "} while (0)\n"),
+    ("rows.cuh",
+     "    const u64 high = shift >= 56 ? 0ULL : (~0ULL << (shift + 8));\n",
+     "    KT_PMARK(2 + (56 - shift) / 8);\n"
+     "    const u64 high = shift >= 56 ? 0ULL : (~0ULL << (shift + 8));\n"),
+    ("rows.cuh", "  if (!fill) return;\n",
+     "  KT_PMARK(10);\n  if (!fill) return;\n"),
+    ("schedule_rows.cu",
+     "  load_row<NT>(a, b, row, s.pidx, s.pval, s.eidx);\n",
+     "  load_row<NT>(a, b, row, s.pidx, s.pval, s.eidx);\n  KT_PMARK(0);\n"),
+    ("schedule_rows.cu",
+     "  topk_select<NT>(keys, a.C, ng, G_PREV, G_TOPK, cnt, thr, cut, "
+     "remaining,\n",
+     "  KT_PMARK(1);\n  topk_select<NT>(keys, a.C, ng, G_PREV, G_TOPK, cnt, "
+     "thr, cut, remaining,\n"),
+    ("schedule_rows.cu", "  // ordered union of the members\n  int U = 0;\n",
+     "  KT_PMARK(11);\n  // ordered union of the members\n  int U = 0;\n"),
+    ("schedule_rows.cu",
+     "    else U = gather_lanes_std<T>(a, row, s, wsum);\n  }\n",
+     "    else U = gather_lanes_std<T>(a, row, s, wsum);\n  }\n"
+     "  KT_PMARK(12);\n"),
+    ("schedule_rows.cu", "  // the lanes' ranks, densified in rank_eff order\n",
+     "  KT_PMARK(13);\n  // the lanes' ranks, densified in rank_eff order\n"),
+    ("schedule_rows.cu",
+     "  // what the lane math reads and the working set does not keep\n",
+     "  KT_PMARK(14);\n"
+     "  // what the lane math reads and the working set does not keep\n"),
+    ("schedule_rows.cu", "    const i64 need = minll(row.sc_max, fcount);\n",
+     "    KT_PMARK(15);\n    const i64 need = minll(row.sc_max, fcount);\n"),
+    ("schedule_rows.cu", "    const i64 tot = total_sel();\n",
+     "    KT_PMARK(16);\n    const i64 tot = total_sel();\n"),
+    ("schedule_rows.cu",
+     "  // Aggregated: trim to the capacity-descending prefix reaching "
+     "target\n",
+     "  KT_PMARK(17);\n"
+     "  // Aggregated: trim to the capacity-descending prefix reaching "
+     "target\n"),
+    ("schedule_rows.cu",
+     "    // exclusive cumsum of active w in sorted order, each thread a "
+     "chunk\n",
+     "    KT_PMARK(18);\n"
+     "    // exclusive cumsum of active w in sorted order, each thread a "
+     "chunk\n"),
+    ("schedule_rows.cu", "  const bool run_webster =\n",
+     "  KT_PMARK(19);\n  const bool run_webster =\n"),
+    ("schedule_rows.cu",
+     "(row.has_sc ? FLAG_HAS_SC : 0) | FLAG_VALID;\n  }\n}\n",
+     "(row.has_sc ? FLAG_HAS_SC : 0) | FLAG_VALID;\n  }\n  KT_PMARK(20);\n}\n"),
+)
+#: the phases of a K2-big design's prepare kernel, (name, from slot, to
+#: slot): "old" for a source without KT_MARK points (K2BIG_OLD_MARKS),
+#: "marks" for one with them; a phase is read on the rows that passed
+#: both slots
+K2BIG_PHASES = {
+    "old": (
+        ("key write", 0, 1),
+        *((f"topk pass {i}", 2 + i, 3 + i) for i in range(8)),
+        ("fill", 10, 11), ("union", 11, 12), ("lane_info loop", 12, 13),
+        ("rank argsort", 13, 14), ("selection argsort (has_sc)", 14, 15),
+        ("swap loop (has_sc)", 15, 16), ("aggregated argsort", 17, 18),
+        ("aggregated prefix", 18, 19), ("web / wk writes", 19, 20),
+        ("a row", 0, 20)),
+    # the std tier's select on both tiers (KT_MARK points in the source)
+    "marks": (
+        ("select pass 1", 0, 1), ("histogram passes", 1, 2),
+        ("collect", 2, 3), ("fill", 3, 4), ("union", 4, 5),
+        ("lane_info loop", 5, 6), ("rank argsort", 6, 7),
+        ("selection argsort (has_sc)", 7, 8), ("swap loop (has_sc)", 8, 9),
+        ("aggregated argsort", 10, 11), ("aggregated prefix", 11, 12),
+        ("web / wk writes", 12, 13), ("a row", 0, 13)),
+}
+
+
+def k2_wave_entries(kmod, tier):
+    """The tree's C entries of one K2 wave on `tier`: the wave entry, or
+    the prepare and finish entries."""
+    pre = "schedule_rows_big" if tier == "big" else "schedule_rows"
+    names = [e for e in (f"{pre}_wave", f"{pre}_prepare", f"{pre}_finish")
+             if e in kmod.ENTRIES["schedule_rows"]]
+    return names
+
+
+def profile_k2big(kmod, call, out_dir, name, tier="big"):
+    """clock64 profile of one K2 wave's prepare kernel on `tier` (default
+    the big one; `call` runs the wave through the tree's wrapper and
+    returns its outputs): the
+    tree's schedule_rows.cu with its design's marks -- compiled in with
+    -DKT_PROFILE where the source holds KT_MARK points, else
+    K2BIG_OLD_MARKS substituted into a copy of its sources -- launched
+    with kmod's entries swapped and held against the unmarked kernel.
+    Returns (phases, [rows, slots] clock64 readings of the rows that
+    passed slot 0)."""
+    import shutil
+
+    csrc = str(kmod.CSRC)
+    text = open(os.path.join(csrc, "schedule_rows.cu")).read()
+    phases = K2BIG_PHASES["marks" if "KT_MARK(" in text else "old"]
+    inc = os.path.join(out_dir, f"{name}_csrc")
+    shutil.copytree(csrc, inc)
+    if "KT_MARK(" in text:
+        lib = build_variant(kmod, os.path.join(inc, "schedule_rows.cu"), [],
+                            name, out_dir, inc=inc,
+                            flags=(f"-DKT_PROFILE={K2BIG_PROF_ROWS}",))
+    else:
+        for i, (f, old, new) in enumerate(K2BIG_OLD_MARKS):
+            if i == 0:
+                new = new % (K2BIG_PROF_ROWS, K2BIG_SLOTS, K2BIG_PROF_ROWS,
+                             K2BIG_SLOTS)
+            path = os.path.join(inc, f)
+            src = open(path).read()
+            if src.count(old) != 1:
+                raise AssertionError(f"{name}: {old!r} is not in {f} once")
+            with open(path, "w") as fh:
+                fh.write(src.replace(old, new))
+        lib = build_variant(kmod, os.path.join(inc, "schedule_rows.cu"), [],
+                            name, out_dir, inc=inc)
+    want = tuple(t.clone() for t in call())
+    torch.cuda.synchronize()
+    names = k2_wave_entries(kmod, tier)
+    saved = {e: kmod._FNS[e] for e in names}
+    try:
+        for e in names:
+            kmod._FNS[e] = entry(lib, "kt_" + e)
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        kmod._FNS.update(saved)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the profiled kernel disagrees")
+    m = re.search(r"#define KT_PROF_SLOTS (\d+)", text)
+    slots = int(m.group(1)) if "KT_MARK(" in text and m else K2BIG_SLOTS
+    h = np.zeros(K2BIG_PROF_ROWS * slots, np.int64)
+    fn = lib.kt_prof_read
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.c_void_p(h.ctypes.data)):
+        raise RuntimeError("reading the K2-big profile failed")
+    h = h.reshape(K2BIG_PROF_ROWS, slots)
+    return phases, h[h[:, 0] != 0]
+
+
+#: K2-big thread counts a row tried beside the tree's own (variants of
+#: its schedule_rows.cu, for a source whose tiers take NT)
+K2BIG_NT = (256, 512, 1024)
+K2BIG_TIER = "using TierBig = Tier<128, 1024, 4224, false, %d, 1, 1 << 18>;"
+
+
+def probe_k2big(CS, wide, fleet, dev, trees):
+    """K2-big per tree on the first wide chunk's big rows (chip_smoke's
+    big_subbatch, 64 x 8,192), wave 0 with K4 inside on wave 0's est
+    (chip_smoke.big_wave0): CUDA-event ms, host enqueue, device time by kernel, each
+    launch's CUDA events, and the clock64 profile of the prepare kernel in
+    cycles a row; for a tree whose tiers take NT, the same wave with the
+    big tier at K2BIG_NT threads a row (variant builds).  The trees' and
+    variants' waves must agree."""
+    sub, _n = CS.big_subbatch(wide, fleet)
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kmod, smod in trees:
+            for ln in kmod.BUILD_LOG.get("schedule_rows", "").splitlines():
+                if "registers" in ln or "spill" in ln or "Compiling" in ln:
+                    print(f"K2 ptxas ({label}): {ln.strip()}", flush=True)
+            S = smod.S
+            wave, res = CS.big_wave0(S, sub, dev)
+            Bw = res[2].shape[0] // S._effective_waves(res[2].shape[0], 8)
+            C = res[0].shape[1]
+
+            def call(wave=wave, res=res):
+                wave()
+                return res[:3]
+
+            call()
+            torch.cuda.synchronize()
+            outs.append(tuple(t.clone() for t in call()))
+            ms = CS.cuda_ms(call, 50)
+            host, _d = CS.split_ms(call, 50)
+            by = CS.kernel_device_ms(call, 50)
+            st = CS.stage_ms(kmod, call, 50)
+            print(f"K2-big {label}, wave 0 ({Bw} x {C}, K4 inside, est "
+                  f"fixed): {ms:.4f} ms; host enqueue {host:.4f} ms; "
+                  + _dev_line(by) + "; launches (CUDA events) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items()),
+                  flush=True)
+            phases, h = profile_k2big(kmod, call, tmp,
+                                      f"k2big_{label.split()[-1]}")
+            parts = []
+            for p, a, b in phases:
+                m = (h[:, a] != 0) & (h[:, b] != 0)
+                if m.any():
+                    d = h[m, b] - h[m, a]
+                    parts.append(f"{p} {d.mean():.0f} / {d.max()} "
+                                 f"({int(m.sum())} rows)")
+            print(f"K2-big {label}, prepare clock64 cycles a row (mean / "
+                  f"max): " + "; ".join(parts), flush=True)
+            src = os.path.join(str(kmod.CSRC), "schedule_rows.cu")
+            text = open(src).read()
+            own = next((nt for nt in (256, 512, 1024)
+                        if K2BIG_TIER % nt in text), None)
+            if own is None or "schedule_rows_big_wave" not in kmod._FNS:
+                continue
+            for nt in K2BIG_NT:
+                if nt == own:
+                    continue
+                lib = build_variant(kmod, src, [(K2BIG_TIER % own,
+                                                 K2BIG_TIER % nt)],
+                                    f"k2big_nt{nt}_{label.split()[-1]}",
+                                    tmp, show="Li4224E")
+                saved = kmod._FNS["schedule_rows_big_wave"]
+                try:
+                    kmod._FNS["schedule_rows_big_wave"] = entry(
+                        lib, "kt_schedule_rows_big_wave")
+                    got = tuple(t.clone() for t in call())
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got, outs[-1])):
+                        raise AssertionError(f"K2-big NT {nt} disagrees")
+                    ms = CS.cuda_ms(call, 50)
+                    by = CS.kernel_device_ms(call, 50)
+                finally:
+                    kmod._FNS["schedule_rows_big_wave"] = saved
+                print(f"K2-big {label}, NT {nt} a row (variant): {ms:.4f} "
+                      "ms; " + _dev_line(by), flush=True)
+    if not all(all(torch.equal(a, b) for a, b in zip(outs[0], x))
+               for x in outs[1:]):
+        raise AssertionError("K2-big probe: the trees' waves disagree")
+
+
+def probe_k2launch(CS, batch, dev, trees, reps=200):
+    """Where a K2 std wave's host enqueue goes, per tree, on wave 0 of the
+    forward chunk (512 x 8,192, its K1 in the wave): the whole call's
+    host clock as schedule_core makes it (with the chunk's workspace where
+    the tree has one) and as a caller without one makes it, then the
+    pieces -- the parent's: the operand checks, the allocations, the two
+    RowsArgs structs, K4's wrapper and the two launches; this tree's: the
+    argument block's patch and the one C call -- each timed alone; then
+    the chunk's dispatch_compact in pieces (device_batch with its uploads,
+    _use_extra, schedule_core's 8 waves, compact, and the whole), each
+    on a drained stream."""
+    import time
+
+    def host_ms(fn, n=reps):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        return ms
+
+    for label, kmod, smod in trees:
+        S = smod.S
+        db = S.device_batch(batch, dev)
+        B, C = db.B, db.C
+        Bw = B // S._effective_waves(B, 8)
+        use_extra = S._use_extra(batch)
+        used = tuple(u.clone() for u in S._zeros_used(db))
+        out = (torch.zeros((B, C), dtype=torch.int64, device=dev),
+               torch.zeros((B, C), dtype=torch.bool, device=dev),
+               torch.zeros((B,), dtype=torch.int32, device=dev))
+        Q, R = db.req_milli.shape
+        est = torch.empty((Q + 1, C), dtype=torch.int64, device=dev)
+        kw = dict(use_extra=use_extra, charge=True, fill_est=True)
+        parts = {"whole call": host_ms(lambda: S.schedule_rows(
+            db, 0, Bw, est, *used, *out, **kw))}
+        if hasattr(S, "RowsWorkspace"):
+            ws = S.RowsWorkspace(db, Bw, est, *used, *out, tier="std",
+                                 use_extra=use_extra, charge=True)
+            parts["whole call, the chunk's workspace"] = host_ms(
+                lambda: S.schedule_rows(db, 0, Bw, est, *used, *out,
+                                        workspace=ws, **kw))
+            parts["patch + C call"] = host_ms(lambda: ws.launch(0, Bw, True))
+        else:
+            t = db.t
+            P, G = db.pl_mask.shape[0], db.api_ok.shape[0]
+            Kp, Ke = db.prev_idx.shape[1], db.evict_idx.shape[1]
+            I64, b8, i32 = torch.int64, torch.bool, torch.int32
+            spec = {
+                "cluster_valid": (b8, (C,)), "deleting": (b8, (C,)),
+                "name_rank": (I64, (C,)), "api_ok": (b8, (G, C)),
+                "req_milli": (I64, (Q, R)), "req_is_cpu": (b8, (R,)),
+                "req_pods": (I64, (Q,)), "pl_mask": (b8, (P, C)),
+                "pl_tol_bypass": (b8, (P, C)), "pl_strategy": (i32, (P,)),
+                "pl_static_w": (I64, (P, C)),
+                "pl_has_cluster_sc": (b8, (P,)), "pl_sc_min": (i32, (P,)),
+                "pl_sc_max": (i32, (P,)), "pl_ignore_avail": (b8, (P,)),
+                "pl_extra_score": (I64, (P, C)), "b_valid": (b8, (B,)),
+                "placement_id": (i32, (B,)), "gvk_id": (i32, (B,)),
+                "class_id": (i32, (B,)), "replicas": (I64, (B,)),
+                "uid_desc": (b8, (B,)), "fresh": (b8, (B,)),
+                "non_workload": (b8, (B,)), "nw_shortcut": (b8, (B,)),
+                "prev_idx": (i32, (B, Kp)), "prev_val": (i32, (B, Kp)),
+                "evict_idx": (i32, (B, Ke))}
+
+            def checks():
+                for f, (dt, shape) in spec.items():
+                    kmod.check(t[f], dt, shape)
+                kmod.check(est, I64, (Q + 1, C))
+                kmod.check(used[0], I64, (C, R))
+                kmod.check(used[1], I64, (C,))
+                kmod.check(used[2], I64, (Q, C))
+                kmod.check(out[0], I64, (B, C))
+                kmod.check(out[1], b8, (B, C))
+                kmod.check(out[2], i32, (B,))
+
+            L = kmod.LMAX["std"]
+
+            def allocs():
+                bufs = [torch.empty((0,), dtype=I64, device=dev),
+                        torch.empty((0,), dtype=torch.uint8, device=dev)]
+                for shape, dt in (((Bw,), I64), ((Bw, L), I64),
+                                  ((Bw, L), b8), ((Bw, L), I64),
+                                  ((Bw, L), i32), ((Bw, L), I64),
+                                  ((Bw, L), I64), ((Bw, L), b8),
+                                  ((Bw, L), b8), ((Bw,), i32),
+                                  ((Bw,), i32)):
+                    bufs.append(torch.empty(shape, dtype=dt, device=dev))
+                bufs.append(torch.zeros((Bw, L), dtype=I64, device=dev))
+                return bufs
+
+            bufs = allocs()
+            # seats: any [Bw, L] int64 buffer (the timed launches' results
+            # are not read)
+            work = dict(zip(("scratch", "work") + kmod.ROWS_WORK_FIELDS,
+                            bufs[:6] + [bufs[5]] + bufs[6:13]))
+
+            def struct():
+                return kmod.RowsArgs(
+                    *(kmod.ptr(t[f]) for f in kmod.ROWS_TENSOR_FIELDS),
+                    kmod.ptr(est), *(kmod.ptr(u) for u in used),
+                    *(kmod.ptr(o) for o in out), kmod.ptr(work["scratch"]),
+                    kmod.ptr(work["work"]),
+                    *(kmod.ptr(work[f]) for f in kmod.ROWS_WORK_FIELDS),
+                    0, Bw, C, Q, R, Kp, Ke, int(use_extra), 1, 0)
+
+            cap = {}
+            S.schedule_rows(db, 0, Bw, est, *used, *out, capture=cap, **kw)
+            web = cap["webster"]
+            a = struct()
+
+            def launches():
+                kmod.launch("schedule_rows", a, "schedule_rows_prepare")
+                kmod.launch("schedule_rows", a, "schedule_rows_finish")
+
+            parts.update({"operand checks": host_ms(checks),
+                          "allocations": host_ms(allocs),
+                          "two RowsArgs structs": host_ms(
+                              lambda: (struct(), struct())),
+                          "K4's wrapper": host_ms(
+                              lambda: S.webster_batch(*web)),
+                          "two launches": host_ms(launches)})
+        print(f"K2 std launch path {label}, wave 0 ({Bw} x {C}), host ms a "
+              "wave: " + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()),
+              flush=True)
+
+        # the chunk's dispatch_compact piece by piece: host ms of each
+        # piece alone, the stream drained before it (so no piece waits for
+        # another's kernels)
+        def drained(fn, n=20):
+            total = 0.0
+            for _ in range(n + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                dt = time.perf_counter() - t0
+                total += dt if _ else 0.0
+            torch.cuda.synchronize()
+            return total / n * 1e3, out
+
+        dbw = [None]
+
+        def upload():
+            dbw[0] = S.device_batch(batch, dev)
+
+        pieces = {"device_batch (uploads)": drained(upload)[0],
+                  "_use_extra": drained(lambda: S._use_extra(batch))[0]}
+        res = [None]
+
+        def core():
+            res[0] = S.schedule_core(dbw[0], waves=8, use_extra=use_extra,
+                                     with_used=True)
+
+        pieces["schedule_core (8 waves)"] = drained(core)[0]
+        rep_, sel_, st_ = res[0][:3]
+        pieces["compact"] = drained(lambda: S.compact(
+            rep_, sel_, st_, dbw[0].non_workload, False))[0]
+        pieces["whole dispatch_compact"] = drained(lambda: S.dispatch_compact(
+            batch, waves=8, with_used=True, device=dev))[0]
+        print(f"dispatch_compact pieces {label}, the forward chunk ({B} x "
+              f"{C}), host ms (stream drained before each): " + "; ".join(
+                  f"{k} {v:.4f}" for k, v in pieces.items()), flush=True)
+
+
+def probe_k2census(CS, M, fleet, placements, dev):
+    """What the main path hands K2-big: every big-tier launch of
+    chip_smoke's phase 6 (the wide cycle: ROUTE_DEVICE_BIG and the
+    SPREAD_BIG assignments) and phase 7 (the explain cycle), by phase
+    (chip_smoke.big_census: rows a launch, C, each gather group's eligible
+    lanes against its k, the select's histogram passes, U, strategy and
+    has_sc)."""
+    from karmada_tpu_torch.obs.decisions import DecisionRecorder
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    calls = []
+    orig = S.schedule_rows
+
+    def hooked(db, r0, r1, est, *a, tier="std", use_extra=False, **kw):
+        orig(db, r0, r1, est, *a, tier=tier, use_extra=use_extra, **kw)
+        if tier == "big" and r1 > r0:
+            calls.append(CS.big_census(S, db, r0, r1, est, use_extra))
+
+    S.schedule_rows = hooked
+    try:
+        wide = CS.build_wide_items(M, random.Random(1), CS.WIDE_BINDINGS,
+                                   placements, [c.name for c in fleet])
+        schedule_items(wide, fleet, chunk=4096, waves=8, device=dev)
+        for ln in CS.big_census_lines("phase 6 (the wide cycle)", calls):
+            print(ln, flush=True)
+        calls.clear()
+        expl = CS.starve_items(M, wide[:CS.EXPLAIN_BINDINGS])
+        schedule_items(expl, fleet, chunk=CS.EXPLAIN_CHUNK, waves=8,
+                       device=dev, explain=DecisionRecorder())
+        for ln in CS.big_census_lines("phase 7 (the explain cycle)", calls):
+            print(ln, flush=True)
+    finally:
+        S.schedule_rows = orig
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parts", nargs="*",
-                    default=["k3k2", "k4", "k11", "k5k6", "k1", "k8"],
-                    help="k3k2, k4, k11, k5k6, k1, k8, k8census (default: "
-                         "all but k8census)")
+                    default=["k3k2", "k4", "k11", "k5k6", "k1", "k8",
+                             "k2big", "k2launch"],
+                    help="k3k2, k4, k11, k5k6, k1, k8, k8census, k2big, "
+                         "k2launch, k2census (default: all but k8census "
+                         "and k2census)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
                          "karmada_tpu_torch/ unpacked: K4, K11, K5 and K6 "
@@ -916,6 +1341,14 @@ def main() -> int:
         probe_k8(CS, M, dev, trees)
     if "k8census" in args.parts:
         probe_k8_census(CS, M, dev)
+    if "k2big" in args.parts:
+        wide = CS.build_wide_items(M, random.Random(1), CS.WIDE_BINDINGS,
+                                   placements, [c.name for c in fleet])
+        probe_k2big(CS, wide[:4096], fleet, dev, trees)
+    if "k2launch" in args.parts:
+        probe_k2launch(CS, batch, dev, trees)
+    if "k2census" in args.parts:
+        probe_k2census(CS, M, fleet, placements, dev)
     return 0
 
 

@@ -94,8 +94,10 @@ region spread included; chunk 4096, 8 waves, carry on):
      cycle and K1-K4 launched; the census, and per detect cycle and per
      scheduler cycle a line of host seconds by stage.
 
-Phase 2 also holds K7 (on the first forward chunk and on its spread
-sub-batch), K8 (on a megafleet chunk's profile rows, its host / device
+Phase 2 also holds K7 (on the first forward chunk's wave 0 as
+schedule_core launches it -- the chunk's workspace, the batch's
+use_extra -- and on its spread sub-batch, each with its host / device
+split), K8 (on a megafleet chunk's profile rows, its host / device
 split and torch.topk over its key plane beside it, and on the same rows
 over twice and 128 times the lanes, the latter in its device-memory pair
 scratch) and K9 (on the 10k fleet, and with more
@@ -128,10 +130,13 @@ and K2 std's wave 0 with its K1 (launched from Python in the parent),
 tier 1 on the megafleet chunk's profile rows at 16,384 and 32,768 lanes
 (the parent's K1 + K8 against the fused K8), K4 on
 wave 0's problems of both tiers, K5 and K6 on the chunk's spread
-sub-batch (each side's host / device split beside them), and, after
-phase 9, K10 on one field,
+sub-batch (each side's host / device split beside them), K7 on the
+forward chunk's wave 0 and on its spread phase B (each as its tree's
+main path calls it, each side's host / device split beside it), and,
+after phase 9, K10 on one field,
 both mirror syncs kernel side and as walls, K9, and K11 (both flavours
-on card slots, and dispatch_gather from host slots).  Before the JSON
+on card slots, and dispatch_gather and dispatch_sub_gather from host
+slots, each side's host / device split beside them).  Before the JSON
 lines the run checks that neither K2 tier allocated a key scratch.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
@@ -1356,6 +1361,42 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
     return rows, chunk_ms
 
 
+def explain_operands(part, fleet, dev, waves):
+    """K7's operands at the main path's shapes, from this tree's modules:
+    (the chunk's batch, wave 0's call -- (db, 0, Bw, est, fail_bits, sel,
+    status), est wave 0's capacity, sel and status K2's wave 0 -- and the
+    spread flavour's call on the chunk's region-spread phase B as
+    solve_spread captures it: (rows, 0, Bs, est, fail_bits, sel, status,
+    pick))."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import solver as S
+    from karmada_tpu_torch.ops import spread as SP
+    from karmada_tpu_torch.ops import tensors as T
+
+    batch = T.encode_batch(part, T.ClusterIndex.build(fleet),
+                           GeneralEstimator(), cache=T.EncoderCache(),
+                           explain=True)
+    db = S.device_batch(batch, dev, explain=True)
+    B, C = db.B, db.C
+    Bw = B // S._effective_waves(B, waves)
+    zeros = S._zeros_used(db)
+    est0 = S.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
+                      db.avail_milli, zeros[0], db.has_alloc,
+                      db.pods_allowed, zeros[1], db.has_summary,
+                      db.est_override, zeros[2])
+    rep = torch.empty((B, C), dtype=torch.int64, device=dev)
+    sel = torch.zeros((B, C), dtype=torch.bool, device=dev)
+    st = torch.zeros((B,), dtype=torch.int32, device=dev)
+    S.schedule_rows(db, 0, Bw, est0, *(u.clone() for u in zeros), rep, sel,
+                    st, use_extra=S._use_extra(batch), charge=True)
+    groups = T.spread_groups(batch, part)
+    cap = {}
+    SP.solve_spread(batch, part, groups[("", "std")], waves=waves,
+                    device=dev, capture=cap, explain=True)
+    return batch, (db, 0, Bw, est0, db.pl_fail_bits, sel, st), \
+        cap["explain"]
+
+
 def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps,
                         parent=None) -> list:
     """K7 explain_rows, K8 shortlist_topk and K9 group_sums against their
@@ -1369,54 +1410,56 @@ def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps,
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import shortlist as SL
     from karmada_tpu_torch.ops import solver as S
-    from karmada_tpu_torch.ops import spread as SP
     from karmada_tpu_torch.ops import tensors as T
 
     rows = []
     # -- K7 on the first forward chunk, wave 0 --------------------------------
     part = items[:args.chunk]
-    batch = T.encode_batch(part, T.ClusterIndex.build(fleet),
-                           GeneralEstimator(), cache=T.EncoderCache(),
-                           explain=True)
-    db = S.device_batch(batch, dev, explain=True)
+    batch, k7_in, ex = explain_operands(part, fleet, dev, args.waves)
+    db, _r0, Bw, est0 = k7_in[:4]
     B, C = db.B, db.C
-    Bw = B // S._effective_waves(B, args.waves)
-    zeros = S._zeros_used(db)
-    est0 = S.capacity(db.req_milli, db.req_is_cpu, db.req_pods,
-                      db.avail_milli, zeros[0], db.has_alloc,
-                      db.pods_allowed, zeros[1], db.has_summary,
-                      db.est_override, zeros[2])
-    rep = torch.empty((B, C), dtype=torch.int64, device=dev)
-    sel = torch.zeros((B, C), dtype=torch.bool, device=dev)
-    st = torch.zeros((B,), dtype=torch.int32, device=dev)
-    S.schedule_rows(db, 0, Bw, est0, *(u.clone() for u in zeros), rep, sel,
-                    st, use_extra=S._use_extra(batch), charge=True)
-    k7_in = (db, 0, Bw, est0, db.pl_fail_bits, sel, st)
     out_k = S.explain_planes(B, C, dev)
     out_p = S.explain_planes(B, C, dev)
     S.explain_rows(*k7_in, out_k)
     S.explain_rows_plain(*k7_in, out_p)
     err7 = max_abs_err(zip(out_k, out_p))
+    # as schedule_core calls it: on the chunk's workspace, with the
+    # batch's use_extra (False: the extra-score rows are all 0, not read)
+    ux = S._use_extra(batch)
+    ws7 = S.ExplainWorkspace(db, *k7_in[3:7], out_k, use_extra=ux)
+
+    def k7():
+        S.explain_rows(*k7_in, out_k, use_extra=ux, workspace=ws7)
+
+    k7()
+    err7 = max(err7, max_abs_err(zip(out_k, out_p)))
     b7 = bound_ms(
         3 * Bw * C * 4 + Bw * 4 + Bw * C
-        + nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_extra_score,
-                 db.pl_fail_bits, db.api_ok, db.cluster_valid, db.deleting)
+        + nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_fail_bits,
+                 db.api_ok, db.cluster_valid, db.deleting)
+        + (nbytes(db.pl_extra_score) if ux else 0)
         + sum(nbytes(db.t[f][:Bw]) for f in S._BINDING_FIELDS),
         20 * Bw * C)
-    ms7 = cuda_ms(lambda: S.explain_rows(*k7_in, out_k), reps)
+    ms7 = cuda_ms(k7, reps)
     plain7 = cuda_ms(lambda: S.explain_rows_plain(*k7_in, out_p), 2)
-    # its spread flavour on the chunk's region-spread phase B
-    groups = T.spread_groups(batch, part)
-    cap = {}
-    SP.solve_spread(batch, part, groups[("", "std")], waves=args.waves,
-                    device=dev, capture=cap, explain=True)
-    ex = cap["explain"]
+    # its spread flavour on the chunk's region-spread phase B, as
+    # solve_spread calls it
     sp_k = S.explain_planes(ex[0].B, C, dev)
     sp_p = S.explain_planes(ex[0].B, C, dev)
-    S.explain_rows(*ex[:7], sp_k, pick=ex[7])
+
+    def k7s():
+        S.explain_rows(*ex[:7], sp_k, pick=ex[7], use_extra=ux)
+
+    k7s()
     S.explain_rows_plain(*ex[:7], sp_p, pick=ex[7])
     err7s = max_abs_err(zip(sp_k, sp_p))
-    ms7s = cuda_ms(lambda: S.explain_rows(*ex[:7], sp_k, pick=ex[7]), reps)
+    ms7s = cuda_ms(k7s, reps)
+    for label, fn, ms in (("wave 0", k7, ms7), ("spread flavour", k7s,
+                                                 ms7s)):
+        host, device = split_ms(fn, 10 * reps)
+        log(f"phase 2 explain_rows split, {label}: CUDA events {ms:.4f} "
+            f"ms, host enqueue {host:.4f} ms, device "
+            + (f"{device:.4f} ms" if device is not None else "not measured"))
     log(f"phase 2 explain_rows spread flavour: {ex[0].B}x{C} "
         f"max_abs_err={err7s} ms={ms7s:.4f}")
     rows.append(dict(
@@ -1425,6 +1468,8 @@ def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps,
         replaces="karmada_tpu/ops/solver.py:229",
         max_abs_err=max(err7, err7s), ms=ms7, plain_ms=plain7,
         bound_ms=b7[0], bound_by=b7[1], library_ms=None))
+    if parent is not None:
+        phase_turns_explain(parent, k7_in, ex, ux, dev, reps)
     log(f"phase 2 explain_rows: wave 0 of the forward chunk, {Bw}x{C}")
 
     # -- K8 on the first megafleet chunk's profile rows -------------------------
@@ -2212,23 +2257,75 @@ def phase_turns(parent, state, solver, dev, reps,
     drop = np.zeros(host_slots.size, bool)
     drop[::16] = True
     it, dt = up_to(inv, dev), up_to(drop, dev)
-    for flavour, args in (("gather_batch", (sl, mirrors)),
-                          ("sub_gather_batch", (sl, mirrors, it, dt))):
+    for flavour, args in (
+            ("gather_batch", (sl, mirrors)),
+            ("sub_gather_batch", (sl, mirrors, it, dt)),
+            ("dispatch_gather", (host_slots, mirrors)),
+            ("dispatch_sub_gather", (host_slots, mirrors, inv, drop))):
         if not all(torch.equal(a, b) for a, b in zip(
                 getattr(ORG, flavour)(*args), getattr(NRG, flavour)(*args))):
             raise AssertionError(f"turns: K11 {flavour} old and new "
                                  "disagree")
-        cases[f"K11 {flavour}"] = (
+        name = f"K11 {flavour}" + (" (upload included)"
+                                   if flavour.startswith("dispatch") else "")
+        for side, mod in (("old", ORG), ("new", NRG)):
+            host, device = split_ms(
+                lambda f=flavour, a=args, m=mod: getattr(m, f)(*a),
+                10 * reps)
+            log(f"phase 2 turns {name} split, {side}: host enqueue "
+                f"{host:.4f} ms, device "
+                + (f"{device:.4f} ms" if device is not None
+                   else "not measured"))
+        cases[name] = (
             lambda f=flavour, a=args: cuda_ms(
                 lambda: getattr(ORG, f)(*a), reps),
             lambda f=flavour, a=args: cuda_ms(
                 lambda: getattr(NRG, f)(*a), reps))
-    cases["K11 dispatch_gather (upload included)"] = (
-        lambda: cuda_ms(lambda: ORG.dispatch_gather(host_slots, mirrors),
-                        reps),
-        lambda: cuda_ms(lambda: NRG.dispatch_gather(host_slots, mirrors),
-                        reps))
     return run_turns(cases, rounds)
+
+
+def phase_turns_explain(parent, k7_in, ex, use_extra, dev, reps,
+                        rounds=TURN_ROUNDS) -> dict:
+    """Old (the parent's port) against new on one card, in turns: K7 on
+    wave 0 of the first forward chunk (512 x 8,192) and its spread flavour
+    on that chunk's phase B, each as its tree's main path calls it (this
+    tree's wave on the chunk's workspace, both flavours with the batch's
+    use_extra); the planes must agree first.  Each side's host enqueue /
+    device split is logged beside it."""
+    from karmada_tpu_torch.ops import solver as NS
+
+    OS = parent["ops.solver"]
+    db, C, Bs = k7_in[0], k7_in[0].C, ex[0].B
+    outs = {k: NS.explain_planes(db.B, C, dev) for k in ("old", "new")}
+    sps = {k: NS.explain_planes(Bs, C, dev) for k in ("old", "new")}
+    ws = NS.ExplainWorkspace(db, *k7_in[3:7], outs["new"],
+                             use_extra=use_extra)
+    calls = {
+        "K7 wave 0": (
+            lambda: OS.explain_rows(*k7_in, outs["old"]),
+            lambda: NS.explain_rows(*k7_in, outs["new"], use_extra=use_extra,
+                                    workspace=ws)),
+        "K7 spread flavour": (
+            lambda: OS.explain_rows(*ex[:7], sps["old"], pick=ex[7]),
+            lambda: NS.explain_rows(*ex[:7], sps["new"], pick=ex[7],
+                                    use_extra=use_extra))}
+    for name, (old, new) in calls.items():
+        old()
+        new()
+        torch.cuda.synchronize()
+        planes = (outs if "wave" in name else sps)
+        if not all(torch.equal(a, b) for a, b in zip(planes["old"],
+                                                     planes["new"])):
+            raise AssertionError(f"turns: {name} old and new disagree")
+        for side, fn in (("old", old), ("new", new)):
+            host, device = split_ms(fn, 10 * reps)
+            log(f"phase 2 turns {name} split, {side}: host enqueue "
+                f"{host:.4f} ms, device "
+                + (f"{device:.4f} ms" if device is not None
+                   else "not measured"))
+    return run_turns({name: (lambda f=old: cuda_ms(f, reps),
+                             lambda f=new: cuda_ms(f, reps))
+                      for name, (old, new) in calls.items()}, rounds)
 
 
 def phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps,

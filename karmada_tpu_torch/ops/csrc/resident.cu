@@ -38,17 +38,22 @@
 // written once; a few hundred bytes per churned lane for K10, ~70 B per
 // row for K11).  Both are launch-bound at the main path's sizes, so K10's
 // design is about launches: one per sync instead of one per field, and
-// K11's about its launch path (ops/resident_gather.py): the mirror set
-// checked once, GatherArgs an int64 block whose mirror pointers are filled
-// once per set, the twelve outputs carved from one device slab per call,
-// and from host slots the inputs uploaded into the front of that slab by
-// one non-blocking copy from pinned memory.  The kernel takes its inputs
-// and outputs wherever the pointers say.
-// Design: one thread per element (K10, over the table's running element
-// starts, as in a multi-tensor apply) or per (row, column) (K11),
-// consecutive threads on consecutive addresses of one entry's values or
-// of the output, so those accesses coalesce; the dst writes are as
-// scattered as the lanes, the K11 reads as the slots.
+// K11's about its launch path: one C call a dispatch (kt_gather_rows) on
+// the mirror set's workspace (ops/resident_gather.py _Plan: an int64
+// GatherCall block with the mirror pointers and the outputs' slab
+// offsets filled once), which from host inputs also stages them through
+// the workspace's ring of pinned buffers and uploads them into the front
+// of the call's output slab (see kt_gather_rows).
+// Design: K10 one thread per element (over the table's running element
+// starts, as in a multi-tensor apply), consecutive threads on
+// consecutive addresses of one entry's values, so those reads coalesce;
+// the dst writes are as scattered as the lanes.  K11 GATHER_ROWS rows a
+// block: its first warp a row a thread (every scalar field's load issued
+// before any store), the other threads the rows' prev / evict columns,
+// consecutive threads on consecutive output addresses; 32-bit index
+// arithmetic; the slot-store reads are as scattered as the slots.
+#include <cstring>
+
 #include "common.cuh"
 
 constexpr int NT = 256;
@@ -131,7 +136,8 @@ extern "C" int kt_scatter_lanes(const i64* h, void* stream) {
 }
 
 // Slot-store fields in resident_gather.GATHER_FIELDS order, then the
-// outputs in OUT_FIELDS order (ops/solver._BINDING_FIELDS).
+// outputs in OUT_FIELDS order (ops/solver._BINDING_FIELDS): the kernel's
+// parameters.
 struct GatherArgs {
   const i64* slots;                 // [B], -1 = padding row
   const int* lane_inv;              // [C] or null (plain flavour)
@@ -163,52 +169,176 @@ struct GatherArgs {
   i64 B, Kp, Ke;
 };
 
+static_assert(sizeof(GatherArgs) == 30 * sizeof(i64), "GatherArgs layout");
+
+// staging buffers a mirror set's workspace cycles through
+constexpr int GATHER_RING = 4;
+
+// One K11 call as resident_gather._Plan lays out its int64 block
+// (kernels.GatherCall): the kernel's inputs, the mirrors, the outputs as
+// byte offsets into the call's device slab, then the call and the
+// workspace's staging ring.  The C entry writes only `next`.
+struct GatherCall {
+  i64 slots, lane_inv, drop;  // addresses; with `staged` host addresses
+  i64 mirrors[12];            // GATHER_FIELDS order
+  i64 out_off[12];            // OUT_FIELDS order, bytes from `slab`
+  i64 B, Kp, Ke;
+  i64 slab;                   // the call's device slab
+  i64 staged;                 // 1: stage the inputs through the ring
+  i64 n_inv;                  // lane_inv's entries (staged sub flavour)
+  i64 ring;                   // pinned: GATHER_RING buffers of ring_bytes
+  i64 ring_bytes;
+  i64 next;                   // the buffer the next staged call takes
+  i64 done[GATHER_RING];      // cudaEvent_t: each buffer's last copy
+};
+static_assert(sizeof(GatherCall) == (36 + GATHER_RING) * sizeof(i64),
+              "GatherCall layout");
+
 __device__ __forceinline__ int remap(const GatherArgs& a, int lane) {
   if (a.lane_inv == nullptr || lane < 0) return lane;
   return a.lane_inv[lane];
 }
 
-// Thread (b, j): j == 0 writes the row's scalar fields, j in [1, 1 + Kp)
-// prev column j - 1, the rest evict column j - 1 - Kp.
-__global__ void __launch_bounds__(NT) gather_kernel(GatherArgs a) {
-  const i64 W = 1 + a.Kp + a.Ke;
-  const i64 n = a.B * W;
-  for (i64 t = (i64)blockIdx.x * NT + threadIdx.x; t < n;
-       t += (i64)gridDim.x * NT) {
-    const i64 b = t / W;
-    const i64 j = t - b * W;
+// rows a K11 block gathers; its first warp writes their scalar fields
+// (thread t: row r0 + t, every field), the other threads their prev and
+// evict columns, flattened row-major over the block's rows (consecutive
+// threads on consecutive output addresses).  32-bit indices: a batch has
+// fewer than 2^31 rows and entries.
+constexpr int GATHER_ROWS = 32;
+
+__global__ void __launch_bounds__(NT)
+    gather_kernel(const __grid_constant__ GatherArgs a) {
+  const int B = (int)a.B, Kp = (int)a.Kp, Ke = (int)a.Ke;
+  const int r0 = blockIdx.x * GATHER_ROWS;
+  const int rows = min(GATHER_ROWS, B - r0);
+  const int t = threadIdx.x;
+  if (t < GATHER_ROWS) {
+    if (t >= rows) return;
+    const int b = r0 + t;
     const i64 s = a.slots[b];
     const bool ok = s >= 0;
-    if (j == 0) {
-      bool valid = ok && a.s_route[s] == ROUTE_DEVICE;
-      if (a.drop != nullptr && a.drop[b]) valid = false;
-      a.b_valid[b] = valid;
-      a.placement_id[b] = ok ? a.s_placement_id[s] : 0;
-      a.gvk_id[b] = ok ? a.s_gvk_id[s] : 0;
-      a.class_id[b] = ok ? a.s_class_id[s] : -1;
-      a.replicas[b] = ok ? a.s_replicas[s] : 0;
-      a.uid_desc[b] = ok ? a.s_uid_desc[s] : 0;
-      a.fresh[b] = ok ? a.s_fresh[s] : 0;
-      a.non_workload[b] = ok ? a.s_non_workload[s] : 0;
-      a.nw_shortcut[b] = ok ? a.s_nw_shortcut[s] : 0;
-    } else if (j <= a.Kp) {
-      const i64 k = j - 1;
-      const int lane = remap(a, ok ? a.s_prev_idx[s * a.Kp + k] : -1);
-      a.prev_idx[b * a.Kp + k] = lane;
-      // the sub flavour zeroes the value of a lane outside the union
-      const bool keep = ok && (a.lane_inv == nullptr || lane >= 0);
-      a.prev_val[b * a.Kp + k] = keep ? a.s_prev_val[s * a.Kp + k] : 0;
-    } else {
-      const i64 k = j - 1 - a.Kp;
-      a.evict_idx[b * a.Ke + k] =
-          remap(a, ok ? a.s_evict_idx[s * a.Ke + k] : -1);
-    }
+    const i64 q = ok ? s : 0;
+    // every load issued before any store: one round trip a row
+    const int route = a.s_route[q], pid = a.s_placement_id[q],
+              gvk = a.s_gvk_id[q], cid = a.s_class_id[q];
+    const i64 rep = a.s_replicas[q];
+    const unsigned char ud = a.s_uid_desc[q], fr = a.s_fresh[q],
+                        nw = a.s_non_workload[q], ns = a.s_nw_shortcut[q];
+    const bool dropped = a.drop != nullptr && a.drop[b];
+    a.b_valid[b] = ok && route == ROUTE_DEVICE && !dropped;
+    a.placement_id[b] = ok ? pid : 0;
+    a.gvk_id[b] = ok ? gvk : 0;
+    a.class_id[b] = ok ? cid : -1;
+    a.replicas[b] = ok ? rep : 0;
+    a.uid_desc[b] = ok ? ud : 0;
+    a.fresh[b] = ok ? fr : 0;
+    a.non_workload[b] = ok ? nw : 0;
+    a.nw_shortcut[b] = ok ? ns : 0;
+    return;
+  }
+  constexpr int STEP = NT - GATHER_ROWS;
+  for (int e = t - GATHER_ROWS; e < rows * Kp; e += STEP) {
+    const int r = e / Kp, k = e - r * Kp;
+    const i64 s = a.slots[r0 + r];
+    const bool ok = s >= 0;
+    const int lane = remap(a, ok ? a.s_prev_idx[s * Kp + k] : -1);
+    // the sub flavour zeroes the value of a lane outside the union
+    const bool keep = ok && (a.lane_inv == nullptr || lane >= 0);
+    const i64 o = (i64)r0 * Kp + e;
+    a.prev_idx[o] = lane;
+    a.prev_val[o] = keep ? a.s_prev_val[s * Kp + k] : 0;
+  }
+  for (int e = t - GATHER_ROWS; e < rows * Ke; e += STEP) {
+    const int r = e / Ke, k = e - r * Ke;
+    const i64 s = a.slots[r0 + r];
+    a.evict_idx[(i64)r0 * Ke + e] =
+        remap(a, s >= 0 ? a.s_evict_idx[s * Ke + k] : -1);
   }
 }
 
-extern "C" int kt_gather_rows(const GatherArgs* a, void* stream) {
-  const i64 n = a->B * (1 + a->Kp + a->Ke);
-  if (n <= 0) return 0;
-  gather_kernel<<<grid_for(n), NT, 0, (cudaStream_t)stream>>>(*a);
+static i64 align16(i64 n) { return (n + 15) / 16 * 16; }
+
+// One K11 dispatch (resident_gather._launch): the kernel's parameters from
+// the block; with `staged`, the host inputs (slots; lane_inv and drop in
+// the sub flavour) are copied into the ring's next buffer -- once the
+// event of that buffer's last copy has completed -- in the slab's input
+// layout (each 16-byte aligned, slots first: resident_gather._staged_len)
+// and uploaded into the front of the slab by one copy; the event is
+// recorded after it.  Two calls in flight never share a buffer: a buffer
+// is taken again only GATHER_RING staged calls later, and only after its
+// copy is done.
+extern "C" int kt_gather_rows(i64* blk, void* stream) {
+  GatherCall& c = *(GatherCall*)blk;
+  if (c.B <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const i64 base = c.slab;
+  GatherArgs a;
+  // the inputs and mirrors as they lie in the block, then the outputs
+  memcpy(&a, &c.slots, 15 * sizeof(i64));
+  i64 outs[12];
+  for (int i = 0; i < 12; ++i) outs[i] = base + c.out_off[i];
+  memcpy(&a.b_valid, outs, sizeof(outs));
+  a.B = c.B;
+  a.Kp = c.Kp;
+  a.Ke = c.Ke;
+  cudaEvent_t done = nullptr;
+  if (c.staged) {
+    const int i = (int)c.next;
+    done = (cudaEvent_t)c.done[i];
+    if (done == nullptr) return (int)cudaErrorInvalidResourceHandle;
+    cudaError_t e = cudaEventSynchronize(done);
+    if (e != cudaSuccess) return (int)e;
+    const i64 o_inv = align16(c.B * 8);
+    const i64 o_drop = o_inv + (c.lane_inv ? align16(c.n_inv * 4) : 0);
+    const i64 n = c.lane_inv ? o_drop + align16(c.B) : o_inv;
+    if (n > c.ring_bytes) return (int)cudaErrorInvalidValue;
+    char* h = (char*)(c.ring + i * c.ring_bytes);
+    memcpy(h, (const void*)c.slots, (size_t)c.B * 8);
+    a.slots = (const i64*)base;
+    if (c.lane_inv) {
+      memcpy(h + o_inv, (const void*)c.lane_inv, (size_t)c.n_inv * 4);
+      memcpy(h + o_drop, (const void*)c.drop, (size_t)c.B);
+      a.lane_inv = (const int*)(base + o_inv);
+      a.drop = (const unsigned char*)(base + o_drop);
+    }
+    e = cudaMemcpyAsync((void*)base, h, (size_t)n, cudaMemcpyHostToDevice,
+                        st);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaEventRecord(done, st);
+    if (e != cudaSuccess) return (int)e;
+    c.next = (i + 1) % GATHER_RING;
+  }
+  const unsigned grid = (unsigned)((c.B + GATHER_ROWS - 1) / GATHER_ROWS);
+  gather_kernel<<<grid, NT, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The ring's events, made once per workspace (block fields `done`).
+extern "C" int kt_gather_ring_init(i64* blk, void*) {
+  GatherCall& c = *(GatherCall*)blk;
+  for (int i = 0; i < GATHER_RING; ++i) {
+    cudaEvent_t e;
+    const cudaError_t r =
+        cudaEventCreateWithFlags(&e, cudaEventDisableTiming);
+    if (r != cudaSuccess) return (int)r;
+    c.done[i] = (i64)e;
+  }
+  c.next = 0;
+  return 0;
+}
+
+// Waits for the ring's copies and destroys its events: the workspace's
+// pinned buffers may then be released.
+extern "C" int kt_gather_ring_free(i64* blk, void*) {
+  GatherCall& c = *(GatherCall*)blk;
+  int rc = 0;
+  for (int i = 0; i < GATHER_RING; ++i) {
+    cudaEvent_t e = (cudaEvent_t)c.done[i];
+    if (e == nullptr) continue;
+    cudaError_t r = cudaEventSynchronize(e);
+    if (r == cudaSuccess) r = cudaEventDestroy(e);
+    if (r != cudaSuccess && rc == 0) rc = (int)r;
+    c.done[i] = 0;
+  }
+  return rc;
 }

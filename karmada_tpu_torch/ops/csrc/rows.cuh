@@ -1,6 +1,6 @@
 // The per-row prologue K2 schedule_rows, K5 spread_group_info, K6
-// spread_pick, K7 explain_rows and K8 shortlist_topk share, and the block
-// sort K2 and K8 use.
+// spread_pick, K7 explain_rows and K8 shortlist_topk share, the COO
+// bitmaps K2 and K7 use, and the block sort K2 and K8 use.
 //
 // Replaces the dense [B, C] planes the JAX programs build before their
 // per-row math -- karmada_tpu/ops/solver.py _schedule_core (the prev/evict
@@ -73,6 +73,32 @@ __device__ void load_row(const A& a, i64 b, Row& row, int* pidx, i64* pval,
   row.pval = pval;
   row.eidx = eidx;
   __syncthreads();  // n_prev / n_evict may be reused by a later call
+}
+
+// The row's prev and evict lanes in [lo, lo + 32 * words) as bitmaps in
+// shared memory: `bits` holds 2 * words words, lane c is bit (c - lo) % 32
+// of word (c - lo) / 32, the evict bitmap after the prev one.  A lane's
+// bit is the OR of its entries, so duplicate prev lanes and a lane that is
+// both prev and evict come out exact; a bitmap answers "is c a prev /
+// evict lane", not the prev replicas (those still sum the entries).
+// Every thread of the block calls; the bitmaps are complete on return.
+// K2 (schedule_rows.cu plane_bits: all C lanes at once) and K7
+// (explain.cu: BITS_TILE lanes at a time) share it.
+template <int NT>
+__device__ void row_bits(const Row& row, i64 lo, int words, unsigned* bits) {
+  for (int i = threadIdx.x; i < 2 * words; i += NT) bits[i] = 0;
+  __syncthreads();
+  const i64 span = (i64)words * 32;
+  for (int e = threadIdx.x; e < row.n_prev; e += NT) {
+    const i64 c = row.pidx[e] - lo;
+    if (c >= 0 && c < span) atomicOr(&bits[c >> 5], 1u << (c & 31));
+  }
+  for (int e = threadIdx.x; e < row.n_evict; e += NT) {
+    const i64 c = row.eidx[e] - lo;
+    if (c >= 0 && c < span)
+      atomicOr(&bits[words + (c >> 5)], 1u << (c & 31));
+  }
+  __syncthreads();
 }
 
 template <class A>

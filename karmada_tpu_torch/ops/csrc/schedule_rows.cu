@@ -88,8 +88,8 @@ constexpr int STATUS_OK = 0, STATUS_FIT_ERROR = 1, STATUS_UNSCHEDULABLE = 2,
 // scratch); NT: threads a row; MIN_BLOCKS: blocks an SM must hold at once;
 // BITS_LANES: up to this many lanes the passes over C find a lane's prev
 // and evict entries in shared-memory bitmaps of the row's COO entries
-// (row_bits; else by a loop over the entries -- the std tier's rows hold
-// at most 16 prev entries, the big tier's up to 128)
+// (rows.cuh row_bits; else by a loop over the entries -- the std tier's
+// rows hold at most 16 prev entries, the big tier's up to 128)
 template <int G_PREV_, int G_TOPK_, int DIRECT_MAX_, bool WORK_SMEM_,
           int NT_, int MIN_BLOCKS_, int BITS_LANES_>
 struct Tier {
@@ -192,7 +192,7 @@ struct Smem {
   int *nr, *rank_w, *rest_pos, *lane, *pos, *order, *sidx, *pidx, *eidx,
       *hist;
   unsigned char *feas, *pp, *sel, *in_sel, *active, *inc;
-  unsigned* bits;  // row_bits' bitmaps after the COO entries, or null
+  unsigned* bits;  // plane_bits' bitmaps after the COO entries, or null
 };
 
 __host__ __device__ inline size_t work_bytes(int lmax) {
@@ -204,7 +204,7 @@ __host__ __device__ inline size_t sort_bytes(int sortn, i64 Kp, i64 Ke) {
   return (size_t)(sortn + Kp) * 8 + (size_t)(sortn + Kp + Ke) * 4;
 }
 
-// the row_bits bitmaps' bytes for C lanes on tier T (0: none)
+// the plane_bits bitmaps' bytes for C lanes on tier T (0: none)
 template <class T>
 __host__ __device__ inline size_t bits_bytes(i64 C) {
   return C > T::DIRECT_MAX && C <= T::BITS_LANES ? (size_t)(C + 31) / 32 * 8
@@ -285,7 +285,7 @@ __device__ __forceinline__ i64 rank_eff_of(const RowsArgs& a, const Row& row,
 }
 
 // One row's [P, C], [G, C] and [Q + 1, C] plane rows, for the passes over
-// every lane (lane_planes, lane_keys), and its row_bits bitmaps (pbits,
+// every lane (lane_planes, lane_keys), and its plane_bits bitmaps (pbits,
 // ebits; null: none)
 struct RowPlanes {
   const unsigned char *mask, *tol, *api;
@@ -301,21 +301,14 @@ __device__ __forceinline__ RowPlanes row_planes(const RowsArgs& a,
           nullptr, nullptr};
 }
 
-// The row's prev and evict lanes as bitmaps over its C lanes in shared
-// memory (`bits`: 2 * ceil(C / 32) words; lane c is bit c % 32 of word
-// c / 32, the evict bitmap after the prev one), into P; every thread of
-// the block calls.
+// The row's prev and evict bitmaps over all its C lanes (rows.cuh
+// row_bits; `bits`: 2 * ceil(C / 32) words of shared memory), into P;
+// every thread of the block calls.
 template <int NT>
-__device__ void row_bits(const Row& row, i64 C, unsigned* bits,
-                         RowPlanes& P) {
+__device__ void plane_bits(const Row& row, i64 C, unsigned* bits,
+                           RowPlanes& P) {
   const int words = (int)((C + 31) / 32);
-  for (int i = threadIdx.x; i < 2 * words; i += NT) bits[i] = 0;
-  __syncthreads();
-  for (int e = threadIdx.x; e < row.n_prev; e += NT)
-    atomicOr(&bits[row.pidx[e] >> 5], 1u << (row.pidx[e] & 31));
-  for (int e = threadIdx.x; e < row.n_evict; e += NT)
-    atomicOr(&bits[words + (row.eidx[e] >> 5)], 1u << (row.eidx[e] & 31));
-  __syncthreads();
+  row_bits<NT>(row, 0, words, bits);
   P.pbits = bits;
   P.ebits = bits + words;
 }
@@ -422,7 +415,7 @@ __device__ int select_lanes(const RowsArgs& a, const Row& row, Smem& s,
   const int ng = a.use_extra ? 5 : 4;
   const bool has_prev = row.n_prev > 0;
   RowPlanes P = row_planes(a, row);
-  if (s.bits != nullptr) row_bits<NT>(row, a.C, s.bits, P);
+  if (s.bits != nullptr) plane_bits<NT>(row, a.C, s.bits, P);
   const int C = (int)a.C;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   __shared__ int cnt[NG_MAX], rem[NG_MAX], shift[NG_MAX], state[NG_MAX],
@@ -969,7 +962,7 @@ __global__ void __launch_bounds__(T::NT) schedule_rows_finish(RowsArgs a) {
     row.strategy = a.pl_strategy[row.pid];
     P = row_planes(a, row);
     if (bits_bytes<T>(C))
-      row_bits<NT>(row, C, (unsigned*)(pidx + a.Kp + a.Ke), P);
+      plane_bits<NT>(row, C, (unsigned*)(pidx + a.Kp + a.Ke), P);
   }
   auto feas_at = [&](i64 c) -> bool {
     if (direct) return a.wk_feas[wo + c];

@@ -14,8 +14,9 @@ are both 8 bytes), which is cheaper to build.
 The launch path is lean because the small kernels' time on the card is
 their host cost: once every library is loaded, ``build()`` returns
 without taking its lock, each C entry is resolved once into ``_FNS``,
-and the stream handle is read from ``torch.cuda.current_stream(index)``
-with the operands' device index.
+and the stream handle is read with the operands' device index by
+PyTorch's raw accessor (``torch._C._cuda_getCurrentRawStream``, which makes
+no Stream object; ``torch.cuda.current_stream`` where a build lacks it).
 
 Nothing here runs at import time: the CPU tests import every module, and
 ``nvcc`` is needed only once a CUDA tensor reaches a kernel wrapper.
@@ -49,7 +50,8 @@ ENTRIES = {"capacity": ("capacity",),
            "spread_pick": ("spread_pick",),
            "explain": ("explain_rows", "explain_rows_spread"),
            "shortlist": ("shortlist_topk", "group_sums"),
-           "resident": ("scatter_lanes", "gather_rows"),
+           "resident": ("scatter_lanes", "gather_rows", "gather_ring_init",
+                        "gather_ring_free"),
            "dirty": ("dirty_codes",),
            "rebalance": ("rebalance_score",)}
 #: the kernels, by launch counter: K2's big-tier instantiation counts
@@ -155,6 +157,13 @@ def build(verbose: bool = False) -> Dict[str, Path]:
         return _PATHS
 
 
+#: the handle of a CUDA device's current stream, by device index:
+#: PyTorch's raw accessor where the build has it (it makes no Stream
+#: object, unlike torch.cuda.current_stream)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 
@@ -201,7 +210,8 @@ def launch(source: str, args: Union[ctypes.Structure, array.array],
         fn = _FNS[entry]
     block = (args.buffer_info()[0] if isinstance(args, array.array)
              else ctypes.addressof(args))
-    rc = fn(block, torch.cuda.current_stream(device).cuda_stream)
+    rc = fn(block, _raw_stream(torch.cuda.current_device()
+                               if device is None else device))
     if rc != 0:
         raise RuntimeError(f"kernel {entry} launch failed: CUDA error {rc}")
     if count:
@@ -341,13 +351,27 @@ def spread_info_fields() -> int:
     return _SPREAD_INFO_LAYOUT[0]
 
 
-ExplainArgs = _struct("ExplainArgs", (
+#: K7's DeviceBatch operands, in its argument block's order
+EXPLAIN_TENSOR_FIELDS = (
     "cluster_valid", "deleting", "api_ok", "pl_mask", "pl_tol_bypass",
     "pl_extra_score", "b_valid", "placement_id", "gvk_id", "class_id",
     "replicas", "non_workload", "nw_shortcut", "prev_idx", "prev_val",
-    "evict_idx", "est", "fail_bits", "sel", "pick", "status", "verdict",
-    "score", "avail", "outcome"),
-    ("r0", "r1", "C", "Q", "Kp", "Ke"))
+    "evict_idx")
+
+ExplainArgs = _struct("ExplainArgs", EXPLAIN_TENSOR_FIELDS + (
+    "est", "fail_bits", "sel", "pick", "status", "verdict", "score",
+    "avail", "outcome"),
+    ("r0", "r1", "C", "Q", "Kp", "Ke", "use_extra"))
+
+#: ExplainArgs' fields in order, each 8 bytes (a pointer or an int64)
+EXPLAIN_FIELDS = tuple(f for f, _t in ExplainArgs._fields_)
+
+
+def explain_block(values: dict) -> array.array:
+    """K7's argument block as its workspace builds it: an ``array("q")``
+    laid out like ExplainArgs, from {field: int} for every field of
+    EXPLAIN_FIELDS."""
+    return array.array("q", [values[f] for f in EXPLAIN_FIELDS])
 
 #: K8's DeviceBatch operands, in its argument block's order (shortlist.cu
 #: TopkArgs: these, then group_pref, the two key scratches, cand and
@@ -371,16 +395,30 @@ TOPK_MAX_K = 4096
 #: the bins tile by tile (shortlist.cu GS_TILE_BINS)
 GROUP_SUM_TILE_BINS = 232448 // 8
 
-#: K11's slot-store operands (resident_gather.GATHER_FIELDS order) and
-#: outputs (resident_gather.OUT_FIELDS order)
-GatherArgs = _struct("GatherArgs", (
-    "slots", "lane_inv", "drop",
-    "s_placement_id", "s_gvk_id", "s_class_id", "s_replicas", "s_uid_desc",
-    "s_fresh", "s_non_workload", "s_nw_shortcut", "s_route", "s_prev_idx",
-    "s_prev_val", "s_evict_idx",
-    "b_valid", "placement_id", "gvk_id", "class_id", "replicas", "uid_desc",
-    "fresh", "non_workload", "nw_shortcut", "prev_idx", "prev_val",
-    "evict_idx"), ("B", "Kp", "Ke"))
+#: staging buffers of a K11 workspace (resident.cu GATHER_RING)
+GATHER_RING = 4
+
+#: K11's call block (resident.cu GatherCall), int64 slots in order, a
+#: field's width in slots: the inputs, the slot-store mirrors
+#: (resident_gather.GATHER_FIELDS order), the outputs' byte offsets into
+#: the call's slab (OUT_FIELDS order), B, Kp, Ke, the slab, the staging
+#: flag and lane_inv's entries, then the workspace's ring: its pinned
+#: buffers, their size, the next one and their events
+GATHER_CALL = (("slots", 1), ("lane_inv", 1), ("drop", 1), ("mirrors", 12),
+               ("out_off", 12), ("B", 1), ("Kp", 1), ("Ke", 1),
+               ("slab", 1), ("staged", 1), ("n_inv", 1), ("ring", 1),
+               ("ring_bytes", 1), ("next", 1), ("done", GATHER_RING))
+
+
+def gather_call_offsets() -> Dict[str, int]:
+    """Each GATHER_CALL field's first int64 slot, and "len" the block's."""
+    out, at = {}, 0
+    for f, n in GATHER_CALL:
+        out[f] = at
+        at += n
+    out["len"] = at
+    return out
+
 
 DIRTY_TENSOR_FIELDS = (
     "placement_id", "replicas", "fresh", "non_workload", "route", "prev_idx",

@@ -20,26 +20,33 @@ Dispatches, gathered rows, scattered slot rows and the mirror syncs'
 fused scatters (ops/resident_update.scatter_fields) are counted in COUNTS
 (plain ints).
 
-K11's device work is a few microseconds; its time on the card was its
-host path, so the launch path is lean:
+K11's device work is a few microseconds; its time on the card is its
+host path, so a call is one C call on a workspace of the mirror set:
 
   * the mirrors are checked in full once per mirror set: the last
-    validated set is kept (weakly) with each tensor's identity, data_ptr,
-    dtype and shape, and any change is checked again (a mirror sync
-    scatters in place, so the set changes only when a mirror is
+    validated set (_Plan) is kept (weakly) with each tensor's identity,
+    data_ptr, dtype and shape, and any change is checked again (a mirror
+    sync scatters in place, so the set changes only when a mirror is
     re-placed);
-  * the argument block is an ``array("q")`` with the mirror pointers
-    filled once per set; a call writes only its inputs, outputs and B;
-  * a call makes one device allocation, a slab carved into the twelve
-    outputs (fresh per call: they are live operands of an in-flight
-    solve), and from host slots (dispatch_gather, dispatch_sub_gather)
-    the inputs are staged in one pinned buffer and uploaded into the
-    front of the slab by one non-blocking copy.
+  * the set's call block (an ``array("q")`` laid out like resident.cu
+    GatherCall) holds the mirror pointers, and the outputs' offsets of
+    each call layout (built once per (B, staged)); a call writes its
+    inputs, B and its slab;
+  * a call's slab, carved into the twelve outputs, is fresh memory (they
+    are live operands of an in-flight solve): one torch.empty a call;
+  * from host inputs (dispatch_gather, dispatch_sub_gather) the C call
+    itself copies the slots (and lane_inv, drop) into the next of the
+    set's kernels.GATHER_RING pinned buffers -- once the event of that
+    buffer's last upload has completed, so calls in flight never share
+    one -- and uploads them into the front of the slab with one
+    cudaMemcpyAsync before the kernel: no pinned allocation and no torch
+    copy a call.  An upload, not a kernel reading the pinned buffer over
+    the bus: the sub flavour's lane_inv is read at B x (Kp + Ke)
+    scattered lanes, each a bus round trip from mapped memory.
 """
 
 from __future__ import annotations
 
-import math
 import weakref
 from array import array
 from typing import Dict, List
@@ -131,10 +138,8 @@ def sub_gather_batch_plain(slots, mirrors, lane_inv, drop):
 
 # -- K11's launch path on the card ---------------------------------------------
 
-#: GatherArgs (ops/csrc/resident.cu) as an int64 argument block: the
-#: inputs (slots, lane_inv, drop), the twelve mirrors (GATHER_FIELDS
-#: order), the twelve outputs (OUT_FIELDS order), then B, Kp, Ke
-_ARG_MIRRORS, _ARG_OUTS, _ARG_B = 3, 15, 27
+#: kernels.GATHER_CALL's slots in the int64 call block
+_AT = kernels.gather_call_offsets()
 _ALIGN = 16
 
 
@@ -142,24 +147,65 @@ def _aligned(n: int) -> int:
     return -(-n // _ALIGN) * _ALIGN
 
 
-class _Plan:
-    """A validated mirror set: weak references to the twelve mirror
-    tensors (a collected mirror never matches) and their (data_ptr, dtype,
-    shape) signature, the store's Kp and Ke, K11's argument block with the
-    mirror pointers filled, and the last call's layout."""
+def _staged_len(B: int, n_inv: int, sub: bool) -> int:
+    """Bytes of a staged call's inputs at the front of its slab: the
+    slots, then (sub flavour) lane_inv and drop, each 16-byte aligned
+    (resident.cu kt_gather_rows lays them out alike)."""
+    n = _aligned(8 * B)
+    return n + _aligned(4 * n_inv) + _aligned(B) if sub else n
 
-    __slots__ = ("refs", "sig", "Kp", "Ke", "dev", "blk", "layout")
+
+def _free_ring(blk, ring, dev) -> None:
+    """A workspace's ring released: its copies waited for, its events
+    destroyed; `ring` (the pinned buffers) is dropped after."""
+    kernels.launch("resident", blk, "gather_ring_free", device=dev)
+
+
+class _Plan:
+    """A validated mirror set and its workspace: weak references to the
+    twelve mirror tensors (a collected mirror never matches) and their
+    (data_ptr, dtype, shape) signature, the store's Kp and Ke, K11's call
+    block (kernels.GATHER_CALL) with the mirror pointers, Kp and Ke
+    filled, the call layouts by (B, staged) and which one's output offsets
+    the block holds, the staging ring: kernels.GATHER_RING pinned
+    buffers, made at the first call from host inputs and grown when a
+    call needs more, with one event each (made and destroyed by the C
+    entries; a dropped workspace waits for its copies first)."""
+
+    __slots__ = ("refs", "sig", "Kp", "Ke", "dev", "device", "blk",
+                 "layouts", "key", "ring", "fin", "__weakref__")
 
     def __init__(self, ts, Kp, Ke):
         self.refs = [weakref.ref(t) for t in ts]
         self.sig = _signature(ts)
         self.Kp, self.Ke = Kp, Ke
-        self.dev = ts[0].device.index
-        self.blk = array("q", [0] * (_ARG_B + 3))
-        self.blk[_ARG_MIRRORS:_ARG_OUTS] = array(
-            "q", (t.data_ptr() for t in ts))
-        self.blk[_ARG_B + 1], self.blk[_ARG_B + 2] = Kp, Ke
-        self.layout = (None, None)
+        self.device = ts[0].device
+        self.dev = self.device.index
+        self.blk = array("q", [0] * _AT["len"])
+        m = _AT["mirrors"]
+        self.blk[m:m + len(ts)] = array("q", (t.data_ptr() for t in ts))
+        self.blk[_AT["Kp"]], self.blk[_AT["Ke"]] = Kp, Ke
+        self.layouts = {}
+        self.key = None
+        self.ring = self.fin = None
+
+    def stage(self, need: int) -> None:
+        """The ring's buffers hold at least `need` bytes each."""
+        blk = self.blk
+        have = blk[_AT["ring_bytes"]]
+        if have >= need:
+            return
+        if self.fin is not None:
+            self.fin()
+        size = _aligned(max(need, 2 * have))
+        self.ring = torch.empty((kernels.GATHER_RING * size,),
+                                dtype=torch.uint8, pin_memory=True)
+        blk[_AT["ring"]] = self.ring.data_ptr()
+        blk[_AT["ring_bytes"]] = size
+        kernels.launch("resident", blk, "gather_ring_init", device=self.dev)
+        self.fin = weakref.finalize(self, _free_ring, blk, self.ring,
+                                    self.dev)
+        self.fin.atexit = False
 
 
 #: the last validated mirror set: a mirror sync scatters in place, so
@@ -196,54 +242,71 @@ def _plan(mirrors) -> _Plan:
 
 def _layout(p: _Plan, B: int, staged: int):
     """One call's device slab: `staged` bytes of uploaded inputs, then the
-    outputs by dtype (int64, int32, bool), each region 16-byte aligned.
-    Returns (slab bytes, [(dtype, size, stride, element offset)] and the
-    byte offsets, both in OUT_FIELDS order).  The last call's layout is
-    kept: consecutive chunks mostly share B."""
-    key, lay = p.layout
-    if key == (B, staged):
+    outputs by dtype (int64, int32, bool; OUT_FIELDS order within each),
+    each region 16-byte aligned.  Returns (slab bytes, the views' spec,
+    the byte offsets in OUT_FIELDS order), built once per (B, staged):
+    consecutive chunks mostly share B."""
+    lay = p.layouts.get((B, staged))
+    if lay is not None:
         return lay
     Kp, Ke = p.Kp, p.Ke
-    shapes = {f: ((B, Kp) if f in ("prev_idx", "prev_val")
-                  else (B, Ke) if f == "evict_idx" else (B,))
-              for f in OUT_FIELDS}
-    dts = {f: getattr(torch, FIELD_DTYPES[f]) for f in OUT_FIELDS}
-    at, offs = staged, {}
+    sizes = {f: (B * Kp if f in ("prev_idx", "prev_val")
+                 else B * Ke if f == "evict_idx" else B)
+             for f in OUT_FIELDS}
+    item = {f: getattr(torch, FIELD_DTYPES[f]).itemsize for f in OUT_FIELDS}
+    at, offs, regions = staged, {}, []
     for size in (8, 4, 1):
-        for f in OUT_FIELDS:
-            if dts[f].itemsize == size:
-                offs[f] = at
-                at += math.prod(shapes[f]) * size
+        fields = [f for f in OUT_FIELDS if item[f] == size]
+        regions.append((at, at + size * sum(sizes[f] for f in fields)))
+        for f in fields:
+            offs[f] = at
+            at += sizes[f] * size
         at = _aligned(at)
-    spec = []
-    for f in OUT_FIELDS:
-        shape = shapes[f]
-        stride = (shape[1], 1) if len(shape) == 2 else (1,)
-        spec.append((dts[f], shape, stride, offs[f] // dts[f].itemsize))
-    lay = (at, spec, [offs[f] for f in OUT_FIELDS])
-    p.layout = ((B, staged), lay)
+    split = tuple(tuple(sizes[f] for f in OUT_FIELDS if item[f] == size)
+                  for size in (4, 1))
+    lay = (at, (B, Kp, Ke, regions, split), [offs[f] for f in OUT_FIELDS])
+    p.layouts[(B, staged)] = lay
     return lay
 
 
 def _views(slab, spec):
-    """The outputs (OUT_FIELDS order) as views of a call's slab."""
-    typed = {dt: slab.view(dt) for dt in (torch.int64, torch.int32,
-                                          torch.bool)}
-    return tuple(typed[dt].as_strided(size, stride, off)
-                 for dt, size, stride, off in spec)
+    """The outputs (OUT_FIELDS order) as views of a call's slab: a view
+    and one split a dtype region (the per-op cost, not the per-tensor
+    one, is what a call pays on the host)."""
+    B, Kp, Ke, ((a8, b8), (a4, b4), (a1, b1)), (n4, n1) = spec
+    rep = slab[a8:b8].view(torch.int64)
+    pid, gvk, cid, pi, pv, ev = slab[a4:b4].view(torch.int32) \
+        .split_with_sizes(n4)
+    bv, ud, fr, nw, ns = slab[a1:b1].view(torch.bool).split_with_sizes(n1)
+    return (bv, pid, gvk, cid, rep, ud, fr, nw, ns, pi.view(B, Kp),
+            pv.view(B, Kp), ev.view(B, Ke))
 
 
-def _launch(p: _Plan, slab, B: int, spec, out_offs, inputs):
-    """K11 into `slab`'s output region: `inputs` are the slots, lane_inv
-    and drop addresses (0 = absent).  Returns the outputs."""
-    base = slab.data_ptr()
+def _launch(p: _Plan, B: int, staged: int, inputs, n_inv: int = 0):
+    """K11, one C call: `inputs` are the slots, lane_inv and drop
+    addresses (0 = absent) -- device addresses, or with `staged` (the
+    inputs' bytes, _staged_len) host addresses that the call copies into
+    the ring's next buffer and uploads into the front of its slab (fresh
+    device memory).  Returns the outputs."""
+    nbytes, spec, offs = _layout(p, B, staged)
     blk = p.blk
-    blk[0:_ARG_MIRRORS] = array("q", inputs)
-    blk[_ARG_OUTS:_ARG_B] = array("q", [base + o for o in out_offs])
-    blk[_ARG_B] = B
+    if p.key != (B, staged):
+        o = _AT["out_off"]
+        blk[o:o + len(offs)] = array("q", offs)
+        p.key = (B, staged)
+    slab = torch.empty((nbytes,), dtype=torch.uint8, device=p.device)
+    blk[0], blk[1], blk[2] = inputs
+    blk[_B] = B
+    blk[_SLAB] = slab.data_ptr()
+    blk[_STAGED] = 1 if staged else 0
+    blk[_NINV] = n_inv
     kernels.launch("resident", blk, "gather_rows", count="gather_rows",
                    device=p.dev)
     return _views(slab, spec)
+
+
+_B, _SLAB, _STAGED, _NINV = (_AT[f] for f in ("B", "slab", "staged",
+                                              "n_inv"))
 
 
 def _gather(slots, mirrors, lane_inv=None, drop=None):
@@ -261,46 +324,36 @@ def _gather(slots, mirrors, lane_inv=None, drop=None):
     if slots.get_device() != p.dev:
         raise ValueError(f"slots on {slots.device}, the mirrors on cuda:"
                          f"{p.dev}")
-    inputs = [slots.data_ptr(), 0, 0]
+    inputs = (slots.data_ptr(), 0, 0)
     if lane_inv is not None:
         kernels.check(lane_inv, torch.int32, (lane_inv.shape[0],))
         kernels.check(drop, torch.bool, (B,))
-        inputs[1:] = lane_inv.data_ptr(), drop.data_ptr()
-    nbytes, spec, out_offs = _layout(p, B, 0)
-    slab = torch.empty((nbytes,), dtype=torch.uint8, device=slots.device)
-    return _launch(p, slab, B, spec, out_offs, inputs)
+        inputs = (inputs[0], lane_inv.data_ptr(), drop.data_ptr())
+    return _launch(p, B, 0, inputs)
 
 
 def _staged_gather(slots: np.ndarray, mirrors: dict, lane_inv=None,
                    drop=None):
-    """K11 from host inputs: slots (and lane_inv, drop) staged in one
-    pinned buffer and uploaded with one non-blocking copy into the front
-    of the call's device slab.  PyTorch's pinned-memory allocator records
-    the copy's stream event on the buffer and hands it out again only
-    once that event has completed."""
+    """K11 from host inputs: one C call copies slots (and lane_inv, drop)
+    into the next buffer of the mirror set's pinned ring and uploads them
+    into the front of the call's slab by one copy before the kernel."""
     p = _plan(mirrors)
-    arrays = [np.ascontiguousarray(slots, np.int64)]
-    if lane_inv is not None:
-        arrays += [np.ascontiguousarray(lane_inv, np.int32),
-                   np.ascontiguousarray(drop, np.bool_)]
-    B = arrays[0].shape[0]
-    if lane_inv is not None and arrays[2].shape != (B,):
-        raise ValueError(f"drop shape {arrays[2].shape}, expected ({B},)")
-    in_offs, staged = [], 0
-    for a in arrays:
-        in_offs.append(staged)
-        staged = _aligned(staged + a.nbytes)
-    nbytes, spec, out_offs = _layout(p, B, staged)
-    host = torch.empty((staged,), dtype=torch.uint8, pin_memory=True)
-    hv = host.numpy()
-    for a, o in zip(arrays, in_offs):
-        hv[o:o + a.nbytes] = a.view(np.uint8)
-    slab = torch.empty((nbytes,), dtype=torch.uint8,
-                       device=mirrors["placement_id"].device)
-    slab[:staged].copy_(host, non_blocking=True)
-    base = slab.data_ptr()
-    inputs = [base + o for o in in_offs] + [0] * (3 - len(in_offs))
-    return _launch(p, slab, B, spec, out_offs, inputs)
+    s = np.ascontiguousarray(slots, np.int64)
+    B = s.shape[0]
+    if lane_inv is None:
+        staged = _staged_len(B, 0, False)
+        p.stage(staged)
+        return _launch(p, B, staged, (s.ctypes.data, 0, 0))
+    inv = np.ascontiguousarray(lane_inv, np.int32)
+    dr = np.ascontiguousarray(drop, np.bool_)
+    if inv.ndim != 1 or dr.shape != (B,):
+        raise ValueError(f"lane_inv shape {inv.shape}, drop shape "
+                         f"{dr.shape}, expected (C,) and ({B},)")
+    staged = _staged_len(B, inv.shape[0], True)
+    p.stage(staged)
+    return _launch(p, B, staged,
+                   (s.ctypes.data, inv.ctypes.data, dr.ctypes.data),
+                   inv.shape[0])
 
 
 def gather_batch(slots, mirrors):

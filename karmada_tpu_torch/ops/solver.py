@@ -1053,56 +1053,135 @@ def explain_rows_plain(db: DeviceBatch, r0: int, r1: int, est, fail_bits,
     outcome[rows] = (st.to(I64) | (code << 8)).to(i32)
 
 
+def _check_explain(db: DeviceBatch) -> None:
+    """K7's batch operands on db, checked once per DeviceBatch."""
+    if "explain" in db.checked:
+        return
+    B, C = db.B, db.C
+    P = db.pl_mask.shape[0]
+    b8 = torch.bool
+    kernels.check_fields(db.t, {
+        "cluster_valid": (b8, (C,)), "deleting": (b8, (C,)),
+        "api_ok": (b8, (db.api_ok.shape[0], C)),
+        "pl_mask": (b8, (P, C)), "pl_tol_bypass": (b8, (P, C)),
+        "pl_extra_score": (I64, (P, C)),
+        "b_valid": (b8, (B,)), "placement_id": (torch.int32, (B,)),
+        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
+        "replicas": (I64, (B,)), "non_workload": (b8, (B,)),
+        "nw_shortcut": (b8, (B,)),
+        "prev_idx": (torch.int32, (B, db.prev_idx.shape[1])),
+        "prev_val": (torch.int32, (B, db.prev_idx.shape[1])),
+        "evict_idx": (torch.int32, (B, db.evict_idx.shape[1]))})
+    db.checked.add("explain")
+
+
+#: the [C]-wide and [*, C] planes K7 reads or writes four lanes at a time
+_EXPLAIN_VEC_FIELDS = ("cluster_valid", "deleting", "api_ok", "pl_mask",
+                       "pl_tol_bypass", "pl_extra_score")
+
+
+def check_explain_vec(C: int, planes) -> None:
+    """K7 takes four lanes a thread with 4- and 16-byte vector accesses:
+    raises ValueError unless C is a multiple of 4 and every plane is
+    16-byte aligned.  The encoder's C is a power of two >= 8 and the
+    planes are fresh allocations, so the main path always passes."""
+    if C % 4:
+        raise ValueError(f"K7 needs a cluster axis that is a multiple of "
+                         f"4, not {C}")
+    if any(t.data_ptr() % 16 for t in planes):
+        raise ValueError("K7 needs every plane 16-byte aligned")
+
+
+class ExplainWorkspace:
+    """K7's argument block for the waves of one chunk on a CUDA batch:
+    an ``array("q")`` laid out like kernels.ExplainArgs with every pointer
+    filled once; a launch patches r0 and r1 (the C entry copies the block
+    into the kernel's parameters, so a patch after a call returns is
+    safe).  Checks db's operands once (DeviceBatch.checked) and the
+    others here.  With `pick` it launches the spread flavour.
+    `use_extra` False promises that db's extra-score rows are all 0
+    (solver._use_extra); K7 then does not read them."""
+
+    def __init__(self, db: DeviceBatch, est, fail_bits, sel, status, out,
+                 *, pick=None, use_extra: bool = True):
+        B, C = db.B, db.C
+        Q = db.req_milli.shape[0]
+        P = db.pl_mask.shape[0]
+        _check_explain(db)
+        kernels.check(est, I64, (Q + 1, C))
+        kernels.check(fail_bits, torch.int32,
+                      (B if pick is not None else P, C))
+        kernels.check(sel, torch.bool, (B, C))
+        if pick is not None:
+            kernels.check(pick, torch.bool, (B, C))
+        kernels.check(status, torch.int32, (B,))
+        for o, shape in zip(out, ((B, C), (B, C), (B, C), (B,))):
+            kernels.check(o, torch.int32, shape)
+        t = db.t
+        check_explain_vec(C, [t[f] for f in _EXPLAIN_VEC_FIELDS]
+                          + [est, fail_bits, sel, *out[:3]]
+                          + ([pick] if pick is not None else []))
+        vals = {f: t[f].data_ptr() for f in kernels.EXPLAIN_TENSOR_FIELDS}
+        vals.update(
+            est=est.data_ptr(), fail_bits=fail_bits.data_ptr(),
+            sel=sel.data_ptr(),
+            pick=pick.data_ptr() if pick is not None else 0,
+            status=status.data_ptr(), verdict=out[0].data_ptr(),
+            score=out[1].data_ptr(), avail=out[2].data_ptr(),
+            outcome=out[3].data_ptr(), r0=0, r1=0, C=C, Q=Q,
+            Kp=db.prev_idx.shape[1], Ke=db.evict_idx.shape[1],
+            use_extra=int(use_extra))
+        self.blk = kernels.explain_block(vals)
+        self.entry = ("explain_rows_spread" if pick is not None
+                      else "explain_rows")
+        self.operands = (db, est, fail_bits, sel, status, *out, pick,
+                         bool(use_extra))
+        self._dev = est.device.index
+
+    def matches(self, db, est, fail_bits, sel, status, out, pick,
+                use_extra) -> bool:
+        """True when this workspace was built for these operands."""
+        return all(a is b for a, b in zip(
+            (db, est, fail_bits, sel, status, *out, pick),
+            self.operands)) and bool(use_extra) == self.operands[-1]
+
+    def launch(self, r0: int, r1: int) -> None:
+        """K7 on rows [r0, r1): one C call, one count."""
+        blk = self.blk
+        blk[_XR0] = r0
+        blk[_XR1] = r1
+        kernels.launch("explain", blk, self.entry, count="explain_rows",
+                       device=self._dev)
+
+
+_XR0 = kernels.EXPLAIN_FIELDS.index("r0")
+_XR1 = kernels.EXPLAIN_FIELDS.index("r1")
+
+
 def explain_rows(db: DeviceBatch, r0: int, r1: int, est, fail_bits, sel,
-                 status, out, *, pick=None) -> None:
+                 status, out, *, pick=None, use_extra: bool = True,
+                 workspace: Optional[ExplainWorkspace] = None) -> None:
     """K7 (ops/csrc/explain.cu; launch counter "explain_rows") on a CUDA
-    batch, explain_rows_plain on a CPU one; same contract."""
+    batch, explain_rows_plain on a CPU one; same contract.  On CUDA a
+    launch is one C call on `workspace` (an ExplainWorkspace built on
+    these operands; schedule_core makes one a chunk); without one the
+    call builds its own.  `use_extra` False promises that db's
+    extra-score rows are all 0 (the plain version reads them either
+    way)."""
     if not _on_cuda(est, sel, status, db.b_valid):
         return explain_rows_plain(db, r0, r1, est, fail_bits, sel, status,
                                   out, pick=pick)
-    B, C = db.B, db.C
-    Q = db.req_milli.shape[0]
-    P = db.pl_mask.shape[0]
-    Kp = db.prev_idx.shape[1]
-    Ke = db.evict_idx.shape[1]
-    if not 0 <= r0 <= r1 <= B:
-        raise ValueError(f"row range [{r0}, {r1}) outside the batch of {B}")
-    spec = {
-        "cluster_valid": (torch.bool, (C,)), "deleting": (torch.bool, (C,)),
-        "api_ok": (torch.bool, (db.api_ok.shape[0], C)),
-        "pl_mask": (torch.bool, (P, C)), "pl_tol_bypass": (torch.bool, (P, C)),
-        "pl_extra_score": (I64, (P, C)),
-        "b_valid": (torch.bool, (B,)), "placement_id": (torch.int32, (B,)),
-        "gvk_id": (torch.int32, (B,)), "class_id": (torch.int32, (B,)),
-        "replicas": (I64, (B,)), "non_workload": (torch.bool, (B,)),
-        "nw_shortcut": (torch.bool, (B,)),
-        "prev_idx": (torch.int32, (B, Kp)), "prev_val": (torch.int32, (B, Kp)),
-        "evict_idx": (torch.int32, (B, Ke)),
-    }
-    for f, (dt, shape) in spec.items():
-        kernels.check(db.t[f], dt, shape)
-    kernels.check(est, I64, (Q + 1, C))
-    kernels.check(fail_bits, torch.int32, (B if pick is not None else P, C))
-    kernels.check(sel, torch.bool, (B, C))
-    if pick is not None:
-        kernels.check(pick, torch.bool, (B, C))
-    kernels.check(status, torch.int32, (B,))
-    for o, shape in zip(out, ((B, C), (B, C), (B, C), (B,))):
-        kernels.check(o, torch.int32, shape)
-    if r1 == r0:
-        return
-    t = db.t
-    kernels.launch("explain", kernels.ExplainArgs(
-        *(kernels.ptr(t[f]) for f in (
-            "cluster_valid", "deleting", "api_ok", "pl_mask", "pl_tol_bypass",
-            "pl_extra_score", "b_valid", "placement_id", "gvk_id",
-            "class_id", "replicas", "non_workload", "nw_shortcut",
-            "prev_idx", "prev_val", "evict_idx")),
-        kernels.ptr(est), kernels.ptr(fail_bits), kernels.ptr(sel),
-        kernels.ptr(pick) if pick is not None else 0, kernels.ptr(status),
-        *(kernels.ptr(o) for o in out), r0, r1, C, Q, Kp, Ke),
-        "explain_rows_spread" if pick is not None else "explain_rows",
-        count="explain_rows")
+    if not 0 <= r0 <= r1 <= db.B:
+        raise ValueError(f"row range [{r0}, {r1}) outside the batch of "
+                         f"{db.B}")
+    if workspace is None:
+        workspace = ExplainWorkspace(db, est, fail_bits, sel, status, out,
+                                     pick=pick, use_extra=use_extra)
+    elif not workspace.matches(db, est, fail_bits, sel, status, out, pick,
+                               use_extra):
+        raise ValueError("the workspace was built for other operands")
+    if r1 > r0:
+        workspace.launch(r0, r1)
 
 
 # ---------------------------------------------------------------------------
@@ -1196,17 +1275,23 @@ def schedule_core(db: DeviceBatch, *, waves: int, use_extra: bool,
     # each wave's K1 overwrites it; the wave's K2 and K7 read it after, on
     # the same stream
     est = torch.empty((db.req_milli.shape[0] + 1, C), dtype=I64, device=dev)
-    # one workspace (work buffers, argument block) for the chunk's waves
-    ws = (RowsWorkspace(db, Bw, est, *used, rep, sel, status, tier=tier,
-                        use_extra=use_extra, charge=charge)
-          if dev.type == "cuda" else None)
+    # one workspace (work buffers, argument block) for the chunk's waves,
+    # and one for K7's
+    ws = xws = None
+    if dev.type == "cuda":
+        ws = RowsWorkspace(db, Bw, est, *used, rep, sel, status, tier=tier,
+                           use_extra=use_extra, charge=charge)
+        if explain:
+            xws = ExplainWorkspace(db, est, db.pl_fail_bits, sel, status,
+                                   expl, use_extra=use_extra)
     for wv in range(waves):
         r0, r1 = wv * Bw, (wv + 1) * Bw
         schedule_rows(db, r0, r1, est, *used, rep, sel, status,
                       use_extra=use_extra, charge=charge, tier=tier,
                       fill_est=True, workspace=ws)
         if explain:
-            explain_rows(db, r0, r1, est, db.pl_fail_bits, sel, status, expl)
+            explain_rows(db, r0, r1, est, db.pl_fail_bits, sel, status, expl,
+                         use_extra=use_extra, workspace=xws)
     return rep, sel, status, used, expl
 
 

@@ -507,7 +507,7 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
         if capture is not None:
             capture["explain"] = ex_in + (pick,)
         planes = explain_planes(Bs, C, device)
-        explain_rows(*ex_in, planes, pick=pick)
+        explain_rows(*ex_in, planes, pick=pick, use_extra=extra)
         if explain_cb is not None:
             verdict, score, avail, outcome = (x.cpu().numpy() for x in planes)
             nc = batch.n_clusters

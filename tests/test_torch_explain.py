@@ -13,6 +13,7 @@ process-wide recorder (obs/decisions.configure) is never armed here."""
 
 import numpy as np
 import pytest
+import torch
 
 import torch_scenarios as S
 from karmada_tpu.estimator.general import GeneralEstimator as JaxEstimator
@@ -286,3 +287,102 @@ def test_disarmed_path_runs_no_k7_and_equal_results(monkeypatch, plugin):
         PT.encode_batch(ip[:12], PT.ClusterIndex.build(cp)), waves=4,
         device="cpu")
     assert handle.explain is None and len(PS.finalize_compact(handle)) == 4
+
+
+# -- the rows K7's design branches on ------------------------------------------
+
+@pytest.mark.parametrize("waves,carry", [(1, False), (4, True), (16, False)])
+def test_explain_edge_rows_match_jax(plugin, waves, carry):
+    """solve_compact(explain=True) on explain_edge_batch, the same arrays
+    in both packages: duplicate prev lanes (a prev lane is an OR of its
+    entries), an evict lane that is also a prev lane, an invalid row, an
+    UNSCHEDULABLE row, a non-workload-shortcut row and a class whose est
+    is MAX_INT32 (avail_cal the row's replicas) -- planes, COO and carry
+    equal the JAX package's bit for bit."""
+    jb, row, lane = S.explain_edge_batch(MJ, JT, JaxEstimator())
+    pb, _row, _lane = S.explain_edge_batch(MP, PT, GeneralEstimator())
+    used0 = _carry(pb, 5) if carry else None
+    want = JS.solve_compact(jb, waves=waves, with_used=True, used0=used0,
+                            explain=True)
+    got = PS.solve_compact(pb, waves=waves, with_used=True, used0=used0,
+                           explain=True, device="cpu")
+    nnz = want[3]
+    assert nnz == got[3]
+    assert np.array_equal(np.asarray(want[0])[:nnz], got[0])
+    assert np.array_equal(np.asarray(want[1])[:nnz], got[1])
+    assert np.array_equal(np.asarray(want[2]), got[2])
+    for a, b in zip(want[4], got[4]):
+        assert np.array_equal(np.asarray(a), b)
+    _same_planes(want[5], got[5])
+    verdict, score, avail, outcome = got[5]
+    dups = pb.prev_idx[row["dups"]]
+    assert len(set(dups.tolist())) < len(dups) and (dups >= 0).all()
+    # the evicted prev lane: evicted, and scored as previous
+    ev, ok1 = row["evprev"], lane["m-ok1"]
+    assert verdict[ev, ok1] & (1 << 4) and score[ev, ok1] == 100
+    assert not verdict[row["invalid"]].any()
+    st, dom = PD.split_outcome(int(outcome[row["too-big"]]))
+    assert (st, dom) == (PT.STATUS_UNSCHEDULABLE, "capacity")
+    assert (avail[row["shortcut"]] == 2 ** 31 - 1).all()
+    if not carry:
+        free = row["free"]
+        n = pb.replicas[free]
+        assert avail[free, ok1] == avail[free, lane["m-ok3"]] == n
+
+
+def test_spread_explain_edge_rows_match_jax():
+    """K7's spread flavour (solve_spread(explain=True)) on
+    spread_explain_edge_batch, the same arrays in both packages: the
+    callback rows of every live binding equal the JAX package's."""
+    jb, ij = S.spread_explain_edge_batch(MJ, JT, JaxEstimator())
+    pb, ip = S.spread_explain_edge_batch(MP, PT, GeneralEstimator())
+    used0 = _carry(pb, 3)
+    groups = PT.spread_groups(pb, ip)
+    assert groups == JT.spread_groups(jb, ij) and groups
+    for (axis, tier), idxs in groups.items():
+        rows_j, rows_p = {}, {}
+        JSP.solve_spread(jb, ij, idxs, waves=4, collect_used=True,
+                         used0=used0, axis=axis, tier=tier, explain=True,
+                         explain_cb=lambda b, *r: rows_j.__setitem__(b, r))
+        PSP.solve_spread(pb, ip, idxs, waves=4, collect_used=True,
+                         used0=used0, axis=axis, tier=tier, explain=True,
+                         explain_cb=lambda b, *r: rows_p.__setitem__(b, r),
+                         device="cpu")
+        assert rows_j.keys() == rows_p.keys() and rows_p
+        for b, want in rows_j.items():
+            got = rows_p[b]
+            for a, c in zip(want[:3], got[:3]):
+                assert np.array_equal(np.asarray(a), c), (axis, tier, b)
+            assert int(want[3]) == got[3], (axis, tier, b)
+
+
+@pytest.mark.parametrize("n_clusters", [1, 3, 5, 11, 700])
+def test_encoded_cluster_axis_is_a_multiple_of_four(n_clusters):
+    """K7 takes four lanes a thread (16-byte vectors) and needs C a
+    multiple of 4: both packages' encoders pad C to a power of two >= 8,
+    so they cannot hand it another C (the wrapper refuses one:
+    test_explain_vec_check_refuses_other_layouts)."""
+    cp, ip = S.random_scenario(MP, 1, n_clusters=n_clusters, n_bindings=4)
+    cj, ij = S.random_scenario(MJ, 1, n_clusters=n_clusters, n_bindings=4)
+    pb = PT.encode_batch(ip, PT.ClusterIndex.build(cp), GeneralEstimator())
+    jb = JT.encode_batch(ij, JT.ClusterIndex.build(cj), JaxEstimator())
+    assert pb.C == jb.C and pb.C % 4 == 0 and pb.C >= 8
+
+
+@pytest.mark.parametrize("C, a_at, b_at, ok", [
+    (16, 0, 0, True), (16, 4, 16, True), (13, 0, 0, False),
+    (4099, 0, 0, False), (16, 1, 0, False), (16, 0, 1, False)])
+def test_explain_vec_check_refuses_other_layouts(C, a_at, b_at, ok):
+    """The wrapper's check before K7's vector path (solver.
+    check_explain_vec, run by every ExplainWorkspace): C a multiple of 4
+    and every plane 16-byte aligned pass; a C of 13 or 4,099, or a plane
+    one or four bytes off its boundary, raises."""
+    a = torch.zeros(64, dtype=torch.int32)
+    b = torch.zeros(80, dtype=torch.bool)
+    assert a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    planes = [a[a_at:], b[b_at:]]
+    if ok:
+        PS.check_explain_vec(C, planes)
+    else:
+        with pytest.raises(ValueError):
+            PS.check_explain_vec(C, planes)

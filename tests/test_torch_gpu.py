@@ -27,14 +27,20 @@ their plain versions on shared-memory rows, on 16,384-lane rows (the
 device-memory key buffer) and on the scenarios of their branches (long
 walks, exhausted walks, Duplicated and infeasible rows, cluster caps at
 their edges, 4,100 label groups); K7 explain_rows in both flavours (the main
-solve's waves and the spread phase B); K8 shortlist_topk on its
+solve's waves and the spread phase B, the CPU suite's edge rows, and
+synthetic rows at every shape its design branches on: two bitmap
+tiles, prev / evict axes past 48 KB of shared memory with and without
+the static bitmaps, use_extra both ways; a C not a multiple of 4 and
+misaligned operands refused); K8 shortlist_topk on its
 shared-memory and device-memory key paths; K9 group_sums (round-robin
 and region-run layouts, the tiled branch, one group); a shortlisted
 megafleet cycle, card against CPU; K10 scatter_lanes (both layouts, 1-,
 4- and 8-byte elements, and the fused multi-field scatter of a mirror
 sync, one launch per table), K11 gather_rows (both flavours; its launch
 path: one launch a call, staged uploads, outputs of calls in flight
-apart, a re-placed mirror checked again),
+apart, a re-placed mirror checked again; its staging ring with more
+dispatches in flight than buffers behind a busy stream, and its inputs at
+their edges),
 K12 dirty_codes, and a fused incremental run card against CPU; K13
 rebalance_score (and no launch on zero lanes), and one rebalance-plane
 cycle card against CPU.
@@ -586,6 +592,220 @@ def test_spread_explain_kernel_matches_plain_on_card(case):
             assert card[b][3] == cpu[b][3]
 
 
+def _explain_operands(C, B, dev, seed, Kp=4, Ke=4, extra=True,
+                      misaligned=False):
+    """K7's operands on synthetic rows at any lane count, with every row
+    kind its design branches on: row 0's Kp prev entries all set on two
+    lanes (duplicates), row 1's evict lane also its prev lane, rows 2 and
+    7 invalid, rows 3 and 9 UNSCHEDULABLE, rows 4 and 8 with the
+    non-workload shortcut, est holding MAX_INT32 (and values beyond it,
+    and negatives); fail bits, selection, pick and status random.
+    `misaligned` hands sel and the verdict plane 1 and 4 bytes off a
+    16-byte boundary.  Returns (db, est, fail_bits [P, C], fail_bits
+    [B, C], sel, pick, status)."""
+    rng = np.random.default_rng(seed)
+    P, G, Q = 6, 3, 4
+    MAX32 = 2 ** 31 - 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    prev = np.full((B, Kp), -1, np.int32)
+    some = rng.random(B) < 0.5
+    prev[some, :min(2, Kp)] = rng.integers(0, C, (int(some.sum()),
+                                                  min(2, Kp)))
+    two = rng.choice(C, 2, replace=C >= 2)
+    prev[0] = np.resize(two, Kp)
+    evict = np.full((B, Ke), -1, np.int32)
+    evict[1::3, 0] = rng.integers(0, C, len(evict[1::3]))
+    prev[1, 0] = evict[1, 0]
+    est = rng.integers(-5, 60, (Q + 1, C)).astype(np.int64)
+    est[rng.random((Q + 1, C)) < 0.15] = MAX32
+    est[rng.random((Q + 1, C)) < 0.02] = MAX32 + 7
+    b_valid = rng.random(B) < 0.9
+    b_valid[[2, 7 % B]] = False
+    nw = np.zeros(B, bool)
+    nw[[4 % B, 8 % B]] = True
+    status = rng.integers(0, 4, B).astype(np.int32)
+    status[[3 % B, 9 % B]] = 2
+    tt = {
+        "cluster_valid": t(rng.random(C) < 0.93),
+        "deleting": t(rng.random(C) < 0.05),
+        "api_ok": t(rng.random((G, C)) < 0.9),
+        "pl_mask": t(rng.random((P, C)) < 0.7),
+        "pl_tol_bypass": t(rng.random((P, C)) < 0.85),
+        "pl_extra_score": t(rng.integers(0, 300, (P, C)) if extra
+                            else np.zeros((P, C), np.int64)),
+        "req_milli": t(np.ones((Q, 2), np.int64)),
+        "b_valid": t(b_valid),
+        "placement_id": t(rng.integers(0, P, B).astype(np.int32)),
+        "gvk_id": t(rng.integers(0, G, B).astype(np.int32)),
+        "class_id": t(rng.integers(-1, Q, B).astype(np.int32)),
+        "replicas": t(rng.integers(0, 40, B).astype(np.int64)),
+        "non_workload": t(rng.random(B) < 0.1),
+        "nw_shortcut": t(nw),
+        "prev_idx": t(prev),
+        "prev_val": t(rng.integers(1, 5, (B, Kp)).astype(np.int32)),
+        "evict_idx": t(evict),
+    }
+    db = PS.DeviceBatch(B=B, C=C, device=torch.device(dev), t=tt)
+    sel = rng.random((B, C)) < 0.3
+    if misaligned:
+        buf = torch.zeros((B * C + 1,), dtype=torch.bool, device=dev)
+        buf[1:].copy_(torch.from_numpy(sel.reshape(-1)))
+        sel_t = buf[1:].view(B, C)
+    else:
+        sel_t = t(sel)
+    return (db, t(est), t(rng.integers(0, 1 << 9, (P, C)).astype(np.int32)),
+            t(rng.integers(0, 1 << 9, (B, C)).astype(np.int32)), sel_t,
+            t(rng.random((B, C)) < 0.6), t(status))
+
+
+def _explain_out(B, C, dev, misaligned):
+    out = PS.explain_planes(B, C, dev)
+    if misaligned:
+        buf = torch.zeros((B * C + 1,), dtype=torch.int32, device=dev)
+        out = (buf[1:].view(B, C),) + out[1:]
+    return out
+
+
+#: (C, B, Kp, Ke): rows of one and of two bitmap tiles, and prev / evict
+#: axes whose COO entries need more than 48 KB of shared memory, or less
+#: but more than 48 KB with the block's static bitmaps (kp2048_ke4096,
+#: kp1024_ke8192)
+EXPLAIN_SHAPES = {
+    "c16": (16, 12, 4, 4), "c8192": (8192, 64, 4, 4),
+    "c40000_tiles": (40000, 8, 4, 4), "kp_wide": (1024, 12, 4200, 4),
+    "kp2048_ke4096": (1024, 12, 2048, 4096),
+    "kp1024_ke8192": (1024, 12, 1024, 8192)}
+
+#: (C, B, misaligned): layouts the wrapper refuses (C not a multiple of
+#: 4, a plane off a 16-byte boundary)
+EXPLAIN_REFUSED = {
+    "c13": (13, 12, False), "c4099": (4099, 16, False),
+    "c40001_tiles": (40001, 8, False), "misaligned": (8192, 16, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(EXPLAIN_SHAPES))
+@pytest.mark.parametrize("spread", [False, True])
+def test_explain_kernel_shapes_on_card(case, spread):
+    """K7 in both flavours against explain_rows_plain on the same card
+    operands: the rows its design branches on (duplicate prev lanes, an
+    evict lane that is also prev, invalid, UNSCHEDULABLE and shortcut
+    rows, MAX_INT32 est) at every shape of EXPLAIN_SHAPES, use_extra both
+    ways, over two row ranges; one launch a call."""
+    dev = _card()
+    C, B, Kp, Ke = EXPLAIN_SHAPES[case]
+    for extra in (True, False):
+        db, est, fb_p, fb_b, sel, pick, status = _explain_operands(
+            C, B, dev, 3, Kp=Kp, Ke=Ke, extra=extra)
+        fb = fb_b if spread else fb_p
+        pk = pick if spread else None
+        out_k = PS.explain_planes(B, C, dev)
+        out_p = PS.explain_planes(B, C, dev)
+        # use_extra False only where the extra scores are all 0
+        uxs = (True,) if extra else (True, False)
+        for r0, r1 in ((0, B // 2), (B // 2, B)):
+            kernels.reset_counts()
+            for ux in uxs:
+                PS.explain_rows(db, r0, r1, est, fb, sel, status, out_k,
+                                pick=pk, use_extra=ux)
+                PS.explain_rows_plain(db, r0, r1, est, fb, sel, status,
+                                      out_p, pick=pk)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("verdict", "score", "avail",
+                                       "outcome"), out_k, out_p):
+                    assert torch.equal(a, b), (case, spread, extra, ux,
+                                               name)
+            assert kernels.LAUNCHES["explain_rows"] == len(uxs)
+            assert sum(kernels.LAUNCHES.values()) == len(uxs)
+        # the cases the design branches on are there
+        assert (out_p[0][2] == 0).all() and (out_p[3][3] >> 8 == 7).all()
+        assert (out_p[2][4] == 2 ** 31 - 1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(EXPLAIN_REFUSED))
+@pytest.mark.parametrize("spread", [False, True])
+def test_explain_kernel_refuses_other_layouts_on_card(case, spread):
+    """K7 on a C that is not a multiple of 4, or with a plane off a
+    16-byte boundary, raises before any launch (its lanes go four at a
+    time); the plain version runs them all."""
+    dev = _card()
+    C, B, mis = EXPLAIN_REFUSED[case]
+    db, est, fb_p, fb_b, sel, pick, status = _explain_operands(
+        C, B, dev, 3, misaligned=mis)
+    fb = fb_b if spread else fb_p
+    pk = pick if spread else None
+    kernels.reset_counts()
+    with pytest.raises(ValueError):
+        PS.explain_rows(db, 0, B, est, fb, sel, status,
+                        _explain_out(B, C, dev, mis), pick=pk)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    PS.explain_rows_plain(db, 0, B, est, fb, sel, status,
+                          PS.explain_planes(B, C, dev), pick=pk)
+
+
+@pytest.mark.gpu
+def test_explain_workspace_launch_path_on_card():
+    """K7's launch path: one ExplainWorkspace serves every wave of a chunk
+    (one launch a wave, the planes equal to the plain version's); a
+    workspace built for other operands, or another use_extra, is
+    refused."""
+    dev = _card()
+    C, B = 8192, 16
+    db, est, fb, _fbb, sel, _pick, status = _explain_operands(
+        C, B, dev, 5, extra=False)
+    out_k = PS.explain_planes(B, C, dev)
+    out_p = PS.explain_planes(B, C, dev)
+    ws = PS.ExplainWorkspace(db, est, fb, sel, status, out_k,
+                             use_extra=False)
+    kernels.reset_counts()
+    for r0 in range(0, B, 4):
+        PS.explain_rows(db, r0, r0 + 4, est, fb, sel, status, out_k,
+                        use_extra=False, workspace=ws)
+        PS.explain_rows_plain(db, r0, r0 + 4, est, fb, sel, status, out_p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["explain_rows"] == 4
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        PS.explain_rows(db, 0, 4, est.clone(), fb, sel, status, out_k,
+                        use_extra=False, workspace=ws)
+    with pytest.raises(ValueError):
+        PS.explain_rows(db, 0, 4, est, fb, sel, status, out_k,
+                        use_extra=True, workspace=ws)
+    assert kernels.LAUNCHES["explain_rows"] == 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("waves", [1, 4])
+def test_explain_edge_rows_on_card(waves):
+    """solve_compact(explain=True) on explain_edge_batch (the rows of
+    test_torch_explain.test_explain_edge_rows_match_jax): the planes, COO
+    and carry equal the CPU plain path's, one K7 launch a wave."""
+    from karmada_tpu_torch.scheduler.plugins import REGISTRY
+
+    dev = _card()
+    REGISTRY.register_filter("explainPlug", S.plugin_filter)
+    try:
+        batch, _row, _lane = S.explain_edge_batch(MP, PT,
+                                                  GeneralEstimator())
+        kernels.reset_counts()
+        got = PS.solve_compact(batch, waves=waves, with_used=True,
+                               explain=True, device=dev)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["explain_rows"] == waves
+        want = PS.solve_compact(batch, waves=waves, with_used=True,
+                                explain=True, device="cpu")
+    finally:
+        REGISTRY.unregister("explainPlug")
+    assert got[3] == want[3]
+    for a, b in zip(got[:3] + got[4] + got[5], want[:3] + want[4] + want[5]):
+        assert np.array_equal(a, b)
+
+
 def _profile_db(C, B, dev, seed):
     """Synthetic tier-1 rows at any lane count: random cluster planes and
     snapshot (overrides, clusters without a summary or pods, a class that
@@ -997,6 +1217,91 @@ def test_gather_rows_launch_path_on_card():
     mirrors["replicas"] = mirrors["replicas"].to(torch.int32)
     with pytest.raises(TypeError):
         RG.gather_batch(torch.from_numpy(slots[0]).to(dev), mirrors)
+
+
+def _same_gather(got, slots, cpu, inv=None, drop=None):
+    from karmada_tpu_torch.ops import resident_gather as RG
+
+    sl = torch.from_numpy(np.asarray(slots, np.int64))
+    want = (RG.gather_batch_plain(sl, cpu) if inv is None else
+            RG.sub_gather_batch_plain(sl, cpu, torch.from_numpy(inv),
+                                      torch.from_numpy(drop)))
+    for f, x, y in zip(RG.OUT_FIELDS, got, want):
+        assert x.dtype == y.dtype and x.is_contiguous(), f
+        assert torch.equal(x.cpu(), y), f
+
+
+@pytest.mark.gpu
+def test_gather_rows_staging_ring_on_card():
+    """K11's staging ring: with the stream held busy, GATHER_RING + 3
+    dispatches from host slots (both flavours in turn, other slots each
+    time) are in flight before one sync, and the host arrays are
+    overwritten as soon as each call returns; every result equals the
+    plain gather of its own inputs, so no ring buffer was reused before
+    its copy had run.  Then the inputs at their edges, from host and from
+    card slots: B = 1 and B = 37, every slot -1, drop all set and all
+    clear, lane_inv all -1 and holding -1, a wider lane_inv that grows
+    the ring; one launch a call; and a re-placed mirror of the wrong
+    dtype still raises."""
+    from karmada_tpu_torch.ops import resident_gather as RG
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    C, cap, B = 1024, 8192, 300
+    store = S.slot_store(rng, cap, 4, 4, C)
+    mirrors, cpu = _on(store, dev), _on(store, "cpu")
+    inv = np.full(C, -1, np.int32)
+    inv[rng.choice(C, 64, replace=False)] = np.arange(64, dtype=np.int32)
+    kernels.reset_counts()
+    torch.cuda._sleep(100_000_000)  # the copies queue behind it
+    calls = []
+    for i in range(kernels.GATHER_RING + 3):
+        sl = rng.integers(-1, cap, B).astype(np.int64)
+        keep = sl.copy()
+        if i % 2:
+            dr = rng.random(B) < 0.3
+            out = RG.dispatch_sub_gather(sl, mirrors, inv, dr)
+            calls.append((out, keep, inv.copy(), dr.copy()))
+            dr[:] = ~dr
+        else:
+            out = RG.dispatch_gather(sl, mirrors)
+            calls.append((out, keep, None, None))
+        sl[:] = 0
+    assert kernels.LAUNCHES["gather_rows"] == len(calls)
+    torch.cuda.synchronize()
+    for out, keep, iv, dr in calls:
+        _same_gather(out, keep, cpu, iv, dr)
+
+    neg = np.full(C, -1, np.int32)
+    part = inv.copy()
+    part[::2] = -1
+    wide = np.concatenate([inv, np.full(3 * C, -1, np.int32)])
+    cases = []
+    for n in (1, 37, 256):
+        sl = rng.integers(-1, cap, n).astype(np.int64)
+        cases += [(sl, None, None), (np.full(n, -1, np.int64), None, None)]
+        for iv in (inv, neg, part, wide):
+            for dr in (np.ones(n, bool), np.zeros(n, bool),
+                       rng.random(n) < 0.5):
+                cases.append((sl, iv, dr))
+    for sl, iv, dr in cases:
+        kernels.reset_counts()
+        if iv is None:
+            host = RG.dispatch_gather(sl, mirrors)
+            card = RG.gather_batch(torch.from_numpy(sl).to(dev), mirrors)
+        else:
+            host = RG.dispatch_sub_gather(sl, mirrors, iv, dr)
+            card = RG.sub_gather_batch(
+                torch.from_numpy(sl).to(dev), mirrors,
+                torch.from_numpy(iv).to(dev), torch.from_numpy(dr).to(dev))
+        assert kernels.LAUNCHES["gather_rows"] == 2
+        assert sum(kernels.LAUNCHES.values()) == 2
+        torch.cuda.synchronize()
+        for got in (host, card):
+            _same_gather(got, sl, cpu, iv, dr)
+    mirrors["replicas"] = mirrors["replicas"].to(torch.int32)
+    with pytest.raises(TypeError):
+        RG.dispatch_gather(cases[0][0], mirrors)
 
 
 @pytest.mark.gpu

@@ -1,7 +1,11 @@
-"""K2's argument block on the launch path: kernels.RowsArgs (the ctypes
+"""The argument blocks of the launch paths: kernels.RowsArgs (the ctypes
 mirror of schedule_rows.cu's RowsArgs) against the array("q") block the
 hot path fills (kernels.rows_block, solver.RowsWorkspace), byte for byte,
-and against the C struct in the source, field by field."""
+and against the C struct in the source, field by field; K7's ExplainArgs
+(explain.cu, kernels.explain_block, solver.ExplainWorkspace) the same
+way; and K11's call block (resident.cu GatherCall, kernels.GATHER_CALL,
+resident_gather._Plan) against its C struct, field by field and width by
+width."""
 
 import re
 
@@ -33,10 +37,10 @@ def test_rows_block_matches_rows_args_byte_for_byte():
         assert blk[i] == vals[f]
 
 
-def _c_fields(text):
-    """(name, declaration) of every field of `struct RowsArgs` in a CUDA
+def _c_fields(text, struct="RowsArgs"):
+    """(name, declaration) of every field of `struct <struct>` in a CUDA
     source, in order."""
-    body = text.split("struct RowsArgs {", 1)[1].split("};", 1)[0]
+    body = text.split(f"struct {struct} {{", 1)[1].split("};", 1)[0]
     body = re.sub(r"//[^\n]*", "", body)
     out = []
     for decl in body.split(";"):
@@ -58,3 +62,64 @@ def test_rows_args_lists_the_c_structs_fields_in_order():
         assert "*" in decl or decl.startswith("i64 "), (f, decl)
     assert [f for f, t in kernels.RowsArgs._fields_
             if t is kernels._I] == list(kernels.ROWS_INT_FIELDS)
+
+
+def test_explain_block_matches_explain_args_byte_for_byte():
+    vals = {f: 0x7F00_0000_0000 + 0x40 * i
+            for i, f in enumerate(kernels.EXPLAIN_FIELDS)}
+    vals.update(r0=5, r1=(1 << 40) + 3, C=8192, Q=-1, Kp=4, Ke=0,
+                use_extra=1)
+    struct = kernels.ExplainArgs(**vals)
+    blk = kernels.explain_block(vals)
+    assert len(kernels.EXPLAIN_FIELDS) == len(set(kernels.EXPLAIN_FIELDS))
+    assert blk.itemsize == 8 and len(blk) == len(kernels.EXPLAIN_FIELDS)
+    assert bytes(struct) == blk.tobytes()
+    # the fields a launch patches sit where the struct has them
+    for f, i in (("r0", PS._XR0), ("r1", PS._XR1)):
+        assert getattr(kernels.ExplainArgs, f).offset == 8 * i
+        assert blk[i] == vals[f]
+
+
+def test_explain_args_lists_the_c_structs_fields_in_order():
+    text = (kernels.CSRC / "explain.cu").read_text()
+    fields = _c_fields(text, "ExplainArgs")
+    assert [f for f, _d in fields] == list(kernels.EXPLAIN_FIELDS)
+    for f, decl in fields:
+        assert "*" in decl or decl.startswith("i64 "), (f, decl)
+    assert [f for f, _t in kernels.ExplainArgs._fields_][
+        :len(kernels.EXPLAIN_TENSOR_FIELDS)] == list(
+        kernels.EXPLAIN_TENSOR_FIELDS)
+
+
+def test_gather_call_lists_the_c_structs_fields_in_order():
+    """GatherCall's fields, each an int64 (a pointer's address, an int, or
+    an array of them), in kernels.GATHER_CALL's order and widths; the
+    ring's width from the source's GATHER_RING; the kernel's parameters
+    (GatherArgs) the block's inputs and mirrors, then the outputs; the
+    _Plan block's length and the slots the wrapper patches."""
+    from karmada_tpu_torch.ops import resident_gather as RG
+
+    text = (kernels.CSRC / "resident.cu").read_text()
+    ring = int(re.search(r"constexpr int GATHER_RING = (\d+);",
+                         text).group(1))
+    assert ring == kernels.GATHER_RING
+    got = []
+    for name, decl in _c_fields(text, "GatherCall"):
+        assert decl.startswith("i64 "), (name, decl)
+        m = re.fullmatch(r"(\w+)\[(\w+)\]", name)
+        if m:
+            n = m.group(2)
+            got.append((m.group(1), ring if n == "GATHER_RING" else int(n)))
+        else:
+            got.append((name, 1))
+    assert got == list(kernels.GATHER_CALL)
+    args = [f for f, _d in _c_fields(text, "GatherArgs")]
+    assert args[3:15] == [f"s_{f}" for f in RG.GATHER_FIELDS]
+    assert args[15:27] == list(RG.OUT_FIELDS)
+    assert args[:3] == ["slots", "lane_inv", "drop"] and args[27:] == [
+        "B", "Kp", "Ke"]
+    at = kernels.gather_call_offsets()
+    assert at["len"] == sum(n for _f, n in kernels.GATHER_CALL)
+    assert (at["mirrors"], at["out_off"], at["B"]) == (3, 15, 27)
+    assert (RG._B, RG._SLAB, RG._STAGED, RG._NINV) == (
+        at["B"], at["slab"], at["staged"], at["n_inv"])

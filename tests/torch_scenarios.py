@@ -808,6 +808,109 @@ def explain_scenario(M):
     return clusters, items
 
 
+def explain_edge_scenario(M):
+    """explain_scenario plus the rows K7's design branches on: a row whose
+    four prev entries explain_edge_batch turns into duplicate lanes, an
+    evict lane that is also a prev lane, a row it marks invalid, one it
+    gives the non-workload shortcut, one on the class whose capacity it
+    makes MAX_INT32, and a Duplicated row with prev lanes."""
+    clusters, items = explain_scenario(M)
+    plain = M.Placement(replica_scheduling=M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS)))
+    dup = M.Placement(replica_scheduling=M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED))
+    st = M.ResourceBindingStatus
+    items += [
+        (explain_spec(M, plain, "dups", replicas=4, prev=[
+            ("m-ok1", 1), ("m-ok2", 2), ("m-ok3", 1), ("m-taint", 1)]), st()),
+        (explain_spec(M, plain, "evprev", replicas=3,
+                      prev=[("m-ok1", 2), ("m-noapi", 1)],
+                      evict_from=["m-ok1"]), st()),
+        (explain_spec(M, plain, "invalid", replicas=2), st()),
+        (explain_spec(M, plain, "shortcut", replicas=2), st()),
+        (explain_spec(M, plain, "free", replicas=3, cpu_milli=700), st()),
+        (explain_spec(M, dup, "dup-prev", replicas=2,
+                      prev=[("m-ok1", 2), ("m-noapi", 2)]), st()),
+    ]
+    return clusters, items
+
+
+def explain_edge_batch(M, T, estimator):
+    """explain_edge_scenario encoded by package T (explain=True), then
+    shaped alike for either package: the "dups" row's four prev entries
+    name two lanes twice each (m-ok1, m-ok2); the "invalid" row has
+    b_valid False; the "shortcut" row nw_shortcut True; the "free" row's
+    class (its own: 700 milli CPU) requests nothing and two clusters
+    allow 2^40 pods, so its est there is MAX_INT32 (avail_cal becomes the
+    row's replicas).  "evprev" keeps m-ok1 as both a prev and an evict
+    lane, and explain_scenario's "too-big" row comes out UNSCHEDULABLE."""
+    clusters, items = explain_edge_scenario(M)
+    cindex = T.ClusterIndex.build(clusters)
+    b = T.encode_batch(items, cindex, estimator, explain=True)
+    row = {it[0].resource.name: i for i, it in enumerate(items)}
+    lane = cindex.index
+
+    def edit(f, fn):
+        a = np.array(getattr(b, f))
+        fn(a)
+        setattr(b, f, a)
+
+    def dups(a):
+        a[row["dups"]] = [lane["m-ok1"], lane["m-ok1"], lane["m-ok2"],
+                          lane["m-ok2"]]
+
+    def free_class(a):
+        a[b.class_id[row["free"]]] = 0
+
+    def pods(a):
+        a[[lane["m-ok1"], lane["m-ok3"]]] = 1 << 40
+
+    edit("prev_idx", dups)
+    edit("b_valid", lambda a: a.__setitem__(row["invalid"], False))
+    edit("nw_shortcut", lambda a: a.__setitem__(row["shortcut"], True))
+    edit("req_milli", free_class)
+    edit("req_pods", free_class)
+    edit("pods_allowed", pods)
+    return b, row, lane
+
+
+def spread_explain_edge_batch(M, T, estimator):
+    """region_scenario(M, 3) encoded by package T (explain=True), shaped
+    alike for either package for K7's spread flavour: row 1's two prev
+    entries name one lane twice, row 3's first prev lane is also its
+    evict lane, row 4 takes the non-workload shortcut, and row 10's class
+    requests nothing while two clusters allow 2^40 pods (est MAX_INT32
+    there)."""
+    clusters, items = region_scenario(M, 3)
+    b = T.encode_batch(items, T.ClusterIndex.build(clusters), estimator,
+                       explain=True)
+
+    def edit(f, fn):
+        a = np.array(getattr(b, f))
+        fn(a)
+        setattr(b, f, a)
+
+    def prev(a):
+        a[1, 1] = a[1, 0]
+
+    def evict(a):
+        a[3, 0] = b.prev_idx[3, 0]
+
+    def free_class(a):
+        a[b.class_id[10]] = 0
+
+    edit("prev_idx", prev)
+    edit("evict_idx", evict)
+    edit("nw_shortcut", lambda a: a.__setitem__(4, True))
+    edit("req_milli", free_class)
+    edit("req_pods", free_class)
+    edit("pods_allowed", lambda a: a.__setitem__([0, 5], 1 << 40))
+    return b, items
+
+
 def plugin_filter(placement, cluster):
     """The filter plugin explain_scenario's tests register in both
     packages: rejects one cluster by name."""

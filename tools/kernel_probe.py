@@ -2,12 +2,12 @@
 """Probe of single kernels of the port on one CUDA card, at chip_smoke
 phase 2's shapes: K3 compact and K2 schedule_rows (std tier), K4
 webster_batch, K11 gather_rows, K5 spread_group_info, K6 spread_pick, K1
-capacity and K8 shortlist_topk.
+capacity, K8 shortlist_topk and K7 explain_rows.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 tools/kernel_probe.py [k3k2] [k4] [k11] [k5k6] [k1] [k8]
-        [k8census] [k2big] [k2launch] [k2census] [--parent TREE]
+        [k8census] [k2big] [k2launch] [k2census] [k7] [--parent TREE]
 
 It builds the first forward chunk of chip_smoke's workload (bench.py's
 config-5 mix, seed 0: 4096 bindings x 8192 lanes) and prints, after the
@@ -28,8 +28,13 @@ card's name and power limit, the parts named (default: all):
         substituted into the tree's webster.cuh, held against
         webster_plain).
   k11   K11 at 4,096 rows of a 2^20-slot store, per tree: CUDA-event ms
-        and host enqueue against device time of gather_batch,
-        sub_gather_batch, dispatch_gather and dispatch_sub_gather.
+        and host enqueue against device time (by activity: the kernel,
+        the upload) of gather_batch, sub_gather_batch, dispatch_gather
+        and dispatch_sub_gather; then both dispatches' host pieces, each
+        timed alone (k11_pieces: the parent design's signature check,
+        staging, pinned buffer, slab, copy_, block writes, launch and
+        views; the workspace design's check, inputs, slab, block writes,
+        one C call and views).
   k5k6  chip_smoke's spread census of the spread sub-batches of the first
         forward chunk (phase 2's), the first wide chunk and the first
         explain chunk; then on phase 2's sub-batch, per tree: K5's and
@@ -66,10 +71,18 @@ card's name and power limit, the parts named (default: all):
         chip_smoke's phases 6 and 7 (rows a launch, C, U, each gather
         group's eligible lanes against k, the select's histogram passes,
         strategy and has_sc), from those phases' runs (~3 min).
+  k7    K7 per tree at chip_smoke.explain_operands' shapes: wave 0 of
+        the first forward chunk (512 x 8,192) and the spread flavour on
+        its phase B (1,024 x 8,192) -- CUDA-event ms, host enqueue
+        against device time and a clock64 profile of a row's phases
+        (K7_PHASES: KT_MARK points built with -DKT_PROFILE, or
+        K7_OLD_MARKS substituted into a copy of a source without them);
+        for a tree whose wrapper takes a workspace also the wave as
+        schedule_core launches it.
 
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
-TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1, k8, k2big
-and k2launch also run on the parent's port.  The variant libraries build into a temporary directory.
+TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1, k8, k2big,
+k2launch and k7 also run on the parent's port.  The variant libraries build into a temporary directory.
 Exits non-zero without a card, or when a variant disagrees with its
 plain version.
 """
@@ -525,6 +538,150 @@ def probe_k5k6(CS, batch, items, wide, explain, fleet, dev, trees):
                 print(line, flush=True)
 
 
+def host_ms(fn, n=200):
+    """Host-clock ms a call of `fn` over `n` calls enqueued back to back
+    (nothing waits inside), after one warm-up, the stream drained after."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def k11_pieces(RG, kmod, slots, mirrors, dev, sub=None):
+    """Where one K11 dispatch from host slots goes on the host, piece by
+    piece, each timed alone (host ms a call): for a tree whose wrapper
+    stages through a pinned buffer of its own a call (_staged_gather
+    without _staged_len) the signature check, the numpy staging, the
+    pinned torch.empty and its fill, the slab, the copy_, the block
+    writes, kernels.launch and _views, and two other ways to make the
+    twelve outputs; for a tree whose mirror-set workspace stages through
+    its ring in the C call (_staged_len) the check, the numpy inputs, the
+    ring's size check, the slab, the block writes, the one C call and
+    _views.  `sub` = (lane_inv, drop) for the sub flavour."""
+    from array import array
+
+    B = slots.shape[0]
+    p = RG._plan(mirrors)
+    parts = {"_plan (signature check)": host_ms(lambda: RG._plan(mirrors))}
+    if hasattr(RG, "_staged_len"):
+        arr = [np.ascontiguousarray(slots, np.int64)]
+        if sub is not None:
+            arr += [np.ascontiguousarray(sub[0], np.int32),
+                    np.ascontiguousarray(sub[1], np.bool_)]
+        n_inv = arr[1].shape[0] if sub is not None else 0
+        staged = RG._staged_len(B, n_inv, sub is not None)
+        p.stage(staged)
+        nbytes, spec, offs = RG._layout(p, B, staged)
+        RG._launch(p, B, staged, tuple(a.ctypes.data for a in arr) + (0,) *
+                   (3 - len(arr)), n_inv)  # the block's layout for B
+        slab = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        blk = p.blk
+
+        def writes():
+            blk[0], blk[1], blk[2] = tuple(
+                a.ctypes.data for a in arr) + (0,) * (3 - len(arr))
+            blk[RG._B] = B
+            blk[RG._SLAB] = slab.data_ptr()
+            blk[RG._STAGED] = 1
+            blk[RG._NINV] = n_inv
+
+        writes()
+        parts.update({
+            "numpy inputs (ascontiguousarray, addresses)": host_ms(
+                lambda: [np.ascontiguousarray(a).ctypes.data for a in arr]),
+            "ring size check": host_ms(lambda: p.stage(staged)),
+            "_layout (cached)": host_ms(lambda: RG._layout(p, B, staged)),
+            "slab allocation": host_ms(lambda: torch.empty(
+                (nbytes,), dtype=torch.uint8, device=dev)),
+            "block writes": host_ms(writes),
+            "the C call (staging, upload, kernel)": host_ms(
+                lambda: kmod.launch("resident", blk, "gather_rows",
+                                    device=p.dev)),
+            "_views": host_ms(lambda: RG._views(slab, spec))})
+    elif hasattr(RG, "_staged_gather"):
+        arrays = [np.ascontiguousarray(slots, np.int64)]
+        if sub is not None:
+            arrays += [np.ascontiguousarray(sub[0], np.int32),
+                       np.ascontiguousarray(sub[1], np.bool_)]
+
+        def staging():
+            arr = [np.ascontiguousarray(a) for a in arrays]
+            offs, n = [], 0
+            for a in arr:
+                offs.append(n)
+                n = RG._aligned(n + a.nbytes)
+            return arr, offs, n
+
+        arr, in_offs, staged = staging()
+        host = torch.empty((staged,), dtype=torch.uint8, pin_memory=True)
+        hv = host.numpy()
+
+        def fill():
+            for a, o in zip(arr, in_offs):
+                hv[o:o + a.nbytes] = a.view(np.uint8)
+
+        nbytes, spec, out_offs = RG._layout(p, B, staged)
+        slab = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        base = slab.data_ptr()
+        inputs = [base + o for o in in_offs] + [0] * (3 - len(in_offs))
+        blk = p.blk
+
+        def writes():
+            blk[0:RG._ARG_MIRRORS] = array("q", inputs)
+            blk[RG._ARG_OUTS:RG._ARG_B] = array(
+                "q", [base + o for o in out_offs])
+            blk[RG._ARG_B] = B
+
+        writes()
+        parts.update({
+            "numpy staging (offsets)": host_ms(staging),
+            "pinned torch.empty": host_ms(lambda: torch.empty(
+                (staged,), dtype=torch.uint8, pin_memory=True)),
+            "pinned fill": host_ms(fill),
+            "_layout (cached)": host_ms(lambda: RG._layout(p, B, staged)),
+            "slab allocation": host_ms(lambda: torch.empty(
+                (nbytes,), dtype=torch.uint8, device=dev)),
+            "copy_": host_ms(lambda: slab[:staged].copy_(
+                host, non_blocking=True)),
+            "block writes": host_ms(writes),
+            "kernels.launch": host_ms(lambda: kmod.launch(
+                "resident", blk, "gather_rows", device=p.dev)),
+            "_views": host_ms(lambda: RG._views(slab, spec))})
+        # view constructions a redesign could use instead (one slab)
+        Kp, Ke = p.Kp, p.Ke
+        n32 = 3 * B + 2 * B * Kp + B * Ke
+
+        def split_views():
+            i64 = slab[:8 * B].view(torch.int64)
+            i32 = slab[8 * B:8 * B + 4 * n32].view(torch.int32)
+            a = i32.split_with_sizes((B, B, B, B * Kp, B * Kp, B * Ke))
+            b8 = slab[8 * B + 4 * n32:8 * B + 4 * n32 + 5 * B].view(
+                torch.bool).split(B)
+            return (b8[0], a[0], a[1], a[2], i64, *b8[1:],
+                    a[3].view(B, Kp), a[4].view(B, Kp), a[5].view(B, Ke))
+
+        def empties():
+            return tuple(torch.empty(sh, dtype=dt, device=dev) for dt, sh, *_
+                         in spec)
+
+        parts["alternative: split_with_sizes views of one slab"] = host_ms(
+            split_views)
+        parts["alternative: twelve torch.empty"] = host_ms(empties)
+    if sub is None:
+        parts["whole dispatch_gather"] = host_ms(
+            lambda: RG.dispatch_gather(slots, mirrors))
+    else:
+        parts["whole dispatch_sub_gather"] = host_ms(
+            lambda: RG.dispatch_sub_gather(slots, mirrors, *sub))
+    return parts
+
+
 def probe_k11(CS, dev, trees):
     """K11 per tree at phase 2's shape (4,096 rows of a 2^20-slot store,
     Kp = Ke = 4; a 64-lane union and every 16th row dropped in the sub
@@ -556,7 +713,7 @@ def probe_k11(CS, dev, trees):
     drop = np.zeros(B, bool)
     drop[::16] = True
     st, it, dt = (torch.from_numpy(a).to(dev) for a in (slots, inv, drop))
-    for label, _kmod, smod in trees:
+    for label, kmod, smod in trees:
         RG = smod.RG
         calls = (
             ("gather_batch", lambda RG=RG: RG.gather_batch(st, mirrors)),
@@ -570,9 +727,143 @@ def probe_k11(CS, dev, trees):
         for name, fn in calls:
             ms = CS.cuda_ms(fn, 200)
             host, device = CS.split_ms(fn, 200)
+            by = CS.kernel_device_ms(fn, 200)
             print(f"K11 {label}, {name} ({B} rows of {cap} slots): "
                   f"{ms:.4f} ms; split_ms host {host:.4f} ms, device "
-                  f"{device} ms", flush=True)
+                  f"{device} ms; device by activity: " + ", ".join(
+                      f"{k.split('(')[0]} {v:.4f}" for k, v in
+                      sorted(by.items())), flush=True)
+        for name, sub in (("dispatch_gather", None),
+                          ("dispatch_sub_gather", (inv, drop))):
+            parts = k11_pieces(RG, kmod, slots, mirrors, dev, sub)
+            print(f"K11 {label}, {name} host pieces, host ms a call: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in parts.items()),
+                  flush=True)
+
+
+# -- K7 explain_rows -------------------------------------------------------------
+
+#: clock64 marks substituted into a copy of an explain.cu without KT_MARK
+#: points (its first design: load_row, the lane loop over lane_info, nine
+#: block_sum reductions)
+K7_OLD_MARKS = (
+    ("  const i64 b = a.r0 + blockIdx.x;\n",
+     "  KT_MARK(0);\n  const i64 b = a.r0 + blockIdx.x;\n"),
+    ("  load_row<NT>(a, b, row, pidx, pval, eidx);\n",
+     "  load_row<NT>(a, b, row, pidx, pval, eidx);\n  KT_MARK(1);\n"),
+    ("  i64 best = 0;\n", "  KT_MARK(2);\n  i64 best = 0;\n"),
+    ("    a.outcome[b] = st | (code << 8);\n  }\n}\n",
+     "    a.outcome[b] = st | (code << 8);\n  }\n  KT_MARK(3);\n}\n"),
+)
+#: K7's phases, (name, from slot, to slot): "old" for K7_OLD_MARKS,
+#: "marks" for a source with KT_MARK points
+K7_PHASES = {
+    "old": (("load_row", 0, 1), ("lane loop (lane_info)", 1, 2),
+            ("nine block_sum reductions + outcome", 2, 3), ("a row", 0, 3)),
+    "marks": (("load_row", 0, 1), ("row_bits", 1, 2), ("lane loop", 2, 3),
+              ("reductions + outcome", 3, 4), ("a row", 0, 4)),
+}
+K7_PROF_ROWS = 1024
+
+
+def profile_k7(kmod, call, entry_name, out_dir, name):
+    """clock64 profile of one K7 launch (`call` runs it through the
+    tree's wrapper and returns its planes): the tree's explain.cu built
+    with -DKT_PROFILE, its KT_MARK points or K7_OLD_MARKS substituted
+    into a copy, launched with kmod's entry swapped and held against the
+    unmarked kernel.  Returns (phases, {phase: cycles a row array})."""
+    csrc = str(kmod.CSRC)
+    src = os.path.join(csrc, "explain.cu")
+    text = open(src).read()
+    marked = "KT_MARK(" in text
+    lib = build_variant(kmod, src, [] if marked else K7_OLD_MARKS, name,
+                        out_dir, inc=csrc,
+                        flags=(f"-DKT_PROFILE={K7_PROF_ROWS}",))
+    want = tuple(t.clone() for t in call())
+    torch.cuda.synchronize()
+    saved = kmod._FNS[entry_name]
+    try:
+        kmod._FNS[entry_name] = entry(lib, "kt_" + entry_name)
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        kmod._FNS[entry_name] = saved
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the profiled kernel disagrees")
+    h = np.zeros(K7_PROF_ROWS * 8, np.int64)
+    fn = lib.kt_prof_read
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.c_void_p(h.ctypes.data)):
+        raise RuntimeError("reading the K7 profile failed")
+    h = h.reshape(K7_PROF_ROWS, 8)
+    h = h[h[:, 0] != 0]
+    phases = K7_PHASES["marks" if marked else "old"]
+    return phases, {p: h[:, b] - h[:, a] for p, a, b in phases}
+
+
+def probe_k7(CS, items, fleet, dev, trees):
+    """K7 per tree at phase 2's shapes (chip_smoke.explain_operands): wave
+    0 of the first forward chunk (512 x 8,192) and the spread flavour on
+    that chunk's region-spread phase B -- CUDA-event ms, host enqueue
+    against device time, and a clock64 profile of a row's phases; for a
+    tree whose wrapper takes a workspace, also the call as schedule_core
+    makes it (the chunk's workspace, the batch's use_extra).  The trees'
+    planes must agree."""
+    import inspect
+
+    from karmada_tpu_torch.ops import solver as NS
+
+    batch, k7_in, ex = CS.explain_operands(items[:4096], fleet, dev, 8)
+    db, C = k7_in[0], k7_in[0].C
+    Bw, Bs = k7_in[2], ex[2]
+    use_extra = NS._use_extra(batch)
+    outs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kmod, smod in trees:
+            S = smod.S
+            tag = label.split()[-1]
+            for ln in kmod.BUILD_LOG.get("explain", "").splitlines():
+                if "registers" in ln or "spill" in ln:
+                    print(f"K7 ptxas ({label}): {ln.strip()}", flush=True)
+            planes = S.explain_planes(db.B, C, dev)
+            sp = S.explain_planes(Bs, C, dev)
+            calls = {
+                "explain_rows": (
+                    f"wave 0 ({Bw} x {C})",
+                    lambda S=S, o=planes: (S.explain_rows(*k7_in, o), o)[1]),
+                "explain_rows_spread": (
+                    f"spread flavour ({Bs} x {C})",
+                    lambda S=S, o=sp: (S.explain_rows(*ex[:7], o,
+                                                      pick=ex[7]), o)[1])}
+            if "workspace" in inspect.signature(S.explain_rows).parameters:
+                ws = S.ExplainWorkspace(db, *k7_in[3:7], planes,
+                                        use_extra=use_extra)
+                calls["explain_rows (main path)"] = (
+                    f"wave 0 ({Bw} x {C}) on the chunk's workspace, "
+                    f"use_extra {use_extra}",
+                    lambda S=S, o=planes, ws=ws: (S.explain_rows(
+                        *k7_in, o, use_extra=use_extra, workspace=ws),
+                        o)[1])
+            for ename, (what, call) in calls.items():
+                got = tuple(t.clone() for t in call())
+                torch.cuda.synchronize()
+                outs.setdefault(what.split(" on ")[0], []).append(got)
+                ms = CS.cuda_ms(call, 200)
+                host, device = CS.split_ms(call, 200)
+                line = (f"K7 {label}, {what}: {ms:.4f} ms; host enqueue "
+                        f"{host:.4f} ms, device {device} ms")
+                if "main path" not in ename:
+                    phases, d = profile_k7(kmod, call, ename, tmp,
+                                           f"k7_{ename}_{tag}")
+                    line += "; clock64 cycles a row (mean / max over " + \
+                        f"{len(d['a row'])} rows): " + "; ".join(
+                            f"{p} {d[p].mean():.0f} / {d[p].max()}"
+                            for p, _a, _b in phases)
+                print(line, flush=True)
+    for what, got in outs.items():
+        if not all(all(torch.equal(a, b) for a, b in zip(got[0], g))
+                   for g in got[1:]):
+            raise AssertionError(f"K7 probe: {what} disagrees")
 
 
 # -- K1 capacity and K8 shortlist_topk -----------------------------------------
@@ -1275,14 +1566,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parts", nargs="*",
                     default=["k3k2", "k4", "k11", "k5k6", "k1", "k8",
-                             "k2big", "k2launch"],
+                             "k2big", "k2launch", "k7"],
                     help="k3k2, k4, k11, k5k6, k1, k8, k8census, k2big, "
-                         "k2launch, k2census (default: all but k8census "
-                         "and k2census)")
+                         "k2launch, k2census, k7 (default: all but "
+                         "k8census and k2census)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
-                         "karmada_tpu_torch/ unpacked: K4, K11, K5 and K6 "
-                         "are then probed on it too")
+                         "karmada_tpu_torch/ unpacked: k4, k11, k5k6, k1, "
+                         "k8, k2big, k2launch and k7 then probe it too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -1349,6 +1640,8 @@ def main() -> int:
         probe_k2launch(CS, batch, dev, trees)
     if "k2census" in args.parts:
         probe_k2census(CS, M, fleet, placements, dev)
+    if "k7" in args.parts:
+        probe_k7(CS, items, fleet, dev, trees)
     return 0
 
 

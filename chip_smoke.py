@@ -457,6 +457,18 @@ def split_ms(fn, reps: int):
     return host, (us / reps / 1e3 if us > 0 else None)
 
 
+def wall_ms(fn, reps: int) -> float:
+    """Mean host-clock milliseconds of one call of `fn` ended by
+    torch.cuda.synchronize(), over `reps` calls after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
 def kernel_device_ms(fn, reps: int) -> dict:
     """torch.profiler's device milliseconds per call of `fn`, by kernel
     name (the CUDA kernels' symbols), over `reps` calls after one warm-up;
@@ -1825,7 +1837,9 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
             f"shortlist fallbacks {sum(SL.FALLBACKS.values()) - fb0}, "
             f"binding fields uploaded {h2d}; write-back {wrote} in "
             f"{wb:.3f} s; audit {rep.audit_outcome}; host seconds by stage "
-            f"{ {k: round(v, 3) for k, v in rep.stages.items()} }")
+            f"{ {k: round(v, 3) for k, v in rep.stages.items()} }; dirty "
+            f"stage split ms "
+            f"{ {k: round(v * 1e3, 3) for k, v in rep.dirty_split.items()} }")
         return rep, wall, h2d
 
     t_all = time.perf_counter()
@@ -1998,6 +2012,36 @@ def sync_wall_ms(state, kind, lanes, dev, reps, pkg=None) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
+def dirty_need_bytes(p, rv, flips) -> int:
+    """The bytes K12's pass over the plane `p` needs for this store's row
+    mix (host masters, numpy; the mirrors hold the same): every slot reads
+    placement_id and route, and the device-route rows non_workload; of
+    those the workload rows that are not spread-constrained, and of them
+    the Dynamic ones fresh; the Dynamic workload rows on the device route,
+    not spread-constrained and not fresh also read replicas and their
+    prev / evict rows, and each distinct (placement, prev lane) they look
+    up costs a mask byte; cluster_valid and deleting; per placement its
+    strategy, two sc flags and a probe a flip lane; the rv list, the flip
+    lanes and the codes written."""
+    cap = p.placement_id.shape[0]
+    P, C = p.pl_mask.shape
+    Kp, Ke = p.prev_idx.shape[1], p.evict_idx.shape[1]
+    pid = p.placement_id
+    dev_route = p.route == 0
+    strat = p.pl_strategy[pid]
+    dyn = (strat == 2) | (strat == 3)
+    sc = (p.pl_has_cluster_sc | p.pl_has_region_sc)[pid]
+    work = dev_route & ~p.non_workload & ~sc
+    need = work & dyn & ~p.fresh
+    prev = p.prev_idx[need]
+    rows = np.broadcast_to(pid[need][:, None], prev.shape)
+    pairs = np.unique(rows[prev >= 0].astype(np.int64) * C
+                      + prev[prev >= 0])
+    return int(8 * cap + dev_route.sum() + (work & dyn).sum()
+               + need.sum() * (8 + 8 * Kp + 4 * Ke) + pairs.size + 2 * C
+               + P * (6 + len(flips)) + 8 * (len(rv) + len(flips)) + cap)
+
+
 def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
     """K10 scatter_lanes, K11 gather_rows and K12 dirty_codes against their
     plain versions on phase 9's plane: K10 on the fleet's avail_milli
@@ -2116,28 +2160,69 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
         f"Kp={Kp} Ke={Ke}")
 
     # -- K12 on the whole slot store ------------------------------------------
-    flips = DM._pad_lanes(np.sort(g.choice(nC, 8, replace=False)))
-    rv = DM._pad_lanes(np.concatenate([[0], g.choice(
-        np.arange(1, cap), 999, replace=False)]))
+    flips8 = np.sort(g.choice(nC, 8, replace=False))
+    flips = DM._pad_lanes(flips8)
+    rv_real = np.concatenate([[0], g.choice(np.arange(1, cap), 999,
+                                            replace=False)])
+    rv = DM._pad_lanes(rv_real)
     ins = ([mirrors[f] for f in DM.SLOT_FIELDS]
            + [up(getattr(p, f)) for f in DM.PLANE_FIELDS]
            + [up(flips), up(rv)])
+    # the wrapper sorts the rv list on the card; dirty_codes hands it over
+    # ascending (normalise_rv)
+    srt = ins[:-1] + [up(np.sort(rv))]
     k12 = DM.dirty_kernel(*ins)
-    err12 = max_abs_err([(k12, DM.dirty_kernel_plain(*ins))])
+    want12 = DM.dirty_kernel_plain(*ins)
+    err12 = max_abs_err([(k12, want12),
+                         (DM.dirty_kernel(*srt), want12)])
     if not int(k12[0]) & DM.DIRTY:
         raise AssertionError("dirty_codes: rv slot 0 not dirty")
     b12 = bound_ms(nbytes(*ins) + nbytes(k12), 0)
+    need12 = bound_ms(dirty_need_bytes(p, rv_real, flips8), 0)
+
+    def kern12():
+        return DM.dirty_kernel(*ins)
+
     rows.append(dict(
         name="dirty_codes", route="cuda",
         source="karmada_tpu_torch/ops/csrc/dirty.cu",
         replaces="karmada_tpu/ops/dirty.py:96",
-        max_abs_err=err12, ms=cuda_ms(lambda: DM.dirty_kernel(*ins), reps),
+        max_abs_err=err12, ms=cuda_ms(kern12, reps),
         plain_ms=cuda_ms(lambda: DM.dirty_kernel_plain(*ins), reps),
         bound_ms=b12[0], bound_by=b12[1], library_ms=None))
     log(f"phase 2 dirty_codes: {cap} slots, {len(rv)} rv slots (1,000 "
         f"real), {len(flips)} flip lanes (8 real), P x C "
         f"{tuple(p.pl_mask.shape)}; dirty rows "
-        f"{int((k12 & DM.DIRTY).count_nonzero())}")
+        f"{int((k12 & DM.DIRTY).count_nonzero())}; bound by the need "
+        f"{need12[0]:.6f} ms (all inputs {b12[0]:.6f})")
+    host, device = split_ms(kern12, 10 * reps)
+    log(f"phase 2 dirty_codes split, the kernel on device operands: host "
+        f"enqueue {host:.4f} ms, device "
+        + (f"{device:.4f} ms" if device is not None else "not measured")
+        + "; device ms by kernel (the wrapper's rv sort apart) "
+        + (", ".join(f"{k[:60]} {v:.4f}" for k, v in
+                     kernel_device_ms(kern12, 10 * reps).items())
+           or "not measured"))
+    # the whole call from host inputs, as the incremental cycle makes it
+    keep = state.last_flip_lanes
+    state.last_flip_lanes = flips8
+
+    def call():
+        return DM.dirty_codes(state, rv_real, mirrors=mirrors)
+
+    try:
+        err = max_abs_err([(torch.from_numpy(call()), want12.cpu())])
+        rows[-1]["max_abs_err"] = max(err12, err)
+        host, device = split_ms(call, 10 * reps)
+        log(f"phase 2 dirty_codes whole call (host inputs to numpy codes, "
+            f"max_abs_err={err}): {host:.4f} ms a call (host clock, its "
+            "sync included), device "
+            + (f"{device:.4f} ms" if device is not None else "not measured")
+            + "; device by activity: " + ", ".join(
+                f"{k.split('(')[0].strip()} {v:.4f}" for k, v in sorted(
+                    kernel_device_ms(call, 10 * reps).items())))
+    finally:
+        state.last_flip_lanes = keep
     for r in rows:
         log(f"phase 2 {r['name']}: max_abs_err={r['max_abs_err']} "
             f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -2177,7 +2262,8 @@ def load_parent(tree: str):
     mods = {m: importlib.import_module(f"karmada_tpu_torch_parent.{m}")
             for m in ("ops.kernels", "ops.resident_gather",
                       "ops.resident_update", "ops.shortlist", "ops.solver",
-                      "ops.spread", "resident.state")}
+                      "ops.spread", "resident.state", "ops.dirty",
+                      "ops.rebalance_detect")}
     t0 = time.perf_counter()
     mods["ops.kernels"].build()
     log(f"phase 2 turns: the parent's port built in "
@@ -2196,6 +2282,7 @@ def phase_turns(parent, state, solver, dev, reps,
     (host clock to synchronize(), uploads included), and K9 at the
     megafleet's region layout (G = 200).  CUDA-event ms for the kernel
     sides, host-clock ms for the walls."""
+    from karmada_tpu_torch.ops import dirty as NDM
     from karmada_tpu_torch.ops import resident_gather as NRG
     from karmada_tpu_torch.ops import resident_update as NRU
     from karmada_tpu_torch.ops import shortlist as NSL
@@ -2281,7 +2368,42 @@ def phase_turns(parent, state, solver, dev, reps,
                 lambda: getattr(ORG, f)(*a), reps),
             lambda f=flavour, a=args: cuda_ms(
                 lambda: getattr(NRG, f)(*a), reps))
-    return run_turns(cases, rounds)
+    # K12: the kernel's wrapper on device operands (the padded rv list;
+    # this tree's wrapper sorts it first) and the whole dirty_codes call
+    # from host inputs, 8 flip lanes, 1,000 rv slots
+    ODM = parent["ops.dirty"]
+    flips8 = np.sort(g.choice(nC, 8, replace=False))
+    rv_real = np.concatenate([[0], g.choice(np.arange(1, cap), 999,
+                                            replace=False)])
+    ins = ([mirrors[f] for f in NDM.SLOT_FIELDS]
+           + [up_to(getattr(p, f), dev) for f in NDM.PLANE_FIELDS]
+           + [up_to(NDM._pad_lanes(flips8), dev),
+              up_to(NDM._pad_lanes(rv_real), dev)])
+    if not torch.equal(ODM.dirty_kernel(*ins), NDM.dirty_kernel(*ins)):
+        raise AssertionError("turns: K12 old and new disagree")
+    keep = state.last_flip_lanes
+    state.last_flip_lanes = flips8
+    try:
+        calls = {side: (lambda m=m: m.dirty_codes(state, rv_real,
+                                                  mirrors=mirrors))
+                 for side, m in (("old", ODM), ("new", NDM))}
+        if not np.array_equal(calls["old"](), calls["new"]()):
+            raise AssertionError("turns: dirty_codes old and new disagree")
+        for side, fn in calls.items():
+            host, device = split_ms(fn, 10 * reps)
+            log(f"phase 2 turns K12 dirty_codes split, {side}: host "
+                f"{host:.4f} ms a call, device "
+                + (f"{device:.4f} ms" if device is not None
+                   else "not measured"))
+        cases["K12 kernel (device operands)"] = (
+            lambda: cuda_ms(lambda: ODM.dirty_kernel(*ins), reps),
+            lambda: cuda_ms(lambda: NDM.dirty_kernel(*ins), reps))
+        cases["K12 dirty_codes whole call (host clock)"] = (
+            lambda: wall_ms(calls["old"], reps),
+            lambda: wall_ms(calls["new"], reps))
+        return run_turns(cases, rounds)
+    finally:
+        state.last_flip_lanes = keep
 
 
 def phase_turns_explain(parent, k7_in, ex, use_extra, dev, reps,
@@ -3157,7 +3279,7 @@ def phase_rebalance(M, fleet, items, results, dev) -> dict:
     return launches
 
 
-def phase_kernel_k13(fleet, results, dev, reps) -> dict:
+def phase_kernel_k13(fleet, results, dev, reps, parent=None) -> dict:
     """K13 rebalance_score against its plain version: config 5's 5,000
     lanes (committed from phase 3's placements, capacity the fleet's
     pods) and 16,384 random lanes, with zero-capacity-with-load lanes,
@@ -3212,13 +3334,64 @@ def phase_kernel_k13(fleet, results, dev, reps) -> dict:
                bound_ms=b[0], bound_by=b[1], library_ms=None)
     ms16 = cuda_ms(lambda: RD.score_kernel(*cases[16384], 1000,
                                            SPREAD_REPORT_ONLY), reps)
+    host, device = split_ms(lambda: RD.score_kernel(*args), 10 * reps)
+    log(f"phase 2 rebalance_score split, the kernel on device operands "
+        f"(C=5000): host enqueue {host:.4f} ms, device "
+        + (f"{device:.4f} ms" if device is not None else "not measured"))
+    # the whole call from numpy, as the rebalance plane's detect makes it
+    host_ins = {C: [t.cpu().numpy() for t in ins]
+                for C, ins in cases.items()}
+    for C, h in host_ins.items():
+        tm = {}
+        got = RD.score(*h, 1000, SPREAD_REPORT_ONLY, device=dev, timing=tm)
+        e = max_abs_err(zip((torch.from_numpy(x) for x in got),
+                            RD.score_kernel_plain(*(torch.from_numpy(x)
+                                                    for x in h), 1000,
+                                                  SPREAD_REPORT_ONLY)))
+        err = max(err, e)
+
+        def call(h=h):
+            return RD.score(*h, 1000, SPREAD_REPORT_ONLY, device=dev)
+
+        host, device = split_ms(call, 10 * reps)
+        log(f"phase 2 rebalance_score whole call (numpy to numpy) C={C}: "
+            f"max_abs_err={e}, {host:.4f} ms a call (host clock, its sync "
+            "included), device "
+            + (f"{device:.4f} ms" if device is not None else "not measured")
+            + f", kernel_ms {tm['kernel_ms']:.4f} (its events); device by "
+            "activity: " + ", ".join(
+                f"{k.split('(')[0].strip()} {v:.4f}" for k, v in sorted(
+                    kernel_device_ms(call, 10 * reps).items())))
     log(f"phase 2 rebalance_score: max_abs_err={err} ms={row['ms']:.4f} "
         f"(C=5000) ms={ms16:.4f} (C=16384) plain_ms={row['plain_ms']:.4f} "
         f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
         f"library_ms=None (no single call)")
+    row["max_abs_err"] = err
     if err != 0:
         raise AssertionError("rebalance_score disagrees with its plain "
                              "version")
+    if parent is not None:
+        ORD = parent["ops.rebalance_detect"]
+        h = host_ins[5000]
+        for name, fn in (("score_kernel", lambda m: m.score_kernel(*args)),
+                         ("score", lambda m: m.score(
+                             *h, 1000, SPREAD_REPORT_ONLY, device=dev))):
+            for side, m in (("old", ORD), ("new", RD)):
+                host, device = split_ms(lambda m=m, fn=fn: fn(m), 10 * reps)
+                log(f"phase 2 turns K13 {name} split, {side}: host "
+                    f"{host:.4f} ms, device "
+                    + (f"{device:.4f} ms" if device is not None
+                       else "not measured"))
+        run_turns({
+            "K13 score_kernel (C=5000, device operands)": (
+                lambda: cuda_ms(lambda: ORD.score_kernel(*args), reps),
+                lambda: cuda_ms(lambda: RD.score_kernel(*args), reps)),
+            "K13 score whole call (C=5000, numpy to numpy; host clock)": (
+                lambda: wall_ms(lambda: ORD.score(
+                    *h, 1000, SPREAD_REPORT_ONLY, device=dev), reps),
+                lambda: wall_ms(lambda: RD.score(
+                    *h, 1000, SPREAD_REPORT_ONLY, device=dev), reps))},
+            TURN_ROUNDS)
     return row
 
 
@@ -3317,7 +3490,8 @@ def main() -> int:
     del state, solver, roster
     phase_parity_resident(items, fleet, args, dev)
 
-    report.append(phase_kernel_k13(fleet, fwd_results, dev, args.reps))
+    report.append(phase_kernel_k13(fleet, fwd_results, dev, args.reps,
+                                   parent))
     phase_rebalance_parity(M, fleet, items, fwd_results, dev)
     n = min(REBALANCE_BINDINGS, len(items))
     loop = phase_rebalance(M, fleet, items[:n], fwd_results[:n], dev)

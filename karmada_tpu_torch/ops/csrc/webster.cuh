@@ -48,7 +48,7 @@
 //  3. Threshold search over (G - 1, F_1], F_1 the largest first candidate
 //     (cnt(F_1) = 0), on the kept lanes only.  A point's lanes divide by
 //     the same t + 1: one FP64 reciprocal per point, each quotient
-//     corrected to the exact floor (udiv below).
+//     corrected to the exact floor (common.cuh udiv).
 //  4. Tie search, only when r > 0 and t* > 0, over (0, H] with H the
 //     largest tie key + 1 (capped by the JAX program's 2^27 L): the tie
 //     candidates number cnt(t* - 1) - cnt(t*) > r, all with keys below H,
@@ -71,44 +71,6 @@
 #define KT_LANE_BYTES 24
 
 typedef unsigned int u32;
-
-// floor(a / d) by an FP64 reciprocal, exact for 0 <= a < 2^63 and
-// 1 <= d <= 2^62 + 1.  inv is RN(RN(1 / d) * (1 - 2^-49)): with each
-// rounding within 2^-53 relative, a * inv stays below a / d and above
-// (a / d)(1 - 2^-48), so the truncated estimate q never exceeds the
-// quotient and misses it by at most (a / d) 2^-48 + 1 <= 2^15 + 1.  The
-// remainder a - q d is then in [0, 2^15 + 2d), below 2^64; the same
-// estimate on it misses by at most 1, leaving a remainder in [0, 2d) and
-// one compare.
-struct Recip {
-  u64 d;
-  double inv;
-};
-
-__device__ __forceinline__ Recip make_recip(u64 d) {
-  Recip r;
-  r.d = d;
-  r.inv = __dmul_rn(__drcp_rn(__ull2double_rn(d)), 1.0 - 0x1p-49);
-  return r;
-}
-
-__device__ __forceinline__ u64 udiv(u64 a, const Recip& r) {
-  u64 q = __double2ull_rz(__dmul_rn(__ull2double_rn(a), r.inv));
-  u64 rem = a - q * r.d;
-  const u64 q1 = __double2ull_rz(__dmul_rn(__ull2double_rn(rem), r.inv));
-  q += q1;
-  rem -= q1 * r.d;
-  return q + (rem >= r.d ? 1 : 0);
-}
-
-// Python's x // d for any int64 x and d >= 1 (d <= 2^62 + 1): for x < 0,
-// x // d = -((-x - 1) // d) - 1, and -x - 1 = ~x never overflows.  One
-// division and selects, no branch.
-__device__ __forceinline__ i64 floordiv_r(i64 x, const Recip& r) {
-  const bool neg = x < 0;
-  const i64 q = (i64)udiv((u64)(neg ? ~x : x), r);
-  return neg ? -q - 1 : q;
-}
 
 // JAX _count_above of one positive lane: #{s in [s0, s0 + n) : wq // (2s
 // + 1) > t}, with d the reciprocal of t + 1.

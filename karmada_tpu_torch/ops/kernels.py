@@ -53,7 +53,7 @@ ENTRIES = {"capacity": ("capacity",),
            "resident": ("scatter_lanes", "gather_rows", "gather_ring_init",
                         "gather_ring_free"),
            "dirty": ("dirty_codes",),
-           "rebalance": ("rebalance_score",)}
+           "rebalance": ("rebalance_score", "score_free")}
 #: the kernels, by launch counter: K2's big-tier instantiation counts
 #: apart from the std one it shares a source with; K7's spread flavour
 #: counts as explain_rows; K8 and K9 share a source, as do K10 and K11
@@ -410,25 +410,51 @@ GATHER_CALL = (("slots", 1), ("lane_inv", 1), ("drop", 1), ("mirrors", 12),
                ("ring_bytes", 1), ("next", 1), ("done", GATHER_RING))
 
 
-def gather_call_offsets() -> Dict[str, int]:
-    """Each GATHER_CALL field's first int64 slot, and "len" the block's."""
+def block_offsets(layout) -> Dict[str, int]:
+    """Each field's first int64 slot in a call block laid out by `layout`
+    ((field, width in slots), ...), and "len" the block's."""
     out, at = {}, 0
-    for f, n in GATHER_CALL:
+    for f, n in layout:
         out[f] = at
         at += n
     out["len"] = at
     return out
 
 
-DIRTY_TENSOR_FIELDS = (
+def gather_call_offsets() -> Dict[str, int]:
+    """Each GATHER_CALL field's first int64 slot, and "len" the block's."""
+    return block_offsets(GATHER_CALL)
+
+
+#: K12's device operands, in dirty.cu DirtyCall `fields` order: the
+#: slot-store fields, then the cluster-side fields the plane mirrors
+DIRTY_DEVICE_FIELDS = (
     "placement_id", "replicas", "fresh", "non_workload", "route", "prev_idx",
     "prev_val", "evict_idx", "cluster_valid", "deleting", "pl_mask",
-    "pl_strategy", "pl_has_cluster_sc", "pl_has_region_sc")
+    "pl_strategy", "pl_has_cluster_sc")
 
-DirtyArgs = _struct("DirtyArgs", DIRTY_TENSOR_FIELDS + (
-    "flip_lanes", "rv_slots", "pl_flags", "rv_mark", "out"),
-    ("cap", "C", "P", "Kp", "Ke", "F", "S"))
+#: K12's call block (dirty.cu DirtyCall), int64 slots in order, a field's
+#: width in slots: the device operands (DIRTY_DEVICE_FIELDS), region_sc,
+#: the flip lanes and the ascending rv list (host addresses when staged),
+#: the device codes and their pinned copy, the shapes, the vector flag,
+#: the staging flag, the device buffer the staged inputs land in, and the
+#: workspace's pinned staging buffer and its size
+DIRTY_CALL = (("fields", len(DIRTY_DEVICE_FIELDS)), ("region_sc", 1),
+              ("flips", 1), ("rv", 1), ("out", 1), ("host_out", 1),
+              ("cap", 1), ("C", 1), ("P", 1), ("Kp", 1), ("Ke", 1),
+              ("F", 1), ("S", 1), ("vec", 1), ("staged", 1), ("dbuf", 1),
+              ("pin", 1), ("pin_bytes", 1))
 
-ScoreArgs = _struct("ScoreArgs", (
-    "committed", "capacity", "valid", "drain_need", "over_milli",
-    "div_milli"), ("C", "threshold_milli", "spread_tol_milli"))
+#: K13's call block (rebalance.cu ScoreCall), int64 slots in order: the
+#: inputs (device addresses, or host addresses when staged), the device
+#: outputs [3, C], C and the two thresholds, the staging flag, the
+#: workspace's device and pinned buffers and the pinned one's size, the
+#: timing flag, its two events and the kernel's time in nanoseconds
+SCORE_CALL = (("committed", 1), ("capacity", 1), ("valid", 1), ("out", 1),
+              ("C", 1), ("threshold_milli", 1), ("spread_tol_milli", 1),
+              ("staged", 1), ("dbuf", 1), ("pin", 1), ("pin_bytes", 1),
+              ("timed", 1), ("ev0", 1), ("ev1", 1), ("kernel_ns", 1))
+#: lanes of K13 a block keeps in registers (rebalance.cu NT * LPT), and
+#: the blocks of its one thread block cluster at most (CLUSTER_MAX)
+SCORE_BLOCK_LANES = 512 * 4
+SCORE_CLUSTER_MAX = 8

@@ -583,7 +583,7 @@ class ResidentState:
                                          explain=explain)
             self._adopt(batch, items, tokens)
             self.misses += n
-            self._sync_device()
+            self.sync_device()
             return batch
 
         slots = np.zeros(n, np.int64)
@@ -626,7 +626,7 @@ class ResidentState:
             fresh = self.audit(items, batch, tokens, explain=explain)
             if fresh is not None:
                 return fresh
-        self._sync_device()
+        self.sync_device()
         return batch
 
     def forget(self, key: str) -> None:
@@ -1040,11 +1040,16 @@ class ResidentState:
             return None
         self._reset(self.clusters, "audit-mismatch")
         self._adopt(fresh, items, tokens)
-        self._sync_device()
+        self.sync_device()
         return fresh
 
     # -- device plane --------------------------------------------------------
-    def _sync_device(self) -> None:
+    def sync_device(self) -> None:
+        """Bring the cluster-side device mirrors up to the masters (one
+        fused K10 scatter of the churned lanes, or a re-place) and prime
+        the solver's transfer cache; nothing to do when in sync.  Each
+        encode ends with it, and the incremental dirty pass runs it
+        first (ops/dirty.dirty_codes reads the mirrors)."""
         if self.plane is None:
             return
         if self._device_primed and not self._dirty:

@@ -109,6 +109,10 @@ class CycleReport:
     # pipeline stages summed over their calls ("encode", "shortlist",
     # "dispatch", "wait", "spread", "big", "finalize", "decode")
     stages: Dict[str, float] = field(default_factory=dict)
+    # the "dirty" stage's host seconds in its three parts: "roster" (the
+    # rv-churn slots and forced rows), "codes" (ops/dirty.dirty_codes)
+    # and "map" (slot codes to roster positions, the dirty set)
+    dirty_split: Dict[str, float] = field(default_factory=dict)
 
 
 _PIPELINE_STAGES = ("encode", "shortlist", "dispatch", "wait", "spread",
@@ -338,8 +342,10 @@ class IncrementalSolver:
         mirrors = (dr.mirrors if dr is not None and dr.mirrors
                    and state._rows_dirty is None  # noqa: SLF001
                    else None)
+        t_codes = time.perf_counter()
         codes = dirty_mod.dirty_codes(
             state, np.asarray(rv_slots, np.int64), mirrors=mirrors)
+        t_map = time.perf_counter()
 
         n = len(keys)
         pos_codes = np.zeros(n, np.uint8)
@@ -354,6 +360,8 @@ class IncrementalSolver:
         dirty_mod.COUNTS["dirty_fraction"] = rep.dirty / max(n, 1)
         t2 = time.perf_counter()
         rep.stages["dirty"] = t2 - t1
+        rep.dirty_split = {"roster": t_codes - t1, "codes": t_map - t_codes,
+                           "map": t2 - t_map}
 
         groups = self._group(dirty_pos, pos_codes)
         rep.chunk_groups = len(np.unique(dirty_pos // self.chunk))

@@ -41,9 +41,15 @@ path: one launch a call, staged uploads, outputs of calls in flight
 apart, a re-placed mirror checked again; its staging ring with more
 dispatches in flight than buffers behind a busy stream, and its inputs at
 their edges),
-K12 dirty_codes, and a fused incremental run card against CPU; K13
-rebalance_score (and no launch on zero lanes), and one rebalance-plane
-cycle card against CPU.
+K12 dirty_codes (the contract's -1 padded operands; its edges: ragged
+and tiny stores, no flip lanes, every rv entry padded, one placement,
+32,771 placements, odd and misaligned prev / evict rows, rv runs longer
+than a warp, the rv list as given and ascending; dirty_codes' one C call
+on a fused plane), and a fused incremental run card against CPU; K13
+rebalance_score (and no launch on zero lanes; a cluster of one block,
+one of several and lanes past its registers; invalid lanes, zero totals, wrapped products
+and totals; score's one C call and its results' ownership), and one
+rebalance-plane cycle card against CPU.
 """
 
 import numpy as np
@@ -1337,6 +1343,144 @@ def test_dirty_codes_kernel_matches_plain_on_card():
     assert int(want[0]) & DM.DIRTY
 
 
+def _dirty_store(rng, cap, C, P, Kp, Ke):
+    """A slot store and planes for K12 (numpy), with half the Dynamic rows
+    steady (replicas = the replicas on their feasible prev lanes), so
+    every branch of the verdict runs."""
+    store = S.slot_store(rng, cap, Kp, Ke, C, P)
+    store["prev_val"] = np.where(store["prev_idx"] >= 0, store["prev_val"],
+                                 0).astype(np.int32)
+    plane = {
+        "cluster_valid": rng.random(C) < 0.95,
+        "deleting": rng.random(C) < 0.05,
+        "pl_mask": rng.random((P, C)) < 0.5,
+        "pl_strategy": rng.integers(0, 5, P).astype(np.int32),
+        "pl_has_cluster_sc": rng.random(P) < 0.15,
+        "pl_has_region_sc": rng.random(P) < 0.1,
+    }
+    pi, pid = store["prev_idx"], store["placement_id"]
+    li = np.where(pi >= 0, pi, 0)
+    ev = store["evict_idx"]
+    evicted = (li[:, :, None] == np.where(ev >= 0, ev, -2)[:, None, :]).any(2)
+    feas = ((pi >= 0) & plane["cluster_valid"][li] & ~plane["deleting"][li]
+            & plane["pl_mask"][pid[:, None], li] & ~evicted)
+    assigned = np.where(feas, store["prev_val"], 0).sum(1)
+    steady = rng.random(cap) < 0.5
+    store["replicas"] = np.where(steady, assigned,
+                                 store["replicas"]).astype(np.int64)
+    store["fresh"] &= rng.random(cap) < 0.3
+    return store, plane
+
+
+def _misaligned(a: torch.Tensor) -> torch.Tensor:
+    """`a` as a contiguous view 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    v = buf[1:].view(a.shape)
+    v.copy_(a)
+    assert v.data_ptr() % 16 and v.is_contiguous()
+    return v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    "cap_ragged", "cap_tiny", "no_flips", "rv_all_padded", "one_placement",
+    "many_placements", "odd_kp_ke", "misaligned", "rv_long_runs"])
+def test_dirty_kernel_edges_on_card(case):
+    """K12 at the shapes its design branches on, against the plain pass:
+    a cap that is no multiple of a block (and one below a warp), F = 0,
+    every rv entry padded, P = 1, P = 32,771 (a placement's flags are
+    probed a warp, whatever P), Kp / Ke not multiples of 4, prev / evict
+    planes off a 16-byte boundary (scalar loads), and rv runs longer than
+    a warp within one block (a slot repeated, every slot of a block);
+    each with the rv list as given (padded, duplicates, slots >= cap) and
+    ascending (the wrapper sorts it on the card), one launch of K12 a
+    call."""
+    from karmada_tpu_torch.ops import dirty as DM
+
+    dev = _card()
+    rng = np.random.default_rng(sum(map(ord, case)))
+    cap, C, P, Kp, Ke, F = 3 * 2048 + 77, 256, 24, 4, 4, 5
+    if case == "cap_tiny":
+        cap = 19
+    elif case == "one_placement":
+        P = 1
+    elif case == "many_placements":
+        P, C = 32771, 16
+    elif case == "odd_kp_ke":
+        Kp, Ke = 3, 5
+    elif case == "no_flips":
+        F = 0
+    store, plane = _dirty_store(rng, cap, C, P, Kp, Ke)
+    flips = (DM._pad_lanes(rng.choice(C, F, replace=False)) if F
+             else np.zeros(0, np.int64))
+    rv = (np.full(16, -1, np.int64) if case == "rv_all_padded" else
+          DM._pad_lanes(np.concatenate([[0, 0, cap, cap + 9],
+                                        rng.choice(cap, 40)])))
+    if case == "rv_long_runs":
+        rv = DM._pad_lanes(np.concatenate([[300] * 70, np.arange(512, 800),
+                                           [cap - 1] * 3]))
+    ins = [store[f] for f in DM.SLOT_FIELDS] + [
+        plane[f] for f in DM.PLANE_FIELDS] + [flips, rv]
+    want = DM.dirty_kernel_plain(*(torch.from_numpy(a) for a in ins))
+    dv = [torch.from_numpy(a).to(dev) for a in ins]
+    if case == "misaligned":
+        for i in (5, 6, 7):  # prev_idx, prev_val, evict_idx
+            dv[i] = _misaligned(dv[i])
+    srt = dv[:-1] + [torch.sort(dv[-1]).values]
+    for name, args in (("as given", dv), ("ascending", srt)):
+        kernels.reset_counts()
+        got = DM.dirty_kernel(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dirty_codes"] == 1
+        assert sum(kernels.LAUNCHES.values()) == 1
+        assert torch.equal(got.cpu(), want), name
+    assert want.unique().numel() >= 2  # more than one verdict
+
+
+@pytest.mark.gpu
+def test_dirty_codes_call_on_card():
+    """dirty_codes as the incremental solver calls it on a fused plane on
+    the card: one launch, equal to the plain pass over the host masters
+    with flip lanes and an rv list of pads, duplicates, slot 0 and slots
+    >= cap; the codes are the caller's (a second call leaves them)."""
+    import random
+
+    from karmada_tpu_torch.ops import dirty as DM
+    from karmada_tpu_torch.resident import ResidentState
+    from karmada_tpu_torch.resident.deltas import CycleDeltas
+    from karmada_tpu_torch.scheduler.incremental import IncrementalSolver
+
+    dev = _card()
+    rng = random.Random(5)
+    clusters, pls = S.build_megafleet(MP, rng, 96, 6)
+    bindings = S.as_bindings(MP, S.build_mega_bindings(MP, rng, 600, pls,
+                                                       block=100))
+    state = ResidentState(audit_interval=0, fused=True, device=dev)
+    solver = IncrementalSolver(state, GeneralEstimator(), chunk=128,
+                               audit_every=0)
+    solver.adopt(clusters, bindings)
+    solver.write_back()
+    solver.cycle(clusters, bindings, CycleDeltas())
+    p = state.plane
+    cap = p.placement_id.shape[0]
+    state.last_flip_lanes = np.array([3, 40, 77], np.int64)
+    rv = np.array([-1, 0, 5, 5, cap, cap + 3, 17, -1], np.int64)
+    host = [torch.from_numpy(np.array(getattr(p, f)))
+            for f in DM.SLOT_FIELDS + DM.PLANE_FIELDS]
+    want = DM.dirty_kernel_plain(
+        *host, torch.from_numpy(DM._pad_lanes(state.last_flip_lanes)),
+        torch.from_numpy(DM._pad_lanes(rv))).numpy()
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    got = DM.dirty_codes(state, rv, mirrors=state.device_rows.mirrors)
+    assert kernels.LAUNCHES["dirty_codes"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert got.dtype == np.uint8 and np.array_equal(got, want)
+    keep = got.copy()
+    again = DM.dirty_codes(state, np.zeros(0, np.int64))
+    assert np.array_equal(got, keep) and not np.shares_memory(got, again)
+
+
 @pytest.mark.gpu
 def test_fused_incremental_steady_state_on_card():
     """The fused resident plane with the shortlist under the incremental
@@ -1410,6 +1554,66 @@ def test_rebalance_score_kernel_matches_plain_on_card(C):
     out = PRD.score_kernel(empty, empty, empty.bool(), 1000, 50)
     assert all(o.shape == (0,) for o in out)
     assert kernels.LAUNCHES["rebalance_score"] == 0  # no lanes, no launch
+
+
+def _score_lanes(rng, C, mix):
+    com = rng.integers(-50, 1 << 20, C)
+    cap = rng.integers(-50, 1 << 20, C)
+    cap[rng.random(C) < 0.15] = 0
+    valid = rng.random(C) < 0.85
+    if mix == "all_invalid":
+        valid[:] = False
+    elif mix == "zero_totals":
+        com = np.minimum(com, 0)
+        cap = np.minimum(cap, 0)
+    elif mix == "wrap" and C:
+        # com * 1000 wraps; the committed total past the reciprocal's
+        # range (2^62 + 1) but positive; the capacity total wraps negative
+        valid[:3] = True
+        com[0] = (1 << 62) + 12345
+        cap[:3] = 1 << 62
+        com[1:3] = np.minimum(com[1:3], (1 << 53) + 7)
+    return com, cap, valid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [0, 1, 7, 5000, 10000, 16384, 1 << 17])
+@pytest.mark.parametrize("mix", ["random", "all_invalid", "zero_totals",
+                                 "wrap"])
+def test_rebalance_score_edges_on_card(C, mix):
+    """K13 from device operands (score_kernel) and from numpy (score, one
+    C call: upload, launch, download, sync) against the plain version:
+    a cluster of one block, one of several and lanes past the cluster's
+    registers (kernels.SCORE_BLOCK_LANES, SCORE_CLUSTER_MAX); all lanes invalid,
+    zero totals, wrapped products and totals; thresholds 800 / 1000,
+    spread off, 50 and -5.  One launch a call (none for C = 0); score's
+    arrays are the caller's; its timing reads the kernel's events."""
+    from karmada_tpu_torch.ops import rebalance_detect as PRD
+
+    dev = _card()
+    rng = np.random.default_rng(C + len(mix))
+    com, cap, valid = _score_lanes(rng, C, mix)
+    cpu = [torch.from_numpy(a) for a in (com, cap, valid)]
+    card = [a.to(dev) for a in cpu]
+    held = []
+    for thr in (800, 1000):
+        for tol in (1 << 20, 50, -5):
+            want = PRD.score_kernel_plain(*cpu, thr, tol)
+            kernels.reset_counts()
+            got = PRD.score_kernel(*card, thr, tol)
+            torch.cuda.synchronize()
+            tm = {}
+            host = PRD.score(com, cap, valid, thr, tol, device=dev,
+                             timing=tm)
+            assert kernels.LAUNCHES["rebalance_score"] == (2 if C else 0)
+            assert sum(kernels.LAUNCHES.values()) == (2 if C else 0)
+            for g, h, w in zip(got, host, want):
+                assert torch.equal(g.cpu(), w)
+                assert h.dtype == np.int64 and np.array_equal(h, w.numpy())
+            assert (tm["kernel_ms"] > 0) == (C > 0)
+            held.append((host, [w.numpy() for w in want]))
+    for host, want in held:  # later calls left the earlier results
+        assert all(np.array_equal(h, w) for h, w in zip(host, want))
 
 
 @pytest.mark.gpu

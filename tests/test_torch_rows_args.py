@@ -5,7 +5,9 @@ and against the C struct in the source, field by field; K7's ExplainArgs
 (explain.cu, kernels.explain_block, solver.ExplainWorkspace) the same
 way; and K11's call block (resident.cu GatherCall, kernels.GATHER_CALL,
 resident_gather._Plan) against its C struct, field by field and width by
-width."""
+width; K12's DirtyCall (dirty.cu, kernels.DIRTY_CALL, ops/dirty.py) and
+K13's ScoreCall (rebalance.cu, kernels.SCORE_CALL,
+ops/rebalance_detect.py) the same way."""
 
 import re
 
@@ -123,3 +125,68 @@ def test_gather_call_lists_the_c_structs_fields_in_order():
     assert (at["mirrors"], at["out_off"], at["B"]) == (3, 15, 27)
     assert (RG._B, RG._SLAB, RG._STAGED, RG._NINV) == (
         at["B"], at["slab"], at["staged"], at["n_inv"])
+
+
+def _call_layout(text, struct, consts):
+    """[(field, width in int64 slots)] of an all-int64 C struct, array
+    widths read as numbers or as the named constants."""
+    got = []
+    for name, decl in _c_fields(text, struct):
+        assert decl.startswith("i64 "), (name, decl)
+        m = re.fullmatch(r"(\w+)\[(\w+)\]", name)
+        if m:
+            n = m.group(2)
+            got.append((m.group(1), consts[n] if n in consts else int(n)))
+        else:
+            got.append((name, 1))
+    return got
+
+
+def _const(text, name):
+    return int(re.search(rf"constexpr \w+ {name} = (\d+);", text).group(1))
+
+
+def test_dirty_call_lists_the_c_structs_fields_in_order():
+    """K12's call block (dirty.cu DirtyCall) against kernels.DIRTY_CALL,
+    field by field and width by width; the kernel's parameters
+    (DirtyArgs) begin with the block's device operands in
+    DIRTY_DEVICE_FIELDS order; the block's size agrees with the source's
+    static_assert; the slots ops/dirty.py patches sit where the block has
+    them."""
+    from karmada_tpu_torch.ops import dirty as DM
+
+    text = (kernels.CSRC / "dirty.cu").read_text()
+    assert _call_layout(text, "DirtyCall", {}) == list(kernels.DIRTY_CALL)
+    args = [f for f, _d in _c_fields(text, "DirtyArgs")]
+    n = len(kernels.DIRTY_DEVICE_FIELDS)
+    assert args[:n] == list(kernels.DIRTY_DEVICE_FIELDS)
+    assert args[n:n + 4] == ["pl_has_region_sc", "flip_lanes", "rv_slots",
+                             "out"]
+    assert list(kernels.DIRTY_DEVICE_FIELDS) == list(
+        DM.SLOT_FIELDS + DM.PLANE_FIELDS[:-1])
+    at = kernels.block_offsets(kernels.DIRTY_CALL)
+    size = re.search(r"sizeof\(DirtyCall\) == (\d+) \* sizeof", text)
+    assert at["len"] == int(size.group(1)) == 30
+    assert (DM._F0, DM._NF, DM._REG, DM._CAP, DM._VEC, DM._STAGED, DM._PIN,
+            DM._PIN_BYTES) == (at["fields"], n, at["region_sc"], at["cap"],
+                               at["vec"], at["staged"], at["pin"],
+                               at["pin_bytes"])
+
+
+def test_score_call_lists_the_c_structs_fields_in_order():
+    """K13's call block (rebalance.cu ScoreCall) against
+    kernels.SCORE_CALL; the lanes a block keeps in registers and the
+    cluster's blocks agree with the source; the slots
+    ops/rebalance_detect.py patches sit where the block has them."""
+    from karmada_tpu_torch.ops import rebalance_detect as RD
+
+    text = (kernels.CSRC / "rebalance.cu").read_text()
+    assert _call_layout(text, "ScoreCall", {}) == list(kernels.SCORE_CALL)
+    assert _const(text, "NT") * _const(text, "LPT") == \
+        kernels.SCORE_BLOCK_LANES
+    assert _const(text, "CLUSTER_MAX") == kernels.SCORE_CLUSTER_MAX
+    at = kernels.block_offsets(kernels.SCORE_CALL)
+    assert at["len"] == 15
+    assert (RD._COM, RD._OUT, RD._C, RD._STAGED, RD._PIN_BYTES, RD._TIMED,
+            RD._NS) == (at["committed"], at["out"], at["C"], at["staged"],
+                        at["pin_bytes"], at["timed"], at["kernel_ns"])

@@ -2,12 +2,14 @@
 """Probe of single kernels of the port on one CUDA card, at chip_smoke
 phase 2's shapes: K3 compact and K2 schedule_rows (std tier), K4
 webster_batch, K11 gather_rows, K5 spread_group_info, K6 spread_pick, K1
-capacity, K8 shortlist_topk and K7 explain_rows.
+capacity, K8 shortlist_topk, K7 explain_rows, K12 dirty_codes and K13
+rebalance_score.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 tools/kernel_probe.py [k3k2] [k4] [k11] [k5k6] [k1] [k8]
-        [k8census] [k2big] [k2launch] [k2census] [k7] [--parent TREE]
+        [k8census] [k2big] [k2launch] [k2census] [k7] [k12] [k13]
+        [--parent TREE]
 
 It builds the first forward chunk of chip_smoke's workload (bench.py's
 config-5 mix, seed 0: 4096 bindings x 8192 lanes) and prints, after the
@@ -79,10 +81,30 @@ card's name and power limit, the parts named (default: all):
         K7_OLD_MARKS substituted into a copy of a source without them);
         for a tree whose wrapper takes a workspace also the wave as
         schedule_core launches it.
+  k12   not in the default set (~4 min: it runs chip_smoke's phase 9,
+        whose lines carry the "dirty" stage's split into roster,
+        dirty_codes and the position mapping): on phase 9's plane (cap
+        2^20) with 8 flip lanes and 1,000 rv slots, per tree:
+        dirty_codes whole and in pieces (the parent's cluster-side
+        uploads, rv / flip uploads, scratches and memset, launch and D2H;
+        this tree's mirror sync, rv normalisation, operand bind, one C
+        call and copy out), its device time by activity, and the kernel
+        on device operands (CUDA-event ms, host enqueue against device
+        time by kernel, and a clock64 profile of a block where the
+        source has KT_MARK points); then this tree's dirty.cu built at
+        each block shape of K12_SHAPES on a synthetic store shaped like
+        phase 9's: registers and spills, CUDA-event ms and device time,
+        each held against the plain pass.
+  k13   K13 at C = 5,000, 10,000 and 16,384, per tree: score from numpy
+        whole (with and without its timing events) and in pieces, its
+        device time by activity, the kernel on device operands, and a
+        clock64 profile of its passes (KT_MARK points built with
+        -DKT_PROFILE, or K13_OLD_MARKS substituted into the parent's
+        source).
 
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1, k8, k2big,
-k2launch and k7 also run on the parent's port.  The variant libraries build into a temporary directory.
+k2launch, k7, k12 and k13 also run on the parent's port.  The variant libraries build into a temporary directory.
 Exits non-zero without a card, or when a variant disagrees with its
 plain version.
 """
@@ -1560,20 +1582,437 @@ def probe_k2census(CS, M, fleet, placements, dev):
         S.schedule_rows = orig
 
 
+# -- K12 dirty_codes and K13 rebalance_score ------------------------------------
+
+def wall_ms(fn, n=50):
+    """Host-clock ms a call of `fn`, each call ended by synchronize(),
+    over `n` calls after one warm-up."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _by_line(by):
+    return ", ".join(f"{k.split('(')[0].strip()} {v:.4f}"
+                     for k, v in sorted(by.items()))
+
+
+def profile_marks(kmod, source, subs, entry_name, call, out_dir, name,
+                  phases, blocks=8, slots=8):
+    """clock64 profile of one launch of `entry_name` (`call` runs it
+    through the tree's wrapper and returns its outputs): the tree's
+    `source` built with -DKT_PROFILE=`blocks`, `subs` (marks) substituted
+    into a copy where it has no KT_MARK points, launched with kmod's
+    entry swapped and held against the unmarked kernel.  Returns
+    {phase: cycles a block array} for the blocks that ran."""
+    csrc = str(kmod.CSRC)
+    src = os.path.join(csrc, source)
+    text = open(src).read()
+    lib = build_variant(kmod, src, [] if "KT_MARK(" in text else subs, name,
+                        out_dir, inc=csrc,
+                        flags=(f"-DKT_PROFILE={blocks}",))
+    want = [t.clone() for t in call()]
+    torch.cuda.synchronize()
+    saved = kmod._FNS[entry_name]
+    try:
+        kmod._FNS[entry_name] = entry(lib, "kt_" + entry_name)
+        got = call()
+        torch.cuda.synchronize()
+    finally:
+        kmod._FNS[entry_name] = saved
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: the profiled kernel disagrees")
+    h = np.zeros(blocks * slots, np.int64)
+    fn = lib.kt_prof_read
+    fn.argtypes = [ctypes.c_void_p]
+    if fn(ctypes.c_void_p(h.ctypes.data)):
+        raise RuntimeError(f"reading the {name} profile failed")
+    h = h.reshape(blocks, slots)
+    h = h[h[:, 0] != 0]
+    return {p: h[:, b] - h[:, a] for p, a, b in phases}
+
+
+#: K12's phases in a block: its slots, then its rv hits (KT_MARK points
+#: of a dirty.cu that has them)
+K12_PHASES = (("slots", 0, 1), ("rv hits", 1, 2), ("a block", 0, 2))
+
+
+def k12_operands(DM, state, mirrors, rv, flips):
+    """K12's device operands as chip_smoke phase 2 builds them: the slot
+    mirrors, the plane's cluster-side fields uploaded, the -1 padded flip
+    lanes and rv slots."""
+    p = state.plane
+    dev = state.device
+
+    def up(a):
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
+
+    return ([mirrors[f] for f in DM.SLOT_FIELDS]
+            + [up(getattr(p, f)) for f in DM.PLANE_FIELDS]
+            + [up(DM._pad_lanes(flips)), up(DM._pad_lanes(rv))])
+
+
+def k12_pieces(DM, SM, state, mirrors, rv, n=50):
+    """Where one dirty_codes call goes, piece by piece, each timed alone
+    (host ms a call, each ended by synchronize()): for a tree whose
+    dirty_codes uploads the cluster-side fields (no workspace): those
+    uploads (the frozen masters copied first), the rv / flip uploads, the
+    scratch allocations with the memset, the launch and the D2H; for a
+    tree with a workspace: the mirror sync, the rv normalisation, the one
+    C call (staging, kernel, D2H into pinned memory, sync) and the copy
+    out."""
+    p = state.plane
+    dev = state.device
+    cap, P = p.placement_id.shape[0], p.pl_mask.shape[0]
+    out = {}
+    if not hasattr(DM, "normalise_rv"):
+        def up(a):
+            return SM._to_dev(a, dev)
+
+        out["cluster-side uploads"] = wall_ms(
+            lambda: [up(getattr(p, f)) for f in DM.PLANE_FIELDS], n)
+        out["of which pl_mask"] = wall_ms(lambda: up(p.pl_mask), n)
+        out["rv / flip uploads"] = wall_ms(
+            lambda: (up(DM._pad_lanes(state.last_flip_lanes)),
+                     up(DM._pad_lanes(rv))), n)
+        out["scratch allocations + memset"] = wall_ms(
+            lambda: (torch.empty((P,), dtype=torch.uint8, device=dev),
+                     torch.zeros((cap,), dtype=torch.uint8, device=dev),
+                     torch.empty((cap,), dtype=torch.uint8, device=dev)), n)
+        ins = k12_operands(DM, state, mirrors, rv, state.last_flip_lanes)
+        codes = DM.dirty_kernel(*ins)
+        out["launch (host enqueue)"] = host_ms(
+            lambda: DM.dirty_kernel(*ins), 200)
+        out["D2H (.cpu().numpy())"] = wall_ms(lambda: codes.cpu().numpy(), n)
+    else:
+        out["mirror sync (in sync)"] = wall_ms(state.sync_device, n)
+        out["rv normalisation"] = host_ms(
+            lambda: DM.normalise_rv(rv), 200)
+        dm = state.device_mirrors.mirrors
+        ops = ([mirrors[f] for f in DM.SLOT_FIELDS]
+               + [dm[f] for f in DM.PLANE_FIELDS[:-1]])
+        ws = DM._workspace(dev)
+        out["operand bind (the set's check, hit)"] = host_ms(
+            lambda: ws.bind(ops), 200)
+        # the block as dirty_codes fills it, on inputs kept alive here
+        flips = np.ascontiguousarray(state.last_flip_lanes, np.int64)
+        rvn = DM.normalise_rv(rv)
+        reg = np.ascontiguousarray(p.pl_has_region_sc, np.bool_)
+        ws.bind(ops)
+        ws.stage(8 * (flips.size + rvn.size) + reg.size)
+        ws.codes(cap)
+        blk = ws.blk
+        blk[DM._REG], blk[DM._FLIPS], blk[DM._RV] = (
+            reg.ctypes.data, flips.ctypes.data, rvn.ctypes.data)
+        blk[DM._OUT], blk[DM._HOST] = ws.out.data_ptr(), ws.host.data_ptr()
+        blk[DM._F], blk[DM._S], blk[DM._STAGED] = flips.size, rvn.size, 1
+        out["the C call (stage, upload, kernel, D2H, sync)"] = wall_ms(
+            lambda: DM._launch(ws), n)
+        out["copy out"] = host_ms(lambda: ws.host_np[:cap].copy(), 200)
+    out["whole dirty_codes"] = wall_ms(
+        lambda: DM.dirty_codes(state, rv, mirrors=mirrors), n)
+    return out
+
+
+def probe_k12(CS, M, dev, trees):
+    """K12 at phase 9's shapes: chip_smoke's phase 9 (adopt, settle,
+    catch-up, four steady cycles, flap, audit; its lines carry the
+    "dirty" stage's split), then on its plane (cap 2^20, P x C as
+    phase 2 logs them), with 8 real flip lanes and 1,000 real rv slots
+    (slot 0 among them), per tree: dirty_codes whole and in pieces, the
+    whole call's device time by activity, and the kernel alone on device
+    operands -- CUDA-event ms, host enqueue against device time, device
+    time by kernel (the parent's prep and main launches apart) and, for a
+    source with KT_MARK points, a clock64 profile of a block; then this
+    tree's block shapes (k12_shapes).  The trees must agree with the plain
+    pass."""
+    mfleet, mpl = CS.build_megafleet(M, random.Random(2), CS.MEGA_CLUSTERS,
+                                     CS.MEGA_REGIONS)
+    _l, state, solver, _r = CS.phase_incremental(
+        M, mfleet, mpl, CS.INCREMENTAL_BINDINGS, 4096, dev, 5)
+    del _r
+    p = state.plane
+    cap, nC = p.placement_id.shape[0], state.nC
+    g = np.random.default_rng(0)
+    state.last_flip_lanes = np.sort(g.choice(nC, 8, replace=False))
+    rv = np.concatenate([[0], g.choice(np.arange(1, cap), 999,
+                                       replace=False)]).astype(np.int64)
+    mirrors = state.device_rows.mirrors
+    print(f"K12 operands: cap {cap}, P x C {tuple(p.pl_mask.shape)}, Kp "
+          f"{p.prev_idx.shape[1]}, Ke {p.evict_idx.shape[1]}, 8 flip "
+          "lanes, 1,000 rv slots", flush=True)
+    res = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kmod, smod in trees:
+            DM = smod.DM
+            ins = k12_operands(DM, state, mirrors, rv, state.last_flip_lanes)
+            want = DM.dirty_kernel_plain(*ins)
+            got = DM.dirty_codes(state, rv, mirrors=mirrors)
+            if not np.array_equal(got, want.cpu().numpy()):
+                raise AssertionError(f"K12 {label}: dirty_codes disagrees "
+                                     "with the plain pass")
+            res.append(got)
+            parts = k12_pieces(DM, smod.S, state, mirrors, rv)
+            print(f"K12 {label}, dirty_codes pieces, ms a call: " + "; ".join(
+                f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
+            call = lambda DM=DM: DM.dirty_codes(state, rv, mirrors=mirrors)
+            print(f"K12 {label}, dirty_codes device by activity: "
+                  + _by_line(CS.kernel_device_ms(call, 50)), flush=True)
+
+            def kern(DM=DM, ins=ins):
+                return (DM.dirty_kernel(*ins),)
+            if not torch.equal(kern()[0], want):
+                raise AssertionError(f"K12 {label}, the kernel: disagrees")
+            ms = CS.cuda_ms(kern, 200)
+            host, device = CS.split_ms(kern, 200)
+            print(f"K12 {label}, kernel on device operands, the padded rv "
+                  f"list: {ms:.4f} ms; host enqueue {host:.4f} ms, device "
+                  f"{device} ms; by kernel: "
+                  f"{_by_line(CS.kernel_device_ms(kern, 200))}", flush=True)
+            text = open(os.path.join(str(kmod.CSRC), "dirty.cu")).read()
+            if "KT_MARK(" in text:
+                d = profile_marks(kmod, "dirty.cu", (), "dirty_codes", kern,
+                                  tmp, f"dirty_{label.split()[-1]}",
+                                  K12_PHASES, blocks=512)
+                print(f"K12 {label}, clock64 cycles a block (mean / max "
+                      f"over {len(d['a block'])} blocks): " + "; ".join(
+                          f"{ph} {d[ph].mean():.0f} / {d[ph].max()}"
+                          for ph, _a, _b in K12_PHASES), flush=True)
+    if not all(np.array_equal(res[0], r) for r in res[1:]):
+        raise AssertionError("K12 probe: the trees disagree")
+    _l, kmod, smod = trees[0]
+    k12_shapes(CS, dev, kmod, smod.DM, trees)
+
+
+#: K12 block shapes (threads a block, the blocks an SM must hold: the
+#: register budget) the k12 part builds as variants of dirty.cu
+K12_SHAPES = ((256, 8), (256, 6), (256, 4), (128, 16), (512, 4))
+
+
+def k12_synthetic(dev):
+    """A slot store shaped like phase 9's (cap 2^20, 10,000 clusters in
+    C = 16,384 lanes, 200 DynamicWeight placements of 50 clusters each,
+    4,096 consecutive slots a placement, 1-3 prev lanes a row in its
+    placement, 1% of rows with an evicted lane, 98% steady), 8 flip lanes
+    and 1,000 rv slots ascending: K12's device operands (the rv list
+    last)."""
+    rng = np.random.default_rng(12)
+    cap, P, C, nC, Kp, Ke = 1 << 20, 256, 16384, 10000, 4, 4
+    pid = ((np.arange(cap) // 4096) % 200).astype(np.int32)
+    members = np.arange(nC).reshape(50, 200).T  # region r: r, r + 200, ..
+    pl_mask = np.zeros((P, C), bool)
+    for r in range(200):
+        pl_mask[r, members[r]] = True
+    prev = members[pid[:, None], rng.integers(0, 50, (cap, Kp))]
+    used = np.arange(Kp)[None, :] < rng.integers(1, 4, cap)[:, None]
+    prev = np.where(used, prev, -1).astype(np.int32)
+    val = np.where(used, rng.integers(1, 3, (cap, Kp)), 0).astype(np.int32)
+    evict = np.full((cap, Ke), -1, np.int32)
+    ev = rng.random(cap) < 0.01
+    evict[ev, 0] = prev[ev, 0]
+    rep = val.sum(1).astype(np.int64)
+    rep[rng.random(cap) < 0.02] += 1
+    route = np.where(rng.random(cap) < 0.01, 6, 0).astype(np.int32)
+    store = dict(placement_id=pid, replicas=rep, fresh=np.zeros(cap, bool),
+                 non_workload=np.zeros(cap, bool), route=route,
+                 prev_idx=prev, prev_val=val, evict_idx=evict,
+                 cluster_valid=np.arange(C) < nC, deleting=np.zeros(C, bool),
+                 pl_mask=pl_mask,
+                 pl_strategy=np.full(P, 2, np.int32),
+                 pl_has_cluster_sc=np.zeros(P, bool),
+                 pl_has_region_sc=np.zeros(P, bool))
+    flips = np.sort(rng.choice(nC, 8, replace=False)).astype(np.int64)
+    rv = np.sort(rng.choice(cap, 1000, replace=False)).astype(np.int64)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in store.values()] + [torch.from_numpy(flips).to(dev),
+                                        torch.from_numpy(rv).to(dev)]
+
+
+def k12_shapes(CS, dev, kmod, DM, trees):
+    """K12 (this tree) on a phase-9-shaped synthetic store
+    (k12_synthetic), its dirty.cu built at each of K12_SHAPES (its NT and
+    MIN_BLOCKS substituted): ptxas' registers and spills, CUDA-event ms
+    of back-to-back launches and the profiler's device ms, each held
+    against the plain pass; the other trees' K12 on the same operands
+    beside them."""
+    ins = k12_synthetic(dev)
+    want = DM.dirty_kernel_plain(*ins)
+    for label, _k, smod in trees[1:]:
+        def old(smod=smod):
+            return (smod.DM.dirty_kernel(*ins),)
+        if not torch.equal(old()[0], want):
+            raise AssertionError(f"K12 shapes, {label}: disagrees")
+        print(f"K12 shapes, {label}: {CS.cuda_ms(old, 200):.4f} ms back to "
+              f"back; device {_by_line(CS.kernel_device_ms(old, 200))}",
+              flush=True)
+    csrc = str(kmod.CSRC)
+    src = os.path.join(csrc, "dirty.cu")
+    saved = kmod._FNS["dirty_codes"]
+
+    def kern():
+        return (DM.dirty_kernel(*ins),)
+
+    print(f"K12 shapes: the synthetic store's codes "
+          f"{torch.bincount(want.long(), minlength=8).tolist()} "
+          "(count by code)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for nt, minb in K12_SHAPES:
+            name = f"dirty_{nt}_{minb}"
+            lib = build_variant(
+                kmod, src, [("constexpr int NT = 256;",
+                             f"constexpr int NT = {nt};"),
+                            ("constexpr int MIN_BLOCKS = 8;",
+                             f"constexpr int MIN_BLOCKS = {minb};")],
+                name, tmp, inc=csrc, show="dirty_kernel")
+            try:
+                kmod._FNS["dirty_codes"] = entry(lib, "kt_dirty_codes")
+                if not torch.equal(kern()[0], want):
+                    raise AssertionError(f"{name}: disagrees")
+                ms = CS.cuda_ms(kern, 200)
+                by = CS.kernel_device_ms(kern, 200)
+            finally:
+                kmod._FNS["dirty_codes"] = saved
+            print(f"K12 shape NT={nt} min blocks/SM={minb}: {ms:.4f} "
+                  f"ms back to back; device {_by_line(by)}", flush=True)
+
+
+#: clock64 marks substituted into a copy of a rebalance.cu without KT_MARK
+#: points (its first design: one block, pass 1, two block_sums, pass 2)
+K13_OLD_MARKS = (
+    ("  __shared__ i64 red[33];\n",
+     "  __shared__ i64 red[33];\n  KT_MARK(0);\n"),
+    ("  // every thread gets both totals back (block_sum syncs around red)\n",
+     "  KT_MARK(1);\n"),
+    ("  const i64 thr = a.threshold_milli, tol = a.spread_tol_milli;\n",
+     "  KT_MARK(2);\n"
+     "  const i64 thr = a.threshold_milli, tol = a.spread_tol_milli;\n"),
+    ("    a.div_milli[i] = div;\n  }\n}\n",
+     "    a.div_milli[i] = div;\n  }\n  KT_MARK(3);\n}\n"),
+)
+K13_PHASES = (("pass 1", 0, 1), ("reductions", 1, 2), ("pass 2", 2, 3),
+              ("a block", 0, 3))
+
+
+def k13_pieces(RD, com, cap, valid, dev, n=200):
+    """Where one score call goes, piece by piece (host ms a call, each
+    ended by synchronize()): for a tree without a workspace the three
+    uploads, the launch's host enqueue and the three downloads; for a
+    tree with one the C call's pieces."""
+    out = {}
+    if hasattr(RD, "score_layout"):
+        C = len(com)
+        a = [np.ascontiguousarray(x, dt) for x, dt in (
+            (com, np.int64), (cap, np.int64), (valid, np.bool_))]
+        out["numpy operands"] = host_ms(lambda: [np.ascontiguousarray(
+            x, dt) for x, dt in ((com, np.int64), (cap, np.int64),
+                                 (valid, np.bool_))], n)
+        ws = RD._workspace(dev)
+        o_out = ws.stage(C)
+        blk = ws.blk
+        blk[RD._COM], blk[RD._CAP], blk[RD._VALID] = (x.ctypes.data
+                                                      for x in a)
+        for timed in (0, 1):
+            blk[RD._STAGED], blk[RD._TIMED] = 1, timed
+            out["the C call (stage, upload, kernel, D2H, sync)"
+                + (", timed" if timed else "")] = wall_ms(
+                lambda: RD._launch(ws, C, 1000, 50), n)
+        out["copy out"] = host_ms(
+            lambda: ws.pin_np[o_out:o_out + 24 * C].view(np.int64).copy(), n)
+        return out
+    ups = []
+    for name, a, dt in (("committed", com, np.int64),
+                        ("capacity", cap, np.int64), ("valid", valid, bool)):
+        out[f"upload {name}"] = wall_ms(lambda a=a, dt=dt: torch.from_numpy(
+            np.ascontiguousarray(a, dt)).to(dev), n)
+        ups.append(torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev))
+    out["launch (host enqueue)"] = host_ms(
+        lambda: RD.score_kernel(*ups, 1000, 50), n)
+    outs = RD.score_kernel(*ups, 1000, 50)
+    for name, o in zip(("drain_need", "over_milli", "div_milli"), outs):
+        out[f"download {name}"] = wall_ms(lambda o=o: o.cpu().numpy(), n)
+    return out
+
+
+def probe_k13(CS, dev, trees):
+    """K13 per tree at C = 5,000 (config 5's fleet), 10,000 (the
+    megafleet's) and 16,384: score from numpy whole (with and without
+    its timing dict) and in pieces, the whole call's device time by
+    activity, the kernel on device operands (CUDA-event ms, host enqueue
+    against device time), and a clock64 profile of its phases.  The trees
+    and the plain version must agree."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for C in (5000, 10000, 16384):
+            g = np.random.default_rng(C)
+            com = g.integers(0, 1 << 16, C)
+            cap = g.integers(0, 1 << 12, C)
+            cap[g.random(C) < 0.02] = 0
+            valid = g.random(C) >= 0.03
+            ins = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                   for a in (com, cap, valid)]
+            res = []
+            for label, kmod, smod in trees:
+                RD = smod.RD
+                got = RD.score(com, cap, valid, 1000, 50, device=dev)
+                want = RD.score_kernel_plain(*(t.cpu() for t in ins), 1000,
+                                             50)
+                if not all(np.array_equal(a, b.numpy())
+                           for a, b in zip(got, want)):
+                    raise AssertionError(f"K13 {label} C={C}: disagrees")
+                res.append(got)
+                tm = {}
+                whole = wall_ms(lambda RD=RD: RD.score(
+                    com, cap, valid, 1000, 50, device=dev), 200)
+                timed = wall_ms(lambda RD=RD: RD.score(
+                    com, cap, valid, 1000, 50, device=dev, timing=tm), 200)
+                parts = k13_pieces(RD, com, cap, valid, dev)
+                by = CS.kernel_device_ms(lambda RD=RD: RD.score(
+                    com, cap, valid, 1000, 50, device=dev), 200)
+                print(f"K13 {label}, C={C}: score {whole:.4f} ms ({timed:.4f}"
+                      f" with its timing, kernel_ms {tm.get('kernel_ms')});"
+                      " pieces: " + "; ".join(f"{k} {v:.4f}"
+                                              for k, v in parts.items())
+                      + f"; device by activity: {_by_line(by)}", flush=True)
+
+                def kern(RD=RD):
+                    return RD.score_kernel(*ins, 1000, 50)
+                ms = CS.cuda_ms(kern, 200)
+                host, device = CS.split_ms(kern, 200)
+                d = profile_marks(kmod, "rebalance.cu", K13_OLD_MARKS,
+                                  "rebalance_score", kern, tmp,
+                                  f"rebalance_{C}_{label.split()[-1]}",
+                                  K13_PHASES)
+                print(f"K13 {label}, C={C} kernel on device operands: "
+                      f"{ms:.4f} ms; host enqueue {host:.4f} ms, device "
+                      f"{device} ms; clock64 cycles a block (mean / max over "
+                      f"{len(d['a block'])} blocks): " + "; ".join(
+                          f"{ph} {d[ph].mean():.0f} / {d[ph].max()}"
+                          for ph, _a, _b in K13_PHASES), flush=True)
+            if not all(all(np.array_equal(a, b) for a, b in zip(res[0], r))
+                       for r in res[1:]):
+                raise AssertionError(f"K13 probe C={C}: the trees disagree")
+
+
 def main() -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parts", nargs="*",
                     default=["k3k2", "k4", "k11", "k5k6", "k1", "k8",
-                             "k2big", "k2launch", "k7"],
+                             "k2big", "k2launch", "k7", "k13"],
                     help="k3k2, k4, k11, k5k6, k1, k8, k8census, k2big, "
-                         "k2launch, k2census, k7 (default: all but "
-                         "k8census and k2census)")
+                         "k2launch, k2census, k7, k12, k13 "
+                         "(default: all but k8census, k2census and k12)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
                          "karmada_tpu_torch/ unpacked: k4, k11, k5k6, k1, "
-                         "k8, k2big, k2launch and k7 then probe it too")
+                         "k8, k2big, k2launch, k7, k12 and k13 then probe "
+                         "it too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_probe: no CUDA device", file=sys.stderr)
@@ -1582,7 +2021,9 @@ def main() -> int:
 
     import chip_smoke as CS
     from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import dirty as DM
     from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import rebalance_detect as RD
     from karmada_tpu_torch.ops import resident_gather as RG
     from karmada_tpu_torch.ops import shortlist as SL
     from karmada_tpu_torch.ops import solver as S
@@ -1594,14 +2035,15 @@ def main() -> int:
     kernels.build()
     trees = [("this tree", kernels, types.SimpleNamespace(
         webster_batch=S.webster_batch, webster_plain=S.webster_plain,
-        RG=RG, SP=SP, S=S, SL=SL))]
+        RG=RG, SP=SP, S=S, SL=SL, DM=DM, RD=RD))]
     if args.parent:
         par = CS.load_parent(args.parent)
         trees.append(("the parent", par["ops.kernels"], types.SimpleNamespace(
             webster_batch=par["ops.solver"].webster_batch,
             webster_plain=par["ops.solver"].webster_plain,
             RG=par["ops.resident_gather"], SP=par["ops.spread"],
-            S=par["ops.solver"], SL=par["ops.shortlist"])))
+            S=par["ops.solver"], SL=par["ops.shortlist"],
+            DM=par["ops.dirty"], RD=par["ops.rebalance_detect"])))
     M = CS.models()
     rng = random.Random(0)
     fleet = CS.build_fleet(M, rng, 5000)
@@ -1642,6 +2084,10 @@ def main() -> int:
         probe_k2census(CS, M, fleet, placements, dev)
     if "k7" in args.parts:
         probe_k7(CS, items, fleet, dev, trees)
+    if "k13" in args.parts:
+        probe_k13(CS, dev, trees)
+    if "k12" in args.parts:
+        probe_k12(CS, M, dev, trees)
     return 0
 
 

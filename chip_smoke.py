@@ -5,13 +5,20 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's kernels from ops/csrc/ with nvcc (sm_90a), then
-drives the device scheduling cycle at the synthetic-stress size of
-BASELINE config 5 (bench.py's mix: 100,000 bindings x 5,000 clusters,
-region spread included; chunk 4096, 8 waves, carry on):
+It builds the port's kernels from ops/csrc/ with nvcc (sm_90a) and its
+native host paths from native/ with gcc / g++, then drives the device
+scheduling cycle at the synthetic-stress size of BASELINE config 5
+(bench.py's mix: 100,000 bindings x 5,000 clusters, region spread
+included; chunk 4096, 8 waves, carry on).  Every cycle encodes and
+decodes through the C paths (encode_fast.c, decode_fast.c); phases 3, 4,
+6-10 log the bindings the C encode filled, its encode_one misses, the
+rows each decoder built and the garbage collector's collections and
+pauses in the cycle, and fail if any binding was encoded through
+native=False (phases 3 and 8 also if no row went through decode_coo):
 
   1. device and build: the card's name and power limit, nvcc's register /
-     shared-memory report per kernel source;
+     shared-memory report per kernel source, the three native builds with
+     the compilers' walls;
   2. kernel vs plain: each kernel against its plain PyTorch version,
      bit-exact, with CUDA-event times, the plain version's time, the least
      time the card could take (bound) and, for the COO extraction, a
@@ -92,7 +99,22 @@ region spread included; chunk 4096, 8 waves, carry on):
      violation, no pending drain, every evicted binding re-placed, no
      contained fault (scheduler, plane, runtime), K13 once per detect
      cycle and K1-K4 launched; the census, and per detect cycle and per
-     scheduler cycle a line of host seconds by stage.
+     scheduler cycle a line of host seconds by stage;
+ 11. the native host paths: (a) encode_batch on phase 3's first chunk
+     (4,096 x 5,000), on a megafleet chunk (4,096 x 10,000) and on phase
+     4's first chunk (every binding with previous clusters: all C misses),
+     the C path against native=False in turns (Python, C, C, Python;
+     TURN_ROUNDS rounds; medians, and the garbage collector's pauses
+     inside the calls), every field and route equal, then decode_compact on each
+     chunk's card COO the same way, outputs equal; (b) the C++ serial
+     control (native.schedule_batch_native) over config 5's first
+     --native-bindings forward bindings: walls, bindings/s, statuses,
+     STATUS_UNSUPPORTED rows, and a stride sample of 256 equal to
+     ops/serial.schedule; (c) a Scheduler(backend="native") on phase 10a's
+     store recipe (REBALANCE_PARITY_BINDINGS bindings created unscheduled,
+     no rebalance) ticked until every binding carries a Scheduled
+     condition: no contained fault, a stride sample of 128 as
+     ops/serial.schedule says.
 
 Phase 2 also holds K7 (on the first forward chunk's wave 0 as
 schedule_core launches it -- the chunk's workspace, the batch's
@@ -148,6 +170,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import inspect
 import json
 import math
@@ -175,6 +198,37 @@ INCREMENTAL_BINDINGS = 1_000_000  # phase 9's roster (MEGAFLEET_r02.json's)
 TURN_ROUNDS = 3            # old-vs-new rounds (with --parent)
 INCREMENTAL_CHURN = 1_000  # bindings churned per steady cycle (0.1%)
 STEADY_CYCLES = 4
+
+
+class GcClock:
+    """Collections and pause seconds of the interpreter's cyclic garbage
+    collector (gc.callbacks), since the last reset; armed by main()."""
+
+    def __init__(self) -> None:
+        self.start = None
+        self.count = [0, 0, 0]
+        self.seconds = 0.0
+
+    def arm(self) -> None:
+        gc.callbacks.append(self._event)
+
+    def _event(self, phase, info) -> None:
+        if phase == "start":
+            self.start = time.perf_counter()
+        elif self.start is not None:
+            self.seconds += time.perf_counter() - self.start
+            self.count[info["generation"]] += 1
+            self.start = None
+
+    def reset(self) -> None:
+        self.count, self.seconds = [0, 0, 0], 0.0
+
+    def line(self) -> str:
+        return (f"gc {sum(self.count)} collections (gen2 {self.count[2]}) "
+                f"{self.seconds:.3f} s")
+
+
+GC = GcClock()
 
 
 def log(msg: str) -> None:
@@ -616,6 +670,7 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    from karmada_tpu_torch import native
     from karmada_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
@@ -624,6 +679,38 @@ def phase_build() -> None:
     log(f"phase 1 build: {len(kernels.SOURCES)} sources ({len(kernels.KERNELS)} "
         f"kernels) in {dt:.1f} s "
         f"(sources {kernels.CSRC})")
+    t0 = time.perf_counter()
+    paths = native.build(verbose=True)  # gcc / g++, one each, in parallel
+    dt = time.perf_counter() - t0
+    log(f"phase 1 native build: {len(paths)} libraries in {dt:.2f} s "
+        f"(compiler walls {native.BUILD_SECONDS}; {native.COUNTS['builds']} "
+        f"built, into {native.build_dir()})")
+    for name, path in paths.items():
+        if "karmada_tpu_torch/native/_build" not in str(path):
+            raise AssertionError(f"native {name} loaded from {path}")
+
+
+def native_line(label: str, counts: dict) -> str:
+    """One phase's use of the native host paths (native.COUNTS)."""
+    enc = counts["encode_c"] + counts["encode_miss"]
+    return (f"phase {label} native: encode C {counts['encode_c']} of "
+            f"{enc} bindings ({counts['encode_miss']} encode_one misses, "
+            f"{100.0 * counts['encode_c'] / max(enc, 1):.1f}% hits), "
+            f"Python loop {counts['encode_py']}; decode rows decode_coo "
+            f"{counts['decode_coo']}, decode_fast {counts['decode_fast']}, "
+            f"Python {counts['decode_py']}, re-routes "
+            f"{counts['decode_reroute']}")
+
+
+def check_native(label: str, counts: dict, need_coo: bool) -> None:
+    """A main-path cycle encodes through the C path only (nothing in the
+    port asks for native=False); phases 3 and 8 decode through
+    decode_coo."""
+    if counts["encode_py"]:
+        raise AssertionError(f"phase {label}: {counts['encode_py']} "
+                             "bindings encoded through native=False")
+    if need_coo and counts["decode_coo"] <= 0:
+        raise AssertionError(f"phase {label}: no row decoded by decode_coo")
 
 
 def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
@@ -1644,11 +1731,13 @@ def check_results(items, results, names) -> dict:
 
 
 def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
-                need, routes, chunk=None, **kw):
+                need, routes, chunk=None, need_coo=False, **kw):
     """One cycle through schedule_items; `need` names the kernels its path
-    must launch, `routes` the routes its rows must take; `kw` goes to
-    schedule_items (explain=, shortlist=).  Returns the launch counts, the
-    pipeline stats, the results and the wall seconds."""
+    must launch, `routes` the routes its rows must take, `need_coo` that
+    its decode run decode_coo; `kw` goes to schedule_items (explain=,
+    shortlist=).  Returns the launch counts, the pipeline stats, the
+    results and the wall seconds."""
+    from karmada_tpu_torch import native
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.scheduler.core import schedule_items
     from karmada_tpu_torch.scheduler.pipeline import PipelineResult
@@ -1657,12 +1746,16 @@ def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
     stats = PipelineResult()
     torch.cuda.synchronize()
     kernels.reset_counts()
+    native.reset_counts()
+    GC.reset()
     t0 = time.perf_counter()
     results = schedule_items(items, fleet, chunk=chunk, waves=args.waves,
                              device=dev, stats=stats, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    ncounts = dict(native.COUNTS)
+    gc_line = GC.line()
     counts = check_results(items, results, names)
     log(f"phase {label}: {len(items)} bindings x {len(fleet)} clusters in "
         f"{wall:.3f} s ({len(items) / wall:.0f} bindings/s); chunks="
@@ -1675,6 +1768,8 @@ def phase_cycle(label, items, fleet, names, args, dev, chunk_ms: float,
         f"routes={stats.routes}; results={counts}; "
         f"launches={launches}; main-path busy share (chunks x phase-2 chunk "
         f"time / wall) ~{stats.chunks * chunk_ms / 1e3 / wall:.3f}")
+    log(native_line(label.split()[0], ncounts) + f"; {gc_line} in the cycle")
+    check_native(label.split()[0], ncounts, need_coo)
     for k in need:
         if launches[k] <= 0:
             raise AssertionError(f"{label}: kernel {k} never launched")
@@ -1763,7 +1858,8 @@ def phase_megafleet(items, fleet, names, args, dev, chunk_ms, need):
 
     launches, stats, _results, _wall = phase_cycle(
         "8 megafleet", items, fleet, names, args, dev, chunk_ms, need,
-        (T.ROUTE_DEVICE,), shortlist=SL.ShortlistConfig(k=MEGA_K))
+        (T.ROUTE_DEVICE,), need_coo=True,
+        shortlist=SL.ShortlistConfig(k=MEGA_K))
     st = stats.shortlist
     unions = np.asarray(st["unions"])
     log(f"phase 8 megafleet: {st['chunks']} of {stats.chunks} chunks "
@@ -1789,6 +1885,7 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
     no binding field uploaded in them, the audit "ok".  Returns the
     launch counts of the whole run (counts reset before the adopt), the
     plane, the solver and the roster."""
+    from karmada_tpu_torch import native
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import resident_gather as RG
@@ -1817,12 +1914,15 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
     SL.reset_for_tests()
     torch.cuda.synchronize()
     kernels.reset_counts()
+    native.reset_counts()
     fields0 = RG.COUNTS["scatter_fields"]
     steady = []
 
     def leg(name, run, write_back=True):
         fb0 = sum(SL.FALLBACKS.values())
         h0 = S.TRANSFERS["h2d_binding_fields"]
+        n0 = dict(native.COUNTS)
+        GC.reset()
         t = time.perf_counter()
         rep = run()
         torch.cuda.synchronize()
@@ -1840,6 +1940,9 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
             f"{ {k: round(v, 3) for k, v in rep.stages.items()} }; dirty "
             f"stage split ms "
             f"{ {k: round(v * 1e3, 3) for k, v in rep.dirty_split.items()} }")
+        log(native_line(f"9 {name}", {k: native.COUNTS[k] - n0[k]
+                                      for k in n0})
+            + f"; {GC.line()} in the leg and its write-back")
         return rep, wall, h2d
 
     t_all = time.perf_counter()
@@ -1873,6 +1976,8 @@ def phase_incremental(M, fleet, placements, n_bindings, chunk, dev, seed):
     rep, _wall, _h2d = leg("audit", lambda: solver.cycle(
         fleet, bindings, CycleDeltas(), force_audit=True), write_back=False)
     launches = dict(kernels.LAUNCHES)
+    log(native_line("9", native.COUNTS))
+    check_native("9", native.COUNTS, need_coo=False)
     log(f"phase 9 incremental: steady p50 {np.percentile(steady, 50):.3f} s "
         f"(walls {[round(w, 3) for w in steady]}); whole run "
         f"{time.perf_counter() - t_all:.1f} s; plane {state.stats()['fused']}"
@@ -3233,11 +3338,16 @@ def phase_rebalance(M, fleet, items, results, dev) -> dict:
     log(f"phase 10b restore: {len(items)} bindings x {len(fleet)} clusters "
         f"created in {create_s:.2f} s; {census_line(census)}; crushed "
         f"{crushed}")
+    from karmada_tpu_torch import native
+
     torch.cuda.synchronize()
     kernels.reset_counts()
+    native.reset_counts()
     run = rebalance_loop(store, dev, "10b", verbose=True)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    log(native_line("10b", native.COUNTS))
+    check_native("10b", native.COUNTS, need_coo=False)
     st = run["stats"]
     log(f"phase 10b rebalance loop: converged {run['converged']} in "
         f"{run['rounds']} round(s), drains settled in {run['drain_rounds']}"
@@ -3395,6 +3505,272 @@ def phase_kernel_k13(fleet, results, dev, reps, parent=None) -> dict:
     return row
 
 
+# -- phase 11: the native host paths -----------------------------------------
+
+#: phase 11b's bindings through the C++ control (config 5's first ones)
+NATIVE_CONTROL_BINDINGS = 25_000
+NATIVE_SAMPLE = 256        # 11b's stride sample through ops/serial.schedule
+NATIVE_STORE_SAMPLE = 128  # 11c's stride sample
+
+
+def strict_norm(r):
+    """A decoded result as it stands: targets in order, with their class,
+    or the exception's class, message and reason."""
+    if isinstance(r, Exception):
+        return (type(r).__name__, str(r), getattr(r, "reason", None))
+    return [(type(t).__name__, t.name, t.replicas) for t in r]
+
+
+def same_batch(a, b, what: str) -> None:
+    """Every FIELD_DTYPES field and the routes of two batches equal."""
+    from karmada_tpu_torch.ops import tensors as T
+
+    if (a.B, a.C, a.n_bindings) != (b.B, b.C, b.n_bindings):
+        raise AssertionError(f"{what}: batch shapes differ")
+    for f in T.FIELD_DTYPES:
+        x, y = getattr(a, f, None), getattr(b, f, None)
+        if x is None and y is None:
+            continue
+        x, y = np.asarray(x), np.asarray(y)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"{what}: field {f} differs")
+    if not np.array_equal(a.route, b.route):
+        raise AssertionError(f"{what}: routes differ")
+
+
+def turns(fn, rounds=TURN_ROUNDS):
+    """fn(native) timed in turns -- Python, C, C, Python -- `rounds` times:
+    {native: [seconds, ...]}, {native: garbage-collector pause seconds
+    inside those calls} and the last result of each side."""
+    times, gcs, last = {False: [], True: []}, {False: 0.0, True: 0.0}, {}
+    for _ in range(rounds):
+        for native in (False, True, True, False):
+            g0 = GC.seconds
+            t0 = time.perf_counter()
+            last[native] = fn(native)
+            times[native].append(time.perf_counter() - t0)
+            gcs[native] += GC.seconds - g0
+    return times, gcs, last
+
+
+def phase_native_turns(label, chunk, fleet, args, dev) -> dict:
+    """11a: encode_batch on one chunk, the C path against native=False in
+    turns (each side on its own EncoderCache, warmed by one untimed call:
+    a later chunk of a cycle), every field and route equal; then
+    decode_compact on the chunk's card COO the same way, outputs equal."""
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import solver as PS
+    from karmada_tpu_torch.ops import tensors as T
+
+    cindex = T.ClusterIndex.build(fleet)
+    est = GeneralEstimator()
+    caches = {False: T.EncoderCache(), True: T.EncoderCache()}
+
+    def enc(nat):
+        return T.encode_batch(chunk, cindex, est, cache=caches[nat],
+                              native=nat)
+
+    warm = {nat: enc(nat) for nat in (False, True)}
+    same_batch(warm[True], warm[False], f"11a {label} warm-up encode")
+    native.reset_counts()
+    enc_t, enc_gc, last = turns(enc)
+    enc_counts = dict(native.COUNTS)
+    for nat in (False, True):
+        same_batch(last[nat], warm[False], f"11a {label} encode in turns")
+    batch = warm[True]
+    res = PS.solve_compact(batch, waves=args.waves, device=dev)
+    torch.cuda.synchronize()
+    idx, val, status = res[:3]
+
+    def dec(nat):
+        return T.decode_compact(batch, idx, val, status, items=chunk,
+                                native=nat)
+
+    native.reset_counts()
+    dec_t, dec_gc, out = turns(dec)
+    dec_counts = dict(native.COUNTS)
+    ref = [strict_norm(r) for r in out[False]]
+    if [strict_norm(r) for r in out[True]] != ref:
+        raise AssertionError(f"11a {label}: decode C differs from Python")
+    n = len(chunk)
+    parts = []
+    for what, t, g in (("encode", enc_t, enc_gc), ("decode", dec_t, dec_gc)):
+        py, c = (1e3 * float(np.median(t[nat])) for nat in (False, True))
+        parts.append(
+            f"{what} in turns, median Python {py:.3f} ms ({n / py * 1e3:.0f} "
+            f"bindings/s) -> C {c:.3f} ms ({n / c * 1e3:.0f}/s), "
+            f"{py / c:.2f}x (means {1e3 * np.mean(t[False]):.3f} -> "
+            f"{1e3 * np.mean(t[True]):.3f} ms; gc pauses inside the calls "
+            f"{g[False]:.3f} / {g[True]:.3f} s); times (s) Python "
+            f"{[round(x, 4) for x in t[False]]} C "
+            f"{[round(x, 4) for x in t[True]]}")
+    log(f"phase 11a {label}: {n} bindings x {len(fleet)} clusters (COO "
+        f"{idx.size} entries, {idx.dtype}), {TURN_ROUNDS} rounds; "
+        f"{parts[0]}; every field and route equal; {parts[1]}; outputs "
+        "equal")
+    log(native_line(f"11a {label} encode turns", enc_counts))
+    log(native_line(f"11a {label} decode turns", dec_counts))
+    if enc_counts["encode_c"] + enc_counts["encode_miss"] <= 0 or (
+            dec_counts["decode_coo"] <= 0):
+        raise AssertionError(f"11a {label}: the C paths did not run")
+
+
+def serial_outcome(spec, status, clusters, cal):
+    """ops/serial.schedule's answer as (native status, {name: replicas})."""
+    from karmada_tpu_torch import native as N
+    from karmada_tpu_torch.ops import serial
+
+    try:
+        want = serial.schedule(spec, status, clusters, cal)
+    except serial.FitError:
+        return N.STATUS_FIT_ERROR, {}
+    except serial.UnschedulableError:
+        return N.STATUS_UNSCHEDULABLE, {}
+    except serial.NoClusterAvailableError:
+        return N.STATUS_NO_CLUSTER, {}
+    return N.STATUS_OK, {t.name: t.replicas for t in want}
+
+
+def phase_native_control(items, fleet, n) -> dict:
+    """11b: schedule_batch_native over config 5's first `n` forward
+    bindings on the 5,000-cluster fleet: the snapshot, the marshaling and
+    the C++ call timed apart, status counts, rows STATUS_UNSUPPORTED; a
+    stride sample of NATIVE_SAMPLE through ops/serial.schedule equal,
+    binding for binding."""
+    from collections import Counter
+
+    from karmada_tpu_torch import native as N
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import serial
+
+    sub = items[:n]
+    t0 = time.perf_counter()
+    snap = N.NativeSnapshot(fleet, N.collect_res_names(sub))
+    t1 = time.perf_counter()
+    nb = N.marshal_batch(sub, snap)
+    t2 = time.perf_counter()
+    res = N.run_marshaled(nb, snap)
+    t3 = time.perf_counter()
+    names = {N.STATUS_OK: "ok", N.STATUS_FIT_ERROR: "fit_error",
+             N.STATUS_UNSCHEDULABLE: "unschedulable",
+             N.STATUS_NO_CLUSTER: "no_cluster",
+             N.STATUS_UNSUPPORTED: "unsupported",
+             N.STATUS_OVERFLOW: "overflow"}
+    counts = Counter(names.get(st, str(st)) for st, _t in res)
+    stride = max(1, n // NATIVE_SAMPLE)
+    sample = list(range(0, n, stride))[:NATIVE_SAMPLE]
+    cal = serial.make_cal_available([GeneralEstimator()])
+    t4 = time.perf_counter()
+    bad, compared = [], 0
+    for i in sample:
+        st, targets = res[i]
+        if st == N.STATUS_UNSUPPORTED:
+            continue
+        want_st, want = serial_outcome(*sub[i], fleet, cal)
+        compared += 1
+        got = {t.name: t.replicas for t in targets}
+        if st != want_st or (st == N.STATUS_OK and got != want):
+            bad.append(i)
+    serial_s = time.perf_counter() - t4
+    log(f"phase 11b native control: {n} bindings x {len(fleet)} clusters: "
+        f"snapshot {t1 - t0:.3f} s, marshal {t2 - t1:.3f} s, C++ call "
+        f"{t3 - t2:.3f} s ({n / (t3 - t2):.0f} bindings/s; "
+        f"{n / (t3 - t0):.0f}/s with snapshot and marshaling); statuses "
+        f"{dict(counts)}, STATUS_UNSUPPORTED rows {counts['unsupported']}; "
+        f"ops/serial.schedule on a stride sample of {len(sample)} "
+        f"({compared} compared): {serial_s:.2f} s "
+        f"({compared / max(serial_s, 1e-9):.1f} bindings/s), "
+        f"{len(bad)} differ")
+    if bad:
+        raise AssertionError(f"11b: native control differs from "
+                             f"serial.schedule at bindings {bad[:10]}")
+    if counts["overflow"]:
+        raise AssertionError("11b: output overflow")
+    return {"bindings": n, "call_s": t3 - t2,
+            "per_s": n / (t3 - t2), "whole_s": t3 - t0}
+
+
+def phase_native_store(M, fleet, items, results) -> None:
+    """11c: a Scheduler(backend="native") on phase 10a's store recipe --
+    the first REBALANCE_PARITY_BINDINGS bindings' fleet restored converged
+    with no headroom and its crushed clusters -- with those bindings
+    created unscheduled, no rebalance; ticks until every binding carries
+    a Scheduled condition and nothing waits in the active queue.  No
+    contained fault; on a stride sample of NATIVE_STORE_SAMPLE, every
+    binding scheduled or failed as ops/serial.schedule says on the
+    store's clusters."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import serial
+    from karmada_tpu_torch.scheduler import Scheduler, SchedulingQueue
+    from karmada_tpu_torch.store import ObjectStore, Runtime
+
+    n = REBALANCE_PARITY_BINDINGS
+    recipe, crushed, _, _ = restore_store(M, fleet, items[:n], results[:n],
+                                          headroom_milli=1000)
+    store, rt, clock = ObjectStore(), Runtime(), FakeClock()
+    for c in recipe.list("Cluster"):
+        store.create(c)
+    t0 = time.perf_counter()
+    sched = Scheduler(store, rt, backend="native",
+                      queue=SchedulingQueue(now=clock))
+    build_s = time.perf_counter() - t0
+    for spec, status in items[:n]:
+        store.create(M.ResourceBinding(
+            metadata=M.ObjectMeta(namespace=spec.resource.namespace,
+                                  name=spec.resource.name),
+            spec=dataclasses.replace(spec), status=status))
+    t0 = time.perf_counter()
+    ticks = 0
+    while ticks < 20:
+        clock.advance(1.0)
+        rt.tick()
+        ticks += 1
+        rbs = store.list("ResourceBinding")
+        if (all(any(c.type == "Scheduled" for c in rb.status.conditions)
+                for rb in rbs) and sched.queue.depths()["active"] == 0):
+            break
+    wall = time.perf_counter() - t0
+    rbs = {(rb.namespace, rb.name): rb for rb in store.list("ResourceBinding")}
+    clusters = store.list("Cluster")
+    cal = serial.make_cal_available([GeneralEstimator()])
+    stride = max(1, n // NATIVE_STORE_SAMPLE)
+    bad = []
+    for i in list(range(0, n, stride))[:NATIVE_STORE_SAMPLE]:
+        spec, status = items[i]
+        rb = rbs[(spec.resource.namespace, spec.resource.name)]
+        want_st, want = serial_outcome(spec, status, clusters, cal)
+        cond = [c for c in rb.status.conditions if c.type == "Scheduled"]
+        placed = bool(cond) and cond[-1].status == "True"
+        got = {t.name: t.replicas for t in rb.spec.clusters}
+        if placed != (want_st == 0) or (placed and got != want):
+            bad.append(i)
+    cycles = list(sched.cycle_log)
+    stage = {k: sum(c[k] for c in cycles)
+             for k in ("native_marshal_s", "native_s", "serial_s")}
+    placed = sum(any(c.type == "Scheduled" and c.status == "True"
+                     for c in rb.status.conditions) for rb in rbs.values())
+    log(f"phase 11c native Scheduler: {n} bindings x {len(clusters)} "
+        f"clusters (crushed {crushed}), g++ warm-up at construction "
+        f"{build_s:.3f} s; {ticks} tick(s) in {wall:.2f} s, "
+        f"{len(cycles)} cycle(s) (backends "
+        f"{sorted({c['backend'] for c in cycles})}), host seconds "
+        f"{ {k: round(v, 3) for k, v in stage.items()} }; {placed} placed, "
+        f"queue {sched.queue.depths()}; faults {sched.faults()}; sample of "
+        f"{len(range(0, n, stride)[:NATIVE_STORE_SAMPLE])} against "
+        f"serial.schedule: {len(bad)} differ")
+    if sched.faults() or any(rt.reconcile_errors().values()):
+        raise AssertionError(f"11c: contained faults {sched.faults()} "
+                             f"{rt.reconcile_errors()}")
+    if sched.queue.depths()["active"] or len(rbs) != n:
+        raise AssertionError(f"11c: still pending {sched.queue.depths()}")
+    if bad:
+        raise AssertionError(f"11c: bindings {bad[:10]} differ from "
+                             "serial.schedule")
+    if not stage["native_s"]:
+        raise AssertionError("11c: the native control never ran")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bindings", type=int, default=100_000)
@@ -3403,6 +3779,9 @@ def main() -> int:
     ap.add_argument("--waves", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--native-bindings", type=int,
+                    default=NATIVE_CONTROL_BINDINGS,
+                    help="phase 11b's bindings through the C++ control")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
                          "karmada_tpu_torch/ unpacked: phase 2 then also "
@@ -3419,6 +3798,7 @@ def main() -> int:
     from karmada_tpu_torch.ops import tensors as T
 
     dev = torch.device("cuda", 0)
+    GC.arm()
     t_start = time.perf_counter()
     power = phase_device()
     phase_build()
@@ -3460,7 +3840,7 @@ def main() -> int:
     cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
     fwd, _, fwd_results, _ = phase_cycle(
         "3 forward", items, fleet, names, args, dev, chunk_ms, main_path,
-        cfg5)
+        cfg5, need_coo=True)
     reb_items = build_rebalance_items(M, rng, items, names)
     reb = phase_cycle("4 rebalance", reb_items, fleet, names, args, dev,
                       chunk_ms, main_path, cfg5)[0]
@@ -3479,6 +3859,9 @@ def main() -> int:
     phase_parity("wide", wide_items, fleet, args, dev)
     phase_parity_explain(explain_items, fleet, args, dev)
     phase_parity_shortlist(mitems, mfleet, args, dev)
+    # phase 11a's megafleet chunk and rebalance chunk (every binding with
+    # previous clusters: the C loop hands each back to encode_one)
+    mchunk, rchunk = mitems[:args.chunk], reb_items[:args.chunk]
     del mitems, reb_items, wide_items, explain_items  # phase 9 builds 1M
 
     inc, state, solver, roster = phase_incremental(
@@ -3495,6 +3878,11 @@ def main() -> int:
     phase_rebalance_parity(M, fleet, items, fwd_results, dev)
     n = min(REBALANCE_BINDINGS, len(items))
     loop = phase_rebalance(M, fleet, items[:n], fwd_results[:n], dev)
+    phase_native_turns("forward chunk", items[:args.chunk], fleet, args, dev)
+    phase_native_turns("megafleet chunk", mchunk, mfleet, args, dev)
+    phase_native_turns("rebalance chunk", rchunk, fleet, args, dev)
+    phase_native_control(items, fleet, min(args.native_bindings, len(items)))
+    phase_native_store(M, fleet, items, fwd_results)
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
                                                       mega, inc, loop))

@@ -1,7 +1,9 @@
 """Snapshot encoder: clusters + pending bindings -> dense solver tensors.
 
-The port's copy of the JAX package's ops/tensors.py (Python encode and
-decode paths; the native C fast paths are not copied).  The reference
+The port's copy of the JAX package's ops/tensors.py.  The per-binding
+encode loop and the COO decode run in C by default (the port's native/
+encode_fast.c and decode_fast.c); `native=False` runs the Python loops,
+which stay the defining implementation.  The reference
 scheduler evaluates (binding, cluster) pairs one binding at a time
 (pkg/scheduler/core/generic_scheduler.go:71).  The device path instead
 encodes one scheduling cycle as dense arrays and solves every binding of a
@@ -36,6 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from karmada_tpu_torch import native as _native
 from karmada_tpu_torch.estimator.general import GeneralEstimator
 from karmada_tpu_torch.models.cluster import Cluster
 from karmada_tpu_torch.models.policy import (
@@ -60,6 +63,7 @@ from karmada_tpu_torch.obs.decisions import (  # the explain bit layout
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.ops.webster import (
     fnv32a_batch_odd,
+    tiebreak_descending_by_uid,
 )
 from karmada_tpu_torch.utils.quantity import RESOURCE_CPU
 
@@ -176,6 +180,31 @@ FIELD_AXES = {
 CARRY_DTYPES = {
     "used_milli": "int64", "used_pods": "int64", "used_sets": "int64",
 }
+
+# the native decode ABI (native/decode_fast.c): dtypes of every buffer
+# crossing into the CPython extension.  The COO triple arrives from
+# solver.finalize_compact as K3's int32 output read back, the explain
+# outcome plane as int32; name_rank keeps the solver's int64 contract.  An
+# int64 array handed to the int32-reading C loop would decode garbage, not
+# crash.
+NATIVE_ABI_DTYPES = {
+    "coo_idx": "int32", "coo_val": "int32", "coo_status": "int32",
+    "outcome_plane": "int32", "verdict_plane": "int32",
+    "decode_name_rank": "int64",
+}
+
+
+def tc_new_is_plain() -> bool:
+    """True while TargetCluster construction via cls.__new__(cls) +
+    setattr (what native/decode_fast.c does) is equivalent to calling the
+    dataclass __init__: plain object.__new__, no __slots__, no
+    __post_init__.  A subclass or monkeypatch that breaks the equivalence
+    re-routes decode to the Python row split instead of producing
+    divergent objects."""
+    return (TargetCluster.__new__ is object.__new__
+            and not hasattr(TargetCluster, "__post_init__")
+            and not hasattr(TargetCluster, "__slots__"))
+
 
 def _next_pow2(n: int, lo: int = 1) -> int:
     v = lo
@@ -520,8 +549,14 @@ def encode_batch(
     pad_bindings: bool = True,
     cache: Optional[EncoderCache] = None,
     explain: bool = False,
+    native: bool = True,
 ) -> SolverBatch:
     """Encode one scheduling cycle.  `items` are (spec, status) pairs.
+
+    The per-binding loop runs in C (native/encode_fast.c) for the common
+    binding shape and calls the Python `encode_one` back on every other
+    binding; `native=False` runs the Python loop alone, the defining
+    implementation the C path is held to field by field.
 
     Pass the same `cache` across chunks of one cycle to amortize the
     placement/cluster/override host work (cluster snapshot must not change
@@ -653,14 +688,21 @@ def encode_batch(
     # per-call pid -> placement-only route (spec-free: _route_for reads only
     # spec.components, empty on the common path)
     route_by_pid: Dict[int, int] = {}
+    # id(placement) -> (placement, pid, route): the C fast path's identity
+    # registry (entries pinned by holding the placement in the tuple);
+    # populated only when the extension is driving
+    pid_route_by_id: Dict[int, tuple] = {}
     uids: List[str] = []
     on_device = (ROUTE_DEVICE, ROUTE_DEVICE_SPREAD, ROUTE_DEVICE_BIG,
                  ROUTE_DEVICE_SPREAD_BIG)
     cindex_get = cindex.index.get
     compact = C > COMPACT_LANES
+    rep_cap = COMPACT_DIVISION_CAP if compact else KERNEL_REPLICA_CAP
 
-    def encode_one(b: int) -> None:
-        """The per-binding encoding (registers vocabulary as it goes)."""
+    def encode_one(b: int, set_uid: bool = True) -> None:
+        """The full per-binding encoding (registers vocabulary as it goes)
+        -- also the C fast path's miss callback, so that later bindings of
+        the same placement / class / GVK hit."""
         spec, status = items[b]
         placement = _effective_placement(spec, status)
         # only SHARED placement objects (placement is spec.placement) are
@@ -682,6 +724,8 @@ def encode_batch(
             placements.append(placement)
             route_by_pid[pid] = _route_for(_ROUTE_PROBE_SPEC, placement,
                                            n_regions, compact, label_axis)
+        if native and placement is spec.placement:
+            pid_route_by_id[id(placement)] = (placement, pid, route_by_pid[pid])
         placement_id[b] = pid
         r = (route_by_pid[pid] if not spec.components
              else _route_for(spec, placement, n_regions, compact, label_axis))
@@ -727,7 +771,10 @@ def encode_batch(
 
         nrep = spec.replicas
         replicas[b] = nrep
-        uids.append(spec.resource.uid)
+        if set_uid:
+            uid_desc[b] = tiebreak_descending_by_uid(spec.resource.uid)
+        else:
+            uids.append(spec.resource.uid)
         fresh[b] = serial.reschedule_required(spec, status)
         is_workload = (nrep > 0 or rr is not None) and len(spec.components) <= 1
         non_workload[b] = not is_workload
@@ -784,10 +831,24 @@ def encode_batch(
                     evict_entries.setdefault(b, []).append(ci)
         route[b] = r
 
-    for b in range(nB):
-        encode_one(b)
-    if nB:
+    if native and nB:
+        # the C loop fills the arrays for common-shape bindings and calls
+        # encode_one inline on the others (which registers vocabulary, so
+        # one miss per distinct placement / class / GVK, not per binding)
+        fast = _native.load_encode_fast()
+        items_list = items if isinstance(items, list) else list(items)
+        handled = fast.encode_fast(
+            items_list, pid_route_by_id, gvks, classes,
+            placement_id, gvk_id, class_id, replicas, uid_desc, fresh,
+            non_workload, nw_shortcut, route, rep_cap, encode_one,
+        )
+        _native.COUNTS["encode_c"] += handled
+        _native.COUNTS["encode_miss"] += nB - handled
+    elif nB:
+        for b in range(nB):
+            encode_one(b, set_uid=False)
         uid_desc[:nB] = fnv32a_batch_odd(uids)
+        _native.COUNTS["encode_py"] += nB
 
     # rows the host path owns must not schedule NOR consume wave capacity on
     # device (their device results are discarded; charging them would price
@@ -1410,6 +1471,7 @@ def decode_compact(
     enable_empty_workload_propagation: bool = False,
     items: Optional[Sequence[Tuple[ResourceBindingSpec, ResourceBindingStatus]]] = None,
     outcome: Optional[np.ndarray] = None,
+    native: bool = True,
 ) -> List:
     """Per-binding results from the sparse COO form of solver.solve_compact:
     a list of length n_bindings whose entries are List[TargetCluster]
@@ -1427,27 +1489,69 @@ def decode_compact(
     CONTRACT: idx must be ascending among its >=0 entries (row-major
     binding order) — the compact kernel guarantees this; any other
     producer must sort first (asserted below).
+
+    With `native` (the default) an int32 COO -- what finalize_compact
+    reads back from K3 -- is decoded whole in C (native/decode_fast.c
+    decode_coo: row split, name-rank sort, TargetCluster construction, the
+    outcome plane's reasons); another producer's COO (the spread plane's
+    int64 remap) is split here and its rows built in C (encode_fast.c
+    decode_fast).  Two cases re-route to the Python split, as in the JAX
+    package: a COO that breaks the ascending contract (the assert below
+    owns the diagnostic) and a TargetCluster that tc_new_is_plain()
+    refuses.  `native=False` runs the Python builder alone, the defining
+    implementation.
     """
     names = batch.cluster_index.names
     C = batch.C
     nb = batch.n_bindings
-    coo_status = np.asarray(status)
+    abi = NATIVE_ABI_DTYPES
+    coo_status = np.ascontiguousarray(np.asarray(status), abi["coo_status"])
     # a fused batch's non_workload lives on the card: read its host copy
     non_workload = np.asarray(
         batch.non_workload_host if batch.non_workload_host is not None
         else batch.non_workload)
     out: List = [None] * nb
-    # error slots first (diagnosis construction); unknown nonzero statuses
-    # with no mapped error fall through to target construction
-    for b in np.nonzero(coo_status[:nb] != 0)[0]:
-        err = _status_error(batch, int(b), int(coo_status[b]), items)
-        if err is not None:
-            out[int(b)] = err
+
+    # error slots are Python's (diagnosis construction); unknown nonzero
+    # statuses with no mapped error fall through to target construction
+    def _prefill_errors() -> None:
+        for b in np.nonzero(coo_status[:nb] != 0)[0]:
+            err = _status_error(batch, int(b), int(coo_status[b]), items)
+            if err is not None:
+                out[int(b)] = err
+
+    _prefill_errors()
+    idx = np.asarray(idx)
+    val = np.asarray(val)
+    outcome_plane = (np.ascontiguousarray(np.asarray(outcome),
+                                          abi["outcome_plane"])
+                     if outcome is not None else None)
+    if native and idx.dtype == np.int32 and val.dtype == np.int32:
+        if tc_new_is_plain():
+            coo_idx = np.ascontiguousarray(idx, abi["coo_idx"])
+            coo_val = np.ascontiguousarray(val, abi["coo_val"])
+            decode_name_rank = np.ascontiguousarray(batch.name_rank,
+                                                    abi["decode_name_rank"])
+            handled = _native.load_decode_fast().decode_coo(
+                coo_idx, coo_val, coo_status, int(C), int(batch.n_clusters),
+                decode_name_rank, names,
+                np.ascontiguousarray(non_workload[:nb], np.uint8),
+                bool(enable_empty_workload_propagation), TargetCluster, out,
+                *((outcome_plane, VERDICT_BIT_NAMES)
+                  if outcome_plane is not None else ()),
+            )
+            if handled >= 0:
+                _native.COUNTS["decode_coo"] += handled
+                return out
+            # ascending contract broken: the C pass may have filled slots
+            # before it saw it -- rebuild, and let the Python split's
+            # assert own the diagnostic
+            out = [None] * nb
+            _prefill_errors()
+        _native.COUNTS["decode_reroute"] += 1
 
     # vectorized COO split: row-major (b ascending) order, so per-binding
     # runs are contiguous and searchsorted finds them
-    idx = np.asarray(idx)
-    val = np.asarray(val)
     keep = idx >= 0
     iv = idx[keep].astype(np.int64)
     vv = val[keep]
@@ -1461,9 +1565,28 @@ def decode_compact(
         "decode_compact requires row-major (ascending) COO input"
     )
     bounds = np.searchsorted(b_arr, np.arange(nb + 1))
+    if native:
+        # the C builder: every status-0 row of at most 256 entries whose
+        # slot is still empty
+        empty = out.count(None)
+        _native.load_encode_fast().decode_fast(
+            np.ascontiguousarray(bounds, np.int64),
+            np.ascontiguousarray(c_arr, np.int64),
+            np.ascontiguousarray(vv, np.int64),
+            np.ascontiguousarray(batch.name_rank, np.int64),
+            names, np.ascontiguousarray(non_workload[:nb], np.uint8),
+            coo_status, TargetCluster,
+            bool(enable_empty_workload_propagation), out,
+        )
+        _native.COUNTS["decode_fast"] += empty - out.count(None)
+    # the Python builder: every slot still empty (all of them with
+    # native=False; else the wide rows and nonzero-status rows whose
+    # error mapped to None)
+    built = 0
     for b in range(nb):
         if out[b] is not None:
             continue
+        built += 1
         lo, hi = bounds[b], bounds[b + 1]
         cs = c_arr[lo:hi].tolist()
         vs = vv[lo:hi].tolist()
@@ -1482,12 +1605,12 @@ def decode_compact(
                 ]
         targets.sort(key=lambda t: t.name)
         out[b] = targets
-    if outcome is not None:
+    _native.COUNTS["decode_py"] += built
+    if outcome_plane is not None:
         # bits 8+ of an outcome code hold 1 + the dominant stage's bit
         # index (obs/decisions.split_outcome)
-        outcome = np.asarray(outcome)
         for b in range(nb):
-            dom = int(outcome[b]) >> 8
+            dom = int(outcome_plane[b]) >> 8
             if 0 < dom <= len(VERDICT_BIT_NAMES) and isinstance(out[b],
                                                                Exception):
                 out[b].reason = VERDICT_BIT_NAMES[dom - 1]

@@ -1,12 +1,20 @@
 """Scheduler service: a store-watching batch scheduler over schedule_items.
 
-Counterpart of the JAX package's ``scheduler/service.py`` with
-backend="device".  It keeps the reference's decision semantics
+Counterpart of the JAX package's ``scheduler/service.py``.  It keeps the
+reference's decision semantics
 (doScheduleBinding, pkg/scheduler/scheduler.go:376: schedule when the
 spec generation moved, a reschedule was triggered, or the binding is
 unscheduled; honor scheduling suspension) but drains every pending
-binding per cycle into one schedule_items call (scheduler/core.py: the
-chunked device pipeline on the card, host routes on the serial path).
+binding per cycle into one solve.  `backend` picks it, as in the JAX
+package: "device" (the default) runs one schedule_items call
+(scheduler/core.py: the chunked device pipeline on the card, host routes
+on the serial path); "native" runs the compiled C++ serial control
+(native/serial_solver.cc) over the whole batch and ops/serial.schedule
+over the rows it leaves (its unsupported classes, or every row with
+empty-workload propagation on); "serial" runs ops/serial.schedule alone.
+The host backends are the caller asking for the host: they build no
+SolverBatch, so the shortlist and the resident plane arm only on
+"device".
 
 Pending bindings wait in a three-queue SchedulingQueue (active / backoff /
 unschedulable, scheduler/queue.py); failures route back per handleErr
@@ -22,10 +30,10 @@ to the plane.  `rebalance=INTERVAL_S` arms the rebalance plane
 
 A batch whose solve raises is contained (its bindings go to backoff, as
 in the JAX package) and counted in `cycle_faults` by exception kind.  The
-JAX package's leader election, device degrade guard, chaos seams,
-explain sampling, batch deadline and overload mode, mesh, native backend,
-detached solves, flight records, metrics, spans and event recorder are
-not part of the port.
+JAX package's leader election, device degrade guard (its mid-serve
+guard, device probe and backend resolution), chaos seams, explain
+sampling, batch deadline and overload mode, mesh, detached solves, flight
+records, metrics, spans and event recorder are not part of the port.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import time
 import traceback
 from typing import Dict, List, Optional, Tuple
 
+from karmada_tpu_torch import native as native_mod
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.estimator.general import GeneralEstimator
 from karmada_tpu_torch.models.cluster import Cluster
@@ -66,18 +75,24 @@ _CYCLE = "__cycle__"
 #: PipelineResult stage times summed into each cycle_log entry
 _STAGES = ("encode_s", "dispatch_s", "wait_s", "finalize_s", "decode_s",
            "spread_s", "big_s", "shortlist_s")
+#: the host backends' stage times: the native control's snapshot and
+#: marshaling, its C call, and the serial path's rows
+_HOST_STAGES = ("native_marshal_s", "native_s", "serial_s")
+BACKENDS = ("device", "native", "serial")
 
 
 class Scheduler:
-    """Watches bindings and clusters; schedules in batched cycles on
-    `device` (the first CUDA card by default; "cpu" runs the kernels'
-    plain versions)."""
+    """Watches bindings and clusters; schedules in batched cycles with
+    `backend` ("device": on `device`, the first CUDA card by default, "cpu"
+    running the kernels' plain versions; "native" / "serial": on the
+    host)."""
 
     def __init__(
         self,
         store: ObjectStore,
         runtime: Runtime,
         *,
+        backend: str = "device",
         device=None,
         enable_empty_workload_propagation: bool = False,
         batch_window: int = 4096,
@@ -104,8 +119,16 @@ class Scheduler:
         rebalance_budget=None,
         rebalance_clock=None,
     ) -> None:
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
         self.store = store
-        self.device = resolve_device(device)
+        self.backend = backend
+        # the host backends solve without a card: they resolve `device`
+        # only when the caller names one (a rebalance plane resolves its
+        # own otherwise)
+        self.device = (resolve_device(device)
+                       if backend == "device" or device is not None
+                       else None)
         # the port has no accurate-estimator tier yet
         self._general = GeneralEstimator()
         self.enable_empty_workload_propagation = (
@@ -116,7 +139,7 @@ class Scheduler:
         self.pipeline_chunk = max(1, pipeline_chunk)
         self.shortlist = (ShortlistConfig(k=int(shortlist_k),
                                           min_cells=int(shortlist_min_cells))
-                          if shortlist_k else None)
+                          if shortlist_k and backend == "device" else None)
         # the queue is touched from publisher threads (_on_event) and the
         # cycle worker; one lock guards every queue operation
         self._queue_lock = threading.Lock()
@@ -136,9 +159,14 @@ class Scheduler:
         #: counts and the pipeline's stage seconds
         self.cycle_log: collections.deque = collections.deque(maxlen=64)
         self._cycle_stats: Optional[PipelineResult] = None
+        self._host_stats = dict.fromkeys(_HOST_STAGES, 0.0)
+        self._cycle_fault: Optional[str] = None
+        # (clusters list, NativeSnapshot) of the last native solve: the
+        # affinity-failover rounds of one cycle share the snapshot
+        self._native_snap = None
         self._resident = None
         self._delta_tracker = None
-        if resident:
+        if resident and backend == "device":
             from karmada_tpu_torch.resident import DeltaTracker, ResidentState
 
             self._resident = ResidentState(
@@ -148,6 +176,10 @@ class Scheduler:
             # taps the same bus; its window drains at each solve
             self._delta_tracker = DeltaTracker()
             store.bus.subscribe(self._delta_tracker.on_event)
+        if backend == "native":
+            # build (or load) the C++ control now, so that the first cycle
+            # never waits for g++; a build failure raises here
+            native_mod.load()
         self.worker = runtime.register(AsyncWorker("scheduler", self._cycle))
         runtime.register_periodic(self._periodic_flush)
         self.rebalance_plane = None
@@ -252,6 +284,8 @@ class Scheduler:
             with self._queue_lock:
                 self._inflight_keys = {info.key for info, _ in todo}
             self._cycle_stats = PipelineResult()
+            self._host_stats = dict.fromkeys(_HOST_STAGES, 0.0)
+            self._cycle_fault = None
             outcomes: List[object] = []
             try:
                 outcomes = self.schedule_batch([rb for _, rb in todo],
@@ -261,6 +295,7 @@ class Scheduler:
                 # backoff, and the fault is counted
                 kind = type(e).__name__
                 self.cycle_faults[kind] = self.cycle_faults.get(kind, 0) + 1
+                self._cycle_fault = kind
                 traceback.print_exc()
                 with self._queue_lock:
                     for info, _ in todo:
@@ -289,12 +324,14 @@ class Scheduler:
         n_unsched = sum(isinstance(r, serial.UnschedulableError)
                         for r in outcomes)
         n_exc = sum(isinstance(r, Exception) for r in outcomes)
-        entry = {"cycle_id": self._cycle_id, "popped": popped,
-                 "bindings": len(outcomes),
+        entry = {"cycle_id": self._cycle_id, "backend": self.backend,
+                 "popped": popped, "bindings": len(outcomes),
                  "scheduled": len(outcomes) - n_exc,
                  "unschedulable": n_unsched, "errors": n_exc - n_unsched,
-                 "wall_s": wall, "chunks": st.chunks}
+                 "fault": self._cycle_fault, "wall_s": wall,
+                 "chunks": st.chunks}
         entry.update({k: getattr(st, k) for k in _STAGES})
+        entry.update(self._host_stats)
         self.cycle_log.append(entry)
 
     def resident_state(self) -> Optional[Dict[str, object]]:
@@ -409,9 +446,13 @@ class Scheduler:
         return 0
 
     def _solve(self, items, clusters, keys=None, tokens=None) -> List[object]:
-        """Per item List[TargetCluster] or an Exception: one schedule_items
-        call (device routes on the card, host routes on the serial path),
-        through the resident plane when it is armed."""
+        """Per item List[TargetCluster] or an Exception, by the backend:
+        "device" one schedule_items call (device routes on the card, host
+        routes on the serial path, through the resident plane when it is
+        armed); "native" the C++ control, then ops/serial.schedule over the
+        rows it leaves; "serial" ops/serial.schedule over every row."""
+        if self.backend != "device":
+            return self._solve_host(items, clusters)
         st = PipelineResult()
         out = schedule_items(
             items, clusters, chunk=self.pipeline_chunk, waves=self.waves,
@@ -429,6 +470,70 @@ class Scheduler:
                 setattr(self._cycle_stats, k,
                         getattr(self._cycle_stats, k) + getattr(st, k))
         return out
+
+    def _solve_host(self, items, clusters) -> List[object]:
+        out: List[object] = [None] * len(items)
+        handled: List[int] = []
+        if self.backend == "native" and items:
+            handled = self._solve_native(items, clusters, out)
+        done = set(handled)
+        t0 = time.perf_counter()
+        cal = serial.make_cal_available([self._general])
+        for i, (spec, status) in enumerate(items):
+            if i in done:
+                continue
+            try:
+                out[i] = serial.schedule(
+                    spec, status, clusters, cal,
+                    enable_empty_workload_propagation=(
+                        self.enable_empty_workload_propagation))
+            except Exception as e:  # noqa: BLE001 — the binding's outcome
+                out[i] = e
+        self._host_stats["serial_s"] += time.perf_counter() - t0
+        return out
+
+    def _solve_native(self, items, clusters, out: List[object]) -> List[int]:
+        """backend="native": the compiled C++ control (native/) schedules
+        the whole batch on the host; rows in its unsupported classes
+        (multi-component sets, vanished previous clusters, resource-model
+        histograms, weights of 2^31 or more) are left to the serial path,
+        as is every row under empty-workload propagation (the control has
+        no such mode).  Fills `out`; returns the indices it handled."""
+        if self.enable_empty_workload_propagation:
+            return []
+        t0 = time.perf_counter()
+        cached = self._native_snap
+        if cached is not None and cached[0] is clusters:
+            snap = cached[1]
+        else:
+            snap = native_mod.NativeSnapshot(
+                clusters, native_mod.collect_res_names(items))
+            self._native_snap = (clusters, snap)
+        nb = native_mod.marshal_batch(items, snap)
+        t1 = time.perf_counter()
+        results = native_mod.run_marshaled(nb, snap)
+        t2 = time.perf_counter()
+        handled: List[int] = []
+        for i, (st, targets) in enumerate(results):
+            if st == native_mod.STATUS_OK:
+                out[i] = targets
+            elif st == native_mod.STATUS_FIT_ERROR:
+                spec_i, status_i = items[i]
+                _, diagnosis = serial.find_clusters_that_fit(
+                    spec_i, status_i, clusters)
+                out[i] = serial.FitError(diagnosis)
+            elif st == native_mod.STATUS_UNSCHEDULABLE:
+                out[i] = serial.UnschedulableError(
+                    "insufficient capacity (native)")
+            elif st == native_mod.STATUS_NO_CLUSTER:
+                out[i] = serial.NoClusterAvailableError(
+                    "no clusters available to schedule")
+            else:  # STATUS_UNSUPPORTED: the serial path owns it
+                continue
+            handled.append(i)
+        self._host_stats["native_marshal_s"] += t1 - t0
+        self._host_stats["native_s"] += t2 - t1
+        return handled
 
     # -- result patch-back (patchScheduleResultForResourceBinding :664) -----
     def _apply_result(self, rb: ResourceBinding, res, affinity_name: str):

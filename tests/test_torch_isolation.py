@@ -3,8 +3,12 @@ neither jax nor anything of the JAX package karmada_tpu (whose name is a
 prefix of the port's: `karmada_tpu` followed by a boundary other than
 `_torch`), a cycle -- and a resident adopt plus an incremental cycle --
 runs with neither in sys.modules, as does a control-plane
-Scheduler with the rebalance plane armed, and the entry points never
-drift to the CPU unless asked."""
+Scheduler with the rebalance plane armed and one with backend="native",
+and the entry points never drift to the CPU unless asked.  The cycle's
+encode and decode run through the port's C paths (native/), whose loaded
+libraries are the port's own builds: no port module names the JAX
+package's native directory, and no library of it is mapped into the
+process."""
 
 import ast
 import os
@@ -51,6 +55,14 @@ def test_static_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_names_no_jax_native_library(path):
+    """The port loads only its own native builds: no module of it names
+    the JAX package's native directory."""
+    assert "karmada_tpu/native" not in path.read_text()
+
+
 def test_forbidden_matches_prefix_boundary():
     assert _forbidden("karmada_tpu.ops.solver")
     assert _forbidden("karmada_tpu")
@@ -66,8 +78,14 @@ import torch_scenarios as S
 from karmada_tpu_torch.scheduler.core import schedule_items
 M = S.models_of("karmada_tpu_torch")
 clusters, items = S.random_scenario(M, 1, n_clusters=11, n_bindings=20)
+from karmada_tpu_torch import native
+native.reset_counts()
 out = schedule_items(items, clusters, chunk=8, waves=2, device="cpu")
 assert len(out) == 20 and all(r is not None for r in out)
+# the C encode and decode ran, and nothing went through the Python loops
+assert native.COUNTS["encode_c"] > 0 and native.COUNTS["decode_coo"] > 0, \
+    native.COUNTS
+assert native.COUNTS["encode_py"] == 0, native.COUNTS
 # the resident plane and the incremental solve: adopt, write back, and
 # one watch-driven cycle on the fused plane
 from karmada_tpu_torch.estimator.general import GeneralEstimator
@@ -104,6 +122,23 @@ for _ in range(2):
     rt.tick()
 assert sched.rebalance_plane.stats()["cycles"] == 2
 assert sched.faults() == {{}} and not any(rt.reconcile_errors().values())
+# the C++ serial control behind a Scheduler's native backend
+store2, rt2 = ObjectStore(), Runtime()
+for c in S.control_fleet(M, rng, 6):
+    store2.create(c)
+nsched = Scheduler(store2, rt2, backend="native")
+for rb in S.control_bindings(M, rng, 12, S.control_placements(
+        M, rng, [c.name for c in store2.list("Cluster")])):
+    store2.create(rb)
+rt2.tick()
+assert nsched.faults() == {{}} and nsched.cycle_log[-1]["native_s"] > 0
+libs = [native.load_encode_fast().__file__, native.load_decode_fast().__file__,
+        native.load()._name]
+assert all("karmada_tpu_torch/native/_build/" in f for f in libs), libs
+with open("/proc/self/maps") as fh:
+    maps = fh.read()
+assert "karmada_tpu/native/" not in maps
+assert all(f in maps for f in libs), libs
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
 print("LOADED", bad)

@@ -237,8 +237,10 @@ class Fleet:
 
 
 def _batch_fields(batch):
-    out = {f: _np(getattr(batch, f)) for f in PT.FIELD_DTYPES
-           if getattr(batch, f, None) is not None}
+    """The batch's fields as they are now: numpy copies, so that a later
+    step's in-place update of a plane's buffers cannot reach them."""
+    out = {f: np.array(_np(getattr(batch, f)), copy=True)
+           for f in PT.FIELD_DTYPES if getattr(batch, f, None) is not None}
     out["vocab"] = (list(batch.res_names), list(batch.class_keys),
                     list(batch.region_names or []),
                     [tuple(g) for g in batch.gvk_keys or []])
@@ -248,7 +250,7 @@ def _batch_fields(batch):
 
 
 def _same_batch(jb, pb, ctx):
-    a, b = _batch_fields(jb), _batch_fields(pb)
+    a, b = (x if isinstance(x, dict) else _batch_fields(x) for x in (jb, pb))
     assert a.keys() == b.keys(), ctx
     for f in a:
         if isinstance(a[f], np.ndarray):
@@ -324,8 +326,9 @@ def _big_world(M):
 
 def _stream(K, case):
     """One package's run of a churn stream: per step the fused and host
-    batches of encode_cycle, the pipeline results through both planes,
-    and the planes' counts."""
+    batches of encode_cycle (their fields captured at that step), the
+    pipeline results through both planes, and the planes' counts; the
+    last step's batches stay in `fleet.last`."""
     out = []
     if case == "big":
         fleet = Fleet(K, _big_world)
@@ -366,7 +369,8 @@ def _stream(K, case):
         else:
             results = None
         batches = [fleet.encode(st) for st in (fleet.fused, fleet.host)]
-        out.append((step, batches, results,
+        fleet.last = batches
+        out.append((step, [_batch_fields(b) for b in batches], results,
                     [_stats(st) for st in (fleet.fused, fleet.host)],
                     list(fleet.fused.last_flip_lanes)))
     return out, fleet
@@ -388,8 +392,7 @@ def test_resident_stream_matches_jax(case):
             _same_batch(a, b, ctx)
         fused, host = pb
         for f in BINDING_PLANES:
-            assert np.array_equal(_np(getattr(fused, f)),
-                                  _np(getattr(host, f))), (ctx, f)
+            assert np.array_equal(fused[f], host[f]), (ctx, f)
         if jr is not None:
             for a, b in zip(jr, pr):
                 assert a.keys() == b.keys(), ctx
@@ -405,7 +408,7 @@ def test_resident_stream_matches_jax(case):
         assert fs["fused"]["fallbacks"]["explain"] > 0
         assert any(len(x[4]) for x in pout)  # the deleting flip was seen
         # the last batch passes the plane's own bit-exact audit
-        last = pout[-1][1][0]
+        last = pfleet.last[0]
         assert last.fused and compare_batches(last, PT.encode_batch(
             pfleet.items, pfleet.fused.cindex, pfleet.est)) == []
 

@@ -53,7 +53,7 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
   6. the wide cycle: 16,384 bindings over the same fleet, every eighth
      beyond the tier-1 compact caps (ROUTE_DEVICE_BIG and
      ROUTE_DEVICE_SPREAD_BIG), so all four device routes run;
-  7. the explain cycle: 2,048 of phase 6's bindings (main, region-spread
+  7. the explain cycle: EXPLAIN_BINDINGS of phase 6's bindings (main, region-spread
      and big rows; every sixteenth asks for more CPU than any cluster
      has), chunk 1,024, explain armed with a DecisionRecorder -- one
      Decision per binding, full verdict tables for main and spread rows,
@@ -114,7 +114,28 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      store recipe (REBALANCE_PARITY_BINDINGS bindings created unscheduled,
      no rebalance) ticked until every binding carries a Scheduled
      condition: no contained fault, a stride sample of 128 as
-     ops/serial.schedule says.
+     ops/serial.schedule says;
+ 12. the propagation loop: the port's ControlPlane (admission, detector,
+     the Scheduler's device cycle, binding -> Work, execution into the
+     member simulators, Work / binding / cluster status) driven as a user
+     drives it -- members joined with config 5's fleet (allocatable cpu,
+     memory in Gi, pods, region, provider; nothing running), one
+     ClusterPropagationPolicy per config-5 placement selecting its
+     Deployments by label, an image override on LOOP_OVERRIDDEN's
+     placements for members in two regions, config 5's bindings applied
+     as Deployments -- and ticked until a tick changes nothing (at most
+     LOOP_TICKS), one line a tick with the host seconds by controller,
+     the scheduler cycles' stages, the Cluster-event scans and the
+     collector's pauses.  12a: LOOP_PARITY_MEMBERS members and
+     LOOP_PARITY_TEMPLATES templates (the placements drawn over their
+     names) on the card against device="cpu": equal snapshots (every
+     object of the plane and of each member; uids from a counter,
+     resourceVersions and times cleared).  12b: all 5,000 members and
+     --loop-templates (LOOP_TEMPLATES) templates on the card: quiescent,
+     every binding scheduled or failing on the serial path too (a sample),
+     each binding's targets running on its members, the templates'
+     readyReplicas the members', no contained fault or failed sync,
+     K1-K4 launched.
 
 Phase 2 also holds K7 (on the first forward chunk's wave 0 as
 schedule_core launches it -- the chunk's workspace, the batch's
@@ -186,7 +207,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
 WIDE_BINDINGS = 16_384     # phase 6's cycle
-EXPLAIN_BINDINGS = 2_048   # phase 7's cycle
+EXPLAIN_BINDINGS = 1_024   # phase 7's cycle (2,048 until phase 12 took the time)
 EXPLAIN_CHUNK = 1_024      # the JAX Scheduler's default pipeline_chunk
 MEGAFLEET_BINDINGS = 1_000_000  # phase 8's cycle (MEGAFLEET_r01.json's scale)
 MEGA_CLUSTERS = 10_000
@@ -3046,7 +3067,8 @@ def phase_parity_shortlist(items, fleet, args, dev) -> None:
 # -- phase 10: the rebalance loop on the control plane ------------------------
 
 REBALANCE_PARITY_BINDINGS = 2_000   # phase 10a's roster
-REBALANCE_BINDINGS = 25_000         # phase 10b's roster (config 5's first 25k)
+REBALANCE_BINDINGS = 12_500         # phase 10b's roster (config 5's first
+                                    # ones; 25,000 until phase 12 took the time)
 REBALANCE_CRUSHED = 8
 REBALANCE_ROUNDS = 40
 REBALANCE_AS_STATED_ROUNDS = 3      # the recipe as first specified, bounded
@@ -3508,7 +3530,7 @@ def phase_kernel_k13(fleet, results, dev, reps, parent=None) -> dict:
 # -- phase 11: the native host paths -----------------------------------------
 
 #: phase 11b's bindings through the C++ control (config 5's first ones)
-NATIVE_CONTROL_BINDINGS = 25_000
+NATIVE_CONTROL_BINDINGS = 10_000  # 25,000 until phase 12 took the time
 NATIVE_SAMPLE = 256        # 11b's stride sample through ops/serial.schedule
 NATIVE_STORE_SAMPLE = 128  # 11c's stride sample
 
@@ -3771,6 +3793,361 @@ def phase_native_store(M, fleet, items, results) -> None:
         raise AssertionError("11c: the native control never ran")
 
 
+# -- phase 12: the propagation loop on the card -------------------------------
+
+LOOP_PARITY_MEMBERS = 64      # 12a
+LOOP_PARITY_TEMPLATES = 512
+LOOP_MEMBERS = 5_000          # 12b: config 5's fleet
+LOOP_TEMPLATES = 4_096        # one chunk of config 5's forward mix
+LOOP_TICKS = 40
+LOOP_OVERRIDDEN = (0, 8, 16, 24)  # placements whose templates get an override
+LOOP_SAMPLE = 64              # unscheduled bindings checked on the serial path
+_LOOP_CLEARED = frozenset({
+    "uid", "resource_version", "resourceVersion", "creation_timestamp",
+    "creationTimestamp", "deletion_timestamp", "last_transition_time",
+    "last_scheduled_time"})
+
+
+class UidSeq:
+    """The port store's uids from a counter while the block runs: a
+    template's uid breaks the scheduler's ties (Webster, spread), so two
+    planes built alike must hand out the same ones."""
+
+    def __enter__(self):
+        from karmada_tpu_torch.store import store as store_mod
+
+        self.mod, self.saved = store_mod, store_mod.new_uid
+        seq = iter(range(1, 1 << 62))
+        store_mod.new_uid = lambda: f"uid-{next(seq):08d}"
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.new_uid = self.saved
+
+
+def loop_template(b, spec, n_placements):
+    """Binding b of config 5's forward mix as the Deployment a user
+    applies: its namespace, replicas and requests (memory in Gi, as the
+    members' capacity is), labelled with its placement."""
+    req = spec.replica_requirements.resource_request
+    return {
+        "apiVersion": "apps/v1", "kind": "Deployment",
+        "metadata": {"name": spec.resource.name,
+                     "namespace": spec.resource.namespace,
+                     "labels": {"placement": f"p{b % n_placements}"}},
+        "spec": {"replicas": spec.replicas, "template": {"spec": {
+            "containers": [{"name": "app",
+                            "image": "registry.example/app:1.0",
+                            "resources": {"requests": {
+                                "cpu": f"{req['cpu'].milli}m",
+                                "memory": f"{int(req['memory'].value())}Gi",
+                            }}}]}}}}
+
+
+def build_loop(M, dev, fleet, placements, items):
+    """A ControlPlane on `dev` (config 5's chunk, waves and batch window)
+    with `fleet` joined as members (allocatable cpu, memory in Gi and
+    pods, region, provider; nothing running), one ClusterPropagationPolicy
+    a placement selecting its templates by label, an image override on
+    the templates of LOOP_OVERRIDDEN's placements for members in regions
+    r0 and r1, and `items` applied as Deployments.  Returns the plane and
+    the seconds of each step."""
+    import copy
+
+    from karmada_tpu_torch.e2e import ControlPlane
+
+    t0 = time.perf_counter()
+    cp = ControlPlane(device=dev, pipeline_chunk=4096, waves=8,
+                      batch_window=4096)
+    for c in fleet:
+        a = c.status.resource_summary.allocatable
+        cp.add_member(c.name, cpu_milli=a["cpu"].milli,
+                      memory_gi=int(a["memory"].value()),
+                      pods=int(a["pods"].value()), region=c.spec.region,
+                      provider=c.spec.provider, collect=False)
+    t1 = time.perf_counter()
+    cp.cluster_status.collect_all()
+    t2 = time.perf_counter()
+    for p, placement in enumerate(placements):
+        cp.apply_policy(M.ClusterPropagationPolicy(
+            metadata=M.ObjectMeta(name=f"placement-{p}"),
+            spec=M.PropagationSpec(
+                resource_selectors=[M.ResourceSelector(
+                    api_version=GVK[0], kind=GVK[1],
+                    label_selector=M.LabelSelector(
+                        match_labels={"placement": f"p{p}"}))],
+                placement=copy.deepcopy(placement))))
+    for p in LOOP_OVERRIDDEN:
+        cp.apply_policy(M.ClusterOverridePolicy(
+            metadata=M.ObjectMeta(name=f"mirror-{p}"),
+            spec=M.OverrideSpec(
+                resource_selectors=[M.ResourceSelector(
+                    api_version=GVK[0], kind=GVK[1],
+                    label_selector=M.LabelSelector(
+                        match_labels={"placement": f"p{p}"}))],
+                override_rules=[M.RuleWithCluster(
+                    target_cluster=M.ClusterAffinity(
+                        field_selector=M.FieldSelector(match_expressions=[
+                            M.FieldSelectorRequirement(
+                                key=M.REGION_FIELD, operator="In",
+                                values=["r0", "r1"])])),
+                    overriders=M.Overriders(image_overrider=[
+                        M.ImageOverrider(component="Registry",
+                                         operator="replace",
+                                         value="mirror.example")]))])))
+    t3 = time.perf_counter()
+    for b, (spec, _st) in enumerate(items):
+        cp.apply(loop_template(b, spec, len(placements)))
+    t4 = time.perf_counter()
+    return cp, {"join_s": t1 - t0, "collect_s": t2 - t1,
+                "policies_s": t3 - t2, "templates_s": t4 - t3}
+
+
+class LoopClock:
+    """Host seconds of one ControlPlane by controller: each worker's
+    reconciles (a write's watch handlers run inside the writer, so the
+    scheduler's Cluster-event scan is inside the collector's seconds and
+    is also read apart), each periodic hook, and the members' ticks."""
+
+    def __init__(self, cp):
+        self.s: dict = {}
+        for w in cp.runtime.workers:
+            w.reconcile = self._wrap(w.name, w.reconcile)
+        names = {cp.scheduler._periodic_flush: "scheduler-flush",
+                 cp.cluster_status.collect_all: "cluster-status",
+                 cp.graceful_eviction.resync: "eviction-resync"}
+        if cp.scheduler.rebalance_plane is not None:
+            names[cp.scheduler.rebalance_plane.maybe_run] = "rebalance"
+        periodic = cp.runtime._periodic  # noqa: SLF001 — the harness's probe
+        periodic[:] = [self._wrap(names.get(fn, "periodic"), fn)
+                       for fn in periodic]
+        for m in cp.members.values():
+            m.tick = self._wrap("members", m.tick)
+
+    def _wrap(self, name, fn):
+        def timed(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    def take(self) -> dict:
+        out, self.s = self.s, {}
+        return out
+
+
+def loop_revision(cp) -> int:
+    return cp.store.revision + sum(m.store.revision
+                                   for m in cp.members.values())
+
+
+def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
+    """cp.tick(rounds=1) until a tick changes nothing (no write in the
+    control plane or a member) or max_ticks; one line a tick with the
+    host seconds by controller, the scheduler cycles' stage seconds, the
+    Cluster-event scans and the collector's pauses.  Returns (ticks,
+    converged, wall)."""
+    clock = LoopClock(cp)
+    seen, ticks, converged = 0, 0, False
+    t_loop = time.perf_counter()
+    while ticks < max_ticks:
+        rev = loop_revision(cp)
+        ev0, evs0 = cp.scheduler.cluster_events, cp.scheduler.cluster_event_s
+        GC.reset()
+        t0 = time.perf_counter()
+        n = cp.tick(rounds=1)
+        if cp.scheduler.device is not None and \
+                cp.scheduler.device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ticks += 1
+        split = clock.take()
+        cycles = [c for c in cp.scheduler.cycle_log if c["cycle_id"] > seen]
+        if cycles:
+            seen = cycles[-1]["cycle_id"]
+        if verbose:
+            stages = {k: round(sum(c[k] for c in cycles), 3) for k in (
+                "wall_s", "encode_s", "dispatch_s", "wait_s", "finalize_s",
+                "decode_s", "spread_s", "big_s")}
+            log(f"phase {label} tick {ticks}: {n} reconciles, wall "
+                f"{wall:.3f} s; by controller "
+                f"{ {k: round(v, 3) for k, v in sorted(split.items())} }; "
+                f"{len(cycles)} scheduler cycle(s) "
+                f"({sum(c['bindings'] for c in cycles)} bindings) {stages}; "
+                f"Cluster events {cp.scheduler.cluster_events - ev0} "
+                f"scanned in {cp.scheduler.cluster_event_s - evs0:.3f} s; "
+                f"{GC.line()}")
+        if loop_revision(cp) == rev:
+            converged = True
+            break
+    return ticks, converged, time.perf_counter() - t_loop
+
+
+def loop_norm(v):
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return {f.name: (None if f.name in _LOOP_CLEARED
+                         else loop_norm(getattr(v, f.name)))
+                for f in dataclasses.fields(v)}
+    if isinstance(v, dict):
+        return {k: (None if k in _LOOP_CLEARED else loop_norm(x))
+                for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [loop_norm(x) for x in v]
+    return v
+
+
+def loop_snapshot(cp) -> dict:
+    """Every control-plane object and every member's, normalized: uids,
+    resourceVersions, timestamps and condition times cleared."""
+    out = {(o.KIND, o.metadata.namespace, o.metadata.name): loop_norm(o)
+           for o in cp.store.visit_all()}
+    for name, m in cp.members.items():
+        for o in m.store.visit_all():
+            out[(name, o.KIND, o.metadata.namespace, o.metadata.name)] = \
+                loop_norm(o)
+    return out
+
+
+def loop_faults(cp) -> dict:
+    errs = {k: v for k, v in cp.runtime.reconcile_errors().items() if v}
+    return {"scheduler": cp.scheduler.faults(), "reconcile": errs,
+            "sync_failures": cp.execution.sync_failures}
+
+
+def phase_loop_parity(M, fleet, items, dev, seed) -> None:
+    """12a: the first LOOP_PARITY_MEMBERS members and
+    LOOP_PARITY_TEMPLATES templates (config 5's build functions; the placements
+    drawn over these members' names), a ControlPlane on the card against
+    the same with device="cpu", ticked to quiescence: equal snapshots."""
+    fleet = fleet[:LOOP_PARITY_MEMBERS]
+    placements = build_placements(M, random.Random(seed),
+                                  [c.name for c in fleet])
+    snaps, runs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        with UidSeq():
+            cp, steps = build_loop(M, d, fleet, placements,
+                                   items[:LOOP_PARITY_TEMPLATES])
+            ticks, converged, wall = run_loop(cp, "12a", verbose=False)
+        snaps[d.type] = loop_snapshot(cp)
+        runs[d.type] = (ticks, converged, wall, loop_faults(cp),
+                        [c["backend"] for c in cp.scheduler.cycle_log],
+                        cp.scheduler.device.type)
+    a, b = snaps["cuda"], snaps["cpu"]
+    diff = sorted((k for k in set(a) | set(b) if a.get(k) != b.get(k)),
+                  key=repr)
+    kinds = {}
+    for k in a:
+        kind = k[0] if len(k) == 3 else "member " + k[1]
+        kinds[kind] = kinds.get(kind, 0) + 1
+    log(f"phase 12a loop parity: {len(fleet)} members x "
+        f"{LOOP_PARITY_TEMPLATES} templates; card {runs['cuda'][:3]}, cpu "
+        f"{runs['cpu'][:3]} (ticks, converged, wall s); snapshot "
+        f"{len(a)} objects {kinds}; differing {len(diff)}")
+    for t, r in runs.items():
+        if not r[1] or any(r[3].values()) or set(r[4]) != {"device"} \
+                or r[5] != t:
+            raise AssertionError(f"phase 12a {t}: converged {r[1]}, faults "
+                                 f"{r[3]}, backends {set(r[4])}, device "
+                                 f"{r[5]}")
+    if diff:
+        raise AssertionError(f"phase 12a: {len(diff)} objects differ card "
+                             f"vs cpu, first {diff[:4]}")
+
+
+def phase_loop(M, fleet, placements, items, dev) -> dict:
+    """12b: the loop at config 5's fleet width on the card -- every member
+    of `fleet`, `items` as templates -- ticked until a tick changes
+    nothing (at most LOOP_TICKS).  Every binding scheduled or failed as
+    the serial path says (a sample of the failed), member replicas summing
+    to each binding's targets, readyReplicas reflected on every template,
+    no contained fault, K1-K4 launched.  Returns the launch counts."""
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels, serial
+
+    t0 = time.perf_counter()
+    with UidSeq():
+        cp, steps = build_loop(M, dev, fleet, placements, items)
+    log(f"phase 12b loop built: {len(fleet)} members, {len(placements)} "
+        f"policies, {len(LOOP_OVERRIDDEN)} overrides, {len(items)} "
+        f"templates; host seconds "
+        f"{ {k: round(v, 3) for k, v in steps.items()} }")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    native.reset_counts()
+    ticks, converged, wall = run_loop(cp, "12b", verbose=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(native_line("12b", native.COUNTS))
+    check_native("12b", native.COUNTS, need_coo=False)
+    t1 = time.perf_counter()
+    rbs = cp.store.visit("ResourceBinding")
+    works = cp.store.counts_by_kind().get("Work", 0)
+    applied = sum(len(m.store) for m in cp.members.values())
+    bad, unplaced, ready_full = [], [], 0
+    for rb in rbs:
+        ref = rb.spec.resource
+        cond = [c for c in rb.status.conditions if c.type == "Scheduled"]
+        if not cond:
+            bad.append(f"{rb.name}: no Scheduled condition")
+            continue
+        if cond[-1].status != "True":
+            unplaced.append(rb)
+            continue
+        want = sum(t.replicas for t in rb.spec.clusters)
+        got = ready = 0
+        for t in rb.spec.clusters:
+            obj = cp.member(t.name).get(ref.kind, ref.namespace, ref.name)
+            if obj is None:
+                bad.append(f"{rb.name}: nothing applied on {t.name}")
+                continue
+            got += obj.manifest["spec"]["replicas"]
+            ready += (obj.manifest.get("status") or {}).get(
+                "readyReplicas", 0)
+        if got != want:
+            bad.append(f"{rb.name}: members run {got} != {want}")
+        tpl = cp.store.get(ref.kind, ref.namespace, ref.name)
+        st = tpl.manifest.get("status") or {}
+        if st.get("readyReplicas") != ready:
+            bad.append(f"{rb.name}: template readyReplicas "
+                       f"{st.get('readyReplicas')} != members' {ready}")
+        ready_full += ready == tpl.manifest["spec"]["replicas"]
+    clusters = cp.store.list("Cluster")
+    cal = serial.make_cal_available([GeneralEstimator()])
+    for rb in unplaced[:LOOP_SAMPLE]:
+        try:
+            serial.schedule(rb.spec, rb.status, clusters, cal)
+            bad.append(f"{rb.name}: unscheduled but serial.schedule places "
+                       "it")
+        except Exception:  # noqa: BLE001 — the expected outcome
+            pass
+    faults = loop_faults(cp)
+    log(f"phase 12b propagation loop: converged {converged} in {ticks} "
+        f"tick(s), loop wall {wall:.2f} s; {len(rbs)} bindings "
+        f"({len(rbs) - len(unplaced)} scheduled, {len(unplaced)} not, "
+        f"{min(len(unplaced), LOOP_SAMPLE)} of those checked on the serial "
+        f"path); {works} Works, {applied} member objects applied; "
+        f"{ready_full} templates fully ready; faults {faults}; checks "
+        f"{time.perf_counter() - t1:.2f} s, phase "
+        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
+    if not converged:
+        bad.append(f"not quiescent after {ticks} ticks")
+    if len(rbs) != len(items):
+        bad.append(f"{len(rbs)} bindings for {len(items)} templates")
+    if faults["scheduler"] or faults["reconcile"] or \
+            faults["sync_failures"]:
+        bad.append(f"contained faults {faults}")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} never launched")
+    if bad:
+        raise AssertionError(f"phase 12b: {len(bad)} failed checks: "
+                             + "; ".join(bad[:8]))
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bindings", type=int, default=100_000)
@@ -3782,6 +4159,8 @@ def main() -> int:
     ap.add_argument("--native-bindings", type=int,
                     default=NATIVE_CONTROL_BINDINGS,
                     help="phase 11b's bindings through the C++ control")
+    ap.add_argument("--loop-templates", type=int, default=LOOP_TEMPLATES,
+                    help="phase 12b's templates (config 5's first ones)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
                          "karmada_tpu_torch/ unpacked: phase 2 then also "
@@ -3883,9 +4262,11 @@ def main() -> int:
     phase_native_turns("rebalance chunk", rchunk, fleet, args, dev)
     phase_native_control(items, fleet, min(args.native_bindings, len(items)))
     phase_native_store(M, fleet, items, fwd_results)
+    phase_loop_parity(M, fleet, items, dev, args.seed + 7)
+    prop = phase_loop(M, fleet, placements, items[:args.loop_templates], dev)
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
-                                                      mega, inc, loop))
+                                                      mega, inc, loop, prop))
     log(f"K2 key scratch allocated in the run, bytes by tier: "
         f"{PS.KEY_SCRATCH_BYTES}")
     if any(PS.KEY_SCRATCH_BYTES.values()):

@@ -77,7 +77,7 @@ class GracefulEvictionController:
         runtime.register_periodic(self.resync)
 
     def resync(self) -> None:
-        for rb in self.store.list(ResourceBinding.KIND):
+        for rb in self.store.visit(ResourceBinding.KIND):
             if rb.spec.graceful_eviction_tasks:
                 self.worker.enqueue((rb.namespace, rb.name))
 

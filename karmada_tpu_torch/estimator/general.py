@@ -8,13 +8,20 @@ from the AllocatableModelings histogram (general.go:336-387).
 
 This math is already tensor-shaped — the TPU path (ops/solver.py) evaluates
 the identical formula over dense (clusters x resources) arrays.
+
+`produce_allocatable_modelings` is the producer side: the cluster-status
+controller fills a member's AllocatableModelings histogram with it.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-from karmada_tpu_torch.models.cluster import Cluster, ResourceSummary
+from karmada_tpu_torch.models.cluster import (
+    AllocatableModeling,
+    Cluster,
+    ResourceSummary,
+)
 from karmada_tpu_torch.models.work import ReplicaRequirements, TargetCluster
 from karmada_tpu_torch.utils.quantity import (
     RESOURCE_CPU,
@@ -44,6 +51,78 @@ def _available(summary: ResourceSummary, resource: str) -> int:
     if ing is not None:
         m -= ing.milli
     return m
+
+
+def _node_free(member) -> List[Dict[str, int]]:
+    """Free (allocatable - admitted) capacity per node.
+
+    The greedy admission plan charges nodes in order, mirroring how the
+    reference estimator sees already-placed pods via its pod informer.
+    (The JAX package keeps it in ``estimator/server.py``, which the port
+    has not taken yet.)
+    """
+    nodes = member.effective_nodes()
+    free = [
+        {"cpu": n.cpu_milli, "memory": n.memory_milli, "pods": n.pods,
+         **n.extra_milli}
+        for n in nodes
+    ]
+    # charge admitted workloads against nodes first-fit, like the plan
+    plan = member.admission_plan()
+    for (kind, ns, name), admitted in sorted(plan.items()):
+        obj = member.get(kind, ns, name)
+        if obj is None:
+            continue
+        req = member._workload_request(obj.manifest)  # noqa: SLF001
+        for _ in range(admitted):
+            for f in free:
+                if f["pods"] > 0 and all(
+                    f.get(r, 0) >= v for r, v in req.items()
+                ):
+                    for r, v in req.items():
+                        if r in f:
+                            f[r] -= v
+                    f["pods"] -= 1
+                    break
+    return free
+
+
+def produce_allocatable_modelings(member, resource_models):
+    """The modeling PRODUCER (pkg/modeling/modeling.go:33-246
+    AddToResourceSummary/getIndex): place each node's FREE capacity into
+    the grade histogram.  A node's grade is the MINIMUM over the model's
+    resource axes of the last grade whose lower bound the node still
+    reaches (searchLastLessElement); nodes below grade 0 on any axis are
+    dropped, exactly like the reference's index == -1 path.
+
+    Uses the SAME _models_min_map (model-list order, Quantity units) the
+    consumer indexes against, so producer and consumer cannot disagree on
+    grade indices."""
+    if not resource_models:
+        return []
+    min_map = _models_min_map(resource_models)
+    counts = [0] * len(resource_models)
+    for free in _node_free(member):
+        index = None
+        for name, mins in min_map.items():
+            # _node_free units: milli for everything except the raw pod count
+            have = (
+                Quantity.from_units(free.get(name, 0))
+                if name == RESOURCE_PODS
+                else Quantity(free.get(name, 0))
+            )
+            last = -1
+            for gi, lo in enumerate(mins):
+                if have >= lo:
+                    last = gi
+            index = last if index is None else min(index, last)
+        if index is None or index < 0:
+            continue
+        counts[index] += 1
+    return [
+        AllocatableModeling(grade=m.grade, count=counts[i])
+        for i, m in enumerate(resource_models)
+    ]
 
 
 def allowed_pod_number(summary: ResourceSummary) -> int:

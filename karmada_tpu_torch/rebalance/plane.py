@@ -132,8 +132,10 @@ class RebalancePlane:
         """detect -> drain -> audit; returns the cycle snapshot."""
         timing: Dict[str, float] = {}
         t0 = time.perf_counter()
-        clusters = self.store.list(Cluster.KIND)
-        bindings = self.store.list(ResourceBinding.KIND)
+        # read-only scans: the stored objects, not copies (a drain
+        # replaces a binding in the store; the audit reads the scan's)
+        clusters = self.store.visit(Cluster.KIND)
+        bindings = self.store.visit(ResourceBinding.KIND)
         t1 = time.perf_counter()
         names, committed, capacity, valid, by_cluster = self._assemble(
             clusters, bindings)
@@ -326,7 +328,7 @@ class RebalancePlane:
         return sum(
             sum(1 for t in rb.spec.graceful_eviction_tasks
                 if t.producer == PRODUCER)
-            for rb in self.store.list(ResourceBinding.KIND))
+            for rb in self.store.visit(ResourceBinding.KIND))
 
     def stats(self) -> dict:
         """The plane's state: config, lifetime counts, budget, the peak

@@ -155,6 +155,10 @@ class Scheduler:
         self.cycle_faults: Dict[str, int] = {}
         #: promote() pushes by origin
         self.priority_pushes: Dict[str, int] = {}
+        #: Cluster events handled and the host seconds of their re-queue
+        #: scans (every binding is looked at on each one)
+        self.cluster_events = 0
+        self.cluster_event_s = 0.0
         #: the last 64 non-empty cycles: bindings, wall seconds, outcome
         #: counts and the pipeline's stage seconds
         self.cycle_log: collections.deque = collections.deque(maxlen=64)
@@ -218,16 +222,20 @@ class Scheduler:
         elif kind == Cluster.KIND:
             # capacity/feasibility changed: unschedulable entries become
             # schedulable again (still-backing-off ones keep their timer);
-            # bindings resident in no queue get another look
+            # bindings resident in no queue get another look (a read-only
+            # scan: the stored bindings, not copies)
+            t0 = time.perf_counter()
             with self._queue_lock:
                 self.queue.move_all_to_active_or_backoff()
-                for rb in self.store.list(ResourceBinding.KIND):
+                for rb in self.store.visit(ResourceBinding.KIND):
                     key = (rb.namespace, rb.name)
                     if self.queue.has(key):
                         continue
                     if not rb.spec.clusters or self._needs_schedule(rb):
                         self.queue.push(key, _priority_of(rb))
                 enqueued = self.queue.depths()["active"] > 0
+            self.cluster_event_s += time.perf_counter() - t0
+            self.cluster_events += 1
             if enqueued:
                 self.worker.enqueue(_CYCLE)
 

@@ -1,7 +1,8 @@
 """The port's control-plane substrate.
 
   store.py    ObjectStore -- apiserver semantics in process (rv,
-              generation, watch events, finalizer-gated deletion)
+              generation, watch events, finalizer-gated deletion,
+              admission) and its read paths that do not copy
   worker.py   AsyncWorker + Runtime -- de-duplicating reconcile queues,
               pumped deterministically (tick/pump) or served on threads
 

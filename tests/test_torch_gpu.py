@@ -1665,3 +1665,135 @@ def test_rebalance_plane_cycle_on_card():
         out[str(d)] = (snap, stub.promoted)
     assert out[str(dev)][0]["evicted"] > 0
     assert out[str(dev)] == out["cpu"]
+
+
+def _loop_snapshot(device):
+    """A ControlPlane on `device`: 8 members, a Divided / Duplicated /
+    region-spread / Aggregated policy mix over 40 Deployments, an image
+    override on one member, ticked to quiescence; returns the normalized
+    snapshot (uids, resourceVersions and times cleared) and the plane.
+    Uids come from a counter: a template's uid breaks scheduling ties."""
+    import dataclasses
+    import itertools
+    from unittest import mock
+
+    from karmada_tpu_torch.e2e import ControlPlane
+    from karmada_tpu_torch.store import store as store_mod
+
+    cleared = {"uid", "resource_version", "resourceVersion",
+               "creation_timestamp", "deletion_timestamp",
+               "last_transition_time", "last_scheduled_time"}
+
+    def norm(v):
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            return {f.name: (None if f.name in cleared
+                             else norm(getattr(v, f.name)))
+                    for f in dataclasses.fields(v)}
+        if isinstance(v, dict):
+            return {k: (None if k in cleared else norm(x))
+                    for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [norm(x) for x in v]
+        return v
+
+    seq = itertools.count(1)
+    with mock.patch.object(store_mod, "new_uid",
+                           lambda: f"uid-{next(seq):06d}"):
+        cp = _loop_plane(ControlPlane, device)
+    snap = {}
+    for obj in cp.store.items():
+        snap[(obj.KIND, obj.metadata.namespace, obj.metadata.name)] = \
+            norm(obj)
+    for name, m in cp.members.items():
+        for obj in m.store.items():
+            snap[(name, obj.KIND, obj.metadata.namespace,
+                  obj.metadata.name)] = norm(obj)
+    return snap, cp
+
+
+def _loop_plane(ControlPlane, device):
+    import random
+
+    M = MP
+    rng = random.Random(9)
+    cp = ControlPlane(device=device)
+    for i in range(8):
+        cp.add_member(f"m{i}", cpu_milli=rng.choice([8_000, 16_000, 32_000]),
+                      region=f"r{i % 3}", collect=False)
+    cp.cluster_status.collect_all()
+    divided = M.ReplicaSchedulingStrategy(
+        replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+        replica_division_preference=M.REPLICA_DIVISION_WEIGHTED,
+        weight_preference=M.ClusterPreferences(
+            dynamic_weight=M.DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))
+    placements = [
+        M.Placement(replica_scheduling=divided),
+        M.Placement(cluster_affinity=M.ClusterAffinity(
+            cluster_names=["m1", "m4", "m6"]),
+            replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DUPLICATED)),
+        M.Placement(spread_constraints=[
+            M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_REGION,
+                               min_groups=1, max_groups=2),
+            M.SpreadConstraint(spread_by_field=M.SPREAD_BY_FIELD_CLUSTER,
+                               min_groups=2, max_groups=4)],
+            replica_scheduling=divided),
+        M.Placement(spread_constraints=[M.SpreadConstraint(
+            spread_by_field=M.SPREAD_BY_FIELD_CLUSTER, min_groups=2,
+            max_groups=3)], replica_scheduling=M.ReplicaSchedulingStrategy(
+                replica_scheduling_type=M.REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=(
+                    M.REPLICA_DIVISION_AGGREGATED))),
+    ]
+    for p, placement in enumerate(placements):
+        cp.apply_policy(M.ClusterPropagationPolicy(
+            metadata=M.ObjectMeta(name=f"p{p}"),
+            spec=M.PropagationSpec(
+                resource_selectors=[M.ResourceSelector(
+                    api_version="apps/v1", kind="Deployment",
+                    label_selector=M.LabelSelector(
+                        match_labels={"placement": f"p{p}"}))],
+                placement=placement)))
+    cp.apply_policy(M.OverridePolicy(
+        metadata=M.ObjectMeta(name="img", namespace="ns-0"),
+        spec=M.OverrideSpec(
+            resource_selectors=[M.ResourceSelector(kind="Deployment")],
+            override_rules=[M.RuleWithCluster(
+                target_cluster=M.ClusterAffinity(cluster_names=["m4"]),
+                overriders=M.Overriders(image_overrider=[M.ImageOverrider(
+                    component="Registry", operator="replace",
+                    value="mirror.local")]))])))
+    for b in range(40):
+        cp.apply({"apiVersion": "apps/v1", "kind": "Deployment",
+                  "metadata": {"name": f"app-{b}", "namespace": f"ns-{b % 3}",
+                               "labels": {"placement": f"p{b % 4}"}},
+                  "spec": {"replicas": rng.choice([1, 2, 5, 10]),
+                           "template": {"spec": {"containers": [{
+                               "name": "c", "image": "nginx:1.19",
+                               "resources": {"requests": {
+                                   "cpu": rng.choice(["100m", "500m"]),
+                                   "memory": "1Gi"}}}]}}}})
+    for _ in range(4):
+        cp.tick()
+    return cp
+
+
+@pytest.mark.gpu
+def test_control_plane_loop_on_card():
+    """The port's propagation loop (ControlPlane: detector, the Scheduler's
+    device cycle, Works, members, status) on the card equals the same loop
+    with device="cpu", and the cycle went through K1-K4."""
+    dev = _card()
+    kernels.reset_counts()
+    card, cp = _loop_snapshot(dev)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    cpu, _ = _loop_snapshot("cpu")
+    assert card == cpu
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        assert launches[k] > 0, launches
+    assert cp.scheduler.faults() == {} and cp.execution.sync_failures == 0
+    assert not any(cp.runtime.reconcile_errors().values())
+    ready = [o.manifest["status"]["readyReplicas"]
+             for o in cp.store.list("Deployment")]
+    assert len(ready) == 40 and sum(ready) > 0

@@ -4,7 +4,8 @@ prefix of the port's: `karmada_tpu` followed by a boundary other than
 `_torch`), a cycle -- and a resident adopt plus an incremental cycle --
 runs with neither in sys.modules, as does a control-plane
 Scheduler with the rebalance plane armed and one with backend="native",
-and the entry points never drift to the CPU unless asked.  The cycle's
+and the propagation loop (ControlPlane) on every backend, and the entry
+points -- ControlPlane among them -- never drift to the CPU unless asked.  The cycle's
 encode and decode run through the port's C paths (native/), whose loaded
 libraries are the port's own builds: no port module names the JAX
 package's native directory, and no library of it is mapped into the
@@ -191,3 +192,87 @@ def test_scheduler_refuses_cpu_drift():
         Scheduler(ObjectStore(), Runtime())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Scheduler(ObjectStore(), Runtime(), rebalance=30.0)
+
+
+_LOOP = r"""
+import sys
+sys.path.insert(0, {root!r})
+from karmada_tpu_torch.e2e import ControlPlane
+from karmada_tpu_torch.models.meta import ObjectMeta
+from karmada_tpu_torch.models.policy import (
+    DYNAMIC_WEIGHT_AVAILABLE_REPLICAS, REPLICA_DIVISION_WEIGHTED,
+    REPLICA_SCHEDULING_DIVIDED, ClusterPreferences, ClusterPropagationPolicy,
+    Placement, PropagationSpec, ReplicaSchedulingStrategy, ResourceSelector)
+for backend in ("device", "native", "serial"):
+    cp = ControlPlane(backend=backend,
+                      device="cpu" if backend == "device" else None)
+    for i in range(3):
+        cp.add_member(f"m{{i}}", cpu_milli=16_000 * (i + 1))
+    cp.apply_policy(ClusterPropagationPolicy(
+        metadata=ObjectMeta(name="all"),
+        spec=PropagationSpec(
+            resource_selectors=[ResourceSelector(api_version="apps/v1",
+                                                 kind="Deployment")],
+            placement=Placement(replica_scheduling=ReplicaSchedulingStrategy(
+                replica_scheduling_type=REPLICA_SCHEDULING_DIVIDED,
+                replica_division_preference=REPLICA_DIVISION_WEIGHTED,
+                weight_preference=ClusterPreferences(
+                    dynamic_weight=DYNAMIC_WEIGHT_AVAILABLE_REPLICAS))))))
+    cp.apply({{"apiVersion": "v1", "kind": "Namespace",
+               "metadata": {{"name": "team"}}}})
+    for j in range(4):
+        cp.apply({{"apiVersion": "apps/v1", "kind": "Deployment",
+                   "metadata": {{"name": f"app-{{j}}", "namespace": "team"}},
+                   "spec": {{"replicas": 3 + j, "template": {{"spec": {{
+                       "containers": [{{"name": "c", "image": "nginx",
+                           "resources": {{"requests": {{"cpu": "500m"}}}}}}]}}}}}}}})
+    cp.tick()
+    cp.tick()
+    for j in range(4):
+        t = cp.store.get("Deployment", "team", f"app-{{j}}")
+        assert t.manifest["status"]["readyReplicas"] == 3 + j, t.manifest
+        placed = sum(
+            (m.get("Deployment", "team", f"app-{{j}}").manifest["spec"]
+             ["replicas"])
+            for m in cp.members.values()
+            if m.get("Deployment", "team", f"app-{{j}}") is not None)
+        assert placed == 3 + j
+    assert all(m.get("Namespace", "", "team") for m in cp.members.values())
+    assert cp.scheduler.faults() == {{}}
+    assert not any(cp.runtime.reconcile_errors().values())
+    assert cp.execution.sync_failures == 0
+    assert cp.scheduler.cycle_log[-1]["backend"] == backend
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_control_plane_loop_loads_no_jax_subprocess():
+    """The port's ControlPlane (detector -> scheduler -> Work -> members ->
+    status) runs on every backend with neither jax nor the JAX package
+    loaded."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _LOOP.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_control_plane_refuses_cpu_drift():
+    """ControlPlane(backend="device") without device= schedules on the
+    card; with no card it raises (the host backends need none)."""
+    from karmada_tpu_torch.e2e import ControlPlane
+
+    assert ControlPlane(device="cpu").scheduler.device.type == "cpu"
+    assert ControlPlane(backend="serial").scheduler.device is None
+    if torch.cuda.is_available():
+        assert ControlPlane().scheduler.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ControlPlane()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ControlPlane(backend="device", rebalance=30.0)

@@ -135,7 +135,34 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      every binding scheduled or failing on the serial path too (a sample),
      each binding's targets running on its members, the templates'
      readyReplicas the members', no contained fault or failed sync,
-     K1-K4 launched.
+     K1-K4 launched;
+ 13. the device lifecycle on config 5's fleet: (a) resolve_backend
+     ("device") through the real probe subprocess -- K14 probe_mm on
+     every visible card, its launch count reported back -- answering
+     ok, gpu, the visible cards and a positive bytes_limit each, and K14
+     held against its plain version bit for bit on seeded {-1, 0, 1}
+     bf16 matrices at 128 and 1,024 (torch.mm timed beside it); (b)
+     capture_profile(1.0) (a 4 s window on the card) with the counts
+     reset just before: ok, a chrome trace holding a device kernel
+     event of K15's kernel marker_affine_i64, K15 held against its plain
+     version on 128 and 2^20 int64 elements (torch.add timed beside
+     it), and
+     memory_stats_payload() against torch.cuda.memory_stats; (c)
+     warm_executables over the fleet, warm_shapes(4096, 4096) x the
+     variants phase 3's cycle dispatches (plain, carry): every label
+     done with its seconds and device ms, a second call already-warm
+     for every label, then one forward 4,096-binding chunk beside phase
+     3's first (timed alone just before phase 3); (d) phase 12a's plane
+     under the mid-serve guard (a timeout shorter than any device
+     cycle, device_recover_cycles=1): the real device cycle is
+     abandoned, the plane degrades to native with every binding of
+     that cycle given its outcome, the harness raises the timeout, the
+     next cycle re-arms on the card; quiescent, 1 degrade and 1 re-arm,
+     the zombie cancelled with nothing recorded, and a snapshot equal
+     to an unguarded run's that takes the same backend per cycle; then
+     again with the zombie held right after its chunk's dispatch (its
+     waves queued on the card) through every later cycle, released
+     after the loop, with the same checks.
 
 Phase 2 also holds K7 (on the first forward chunk's wave 0 as
 schedule_core launches it -- the chunk's workspace, the batch's
@@ -184,7 +211,8 @@ lines the run checks that neither K2 tier allocated a key scratch.
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
-JSON report; the last line is {"ok": true, "device": {...}}.
+JSON report (K14's launches are the probe subprocess's own count; K15's
+the capture's); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -199,13 +227,17 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense (data sheet)
 WIDE_BINDINGS = 16_384     # phase 6's cycle
 EXPLAIN_BINDINGS = 1_024   # phase 7's cycle (2,048 until phase 12 took the time)
 EXPLAIN_CHUNK = 1_024      # the JAX Scheduler's default pipeline_chunk
@@ -669,9 +701,9 @@ def max_abs_err(pairs) -> float:
     return err
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = SCALAR_OPS_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / SCALAR_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -3844,21 +3876,22 @@ def loop_template(b, spec, n_placements):
                             }}}]}}}}
 
 
-def build_loop(M, dev, fleet, placements, items):
+def build_loop(M, dev, fleet, placements, items, **cp_kw):
     """A ControlPlane on `dev` (config 5's chunk, waves and batch window)
     with `fleet` joined as members (allocatable cpu, memory in Gi and
     pods, region, provider; nothing running), one ClusterPropagationPolicy
     a placement selecting its templates by label, an image override on
     the templates of LOOP_OVERRIDDEN's placements for members in regions
     r0 and r1, and `items` applied as Deployments.  Returns the plane and
-    the seconds of each step."""
+    the seconds of each step.  `cp_kw` goes to the ControlPlane (phase
+    13d's guard)."""
     import copy
 
     from karmada_tpu_torch.e2e import ControlPlane
 
     t0 = time.perf_counter()
     cp = ControlPlane(device=dev, pipeline_chunk=4096, waves=8,
-                      batch_window=4096)
+                      batch_window=4096, **cp_kw)
     for c in fleet:
         a = c.status.resource_summary.allocatable
         cp.add_member(c.name, cpu_milli=a["cpu"].milli,
@@ -4148,6 +4181,382 @@ def phase_loop(M, fleet, placements, items, dev) -> dict:
     return launches
 
 
+# -- phase 13: the device lifecycle -------------------------------------------
+
+PROBE_N = 128              # the probe snippet's matrix (K14 on the main path)
+PROBE_N_WIDE = 1_024
+MARKER_N = 128             # capture_profile's marker input (K15)
+MARKER_N_WIDE = 1 << 20
+GUARD_TIMEOUT_S = 0.001    # 13d: shorter than any device cycle
+GUARD_RAISED_S = 600.0     # 13d: the timeout once the plane degraded
+GUARD_HOLD_S = 0.5         # 13d held: the zombie is on the card by then
+
+
+def phase_probe(dev, reps) -> dict:
+    """13a: resolve_backend("device") through the real probe subprocess
+    (K14 on every visible card, its own launch count reported back): ok,
+    gpu, the visible cards, a positive bytes_limit each; then K14 against
+    its plain version, bit for bit, on seeded {-1, 0, 1} bf16 matrices at
+    128 and 1,024 (every fp32 partial sum exact), with CUDA-event times,
+    the plain version's, torch.mm's (the yardstick; the port never calls
+    it) and the bound (2 n^3 operations at the bf16 tensor-core rate, or
+    one read of A and one write of C).  Returns K14's report row."""
+    from karmada_tpu_torch.ops import probe
+    from karmada_tpu_torch.utils import deviceprobe
+
+    t0 = time.perf_counter()
+    backend, diag = deviceprobe.resolve_backend("device",
+                                                probe_timeout_s=600)
+    wall = time.perf_counter() - t0
+    n = torch.cuda.device_count()
+    mem = diag.get("memory_stats") or []
+    launches = (diag.get("launches") or {}).get("probe_mm", 0)
+    log(f"phase 13a probe: resolve_backend('device') -> {backend!r} in "
+        f"{wall:.2f} s wall (probe subprocess {diag['attempts']}); ok "
+        f"{diag['ok']}, platform {diag['platform']!r}, cards "
+        f"{diag['device_count']} of {n} visible; K14 launches in the probe "
+        f"{launches}; MEMSTATS {mem}; last_probe "
+        f"{deviceprobe.last_probe()}")
+    bad = []
+    if backend != "device" or not diag["ok"] or diag["platform"] != "gpu":
+        bad.append(f"probe answered {backend!r} {diag}")
+    if diag["device_count"] != n or launches != n:
+        bad.append(f"cards {diag['device_count']}, K14 launches {launches}, "
+                   f"visible {n}")
+    if len(mem) != n or any(m["memory_stats"]["bytes_limit"] <= 0
+                            for m in mem):
+        bad.append(f"MEMSTATS {mem}")
+    # the plain version in full fp32 on the card (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    row = None
+    for size in (PROBE_N, PROBE_N_WIDE):
+        a = torch.from_numpy(rng.integers(-1, 2, (size, size)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        got, want = probe.probe_mm(a), probe.probe_mm_plain(a)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+        err = max_abs_err([(got, want)])
+        ms = cuda_ms(lambda: probe.probe_mm(a), reps)
+        plain = cuda_ms(lambda: probe.probe_mm_plain(a), reps)
+        lib = cuda_ms(lambda: torch.mm(a, a), reps)
+        b = bound_ms(2 * nbytes(a), 2.0 * size ** 3, BF16_OPS_PER_S)
+        log(f"phase 13a K14 probe_mm {size}x{size} bf16: bit-exact {same} "
+            f"max_abs_err={err} ms={ms:.5f} plain_ms={plain:.5f} "
+            f"torch.mm={lib:.5f} bound_ms={b[0]:.6f} ({b[1]})")
+        if not same:
+            bad.append(f"K14 at {size} differs from its plain version")
+        if size == PROBE_N:
+            row = dict(name="probe_mm", route="cuda",
+                       source="karmada_tpu_torch/ops/csrc/probe.cu",
+                       replaces="karmada_tpu/utils/deviceprobe.py:100",
+                       launches=launches, max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                       library_ms=lib)
+    if bad:
+        raise AssertionError("phase 13a: " + "; ".join(bad))
+    return row
+
+
+def phase_profile(dev, reps) -> dict:
+    """13b: capture_profile(1.0) (held MIN_DEVICE_WINDOW_S on the card,
+    a window the profiler lost taken again) with the launch counts reset
+    just before and read just after: ok, a chrome trace that holds a
+    device kernel event named marker_affine_i64 -- K15's kernel, one a
+    marker launch -- and a K15 launch count equal to the markers of the
+    windows taken; K15 against
+    its plain version and torch.add(1, a, alpha=2) on 128 and 2^20 int64
+    elements (negatives and the int64 edges among them);
+    memory_stats_payload() against torch.cuda.memory_stats and
+    mem_get_info read right after.  Returns K15's report row."""
+    from karmada_tpu_torch.obs import devprof
+    from karmada_tpu_torch.ops import kernels, probe
+
+    bad = []
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = devprof.capture_profile(1.0, tmp)
+        launches = kernels.LAUNCHES["marker_affine"]
+        events = []
+        if rec.get("files"):
+            with open(os.path.join(rec["dir"], devprof.TRACE_FILE)) as f:
+                events = json.load(f).get("traceEvents", [])
+    kernel_events = [e for e in events if e.get("cat") == "kernel"]
+    marks = [e for e in kernel_events
+             if e.get("name") == "marker_affine_i64"]
+    windows = rec.get("windows") or 0
+    log(f"phase 13b capture: ok {rec.get('ok')} in {rec.get('wall_s')} s "
+        f"(window {rec.get('seconds')} s, {rec.get('requested_s')} s asked; "
+        f"{windows} window(s), {rec.get('lost_windows')} of them lost to "
+        f"the profiler; {rec.get('error')}), files {rec.get('files')}, "
+        f"{len(events)} trace events, {len(kernel_events)} device kernel "
+        f"events, marker kernels {len(marks)} of {rec.get('markers')} "
+        f"launched ({[e.get('dur') for e in marks]} us); K15 launches "
+        f"{launches}")
+    if not rec.get("ok") or not rec.get("total_bytes"):
+        bad.append(f"capture {rec}")
+    if not marks:
+        bad.append("the trace holds no marker_affine_i64 kernel event")
+    if launches != (rec.get("markers") or 0) * windows:
+        bad.append(f"K15 launches {launches} in the capture, markers "
+                   f"{rec.get('markers')} x {windows} window(s)")
+    rng = np.random.default_rng(15)
+    row = None
+    for size in (MARKER_N, MARKER_N_WIDE):
+        h = rng.integers(-(1 << 62), 1 << 62, size, dtype=np.int64)
+        h[:3] = (np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1)
+        a = torch.from_numpy(h).to(dev)
+        got, want = probe.marker_affine(a), probe.marker_affine_plain(a)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = 0.0 if same else float("inf")
+        ms = cuda_ms(lambda: probe.marker_affine(a), reps)
+        plain = cuda_ms(lambda: probe.marker_affine_plain(a), reps)
+        # the one PyTorch call computing 1 + 2 a (the yardstick only)
+        one = torch.ones((), dtype=a.dtype, device=a.device)
+        lib_out = torch.add(one, a, alpha=2)
+        if not torch.equal(lib_out, want):
+            bad.append(f"torch.add(1, a, alpha=2) at {size} differs")
+        lib = cuda_ms(lambda: torch.add(one, a, alpha=2), reps)
+        b = bound_ms(2 * nbytes(a), 2.0 * size)
+        log(f"phase 13b K15 marker_affine {size} int64: equal {same} "
+            f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={b[0]:.6f} "
+            f"({b[1]}) library_ms={lib:.5f} (torch.add(1, a, alpha=2))")
+        if not same:
+            bad.append(f"K15 at {size} differs from its plain version")
+        if size == MARKER_N:
+            row = dict(name="marker_affine", route="cuda",
+                       source="karmada_tpu_torch/ops/csrc/probe.cu",
+                       replaces="karmada_tpu/obs/devprof.py:233",
+                       launches=launches, max_abs_err=err, ms=ms,
+                       plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+                       library_ms=lib)
+    torch.cuda.synchronize()
+    payload = devprof.memory_stats_payload()
+    stats = torch.cuda.memory_stats(0)
+    total = torch.cuda.mem_get_info(0)[1]
+    want = {"bytes_in_use": stats["allocated_bytes.all.current"],
+            "peak_bytes_in_use": stats["allocated_bytes.all.peak"],
+            "bytes_limit": total}
+    log(f"phase 13b memory_stats_payload {payload}; torch.cuda "
+        f"{want}; refresh_memory_gauges read "
+        f"{devprof.refresh_memory_gauges()} values")
+    if payload[0]["memory_stats"] != want:
+        bad.append(f"memory_stats_payload {payload[0]} != {want}")
+    if bad:
+        raise AssertionError("phase 13b: " + "; ".join(bad))
+    return row
+
+
+def phase_warm(fleet, items, dev, args, first3_s) -> None:
+    """13c: warm_executables over config 5's fleet with warm_shapes(4096,
+    4096) x the variants phase 3's cycle dispatches (chunk 4096 over more
+    bindings than one chunk: plain and carry); every label done, its
+    seconds and device ms; a second call already-warm for every label;
+    then one forward chunk of 4,096 bindings beside phase 3's first."""
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.obs import devprof
+    from karmada_tpu_torch.ops import aotcache
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    shapes = aotcache.warm_shapes(4096, args.chunk)
+    variants = aotcache.variants_for(0.0, len(items) > args.chunk)
+    kw = dict(shapes=shapes, variants=variants, waves=args.waves,
+              device=dev)
+    t0 = time.perf_counter()
+    first = aotcache.warm_executables(fleet, GeneralEstimator(), **kw)
+    wall = time.perf_counter() - t0
+    labels = [k for k in first if k != "_totals"]
+    ledger = aotcache.state_payload()["warmup"]
+    costs = devprof.cost_ledger()
+    for label in labels:
+        r = first[label]
+        log(f"phase 13c warm {label}: "
+            + (f"{r['seconds']:.3f} s, device {r.get('device_ms')} ms"
+               if isinstance(r, dict) else str(r)))
+    second = aotcache.warm_executables(fleet, GeneralEstimator(), **kw)
+    log(f"phase 13c warm: {len(labels)} labels ({len(shapes)} shapes x "
+        f"{variants}) in {wall:.2f} s, totals {first['_totals']}; second "
+        f"call {second['_totals']}")
+    bad = [f"{k}: {ledger.get(k)}" for k in labels
+           if ledger.get(k, {}).get("state") != "done" or k not in costs]
+    bad += [f"{k} second call {second.get(k)}" for k in labels
+            if second.get(k) != "already-warm"]
+    if len(labels) != len(shapes) * len(variants):
+        bad.append(f"{len(labels)} labels")
+    part = items[:args.chunk]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    schedule_items(part, fleet, chunk=args.chunk, waves=args.waves,
+                   device=dev)
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    log(f"phase 13c forward chunk after the warm: {len(part)} bindings in "
+        f"{chunk_s:.3f} s; phase 3's first chunk {first3_s:.3f} s")
+    if bad:
+        raise AssertionError(f"phase 13c: {len(bad)} failed checks: "
+                             + "; ".join(bad[:8]))
+
+
+class HoldAfterDispatch:
+    """Holds the guarded cycle's thread, once, right after
+    solver.dispatch_compact returned -- its chunk's K1 / K2 waves queued
+    on the card in its own workspaces -- until `release`."""
+
+    def __init__(self):
+        from karmada_tpu_torch.ops import solver
+
+        self.solver, self.orig = solver, solver.dispatch_compact
+        self.reached, self.release = threading.Event(), threading.Event()
+        self.armed = True
+
+    def __enter__(self):
+        def held(*a, **kw):
+            out = self.orig(*a, **kw)
+            if self.armed and threading.current_thread().name == \
+                    "scheduler-device-cycle":
+                self.armed = False
+                self.reached.set()
+                self.release.wait(GUARD_RAISED_S)
+            return out
+        self.solver.dispatch_compact = held
+        return self
+
+    def __exit__(self, *exc):
+        self.release.set()
+        self.solver.dispatch_compact = self.orig
+
+
+def guard_run(M, dev, fleet, placements, items, guarded: bool,
+              hold: Optional[HoldAfterDispatch] = None):
+    """Phase 12a's plane built on the card and ticked to quiescence.
+    Guarded: the mid-serve guard at GUARD_TIMEOUT_S (GUARD_HOLD_S with
+    `hold`, which keeps the abandoned cycle's thread after its dispatch
+    while the later cycles run) with device_recover_cycles=1, and the
+    timeout raised to GUARD_RAISED_S by the harness right after the
+    degrade, so the next cycle re-arms on the card.  Unguarded: no
+    guard, the same backend cycle by cycle -- native for the first
+    cycle, the card after it (native and the card's 8-wave solve place
+    differently under contention, so an all-card run is not the
+    reference for a run whose first cycle degraded).  Returns (plane,
+    ticks, converged, wall)."""
+    kw = (dict(device_cycle_timeout_s=GUARD_HOLD_S if hold else
+               GUARD_TIMEOUT_S, device_recover_cycles=1) if guarded else {})
+    with UidSeq():
+        cp, _steps = build_loop(M, dev, fleet, placements, items, **kw)
+        sched = cp.scheduler
+        if guarded:
+            degrade = sched._degrade_device
+
+            def degrade_then_raise():
+                degrade()
+                sched.device_cycle_timeout_s = GUARD_RAISED_S
+            sched._degrade_device = degrade_then_raise
+        else:
+            sched.backend = "native"
+            log_cycle = sched._log_cycle
+
+            def log_then_card(*a):
+                log_cycle(*a)
+                sched.backend = "device"
+            sched._log_cycle = log_then_card
+        if hold is None:
+            ticks, converged, wall = run_loop(cp, "13d", verbose=False)
+        else:
+            with hold:
+                ticks, converged, wall = run_loop(cp, "13d", verbose=False)
+                # read before the release: the zombie held all along
+                hold.held_through = sched.abandoned_cycles()
+    return cp, ticks, converged, wall
+
+
+def guard_checks(label, cp, ref, ticks, converged, wall, ref_run,
+                 n_items) -> list:
+    """One guarded run's line and its failed checks against the unguarded
+    run `ref`."""
+    sched = cp.scheduler
+    done = sched.join_abandoned(120)
+    cycles = list(sched.cycle_log)
+    trans = sched.backend_transitions()
+    ab = sched.abandoned_cycles()
+    snap, unguarded = loop_snapshot(cp), loop_snapshot(ref)
+    diff = sorted((k for k in set(snap) | set(unguarded)
+                   if snap.get(k) != unguarded.get(k)), key=repr)
+    log(f"phase 13d {label}: converged {converged} in {ticks} tick(s), "
+        f"{wall:.2f} s (unguarded run {ref_run}); cycles (backend, "
+        f"bindings, chunks) "
+        f"{[(c['backend'], c['bindings'], c['chunks']) for c in cycles]}, "
+        f"unguarded "
+        f"{[(c['backend'], c['bindings']) for c in ref.scheduler.cycle_log]}"
+        f"; transitions {trans}; abandoned {ab} (zombies done {done}); "
+        f"faults {loop_faults(cp)}; snapshot {len(snap)} objects, "
+        f"differing from the unguarded run's {len(diff)}")
+    bad = []
+    c0 = cycles[0] if cycles else {}
+    if c0.get("backend") != "native" or c0.get("fault") or \
+            c0.get("bindings") != n_items or c0.get("errors"):
+        bad.append(f"{label}: the abandoned cycle's entry {c0}")
+    if trans != {"degraded_to_native": 1, "degraded_to_serial": 0,
+                 "rearmed": 1}:
+        bad.append(f"{label}: transitions {trans}")
+    if len(cycles) < 2 or any(c["backend"] != "device" or c["chunks"] < 1
+                              for c in cycles[1:]):
+        bad.append(f"{label}: a cycle after the re-arm ran off the card")
+    if [c["backend"] for c in ref.scheduler.cycle_log] != \
+            [c["backend"] for c in cycles]:
+        bad.append(f"{label}: the unguarded run took other backends")
+    if not done or len(ab) != 1 or ab[0]["cancelled"] is not True or \
+            ab[0]["chunks"] != 0 or ab[0]["error"]:
+        bad.append(f"{label}: abandoned cycles {ab}")
+    if not converged or any(loop_faults(cp).values()):
+        bad.append(f"{label}: converged {converged}, faults "
+                   f"{loop_faults(cp)}")
+    if diff:
+        bad.append(f"{label}: {len(diff)} objects differ from the "
+                   f"unguarded run, first {diff[:4]}")
+    return bad
+
+
+def phase_guard(M, fleet, items, dev, seed) -> None:
+    """13d: phase 12a's plane on the card (its members, placements and
+    templates) under the mid-serve guard (guard_run).  The first
+    scheduler cycle, a real device cycle, is abandoned: the plane degrades
+    to native and that cycle still gives every binding its outcome; the
+    next cycle re-arms and runs on the card.  Ticked to quiescence:
+    transitions 1 degrade to native and 1 re-arm, every later cycle on the
+    card, the zombie's cycle cancelled with nothing recorded, no contained
+    fault, and the snapshot equal to the unguarded run's.  Twice: with
+    the 1 ms timeout (the zombie stops at its first gate), and held --
+    the zombie kept right after its chunk's dispatch, its waves queued
+    on the card, through every later cycle, released after the loop (the
+    re-armed cycles run beside it in workspaces of their own)."""
+    fleet = fleet[:LOOP_PARITY_MEMBERS]
+    placements = build_placements(M, random.Random(seed),
+                                  [c.name for c in fleet])
+    items = items[:LOOP_PARITY_TEMPLATES]
+    ref, *ref_run = guard_run(M, dev, fleet, placements, items, False)
+    bad = [] if not any(loop_faults(ref).values()) else [
+        f"unguarded faults {loop_faults(ref)}"]
+    cp, *run = guard_run(M, dev, fleet, placements, items, True)
+    bad += guard_checks("guard", cp, ref, *run, ref_run, len(items))
+    del cp
+    hold = HoldAfterDispatch()
+    cp, *run = guard_run(M, dev, fleet, placements, items, True, hold)
+    held = hold.held_through
+    log(f"phase 13d held: the zombie reached its dispatch "
+        f"{hold.reached.is_set()}; abandoned cycles at the loop's end, "
+        f"before the release {held}")
+    if not hold.reached.is_set() or len(held) != 1 or \
+            not held[0]["running"]:
+        bad.append(f"held: the zombie was not held after its dispatch "
+                   f"through the loop ({held})")
+    bad += guard_checks("held", cp, ref, *run, ref_run, len(items))
+    if bad:
+        raise AssertionError(f"phase 13d: {len(bad)} failed checks: "
+                             + "; ".join(bad))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bindings", type=int, default=100_000)
@@ -4217,6 +4626,16 @@ def main() -> int:
     main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
                  "spread_group_info", "spread_pick")
     cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
+    # phase 3's first chunk alone, for phase 13c's warmed chunk
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    schedule_items(items[:args.chunk], fleet, chunk=args.chunk,
+                   waves=args.waves, device=dev)
+    torch.cuda.synchronize()
+    first3 = time.perf_counter() - t0
+    log(f"phase 3 first chunk: {args.chunk} bindings in {first3:.3f} s")
     fwd, _, fwd_results, _ = phase_cycle(
         "3 forward", items, fleet, names, args, dev, chunk_ms, main_path,
         cfg5, need_coo=True)
@@ -4267,6 +4686,17 @@ def main() -> int:
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
                                                       mega, inc, loop, prop))
+    # phase 12b's plane is garbage now: collected here, with phase 12's
+    # time, not in phase 13d's first loop
+    t0 = time.perf_counter()
+    gc.collect()
+    log(f"phase 12's garbage collected in {time.perf_counter() - t0:.2f} s")
+    t13 = time.perf_counter()
+    report.append(phase_probe(dev, args.reps))
+    report.append(phase_profile(dev, args.reps))
+    phase_warm(fleet, items, dev, args, first3)
+    phase_guard(M, fleet, items, dev, args.seed + 7)
+    log(f"phase 13 lifecycle: {time.perf_counter() - t13:.1f} s")
     log(f"K2 key scratch allocated in the run, bytes by tier: "
         f"{PS.KEY_SCRATCH_BYTES}")
     if any(PS.KEY_SCRATCH_BYTES.values()):

@@ -26,12 +26,19 @@ same order.  `add_member(..., collect=False)` (not in the JAX package)
 skips the whole-fleet status collect that each join runs, for callers
 that join many members and collect once.
 
+The Scheduler's serve paths are the JAX ControlPlane's arguments:
+device_cycle_timeout_s and device_recover_cycles (the mid-serve guard,
+its degrade and re-arm), explain, batch_deadline_s and admission_limit
+(scheduler/service.py).  `persist_dir` keeps the store in a snapshot +
+WAL there (store/persistence.py): a plane built on a directory that
+holds one is restored and resynced, and `checkpoint()` compacts the WAL
+into a fresh snapshot.
+
 Not part of the port yet, by argument: enable_descheduler, feature_gates
-(the process-wide ``utils.features.GATES`` is read), persist_dir,
-eviction_rate, mesh_shape, controllers, device_cycle_timeout_s, explain,
-batch_deadline_s, admission_limit, device_recover_cycles, chaos,
-chaos_seed; by method: resync, checkpoint, unjoin, enable_dns_detector,
-proxy, metrics_dump, events; and the controllers behind them (lease,
+(the process-wide ``utils.features.GATES`` is read), eviction_rate,
+mesh_shape, controllers, chaos, chaos_seed; by method: unjoin,
+enable_dns_detector, proxy, metrics_dump, events; and the controllers
+behind them (lease,
 cluster lifecycle and taints, the taint manager and its eviction queue,
 application failover, dependencies, descheduler, search / proxy /
 metrics, autoscaling, multi-cluster services, rebalancer, taint
@@ -119,10 +126,29 @@ class ControlPlane:
         # two-tier solve (ops/shortlist): top-k candidate lanes a binding
         shortlist_k: Optional[int] = None,
         shortlist_min_cells: int = 1 << 21,
+        # the mid-serve guard (scheduler/service.py): a device cycle over
+        # this many seconds degrades to the fastest host backend (None: no
+        # guard); after device_recover_cycles cycles the device re-arms
+        # (None: one-way)
+        device_cycle_timeout_s: Optional[float] = None,
+        device_recover_cycles: Optional[int] = None,
+        # explain plane: the sample rate of cycles recording Decisions
+        explain: float = 0.0,
+        # batch formation deadline (None: cut at once) and the admission
+        # gate's bound on tracked bindings (None: unbounded)
+        batch_deadline_s: Optional[float] = None,
+        admission_limit: Optional[int] = None,
+        # the store's snapshot + WAL directory (None: in memory only)
+        persist_dir: Optional[str] = None,
     ) -> None:
         self.clock = clock if clock is not None else time.time
         self.admission = AdmissionRegistry()
-        self.store = ObjectStore(admission=self.admission)
+        if persist_dir is not None:
+            from karmada_tpu_torch.store.persistence import load_store
+
+            self.store = load_store(persist_dir, admission=self.admission)
+        else:
+            self.store = ObjectStore(admission=self.admission)
         install_default_webhooks(
             self.admission,
             default_toleration_seconds=default_toleration_seconds)
@@ -156,7 +182,11 @@ class ControlPlane:
             shortlist_min_cells=shortlist_min_cells, rebalance=rebalance,
             rebalance_cfg=rebalance_cfg,
             rebalance_budget=self.eviction_budget_shared,
-            rebalance_clock=self.clock)
+            rebalance_clock=self.clock,
+            device_cycle_timeout_s=device_cycle_timeout_s,
+            device_recover_cycles=device_recover_cycles, explain=explain,
+            batch_deadline_s=batch_deadline_s,
+            admission_limit=admission_limit)
         self.binding_controller = BindingController(
             self.store, self.runtime, self.interpreter)
         self.execution = ExecutionController(
@@ -172,6 +202,21 @@ class ControlPlane:
             clock=self.clock)
         self.namespace_sync = NamespaceSyncController(self.store,
                                                       self.runtime)
+        # a restored store resyncs every object through the freshly wired
+        # controllers, as the reference's informers do after a restart
+        if persist_dir is not None and len(self.store):
+            self.resync()
+
+    def resync(self) -> None:
+        from karmada_tpu_torch.store.persistence import resync
+
+        resync(self.store)
+
+    def checkpoint(self) -> None:
+        """Compact the WAL into a fresh snapshot (periodic maintenance)."""
+        persistence = getattr(self.store, "persistence", None)
+        if persistence is not None:
+            persistence.snapshot()
 
     # -- fleet management ---------------------------------------------------
     def add_member(

@@ -227,6 +227,18 @@ def load() -> ctypes.CDLL:
     return _get("serial_solver")
 
 
+def available() -> bool:
+    """True when the serial control builds and loads, False when its
+    toolchain fails: the degrade target of the serve policy
+    (utils/deviceprobe.resolve_backend, the Scheduler's mid-serve guard),
+    as the JAX package's native.available()."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # The serial control: snapshot and batch marshaling
 # ---------------------------------------------------------------------------

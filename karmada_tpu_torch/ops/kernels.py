@@ -40,7 +40,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources (ops/csrc/<source>.cu), one library each
 SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
            "spread_group_info", "spread_pick", "explain", "shortlist",
-           "resident", "dirty", "rebalance")
+           "resident", "dirty", "rebalance", "probe")
 #: C entry points (kt_<entry>) of each source's library
 ENTRIES = {"capacity": ("capacity",),
            "schedule_rows": ("schedule_rows_wave", "schedule_rows_big_wave"),
@@ -53,14 +53,17 @@ ENTRIES = {"capacity": ("capacity",),
            "resident": ("scatter_lanes", "gather_rows", "gather_ring_init",
                         "gather_ring_free"),
            "dirty": ("dirty_codes",),
-           "rebalance": ("rebalance_score", "score_free")}
+           "rebalance": ("rebalance_score", "score_free"),
+           "probe": ("probe_mm", "marker_affine")}
 #: the kernels, by launch counter: K2's big-tier instantiation counts
 #: apart from the std one it shares a source with; K7's spread flavour
-#: counts as explain_rows; K8 and K9 share a source, as do K10 and K11
+#: counts as explain_rows; K8 and K9 share a source, as do K10 and K11,
+#: and K14 and K15
 KERNELS = ("capacity", "schedule_rows", "schedule_rows_big", "compact",
            "webster_batch", "spread_group_info", "spread_pick",
            "explain_rows", "shortlist_topk", "group_sums", "scatter_lanes",
-           "gather_rows", "dirty_codes", "rebalance_score")
+           "gather_rows", "dirty_codes", "rebalance_score", "probe_mm",
+           "marker_affine")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -76,6 +79,9 @@ _PATHS: Dict[str, Path] = {}
 _LOCK = threading.Lock()
 #: nvcc's output (registers, shared memory, spills) per kernel source
 BUILD_LOG: Dict[str, str] = {}
+#: libraries build() found already built ("hits") and compiled ("misses")
+#: in this process
+BUILDS: Dict[str, int] = {"hits": 0, "misses": 0}
 
 
 def reset_counts() -> None:
@@ -100,7 +106,7 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
@@ -119,14 +125,16 @@ def build(verbose: bool = False) -> Dict[str, Path]:
     with _LOCK:
         if _PATHS:
             return _PATHS
-        out_dir = build_dir() / _digest()
+        out_dir = build_dir() / digest()
         out_dir.mkdir(parents=True, exist_ok=True)
         paths = {k: out_dir / f"lib{k}.so" for k in SOURCES}
         procs = {}
         nvcc = _nvcc()
         for k in SOURCES:
             if paths[k].exists():
+                BUILDS["hits"] += 1
                 continue
+            BUILDS["misses"] += 1
             tmp = out_dir / f"lib{k}.so.tmp{os.getpid()}"
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                    str(CSRC / f"{k}.cu")]
@@ -298,6 +306,10 @@ def rows_block(values: dict) -> array.array:
     laid out like RowsArgs (one int64 a field, pointers as integers),
     from {field: int} for every field of ROWS_FIELDS."""
     return array.array("q", [values[f] for f in ROWS_FIELDS])
+
+#: K14's and K15's argument blocks (probe.cu ProbeMmArgs, MarkerArgs)
+ProbeMmArgs = _struct("ProbeMmArgs", ("a", "c"), ("n",))
+MarkerArgs = _struct("MarkerArgs", ("a", "out"), ("n",))
 
 #: gathered lanes per row at most, per lane tier (g_prev + 5 * g_topk;
 #: schedule_rows.cu TierStd / TierBig)

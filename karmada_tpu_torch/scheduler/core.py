@@ -14,6 +14,7 @@ it, as the JAX Scheduler does under `serve --resident[-fused]`.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 from karmada_tpu_torch.device import resolve_device
@@ -40,6 +41,7 @@ def schedule_items(
     resident=None,
     deltas=None,
     tokens: Optional[Sequence] = None,
+    cancelled: Optional[threading.Event] = None,
 ) -> List[object]:
     """Per item, List[TargetCluster] or the Exception the scheduler would
     record.  `device` defaults to the first CUDA card and raises without
@@ -61,13 +63,22 @@ def schedule_items(
     resourceVersion sweep finds the changes), then encodes each chunk
     through ResidentState.encode_cycle, which re-encodes only the rows
     whose `tokens` (per item a resident.RowToken, or None: no cached row)
-    changed."""
+    changed.
+
+    `cancelled` (the Scheduler's mid-serve guard, scheduler/service.py):
+    once the event is set the cycle stops (run_pipeline's gates), advances
+    no resident plane, runs no serial row and records no decision;
+    `stats.cancelled` says so and the result is partial."""
     device = resolve_device(device)
     estimator = estimator or GeneralEstimator()
     out: List[object] = [None] * len(items)
     if not items:
         return out
     encode = None
+    if cancelled is not None and cancelled.is_set():
+        if stats is not None:
+            stats.cancelled = True
+        return out
     if resident is not None:
         if resident.device != device:
             raise ValueError(f"the resident plane lives on {resident.device}"
@@ -88,12 +99,18 @@ def schedule_items(
         carry=len(items) > chunk,
         enable_empty_workload_propagation=enable_empty_workload_propagation,
         explain=explain, keys=keys, shortlist=shortlist, device=device,
-        encode=encode)
+        encode=encode, cancelled=cancelled)
+    if res.cancelled:
+        if stats is not None:
+            stats.__dict__.update(res.__dict__)
+        return out
     for i, r in res.results.items():
         out[i] = r
     cal = serial.make_cal_available([estimator])
     host_idx = [i for i in range(len(items)) if i not in res.results]
     for i in host_idx:
+        if cancelled is not None and cancelled.is_set():
+            break
         spec, status = items[i]
         try:
             out[i] = serial.schedule(
@@ -103,7 +120,9 @@ def schedule_items(
         # the binding's outcome object, as the scheduler records it
         except Exception as e:  # noqa: BLE001
             out[i] = e
-    if explain is not None:
+    if cancelled is not None and cancelled.is_set():
+        res.cancelled = True  # abandoned past the pipeline's last gate
+    if explain is not None and not res.cancelled:
         # the serial path records decisions too: a FitError's per-cluster
         # diagnosis maps onto the same verdict bits
         for i in host_idx:

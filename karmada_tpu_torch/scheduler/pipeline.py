@@ -47,6 +47,13 @@ after each spread sub-solve); finalize turns the planes into Decision
 records (obs/decisions) and attaches the dominant rejection reason to
 every unschedulable result (`exc.reason`).
 
+Cancellation (`cancelled=threading.Event`, the Scheduler's mid-serve
+guard, scheduler/service.py): the event is checked between chunks and
+before each chunk's sub-solves and decode.  Once it is set the run
+launches nothing more and records nothing: no result, no count, no carry
+(PipelineResult.cancelled is True and the partial result is the caller's
+to discard).
+
 Shortlist (`shortlist=ShortlistConfig`): chunks at or above its cell
 threshold run tier 1 (ops/shortlist: K1 + K8 over the chunk's profiles)
 and dispatch the solver over the candidate-union sub-vocabulary.  Each
@@ -59,6 +66,7 @@ against the full-vocabulary consumption of every chunk before it.
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -109,6 +117,9 @@ class PipelineResult:
     # collect_carry: the run's cumulative consumption (seed + every
     # chunk's own), keyed in the full vocabulary
     carry: Optional["tensors.CarryState"] = None
+    # the guard's event fired mid-cycle: nothing above was recorded past
+    # that point and the result is partial
+    cancelled: bool = False
 
 
 class _CarryChain:
@@ -330,6 +341,7 @@ def run_pipeline(
     carry_state: Optional["tensors.CarryState"] = None,
     collect_carry: bool = False,
     carry_spread: bool = True,
+    cancelled: Optional[threading.Event] = None,
 ) -> PipelineResult:
     """Schedule `items` ((spec, status) pairs) chunk by chunk on `device`
     (the card by default).  `results` maps global item index ->
@@ -359,7 +371,9 @@ def run_pipeline(
     carry_spread: with carry, the spread and big-tier sub-solves price
       against their chunk's carry-in and feed their consumption back (the
       JAX Scheduler's carry_spread=carry); False prices them against the
-      raw snapshot, as the JAX incremental solver runs them."""
+      raw snapshot, as the JAX incremental solver runs them.
+    cancelled: the mid-serve guard's event (module docstring); once set,
+      the run stops launching and records nothing more."""
     device = resolve_device(device)
     res = PipelineResult()
     n = len(items)
@@ -377,6 +391,10 @@ def run_pipeline(
         # stays untouched however the chain mutates its store
         chain.total.merge(carry_state)
     armed = explain is not None
+
+    def live() -> bool:
+        return cancelled is None or not cancelled.is_set()
+
     if shortlist is not None:
         res.shortlist = {"chunks": 0, "fallbacks": {}, "widened": 0,
                          "residual_rows": 0, "unions": [],
@@ -389,6 +407,8 @@ def run_pipeline(
             torch.cuda.synchronize(device)
         t_wait = time.perf_counter()
         res.wait_s += t_wait - t_start
+        if not live():
+            return  # abandoned: nothing it computed may escape
         # spread-route explain rows land here via solve_spread's callback
         sp_expl: Dict[int, tuple] = {}
 
@@ -446,6 +466,8 @@ def run_pipeline(
         t_big = time.perf_counter()
         res.spread_s += t_spread - t_wait
         res.big_s += t_big - t_spread
+        if not live():
+            return
         local: Dict[int, object] = {}
         expl_planes = None
         if entry.handle is not None:
@@ -480,6 +502,8 @@ def run_pipeline(
 
     pending: Optional[_InFlight] = None
     for lo in range(0, n, chunk):
+        if not live():
+            break
         part = items[lo:lo + chunk]
         t0 = time.perf_counter()
         batch = (encode(part, lo, armed) if encode is not None
@@ -518,6 +542,8 @@ def run_pipeline(
                 why = info["fallback"]
                 st["fallbacks"][why] = st["fallbacks"].get(why, 0) + 1
         t2 = time.perf_counter()
+        if not live():
+            break
         handle = used0 = None
         # with carry every chunk dispatches so the chain stays contiguous
         # (an all-host batch consumes nothing); without it an all-host
@@ -541,8 +567,9 @@ def run_pipeline(
         if pending is not None:
             finalize(pending)
         pending = entry
-    if pending is not None:
+    if pending is not None and live():
         finalize(pending)
-    if chain is not None and collect_carry:
+    if chain is not None and collect_carry and live():
         res.carry = chain.snapshot()
+    res.cancelled = not live()
     return res

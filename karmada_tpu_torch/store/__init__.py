@@ -5,9 +5,10 @@
               admission) and its read paths that do not copy
   worker.py   AsyncWorker + Runtime -- de-duplicating reconcile queues,
               pumped deterministically (tick/pump) or served on threads
+  persistence.py  snapshot + write-ahead log under a directory, restart
+              by load and resync (ControlPlane(persist_dir=...))
 
-Counterpart of the JAX package's ``karmada_tpu/store`` (persistence waits
-for the port's CLI).
+Counterpart of the JAX package's ``karmada_tpu/store``.
 """
 
 from __future__ import annotations

@@ -106,6 +106,11 @@ class WatchBus:
         with self._lock:
             self._subs.append((kind, handler))
 
+    def unsubscribe(self, handler: Callable[[Event], None]) -> None:
+        """Remove every subscription of `handler` (a plane torn down)."""
+        with self._lock:
+            self._subs = [(k, h) for (k, h) in self._subs if h != handler]
+
     def publish(self, event: Event) -> None:
         with self._lock:
             subs = list(self._subs)

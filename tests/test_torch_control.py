@@ -25,6 +25,7 @@ import random
 import pytest
 
 import torch_scenarios as S
+from torch_fixtures import collect_jax_planes  # noqa: F401 — autouse
 from karmada_tpu import rebalance as jax_rebalance_mod
 from karmada_tpu import resident as jax_resident_mod
 from karmada_tpu.ops import tensors as JT
@@ -40,6 +41,7 @@ def _clean_globals():
     JT._FLEET_CAP_MEMO.clear()
     jax_rebalance_mod.set_active(None)
     jax_resident_mod.set_active(None)
+
 
 
 def _pkg(name):

@@ -29,6 +29,7 @@ import itertools
 import pytest
 
 import torch_scenarios as S
+from torch_fixtures import collect_jax_planes  # noqa: F401 — autouse
 
 JAX_CONTROLLERS = ("detector,binding,execution,work-status,binding-status,"
                    "cluster-status,namespace-sync,graceful-eviction")
@@ -61,6 +62,7 @@ def _pkg(name):
 
 MJ = _pkg("karmada_tpu")
 MP = _pkg("karmada_tpu_torch")
+
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 
 import torch_scenarios as S
+from torch_fixtures import collect_jax_planes  # noqa: F401 — autouse
 from karmada_tpu import native as JN
 from karmada_tpu import rebalance as jax_rebalance_mod
 from karmada_tpu import resident as jax_resident_mod
@@ -38,6 +39,7 @@ def _clean_globals():
     JT._FLEET_CAP_MEMO.clear()
     jax_rebalance_mod.set_active(None)
     jax_resident_mod.set_active(None)
+
 
 
 def mk_cluster(M, name, region="", cpu=32000, mem=128, pods=110, taints=(),

@@ -139,14 +139,18 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
  13. the device lifecycle on config 5's fleet: (a) resolve_backend
      ("device") through the real probe subprocess -- K14 probe_mm on
      every visible card, its launch count reported back -- answering
-     ok, gpu, the visible cards and a positive bytes_limit each, and K14
-     held against its plain version bit for bit on seeded {-1, 0, 1}
-     bf16 matrices at 128 and 1,024 (torch.mm timed beside it); (b)
+     ok, gpu, the visible cards and a positive bytes_limit each; K14's
+     SASS (cuobjdump -sass) holding wgmma (HGMMA), TMA loads (UTMALDG)
+     and mbarriers (SYNCS); K14 held against its plain version bit for
+     bit on seeded {-1, 0, 1} bf16 matrices and within a stated
+     tolerance on normal(0, 1) ones at 128, 1,000 and 1,024, a
+     ValueError at 100 (n % 8 != 0), and at 128 and 1,024 its
+     back-to-back and one-launch event times beside torch.mm's; (b)
      capture_profile(1.0) (a 4 s window on the card) with the counts
      reset just before: ok, a chrome trace holding a device kernel
      event of K15's kernel marker_affine_i64, K15 held against its plain
-     version on 128 and 2^20 int64 elements (torch.add timed beside
-     it), and
+     version on 128, 2^20 and 2^20 + 3 int64 elements, each also as an
+     8-byte-offset view (torch.add timed beside it at 128 and 2^20), and
      memory_stats_payload() against torch.cuda.memory_stats; (c)
      warm_executables over the fleet, warm_shapes(4096, 4096) x the
      variants phase 3's cycle dispatches (plain, carry): every label
@@ -206,8 +210,20 @@ main path calls it, each side's host / device split beside it), and,
 after phase 9, K10 on one field,
 both mirror syncs kernel side and as walls, K9, and K11 (both flavours
 on card slots, and dispatch_gather and dispatch_sub_gather from host
-slots, each side's host / device split beside them).  Before the JSON
+slots, each side's host / device split beside them), and, in phase
+13, K14 at 128 and 1,024 (13a) and K15 at 128 and 2^20 (13b), each
+side's one-launch device time beside them.  Before the JSON
 lines the run checks that neither K2 tier allocated a key scratch.
+
+Device times ("split", "device") come from CUDA events: split_ms and
+kernel_device_ms put an event pair around each of the port's launches
+(or, for a call that runs library kernels of its own, around the whole
+call with the stream drained first), the stream held busy while the
+calls are enqueued so that no host time falls inside a pair.
+torch.profiler's figure rides beside them as profiler_ms, and a reading
+where it falls under 0.8 x the events less their pairs' floor
+(event_floor_ms) is logged as "profiler lost records" (a process that
+has profiled before loses device records).
 
 Any mismatch or exception exits non-zero.  Without a CUDA card it exits 2
 before printing any result.  The second-to-last line is the per-kernel
@@ -512,6 +528,24 @@ def build_mega_bindings(M, rng, n, placements, block):
     return items
 
 
+#: _CarryChain._device_remap calls (PERF.md's row 15) while "on": main()
+#: turns it on around the main-path phases (3, 4, 6-9, 10b, 12b)
+REMAPS = {"on": False, "calls": 0}
+
+
+def count_remaps() -> None:
+    """Wrap _CarryChain._device_remap to count its calls into REMAPS."""
+    from karmada_tpu_torch.scheduler.pipeline import _CarryChain
+
+    inner = _CarryChain._device_remap
+
+    def remap(used, from_batch, to_batch):
+        REMAPS["calls"] += REMAPS["on"]
+        return inner(used, from_batch, to_batch)
+
+    _CarryChain._device_remap = staticmethod(remap)
+
+
 def models():
     from types import SimpleNamespace
 
@@ -541,14 +575,195 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def split_ms(fn, reps: int):
-    """Where one call's time goes: (host, device) milliseconds per call --
-    the host clock over `reps` calls enqueued back to back (nothing waits
-    inside), and torch.profiler's device time of the kernels the calls
-    ran (None when the profiler records no device time).  A kernel whose
-    cuda_ms is near its host time is held back by its launch path."""
+#: kernels modules whose launches the event readers time: this port's,
+#: and the parent's once load_parent has built it
+KMODS: list = []
+#: the card's cycles a millisecond for torch.cuda._sleep (H100 SXM boost,
+#: 1.98 GHz; at a lower clock a hold only lasts longer)
+CYCLES_PER_MS = 1.98e6
+#: split_ms / kernel_device_ms readings, and those where torch.profiler
+#: read under PROFILER_LOST_BELOW x the events less their pairs' floor
+PROFILER_CHECKS = {"readings": 0, "lost": 0}
+PROFILER_LOST_BELOW = 0.8
+#: an event pair's floor (event_floor_ms), measured once
+EVENT_FLOOR: dict = {}
+
+
+def _kmods() -> list:
+    if not KMODS:
+        from karmada_tpu_torch.ops import kernels
+        KMODS.append(kernels)
+    return KMODS
+
+
+def hold_stream(ms: float) -> None:
+    """Keep the current stream busy for about `ms` (torch.cuda._sleep), so
+    that what the host enqueues meanwhile runs back to back, with no host
+    time between an event pair."""
+    torch.cuda._sleep(max(1, int(ms * CYCLES_PER_MS)))
+
+
+def event_floor_ms() -> float:
+    """An event pair's floor on this card: the median pair around the
+    smallest launch (torch.cuda._sleep(0)) on a held stream, measured
+    once and logged beside the median pair around nothing.  A pair around
+    a launch reads at least this much more than the kernel's own
+    duration in a profiler trace."""
+    if "ms" not in EVENT_FLOOR:
+        torch.cuda.synchronize()
+        marks = {"a launch": [], "nothing": []}
+        hold_stream(10.0)
+        for _ in range(200):
+            for what, pairs in marks.items():
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                if what == "a launch":
+                    torch.cuda._sleep(0)
+                e1.record()
+                pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        med = {k: float(np.median([a.elapsed_time(b) for a, b in v]))
+               for k, v in marks.items()}
+        EVENT_FLOOR["ms"] = med["a launch"]
+        log(f"event pair floor: {med['a launch']:.5f} ms around the "
+            f"smallest launch, {med['nothing']:.5f} ms around nothing "
+            "(medians of 200 pairs on a held stream)")
+    return EVENT_FLOOR["ms"]
+
+
+def launch_events(fn, reps: int, lead_ms: float) -> tuple:
+    """Each call's CUDA-event milliseconds by C entry, over `reps` calls
+    after one warm-up: an event pair on the stream just before and just
+    after each launch the call makes through a kernels module's launch
+    (_kmods), summed per entry, the stream held busy for `lead_ms` first.
+    ([{entry: ms}, ...] one dict a call, event pairs a call)."""
+    fn()
+    torch.cuda.synchronize()
+    mods = _kmods()
+    origs = [m.launch for m in mods]
+    calls: list = []
+
+    def timed(orig):
+        def launch(source, args, entry=None, count=None, device=None):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            orig(source, args, entry, count, device)
+            e1.record()
+            calls[-1].append((entry or source, e0, e1))
+        return launch
+
+    for m, o in zip(mods, origs):
+        m.launch = timed(o)
+    try:
+        hold_stream(lead_ms)
+        for _ in range(reps):
+            calls.append([])
+            fn()
+    finally:
+        for m, o in zip(mods, origs):
+            m.launch = o
+    torch.cuda.synchronize()
+    out = []
+    for marks in calls:
+        d: dict = {}
+        for name, e0, e1 in marks:
+            d[name] = d.get(name, 0.0) + e0.elapsed_time(e1)
+        out.append(d)
+    return out, sum(len(m) for m in calls) / max(1, reps)
+
+
+def call_events(fn, reps: int, lead_ms: float) -> list:
+    """CUDA-event milliseconds of each of `reps` whole calls after one
+    warm-up, each with the stream drained first and then held busy for
+    `lead_ms`: for a call that also runs library kernels of its own.  A
+    call that synchronises inside spans its own host gaps too."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        hold_stream(lead_ms)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return out
+
+
+def profiler_ms(fn, reps: int):
+    """torch.profiler's device milliseconds per call over `reps` calls:
+    (their sum, {kernel symbol: ms}, device records a call); (None, {},
+    0) when it recorded none.  Kept only beside the events' figures: a
+    window in a process that has profiled before may lose its device
+    records."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_time_total", 0) > 0]
+    by = {e.key: e.device_time_total / reps / 1e3 for e in dev}
+    return ((sum(by.values()) if by else None), by,
+            sum(e.count for e in dev) / reps)
+
+
+def _check_profiler(events: Optional[float], prof: Optional[float],
+                    pairs: float, records: float) -> None:
+    """Count a reading; log it as "profiler lost records" where the
+    profiler read under PROFILER_LOST_BELOW x the events less their pairs'
+    floor (event_floor_ms) -- with its device records a call beside the
+    event pairs a call: fewer records than pairs is a loss, as many is a
+    call whose pair also spans host gaps inside it."""
+    PROFILER_CHECKS["readings"] += 1
+    if not events:
+        return
+    net = events - pairs * event_floor_ms()
+    if prof is None or prof < PROFILER_LOST_BELOW * net:
+        PROFILER_CHECKS["lost"] += 1
+        at = sys._getframe(2)
+        log(f"  profiler lost records ({at.f_code.co_name}:{at.f_lineno}):"
+            f" profiler_ms {prof if prof is None else round(prof, 4)}, "
+            f"events {events:.4f} ms less {pairs:g} pair floors "
+            f"{net:.4f}; device records a call {records:g}, event pairs "
+            f"{pairs:g}")
+
+
+class Split(tuple):
+    """split_ms's reading, (host, device) ms per call; `profiler_ms` the
+    profiler's device figure over the same calls, beside the events'."""
+
+    def __new__(cls, host, device, prof):
+        s = super().__new__(cls, (host, device))
+        s.profiler_ms = prof
+        return s
+
+    def __repr__(self) -> str:
+        d = "not measured" if self[1] is None else f"{self[1]:.4f}"
+        p = "none" if self.profiler_ms is None else f"{self.profiler_ms:.4f}"
+        return f"(host {self[0]:.4f}, device {d} ms; profiler_ms {p})"
+
+
+def split_ms(fn, reps: int, whole: bool = False) -> Split:
+    """Where one call's time goes: (host, device) milliseconds per call --
+    the host clock over `reps` calls enqueued back to back (nothing waits
+    inside), and the device time by CUDA events: an event pair around each
+    of the port's launches the call makes, summed per call (None when it
+    launches none), or with `whole` a pair around the whole call with the
+    stream drained first (a call that also runs library kernels of its
+    own, such as K12's wrapper's torch.sort; the median call).  The
+    stream is held busy while the calls are enqueued, so no host time
+    falls inside a pair; a pair still reads event_floor_ms more than a
+    kernel's own duration.
+    torch.profiler's figure rides along as `.profiler_ms`.  A kernel
+    whose cuda_ms is near its host time is held back by its launch
+    path."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -556,12 +771,16 @@ def split_ms(fn, reps: int):
         fn()
     host = (time.perf_counter() - t0) / reps * 1e3
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", 0) for e in prof.key_averages())
-    return host, (us / reps / 1e3 if us > 0 else None)
+    if whole:
+        device = float(np.median(call_events(fn, reps, 2 * host + 0.05)))
+        pairs = 1.0
+    else:
+        per, pairs = launch_events(fn, reps, reps * (2 * host + 0.05))
+        device = (float(np.mean([sum(d.values()) for d in per]))
+                  if any(per) else None)
+    prof, _by, records = profiler_ms(fn, reps)
+    _check_profiler(device, prof, pairs, records)
+    return Split(host, device, prof)
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -576,51 +795,42 @@ def wall_ms(fn, reps: int) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def kernel_device_ms(fn, reps: int) -> dict:
-    """torch.profiler's device milliseconds per call of `fn`, by kernel
-    name (the CUDA kernels' symbols), over `reps` calls after one warm-up;
-    empty when the profiler records no device time."""
-    from torch.profiler import ProfilerActivity, profile
+class ByEntry(dict):
+    """kernel_device_ms's reading: CUDA-event ms per call by C entry;
+    `profiler_ms` torch.profiler's ms per call by kernel symbol beside it
+    (the only split of a C call that runs several kernels)."""
 
+    profiler_ms: dict
+
+
+def kernel_device_ms(fn, reps: int) -> ByEntry:
+    """CUDA-event device milliseconds per call of `fn` by C entry (an
+    event pair around each launch through a kernels module's launch, the
+    stream held busy while they are enqueued), over `reps` calls after
+    one warm-up; torch.profiler's by kernel symbol beside them."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: getattr(e, "device_time_total", 0) / reps / 1e3
-            for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0) > 0}
-
-
-def stage_ms(kmod, fn, reps: int) -> dict:
-    """Mean CUDA-event milliseconds of each kernel launch that one call of
-    `fn` makes through `kmod.launch` (a kernels module: this port's or the
-    parent's), by C entry, over `reps` calls after one warm-up: events
-    recorded on the stream just before and just after each launch."""
+    t0 = time.perf_counter()
     fn()
-    torch.cuda.synchronize()
-    orig, marks = kmod.launch, []
+    host = (time.perf_counter() - t0) * 1e3
+    per, pairs = launch_events(fn, reps, reps * (2 * host + 0.05))
+    out = ByEntry()
+    for d in per:
+        for k, v in d.items():
+            out[k] = out.get(k, 0.0) + v / reps
+    prof, out.profiler_ms, records = profiler_ms(fn, reps)
+    _check_profiler(sum(out.values()) or None, prof, pairs, records)
+    return out
 
-    def timed(source, args, entry=None, count=None, device=None):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        orig(source, args, entry, count, device)
-        e1.record()
-        marks.append((entry or source, e0, e1))
 
-    kmod.launch = timed
-    try:
-        for _ in range(reps):
-            fn()
-    finally:
-        kmod.launch = orig
-    torch.cuda.synchronize()
-    out = {}
-    for name, e0, e1 in marks:
-        out.setdefault(name, []).append(e0.elapsed_time(e1))
-    return {k: sum(v) / len(v) for k, v in out.items()}
+def by_text(by: ByEntry) -> str:
+    """A kernel_device_ms reading as text: the events by C entry, then the
+    profiler's by kernel beside them."""
+    ev = ", ".join(f"{k} {v:.4f}" for k, v in by.items()) or "no launch"
+    pr = ", ".join(f"{k.split('(')[0].strip()[:60]} {v:.4f}" for k, v in
+                   sorted(by.profiler_ms.items(), key=lambda x: -x[1]))
+    return (f"events by C entry {ev} ms (sum {sum(by.values()):.4f}); "
+            f"profiler_ms by kernel {pr or 'none'}")
 
 
 def fills_est(S) -> bool:
@@ -829,8 +1039,7 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
     ms = cuda_ms(wave(S.schedule_rows), reps)
     by = kernel_device_ms(wave(S.schedule_rows), reps)
     host, device = split_ms(wave(S.schedule_rows), reps)
-    log(f"phase 2 K2 split ({tier}, wave 0: {Bw} x {C}): device by kernel "
-        + ", ".join(f"{k.split('(')[0]} {v:.4f} ms" for k, v in by.items())
+    log(f"phase 2 K2 split ({tier}, wave 0: {Bw} x {C}): " + by_text(by)
         + f"; split_ms host enqueue {host:.4f} ms, device "
         + (f"{device:.4f} ms" if device is not None else "not measured")
         + f"; key scratch allocated so far {S.KEY_SCRATCH_BYTES[tier]} B")
@@ -840,8 +1049,9 @@ def hold_rows(db, waves: int, use_extra: bool, tier: str, dev, reps: int):
     host, _d = split_ms(whole, reps)
     log(f"phase 2 K1 in the wave ({tier}, wave 0 with its K1): CUDA events "
         f"{cuda_ms(whole, reps):.4f} ms, host enqueue {host:.4f} ms, device "
-        f"{sum(by.values()):.4f} ms, of which capacity_kernel "
-        f"{sum(v for k, v in by.items() if 'capacity' in k):.4f} ms")
+        f"{sum(by.values()):.4f} ms, of which capacity_kernel (profiler_ms) "
+        f"{sum(v for k, v in by.profiler_ms.items() if 'capacity' in k):.4f}"
+        f" ms; {by_text(by)}")
     plain_ms = cuda_ms(wave(S.schedule_rows_plain), 2)
     row_in = nbytes(est0, db.pl_mask, db.pl_tol_bypass, db.pl_static_w,
                     db.pl_extra_score, db.api_ok, db.cluster_valid,
@@ -1494,7 +1704,8 @@ def phase_kernels(batch, items, wide_items, fleet, args, dev,
     remap_ms = cuda_ms(lambda: _CarryChain._device_remap(used, batch, batch),
                        reps)
     host, device = split_ms(
-        lambda: _CarryChain._device_remap(used, batch, batch), 10 * reps)
+        lambda: _CarryChain._device_remap(used, batch, batch), 10 * reps,
+        whole=True)
     br = bound_ms(2 * nbytes(used[0], used[2]),
                   used[0].numel() + used[2].numel())
     log(f"phase 2 _CarryChain._device_remap: avail {tuple(used[0].shape)} "
@@ -1671,8 +1882,7 @@ def phase_kernels_k7_k9(items, fleet, mega, args, dev, reps,
     h8, _d8 = split_ms(k8, 10 * reps)
     by8 = kernel_device_ms(k8, 10 * reps)
     log(f"phase 2 shortlist_topk split: host enqueue {h8:.4f} ms, device "
-        + ", ".join(f"{k.split('(')[0]} {v:.4f} ms" for k, v in by8.items())
-        + f" (one call, {pdb.B}x{Cm}, k={MEGA_K})")
+        + by_text(by8) + f" (one call, {pdb.B}x{Cm}, k={MEGA_K})")
     # the same rows over twice the lanes (the wide shape) and over 128
     # times them (rows wider than shared memory: the pair scratch)
     for times in (2, 128):
@@ -2353,14 +2563,13 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
         f"{tuple(p.pl_mask.shape)}; dirty rows "
         f"{int((k12 & DM.DIRTY).count_nonzero())}; bound by the need "
         f"{need12[0]:.6f} ms (all inputs {b12[0]:.6f})")
-    host, device = split_ms(kern12, 10 * reps)
+    host, device = split_ms(kern12, 10 * reps, whole=True)
     log(f"phase 2 dirty_codes split, the kernel on device operands: host "
-        f"enqueue {host:.4f} ms, device "
+        f"enqueue {host:.4f} ms, device (the whole call, the wrapper's rv "
+        "sort included) "
         + (f"{device:.4f} ms" if device is not None else "not measured")
-        + "; device ms by kernel (the wrapper's rv sort apart) "
-        + (", ".join(f"{k[:60]} {v:.4f}" for k, v in
-                     kernel_device_ms(kern12, 10 * reps).items())
-           or "not measured"))
+        + "; the kernel apart: " + by_text(kernel_device_ms(kern12,
+                                                            10 * reps)))
     # the whole call from host inputs, as the incremental cycle makes it
     keep = state.last_flip_lanes
     state.last_flip_lanes = flips8
@@ -2371,14 +2580,12 @@ def phase_kernels_k10_k12(state, solver, dev, reps) -> list:
     try:
         err = max_abs_err([(torch.from_numpy(call()), want12.cpu())])
         rows[-1]["max_abs_err"] = max(err12, err)
-        host, device = split_ms(call, 10 * reps)
+        host, device = split_ms(call, 10 * reps, whole=True)
         log(f"phase 2 dirty_codes whole call (host inputs to numpy codes, "
             f"max_abs_err={err}): {host:.4f} ms a call (host clock, its "
             "sync included), device "
             + (f"{device:.4f} ms" if device is not None else "not measured")
-            + "; device by activity: " + ", ".join(
-                f"{k.split('(')[0].strip()} {v:.4f}" for k, v in sorted(
-                    kernel_device_ms(call, 10 * reps).items())))
+            + "; " + by_text(kernel_device_ms(call, 10 * reps)))
     finally:
         state.last_flip_lanes = keep
     for r in rows:
@@ -2421,7 +2628,8 @@ def load_parent(tree: str):
             for m in ("ops.kernels", "ops.resident_gather",
                       "ops.resident_update", "ops.shortlist", "ops.solver",
                       "ops.spread", "resident.state", "ops.dirty",
-                      "ops.rebalance_detect")}
+                      "ops.rebalance_detect", "ops.probe")}
+    _kmods().append(mods["ops.kernels"])
     t0 = time.perf_counter()
     mods["ops.kernels"].build()
     log(f"phase 2 turns: the parent's port built in "
@@ -2548,7 +2756,7 @@ def phase_turns(parent, state, solver, dev, reps,
         if not np.array_equal(calls["old"](), calls["new"]()):
             raise AssertionError("turns: dirty_codes old and new disagree")
         for side, fn in calls.items():
-            host, device = split_ms(fn, 10 * reps)
+            host, device = split_ms(fn, 10 * reps, whole=True)
             log(f"phase 2 turns K12 dirty_codes split, {side}: host "
                 f"{host:.4f} ms a call, device "
                 + (f"{device:.4f} ms" if device is not None
@@ -2656,9 +2864,8 @@ def phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps,
             waves["old"][1] + waves["old"][2],
             waves["new"][1] + waves["new"][2])):
         raise AssertionError("turns: K2 old and new disagree")
-    split = stage_ms(OK, waves["old"][0], reps)
     log("phase 2 turns K2 split of the parent (std, wave 0): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
+        + by_text(kernel_device_ms(waves["old"][0], reps)))
     cases["K2 std wave (K4 inside)"] = (
         lambda: cuda_ms(waves["old"][0], reps),
         lambda: cuda_ms(waves["new"][0], reps))
@@ -2683,8 +2890,9 @@ def phase_turns_rows(parent, batch, rep_k, sel_k, st_k, dev, reps,
         by = kernel_device_ms(w, reps)
         log(f"phase 2 turns K1 + K2 std wave 0 split ({which}): host enqueue "
             f"{host:.4f} ms, device {sum(by.values()):.4f} ms, of which "
-            f"capacity_kernel "
-            f"{sum(v for k, v in by.items() if 'capacity' in k):.4f} ms")
+            f"capacity_kernel (profiler_ms) "
+            f"{sum(v for k, v in by.profiler_ms.items() if 'capacity' in k):.4f}"
+            f" ms; {by_text(by)}")
     if not all(torch.equal(a, b) for a, b in zip(whole[0][1], whole[1][1])):
         raise AssertionError("turns: K1 + K2 wave old and new disagree")
     if not torch.equal(alone[0](), alone[1]()):
@@ -2728,8 +2936,7 @@ def phase_turns_tier1(parent, mbatch, prof_keys, rep_max, dev, reps,
             host, _d = split_ms(fn, 10 * reps)
             by = kernel_device_ms(fn, 10 * reps)
             log(f"phase 2 turns {name} split ({which}): host enqueue "
-                f"{host:.4f} ms, device " + ", ".join(
-                    f"{k.split('(')[0]} {v:.4f}" for k, v in by.items()))
+                f"{host:.4f} ms, device " + by_text(by))
         cases[name] = (lambda f=calls[0]: cuda_ms(f, reps),
                        lambda f=calls[1]: cuda_ms(f, reps))
     return run_turns(cases, rounds)
@@ -2824,8 +3031,7 @@ def phase_turns_big(parent, sub, dev, reps, rounds=TURN_ROUNDS) -> dict:
         host, _d = split_ms(fn, reps)
         by = kernel_device_ms(fn, reps)
         log(f"phase 2 turns K2-big wave 0 split ({which}): host enqueue "
-            f"{host:.4f} ms, device {sum(by.values()):.4f} ms: " + ", ".join(
-                f"{k.split('(')[0]} {v:.4f}" for k, v in by.items()))
+            f"{host:.4f} ms, device " + by_text(by))
     return run_turns({"K2-big wave 0 (K4 inside)": (
         lambda: cuda_ms(calls[0][0], reps),
         lambda: cuda_ms(calls[1][0], reps))}, rounds)
@@ -2854,15 +3060,13 @@ def phase_turns_dispatch(parent, batch, dev, reps,
         host, _d = split_ms(fn, reps)
         by = kernel_device_ms(fn, reps)
         log(f"phase 2 turns forward chunk dispatch split ({which}): host "
-            f"enqueue {host:.4f} ms, device {sum(by.values()):.4f} ms: "
-            + ", ".join(f"{k.split('(')[0]} {v:.4f}"
-                        for k, v in sorted(by.items(), key=lambda x: -x[1])))
+            f"enqueue {host:.4f} ms, device " + by_text(by))
     return run_turns({"forward chunk dispatch (8 waves + K3)": (
         lambda: cuda_ms(fns[0], reps), lambda: cuda_ms(fns[1], reps))},
         rounds)
 
 
-def run_turns(cases, rounds) -> dict:
+def run_turns(cases, rounds, label="phase 2") -> dict:
     """Each case's (old, new) timers in turns: old, new, new, old, for
     `rounds` rounds; logs every reading and the means."""
     out = {name: {"old": [], "new": []} for name in cases}
@@ -2871,9 +3075,9 @@ def run_turns(cases, rounds) -> dict:
             for name, fns in cases.items():
                 out[name][which].append(fns[which == "new"]())
     for name, v in out.items():
-        log(f"phase 2 turns {name}: old mean {np.mean(v['old']):.4f} ms "
-            f"{[round(x, 4) for x in v['old']]}, new mean "
-            f"{np.mean(v['new']):.4f} ms {[round(x, 4) for x in v['new']]}")
+        log(f"{label} turns {name}: old mean {np.mean(v['old']):.5f} ms "
+            f"{[round(x, 5) for x in v['old']]}, new mean "
+            f"{np.mean(v['new']):.5f} ms {[round(x, 5) for x in v['new']]}")
     return out
 
 
@@ -3522,10 +3726,8 @@ def phase_kernel_k13(fleet, results, dev, reps, parent=None) -> dict:
             f"max_abs_err={e}, {host:.4f} ms a call (host clock, its sync "
             "included), device "
             + (f"{device:.4f} ms" if device is not None else "not measured")
-            + f", kernel_ms {tm['kernel_ms']:.4f} (its events); device by "
-            "activity: " + ", ".join(
-                f"{k.split('(')[0].strip()} {v:.4f}" for k, v in sorted(
-                    kernel_device_ms(call, 10 * reps).items())))
+            + f", kernel_ms {tm['kernel_ms']:.4f} (its events); "
+            + by_text(kernel_device_ms(call, 10 * reps)))
     log(f"phase 2 rebalance_score: max_abs_err={err} ms={row['ms']:.4f} "
         f"(C=5000) ms={ms16:.4f} (C=16384) plain_ms={row['plain_ms']:.4f} "
         f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
@@ -4187,20 +4389,124 @@ PROBE_N = 128              # the probe snippet's matrix (K14 on the main path)
 PROBE_N_WIDE = 1_024
 MARKER_N = 128             # capture_profile's marker input (K15)
 MARKER_N_WIDE = 1 << 20
+MARKER_N_ODD = MARKER_N_WIDE + 3  # 13b: an odd length (the scalar tail)
+PROBE_N_RAGGED = 1_000     # 13a: a ragged edge (TMA's zero fill)
+PROBE_N_REFUSED = 100      # 13a: n % 8 != 0, refused with a ValueError
 GUARD_TIMEOUT_S = 0.001    # 13d: shorter than any device cycle
 GUARD_RAISED_S = 600.0     # 13d: the timeout once the plane degraded
 GUARD_HOLD_S = 0.5         # 13d held: the zombie is on the card by then
 
 
-def phase_probe(dev, reps) -> dict:
+def probe_sass() -> dict:
+    """K14's tensor-core (HGMMA), TMA-load (UTMALDG) and mbarrier (SYNCS)
+    instructions in the built libprobe.so, counted in cuobjdump -sass."""
+    from karmada_tpu_torch.ops import kernels
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(kernels.build()["probe"])],
+                          capture_output=True, text=True, check=True).stdout
+    return {op: sass.count(op) for op in ("HGMMA", "UTMALDG", "SYNCS")}
+
+
+def order_tolerance_share(got, want, a) -> float:
+    """The largest |got - want| over its tolerance, one bf16 ulp of the
+    plain result `want` (2^(e-7) in [2^e, 2^(e+1))) + n * 2^-24 * sum_k
+    |a_ik * a_kj|: two float32 sums of the same products in another
+    order, each rounded once to bf16.  At most 1 when every entry is
+    within it."""
+    g, w, x = got.double(), want.double(), a.double().abs()
+    mag = w.abs()
+    ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(
+        torch.where(mag > 0, mag, torch.ones_like(mag)))) - 7),
+        torch.zeros_like(mag))
+    tol = ulp + a.shape[0] * 2.0 ** -24 * (x @ x)
+    return float(((g - w).abs() / tol).max())
+
+
+def fed_ms(fn, reps: int) -> float:
+    """Milliseconds a call of `fn` holds the stream when calls run back to
+    back with no host gap between them: one event pair around `reps`
+    calls enqueued on a held stream, over `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    hold_stream(reps * (2 * host + 0.05))
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def kernel_times(fn, plain, lib, bound: float, reps: int) -> dict:
+    """A kernel's times beside its yardsticks: cuda_ms of back-to-back
+    calls (the median of TURN_ROUNDS x 2 readings taken in turns with
+    the library call's: kernel, library, library, kernel), its one-launch
+    device ms by CUDA events (split_ms) and that over the bound, its
+    fed_ms, the host enqueue, the plain version's cuda_ms, and the
+    library call's cuda_ms (the median of its readings in those turns),
+    device ms (a whole-call event pair), fed_ms and host enqueue."""
+    host, device = split_ms(fn, 10 * reps)
+    lib_host, lib_device = split_ms(lib, 10 * reps, whole=True)
+    got = {fn: [], lib: []}
+    for _ in range(TURN_ROUNDS):
+        for f in (fn, lib, lib, fn):
+            got[f].append(cuda_ms(f, 10 * reps))
+    return dict(ms=float(np.median(got[fn])), readings=got[fn],
+                device=device, host=host,
+                share=bound / device if device else None,
+                fed=fed_ms(fn, 10 * reps), plain_ms=cuda_ms(plain, reps),
+                library_ms=float(np.median(got[lib])),
+                library_readings=got[lib], library_device=lib_device,
+                library_fed=fed_ms(lib, 10 * reps), library_host=lib_host)
+
+
+def times_text(t: dict) -> str:
+    share = "none" if t["share"] is None else f"{t['share']:.1%}"
+    return (f"ms={t['ms']:.5f} {[round(x, 5) for x in t['readings']]} "
+            f"device (one launch, events) {t['device']:.5f} ms = {share} "
+            f"of the bound, fed back to back {t['fed']:.5f} ms, host "
+            f"enqueue {t['host']:.5f} ms; plain_ms={t['plain_ms']:.5f} "
+            f"library_ms={t['library_ms']:.5f} "
+            f"{[round(x, 5) for x in t['library_readings']]} (device "
+            f"{t['library_device']:.5f}, fed {t['library_fed']:.5f}, host "
+            f"{t['library_host']:.5f})")
+
+
+def lifecycle_turns(label: str, cases: dict, reps: int) -> None:
+    """K14 / K15 old (the parent's) against new in turns (old, new, new,
+    old; TURN_ROUNDS rounds) by cuda_ms, each side's one-launch device ms
+    beside: cases {name: (old fn, new fn)}."""
+    for name, (old, new) in cases.items():
+        for side, fn in (("old", old), ("new", new)):
+            log(f"phase {label} turns {name} split, {side}: "
+                f"{split_ms(fn, 10 * reps)!r}")
+    run_turns({name: (lambda f=old: cuda_ms(f, reps),
+                      lambda f=new: cuda_ms(f, reps))
+               for name, (old, new) in cases.items()}, TURN_ROUNDS,
+              label=f"phase {label}")
+
+
+def phase_probe(dev, reps, parent=None) -> dict:
     """13a: resolve_backend("device") through the real probe subprocess
     (K14 on every visible card, its own launch count reported back): ok,
-    gpu, the visible cards, a positive bytes_limit each; then K14 against
-    its plain version, bit for bit, on seeded {-1, 0, 1} bf16 matrices at
-    128 and 1,024 (every fp32 partial sum exact), with CUDA-event times,
-    the plain version's, torch.mm's (the yardstick; the port never calls
-    it) and the bound (2 n^3 operations at the bf16 tensor-core rate, or
-    one read of A and one write of C).  Returns K14's report row."""
+    gpu, the visible cards, a positive bytes_limit each; K14's SASS holds
+    wgmma (HGMMA) and TMA loads (UTMALDG); then K14 against its plain
+    version, bit for bit on seeded {-1, 0, 1} bf16 matrices (every fp32
+    partial sum exact) and within order_tolerance_share on normal(0, 1)
+    ones, at 128, 1,000 (a ragged edge) and 1,024; a ValueError at 100
+    (n % 8 != 0); at 128 and 1,024 kernel_times beside torch.mm (the
+    yardstick; the port never calls it) and the bound (2 n^3 operations
+    at the bf16 tensor-core rate, or one read of A and one write of C),
+    1,024's cuda_ms over TURN_ROUNDS readings, and with `parent` the
+    parent's K14 in turns.  Returns K14's report row."""
     from karmada_tpu_torch.ops import probe
     from karmada_tpu_torch.utils import deviceprobe
 
@@ -4226,49 +4532,99 @@ def phase_probe(dev, reps) -> dict:
     if len(mem) != n or any(m["memory_stats"]["bytes_limit"] <= 0
                             for m in mem):
         bad.append(f"MEMSTATS {mem}")
+    sass = probe_sass()
+    log(f"phase 13a K14 SASS (cuobjdump -sass libprobe.so): {sass}")
+    if not (sass["HGMMA"] and sass["UTMALDG"] and sass["SYNCS"]):
+        bad.append(f"K14's SASS lacks wgmma, TMA or mbarrier: {sass}")
     # the plain version in full fp32 on the card (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(13)
-    row = None
-    for size in (PROBE_N, PROBE_N_WIDE):
+    row, turns = None, {}
+    for size in (PROBE_N, PROBE_N_RAGGED, PROBE_N_WIDE):
         a = torch.from_numpy(rng.integers(-1, 2, (size, size)).astype(
             np.float32)).to(dev, torch.bfloat16)
         got, want = probe.probe_mm(a), probe.probe_mm_plain(a)
+        norm = torch.from_numpy(rng.standard_normal((size, size)).astype(
+            np.float32)).to(dev, torch.bfloat16)
+        share = order_tolerance_share(probe.probe_mm(norm),
+                                      probe.probe_mm_plain(norm), norm)
         torch.cuda.synchronize()
         same = torch.equal(got.view(torch.int16), want.view(torch.int16))
         err = max_abs_err([(got, want)])
-        ms = cuda_ms(lambda: probe.probe_mm(a), reps)
-        plain = cuda_ms(lambda: probe.probe_mm_plain(a), reps)
-        lib = cuda_ms(lambda: torch.mm(a, a), reps)
-        b = bound_ms(2 * nbytes(a), 2.0 * size ** 3, BF16_OPS_PER_S)
-        log(f"phase 13a K14 probe_mm {size}x{size} bf16: bit-exact {same} "
-            f"max_abs_err={err} ms={ms:.5f} plain_ms={plain:.5f} "
-            f"torch.mm={lib:.5f} bound_ms={b[0]:.6f} ({b[1]})")
+        line = (f"phase 13a K14 probe_mm {size}x{size} bf16: ternary "
+                f"bit-exact {same} max_abs_err={err}; normal(0, 1) at "
+                f"{share:.3f} of the order tolerance")
         if not same:
             bad.append(f"K14 at {size} differs from its plain version")
+        if share > 1:
+            bad.append(f"K14 at {size} on normal inputs beyond the "
+                       f"tolerance ({share:.3f})")
+        if size == PROBE_N_RAGGED:
+            log(line)
+            continue
+        b = bound_ms(2 * nbytes(a), 2.0 * size ** 3, BF16_OPS_PER_S)
+        t = kernel_times(lambda: probe.probe_mm(a),
+                         lambda: probe.probe_mm_plain(a),
+                         lambda: torch.mm(a, a), b[0], reps)
+        log(f"{line}; {times_text(t)} (torch.mm) bound_ms={b[0]:.6f} "
+            f"({b[1]})")
+        if size == PROBE_N_WIDE:
+            spread = [cuda_ms(lambda: probe.probe_mm(a), reps)
+                      for _ in range(TURN_ROUNDS)]
+            log(f"phase 13a K14 {size}: cuda_ms over {TURN_ROUNDS} readings "
+                f"{[round(x, 5) for x in spread]} (spread "
+                f"{max(spread) - min(spread):.5f} ms)")
+        if parent is not None:
+            OP = parent["ops.probe"]
+            if not torch.equal(OP.probe_mm(a).view(torch.int16),
+                               want.view(torch.int16)):
+                bad.append(f"the parent's K14 at {size} disagrees")
+            turns[f"K14 probe_mm {size}"] = (lambda a=a: OP.probe_mm(a),
+                                             lambda a=a: probe.probe_mm(a))
         if size == PROBE_N:
             row = dict(name="probe_mm", route="cuda",
                        source="karmada_tpu_torch/ops/csrc/probe.cu",
                        replaces="karmada_tpu/utils/deviceprobe.py:100",
-                       launches=launches, max_abs_err=err, ms=ms,
-                       plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                       library_ms=lib)
+                       launches=launches, max_abs_err=err, ms=t["ms"],
+                       plain_ms=t["plain_ms"], bound_ms=b[0], bound_by=b[1],
+                       library_ms=t["library_ms"])
+    try:
+        probe.probe_mm(torch.zeros((PROBE_N_REFUSED, PROBE_N_REFUSED),
+                                   dtype=torch.bfloat16, device=dev))
+        bad.append(f"K14 took n = {PROBE_N_REFUSED}")
+    except ValueError as e:
+        log(f"phase 13a K14 at {PROBE_N_REFUSED}: ValueError {e}")
+    if turns:
+        lifecycle_turns("13a", turns, reps)
     if bad:
         raise AssertionError("phase 13a: " + "; ".join(bad))
     return row
 
 
-def phase_profile(dev, reps) -> dict:
+def marker_input(rng, size: int, offset: int, dev) -> tuple:
+    """Seeded int64 values (negatives and the int64 edges among them) on
+    the card as a view `offset` elements into its buffer (1: 8 bytes off
+    a 16-byte boundary), and their host copy."""
+    h = rng.integers(-(1 << 62), 1 << 62, size, dtype=np.int64)
+    h[:3] = (np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1)
+    buf = torch.empty(size + offset, dtype=torch.int64, device=dev)
+    buf[offset:].copy_(torch.from_numpy(h))
+    return buf[offset:], h
+
+
+def phase_profile(dev, reps, parent=None) -> dict:
     """13b: capture_profile(1.0) (held MIN_DEVICE_WINDOW_S on the card,
     a window the profiler lost taken again) with the launch counts reset
     just before and read just after: ok, a chrome trace that holds a
     device kernel event named marker_affine_i64 -- K15's kernel, one a
     marker launch -- and a K15 launch count equal to the markers of the
-    windows taken; K15 against
-    its plain version and torch.add(1, a, alpha=2) on 128 and 2^20 int64
-    elements (negatives and the int64 edges among them);
-    memory_stats_payload() against torch.cuda.memory_stats and
-    mem_get_info read right after.  Returns K15's report row."""
+    windows taken; K15 against its plain version, bit for bit, at 128,
+    2^20 and 2^20 + 3 (an odd length) int64 elements, each also as an
+    8-byte-offset view, negatives and the int64 edges among them; at 128
+    and 2^20 kernel_times beside torch.add(1, a, alpha=2), and with
+    `parent` the parent's K15 in turns; memory_stats_payload() against
+    torch.cuda.memory_stats and mem_get_info read right after.  Returns
+    K15's report row."""
     from karmada_tpu_torch.obs import devprof
     from karmada_tpu_torch.ops import kernels, probe
 
@@ -4302,36 +4658,50 @@ def phase_profile(dev, reps) -> dict:
         bad.append(f"K15 launches {launches} in the capture, markers "
                    f"{rec.get('markers')} x {windows} window(s)")
     rng = np.random.default_rng(15)
-    row = None
-    for size in (MARKER_N, MARKER_N_WIDE):
-        h = rng.integers(-(1 << 62), 1 << 62, size, dtype=np.int64)
-        h[:3] = (np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1)
-        a = torch.from_numpy(h).to(dev)
-        got, want = probe.marker_affine(a), probe.marker_affine_plain(a)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        err = 0.0 if same else float("inf")
-        ms = cuda_ms(lambda: probe.marker_affine(a), reps)
-        plain = cuda_ms(lambda: probe.marker_affine_plain(a), reps)
-        # the one PyTorch call computing 1 + 2 a (the yardstick only)
-        one = torch.ones((), dtype=a.dtype, device=a.device)
-        lib_out = torch.add(one, a, alpha=2)
-        if not torch.equal(lib_out, want):
-            bad.append(f"torch.add(1, a, alpha=2) at {size} differs")
-        lib = cuda_ms(lambda: torch.add(one, a, alpha=2), reps)
-        b = bound_ms(2 * nbytes(a), 2.0 * size)
-        log(f"phase 13b K15 marker_affine {size} int64: equal {same} "
-            f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={b[0]:.6f} "
-            f"({b[1]}) library_ms={lib:.5f} (torch.add(1, a, alpha=2))")
-        if not same:
-            bad.append(f"K15 at {size} differs from its plain version")
-        if size == MARKER_N:
-            row = dict(name="marker_affine", route="cuda",
-                       source="karmada_tpu_torch/ops/csrc/probe.cu",
-                       replaces="karmada_tpu/obs/devprof.py:233",
-                       launches=launches, max_abs_err=err, ms=ms,
-                       plain_ms=plain, bound_ms=b[0], bound_by=b[1],
-                       library_ms=lib)
+    row, turns = None, {}
+    for size in (MARKER_N, MARKER_N_WIDE, MARKER_N_ODD):
+        for offset in (0, 1):
+            a, h = marker_input(rng, size, offset, dev)
+            got, want = probe.marker_affine(a), probe.marker_affine_plain(a)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            with np.errstate(over="ignore"):
+                same = same and np.array_equal(got.cpu().numpy(), h * 2 + 1)
+            if not same:
+                bad.append(f"K15 at {size} (offset {offset}) differs from "
+                           "its plain version")
+            line = (f"phase 13b K15 marker_affine {size} int64, "
+                    f"{8 * offset}-byte offset: equal {same}")
+            if offset or size == MARKER_N_ODD:
+                log(line)
+                continue
+            # the one PyTorch call computing 1 + 2 a (the yardstick only)
+            one = torch.ones((), dtype=a.dtype, device=a.device)
+            if not torch.equal(torch.add(one, a, alpha=2), want):
+                bad.append(f"torch.add(1, a, alpha=2) at {size} differs")
+            b = bound_ms(2 * nbytes(a), 2.0 * size)
+            t = kernel_times(lambda: probe.marker_affine(a),
+                             lambda: probe.marker_affine_plain(a),
+                             lambda: torch.add(one, a, alpha=2), b[0], reps)
+            log(f"{line}; {times_text(t)} (torch.add(1, a, alpha=2)) "
+                f"bound_ms={b[0]:.6f} ({b[1]})")
+            if parent is not None:
+                OP = parent["ops.probe"]
+                if not torch.equal(OP.marker_affine(a), want):
+                    bad.append(f"the parent's K15 at {size} disagrees")
+                turns[f"K15 marker_affine {size}"] = (
+                    lambda a=a: OP.marker_affine(a),
+                    lambda a=a: probe.marker_affine(a))
+            if size == MARKER_N:
+                row = dict(name="marker_affine", route="cuda",
+                           source="karmada_tpu_torch/ops/csrc/probe.cu",
+                           replaces="karmada_tpu/obs/devprof.py:233",
+                           launches=launches, max_abs_err=0.0 if same
+                           else float("inf"), ms=t["ms"],
+                           plain_ms=t["plain_ms"], bound_ms=b[0],
+                           bound_by=b[1], library_ms=t["library_ms"])
+    if turns:
+        lifecycle_turns("13b", turns, reps)
     torch.cuda.synchronize()
     payload = devprof.memory_stats_payload()
     stats = torch.cuda.memory_stats(0)
@@ -4636,6 +5006,8 @@ def main() -> int:
     torch.cuda.synchronize()
     first3 = time.perf_counter() - t0
     log(f"phase 3 first chunk: {args.chunk} bindings in {first3:.3f} s")
+    count_remaps()
+    REMAPS["on"] = True
     fwd, _, fwd_results, _ = phase_cycle(
         "3 forward", items, fleet, names, args, dev, chunk_ms, main_path,
         cfg5, need_coo=True)
@@ -4652,6 +5024,7 @@ def main() -> int:
         mitems, mfleet, mnames, args, dev, chunk_ms,
         ("capacity", "schedule_rows", "webster_batch", "compact",
          "shortlist_topk", "group_sums"))
+    REMAPS["on"] = False
     phase_parity("forward", items, fleet, args, dev)
     phase_parity("rebalance", reb_items, fleet, args, dev)
     phase_parity("wide", wide_items, fleet, args, dev)
@@ -4662,9 +5035,11 @@ def main() -> int:
     mchunk, rchunk = mitems[:args.chunk], reb_items[:args.chunk]
     del mitems, reb_items, wide_items, explain_items  # phase 9 builds 1M
 
+    REMAPS["on"] = True
     inc, state, solver, roster = phase_incremental(
         M, mfleet, mplacements, INCREMENTAL_BINDINGS, args.chunk, dev,
         args.seed + 5)
+    REMAPS["on"] = False
     report += phase_kernels_k10_k12(state, solver, dev, args.reps)
     if parent is not None:
         phase_turns(parent, state, solver, dev, args.reps)
@@ -4675,14 +5050,20 @@ def main() -> int:
                                    parent))
     phase_rebalance_parity(M, fleet, items, fwd_results, dev)
     n = min(REBALANCE_BINDINGS, len(items))
+    REMAPS["on"] = True
     loop = phase_rebalance(M, fleet, items[:n], fwd_results[:n], dev)
+    REMAPS["on"] = False
     phase_native_turns("forward chunk", items[:args.chunk], fleet, args, dev)
     phase_native_turns("megafleet chunk", mchunk, mfleet, args, dev)
     phase_native_turns("rebalance chunk", rchunk, fleet, args, dev)
     phase_native_control(items, fleet, min(args.native_bindings, len(items)))
     phase_native_store(M, fleet, items, fwd_results)
     phase_loop_parity(M, fleet, items, dev, args.seed + 7)
+    REMAPS["on"] = True
     prop = phase_loop(M, fleet, placements, items[:args.loop_templates], dev)
+    REMAPS["on"] = False
+    log(f"_CarryChain._device_remap calls on the main-path phases (3, 4, "
+        f"6-9, 10b, 12b): {REMAPS['calls']}")
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
                                                       mega, inc, loop, prop))
@@ -4692,11 +5073,15 @@ def main() -> int:
     gc.collect()
     log(f"phase 12's garbage collected in {time.perf_counter() - t0:.2f} s")
     t13 = time.perf_counter()
-    report.append(phase_probe(dev, args.reps))
-    report.append(phase_profile(dev, args.reps))
+    report.append(phase_probe(dev, args.reps, parent))
+    report.append(phase_profile(dev, args.reps, parent))
     phase_warm(fleet, items, dev, args, first3)
     phase_guard(M, fleet, items, dev, args.seed + 7)
     log(f"phase 13 lifecycle: {time.perf_counter() - t13:.1f} s")
+    log(f"split_ms / kernel_device_ms readings: "
+        f"{PROFILER_CHECKS['readings']}, {PROFILER_CHECKS['lost']} of them "
+        f"with the profiler under {PROFILER_LOST_BELOW} x the events "
+        "(profiler lost records)")
     log(f"K2 key scratch allocated in the run, bytes by tier: "
         f"{PS.KEY_SCRATCH_BYTES}")
     if any(PS.KEY_SCRATCH_BYTES.values()):

@@ -307,10 +307,6 @@ def rows_block(values: dict) -> array.array:
     from {field: int} for every field of ROWS_FIELDS."""
     return array.array("q", [values[f] for f in ROWS_FIELDS])
 
-#: K14's and K15's argument blocks (probe.cu ProbeMmArgs, MarkerArgs)
-ProbeMmArgs = _struct("ProbeMmArgs", ("a", "c"), ("n",))
-MarkerArgs = _struct("MarkerArgs", ("a", "out"), ("n",))
-
 #: gathered lanes per row at most, per lane tier (g_prev + 5 * g_topk;
 #: schedule_rows.cu TierStd / TierBig)
 LMAX = {"std": 656, "big": 5248}

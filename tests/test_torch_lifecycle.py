@@ -886,7 +886,7 @@ def test_leader_election_and_standby_takeover():
 # -- on the card ------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [128, 1024])
+@pytest.mark.parametrize("n", [8, 128, 1000, 1024])
 def test_probe_mm_on_card(n):
     _card()
     a = torch.from_numpy(_ternary_bf16(n, seed=n)).to(torch.bfloat16)
@@ -902,17 +902,26 @@ def test_probe_mm_on_card(n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 128, 1 << 20])
-def test_marker_affine_on_card(n):
+@pytest.mark.parametrize("n", [1, 127, 128, 1 << 20, (1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_marker_affine_on_card(n, offset):
+    """K15 bit for bit on any length (the scalar tail), the int64 edges
+    first, from a view `offset` elements into its card buffer (offset 1:
+    8 bytes off a 16-byte boundary, the scalar head)."""
     _card()
     info = torch.iinfo(torch.int64)
     a = torch.from_numpy(np.random.default_rng(n).integers(
         info.min, info.max, n, dtype=np.int64))
-    got = probe.marker_affine(a.cuda())
+    a[:3] = torch.tensor([info.min, info.max, -1])[:n]
+    buf = torch.empty(n + offset, dtype=torch.int64, device="cuda")
+    buf[offset:].copy_(a)
+    dev = buf[offset:]
+    assert (dev.data_ptr() % 16 == 8) == (offset == 1)
+    got = probe.marker_affine(dev)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), probe.marker_affine_plain(a))
     with pytest.raises(TypeError):
-        probe.marker_affine(a.cuda().int())
+        probe.marker_affine(dev.int())
 
 
 @pytest.mark.gpu

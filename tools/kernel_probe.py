@@ -105,6 +105,10 @@ card's name and power limit, the parts named (default: all):
 With --parent TREE (the parent commit's karmada_tpu_torch/ unpacked in
 TREE, as chip_smoke.py --parent takes it) k4, k11, k5k6, k1, k8, k2big,
 k2launch, k7, k12 and k13 also run on the parent's port.  The variant libraries build into a temporary directory.
+Device times come from CUDA events (chip_smoke's split_ms and
+kernel_device_ms: a pair around each launch, or around the whole call
+where it runs library kernels of its own), torch.profiler's figures only
+beside them as profiler_ms.
 Exits non-zero without a card, or when a variant disagrees with its
 plain version.
 """
@@ -752,9 +756,7 @@ def probe_k11(CS, dev, trees):
             by = CS.kernel_device_ms(fn, 200)
             print(f"K11 {label}, {name} ({B} rows of {cap} slots): "
                   f"{ms:.4f} ms; split_ms host {host:.4f} ms, device "
-                  f"{device} ms; device by activity: " + ", ".join(
-                      f"{k.split('(')[0]} {v:.4f}" for k, v in
-                      sorted(by.items())), flush=True)
+                  f"{device} ms; {CS.by_text(by)}", flush=True)
         for name, sub in (("dispatch_gather", None),
                           ("dispatch_sub_gather", (inv, drop))):
             parts = k11_pieces(RG, kmod, slots, mirrors, dev, sub)
@@ -891,11 +893,12 @@ def probe_k7(CS, items, fleet, dev, trees):
 # -- K1 capacity and K8 shortlist_topk -----------------------------------------
 
 def _dev_line(by):
-    """The profiler's device ms per call by kernel, K1's and the sum."""
-    k1 = sum(v for k, v in by.items() if "capacity" in k)
-    return (f"device {sum(by.values()):.4f} ms (K1 capacity_kernel "
-            f"{k1:.4f}; " + ", ".join(f"{k.split('(')[0]} {v:.4f}"
-                                      for k, v in sorted(by.items())) + ")")
+    """A kernel_device_ms reading: the device ms per call by CUDA events
+    (by C entry, and their sum), the profiler's by kernel beside them and
+    K1's share of those."""
+    k1 = sum(v for k, v in by.profiler_ms.items() if "capacity" in k)
+    return (f"device {sum(by.values()):.4f} ms ({_by_text(by)}; K1 "
+            f"capacity_kernel profiler_ms {k1:.4f})")
 
 
 def probe_k1(CS, batch, wide, fleet, dev, trees):
@@ -937,12 +940,9 @@ def probe_k1(CS, batch, wide, fleet, dev, trees):
             ms = CS.cuda_ms(wave, 20)
             host, _d = CS.split_ms(wave, 20)
             by = CS.kernel_device_ms(wave, 20)
-            st = CS.stage_ms(kmod, wave, 20)
             Bw = dbx.B // S._effective_waves(dbx.B, 8)
             print(f"K1 {label}, {tier} wave 0 ({Bw} x {dbx.C}): {ms:.4f} "
-                  f"ms; host enqueue {host:.4f} ms; " + _dev_line(by)
-                  + "; launches (CUDA events) "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items()),
+                  f"ms; host enqueue {host:.4f} ms; " + _dev_line(by),
                   flush=True)
     for tier, v in outs.items():
         if not all(all(torch.equal(a, b) for a, b in zip(v[0], x))
@@ -1330,12 +1330,9 @@ def probe_k2big(CS, wide, fleet, dev, trees):
             ms = CS.cuda_ms(call, 50)
             host, _d = CS.split_ms(call, 50)
             by = CS.kernel_device_ms(call, 50)
-            st = CS.stage_ms(kmod, call, 50)
             print(f"K2-big {label}, wave 0 ({Bw} x {C}, K4 inside, est "
                   f"fixed): {ms:.4f} ms; host enqueue {host:.4f} ms; "
-                  + _dev_line(by) + "; launches (CUDA events) "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in st.items()),
-                  flush=True)
+                  + _dev_line(by), flush=True)
             phases, h = profile_k2big(kmod, call, tmp,
                                       f"k2big_{label.split()[-1]}")
             parts = []
@@ -1598,9 +1595,10 @@ def wall_ms(fn, n=50):
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def _by_line(by):
-    return ", ".join(f"{k.split('(')[0].strip()} {v:.4f}"
-                     for k, v in sorted(by.items()))
+def _by_text(by):
+    """chip_smoke.by_text: a kernel_device_ms reading, the events by C
+    entry and the profiler's by kernel beside them."""
+    return sys.modules["chip_smoke"].by_text(by)
 
 
 def profile_marks(kmod, source, subs, entry_name, call, out_dir, name,
@@ -1763,18 +1761,19 @@ def probe_k12(CS, M, dev, trees):
                 f"{k} {v:.4f}" for k, v in parts.items()), flush=True)
             call = lambda DM=DM: DM.dirty_codes(state, rv, mirrors=mirrors)
             print(f"K12 {label}, dirty_codes device by activity: "
-                  + _by_line(CS.kernel_device_ms(call, 50)), flush=True)
+                  + _by_text(CS.kernel_device_ms(call, 50)), flush=True)
 
             def kern(DM=DM, ins=ins):
                 return (DM.dirty_kernel(*ins),)
             if not torch.equal(kern()[0], want):
                 raise AssertionError(f"K12 {label}, the kernel: disagrees")
             ms = CS.cuda_ms(kern, 200)
-            host, device = CS.split_ms(kern, 200)
+            host, device = CS.split_ms(kern, 200, whole=True)
             print(f"K12 {label}, kernel on device operands, the padded rv "
                   f"list: {ms:.4f} ms; host enqueue {host:.4f} ms, device "
-                  f"{device} ms; by kernel: "
-                  f"{_by_line(CS.kernel_device_ms(kern, 200))}", flush=True)
+                  f"(the whole call, the wrapper's sort included) {device} "
+                  "ms; by kernel: "
+                  f"{_by_text(CS.kernel_device_ms(kern, 200))}", flush=True)
             text = open(os.path.join(str(kmod.CSRC), "dirty.cu")).read()
             if "KT_MARK(" in text:
                 d = profile_marks(kmod, "dirty.cu", (), "dirty_codes", kern,
@@ -1849,7 +1848,7 @@ def k12_shapes(CS, dev, kmod, DM, trees):
         if not torch.equal(old()[0], want):
             raise AssertionError(f"K12 shapes, {label}: disagrees")
         print(f"K12 shapes, {label}: {CS.cuda_ms(old, 200):.4f} ms back to "
-              f"back; device {_by_line(CS.kernel_device_ms(old, 200))}",
+              f"back; device {_by_text(CS.kernel_device_ms(old, 200))}",
               flush=True)
     csrc = str(kmod.CSRC)
     src = os.path.join(csrc, "dirty.cu")
@@ -1879,7 +1878,7 @@ def k12_shapes(CS, dev, kmod, DM, trees):
             finally:
                 kmod._FNS["dirty_codes"] = saved
             print(f"K12 shape NT={nt} min blocks/SM={minb}: {ms:.4f} "
-                  f"ms back to back; device {_by_line(by)}", flush=True)
+                  f"ms back to back; device {_by_text(by)}", flush=True)
 
 
 #: clock64 marks substituted into a copy of a rebalance.cu without KT_MARK
@@ -1977,7 +1976,7 @@ def probe_k13(CS, dev, trees):
                       f" with its timing, kernel_ms {tm.get('kernel_ms')});"
                       " pieces: " + "; ".join(f"{k} {v:.4f}"
                                               for k, v in parts.items())
-                      + f"; device by activity: {_by_line(by)}", flush=True)
+                      + f"; device by activity: {_by_text(by)}", flush=True)
 
                 def kern(RD=RD):
                     return RD.score_kernel(*ins, 1000, 50)

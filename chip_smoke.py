@@ -11,9 +11,9 @@ scheduling cycle at the synthetic-stress size of BASELINE config 5
 (bench.py's mix: 100,000 bindings x 5,000 clusters, region spread
 included; chunk 4096, 8 waves, carry on).  Every cycle encodes and
 decodes through the C paths (encode_fast.c, decode_fast.c); phases 3, 4,
-6-10 log the bindings the C encode filled, its encode_one misses, the
-rows each decoder built and the garbage collector's collections and
-pauses in the cycle, and fail if any binding was encoded through
+6-9, 12b, 14b and 14c log the bindings the C encode filled, its
+encode_one misses, the rows each decoder built and the garbage
+collector's collections and pauses in the cycle, and fail if any binding was encoded through
 native=False (phases 3 and 8 also if no row went through decode_coo):
 
   1. device and build: the card's name and power limit, nvcc's register /
@@ -76,30 +76,24 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      steady cycles upload no binding field;
  10. the rebalance loop on the port's control plane (store, runtime,
      scheduling queue, Scheduler, graceful eviction, rebalance plane):
-     config 5's fleet and forward bindings restored into an ObjectStore
-     with phase 3's placements, as after a restart on a converged fleet
-     (members report what they run as allocated pods, and at least that
-     as allocatable pods), then the 8 clusters with the most Divided
-     replicas among those no Duplicated or StaticWeight affinity names
-     crushed to 60% of the pods they hold; a Scheduler (chunk 4096, 8
-     waves, rebalance every 30 s, threshold 1000 milli, spread
-     report-only, at most 512 evictions a cycle, 128 per cluster a
-     minute) and a GracefulEvictionController (600 s grace) on one fake
-     clock; advance 30 s and tick until the plane converges (at most 40
-     rounds), then past the grace period until every drain settled.
-     10a: REBALANCE_PARITY_BINDINGS bindings, no headroom, the loop on
-     the card and on the CPU -- converged, equal per-cycle snapshots,
-     eviction tasks, promotions and final placements; then the recipe as
-     first specified (configured pods kept, the 8 clusters with the most
-     Divided replicas crushed) for REBALANCE_AS_STATED_ROUNDS rounds on
-     the card, with a census of the placements against the configured
-     pods.  10b: REBALANCE_BINDINGS bindings on the card, allocatable
-     pods REBALANCE_HEADROOM_MILLI/1000 of what a member holds --
-     converged with every cluster within its capacity, no conservation
-     violation, no pending drain, every evicted binding re-placed, no
-     contained fault (scheduler, plane, runtime), K13 once per detect
-     cycle and K1-K4 launched; the census, and per detect cycle and per
-     scheduler cycle a line of host seconds by stage;
+     config 5's fleet and its first REBALANCE_PARITY_BINDINGS forward
+     bindings restored into an ObjectStore with phase 3's placements, as
+     after a restart on a converged fleet (members report what they run
+     as allocated pods, and at least that as allocatable pods), then the
+     8 clusters with the most Divided replicas among those no Duplicated
+     or StaticWeight affinity names crushed to 60% of the pods they hold;
+     a Scheduler (chunk 4096, 8 waves, rebalance every 30 s, threshold
+     1000 milli, spread report-only, at most 512 evictions a cycle, 128
+     per cluster a minute) and a GracefulEvictionController (600 s grace)
+     on one fake clock; advance 30 s and tick until the plane converges
+     (at most 40 rounds), then past the grace period until every drain
+     settled -- on the card and on the CPU: converged, equal per-cycle
+     snapshots, eviction tasks, promotions and final placements; then the
+     recipe as first specified (configured pods kept, the 8 clusters with
+     the most Divided replicas crushed) for REBALANCE_AS_STATED_ROUNDS
+     rounds on the card, with a census of the placements against the
+     configured pods.  (The loop at config 5's fleet width, through the
+     member model, is phase 14b.)
  11. the native host paths: (a) encode_batch on phase 3's first chunk
      (4,096 x 5,000), on a megafleet chunk (4,096 x 10,000) and on phase
      4's first chunk (every binding with previous clusters: all C misses),
@@ -117,25 +111,29 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      ops/serial.schedule says;
  12. the propagation loop: the port's ControlPlane (admission, detector,
      the Scheduler's device cycle, binding -> Work, execution into the
-     member simulators, Work / binding / cluster status) driven as a user
-     drives it -- members joined with config 5's fleet (allocatable cpu,
-     memory in Gi, pods, region, provider; nothing running), one
-     ClusterPropagationPolicy per config-5 placement selecting its
-     Deployments by label, an image override on LOOP_OVERRIDDEN's
-     placements for members in two regions, config 5's bindings applied
-     as Deployments -- and ticked until a tick changes nothing (at most
-     LOOP_TICKS), one line a tick with the host seconds by controller,
-     the scheduler cycles' stages, the Cluster-event scans and the
-     collector's pauses.  12a: LOOP_PARITY_MEMBERS members and
-     LOOP_PARITY_TEMPLATES templates (the placements drawn over their
-     names) on the card against device="cpu": equal snapshots (every
-     object of the plane and of each member; uids from a counter,
-     resourceVersions and times cleared).  12b: all 5,000 members and
-     --loop-templates (LOOP_TEMPLATES) templates on the card: quiescent,
-     every binding scheduled or failing on the serial path too (a sample),
-     each binding's targets running on its members, the templates'
-     readyReplicas the members', no contained fault or failed sync,
-     K1-K4 launched;
+     member simulators, Work / binding / cluster status, the failover
+     controllers, leases and lifecycle) on a fake clock only the phase
+     moves, driven as a user drives it -- members joined with config 5's
+     fleet (allocatable cpu, memory in Gi, pods, region, provider;
+     nothing running) and ticked once, one ClusterPropagationPolicy per
+     config-5 placement selecting its Deployments by label, an image
+     override on LOOP_OVERRIDDEN's placements for members in two regions,
+     config 5's bindings applied as Deployments -- and ticked until a tick
+     changes nothing (at most LOOP_TICKS), one line a tick with the host
+     seconds by controller, the scheduler cycles' stages, the
+     Cluster-event scans and the collector's pauses.  12a:
+     LOOP_PARITY_MEMBERS members and LOOP_PARITY_TEMPLATES templates (the
+     placements drawn over their names) on the card against
+     device="cpu": equal snapshots (every object of the plane and of each
+     member; uids from a counter, resourceVersions and times cleared).
+     12b: all 5,000 members with the pods config 5 gives them and
+     --loop-templates (LOOP_TEMPLATES) templates on the card, the
+     rebalance plane armed (phase 10's config; a detect's drains
+     printed): quiescent, every binding
+     scheduled or failing on the serial path too (a sample), each
+     binding's targets running on its members, the templates'
+     readyReplicas the members', no contained fault or failed sync, K1-K4
+     launched; phase 14b and 14c continue on this plane;
  13. the device lifecycle on config 5's fleet: (a) resolve_backend
      ("device") through the real probe subprocess -- K14 probe_mm on
      every visible card, its launch count reported back -- answering
@@ -156,8 +154,9 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      variants phase 3's cycle dispatches (plain, carry): every label
      done with its seconds and device ms, a second call already-warm
      for every label, then one forward 4,096-binding chunk beside phase
-     3's first (timed alone just before phase 3); (d) phase 12a's plane
-     under the mid-serve guard (a timeout shorter than any device
+     3's first (timed alone just before phase 3); (d) phase 12a's
+     members and placements with GUARD_TEMPLATES templates under the
+     mid-serve guard (a timeout shorter than any device
      cycle, device_recover_cycles=1): the real device cycle is
      abandoned, the plane degrades to native with every binding of
      that cycle given its outcome, the harness raises the timeout, the
@@ -166,7 +165,33 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      to an unguarded run's that takes the same backend per cycle; then
      again with the zombie held right after its chunk's dispatch (its
      waves queued on the card) through every later cycle, released
-     after the loop, with the same checks.
+     after the loop, with the same checks;
+ 14. failover and rebalance on the member model (run after phase 12a and
+     12b, before 13): (a) phase 12a's recipe with the rebalance plane
+     armed, on the card and with device="cpu": built and quiescent;
+     FAILOVER_FAILED members (the most replicas) unhealthy; the clock
+     past the 300 s toleration, then 30 s a round, to quiescence with no
+     eviction queued or waiting and every eviction task drained (the
+     eviction queue at the ControlPlane's default 100 a second, drained
+     a second at a time as the time passes: pass_time); the members recovered; room for the capacity-blind
+     placements through the member model (give_room); FAILOVER_CRUSHED
+     members crushed to 60% of the pods they hold, 30 s a tick until the
+     rebalance plane converged and every drain settled -- equal
+     snapshots card vs CPU after each step, every step quiescent with no
+     contained fault, every cycle on backend "device".  (b) phase 10b
+     through the member model on phase 12b's plane, after 12b's checks:
+     give_room (logging the members the capacity-blind replicas alone
+     put over their configured pods), then MEMBER_CRUSHED members (the
+     most Divided replicas among those no Duplicated or StaticWeight
+     affinity names) crushed to 60% of the pods they hold,
+     so the collector reports them; 30 s a tick to convergence and past
+     the 600 s grace until every drain settled: converged with every
+     cluster within its capacity, no conservation violation, no pending
+     drain, every evicted binding re-placed, no contained fault, K13 once
+     per detect cycle, K1-K4 launched.  (c) a regional outage on the same
+     plane (phase_outage), one line a tick with the taint manager's and
+     the eviction queue's seconds.  Launch counters are reset just before
+     14b and 14c and read just after each.
 
 Phase 2 also holds K7 (on the first forward chunk's wave 0 as
 schedule_core launches it -- the chunk's workspace, the batch's
@@ -255,7 +280,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 SCALAR_OPS_PER_S = 67e12   # H100 SXM fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense (data sheet)
 WIDE_BINDINGS = 16_384     # phase 6's cycle
-EXPLAIN_BINDINGS = 1_024   # phase 7's cycle (2,048 until phase 12 took the time)
+EXPLAIN_BINDINGS = 512     # phase 7's cycle (2,048 until phase 12, 1,024
+                           # until phase 14 took the time)
 EXPLAIN_CHUNK = 1_024      # the JAX Scheduler's default pipeline_chunk
 MEGAFLEET_BINDINGS = 1_000_000  # phase 8's cycle (MEGAFLEET_r01.json's scale)
 MEGA_CLUSTERS = 10_000
@@ -3303,15 +3329,22 @@ def phase_parity_shortlist(items, fleet, args, dev) -> None:
 # -- phase 10: the rebalance loop on the control plane ------------------------
 
 REBALANCE_PARITY_BINDINGS = 2_000   # phase 10a's roster
-REBALANCE_BINDINGS = 12_500         # phase 10b's roster (config 5's first
-                                    # ones; 25,000 until phase 12 took the time)
 REBALANCE_CRUSHED = 8
 REBALANCE_ROUNDS = 40
 REBALANCE_AS_STATED_ROUNDS = 3      # the recipe as first specified, bounded
 REBALANCE_GRACE_S = 600.0
-#: phase 10b's allocatable pods on a member that is not crushed, x1000 of
-#: the pods it runs (at least its configured pods); 10a runs at 1000
-REBALANCE_HEADROOM_MILLI = 1250
+#: BASELINE config 5's loop: 30 s cycles, threshold 1000 milli, spread
+#: report-only, 512 evictions a cycle, 128 per cluster a minute (phases
+#: 10 and 14)
+REBALANCE_CFG = dict(
+    interval_s=30, overcommit_threshold_milli=1000, spread_tolerance_milli=0,
+    max_evictions_per_cycle=512, budget_per_cluster=128, budget_interval_s=60)
+
+
+def rebalance_cfg():
+    from karmada_tpu_torch.rebalance import RebalanceConfig
+
+    return RebalanceConfig(**REBALANCE_CFG)
 
 
 class FakeClock:
@@ -3327,22 +3360,22 @@ class FakeClock:
         self.t += s
 
 
-def restore_store(M, fleet, items, results, headroom_milli=None):
+def restore_store(M, fleet, items, results, converged=False):
     """An ObjectStore holding the fleet and `items` as phase 3 placed them,
     as after a restart: each placed binding carries its targets,
     Scheduled=True and its observed generation; each binding phase 3
     could not place carries Scheduled=False.  Then REBALANCE_CRUSHED
     clusters have their allocatable pods crushed to 60% of what they hold.
 
-    With `headroom_milli` None, the recipe as first specified: members
-    keep their configured pods, and the crushed clusters are those with
-    the most Divided replicas.  Otherwise the fleet restored converged:
-    every member reports the replicas placed on it as allocated pods and
-    as allocatable pods its configured pods or `headroom_milli`/1000 times
-    what it runs, the larger; the crushed clusters are those with the
-    most Divided replicas among the ones no Duplicated or StaticWeight
-    affinity names (a re-solve puts capacity-blind placements back, and
-    Duplicated load is never drained).
+    Not `converged`: the recipe as first specified -- members keep their
+    configured pods, and the crushed clusters are those with the most
+    Divided replicas.  `converged`: the fleet restored converged -- every
+    member reports the replicas placed on it as allocated pods and as
+    allocatable pods its configured pods or what it runs, the larger; the
+    crushed clusters are those with the most Divided replicas among the
+    ones no Duplicated or StaticWeight affinity names (a re-solve puts
+    capacity-blind placements back, and Duplicated load is never
+    drained).
 
     Returns the store, the crushed names, the seconds the creates took,
     and a census of the placements against the configured pods."""
@@ -3376,7 +3409,6 @@ def restore_store(M, fleet, items, results, headroom_milli=None):
     fullest = sorted(div, key=lambda n: (-div[n], n))
     census["fullest_pinned"] = sum(
         n in pinned for n in fullest[:REBALANCE_CRUSHED])
-    converged = headroom_milli is not None
     crushed = [n for n in fullest
                if not (converged and n in pinned)][:REBALANCE_CRUSHED]
     t0 = time.perf_counter()
@@ -3388,8 +3420,7 @@ def restore_store(M, fleet, items, results, headroom_milli=None):
         if c.name in crushed:
             s.allocatable["pods"] = M.Quantity.from_units(h * 600 // 1000)
         elif converged:
-            s.allocatable["pods"] = M.Quantity.from_units(
-                max(pods[c.name], h * headroom_milli // 1000))
+            s.allocatable["pods"] = M.Quantity.from_units(max(pods[c.name], h))
         if converged:
             s.allocated["pods"] = M.Quantity.from_units(h)
         store.create(c)
@@ -3432,7 +3463,6 @@ def rebalance_loop(store, dev, label, verbose, rounds=REBALANCE_ROUNDS):
     from karmada_tpu_torch.controllers.failover import (
         GracefulEvictionController,
     )
-    from karmada_tpu_torch.rebalance import RebalanceConfig
     from karmada_tpu_torch.scheduler import Scheduler, SchedulingQueue
     from karmada_tpu_torch.store import Runtime
 
@@ -3441,11 +3471,7 @@ def rebalance_loop(store, dev, label, verbose, rounds=REBALANCE_ROUNDS):
     sched = Scheduler(
         store, rt, device=dev, batch_window=4096, pipeline_chunk=4096,
         waves=8, queue=SchedulingQueue(now=clock), rebalance=30.0,
-        rebalance_cfg=RebalanceConfig(
-            interval_s=30, overcommit_threshold_milli=1000,
-            spread_tolerance_milli=0, max_evictions_per_cycle=512,
-            budget_per_cluster=128, budget_interval_s=60),
-        rebalance_clock=clock)
+        rebalance_cfg=rebalance_cfg(), rebalance_clock=clock)
     GracefulEvictionController(store, rt, grace_period_s=REBALANCE_GRACE_S,
                                clock=clock)
     plane = sched.rebalance_plane
@@ -3546,7 +3572,7 @@ def phase_rebalance_parity(M, fleet, items, results, dev) -> None:
     runs = {}
     for d in (dev, torch.device("cpu")):
         store, crushed, _, census = restore_store(
-            M, fleet, items[:n], results[:n], headroom_milli=1000)
+            M, fleet, items[:n], results[:n], converged=True)
         runs[d.type] = rebalance_loop(store, d, "10a", verbose=False)
     a, b = runs["cuda"], runs["cpu"]
     log(f"phase 10a rebalance parity: {n} bindings x {len(fleet)} clusters,"
@@ -3582,69 +3608,6 @@ def phase_rebalance_parity(M, fleet, items, results, dev) -> None:
     if r["faults"] or any(r["errors"].values()):
         raise AssertionError(f"phase 10a as first specified: contained "
                              f"faults {r['faults']} {r['errors']}")
-
-
-def phase_rebalance(M, fleet, items, results, dev) -> dict:
-    """Phase 10b: the closed loop at config 5's scale on the card, the
-    fleet restored converged with REBALANCE_HEADROOM_MILLI.  Returns the
-    launch counts of the loop."""
-    from karmada_tpu_torch.ops import kernels
-
-    t0 = time.perf_counter()
-    store, crushed, create_s, census = restore_store(
-        M, fleet, items, results, headroom_milli=REBALANCE_HEADROOM_MILLI)
-    log(f"phase 10b restore: {len(items)} bindings x {len(fleet)} clusters "
-        f"created in {create_s:.2f} s; {census_line(census)}; crushed "
-        f"{crushed}")
-    from karmada_tpu_torch import native
-
-    torch.cuda.synchronize()
-    kernels.reset_counts()
-    native.reset_counts()
-    run = rebalance_loop(store, dev, "10b", verbose=True)
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    log(native_line("10b", native.COUNTS))
-    check_native("10b", native.COUNTS, need_coo=False)
-    st = run["stats"]
-    log(f"phase 10b rebalance loop: converged {run['converged']} in "
-        f"{run['rounds']} round(s), drains settled in {run['drain_rounds']}"
-        f" grace round(s); {run['cycles']} detect cycles, {st['evictions']}"
-        f" evictions, {st['conservation_violations']} violations, "
-        f"{run['pending']} pending drains; loop wall {run['wall']:.2f} s, "
-        f"final store.list {run['list_s']:.2f} s, phase "
-        f"{time.perf_counter() - t0:.2f} s; launches {launches}")
-    bad = []
-    if not run["converged"]:
-        bad.append("not converged")
-    if st["conservation_violations"]:
-        bad.append(f"{st['conservation_violations']} violations")
-    if run["pending"]:
-        bad.append(f"{run['pending']} pending drains")
-    if run["faults"] or any(run["errors"].values()):
-        bad.append(f"contained faults {run['faults']} {run['errors']}")
-    if not st["evictions"]:
-        bad.append("no eviction")
-    over = [n for n, r in run["converged_snap"].get("clusters", {}).items()
-            if r["capacity"] > 0 and r["over_milli"] > 1000]
-    if over:
-        bad.append(f"over threshold at convergence: {over[:8]}")
-    evicted = {key for key, _p, _o in run["promoted"]}
-    unplaced = [k for k in evicted
-                if not run["final"][k][1]
-                or run["final"][k][1][0][:2] != ("Scheduled", "True")
-                or run["final"][k][2] != run["final"][k][3]]
-    if unplaced:
-        bad.append(f"{len(unplaced)} evicted bindings not re-placed")
-    if launches["rebalance_score"] != run["cycles"]:
-        bad.append(f"K13 launched {launches['rebalance_score']} times in "
-                   f"{run['cycles']} detect cycles")
-    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
-        if launches[k] <= 0:
-            bad.append(f"kernel {k} never launched")
-    if bad:
-        raise AssertionError("phase 10b: " + "; ".join(bad))
-    return launches
 
 
 def phase_kernel_k13(fleet, results, dev, reps, parent=None) -> dict:
@@ -3765,7 +3728,8 @@ def phase_kernel_k13(fleet, results, dev, reps, parent=None) -> dict:
 
 #: phase 11b's bindings through the C++ control (config 5's first ones)
 NATIVE_CONTROL_BINDINGS = 10_000  # 25,000 until phase 12 took the time
-NATIVE_SAMPLE = 256        # 11b's stride sample through ops/serial.schedule
+NATIVE_SAMPLE = 64         # 11b's stride sample through ops/serial.schedule
+                           # (256 until phase 14 took the time)
 NATIVE_STORE_SAMPLE = 128  # 11c's stride sample
 
 
@@ -3963,7 +3927,7 @@ def phase_native_store(M, fleet, items, results) -> None:
 
     n = REBALANCE_PARITY_BINDINGS
     recipe, crushed, _, _ = restore_store(M, fleet, items[:n], results[:n],
-                                          headroom_milli=1000)
+                                          converged=True)
     store, rt, clock = ObjectStore(), Runtime(), FakeClock()
     for c in recipe.list("Cluster"):
         store.create(c)
@@ -4078,22 +4042,49 @@ def loop_template(b, spec, n_placements):
                             }}}]}}}}
 
 
+def pinned_room(placements, items) -> dict:
+    """The pods the capacity-blind placements pin on each member: every
+    Duplicated template's replicas, and every StaticWeight template's
+    replicas whole (a bound over any split, also after a member of the
+    affinity fails), on each member their affinity names (give_room)."""
+    room = {}
+    for b, (spec, _st) in enumerate(items):
+        p = placements[b % len(placements)]
+        rs = p.replica_scheduling
+        aff = p.cluster_affinity
+        if aff is None or rs is None:
+            continue
+        if rs.replica_scheduling_type == "Duplicated" or (
+                rs.replica_division_preference == "Weighted"
+                and rs.weight_preference is None):
+            for n in aff.cluster_names:
+                room[n] = room.get(n, 0) + spec.replicas
+    return room
+
+
 def build_loop(M, dev, fleet, placements, items, **cp_kw):
     """A ControlPlane on `dev` (config 5's chunk, waves and batch window)
-    with `fleet` joined as members (allocatable cpu, memory in Gi and
-    pods, region, provider; nothing running), one ClusterPropagationPolicy
-    a placement selecting its templates by label, an image override on
-    the templates of LOOP_OVERRIDDEN's placements for members in regions
-    r0 and r1, and `items` applied as Deployments.  Returns the plane and
-    the seconds of each step.  `cp_kw` goes to the ControlPlane (phase
-    13d's guard)."""
+    on a FakeClock that only the phase moves (`cp.clock`), with `fleet`
+    joined as members (allocatable cpu, memory in Gi and pods, region,
+    provider; nothing running) and ticked once (the lifecycle's finalizers
+    and execution spaces, the first heartbeat Leases), one
+    ClusterPropagationPolicy a placement selecting its templates by
+    label, an image override on the templates of LOOP_OVERRIDDEN's
+    placements for members in regions r0 and r1, and `items` applied as
+    Deployments.  Returns the plane and the seconds of each step.
+
+    The scheduling queue's backoffs read the plane's clock too (the
+    ControlPlane's own queue reads the wall clock); run_loop moves the
+    clock past them.  `cp_kw` goes to the ControlPlane (phase 13d's
+    guard, the rebalance plane of phases 12b and 14)."""
     import copy
 
     from karmada_tpu_torch.e2e import ControlPlane
 
     t0 = time.perf_counter()
     cp = ControlPlane(device=dev, pipeline_chunk=4096, waves=8,
-                      batch_window=4096, **cp_kw)
+                      batch_window=4096, clock=FakeClock(), **cp_kw)
+    cp.scheduler.queue.now = cp.clock
     for c in fleet:
         a = c.status.resource_summary.allocatable
         cp.add_member(c.name, cpu_milli=a["cpu"].milli,
@@ -4102,6 +4093,7 @@ def build_loop(M, dev, fleet, placements, items, **cp_kw):
                       provider=c.spec.provider, collect=False)
     t1 = time.perf_counter()
     cp.cluster_status.collect_all()
+    cp.tick(rounds=1)
     t2 = time.perf_counter()
     for p, placement in enumerate(placements):
         cp.apply_policy(M.ClusterPropagationPolicy(
@@ -4134,7 +4126,7 @@ def build_loop(M, dev, fleet, placements, items, **cp_kw):
     for b, (spec, _st) in enumerate(items):
         cp.apply(loop_template(b, spec, len(placements)))
     t4 = time.perf_counter()
-    return cp, {"join_s": t1 - t0, "collect_s": t2 - t1,
+    return cp, {"join_s": t1 - t0, "collect_tick_s": t2 - t1,
                 "policies_s": t3 - t2, "templates_s": t4 - t3}
 
 
@@ -4150,7 +4142,12 @@ class LoopClock:
             w.reconcile = self._wrap(w.name, w.reconcile)
         names = {cp.scheduler._periodic_flush: "scheduler-flush",
                  cp.cluster_status.collect_all: "cluster-status",
-                 cp.graceful_eviction.resync: "eviction-resync"}
+                 cp.graceful_eviction.resync: "eviction-resync",
+                 cp.lease_monitor.check_all: "cluster-lease",
+                 cp.cluster_lifecycle._resync_deleting: "lifecycle-resync",
+                 cp.taint_manager._flush_deadlines: "taint-manager-flush",
+                 cp.eviction_queue.drain: "eviction-queue",
+                 cp.app_failover.run_once: "application-failover"}
         if cp.scheduler.rebalance_plane is not None:
             names[cp.scheduler.rebalance_plane.maybe_run] = "rebalance"
         periodic = cp.runtime._periodic  # noqa: SLF001 — the harness's probe
@@ -4182,10 +4179,20 @@ def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
     """cp.tick(rounds=1) until a tick changes nothing (no write in the
     control plane or a member) or max_ticks; one line a tick with the
     host seconds by controller, the scheduler cycles' stage seconds, the
-    Cluster-event scans and the collector's pauses.  Returns (ticks,
-    converged, wall)."""
-    clock = LoopClock(cp)
-    seen, ticks, converged = 0, 0, False
+    Cluster-event scans and the collector's pauses (a tick's line also
+    holds what pass_time drained before it).  A tick that changes
+    nothing while the scheduling queue holds bindings in backoff moves
+    the plane's clock past the longest backoff and ticks again: the
+    loop is quiescent when a tick changes nothing with no backoff left,
+    or right after such a move.  Returns (ticks, converged, wall).  The
+    host seconds are taken by one LoopClock a plane, made at its first
+    run."""
+    clock = getattr(cp, "_host_seconds", None) or LoopClock(cp)
+    cp._host_seconds = clock
+    log_ = cp.scheduler.cycle_log
+    seen = log_[-1]["cycle_id"] if log_ else 0
+    ticks, converged, moved = 0, False, False
+    queue = cp.scheduler.queue
     t_loop = time.perf_counter()
     while ticks < max_ticks:
         rev = loop_revision(cp)
@@ -4214,9 +4221,14 @@ def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
                 f"Cluster events {cp.scheduler.cluster_events - ev0} "
                 f"scanned in {cp.scheduler.cluster_event_s - evs0:.3f} s; "
                 f"{GC.line()}")
-        if loop_revision(cp) == rev:
+        if loop_revision(cp) != rev:
+            moved = False
+        elif moved or not queue.depths()["backoff"]:
             converged = True
             break
+        elif ticks < max_ticks:
+            cp.clock.advance(queue.max_backoff_s)
+            moved = True
     return ticks, converged, time.perf_counter() - t_loop
 
 
@@ -4304,7 +4316,8 @@ def phase_loop(M, fleet, placements, items, dev) -> dict:
 
     t0 = time.perf_counter()
     with UidSeq():
-        cp, steps = build_loop(M, dev, fleet, placements, items)
+        cp, steps = build_loop(M, dev, fleet, placements, items,
+                               rebalance=30.0, rebalance_cfg=rebalance_cfg())
     log(f"phase 12b loop built: {len(fleet)} members, {len(placements)} "
         f"policies, {len(LOOP_OVERRIDDEN)} overrides, {len(items)} "
         f"templates; host seconds "
@@ -4377,8 +4390,566 @@ def phase_loop(M, fleet, placements, items, dev) -> dict:
     for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
         if launches[k] <= 0:
             bad.append(f"kernel {k} never launched")
+    plane = cp.scheduler.rebalance_plane
+    drained = plane.stats()["evictions"]
+    if drained:
+        log(f"phase 12b: the rebalance plane drained {drained} replica "
+            f"allotment(s) in {plane.stats()['cycles']} detect(s)")
     if bad:
         raise AssertionError(f"phase 12b: {len(bad)} failed checks: "
+                             + "; ".join(bad[:8]))
+    return launches, cp
+
+
+# -- phase 14: failover and rebalance on the member model ---------------------
+
+FAILOVER_FAILED = 4           # 14a: members that fail
+FAILOVER_CRUSHED = 2          # 14a: members crushed to 60% of their pods
+MEMBER_CRUSHED = 8            # 14b (10b's count)
+CRUSH_MILLI = 600             # a crushed member keeps 60% of the pods it holds
+FAILOVER_STEP_S = 30.0
+TOLERATION_S = 300.0          # the default not-ready / unreachable toleration
+SETTLE_ROUNDS = 40
+
+
+#: 14c's ClusterTaintPolicy: a NoSchedule taint while a member is not
+#: Ready.  The not-ready taint the taint controller adds is NoExecute
+#: only, and the defaulted 300 s not-ready toleration tolerates it in the
+#: scheduler's filter, so without this policy a Duplicated binding's
+#: re-solve puts replicas back on failed members whose eviction drained.
+OUTAGE_TAINT_POLICY = {
+    "apiVersion": "policy.karmada.io/v1alpha1", "kind": "ClusterTaintPolicy",
+    "metadata": {"name": "unschedulable-while-not-ready"},
+    "spec": {
+        "addOnConditions": [{"conditionType": "Ready", "operator": "In",
+                             "statusValues": ["False", "Unknown"]}],
+        "removeOnConditions": [{"conditionType": "Ready", "operator": "In",
+                                "statusValues": ["True"]}],
+        "taints": [{"key": "outage.example.io/not-ready",
+                    "effect": "NoSchedule"}]}}
+
+
+def failover_busy(cp) -> dict:
+    """What the failover loop still has in flight: queued evictions,
+    tolerations waiting out their deadline, graceful eviction tasks."""
+    tasks = sum(len(rb.spec.graceful_eviction_tasks)
+                for rb in cp.store.visit("ResourceBinding"))
+    return {"queued": cp.eviction_queue.pending(),
+            "deadlines": len(cp.taint_manager._pending),  # noqa: SLF001
+            "tasks": tasks}
+
+
+def pass_time(cp, seconds: float) -> None:
+    """Move the plane's clock `seconds` forward, a second at a time, with
+    the rate-limited eviction queue drained at each second, as its
+    periodic hook drains it every half second in serve mode: the queue
+    evicts at its pace over the time that passed, and the next tick
+    re-places what it evicted.  Its seconds join the "eviction-queue"
+    reading of the next tick's line."""
+    t0 = time.perf_counter()
+    whole = int(seconds)
+    for _ in range(whole):
+        cp.clock.advance(1.0)
+        cp.eviction_queue.drain()
+    if seconds > whole:
+        cp.clock.advance(seconds - whole)
+    clock = getattr(cp, "_host_seconds", None)
+    if clock is not None:
+        clock.s["eviction-queue"] = (clock.s.get("eviction-queue", 0.0)
+                                     + time.perf_counter() - t0)
+
+
+def settle_failover(cp, label, verbose, first_step_s):
+    """Pass `first_step_s` of the plane's time (pass_time), then
+    FAILOVER_STEP_S a round, ticking to quiescence each round, until no
+    eviction is queued or waiting and every graceful eviction task
+    drained (at most SETTLE_ROUNDS rounds, the last ones past the grace
+    period).  The eviction queue drains at its own rate (the
+    ControlPlane's default, 100 a second) a second at a time within each
+    round.  Returns (rounds, quiescent every round, busy at the end)."""
+    step, rounds, quiet = first_step_s, 0, True
+    while rounds < SETTLE_ROUNDS:
+        pass_time(cp, step)
+        _ticks, converged, _wall = run_loop(cp, label, verbose)
+        quiet = quiet and converged
+        rounds += 1
+        busy = failover_busy(cp)
+        if not any(busy.values()):
+            break
+        # only drains waiting on their grace left: step past it
+        step = (REBALANCE_GRACE_S if not busy["queued"]
+                and not busy["deadlines"] and rounds >= 4
+                else FAILOVER_STEP_S)
+    return rounds, quiet, failover_busy(cp)
+
+
+def settle_rebalance(cp, label, verbose, detects0):
+    """Advance the plane's clock and tick, a tick at a time, until the
+    rebalance plane converged in a detect after `detects0` with every
+    drain settled (at most REBALANCE_ROUNDS ticks): FAILOVER_STEP_S a
+    tick, or past the grace period while the plane is converged with
+    drains pending; then tick to quiescence.  Returns (ticks, grace
+    ticks, quiescent at the end, the last converged detect's
+    snapshot)."""
+    plane = cp.scheduler.rebalance_plane
+    ticks = grace = 0
+    snap = {}
+    while ticks < REBALANCE_ROUNDS:
+        detected = plane.stats()["cycles"] > detects0
+        if detected and plane.converged():
+            snap = plane.stats()["last"]
+            if not plane.pending_drains():
+                break
+            cp.clock.advance(REBALANCE_GRACE_S)
+            grace += 1
+        else:
+            cp.clock.advance(FAILOVER_STEP_S)
+        run_loop(cp, label, verbose, max_ticks=1)
+        ticks += 1
+    _t, quiet, _w = run_loop(cp, label, verbose)
+    return ticks, grace, quiet, snap
+
+
+def divided_load(cp):
+    """Divided replicas by member, and the members a Duplicated or
+    StaticWeight affinity names (a re-solve puts those placements back,
+    and Duplicated load is never drained)."""
+    from karmada_tpu_torch.ops import serial
+
+    div, pinned = {}, set()
+    for rb in cp.store.visit("ResourceBinding"):
+        strat = serial.strategy_type(rb.spec)
+        aff = rb.spec.placement.cluster_affinity if rb.spec.placement \
+            else None
+        if aff is not None and strat in (serial.DUPLICATED,
+                                         serial.STATIC_WEIGHT):
+            pinned.update(aff.cluster_names)
+        if strat != serial.DUPLICATED:
+            for t in rb.spec.clusters:
+                div[t.name] = div.get(t.name, 0) + t.replicas
+    return div, pinned
+
+
+def give_room(cp, label, placements, items) -> dict:
+    """Before a crush on the member model (14a, 14b): every member a
+    Duplicated or StaticWeight affinity names gets pinned_room's pods on
+    top of those it was configured with, through the member model
+    (`pods_allocatable`; the collector reports it).  The rebalance plane
+    converges only when no cluster is over its capacity, and it never
+    drains Duplicated load: a member that capacity-blind placements alone
+    put over capacity would keep a drain need no eviction meets.  Logs
+    those members (over with the pinned replicas the store holds there
+    alone, against their configured pods) apart.  Returns the room."""
+    from karmada_tpu_torch.ops import serial
+
+    held = {}
+    for rb in cp.store.visit("ResourceBinding"):
+        if serial.strategy_type(rb.spec) in (serial.DUPLICATED,
+                                             serial.STATIC_WEIGHT):
+            for t in rb.spec.clusters:
+                held[t.name] = held.get(t.name, 0) + t.replicas
+    over = sorted((m, n, cp.member(m).pods_allocatable)
+                  for m, n in held.items()
+                  if n > cp.member(m).pods_allocatable)
+    room = pinned_room(placements, items)
+    for m, pods in room.items():
+        cp.member(m).pods_allocatable += pods
+    # reported before any detect reads the fleet (a tick runs the
+    # rebalance plane's detect before the collector)
+    cp.cluster_status.collect_all()
+    _t, quiet, _w = run_loop(cp, label, verbose=False)
+    log(f"phase {label}: {len(over)} members over their configured pods "
+        f"with capacity-blind (Duplicated, StaticWeight) replicas alone, "
+        f"(member, pinned, pods) first {over[:4]}; {len(room)} members "
+        f"an affinity of those names given {sum(room.values())} pods "
+        f"more through the member model; quiescent {quiet}")
+    return room
+
+
+def crush_members(cp, n):
+    """The `n` members with the most Divided replicas among those no
+    Duplicated or StaticWeight affinity names, their allocatable pods
+    crushed to CRUSH_MILLI/1000 of the pods they hold (the member model:
+    the collector reports it).  Returns [(name, held, kept)]."""
+    div, pinned = divided_load(cp)
+    names = [m for m in sorted(div, key=lambda m: (-div[m], m))
+             if m not in pinned][:n]
+    out = []
+    for m in names:
+        member = cp.member(m)
+        held = member.used_milli()["pods"] // 1000
+        member.pods_allocatable = held * CRUSH_MILLI // 1000
+        out.append((m, held, member.pods_allocatable))
+    return out
+
+
+def record_promotions(cp) -> list:
+    """The (key, origin) of every promotion the Scheduler takes from here
+    on (the rebalance plane promotes what it evicts)."""
+    sched, seen = cp.scheduler, []
+    promote = sched.promote
+
+    def record(key, priority=0, origin="rebalance"):
+        seen.append((key, origin))
+        return promote(key, priority=priority, origin=origin)
+    sched.promote = record
+    return seen
+
+
+def failover_run(M, dev, fleet, placements, items) -> tuple:
+    """14a's steps on `dev`: the plane built and ticked to quiescence;
+    FAILOVER_FAILED members failed; the clock past the toleration and the
+    eviction pacing; the members recovered; FAILOVER_CRUSHED members
+    crushed and the rebalance plane converged with every drain settled.
+    Returns the steps [(name, snapshot, quiescent, faults)], the plane and
+    what each step did."""
+    steps, notes = [], {}
+    with UidSeq():
+        cp, _ = build_loop(M, dev, fleet, placements, items, rebalance=30.0,
+                           rebalance_cfg=rebalance_cfg())
+        seen = record_promotions(cp)
+
+        def step(name, quiet):
+            steps.append((name, loop_snapshot(cp), quiet, loop_faults(cp)))
+
+        _t, quiet, _w = run_loop(cp, "14a", verbose=False)
+        step("built", quiet)
+        held = {}
+        for rb in cp.store.visit("ResourceBinding"):
+            for t in rb.spec.clusters:
+                held[t.name] = held.get(t.name, 0) + t.replicas
+        failed = sorted(held, key=lambda m: (-held[m], m))[:FAILOVER_FAILED]
+        for m in failed:
+            cp.member(m).healthy = False
+        pass_time(cp, FAILOVER_STEP_S)
+        _t, quiet, _w = run_loop(cp, "14a", verbose=False)
+        tainted = sum(bool(cp.store.get("Cluster", "", m).spec.taints)
+                      for m in failed)
+        step("failed", quiet)
+        rounds, quiet, busy = settle_failover(cp, "14a", False,
+                                              TOLERATION_S + 1.0)
+        notes["failed"] = (failed, tainted, rounds, busy,
+                           cp.taint_manager.evicted)
+        step("evicted", quiet and not any(busy.values()))
+        for m in failed:
+            cp.member(m).healthy = True
+        pass_time(cp, FAILOVER_STEP_S)
+        _t, quiet, _w = run_loop(cp, "14a", verbose=False)
+        notes["untainted"] = sum(
+            not cp.store.get("Cluster", "", m).spec.taints for m in failed)
+        step("recovered", quiet)
+        give_room(cp, "14a", placements, items)
+        crushed = crush_members(cp, FAILOVER_CRUSHED)
+        detects0 = cp.scheduler.rebalance_plane.stats()["cycles"]
+        rounds, drains, quiet, _snap = settle_rebalance(cp, "14a", False,
+                                                        detects0)
+        plane = cp.scheduler.rebalance_plane
+        notes["crushed"] = (crushed, rounds, drains, plane.converged(),
+                            plane.pending_drains(),
+                            plane.stats()["evictions"])
+        step("rebalanced", quiet and plane.converged()
+             and not plane.pending_drains())
+        notes["promoted"] = len(seen)
+    return steps, cp, notes
+
+
+def phase_failover_parity(M, fleet, items, dev, seed) -> None:
+    """14a: phase 12a's recipe (LOOP_PARITY_MEMBERS members x
+    LOOP_PARITY_TEMPLATES templates) with the rebalance plane armed
+    (phase 10's RebalanceConfig) on a clock only the phase moves, on the
+    card and with device="cpu" (failover_run): equal snapshots after
+    every step, every step quiescent with no contained fault, every
+    scheduler cycle on backend "device"."""
+    t0 = time.perf_counter()
+    fleet = fleet[:LOOP_PARITY_MEMBERS]
+    placements = build_placements(M, random.Random(seed),
+                                  [c.name for c in fleet])
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        t1 = time.perf_counter()
+        steps, cp, notes = failover_run(M, d, fleet, placements,
+                                        items[:LOOP_PARITY_TEMPLATES])
+        runs[d.type] = (steps, notes, time.perf_counter() - t1,
+                        {c["backend"] for c in cp.scheduler.cycle_log},
+                        cp.scheduler.device.type)
+    a, b = runs["cuda"], runs["cpu"]
+    failed, tainted, rounds, busy, evicted = a[1]["failed"]
+    crushed, r_rounds, drains, conv, pending, evictions = a[1]["crushed"]
+    bad = []
+    for (name, snap, quiet, faults), (_n, other, q2, f2) in zip(a[0], b[0]):
+        diff = sorted((k for k in set(snap) | set(other)
+                       if snap.get(k) != other.get(k)), key=repr)
+        log(f"phase 14a {name}: snapshot {len(snap)} objects, differing "
+            f"card vs cpu {len(diff)}; quiescent {quiet} / {q2}")
+        if diff:
+            bad.append(f"{name}: {len(diff)} objects differ, first "
+                       f"{diff[:3]}")
+        if not quiet or not q2 or any(faults.values()) or \
+                any(f2.values()):
+            bad.append(f"{name}: quiescent {quiet} / {q2}, faults {faults}"
+                       f" / {f2}")
+    log(f"phase 14a failover parity: {len(fleet)} members x "
+        f"{LOOP_PARITY_TEMPLATES} templates; failed {failed} ({tainted} "
+        f"tainted NoExecute), settled in {rounds} round(s) with "
+        f"{evicted} taint-manager evictions, {a[1]['untainted']} untainted"
+        f" on recovery; crushed (member, held, kept) {crushed}: converged "
+        f"{conv} in {r_rounds} tick(s) ({drains} past the grace), "
+        f"{evictions} rebalance evictions, {pending} pending drains; "
+        f"{a[1]['promoted']} promotions; card {a[2]:.2f} s, cpu "
+        f"{b[2]:.2f} s; phase {time.perf_counter() - t0:.2f} s")
+    for t, r in runs.items():
+        if r[3] - {"device"} or r[4] != t:
+            bad.append(f"{t}: backends {r[3]}, device {r[4]}")
+    if tainted != len(failed) or not evicted or any(busy.values()):
+        bad.append(f"failover: {tainted} tainted, {evicted} evicted, "
+                   f"still in flight {busy}")
+    if a[1]["untainted"] != len(failed):
+        bad.append(f"{a[1]['untainted']} of {failed} untainted")
+    if not conv or pending or not evictions:
+        bad.append(f"rebalance: converged {conv}, {pending} pending, "
+                   f"{evictions} evictions")
+    if bad:
+        raise AssertionError(f"phase 14a: {len(bad)} failed checks: "
+                             + "; ".join(bad[:8]))
+
+
+def phase_member_rebalance(cp, dev, placements, items) -> dict:
+    """14b: phase 10b through the member model, on phase 12b's plane
+    after it quiesced and its checks: room for the capacity-blind
+    placements (give_room), then MEMBER_CRUSHED members (the most Divided replicas
+    among those no Duplicated or StaticWeight affinity names) crushed to
+    60% of the pods they hold, then FAILOVER_STEP_S a tick to
+    convergence and past the grace period until every drain settled.
+    10b's checks: converged with every cluster within its capacity, no
+    conservation violation, no pending drain, every evicted binding
+    re-placed, no contained fault, K13 once per detect cycle, K1-K4
+    launched.  Returns the launch counts."""
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    plane = cp.scheduler.rebalance_plane
+    give_room(cp, "14b", placements, items)
+    seen = record_promotions(cp)
+    st0 = plane.stats()
+    crushed = crush_members(cp, MEMBER_CRUSHED)
+    log(f"phase 14b crushed (member, held, kept): {crushed}")
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    native.reset_counts()
+    rounds, drains, quiet, snap = settle_rebalance(cp, "14b", True,
+                                                   st0["cycles"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(native_line("14b", native.COUNTS))
+    check_native("14b", native.COUNTS, need_coo=False)
+    st = plane.stats()
+    detects = st["cycles"] - st0["cycles"]
+    evictions = st["evictions"] - st0["evictions"]
+    violations = (st["conservation_violations"]
+                  - st0["conservation_violations"])
+    faults = loop_faults(cp)
+    log(f"phase 14b rebalance through the member model: converged "
+        f"{plane.converged()} in {rounds} tick(s), drains settled in "
+        f"{drains} grace tick(s), quiescent at the end {quiet}; "
+        f"{detects} detect cycles, {evictions} evictions, {violations} "
+        f"violations, {plane.pending_drains()} pending drains; faults "
+        f"{faults}; phase {time.perf_counter() - t0:.2f} s; launches "
+        f"{launches}")
+    bad = []
+    if not plane.converged() or not quiet:
+        bad.append(f"converged {plane.converged()}, quiescent {quiet}")
+    if violations:
+        bad.append(f"{violations} violations")
+    if plane.pending_drains():
+        bad.append(f"{plane.pending_drains()} pending drains")
+    if faults["scheduler"] or faults["reconcile"] or \
+            faults["sync_failures"]:
+        bad.append(f"contained faults {faults}")
+    if not evictions:
+        bad.append("no eviction")
+    over = [n for n, r in snap.get("clusters", {}).items()
+            if r["capacity"] > 0 and r["over_milli"] > 1000]
+    if over:
+        bad.append(f"over threshold at convergence: {over[:8]}")
+    evicted = {key for key, origin in seen if origin == "rebalance"}
+    unplaced = []
+    for ns, name in evicted:
+        rb = cp.store.peek("ResourceBinding", ns, name)
+        cond = [c for c in rb.status.conditions if c.type == "Scheduled"]
+        if not cond or cond[-1].status != "True" or \
+                rb.metadata.generation != \
+                rb.status.scheduler_observed_generation:
+            unplaced.append((ns, name))
+    if unplaced:
+        bad.append(f"{len(unplaced)} evicted bindings not re-placed")
+    if launches["rebalance_score"] != detects:
+        bad.append(f"K13 launched {launches['rebalance_score']} times in "
+                   f"{detects} detect cycles")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} never launched")
+    if bad:
+        raise AssertionError("phase 14b: " + "; ".join(bad))
+    return launches
+
+
+def outage_region(cp) -> str:
+    """The region holding the most replicas of region-spread bindings
+    (its outage re-places them through the spread route, K5 / K6)."""
+    held = {}
+    for rb in cp.store.visit("ResourceBinding"):
+        scs = rb.spec.placement.spread_constraints if rb.spec.placement \
+            else []
+        if not any(sc.spread_by_field == "region" for sc in scs):
+            continue
+        for t in rb.spec.clusters:
+            r = cp.store.peek("Cluster", "", t.name).spec.region
+            held[r] = held.get(r, 0) + t.replicas
+    return min(held, key=lambda r: (-held[r], r))
+
+
+def only_there(rb, healthy, cal) -> bool:
+    """Whether the binding's placement cannot be met without the failed
+    region: the serial path finds no placement on the healthy clusters."""
+    import copy
+
+    from karmada_tpu_torch.ops import serial
+
+    spec = copy.deepcopy(rb.spec)
+    spec.clusters = []
+    try:
+        serial.schedule(spec, rb.status, healthy, cal)
+    except Exception:  # noqa: BLE001 — the outcome asked about
+        return True
+    return False
+
+
+def phase_outage(cp, dev) -> dict:
+    """14c: a regional outage on phase 12b's plane (after 14b), with
+    OUTAGE_TAINT_POLICY applied (a karmada kind through the typed codec):
+    every member of one of config 5's 8 regions unhealthy -- the one
+    holding the most region-spread replicas (outage_region); the clock
+    through the tolerations and the rate-limited eviction queue, ticking
+    to quiescence, until no eviction is queued or waiting and every
+    graceful eviction task drained; then the region recovered.  The
+    failed members tainted NoExecute and untainted (every taint gone)
+    after recovery; no binding keeping a target in the region while it
+    is down unless its placement can only be met there (counted); each
+    binding that left the region holding its replicas; no contained
+    fault, sync failures only toward the failed members; every cycle on
+    the card with K1-K4 launched and K5 / K6 on the region-spread rows.
+    Returns the launch counts."""
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels, serial
+
+    t0 = time.perf_counter()
+    region = outage_region(cp)
+    failed = sorted(m for m in cp.members
+                    if cp.store.peek("Cluster", "", m).spec.region == region)
+    down = set(failed)
+    affected = {(rb.namespace, rb.name)
+                for rb in cp.store.visit("ResourceBinding")
+                if any(t.name in down for t in rb.spec.clusters)}
+    cycles0 = len(cp.scheduler.cycle_log)
+    sync0 = dict(cp.execution.sync_failures_by_cluster)
+    cp.apply(OUTAGE_TAINT_POLICY)
+    _t, quiet, _w = run_loop(cp, "14c", verbose=False)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    native.reset_counts()
+    for m in failed:
+        cp.member(m).healthy = False
+    pass_time(cp, FAILOVER_STEP_S)
+    _t, q1, _w = run_loop(cp, "14c", verbose=True)
+    quiet = quiet and q1
+    tainted = sum(any(t.key == "cluster.karmada.io/not-ready"
+                      and t.effect == "NoExecute"
+                      for t in cp.store.peek("Cluster", "", m).spec.taints)
+                  for m in failed)
+    log(f"phase 14c outage: {len(failed)} members of {region} "
+        f"down, {tainted} tainted NoExecute; {len(affected)} bindings "
+        f"with a target there")
+    rounds, q2, busy = settle_failover(cp, "14c", True, TOLERATION_S + 1.0)
+    quiet = quiet and q2
+    healthy = [c for c in cp.store.visit("Cluster") if c.name not in down]
+    cal = serial.make_cal_available([GeneralEstimator()])
+    stuck, kept, short = [], [], []
+    for rb in cp.store.visit("ResourceBinding"):
+        there = [t.name for t in rb.spec.clusters if t.name in down]
+        if there:
+            (stuck if only_there(rb, healthy, cal) else kept).append(
+                (rb.namespace, rb.name, there))
+        if (rb.namespace, rb.name) not in affected:
+            continue
+        cond = [c for c in rb.status.conditions if c.type == "Scheduled"]
+        if not cond or cond[-1].status != "True":
+            continue
+        strat = serial.strategy_type(rb.spec)
+        reps = [t.replicas for t in rb.spec.clusters]
+        ok = (all(r == rb.spec.replicas for r in reps)
+              if strat == serial.DUPLICATED
+              else sum(reps) == rb.spec.replicas)
+        if not ok:
+            short.append((rb.namespace, rb.name, rb.spec.replicas, reps))
+    evicted = cp.taint_manager.evicted
+    log(f"phase 14c outage settled in {rounds} round(s), the queue at "
+        f"{cp.eviction_queue.rate:g} evictions a second: {evicted} "
+        f"taint-manager evictions, queue "
+        f"{busy}; bindings still in {region}: {len(stuck)} whose "
+        f"placement only the region meets, {len(kept)} others; "
+        f"{len(short)} re-placed bindings off their replicas")
+    for m in failed:
+        cp.member(m).healthy = True
+    pass_time(cp, FAILOVER_STEP_S)
+    _t, q3, _w = run_loop(cp, "14c", verbose=True)
+    quiet = quiet and q3
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(native_line("14c", native.COUNTS))
+    check_native("14c", native.COUNTS, need_coo=False)
+    untainted = sum(not cp.store.peek("Cluster", "", m).spec.taints
+                    for m in failed)
+    cycles = list(cp.scheduler.cycle_log)[cycles0:]
+    sync = {k: v - sync0.get(k, 0)
+            for k, v in cp.execution.sync_failures_by_cluster.items()
+            if v - sync0.get(k, 0)}
+    faults = loop_faults(cp)
+    log(f"phase 14c recovered: {untainted} of {len(failed)} untainted; "
+        f"{len(cycles)} scheduler cycles (backends "
+        f"{sorted({c['backend'] for c in cycles})}); sync failures by "
+        f"cluster {sync}; faults {faults}; quiescent every round {quiet};"
+        f" phase {time.perf_counter() - t0:.2f} s; launches {launches}")
+    if stuck:
+        log(f"phase 14c bindings only {region} can place: "
+            f"{stuck[:8]}")
+    bad = []
+    if tainted != len(failed) or untainted != len(failed):
+        bad.append(f"{tainted} tainted, {untainted} untainted of "
+                   f"{len(failed)}")
+    if any(busy.values()) or not quiet:
+        bad.append(f"not settled: {busy}, quiescent {quiet}")
+    if kept:
+        bad.append(f"{len(kept)} bindings keep a target in the failed "
+                   f"region, first {kept[:4]}")
+    if short:
+        bad.append(f"{len(short)} re-placed bindings off their replicas, "
+                   f"first {short[:4]}")
+    if not evicted:
+        bad.append("no eviction")
+    if faults["scheduler"] or faults["reconcile"]:
+        bad.append(f"contained faults {faults}")
+    if set(sync) - down:
+        bad.append(f"sync failures toward healthy members {sync}")
+    if any(c["backend"] != "device" for c in cycles):
+        bad.append("a rescheduling cycle ran off the card")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact",
+              "spread_group_info", "spread_pick"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} never launched")
+    if bad:
+        raise AssertionError(f"phase 14c: {len(bad)} failed checks: "
                              + "; ".join(bad[:8]))
     return launches
 
@@ -4392,6 +4963,8 @@ MARKER_N_WIDE = 1 << 20
 MARKER_N_ODD = MARKER_N_WIDE + 3  # 13b: an odd length (the scalar tail)
 PROBE_N_RAGGED = 1_000     # 13a: a ragged edge (TMA's zero fill)
 PROBE_N_REFUSED = 100      # 13a: n % 8 != 0, refused with a ValueError
+GUARD_TEMPLATES = 256      # 13d's plane (12a's 512 until phase 14 took
+                           # the time)
 GUARD_TIMEOUT_S = 0.001    # 13d: shorter than any device cycle
 GUARD_RAISED_S = 600.0     # 13d: the timeout once the plane degraded
 GUARD_HOLD_S = 0.5         # 13d held: the zombie is on the card by then
@@ -4800,7 +5373,7 @@ class HoldAfterDispatch:
 
 def guard_run(M, dev, fleet, placements, items, guarded: bool,
               hold: Optional[HoldAfterDispatch] = None):
-    """Phase 12a's plane built on the card and ticked to quiescence.
+    """Phase 13d's plane built on the card and ticked to quiescence.
     Guarded: the mid-serve guard at GUARD_TIMEOUT_S (GUARD_HOLD_S with
     `hold`, which keeps the abandoned cycle's thread after its dispatch
     while the later cycles run) with device_recover_cycles=1, and the
@@ -4889,8 +5462,8 @@ def guard_checks(label, cp, ref, ticks, converged, wall, ref_run,
 
 
 def phase_guard(M, fleet, items, dev, seed) -> None:
-    """13d: phase 12a's plane on the card (its members, placements and
-    templates) under the mid-serve guard (guard_run).  The first
+    """13d: phase 12a's members and placements with GUARD_TEMPLATES
+    templates on the card under the mid-serve guard (guard_run).  The first
     scheduler cycle, a real device cycle, is abandoned: the plane degrades
     to native and that cycle still gives every binding its outcome; the
     next cycle re-arms and runs on the card.  Ticked to quiescence:
@@ -4904,7 +5477,7 @@ def phase_guard(M, fleet, items, dev, seed) -> None:
     fleet = fleet[:LOOP_PARITY_MEMBERS]
     placements = build_placements(M, random.Random(seed),
                                   [c.name for c in fleet])
-    items = items[:LOOP_PARITY_TEMPLATES]
+    items = items[:GUARD_TEMPLATES]
     ref, *ref_run = guard_run(M, dev, fleet, placements, items, False)
     bad = [] if not any(loop_faults(ref).values()) else [
         f"unguarded faults {loop_faults(ref)}"]
@@ -5049,29 +5622,35 @@ def main() -> int:
     report.append(phase_kernel_k13(fleet, fwd_results, dev, args.reps,
                                    parent))
     phase_rebalance_parity(M, fleet, items, fwd_results, dev)
-    n = min(REBALANCE_BINDINGS, len(items))
-    REMAPS["on"] = True
-    loop = phase_rebalance(M, fleet, items[:n], fwd_results[:n], dev)
-    REMAPS["on"] = False
     phase_native_turns("forward chunk", items[:args.chunk], fleet, args, dev)
     phase_native_turns("megafleet chunk", mchunk, mfleet, args, dev)
     phase_native_turns("rebalance chunk", rchunk, fleet, args, dev)
     phase_native_control(items, fleet, min(args.native_bindings, len(items)))
     phase_native_store(M, fleet, items, fwd_results)
     phase_loop_parity(M, fleet, items, dev, args.seed + 7)
+    t14 = time.perf_counter()
+    phase_failover_parity(M, fleet, items, dev, args.seed + 7)
+    log(f"phase 14a: {time.perf_counter() - t14:.1f} s")
     REMAPS["on"] = True
-    prop = phase_loop(M, fleet, placements, items[:args.loop_templates], dev)
+    loop_items = items[:args.loop_templates]
+    prop, plane = phase_loop(M, fleet, placements, loop_items, dev)
+    t14 = time.perf_counter()
+    member_reb = phase_member_rebalance(plane, dev, placements, loop_items)
+    outage = phase_outage(plane, dev)
+    log(f"phase 14b-c: {time.perf_counter() - t14:.1f} s")
     REMAPS["on"] = False
     log(f"_CarryChain._device_remap calls on the main-path phases (3, 4, "
-        f"6-9, 10b, 12b): {REMAPS['calls']}")
+        f"6-9, 12b, 14b-c): {REMAPS['calls']}")
     for r in report:
-        r["launches"] = sum(c[r["name"]] for c in (fwd, reb, wide, expl,
-                                                      mega, inc, loop, prop))
+        r["launches"] = sum(c[r["name"]] for c in (
+            fwd, reb, wide, expl, mega, inc, prop, member_reb, outage))
     # phase 12b's plane is garbage now: collected here, with phase 12's
-    # time, not in phase 13d's first loop
+    # and 14's time, not in phase 13d's first loop
+    del plane
     t0 = time.perf_counter()
     gc.collect()
-    log(f"phase 12's garbage collected in {time.perf_counter() - t0:.2f} s")
+    log(f"phase 12's and 14's garbage collected in "
+        f"{time.perf_counter() - t0:.2f} s")
     t13 = time.perf_counter()
     report.append(phase_probe(dev, args.reps, parent))
     report.append(phase_profile(dev, args.reps, parent))

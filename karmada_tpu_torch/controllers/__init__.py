@@ -7,6 +7,12 @@ package's ``karmada_tpu/controllers`` modules of the same names).
   execution.py  ExecutionController: Work -> member cluster
   status.py     Work / binding / cluster status reflection
   namespace.py  NamespaceSyncController: namespaces to every member
-  failover.py   evict_cluster + GracefulEvictionController (the graceful
-                eviction chain the rebalance plane drains through)
+  failover.py   evict_cluster, not-ready taints, the NoExecute taint
+                manager, graceful eviction, application failover
+  lease.py      the collector's heartbeat Leases and their monitor
+  cluster.py    cluster lifecycle (finalizer, execution space, unjoin)
+                and the rate-limited eviction queue
+  dependencies.py  DependenciesDistributor: attached bindings
+  extras.py     rebalancer, taint policies, remedies, quotas
+  certificates.py  agent CSR approval and credential rotation
 """

@@ -10,7 +10,8 @@ same apply interface.
 Counterpart of the JAX package's ``controllers/execution.py``.  Where the
 JAX controller records a SyncWorkloadFailed event and a latency metric,
 this one counts the Work syncs that hit an apply error
-(`ExecutionController.sync_failures`; the errors stand in the Work's
+(`ExecutionController.sync_failures`, and by cluster in
+`sync_failures_by_cluster`; the errors stand in the Work's
 Applied=False condition).  The events recorder and metrics wait with the
 port's observability plane.
 The reconcile reads the Work, its Cluster and binding, and the member's
@@ -102,8 +103,9 @@ class ExecutionController:
         self.store = store
         self.members = members
         #: Work syncs that hit an apply error (the Work is marked
-        #: Applied=False and requeued)
+        #: Applied=False and requeued), in all and by cluster
         self.sync_failures = 0
+        self.sync_failures_by_cluster: Dict[str, int] = {}
         self.watcher = ObjectWatcher(interpreter or ResourceInterpreter())
         self._deleted: Dict[tuple, list] = {}
         self.worker = runtime.register(AsyncWorker("execution", self._reconcile))
@@ -179,4 +181,6 @@ class ExecutionController:
         self.store.mutate(Work.KIND, ns, name, set_applied)
         if errors:
             self.sync_failures += 1
+            self.sync_failures_by_cluster[cluster_name] = (
+                self.sync_failures_by_cluster.get(cluster_name, 0) + 1)
         return None if not errors else False

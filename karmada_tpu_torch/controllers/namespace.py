@@ -5,8 +5,12 @@ Counterpart of the JAX package's ``controllers/namespace.py``.
 Mirrors reference pkg/controllers/namespace/namespace_sync_controller.go:70:
 each non-system Namespace template is rendered into a Work for every known
 cluster (no policy needed); new clusters receive all existing namespaces.
-The scans of namespaces and clusters only read names, without copying
-(ObjectStore.visit).
+The scans of clusters only read names, without copying
+(ObjectStore.visit).  A Cluster event enqueues the namespaces that sync
+(the reconcile skips the others anyway), which the controller keeps as
+a set from the Namespace events: each joined cluster's execution space
+is a karmada- namespace, so a fleet's worth of them would otherwise be
+walked on every Cluster event.
 """
 
 from __future__ import annotations
@@ -32,15 +36,23 @@ def should_sync(name: str) -> bool:
 class NamespaceSyncController:
     def __init__(self, store: ObjectStore, runtime: Runtime) -> None:
         self.store = store
+        #: the names of the stored Namespaces that sync, in store order
+        self._synced = {ns.name: None for ns in store.visit("Namespace")
+                        if should_sync(ns.name)}
         self.worker = runtime.register(AsyncWorker("namespace-sync", self._reconcile))
         store.bus.subscribe(self._on_event)
 
     def _on_event(self, event: Event) -> None:
         if event.kind == "Namespace":
-            self.worker.enqueue((event.obj.name, event.type == DELETED))
+            name = event.obj.name
+            if event.type == DELETED:
+                self._synced.pop(name, None)
+            elif should_sync(name):
+                self._synced.setdefault(name, None)
+            self.worker.enqueue((name, event.type == DELETED))
         elif event.kind == Cluster.KIND and event.type != DELETED:
-            for ns in self.store.visit("Namespace"):
-                self.worker.enqueue((ns.name, False))
+            for name in list(self._synced):
+                self.worker.enqueue((name, False))
 
     def _reconcile(self, key) -> None:
         name, deleted = key

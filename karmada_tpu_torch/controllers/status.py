@@ -13,18 +13,21 @@
   ResourceSummary capacity tensor source from the member simulator.
 
 Counterpart of the JAX package's ``controllers/status.py``.  The cluster
-collector renews no heartbeat Lease (that waits with the port's
-``controllers/lease.py``), exports no karmada_cluster_* gauges and
-records no readiness events (they wait with the port's observability
-plane).  The reads that only look -- a member object's Work (a scan of
-its execution namespace), a binding's Works and template -- take the
-stored objects without copying (ObjectStore.visit / peek); the aggregated
+collector renews each cluster's heartbeat Lease after its collect
+(controllers/lease.py), on its `clock` (the JAX collector reads the wall
+clock; the port's ControlPlane passes the plane's one clock, so every
+deadline of the failover loop reads the same time).  It exports no
+karmada_cluster_* gauges and records no readiness events (they wait with
+the port's observability plane).  The reads that only look -- a member
+object's Work (a scan of its execution namespace), a binding's Works and
+template -- take the stored objects without copying (ObjectStore.visit / peek); the aggregated
 items reach the store through mutate, which copies.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Callable, Dict, Optional
 
 from karmada_tpu_torch.controllers.binding import (
     WORK_BINDING_LABEL,
@@ -216,37 +219,57 @@ class ClusterStatusController:
         store: ObjectStore,
         runtime: Runtime,
         members: Dict[str, FakeMemberCluster],
+        clock: Callable[[], float] = time.time,
     ) -> None:
         self.store = store
         self.members = members
-        runtime.register_periodic(self.collect_all)
+        self.clock = clock
+        # name -> (the member's state_key, the Cluster's resourceVersion)
+        # after its last collect: the update is a function of the two, so
+        # while both hold it would write nothing again
+        self._collected: Dict[str, tuple] = {}
+        runtime.register_periodic(self.collect_all, name="cluster-status")
 
     def collect_all(self) -> None:
+        from karmada_tpu_torch.controllers.lease import renew_cluster_lease
+
         for name, member in self.members.items():
-            if self.store.peek(Cluster.KIND, "", name) is None:
+            cluster = self.store.peek(Cluster.KIND, "", name)
+            if cluster is None:
                 continue
+            key = (member.state_key(), tuple(
+                (a.group_version, tuple(a.resources))
+                for a in member.api_enablements))
+            if self._collected.get(name) != (
+                    key, cluster.metadata.resource_version):
+                self._collect(name, member, key)
+            # heartbeat lease: proves THIS collector is alive, independent
+            # of the member's own health (cluster_status_controller.go:399)
+            renew_cluster_lease(self.store, name, clock=self.clock)
 
-            def update(c: Cluster, member=member) -> None:
-                online = member.healthy
+    def _collect(self, name: str, member: FakeMemberCluster, key) -> None:
+        def update(c: Cluster, member=member) -> None:
+            online = member.healthy
+            set_condition(c.status.conditions, Condition(
+                type=COND_CLUSTER_READY,
+                status="True" if online else "False",
+                reason="ClusterReady" if online else "ClusterNotReachable",
+            ))
+            if online:
+                c.status.api_enablements = list(member.api_enablements)
                 set_condition(c.status.conditions, Condition(
-                    type=COND_CLUSTER_READY,
-                    status="True" if online else "False",
-                    reason="ClusterReady" if online else "ClusterNotReachable",
+                    type=COND_COMPLETE_API_ENABLEMENTS, status="True",
+                    reason="CollectionSucceed",
                 ))
-                if online:
-                    c.status.api_enablements = list(member.api_enablements)
-                    set_condition(c.status.conditions, Condition(
-                        type=COND_COMPLETE_API_ENABLEMENTS, status="True",
-                        reason="CollectionSucceed",
-                    ))
-                    c.status.resource_summary = member.resource_summary()
-                    if c.spec.resource_models:
-                        # feature CustomizedClusterResourceModeling
-                        # (cluster_status_controller.go:282 -> modeling.go)
-                        c.status.resource_summary.allocatable_modelings = (
-                            produce_allocatable_modelings(
-                                member, c.spec.resource_models
-                            )
+                c.status.resource_summary = member.resource_summary()
+                if c.spec.resource_models:
+                    # feature CustomizedClusterResourceModeling
+                    # (cluster_status_controller.go:282 -> modeling.go)
+                    c.status.resource_summary.allocatable_modelings = (
+                        produce_allocatable_modelings(
+                            member, c.spec.resource_models
                         )
+                    )
 
-            self.store.mutate(Cluster.KIND, "", name, update)
+        stored = self.store.mutate(Cluster.KIND, "", name, update)
+        self._collected[name] = (key, stored.metadata.resource_version)

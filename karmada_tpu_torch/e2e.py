@@ -5,7 +5,13 @@ Counterpart of the JAX package's ``e2e.py``: fake member clusters
 the port's Scheduler (the device cycle on the card by default) +
 binding -> Work rendering + execution into the members + status
 reflection back to the bindings and templates, behind the admission chain
-(policy defaulting and validation).
+(policy defaulting and validation, quota enforcement), with the failover
+loop around it: the collector's heartbeat Leases and their monitor,
+cluster lifecycle (finalizer, execution space, unjoin), not-ready taints,
+the NoExecute taint manager behind a rate-limited eviction queue
+(`eviction_rate` a second), graceful eviction and application failover,
+plus dependencies, the workload rebalancer, taint policies, remedies,
+agent CSR approval and FederatedResourceQuota.
 
 Usage:
     cp = ControlPlane()              # the Scheduler on the first CUDA card
@@ -17,14 +23,23 @@ Usage:
 
 `device` is the Scheduler's (and the rebalance plane's): None asks for the
 first CUDA card and raises without one; "cpu" runs the kernels' plain
-versions.  backend="native" / "serial" schedule on the host.
+versions.  backend="native" / "serial" schedule on the host.  Every
+controller reads the plane's one `clock` (the collector's lease renewals
+too; the JAX collector's read the wall clock).
 
-The controllers it wires are those of the JAX ControlPlane run with
-``controllers="detector,binding,execution,work-status,binding-status,
-cluster-status,namespace-sync,graceful-eviction"``, registered in the
-same order.  `add_member(..., collect=False)` (not in the JAX package)
-skips the whole-fleet status collect that each join runs, for callers
-that join many members and collect once.
+Controllers are wired in the JAX ControlPlane's order and are governed by
+`controllers` (the `--controllers=` list, store/worker.parse_controllers;
+None rehydrates the spec stored in the karmada-system/controller-manager
+ConfigMap, "*" without one; a stored spec's names the port has not
+taken are dropped with a warning, its star, enables and disables kept).  `feature_gates` overrides the gates of the
+quota enforcer; application failover reads the process-wide
+``utils.features.GATES``, as in the JAX package.  `add_member(...,
+sync_mode="Pull")` joins a member through a KarmadaAgent (agent.py) after
+its bootstrap CSR; `unjoin` unregisters one.  `add_member(...,
+collect=False)` (not in the JAX package) skips the whole-fleet status
+collect that each join runs, for callers that join many members and
+collect once.  `apply` decodes a karmada API kind to its typed model
+(models/codec.py) and stores any other manifest as an Unstructured.
 
 The Scheduler's serve paths are the JAX ControlPlane's arguments:
 device_cycle_timeout_s and device_recover_cycles (the mid-serve guard,
@@ -34,16 +49,15 @@ WAL there (store/persistence.py): a plane built on a directory that
 holds one is restored and resynced, and `checkpoint()` compacts the WAL
 into a fresh snapshot.
 
-Not part of the port yet, by argument: enable_descheduler, feature_gates
-(the process-wide ``utils.features.GATES`` is read), eviction_rate,
-mesh_shape, controllers, chaos, chaos_seed; by method: unjoin,
-enable_dns_detector, proxy, metrics_dump, events; and the controllers
-behind them (lease,
-cluster lifecycle and taints, the taint manager and its eviction queue,
-application failover, dependencies, descheduler, search / proxy /
-metrics, autoscaling, multi-cluster services, rebalancer, taint
-policies, remedies, CSR approval, quotas).  Pull members (their agent),
-and `apply` of a karmada API kind (it needs ``models/codec.py``) raise.
+Not part of the port yet, by argument: enable_descheduler (the
+descheduler needs the accurate estimator client), mesh_shape, chaos,
+chaos_seed; by method: enable_dns_detector, proxy, metrics_dump, events;
+and the controllers behind them: the descheduler and its estimator
+servers, the search cache / unified auth / cluster proxy / metrics
+provider, the FederatedHPA family (FederatedHPA, CronFederatedHPA, the
+scale-target marker, the replicas syncer, the HPA fast path) and the
+multi-cluster services (MCS, MCI, endpointslice collect and dispatch).
+Asking for one of their names in `controllers` raises ValueError.
 """
 
 from __future__ import annotations
@@ -51,10 +65,36 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional
 
+from karmada_tpu_torch.agent import KarmadaAgent
 from karmada_tpu_torch.controllers.binding import BindingController
+from karmada_tpu_torch.controllers.certificates import (
+    AgentCsrApprover,
+    bootstrap_agent_csr,
+)
+from karmada_tpu_torch.controllers.cluster import (
+    ClusterLifecycleController,
+    RateLimitedEvictionQueue,
+)
+from karmada_tpu_torch.controllers.dependencies import DependenciesDistributor
 from karmada_tpu_torch.controllers.detector import ResourceDetector
 from karmada_tpu_torch.controllers.execution import ExecutionController
-from karmada_tpu_torch.controllers.failover import GracefulEvictionController
+from karmada_tpu_torch.controllers.extras import (
+    ClusterTaintPolicyController,
+    FederatedResourceQuotaController,
+    RemedyController,
+    WorkloadRebalancerController,
+)
+from karmada_tpu_torch.controllers.failover import (
+    ApplicationFailoverController,
+    ClusterTaintController,
+    GracefulEvictionController,
+    NoExecuteTaintManager,
+)
+from karmada_tpu_torch.controllers.lease import (
+    LEASE_NAMESPACE,
+    ClusterLeaseMonitor,
+    Lease,
+)
 from karmada_tpu_torch.controllers.namespace import NamespaceSyncController
 from karmada_tpu_torch.controllers.status import (
     BindingStatusController,
@@ -63,42 +103,15 @@ from karmada_tpu_torch.controllers.status import (
 )
 from karmada_tpu_torch.interpreter import ResourceInterpreter
 from karmada_tpu_torch.members.member import FakeMemberCluster
-from karmada_tpu_torch.models import cluster as _cluster_models
-from karmada_tpu_torch.models import config as _config_models
-from karmada_tpu_torch.models import policy as _policy_models
-from karmada_tpu_torch.models import work as _work_models
 from karmada_tpu_torch.models.cluster import Cluster, ClusterSpec
+from karmada_tpu_torch.models.codec import from_manifest_typed
 from karmada_tpu_torch.models.meta import ObjectMeta
 from karmada_tpu_torch.models.unstructured import Unstructured
 from karmada_tpu_torch.scheduler import Scheduler
-from karmada_tpu_torch.store.store import ObjectStore
+from karmada_tpu_torch.store.store import NotFoundError, ObjectStore
 from karmada_tpu_torch.store.worker import Runtime
+from karmada_tpu_torch.utils.features import FeatureGates
 from karmada_tpu_torch.webhook import AdmissionRegistry, install_default_webhooks
-
-#: karmada API kinds whose models the port has not taken yet
-_UNPORTED_API_KINDS = frozenset({
-    "CertificateSigningRequest", "ClusterCredential", "ClusterTaintPolicy",
-    "CronFederatedHPA", "FederatedHPA", "FederatedResourceQuota",
-    "MultiClusterIngress", "MultiClusterService", "Remedy",
-    "ResourceRegistry", "ServiceExport", "ServiceImport",
-    "WorkloadRebalancer",
-})
-
-
-def _api_kinds() -> frozenset:
-    kinds = set(_UNPORTED_API_KINDS)
-    for mod in (_cluster_models, _policy_models, _work_models,
-                _config_models):
-        for obj in vars(mod).values():
-            kind = getattr(obj, "KIND", None)
-            if isinstance(obj, type) and isinstance(kind, str) and kind:
-                kinds.add(kind)
-    return frozenset(kinds)
-
-
-#: every kind the JAX package's codec decodes to a typed model
-API_KINDS = _api_kinds()
-
 
 class ControlPlane:
     def __init__(
@@ -106,7 +119,10 @@ class ControlPlane:
         backend: str = "device",
         device=None,
         eviction_grace_period_s: float = 600,
+        feature_gates: Optional[Dict[str, bool]] = None,
         clock=None,
+        # taint-driven evictions a second (the rate-limited queue; 0 halts)
+        eviction_rate: float = 100.0,
         waves: int = 8,
         # pipelined chunk executor chunk size (scheduler/pipeline.py)
         pipeline_chunk: int = 1024,
@@ -114,6 +130,10 @@ class ControlPlane:
         # flags, 300 in the reference); None disables the defaulted
         # tolerations
         default_toleration_seconds: Optional[int] = 300,
+        # --controllers= enable/disable list ("*", "-name", allowlist);
+        # None rehydrates the spec stored in the karmada-system/
+        # controller-manager ConfigMap
+        controllers: Optional[str] = None,
         batch_window: int = 4096,
         # resident-state plane (resident/): device backend only
         resident: bool = False,
@@ -142,6 +162,7 @@ class ControlPlane:
         persist_dir: Optional[str] = None,
     ) -> None:
         self.clock = clock if clock is not None else time.time
+        self.gates = FeatureGates(feature_gates)
         self.admission = AdmissionRegistry()
         if persist_dir is not None:
             from karmada_tpu_torch.store.persistence import load_store
@@ -150,13 +171,44 @@ class ControlPlane:
         else:
             self.store = ObjectStore(admission=self.admission)
         install_default_webhooks(
-            self.admission,
+            self.admission, self.store, self.gates,
             default_toleration_seconds=default_toleration_seconds)
-        self.runtime = Runtime()
+        rehydrated = controllers is None
+        if rehydrated:
+            cm = self.store.try_get(
+                "ConfigMap", "karmada-system", "controller-manager")
+            controllers = (
+                cm.manifest.get("data", {}).get("controllers", "*")
+                if cm is not None else "*")
+        try:
+            # a stored spec may name controllers the port has not taken:
+            # those are dropped, the rest of the spec holds
+            self.runtime = Runtime(controllers=controllers,
+                                   drop_unported=rehydrated)
+        except ValueError:
+            if not rehydrated:
+                raise  # an explicit bad spec must fail loudly
+            # a stale stored spec must not brick the plane: run everything
+            # and let the operator re-set it
+            import warnings
+
+            warnings.warn(
+                f"ignoring invalid stored --controllers spec "
+                f"{controllers!r}; running all controllers", stacklevel=2)
+            self.runtime = Runtime()
+        if self.runtime.unported_dropped:
+            import warnings
+
+            warnings.warn(
+                f"the stored --controllers spec {controllers!r} names "
+                f"controller(s) {sorted(self.runtime.unported_dropped)} "
+                f"the port has not taken; running the rest of it",
+                stacklevel=2)
         self.members: Dict[str, FakeMemberCluster] = {}
-        # the execution / status controllers drive push members (the only
-        # kind the port joins yet); they share this dict by reference
+        # the push-side execution / status controllers drive PUSH members;
+        # they share this dict by reference.  Pull members get an agent.
         self.push_members: Dict[str, FakeMemberCluster] = {}
+        self.agents: Dict[str, KarmadaAgent] = {}
         self.interpreter = ResourceInterpreter()
         self.interpreter.attach_store(self.store)
         self.detector = ResourceDetector(self.store, self.runtime,
@@ -196,12 +248,44 @@ class ControlPlane:
         self.binding_status = BindingStatusController(
             self.store, self.runtime, self.interpreter)
         self.cluster_status = ClusterStatusController(
-            self.store, self.runtime, self.push_members)
+            self.store, self.runtime, self.push_members, clock=self.clock)
+        # lease staleness monitor: a dead collector / agent degrades its
+        # cluster to Ready=Unknown
+        self.lease_monitor = ClusterLeaseMonitor(self.store, self.runtime,
+                                                 clock=self.clock)
+        self.cluster_taints = ClusterTaintController(self.store, self.runtime,
+                                                     clock=self.clock)
+        # taint-driven evictions pace through the rate-limited queue
+        # (cluster/eviction_worker.go); lifecycle handles join / unjoin
+        self.cluster_lifecycle = ClusterLifecycleController(self.store,
+                                                            self.runtime)
+        self.taint_manager = NoExecuteTaintManager(self.store, self.runtime,
+                                                   clock=self.clock)
+        self.eviction_queue = RateLimitedEvictionQueue(
+            self.runtime, self.taint_manager.evict_one,
+            rate_per_s=eviction_rate, clock=self.clock,
+            controller_name="taint-manager")
+        self.taint_manager.eviction_queue = self.eviction_queue
         self.graceful_eviction = GracefulEvictionController(
             self.store, self.runtime, grace_period_s=eviction_grace_period_s,
             clock=self.clock)
+        self.app_failover = ApplicationFailoverController(
+            self.store, self.runtime, clock=self.clock)
         self.namespace_sync = NamespaceSyncController(self.store,
                                                       self.runtime)
+        self.dependencies = DependenciesDistributor(
+            self.store, self.runtime, self.interpreter)
+        self.rebalancer = WorkloadRebalancerController(self.store,
+                                                       self.runtime)
+        self.taint_policies = ClusterTaintPolicyController(self.store,
+                                                           self.runtime)
+        self.remedies = RemedyController(self.store, self.runtime)
+        # agent CSR approval (control-plane side); credential ROTATION is
+        # agent-owned: each KarmadaAgent runs its own scoped loop
+        self.csr_approver = AgentCsrApprover(self.store, self.runtime,
+                                             clock=self.clock)
+        self.quotas = FederatedResourceQuotaController(self.store,
+                                                       self.runtime)
         # a restored store resyncs every object through the freshly wired
         # controllers, as the reference's informers do after a restart
         if persist_dir is not None and len(self.store):
@@ -231,10 +315,6 @@ class ControlPlane:
         sync_mode: str = "Push",
         collect: bool = True,
     ) -> FakeMemberCluster:
-        if sync_mode == "Pull":
-            raise NotImplementedError(
-                "Pull members need the karmada agent, which the port has "
-                "not taken yet")
         member = FakeMemberCluster(
             name=name,
             cpu_allocatable_milli=cpu_milli,
@@ -248,26 +328,65 @@ class ControlPlane:
                 spec=ClusterSpec(region=region, zone=zone, provider=provider,
                                  sync_mode=sync_mode),
             ))
-        self.push_members[name] = member
-        member.store.bus.subscribe(self.work_status._member_event(name))  # noqa: SLF001
+        if sync_mode == "Pull":
+            # pull mode: the control plane cannot reach the member; a
+            # KarmadaAgent inside it drives execution / status instead
+            # (cmd/agent/app/agent.go:140-145), bootstrapping its identity
+            # with a CSR the approver honors (karmadactl register flow)
+            bootstrap_agent_csr(self.store, name)
+            self.agents[name] = KarmadaAgent(
+                self.store, member, self.runtime, self.interpreter,
+                clock=self.clock)
+        else:
+            # work_status shares the push_members dict by reference; only
+            # the member-informer subscription needs per-member wiring
+            self.push_members[name] = member
+            member.store.bus.subscribe(self.work_status._member_event(name))  # noqa: SLF001
         if collect:
             self.cluster_status.collect_all()
+            for agent in self.agents.values():
+                agent.cluster_status.collect_all()
         return member
 
     def member(self, name: str) -> FakeMemberCluster:
         return self.members[name]
 
     # -- user-facing API ----------------------------------------------------
+    def unjoin(self, name: str) -> None:
+        """Unregister a member: the lifecycle controller drains its
+        execution space, then the finalizer releases the Cluster object.
+        Per-member wiring from add_member unwinds here too (the status
+        informer, the member's Lease, its agent)."""
+        try:
+            self.store.delete(Cluster.KIND, "", name)
+        except NotFoundError:
+            pass
+        try:
+            self.store.delete(Lease.KIND, LEASE_NAMESPACE, name)
+        except NotFoundError:
+            pass
+        self.work_status.members.pop(name, None)
+        self.push_members.pop(name, None)
+        agent = self.agents.pop(name, None)
+        if agent is not None:
+            agent.stop()
+        self.members.pop(name, None)
+
     def apply(self, manifest: dict):
-        """Create or update a workload template (stored as Unstructured).
-        A karmada API kind raises: it needs the typed decode of
-        ``models/codec.py``, which the port has not taken yet, and is never
-        stored as an Unstructured."""
-        if manifest.get("kind") in API_KINDS:
-            raise NotImplementedError(
-                f"apply of a {manifest.get('kind')} manifest needs "
-                "models/codec.py, which the port has not taken yet; create "
-                "the typed object (apply_policy / store.create)")
+        """Create or update an object from its manifest: a karmada API
+        kind decodes to its typed model (admission and the controllers see
+        real objects), anything else is stored as an Unstructured."""
+        typed = from_manifest_typed(manifest)
+        if typed is not None:
+            existing = self.store.try_get(
+                typed.KIND, typed.namespace, typed.name)
+            if existing is None:
+                return self.store.create(typed)
+            typed.metadata.resource_version = (
+                existing.metadata.resource_version)
+            typed.metadata.uid = existing.metadata.uid or typed.metadata.uid
+            typed.metadata.generation = existing.metadata.generation
+            return self.store.update(typed)
         obj = Unstructured.from_manifest(manifest)
         existing = self.store.try_get(obj.KIND, obj.namespace, obj.name)
         if existing is None:

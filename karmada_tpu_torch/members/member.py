@@ -11,7 +11,10 @@ and "runs" workloads by moving their status toward ready on each tick.
 Counterpart of the JAX package's ``members/member.py``.  The pod plane
 (list_pods, pod_logs, pod_exec) and the DNS detector wait with the port's
 search and proxy plane.  The capacity scans read the member's store
-without copying (ObjectStore.visit_all): they only look.
+without copying (ObjectStore.visit_all): they only look.  A tick that
+wrote nothing is not run again until the member's state moves
+(`state_key`: its store's revision and size, capacity fields, nodes and
+health), so an idle tick over a fleet costs a key comparison a member.
 """
 
 from __future__ import annotations
@@ -125,6 +128,18 @@ class FakeMemberCluster:
             pass
 
     # -- capacity telemetry (what cluster-status collects) ------------------
+    def state_key(self) -> tuple:
+        """What the capacity telemetry and the workload simulation read:
+        the store's revision (a create or an update) and size (a delete
+        hands out none), the capacity fields and nodes, and health."""
+        return ((self.store.revision, len(self.store)), self.healthy,
+                self.cpu_allocatable_milli, self.memory_allocatable_gi,
+                self.pods_allocatable,
+                tuple((n.name, n.cpu_milli, n.memory_milli, n.pods,
+                       tuple(sorted(n.extra_milli.items())),
+                       tuple(sorted(n.labels.items())))
+                      for n in self.nodes))
+
     def used_milli(self) -> Dict[str, int]:
         cpu = mem = pods = 0
         for obj in self.store.visit_all():
@@ -254,6 +269,9 @@ class FakeMemberCluster:
         the capacity admission plan."""
         if not self.healthy:
             return
+        key = self.state_key()
+        if self.__dict__.get("_idle") == key:
+            return  # nothing moved since a tick that wrote nothing
         plan = self.admission_plan()
         for obj in self.store.visit_all():
             if not isinstance(obj, Unstructured):
@@ -288,3 +306,5 @@ class FakeMemberCluster:
                     def setst(o, status=status):
                         o.manifest["status"] = status
                     self.store.mutate(kind, obj.namespace, obj.name, setst)
+        if self.state_key() == key:
+            self.__dict__["_idle"] = key

@@ -108,6 +108,7 @@ from karmada_tpu_torch.scheduler.pipeline import PipelineResult
 from karmada_tpu_torch.scheduler.queue import QueuedBindingInfo, SchedulingQueue
 from karmada_tpu_torch.store.store import Event, ObjectStore
 from karmada_tpu_torch.store.worker import AsyncWorker, Runtime
+from karmada_tpu_torch.webhook.admission import AdmissionDenied
 
 REASON_SUCCESS = "BindingScheduled"
 REASON_NO_FIT = "NoClusterFit"
@@ -325,7 +326,7 @@ class Scheduler:
             # never waits for g++; a build failure raises here
             native_mod.load()
         self.worker = runtime.register(AsyncWorker("scheduler", self._cycle))
-        runtime.register_periodic(self._periodic_flush)
+        runtime.register_periodic(self._periodic_flush, name="scheduler")
         self.rebalance_plane = None
         if rebalance:
             from karmada_tpu_torch.rebalance import (
@@ -340,7 +341,8 @@ class Scheduler:
                 clock=(rebalance_clock if rebalance_clock is not None
                        else self.queue.now),
                 device=self.device)
-            runtime.register_periodic(self.rebalance_plane.maybe_run)
+            runtime.register_periodic(self.rebalance_plane.maybe_run,
+                                      name="scheduler-rebalance")
         store.bus.subscribe(self._on_event)
 
     def _arm_resident(self) -> None:
@@ -1019,8 +1021,15 @@ class Scheduler:
         def patch_spec(obj: ResourceBinding) -> None:
             obj.spec.clusters = list(targets)
 
-        stored = self.store.mutate(ResourceBinding.KIND, rb.namespace,
-                                   rb.name, patch_spec)
+        try:
+            stored = self.store.mutate(ResourceBinding.KIND, rb.namespace,
+                                       rb.name, patch_spec)
+        except AdmissionDenied as denial:
+            # an admission gate (the FederatedQuotaEnforcement webhook)
+            # refused the schedule-result patch: an unschedulable outcome,
+            # so the binding backs off instead of faulting the cycle
+            return self._apply_result(
+                rb, serial.UnschedulableError(str(denial)), affinity_name)
 
         def patch_status(obj: ResourceBinding) -> None:
             obj.status.scheduler_observed_generation = (

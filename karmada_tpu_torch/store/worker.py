@@ -14,10 +14,22 @@ reference's rate-limited workqueue does.  The raise is contained, so it
 is counted: `AsyncWorker.reconcile_errors` per worker and
 `Runtime.reconcile_errors()` over all of them (a kernel failure inside a
 reconcile shows there, never only as a requeue).
+
+`Runtime(controllers=)` is the reference's `--controllers=` list
+(controllermanager.go enablement filtering), as in the JAX package: a
+disabled controller still constructs (its worker registers but never
+pumps, its periodic hooks are dropped).  The names are the JAX package's
+GOVERNED_CONTROLLERS; a name whose controller the port has not taken yet
+(PORTED_CONTROLLERS lacks it) raises ValueError ("not ported") when it is
+asked for by name, and "*" runs what the port has.  A spec rehydrated from
+the controller-manager ConfigMap (`Runtime(controllers=, drop_unported=True)`)
+may have been written for the JAX package: there such names are dropped
+(`Runtime.unported_dropped`) and the rest of the spec holds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import random
 import threading
 import time
@@ -108,11 +120,77 @@ class AsyncWorker:
             self._cv.notify_all()
 
 
+# the names --controllers= governs: the controller-manager's controller
+# set.  Workers OUTSIDE this set (the scheduler, the operator, the search
+# cache, agent CSR approval) are separate binaries in the reference and
+# are never subject to the flag.
+GOVERNED_CONTROLLERS = frozenset({
+    "detector", "deps-distributor", "binding", "execution", "work-status",
+    "binding-status", "cluster-status", "cluster-lifecycle", "cluster-lease",
+    "taint-manager", "cluster-taint", "taint-policy", "graceful-eviction",
+    "application-failover", "remedy", "namespace-sync", "unified-auth",
+    "frq", "federatedhpa", "cronfederatedhpa", "hpa-marker",
+    "replicas-syncer", "mcs", "mci", "endpointslice-collect",
+    "endpointslice-dispatch", "rebalancer", "cert-rotation", "descheduler",
+})
+
+#: the governed controllers the port has (e2e.ControlPlane wires each)
+PORTED_CONTROLLERS = frozenset({
+    "detector", "deps-distributor", "binding", "execution", "work-status",
+    "binding-status", "cluster-status", "cluster-lifecycle", "cluster-lease",
+    "taint-manager", "cluster-taint", "taint-policy", "graceful-eviction",
+    "application-failover", "remedy", "namespace-sync", "frq",
+    "rebalancer", "cert-rotation",
+})
+
+# internal worker names that ride a governed controller's switch
+_CONTROLLER_ALIAS = {"detector-policy": "detector"}
+
+
+def parse_controllers(spec: str, drop_unported: bool = False) -> tuple:
+    """`--controllers=` list semantics (controllermanager.go enablement
+    filtering): "*" enables everything not explicitly disabled; "-name"
+    disables; without "*", only listed names run.  Unknown names are
+    rejected up front (the reference controller-manager refuses to start
+    on a typoed controller name), and so is a governed name the port has
+    not taken yet, enabled by name -- unless `drop_unported`, which
+    drops such names (unported_names) and keeps the star, the enables
+    and the disables."""
+    names = [s.strip() for s in (spec or "*").split(",") if s.strip()]
+    star = "*" in names
+    disabled = {n[1:] for n in names if n.startswith("-")}
+    enabled = {n for n in names if n != "*" and not n.startswith("-")}
+    unknown = (disabled | enabled) - GOVERNED_CONTROLLERS
+    if unknown:
+        raise ValueError(
+            f"unknown controller name(s) {sorted(unknown)}; "
+            f"valid names: {sorted(GOVERNED_CONTROLLERS)}"
+        )
+    missing = enabled - PORTED_CONTROLLERS
+    if missing and not drop_unported:
+        raise ValueError(
+            f"controller(s) {sorted(missing)} not ported; the port runs "
+            f"{sorted(PORTED_CONTROLLERS)}")
+    return star, enabled - missing, disabled
+
+
+def unported_names(spec: str) -> frozenset:
+    """The governed names `spec` enables that the port has not taken."""
+    names = [s.strip() for s in (spec or "*").split(",") if s.strip()]
+    return frozenset(n for n in names if n in GOVERNED_CONTROLLERS
+                     and n not in PORTED_CONTROLLERS)
+
+
 class Runtime:
     """Holds every controller's worker; runs them deterministically (pump)
-    or in background threads (serve)."""
+    or in background threads (serve).
 
-    def __init__(self, periodic_interval_s: float = 0.5) -> None:
+    `controllers` filters which reconcile workers and periodic hooks run,
+    by name (parse_controllers; `drop_unported` as there, the dropped
+    names on `unported_dropped`)."""
+
+    def __init__(self, periodic_interval_s: float = 0.5,
+                 controllers: str = "*", drop_unported: bool = False) -> None:
         self.workers: List[AsyncWorker] = []
         self._threads: List[threading.Thread] = []
         self._periodic: List[Callable[[], None]] = []
@@ -120,15 +198,65 @@ class Runtime:
         self._stop_event = threading.Event()
         #: periodic hooks that raised in serve mode (contained)
         self.periodic_errors = 0
+        self._ctrl_star, self._ctrl_on, self._ctrl_off = parse_controllers(
+            controllers, drop_unported)
+        self.unported_dropped = (unported_names(controllers) if drop_unported
+                                 else frozenset())
+        self._disabled_workers: set = set()
+        self._ungoverned_depth = 0
+
+    def controller_enabled(self, name: Optional[str]) -> bool:
+        if self._ungoverned_depth > 0:
+            return True  # inside an ungoverned() block (agent machinery)
+        name = _CONTROLLER_ALIAS.get(name, name)
+        if name is None or name not in GOVERNED_CONTROLLERS:
+            return True  # infrastructure (scheduler, CSR approval, ...)
+        if name in self._ctrl_off:
+            return False
+        return self._ctrl_star or name in self._ctrl_on
+
+    @contextlib.contextmanager
+    def ungoverned(self):
+        """Context manager: registrations inside bypass the --controllers
+        filter.  Pull-mode agents reuse the controller CLASSES (and thus
+        their worker names) but are the reference's separate agent binary
+        with its own flag -- the control plane's list must not kill them."""
+        self._ungoverned_depth += 1
+        try:
+            yield
+        finally:
+            self._ungoverned_depth -= 1
 
     def register(self, worker: AsyncWorker) -> AsyncWorker:
         self.workers.append(worker)
+        if not self.controller_enabled(worker.name):
+            self._disabled_workers.add(worker)
         return worker
 
-    def register_periodic(self, fn: Callable[[], None]) -> None:
+    def unregister(self, worker: AsyncWorker) -> None:
+        """Tear a worker down (e.g. a pull agent leaving): stopped and
+        removed so long-lived planes don't accumulate dead queues."""
+        worker.stop()
+        try:
+            self.workers.remove(worker)
+        except ValueError:
+            pass
+        self._disabled_workers.discard(worker)
+
+    def register_periodic(self, fn: Callable[[], None],
+                          name: Optional[str] = None) -> None:
         """A resync-style hook invoked once per tick (pump mode) or per
-        periodic interval (serve mode)."""
+        periodic interval (serve mode); `name` subjects it to the
+        `controllers` enablement filter."""
+        if not self.controller_enabled(name):
+            return
         self._periodic.append(fn)
+
+    def unregister_periodic(self, fn: Callable[[], None]) -> None:
+        try:
+            self._periodic.remove(fn)
+        except ValueError:
+            pass
 
     def reconcile_errors(self) -> Dict[str, int]:
         """Contained raises by worker name ("periodic" for serve-mode
@@ -146,6 +274,8 @@ class Runtime:
         for _ in range(max_rounds):
             progressed = False
             for w in self.workers:
+                if w in self._disabled_workers:
+                    continue
                 while w.process_one(block=False):
                     progressed = True
                     total += 1
@@ -162,6 +292,8 @@ class Runtime:
     # -- threaded mode -----------------------------------------------------
     def serve(self) -> None:
         for w in self.workers:
+            if w in self._disabled_workers:
+                continue
             t = threading.Thread(target=self._run_worker, args=(w,),
                                  daemon=True, name=f"worker-{w.name}")
             t.start()

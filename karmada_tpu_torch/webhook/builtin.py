@@ -1,7 +1,6 @@
 """Built-in admission plugins, mirroring the reference karmada-webhook set.
 
-Counterpart of the part of the JAX package's ``webhook/builtin.py`` that
-the propagation loop's kinds need (reference
+Counterpart of the JAX package's ``webhook/builtin.py`` (reference
 pkg/webhook/<kind>/{mutating,validating}.go):
   * PropagationPolicy / ClusterPropagationPolicy -- placement validation
     (spread-constraint min<=max, static weights positive, toleration
@@ -9,16 +8,28 @@ pkg/webhook/<kind>/{mutating,validating}.go):
     not-ready / unreachable NoExecute tolerations.
   * OverridePolicy / ClusterOverridePolicy -- overrider plausibility.
   * ResourceInterpreterWebhook -- endpoint scheme and explicit rules.
-
-The FederatedResourceQuota validator and its ResourceBinding enforcement
-gate, and the FederatedHPA validator, wait for their models in the port.
+  * FederatedResourceQuota -- overall quantities non-negative; static
+    assignments within overall.
+  * FederatedHPA -- structural bounds and metric-target coherence.
+  * ResourceBinding -- FederatedResourceQuota ENFORCEMENT (the reference's
+    pkg/webhook/resourcebinding/validating.go quota gate behind the
+    FederatedQuotaEnforcement feature gate): the scheduler's .spec.clusters
+    patch is denied when the namespace's quota would be exceeded, and FRQ
+    overallUsed is bumped atomically on success.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+from karmada_tpu_torch.models.autoscaling import (
+    TARGET_AVERAGE_VALUE,
+    TARGET_UTILIZATION,
+    TARGET_VALUE,
+    FederatedHPA,
+)
 from karmada_tpu_torch.models.config import ResourceInterpreterWebhook
+from karmada_tpu_torch.models.extras import FederatedResourceQuota
 from karmada_tpu_torch.models.policy import (
     ClusterOverridePolicy,
     ClusterPropagationPolicy,
@@ -26,7 +37,10 @@ from karmada_tpu_torch.models.policy import (
     PropagationPolicy,
     Toleration,
 )
-from karmada_tpu_torch.webhook.admission import AdmissionRegistry
+from karmada_tpu_torch.models.work import ResourceBinding
+from karmada_tpu_torch.utils.features import GATES, FeatureGates
+from karmada_tpu_torch.utils.quantity import Quantity
+from karmada_tpu_torch.webhook.admission import OP_CREATE, AdmissionRegistry
 
 
 # -- PropagationPolicy ------------------------------------------------------
@@ -141,8 +155,168 @@ def validate_interpreter_webhook(op, w, old) -> Optional[str]:
     return None
 
 
+def validate_frq(op, q, old) -> Optional[str]:
+    for name, qty in q.spec.overall.items():
+        if qty.milli < 0:
+            return f"overall[{name}] must be non-negative"
+    summed: Dict[str, int] = {}
+    for sa in q.spec.static_assignments:
+        for name, qty in sa.hard.items():
+            if qty.milli < 0:
+                return f"staticAssignments[{sa.cluster_name}][{name}] must be non-negative"
+            summed[name] = summed.get(name, 0) + qty.milli
+    # the SUM of the static split must stay within overall, or the object
+    # distributes more hard quota than it guarantees
+    for name, total in summed.items():
+        if name in q.spec.overall and total > q.spec.overall[name].milli:
+            return f"staticAssignments sum for {name} exceeds overall"
+    return None
+
+
+def validate_federated_hpa(op, hpa, old) -> Optional[str]:
+    """FederatedHPA admission (reference pkg/webhook/federatedhpa):
+    structural bounds plus metric-target coherence — a target whose type
+    doesn't match its set value field would otherwise silently hold the
+    workload at current replicas forever (controllers/federatedhpa.py
+    refuses to guess)."""
+    s = hpa.spec
+    if s.max_replicas < 1:
+        return "maxReplicas must be >= 1"
+    if s.min_replicas < 1 or s.min_replicas > s.max_replicas:
+        return "minReplicas must be in [1, maxReplicas]"
+    if not s.scale_target_ref.kind or not s.scale_target_ref.name:
+        return "scaleTargetRef.kind and .name are required"
+
+    def check_target(where: str, target, allowed) -> Optional[str]:
+        if target.type not in allowed:
+            return (f"{where}: target type {target.type!r} not supported "
+                    f"(allowed: {sorted(allowed)})")
+        field_of = {TARGET_UTILIZATION: target.average_utilization,
+                    TARGET_AVERAGE_VALUE: target.average_value,
+                    TARGET_VALUE: target.value}
+        if field_of[target.type] is None:
+            return (f"{where}: target type {target.type!r} requires its "
+                    "matching value field")
+        if field_of[target.type] <= 0:
+            return f"{where}: target value must be positive"
+        return None
+
+    for i, m in enumerate(s.metrics):
+        where = f"metrics[{i}]"
+        if m.resource is not None:
+            err = check_target(where, m.resource.target,
+                               {TARGET_UTILIZATION, TARGET_AVERAGE_VALUE})
+        elif m.pods is not None:
+            if not m.pods.metric:
+                return f"{where}: pods.metric name is required"
+            err = check_target(where, m.pods.target, {TARGET_AVERAGE_VALUE})
+        elif m.object is not None:
+            if not m.object.metric or not m.object.described_object.name:
+                return f"{where}: object.metric and describedObject required"
+            err = check_target(where, m.object.target,
+                               {TARGET_VALUE, TARGET_AVERAGE_VALUE})
+        elif m.external is not None:
+            if not m.external.metric:
+                return f"{where}: external.metric name is required"
+            err = check_target(where, m.external.target,
+                               {TARGET_VALUE, TARGET_AVERAGE_VALUE})
+        else:
+            return f"{where}: one of resource/pods/object/external required"
+        if err:
+            return err
+    return None
+
+
+# -- ResourceBinding: FederatedResourceQuota enforcement --------------------
+
+
+def calculate_rb_usage(rb: ResourceBinding) -> Dict[str, int]:
+    """helper.CalculateResourceUsage: scheduled replicas x per-replica
+    request, in milli units.  Multi-component bindings count each
+    component's replicas per scheduled set."""
+    total = sum(tc.replicas for tc in rb.spec.clusters)
+    usage: Dict[str, int] = {}
+    if rb.spec.components:
+        for comp in rb.spec.components:
+            req = comp.replica_requirements
+            if req is None:
+                continue
+            for name, qty in req.resource_request.items():
+                usage[name] = usage.get(name, 0) + total * comp.replicas * qty.milli
+        return usage
+    req = rb.spec.replica_requirements
+    if req is None:
+        return usage
+    for name, qty in req.resource_request.items():
+        usage[name] = usage.get(name, 0) + total * qty.milli
+    return usage
+
+
+class QuotaEnforcer:
+    """The FederatedQuotaEnforcement gate (validating.go:111-160).
+
+    Denies a ResourceBinding write whose usage DELTA would push any
+    namespace FederatedResourceQuota past spec.overall, and bumps
+    status.overall_used on allowed writes.  Runs inside the store write
+    lock, so check-and-bump is atomic with the persist.
+    """
+
+    def __init__(self, store, gates: Optional[FeatureGates] = None) -> None:
+        self.store = store
+        self.gates = gates or GATES
+
+    def __call__(self, op, rb: ResourceBinding, old) -> Optional[str]:
+        if not self.gates.enabled("FederatedQuotaEnforcement"):
+            return None
+        if op == OP_CREATE and not rb.spec.clusters:
+            return None  # not yet scheduled
+        new_usage = calculate_rb_usage(rb)
+        old_usage = calculate_rb_usage(old) if old is not None else {}
+        delta = {
+            n: new_usage.get(n, 0) - old_usage.get(n, 0)
+            for n in set(new_usage) | set(old_usage)
+        }
+        delta = {n: d for n, d in delta.items() if d != 0}
+        if not delta:
+            return None
+        frqs = self.store.visit(FederatedResourceQuota.KIND,
+                                rb.metadata.namespace)
+        to_bump = []
+        for frq in frqs:
+            if not frq.spec.overall:
+                continue
+            if frq.spec.static_assignments:
+                # static-split quotas are accounted from member-reported
+                # ResourceQuota usage (extras.py aggregation path), which
+                # would overwrite any bump made here — enforcement covers
+                # overall-only quotas, same split as the reference
+                continue
+            relevant = {n: d for n, d in delta.items() if n in frq.spec.overall}
+            if not relevant:
+                continue
+            for n, d in relevant.items():
+                used = frq.status.overall_used.get(n, Quantity(0)).milli
+                limit = frq.spec.overall[n].milli
+                if used + d > limit:
+                    return (
+                        f"exceeds FederatedResourceQuota {frq.metadata.name}: "
+                        f"{n} used {used}m + delta {d}m > limit {limit}m"
+                    )
+            to_bump.append((frq, relevant))
+        for frq, relevant in to_bump:
+            def bump(q, rel=relevant):
+                for n, d in rel.items():
+                    cur = q.status.overall_used.get(n, Quantity(0))
+                    q.status.overall_used[n] = Quantity(cur.milli + d)
+            self.store.mutate(
+                FederatedResourceQuota.KIND, frq.metadata.namespace,
+                frq.metadata.name, bump,
+            )
+        return None
+
+
 def install_default_webhooks(
-    registry: AdmissionRegistry,
+    registry: AdmissionRegistry, store, gates: Optional[FeatureGates] = None,
     default_toleration_seconds: Optional[int] = 300,
 ) -> None:
     defaulter = DefaultPropagationPolicy(default_toleration_seconds)
@@ -151,5 +325,9 @@ def install_default_webhooks(
         registry.register_validating(kind, validate_propagation_policy)
     for kind in (OverridePolicy.KIND, ClusterOverridePolicy.KIND):
         registry.register_validating(kind, validate_override_policy)
+    registry.register_validating(FederatedResourceQuota.KIND, validate_frq)
+    registry.register_validating(ResourceBinding.KIND,
+                                 QuotaEnforcer(store, gates))
     registry.register_validating(ResourceInterpreterWebhook.KIND,
                                  validate_interpreter_webhook)
+    registry.register_validating(FederatedHPA.KIND, validate_federated_hpa)

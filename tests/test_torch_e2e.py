@@ -2,17 +2,17 @@
 e2e.py) against the JAX package's, tolerance 0.
 
 The JAX ControlPlane runs exactly the ported controller set
-(``controllers=JAX_CONTROLLERS``); both run the same scenario -- every
-scenario of tests/test_e2e_slice.py (but the opt-in 600-member one), the
+(``controllers=JAX_CONTROLLERS``, store/worker.PORTED_CONTROLLERS); both
+run the same scenario -- every scenario of tests/test_e2e_slice.py (but the opt-in 600-member one), the
 detector cases of tests/test_detector_semantics.py and the policy
 defaulting and validation cases of tests/test_admission.py -- and their
 normalized snapshots must be equal: templates, policies, bindings, Works,
-Clusters, Namespaces and interpreter configs of the control plane, and
-every member's objects, with uids, resourceVersions, timestamps and
-condition times cleared (generations kept) and Leases left out.  Both
-stores hand out uids from a counter (a template's uid breaks scheduling
-ties), and the JAX collector's heartbeat Leases are not written (the port
-has no lease controller; they would shift the JAX counter).  A scenario
+Clusters, Namespaces, Leases and interpreter configs of the control
+plane, and every member's objects, with uids, resourceVersions,
+timestamps, condition times and lease renewal times cleared (generations
+kept).  Both stores hand out uids from a counter (a template's uid breaks
+scheduling ties), so both collectors write their heartbeat Leases in the
+same order (tests/torch_loop.py holds the shared helpers).  A scenario
 also logs what it observes (admission denials, claims, ready replicas);
 the logs must be equal too.
 
@@ -22,76 +22,25 @@ package's "serial" (its device path is the JAX package's own concern and
 costs XLA compiles here).
 """
 
-import dataclasses
-import importlib
-import itertools
-
 import pytest
 
-import torch_scenarios as S
 from torch_fixtures import collect_jax_planes  # noqa: F401 — autouse
-
-JAX_CONTROLLERS = ("detector,binding,execution,work-status,binding-status,"
-                   "cluster-status,namespace-sync,graceful-eviction")
+from torch_loop import (  # noqa: F401 — deterministic_uids is autouse
+    JAX_CONTROLLERS,
+    MJ,
+    MP,
+    assert_same,
+    deterministic_uids,
+    norm,
+)
 
 #: control-plane kinds of the snapshot besides the templates
 SNAP_KINDS = frozenset({
     "Cluster", "Namespace", "PropagationPolicy", "ClusterPropagationPolicy",
     "OverridePolicy", "ClusterOverridePolicy", "ResourceBinding",
     "ClusterResourceBinding", "Work", "ResourceInterpreterCustomization",
-    "ResourceInterpreterWebhook",
+    "ResourceInterpreterWebhook", "Lease",
 })
-#: fields cleared by name, wherever they appear
-CLEARED = frozenset({
-    "uid", "resource_version", "resourceVersion", "creation_timestamp",
-    "creationTimestamp", "deletion_timestamp", "last_transition_time",
-    "last_scheduled_time",
-})
-
-
-def _pkg(name):
-    M = S.models_of(name)
-    M.config = importlib.import_module(f"{name}.models.config")
-    M.ControlPlane = importlib.import_module(f"{name}.e2e").ControlPlane
-    M.AdmissionDenied = importlib.import_module(
-        f"{name}.webhook.admission").AdmissionDenied
-    M.detector = importlib.import_module(f"{name}.controllers.detector")
-    M.binding = importlib.import_module(f"{name}.controllers.binding")
-    return M
-
-
-MJ = _pkg("karmada_tpu")
-MP = _pkg("karmada_tpu_torch")
-
-
-
-@pytest.fixture(autouse=True)
-def deterministic_uids(monkeypatch):
-    """Both stores hand out uids from one sequence each, in creation order:
-    a template's uid breaks ties in the scheduler (Webster, spread), so
-    random uids would make the two planes' placements differ by chance.
-    The JAX collector's heartbeat Leases are not written here (they would
-    take uids the port's plane never hands out); nothing of the ported set
-    reads them."""
-    for name in ("karmada_tpu", "karmada_tpu_torch"):
-        seq = itertools.count(1)
-        monkeypatch.setattr(importlib.import_module(f"{name}.store.store"),
-                            "new_uid", lambda seq=seq: f"uid-{next(seq):06d}")
-    monkeypatch.setattr(importlib.import_module("karmada_tpu.controllers.lease"),
-                        "renew_cluster_lease", lambda *a, **k: None)
-
-
-def norm(v):
-    if dataclasses.is_dataclass(v) and not isinstance(v, type):
-        return {"@": type(v).__name__,
-                **{f.name: (None if f.name in CLEARED
-                            else norm(getattr(v, f.name)))
-                   for f in dataclasses.fields(v)}}
-    if isinstance(v, dict):
-        return {k: (None if k in CLEARED else norm(x)) for k, x in v.items()}
-    if isinstance(v, (list, tuple)):
-        return [norm(x) for x in v]
-    return v
 
 
 def snapshot(cp) -> dict:
@@ -99,7 +48,7 @@ def snapshot(cp) -> dict:
     for obj in cp.store.items():
         kind = obj.KIND
         if type(obj).__name__ != "Unstructured" and kind not in SNAP_KINDS:
-            continue  # Leases, and kinds only the JAX package writes
+            continue  # kinds the loop's scenarios do not compare
         out[(kind, obj.metadata.namespace, obj.metadata.name)] = norm(obj)
     for name, member in cp.members.items():
         for obj in member.store.items():
@@ -121,17 +70,6 @@ def plane(M, backend, members=(), tick=True):
     if tick:
         cp.tick()
     return cp
-
-
-def assert_same(a: dict, b: dict) -> None:
-    if a == b:
-        return
-    only = sorted(set(a) ^ set(b), key=repr)
-    diff = sorted((k for k in set(a) & set(b) if a[k] != b[k]), key=repr)
-    raise AssertionError(f"snapshots differ: only on one side {only[:6]}, "
-                         f"differing {diff[:6]}; first: "
-                         f"{a.get(diff[0]) if diff else None!r} vs "
-                         f"{b.get(diff[0]) if diff else None!r}")
 
 
 # -- tests/test_e2e_slice.py --------------------------------------------------
@@ -648,19 +586,68 @@ def test_scenarios_hold_what_the_jax_tests_assert():
 
 
 def test_apply_of_a_karmada_kind_raises_and_stores_nothing():
-    cp = MP.ControlPlane(backend="serial")
-    n = len(cp.store)
-    with pytest.raises(NotImplementedError):
-        cp.apply({"apiVersion": "policy.karmada.io/v1alpha1",
-                  "kind": "PropagationPolicy",
-                  "metadata": {"name": "p", "namespace": "default"}})
-    with pytest.raises(NotImplementedError):
-        cp.apply({"apiVersion": "policy.karmada.io/v1alpha1",
-                  "kind": "FederatedResourceQuota",
-                  "metadata": {"name": "q", "namespace": "default"}})
-    with pytest.raises(NotImplementedError):
-        cp.add_member("pulled", sync_mode="Pull")
-    assert len(cp.store) == n and not cp.members
+    """A karmada kind goes through the typed codec and admission: one
+    admission denies, or one at a version nobody serves, raises in both
+    packages and leaves both stores as they were."""
+    for M in (MJ, MP):
+        kw = ({"controllers": JAX_CONTROLLERS} if M is MJ else {})
+        cp = M.ControlPlane(backend="serial", **kw)
+        n = len(cp.store)
+        with pytest.raises(M.AdmissionDenied):
+            cp.apply({"apiVersion": "policy.karmada.io/v1alpha1",
+                      "kind": "PropagationPolicy",
+                      "metadata": {"name": "p", "namespace": "default"}})
+        with pytest.raises(M.AdmissionDenied):
+            cp.apply({"apiVersion": "policy.karmada.io/v1alpha1",
+                      "kind": "FederatedResourceQuota",
+                      "metadata": {"name": "q", "namespace": "default"},
+                      "spec": {"overall": {"cpu": "-1"}}})
+        with pytest.raises(ValueError):
+            cp.apply({"apiVersion": "policy.karmada.io/v9",
+                      "kind": "PropagationPolicy",
+                      "metadata": {"name": "p", "namespace": "default"}})
+        assert len(cp.store) == n and not cp.members
+
+
+def sc_apply_karmada_kinds_and_pull_join(M, backend, log):
+    """`apply` of karmada kinds (a policy, an override, a quota) decodes
+    them to their typed models; a Pull member joins through its agent
+    after its bootstrap CSR and receives its share."""
+    cp = plane(M, backend, FLEET2)
+    cp.add_member("pulled", cpu_milli=32_000, sync_mode="Pull")
+    cp.apply({"apiVersion": "policy.karmada.io/v1alpha1",
+              "kind": "PropagationPolicy",
+              "metadata": {"name": "nginx-pp", "namespace": "default"},
+              "spec": {"resourceSelectors": [{"apiVersion": "apps/v1",
+                                              "kind": "Deployment"}],
+                       "placement": {"replicaScheduling": {
+                           "replicaSchedulingType": "Divided",
+                           "replicaDivisionPreference": "Weighted",
+                           "weightPreference": {
+                               "dynamicWeight": "AvailableReplicas"}}}}})
+    cp.apply({"apiVersion": "policy.karmada.io/v1alpha1",
+              "kind": "FederatedResourceQuota",
+              "metadata": {"name": "q", "namespace": "default"},
+              "spec": {"overall": {"cpu": "100"}}})
+    cp.apply(nginx(replicas=6))
+    cp.tick()
+    cp.tick()
+    log.append(type(cp.store.get("PropagationPolicy", "default",
+                                 "nginx-pp")).__name__)
+    log.append(sorted(t.name for t in cp.store.get(
+        "ResourceBinding", "default", "nginx-deployment").spec.clusters))
+    log.append(cp.member("pulled").get("Deployment", "default", "nginx")
+               is not None)
+    log.append(cp.store.get("ClusterCredential", "", "pulled")
+               .status.rotations)
+    return cp
+
+
+@pytest.mark.parametrize("backend", ["serial", "native"])
+def test_apply_karmada_kinds_and_pull_join_parity(backend):
+    _, logs = run_both(sc_apply_karmada_kinds_and_pull_join, backend)
+    assert logs[1][0] == "PropagationPolicy" and logs[1][2] is True
+    assert "pulled" in logs[1][1]
 
 
 def test_default_tolerations_off():

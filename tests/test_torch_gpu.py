@@ -1667,12 +1667,14 @@ def test_rebalance_plane_cycle_on_card():
     assert out[str(dev)] == out["cpu"]
 
 
-def _loop_snapshot(device):
+def _loop_snapshot(device, failover=False):
     """A ControlPlane on `device`: 8 members, a Divided / Duplicated /
     region-spread / Aggregated policy mix over 40 Deployments, an image
     override on one member, ticked to quiescence; returns the normalized
     snapshot (uids, resourceVersions and times cleared) and the plane.
-    Uids come from a counter: a template's uid breaks scheduling ties."""
+    Uids come from a counter: a template's uid breaks scheduling ties.
+    With `failover`, on a clock only the test moves: then two members
+    fail past their tolerations and the eviction pacing, and recover."""
     import dataclasses
     import itertools
     from unittest import mock
@@ -1682,7 +1684,7 @@ def _loop_snapshot(device):
 
     cleared = {"uid", "resource_version", "resourceVersion",
                "creation_timestamp", "deletion_timestamp",
-               "last_transition_time", "last_scheduled_time"}
+               "last_transition_time", "last_scheduled_time", "renew_time"}
 
     def norm(v):
         if dataclasses.is_dataclass(v) and not isinstance(v, type):
@@ -1699,7 +1701,7 @@ def _loop_snapshot(device):
     seq = itertools.count(1)
     with mock.patch.object(store_mod, "new_uid",
                            lambda: f"uid-{next(seq):06d}"):
-        cp = _loop_plane(ControlPlane, device)
+        cp = _loop_plane(ControlPlane, device, failover)
     snap = {}
     for obj in cp.store.items():
         snap[(obj.KIND, obj.metadata.namespace, obj.metadata.name)] = \
@@ -1711,12 +1713,13 @@ def _loop_snapshot(device):
     return snap, cp
 
 
-def _loop_plane(ControlPlane, device):
+def _loop_plane(ControlPlane, device, failover=False):
     import random
 
     M = MP
     rng = random.Random(9)
-    cp = ControlPlane(device=device)
+    clock = [1000.0]
+    cp = ControlPlane(device=device, clock=lambda: clock[0])
     for i in range(8):
         cp.add_member(f"m{i}", cpu_milli=rng.choice([8_000, 16_000, 32_000]),
                       region=f"r{i % 3}", collect=False)
@@ -1775,6 +1778,18 @@ def _loop_plane(ControlPlane, device):
                                    "memory": "1Gi"}}}]}}}})
     for _ in range(4):
         cp.tick()
+    if failover:
+        for name in ("m2", "m5"):
+            cp.member(name).healthy = False
+        cp.tick()
+        for _ in range(3):
+            clock[0] += 310.0
+            cp.tick()
+        for name in ("m2", "m5"):
+            cp.member(name).healthy = True
+        for _ in range(3):
+            clock[0] += 30.0
+            cp.tick()
     return cp
 
 
@@ -1797,3 +1812,26 @@ def test_control_plane_loop_on_card():
     ready = [o.manifest["status"]["readyReplicas"]
              for o in cp.store.list("Deployment")]
     assert len(ready) == 40 and sum(ready) > 0
+
+
+@pytest.mark.gpu
+def test_failover_loop_on_card():
+    """The failover loop on the card (two members fail past the 300 s
+    toleration, the taint manager evicts through its queue, the Scheduler
+    re-places on the card with the evicted clusters in K2's lanes, then
+    the members recover) equals the same loop with device="cpu"."""
+    dev = _card()
+    kernels.reset_counts()
+    card, cp = _loop_snapshot(dev, failover=True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    cpu, _ = _loop_snapshot("cpu", failover=True)
+    assert card == cpu
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        assert launches[k] > 0, launches
+    assert cp.taint_manager.evicted > 0
+    assert cp.scheduler.faults() == {} and cp.execution.sync_failures == 0
+    assert not any(cp.runtime.reconcile_errors().values())
+    assert {c["backend"] for c in cp.scheduler.cycle_log} == {"device"}
+    for rb in cp.store.list("ResourceBinding"):
+        assert not rb.spec.graceful_eviction_tasks

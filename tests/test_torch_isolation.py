@@ -1,10 +1,13 @@
-"""Isolation of the port: karmada_tpu_torch and chip_smoke.py import
-neither jax nor anything of the JAX package karmada_tpu (whose name is a
+"""Isolation of the port: karmada_tpu_torch, chip_smoke.py and tools/
+import neither jax nor anything of the JAX package karmada_tpu (whose name is a
 prefix of the port's: `karmada_tpu` followed by a boundary other than
 `_torch`), a cycle -- and a resident adopt plus an incremental cycle --
 runs with neither in sys.modules, as does a control-plane
 Scheduler with the rebalance plane armed and one with backend="native",
-and the propagation loop (ControlPlane) on every backend, and the entry
+and the propagation loop (ControlPlane) on every backend -- with its
+failover loop (leases, taints, the taint manager and its eviction queue,
+graceful eviction), typed applies, quotas, a Pull member and an unjoin --
+and the entry
 points -- ControlPlane among them -- never drift to the CPU unless asked.  The cycle's
 encode and decode run through the port's C paths (native/), whose loaded
 libraries are the port's own builds: no port module names the JAX
@@ -30,7 +33,8 @@ def _forbidden(module: str) -> bool:
 
 
 def _port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "tools").glob("*.py")))
     assert len(files) >= 15
     return files
 
@@ -276,3 +280,73 @@ def test_control_plane_refuses_cpu_drift():
         ControlPlane()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ControlPlane(backend="device", rebalance=30.0)
+
+
+_FAILOVER = r"""
+import sys
+sys.path.insert(0, {root!r})
+from karmada_tpu_torch.e2e import ControlPlane
+clock = {{"t": 1000.0}}
+for backend in ("device", "native", "serial"):
+    cp = ControlPlane(backend=backend, clock=lambda: clock["t"],
+                      device="cpu" if backend == "device" else None,
+                      feature_gates={{"FederatedQuotaEnforcement": True}})
+    for i in range(3):
+        cp.add_member(f"m{{i}}", cpu_milli=16_000)
+    cp.add_member("pulled", cpu_milli=16_000, sync_mode="Pull")
+    cp.apply({{"apiVersion": "policy.karmada.io/v1alpha1",
+               "kind": "ClusterPropagationPolicy", "metadata": {{"name": "all"}},
+               "spec": {{"resourceSelectors": [{{"apiVersion": "apps/v1",
+                                                 "kind": "Deployment"}}],
+                        "placement": {{"replicaScheduling": {{
+                            "replicaSchedulingType": "Divided",
+                            "replicaDivisionPreference": "Weighted",
+                            "weightPreference": {{
+                                "dynamicWeight": "AvailableReplicas"}}}}}}}}}})
+    cp.apply({{"apiVersion": "policy.karmada.io/v1alpha1",
+               "kind": "FederatedResourceQuota",
+               "metadata": {{"name": "q", "namespace": "team"}},
+               "spec": {{"overall": {{"cpu": "100"}}}}}})
+    for j in range(4):
+        cp.apply({{"apiVersion": "apps/v1", "kind": "Deployment",
+                   "metadata": {{"name": f"app-{{j}}", "namespace": "team"}},
+                   "spec": {{"replicas": 4, "template": {{"spec": {{
+                       "containers": [{{"name": "c", "image": "nginx",
+                           "resources": {{"requests": {{"cpu": "500m"}}}}}}]}}}}}}}})
+    cp.tick()
+    cp.member("m0").healthy = False
+    cp.tick()
+    assert cp.store.get("Cluster", "", "m0").spec.taints
+    clock["t"] += 301.0
+    for _ in range(3):
+        cp.tick()
+    for rb in cp.store.list("ResourceBinding", "team"):
+        assert "m0" not in {{t.name for t in rb.spec.clusters}}, rb.spec
+        assert sum(t.replicas for t in rb.spec.clusters) == 4
+    cp.member("m0").healthy = True
+    cp.unjoin("pulled")
+    cp.tick()
+    assert not cp.store.get("Cluster", "", "m0").spec.taints
+    assert cp.store.try_get("Cluster", "", "pulled") is None
+    assert cp.taint_manager.evicted > 0
+    assert cp.scheduler.faults() == {{}}
+    assert not any(cp.runtime.reconcile_errors().values())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_failover_loop_loads_no_jax_subprocess():
+    """The port's failover loop -- a member failing, its taint, the taint
+    manager's paced evictions, recovery -- with typed applies, an enforced
+    quota, a Pull member and an unjoin, on every backend, with neither jax
+    nor the JAX package loaded."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _FAILOVER.format(root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout

@@ -42,15 +42,13 @@ MP = S.models_of("karmada_tpu_torch")
 
 @pytest.fixture
 def uids(monkeypatch):
-    """Both stores hand out uids from a counter and the JAX collector
-    writes no heartbeat Lease (tests/test_torch_e2e.py's rules)."""
+    """Both stores hand out uids from a counter (tests/test_torch_e2e.py's
+    rule; both collectors write their heartbeat Leases in the same
+    order)."""
     for name in ("karmada_tpu", "karmada_tpu_torch"):
         seq = itertools.count(1)
         monkeypatch.setattr(importlib.import_module(f"{name}.store.store"),
                             "new_uid", lambda seq=seq: f"uid-{next(seq):06d}")
-    monkeypatch.setattr(
-        importlib.import_module("karmada_tpu.controllers.lease"),
-        "renew_cluster_lease", lambda *a, **k: None)
 
 
 def _card():

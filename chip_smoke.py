@@ -192,6 +192,49 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      plane (phase_outage), one line a tick with the taint manager's and
      the eviction queue's seconds.  Launch counters are reset just before
      14b and 14c and read just after each.
+ 15. the estimator tier, the descheduler and the facade ((a) right
+     after 14a, (b) and (c) right after 14c): (a) phase 12a's members
+     and placements with FACADE_PARITY_TEMPLATES templates under
+     ControlPlane(enable_descheduler=True), ticked to quiescence,
+     DESCHED_PARITY_SQUEEZED members squeezed through the member model
+     and the descheduler settled, then one FacadeService a plane
+     answering FACADE_PARITY_REQUESTS AssignReplicas and the three
+     what-if queries -- card against device="cpu": equal snapshots and
+     answers, shrinks with no estimator error, no write by the facade;
+     (b) on phase 12b's plane after 14c, FACADE_REQUESTS AssignReplicas
+     drawn from config 5's mix, FACADE_THREADS client threads over
+     TcpTransport, window FACADE_WINDOW, deadline FACADE_DEADLINE_S:
+     every answer equal to a device="cpu" Scheduler's detached solve of
+     its batch, a stride sample of FACADE_SAMPLE answered alone equal to
+     ops/serial.schedule, the placement, headroom and cluster-loss
+     queries equal card vs CPU, no non-Lease write; the batches, the
+     coalesce ratio, the callers' arrival spread, a call's latency and
+     each query's wall printed; (c) a Descheduler attached to the same
+     plane over its estimator client and shared budget, DESCHED_SQUEEZED
+     members squeezed, ticked to quiescence: every eligible binding
+     keeps its replica total (but at most DESCHED_SHORT_MAX, each short
+     by no more than the descheduler shrank of it, Unschedulable and
+     unplaceable by ops/serial), none stuck on a squeezed member, the
+     budget's denials printed, no contained fault or failed sync, K1-K4
+     launched.  Launch counters are reset just before 15b and 15c and
+     read just after each.
+
+Two other processes run beside the main one.  The device="cpu" halves
+of phases 5, 12a, 14a and 15a run in one spawned child process
+(CpuRefs: niced, CPU_CHILD_THREADS torch threads, its lines prefixed
+"[cpu reference]"), started after phase 3's forward cycle and read where
+each card half is done; the child is stopped before the report.  The
+loop's plane phases -- 12b, 14b, 14c, 15b and 15c, on one plane --
+run in a second process on the same card (LoopChild: `chip_smoke.py
+--loop-child`, its lines prefixed "[loop]"), started right after phase
+2's kernel timings, beside phases 3-11 and the loop's parity phases
+(12a, 14a, 15a, run here after phase 11), and joined before phase 13,
+whose timings and guard then have the card to themselves; each of its
+phases resets and reads the launch counts in that process, and its
+counts come back on its last line into the report.  So phases 3-11's
+host walls and the K10-K13 timings are taken with that process beside
+them.  --only-loop runs phases 1, 12, 14 and 15 alone in one process
+(no kernel report, no result line).
 
 Phase 2 also holds K7 (on the first forward chunk's wave 0 as
 schedule_core launches it -- the chunk's workspace, the batch's
@@ -259,12 +302,14 @@ the capture's); the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import gc
 import inspect
 import json
 import math
 import os
+import pickle
 import random
 import subprocess
 import sys
@@ -326,8 +371,125 @@ class GcClock:
 GC = GcClock()
 
 
+_PRINT = threading.Lock()  # log() and LoopChild's relay, one line at a time
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    with _PRINT:
+        print(f"[cpu reference] {msg}" if IN_CPU_CHILD else msg, flush=True)
+
+
+# -- the CPU halves of the card-vs-CPU comparisons, in a child process --------
+
+IN_CPU_CHILD = False
+CPU_CHILD_THREADS = 4   # the child's torch threads; the rest of the cores
+                        # stay with this process's host work
+CPU_CHILD_NICE = 10
+
+
+def _run_pickled(blob: bytes):
+    fn, args = pickle.loads(blob)
+    return fn(*args)
+
+
+def _cpu_child_init() -> None:
+    global IN_CPU_CHILD
+    IN_CPU_CHILD = True
+    os.nice(CPU_CHILD_NICE)
+    torch.set_num_threads(CPU_CHILD_THREADS)
+
+
+class CpuRefs:
+    """The device="cpu" halves of phases 5, 12a, 14a and 15a in one
+    spawned child process (niced, CPU_CHILD_THREADS torch threads) while
+    this process goes on with the card: each is submitted once its inputs
+    exist and read where its card half is done, and compared there as
+    before.  A job is a module-level function of picklable arguments
+    returning picklable results; its wall is the child's."""
+
+    def __init__(self) -> None:
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_child_init)
+        self.jobs = {}
+        self.cpu5 = {}  # phase 5's results, by label
+
+    def submit(self, key, fn, *args) -> None:
+        """fn(*args) in the child, on the arguments as they are now."""
+        self.jobs[key] = self.pool.submit(_run_pickled,
+                                          pickle.dumps((fn, args)))
+
+    def result(self, key):
+        return self.jobs.pop(key).result()
+
+    def close(self) -> None:
+        """Stop the child: queued jobs cancelled, a running one waited
+        for."""
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+# -- the plane phases (12b, 14b-c, 15b-c) in a second process on the card ----
+
+LOOP_CHILD_PREFIX = "[loop] "
+LOOP_CHILD_RESULT = "loop child result: "
+
+
+class LoopChild:
+    """Phases 12b, 14b, 14c, 15b and 15c -- the loop's plane at config 5's
+    width -- run by `chip_smoke.py --loop-child` in a second process on
+    the same card, started once phase 2's kernel timings are taken and
+    joined before phase 13, while this process goes on with phases 3-11
+    and the loop's parity phases (12a, 14a, 15a).  The child rebuilds
+    config 5's workload from the same seed, loads the kernels this process
+    built, resets each phase's launch counts in its own process and sends
+    them back on its last line; its other lines are relayed here prefixed
+    LOOP_CHILD_PREFIX.  Its own process group, killed at exit if it is
+    still running."""
+
+    def __init__(self, args) -> None:
+        cmd = [sys.executable, os.path.abspath(__file__), "--loop-child",
+               "--seed", str(args.seed), "--bindings", str(args.bindings),
+               "--clusters", str(args.clusters),
+               "--loop-templates", str(args.loop_templates)]
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                     bufsize=1, start_new_session=True)
+        self.payload = None
+        self.relay = threading.Thread(target=self._relay, daemon=True)
+        self.relay.start()
+        atexit.register(self.stop)
+
+    def _relay(self) -> None:
+        for line in self.proc.stdout:
+            line = line.rstrip("\n")
+            if line.startswith(LOOP_CHILD_RESULT):
+                self.payload = json.loads(line[len(LOOP_CHILD_RESULT):])
+                continue
+            with _PRINT:
+                print(LOOP_CHILD_PREFIX + line, flush=True)
+
+    def result(self) -> dict:
+        """Wait for the child; its launch counts and remap calls.  Raises
+        if it failed or sent nothing."""
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        self.relay.join()
+        log(f"loop child: exit {rc}, {time.perf_counter() - self.t0:.1f} s "
+            f"after its start, waited for {time.perf_counter() - t0:.1f} s")
+        if rc != 0 or self.payload is None:
+            raise AssertionError(f"the loop child (phases 12b, 14b-c, "
+                                 f"15b-c) failed: exit {rc}")
+        return self.payload
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            import signal
+
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
 
 
 # -- the bench.py workload mix, written against the port's models --------------
@@ -3194,10 +3356,43 @@ def norm(r):
     return sorted((t.name, t.replicas) for t in r)
 
 
-def phase_parity(label, items, fleet, args, dev) -> None:
+def cpu_parity_job(parts, explain_part, fleet, chunk, waves) -> dict:
+    """Phase 5's CPU halves (CpuRefs), by label: schedule_items with
+    device="cpu" on each {label: chunk}, the results normalized, and on
+    the explain chunk its decisions (ts and id left out); each with its
+    wall."""
+    from karmada_tpu_torch.obs import decisions as D
+    from karmada_tpu_torch.scheduler.core import schedule_items
+
+    out = {}
+    for label, part in parts.items():
+        t0 = time.perf_counter()
+        out[label] = ([norm(r) for r in schedule_items(
+            part, fleet, chunk=chunk, waves=waves, device="cpu")],
+            time.perf_counter() - t0)
+    rec = D.DecisionRecorder(capacity=len(explain_part))
+    t0 = time.perf_counter()
+    schedule_items(explain_part, fleet, chunk=EXPLAIN_CHUNK, waves=waves,
+                   device="cpu", explain=rec)
+    out["explain"] = ([{x: v for x, v in dec.items()
+                        if x not in ("ts", "id")} for dec in rec.recent()],
+                      time.perf_counter() - t0)
+    return out
+
+
+def submit_parity(refs, chunks, explain_items, fleet, args) -> None:
+    """Phase 5's CPU halves to the child: schedule_items on the first
+    chunk of each {label: items} and on the explain chunk."""
+    refs.submit("5", cpu_parity_job,
+                {label: items[:args.chunk] for label, items in chunks.items()},
+                explain_items[:EXPLAIN_CHUNK], fleet, args.chunk, args.waves)
+
+
+def phase_parity(label, items, fleet, args, dev, refs) -> None:
     """One chunk through the kernel path on the card and the plain path on
     the CPU: solve_compact's COO, status, nnz and carry accumulators, and
-    schedule_items' results row by row."""
+    schedule_items' results row by row (the CPU's from the child,
+    submit_parity)."""
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.ops import solver as S
     from karmada_tpu_torch.ops import tensors as T
@@ -3219,21 +3414,20 @@ def phase_parity(label, items, fleet, args, dev) -> None:
     card = [norm(r) for r in schedule_items(
         part, fleet, chunk=args.chunk, waves=args.waves, device=dev)]
     t1 = time.perf_counter()
-    cpu = [norm(r) for r in schedule_items(
-        part, fleet, chunk=args.chunk, waves=args.waves, device="cpu")]
+    cpu, cpu_s = refs.cpu5[label]
     bad = [i for i, (a, b) in enumerate(zip(card, cpu)) if a != b]
     log(f"phase 5 parity {label}: schedule_items on {len(part)} bindings, "
-        f"card {t1 - t0:.2f} s, cpu {time.perf_counter() - t1:.2f} s, "
+        f"card {t1 - t0:.2f} s, cpu {cpu_s:.2f} s (the child's), "
         f"rows differing: {len(bad)}")
     if bad:
         raise AssertionError(f"{label}: rows {bad[:10]} differ: card "
                              f"{card[bad[0]]} cpu {cpu[bad[0]]}")
 
 
-def phase_parity_explain(items, fleet, args, dev) -> None:
+def phase_parity_explain(items, fleet, args, dev, refs) -> None:
     """One phase-7 chunk: its explain planes (and COO, carry) card vs CPU
     bit for bit, and its decisions through schedule_items equal apart
-    from ts/id."""
+    from ts/id (the CPU's from the child, submit_parity)."""
     from karmada_tpu_torch.estimator.general import GeneralEstimator
     from karmada_tpu_torch.obs import decisions as D
     from karmada_tpu_torch.ops import solver as S
@@ -3254,16 +3448,18 @@ def phase_parity_explain(items, fleet, args, dev) -> None:
         f"kernel==plain(cpu): {same}")
     if not same:
         raise AssertionError("explain: kernel planes != plain planes")
-    decs = []
-    for d in (dev, "cpu"):
-        rec = D.DecisionRecorder(capacity=len(part))
-        t0 = time.perf_counter()
-        schedule_items(part, fleet, chunk=EXPLAIN_CHUNK, waves=args.waves,
-                       device=d, explain=rec)
-        decs.append([{x: v for x, v in dec.items() if x not in ("ts", "id")}
-                     for dec in rec.recent()])
-        log(f"phase 5 parity explain: schedule_items on {d}, "
-            f"{len(decs[-1])} decisions in {time.perf_counter() - t0:.2f} s")
+    rec = D.DecisionRecorder(capacity=len(part))
+    t0 = time.perf_counter()
+    schedule_items(part, fleet, chunk=EXPLAIN_CHUNK, waves=args.waves,
+                   device=dev, explain=rec)
+    decs = [[{x: v for x, v in dec.items() if x not in ("ts", "id")}
+             for dec in rec.recent()]]
+    log(f"phase 5 parity explain: schedule_items on {dev}, "
+        f"{len(decs[-1])} decisions in {time.perf_counter() - t0:.2f} s")
+    cpu, cpu_s = refs.cpu5["explain"]
+    decs.append(cpu)
+    log(f"phase 5 parity explain: schedule_items on cpu (the child), "
+        f"{len(cpu)} decisions in {cpu_s:.2f} s")
     if decs[0] != decs[1]:
         bad = next(i for i, (a, b) in enumerate(zip(*decs)) if a != b)
         raise AssertionError(f"explain: decision {bad} differs card vs cpu")
@@ -4003,7 +4199,7 @@ LOOP_SAMPLE = 64              # unscheduled bindings checked on the serial path
 _LOOP_CLEARED = frozenset({
     "uid", "resource_version", "resourceVersion", "creation_timestamp",
     "creationTimestamp", "deletion_timestamp", "last_transition_time",
-    "last_scheduled_time"})
+    "last_scheduled_time", "renew_time"})
 
 
 class UidSeq:
@@ -4084,6 +4280,7 @@ def build_loop(M, dev, fleet, placements, items, **cp_kw):
     t0 = time.perf_counter()
     cp = ControlPlane(device=dev, pipeline_chunk=4096, waves=8,
                       batch_window=4096, clock=FakeClock(), **cp_kw)
+    cp._lease_writes = LeaseWrites(cp.store)
     cp.scheduler.queue.now = cp.clock
     for c in fleet:
         a = c.status.resource_summary.allocatable
@@ -4170,9 +4367,57 @@ class LoopClock:
         return out
 
 
+class LeaseWrites:
+    """The Lease writes of one plane's store (a watch on kind Lease): the
+    collectors renew every cluster's Lease on the wall clock each round,
+    and a heartbeat is not a change of the loop's state."""
+
+    def __init__(self, store) -> None:
+        self.n = 0
+        store.bus.subscribe(self, kind="Lease")
+
+    def __call__(self, _event) -> None:
+        self.n += 1
+
+
+#: host seconds and calls of the collectors' Lease renewals since the
+#: last take (controllers/lease.renew_cluster_lease, timed by
+#: time_renewals; they run inside the "cluster-status" seconds)
+RENEWALS = {"s": 0.0, "n": 0}
+
+
+def time_renewals() -> None:
+    """Wrap controllers/lease.renew_cluster_lease (the collector imports
+    it at each collect) to count its calls and host seconds in RENEWALS;
+    once a process."""
+    from karmada_tpu_torch.controllers import lease as lease_mod
+
+    renew = lease_mod.renew_cluster_lease
+    if getattr(renew, "timed", False):
+        return
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return renew(*a, **kw)
+        finally:
+            RENEWALS["s"] += time.perf_counter() - t0
+            RENEWALS["n"] += 1
+    timed.timed = True
+    lease_mod.renew_cluster_lease = timed
+
+
+def take_renewals() -> tuple:
+    out = (RENEWALS["n"], RENEWALS["s"])
+    RENEWALS["n"], RENEWALS["s"] = 0, 0.0
+    return out
+
+
 def loop_revision(cp) -> int:
-    return cp.store.revision + sum(m.store.revision
-                                   for m in cp.members.values())
+    """Writes of the plane and of its members, less the plane's Lease
+    writes (build_loop arms the count)."""
+    return (cp.store.revision - cp._lease_writes.n
+            + sum(m.store.revision for m in cp.members.values()))
 
 
 def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
@@ -4189,6 +4434,10 @@ def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
     run."""
     clock = getattr(cp, "_host_seconds", None) or LoopClock(cp)
     cp._host_seconds = clock
+    if not hasattr(cp, "_renewals"):
+        cp._renewals = (0, 0.0)  # (calls, host seconds) in the loop's ticks
+    time_renewals()
+    take_renewals()
     log_ = cp.scheduler.cycle_log
     seen = log_[-1]["cycle_id"] if log_ else 0
     ticks, converged, moved = 0, False, False
@@ -4206,6 +4455,9 @@ def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
         wall = time.perf_counter() - t0
         ticks += 1
         split = clock.take()
+        renewals = take_renewals()
+        cp._renewals = (cp._renewals[0] + renewals[0],
+                        cp._renewals[1] + renewals[1])
         cycles = [c for c in cp.scheduler.cycle_log if c["cycle_id"] > seen]
         if cycles:
             seen = cycles[-1]["cycle_id"]
@@ -4220,6 +4472,7 @@ def run_loop(cp, label, verbose, max_ticks=LOOP_TICKS):
                 f"({sum(c['bindings'] for c in cycles)} bindings) {stages}; "
                 f"Cluster events {cp.scheduler.cluster_events - ev0} "
                 f"scanned in {cp.scheduler.cluster_event_s - evs0:.3f} s; "
+                f"Lease renewals {renewals[0]} in {renewals[1]:.3f} s; "
                 f"{GC.line()}")
         if loop_revision(cp) != rev:
             moved = False
@@ -4263,24 +4516,51 @@ def loop_faults(cp) -> dict:
             "sync_failures": cp.execution.sync_failures}
 
 
-def phase_loop_parity(M, fleet, items, dev, seed) -> None:
+def parity_recipe(M, fleet, items, seed, templates) -> tuple:
+    """12a's, 14a's and 15a's inputs: the first LOOP_PARITY_MEMBERS
+    members, placements drawn over their names, the first `templates`
+    templates."""
+    fleet = fleet[:LOOP_PARITY_MEMBERS]
+    return (fleet, build_placements(M, random.Random(seed),
+                                    [c.name for c in fleet]),
+            items[:templates])
+
+
+def submit_loop_parity(refs, M, fleet, items, seed) -> None:
+    """The CPU halves of 12a, 14a and 15a to the child."""
+    refs.submit("12a", loop_parity_run, None, *parity_recipe(
+        M, fleet, items, seed, LOOP_PARITY_TEMPLATES))
+    refs.submit("14a", failover_parity_run, None, *parity_recipe(
+        M, fleet, items, seed, LOOP_PARITY_TEMPLATES))
+    refs.submit("15a", descheduler_parity_run, None, *parity_recipe(
+        M, fleet, items, seed, FACADE_PARITY_TEMPLATES))
+
+
+def loop_parity_run(dev, fleet, placements, items) -> tuple:
+    """12a on `dev` (None: the CPU, in the child): the plane built and
+    ticked to quiescence; (snapshot, (ticks, converged, wall, faults,
+    backends, device type))."""
+    dev = dev or torch.device("cpu")
+    with UidSeq():
+        cp, _steps = build_loop(models(), dev, fleet, placements, items)
+        ticks, converged, wall = run_loop(cp, "12a", verbose=False)
+    return loop_snapshot(cp), (
+        ticks, converged, wall, loop_faults(cp),
+        [c["backend"] for c in cp.scheduler.cycle_log],
+        cp.scheduler.device.type)
+
+
+def phase_loop_parity(M, fleet, items, dev, seed, refs) -> None:
     """12a: the first LOOP_PARITY_MEMBERS members and
     LOOP_PARITY_TEMPLATES templates (config 5's build functions; the placements
     drawn over these members' names), a ControlPlane on the card against
-    the same with device="cpu", ticked to quiescence: equal snapshots."""
-    fleet = fleet[:LOOP_PARITY_MEMBERS]
-    placements = build_placements(M, random.Random(seed),
-                                  [c.name for c in fleet])
+    the same with device="cpu" (in the child, submit_loop_parity), ticked
+    to quiescence: equal snapshots."""
+    recipe = parity_recipe(M, fleet, items, seed, LOOP_PARITY_TEMPLATES)
+    fleet = recipe[0]
     snaps, runs = {}, {}
-    for d in (dev, torch.device("cpu")):
-        with UidSeq():
-            cp, steps = build_loop(M, d, fleet, placements,
-                                   items[:LOOP_PARITY_TEMPLATES])
-            ticks, converged, wall = run_loop(cp, "12a", verbose=False)
-        snaps[d.type] = loop_snapshot(cp)
-        runs[d.type] = (ticks, converged, wall, loop_faults(cp),
-                        [c["backend"] for c in cp.scheduler.cycle_log],
-                        cp.scheduler.device.type)
+    snaps["cuda"], runs["cuda"] = loop_parity_run(dev, *recipe)
+    snaps["cpu"], runs["cpu"] = refs.result("12a")
     a, b = snaps["cuda"], snaps["cpu"]
     diff = sorted((k for k in set(a) | set(b) if a.get(k) != b.get(k)),
                   key=repr)
@@ -4653,25 +4933,30 @@ def failover_run(M, dev, fleet, placements, items) -> tuple:
     return steps, cp, notes
 
 
-def phase_failover_parity(M, fleet, items, dev, seed) -> None:
+def failover_parity_run(dev, fleet, placements, items) -> tuple:
+    """14a on `dev` (None: the CPU, in the child): (steps, notes, wall,
+    backends, device type)."""
+    dev = dev or torch.device("cpu")
+    t1 = time.perf_counter()
+    steps, cp, notes = failover_run(models(), dev, fleet, placements, items)
+    return (steps, notes, time.perf_counter() - t1,
+            {c["backend"] for c in cp.scheduler.cycle_log},
+            cp.scheduler.device.type)
+
+
+def phase_failover_parity(M, fleet, items, dev, seed, refs) -> None:
     """14a: phase 12a's recipe (LOOP_PARITY_MEMBERS members x
     LOOP_PARITY_TEMPLATES templates) with the rebalance plane armed
     (phase 10's RebalanceConfig) on a clock only the phase moves, on the
-    card and with device="cpu" (failover_run): equal snapshots after
-    every step, every step quiescent with no contained fault, every
-    scheduler cycle on backend "device"."""
+    card and with device="cpu" (failover_run; the CPU's in the child,
+    submit_loop_parity): equal snapshots after every step, every step
+    quiescent with no contained fault, every scheduler cycle on backend
+    "device"."""
     t0 = time.perf_counter()
-    fleet = fleet[:LOOP_PARITY_MEMBERS]
-    placements = build_placements(M, random.Random(seed),
-                                  [c.name for c in fleet])
-    runs = {}
-    for d in (dev, torch.device("cpu")):
-        t1 = time.perf_counter()
-        steps, cp, notes = failover_run(M, d, fleet, placements,
-                                        items[:LOOP_PARITY_TEMPLATES])
-        runs[d.type] = (steps, notes, time.perf_counter() - t1,
-                        {c["backend"] for c in cp.scheduler.cycle_log},
-                        cp.scheduler.device.type)
+    recipe = parity_recipe(M, fleet, items, seed, LOOP_PARITY_TEMPLATES)
+    fleet = recipe[0]
+    runs = {"cuda": failover_parity_run(dev, *recipe),
+            "cpu": refs.result("14a")}
     a, b = runs["cuda"], runs["cpu"]
     failed, tainted, rounds, busy, evicted = a[1]["failed"]
     crushed, r_rounds, drains, conv, pending, evictions = a[1]["crushed"]
@@ -4951,6 +5236,575 @@ def phase_outage(cp, dev) -> dict:
     if bad:
         raise AssertionError(f"phase 14c: {len(bad)} failed checks: "
                              + "; ".join(bad[:8]))
+    return launches
+
+
+# -- phase 15: the estimator tier, the descheduler and the facade -------------
+
+FACADE_PARITY_TEMPLATES = 128  # 15a (256, 13d's plane size, until the
+                               # full run passed 1,000 s)
+FACADE_PARITY_REQUESTS = 64
+FACADE_PARITY_WINDOW = 16
+DESCHED_PARITY_SQUEEZED = 2    # 15a: members squeezed through the member model
+FACADE_REQUESTS = 512          # 15b
+FACADE_THREADS = 16
+FACADE_WINDOW = 128
+FACADE_DEADLINE_S = 0.05       # 20x the median arrival spread of the
+                               # 16 callers' resubmissions (15b prints
+                               # it; 2.5 ms on the H100 host at 0.2 s)
+FACADE_SAMPLE = 64             # 15b: solo answers held against ops/serial
+DESCHED_SQUEEZED = 8           # 15c
+DESCHED_SHORT_MAX = 2          # 15c: eligible bindings that may end short
+DESCHED_ROUNDS = 20
+
+
+def facade_requests(items, placements, n, prefix):
+    """`n` AssignReplicas requests drawn from config 5's binding mix:
+    binding b's replicas and requests (cpu, memory in Gi, as
+    loop_template makes them), Divided when its placement
+    (placements[b % len]) divides, the names of its affinity as the
+    allowlist."""
+    from karmada_tpu_torch.estimator import wire
+
+    out = []
+    for b in range(n):
+        spec = items[b][0]
+        p = placements[b % len(placements)]
+        rs = p.replica_scheduling
+        req = spec.replica_requirements.resource_request
+        out.append(wire.AssignReplicasRequest(
+            namespace="facade", name=f"{prefix}-{b}", replicas=spec.replicas,
+            resource_request={"cpu": f"{req['cpu'].milli}m",
+                              "memory": f"{int(req['memory'].value())}Gi"},
+            divided=(rs is not None
+                     and rs.replica_scheduling_type == "Divided"),
+            cluster_names=(list(p.cluster_affinity.cluster_names)
+                           if p.cluster_affinity else [])))
+    return out
+
+
+def whatif_queries(cp, limit):
+    """The three what-if queries: where 8 new 500m / 1Gi replicas land,
+    the largest count of 100-cpu / 64Gi replicas that still schedules
+    (from 1,024 up; about 1,000 on config 5's fleet, ~12 probes), and
+    what the loss of the member hosting the most bindings strands (its
+    first `limit` bindings re-solved)."""
+    from karmada_tpu_torch.facade import WhatIfRequest
+
+    hosted = {}
+    for rb in cp.store.visit("ResourceBinding"):
+        for t in rb.spec.clusters:
+            hosted[t.name] = hosted.get(t.name, 0) + 1
+    busiest = min(hosted, key=lambda m: (-hosted[m], m))
+    return [WhatIfRequest(query="placement", replicas=8,
+                          resource_request={"cpu": "500m", "memory": "1Gi"}),
+            WhatIfRequest(query="headroom", replicas=1024,
+                          resource_request={"cpu": "100", "memory": "64Gi"}),
+            WhatIfRequest(query="cluster-loss", cluster=busiest,
+                          limit=limit)]
+
+
+def desched_members(cp, desched, n, unpinned=True):
+    """The `n` members with the most replicas of bindings the descheduler
+    may shrink (Divided DynamicWeight or Aggregated), with `unpinned`
+    among those no Duplicated or StaticWeight affinity names (the
+    rebalance plane, when armed, converges only on those)."""
+    pinned = divided_load(cp)[1] if unpinned else set()
+    load = {}
+    for rb in cp.store.visit("ResourceBinding"):
+        if desched._eligible(rb):  # noqa: SLF001 — the controller's rule
+            for t in rb.spec.clusters:
+                load[t.name] = load.get(t.name, 0) + t.replicas
+    return [m for m in sorted(load, key=lambda m: (-load[m], m))
+            if m not in pinned][:n]
+
+
+def squeeze(cp, names):
+    """Each member's allocatable pods to CRUSH_MILLI/1000 of the pods it
+    holds, through the member model: the workloads past it stay pending
+    there (its estimator server's unschedulable replicas).  Returns
+    [(name, held, kept)]."""
+    out = []
+    for m in names:
+        member = cp.member(m)
+        held = member.used_milli()["pods"] // 1000
+        member.pods_allocatable = held * CRUSH_MILLI // 1000
+        out.append((m, held, member.pods_allocatable))
+    return out
+
+
+def settle_descheduler(cp, desched, label, verbose):
+    """FAILOVER_STEP_S of the plane's time a round (past the grace when
+    only drains wait), ticking to quiescence each round, until a round
+    shrinks nothing with nothing in flight (at most DESCHED_ROUNDS).
+    Returns (rounds, quiescent every round)."""
+    plane = cp.scheduler.rebalance_plane
+    rounds, quiet, step = 0, True, FAILOVER_STEP_S
+    while rounds < DESCHED_ROUNDS:
+        shrinks, denied = desched.shrinks, desched.denied
+        pass_time(cp, step)
+        _t, converged, _w = run_loop(cp, label, verbose)
+        quiet = quiet and converged
+        rounds += 1
+        busy = failover_busy(cp)
+        drains = plane.pending_drains() if plane is not None else 0
+        if (desched.shrinks, desched.denied) == (shrinks, denied) \
+                and not any(busy.values()) and not drains:
+            break
+        step = (REBALANCE_GRACE_S if desched.shrinks == shrinks
+                and busy["tasks"] and not busy["queued"] else
+                FAILOVER_STEP_S)
+    return rounds, quiet
+
+
+def facade_run(cp, reqs, queries, window, deadline_s):
+    """One FacadeService on the plane: the requests admitted in order
+    (a window's last admission cuts and solves its batch), then the
+    what-if queries.  Returns (answers, what-if answers, state payload,
+    batch walls, what-if walls)."""
+    from karmada_tpu_torch.facade import FacadeService
+
+    svc = FacadeService(cp.scheduler, cp.store, batch_window=window,
+                        batch_deadline_s=deadline_s)
+    try:
+        pending = [svc.assign_async(r) for r in reqs]
+        answers = [p.result(600).to_json() for p in pending]
+        whatifs, walls = [], []
+        for q in queries:
+            t0 = time.perf_counter()
+            whatifs.append(svc.whatif(q).to_json())
+            walls.append(time.perf_counter() - t0)
+        state = svc.state_payload()
+        batch_walls = list(svc.batch_walls)
+    finally:
+        svc.close()
+    return answers, whatifs, state, batch_walls, walls
+
+
+def descheduler_run(M, dev, fleet, placements, items):
+    """15a's steps on `dev`: 12a's recipe with the descheduler armed,
+    ticked to quiescence; DESCHED_PARITY_SQUEEZED members squeezed and
+    the descheduler settled; then the facade's answers.  Returns the
+    snapshots, the answers and what each step did."""
+    from karmada_tpu_torch.controllers.descheduler import Descheduler
+
+    with UidSeq():
+        cp, _ = build_loop(M, dev, fleet, placements, items,
+                           enable_descheduler=True,
+                           rebalance_cfg=rebalance_cfg())
+        _t, quiet0, _w = run_loop(cp, "15a", verbose=False)
+        built = loop_snapshot(cp)
+        desched = cp.descheduler
+        assert isinstance(desched, Descheduler)
+        squeezed = squeeze(cp, desched_members(
+            cp, desched, DESCHED_PARITY_SQUEEZED, unpinned=False))
+        rounds, quiet = settle_descheduler(cp, desched, "15a", False)
+        settled = loop_snapshot(cp)
+        rev = loop_revision(cp)
+        run = facade_run(
+            cp, facade_requests(items, placements, FACADE_PARITY_REQUESTS,
+                                "parity"),
+            whatif_queries(cp, 64), FACADE_PARITY_WINDOW, 600.0)
+        notes = {"quiet": quiet0 and quiet, "squeezed": squeezed,
+                 "rounds": rounds, "shrinks": desched.shrinks,
+                 "denied": desched.denied, "faults": loop_faults(cp),
+                 "wrote": loop_revision(cp) - rev,
+                 "untouched": loop_snapshot(cp) == settled,
+                 "backends": {c["backend"] for c in cp.scheduler.cycle_log},
+                 "device": cp.scheduler.device.type,
+                 "rpc_errors": cp.descheduler_estimator.counts()["errors"]}
+    return (built, settled), run, notes
+
+
+def descheduler_parity_run(dev, fleet, placements, items) -> tuple:
+    """15a on `dev` (None: the CPU, in the child): (snapshots, the
+    facade's run, notes, wall)."""
+    dev = dev or torch.device("cpu")
+    t1 = time.perf_counter()
+    snaps, run, notes = descheduler_run(models(), dev, fleet, placements,
+                                        items)
+    return snaps, run, notes, time.perf_counter() - t1
+
+
+def phase_descheduler_parity(M, fleet, items, dev, seed, refs) -> None:
+    """15a: 12a's members and placements with FACADE_PARITY_TEMPLATES
+    templates, ControlPlane(enable_descheduler=True), on the card and with
+    device="cpu" (descheduler_run; the CPU's in the child,
+    submit_loop_parity): equal snapshots built and after the squeeze
+    settled, the descheduler shrank replicas with no estimator error, no
+    contained fault; one FacadeService a plane answering the same
+    FACADE_PARITY_REQUESTS AssignReplicas and the three what-if queries
+    equal, writing nothing."""
+    t0 = time.perf_counter()
+    recipe = parity_recipe(M, fleet, items, seed, FACADE_PARITY_TEMPLATES)
+    fleet = recipe[0]
+    runs = {"cuda": descheduler_parity_run(dev, *recipe),
+            "cpu": refs.result("15a")}
+    a, b = runs["cuda"], runs["cpu"]
+    bad = []
+    for i, name in enumerate(("built", "settled")):
+        diff = sorted((k for k in set(a[0][i]) | set(b[0][i])
+                       if a[0][i].get(k) != b[0][i].get(k)), key=repr)
+        if diff:
+            bad.append(f"{name}: {len(diff)} objects differ, first "
+                       f"{diff[:3]}")
+    for j, what in enumerate(("AssignReplicas answers", "what-if answers")):
+        if a[1][j] != b[1][j]:
+            first = next(k for k, (x, y) in enumerate(zip(a[1][j], b[1][j]))
+                         if x != y)
+            bad.append(f"{what} differ, first at {first}: {a[1][j][first]}"
+                       f" vs {b[1][j][first]}")
+    state, walls, qwalls = a[1][2], a[1][3], a[1][4]
+    n = a[2]
+    scheduled = sum(x["outcome"] == "scheduled" for x in a[1][0])
+    log(f"phase 15a descheduler + facade parity: {len(fleet)} members x "
+        f"{FACADE_PARITY_TEMPLATES} templates; squeezed (member, held, "
+        f"kept) {n['squeezed']}: {n['shrinks']} shrinks ({n['denied']} "
+        f"denied by the budget) settled in {n['rounds']} round(s); facade "
+        f"{state['calls']} calls in {state['batches']} batches (ratio "
+        f"{state['coalesce_ratio']}), {scheduled} scheduled, batch walls "
+        f"{[round(w, 4) for _n, w in walls]} s, what-if "
+        f"{[x['query'] for x in a[1][1]]} in "
+        f"{[round(w, 4) for w in qwalls]} s; card {a[3]:.2f} s, cpu "
+        f"{b[3]:.2f} s; phase {time.perf_counter() - t0:.2f} s")
+    for t, r in runs.items():
+        n = r[2]
+        if not n["quiet"] or any(n["faults"].values()) or n["rpc_errors"] \
+                or n["backends"] - {"device"} or n["device"] != t:
+            bad.append(f"{t}: quiescent {n['quiet']}, faults {n['faults']},"
+                       f" estimator errors {n['rpc_errors']}, backends "
+                       f"{n['backends']}, device {n['device']}")
+        if not n["shrinks"]:
+            bad.append(f"{t}: the descheduler shrank nothing")
+        if n["wrote"] or not n["untouched"]:
+            bad.append(f"{t}: the facade wrote {n['wrote']} times")
+        if r[1][2]["errors"] or r[1][2]["calls"] != FACADE_PARITY_REQUESTS:
+            bad.append(f"{t}: facade state {r[1][2]}")
+    if bad:
+        raise AssertionError(f"phase 15a: {len(bad)} failed checks: "
+                             + "; ".join(bad[:8]))
+
+
+def same_answer(resp, res, ordered=True) -> bool:
+    """A facade answer against a solve's outcome for the same binding:
+    the targets in order, or (`ordered` False: against ops/serial, which
+    lists a Duplicated placement's clusters in its score order, the
+    device path in the fleet's) as a set."""
+    if isinstance(res, Exception) or res is None:
+        return resp["outcome"] == "unschedulable"
+    want = [{"cluster": t.name, "replicas": t.replicas} for t in res]
+    got = resp["assignments"]
+    if not ordered:
+        def key(a):
+            return a["cluster"]
+        want, got = sorted(want, key=key), sorted(got, key=key)
+    return resp["outcome"] == "scheduled" and got == want
+
+
+def phase_facade(cp, items, placements) -> dict:
+    """15b: the facade on phase 12b's plane after 14c.  FACADE_REQUESTS
+    AssignReplicas drawn from config 5's mix, FACADE_THREADS client
+    threads each with its own TcpTransport, batch window FACADE_WINDOW:
+    every answer equal to a device="cpu" Scheduler's detached solve of
+    its batch, in the batch's order, on the clusters the facade read; a
+    stride sample of FACADE_SAMPLE answered alone (a window of 1) equal
+    to ops/serial.schedule; the three what-if queries equal card vs CPU;
+    the plane's non-Lease revision unchanged.  Returns the launch
+    counts."""
+    from karmada_tpu_torch.estimator import wire
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.facade import FacadeClient, FacadeService
+    from karmada_tpu_torch.facade import whatif as whatif_mod
+    from karmada_tpu_torch.ops import kernels, serial
+    from karmada_tpu_torch.scheduler import Scheduler
+    from karmada_tpu_torch.scheduler.core import ClusterView
+    from karmada_tpu_torch.store import ObjectStore, Runtime
+
+    t0 = time.perf_counter()
+    reqs = facade_requests(items, placements, FACADE_REQUESTS, "tcp")
+    by_name = {r.name: r for r in reqs}
+    rev = loop_revision(cp)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    svc = FacadeService(cp.scheduler, cp.store, batch_window=FACADE_WINDOW,
+                        batch_deadline_s=FACADE_DEADLINE_S)
+    batches, spreads = [], []
+    solve = svc._solve_assign  # noqa: SLF001 — the harness records batches
+
+    def recorded(batch, bid):
+        batches.append([p.request.name for p in batch])
+        # the arrival spread of the batch's callers: first to last
+        # admission, on the service's clock
+        spreads.append(batch[-1].t_enqueue - batch[0].t_enqueue)
+        return solve(batch, bid)
+    svc._solve_assign = recorded  # noqa: SLF001
+    answers, errors, latency = {}, [], []
+    try:
+        host, port = svc.serve()
+
+        def caller(k):
+            client = FacadeClient(wire.TcpTransport(host, port,
+                                                    timeout=600.0))
+            try:
+                for r in reqs[k::FACADE_THREADS]:
+                    t = time.perf_counter()
+                    answers[r.name] = client.assign_replicas(r).to_json()
+                    latency.append(time.perf_counter() - t)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                client.close()
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=caller, args=(k,))
+                   for k in range(FACADE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        tcp_wall = time.perf_counter() - t1
+        state = svc.state_payload()
+        walls = list(svc.batch_walls)
+    finally:
+        svc.close()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # the CPU's detached solves of the same batches, in their order, on
+    # one view of a copy of the same Clusters (the facade's own view is
+    # a copy too, taken once: no Cluster moved during the burst)
+    clusters = cp.store.list("Cluster")
+    view = ClusterView(clusters)
+    cpu = Scheduler(ObjectStore(), Runtime(), device="cpu",
+                    pipeline_chunk=4096, waves=8, batch_window=4096)
+    t1 = time.perf_counter()
+    differ = []
+    for names in batches:
+        results, _ = cpu.solve_batch(
+            [whatif_mod.synthesize_binding(by_name[n]) for n in names],
+            clusters, detached=True, view=view)
+        for i, n in enumerate(names):
+            if not same_answer(answers.get(n, {}), results.get(i)):
+                differ.append(n)
+    cpu_s = time.perf_counter() - t1
+    # the stride sample, each request alone, against ops/serial
+    sample = reqs[::FACADE_REQUESTS // FACADE_SAMPLE]
+    solo = FacadeService(cp.scheduler, cp.store, batch_window=1)
+    t1 = time.perf_counter()
+    try:
+        solos = [solo.assign(r).to_json() for r in sample]
+    finally:
+        solo.close()
+    solo_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    cal = serial.make_cal_available([GeneralEstimator()])
+    off_serial = []
+    for r, resp in zip(sample, solos):
+        rb = whatif_mod.synthesize_binding(r)
+        try:
+            res = serial.schedule(rb.spec, rb.status, clusters, cal)
+        except Exception as e:  # noqa: BLE001 — the outcome compared
+            res = e
+        if not same_answer(resp, res, ordered=False):
+            off_serial.append(r.name)
+    serial_s = time.perf_counter() - t1
+    # the what-if queries, card against CPU
+    qs, qdiff, qwalls = whatif_queries(cp, 128), [], []
+    for q in qs:
+        t1 = time.perf_counter()
+        card = whatif_mod.run_query(cp.scheduler, cp.store, q).to_json()
+        t2 = time.perf_counter()
+        other = whatif_mod.run_query(cpu, cp.store, q).to_json()
+        if q.query == "headroom":
+            headroom = (card["result"]["max_replicas"],
+                        card["result"]["probes"])
+        qwalls.append((round(t2 - t1, 4), round(time.perf_counter() - t2,
+                                                4)))
+        if card != other:
+            qdiff.append(q.query)
+    wrote = loop_revision(cp) - rev
+    sizes = [len(b) for b in batches]
+    spreads.sort()
+    latency.sort()
+    log(f"phase 15b facade over TCP on 12b's plane: {len(reqs)} requests "
+        f"from {FACADE_THREADS} threads in {tcp_wall:.3f} s, {len(batches)}"
+        f" batches (window {FACADE_WINDOW}, deadline {FACADE_DEADLINE_S} s;"
+        f" sizes min {min(sizes)} / max {max(sizes)}; the callers' arrival "
+        f"spread a batch median {spreads[len(spreads) // 2]:.4f} / max "
+        f"{spreads[-1]:.4f} s), coalesce ratio {state['coalesce_ratio']}, "
+        f"a call's latency at the client median "
+        f"{latency[len(latency) // 2]:.4f} / p90 "
+        f"{latency[len(latency) * 9 // 10]:.4f} / max {latency[-1]:.4f} s, "
+        f"{sum(a['outcome'] == 'scheduled' for a in answers.values())} "
+        f"scheduled; the facade's device cycles {sum(w for _n, w in walls):.3f}"
+        f" s (per batch min {min(w for _n, w in walls):.4f} / median "
+        f"{sorted(w for _n, w in walls)[len(walls) // 2]:.4f} / max "
+        f"{max(w for _n, w in walls):.4f}); CPU replay {cpu_s:.2f} s, "
+        f"{len(differ)} differ; {len(sample)} alone in {solo_s:.3f} s, "
+        f"{len(off_serial)} off ops/serial (its solves {serial_s:.2f} s); "
+        f"headroom {headroom} (replicas, probes); what-if (card s, cpu s) "
+        f"{dict(zip([q.query for q in qs], qwalls))}, differing {qdiff}; "
+        f"non-Lease writes {wrote}; launches {launches}; phase "
+        f"{time.perf_counter() - t0:.2f} s")
+    bad = []
+    if errors or len(answers) != len(reqs):
+        bad.append(f"{len(answers)} answers, client errors {errors[:3]}")
+    if differ:
+        bad.append(f"{len(differ)} answers differ from the CPU's, first "
+                   f"{differ[:3]}")
+    if off_serial:
+        bad.append(f"{len(off_serial)} solo answers off ops/serial, first "
+                   f"{off_serial[:3]}")
+    if qdiff:
+        bad.append(f"what-if {qdiff} differ card vs CPU")
+    if wrote:
+        bad.append(f"the facade wrote {wrote} times")
+    if state["errors"] or state["calls"] != len(reqs):
+        bad.append(f"facade state {state}")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} never launched")
+    if bad:
+        raise AssertionError("phase 15b: " + "; ".join(bad))
+    return launches
+
+
+def phase_descheduler(cp) -> dict:
+    """15c: a Descheduler attached to phase 12b's plane through its
+    constructor, over the plane's estimator client and its shared
+    eviction budget; the DESCHED_SQUEEZED members with the most
+    descheduler-eligible replicas squeezed, then settled: every eligible
+    binding placed in full before keeps its replica total, but for at
+    most DESCHED_SHORT_MAX that lost no more than the descheduler shrank
+    of them (the estimator's unschedulable counts at their shrinks), are
+    Unschedulable and that ops/serial cannot place in full either; no
+    squeezed member holds more of them than it admits, no contained
+    fault or failed sync, K1-K4 launched.  Returns the launch counts."""
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.controllers.descheduler import Descheduler
+    from karmada_tpu_torch.estimator.general import GeneralEstimator
+    from karmada_tpu_torch.ops import kernels, serial
+
+    t0 = time.perf_counter()
+    budget = cp.eviction_budget_shared
+    desched = Descheduler(cp.store, cp.runtime, cp.members,
+                          estimator=cp.descheduler_estimator, budget=budget)
+    # the replicas each workload had stuck where the descheduler asked:
+    # every positive answer is a shrink of that many but for the
+    # budget's refusals (printed; none so far)
+    asked, shrunk = desched._stuck_replicas, {}  # noqa: SLF001
+
+    def stuck_replicas(cluster, resource):
+        n = asked(cluster, resource)
+        if n > 0:
+            k = (resource.namespace, resource.name)
+            shrunk.setdefault(k, []).append((cluster, n))
+        return n
+    desched._stuck_replicas = stuck_replicas  # noqa: SLF001
+    # the eligible bindings placed in full before the squeeze (their
+    # targets summing to their replicas), and those short already
+    totals, short = {}, 0
+    for rb in cp.store.visit("ResourceBinding"):
+        if desched._eligible(rb) and rb.spec.clusters:  # noqa: SLF001
+            held = sum(t.replicas for t in rb.spec.clusters)
+            if held == rb.spec.replicas:
+                totals[(rb.namespace, rb.name)] = (
+                    held, [(t.name, t.replicas) for t in rb.spec.clusters])
+            else:
+                short += 1
+    squeezed = squeeze(cp, desched_members(cp, desched, DESCHED_SQUEEZED))
+    log(f"phase 15c squeezed (member, held, kept): {squeezed}")
+    denied0 = dict(budget.denied)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    native.reset_counts()
+    rounds, quiet = settle_descheduler(cp, desched, "15c", True)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(native_line("15c", native.COUNTS))
+    check_native("15c", native.COUNTS, need_coo=False)
+    # a binding short of its total after the settle must have lost no
+    # more than the descheduler shrank of it, be Unschedulable, and be
+    # one the serial path cannot place either (its constraints leave no
+    # room on the fleet as it is now)
+    clusters = cp.store.list("Cluster")
+    cal = serial.make_cal_available([GeneralEstimator()])
+    lost, no_room, stuck = [], [], []
+    for key, (total, before) in totals.items():
+        rb = cp.store.peek("ResourceBinding", *key)
+        now = sum(t.replicas for t in rb.spec.clusters)
+        if now == total:
+            continue
+        cond = [(c.status, c.reason, c.message[:160])
+                for c in rb.status.conditions if c.type == "Scheduled"]
+        res = rb.spec.resource
+        shrinks = shrunk.get((res.namespace, res.name), [])
+        entry = (key, total, before,
+                 [(t.name, t.replicas) for t in rb.spec.clusters], cond,
+                 shrinks)
+        if total - now > sum(n for _m, n in shrinks) or \
+                [c[:2] for c in cond] != [("False", "Unschedulable")]:
+            lost.append(entry)
+            continue
+        try:
+            serial.schedule(rb.spec, rb.status, clusters, cal)
+            lost.append(entry)
+        except Exception:  # noqa: BLE001 — the outcome asked about
+            no_room.append(entry)
+    for m, _held, _kept in squeezed:
+        member = cp.member(m)
+        for rb in cp.store.visit("ResourceBinding"):
+            if not desched._eligible(rb):  # noqa: SLF001
+                continue
+            if any(t.name == m for t in rb.spec.clusters):
+                ref = rb.spec.resource
+                if member.unschedulable_replicas(ref.kind, ref.namespace,
+                                                 ref.name):
+                    stuck.append((m, rb.name))
+    # a squeeze's knock-on: re-placed replicas can fill a member that was
+    # not squeezed, and leave what it held before pending there
+    elsewhere = sorted({m for e in no_room for m, _n in e[5]}
+                       - {m for m, _h, _k in squeezed})
+    faults = loop_faults(cp)
+    denied = {k: v - denied0.get(k, 0) for k, v in budget.denied.items()}
+    log(f"phase 15c descheduler on 12b's plane: {desched.shrinks} shrinks,"
+        f" {desched.denied} denied by the shared budget (the budget's "
+        f"refusals by consumer {denied}), settled in {rounds} round(s), "
+        f"quiescent {quiet}; {len(totals)} eligible bindings placed in "
+        f"full ({short} short of their replicas before the squeeze, not "
+        f"held to it), {len(lost) + len(no_room)} off their replica total "
+        f"({len(no_room)} of them, at most {DESCHED_SHORT_MAX} allowed, "
+        f"short by no more than their shrinks, Unschedulable, and the "
+        f"serial path cannot place them either: (binding, replicas, "
+        f"targets before, after, Scheduled, shrinks (member, stuck)) "
+        f"{no_room[:DESCHED_SHORT_MAX + 1]}; their shrinks on members "
+        f"not squeezed {elsewhere}), {len(stuck)} still stuck on a "
+        f"squeezed member; "
+        f"estimator errors "
+        f"{cp.descheduler_estimator.counts()['errors']}; faults {faults}; "
+        f"phase {time.perf_counter() - t0:.2f} s; launches {launches}")
+    bad = []
+    if not quiet:
+        bad.append("not quiescent")
+    if not desched.shrinks:
+        bad.append("no shrink")
+    if lost:
+        bad.append(f"{len(lost)} eligible bindings off their total beyond "
+                   f"their shrinks, not Unschedulable, or that ops/serial "
+                   f"places, first (binding, replicas, targets before, "
+                   f"after, Scheduled, shrinks) {lost[:2]}")
+    if len(no_room) > DESCHED_SHORT_MAX:
+        bad.append(f"{len(no_room)} eligible bindings left short, more "
+                   f"than {DESCHED_SHORT_MAX}")
+    if stuck:
+        bad.append(f"{len(stuck)} stuck on squeezed members, first "
+                   f"{stuck[:3]}")
+    if faults["scheduler"] or faults["reconcile"] or \
+            faults["sync_failures"]:
+        bad.append(f"contained faults {faults}")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        if launches[k] <= 0:
+            bad.append(f"kernel {k} never launched")
+    if bad:
+        raise AssertionError("phase 15c: " + "; ".join(bad))
     return launches
 
 
@@ -5500,6 +6354,83 @@ def phase_guard(M, fleet, items, dev, seed) -> None:
                              + "; ".join(bad))
 
 
+def parity_loop_phases(M, fleet, items, dev, args, refs) -> None:
+    """The loop's card-vs-CPU phases on 12a's recipe: 12a, 14a and 15a
+    (their CPU halves from the child, submit_loop_parity)."""
+    phase_loop_parity(M, fleet, items, dev, args.seed + 7, refs)
+    t14 = time.perf_counter()
+    phase_failover_parity(M, fleet, items, dev, args.seed + 7, refs)
+    log(f"phase 14a: {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    phase_descheduler_parity(M, fleet, items, dev, args.seed + 7, refs)
+    log(f"phase 15a: {time.perf_counter() - t15:.1f} s")
+
+
+def plane_phases(M, fleet, placements, items, dev, args) -> tuple:
+    """The loop's plane at config 5's width: 12b, then 14b, 14c, 15b and
+    15c on 12b's plane.  Returns the launch counts of these main-path
+    runs."""
+    REMAPS["on"] = True
+    loop_items = items[:args.loop_templates]
+    prop, plane = phase_loop(M, fleet, placements, loop_items, dev)
+    renewed = plane._renewals
+    log(f"phase 12b Lease renewals in the loop's ticks: {renewed[0]} in "
+        f"{renewed[1]:.3f} s")
+    t14 = time.perf_counter()
+    member_reb = phase_member_rebalance(plane, dev, placements, loop_items)
+    renewed = plane._renewals
+    outage = phase_outage(plane, dev)
+    log(f"phase 14c Lease renewals in the loop's ticks: "
+        f"{plane._renewals[0] - renewed[0]} in "
+        f"{plane._renewals[1] - renewed[1]:.3f} s")
+    log(f"phase 14b-c: {time.perf_counter() - t14:.1f} s")
+    t15 = time.perf_counter()
+    facade = phase_facade(plane, loop_items, placements)
+    desched = phase_descheduler(plane)
+    REMAPS["on"] = False
+    log(f"phase 15b-c: {time.perf_counter() - t15:.1f} s")
+    return prop, member_reb, outage, facade, desched
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident memory (ru_maxrss, KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def collect_loop_garbage() -> None:
+    """The loop phases' planes are garbage now: collected here, with their
+    phases' time, not in phase 13d's first loop."""
+    t0 = time.perf_counter()
+    gc.collect()
+    log(f"the loop phases' garbage collected in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def loop_child_main(args, dev) -> int:
+    """`--loop-child`: config 5's workload rebuilt from --seed, the plane
+    phases (plane_phases) on the card, then one line LOOP_CHILD_RESULT
+    with their launch counts and remap calls (LoopChild)."""
+    from karmada_tpu_torch import native
+    from karmada_tpu_torch.ops import kernels
+
+    kernels.build()  # loads what the parent built
+    native.build()
+    M = models()
+    rng = random.Random(args.seed)
+    fleet = build_fleet(M, rng, args.clusters)
+    placements = build_placements(M, rng, [c.name for c in fleet])
+    items = build_bindings(M, rng, args.bindings, placements)
+    launches = plane_phases(M, fleet, placements, items, dev, args)
+    log(f"loop child: peak resident memory {peak_rss_gib():.2f} GiB")
+    payload = {"launches": list(launches), "remaps": REMAPS["calls"]}
+    with _PRINT:
+        print(LOOP_CHILD_RESULT + json.dumps(payload), flush=True)
+    # the plane's garbage dies with the process
+    os._exit(0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bindings", type=int, default=100_000)
@@ -5513,6 +6444,13 @@ def main() -> int:
                     help="phase 11b's bindings through the C++ control")
     ap.add_argument("--loop-templates", type=int, default=LOOP_TEMPLATES,
                     help="phase 12b's templates (config 5's first ones)")
+    ap.add_argument("--only-loop", action="store_true",
+                    help="run phases 1, 12, 14 and 15 alone (no kernel "
+                         "report, no result line)")
+    ap.add_argument("--loop-child", action="store_true",
+                    help="run phases 12b, 14b-c and 15b-c alone and end "
+                         "with their launch counts (the second process a "
+                         "full run starts; kernels already built)")
     ap.add_argument("--parent", metavar="TREE", default=None,
                     help="a directory holding the parent commit's "
                          "karmada_tpu_torch/ unpacked: phase 2 then also "
@@ -5530,6 +6468,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     GC.arm()
+    if args.loop_child:
+        return loop_child_main(args, dev)
     t_start = time.perf_counter()
     power = phase_device()
     phase_build()
@@ -5547,6 +6487,18 @@ def main() -> int:
         f"wide {WIDE_BINDINGS}, built in {time.perf_counter() - t0:.1f}"
         f" s (seed {args.seed})")
 
+    refs = CpuRefs()
+    atexit.register(refs.close)
+    if args.only_loop:
+        submit_loop_parity(refs, M, fleet, items, args.seed + 7)
+        parity_loop_phases(M, fleet, items, dev, args, refs)
+        launches = plane_phases(M, fleet, placements, items, dev, args)
+        refs.close()
+        log(f"loop phases' launches (12b, 14b, 14c, 15b, 15c): "
+            f"{[{k: v for k, v in c.items() if v} for c in launches]}")
+        log(f"chip_smoke --only-loop: {time.perf_counter() - t_start:.1f} "
+            f"s; card: {power}")
+        return 0
     explain_items = starve_items(M, wide_items[:EXPLAIN_BINDINGS])
     t0 = time.perf_counter()
     mfleet, mplacements = build_megafleet(M, random.Random(args.seed + 2),
@@ -5566,6 +6518,9 @@ def main() -> int:
     report += phase_kernels_k7_k9(items, fleet, (mfleet, mitems), args, dev,
                                   args.reps, parent)
 
+    # phases 12b, 14b-c and 15b-c from here to phase 13, in a second
+    # process on the card
+    loop_child = LoopChild(args)
     main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
                  "spread_group_info", "spread_pick")
     cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
@@ -5585,6 +6540,11 @@ def main() -> int:
         "3 forward", items, fleet, names, args, dev, chunk_ms, main_path,
         cfg5, need_coo=True)
     reb_items = build_rebalance_items(M, rng, items, names)
+    # the CPU halves of phases 5, 12a, 14a and 15a start now, in the
+    # child, after phase 2's CPU timings
+    submit_parity(refs, {"forward": items, "rebalance": reb_items,
+                         "wide": wide_items}, explain_items, fleet, args)
+    submit_loop_parity(refs, M, fleet, items, args.seed + 7)
     reb = phase_cycle("4 rebalance", reb_items, fleet, names, args, dev,
                       chunk_ms, main_path, cfg5)[0]
     wide = phase_cycle(
@@ -5598,10 +6558,11 @@ def main() -> int:
         ("capacity", "schedule_rows", "webster_batch", "compact",
          "shortlist_topk", "group_sums"))
     REMAPS["on"] = False
-    phase_parity("forward", items, fleet, args, dev)
-    phase_parity("rebalance", reb_items, fleet, args, dev)
-    phase_parity("wide", wide_items, fleet, args, dev)
-    phase_parity_explain(explain_items, fleet, args, dev)
+    refs.cpu5 = refs.result("5")
+    phase_parity("forward", items, fleet, args, dev, refs)
+    phase_parity("rebalance", reb_items, fleet, args, dev, refs)
+    phase_parity("wide", wide_items, fleet, args, dev, refs)
+    phase_parity_explain(explain_items, fleet, args, dev, refs)
     phase_parity_shortlist(mitems, mfleet, args, dev)
     # phase 11a's megafleet chunk and rebalance chunk (every binding with
     # previous clusters: the C loop hands each back to encode_one)
@@ -5627,30 +6588,17 @@ def main() -> int:
     phase_native_turns("rebalance chunk", rchunk, fleet, args, dev)
     phase_native_control(items, fleet, min(args.native_bindings, len(items)))
     phase_native_store(M, fleet, items, fwd_results)
-    phase_loop_parity(M, fleet, items, dev, args.seed + 7)
-    t14 = time.perf_counter()
-    phase_failover_parity(M, fleet, items, dev, args.seed + 7)
-    log(f"phase 14a: {time.perf_counter() - t14:.1f} s")
-    REMAPS["on"] = True
-    loop_items = items[:args.loop_templates]
-    prop, plane = phase_loop(M, fleet, placements, loop_items, dev)
-    t14 = time.perf_counter()
-    member_reb = phase_member_rebalance(plane, dev, placements, loop_items)
-    outage = phase_outage(plane, dev)
-    log(f"phase 14b-c: {time.perf_counter() - t14:.1f} s")
-    REMAPS["on"] = False
+    parity_loop_phases(M, fleet, items, dev, args, refs)
+    refs.close()
+    collect_loop_garbage()
+    child = loop_child.result()
+    loop_launches = tuple(child["launches"])
     log(f"_CarryChain._device_remap calls on the main-path phases (3, 4, "
-        f"6-9, 12b, 14b-c): {REMAPS['calls']}")
+        f"6-9, 12b, 14b-c, 15b-c): {REMAPS['calls'] + child['remaps']} "
+        f"({child['remaps']} in the loop child)")
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (
-            fwd, reb, wide, expl, mega, inc, prop, member_reb, outage))
-    # phase 12b's plane is garbage now: collected here, with phase 12's
-    # and 14's time, not in phase 13d's first loop
-    del plane
-    t0 = time.perf_counter()
-    gc.collect()
-    log(f"phase 12's and 14's garbage collected in "
-        f"{time.perf_counter() - t0:.2f} s")
+            fwd, reb, wide, expl, mega, inc) + loop_launches)
     t13 = time.perf_counter()
     report.append(phase_probe(dev, args.reps, parent))
     report.append(phase_profile(dev, args.reps, parent))
@@ -5668,6 +6616,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"peak resident memory: {peak_rss_gib():.2f} GiB (this process)")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the report")
     log(f"card: {power}")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in report]}))

@@ -72,7 +72,7 @@ class KarmadaAgent:
                 control_store, runtime, scoped, interpreter
             )
             self.cluster_status = ClusterStatusController(
-                control_store, runtime, scoped, clock=clock)
+                control_store, runtime, scoped)
             # the agent rotates ITS OWN credential (the reference runs the
             # rotation controller inside the agent binary)
             self.cert_rotation = CertRotationController(

@@ -14,9 +14,8 @@
 
 Counterpart of the JAX package's ``controllers/status.py``.  The cluster
 collector renews each cluster's heartbeat Lease after its collect
-(controllers/lease.py), on its `clock` (the JAX collector reads the wall
-clock; the port's ControlPlane passes the plane's one clock, so every
-deadline of the failover loop reads the same time).  It exports no
+(controllers/lease.py) on the wall clock, as the JAX collector does,
+whatever clock the plane's other controllers read.  It exports no
 karmada_cluster_* gauges and records no readiness events (they wait with
 the port's observability plane).  The reads that only look -- a member
 object's Work (a scan of its execution namespace), a binding's Works and
@@ -26,8 +25,7 @@ items reach the store through mutate, which copies.
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, Optional
+from typing import Dict, Optional
 
 from karmada_tpu_torch.controllers.binding import (
     WORK_BINDING_LABEL,
@@ -219,11 +217,9 @@ class ClusterStatusController:
         store: ObjectStore,
         runtime: Runtime,
         members: Dict[str, FakeMemberCluster],
-        clock: Callable[[], float] = time.time,
     ) -> None:
         self.store = store
         self.members = members
-        self.clock = clock
         # name -> (the member's state_key, the Cluster's resourceVersion)
         # after its last collect: the update is a function of the two, so
         # while both hold it would write nothing again
@@ -245,7 +241,7 @@ class ClusterStatusController:
                 self._collect(name, member, key)
             # heartbeat lease: proves THIS collector is alive, independent
             # of the member's own health (cluster_status_controller.go:399)
-            renew_cluster_lease(self.store, name, clock=self.clock)
+            renew_cluster_lease(self.store, name)
 
     def _collect(self, name: str, member: FakeMemberCluster, key) -> None:
         def update(c: Cluster, member=member) -> None:

@@ -24,8 +24,9 @@ Usage:
 `device` is the Scheduler's (and the rebalance plane's): None asks for the
 first CUDA card and raises without one; "cpu" runs the kernels' plain
 versions.  backend="native" / "serial" schedule on the host.  Every
-controller reads the plane's one `clock` (the collector's lease renewals
-too; the JAX collector's read the wall clock).
+controller reads the plane's one `clock` but the Lease heartbeats: the
+collectors renew them and the lease monitor ages them on the wall clock,
+as in the JAX package.
 
 Controllers are wired in the JAX ControlPlane's order and are governed by
 `controllers` (the `--controllers=` list, store/worker.parse_controllers;
@@ -49,15 +50,21 @@ WAL there (store/persistence.py): a plane built on a directory that
 holds one is restored and resynced, and `checkpoint()` compacts the WAL
 into a fresh snapshot.
 
-Not part of the port yet, by argument: enable_descheduler (the
-descheduler needs the accurate estimator client), mesh_shape, chaos,
-chaos_seed; by method: enable_dns_detector, proxy, metrics_dump, events;
-and the controllers behind them: the descheduler and its estimator
-servers, the search cache / unified auth / cluster proxy / metrics
-provider, the FederatedHPA family (FederatedHPA, CronFederatedHPA, the
-scale-target marker, the replicas syncer, the HPA fast path) and the
-multi-cluster services (MCS, MCI, endpointslice collect and dispatch).
-Asking for one of their names in `controllers` raises ValueError.
+The accurate estimator tier is wired as in the JAX ControlPlane: the
+plane always holds one AccurateEstimatorClient (`descheduler_estimator`),
+`add_member` registers an AccurateEstimatorServer per member over a
+LocalTransport and `unjoin` deregisters it; `enable_descheduler=True`
+runs the Descheduler over it (controllers/descheduler.py), sharing one
+EvictionBudget with the rebalance plane.
+
+Not part of the port yet, by argument: mesh_shape, chaos, chaos_seed; by
+method: enable_dns_detector, proxy, metrics_dump, events; and the
+controllers behind them: the search cache / unified auth / cluster
+proxy / metrics provider, the FederatedHPA family (FederatedHPA,
+CronFederatedHPA, the scale-target marker, the replicas syncer, the HPA
+fast path) and the multi-cluster services (MCS, MCI, endpointslice
+collect and dispatch).  Asking for one of their names in `controllers`
+raises ValueError.
 """
 
 from __future__ import annotations
@@ -76,6 +83,7 @@ from karmada_tpu_torch.controllers.cluster import (
     RateLimitedEvictionQueue,
 )
 from karmada_tpu_torch.controllers.dependencies import DependenciesDistributor
+from karmada_tpu_torch.controllers.descheduler import Descheduler
 from karmada_tpu_torch.controllers.detector import ResourceDetector
 from karmada_tpu_torch.controllers.execution import ExecutionController
 from karmada_tpu_torch.controllers.extras import (
@@ -101,6 +109,9 @@ from karmada_tpu_torch.controllers.status import (
     ClusterStatusController,
     WorkStatusController,
 )
+from karmada_tpu_torch.estimator.client import AccurateEstimatorClient
+from karmada_tpu_torch.estimator.server import AccurateEstimatorServer
+from karmada_tpu_torch.estimator.wire import LocalTransport
 from karmada_tpu_torch.interpreter import ResourceInterpreter
 from karmada_tpu_torch.members.member import FakeMemberCluster
 from karmada_tpu_torch.models.cluster import Cluster, ClusterSpec
@@ -143,6 +154,10 @@ class ControlPlane:
         # when armed it paces its drains through a shared EvictionBudget
         rebalance: Optional[float] = None,
         rebalance_cfg=None,  # rebalance.RebalanceConfig override
+        # the descheduler (controllers/descheduler.py): stuck replicas
+        # shrunk off their members over the estimator tier, paced by the
+        # budget it shares with the rebalance plane
+        enable_descheduler: bool = False,
         # two-tier solve (ops/shortlist): top-k candidate lanes a binding
         shortlist_k: Optional[int] = None,
         shortlist_min_cells: int = 1 << 21,
@@ -213,8 +228,11 @@ class ControlPlane:
         self.interpreter.attach_store(self.store)
         self.detector = ResourceDetector(self.store, self.runtime,
                                          self.interpreter)
+        # shared eviction pacing (rebalance/pacing.py): the rebalance
+        # plane's drains and the descheduler's shrinks draw from one
+        # per-cluster token budget
         self.eviction_budget_shared = None
-        if rebalance:
+        if rebalance or enable_descheduler:
             from karmada_tpu_torch.rebalance import (
                 EvictionBudget,
                 RebalanceConfig,
@@ -247,12 +265,12 @@ class ControlPlane:
             self.store, self.runtime, self.push_members, self.interpreter)
         self.binding_status = BindingStatusController(
             self.store, self.runtime, self.interpreter)
+        # the collectors renew their Leases on the wall clock, and the
+        # lease staleness monitor reads it too (a dead collector / agent
+        # degrades its cluster to Ready=Unknown), as in the JAX package
         self.cluster_status = ClusterStatusController(
-            self.store, self.runtime, self.push_members, clock=self.clock)
-        # lease staleness monitor: a dead collector / agent degrades its
-        # cluster to Ready=Unknown
-        self.lease_monitor = ClusterLeaseMonitor(self.store, self.runtime,
-                                                 clock=self.clock)
+            self.store, self.runtime, self.push_members)
+        self.lease_monitor = ClusterLeaseMonitor(self.store, self.runtime)
         self.cluster_taints = ClusterTaintController(self.store, self.runtime,
                                                      clock=self.clock)
         # taint-driven evictions pace through the rate-limited queue
@@ -275,6 +293,14 @@ class ControlPlane:
                                                       self.runtime)
         self.dependencies = DependenciesDistributor(
             self.store, self.runtime, self.interpreter)
+        # the descheduler's unschedulable counts ride the estimator wire
+        # protocol (descheduler.go:141), one in-process server a member
+        self.descheduler_estimator = AccurateEstimatorClient()
+        self.descheduler = (
+            Descheduler(self.store, self.runtime, self.members,
+                        estimator=self.descheduler_estimator,
+                        budget=self.eviction_budget_shared)
+            if enable_descheduler else None)
         self.rebalancer = WorkloadRebalancerController(self.store,
                                                        self.runtime)
         self.taint_policies = ClusterTaintPolicyController(self.store,
@@ -342,6 +368,10 @@ class ControlPlane:
             # the member-informer subscription needs per-member wiring
             self.push_members[name] = member
             member.store.bus.subscribe(self.work_status._member_event(name))  # noqa: SLF001
+        # a per-member estimator server behind the wire transport (the
+        # descheduler's unschedulable counts ride it, never the simulator)
+        self.descheduler_estimator.register(
+            name, LocalTransport(AccurateEstimatorServer(member).handle))
         if collect:
             self.cluster_status.collect_all()
             for agent in self.agents.values():
@@ -355,8 +385,8 @@ class ControlPlane:
     def unjoin(self, name: str) -> None:
         """Unregister a member: the lifecycle controller drains its
         execution space, then the finalizer releases the Cluster object.
-        Per-member wiring from add_member unwinds here too (the status
-        informer, the member's Lease, its agent)."""
+        Per-member wiring from add_member unwinds here too (the estimator
+        transport, the status informer, the member's Lease, its agent)."""
         try:
             self.store.delete(Cluster.KIND, "", name)
         except NotFoundError:
@@ -365,6 +395,7 @@ class ControlPlane:
             self.store.delete(Lease.KIND, LEASE_NAMESPACE, name)
         except NotFoundError:
             pass
+        self.descheduler_estimator.deregister(name)
         self.work_status.members.pop(name, None)
         self.push_members.pop(name, None)
         agent = self.agents.pop(name, None)

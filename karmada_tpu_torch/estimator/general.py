@@ -53,40 +53,6 @@ def _available(summary: ResourceSummary, resource: str) -> int:
     return m
 
 
-def _node_free(member) -> List[Dict[str, int]]:
-    """Free (allocatable - admitted) capacity per node.
-
-    The greedy admission plan charges nodes in order, mirroring how the
-    reference estimator sees already-placed pods via its pod informer.
-    (The JAX package keeps it in ``estimator/server.py``, which the port
-    has not taken yet.)
-    """
-    nodes = member.effective_nodes()
-    free = [
-        {"cpu": n.cpu_milli, "memory": n.memory_milli, "pods": n.pods,
-         **n.extra_milli}
-        for n in nodes
-    ]
-    # charge admitted workloads against nodes first-fit, like the plan
-    plan = member.admission_plan()
-    for (kind, ns, name), admitted in sorted(plan.items()):
-        obj = member.get(kind, ns, name)
-        if obj is None:
-            continue
-        req = member._workload_request(obj.manifest)  # noqa: SLF001
-        for _ in range(admitted):
-            for f in free:
-                if f["pods"] > 0 and all(
-                    f.get(r, 0) >= v for r, v in req.items()
-                ):
-                    for r, v in req.items():
-                        if r in f:
-                            f[r] -= v
-                    f["pods"] -= 1
-                    break
-    return free
-
-
 def produce_allocatable_modelings(member, resource_models):
     """The modeling PRODUCER (pkg/modeling/modeling.go:33-246
     AddToResourceSummary/getIndex): place each node's FREE capacity into
@@ -98,6 +64,8 @@ def produce_allocatable_modelings(member, resource_models):
     Uses the SAME _models_min_map (model-list order, Quantity units) the
     consumer indexes against, so producer and consumer cannot disagree on
     grade indices."""
+    from karmada_tpu_torch.estimator.server import _node_free
+
     if not resource_models:
         return []
     min_map = _models_min_map(resource_models)

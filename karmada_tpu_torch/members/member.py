@@ -195,7 +195,15 @@ class FakeMemberCluster:
         """Deterministic capacity admission: workloads in (kind, ns, name)
         order greedily admit replicas until cpu/memory/pods run out.  The
         remainder stays pending -- what the reference's unschedulable-replica
-        estimator counts (pkg/estimator/server/replica/replica.go:43)."""
+        estimator counts (pkg/estimator/server/replica/replica.go:43).
+
+        The plan is kept on the member until its state_key moves: tick,
+        the metrics plane and the estimator (once per binding and
+        cluster) read one plan.  Callers must not change it."""
+        key = self.state_key()
+        kept = self.__dict__.get("_plan")
+        if kept is not None and kept[0] == key:
+            return kept[1]
         nodes = self.effective_nodes()
         cpu_left = sum(n.cpu_milli for n in nodes)
         mem_left = sum(n.memory_milli for n in nodes)
@@ -226,12 +234,13 @@ class FakeMemberCluster:
                 pods_left -= 1
                 admitted += 1
             plan[(kind, obj.namespace, obj.name)] = admitted
+        self.__dict__["_plan"] = (key, plan)
         return plan
 
     def unschedulable_replicas(self, kind: str, namespace: str, name: str) -> int:
         """Desired-but-unadmitted replicas for one workload (the estimator's
         GetUnschedulableReplicas answer)."""
-        obj = self.get(kind, namespace, name)
+        obj = self.store.peek(kind, namespace, name)
         if obj is None:
             return 0
         m = obj.manifest

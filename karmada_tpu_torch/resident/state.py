@@ -340,6 +340,17 @@ class ResidentState:
         self.last_deltas: dict = {}
 
     # -- lifecycle -----------------------------------------------------------
+    def fork_clusters(self) -> List:
+        """A deep-copied fork of the plane's member-cluster view for
+        hypothetical (what-if) solves: the mirrors on the device are not
+        touched (a detached solve encodes its own batch), and the
+        host-side Cluster objects are the only tier a caller could
+        mutate, so the fork copies exactly those.  Returns [] before the
+        first begin_cycle (the caller falls back to a store snapshot)."""
+        import copy
+
+        return [copy.deepcopy(c) for c in self.clusters]
+
     def begin_cycle(self, clusters: Sequence,
                     deltas: Optional[CycleDeltas] = None) -> None:
         """Advance the plane to this cycle's cluster snapshot: apply the

@@ -25,6 +25,34 @@ from karmada_tpu_torch.ops.shortlist import ShortlistConfig
 from karmada_tpu_torch.scheduler.pipeline import PipelineResult, run_pipeline
 
 
+class ClusterView:
+    """One cluster list prepared once for many cycles that read it as it
+    is: its ClusterIndex and the EncoderCache of its cluster side (pod
+    allowances, the cluster axis, placement and API rows).  Detached
+    callers keep one where a live cycle would keep a resident plane: the
+    facade while the store's Clusters keep their resourceVersions, a
+    what-if query across its probes.  Nothing may change the clusters
+    while a view of them is in use."""
+
+    #: placement rows kept before the cache starts over (each distinct
+    #: request shape adds one)
+    MAX_PLACEMENT_ROWS = 4096
+
+    def __init__(self, clusters: List) -> None:
+        self.clusters = clusters
+        self.cindex = tensors.ClusterIndex.build(clusters)
+        self.cache = tensors.EncoderCache()
+
+    def cycle_cache(self) -> tensors.EncoderCache:
+        """The cache for one more cycle: everything derived from the
+        clusters kept, the pins to the last cycle's placement objects
+        dropped."""
+        if len(self.cache.placement_rows) > self.MAX_PLACEMENT_ROWS:
+            self.cache = tensors.EncoderCache()
+        self.cache.placement_keys = {}
+        return self.cache
+
+
 def schedule_items(
     items: Sequence[Tuple],
     clusters: Sequence,
@@ -33,6 +61,7 @@ def schedule_items(
     waves: int = 8,
     device=None,
     estimator: Optional[GeneralEstimator] = None,
+    estimators: Optional[Sequence] = None,
     enable_empty_workload_propagation: bool = False,
     stats: Optional[PipelineResult] = None,
     explain: Optional[obs_decisions.DecisionRecorder] = None,
@@ -42,13 +71,17 @@ def schedule_items(
     deltas=None,
     tokens: Optional[Sequence] = None,
     cancelled: Optional[threading.Event] = None,
+    view: Optional[ClusterView] = None,
 ) -> List[object]:
     """Per item, List[TargetCluster] or the Exception the scheduler would
     record.  `device` defaults to the first CUDA card and raises without
     one; pass ``device="cpu"`` to run the kernels' plain versions.  Carry
     is on when the cycle spans more than one chunk, for the spread and
     big-tier sub-solves too (JAX: ``carry_spread=carry``).  `stats`, when
-    given, receives the pipeline's counts and stage times.
+    given, receives the pipeline's counts and stage times.  The device
+    rows price with `estimator` (a GeneralEstimator); the host rows
+    min-merge over `estimators` (default: `estimator` alone), as the JAX
+    Scheduler's serial section merges over its estimator list.
 
     `explain` (a DecisionRecorder) records one Decision per binding: the
     device rows' from the explain plane, the host rows' outcome-level
@@ -64,6 +97,9 @@ def schedule_items(
     through ResidentState.encode_cycle, which re-encodes only the rows
     whose `tokens` (per item a resident.RowToken, or None: no cached row)
     changed.
+
+    `view` (a ClusterView built over this same `clusters` list) encodes
+    against the cluster side it derived in an earlier cycle.
 
     `cancelled` (the Scheduler's mid-serve guard, scheduler/service.py):
     once the event is set the cycle stops (run_pipeline's gates), advances
@@ -90,6 +126,10 @@ def schedule_items(
         def encode(part, offset, armed):
             return resident.encode_cycle(
                 part, toks[offset:offset + len(part)], explain=armed)
+    elif view is not None:
+        if view.clusters is not clusters:
+            raise ValueError("the view was built over another cluster list")
+        cindex, cache = view.cindex, view.cycle_cache()
     else:
         cindex = tensors.ClusterIndex.build(clusters)
         cache = tensors.EncoderCache()
@@ -106,7 +146,8 @@ def schedule_items(
         return out
     for i, r in res.results.items():
         out[i] = r
-    cal = serial.make_cal_available([estimator])
+    cal = serial.make_cal_available(
+        list(estimators) if estimators else [estimator])
     host_idx = [i for i in range(len(items)) if i not in res.results]
     for i in host_idx:
         if cancelled is not None and cancelled.is_set():

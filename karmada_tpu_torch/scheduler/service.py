@@ -67,7 +67,12 @@ The serve paths of the JAX Scheduler, with its semantics:
     leader drains; a takeover rebuilds the queue from the store;
   * detached solves (`solve_batch(..., detached=True)`): no guard, no
     explain, no resident advance, no shared snapshot or stats -- safe
-    beside live cycles.
+    beside live cycles (the facade's and the what-if plane's solves);
+  * the estimator tier (`estimators`, e.g. [GeneralEstimator(),
+    AccurateEstimatorClient()]): rows on a device route price with the
+    GeneralEstimator only, rows left to the host min-merge over the
+    whole list, and "native" leaves every row to the serial path when
+    any estimator is not a plain GeneralEstimator.
 
 The JAX package's chaos seams, mesh, flight records, metrics, spans and
 event recorder are not part of the port.  The device probe and its serve
@@ -83,7 +88,7 @@ import sys
 import threading
 import time
 import traceback
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -213,6 +218,10 @@ class Scheduler:
         # deadline
         overload_enter_factor: float = 2.0,
         overload_deadline_factor: float = 4.0,
+        # the capacity estimators the host rows min-merge over (None: the
+        # GeneralEstimator alone); the device rows price with the
+        # GeneralEstimator among them, as in the JAX Scheduler
+        estimators: Optional[Sequence] = None,
     ) -> None:
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
@@ -260,8 +269,11 @@ class Scheduler:
         self.device = (resolve_device(device)
                        if backend == "device" or device is not None
                        else None)
-        # the port has no accurate-estimator tier yet
-        self._general = GeneralEstimator()
+        self.estimators = (list(estimators) if estimators
+                           else [GeneralEstimator()])
+        self._general = next(
+            (e for e in self.estimators if isinstance(e, GeneralEstimator)),
+            GeneralEstimator())
         self.enable_empty_workload_propagation = (
             enable_empty_workload_propagation)
         self.batch_window = batch_window
@@ -674,6 +686,7 @@ class Scheduler:
 
     def solve_batch(self, bindings: List[ResourceBinding],
                     clusters: List[Cluster], *, detached: bool = False,
+                    view=None,
                     ) -> Tuple[Dict[int, object], Dict[int, str]]:
         """The affinity-failover solve loop without the store patch-back:
         ({index: List[TargetCluster] | Exception}, {index: affinity term
@@ -683,7 +696,11 @@ class Scheduler:
         sampling, no resident-plane advance, no shared native snapshot or
         cycle stats -- it reads the clusters it was handed and touches
         nothing the cycle worker owns, so it may run beside live cycles
-        (detached callers serialize among themselves)."""
+        (detached callers serialize among themselves).  A detached caller
+        may pass `view` (core.ClusterView over `clusters`): device cycles
+        then encode against the cluster side it already derived."""
+        if view is not None and not detached:
+            raise ValueError("a cluster view serves detached solves only")
         term_idx: Dict[int, int] = {}
         active: List[Tuple[int, ResourceBinding]] = list(enumerate(bindings))
         results: Dict[int, object] = {}
@@ -720,7 +737,7 @@ class Scheduler:
                 explain=explain_rec,
                 tokens=([tokens_all[i] for i, _ in active]
                         if tokens_all is not None else None),
-                detached=detached)
+                detached=detached, view=view)
             next_active: List[Tuple[int, ResourceBinding]] = []
             for (i, rb), res in zip(active, outcome):
                 if isinstance(res, Exception):
@@ -755,7 +772,7 @@ class Scheduler:
         return 0
 
     def _solve(self, items, clusters, keys=None, explain=None, tokens=None,
-               detached: bool = False) -> List[object]:
+               detached: bool = False, view=None) -> List[object]:
         """Per item List[TargetCluster] or an Exception, by the backend:
         "device" one schedule_items call (device routes on the card, host
         routes on the serial path, through the resident plane when it is
@@ -766,7 +783,7 @@ class Scheduler:
         if self.backend == "device" and items:
             if detached:
                 return self._solve_device(items, clusters, keys=keys,
-                                          detached=True)[0]
+                                          detached=True, view=view)[0]
             out = self._solve_device_guarded(items, clusters, keys=keys,
                                              explain=explain, tokens=tokens)
             if out is not None:
@@ -775,23 +792,25 @@ class Scheduler:
                                 detached=detached)
 
     def _solve_device(self, items, clusters, *, keys=None, explain=None,
-                      tokens=None, cancelled=None, detached: bool = False):
+                      tokens=None, cancelled=None, detached: bool = False,
+                      view=None):
         """One device cycle: (per-item outcomes, its PipelineResult).  A
         detached cycle passes no resident plane (nor drains its tracker)
-        and no explain recorder."""
+        and no explain recorder, and encodes through `view` when given."""
         st = PipelineResult()
         resident = None if detached else self._resident
         tracker = None if detached else self._delta_tracker
         out = schedule_items(
             items, clusters, chunk=self.pipeline_chunk, waves=self.waves,
             device=self.device, estimator=self._general,
+            estimators=self.estimators,
             enable_empty_workload_propagation=(
                 self.enable_empty_workload_propagation),
             stats=st, explain=None if detached else explain,
             shortlist=self.shortlist, keys=keys, resident=resident,
             deltas=tracker.drain() if tracker is not None else None,
             tokens=tokens if resident is not None else None,
-            cancelled=cancelled)
+            cancelled=cancelled, view=view)
         return out, st
 
     def _merge_stats(self, st: PipelineResult) -> None:
@@ -924,7 +943,7 @@ class Scheduler:
                                          detached=detached)
         done = set(handled)
         t0 = time.perf_counter()
-        cal = serial.make_cal_available([self._general])
+        cal = serial.make_cal_available(self.estimators)
         serial_idx = [i for i in range(len(items)) if i not in done]
         for i in serial_idx:
             spec, status = items[i]
@@ -958,6 +977,11 @@ class Scheduler:
         detached solve builds its own snapshot and leaves the cached one
         to the cycle worker."""
         if self.enable_empty_workload_propagation:
+            return []
+        # the control hardcodes the GeneralEstimator's capacity math: a
+        # custom estimator tier (accurate clients etc.) must win, so
+        # anything beyond the plain GeneralEstimator routes to serial
+        if not all(type(e) is GeneralEstimator for e in self.estimators):
             return []
         t0 = time.perf_counter()
         cached = None if detached else self._native_snap

@@ -140,7 +140,7 @@ PORTED_CONTROLLERS = frozenset({
     "binding-status", "cluster-status", "cluster-lifecycle", "cluster-lease",
     "taint-manager", "cluster-taint", "taint-policy", "graceful-eviction",
     "application-failover", "remedy", "namespace-sync", "frq",
-    "rebalancer", "cert-rotation",
+    "rebalancer", "cert-rotation", "descheduler",
 })
 
 # internal worker names that ride a governed controller's switch

@@ -426,18 +426,9 @@ def sc_certificate_rotation_renews_before_expiry(M, backend, log):
     return cp
 
 
-#: the JAX package's collectors renew their Leases on the wall clock, so
-#: its lease monitor never sees a plane's clock jump; the port's renew on
-#: the plane's clock, so a stopped agent's cluster degrades to Unknown
-#: once its lease is 40 s of plane time old.  The scenario tests the
-#: rotation loops' scope: it runs without the lease monitor on both sides.
-NO_LEASE_MONITOR = ",".join(sorted(MP.worker.PORTED_CONTROLLERS
-                                   - {"cluster-lease"}))
-
-
 def sc_agent_owns_its_rotation_scope(M, backend, log):
     clock = Clock(1_000_000.0)
-    cp = mixed_plane(M, backend, clock, controllers=NO_LEASE_MONITOR)
+    cp = mixed_plane(M, backend, clock)
     cp.add_member("pull-2", sync_mode="Pull")
     cp.tick()
     cred1 = cp.store.get("ClusterCredential", "", "pull-1")
@@ -454,12 +445,30 @@ def sc_agent_owns_its_rotation_scope(M, backend, log):
     return cp
 
 
+def sc_stopped_agent_under_a_clock_jump(M, backend, log):
+    """A stopped agent, then the plane's clock 60 s past its last Lease
+    renewal: the heartbeats and their monitor read the wall clock in both
+    packages, so the jump alone degrades no cluster (the port once renewed
+    on the plane's clock and turned pull-1 Ready=Unknown here)."""
+    clock = Clock(1_000_000.0)
+    cp = mixed_plane(M, backend, clock)
+    cp.agents["pull-1"].stop()
+    clock.advance(60.0)
+    cp.tick()
+    log.append({c.name: [(x.type, x.status, x.reason)
+                         for x in c.status.conditions]
+                for c in cp.store.list("Cluster")})
+    assert log[-1]["pull-1"][0][1] == "True"
+    return cp
+
+
 PULL = [sc_pull_member_gets_workload_via_agent,
         sc_pull_member_status_reflected_by_agent,
         sc_agent_bootstrap_csr_approved_and_credential_issued,
         sc_csr_with_wrong_identity_denied,
         sc_certificate_rotation_renews_before_expiry,
-        sc_agent_owns_its_rotation_scope]
+        sc_agent_owns_its_rotation_scope,
+        sc_stopped_agent_under_a_clock_jump]
 
 
 @pytest.mark.parametrize("backend", BACKENDS)

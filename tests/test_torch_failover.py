@@ -2,8 +2,8 @@
 (karmada_tpu_torch/controllers/{lease,cluster,failover}.py, e2e.py)
 against the JAX package's, tolerance 0.
 
-Every case of tests/test_failover.py but the descheduler's (the port has
-no descheduler yet), tests/test_failover_storm.py, tests/test_cluster_lease.py
+Every case of tests/test_failover.py but the descheduler's (that one is in
+tests/test_torch_estimator.py), tests/test_failover_storm.py, tests/test_cluster_lease.py
 and tests/test_cluster_lifecycle.py runs as a scenario on both packages:
 the JAX ControlPlane on exactly the ported controllers
 (``controllers=`` store/worker.PORTED_CONTROLLERS), the port's on
@@ -658,10 +658,12 @@ def test_scenarios_hold_what_the_jax_tests_assert():
 def test_controllers_outside_the_port_are_refused():
     """A governed controller the port has not taken is refused by name;
     "*" and a disabled one run what the port has."""
-    for name in ("descheduler", "federatedhpa", "mcs", "unified-auth"):
+    for name in ("cronfederatedhpa", "federatedhpa", "mcs", "unified-auth"):
         with pytest.raises(ValueError, match="not ported"):
             MP.Runtime(controllers=f"detector,{name}")
-    rt = MP.Runtime(controllers="*,-descheduler,-taint-manager")
+    assert MP.Runtime(controllers="detector,descheduler").controller_enabled(
+        "descheduler")
+    rt = MP.Runtime(controllers="*,-federatedhpa,-taint-manager")
     assert not rt.controller_enabled("taint-manager")
     assert rt.controller_enabled("cluster-taint")
     with pytest.raises(ValueError, match="unknown"):
@@ -706,7 +708,7 @@ def test_rehydrated_controllers_spec_parity(backend, tmp_path):
     stored = ",".join(["*", "-taint-manager"] + [
         f"-{n}" for n in sorted(MP.worker.GOVERNED_CONTROLLERS
                                 - MP.worker.PORTED_CONTROLLERS
-                                - {"descheduler"})] + ["descheduler"])
+                                - {"federatedhpa"})] + ["federatedhpa"])
 
     def scenario(M, backend, log):
         d = str(tmp_path / M.name)
@@ -716,10 +718,10 @@ def test_rehydrated_controllers_spec_parity(backend, tmp_path):
                                   "namespace": "karmada-system"},
                      "data": {"controllers": stored}})
         if M is MP:
-            with pytest.warns(UserWarning, match="descheduler"):
+            with pytest.warns(UserWarning, match="federatedhpa"):
                 cp = plane(M, backend, Clock(), persist_dir=d,
                            controllers=None)
-            assert cp.runtime.unported_dropped == {"descheduler"}
+            assert cp.runtime.unported_dropped == {"federatedhpa"}
         else:
             cp = plane(M, backend, Clock(), persist_dir=d, controllers=None)
         log.append([cp.runtime.controller_enabled(n) for n in (

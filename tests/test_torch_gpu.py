@@ -49,7 +49,9 @@ on a fused plane), and a fused incremental run card against CPU; K13
 rebalance_score (and no launch on zero lanes; a cluster of one block,
 one of several and lanes past its registers; invalid lanes, zero totals, wrapped products
 and totals; score's one C call and its results' ownership), and one
-rebalance-plane cycle card against CPU.
+rebalance-plane cycle card against CPU; and the loop with the
+descheduler armed and two members squeezed, then the facade's answers,
+card against CPU (chip phase 15a in small).
 """
 
 import numpy as np
@@ -1667,7 +1669,7 @@ def test_rebalance_plane_cycle_on_card():
     assert out[str(dev)] == out["cpu"]
 
 
-def _loop_snapshot(device, failover=False):
+def _loop_snapshot(device, failover=False, descheduler=False):
     """A ControlPlane on `device`: 8 members, a Divided / Duplicated /
     region-spread / Aggregated policy mix over 40 Deployments, an image
     override on one member, ticked to quiescence; returns the normalized
@@ -1701,7 +1703,7 @@ def _loop_snapshot(device, failover=False):
     seq = itertools.count(1)
     with mock.patch.object(store_mod, "new_uid",
                            lambda: f"uid-{next(seq):06d}"):
-        cp = _loop_plane(ControlPlane, device, failover)
+        cp = _loop_plane(ControlPlane, device, failover, descheduler)
     snap = {}
     for obj in cp.store.items():
         snap[(obj.KIND, obj.metadata.namespace, obj.metadata.name)] = \
@@ -1713,13 +1715,14 @@ def _loop_snapshot(device, failover=False):
     return snap, cp
 
 
-def _loop_plane(ControlPlane, device, failover=False):
+def _loop_plane(ControlPlane, device, failover=False, descheduler=False):
     import random
 
     M = MP
     rng = random.Random(9)
     clock = [1000.0]
-    cp = ControlPlane(device=device, clock=lambda: clock[0])
+    cp = ControlPlane(device=device, clock=lambda: clock[0],
+                      enable_descheduler=descheduler)
     for i in range(8):
         cp.add_member(f"m{i}", cpu_milli=rng.choice([8_000, 16_000, 32_000]),
                       region=f"r{i % 3}", collect=False)
@@ -1790,6 +1793,21 @@ def _loop_plane(ControlPlane, device, failover=False):
         for _ in range(3):
             clock[0] += 30.0
             cp.tick()
+    if descheduler:
+        # the two members holding the most replicas squeezed to 60% of
+        # their pods through the member model: the descheduler shrinks
+        # the Divided replicas stuck there, the Scheduler re-places them
+        held = {}
+        for rb in cp.store.visit("ResourceBinding"):
+            for t in rb.spec.clusters:
+                held[t.name] = held.get(t.name, 0) + t.replicas
+        for name in sorted(held, key=lambda m: (-held[m], m))[:2]:
+            member = cp.member(name)
+            member.pods_allocatable = (
+                member.used_milli()["pods"] // 1000 * 6 // 10)
+        for _ in range(4):
+            clock[0] += 60.0
+            cp.tick()
     return cp
 
 
@@ -1835,3 +1853,54 @@ def test_failover_loop_on_card():
     assert {c["backend"] for c in cp.scheduler.cycle_log} == {"device"}
     for rb in cp.store.list("ResourceBinding"):
         assert not rb.spec.graceful_eviction_tasks
+
+
+def _facade_answers(cp):
+    """Sixteen AssignReplicas through one FacadeService (two coalesced
+    batches) and the three what-if queries, as JSON."""
+    from karmada_tpu_torch.estimator import wire
+    from karmada_tpu_torch.facade import FacadeService, WhatIfRequest
+
+    svc = FacadeService(cp.scheduler, cp.store, batch_window=8,
+                        batch_deadline_s=600.0)
+    try:
+        pending = [svc.assign_async(wire.AssignReplicasRequest(
+            namespace="facade", name=f"r{i}", replicas=1 + i % 5,
+            resource_request={"cpu": ["100m", "500m"][i % 2],
+                              "memory": "1Gi"},
+            divided=i % 3 != 0,
+            cluster_names=["m1", "m4"] if i % 4 == 0 else []))
+            for i in range(16)]
+        out = [p.result(120).to_json() for p in pending]
+        for q in ("placement", "headroom", "cluster-loss"):
+            out.append(svc.whatif(WhatIfRequest(
+                query=q, replicas=4,
+                resource_request={"cpu": "500m"})).to_json())
+        assert svc.state_payload()["batches"] == 2
+    finally:
+        svc.close()
+    return out
+
+
+@pytest.mark.gpu
+def test_descheduler_and_facade_on_card():
+    """Chip phase 15a in small: the loop with the descheduler armed and two
+    members squeezed through the member model, then the facade's
+    coalesced answers and what-if queries -- card equal to
+    device="cpu", the descheduler shrinking over the estimator tier and
+    the facade's device cycles through K1-K4."""
+    dev = _card()
+    kernels.reset_counts()
+    card, cp = _loop_snapshot(dev, descheduler=True)
+    answers = _facade_answers(cp)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    cpu, cpu_cp = _loop_snapshot("cpu", descheduler=True)
+    assert card == cpu
+    assert answers == _facade_answers(cpu_cp)
+    assert cp.descheduler.shrinks > 0
+    assert cp.descheduler_estimator.counts()["errors"] == {}
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact"):
+        assert launches[k] > 0, launches
+    assert cp.scheduler.faults() == {} and cp.execution.sync_failures == 0
+    assert not any(cp.runtime.reconcile_errors().values())

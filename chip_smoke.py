@@ -219,8 +219,43 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      launched.  Launch counters are reset just before 15b and 15c and
      read just after each.
 
+ 16. sustained traffic (run in this process after 12a, 14a and 15a,
+     beside the loop child): (a) the compressed loadgen soaks
+     SOAK_SCENARIOS (steady, storm, churn, whatif, megafleet) on
+     ServeSlice(backend="device") on the card, seed SOAK_SEED, the
+     Scheduler's host clock held still (still_cycle_clock: a binding's
+     e2e sample is floored at its cycle's wall seconds, which would tie
+     it to the host's load), each replayed
+     with device="cpu" in CpuRefs: SOAK payloads equal but for wall_s and
+     stage_utilization's seconds (its span names and counts kept), final
+     placements and what-if answers equal, scheduled == injected for
+     steady, whatif and megafleet, megafleet shortlisted with no
+     fallback, whatif's placements equal a control run without its
+     queries, no contained fault; (b) megafleet-heavy (20,000 bindings,
+     512 clusters in 32 regions, k = 32, window 512, Divided x 5) and
+     storm-heavy (5,000 x 16) on the card, an event pair around every
+     kernel launch of the run: one JSON line a run with the virtual
+     latency and dwell percentiles, the cycles and batch sizes, admission,
+     each pipeline stage's share of the cycle spans, the wall, the
+     kernels' device seconds and the idle share they imply; scheduled +
+     shed == injected, no fallback, no fault, every megafleet-heavy
+     placement 5 replicas inside its binding's region, every
+     RESOLVE_EVERY-th cycle's input (as the Scheduler's solve saw it)
+     re-solved on ops/serial one wave at a time and equal, storm-heavy
+     whole against its CPU replay as in (a); (c) on a thread started
+     beside phases 3-11 (the loop child's start) and joined after (b),
+     the port CLI in subprocesses on a temporary plane: init,
+     CLI_MEMBERS joins, apply -f of a Deployment and its
+     PropagationPolicy, tick --backend device, get ResourceBinding
+     showing the placement; then serve --backend device --facade :0
+     --loadgen steady --loadgen-rate 50 --trace-buffer 256 for
+     SERVE_SECONDS, estimate --facade-addr against it, SIGINT: exit 0,
+     the banner's backend=device, the checkpoint reloading with every
+     loadgen binding scheduled.  Launch counts are reset just before (a)
+     and (b) and read just after each (the what-if control run after).
+
 Two other processes run beside the main one.  The device="cpu" halves
-of phases 5, 12a, 14a and 15a run in one spawned child process
+of phases 5, 12a, 14a, 15a and 16a-b run in one spawned child process
 (CpuRefs: niced, CPU_CHILD_THREADS torch threads, its lines prefixed
 "[cpu reference]"), started after phase 3's forward cycle and read where
 each card half is done; the child is stopped before the report.  The
@@ -400,7 +435,7 @@ def _cpu_child_init() -> None:
 
 
 class CpuRefs:
-    """The device="cpu" halves of phases 5, 12a, 14a and 15a in one
+    """The device="cpu" halves of phases 5, 12a, 14a, 15a and 16 in one
     spawned child process (niced, CPU_CHILD_THREADS torch threads) while
     this process goes on with the card: each is submitted once its inputs
     exist and read where its card half is done, and compared there as
@@ -6354,6 +6389,580 @@ def phase_guard(M, fleet, items, dev, seed) -> None:
                              + "; ".join(bad))
 
 
+# -- phase 16: sustained traffic on the card -----------------------------------
+
+SOAK_SCENARIOS = ("steady", "storm", "churn", "whatif", "megafleet")
+SOAK_HEAVY = ("megafleet-heavy", "storm-heavy")
+SOAK_SEED = 11
+RESOLVE_EVERY = 8          # 16b: every 8th cycle re-solved on ops/serial
+# the soaks' flight-recorder ring: every trace of a run kept (the
+# driver's default, 4,096, drops the first cycles of a heavy run from
+# the report), and a ledger as large (its shed records count bindings)
+SOAK_TRACES = 1 << 17
+CLI_MEMBERS = 8            # 16c's joins
+CLI_PODS = 2_000           # their pods: the load never runs a member full
+SERVE_SECONDS = 20.0       # 16c's serve --loadgen window
+CLI_TIMEOUT_S = 240.0
+
+
+def soak_comparable(payload: dict) -> dict:
+    """A SOAK payload without `wall_s`, `stage_utilization` reduced to its
+    span names and counts: what card and CPU must agree on."""
+    out = json.loads(json.dumps(payload, default=str))
+    out.pop("wall_s")
+    out["stage_utilization"] = {
+        k: v["count"] for k, v in out["stage_utilization"].items()}
+    return out
+
+
+class _StillPerfCounter:
+    """The time module with perf_counter standing still."""
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+    @staticmethod
+    def perf_counter() -> float:
+        return 0.0
+
+
+class still_cycle_clock:
+    """Hold the Scheduler module's host clock still inside the block: the
+    Scheduler floors a binding's e2e sample at its cycle's wall seconds
+    (as the JAX package's does), which would tie the compressed soaks'
+    latency samples -- and so the card-vs-CPU comparison -- to how busy
+    each host is; with the clock still every cycle's wall reads 0 and the
+    samples are the virtual clock's alone.  Only the `time` name of
+    scheduler/service.py is replaced; the spans, the driver and the
+    virtual clock keep their own clocks."""
+
+    def __enter__(self):
+        from karmada_tpu_torch.scheduler import service
+
+        self.prev = service.time
+        service.time = _StillPerfCounter()
+
+    def __exit__(self, *exc):
+        from karmada_tpu_torch.scheduler import service
+
+        service.time = self.prev
+        return False
+
+
+def soak_placements(plane) -> dict:
+    return {f"{rb.namespace}/{rb.name}": tuple(sorted(
+        (t.name, t.replicas) for t in rb.spec.clusters))
+        for rb in plane.store.visit("ResourceBinding")}
+
+
+def soak_run(name: str, device, seed: int, strip_events: bool = False,
+             record: bool = False, device_time: bool = False) -> dict:
+    """One compressed soak of `name` on ServeSlice(backend="device") on
+    `device`, into a fresh process ledger (restored after).  With
+    `record`, every RESOLVE_EVERY-th cycle's input (the bindings and
+    clusters its solve saw, copied) and results are kept; with
+    `device_time`, an event pair around each kernel launch of the run
+    gives the kernels' device seconds."""
+    import copy
+
+    from karmada_tpu_torch import loadgen as L
+    from karmada_tpu_torch.obs import events as obs_events
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.ops import shortlist as SL
+
+    scenario = L.get_scenario(name)
+    if strip_events:
+        scenario = dataclasses.replace(scenario, events=())
+    clock = L.VirtualClock()
+    model = L.ServiceModel()
+    plane = L.ServeSlice(scenario, clock, model, backend="device",
+                         device=device)
+    sched = plane.scheduler
+    recorded, cycles = [], [0]
+    if record:
+        solve = sched.solve_batch
+
+        def solve_batch(bindings, clusters, **kw):
+            res = solve(bindings, clusters, **kw)
+            if not kw.get("detached"):
+                cycles[0] += 1
+                if cycles[0] % RESOLVE_EVERY == 1:
+                    recorded.append((copy.deepcopy(bindings),
+                                     copy.deepcopy(list(clusters)),
+                                     dict(res[0])))
+            return res
+
+        sched.solve_batch = solve_batch
+    pairs = []
+    orig_launch = kernels.launch
+    if device_time:
+        def launch(source, args, entry=None, count=None, device=None):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            orig_launch(source, args, entry, count, device)
+            e1.record()
+            pairs.append((e0, e1))
+
+        kernels.launch = launch
+    driver = L.LoadDriver(plane, scenario, clock=clock, model=model,
+                          seed=seed, trace_capacity=SOAK_TRACES)
+    prev = obs_events.ledger()
+    obs_events.configure(capacity=SOAK_TRACES)
+    sl0, fb0 = dict(SL.COUNTS), dict(SL.FALLBACKS)
+    t0 = time.perf_counter()
+    try:
+        with still_cycle_clock():
+            payload = driver.run()
+        if device_time:
+            torch.cuda.synchronize()
+        shed = {(e.ref.namespace, e.ref.name)
+                for e in obs_events.ledger().list(kind="ResourceBinding")
+                if e.reason == obs_events.REASON_BINDING_SHED}
+        never = [k for k, f in driver._flight.items()  # noqa: SLF001
+                 if not f.done]
+    finally:
+        obs_events._LEDGER[0] = prev  # noqa: SLF001 — restore the ledger
+        kernels.launch = orig_launch
+    wall = time.perf_counter() - t0
+    return {
+        "payload": payload, "comparable": soak_comparable(payload),
+        "placements": soak_placements(plane),
+        "bindings": [rb for rb in plane.store.visit("ResourceBinding")
+                     if rb.name.startswith("lg-b")] if record else None,
+        "faults": sched.faults(),
+        "never_shed": sum(k in shed for k in never),
+        "never": len(never), "dropped": driver.recorder.dropped,
+        "whatif": driver.whatif_results,
+        "shortlist": SL.COUNTS["dispatches"] - sl0["dispatches"],
+        "fallbacks": {k: v - fb0.get(k, 0) for k, v in SL.FALLBACKS.items()
+                      if v - fb0.get(k, 0)},
+        "wall": wall, "recorded": recorded, "waves": sched.waves,
+        "estimators": sched.estimators,
+        "chunk": sched.pipeline_chunk,
+        "device_s": (sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+                     if device_time else None),
+        "device_pairs": len(pairs)}
+
+
+def soak_job(name: str, seed: int) -> dict:
+    """CpuRefs job: the soak on device="cpu", its picklable part."""
+    r = soak_run(name, "cpu", seed)
+    return {k: r[k] for k in ("comparable", "placements", "faults",
+                              "whatif", "wall")}
+
+
+def submit_soaks(refs) -> None:
+    for name in SOAK_SCENARIOS + ("storm-heavy",):
+        refs.submit(("16", name), soak_job, name, SOAK_SEED)
+
+
+def serial_resolve(recorded, waves: int, estimators) -> tuple:
+    """Re-solve recorded cycle inputs on ops/serial, one wave at a time:
+    a wave's bindings (the solver's contiguous rows: B, the batch padded
+    to a power of two, over its effective waves) solve against the
+    snapshot less what the earlier waves placed (pods and requests a
+    replica), as the device waves price.  (cycles, bindings, mismatches
+    [(binding, serial, device)])."""
+    from karmada_tpu_torch.ops import serial
+    from karmada_tpu_torch.ops import solver as PS
+    from karmada_tpu_torch.ops import tensors as T
+    from karmada_tpu_torch.utils.quantity import Quantity
+
+    cal = serial.make_cal_available(estimators)
+
+    def norm(r):
+        return (tuple(sorted((t.name, t.replicas) for t in r))
+                if isinstance(r, list) else type(r).__name__)
+
+    bad, n = [], 0
+    for bindings, clusters, results in recorded:
+        by = {c.name: c for c in clusters}
+        B = T._next_pow2(max(len(bindings), 1), 8)  # noqa: SLF001
+        per_wave = B // PS._effective_waves(B, waves)  # noqa: SLF001
+        placed = []
+        for i, rb in enumerate(bindings):
+            if i % per_wave == 0:
+                for req, targets in placed:
+                    for t in targets:
+                        summ = by[t.name].status.resource_summary
+                        for res, q in req.items():
+                            cur = summ.allocated.get(res)
+                            summ.allocated[res] = Quantity.from_milli(
+                                (cur.milli if cur else 0)
+                                + q * t.replicas)
+                placed = []
+            try:
+                out = serial.schedule(rb.spec, rb.status, clusters, cal)
+            except Exception as e:  # noqa: BLE001 — the binding's outcome
+                out = e
+            if isinstance(out, list):
+                rr = rb.spec.replica_requirements
+                req = {"pods": 1000}
+                for res, q in (rr.resource_request if rr else {}).items():
+                    req[res] = q.milli
+                placed.append((req, out))
+            n += 1
+            if norm(out) != norm(results.get(i)):
+                bad.append((rb.name, norm(out), norm(results.get(i))))
+    return len(recorded), n, bad
+
+
+def soak_diff(a: dict, b: dict) -> list:
+    return [k for k in sorted(set(a) | set(b)) if a.get(k) != b.get(k)]
+
+
+def soak_vs_cpu(label: str, card: dict, cpu: dict) -> None:
+    """Card against the CPU replay: payloads, placements, whatif
+    answers."""
+    diff = soak_diff(card["comparable"], cpu["comparable"])
+    if diff:
+        raise AssertionError(
+            f"phase {label}: SOAK payload card != CPU in {diff}: "
+            + "; ".join(f"{k}: {card['comparable'].get(k)} vs "
+                        f"{cpu['comparable'].get(k)}" for k in diff[:3]))
+    if card["placements"] != cpu["placements"]:
+        raise AssertionError(f"phase {label}: final placements card != CPU")
+    if card["whatif"] != cpu["whatif"]:
+        raise AssertionError(f"phase {label}: what-if answers card != CPU")
+
+
+def phase_soaks(dev, refs) -> dict:
+    """16a: the compressed soaks on the card, each held against its CPU
+    replay (CpuRefs).  Returns the launch counts of the card soaks."""
+    from karmada_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    runs = {}
+    for name in SOAK_SCENARIOS:
+        runs[name] = soak_run(name, dev, SOAK_SEED)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    control = soak_run("whatif", dev, SOAK_SEED, strip_events=True)
+    for name, r in runs.items():
+        p = r["payload"]
+        cpu = refs.result(("16", name))
+        soak_vs_cpu(f"16a {name}", r, cpu)
+        log(f"phase 16a {name}: {p['injected']} injected, "
+            f"{p['scheduled']} scheduled, admission {p['admission']}, "
+            f"{p['cycles']['count']} cycles (batch p50 "
+            f"{p['cycles']['batch_size'].get('p50')}), latency p99 "
+            f"{p['schedule_latency_s'].get('p99')} s, dwell p99 "
+            f"{p['queue_dwell_s'].get('p99')} s (virtual), events "
+            f"{p['events']['recorded']}; card {r['wall']:.2f} s, CPU "
+            f"replay {cpu['wall']:.2f} s; equal to the CPU replay")
+        if r["faults"] or cpu["faults"]:
+            raise AssertionError(f"phase 16a {name}: faults {r['faults']} "
+                                 f"/ {cpu['faults']}")
+        if name in ("steady", "whatif", "megafleet") and \
+                p["scheduled"] != p["injected"]:
+            raise AssertionError(f"phase 16a {name}: {p['scheduled']} of "
+                                 f"{p['injected']} scheduled")
+    mf = runs["megafleet"]
+    if mf["shortlist"] <= 0 or mf["fallbacks"]:
+        raise AssertionError(f"phase 16a megafleet: shortlist dispatches "
+                             f"{mf['shortlist']}, fallbacks "
+                             f"{mf['fallbacks']}")
+    if runs["whatif"]["placements"] != control["placements"]:
+        raise AssertionError("phase 16a whatif: placements moved against "
+                             "the control run without the queries")
+    if len(runs["whatif"]["whatif"]) != 5:
+        raise AssertionError("phase 16a whatif: the queries did not run")
+    log(f"phase 16a: megafleet shortlist dispatches {mf['shortlist']}, 0 "
+        f"fallbacks; whatif placements equal the control run's; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact",
+              "shortlist_topk", "group_sums"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 16a: kernel {k} never launched")
+    return launches
+
+
+def stage_shares(payload) -> dict:
+    return {k: v.get("of_cycle") for k, v in
+            sorted(payload["stage_utilization"].items())
+            if k.startswith("pipeline.")}
+
+
+def phase_heavy(dev, refs) -> dict:
+    """16b: megafleet-heavy and storm-heavy at full width on the card:
+    invariants, every RESOLVE_EVERY-th cycle re-solved on ops/serial, and
+    storm-heavy whole against its CPU replay.  Returns the launch counts
+    of the card runs."""
+    from karmada_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    runs = {name: soak_run(name, dev, SOAK_SEED, record=True,
+                           device_time=True) for name in SOAK_HEAVY}
+    launches = dict(kernels.LAUNCHES)
+    for name, r in runs.items():
+        p = r["payload"]
+        dev_s = r["device_s"]
+        log(f"phase 16b {name}: " + json.dumps({
+            "injected": p["injected"], "scheduled": p["scheduled"],
+            "admission": p["admission"],
+            "schedule_latency_s": p["schedule_latency_s"],
+            "queue_dwell_s": p["queue_dwell_s"],
+            "cycles": p["cycles"], "stage_of_cycle": stage_shares(p),
+            "wall_s": round(r["wall"], 3),
+            "kernel_device_s": round(dev_s, 4),
+            "kernel_launch_pairs": r["device_pairs"],
+            "idle_share": round(1.0 - dev_s / r["wall"], 4),
+            "never_scheduled_shed": r["never_shed"]}))
+        if r["faults"]:
+            raise AssertionError(f"phase 16b {name}: faults {r['faults']}")
+        # every injected binding scheduled or shed (a binding shed
+        # again on a later re-offer counts once), the queue drained, the
+        # ring whole
+        if (p["scheduled"] + r["never_shed"] != p["injected"]
+                or r["never_shed"] != r["never"]
+                or any(p["residual_queue"].values()) or r["dropped"]):
+            raise AssertionError(
+                f"phase 16b {name}: scheduled {p['scheduled']} + never "
+                f"scheduled but shed {r['never_shed']} (never scheduled "
+                f"{r['never']}) vs injected {p['injected']}; residual "
+                f"{p['residual_queue']}; traces dropped {r['dropped']}")
+        if r["fallbacks"]:
+            raise AssertionError(f"phase 16b {name}: shortlist fallbacks "
+                                 f"{r['fallbacks']}")
+        t0 = time.perf_counter()
+        assert max(len(b) for b, _, _ in r["recorded"]) <= r["chunk"]
+        n_cyc, n_rows, bad = serial_resolve(r["recorded"], r["waves"],
+                                            r["estimators"])
+        log(f"phase 16b {name}: {n_cyc} cycles ({n_rows} bindings, every "
+            f"{RESOLVE_EVERY}th cycle) re-solved on ops/serial one wave at "
+            f"a time in {time.perf_counter() - t0:.1f} s: "
+            f"{len(bad)} differ")
+        if bad or not n_rows:
+            raise AssertionError(f"phase 16b {name}: serial re-solve "
+                                 f"differs: {bad[:3]}")
+    mh = runs["megafleet-heavy"]
+    if mh["shortlist"] <= 0:
+        raise AssertionError("phase 16b megafleet-heavy: no shortlist "
+                             "dispatch")
+    for rb in mh["bindings"]:
+        names = set(rb.spec.placement.cluster_affinity.cluster_names)
+        total = sum(t.replicas for t in rb.spec.clusters)
+        if total != 5 or not {t.name for t in rb.spec.clusters} <= names:
+            raise AssertionError(f"phase 16b megafleet-heavy: {rb.name} "
+                                 f"placed {rb.spec.clusters} outside its "
+                                 "region or not 5 replicas")
+    log(f"phase 16b megafleet-heavy: {len(mh['bindings'])} placements, "
+        f"each 5 replicas inside its region; shortlist dispatches "
+        f"{mh['shortlist']}, 0 fallbacks")
+    soak_vs_cpu("16b storm-heavy", runs["storm-heavy"],
+                refs.result(("16", "storm-heavy")))
+    log("phase 16b storm-heavy: equal to the CPU replay")
+    for k in ("capacity", "schedule_rows", "webster_batch", "compact",
+              "shortlist_topk", "group_sums"):
+        if launches[k] <= 0:
+            raise AssertionError(f"phase 16b: kernel {k} never launched")
+    return launches
+
+
+CLI_APP = """\
+apiVersion: apps/v1
+kind: Deployment
+metadata:
+  name: web
+  namespace: default
+spec:
+  replicas: 6
+  template:
+    spec:
+      containers:
+      - name: web
+        image: web:1
+        resources:
+          requests:
+            cpu: 500m
+---
+apiVersion: policy.karmada.io/v1alpha1
+kind: PropagationPolicy
+metadata:
+  name: web-pp
+  namespace: default
+spec:
+  resourceSelectors:
+  - apiVersion: apps/v1
+    kind: Deployment
+    name: web
+  placement:
+    replicaScheduling:
+      replicaSchedulingType: Divided
+      replicaDivisionPreference: Weighted
+"""
+
+
+def cli(plane_dir: str, *argv, timeout: float = CLI_TIMEOUT_S) -> str:
+    """One `python -m karmada_tpu_torch.cli --dir DIR ...` from the
+    checkout; its stdout (raises on a non-zero exit)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "karmada_tpu_torch.cli", "--dir", plane_dir,
+         *argv], capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {' '.join(argv)}: exit "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def phase_entry_points(box: dict) -> None:
+    """16c (on a thread, EntryPoints): the port CLI as a user runs it, in
+    subprocesses on a temporary plane directory -- init, CLI_MEMBERS
+    joins, apply of a Deployment and its PropagationPolicy, tick on the
+    card, get ResourceBinding showing the placement -- then serve on the
+    card with the facade, steady loadgen traffic and the flight recorder
+    for SERVE_SECONDS, estimate against it, SIGINT: exit 0, the banner's
+    backend=device, and the checkpoint reloading with every loadgen
+    binding scheduled.  Fills `box` with the walls, or its error."""
+    import signal
+
+    t_all = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    d = os.path.join(root, "plane")
+    walls = {}
+    try:
+        t0 = time.perf_counter()
+        cli(d, "init")
+        for i in range(CLI_MEMBERS):
+            cli(d, "join", f"m{i}", "--pods", str(CLI_PODS),
+                "--region", f"r{i % 2}")
+        app = os.path.join(root, "app.yaml")
+        with open(app, "w") as f:
+            f.write(CLI_APP)
+        cli(d, "apply", "-f", app)
+        walls["init_join_apply_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ticked = cli(d, "tick", "--backend", "device")
+        got = cli(d, "get", "ResourceBinding")
+        walls["tick_get_s"] = time.perf_counter() - t0
+        row = [ln for ln in got.splitlines() if "web-deployment" in ln]
+        if not row or ":" not in row[0].split()[-1]:
+            raise AssertionError(f"get ResourceBinding shows no placement "
+                                 f"after the device tick: {got!r}")
+        placed = row[0].split()[-1]
+        if sum(int(x.split(":")[1]) for x in placed.split(",")) != 6:
+            raise AssertionError(f"the placement {placed} is not 6 replicas")
+        log(f"phase 16c: init, {CLI_MEMBERS} joins, apply in "
+            f"{walls['init_join_apply_s']:.1f} s; tick --backend device "
+            f"({ticked.strip()}) and get in {walls['tick_get_s']:.1f} s: "
+            f"web-deployment {placed}")
+        t0 = time.perf_counter()
+        out_path = os.path.join(root, "serve.out")
+        with open(out_path, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "karmada_tpu_torch.cli", "--dir", d,
+                 "serve", "--backend", "device", "--facade", ":0",
+                 "--loadgen", "steady", "--loadgen-rate", "50",
+                 "--trace-buffer", "256"],
+                stdout=out, stderr=subprocess.STDOUT, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                start_new_session=True)
+
+        def kill_serve() -> None:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+        # a failing run elsewhere must not leave the plane serving
+        atexit.register(kill_serve)
+        try:
+            addr, deadline = None, time.time() + CLI_TIMEOUT_S
+            while time.time() < deadline and proc.poll() is None:
+                text = open(out_path).read()
+                if "ctrl-c to stop" in text:
+                    for ln in text.splitlines():
+                        if ln.startswith("facade plane armed at "):
+                            addr = ln.split()[4]
+                    break
+                time.sleep(0.5)
+            if addr is None:
+                raise AssertionError("serve did not come up: "
+                                     + open(out_path).read()[-2000:])
+            t_up = time.perf_counter() - t0
+            est = json.loads(cli(d, "estimate", "--facade-addr", addr,
+                                 "--replicas", "4", "--cpu", "250m",
+                                 "--format", "json"))
+            if est["outcome"] != "scheduled" or sum(
+                    a["replicas"] for a in est["assignments"]) != 4:
+                raise AssertionError(f"estimate answered {est}")
+            time.sleep(max(0.0, SERVE_SECONDS - (time.perf_counter() - t0
+                                                 - t_up)))
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=120)
+        finally:
+            kill_serve()
+        text = open(out_path).read()
+        walls["serve_s"] = time.perf_counter() - t0
+        banner = [ln for ln in text.splitlines()
+                  if ln.startswith("serving control plane")]
+        if rc != 0 or not banner or "backend=device" not in banner[0]:
+            raise AssertionError(f"serve: exit {rc}, banner {banner}: "
+                                 + text[-2000:])
+        from karmada_tpu_torch.models.work import COND_SCHEDULED
+        from karmada_tpu_torch.store.persistence import load_store
+
+        store = load_store(d)
+        lg = [rb for rb in store.list("ResourceBinding")
+              if rb.namespace == "loadgen"]
+        unsched = [rb.name for rb in lg if not rb.spec.clusters or not any(
+            c.type == COND_SCHEDULED and c.status == "True"
+            for c in rb.status.conditions)]
+        if not lg or unsched:
+            raise AssertionError(f"the checkpoint holds {len(lg)} loadgen "
+                                 f"bindings, unscheduled: {unsched[:5]}")
+        log(f"phase 16c: serve --backend device up in {t_up:.1f} s "
+            f"({banner[0]}); estimate via {addr}: {est['assignments']} "
+            f"(batch {est.get('batchId')}); SIGINT: exit 0 after "
+            f"{walls['serve_s']:.1f} s; the checkpoint reloads with "
+            f"{len(lg)} loadgen bindings, all scheduled")
+        box["walls"] = walls
+    except Exception as e:  # noqa: BLE001 — raised on the main thread
+        box["error"] = e
+    finally:
+        box["wall"] = time.perf_counter() - t_all
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class EntryPoints:
+    """16c on a thread, started beside phases 3-11 (its CLI processes'
+    start-up is host work that would otherwise set phase 16's wall) and
+    joined at the end of phase 16."""
+
+    def __init__(self) -> None:
+        self.box: dict = {}
+        self.thread = threading.Thread(target=phase_entry_points,
+                                       args=(self.box,), daemon=True,
+                                       name="phase-16c")
+        self.thread.start()
+
+
+def phase_traffic(dev, refs, entry: EntryPoints) -> tuple:
+    """Phase 16: 16a and 16b here, then 16c's thread joined.  Returns the
+    card soaks' launch counts (16a, 16b)."""
+    t16 = time.perf_counter()
+    t0 = time.perf_counter()
+    soaks = phase_soaks(dev, refs)
+    log(f"phase 16a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    heavy = phase_heavy(dev, refs)
+    log(f"phase 16b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    entry.thread.join()
+    box = entry.box
+    if "error" in box:
+        raise box["error"]
+    log(f"phase 16c: {box['wall']:.1f} s ({box['walls']}; waited "
+        f"{time.perf_counter() - t0:.1f} s for it after 16b)")
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    return soaks, heavy
+
+
 def parity_loop_phases(M, fleet, items, dev, args, refs) -> None:
     """The loop's card-vs-CPU phases on 12a's recipe: 12a, 14a and 15a
     (their CPU halves from the child, submit_loop_parity)."""
@@ -6521,6 +7130,7 @@ def main() -> int:
     # phases 12b, 14b-c and 15b-c from here to phase 13, in a second
     # process on the card
     loop_child = LoopChild(args)
+    entry_points = EntryPoints()  # 16c beside phases 3-11
     main_path = ("capacity", "schedule_rows", "webster_batch", "compact",
                  "spread_group_info", "spread_pick")
     cfg5 = (T.ROUTE_DEVICE, T.ROUTE_DEVICE_SPREAD)
@@ -6545,6 +7155,7 @@ def main() -> int:
     submit_parity(refs, {"forward": items, "rebalance": reb_items,
                          "wide": wide_items}, explain_items, fleet, args)
     submit_loop_parity(refs, M, fleet, items, args.seed + 7)
+    submit_soaks(refs)
     reb = phase_cycle("4 rebalance", reb_items, fleet, names, args, dev,
                       chunk_ms, main_path, cfg5)[0]
     wide = phase_cycle(
@@ -6589,6 +7200,7 @@ def main() -> int:
     phase_native_control(items, fleet, min(args.native_bindings, len(items)))
     phase_native_store(M, fleet, items, fwd_results)
     parity_loop_phases(M, fleet, items, dev, args, refs)
+    traffic = phase_traffic(dev, refs, entry_points)
     refs.close()
     collect_loop_garbage()
     child = loop_child.result()
@@ -6598,7 +7210,7 @@ def main() -> int:
         f"({child['remaps']} in the loop child)")
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (
-            fwd, reb, wide, expl, mega, inc) + loop_launches)
+            fwd, reb, wide, expl, mega, inc) + loop_launches + traffic)
     t13 = time.perf_counter()
     report.append(phase_probe(dev, args.reps, parent))
     report.append(phase_profile(dev, args.reps, parent))

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Set, Tuple
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.controllers.override import OverrideManager
 from karmada_tpu_torch.interpreter import ResourceInterpreter
 from karmada_tpu_torch.models.policy import REPLICA_SCHEDULING_DIVIDED
@@ -165,24 +166,28 @@ class BindingController:
         eviction = {t.from_cluster for t in rb.spec.graceful_eviction_tasks
                     if t.purge_mode != "Immediately"}
         keep = set()
-        for target in targets:
-            # never materialize a Work for a cluster that no longer exists:
-            # an unjoined cluster's execution space has been drained and
-            # nothing would ever clean an orphan up
-            cluster = self._cluster(target.name)
-            if cluster is None:
-                continue
-            m = dict(manifest)
-            if self._divided(rb) and rb.spec.replicas > 0:
-                m = self.interpreter.revise_replica(m, target.replicas)
-            if target.name in completions:
-                m = self.interpreter.revise_job_completions(
-                    m, completions[target.name])
-            m = self.overrides.apply(m, cluster)
-            m = self._inject_preserved_state(rb, target, m, len(targets))
-            suspend = self._suspended(rb, target.name)
-            self._ensure_work(rb, target.name, m, suspend)
-            keep.add(target.name)
+        # flight recorder: per-target Work rendering is where a binding
+        # reconcile's time goes -- one span under the worker's reconcile
+        with obs.TRACER.span(obs.SPAN_BINDING_RENDER,
+                             targets=len(targets)):
+            for target in targets:
+                # never materialize a Work for a cluster that no longer
+                # exists: an unjoined cluster's execution space has been
+                # drained and nothing would ever clean an orphan up
+                cluster = self._cluster(target.name)
+                if cluster is None:
+                    continue
+                m = dict(manifest)
+                if self._divided(rb) and rb.spec.replicas > 0:
+                    m = self.interpreter.revise_replica(m, target.replicas)
+                if target.name in completions:
+                    m = self.interpreter.revise_job_completions(
+                        m, completions[target.name])
+                m = self.overrides.apply(m, cluster)
+                m = self._inject_preserved_state(rb, target, m, len(targets))
+                suspend = self._suspended(rb, target.name)
+                self._ensure_work(rb, target.name, m, suspend)
+                keep.add(target.name)
         # graceful eviction: keep the old Work until the task drains
         keep |= eviction
         self._remove_works(ns, name, keep)

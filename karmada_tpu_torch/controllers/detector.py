@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.controllers.override import selector_matches
 from karmada_tpu_torch.interpreter import ResourceInterpreter
 from karmada_tpu_torch.models.meta import OwnerReference
@@ -190,8 +191,14 @@ class ResourceDetector:
             return
         assert isinstance(obj, Unstructured)
         manifest = obj.to_manifest()
-        pp, cpp = self._matched_policies(obj, manifest)
-        policy = self._effective_policy(obj, manifest, pp, cpp)
+        # flight recorder: policy matching is the detector's hot phase,
+        # so it gets its own span under the worker's reconcile root
+        with obs.TRACER.span(obs.SPAN_DETECTOR_MATCH, kind=kind,
+                             template=name) as sp:
+            pp, cpp = self._matched_policies(obj, manifest)
+            policy = self._effective_policy(obj, manifest, pp, cpp)
+            if sp:
+                sp.set_attr(matched=policy.name if policy else None)
         # Lazy activation (detector.go:1485-1497): a policy-driven change
         # does not touch templates whose effective policy is Lazy -- the new
         # policy content applies only when the resource itself next changes

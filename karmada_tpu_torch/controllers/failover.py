@@ -28,13 +28,14 @@ Eviction itself mirrors binding_types.go GracefulEvict: the cluster leaves
 re-places the lost replicas while the stale Work survives until the task
 drains (the binding controller keeps evicting clusters' Works alive).
 
-Left out of the port, for its events recorder: every event the JAX
-controllers emit (taint added / removed, eviction pending, workload
-evicted, eviction task drained, eviction deferred).  The taint manager
-counts its evictions (`NoExecuteTaintManager.evicted`), and application
-failover its deferred ones (`ApplicationFailoverController.deferred`: an
-eviction held back because its state-preservation payload cannot be
-built yet, also printed to stderr once per binding and cluster).  The reads that
+The lifecycle ledger (obs/events.py) gets the JAX controllers' events:
+taint added / removed, eviction pending, workload evicted, eviction task
+drained and eviction deferred (the last through the controller's
+`recorder`, when it has one).  The taint manager also counts its
+evictions (`NoExecuteTaintManager.evicted`), and application failover
+its deferred ones (`ApplicationFailoverController.deferred`: an eviction
+held back because its state-preservation payload cannot be built yet,
+also printed to stderr once per binding and cluster).  The reads that
 only look take the stored objects without copying (ObjectStore.visit /
 peek), and the taint manager finds a tainted cluster's bindings in an
 index of the stored bindings by target, built in store order on the
@@ -58,6 +59,7 @@ from karmada_tpu_torch.models.meta import is_condition_true
 from karmada_tpu_torch.models.work import GracefulEvictionTask, ResourceBinding
 from karmada_tpu_torch.store.store import Event, NotFoundError, ObjectStore
 from karmada_tpu_torch.store.worker import AsyncWorker, Runtime
+from karmada_tpu_torch.utils import events as ev
 
 TAINT_NOT_READY = "cluster.karmada.io/not-ready"
 DEFAULT_GRACE_PERIOD_S = 600
@@ -177,6 +179,10 @@ class ClusterTaintController:
             def rm(c: Cluster) -> None:
                 c.spec.taints = [t for t in c.spec.taints if t.key != TAINT_NOT_READY]
             self.store.mutate(Cluster.KIND, "", name, rm)
+            ev.emit(ev.ObjectRef(kind=Cluster.KIND, name=name),
+                    ev.TYPE_NORMAL, ev.REASON_UNTAINT_CLUSTER_SUCCEED,
+                    "cluster recovered Ready: not-ready NoExecute taint "
+                    "removed", origin="cluster-taint")
         elif not ready and not has:
             def add(c: Cluster) -> None:
                 c.spec.taints.append(Taint(
@@ -184,6 +190,10 @@ class ClusterTaintController:
                     time_added=self.clock(),
                 ))
             self.store.mutate(Cluster.KIND, "", name, add)
+            ev.emit(ev.ObjectRef(kind=Cluster.KIND, name=name),
+                    ev.TYPE_WARNING, ev.REASON_TAINT_CLUSTER_SUCCEED,
+                    "cluster Ready=False: not-ready NoExecute taint added",
+                    origin="cluster-taint")
 
 
 class NoExecuteTaintManager:
@@ -299,7 +309,15 @@ class NoExecuteTaintManager:
                 # armed, waiting out tolerationSeconds (a taint cleared
                 # before expiry cancels it)
                 with self._pending_lock:
+                    newly = key not in self._pending
                     self._pending[key] = due
+                if newly:
+                    ev.emit_key((rb.namespace, rb.name), ev.TYPE_WARNING,
+                                ev.REASON_EVICTION_PENDING,
+                                f"eviction from {cluster_name} pending "
+                                "toleration expiry (NoExecute taint "
+                                "tolerated for a bounded window)",
+                                origin="taint-manager")
             else:
                 with self._pending_lock:
                     self._pending.pop(key, None)
@@ -356,6 +374,11 @@ class NoExecuteTaintManager:
             return
         if changed:
             self.evicted += 1
+            ev.emit_key((ns, name), ev.TYPE_WARNING,
+                        ev.REASON_EVICT_WORKLOAD_FROM_CLUSTER,
+                        f"gracefully evicted from {cluster_name}: "
+                        "untolerated NoExecute taint (toleration expired)",
+                        origin="taint-manager")
 
 
 class GracefulEvictionController:
@@ -424,6 +447,13 @@ class GracefulEvictionController:
                     if t.from_cluster not in drained
                 ]
             self.store.mutate(ResourceBinding.KIND, ns, name, update)
+            why = ("replacement healthy on every scheduled cluster"
+                   if ready else "grace period expired")
+            for cluster in sorted(drained):
+                ev.emit_key((ns, name), ev.TYPE_NORMAL,
+                            ev.REASON_EVICTION_TASK_DRAINED,
+                            f"eviction task for {cluster} drained ({why})",
+                            origin="graceful-eviction")
 
 
 class ApplicationFailoverController:
@@ -437,9 +467,10 @@ class ApplicationFailoverController:
     """
 
     def __init__(self, store: ObjectStore, runtime: Runtime,
-                 clock=None) -> None:
+                 clock=None, recorder=None) -> None:
         self.store = store
         self.clock = clock if clock is not None else time.time
+        self.recorder = recorder
         #: evictions deferred (a retry each round)
         self.deferred = 0
         self._unhealthy_since: Dict[tuple, float] = {}
@@ -490,6 +521,10 @@ class ApplicationFailoverController:
         msg = (f"application failover of cluster {cluster!r} deferred: "
                f"{why}")
         self.deferred += 1
+        if self.recorder is not None:
+            self.recorder.event(rb, ev.TYPE_WARNING,
+                                ev.REASON_EVICTION_DEFERRED, msg,
+                                origin="app-failover")
         key = (rb.namespace, rb.name, cluster)
         if key not in self._deferral_logged:
             self._deferral_logged.add(key)
@@ -585,6 +620,12 @@ class ApplicationFailoverController:
             # tops the lost replicas back up without disrupting survivors
 
         self.store.mutate(ResourceBinding.KIND, ns, name, update)
+        for cluster in evicted:
+            ev.emit_key((ns, name), ev.TYPE_WARNING,
+                        ev.REASON_EVICT_WORKLOAD_FROM_CLUSTER,
+                        f"application unhealthy past toleration on "
+                        f"{cluster}: evicted (purge={purge})",
+                        origin="app-failover")
         # deferred evictions (payload not collectable yet) keep their
         # tracking state so they fire as soon as the status arrives
         for cluster in evicted:

@@ -58,7 +58,7 @@ runs the Descheduler over it (controllers/descheduler.py), sharing one
 EvictionBudget with the rebalance plane.
 
 Not part of the port yet, by argument: mesh_shape, chaos, chaos_seed; by
-method: enable_dns_detector, proxy, metrics_dump, events; and the
+method: enable_dns_detector, proxy, metrics_dump; and the
 controllers behind them: the search cache / unified auth / cluster
 proxy / metrics provider, the FederatedHPA family (FederatedHPA,
 CronFederatedHPA, the scale-target marker, the replicas syncer, the HPA
@@ -121,6 +121,7 @@ from karmada_tpu_torch.models.unstructured import Unstructured
 from karmada_tpu_torch.scheduler import Scheduler
 from karmada_tpu_torch.store.store import NotFoundError, ObjectStore
 from karmada_tpu_torch.store.worker import Runtime
+from karmada_tpu_torch.utils.events import EventRecorder
 from karmada_tpu_torch.utils.features import FeatureGates
 from karmada_tpu_torch.webhook import AdmissionRegistry, install_default_webhooks
 
@@ -177,6 +178,9 @@ class ControlPlane:
         persist_dir: Optional[str] = None,
     ) -> None:
         self.clock = clock if clock is not None else time.time
+        # the process ledger's view (obs/events.py): the Scheduler's
+        # outcome events and application failover's deferrals
+        self.recorder = EventRecorder()
         self.gates = FeatureGates(feature_gates)
         self.admission = AdmissionRegistry()
         if persist_dir is not None:
@@ -256,7 +260,7 @@ class ControlPlane:
             device_cycle_timeout_s=device_cycle_timeout_s,
             device_recover_cycles=device_recover_cycles, explain=explain,
             batch_deadline_s=batch_deadline_s,
-            admission_limit=admission_limit)
+            admission_limit=admission_limit, recorder=self.recorder)
         self.binding_controller = BindingController(
             self.store, self.runtime, self.interpreter)
         self.execution = ExecutionController(
@@ -288,7 +292,8 @@ class ControlPlane:
             self.store, self.runtime, grace_period_s=eviction_grace_period_s,
             clock=self.clock)
         self.app_failover = ApplicationFailoverController(
-            self.store, self.runtime, clock=self.clock)
+            self.store, self.runtime, clock=self.clock,
+            recorder=self.recorder)
         self.namespace_sync = NamespaceSyncController(self.store,
                                                       self.runtime)
         self.dependencies = DependenciesDistributor(
@@ -440,6 +445,10 @@ class ControlPlane:
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
         self.store.delete(kind, namespace, name)
+
+    def events(self, kind=None, namespace=None, name=None):
+        """The plane's recorded events (the process ledger), filtered."""
+        return self.recorder.list(kind=kind, namespace=namespace, name=name)
 
     # -- clock --------------------------------------------------------------
     def tick(self, rounds: int = 3) -> int:

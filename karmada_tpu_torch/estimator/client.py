@@ -30,6 +30,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.estimator.wire import (
     UNAUTHENTIC_REPLICA,
     CapacitySnapshotResponse,
@@ -184,6 +185,37 @@ class CircuitBreaker:
     def transition_log(self) -> List[dict]:
         with self._lock:
             return list(self.transitions)
+
+
+def _rpc_span(cluster: str, method: str):
+    """An "estimator.rpc" span under the ambient trace, or the no-op span
+    when tracing is off or no trace is active: an RPC outside any cycle or
+    reconcile must not mint single-span root traces into the ring."""
+    tracer = obs.TRACER
+    if not tracer.enabled or tracer.current() is None:
+        return obs.NOOP_SPAN
+    return tracer.span(obs.SPAN_ESTIMATOR_RPC, cluster=cluster,
+                       method=method)
+
+
+def _traced_map(pool: ThreadPoolExecutor, fn, clusters: List[Cluster],
+                method: str) -> list:
+    """pool.map with flight-recorder spans: each per-cluster RPC runs
+    under an "estimator.rpc" span parented, across the pool's thread
+    boundary, into the calling thread's trace (the scheduler cycle, a
+    descheduler reconcile).  Without an ambient trace: plain pool.map."""
+    tracer = obs.TRACER
+    parent = tracer.current() if tracer.enabled else None
+    if parent is None:
+        return list(pool.map(fn, clusters))
+
+    def traced_one(cluster: Cluster):
+        with tracer.attach(parent):
+            with tracer.span(obs.SPAN_ESTIMATOR_RPC, cluster=cluster.name,
+                             method=method):
+                return fn(cluster)
+
+    return list(pool.map(traced_one, clusters))
 
 
 class AccurateEstimatorClient:
@@ -351,7 +383,7 @@ class AccurateEstimatorClient:
             self._memo_put(method, cluster, sig, value)
             return TargetCluster(cluster.name, value)
 
-        return list(self._pool.map(one, clusters))
+        return _traced_map(self._pool, one, clusters, method)
 
     # -- ReplicaEstimator ----------------------------------------------------
     def max_available_replicas(
@@ -395,11 +427,12 @@ class AccurateEstimatorClient:
             cluster=cluster, resource_kind=kind, namespace=namespace, name=name
         )
         try:
-            return self._request(
-                cluster, transport, "GetUnschedulableReplicas",
-                req.to_json(),
-                lambda raw: UnschedulableReplicasResponse.from_json(
-                    raw).unschedulable_replicas)
+            with _rpc_span(cluster, "GetUnschedulableReplicas"):
+                return self._request(
+                    cluster, transport, "GetUnschedulableReplicas",
+                    req.to_json(),
+                    lambda raw: UnschedulableReplicasResponse.from_json(
+                        raw).unschedulable_replicas)
         except EstimatorError:
             # typed + counted in _request; UNAUTHENTIC keeps callers total
             return UNAUTHENTIC_REPLICA
@@ -431,9 +464,10 @@ class SnapshotEstimator:
             if not force and time.time() - last < self.refresh_interval_s:
                 return
         try:
-            snap = self.client._request(  # noqa: SLF001 — same tier
-                cluster, transport, "CapacitySnapshot", {},
-                CapacitySnapshotResponse.from_json)
+            with _rpc_span(cluster, "CapacitySnapshot"):
+                snap = self.client._request(  # noqa: SLF001 — same tier
+                    cluster, transport, "CapacitySnapshot", {},
+                    CapacitySnapshotResponse.from_json)
         except EstimatorError:
             # typed + counted in _request; the stale-age gate answers
             # UNAUTHENTIC for this cluster until a refresh succeeds

@@ -65,6 +65,14 @@ class FacadeClient:
     def assign_replicas(
             self,
             req: wire.AssignReplicasRequest) -> wire.AssignReplicasResponse:
+        if not req.trace_id:
+            # the caller's ambient trace id rides the frame, so the
+            # server's span of the coalesced batch names this caller
+            from karmada_tpu_torch import obs
+
+            sp = obs.TRACER.current()
+            if sp is not None:
+                req.trace_id = sp.trace.trace_id
         return wire.AssignReplicasResponse.from_json(
             self._call("AssignReplicas", req.to_json()))
 

@@ -19,10 +19,12 @@ of the store's Clusters, as the JAX service's do, taken again only when
 a Cluster's resourceVersion moved, with the encoder's cluster side
 derived once a copy (core.ClusterView).
 
-Left out of the port: the metrics (facade/metrics.py), spans, flight
-records and ledger events.  The counters live in `state_payload`, as in
-the JAX package, and `batch_walls` holds the host seconds of the last
-coalesced solves.
+Each coalesced dispatch is a `facade.cycle` span and each what-if query a
+`facade.whatif` span; every caller's outcome lands on the lifecycle
+ledger (FacadeAssigned / FacadeRejected).  Left out of the port: the
+metrics (facade/metrics.py) and the flight records.  The counters live in
+`state_payload`, as in the JAX package, and `batch_walls` holds the host
+seconds of the last coalesced solves.
 """
 
 from __future__ import annotations
@@ -33,11 +35,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.estimator import wire
 from karmada_tpu_torch.facade import whatif as whatif_mod
 from karmada_tpu_torch.facade.messages import WhatIfRequest, WhatIfResponse
 from karmada_tpu_torch.models.cluster import Cluster
 from karmada_tpu_torch.models.work import ResourceBindingStatus
+from karmada_tpu_torch.obs import events as obs_events
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.scheduler.core import ClusterView
 
@@ -245,29 +249,61 @@ class FacadeService:
         # a caller-supplied (namespace, name) may collide across the
         # batch; the solve is positional
         t0 = time.perf_counter()
-        with self._solve_lock:
-            view = self._cluster_view()
-            results, _ = self.scheduler.solve_batch(
-                bindings, view.clusters, detached=True, view=view)
+        tracer = obs.TRACER
+        trace_id = ""
+        # caller-side trace ids off the wire frames, stitched onto the
+        # one coalesced dispatch they shared
+        caller_traces = sorted({p.request.trace_id for p in batch
+                                if p.request.trace_id})
+        with tracer.span(obs.SPAN_FACADE_CYCLE, callers=len(batch),
+                         batch_id=bid):
+            sp = tracer.current()
+            if sp is not None:
+                trace_id = sp.trace.trace_id
+                if caller_traces:
+                    sp.set_attr(caller_trace_ids=caller_traces)
+            with self._solve_lock:
+                view = self._cluster_view()
+                results, _ = self.scheduler.solve_batch(
+                    bindings, view.clusters, detached=True, view=view)
         wall = time.perf_counter() - t0
         with self._lock:
             self._batches += 1
             self._coalesced_calls += len(batch)
             self._last_batch_size = len(batch)
             self.batch_walls.append((len(batch), wall))
+        # the armed() guard hoisted out of emit_key: a disarmed ledger
+        # must not pay for the per-caller message strings
+        ledger_armed = obs_events.armed()
         for i, p in enumerate(batch):
             res = results.get(i)
+            key = (p.request.namespace, p.request.name)
             if isinstance(res, Exception) or res is None:
+                msg = str(res) if res is not None else "no result"
                 p.response = wire.AssignReplicasResponse(
-                    outcome=OUTCOME_UNSCHEDULABLE,
-                    message=str(res) if res is not None else "no result",
-                    batch_id=bid, batch_size=len(batch))
+                    outcome=OUTCOME_UNSCHEDULABLE, message=msg,
+                    trace_id=trace_id, batch_id=bid, batch_size=len(batch))
+                if ledger_armed:
+                    obs_events.emit_key(
+                        key, obs_events.TYPE_WARNING,
+                        obs_events.REASON_FACADE_REJECTED,
+                        f"facade batch {bid} ({len(batch)} callers): {msg}",
+                        origin="facade", trace_id=trace_id or None)
             else:
                 p.response = wire.AssignReplicasResponse(
                     assignments=[{"cluster": t.name, "replicas": t.replicas}
                                  for t in res],
-                    outcome=OUTCOME_SCHEDULED, batch_id=bid,
-                    batch_size=len(batch))
+                    outcome=OUTCOME_SCHEDULED, trace_id=trace_id,
+                    batch_id=bid, batch_size=len(batch))
+                if ledger_armed:
+                    where = ", ".join(f"{t.name}({t.replicas})"
+                                      for t in res)
+                    obs_events.emit_key(
+                        key, obs_events.TYPE_NORMAL,
+                        obs_events.REASON_FACADE_ASSIGNED,
+                        f"facade batch {bid} ({len(batch)} callers) "
+                        "assigned" + (f" to {where}" if where else ""),
+                        origin="facade", trace_id=trace_id or None)
             p.done.set()
 
     def _cluster_view(self) -> ClusterView:
@@ -302,8 +338,9 @@ class FacadeService:
 
     # -- WhatIf (the capacity-planning plane) ---------------------------------
     def whatif(self, req: WhatIfRequest) -> WhatIfResponse:
-        resp = whatif_mod.run_query(self.scheduler, self.store, req,
-                                    solve_lock=self._solve_lock)
+        with obs.TRACER.span(obs.SPAN_FACADE_WHATIF, query=req.query):
+            resp = whatif_mod.run_query(self.scheduler, self.store, req,
+                                        solve_lock=self._solve_lock)
         with self._lock:
             self._whatif_counts[req.query] = (
                 self._whatif_counts.get(req.query, 0) + 1)

@@ -255,7 +255,7 @@ def warm_executables(
     {label: {"seconds", "device_ms", ...} | "already-warm" | "skipped:
     ..." | "error: ..."} plus "_totals"; the ledger lands in
     state_payload() and each label's device time in devprof.record_cost."""
-    from karmada_tpu_torch import native
+    from karmada_tpu_torch import native, obs
     from karmada_tpu_torch.obs import devprof
     from karmada_tpu_torch.ops import kernels, tensors
 
@@ -263,61 +263,73 @@ def warm_executables(
     on_card = dev.type == "cuda"
     t_all = time.perf_counter()
     results: Dict[str, object] = {}
-    if on_card:
-        kernels.build()
-    native.build()
-    build_s = time.perf_counter() - t_all
+    shapes = tuple(shapes)
+    span = (obs.TRACER.start_span(obs.SPAN_WARMUP, shapes=list(shapes),
+                                  variants=list(variants))
+            if obs.TRACER.enabled else None)
     warmed = 0
-    cindex = tensors.ClusterIndex.build(list(clusters))
-    cache = tensors.EncoderCache()
-    with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
-        for n in shapes:
-            if cancelled is not None and cancelled.is_set():
-                break
-            # one explain-encoded batch serves every variant
-            cache.reset_for_cycle()
-            batch = tensors.encode_batch(synth_items(n), cindex, estimator,
-                                         cache=cache, explain=True)
-            for variant in variants:
-                label = _label(batch, variant, resident_cap, shortlist_k)
-                with _LOCK:
-                    prior = _STATE["warmup"].get(label)
-                if prior is not None and prior.get("state") == "done":
-                    # sizes that pad to one bucket warm it once
-                    results[label] = "already-warm"
-                    continue
-                if variant not in PORT_VARIANTS:
-                    why = f"skipped: {variant!r} has no counterpart in the port"
-                    _set_warm(label, "skipped")
-                    results[label] = why
-                    continue
+    build_s = 0.0
+    try:
+        if on_card:
+            kernels.build()
+        native.build()
+        build_s = time.perf_counter() - t_all
+        cindex = tensors.ClusterIndex.build(list(clusters))
+        cache = tensors.EncoderCache()
+        with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
+            for n in shapes:
                 if cancelled is not None and cancelled.is_set():
-                    _set_warm(label, "skipped")
-                    continue
-                _set_warm(label, "compiling")
-                t0 = time.perf_counter()
-                try:
-                    if on_card:
-                        ev0 = torch.cuda.Event(enable_timing=True)
-                        ev1 = torch.cuda.Event(enable_timing=True)
-                        ev0.record()
-                    info = _dispatch(batch, variant, waves=waves,
-                                     keep_sel=keep_sel,
-                                     shortlist_k=shortlist_k, dev=dev)
-                    cost = None
-                    if on_card:
-                        ev1.record()
-                        ev1.synchronize()
-                        cost = {"device_ms": ev0.elapsed_time(ev1)}
-                    dt = time.perf_counter() - t0
-                    _set_warm(label, "done", dt, cost=cost)
-                    devprof.record_cost(label, cost)
-                    results[label] = {"seconds": round(dt, 3),
-                                      **(cost or {}), **info}
-                    warmed += 1
-                except Exception as e:  # noqa: BLE001 — kept in the ledger
-                    _set_warm(label, f"error: {e!r:.200}")
-                    results[label] = f"error: {e!r:.200}"
+                    break
+                # one explain-encoded batch serves every variant
+                cache.reset_for_cycle()
+                batch = tensors.encode_batch(synth_items(n), cindex, estimator,
+                                             cache=cache, explain=True)
+                for variant in variants:
+                    label = _label(batch, variant, resident_cap, shortlist_k)
+                    with _LOCK:
+                        prior = _STATE["warmup"].get(label)
+                    if prior is not None and prior.get("state") == "done":
+                        # sizes that pad to one bucket warm it once
+                        results[label] = "already-warm"
+                        continue
+                    if variant not in PORT_VARIANTS:
+                        why = (f"skipped: {variant!r} has no counterpart "
+                               "in the port")
+                        _set_warm(label, "skipped")
+                        results[label] = why
+                        continue
+                    if cancelled is not None and cancelled.is_set():
+                        _set_warm(label, "skipped")
+                        continue
+                    _set_warm(label, "compiling")
+                    t0 = time.perf_counter()
+                    try:
+                        if on_card:
+                            ev0 = torch.cuda.Event(enable_timing=True)
+                            ev1 = torch.cuda.Event(enable_timing=True)
+                            ev0.record()
+                        info = _dispatch(batch, variant, waves=waves,
+                                         keep_sel=keep_sel,
+                                         shortlist_k=shortlist_k, dev=dev)
+                        cost = None
+                        if on_card:
+                            ev1.record()
+                            ev1.synchronize()
+                            cost = {"device_ms": ev0.elapsed_time(ev1)}
+                        dt = time.perf_counter() - t0
+                        _set_warm(label, "done", dt, cost=cost)
+                        devprof.record_cost(label, cost)
+                        results[label] = {"seconds": round(dt, 3),
+                                          **(cost or {}), **info}
+                        warmed += 1
+                    # the error is kept in the ledger
+                    except Exception as e:  # noqa: BLE001
+                        _set_warm(label, f"error: {e!r:.200}")
+                        results[label] = f"error: {e!r:.200}"
+    finally:
+        if span is not None:
+            span.end(warmed=warmed,
+                     seconds=round(time.perf_counter() - t_all, 3))
     hits, misses = counters()
     results["_totals"] = {"warmed": warmed,
                           "seconds": round(time.perf_counter() - t_all, 3),

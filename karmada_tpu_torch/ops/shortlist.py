@@ -45,6 +45,8 @@ import numpy as np
 import torch
 
 from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.obs import decisions as obs_decisions
+from karmada_tpu_torch.obs import events as ev
 from karmada_tpu_torch.ops import kernels
 from karmada_tpu_torch.ops import resident_gather as rg
 from karmada_tpu_torch.ops import tensors as T
@@ -324,10 +326,29 @@ def cycle_aggregates(batch, device=None) -> dict:
 
 
 def _fallback(reason: str, detail: str) -> Tuple[None, dict]:
-    """The counted dense-fallback path: a shortlisted chunk never changes
-    width silently."""
+    """The counted dense-fallback path (a count and a lifecycle-ledger
+    event): a shortlisted chunk never changes width silently."""
     FALLBACKS[reason] += 1
+    ev.emit(_LEDGER_REF, ev.TYPE_WARNING, ev.REASON_SHORTLIST_FALLBACK,
+            f"chunk fell back to the dense solve ({reason}): {detail}",
+            origin="shortlist")
     return None, {"fallback": reason, "detail": detail}
+
+
+#: the ledger timeline of the tier's fallbacks and truncations
+_LEDGER_REF = ev.ObjectRef(kind="Scheduler", namespace="", name="shortlist")
+
+
+def _row_names(part, rows, limit: int = 5) -> str:
+    """Name offending binding rows for fallback / truncation messages:
+    operators chase bindings by key, not by chunk-local row index."""
+    rows = list(rows)
+    if part is None:
+        return f"{len(rows)} row(s)"
+    names = [(obs_decisions.default_key(part[i][0])
+              if i < len(part) else f"row {i}") for i in rows[:limit]]
+    extra = f" (+{len(rows) - limit} more)" if len(rows) > limit else ""
+    return ", ".join(names) + extra
 
 
 def _profiles(batch):
@@ -466,7 +487,7 @@ def binding_candidates(batch, k: int, device=None):
 
 
 def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
-                 device=None):
+                 device=None, part=None):
     """Tier selection for one encoded chunk: (sub_batch, info).
 
     sub_batch is a SolverBatch over the chunk's candidate-union
@@ -477,14 +498,16 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
     With cfg.truncate and allow_truncate, rows whose eligible set exceeds
     k_max leave the chunk as info["residual"] (chunk-local row indices)
     for the pipeline's per-binding dense solve instead of dragging all B
-    rows dense."""
+    rows dense.  `part` (the chunk's (spec, status) items) names the
+    offending rows in the ledger's messages."""
     if cfg.min_cells > 0 and batch.B * batch.C < cfg.min_cells:
         return None, {"fallback": "below_threshold"}
     if batch.C <= cfg.k:
         return None, {"fallback": "below_threshold"}
     if batch.fused and batch.fused_src is None:
-        return _fallback("fused", "a fused batch without a fused_src "
-                         "handle keeps the dense path")
+        return _fallback("fused",
+                         "fused batch without a fused_src handle "
+                         "(explain/legacy assemble) keeps the dense path")
     device = resolve_device(device)
     # a fused batch's binding fields live on the card: tier 1 reads the
     # host slot-store masters instead (same values)
@@ -520,6 +543,13 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
                 drop[offenders] = True
                 residual = [int(i) for i in offenders]
                 COUNTS["fallback_rows_needed"] += len(residual)
+                ev.emit(_LEDGER_REF, ev.TYPE_NORMAL,
+                        ev.REASON_SHORTLIST_TRUNCATE,
+                        f"{len(residual)} binding(s) exceed "
+                        f"k_max={cfg.k_max} (worst {worst} lane(s)): "
+                        "routed to the per-binding dense residual: "
+                        + _row_names(part, residual),
+                        origin="shortlist")
                 active = valid & ~drop
                 worst = int(need[active].max()) if bool(active.any()) else 0
             else:
@@ -528,7 +558,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
                     int(active.sum()) - len(offenders))
                 return _fallback(
                     "uncovered", f"eligible set of {worst} lane(s) exceeds "
-                    f"k_max={cfg.k_max} for {len(offenders)} row(s)")
+                    f"k_max={cfg.k_max} for " + _row_names(part, offenders))
         if worst <= k:
             break
         k = min(max(k * 2, worst), k_cap)

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.controllers.failover import evict_cluster
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.models.cluster import Cluster
@@ -51,6 +52,7 @@ from karmada_tpu_torch.ops import rebalance_detect
 from karmada_tpu_torch.ops.tensors import fleet_capacity
 from karmada_tpu_torch.rebalance.pacing import EvictionBudget
 from karmada_tpu_torch.store.store import NotFoundError
+from karmada_tpu_torch.utils import events as ev
 
 PRODUCER = "rebalance"
 
@@ -131,35 +133,50 @@ class RebalancePlane:
     def run_cycle(self) -> dict:
         """detect -> drain -> audit; returns the cycle snapshot."""
         timing: Dict[str, float] = {}
-        t0 = time.perf_counter()
-        # read-only scans: the stored objects, not copies (a drain
-        # replaces a binding in the store; the audit reads the scan's)
-        clusters = self.store.visit(Cluster.KIND)
-        bindings = self.store.visit(ResourceBinding.KIND)
-        t1 = time.perf_counter()
-        names, committed, capacity, valid, by_cluster = self._assemble(
-            clusters, bindings)
-        t2 = time.perf_counter()
-        if names:
-            spread_tol = (self.cfg.spread_tolerance_milli
-                          if self.cfg.spread_tolerance_milli > 0
-                          else SPREAD_REPORT_ONLY)
-            drain_need, over_milli, div_milli = rebalance_detect.score(
-                committed, capacity, valid,
-                self.cfg.overcommit_threshold_milli, spread_tol,
-                device=self.device, timing=timing)
-        else:
-            drain_need = over_milli = div_milli = np.zeros(0, np.int64)
-        t3 = time.perf_counter()
-        evicted = self._drain(names, drain_need, by_cluster)
-        t4 = time.perf_counter()
-        violations = self._audit_conservation(bindings)
-        t5 = time.perf_counter()
-        timing.update(list_s=t1 - t0, assemble_s=t2 - t1, detect_s=t3 - t2,
-                      drain_s=t4 - t3, audit_s=t5 - t4)
-        self.last_timing = timing
-        return self._publish(names, committed, capacity, drain_need,
-                             over_milli, div_milli, evicted, violations)
+        with obs.TRACER.span(obs.SPAN_REBALANCE_CYCLE) as cspan:
+            t0 = time.perf_counter()
+            # read-only scans: the stored objects, not copies (a drain
+            # replaces a binding in the store; the audit reads the scan's)
+            clusters = self.store.visit(Cluster.KIND)
+            bindings = self.store.visit(ResourceBinding.KIND)
+            t1 = time.perf_counter()
+            with obs.TRACER.span(obs.SPAN_REBALANCE_DETECT,
+                                 clusters=len(clusters),
+                                 bindings=len(bindings)):
+                names, committed, capacity, valid, by_cluster = (
+                    self._assemble(clusters, bindings))
+                t2 = time.perf_counter()
+                if names:
+                    spread_tol = (self.cfg.spread_tolerance_milli
+                                  if self.cfg.spread_tolerance_milli > 0
+                                  else SPREAD_REPORT_ONLY)
+                    drain_need, over_milli, div_milli = (
+                        rebalance_detect.score(
+                            committed, capacity, valid,
+                            self.cfg.overcommit_threshold_milli, spread_tol,
+                            device=self.device, timing=timing))
+                else:
+                    drain_need = over_milli = div_milli = np.zeros(
+                        0, np.int64)
+            t3 = time.perf_counter()
+            with obs.TRACER.span(obs.SPAN_REBALANCE_DRAIN) as dspan:
+                evicted = self._drain(names, drain_need, by_cluster)
+                if dspan:
+                    dspan.set_attr(evicted=evicted)
+            t4 = time.perf_counter()
+            violations = self._audit_conservation(bindings)
+            t5 = time.perf_counter()
+            timing.update(list_s=t1 - t0, assemble_s=t2 - t1,
+                          detect_s=t3 - t2, drain_s=t4 - t3,
+                          audit_s=t5 - t4)
+            self.last_timing = timing
+            snapshot = self._publish(names, committed, capacity, drain_need,
+                                     over_milli, div_milli, evicted,
+                                     violations)
+            if cspan:
+                cspan.set_attr(evicted=evicted,
+                               converged=snapshot["converged"])
+        return snapshot
 
     # -- detect assembly -----------------------------------------------------
     def _assemble(self, clusters, bindings) -> Tuple:
@@ -236,6 +253,13 @@ class RebalancePlane:
                 if key in drained_keys:
                     continue
                 if not self.budget.try_acquire(cname, consumer=PRODUCER):
+                    # a lifecycle fact on the cluster's timeline: the
+                    # drain wanted to act and pacing said no
+                    ev.emit(ev.ObjectRef(kind="Cluster", name=cname),
+                            ev.TYPE_WARNING, ev.REASON_EVICTION_BUDGET_DENIED,
+                            "rebalance drain deferred: per-cluster eviction "
+                            "pacing budget exhausted for this window",
+                            origin=PRODUCER)
                     break  # this cluster's window is spent; next interval
                 if self._evict(key, cname, prio):
                     self.evictions_by_cluster[cname] = (
@@ -263,6 +287,10 @@ class RebalancePlane:
         except NotFoundError:
             return False
         if changed:
+            ev.emit_key(key, ev.TYPE_NORMAL, ev.REASON_REBALANCE_EVICTED,
+                        f"gracefully evicted from {cname} by the rebalance "
+                        "drain (re-placed with a priority push)",
+                        origin=PRODUCER)
             self.scheduler.promote(key, priority=priority, origin=PRODUCER)
         return bool(changed)
 

@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.estimator.general import GeneralEstimator
 from karmada_tpu_torch.models.work import ResourceBindingStatus
@@ -387,23 +388,29 @@ class ResidentState:
                 prev = changed.get(new.metadata.name)
                 if prev is None or _RANK[cls] > _RANK[prev]:
                     changed[new.metadata.name] = cls
-        if reason is not None:
-            self._reset(clusters, reason)
-        else:
-            self.clusters = clusters
-            self.cluster_rvs = [c.metadata.resource_version for c in clusters]
-            # the cycle's miss encodes, audits and big-tier sub-solves read
-            # THIS snapshot's objects (capacity lives on them)
-            self.cindex = tensors.ClusterIndex.build(clusters)
-            # placement-key pins hold the previous cycle's binding objects
-            self.enc_cache.placement_keys = {}
-            if changed:
-                self._apply(CycleDeltas(
-                    clusters=changed,
-                    binding_events=deltas.binding_events if deltas else 0))
-        if deltas is not None:
-            for key in deltas.bindings_deleted:
-                self.forget(f"{key[0]}/{key[1]}")
+        with obs.TRACER.span(obs.SPAN_RESIDENT_APPLY,
+                             clusters=len(clusters),
+                             structural=bool(reason),
+                             deltas=len(changed)):
+            if reason is not None:
+                self._reset(clusters, reason)
+            else:
+                self.clusters = clusters
+                self.cluster_rvs = [
+                    c.metadata.resource_version for c in clusters]
+                # the cycle's miss encodes, audits and big-tier sub-solves
+                # read THIS snapshot's objects (capacity lives on them)
+                self.cindex = tensors.ClusterIndex.build(clusters)
+                # placement-key pins hold the previous cycle's bindings
+                self.enc_cache.placement_keys = {}
+                if changed:
+                    self._apply(CycleDeltas(
+                        clusters=changed,
+                        binding_events=(deltas.binding_events
+                                        if deltas else 0)))
+            if deltas is not None:
+                for key in deltas.bindings_deleted:
+                    self.forget(f"{key[0]}/{key[1]}")
         self.plugins_gen = _PLUGINS.generation
 
     def _reset(self, clusters: List, reason: str) -> None:
@@ -610,24 +617,27 @@ class ResidentState:
                     hits += 1
                     continue
             miss_pos.append(i)
-        if miss_pos:
-            mini = tensors.encode_batch(
-                [items[i] for i in miss_pos], self.cindex, self.estimator,
-                cache=self.enc_cache)
-            self._merge(mini, miss_pos, tokens, slots)
-        batch = None
-        if self.fused:
-            if explain:
-                # the explain planes decode host-side per row
-                self.gather_fallbacks["explain"] = \
-                    self.gather_fallbacks.get("explain", 0) + 1
+        with obs.TRACER.span(obs.SPAN_RESIDENT_ENCODE, items=n,
+                             hits=hits, misses=len(miss_pos),
+                             fused=self.fused):
+            if miss_pos:
+                mini = tensors.encode_batch(
+                    [items[i] for i in miss_pos], self.cindex,
+                    self.estimator, cache=self.enc_cache)
+                self._merge(mini, miss_pos, tokens, slots)
+            batch = None
+            if self.fused:
+                if explain:
+                    # the explain planes decode host-side per row
+                    self.gather_fallbacks["explain"] = \
+                        self.gather_fallbacks.get("explain", 0) + 1
+                else:
+                    batch = self._assemble_fused(slots, n)
+            if batch is None:
+                batch = self._assemble(items, slots, n, explain)
+                self.host_cycles += 1
             else:
-                batch = self._assemble_fused(slots, n)
-        if batch is None:
-            batch = self._assemble(items, slots, n, explain)
-            self.host_cycles += 1
-        else:
-            self.fused_cycles += 1
+                self.fused_cycles += 1
         self.hits += hits
         self.misses += len(miss_pos)
         run_audit = (audit if audit is not None
@@ -1037,9 +1047,10 @@ class ResidentState:
         """Re-encode `items` from scratch and compare bit for bit with the
         resident batch.  On mismatch: count it, rebuild, and return the
         fresh batch (which the caller serves); on parity None."""
-        fresh = tensors.encode_batch(items, self.cindex, self.estimator,
-                                     explain=explain)
-        mismatches = compare_batches(batch, fresh)
+        with obs.TRACER.span(obs.SPAN_RESIDENT_AUDIT, items=len(items)):
+            fresh = tensors.encode_batch(items, self.cindex, self.estimator,
+                                         explain=explain)
+            mismatches = compare_batches(batch, fresh)
         outcome = "mismatch" if mismatches else "ok"
         if mismatches:
             self.audit_mismatches += 1

@@ -17,6 +17,7 @@ from __future__ import annotations
 import threading
 from typing import List, Optional, Sequence, Tuple
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.estimator.general import GeneralEstimator
 from karmada_tpu_torch.obs import decisions as obs_decisions
@@ -149,18 +150,22 @@ def schedule_items(
     cal = serial.make_cal_available(
         list(estimators) if estimators else [estimator])
     host_idx = [i for i in range(len(items)) if i not in res.results]
-    for i in host_idx:
-        if cancelled is not None and cancelled.is_set():
-            break
-        spec, status = items[i]
-        try:
-            out[i] = serial.schedule(
-                spec, status, list(clusters), cal,
-                enable_empty_workload_propagation=(
-                    enable_empty_workload_propagation))
-        # the binding's outcome object, as the scheduler records it
-        except Exception as e:  # noqa: BLE001
-            out[i] = e
+    # the host rows' span, as the JAX Scheduler opens it over the rows
+    # its device tier left
+    with (obs.TRACER.span(obs.SPAN_SERIAL, bindings=len(host_idx))
+          if host_idx else obs.NOOP_SPAN):
+        for i in host_idx:
+            if cancelled is not None and cancelled.is_set():
+                break
+            spec, status = items[i]
+            try:
+                out[i] = serial.schedule(
+                    spec, status, list(clusters), cal,
+                    enable_empty_workload_propagation=(
+                        enable_empty_workload_propagation))
+            # the binding's outcome object, as the scheduler records it
+            except Exception as e:  # noqa: BLE001
+                out[i] = e
     if cancelled is not None and cancelled.is_set():
         res.cancelled = True  # abandoned past the pipeline's last gate
     if explain is not None and not res.cancelled:

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from karmada_tpu_torch.obs import events as ev
 from karmada_tpu_torch.ops import dirty as dirty_mod
 from karmada_tpu_torch.ops import tensors as T
 from karmada_tpu_torch.resident.state import RowToken
@@ -310,6 +311,10 @@ class IncrementalSolver:
         if full_reason:
             self._rebuild_roster(bindings, keys)
             self.ledger.retire_lanes(state.last_cap_lanes)
+            ev.emit(ev.SCHEDULER_REF, ev.TYPE_NORMAL,
+                    ev.REASON_INCREMENTAL_FULL_SOLVE,
+                    f"incremental plane forced a full dense solve: "
+                    f"{full_reason}", origin="incremental")
             rep = self._full(full_reason, rep)
             self._pending.clear()
             rep.seconds = time.perf_counter() - t0
@@ -456,8 +461,18 @@ class IncrementalSolver:
                if (self.results.get(p) is None) != (res.results.get(p) is None)
                or (self.results.get(p) is not None
                    and _norm(self.results[p]) != _norm(res.results[p]))]
-        if not bad and _ledger_equal(self.ledger, res.carry):
+        ledger_ok = _ledger_equal(self.ledger, res.carry)
+        if not bad and ledger_ok:
             return "ok"
+        what = (f"{len(bad)} row(s) diverged"
+                + ("" if ledger_ok else " and the capacity ledger drifted"))
+        names = ", ".join(self.keys[p] for p in sorted(bad)[:5])
+        ev.emit(ev.SCHEDULER_REF, ev.TYPE_WARNING,
+                ev.REASON_INCREMENTAL_AUDIT_MISMATCH,
+                f"incremental solve diverged from the dense control: {what}"
+                + (f" ({names})" if names else "")
+                + "; adopting the control's results and ledger",
+                origin="incremental")
         self.results = dict(res.results)
         self._since_wb = set(self.results)
         self.ledger = res.carry

@@ -74,6 +74,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.obs import decisions as obs_decisions
 from karmada_tpu_torch.ops import shortlist as sl
@@ -316,6 +317,8 @@ class _InFlight:
     # vocabulary, blind to lanes outside the union)
     residual: List[int] = field(default_factory=list)
     resid_used0: Optional["tensors.CarryState"] = None
+    # the chunk's pipeline.chunk span (None when tracing is off)
+    span: object = None
 
 
 def _host(used) -> tuple:
@@ -395,6 +398,17 @@ def run_pipeline(
     def live() -> bool:
         return cancelled is None or not cancelled.is_set()
 
+    # flight recorder: one pipeline.cycle span (a child of the ambient
+    # scheduler.cycle span when the Scheduler drives the run); `traced`
+    # is the one guard every per-chunk site checks, so the disabled path
+    # makes no span.  Stage spans time what the host sees: the wait span
+    # is the host's synchronise, and no span adds one.
+    tracer = obs.TRACER
+    traced = tracer.enabled
+    cyc = (tracer.start_span(obs.SPAN_PIPELINE, items=n, chunk=chunk,
+                             waves=waves, carry=carry)
+           if traced else None)
+
     if shortlist is not None:
         res.shortlist = {"chunks": 0, "fallbacks": {}, "widened": 0,
                          "residual_rows": 0, "unions": [],
@@ -402,12 +416,25 @@ def run_pipeline(
 
     def finalize(entry: _InFlight) -> None:
         batch, part = entry.batch, entry.part
+        ch_span = entry.span
+
+        def stage(name):
+            # stage spans parent on the chunk's span, not the ambient
+            # context: chunks interleave (k+1 encodes before k finalizes)
+            return (tracer.start_span(name, parent=ch_span)
+                    if ch_span is not None else None)
+
         t_start = time.perf_counter()
+        w_span = stage(obs.SPAN_WAIT) if entry.handle is not None else None
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t_wait = time.perf_counter()
+        if w_span is not None:
+            w_span.end()
         res.wait_s += t_wait - t_start
         if not live():
+            if ch_span is not None:
+                ch_span.end(n_ok=0)
             return  # abandoned: nothing it computed may escape
         # spread-route explain rows land here via solve_spread's callback
         sp_expl: Dict[int, tuple] = {}
@@ -425,6 +452,7 @@ def run_pipeline(
                 entry.used0 is not None) and (groups or big_idx):
             used0 = _host(entry.used0)
         collect = used0 is not None
+        sp_span = stage(obs.SPAN_SPREAD) if groups else None
         for (axis, tier), idxs in groups.items():
             ret = spread.solve_spread(
                 batch, part, idxs, waves=waves,
@@ -436,8 +464,11 @@ def run_pipeline(
             if used is not None:
                 chain.extras.absorb(batch, used, used0)
             sub.update(out)
+        if sp_span is not None:
+            sp_span.end(groups=len(groups))
         t_spread = time.perf_counter()
         if big_idx:
+            big_span = stage(obs.SPAN_BIG)
             ret = solver.solve_big(
                 part, big_idx, cindex, estimator, cache, waves=waves,
                 enable_empty_workload_propagation=keep_sel,
@@ -447,6 +478,8 @@ def run_pipeline(
             if big_used is not None:
                 chain.extras.absorb(*big_used)
             sub.update(out)
+            if big_span is not None:
+                big_span.end(rows=len(big_idx))
         if entry.residual:
             # rows whose eligible set outgrew k_max, at full width against
             # the consumption of every chunk before this one (exact at
@@ -467,20 +500,28 @@ def run_pipeline(
         res.spread_s += t_spread - t_wait
         res.big_s += t_big - t_spread
         if not live():
+            if ch_span is not None:
+                ch_span.end(n_ok=0)
             return
         local: Dict[int, object] = {}
         expl_planes = None
         if entry.handle is not None:
+            d2h_span = stage(obs.SPAN_D2H)
             fin = solver.finalize_compact(entry.handle)
             idx, val, status = fin[:3]
             if armed:
                 expl_planes = fin[-1]  # (verdict, score, avail, outcome)
             t_read = time.perf_counter()
+            if d2h_span is not None:
+                d2h_span.end()
+            dec_span = stage(obs.SPAN_DECODE)
             decoded = tensors.decode_compact(
                 batch, idx, val, status,
                 enable_empty_workload_propagation=keep_sel,
                 items=part,
                 outcome=expl_planes[3] if expl_planes is not None else None)
+            if dec_span is not None:
+                dec_span.end()
             res.finalize_s += t_read - t_big
             res.decode_s += time.perf_counter() - t_read
             local = {i: decoded[i] for i in range(len(part))
@@ -492,84 +533,114 @@ def run_pipeline(
                               local, expl_planes, sp_expl)
             res.explain_s += time.perf_counter() - t_ex
         res.chunks += 1
+        n_ok = 0
         for i, r in local.items():
             res.results[entry.offset + i] = r
             if isinstance(r, Exception):
                 k = type(r).__name__
                 res.failures[k] = res.failures.get(k, 0) + 1
             else:
-                res.scheduled += 1
+                n_ok += 1
+        res.scheduled += n_ok
+        if ch_span is not None:
+            ch_span.end(n_ok=n_ok)
 
     pending: Optional[_InFlight] = None
-    for lo in range(0, n, chunk):
-        if not live():
-            break
-        part = items[lo:lo + chunk]
-        t0 = time.perf_counter()
-        batch = (encode(part, lo, armed) if encode is not None
-                 else tensors.encode_batch(part, cindex, estimator,
-                                           cache=cache, explain=armed))
-        t1 = time.perf_counter()
-        for r, k in zip(*np.unique(batch.route[:len(part)],
-                                   return_counts=True)):
-            res.routes[int(r)] = res.routes.get(int(r), 0) + int(k)
-        residual: List[int] = []
-        resid_used0 = None
-        if shortlist is not None:
-            # tier selection: a covered chunk swaps in its sub-vocabulary
-            # batch, which the dispatch/decode/carry below run unchanged;
-            # a fallback keeps the dense batch.  Truncation only at
-            # waves=1 (rows never see each other's consumption there)
-            # and without keep_sel (it needs the full selection plane).
-            sub_b, info = sl.shrink_chunk(
-                batch, shortlist, allow_truncate=(waves == 1 and not keep_sel),
-                device=device)
-            st = res.shortlist
-            if sub_b is not None:
-                batch = sub_b
-                residual = info["residual"]
-                st["chunks"] += 1
-                st["widened"] += info["widened"]
-                st["residual_rows"] += len(residual)
-                st["unions"].append(info["union"])
-                st["cells_solve"] += info["cells_solve"]
-                st["cells_dense"] += info["cells_dense"]
-                if residual and chain is not None:
-                    # the full-vocabulary carry-in, taken BEFORE this
-                    # chunk's dispatch: the chunks before it, exactly
-                    resid_used0 = chain.snapshot()
-            else:
-                why = info["fallback"]
-                st["fallbacks"][why] = st["fallbacks"].get(why, 0) + 1
-        t2 = time.perf_counter()
-        if not live():
-            break
-        handle = used0 = None
-        # with carry every chunk dispatches so the chain stays contiguous
-        # (an all-host batch consumes nothing); without it an all-host
-        # chunk skips the card.  The check reads the host `route`, never a
-        # fused batch's device b_valid
-        if chain is not None or bool(
-                np.any(np.asarray(batch.route) == tensors.ROUTE_DEVICE)):
-            used0 = chain.carry_in(batch) if chain is not None else None
-            handle = solver.dispatch_compact(
-                batch, waves=waves, keep_sel=keep_sel,
-                with_used=chain is not None, used0=used0, device=device,
-                explain=armed)
-            if chain is not None:
-                chain.dispatched(batch, handle)
-        res.encode_s += t1 - t0
-        res.shortlist_s += t2 - t1
-        res.dispatch_s += time.perf_counter() - t2
-        entry = _InFlight(offset=lo, part=part, batch=batch, handle=handle,
-                          used0=used0, residual=residual,
-                          resid_used0=resid_used0)
-        if pending is not None:
+    try:
+        for lo in range(0, n, chunk):
+            if not live():
+                break
+            part = items[lo:lo + chunk]
+            t0 = time.perf_counter()
+            ch_span = enc_span = None
+            if traced:
+                ch_span = tracer.start_span(obs.SPAN_CHUNK, parent=cyc,
+                                            index=lo // chunk, offset=lo,
+                                            n=len(part))
+                enc_span = tracer.start_span(obs.SPAN_ENCODE, parent=ch_span)
+            batch = (encode(part, lo, armed) if encode is not None
+                     else tensors.encode_batch(part, cindex, estimator,
+                                               cache=cache, explain=armed))
+            t1 = time.perf_counter()
+            for r, k in zip(*np.unique(batch.route[:len(part)],
+                                       return_counts=True)):
+                res.routes[int(r)] = res.routes.get(int(r), 0) + int(k)
+            residual: List[int] = []
+            resid_used0 = None
+            if shortlist is not None:
+                # tier selection: a covered chunk swaps in its
+                # sub-vocabulary batch, which the dispatch/decode/carry
+                # below run unchanged; a fallback keeps the dense batch.  Truncation only at
+                # waves=1 (rows never see each other's consumption there)
+                # and without keep_sel (it needs the full selection plane).
+                sub_b, info = sl.shrink_chunk(
+                    batch, shortlist,
+                    allow_truncate=(waves == 1 and not keep_sel),
+                    device=device, part=part)
+                st = res.shortlist
+                if sub_b is not None:
+                    batch = sub_b
+                    residual = info["residual"]
+                    st["chunks"] += 1
+                    st["widened"] += info["widened"]
+                    st["residual_rows"] += len(residual)
+                    st["unions"].append(info["union"])
+                    st["cells_solve"] += info["cells_solve"]
+                    st["cells_dense"] += info["cells_dense"]
+                    if residual and chain is not None:
+                        # the full-vocabulary carry-in, taken BEFORE this
+                        # chunk's dispatch: the chunks before it, exactly
+                        resid_used0 = chain.snapshot()
+                else:
+                    why = info["fallback"]
+                    st["fallbacks"][why] = st["fallbacks"].get(why, 0) + 1
+                if ch_span is not None:
+                    ch_span.set_attr(shortlist=(
+                        f"union={info['union']} k={info['k']}"
+                        if sub_b is not None
+                        else info.get("fallback", "off")))
+            t2 = time.perf_counter()
+            if enc_span is not None:
+                enc_span.end()
+            if not live():
+                break
+            handle = used0 = None
+            # with carry every chunk dispatches so the chain stays contiguous
+            # (an all-host batch consumes nothing); without it an all-host
+            # chunk skips the card.  The check reads the host `route`, never a
+            # fused batch's device b_valid
+            if chain is not None or bool(
+                    np.any(np.asarray(batch.route) == tensors.ROUTE_DEVICE)):
+                d_span = (tracer.start_span(obs.SPAN_DISPATCH, parent=ch_span)
+                          if ch_span is not None else None)
+                used0 = chain.carry_in(batch) if chain is not None else None
+                handle = solver.dispatch_compact(
+                    batch, waves=waves, keep_sel=keep_sel,
+                    with_used=chain is not None, used0=used0, device=device,
+                    explain=armed)
+                if d_span is not None:
+                    d_span.end()
+                if chain is not None:
+                    chain.dispatched(batch, handle)
+            res.encode_s += t1 - t0
+            res.shortlist_s += t2 - t1
+            res.dispatch_s += time.perf_counter() - t2
+            entry = _InFlight(offset=lo, part=part, batch=batch,
+                              handle=handle, used0=used0, residual=residual,
+                              resid_used0=resid_used0, span=ch_span)
+            if pending is not None:
+                finalize(pending)
+            pending = entry
+        if pending is not None and live():
             finalize(pending)
-        pending = entry
-    if pending is not None and live():
-        finalize(pending)
-    if chain is not None and collect_carry and live():
-        res.carry = chain.snapshot()
-    res.cancelled = not live()
+        if chain is not None and collect_carry and live():
+            res.carry = chain.snapshot()
+    finally:
+        res.cancelled = not live()
+        if cyc is not None:
+            # nested under a scheduler.cycle trace the root's end
+            # force-closes any still-open chunk / stage span; a root
+            # pipeline.cycle does the same itself
+            cyc.end(cancelled=res.cancelled, chunks=res.chunks,
+                    scheduled=res.scheduled)
     return res

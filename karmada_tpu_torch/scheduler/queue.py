@@ -18,9 +18,10 @@ Failure routing (the scheduler's handleErr): UnschedulableError ->
 unschedulable map; any other scheduling error (FitError included) ->
 backoffQ.  Success -> forget.  pop_ready drains a batch; the queue runs
 tick-driven on an injectable clock; an optional bounded-resident
-admission gate (`max_resident`) sheds by priority.  The JAX package's
-lifecycle events are left out and its admission metric is a plain
-counter here (`admission`).
+admission gate (`max_resident`) sheds by priority.  Every decision is
+counted in the JAX package's ADMISSION family
+(karmada_scheduler_admission_total{decision}); external pushes, sheds and
+displacements land on the lifecycle ledger (obs/events.py).
 """
 
 from __future__ import annotations
@@ -31,12 +32,16 @@ import time as _time
 from dataclasses import dataclass
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
+from karmada_tpu_torch.obs import events as obs_events
+from karmada_tpu_torch.scheduler import metrics as sched_metrics
+
 
 DEFAULT_INITIAL_BACKOFF_S = 1.0
 DEFAULT_MAX_BACKOFF_S = 10.0
 DEFAULT_MAX_IN_UNSCHEDULABLE_S = 300.0
 
-# admission decisions (SchedulingQueue.admission): every Push resolves to exactly one of ADMITTED / SHED, so
+# admission decisions (karmada_scheduler_admission_total{decision}):
+# every Push resolves to exactly one of ADMITTED / SHED, so
 # admitted + shed == total Push calls (the accounting-exactness
 # invariant the soak tests assert); DISPLACED counts evicted residents
 # (a separate axis: each displacement also admits the newcomer)
@@ -123,10 +128,6 @@ class SchedulingQueue:
         # (explain plane / classify_unschedulable taxonomy); dropped when
         # the key leaves the unschedulable map
         self._unsched_reason: Dict[Hashable, str] = {}
-        #: admission decisions (admitted + shed == push calls; displaced
-        #: counts evicted residents), in place of the JAX package's metric
-        self.admission: Dict[str, int] = {
-            ADMIT_ADMITTED: 0, ADMIT_SHED: 0, ADMIT_DISPLACED: 0}
 
     # -- internals -----------------------------------------------------------
     def _set_where(self, key: Hashable, state: Optional[str]) -> None:
@@ -247,10 +248,20 @@ class SchedulingQueue:
                 # per-priority shedding: a newcomer that does not outrank
                 # the weakest resident is the one shed (equal priority
                 # keeps the resident — no displacement thrash)
-                self.admission[ADMIT_SHED] += 1
+                sched_metrics.ADMISSION.inc(decision=ADMIT_SHED)
+                obs_events.emit_key(
+                    key, obs_events.TYPE_WARNING,
+                    obs_events.REASON_BINDING_SHED,
+                    f"admission gate full ({self.max_resident} resident): "
+                    "shed without a queue slot", origin=origin)
                 return ADMIT_SHED
             self.forget(victim)
-            self.admission[ADMIT_DISPLACED] += 1
+            sched_metrics.ADMISSION.inc(decision=ADMIT_DISPLACED)
+            obs_events.emit_key(
+                victim, obs_events.TYPE_WARNING,
+                obs_events.REASON_BINDING_DISPLACED,
+                "displaced from the admission gate by a higher-priority "
+                "arrival", origin=origin)
         info = QueuedBindingInfo(
             key=key, priority=priority, timestamp=self.now(),
             attempts=prev.attempts if prev else 0,
@@ -259,7 +270,15 @@ class SchedulingQueue:
             ),
         )
         self._move_to_active(info, origin=origin)
-        self.admission[ADMIT_ADMITTED] += 1
+        sched_metrics.ADMISSION.inc(decision=ADMIT_ADMITTED)
+        if not gate_exempt:
+            # every EXTERNAL push lands one (coalescing) timeline entry;
+            # the scheduler's own result-patch echoes stay silent
+            obs_events.emit_key(
+                key, obs_events.TYPE_NORMAL,
+                obs_events.REASON_BINDING_ENQUEUED,
+                f"enqueued to the active queue (origin={origin})",
+                origin=origin)
         return ADMIT_ADMITTED
 
     def push_unschedulable_if_not_present(self, info: QueuedBindingInfo,
@@ -313,6 +332,10 @@ class SchedulingQueue:
             self._set_where(key, None)
             if info.initial_attempt_timestamp is None:
                 info.initial_attempt_timestamp = now
+            # dwell since the entry's current residence, by the queue it
+            # came from
+            sched_metrics.QUEUE_DWELL.observe(
+                max(0.0, now - info.timestamp), queue=info.origin)
             out.append(info)
         return out
 

@@ -50,9 +50,10 @@ The serve paths of the JAX Scheduler, with its semantics:
     buffers are made per cycle, and the re-armed resident plane is a new
     one, whose new mirror set gets its own K11 plan and pinned ring
     (ops/resident_gather.py keys the plan by the mirrors' identity).
-    The port has no metrics, events or incidents plane yet: each degrade
-    and re-arm is counted (`backend_transitions()`) and printed to stderr
-    in the JAX package's words;
+    Each degrade and re-arm is counted (`backend_transitions()` and the
+    JAX package's BACKEND_DEGRADED / BACKEND_REARMED families), lands on
+    the lifecycle ledger and is printed to stderr in the JAX package's
+    words;
   * explain sampling (`explain`: the rate of cycles recorded into the
     Scheduler's own DecisionRecorder, `decisions`);
   * batch formation (`batch_deadline_s`: a cycle cuts when batch_window
@@ -74,9 +75,16 @@ The serve paths of the JAX Scheduler, with its semantics:
     whole list, and "native" leaves every row to the serial path when
     any estimator is not a plain GeneralEstimator.
 
-The JAX package's chaos seams, mesh, flight records, metrics, spans and
-event recorder are not part of the port.  The device probe and its serve
-policy live in utils/deviceprobe.py.
+The flight recorder, the scheduler's metrics and the lifecycle ledger
+are wired as in the JAX package: one `scheduler.cycle` span a non-empty
+cycle (its `bindings`, `backend`, `cycle_fault` and the stride-sampled
+`e2e_samples` / `dwell_samples` the loadgen report reads), the pipeline's
+stage spans under it, a `scheduler.serial` span over the host rows, the
+scheduler/metrics families and the ledger's batch, overload, fault,
+degrade, re-arm and outcome events.  The tracer is off by default and no
+span synchronises the device.  The JAX package's chaos seams, mesh,
+incident plane and telemetry ring are not part of the port.  The device
+probe and its serve policy live in utils/deviceprobe.py.
 """
 
 from __future__ import annotations
@@ -93,6 +101,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from karmada_tpu_torch import native as native_mod
+from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.estimator.general import GeneralEstimator
 from karmada_tpu_torch.models.cluster import Cluster
@@ -105,9 +114,11 @@ from karmada_tpu_torch.models.work import (
     TargetCluster,
 )
 from karmada_tpu_torch.obs import decisions as obs_decisions
+from karmada_tpu_torch.obs import events as ev
 from karmada_tpu_torch.obs.decisions import classify_unschedulable
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.ops.shortlist import ShortlistConfig
+from karmada_tpu_torch.scheduler import metrics as sched_metrics
 from karmada_tpu_torch.scheduler.core import schedule_items
 from karmada_tpu_torch.scheduler.pipeline import PipelineResult
 from karmada_tpu_torch.scheduler.queue import QueuedBindingInfo, SchedulingQueue
@@ -123,6 +134,18 @@ _CYCLE = "__cycle__"
 
 #: the ended abandoned cycles abandoned_cycles() keeps, newest last
 ABANDONED_KEEP = 16
+
+# cap on the per-binding samples a cycle span carries (loadgen SLO
+# reporting): a 4096-binding cycle records every ~8th value instead of
+# an unbounded list; the stride rides along so aggregators can weight
+_SPAN_SAMPLE_CAP = 512
+
+
+def _span_samples(values: List[float]) -> Tuple[List[float], int]:
+    """Deterministic stride subsample of per-binding measurements for a
+    cycle span record (bounded, reproducible -- no RNG on the hot path)."""
+    stride = max(1, -(-len(values) // _SPAN_SAMPLE_CAP))
+    return [round(v, 6) for v in values[::stride]], stride
 
 
 class _HeldDecisions:
@@ -222,6 +245,8 @@ class Scheduler:
         # GeneralEstimator alone); the device rows price with the
         # GeneralEstimator among them, as in the JAX Scheduler
         estimators: Optional[Sequence] = None,
+        # the outcome events' recorder (None: the process ledger)
+        recorder: Optional[ev.EventRecorder] = None,
     ) -> None:
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
@@ -245,6 +270,8 @@ class Scheduler:
                             self.queue.push(key, _priority_of(rb))
                 self.worker.enqueue(_CYCLE)
             elector.on_started_leading = rebuild
+        self.recorder = (recorder if recorder is not None
+                         else ev.EventRecorder())
         self.store = store
         self.backend = backend
         self.device_cycle_timeout_s = device_cycle_timeout_s
@@ -392,6 +419,7 @@ class Scheduler:
                 key = (rb.namespace, rb.name)
                 self.queue.push(key, _priority_of(rb),
                                 gate_exempt=key in self._inflight_keys)
+            sched_metrics.QUEUE_INCOMING.inc(event="BindingUpdate")
             self.worker.enqueue(_CYCLE)
         elif kind == Cluster.KIND:
             # capacity/feasibility changed: unschedulable entries become
@@ -407,6 +435,8 @@ class Scheduler:
                         continue
                     if not rb.spec.clusters or self._needs_schedule(rb):
                         self.queue.push(key, _priority_of(rb))
+                        sched_metrics.QUEUE_INCOMING.inc(
+                            event="ClusterEvent")
                 enqueued = self.queue.depths()["active"] > 0
             self.cluster_event_s += time.perf_counter() - t0
             self.cluster_events += 1
@@ -423,6 +453,11 @@ class Scheduler:
             moved = self.queue.flush_backoff()
             moved += self.queue.flush_unschedulable_leftover()
             ready = self.queue.depths()["active"]
+            oldest = self.queue.oldest_ages()
+        # the oldest-resident gauges refresh on every tick, not only when
+        # a cycle runs: a wedged queue shows when cycles stop happening
+        for qname, age in oldest.items():
+            sched_metrics.QUEUE_OLDEST_AGE.set(age, queue=qname)
         if moved or ready:
             self.worker.enqueue(_CYCLE)
 
@@ -493,9 +528,21 @@ class Scheduler:
             if dwells_sorted and \
                     p95 > self.batch_deadline_s * self.overload_enter_factor:
                 self._overload = True
+                ev.emit(ev.SCHEDULER_REF, ev.TYPE_WARNING,
+                        ev.REASON_OVERLOAD_ENTERED,
+                        "overload mode entered: p95 batch dwell exceeded "
+                        f"{self.overload_enter_factor:g}x the batch "
+                        "deadline (explain sampling suppressed, deadline "
+                        "widened)", origin="scheduler",
+                        cycle_id=self._cycle_id)
         elif popped > 0 and (popped < self.batch_window or active_after == 0
                              or p95 <= self.batch_deadline_s):
             self._overload = False
+            ev.emit(ev.SCHEDULER_REF, ev.TYPE_NORMAL,
+                    ev.REASON_OVERLOAD_EXITED,
+                    "overload mode exited: batch dwell back under the "
+                    "deadline", origin="scheduler", cycle_id=self._cycle_id)
+        sched_metrics.OVERLOAD_MODE.set(1.0 if self._overload else 0.0)
 
     # -- the batched cycle --------------------------------------------------
     def _cycle(self, _key) -> None:
@@ -522,14 +569,27 @@ class Scheduler:
             info.attempts += 1
             todo.append((info, rb))
         # the dwell of the bindings this cycle schedules: the overload
-        # detector's input (skipped without a deadline)
+        # detector's input and the cycle span's dwell samples (skipped
+        # when both are disarmed: no deadline, tracing off)
         dwells = (sorted(max(0.0, pop_now - info.timestamp)
                          for info, _ in todo)
-                  if self.batch_deadline_s is not None else [])
+                  if self.batch_deadline_s is not None or obs.TRACER.enabled
+                  else [])
         self._update_overload(dwells, popped=len(infos),
                               active_after=active_after)
         if todo:
+            sched_metrics.BATCH_SIZE.observe(len(todo))
             self._cycle_id += 1
+            cut_reason = ("window" if len(infos) >= self.batch_window else
+                          "deadline" if self.batch_deadline_s is not None
+                          else "drain")
+            # the three stable cut shapes coalesce on the scheduler's
+            # timeline; mode flips stay visible
+            ev.emit(ev.SCHEDULER_REF, ev.TYPE_NORMAL, ev.REASON_BATCH_FORMED,
+                    {"window": "batch cut at the batch window",
+                     "deadline": "batch cut at the formation deadline",
+                     "drain": "batch drained immediately"}[cut_reason],
+                    origin="scheduler", cycle_id=self._cycle_id)
             # the cooldown counts real cycles, not _solve calls (the
             # affinity rounds of one cycle would expire it early)
             self._maybe_rearm_device()
@@ -539,41 +599,92 @@ class Scheduler:
             self._cycle_stats = PipelineResult()
             self._host_stats = dict.fromkeys(_HOST_STAGES, 0.0)
             self._cycle_fault = None
-            outcomes: List[object] = []
-            try:
-                outcomes = self.schedule_batch([rb for _, rb in todo],
-                                               clusters)
-            except Exception as e:  # noqa: BLE001 — cycle fault containment
-                # the popped bindings must not be lost: every one goes to
-                # backoff, and the fault is counted
-                kind = type(e).__name__
-                self.cycle_faults[kind] = self.cycle_faults.get(kind, 0) + 1
-                self._cycle_fault = kind
-                traceback.print_exc()
+            # one scheduler.cycle span a batched cycle (child of the
+            # worker's reconcile span); the pipeline, the serial rows and
+            # the estimator RPCs nest under it
+            with obs.TRACER.span(obs.SPAN_CYCLE, bindings=len(todo),
+                                 backend=self.backend) as cspan:
+                outcomes: List[object] = []
+                try:
+                    outcomes = self.schedule_batch([rb for _, rb in todo],
+                                                   clusters)
+                except Exception as e:  # noqa: BLE001 — fault containment
+                    # the popped bindings must not be lost: every one goes
+                    # to backoff, and the fault is counted
+                    kind = type(e).__name__
+                    self.cycle_faults[kind] = (
+                        self.cycle_faults.get(kind, 0) + 1)
+                    self._cycle_fault = kind
+                    sched_metrics.CYCLE_FAULTS.inc(kind=kind)
+                    ev.emit(ev.SCHEDULER_REF, ev.TYPE_WARNING,
+                            ev.REASON_CYCLE_FAULT,
+                            f"cycle fault contained ({kind}); "
+                            "popped bindings routed to backoff",
+                            origin="scheduler", cycle_id=self._cycle_id)
+                    traceback.print_exc()
+                    if cspan:
+                        cspan.set_attr(cycle_fault=kind)
+                    with self._queue_lock:
+                        for info, _ in todo:
+                            self.queue.push_backoff_if_not_present(info)
+                    todo = []
+                finally:
+                    with self._queue_lock:
+                        self._inflight_keys = set()
+                # handleErr routing: UnschedulableError waits for a cluster
+                # event; other failures back off and retry; success is done
                 with self._queue_lock:
-                    for info, _ in todo:
-                        self.queue.push_backoff_if_not_present(info)
-                todo = []
-            finally:
-                with self._queue_lock:
-                    self._inflight_keys = set()
-            # handleErr routing: UnschedulableError waits for a cluster
-            # event; other failures back off and retry; success is done
-            with self._queue_lock:
+                    for (info, _), res in zip(todo, outcomes):
+                        if isinstance(res, serial.UnschedulableError):
+                            reason = classify_unschedulable(res)
+                            self.queue.push_unschedulable_if_not_present(
+                                info, reason=reason)
+                            sched_metrics.UNSCHEDULABLE.inc(reason=reason)
+                        elif isinstance(res, Exception):
+                            self.queue.push_backoff_if_not_present(info)
+                cycle_elapsed = time.perf_counter() - t0
+                now = self.queue.now()
+                e2es: List[float] = []
                 for (info, _), res in zip(todo, outcomes):
                     if isinstance(res, serial.UnschedulableError):
-                        self.queue.push_unschedulable_if_not_present(
-                            info, reason=classify_unschedulable(res))
+                        result = sched_metrics.RESULT_UNSCHEDULABLE
                     elif isinstance(res, Exception):
-                        self.queue.push_backoff_if_not_present(info)
+                        result = sched_metrics.RESULT_ERROR
+                    else:
+                        result = sched_metrics.RESULT_SCHEDULED
+                    sched_metrics.SCHEDULE_ATTEMPTS.inc(
+                        result=result,
+                        schedule_type=sched_metrics.SCHEDULE_TYPE_RECONCILE)
+                    # from the binding's first attempt (queue clock) to
+                    # this outcome, floored at the cycle's own cost
+                    e2e = max(now - (info.initial_attempt_timestamp or now),
+                              cycle_elapsed)
+                    e2es.append(e2e)
+                    sched_metrics.E2E_LATENCY.observe(
+                        e2e, result=result,
+                        schedule_type=sched_metrics.SCHEDULE_TYPE_RECONCILE)
+                if cspan:
+                    # bounded per-binding samples: the loadgen report's
+                    # latency and dwell percentiles come from these
+                    ds, d_stride = _span_samples(dwells)
+                    es, e_stride = _span_samples(e2es)
+                    cspan.set_attr(
+                        dwell_samples=ds, dwell_stride=d_stride,
+                        e2e_samples=es, e2e_stride=e_stride,
+                        overload=self._overload)
             self._log_cycle(len(infos), outcomes, time.perf_counter() - t0)
         with self._queue_lock:
+            depths = self.queue.depths()
+            oldest = self.queue.oldest_ages()
             # with a deadline an immature trickle waits for the cut timer,
             # not a hot loop of the worker
             more = self._batch_ready_locked()
-            depth = self.queue.depths()["active"]
-            if not more and self.batch_deadline_s is not None and depth:
-                self._arm_cut_timer_locked(self.queue.oldest_active_age())
+            if (not more and self.batch_deadline_s is not None
+                    and depths["active"]):
+                self._arm_cut_timer_locked(oldest["active"])
+        for qname, depth in depths.items():
+            sched_metrics.QUEUE_DEPTH.set(depth, queue=qname)
+            sched_metrics.QUEUE_OLDEST_AGE.set(oldest[qname], queue=qname)
         if more:
             self.worker.enqueue(_CYCLE)
 
@@ -609,22 +720,23 @@ class Scheduler:
         with self._queue_lock:
             decision = self.queue.push(key, priority, origin=origin)
         self.priority_pushes[origin] = self.priority_pushes.get(origin, 0) + 1
+        sched_metrics.PRIORITY_PUSHES.inc(origin=origin)
         self.worker.enqueue(_CYCLE)
         return decision
 
     def queue_state(self) -> Dict[str, object]:
         """One consistent snapshot of the queue: depths, oldest-resident
-        ages, unschedulable reasons, admission counts."""
+        ages, unschedulable reasons, the batch-formation and admission
+        config and the overload flag (the loadgen report's and live
+        state's)."""
         with self._queue_lock:
             depths = self.queue.depths()
             oldest = self.queue.oldest_ages()
             reasons = self.queue.unschedulable_reasons()
-            admission = dict(self.queue.admission)
         return {
             "depths": depths,
             "oldest_age_s": {k: round(v, 6) for k, v in oldest.items()},
             "unschedulable_reasons": reasons,
-            "admission": admission,
             "overload": self._overload,
             "empty_cuts": self._empty_cuts,
             "batch_window": self.batch_window,
@@ -845,18 +957,23 @@ class Scheduler:
         # the cycle's decisions reach the recorder only once it ended in
         # time: a zombie past its last gate records into `held` alone
         held = _HeldDecisions() if explain is not None else None
+        # thread handoff: the daemon thread adopts this thread's span, so
+        # the pipeline's spans parent into the cycle trace
+        tracer = obs.TRACER
+        trace_parent = tracer.current() if tracer.enabled else None
 
         def run() -> None:
             try:
-                if dev is not None and dev.type == "cuda":
-                    with torch.cuda.device(dev):
+                with tracer.attach(trace_parent):
+                    if dev is not None and dev.type == "cuda":
+                        with torch.cuda.device(dev):
+                            box["res"] = self._solve_device(
+                                items, clusters, keys=keys, explain=held,
+                                tokens=tokens, cancelled=cancelled)
+                    else:
                         box["res"] = self._solve_device(
                             items, clusters, keys=keys, explain=held,
                             tokens=tokens, cancelled=cancelled)
-                else:
-                    box["res"] = self._solve_device(
-                        items, clusters, keys=keys, explain=held,
-                        tokens=tokens, cancelled=cancelled)
             except Exception as e:  # noqa: BLE001 — re-raised by the caller
                 box["err"] = e
 
@@ -866,6 +983,12 @@ class Scheduler:
         t.join(self.device_cycle_timeout_s)
         if t.is_alive():
             cancelled.set()  # the zombie stops touching shared state
+            if trace_parent is not None:
+                # the abandoned cycle's trace is the guard's evidence: the
+                # root's end force-closes the zombie's dangling stage spans
+                trace_parent.set_attr(
+                    cancelled=True, device_cycle_abandoned=True,
+                    timeout_s=self.device_cycle_timeout_s)
             with self._zombie_lock:
                 self._zombies.append({"cycle_id": self._cycle_id,
                                       "thread": t, "box": box})
@@ -895,6 +1018,11 @@ class Scheduler:
         if self._resident is not None:
             self._detach_resident()
         self._transitions[f"degraded_to_{self.backend}"] += 1
+        sched_metrics.BACKEND_DEGRADED.inc(to=self.backend)
+        ev.emit(ev.SCHEDULER_REF, ev.TYPE_WARNING, ev.REASON_BACKEND_DEGRADED,
+                f"device backend degraded to {self.backend} after a hung "
+                "cycle (mid-serve death guard)", origin="scheduler",
+                cycle_id=self._cycle_id)
         recover = self.device_recover_cycles
         fate = ("permanently" if not recover else
                 f"for ~{recover * (2 ** (self._degrade_streak - 1))} "
@@ -928,6 +1056,11 @@ class Scheduler:
         if self._resident_cfg[0] and self._resident is None:
             self._arm_resident()
         self._transitions["rearmed"] += 1
+        sched_metrics.BACKEND_REARMED.inc(backend="device")
+        ev.emit(ev.SCHEDULER_REF, ev.TYPE_NORMAL, ev.REASON_BACKEND_REARMED,
+                "device backend re-armed after its degrade cooldown "
+                "(half-open re-probe)", origin="scheduler",
+                cycle_id=self._cycle_id)
         print(
             "scheduler re-arming the device backend after its degrade "
             f"cooldown ({need} cycle(s)); the mid-serve guard stays armed",
@@ -945,15 +1078,20 @@ class Scheduler:
         t0 = time.perf_counter()
         cal = serial.make_cal_available(self.estimators)
         serial_idx = [i for i in range(len(items)) if i not in done]
-        for i in serial_idx:
-            spec, status = items[i]
-            try:
-                out[i] = serial.schedule(
-                    spec, status, clusters, cal,
-                    enable_empty_workload_propagation=(
-                        self.enable_empty_workload_propagation))
-            except Exception as e:  # noqa: BLE001 — the binding's outcome
-                out[i] = e
+        if serial_idx:
+            with obs.TRACER.span(obs.SPAN_SERIAL, bindings=len(serial_idx)):
+                for i in serial_idx:
+                    spec, status = items[i]
+                    try:
+                        out[i] = serial.schedule(
+                            spec, status, clusters, cal,
+                            enable_empty_workload_propagation=(
+                                self.enable_empty_workload_propagation))
+                    except Exception as e:  # noqa: BLE001 — its outcome
+                        out[i] = e
+            sched_metrics.STEP_LATENCY.observe(
+                time.perf_counter() - t0,
+                schedule_step=sched_metrics.STEP_SERIAL)
         if explain is not None:
             # the serial rows record outcome-level decisions, as the JAX
             # Scheduler's serial section does
@@ -994,8 +1132,12 @@ class Scheduler:
                 self._native_snap = (clusters, snap)
         nb = native_mod.marshal_batch(items, snap)
         t1 = time.perf_counter()
+        sched_metrics.STEP_LATENCY.observe(
+            t1 - t0, schedule_step=sched_metrics.STEP_ENCODE)
         results = native_mod.run_marshaled(nb, snap)
         t2 = time.perf_counter()
+        sched_metrics.STEP_LATENCY.observe(
+            t2 - t1, schedule_step=sched_metrics.STEP_SOLVE)
         handled: List[int] = []
         for i, (st, targets) in enumerate(results):
             if st == native_mod.STATUS_OK:
@@ -1037,6 +1179,14 @@ class Scheduler:
 
             self.store.mutate(ResourceBinding.KIND, rb.namespace, rb.name,
                               mark_failed)
+            # the timeline's unschedulable entry carries the dominant
+            # reason from the explain classifier
+            dom = (classify_unschedulable(res)
+                   if isinstance(res, serial.UnschedulableError) else None)
+            self.recorder.event(
+                rb, ev.TYPE_WARNING, ev.REASON_SCHEDULE_BINDING_FAILED,
+                (f"{res} (dominant reason: {dom})" if dom else str(res)),
+                origin="scheduler", cycle_id=self._cycle_id)
             return res
         # success: patch spec.clusters, then record the STORED generation
         # in status -- two steps, as the reference does
@@ -1066,6 +1216,12 @@ class Scheduler:
 
         self.store.mutate(ResourceBinding.KIND, rb.namespace, rb.name,
                           patch_status)
+        where = ", ".join(f"{t.name}({t.replicas})" for t in targets)
+        self.recorder.event(
+            rb, ev.TYPE_NORMAL, ev.REASON_SCHEDULE_BINDING_SUCCEED,
+            "Binding has been scheduled successfully"
+            + (f" to {where}." if where else "."),
+            origin="scheduler", cycle_id=self._cycle_id)
         return res
 
     def faults(self) -> Dict[str, int]:

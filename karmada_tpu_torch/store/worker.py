@@ -15,6 +15,10 @@ is counted: `AsyncWorker.reconcile_errors` per worker and
 `Runtime.reconcile_errors()` over all of them (a kernel failure inside a
 reconcile shows there, never only as a requeue).
 
+With the flight recorder armed (obs.TRACER), every reconcile runs inside
+a "reconcile.<worker>" span carrying its key and queue dwell: the root
+the scheduler's cycle span and every controller's spans parent into.
+
 `Runtime(controllers=)` is the reference's `--controllers=` list
 (controllermanager.go enablement filtering), as in the JAX package: a
 disabled controller still constructs (its worker registers but never
@@ -38,6 +42,8 @@ import zlib
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Optional
 
+from karmada_tpu_torch import obs
+
 
 class AsyncWorker:
     """Dedup-ing work queue: enqueueing an in-queue key is a no-op; a key
@@ -53,6 +59,9 @@ class AsyncWorker:
         self._retries: Dict[Hashable, int] = {}
         self._processing: set = set()
         self._dirty: set = set()
+        # first-enqueue timestamps for the reconcile span's queue dwell;
+        # only filled while tracing is on
+        self._enqueued_at: Dict[Hashable, float] = {}
         self._cv = threading.Condition()
         self._stopped = False
         #: reconciles that raised (contained and requeued)
@@ -63,18 +72,22 @@ class AsyncWorker:
             if key in self._processing:
                 self._dirty.add(key)
                 return
+            if obs.TRACER.enabled and key not in self._queue:
+                self._enqueued_at[key] = time.perf_counter()
             self._queue[key] = None
             self._cv.notify()
 
-    def _pop(self, block: bool) -> Optional[Hashable]:
+    def _pop(self, block: bool):
+        """(key, first-enqueue time): the time is None when tracing was
+        off at enqueue (or the key was requeued internally)."""
         with self._cv:
             while not self._queue:
                 if not block or self._stopped:
-                    return None
+                    return None, None
                 self._cv.wait(timeout=0.2)
             key, _ = self._queue.popitem(last=False)
             self._processing.add(key)
-            return key
+            return key, self._enqueued_at.pop(key, None)
 
     def _done(self, key: Hashable, requeue: bool) -> None:
         with self._cv:
@@ -97,12 +110,24 @@ class AsyncWorker:
         """Run one reconcile; returns False when the queue was empty.  A
         reconcile that raises (or returns False) is requeued with a retry
         budget."""
-        key = self._pop(block)
+        key, enq_t = self._pop(block)
         if key is None:
             return False
         requeue = False
+        tracer = obs.TRACER
         try:
-            requeue = self.reconcile(key) is False
+            if tracer.enabled:
+                span = tracer.start_span(
+                    obs.SPAN_RECONCILE_PREFIX + self.name,
+                    key=repr(key)[:120])
+                if enq_t is not None:
+                    span.set_attr(queue_dwell_s=round(
+                        time.perf_counter() - enq_t, 6))
+                with span:
+                    result = self.reconcile(key)
+            else:
+                result = self.reconcile(key)
+            requeue = result is False
         except Exception:  # noqa: BLE001 — controller loops never die
             self.reconcile_errors += 1
             traceback.print_exc()

@@ -11,23 +11,26 @@ writing the store, select with diagnosis, the three what-if queries, a
 what-if soak leaving placements bit-identical to a run without the
 queries, and the breaker -- driven by a transport that raises, in place
 of the chaos seam.  The JAX tests build their plane with
-loadgen.ServeSlice, which the port has not taken: both sides here build
-it from one recipe (`slice_plane`: a store, a runtime, a Scheduler and
-the six 64-CPU clusters of loadgen.driver.build_cluster, in each
-package's models; `build_binding` likewise).  The planes run backends
+loadgen.ServeSlice over the steady scenario; both sides here do the same,
+each with its own package's ServeSlice (`Slice`: a store, a runtime, a
+Scheduler and the six 64-CPU clusters of loadgen.driver.build_cluster;
+`build_binding` is that recipe in each package's models).  The planes
+run backends
 "serial", "native" and "device" (the port's with device="cpu", the JAX
 package's on its CPU backend).  Also here: what-if on the resident plane
 (ResidentState.fork_clusters) answers as the store path does.
 
 Left for later, with the planes they need: the chaos cases (the chaos
-plane), the /debug/facade and /whatif endpoints (the query plane) and
-the CLI verbs (the port CLI).
+plane) and the /debug/facade and /whatif endpoints (the debug server).
+The CLI's `estimate` is held against a port FacadeService in
+tests/test_torch_cli.py.
 
 Every FacadeService and client pool made here is closed; no JAX
 process-wide plane (the decision recorder, the events ledger, the
 facade registry) is left armed.
 """
 
+import dataclasses
 import importlib
 import socket
 import struct
@@ -45,7 +48,7 @@ def facade_pkg(name):
     M = S.models_of(name)
     for mod in ("estimator.wire", "estimator.client", "facade",
                 "facade.whatif", "facade.messages", "store.store",
-                "store.worker", "scheduler"):
+                "store.worker", "scheduler", "loadgen"):
         setattr(M, mod.replace(".", "_"), importlib.import_module(
             f"{name}.{mod}"))
     M.name = name
@@ -102,19 +105,21 @@ def build_binding(M, name, replicas=1, divided=False, cpu=None,
     return rb
 
 
-class Slice:
-    """The scheduler-owning slice loadgen.ServeSlice builds: a store, a
-    runtime, a Scheduler and `n` clusters lg-m0.. of 64 CPU each."""
-
-    def __init__(self, M, backend, n=6, **kw):
-        self.store = M.store_store.ObjectStore()
-        self.runtime = M.store_worker.Runtime()
-        if M is FP and backend == "device":
-            kw["device"] = "cpu"
-        self.scheduler = M.scheduler.Scheduler(
-            self.store, self.runtime, backend=backend, **kw)
-        for i in range(n):
-            self.store.create(build_cluster(M, f"lg-m{i}"))
+def Slice(M, backend, n=6, **kw):
+    """Each package's loadgen.ServeSlice over the steady scenario (as the
+    JAX tests build it), with `n` clusters lg-m0.. of 64 CPU each; the
+    port's device backend runs with device="cpu"."""
+    L = M.loadgen
+    scenario = L.get_scenario("steady")
+    if n != scenario.n_clusters:
+        scenario = dataclasses.replace(scenario, n_clusters=n)
+    if M is FP and backend == "device":
+        kw["device"] = "cpu"
+    clock = L.VirtualClock()
+    plane = L.ServeSlice(scenario, clock, L.ServiceModel(),
+                         backend=backend, **kw)
+    plane.clock = clock  # the queue's clock: a test steps it
+    return plane
 
 
 def service(M, plane, **kw):
@@ -546,6 +551,8 @@ def soak(M, backend, queries: bool):
                 plane.store.create(build_binding(
                     M, f"w{wave}-{i}", replicas=1 + (wave * 6 + i) % 5,
                     divided=i % 2 == 0, cpu=f"{250 * (1 + i % 3)}m"))
+            # the wave waits out the slice's batch deadline (queue clock)
+            plane.clock.advance(plane.scheduler.batch_deadline_s + 1e-3)
             plane.runtime.pump()
             if queries:
                 for q in ("placement", "headroom", "cluster-loss"):
@@ -584,6 +591,7 @@ def test_whatif_on_the_resident_plane_answers_as_the_store():
         plane = Slice(FP, "device", resident=resident)
         plane.store.create(build_binding(FP, "seed", replicas=3,
                                          divided=True, cpu="500m"))
+        plane.clock.advance(plane.scheduler.batch_deadline_s + 1e-3)
         plane.runtime.pump()
         state = plane.scheduler._resident  # noqa: SLF001
         if resident:

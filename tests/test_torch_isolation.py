@@ -8,7 +8,11 @@ and the propagation loop (ControlPlane) on every backend -- with its
 failover loop (leases, taints, the taint manager and its eviction queue,
 graceful eviction), typed applies, quotas, a Pull member and an unjoin --
 and the entry
-points -- ControlPlane among them -- never drift to the CPU unless asked.  The cycle's
+points -- ControlPlane among them -- never drift to the CPU unless asked.
+The sustained-traffic slice -- the flight recorder, the metrics and the
+ledger (obs/, utils/metrics, utils/events, scheduler/metrics), loadgen/,
+printers and the port CLI -- runs a compressed soak, the CLI's catalog
+and a plane flow with neither in sys.modules either.  The cycle's
 encode and decode run through the port's C paths (native/), whose loaded
 libraries are the port's own builds: no port module names the JAX
 package's native directory, and no library of it is mapped into the
@@ -149,6 +153,50 @@ bad = sorted(m for m in sys.modules
 print("LOADED", bad)
 assert not bad, bad
 """
+
+
+_TRAFFIC = r"""
+import contextlib, io, os, sys, tempfile
+sys.path.insert(0, {root!r})
+from karmada_tpu_torch import cli, obs, printers
+from karmada_tpu_torch.obs import events, export, recorder, trace
+from karmada_tpu_torch.utils import events as uevents, metrics
+from karmada_tpu_torch.scheduler import metrics as smetrics
+from karmada_tpu_torch.loadgen import (
+    LoadDriver, ServeSlice, ServiceModel, VirtualClock, get_scenario)
+from karmada_tpu_torch.loadgen import arrival, report, scenarios
+scenario = get_scenario("steady")
+clock, model = VirtualClock(), ServiceModel()
+plane = ServeSlice(scenario, clock, model)
+p = LoadDriver(plane, scenario, clock=clock, model=model, seed=1).run()
+assert p["scheduled"] == p["injected"] > 0, p
+assert p["stage_utilization"]["scheduler.cycle"]["count"] > 0
+assert p["events"]["recorded"] > 0
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert cli.main(["loadgen"]) == 0
+    d = tempfile.mkdtemp()
+    assert cli.main(["--dir", d, "init"]) == 0
+    assert cli.main(["--dir", d, "join", "m1"]) == 0
+    assert cli.main(["--dir", d, "tick"]) == 0
+    assert cli.main(["--dir", d, "get", "Cluster"]) == 0
+assert "steady" in buf.getvalue() and "m1" in buf.getvalue()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_traffic_slice_loads_no_jax_subprocess():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c",
+                           _TRAFFIC.format(root=str(ROOT))],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
 
 
 def test_cycle_loads_no_jax_subprocess():

@@ -223,9 +223,10 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      beside the loop child): (a) the compressed loadgen soaks
      SOAK_SCENARIOS (steady, storm, churn, whatif, megafleet) on
      ServeSlice(backend="device") on the card, seed SOAK_SEED, the
-     Scheduler's host clock held still (still_cycle_clock: a binding's
-     e2e sample is floored at its cycle's wall seconds, which would tie
-     it to the host's load), each replayed
+     Scheduler's host clock held still and its deferred-cut timers held
+     back (tools/soak_hold: a binding's e2e sample is floored at its
+     cycle's wall seconds, which would tie it to the host's load), each
+     replayed
      with device="cpu" in CpuRefs: SOAK payloads equal but for wall_s and
      stage_utilization's seconds (its span names and counts kept), final
      placements and what-if answers equal, scheduled == injected for
@@ -251,8 +252,42 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      --loadgen steady --loadgen-rate 50 --trace-buffer 256 for
      SERVE_SECONDS, estimate --facade-addr against it, SIGINT: exit 0,
      the banner's backend=device, the checkpoint reloading with every
-     loadgen binding scheduled.  Launch counts are reset just before (a)
-     and (b) and read just after each (the what-if control run after).
+     loadgen binding scheduled.  Launch counts are reset just before
+     each soak's driver run and read just after it (soak_run), and
+     summed over the soaks of (a) and of (b) (the what-if control run
+     not counted).
+ 17. faults on the card (after 16c joined: the chaos, SLO, time-series
+     and incident planes are process-wide, and no other Scheduler runs
+     in this process then; all four are disarmed after it, raise or
+     not): (a) the catalog `chaos` soak, uncut, on ServeSlice(backend=
+     "device", resident=True, resident_audit_interval=0,
+     device_cycle_timeout_s=2.0, device_recover_cycles=2) -- the checks
+     of the JAX package's chaos soak test (no violation, one fire each at
+     device.cycle / device.dispatch / resident.mirror and estimator.rpc
+     fires, the circuit open -> half-open -> closed, degrade and re-arm
+     ending on the device, a contained cycle fault, one resident audit
+     mismatch, conservation, an empty residual queue, > 300 injected and
+     scheduled, the plane disarmed after) and equal to its CPU replay
+     (CpuRefs) but for the fire log's wall-clock stamps; (b) the catalog
+     `hotspot` soak, uncut and unwarmed, on the JAX package's hotspot
+     soak test's plane (HOTSPOT_PLANE: placed by ops/serial, scored on
+     the card): K13 runs, rebalance.plan:skip fires once and
+     is accounted, no conservation violation, converged inside the
+     threshold, every drain settled, equal to its CPU replay; (c) 16b's
+     megafleet-heavy shape with the chaos scenario's fault events
+     (dataclasses.replace), resident plane and shortlist tier both
+     armed, with obs/slo, obs/timeseries and obs/incidents armed (the
+     bundles under a temporary directory): no violation, 17a's fires, a
+     K8 / K9 dispatch, backend-degrade and cycle-fault bundles, the SLO
+     verdicts, incident kinds, ring samples, wall and the kernels'
+     CUDA-event device seconds printed; (d) device.d2h:poison#1 on a
+     two-cluster device slice: the poisoned copy of K3's index plane
+     raises InvariantViolation through analysis/guards.check_d2h, the
+     cycle fault is contained and the binding re-queued and scheduled.
+     The JAX soak's race-detector leg (analysis/guards armed with
+     utils/locks' watchdog and inversion counters) waits for utils/locks.
+     Launch counts are reset just before each soak's driver run (after
+     its warm-up) and just before (d)'s cycles, and read just after.
 
 Two other processes run beside the main one.  The device="cpu" halves
 of phases 5, 12a, 14a, 15a and 16a-b run in one spawned child process
@@ -6407,46 +6442,20 @@ CLI_TIMEOUT_S = 240.0
 
 def soak_comparable(payload: dict) -> dict:
     """A SOAK payload without `wall_s`, `stage_utilization` reduced to its
-    span names and counts: what card and CPU must agree on."""
+    span names and counts, a chaos soak's fire log without its
+    wall-clock stamps (`ts`), and the resident and rebalance planes'
+    stats without the name of their device: what card and CPU must
+    agree on."""
     out = json.loads(json.dumps(payload, default=str))
     out.pop("wall_s")
     out["stage_utilization"] = {
         k: v["count"] for k, v in out["stage_utilization"].items()}
+    for rec in (out.get("chaos") or {}).get("recent", ()):
+        rec.pop("ts", None)
+    for plane in ("resident", "rebalance"):
+        if isinstance(out.get(plane), dict):
+            out[plane].pop("device", None)
     return out
-
-
-class _StillPerfCounter:
-    """The time module with perf_counter standing still."""
-
-    def __getattr__(self, name):
-        return getattr(time, name)
-
-    @staticmethod
-    def perf_counter() -> float:
-        return 0.0
-
-
-class still_cycle_clock:
-    """Hold the Scheduler module's host clock still inside the block: the
-    Scheduler floors a binding's e2e sample at its cycle's wall seconds
-    (as the JAX package's does), which would tie the compressed soaks'
-    latency samples -- and so the card-vs-CPU comparison -- to how busy
-    each host is; with the clock still every cycle's wall reads 0 and the
-    samples are the virtual clock's alone.  Only the `time` name of
-    scheduler/service.py is replaced; the spans, the driver and the
-    virtual clock keep their own clocks."""
-
-    def __enter__(self):
-        from karmada_tpu_torch.scheduler import service
-
-        self.prev = service.time
-        service.time = _StillPerfCounter()
-
-    def __exit__(self, *exc):
-        from karmada_tpu_torch.scheduler import service
-
-        service.time = self.prev
-        return False
 
 
 def soak_placements(plane) -> dict:
@@ -6456,27 +6465,40 @@ def soak_placements(plane) -> dict:
 
 
 def soak_run(name: str, device, seed: int, strip_events: bool = False,
-             record: bool = False, device_time: bool = False) -> dict:
+             record: bool = False, device_time: bool = False,
+             scenario=None, plane_kw: Optional[dict] = None,
+             warm: bool = False) -> dict:
     """One compressed soak of `name` on ServeSlice(backend="device") on
-    `device`, into a fresh process ledger (restored after).  With
+    `device` (`plane_kw` may name another backend), into a fresh
+    process ledger (restored after).  With
     `record`, every RESOLVE_EVERY-th cycle's input (the bindings and
     clusters its solve saw, copied) and results are kept; with
     `device_time`, an event pair around each kernel launch of the run
-    gives the kernels' device seconds."""
+    gives the kernels' device seconds.  `scenario` replaces the catalog's
+    `name`, `plane_kw` goes to ServeSlice, and `warm` runs
+    loadgen.warm_device_path first (a guarded soak's first calls must not
+    read as a hung cycle).  `launches` holds the kernel launch counts of
+    the driver's run alone: they are set to 0 after the warm-up, just
+    before it, and read just after it."""
     import copy
 
     from karmada_tpu_torch import loadgen as L
     from karmada_tpu_torch.obs import events as obs_events
     from karmada_tpu_torch.ops import kernels
     from karmada_tpu_torch.ops import shortlist as SL
+    from karmada_tpu_torch.scheduler import service
+    from tools import soak_hold
 
-    scenario = L.get_scenario(name)
+    if scenario is None:
+        scenario = L.get_scenario(name)
     if strip_events:
         scenario = dataclasses.replace(scenario, events=())
     clock = L.VirtualClock()
     model = L.ServiceModel()
-    plane = L.ServeSlice(scenario, clock, model, backend="device",
-                         device=device)
+    plane = L.ServeSlice(scenario, clock, model, device=device,
+                         **{"backend": "device", **(plane_kw or {})})
+    if warm:
+        L.warm_device_path(plane)
     sched = plane.scheduler
     recorded, cycles = [], [0]
     if record:
@@ -6512,8 +6534,12 @@ def soak_run(name: str, device, seed: int, strip_events: bool = False,
     sl0, fb0 = dict(SL.COUNTS), dict(SL.FALLBACKS)
     t0 = time.perf_counter()
     try:
-        with still_cycle_clock():
+        # the counts are this run's alone: the warm-up's launches are not
+        kernels.reset_counts()
+        with soak_hold.still_cycle_clock(service), \
+                soak_hold.held_cut_timers(service):
             payload = driver.run()
+        launches = dict(kernels.LAUNCHES)
         if device_time:
             torch.cuda.synchronize()
         shed = {(e.ref.namespace, e.ref.name)
@@ -6538,11 +6564,13 @@ def soak_run(name: str, device, seed: int, strip_events: bool = False,
         "fallbacks": {k: v - fb0.get(k, 0) for k, v in SL.FALLBACKS.items()
                       if v - fb0.get(k, 0)},
         "wall": wall, "recorded": recorded, "waves": sched.waves,
+        "backend": sched.backend,
+        "plane_bindings": list(plane.store.visit("ResourceBinding")),
         "estimators": sched.estimators,
         "chunk": sched.pipeline_chunk,
         "device_s": (sum(a.elapsed_time(b) for a, b in pairs) / 1e3
                      if device_time else None),
-        "device_pairs": len(pairs)}
+        "device_pairs": len(pairs), "launches": launches}
 
 
 def soak_job(name: str, seed: int) -> dict:
@@ -6555,6 +6583,8 @@ def soak_job(name: str, seed: int) -> dict:
 def submit_soaks(refs) -> None:
     for name in SOAK_SCENARIOS + ("storm-heavy",):
         refs.submit(("16", name), soak_job, name, SOAK_SEED)
+    for name in FAULT_SOAKS:
+        refs.submit(("17", name), fault_soak_job, name)
 
 
 def serial_resolve(recorded, waves: int, estimators) -> tuple:
@@ -6627,18 +6657,23 @@ def soak_vs_cpu(label: str, card: dict, cpu: dict) -> None:
         raise AssertionError(f"phase {label}: what-if answers card != CPU")
 
 
+def sum_launches(counts) -> dict:
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def phase_soaks(dev, refs) -> dict:
     """16a: the compressed soaks on the card, each held against its CPU
     replay (CpuRefs).  Returns the launch counts of the card soaks."""
-    from karmada_tpu_torch.ops import kernels
-
     torch.cuda.synchronize()
-    kernels.reset_counts()
     runs = {}
     for name in SOAK_SCENARIOS:
         runs[name] = soak_run(name, dev, SOAK_SEED)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = sum_launches(r["launches"] for r in runs.values())
     control = soak_run("whatif", dev, SOAK_SEED, strip_events=True)
     for name, r in runs.items():
         p = r["payload"]
@@ -6690,13 +6725,10 @@ def phase_heavy(dev, refs) -> dict:
     invariants, every RESOLVE_EVERY-th cycle re-solved on ops/serial, and
     storm-heavy whole against its CPU replay.  Returns the launch counts
     of the card runs."""
-    from karmada_tpu_torch.ops import kernels
-
     torch.cuda.synchronize()
-    kernels.reset_counts()
     runs = {name: soak_run(name, dev, SOAK_SEED, record=True,
                            device_time=True) for name in SOAK_HEAVY}
-    launches = dict(kernels.LAUNCHES)
+    launches = sum_launches(r["launches"] for r in runs.values())
     for name, r in runs.items():
         p = r["payload"]
         dev_s = r["device_s"]
@@ -6963,6 +6995,322 @@ def phase_traffic(dev, refs, entry: EntryPoints) -> tuple:
     return soaks, heavy
 
 
+# -- phase 17: faults and telemetry on the card --------------------------------
+
+#: the catalog soaks phase 17 runs uncut, each held against its CPU replay
+FAULT_SOAKS = ("chaos", "hotspot")
+FAULT_SEED = 0
+#: 17a's plane: the JAX package's chaos soak test's
+CHAOS_PLANE = {"resident": True, "resident_audit_interval": 0,
+               "device_cycle_timeout_s": 2.0, "device_recover_cycles": 2}
+#: 17c's telemetry ring: about this many samples over the run (the ring's
+#: min interval on the virtual clock is the soak's duration over it), each
+#: a snapshot of the whole registry
+FAULT_RING = 1024
+MAIN_KERNELS = ("capacity", "schedule_rows", "webster_batch", "compact")
+
+
+#: 17b's plane: the JAX package's hotspot soak test's.  Its Scheduler
+#: places on ops/serial, which packs the skewed arrivals onto the hot
+#: clusters; the rebalance plane scores them on the card (K13).  On the
+#: device backend the catalog's hotspot never overcommits (peak 900 of a
+#: 1,000 threshold at this seed, in both packages), so there is nothing
+#: to drain.
+HOTSPOT_PLANE = {"backend": "serial"}
+
+
+def fault_plane_kw(name: str) -> dict:
+    """The chaos soak's guarded plane (warmed first, as the JAX package's
+    chaos soak test warms it); the hotspot soak's plane, unwarmed."""
+    return CHAOS_PLANE if name == "chaos" else HOTSPOT_PLANE
+
+
+def fault_soak_job(name: str) -> dict:
+    """CpuRefs job: 17a / 17b's soak on device="cpu", its picklable
+    part."""
+    r = soak_run(name, "cpu", FAULT_SEED, plane_kw=fault_plane_kw(name),
+                 warm=name == "chaos")
+    return {k: r[k] for k in ("comparable", "placements", "faults",
+                              "whatif", "wall", "backend")}
+
+
+def disarm_fault_planes() -> None:
+    """The chaos plane, the SLO evaluator, the ring and the incident store
+    are process-wide: disarmed before anything else runs."""
+    from karmada_tpu_torch import chaos
+    from karmada_tpu_torch.obs import incidents, slo, timeseries
+
+    chaos.disarm()
+    timeseries.disarm()
+    slo.disarm()
+    incidents.disarm()
+
+
+def check_launched(label: str, launches: dict, names) -> None:
+    for k in names:
+        if launches[k] <= 0:
+            raise AssertionError(f"phase {label}: kernel {k} never launched")
+
+
+def check_chaos_soak(label: str, p: dict, backend: str,
+                     circuit_tos: Optional[set] = None) -> None:
+    """The JAX package's chaos soak test's checks, on one SOAK payload
+    (its race-detector leg aside).  `circuit_tos`: the circuit's target
+    states seen in the run, when its bounded transition log (the last
+    256) cannot hold them all."""
+    from karmada_tpu_torch import chaos
+
+    audit = p["safety_audit"]
+    if audit["violations"]:
+        raise AssertionError(f"phase {label}: safety violations "
+                             f"{json.dumps(audit['violations'])[:600]}")
+    fires = audit["fault_fires"]
+    deltas = audit["metric_deltas"]
+    cons = audit["conservation"]
+    tos = [t["to"] for t in p["estimator_circuit"]["transitions"]]
+    if circuit_tos is None:
+        circuit_tos = set(tos)
+    checks = {
+        "one device.cycle fire": fires.get("device.cycle") == 1,
+        "one device.dispatch fire": fires.get("device.dispatch") == 1,
+        "one resident.mirror fire": fires.get("resident.mirror") == 1,
+        "estimator.rpc fires": fires.get("estimator.rpc", 0) > 0,
+        "estimator errors >= its fires":
+            deltas["estimator_errors"] >= fires.get("estimator.rpc", 0),
+        "circuit open, half-open, closed":
+            {"open", "half-open", "closed"} <= circuit_tos,
+        "every circuit closed at the end": all(
+            s == "closed" for s in p["estimator_circuit"]["states"].values()),
+        "backend degraded": deltas["backend_degraded"] >= 1,
+        "backend re-armed": deltas["backend_rearmed"] >= 1,
+        "ends on the device": backend == "device",
+        "a contained cycle fault": deltas["cycle_faults"] >= 1,
+        "one resident audit mismatch":
+            deltas["resident_audits_mismatch"] == 1,
+        "nothing double-placed": cons["double_placed"] == 0,
+        "unaccounted within the shed budget":
+            cons["unaccounted"] <= cons["shed_budget"],
+        "conservation": cons["scheduled"] + cons["queued_residual"]
+            + cons["unaccounted"] == cons["injected"],
+        "residual queue empty": p["residual_queue"] == {
+            "active": 0, "backoff": 0, "unschedulable": 0},
+        "the plane disarmed after": not chaos.armed(),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase {label}: failed {bad}; fires {fires}, "
+                             f"deltas {deltas}, conservation {cons}, "
+                             f"circuit {tos[:12]}")
+
+
+def phase_chaos_soak(dev, refs) -> dict:
+    """17a: the catalog chaos soak, uncut, on the card."""
+    torch.cuda.synchronize()
+    r = soak_run("chaos", dev, FAULT_SEED, plane_kw=CHAOS_PLANE, warm=True)
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()  # after the re-arm: must not hang
+    sync_s = time.perf_counter() - t0
+    launches = r["launches"]
+    p = r["payload"]
+    check_chaos_soak("17a chaos", p, r["backend"])
+    if p["injected"] <= 300 or p["scheduled"] <= 300:
+        raise AssertionError(f"phase 17a chaos: {p['injected']} injected, "
+                             f"{p['scheduled']} scheduled")
+    cpu = refs.result(("17", "chaos"))
+    soak_vs_cpu("17a chaos", r, cpu)
+    audit = p["safety_audit"]
+    log(f"phase 17a chaos: {p['injected']} injected, {p['scheduled']} "
+        f"scheduled; fires {audit['fault_fires']}; deltas "
+        f"{ {k: v for k, v in audit['metric_deltas'].items() if v} }; "
+        f"conservation {audit['conservation']}; 0 violations; backend "
+        f"{r['backend']}; synchronize after the re-arm {sync_s:.4f} s; "
+        f"card {r['wall']:.2f} s, CPU replay {cpu['wall']:.2f} s; equal to "
+        "the CPU replay but for the fire log's wall-clock stamps; the "
+        "race-detector leg (utils/locks) is not part of the port yet")
+    check_launched("17a", launches, MAIN_KERNELS + ("scatter_lanes",))
+    return launches
+
+
+def phase_hotspot_soak(dev, refs) -> dict:
+    """17b: the catalog hotspot soak, uncut, placed by ops/serial and
+    scored by K13 on the card (HOTSPOT_PLANE)."""
+    torch.cuda.synchronize()
+    r = soak_run("hotspot", dev, FAULT_SEED, plane_kw=HOTSPOT_PLANE)
+    torch.cuda.synchronize()
+    launches = r["launches"]
+    p = r["payload"]
+    reb = p["rebalance"]
+    last = reb["last"]
+    thr = reb["config"]["overcommit_threshold_milli"]
+    audit = p["safety_audit"]
+    checks = {
+        "every binding scheduled": p["injected"] == p["scheduled"],
+        "evictions": reb["evictions"] > 0,
+        "no conservation violation": reb["conservation_violations"] == 0,
+        "converged": bool(last["converged"]),
+        "inside the threshold": all(
+            row["over_milli"] <= thr for row in last["clusters"].values()
+            if row["capacity"] > 0),
+        "an overcommit episode": max(reb["peak_over_milli"].values()) > thr,
+        "no safety violation": audit["violations"] == [],
+        "one rebalance.plan fire":
+            p["chaos"]["fired_by_site"].get("rebalance.plan") == 1,
+        "the skip accounted":
+            audit["metric_deltas"]["rebalance_cycle_faults"] >= 1,
+        "residual queue empty": sum(p["residual_queue"].values()) == 0,
+        "every drain settled": not any(
+            rb.spec.graceful_eviction_tasks for rb in r["plane_bindings"]),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 17b hotspot: failed {bad}; rebalance "
+                             f"{json.dumps(reb)[:600]}")
+    cpu = refs.result(("17", "hotspot"))
+    soak_vs_cpu("17b hotspot", r, cpu)
+    log(f"phase 17b hotspot: {p['injected']} injected and scheduled, "
+        f"{reb['evictions']} evictions, peak over_milli "
+        f"{max(reb['peak_over_milli'].values())} > {thr}, converged, 0 "
+        f"conservation violations, rebalance.plan fires 1 (skip "
+        f"accounted), 0 safety violations; K13 launches "
+        f"{launches['rebalance_score']}; card {r['wall']:.2f} s, CPU "
+        f"replay {cpu['wall']:.2f} s; equal to the CPU replay")
+    check_launched("17b", launches, ("rebalance_score",))
+    return launches
+
+
+def phase_fleet_chaos(dev) -> dict:
+    """17c: 16b's megafleet-heavy shape with the chaos scenario's fault
+    events, resident plane and shortlist tier armed, and the SLO,
+    time-series and incident planes armed."""
+    from karmada_tpu_torch import loadgen as L
+    from karmada_tpu_torch.estimator import client as est_client
+    from karmada_tpu_torch.obs import incidents, slo, timeseries
+
+    states = ("open", "half-open", "closed")
+    moves0 = {t: est_client.CIRCUIT_TRANSITIONS.value(to=t) for t in states}
+    scenario = dataclasses.replace(
+        L.get_scenario("megafleet-heavy"),
+        events=L.get_scenario("chaos").events)
+    duration = scenario.duration_s(L.ServiceModel().capacity_rate)
+    with tempfile.TemporaryDirectory() as inc_dir:
+        ring = timeseries.configure(capacity=FAULT_RING,
+                                    min_interval_s=duration / FAULT_RING)
+        slo.configure()
+        incidents.configure(inc_dir)
+        torch.cuda.synchronize()
+        r = soak_run("megafleet-heavy", dev, FAULT_SEED, device_time=True,
+                     scenario=scenario, plane_kw=CHAOS_PLANE, warm=True)
+        torch.cuda.synchronize()
+        launches = r["launches"]
+        samples = len(ring)
+        bundles = sorted(f for f in os.listdir(inc_dir)
+                         if f.endswith(".json"))
+    p = r["payload"]
+    # 512 circuits: the transitions by target state from the registry
+    moves = {t: est_client.CIRCUIT_TRANSITIONS.value(to=t) - moves0[t]
+             for t in states}
+    check_chaos_soak("17c megafleet-heavy + chaos", p, r["backend"],
+                     {t for t, n in moves.items() if n > 0})
+    by_trigger = p["incidents"]["by_trigger"]
+    if not by_trigger.get("backend-degrade") or \
+            not by_trigger.get("cycle-fault"):
+        raise AssertionError(f"phase 17c: incident index {by_trigger}")
+    if len(bundles) != p["incidents"]["captured"]:
+        raise AssertionError(f"phase 17c: {len(bundles)} bundles on disk "
+                             f"for {p['incidents']['captured']} captured")
+    if r["shortlist"] <= 0:
+        raise AssertionError("phase 17c: no shortlist dispatch")
+    dev_s = r["device_s"]
+    log("phase 17c megafleet-heavy + chaos: " + json.dumps({
+        "injected": p["injected"], "scheduled": p["scheduled"],
+        "fault_fires": p["safety_audit"]["fault_fires"],
+        "circuit_transitions": moves,
+        "violations": 0,
+        "slo": {o["name"]: o["healthy"] for o in p["slo"]["objectives"]},
+        "slo_healthy": p["slo"]["healthy"],
+        "incidents": by_trigger, "bundles_on_disk": len(bundles),
+        "ring_samples": samples,
+        "ring_min_interval_s": round(duration / FAULT_RING, 6),
+        "shortlist_dispatches": r["shortlist"],
+        "shortlist_fallbacks": r["fallbacks"],
+        "wall_s": round(r["wall"], 3),
+        "kernel_device_s": round(dev_s, 4),
+        "kernel_launch_pairs": r["device_pairs"],
+        "idle_share": round(1.0 - dev_s / r["wall"], 4)}))
+    check_launched("17c", launches,
+                   MAIN_KERNELS + ("shortlist_topk", "group_sums"))
+    return launches
+
+
+def phase_d2h_poison(dev) -> dict:
+    """17d: device.d2h:poison#1 on a two-cluster device slice."""
+    from karmada_tpu_torch import chaos
+    from karmada_tpu_torch.loadgen.driver import build_binding, build_cluster
+    from karmada_tpu_torch.ops import kernels
+    from karmada_tpu_torch.scheduler import metrics as sched_metrics
+    from karmada_tpu_torch.scheduler.queue import SchedulingQueue
+    from karmada_tpu_torch.scheduler.service import Scheduler
+    from karmada_tpu_torch.store.store import ObjectStore
+    from karmada_tpu_torch.store.worker import Runtime
+
+    store, rt = ObjectStore(), Runtime()
+    sched = Scheduler(store, rt, backend="device", device=dev,
+                      queue=SchedulingQueue(initial_backoff_s=0.0))
+    for i in range(2):
+        store.create(build_cluster(f"poison-m{i}"))
+    store.create(build_binding("poison-b0"))
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    chaos.configure("device.d2h:poison#1")
+    base = sched_metrics.CYCLE_FAULTS.value(kind="InvariantViolation")
+    rt.pump()
+    faulted = sched_metrics.CYCLE_FAULTS.value(kind="InvariantViolation")
+    queued = sched.queue.depths()
+    rt.tick()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    fires = chaos.active().fires("device.d2h")
+    chaos.disarm()
+    rbs = list(store.list("ResourceBinding"))
+    if (fires != 1 or faulted != base + 1
+            or sched.faults() != {"InvariantViolation": 1}
+            or not queued["backoff"]
+            or not all(rb.spec.clusters for rb in rbs)):
+        raise AssertionError(
+            f"phase 17d: fires {fires}, InvariantViolation cycle faults "
+            f"{faulted - base}, faults {sched.faults()}, queue after the "
+            f"fault {queued}, scheduled {[rb.spec.clusters for rb in rbs]}")
+    log(f"phase 17d: device.d2h:poison fired once; the poisoned copy of "
+        f"K3's index plane raised InvariantViolation (check_d2h), the "
+        f"cycle fault was contained, the binding re-queued ({queued}) and "
+        f"scheduled on the retry to {rbs[0].spec.clusters}")
+    check_launched("17d", launches, MAIN_KERNELS)
+    return launches
+
+
+def phase_faults(dev, refs) -> tuple:
+    """Phase 17: 17a-17d, the fault planes disarmed after, raise or not.
+    Returns their launch counts."""
+    t17 = time.perf_counter()
+    out = []
+    try:
+        for label, fn in (("17a", lambda: phase_chaos_soak(dev, refs)),
+                          ("17b", lambda: phase_hotspot_soak(dev, refs)),
+                          ("17c", lambda: phase_fleet_chaos(dev)),
+                          ("17d", lambda: phase_d2h_poison(dev))):
+            t0 = time.perf_counter()
+            out.append(fn())
+            log(f"phase {label}: {time.perf_counter() - t0:.1f} s, "
+                f"launches { {k: v for k, v in out[-1].items() if v} }")
+    finally:
+        disarm_fault_planes()
+    total = sum_launches(out)
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s; launches of its "
+        f"runs (17a-c the soaks' driver runs, 17d's cycles): "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return tuple(out)
+
+
 def parity_loop_phases(M, fleet, items, dev, args, refs) -> None:
     """The loop's card-vs-CPU phases on 12a's recipe: 12a, 14a and 15a
     (their CPU halves from the child, submit_loop_parity)."""
@@ -7201,6 +7549,7 @@ def main() -> int:
     phase_native_store(M, fleet, items, fwd_results)
     parity_loop_phases(M, fleet, items, dev, args, refs)
     traffic = phase_traffic(dev, refs, entry_points)
+    faults = phase_faults(dev, refs)
     refs.close()
     collect_loop_garbage()
     child = loop_child.result()
@@ -7210,7 +7559,8 @@ def main() -> int:
         f"({child['remaps']} in the loop child)")
     for r in report:
         r["launches"] = sum(c[r["name"]] for c in (
-            fwd, reb, wide, expl, mega, inc) + loop_launches + traffic)
+            fwd, reb, wide, expl, mega, inc) + loop_launches + traffic
+            + faults)
     t13 = time.perf_counter()
     report.append(phase_probe(dev, args.reps, parent))
     report.append(phase_profile(dev, args.reps, parent))

@@ -44,8 +44,8 @@ MISSING = {
     "logs": ("the members' pod plane and the cluster proxy", 9),
     "exec": ("the members' pod plane and the cluster proxy", 9),
     "attach": ("the members' pod plane and the cluster proxy", 9),
-    "top": ("the members' pod plane, the metrics adapter and the "
-            "telemetry plane", 9),
+    "top": ("the members' pod plane, the metrics adapter and the debug "
+            "server (utils/httpserve, /debug/timeseries)", 9),
     "--cluster": ("the cluster proxy (search/, ControlPlane.proxy)", 9),
     "--server": ("the query plane (search/httpapi)", 9),
     "vet": ("analysis/ (the vet passes)", 9),
@@ -58,17 +58,16 @@ MISSING = {
     "rebalance": ("the debug server (utils/httpserve, /debug/rebalance)",
                   7),
     "profile": ("the debug server (utils/httpserve, /debug/profile)", 7),
-    "incidents": ("the incident plane (obs/incidents)", 7),
+    "incidents": ("the debug server (utils/httpserve, /debug/incidents)",
+                  7),
     "whatif": ("the debug server's /whatif endpoint (utils/httpserve)", 7),
     "loadgen --endpoint": ("the debug server (utils/httpserve, "
                            "/debug/load)", 7),
     "--metrics-port": ("the debug server (utils/httpserve)", 7),
     "--api-port": ("the query plane (search/httpapi)", 9),
-    "--telemetry": ("the telemetry plane (obs/timeseries, obs/slo)", 7),
-    "--slo-deadline": ("the telemetry plane (obs/slo)", 7),
-    "--chaos": ("the chaos plane (chaos/)", 7),
-    "--check-invariants": ("the runtime invariant guards "
-                           "(analysis/guards, utils/locks)", 7),
+    "--check-invariants": ("utils/locks (the lock watchdog and the "
+                           "order-inversion detector the flag arms beside "
+                           "analysis/guards)", 9),
     "--mesh": ("the solver mesh (ops/meshing)", 10),
 }
 
@@ -96,7 +95,9 @@ def _load_plane(directory: str, backend: str = "serial", waves: int = 8,
                 resident_fused: bool = False,
                 device_recover_cycles: Optional[int] = None,
                 rebalance: Optional[float] = None,
-                shortlist_k: Optional[int] = None):
+                shortlist_k: Optional[int] = None,
+                chaos: Optional[str] = None,
+                chaos_seed: int = 0):
     """controllers=None rehydrates the persisted --controllers spec; an
     explicit spec is also persisted so later invocations honor it.
 
@@ -128,7 +129,8 @@ def _load_plane(directory: str, backend: str = "serial", waves: int = 8,
                       resident_fused=resident_fused,
                       device_recover_cycles=device_recover_cycles,
                       rebalance=rebalance,
-                      shortlist_k=shortlist_k)
+                      shortlist_k=shortlist_k,
+                      chaos=chaos, chaos_seed=chaos_seed)
     if controllers is not None:
         cp.apply({"apiVersion": "v1", "kind": "ConfigMap",
                   "metadata": {"namespace": "karmada-system",
@@ -827,12 +829,6 @@ def _refused_serve_flag(args) -> Optional[str]:
         return "--metrics-port"
     if args.api_port >= 0:
         return "--api-port"
-    if args.telemetry or args.telemetry_interval != 1.0:
-        return "--telemetry"
-    if args.slo_deadline != 1.0:
-        return "--slo-deadline"
-    if args.chaos or args.chaos_seed:
-        return "--chaos"
     if args.check_invariants:
         return "--check-invariants"
     if args.mesh not in ("off", ""):
@@ -845,8 +841,10 @@ def cmd_serve(args) -> int:
     thread, periodic hooks on a timer (the karmada-controller-manager /
     scheduler / webhook processes rolled into one, Runtime.serve).
     A flag whose plane the port has not taken is refused before the plane
-    loads; the incident plane, armed by default in the JAX CLI, is not
-    part of the port (the banner says so; --no-incidents is accepted)."""
+    loads.  The incident plane is armed by default (bundles under
+    DIR/incidents), as in the JAX CLI; --chaos, --telemetry and
+    --slo-deadline arm the chaos and telemetry planes, whose state the
+    debug server would publish (not part of the port yet)."""
     import signal
     import time as _time
 
@@ -898,14 +896,6 @@ def cmd_serve(args) -> int:
         except ValueError as e:
             print(str(e), file=sys.stderr)
             return 1
-        if loadgen_scenario.chaotic:
-            from karmada_tpu_torch.loadgen import LoadDriver
-
-            try:
-                LoadDriver.refuse_chaotic(loadgen_scenario)
-            except ValueError as e:
-                print(str(e), file=sys.stderr)
-                return 1
     facade_addr = None
     if args.facade:
         # validate BEFORE the plane loads: a typo'd address must fail
@@ -916,6 +906,24 @@ def cmd_serve(args) -> int:
         except ValueError:
             print(f"--facade ADDR must be HOST:PORT (or :PORT), got "
                   f"{args.facade!r}", file=sys.stderr)
+            return 1
+    if args.chaos:
+        # validate the fault spec BEFORE the plane loads: a typo'd chaos
+        # spec must fail the command, never silently arm nothing
+        from karmada_tpu_torch import chaos as chaos_mod
+
+        try:
+            chaos_mod.parse_spec(args.chaos, seed=args.chaos_seed)
+        except ValueError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+    ring_cap = None
+    if args.telemetry:
+        try:
+            ring_cap = int(args.telemetry)
+        except ValueError:
+            print(f"--telemetry ring capacity must be an integer, got "
+                  f"{args.telemetry!r}", file=sys.stderr)
             return 1
     try:
         cp = _load_plane(args.dir, backend=args.backend, waves=args.waves,
@@ -941,10 +949,18 @@ def cmd_serve(args) -> int:
                              args.device_recover_cycles
                              if args.device_recover_cycles > 0 else None),
                          rebalance=rebalance_interval,
-                         shortlist_k=shortlist_k)
+                         shortlist_k=shortlist_k,
+                         chaos=args.chaos or None,
+                         chaos_seed=args.chaos_seed)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
+    if args.chaos:
+        print(f"CHAOS PLANE ARMED (seed {args.chaos_seed}): {args.chaos} -- "
+              "deterministic faults will fire at the named seams; the "
+              "state payload is chaos.state_payload() (no /debug/chaos: "
+              "the debug server is not part of the port yet, ROADMAP "
+              "Queue A item 7)")
     if args.aot_cache != "off" and cp.scheduler.backend == "device":
         # the port's warm hook (ops/aotcache): build the kernels and the
         # native paths and run each pow2 shape x variant this
@@ -1004,8 +1020,37 @@ def cmd_serve(args) -> int:
         print(f"explain plane armed ({pct} cycle(s) sampled): decisions "
               "in the Scheduler's recorder (no /debug/explain in the "
               "port: ROADMAP Queue A item 7)")
-    print("incident plane not armed: the port has no obs/incidents "
-          "(ROADMAP Queue A item 7)")
+    if ring_cap is not None:
+        from karmada_tpu_torch.obs import slo as slo_mod
+        from karmada_tpu_torch.obs import timeseries as ts_mod
+
+        ts_mod.configure(capacity=ring_cap,
+                         min_interval_s=max(args.telemetry_interval, 0.0))
+        slo_mod.configure(objectives=slo_mod.default_objectives(
+            schedule_deadline_s=args.slo_deadline))
+        print(f"telemetry plane armed: {ring_cap}-sample metric ring on "
+              f"the scheduler cycle clock (min interval "
+              f"{args.telemetry_interval:g}s), SLO burn rates "
+              f"(schedule/dwell p99 bound {args.slo_deadline:g}s); "
+              "regression watchdog off (no baseline envelope given); no "
+              "/debug/timeseries or /debug/slo: the debug server is not "
+              "part of the port yet (ROADMAP Queue A item 7)")
+    if not args.no_incidents:
+        # incident plane (obs/incidents), armed by default: every
+        # detector's trigger captures a rate-limited forensic bundle
+        # under the plane dir
+        import os
+
+        from karmada_tpu_torch.obs import incidents as incidents_mod
+
+        incidents_mod.configure(
+            os.path.join(args.dir, "incidents"),
+            cooldown_s=max(args.incident_cooldown, 0.0))
+        print("incident plane armed: trigger-driven forensic bundles "
+              f"under {os.path.join(args.dir, 'incidents')} "
+              f"(cooldown {max(args.incident_cooldown, 0.0):g}s per "
+              "trigger); no /debug/incidents: the debug server is not "
+              "part of the port yet (ROADMAP Queue A item 7)")
     if args.feature_gates:
         cp.gates.set_from_string(args.feature_gates)
     cp.runtime._periodic_interval_s = args.sync_period  # noqa: SLF001
@@ -1080,6 +1125,10 @@ def cmd_serve(args) -> int:
 
             facade_mod.set_active(None)
             facade_service.close()
+        if not args.no_incidents:
+            from karmada_tpu_torch.obs import incidents as incidents_mod
+
+            incidents_mod.disarm()
         cp.runtime.stop()
         cp.checkpoint()
     return 0
@@ -1099,7 +1148,8 @@ def cmd_loadgen(args) -> int:
                                               SOAK payload JSON
 
     The live view (--endpoint) needs the debug server, which the port
-    lacks; the chaotic scenarios (chaos, hotspot) need the chaos plane.
+    lacks.  The chaotic scenarios (chaos, hotspot) arm the chaos plane and
+    end with the safety auditor (the payload's `chaos` / `safety_audit`).
     """
     from karmada_tpu_torch.loadgen import SCENARIOS
 
@@ -1122,13 +1172,11 @@ def cmd_loadgen(args) -> int:
         scenario = get_scenario(args.scenario)
         clock = VirtualClock()
         model = ServiceModel()
-        if scenario.chaotic:
-            # refused before a plane is built (LoadDriver says the same)
-            LoadDriver.refuse_chaotic(scenario)
-        plane = ServeSlice(scenario, clock, model)
+        plane = ServeSlice(scenario, clock, model, device=args.device)
         driver = LoadDriver(plane, scenario, clock=clock, model=model,
                             seed=args.seed)
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:
+        # RuntimeError: a slice with device work and no CUDA card
         print(str(e), file=sys.stderr)
         return 1
     payload = driver.run()
@@ -1377,6 +1425,11 @@ def build_parser() -> argparse.ArgumentParser:
                       help="deterministic arrival-process seed")
     lgen.add_argument("--pretty", action="store_true",
                       help="indent the SOAK payload JSON")
+    lgen.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                      help="where the slice's device work runs (the "
+                           "rebalance plane's detect; the card by "
+                           "default, raising without one; cpu: the "
+                           "kernels' plain versions)")
 
     vt = sub.add_parser("vet")
     vt.add_argument("paths", nargs="*",

@@ -12,8 +12,9 @@ JAX controller records a SyncWorkloadFailed event and a latency metric,
 this one counts the Work syncs that hit an apply error
 (`ExecutionController.sync_failures`, and by cluster in
 `sync_failures_by_cluster`; the errors stand in the Work's
-Applied=False condition).  The events recorder and metrics wait with the
-port's observability plane.
+Applied=False condition), and every sync is observed on
+karmada_work_sync_workload_duration_seconds.  The events recorder waits
+with the loop's events.
 The reconcile reads the Work, its Cluster and binding, and the member's
 object as stored (ObjectStore.peek): it only looks, and writes through
 the member's apply and the store's mutate.
@@ -22,6 +23,7 @@ the member's apply and the store's mutate.
 from __future__ import annotations
 
 import copy
+import time
 from typing import Dict, Optional
 
 from karmada_tpu_torch.controllers.binding import (
@@ -36,6 +38,15 @@ from karmada_tpu_torch.models.meta import Condition, deep_get, set_condition
 from karmada_tpu_torch.models.work import COND_WORK_APPLIED, ResourceBinding, Work
 from karmada_tpu_torch.store.store import DELETED, Event, ObjectStore
 from karmada_tpu_torch.store.worker import AsyncWorker, Runtime
+from karmada_tpu_torch.utils.metrics import REGISTRY, exponential_buckets
+
+# execution_controller.go:154 metrics.ObserveSyncWorkloadLatency
+SYNC_WORKLOAD_LATENCY = REGISTRY.histogram(
+    "karmada_work_sync_workload_duration_seconds",
+    "Duration in seconds to sync a Work's manifests to its member cluster",
+    ("result",),
+    buckets=exponential_buckets(0.001, 2, 12),
+)
 
 # annotation carrying the conflict policy down to the apply engine
 CONFLICT_ANNOTATION = "work.karmada.io/conflict-resolution"
@@ -155,6 +166,7 @@ class ExecutionController:
         if not self._cluster_ready(cluster_name):
             return False  # requeue until the cluster turns Ready
         errors = []
+        sync_start = time.perf_counter()
         conflict = "Abort"
         label = work.metadata.labels.get(WORK_BINDING_LABEL, "")
         if label and "." in label:
@@ -179,6 +191,10 @@ class ExecutionController:
             ))
 
         self.store.mutate(Work.KIND, ns, name, set_applied)
+        SYNC_WORKLOAD_LATENCY.observe(
+            time.perf_counter() - sync_start,
+            result="error" if errors else "success",
+        )
         if errors:
             self.sync_failures += 1
             self.sync_failures_by_cluster[cluster_name] = (

@@ -14,10 +14,10 @@ monitor flips the cluster's Ready condition to Unknown
 (controllers/failover.py ClusterTaintController) turns into a NoExecute
 not-ready taint exactly as for an observed failure.
 
-Left out of the port: the chaos seam of `renew_cluster_lease` (a dropped
-heartbeat) and the monitor's ClusterStatusUnknown event (its `recorder`
-argument); both wait for the port's observability and chaos planes.  The
-monitor reads the stored objects without copying (ObjectStore.peek /
+`renew_cluster_lease` carries the chaos seam `lease.heartbeat` (drop: the
+renewal is skipped, so the lease ages as a dead collector's would).  Left
+out of the port: the monitor's ClusterStatusUnknown event (its `recorder`
+argument), which waits with the loop's events.  The monitor reads the stored objects without copying (ObjectStore.peek /
 visit).
 """
 
@@ -62,6 +62,15 @@ def renew_cluster_lease(
     clock: Callable[[], float] = time.time,
 ) -> None:
     """Create-or-renew the cluster's lease (the collector's heartbeat)."""
+    from karmada_tpu_torch import chaos
+
+    if chaos.armed():
+        f = chaos.fire(chaos.SITE_LEASE_HEARTBEAT, cluster=cluster_name)
+        if f is not None and f.mode == "drop":
+            # a suppressed heartbeat is indistinguishable from a dead
+            # collector: the lease ages out, the monitor flips Ready to
+            # Unknown, and the taint / eviction chain takes over
+            return
     now = clock()
     lease = store.peek(Lease.KIND, LEASE_NAMESPACE, cluster_name)
     if lease is not None and (lease.holder, lease.renew_time,

@@ -15,9 +15,9 @@
 Counterpart of the JAX package's ``controllers/status.py``.  The cluster
 collector renews each cluster's heartbeat Lease after its collect
 (controllers/lease.py) on the wall clock, as the JAX collector does,
-whatever clock the plane's other controllers read.  It exports no
-karmada_cluster_* gauges and records no readiness events (they wait with
-the port's observability plane).  The reads that only look -- a member
+whatever clock the plane's other controllers read.  It sets the
+karmada_cluster_* gauges after each collect; it records no readiness
+events (they wait with the loop's events).  The reads that only look -- a member
 object's Work (a scan of its execution namespace), a binding's Works and
 template -- take the stored objects without copying (ObjectStore.visit / peek); the aggregated
 items reach the store through mutate, which copies.
@@ -209,6 +209,52 @@ class BindingStatusController:
 
 
 
+from karmada_tpu_torch.utils.metrics import REGISTRY as _REGISTRY
+
+CLUSTER_READY_STATE = _REGISTRY.gauge(
+    "karmada_cluster_ready_state", "State of the cluster (1 ready, 0 not)",
+    ("cluster_name",))
+CLUSTER_CPU_ALLOCATABLE = _REGISTRY.gauge(
+    "karmada_cluster_cpu_allocatable_number", "Allocatable cluster CPU cores",
+    ("cluster_name",))
+CLUSTER_CPU_ALLOCATED = _REGISTRY.gauge(
+    "karmada_cluster_cpu_allocated_number", "Allocated cluster CPU cores",
+    ("cluster_name",))
+CLUSTER_MEMORY_ALLOCATABLE = _REGISTRY.gauge(
+    "karmada_cluster_memory_allocatable_bytes", "Allocatable cluster memory",
+    ("cluster_name",))
+CLUSTER_MEMORY_ALLOCATED = _REGISTRY.gauge(
+    "karmada_cluster_memory_allocated_bytes", "Allocated cluster memory",
+    ("cluster_name",))
+CLUSTER_POD_ALLOCATABLE = _REGISTRY.gauge(
+    "karmada_cluster_pod_allocatable_number", "Allocatable cluster pod slots",
+    ("cluster_name",))
+CLUSTER_POD_ALLOCATED = _REGISTRY.gauge(
+    "karmada_cluster_pod_allocated_number", "Allocated cluster pod slots",
+    ("cluster_name",))
+
+
+def _export_gauges(cluster: Cluster) -> None:
+    """karmada_cluster_* gauges (pkg/metrics/cluster.go:57-132), set after
+    every collect."""
+    CLUSTER_READY_STATE.set(1.0 if cluster.ready else 0.0,
+                            cluster_name=cluster.name)
+    summary = cluster.status.resource_summary
+    if summary is None:
+        return
+    for res, gauge_alloc, gauge_used in (
+        ("cpu", CLUSTER_CPU_ALLOCATABLE, CLUSTER_CPU_ALLOCATED),
+        ("memory", CLUSTER_MEMORY_ALLOCATABLE, CLUSTER_MEMORY_ALLOCATED),
+        ("pods", CLUSTER_POD_ALLOCATABLE, CLUSTER_POD_ALLOCATED),
+    ):
+        alloc = summary.allocatable.get(res)
+        used = summary.allocated.get(res)
+        if alloc is not None:
+            gauge_alloc.set(alloc.milli / 1000.0, cluster_name=cluster.name)
+        if used is not None:
+            gauge_used.set(used.milli / 1000.0, cluster_name=cluster.name)
+
+
 class ClusterStatusController:
     """Periodic heartbeat: member telemetry -> Cluster.status."""
 
@@ -269,3 +315,4 @@ class ClusterStatusController:
 
         stored = self.store.mutate(Cluster.KIND, "", name, update)
         self._collected[name] = (key, stored.metadata.resource_version)
+        _export_gauges(stored)

@@ -57,8 +57,12 @@ LocalTransport and `unjoin` deregisters it; `enable_descheduler=True`
 runs the Descheduler over it (controllers/descheduler.py), sharing one
 EvictionBudget with the rebalance plane.
 
-Not part of the port yet, by argument: mesh_shape, chaos, chaos_seed; by
-method: enable_dns_detector, proxy, metrics_dump; and the
+`chaos` / `chaos_seed` arm the process-wide chaos plane through the
+Scheduler (chaos/: the nine seams, the safety auditor), as in the JAX
+ControlPlane.
+
+Not part of the port yet, by argument: mesh_shape; by method:
+enable_dns_detector, proxy, metrics_dump; and the
 controllers behind them: the search cache / unified auth / cluster
 proxy / metrics provider, the FederatedHPA family (FederatedHPA,
 CronFederatedHPA, the scale-target marker, the replicas syncer, the HPA
@@ -168,6 +172,10 @@ class ControlPlane:
         # (None: one-way)
         device_cycle_timeout_s: Optional[float] = None,
         device_recover_cycles: Optional[int] = None,
+        # chaos fault-injection plane (chaos/): a spec string arming
+        # deterministic faults at the named seams
+        chaos: Optional[str] = None,
+        chaos_seed: int = 0,
         # explain plane: the sample rate of cycles recording Decisions
         explain: float = 0.0,
         # batch formation deadline (None: cut at once) and the admission
@@ -259,6 +267,7 @@ class ControlPlane:
             rebalance_clock=self.clock,
             device_cycle_timeout_s=device_cycle_timeout_s,
             device_recover_cycles=device_recover_cycles, explain=explain,
+            chaos=chaos, chaos_seed=chaos_seed,
             batch_deadline_s=batch_deadline_s,
             admission_limit=admission_limit, recorder=self.recorder)
         self.binding_controller = BindingController(

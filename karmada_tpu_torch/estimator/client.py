@@ -13,11 +13,11 @@ free-capacity table (CapacitySnapshot) on a refresh interval and answers
 MaxAvailableReplicas locally -- per-binding RPCs collapse to one snapshot
 fetch per cluster per cycle.
 
-Left out of the port: the chaos seam in front of the wire, the metrics
-registry and the tracing spans.  Their counts live on the objects
-instead: `AccurateEstimatorClient.errors` (failures by typed kind, as
-karmada_estimator_errors_total), `.retries` and `.rpc_skipped` (by
-method), and `CircuitBreaker.transitions`.
+The `estimator.rpc` chaos seam sits in front of the wire
+(`_transport_call`), and the JAX package's karmada_estimator_* families
+count on the registry.  The same counts also live on the objects:
+`AccurateEstimatorClient.errors` (failures by typed kind), `.retries` and
+`.rpc_skipped` (by method), and `CircuitBreaker.transitions`.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
-from karmada_tpu_torch import obs
+from karmada_tpu_torch import chaos, obs
+from karmada_tpu_torch.utils.metrics import REGISTRY
 from karmada_tpu_torch.estimator.wire import (
     UNAUTHENTIC_REPLICA,
     CapacitySnapshotResponse,
@@ -46,6 +47,43 @@ from karmada_tpu_torch.estimator.wire import (
 )
 from karmada_tpu_torch.models.cluster import Cluster
 from karmada_tpu_torch.models.work import ReplicaRequirements, TargetCluster
+
+RPC_SKIPPED = REGISTRY.counter(
+    "karmada_estimator_rpc_skipped_total",
+    "Per-cluster estimator RPCs short-circuited because the cluster's "
+    "observed resourceVersion and the request signature were unchanged "
+    "since the previous cycle (the memoized answer served instead)",
+    ("method",),
+)
+
+ESTIMATOR_ERRORS = REGISTRY.counter(
+    "karmada_estimator_errors_total",
+    "Estimator RPC failures by typed classification (unreachable / "
+    "timeout / malformed per attempt, circuit_open per short-circuited "
+    "call) — a dead estimator is no longer indistinguishable from a "
+    "full cluster",
+    ("kind",),
+)
+
+ESTIMATOR_RETRIES = REGISTRY.counter(
+    "karmada_estimator_retries_total",
+    "Estimator RPC retry attempts (bounded, full-jitter exponential "
+    "backoff) by method",
+    ("method",),
+)
+
+CIRCUIT_STATE = REGISTRY.gauge(
+    "karmada_estimator_circuit_state",
+    "Per-cluster estimator circuit-breaker state "
+    "(0 = closed, 1 = open, 2 = half-open)",
+    ("cluster",),
+)
+
+CIRCUIT_TRANSITIONS = REGISTRY.counter(
+    "karmada_estimator_circuit_transitions_total",
+    "Estimator circuit-breaker state transitions by target state",
+    ("to",),
+)
 
 
 # -- typed error classification ----------------------------------------------
@@ -92,6 +130,8 @@ def classify_exception(exc: BaseException) -> EstimatorError:
 CIRCUIT_CLOSED = "closed"
 CIRCUIT_OPEN = "open"
 CIRCUIT_HALF_OPEN = "half-open"
+_CIRCUIT_VALUE = {CIRCUIT_CLOSED: 0.0, CIRCUIT_OPEN: 1.0,
+                  CIRCUIT_HALF_OPEN: 2.0}
 
 
 class CircuitBreaker:
@@ -118,13 +158,15 @@ class CircuitBreaker:
         self.transitions: deque = deque(maxlen=256)
 
     def _set(self, cluster: str, state: str) -> None:
-        """Transition (call under _lock); logged on real moves."""
+        """Transition (call under _lock); metrics + log on real moves."""
         prev = self._state.get(cluster, CIRCUIT_CLOSED)
         if prev == state:
             return
         self._state[cluster] = state
         self.transitions.append({"cluster": cluster, "from": prev,
                                  "to": state, "ts": self.clock()})
+        CIRCUIT_STATE.set(_CIRCUIT_VALUE[state], cluster=cluster)
+        CIRCUIT_TRANSITIONS.inc(to=state)
 
     def allow(self, cluster: str) -> bool:
         """May a call to this cluster's estimator proceed?  Handles the
@@ -173,6 +215,7 @@ class CircuitBreaker:
             self._failures.pop(cluster, None)
             self._opened_at.pop(cluster, None)
             self._probing.discard(cluster)
+        CIRCUIT_STATE.set(0.0, cluster=cluster)
 
     def state(self, cluster: str) -> str:
         with self._lock:
@@ -301,6 +344,29 @@ class AccurateEstimatorClient:
         self._pool.shutdown(wait=True)
 
     # -- the hardened wire path ----------------------------------------------
+    def _transport_call(self, cluster: str, transport: Transport,
+                        method: str, payload: dict) -> dict:
+        """One raw attempt, with the chaos seam in front of the wire
+        (error/timeout raise the transport's own failure shapes; slow
+        delays; garbage substitutes an unparseable reply)."""
+        if chaos.armed():
+            f = chaos.fire(chaos.SITE_ESTIMATOR_RPC, cluster=cluster,
+                           method=method)
+            if f is not None:
+                if f.mode == "error":
+                    raise ConnectionError(
+                        "chaos: estimator connection refused")
+                if f.mode == "timeout":
+                    raise TimeoutError("chaos: estimator call timed out")
+                if f.mode == "slow":
+                    self._sleep(f.delay)
+                elif f.mode == "garbage":
+                    # structurally unusable on every method's parse path
+                    return {"maxReplicas": "garbage", "maxSets": "garbage",
+                            "unschedulableReplicas": "garbage",
+                            "nodeFree": 0, "nodeLabels": 0}
+        return transport.call(method, payload)
+
     def _request(self, cluster: str, transport: Transport, method: str,
                  payload: dict, parse: Callable[[dict], object]) -> object:
         """One logical estimator call: breaker gate, bounded full-jitter
@@ -308,22 +374,26 @@ class AccurateEstimatorClient:
         EstimatorError whose kind is already counted."""
         if not self.breaker.allow(cluster):
             self._count(self.errors, EstimatorCircuitOpen.kind)
+            ESTIMATOR_ERRORS.inc(kind=EstimatorCircuitOpen.kind)
             raise EstimatorCircuitOpen(
                 f"estimator circuit open for cluster {cluster!r}")
         err: EstimatorError = EstimatorUnreachable("no attempt made")
         for attempt in range(self.retry_attempts):
             if attempt:
                 self._count(self.retries, method)
+                ESTIMATOR_RETRIES.inc(method=method)
                 # full jitter: uniform over [0, min(cap, base * 2^k)] --
                 # a deterministic stream, never a synchronized stampede
                 self._sleep(self._retry_rng.uniform(
                     0.0, min(self.retry_cap_s,
                              self.retry_base_s * (2 ** (attempt - 1)))))
             try:
-                value = parse(transport.call(method, payload))
+                value = parse(self._transport_call(
+                    cluster, transport, method, payload))
             except Exception as exc:  # noqa: BLE001 — classified + counted
                 err = classify_exception(exc)
                 self._count(self.errors, err.kind)
+                ESTIMATOR_ERRORS.inc(kind=err.kind)
                 continue
             self.breaker.record_success(cluster)
             return value
@@ -345,6 +415,7 @@ class AccurateEstimatorClient:
             answer = entry[1].get(sig)
         if answer is not None:
             self._count(self.rpc_skipped, method)
+            RPC_SKIPPED.inc(method=method)
         return answer
 
     def _memo_put(self, method: str, cluster: Cluster, sig: str,

@@ -19,9 +19,10 @@ over the wire tier (estimator/wire.py's length-prefixed frames):
     mutating live state.
 
 The process-wide registry below: one armed service, read lazily; a
-disarmed plane reports ``{"enabled": False}``.  The JAX package's
-facade/metrics.py, its /debug/facade and /whatif endpoints and its CLI
-verbs are not part of the port yet.
+disarmed plane reports ``{"enabled": False}``.  The karmada_facade_*
+families live in facade/metrics.py; the JAX package's /debug/facade and
+/whatif endpoints and the CLI verbs reading them are not part of the
+port yet (they wait for the debug server).
 """
 
 from __future__ import annotations

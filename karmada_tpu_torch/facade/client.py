@@ -2,14 +2,13 @@
 
 Counterpart of the JAX package's ``facade/client.py``.  Reuses the
 estimator tier's failure machinery -- the typed error taxonomy
-(classify_exception) and the circuit breaker -- so a facade endpoint
-fault flows through the paths the per-cluster estimator faults take: a
-refused connection, a timeout or an unparseable reply surface as
-EstimatorUnreachable / EstimatorTimeout / EstimatorMalformed, the breaker
-opens after consecutive failures and half-open-recovers after its
-window.  The JAX client's chaos seam is left out (a test drives the same
-paths with a transport that raises); failures are counted by kind on
-`errors`.
+(classify_exception), the circuit breaker, and the `estimator.rpc` chaos
+seam -- so a facade endpoint fault flows through the paths the
+per-cluster estimator faults take: error / timeout / slow / garbage fired
+at this transport surface as EstimatorUnreachable / EstimatorTimeout /
+EstimatorMalformed, the breaker opens after consecutive failures and
+half-open-recovers after its window.  Failures count on
+karmada_estimator_errors_total and, by kind, on `errors`.
 """
 
 from __future__ import annotations
@@ -17,8 +16,10 @@ from __future__ import annotations
 import time
 from typing import Callable, Dict, Optional
 
+from karmada_tpu_torch import chaos
 from karmada_tpu_torch.estimator import wire
 from karmada_tpu_torch.estimator.client import (
+    ESTIMATOR_ERRORS,
     CircuitBreaker,
     EstimatorCircuitOpen,
     EstimatorError,
@@ -86,11 +87,32 @@ class FacadeClient:
         return WhatIfResponse.from_json(self._call("WhatIf", req.to_json()))
 
     # -- the hardened wire path ----------------------------------------------
+    def _transport_call(self, method: str, payload: dict) -> dict:
+        """One raw attempt with the chaos seam in front of the wire --
+        the same `estimator.rpc` site the accurate tier fires, keyed by
+        this endpoint, so one fault grammar covers both planes."""
+        if chaos.armed():
+            f = chaos.fire(chaos.SITE_ESTIMATOR_RPC, cluster=self.endpoint,
+                           method=method)
+            if f is not None:
+                if f.mode == "error":
+                    raise ConnectionError("chaos: facade connection refused")
+                if f.mode == "timeout":
+                    raise TimeoutError("chaos: facade call timed out")
+                if f.mode == "slow":
+                    self._sleep(f.delay)
+                elif f.mode == "garbage":
+                    # structurally unusable on every verb's parse path
+                    return {"assignments": 0, "clusters": 0, "excluded": 0,
+                            "result": 0}
+        return self.transport.call(method, payload)
+
     def _call(self, method: str, payload: dict) -> dict:
         """Breaker gate, bounded retry, typed classification -- the
         estimator client's _request shape for a single endpoint."""
         if not self.breaker.allow(self.endpoint):
             self._count(EstimatorCircuitOpen.kind)
+            ESTIMATOR_ERRORS.inc(kind=EstimatorCircuitOpen.kind)
             raise EstimatorCircuitOpen(
                 f"facade circuit open for endpoint {self.endpoint!r}")
         err: EstimatorError = EstimatorUnreachable("no attempt made")
@@ -98,13 +120,14 @@ class FacadeClient:
             if attempt:
                 self._sleep(self.retry_base_s * (2 ** (attempt - 1)))
             try:
-                reply = self.transport.call(method, payload)
+                reply = self._transport_call(method, payload)
                 # force the parse NOW so a garbage reply classifies as
                 # malformed inside the retry loop, not at the caller
                 self._parse_check(method, reply)
             except Exception as exc:  # noqa: BLE001 — classified + counted
                 err = classify_exception(exc)
                 self._count(err.kind)
+                ESTIMATOR_ERRORS.inc(kind=err.kind)
                 continue
             self.breaker.record_success(self.endpoint)
             return reply

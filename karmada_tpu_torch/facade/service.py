@@ -21,10 +21,11 @@ derived once a copy (core.ClusterView).
 
 Each coalesced dispatch is a `facade.cycle` span and each what-if query a
 `facade.whatif` span; every caller's outcome lands on the lifecycle
-ledger (FacadeAssigned / FacadeRejected).  Left out of the port: the
-metrics (facade/metrics.py) and the flight records.  The counters live in
-`state_payload`, as in the JAX package, and `batch_walls` holds the host
-seconds of the last coalesced solves.
+ledger (FacadeAssigned / FacadeRejected), each dispatch is a "facade"
+flight record (obs/incidents), and the karmada_facade_* families
+(facade/metrics.py) count calls, batches and latency.  The counters also
+live in `state_payload`, as in the JAX package, and `batch_walls` holds
+the host seconds of the last coalesced solves.
 """
 
 from __future__ import annotations
@@ -37,11 +38,13 @@ from typing import Dict, List, Optional
 
 from karmada_tpu_torch import obs
 from karmada_tpu_torch.estimator import wire
+from karmada_tpu_torch.facade import metrics as facade_metrics
 from karmada_tpu_torch.facade import whatif as whatif_mod
 from karmada_tpu_torch.facade.messages import WhatIfRequest, WhatIfResponse
 from karmada_tpu_torch.models.cluster import Cluster
 from karmada_tpu_torch.models.work import ResourceBindingStatus
 from karmada_tpu_torch.obs import events as obs_events
+from karmada_tpu_torch.obs import incidents as obs_incidents
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.scheduler.core import ClusterView
 
@@ -63,9 +66,10 @@ class PendingAssign:
     ``result()`` blocks until the coalesced dispatch demuxes this
     caller's slice."""
 
-    __slots__ = ("_p",)
+    __slots__ = ("_svc", "_p")
 
-    def __init__(self, p: _Pending) -> None:
+    def __init__(self, svc: "FacadeService", p: _Pending) -> None:
+        self._svc = svc
         self._p = p
 
     def result(self,
@@ -73,11 +77,7 @@ class PendingAssign:
                ) -> wire.AssignReplicasResponse:
         if not self._p.done.wait(timeout):
             raise TimeoutError("facade assign still in flight")
-        resp = self._p.response
-        if resp is None:  # close() raced the wait
-            resp = wire.AssignReplicasResponse(
-                outcome=OUTCOME_ERROR, message="facade service closed")
-        return resp
+        return self._svc._finish(self._p)  # noqa: SLF001 -- owning service
 
 
 class FacadeService:
@@ -202,7 +202,20 @@ class FacadeService:
                 self._cond.notify_all()
         if batch is not None:
             self._dispatch(batch, bid)
-        return PendingAssign(p)
+        return PendingAssign(self, p)
+
+    def _finish(self, p: _Pending) -> wire.AssignReplicasResponse:
+        """Per-call epilogue once the dispatch demuxed: latency + result
+        metrics, closed-race fallback (PendingAssign.result)."""
+        facade_metrics.FACADE_CALL_LATENCY.observe(
+            self._clock() - p.t_enqueue, method="AssignReplicas")
+        resp = p.response
+        if resp is None:  # close() raced the wait
+            resp = wire.AssignReplicasResponse(
+                outcome=OUTCOME_ERROR, message="facade service closed")
+        facade_metrics.FACADE_CALLS.inc(method="AssignReplicas",
+                                        result=resp.outcome)
+        return resp
 
     def _run(self) -> None:
         """The batch former: cut when the window fills or the oldest
@@ -267,11 +280,18 @@ class FacadeService:
                 results, _ = self.scheduler.solve_batch(
                     bindings, view.clusters, detached=True, view=view)
         wall = time.perf_counter() - t0
+        if obs_incidents.flight_armed():
+            obs_incidents.record(
+                "facade", t=round(time.time(), 6), batch_id=bid,
+                trace_id=trace_id or None, batch=len(batch),
+                caller_trace_ids=caller_traces)
         with self._lock:
             self._batches += 1
             self._coalesced_calls += len(batch)
             self._last_batch_size = len(batch)
             self.batch_walls.append((len(batch), wall))
+        facade_metrics.FACADE_BATCHES.inc()
+        facade_metrics.FACADE_BATCH_SIZE.observe(len(batch))
         # the armed() guard hoisted out of emit_key: a disarmed ledger
         # must not pay for the per-caller message strings
         ledger_armed = obs_events.armed()
@@ -333,17 +353,25 @@ class FacadeService:
             clusters = self._cluster_view().clusters
         fit, diagnosis = serial.find_clusters_that_fit(
             rb.spec, ResourceBindingStatus(), clusters)
+        facade_metrics.FACADE_CALLS.inc(method="SelectClusters",
+                                        result=OUTCOME_SCHEDULED)
         return wire.SelectClustersResponse(
             clusters=sorted(c.name for c in fit), excluded=diagnosis)
 
     # -- WhatIf (the capacity-planning plane) ---------------------------------
     def whatif(self, req: WhatIfRequest) -> WhatIfResponse:
+        t0 = self._clock()
         with obs.TRACER.span(obs.SPAN_FACADE_WHATIF, query=req.query):
             resp = whatif_mod.run_query(self.scheduler, self.store, req,
                                         solve_lock=self._solve_lock)
         with self._lock:
             self._whatif_counts[req.query] = (
                 self._whatif_counts.get(req.query, 0) + 1)
+        facade_metrics.FACADE_WHATIF.inc(query=req.query)
+        facade_metrics.FACADE_CALL_LATENCY.observe(
+            self._clock() - t0, method="WhatIf")
+        facade_metrics.FACADE_CALLS.inc(method="WhatIf",
+                                        result=OUTCOME_SCHEDULED)
         return resp
 
     # -- the JAX package's /debug/facade payload ------------------------------

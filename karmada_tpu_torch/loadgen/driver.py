@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``loadgen/driver.py``: the same clocks,
 service model, recipes, slice and driver, driving the port's Scheduler
 (on the card with `ServeSlice(backend="device")`, unless the caller
-passes ``device="cpu"``).  The chaos harness is not part of the port: a
-scenario whose schedule holds chaos events (`Scenario.chaotic`: chaos and
-hotspot) is refused with ValueError, naming the chaos plane.
+passes ``device="cpu"``).  A chaotic scenario (`Scenario.chaotic`: chaos
+and hotspot) arms the process-wide chaos plane (chaos/), applies its
+scheduled fault windows on the virtual clock, runs the per-cycle
+estimator fan-out harness in compressed mode, and ends with the safety
+auditor (chaos/audit.py) over the intact plane.
 
 The driver injects ResourceBindings and cluster events through the SAME
 store/worker paths real traffic takes — store.create/mutate fires the
@@ -457,8 +459,6 @@ class LoadDriver:
         # (full-ControlPlane runs, so Works render from a real object)
         resource_name: Optional[str] = None,
     ) -> None:
-        if scenario.chaotic:
-            self.refuse_chaotic(scenario)
         self.plane = plane
         self.scenario = scenario
         self.realtime = realtime
@@ -522,14 +522,62 @@ class LoadDriver:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.residual: dict = {}
-    @staticmethod
-    def refuse_chaotic(scenario: Scenario) -> None:
-        """The port has no chaos plane: a scenario scheduling chaos events
-        raises ValueError naming it."""
-        raise ValueError(
-            f"scenario {scenario.name!r} schedules chaos events, and the "
-            "port has no chaos plane yet (ROADMAP Queue A item 7: chaos/ "
-            "and its seams)")
+        # chaos plumbing (scenario.chaotic): the driver arms the process-
+        # wide chaos plane, runs the per-cycle estimator fan-out harness
+        # (circuit-breaker dynamics on the virtual clock), and runs the
+        # safety auditor before uninstall (harness + audit: compressed
+        # mode only; a realtime chaotic scenario still arms the plane and
+        # applies its scheduled fault windows)
+        self._chaos = scenario.chaotic
+        self._audit_baseline: dict = {}
+        self.estimator_client = None
+        self.estimator_breaker = None
+        self.chaos_state: dict = {}
+        self.safety_audit: Optional[dict] = None
+
+    def _setup_chaos(self) -> None:
+        """Arm the chaos plane (empty: the scenario's fault events add
+        rules at their scheduled times) and, in compressed mode, the
+        estimator fan-out harness: the AccurateEstimatorClient against
+        one LocalTransport per loadgen cluster, retry sleeps no-oped
+        (virtual time must not wall-sleep) and the circuit breaker's
+        open-window on the soak's virtual clock.  One fan-out per
+        scheduling cycle gives the breaker its traffic."""
+        from karmada_tpu_torch import chaos as chaos_mod
+
+        chaos_mod.configure("", seed=self.seed)
+        self._audit_baseline = chaos_mod.capture_baseline()
+        if self.realtime:
+            return
+        from karmada_tpu_torch.estimator.client import (
+            AccurateEstimatorClient,
+            CircuitBreaker,
+        )
+        from karmada_tpu_torch.estimator.wire import LocalTransport
+
+        breaker = CircuitBreaker(
+            failure_threshold=3,
+            reset_timeout_s=self.model.cost(self.scenario.batch_window),
+            clock=self.clock)
+        client = AccurateEstimatorClient(
+            breaker=breaker, sleep=lambda _s: None)
+        for c in self.plane.store.list(Cluster.KIND):
+            client.register(
+                c.metadata.name,
+                LocalTransport(lambda _m, _r: {"maxReplicas": 50,
+                                               "unschedulableReplicas": 0}))
+        self.estimator_client = client
+        self.estimator_breaker = breaker
+
+    def _estimator_probe(self) -> None:
+        """One per-cycle estimator fan-out across the live fleet (the
+        harness's stand-in for the scheduler's accurate-tier traffic).
+        Uses the unschedulable-replicas call -- the one estimator method
+        with no rv-keyed memo, so every probe really crosses the wire
+        and the outage window's faults reach the breaker."""
+        for c in self.plane.store.list(Cluster.KIND):
+            self.estimator_client.unschedulable_replicas(
+                c.metadata.name, "Deployment", LOADGEN_NS, "probe")
 
     # -- wiring --------------------------------------------------------------
     def _install(self) -> None:
@@ -546,6 +594,8 @@ class LoadDriver:
                     PropagationPolicy.KIND, LOADGEN_NS,
                     policy.name) is None:
                 self.plane.store.create(policy)
+        if self._chaos:
+            self._setup_chaos()
         # arm the flight recorder (the report derives its latency/dwell
         # quantiles from cycle-span samples); restore on uninstall so a
         # soak inside a test suite leaves the global tracer untouched.
@@ -596,6 +646,10 @@ class LoadDriver:
                 t_end = self.clock.now() + self.model.cost(len(bindings))
                 self._inject_due(t_end)
                 self.clock.advance_to(t_end)
+                if self.estimator_client is not None:
+                    # chaos harness: one estimator fan-out per cycle keeps
+                    # the circuit breaker fed on the same virtual clock
+                    self._estimator_probe()
                 res = self._orig_schedule(bindings, clusters)
                 self._sample_queue()
                 return res
@@ -624,6 +678,16 @@ class LoadDriver:
             self._prev_events_clock = None
         self.plane.store.bus.unsubscribe(self._on_store_event)
         obs.TRACER.recorder = self._prev_recorder
+        if self._chaos:
+            # the chaos plane is process-wide: a finished soak must not
+            # leave faults armed for whatever runs next
+            from karmada_tpu_torch import chaos as chaos_mod
+
+            chaos_mod.disarm()
+        if self.estimator_client is not None:
+            # the harness client's fan-out pool (the breaker stays, for the
+            # report's circuit states)
+            self.estimator_client.close()
         set_active(None)
 
     # -- traffic -------------------------------------------------------------
@@ -698,6 +762,18 @@ class LoadDriver:
             resp = facade_whatif.run_query(self.plane.scheduler,
                                            self.plane.store, req)
             self.whatif_results.append(resp.to_json())
+            return
+        if spec.kind in ("chaos", "chaos_clear"):
+            # scheduled fault window on the same virtual clock as the
+            # traffic: arm / clear rules on the process-wide chaos plane
+            from karmada_tpu_torch import chaos as chaos_mod
+
+            plane = chaos_mod.active()
+            if plane is not None:
+                if spec.kind == "chaos":
+                    plane.add(spec.spec)
+                else:
+                    plane.clear(spec.spec or None)
             return
         if spec.count <= 0:
             return  # a zero-count event is a no-op, NOT alive[-0:] == all
@@ -937,6 +1013,21 @@ class LoadDriver:
                     self.clock.advance(reb.cfg.interval_s)
                     self.plane.runtime.tick()
                     self._drain()
+            if self._chaos:
+                # chaos epilogue while the plane and its rules are still
+                # armed: deliver any still-held watch events (a stalled
+                # event must not outlive the fault window), snapshot the
+                # fire log, and run the safety auditor over the intact
+                # queues
+                from karmada_tpu_torch import chaos as chaos_mod
+
+                flushed = self.plane.store.bus.flush_held()
+                if flushed:
+                    self.plane.runtime.tick()
+                    self._drain()
+                self.chaos_state = chaos_mod.state_payload()
+                self.safety_audit = chaos_mod.audit_soak(
+                    self, self._audit_baseline)
         finally:
             self._uninstall()
         return report.build_soak_report(self)

@@ -1,10 +1,10 @@
 """SOAK reporting: flight-recorder spans -> SLO payload.
 
 Counterpart of the JAX package's ``loadgen/report.py``: the same payload,
-field for field.  The port has no telemetry plane (obs/slo) and no
-incident plane (obs/incidents) yet, so `slo` and `incidents` are None, as
-the JAX payload gives them when those planes are not armed, and no chaos
-section is written (the port refuses chaotic scenarios).
+field for field.  `slo` and `incidents` carry the SLO verdict
+(obs/slo) and the incident index (obs/incidents) when those planes are
+armed, else None; a chaotic scenario adds `chaos`, `safety_audit` and
+the estimator harness's circuit states.
 
 The scheduler's cycle spans (obs.SPAN_CYCLE) carry bounded per-binding
 samples — `e2e_samples` (first-attempt-to-outcome schedule latency on
@@ -209,15 +209,40 @@ def build_soak_report(driver) -> dict:
         **{k: fs[k] for k in ("injected", "scheduled", "failed_attempts",
                               "reschedules")},
     }
-    # telemetry plane (obs/slo): not ported, so never armed
-    payload["slo"] = None
+    # telemetry plane (obs/slo): when the SLO evaluator is armed for this
+    # soak, the payload carries the multi-window burn-rate verdict
+    # computed over the soak's own virtual-clock series
+    from karmada_tpu_torch.obs import slo as obs_slo
+
+    payload["slo"] = (obs_slo.state_payload()
+                      if obs_slo.active() is not None else None)
     # lifecycle ledger (obs/events): this run's event deltas against the
     # driver's install-time baseline -- events/s on the soak's own clock,
     # the coalesce ratio (how much the tail-bump saved the ring), and
     # the per-reason tally the timeline summaries key on
     payload["events"] = _ledger_summary(driver)
-    # incident plane (obs/incidents): not ported, so never armed
-    payload["incidents"] = None
+    # incident plane (obs/incidents): when a store is armed for this
+    # soak, its capture / suppression summary records which triggers
+    # fired and whether the cooldown held
+    from karmada_tpu_torch.obs import incidents as obs_incidents
+
+    payload["incidents"] = (obs_incidents.state_payload()
+                            if obs_incidents.active() is not None else None)
+    if payload["incidents"] is not None:
+        # the index alone: the bundles are one fetch deeper
+        payload["incidents"].pop("flight", None)
+    audit = getattr(driver, "safety_audit", None)
+    if audit is not None:
+        # chaos soak (chaos/): the fault ledger and the conservation /
+        # accountability / recovery proof
+        payload["chaos"] = getattr(driver, "chaos_state", {})
+        payload["safety_audit"] = audit
+        breaker = getattr(driver, "estimator_breaker", None)
+        if breaker is not None:
+            payload["estimator_circuit"] = {
+                "states": breaker.states(),
+                "transitions": breaker.transition_log(),
+            }
     return payload
 
 

@@ -7,7 +7,8 @@ filter-verdict bitmasks, a score/capacity breakdown and a per-binding
 outcome code; they are decoded here into bounded, JSON-ready Decision
 dicts.  The recorder is always passed in by the caller
 (``schedule_items(explain=DecisionRecorder())``): there is no
-process-wide recorder and no metrics registry in the port.
+process-wide recorder in the port.  Every recorded decision counts on
+karmada_explain_decisions_total by outcome.
 
 This module is the single authority for the verdict BIT LAYOUT.  Bit k
 set means filter stage k REJECTED the cluster for that binding, and the
@@ -24,6 +25,8 @@ import collections
 import threading
 import time
 from typing import Dict, List, Optional, Sequence
+
+from karmada_tpu_torch.utils.metrics import REGISTRY
 
 # -- verdict bitmask layout ---------------------------------------------------
 # Bits 0..5 mirror the serial filter chain's evaluation order; bits 6..8
@@ -88,6 +91,12 @@ OUTCOME_NAMES = {0: "scheduled", 1: "no_fit", 2: "unschedulable",
 #: per-decision cluster-table bound: assigned clusters are always kept,
 #: rejected ones up to this many (full per-reason counts are always kept)
 MAX_DECISION_CLUSTERS = 128
+
+DECISIONS_TOTAL = REGISTRY.counter(
+    "karmada_explain_decisions_total",
+    "Explain-plane placement decisions recorded, by outcome",
+    ("outcome",),
+)
 
 def first_reason(mask: int) -> Optional[str]:
     """The serial-priority reason of a verdict mask: its LOWEST set bit
@@ -192,6 +201,7 @@ class DecisionRecorder:
                 self._failed[decision["key"]] = decision
                 while len(self._failed) > self.unsched_keep:
                     self._failed.popitem(last=False)
+        DECISIONS_TOTAL.inc(outcome=decision["outcome"])
 
     def recent(self) -> List[dict]:
         with self._lock:

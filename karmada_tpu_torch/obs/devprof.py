@@ -10,8 +10,9 @@ Counterpart of the JAX package's ``obs/devprof.py``, with its contract:
   * **Memory attribution** -- ``refresh_memory_gauges()`` reads each
     card's ``torch.cuda.memory_stats`` / ``mem_get_info`` into the three
     kinds of the JAX package (in_use, peak, limit), plus the process RSS
-    floor, and keeps them in ``state_payload()["last_memory"]``.  The port
-    has no metrics registry yet, so there are no gauges to export.
+    floor, sets the JAX package's gauges (karmada_device_memory_bytes by
+    device and kind, karmada_process_memory_bytes) and keeps them in
+    ``state_payload()["last_memory"]``.
   * **Profiler capture** -- ``capture_profile(seconds, out_dir)`` wraps a
     ``torch.profiler.profile(activities=[CPU, CUDA])`` window around K15
     ``marker_affine`` (ops/probe.py: it stamps a kernel of that name into
@@ -38,6 +39,25 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from karmada_tpu_torch.device import resolve_device
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
+DEVICE_MEMORY = REGISTRY.gauge(
+    "karmada_device_memory_bytes",
+    "Per-device memory_stats() attribution (bytes), by device and kind "
+    "(in_use / peak / limit); absent on backends that report no stats",
+    ("device", "kind"),
+)
+PROCESS_MEMORY = REGISTRY.gauge(
+    "karmada_process_memory_bytes",
+    "Host process memory (bytes) by kind (rss) — the attribution floor "
+    "on backends whose devices report no memory_stats",
+    ("kind",),
+)
+CAPTURES = REGISTRY.counter(
+    "karmada_devprof_captures_total",
+    "On-demand jax.profiler capture windows completed, by outcome",
+    ("outcome",),
+)
 
 #: memory kinds exported per card: the JAX key -> its kind label
 _MEM_KEYS = (("bytes_in_use", "in_use"),
@@ -129,9 +149,13 @@ def refresh_memory_gauges(devices: Optional[Sequence] = None) -> int:
         row = {"device": rec["device"]}
         for key, kind in _MEM_KEYS:
             row[kind] = rec["memory_stats"][key]
+            DEVICE_MEMORY.set(float(row[kind]), device=rec["device"],
+                              kind=kind)
             updated += 1
         summary.append(row)
     rss = _rss_bytes()
+    if rss is not None:
+        PROCESS_MEMORY.set(float(rss), kind="rss")
     with _LOCK:
         _STATE["last_memory"] = {"at_unix": round(time.time(), 3),
                                  "devices": summary, "rss_bytes": rss}
@@ -202,6 +226,7 @@ def capture_profile(seconds: float, out_dir: str, device=None) -> dict:
     the debug surface answers, it does not raise."""
     requested = min(max(float(seconds), 0.0), MAX_CAPTURE_S)
     if not _CAPTURE_GATE.acquire(blocking=False):
+        CAPTURES.inc(outcome="busy")
         # `busy` is the structured flag a caller maps to 409
         return {"ok": False, "busy": True,
                 "error": "a profiler capture is already running; one "
@@ -252,8 +277,10 @@ def capture_profile(seconds: float, out_dir: str, device=None) -> dict:
                 f"the profiler recorded no device activity in any of "
                 f"{lost} windows (none of their marker_affine kernels "
                 "is in the traces)"))
+        CAPTURES.inc(outcome="ok" if rec["ok"] else "error")
         return _note_capture(rec)
     except Exception as e:  # noqa: BLE001 — answered as the outcome
+        CAPTURES.inc(outcome="error")
         return _note_capture({"ok": False, "error": repr(e)[:400],
                               "seconds": window})
     finally:

@@ -38,6 +38,12 @@ from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 import torch
 
 from karmada_tpu_torch.device import resolve_device
+# the compile-cache families count where ops/kernels.build finds a
+# library built or has nvcc compile it
+from karmada_tpu_torch.ops.kernels import (  # noqa: F401 — the JAX names
+    COMPILE_CACHE_HITS,
+    COMPILE_CACHE_MISSES,
+)
 
 VARIANT_PLAIN = "plain"
 VARIANT_EXPLAIN = "explain"

@@ -51,6 +51,7 @@ import torch
 from karmada_tpu_torch.ops import kernels
 from karmada_tpu_torch.ops import tensors as T
 from karmada_tpu_torch.ops.solver import I64, _on_cuda, _to_dev
+from karmada_tpu_torch.utils.metrics import REGISTRY
 
 #: code bits of the per-slot uint8 output
 DIRTY = 1        # re-solve this row this cycle
@@ -61,6 +62,22 @@ CONSUMER = 4     # re-solve may consume capacity beyond the previous rep
 #: dirty rows / live roster rows of the most recent incremental cycle
 COUNTS: Dict[str, float] = {"dispatches": 0, "rows": 0,
                             "dirty_fraction": 0.0}
+
+DIRTY_DISPATCHES = REGISTRY.counter(
+    "karmada_incremental_dirty_kernel_dispatches_total",
+    "Dirty-set kernel dispatches (one per incremental cycle)",
+)
+DIRTY_ROWS = REGISTRY.counter(
+    "karmada_incremental_dirty_rows_total",
+    "Binding rows classified dirty by the incremental dirty-set kernel "
+    "(re-solved as the cycle's compact sub-batch instead of the full "
+    "roster)",
+)
+DIRTY_FRACTION = REGISTRY.gauge(
+    "karmada_incremental_dirty_fraction",
+    "Dirty rows / live roster rows in the most recent incremental cycle "
+    "(the steady-state win is 1 minus this, roughly)",
+)
 
 #: slot-store fields K12 reads row by row
 SLOT_FIELDS = ("placement_id", "replicas", "fresh", "non_workload", "route",
@@ -303,6 +320,7 @@ def dirty_codes(state, rv_slots: np.ndarray,
             torch.from_numpy(_pad_lanes(state.last_flip_lanes)),
             torch.from_numpy(_pad_lanes(rv_slots))).numpy()
         COUNTS["dispatches"] += 1
+        DIRTY_DISPATCHES.inc()
         return codes
     ws = _workspace(state.device)
     ws.bind(ops)
@@ -321,4 +339,5 @@ def dirty_codes(state, rv_slots: np.ndarray,
     blk[_F], blk[_S], blk[_STAGED] = flips.size, rv.size, 1
     _launch(ws)
     COUNTS["dispatches"] += 1
+    DIRTY_DISPATCHES.inc()
     return ws.host_np[:cap].copy()

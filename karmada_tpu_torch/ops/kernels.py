@@ -36,6 +36,8 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel sources (ops/csrc/<source>.cu), one library each
 SOURCES = ("capacity", "schedule_rows", "compact", "webster_batch",
@@ -82,6 +84,16 @@ BUILD_LOG: Dict[str, str] = {}
 #: libraries build() found already built ("hits") and compiled ("misses")
 #: in this process
 BUILDS: Dict[str, int] = {"hits": 0, "misses": 0}
+# the JAX package's compile-cache families (its ops/aotcache.py): here a
+# library found built is a hit, one nvcc compiles a miss
+COMPILE_CACHE_HITS = REGISTRY.counter(
+    "karmada_solver_compile_cache_hits_total",
+    "Solver executables served from the persistent compilation cache",
+)
+COMPILE_CACHE_MISSES = REGISTRY.counter(
+    "karmada_solver_compile_cache_misses_total",
+    "Solver compilations the persistent compilation cache could not serve",
+)
 
 
 def reset_counts() -> None:
@@ -133,8 +145,10 @@ def build(verbose: bool = False) -> Dict[str, Path]:
         for k in SOURCES:
             if paths[k].exists():
                 BUILDS["hits"] += 1
+                COMPILE_CACHE_HITS.inc()
                 continue
             BUILDS["misses"] += 1
+            COMPILE_CACHE_MISSES.inc()
             tmp = out_dir / f"lib{k}.so.tmp{os.getpid()}"
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                    str(CSRC / f"{k}.cu")]

@@ -57,6 +57,22 @@ import torch
 from karmada_tpu_torch.ops import kernels
 from karmada_tpu_torch.ops.solver import I64, _to_dev
 from karmada_tpu_torch.ops.tensors import FIELD_DTYPES, ROUTE_DEVICE
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
+GATHER_DISPATCHES = REGISTRY.counter(
+    "karmada_resident_gather_dispatches_total",
+    "Fused device-side binding-row gathers dispatched (one per chunk on "
+    "the fused resident path)",
+)
+GATHER_ROWS = REGISTRY.counter(
+    "karmada_resident_gather_rows_total",
+    "Binding rows pulled out of the device slot store by the fused gather",
+)
+GATHER_SCATTERS = REGISTRY.counter(
+    "karmada_resident_gather_row_scatters_total",
+    "Churned binding rows scattered into the device slot store (miss "
+    "re-encodes advancing the mirrors in place)",
+)
 
 #: slot-store fields the gather reads, in K11's operand order
 #: (resident/state.DEVICE_SLOT_FIELDS is exactly this set)
@@ -380,6 +396,7 @@ def dispatch_gather(slots: np.ndarray, mirrors: dict):
         out = gather_batch(_to_dev(np.asarray(slots, np.int64), m.device),
                            mirrors)
     COUNTS["dispatches"] += 1
+    GATHER_DISPATCHES.inc()
     return out
 
 
@@ -398,6 +415,7 @@ def dispatch_sub_gather(slots: np.ndarray, mirrors: dict,
                                _to_dev(np.asarray(lane_inv, np.int32), dev),
                                _to_dev(np.asarray(drop, bool), dev))
     COUNTS["dispatches"] += 1
+    GATHER_DISPATCHES.inc()
     return out
 
 

@@ -30,7 +30,8 @@ batch: it costs time and never changes a placement.
 K8 and K9 have plain PyTorch versions here (shortlist_topk_plain,
 group_sums_plain), taken only for tensors on the CPU.  Counts of
 dispatches, rows, widenings, cells and fallbacks go in the module dicts
-COUNTS and FALLBACKS (plain ints, reset by reset_for_tests()).
+COUNTS and FALLBACKS (plain ints, reset by reset_for_tests()) and in the
+JAX package's karmada_shortlist_* registry families.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from karmada_tpu_torch.obs import events as ev
 from karmada_tpu_torch.ops import kernels
 from karmada_tpu_torch.ops import resident_gather as rg
 from karmada_tpu_torch.ops import tensors as T
+from karmada_tpu_torch.utils.metrics import REGISTRY
 from karmada_tpu_torch.ops.solver import (
     _AVAIL_BITS,
     _AVAIL_CAP,
@@ -83,6 +85,74 @@ COUNTS: Dict[str, int] = {
 #: chunks that fell back to the dense dispatch, by reason
 FALLBACKS: Dict[str, int] = {
     "uncovered": 0, "mixed_routes": 0, "union_wide": 0, "fused": 0}
+
+SHORTLIST_DISPATCHES = REGISTRY.counter(
+    "karmada_shortlist_dispatches_total",
+    "Tier-1 shortlist kernel dispatches (one per shortlisted chunk, "
+    "plus one per widen retry)",
+)
+SHORTLIST_ROWS = REGISTRY.counter(
+    "karmada_shortlist_rows_total",
+    "Binding rows whose tier-2 solve ran over the shortlisted "
+    "sub-vocabulary instead of the full cluster axis",
+)
+SHORTLIST_FALLBACKS = REGISTRY.counter(
+    "karmada_shortlist_fallbacks_total",
+    "Chunks that fell back to the full dense dispatch, by reason "
+    "(uncovered: a binding's eligible set outgrew k even after "
+    "widening, with truncation off or unavailable; mixed_routes: the "
+    "chunk holds rows the device tier does not own; union_wide: the "
+    "candidate union approached the dense width; fused: a fused "
+    "resident-gather batch arrived without its fused_src handle, so "
+    "the shortlist cannot read binding fields host-side)",
+    ("reason",),
+)
+SHORTLIST_FALLBACK_ROWS = REGISTRY.counter(
+    "karmada_shortlist_fallback_rows_total",
+    "Binding rows priced at full dense width, by kind: `needed` rows "
+    "individually required it (eligible set beyond k_max, or a "
+    "non-device route), `chunk_drag` rows were dragged along by a "
+    "per-chunk fallback their own eligible set did not ask for — the "
+    "per-binding routing win is this kind going to zero",
+    ("kind",),
+)
+SHORTLIST_WIDENINGS = REGISTRY.counter(
+    "karmada_shortlist_widenings_total",
+    "Widen-and-retry rounds (k doubled because a binding's eligible "
+    "lane set did not fit)",
+)
+SHORTLIST_CELLS = REGISTRY.counter(
+    "karmada_shortlist_cells_total",
+    "Tier-2 solver cell work, by tier: solve = B*C' actually "
+    "dispatched over the sub-vocabulary, dense_equiv = B*C the full "
+    "dense dispatch would have priced (their ratio is the measured "
+    "cell-work reduction)",
+    ("tier",),
+)
+SHORTLIST_UNION_LANES = REGISTRY.gauge(
+    "karmada_shortlist_union_lanes",
+    "Cluster lanes in the most recent shortlisted chunk's candidate "
+    "union (the tier-2 sub-vocabulary width before pow2 padding)",
+)
+
+#: COUNTS key -> (registry family, its labels)
+_FAMILY_OF = {
+    "dispatches": (SHORTLIST_DISPATCHES, {}),
+    "rows": (SHORTLIST_ROWS, {}),
+    "widenings": (SHORTLIST_WIDENINGS, {}),
+    "cells_solve": (SHORTLIST_CELLS, {"tier": "solve"}),
+    "cells_dense": (SHORTLIST_CELLS, {"tier": "dense_equiv"}),
+    "fallback_rows_needed": (SHORTLIST_FALLBACK_ROWS, {"kind": "needed"}),
+    "fallback_rows_chunk_drag": (SHORTLIST_FALLBACK_ROWS,
+                                 {"kind": "chunk_drag"}),
+}
+
+
+def _count(key: str, n: int = 1) -> None:
+    """Add `n` to COUNTS[key] and to its registry family."""
+    COUNTS[key] += n
+    fam, labels = _FAMILY_OF[key]
+    fam.inc(float(n), **labels)
 
 
 @dataclass(frozen=True)
@@ -329,6 +399,7 @@ def _fallback(reason: str, detail: str) -> Tuple[None, dict]:
     """The counted dense-fallback path (a count and a lifecycle-ledger
     event): a shortlisted chunk never changes width silently."""
     FALLBACKS[reason] += 1
+    SHORTLIST_FALLBACKS.inc(reason=reason)
     ev.emit(_LEDGER_REF, ev.TYPE_WARNING, ev.REASON_SHORTLIST_FALLBACK,
             f"chunk fell back to the dense solve ({reason}): {detail}",
             origin="shortlist")
@@ -417,7 +488,7 @@ def _t1_rows(batch, prof_keys, rep_max, k: int, agg, device):
     nprof = prof_keys.shape[0]
     db = profile_batch(batch, prof_keys, rep_max, device)
     cand, fcount = shortlist_topk(db, _to_dev(agg["group_pref"], device), k)
-    COUNTS["dispatches"] += 1
+    _count("dispatches", 1)
     return cand.cpu().numpy()[:nprof], fcount.cpu().numpy()[:nprof]
 
 
@@ -516,8 +587,8 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
     route = np.asarray(batch.route)
     if route.size and not bool(np.all(route == T.ROUTE_DEVICE)):
         n_other = int(np.sum(route != T.ROUTE_DEVICE))
-        COUNTS["fallback_rows_needed"] += n_other
-        COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
+        _count("fallback_rows_needed", n_other)
+        _count("fallback_rows_chunk_drag", int(valid.sum()))
         return _fallback("mixed_routes",
                          f"{n_other} row(s) owned by spread/big/host tiers")
     prof_keys, prof_of, rep_max = _profiles(hv)
@@ -542,7 +613,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
             if cfg.truncate and allow_truncate:
                 drop[offenders] = True
                 residual = [int(i) for i in offenders]
-                COUNTS["fallback_rows_needed"] += len(residual)
+                _count("fallback_rows_needed", len(residual))
                 ev.emit(_LEDGER_REF, ev.TYPE_NORMAL,
                         ev.REASON_SHORTLIST_TRUNCATE,
                         f"{len(residual)} binding(s) exceed "
@@ -553,9 +624,9 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
                 active = valid & ~drop
                 worst = int(need[active].max()) if bool(active.any()) else 0
             else:
-                COUNTS["fallback_rows_needed"] += len(offenders)
-                COUNTS["fallback_rows_chunk_drag"] += (
-                    int(active.sum()) - len(offenders))
+                _count("fallback_rows_needed", len(offenders))
+                _count("fallback_rows_chunk_drag",
+                       int(active.sum()) - len(offenders))
                 return _fallback(
                     "uncovered", f"eligible set of {worst} lane(s) exceeds "
                     f"k_max={cfg.k_max} for " + _row_names(part, offenders))
@@ -563,7 +634,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
             break
         k = min(max(k * 2, worst), k_cap)
         widened += 1
-        COUNTS["widenings"] += 1
+        _count("widenings", 1)
     # every kept row's prev lanes join the union (residual rows are priced
     # at full width and excluded)
     prev_keep = prev_np[valid & ~drop]
@@ -573,7 +644,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
     ]))
     max_union = max(cfg.k, int(cfg.union_frac * max(batch.n_clusters, 1)))
     if lanes.size > max_union:
-        COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
+        _count("fallback_rows_chunk_drag", int(valid.sum()))
         return _fallback(
             "union_wide", f"candidate union of {lanes.size} lane(s) exceeds "
             f"{max_union} ({cfg.union_frac:.0%} of {batch.n_clusters})")
@@ -581,12 +652,13 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
     if sub is None:
         # a covered binding's prev lane missing from the union would be a
         # tier-1 bug; refuse the shortlist rather than mis-solve
-        COUNTS["fallback_rows_chunk_drag"] += int(valid.sum())
+        _count("fallback_rows_chunk_drag", int(valid.sum()))
         return _fallback("uncovered",
                          "prev-assignment lane absent from the union")
-    COUNTS["rows"] += int(batch.n_bindings) - len(residual)
-    COUNTS["cells_solve"] += batch.B * sub.C
-    COUNTS["cells_dense"] += batch.B * batch.C
+    _count("rows", int(batch.n_bindings) - len(residual))
+    _count("cells_solve", batch.B * sub.C)
+    _count("cells_dense", batch.B * batch.C)
+    SHORTLIST_UNION_LANES.set(float(lanes.size))
     info = {"k": k, "widened": widened, "union": int(lanes.size),
             "sub_c": sub.C, "profiles": int(prof_keys.shape[0]),
             "residual": residual,

@@ -50,6 +50,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from karmada_tpu_torch.analysis import guards as _guards
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.obs.decisions import (
     N_VERDICT_BITS,
@@ -80,6 +81,7 @@ from karmada_tpu_torch.ops.tensors import (
     STRAT_STATIC,
 )
 from karmada_tpu_torch.ops.webster import PRIORITY_QBITS
+from karmada_tpu_torch.utils.metrics import REGISTRY
 
 MAX_INT32 = (1 << 31) - 1
 MAX_INT64 = (1 << 63) - 1
@@ -179,6 +181,24 @@ _DEVICE_SLOT: dict = {}  # str(device) -> (numpy tuple, tensor tuple)
 TRANSFERS: Dict[str, int] = {"h2d_binding_fields": 0, "cluster_hits": 0,
                              "cluster_uploads": 0}
 
+H2D_BINDING_FIELDS = REGISTRY.counter(
+    "karmada_solver_h2d_binding_fields_total",
+    "Binding-axis SolverBatch operands shipped host->device at dispatch; "
+    "the fused resident-gather path (ops/resident_gather) hands live "
+    "device arrays instead, so its steady-state cycles add zero here "
+    "(bench --delta asserts exactly that)",
+)
+
+DONATED_DISPATCHES = REGISTRY.counter(
+    "karmada_solver_donated_dispatches_total",
+    "Compact dispatches whose carry used0 operands were buffer-donated",
+)
+
+D2H_ZEROCOPY = REGISTRY.counter(
+    "karmada_solver_d2h_zerocopy_total",
+    "Device-to-host result planes handed over without a copy (dlpack)",
+)
+
 
 def _frozen(arrs) -> bool:
     return all(not (isinstance(a, np.ndarray) and a.flags.writeable)
@@ -252,6 +272,7 @@ def _binding_rows(batch, rows, device) -> dict:
         else:
             host[f] = a
             TRANSFERS["h2d_binding_fields"] += 1
+            H2D_BINDING_FIELDS.inc()
     if device.type == "cuda" and host:
         t.update(_staged_upload(host, device))
     else:
@@ -1304,6 +1325,8 @@ def solve(batch, waves: int = 1, device=None, tier: str = "std",
     """Dense results (numpy rep[B,C], sel[B,C], status[B]) for tests and
     small callers; the cycle uses solve_compact.  With `explain` the
     (verdict, score, avail, outcome) planes follow as a fourth element."""
+    if _guards.armed():
+        _guards.check_batch(batch, "solve-entry")
     db = device_batch(batch, device, explain=explain)
     rep, sel, status, _, expl = schedule_core(
         db, waves=waves, use_extra=_use_extra(batch), tier=tier,
@@ -1325,6 +1348,8 @@ class CompactHandle:
     used: Optional[tuple]
     # explain: the (verdict, score, avail, outcome) planes on the device
     explain: Optional[tuple] = None
+    # B * C of the dispatched batch: the COO indices' bound (guards.check_d2h)
+    dense_nnz: int = 0
 
 
 def dispatch_compact(batch, waves: int = 1, keep_sel: bool = False,
@@ -1339,13 +1364,22 @@ def dispatch_compact(batch, waves: int = 1, keep_sel: bool = False,
     (handle.used), which the next chunk's dispatch reads.  `explain` runs
     the explain plane too (K7 per wave; the batch must be encoded with
     explain=True)."""
+    if _guards.armed():
+        # armed invariant mode: the host->device boundary check, before
+        # anything is uploaded or launched
+        _guards.check_batch(batch, "dispatch-compact")
+        _guards.check_used(used0, "dispatch-compact carry")
     db = device_batch(batch, device, explain=explain)
     rep, sel, status, used, expl = schedule_core(
         db, waves=waves, use_extra=_use_extra(batch), used0=used0,
         with_used=with_used, tier=tier, explain=explain)
     idx, val, st, nnz = compact(rep, sel, status, db.non_workload, keep_sel)
+    if used0 is not None:
+        # the carry dispatch: the JAX package donates used0's buffers;
+        # here the chunk's own accumulators take their place (see above)
+        DONATED_DISPATCHES.inc()
     return CompactHandle(idx, val, st, nnz, used if with_used else None,
-                         expl)
+                         expl, dense_nnz=db.B * db.C)
 
 
 def finalize_compact(handle: CompactHandle):
@@ -1356,6 +1390,13 @@ def finalize_compact(handle: CompactHandle):
     nnz = int(handle.nnz)
     out = (handle.idx[:nnz].cpu().numpy(), handle.val[:nnz].cpu().numpy(),
            handle.status.cpu().numpy(), nnz)
+    if handle.idx.device.type == "cpu":
+        # planes on the CPU reach the host as numpy views, no copy
+        D2H_ZEROCOPY.inc(3)
+    if _guards.armed():
+        # the device->host boundary check on the host copies just made
+        _guards.check_d2h(out[0], out[1], out[2], handle.dense_nnz,
+                          "finalize-compact")
     if handle.used is not None:
         out = out + (tuple(u.cpu().numpy() for u in handle.used),)
     if handle.explain is not None:

@@ -44,6 +44,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from karmada_tpu_torch.analysis import guards as _guards
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.ops import kernels, serial
 from karmada_tpu_torch.ops import tensors as T
@@ -384,6 +385,8 @@ def solve_spread(batch, items: Sequence, spread_idx: Sequence[int],
     passed use_extra=solver._use_extra(batch)."""
     if not len(spread_idx):
         return ({}, None) if collect_used else {}
+    if _guards.armed():
+        _guards.check_batch(batch, "solve-spread")
     if explain and not batch.explain:
         raise ValueError("the explain plane needs a batch encoded with "
                          "explain=True")

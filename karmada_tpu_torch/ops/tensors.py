@@ -40,6 +40,7 @@ import numpy as np
 
 from karmada_tpu_torch import native as _native
 from karmada_tpu_torch.estimator.general import GeneralEstimator
+from karmada_tpu_torch.utils.metrics import REGISTRY
 from karmada_tpu_torch.models.cluster import Cluster
 from karmada_tpu_torch.models.policy import (
     REPLICA_SCHEDULING_DUPLICATED,
@@ -192,6 +193,11 @@ NATIVE_ABI_DTYPES = {
     "outcome_plane": "int32", "verdict_plane": "int32",
     "decode_name_rank": "int64",
 }
+
+DECODE_NATIVE = REGISTRY.counter(
+    "karmada_solver_decode_native_total",
+    "Per-binding result rows decoded by the native COO decoder",
+)
 
 
 def tc_new_is_plain() -> bool:
@@ -1542,6 +1548,7 @@ def decode_compact(
             )
             if handled >= 0:
                 _native.COUNTS["decode_coo"] += handled
+                DECODE_NATIVE.inc(int(handled))
                 return out
             # ascending contract broken: the C pass may have filled slots
             # before it saw it -- rebuild, and let the Python split's

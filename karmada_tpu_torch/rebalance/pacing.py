@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``rebalance/pacing.py``.  Evictors that
 act on the same fleet (the rebalance plane's drain here; the JAX package's
 descheduler too) draw from one ledger: at most `per_cluster` evictions
 per cluster per `interval_s` window, whoever asks first wins, and every
-grant and denial is counted by consumer (`spent`, `denied`).
+grant and denial is counted by consumer (`spent`, `denied`, and the
+karmada_rebalance_eviction_budget_* families).
 
 The window is a fixed tumbling interval, so pacing replays exactly on an
 injected clock.
@@ -15,6 +16,22 @@ from __future__ import annotations
 import threading
 import time
 from typing import Callable, Dict
+
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
+BUDGET_SPENT = REGISTRY.counter(
+    "karmada_rebalance_eviction_budget_spent_total",
+    "Eviction-pacing tokens granted from the shared per-cluster budget, "
+    "by consumer (descheduler / rebalance)",
+    ("consumer",),
+)
+
+BUDGET_DENIED = REGISTRY.counter(
+    "karmada_rebalance_eviction_budget_denied_total",
+    "Eviction attempts refused because the cluster's shared pacing "
+    "budget for the current interval was exhausted, by consumer",
+    ("consumer",),
+)
 
 
 class EvictionBudget:
@@ -50,9 +67,11 @@ class EvictionBudget:
             spent = self._spent.get(cluster, 0)
             if spent >= self.per_cluster:
                 self.denied[consumer] = self.denied.get(consumer, 0) + 1
+                BUDGET_DENIED.inc(consumer=consumer)
                 return False
             self._spent[cluster] = spent + 1
             self.spent[consumer] = self.spent.get(consumer, 0) + 1
+        BUDGET_SPENT.inc(consumer=consumer)
         return True
 
     def remaining(self, cluster: str) -> int:

@@ -25,9 +25,12 @@ on the scheduler queue's clock the plane runs
             pending eviction tasks >= spec.replicas); violations are
             counted.
 
-A raising cycle is contained by maybe_run (the periodic loop survives)
-and counted in `cycle_faults` by exception kind: a K13 build or launch
-failure shows there, never only as a plane that detects nothing.  Host
+Chaos seam `rebalance.plan` (skip / raise) fires at the top of the
+cycle.  A raising cycle is contained by maybe_run (the periodic loop
+survives) and counted in `cycle_faults` and
+karmada_rebalance_cycle_faults_total by exception kind (a chaos skip as
+"chaos_skip"): a K13 build or launch failure shows there, never only as a
+plane that detects nothing.  Host
 time per stage of the last cycle is in `last_timing` (and the kernel's
 CUDA-event time on a card).
 """
@@ -42,6 +45,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from karmada_tpu_torch import chaos as chaos_mod
 from karmada_tpu_torch import obs
 from karmada_tpu_torch.controllers.failover import evict_cluster
 from karmada_tpu_torch.device import resolve_device
@@ -53,8 +57,54 @@ from karmada_tpu_torch.ops.tensors import fleet_capacity
 from karmada_tpu_torch.rebalance.pacing import EvictionBudget
 from karmada_tpu_torch.store.store import NotFoundError
 from karmada_tpu_torch.utils import events as ev
+from karmada_tpu_torch.utils.metrics import REGISTRY
 
 PRODUCER = "rebalance"
+
+CYCLES = REGISTRY.counter(
+    "karmada_rebalance_cycles_total",
+    "Rebalance detect cycles run (drains or not)",
+)
+
+EVICTIONS = REGISTRY.counter(
+    "karmada_rebalance_evictions_total",
+    "Graceful evictions initiated by the rebalance plane, by cluster "
+    "drained from",
+    ("cluster",),
+)
+
+CYCLE_FAULTS = REGISTRY.counter(
+    "karmada_rebalance_cycle_faults_total",
+    "Rebalance cycles skipped or aborted by a fault (chaos rebalance.plan "
+    "seam included), by kind — the cycle is contained, the plane keeps "
+    "running",
+    ("kind",),
+)
+
+CONSERVATION_VIOLATIONS = REGISTRY.counter(
+    "karmada_rebalance_conservation_violations_total",
+    "Bindings observed serving fewer than their desired replicas while a "
+    "rebalance eviction was in flight (the invariant the drain chain "
+    "must never break)",
+)
+
+OVERCOMMIT = REGISTRY.gauge(
+    "karmada_rebalance_overcommit_milli",
+    "Last detect cycle's committed/capacity ratio x1000 per cluster",
+    ("cluster",),
+)
+
+DRAIN_NEED = REGISTRY.gauge(
+    "karmada_rebalance_drain_need",
+    "Replicas the last detect cycle wants shed per cluster to get back "
+    "inside the thresholds",
+    ("cluster",),
+)
+
+CONVERGED = REGISTRY.gauge(
+    "karmada_rebalance_converged",
+    "1 while the last detect cycle found no cluster needing a drain",
+)
 
 #: the spread gate when spread_tolerance_milli is 0 (report-only):
 #: div_milli is bounded by +/-1000, so a gate this far above it never
@@ -126,12 +176,26 @@ class RebalancePlane:
             self.run_cycle()
         except Exception as e:  # noqa: BLE001 — cycle fault containment
             kind = type(e).__name__
-            self.cycle_faults[kind] = self.cycle_faults.get(kind, 0) + 1
+            self._count_fault(kind)
             traceback.print_exc()
+
+    def _count_fault(self, kind: str) -> None:
+        CYCLE_FAULTS.inc(kind=kind)
+        with self._lock:
+            self.cycle_faults[kind] = self.cycle_faults.get(kind, 0) + 1
 
     # -- one cycle -----------------------------------------------------------
     def run_cycle(self) -> dict:
         """detect -> drain -> audit; returns the cycle snapshot."""
+        if chaos_mod.armed():
+            f = chaos_mod.fire(chaos_mod.SITE_REBALANCE_PLAN)
+            if f is not None:
+                if f.mode == "skip":
+                    # the planned cycle is dropped whole; the next interval
+                    # re-detects from fresh state, nothing is lost
+                    self._count_fault("chaos_skip")
+                    return {"skipped": "chaos"}
+                raise RuntimeError("chaos: rebalance.plan raise")
         timing: Dict[str, float] = {}
         with obs.TRACER.span(obs.SPAN_REBALANCE_CYCLE) as cspan:
             t0 = time.perf_counter()
@@ -262,6 +326,7 @@ class RebalancePlane:
                             origin=PRODUCER)
                     break  # this cluster's window is spent; next interval
                 if self._evict(key, cname, prio):
+                    EVICTIONS.inc(cluster=cname)
                     self.evictions_by_cluster[cname] = (
                         self.evictions_by_cluster.get(cname, 0) + 1)
                     drained_keys.add(key)
@@ -311,6 +376,7 @@ class RebalancePlane:
                     "binding": f"{rb.namespace}/{rb.name}",
                     "serving": serving, "desired": rb.spec.replicas})
         if violations:
+            CONSERVATION_VIOLATIONS.inc(len(violations))
             with self._lock:
                 self._violations += len(violations)
                 self._violation_samples = (
@@ -320,6 +386,7 @@ class RebalancePlane:
     # -- state ---------------------------------------------------------------
     def _publish(self, names, committed, capacity, drain_need, over_milli,
                  div_milli, evicted: int, violations) -> dict:
+        CYCLES.inc()
         per_cluster = {}
         for i, n in enumerate(names):
             per_cluster[n] = {
@@ -329,11 +396,15 @@ class RebalancePlane:
                 "div_milli": int(div_milli[i]),
                 "drain_need": int(drain_need[i]),
             }
+            OVERCOMMIT.set(float(over_milli[i]), cluster=n)
+            DRAIN_NEED.set(float(drain_need[i]), cluster=n)
+        converged = not any(int(d) > 0 for d in drain_need)
+        CONVERGED.set(1.0 if converged else 0.0)
         snapshot = {
             "t": round(self.clock(), 6),
             "clusters": per_cluster,
             "evicted": evicted,
-            "converged": not any(int(d) > 0 for d in drain_need),
+            "converged": converged,
             "violations": len(violations),
         }
         with self._lock:

@@ -36,12 +36,14 @@ Driven single-threaded from one cycle loop; stats are plain ints.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from karmada_tpu_torch import chaos as chaos_mod
 from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.estimator.general import GeneralEstimator
@@ -56,6 +58,53 @@ from karmada_tpu_torch.resident.deltas import (
     CycleDeltas,
     _RANK,
     classify_change,
+)
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
+# -- observability ------------------------------------------------------------
+RESIDENT_GENERATION = REGISTRY.gauge(
+    "karmada_resident_generation",
+    "Structural generation of the resident state plane (bumps on every "
+    "full rebuild; 0 = no plane adopted yet)",
+)
+RESIDENT_VOCAB = REGISTRY.gauge(
+    "karmada_resident_vocab_size",
+    "Entries per resident vocabulary axis",
+    ("axis",),
+)
+RESIDENT_ROWS = REGISTRY.gauge(
+    "karmada_resident_rows_cached",
+    "Encoded binding rows currently cached in the resident slot store",
+)
+RESIDENT_LOOKUPS = REGISTRY.counter(
+    "karmada_resident_row_lookups_total",
+    "Per-binding row-cache lookups by result (hit = gathered from the "
+    "resident store, miss = re-encoded via encode_batch)",
+    ("result",),
+)
+RESIDENT_REBUILDS = REGISTRY.counter(
+    "karmada_resident_rebuilds_total",
+    "Full resident-plane rebuilds (lossless fallback to encode_batch) "
+    "by reason",
+    ("reason",),
+)
+RESIDENT_AUDITS = REGISTRY.counter(
+    "karmada_resident_audits_total",
+    "Resident-vs-full-encode parity audits by outcome (a mismatch "
+    "forces a rebuild and the fresh batch serves the cycle)",
+    ("outcome",),
+)
+RESIDENT_DELTAS = REGISTRY.counter(
+    "karmada_resident_cluster_deltas_total",
+    "Coalesced cluster deltas applied to the resident plane by class",
+    ("kind",),
+)
+RESIDENT_GATHER_FALLBACKS = REGISTRY.counter(
+    "karmada_resident_gather_fallbacks_total",
+    "Cycles the fused device-gather path fell back to the host assemble "
+    "control by reason (explain = explain plane armed for the chunk, "
+    "device-rows = slot-store mirror sync failed/degraded)",
+    ("reason",),
 )
 
 _ROUTE_DEVICE = tensors.ROUTE_DEVICE
@@ -257,6 +306,7 @@ class _DeviceRows:
         resident_update.scatter_fields(items, self.device)
         if not full:
             resident_gather.COUNTS["row_scatters"] += len(dirty)
+            resident_gather.GATHER_SCATTERS.inc(len(dirty))
 
 
 class AuditMismatch(Exception):
@@ -448,6 +498,8 @@ class ResidentState:
             self.device_rows.mirrors = {}
         self._rows_dirty = "full"
         self.generation += 1
+        RESIDENT_GENERATION.set(float(self.generation))
+        RESIDENT_REBUILDS.inc(reason=reason)
         self.rebuilds[reason] = self.rebuilds.get(reason, 0) + 1
 
     # -- delta application ---------------------------------------------------
@@ -459,6 +511,7 @@ class ResidentState:
             lane = idx.get(name)
             if lane is None:
                 continue  # membership drift; begin_cycle's names check owns it
+            RESIDENT_DELTAS.inc(kind=kind)
             if kind == CAPACITY:
                 cap_lanes.append(lane)
             elif kind == API:
@@ -594,12 +647,26 @@ class ResidentState:
         `audit` forces/suppresses the parity audit (None = cadence)."""
         n = len(items)
         assert self.cindex is not None, "begin_cycle() before encode_cycle()"
+        corrupted = False
+        if self.plane is not None and chaos_mod.armed():
+            # chaos seam (resident.mirror:corrupt): flip one value in a
+            # resident master and force THIS cycle's parity audit -- the
+            # corrupted batch must be caught by the audit and replaced by
+            # the fresh encode before the solve reads it (an auditable
+            # rebuild, never a wrong placement)
+            f = chaos_mod.fire(chaos_mod.SITE_RESIDENT_MIRROR,
+                               generation=self.generation)
+            if f is not None and f.mode == "corrupt":
+                self._chaos_corrupt()
+                corrupted = True
+                audit = True
         if self.plane is None:
             # lossless fallback: ONE full encode, adopted as masters
             batch = tensors.encode_batch(items, self.cindex, self.estimator,
                                          cache=self.enc_cache,
                                          explain=explain)
             self._adopt(batch, items, tokens)
+            RESIDENT_LOOKUPS.inc(n, result="miss")
             self.misses += n
             self.sync_device()
             return batch
@@ -629,6 +696,7 @@ class ResidentState:
             if self.fused:
                 if explain:
                     # the explain planes decode host-side per row
+                    RESIDENT_GATHER_FALLBACKS.inc(reason="explain")
                     self.gather_fallbacks["explain"] = \
                         self.gather_fallbacks.get("explain", 0) + 1
                 else:
@@ -638,23 +706,61 @@ class ResidentState:
                 self.host_cycles += 1
             else:
                 self.fused_cycles += 1
+        RESIDENT_LOOKUPS.inc(hits, result="hit")
+        RESIDENT_LOOKUPS.inc(len(miss_pos), result="miss")
         self.hits += hits
         self.misses += len(miss_pos)
         run_audit = (audit if audit is not None
                      else (self.audit_interval > 0
                            and self.cycles % self.audit_interval == 0))
         if run_audit:
-            fresh = self.audit(items, batch, tokens, explain=explain)
+            solve_view = batch
+            if corrupted:
+                # the corruption travels as far as a real one would: the
+                # same K10 sync a real update takes carries the flipped
+                # lane to the card's mirror, and the audit compares its
+                # fresh encode with the cluster side the solve would read
+                # there
+                self.sync_device()
+                solve_view = self.mirror_view(batch)
+            fresh = self.audit(items, solve_view, tokens, explain=explain)
             if fresh is not None:
                 return fresh
         self.sync_device()
         return batch
+
+    def _chaos_corrupt(self) -> None:
+        """Bit-flip one live lane of a cluster-side master (the fault a
+        bad copy or a buggy scatter kernel would produce), through the
+        same copy-on-write transaction real updates use, and mark the
+        mirror dirty so the corruption propagates exactly as far as a real
+        one would.  pods_allowed on a valid lane: a value every solve
+        reads and the parity audit compares unconditionally."""
+        txn = _Txn(self.plane)
+        arr = txn.get("pods_allowed")
+        lane = max(self.nC - 1, 0) // 2
+        arr[lane] += 1
+        txn.commit()
+        self._mark_dirty("pods_allowed", np.asarray([lane], np.int64))
+
+    def mirror_view(self, batch: tensors.SolverBatch) -> tensors.SolverBatch:
+        """`batch` with its cluster-side fields read back from the card's
+        mirrors (what a solve of `batch` reads there); fields whose mirror
+        does not hold the batch's master stay the batch's own."""
+        dev = self.device_mirrors
+        swap = {}
+        for f in CLUSTER_SIDE_FIELDS:
+            mirror = dev.mirrors.get(f)
+            if mirror is not None and dev.np_refs.get(f) is getattr(batch, f):
+                swap[f] = mirror.cpu().numpy()
+        return dataclasses.replace(batch, **swap) if swap else batch
 
     def forget(self, key: str) -> None:
         """Drop one binding's cached row (binding deleted)."""
         row = self.rows.pop(key, None)
         if row is not None:
             self._free.append(row.slot)
+        RESIDENT_ROWS.set(float(len(self.rows)))
 
     # -- adopt / merge / assemble --------------------------------------------
     def _adopt(self, batch: tensors.SolverBatch, items: Sequence,
@@ -710,6 +816,7 @@ class ResidentState:
         self._dirty = {}  # fresh masters: full re-place on next sync
         self.device_mirrors.np_refs = {}
         self._rows_dirty = "full"
+        self._update_vocab_gauges()
 
     def _alloc_slots(self, k: int) -> np.ndarray:
         out = np.empty(k, np.int64)
@@ -816,6 +923,8 @@ class ResidentState:
             mini.evict_idx[:nm]
         slots[miss_pos] = mslots
         self._mark_rows_dirty(mslots)
+        RESIDENT_ROWS.set(float(len(self.rows)))
+        self._update_vocab_gauges()
 
     def _mark_rows_dirty(self, slots: np.ndarray) -> None:
         """Accumulate slot-store mirror dirtiness: churned slot sets union;
@@ -994,6 +1103,7 @@ class ResidentState:
         out = resident_gather.dispatch_gather(slots_b,
                                               self.device_rows.mirrors)
         resident_gather.COUNTS["rows"] += n
+        resident_gather.GATHER_ROWS.inc(n)
         route = np.ascontiguousarray(p.route[sl], np.int32)
         nw_host = np.ascontiguousarray(p.non_workload[sl])
         # the JAX solver's donation-safety bound (solver._nnz_bound): wide
@@ -1052,6 +1162,7 @@ class ResidentState:
                                          explain=explain)
             mismatches = compare_batches(batch, fresh)
         outcome = "mismatch" if mismatches else "ok"
+        RESIDENT_AUDITS.inc(outcome=outcome)
         if mismatches:
             self.audit_mismatches += 1
         else:
@@ -1060,6 +1171,17 @@ class ResidentState:
                            "fields": mismatches[:8]}
         if not mismatches:
             return None
+        # incident trigger (obs/incidents): divergence adoption is a
+        # forensic moment -- capture the flight ring and the plane's state
+        # before the rebuild papers over it
+        from karmada_tpu_torch.obs import incidents as obs_incidents
+
+        obs_incidents.trigger(
+            obs_incidents.TRIGGER_AUDIT_DIVERGENCE,
+            f"resident audit divergence adopted: {len(mismatches)} "
+            "diverged field(s); plane rebuilt from scratch",
+            detail={"plane": "resident", "fields": mismatches[:8],
+                    "cycle": self.cycles, "items": len(items)})
         self._reset(self.clusters, "audit-mismatch")
         self._adopt(fresh, items, tokens)
         self.sync_device()
@@ -1081,6 +1203,14 @@ class ResidentState:
         self._dirty = {}
 
     # -- introspection -------------------------------------------------------
+    def _update_vocab_gauges(self) -> None:
+        RESIDENT_VOCAB.set(float(self.nC), axis="clusters")
+        RESIDENT_VOCAB.set(float(len(self.placements)), axis="placements")
+        RESIDENT_VOCAB.set(float(len(self.class_keys)), axis="classes")
+        RESIDENT_VOCAB.set(float(len(self.res_names)), axis="resources")
+        RESIDENT_VOCAB.set(float(len(self.gvk_keys)), axis="gvks")
+        RESIDENT_ROWS.set(float(len(self.rows)))
+
     def stats(self) -> dict:
         """Counts of the plane: generation, vocabulary sizes, rows cached,
         hits and misses, rebuilds, audits, the fused path's cycles."""

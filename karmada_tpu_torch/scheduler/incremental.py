@@ -52,10 +52,27 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 
 from karmada_tpu_torch.obs import events as ev
+from karmada_tpu_torch.obs import incidents as obs_incidents
 from karmada_tpu_torch.ops import dirty as dirty_mod
 from karmada_tpu_torch.ops import tensors as T
 from karmada_tpu_torch.resident.state import RowToken
 from karmada_tpu_torch.scheduler import pipeline
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
+INC_CYCLES = REGISTRY.counter(
+    "karmada_incremental_cycles_total",
+    "Incremental-plane scheduling cycles by mode (incremental: dirty "
+    "sub-batches only; full: dense solve forced by adopt/rebuild/"
+    "roster-change/audit-mismatch)",
+    ("mode",),
+)
+INC_AUDITS = REGISTRY.counter(
+    "karmada_incremental_audits_total",
+    "Bit-exact parity audits of the incremental solve against the full "
+    "dense control (outcome=ok|mismatch; mismatch also forces adoption "
+    "of the control's results and ledger)",
+    ("outcome",),
+)
 
 #: conservative grade for rows with no slot-store row yet (appended
 #: bindings, affinity-failover rows that bypass the cache)
@@ -261,6 +278,7 @@ class IncrementalSolver:
         self._since_wb = set(self.results)
         self.ledger = res.carry
         self._refresh_slots(range(len(self.keys)))
+        INC_CYCLES.inc(mode="full")
         rep.mode = "full"
         rep.reason = reason
         rep.dirty = len(self.keys)
@@ -318,6 +336,7 @@ class IncrementalSolver:
             rep = self._full(full_reason, rep)
             self._pending.clear()
             rep.seconds = time.perf_counter() - t0
+            self._flight(rep)
             return rep
 
         appended = self._set_roster(bindings, keys)
@@ -363,6 +382,9 @@ class IncrementalSolver:
         rep.dirty = int(dirty_pos.size)
         dirty_mod.COUNTS["rows"] += rep.dirty
         dirty_mod.COUNTS["dirty_fraction"] = rep.dirty / max(n, 1)
+        dirty_mod.DIRTY_ROWS.inc(rep.dirty)
+        dirty_mod.DIRTY_FRACTION.set(rep.dirty / max(n, 1))
+        INC_CYCLES.inc(mode="incremental")
         t2 = time.perf_counter()
         rep.stages["dirty"] = t2 - t1
         rep.dirty_split = {"roster": t_codes - t1, "codes": t_map - t_codes,
@@ -401,7 +423,22 @@ class IncrementalSolver:
             rep.audit_outcome = self._audit(pre)
             rep.stages["audit"] = time.perf_counter() - t3
         rep.seconds = time.perf_counter() - t0
+        self._flight(rep)
         return rep
+
+    def _flight(self, rep: CycleReport) -> None:
+        """One kind="incremental" flight record per cycle: the dirty-set
+        and taint-group stats plus the audit verdict digest the incident
+        bundles snapshot.  Disarmed cost is one list read."""
+        if not obs_incidents.flight_armed():
+            return
+        obs_incidents.record(
+            "incremental", t=round(time.time(), 6), cycle=self.cycles,
+            mode=rep.mode, reason=rep.reason, total=rep.total,
+            dirty=rep.dirty, chunk_groups=rep.chunk_groups,
+            groups=list(rep.groups), host_rows=rep.host_rows,
+            audited=rep.audited, audit_outcome=rep.audit_outcome,
+            seconds=round(rep.seconds, 6))
 
     # -- grouping -------------------------------------------------------------
     def _group(self, dirty_pos: np.ndarray,
@@ -463,7 +500,9 @@ class IncrementalSolver:
                    and _norm(self.results[p]) != _norm(res.results[p]))]
         ledger_ok = _ledger_equal(self.ledger, res.carry)
         if not bad and ledger_ok:
+            INC_AUDITS.inc(outcome="ok")
             return "ok"
+        INC_AUDITS.inc(outcome="mismatch")
         what = (f"{len(bad)} row(s) diverged"
                 + ("" if ledger_ok else " and the capacity ledger drifted"))
         names = ", ".join(self.keys[p] for p in sorted(bad)[:5])
@@ -473,6 +512,21 @@ class IncrementalSolver:
                 + (f" ({names})" if names else "")
                 + "; adopting the control's results and ledger",
                 origin="incremental")
+        # incident bundle with the divergence diff (built BEFORE the
+        # adoption below rewrites self.results): row-level incremental vs
+        # control answers, bounded
+        diff = [{"key": self.keys[p],
+                 "incremental": (None if self.results.get(p) is None
+                                 else _norm(self.results[p])),
+                 "control": (None if res.results.get(p) is None
+                             else _norm(res.results[p]))}
+                for p in sorted(bad)[:10]]
+        obs_incidents.trigger(
+            obs_incidents.TRIGGER_AUDIT_DIVERGENCE,
+            f"incremental audit divergence adopted: {what}",
+            refs=[self.keys[p] for p in sorted(bad)[:16]],
+            detail={"rows": diff, "n_bad": len(bad),
+                    "ledger_ok": ledger_ok, "cycle": self.cycles})
         self.results = dict(res.results)
         self._since_wb = set(self.results)
         self.ledger = res.carry

@@ -74,6 +74,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from karmada_tpu_torch import chaos as chaos_mod
 from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
 from karmada_tpu_torch.obs import decisions as obs_decisions
@@ -304,6 +305,31 @@ def _record_decisions(recorder, batch, part, offset, keys, out_local,
                 key_of(i), r, nc, backend="device-big"))
 
 
+def _chaos_d2h(batch, idx, val, status, chunk_index: int) -> None:
+    """The device.d2h chaos seam, applied to the finalized COO planes
+    (the host copies of K3's output).  `raise` fails the chunk outright;
+    `poison` corrupts a COPY of the index plane and runs it through the
+    d2h invariant guard (analysis/guards.check_d2h) -- a poisoned result
+    surfaces as a loud InvariantViolation, never as a silently wrong
+    placement."""
+    f = chaos_mod.fire(chaos_mod.SITE_DEVICE_D2H, chunk=chunk_index)
+    if f is None:
+        return
+    if f.mode == "poison":
+        poisoned = np.array(idx)
+        if poisoned.size:
+            from karmada_tpu_torch.analysis import guards
+
+            dense_nnz = int(batch.B) * int(batch.C)
+            poisoned.flat[0] = dense_nnz + 7  # out of [-1, dense_nnz)
+            guards.check_d2h(poisoned, np.asarray(val),
+                             np.asarray(status), dense_nnz,
+                             where="chaos-d2h")
+            # check_d2h must have raised; reaching here means the guard
+            # stopped guarding -- fail the chunk loudly either way
+    raise chaos_mod.ChaosFault(chaos_mod.SITE_DEVICE_D2H, f.mode)
+
+
 @dataclass
 class _InFlight:
     offset: int
@@ -509,6 +535,8 @@ def run_pipeline(
             d2h_span = stage(obs.SPAN_D2H)
             fin = solver.finalize_compact(entry.handle)
             idx, val, status = fin[:3]
+            if chaos_mod.armed():
+                _chaos_d2h(batch, idx, val, status, entry.offset // chunk)
             if armed:
                 expl_planes = fin[-1]  # (verdict, score, avail, outcome)
             t_read = time.perf_counter()
@@ -611,6 +639,12 @@ def run_pipeline(
             # fused batch's device b_valid
             if chain is not None or bool(
                     np.any(np.asarray(batch.route) == tensors.ROUTE_DEVICE)):
+                if chaos_mod.armed():
+                    # chaos seam (device.dispatch:raise): a dispatch-time
+                    # device fault fails the whole cycle; the scheduler's
+                    # cycle-fault containment re-queues the batch
+                    chaos_mod.raise_if(chaos_mod.SITE_DEVICE_DISPATCH,
+                                       chunk=lo // chunk)
                 d_span = (tracer.start_span(obs.SPAN_DISPATCH, parent=ch_span)
                           if ch_span is not None else None)
                 used0 = chain.carry_in(batch) if chain is not None else None

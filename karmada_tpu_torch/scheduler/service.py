@@ -82,9 +82,16 @@ cycle (its `bindings`, `backend`, `cycle_fault` and the stride-sampled
 stage spans under it, a `scheduler.serial` span over the host rows, the
 scheduler/metrics families and the ledger's batch, overload, fault,
 degrade, re-arm and outcome events.  The tracer is off by default and no
-span synchronises the device.  The JAX package's chaos seams, mesh,
-incident plane and telemetry ring are not part of the port.  The device
-probe and its serve policy live in utils/deviceprobe.py.
+span synchronises the device.  The faults and telemetry planes are wired
+as in the JAX package too: `Scheduler(chaos=, chaos_seed=)` arms the
+process-wide chaos plane (chaos/), the `device.cycle:hang` seam sits at
+the top of the device cycle (under the guard when one runs), every
+batched cycle lands a "cycle" flight record (obs/incidents), a contained
+cycle fault and a backend degrade fire their incident triggers, and each
+cycle and periodic tick offer the telemetry ring (obs/timeseries) a
+sample on the queue's clock.  The JAX package's mesh is not part of the
+port.  The device probe and its serve policy live in
+utils/deviceprobe.py.
 """
 
 from __future__ import annotations
@@ -100,6 +107,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from karmada_tpu_torch import chaos as chaos_mod
 from karmada_tpu_torch import native as native_mod
 from karmada_tpu_torch import obs
 from karmada_tpu_torch.device import resolve_device
@@ -115,6 +123,8 @@ from karmada_tpu_torch.models.work import (
 )
 from karmada_tpu_torch.obs import decisions as obs_decisions
 from karmada_tpu_torch.obs import events as ev
+from karmada_tpu_torch.obs import incidents as obs_incidents
+from karmada_tpu_torch.obs import timeseries as obs_timeseries
 from karmada_tpu_torch.obs.decisions import classify_unschedulable
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.ops.shortlist import ShortlistConfig
@@ -226,6 +236,11 @@ class Scheduler:
         # the degrade is one-way)
         device_cycle_timeout_s: Optional[float] = None,
         device_recover_cycles: Optional[int] = None,
+        # chaos plane (chaos/): arm the process-wide fault-injection plane
+        # with this spec string at construction; None / "" leaves it
+        # disarmed (one list read per seam traversal)
+        chaos: Optional[str] = None,
+        chaos_seed: int = 0,
         # explain plane: the rate in (0, 1] of cycles recorded into
         # `decisions`; 0 leaves it disarmed
         explain: float = 0.0,
@@ -276,6 +291,13 @@ class Scheduler:
         self.backend = backend
         self.device_cycle_timeout_s = device_cycle_timeout_s
         self.device_recover_cycles = device_recover_cycles
+        if chaos:
+            chaos_mod.configure(chaos, seed=chaos_seed)
+        # incident-plane flight breadcrumbs (the cycle worker's): the last
+        # device pipeline's accounting and the shortlist counter base the
+        # per-cycle deltas difference against
+        self._last_pipeline: Optional[dict] = None
+        self._flight_shortlist_base: Optional[dict] = None
         # recoverable-degrade state (the cycle worker's): the backend the
         # Scheduler degraded from, non-empty cycles since, and consecutive
         # failed re-arms (the cooldown's doubling)
@@ -458,6 +480,9 @@ class Scheduler:
         # a cycle runs: a wedged queue shows when cycles stop happening
         for qname, age in oldest.items():
             sched_metrics.QUEUE_OLDEST_AGE.set(age, queue=qname)
+        # idle planes keep producing series too (rate-limited by the
+        # ring's min_interval on the same queue clock)
+        obs_timeseries.maybe_sample(self.queue.now())
         if moved or ready:
             self.worker.enqueue(_CYCLE)
 
@@ -577,9 +602,11 @@ class Scheduler:
                   else [])
         self._update_overload(dwells, popped=len(infos),
                               active_after=active_after)
+        fr: Optional[dict] = None  # this cycle's flight record, if armed
         if todo:
             sched_metrics.BATCH_SIZE.observe(len(todo))
             self._cycle_id += 1
+            batch_n = len(todo)
             cut_reason = ("window" if len(infos) >= self.batch_window else
                           "deadline" if self.batch_deadline_s is not None
                           else "drain")
@@ -627,6 +654,15 @@ class Scheduler:
                     with self._queue_lock:
                         for info, _ in todo:
                             self.queue.push_backoff_if_not_present(info)
+                    # incident trigger after the queue lock is released
+                    obs_incidents.trigger(
+                        obs_incidents.TRIGGER_CYCLE_FAULT,
+                        f"cycle fault contained ({kind}); popped "
+                        "bindings routed to backoff",
+                        refs=[info.key for info, _ in todo[:16]],
+                        detail={"kind": kind,
+                                "cycle_id": self._cycle_id,
+                                "batch": batch_n})
                     todo = []
                 finally:
                     with self._queue_lock:
@@ -673,6 +709,33 @@ class Scheduler:
                         e2e_samples=es, e2e_stride=e_stride,
                         overload=self._overload)
             self._log_cycle(len(infos), outcomes, time.perf_counter() - t0)
+            # incident plane: one compact flight record per batched cycle
+            # (assembled only when armed)
+            if obs_incidents.flight_armed():
+                n_unsched = sum(isinstance(r, serial.UnschedulableError)
+                                for r in outcomes)
+                n_exc = sum(isinstance(r, Exception) for r in outcomes)
+                fr = {
+                    "t": round(now, 6),
+                    "cycle_id": self._cycle_id,
+                    "trace_id": cspan.trace.trace_id if cspan else None,
+                    "popped": len(infos),
+                    "batch": batch_n,
+                    "cut": cut_reason,
+                    "backend": self.backend,
+                    "degraded_from": self._degraded_from,
+                    "overload": self._overload,
+                    "fault": self._cycle_fault,
+                    "scheduled": len(outcomes) - n_exc,
+                    "unschedulable": n_unsched,
+                    "errors": n_exc - n_unsched,
+                    "elapsed_s": round(cycle_elapsed, 6),
+                    "dwell_max_s": (round(dwells[-1], 6)
+                                    if dwells else None),
+                    "pipeline": self._last_pipeline,
+                    "shortlist": self._shortlist_flight_delta(),
+                }
+            self._last_pipeline = None  # consumed by this cycle
         with self._queue_lock:
             depths = self.queue.depths()
             oldest = self.queue.oldest_ages()
@@ -685,8 +748,35 @@ class Scheduler:
         for qname, depth in depths.items():
             sched_metrics.QUEUE_DEPTH.set(depth, queue=qname)
             sched_metrics.QUEUE_OLDEST_AGE.set(oldest[qname], queue=qname)
+        if fr is not None:
+            # completed with the post-cycle queue state, and landed before
+            # maybe_sample so a bundle captured off this cycle's SLO
+            # verdict already sees its record
+            fr["depths"] = dict(depths)
+            fr["oldest_s"] = {k: round(v, 6) for k, v in oldest.items()}
+            obs_incidents.record("cycle", **fr)
+        # telemetry plane: one ring sample per scheduling cycle on the
+        # queue's clock (the loadgen virtual clock in compressed soaks)
+        obs_timeseries.maybe_sample(self.queue.now())
         if more:
             self.worker.enqueue(_CYCLE)
+
+    def _shortlist_flight_delta(self) -> Optional[dict]:
+        """Since-last-record deltas of the shortlist tier counters for the
+        flight record; None until ops/shortlist is imported."""
+        mod = sys.modules.get("karmada_tpu_torch.ops.shortlist")
+        if mod is None:
+            return None
+        cur = {
+            "dispatches": mod.SHORTLIST_DISPATCHES.total(),
+            "fallbacks": mod.SHORTLIST_FALLBACKS.total(),
+            "widenings": mod.SHORTLIST_WIDENINGS.total(),
+        }
+        base = self._flight_shortlist_base
+        self._flight_shortlist_base = cur
+        if base is None:
+            return cur
+        return {k: cur[k] - base.get(k, 0) for k in cur}
 
     def _log_cycle(self, popped: int, outcomes, wall: float) -> None:
         st = self._cycle_stats
@@ -910,6 +1000,19 @@ class Scheduler:
         detached cycle passes no resident plane (nor drains its tracker)
         and no explain recorder, and encodes through `view` when given."""
         st = PipelineResult()
+        if chaos_mod.armed():
+            # chaos seam (device.cycle:hang): a stalled card looks exactly
+            # like this sleep -- the mid-serve guard must abandon the cycle
+            # and degrade through its real path
+            f = chaos_mod.fire(chaos_mod.SITE_DEVICE_CYCLE,
+                               backend=self.backend)
+            if f is not None and f.mode == "hang":
+                time.sleep(f.delay)
+                if cancelled is not None and cancelled.is_set():
+                    # abandoned by the guard: the zombie returns before it
+                    # touches the card the degrade path let go of
+                    st.cancelled = True
+                    return {}, st
         resident = None if detached else self._resident
         tracker = None if detached else self._delta_tracker
         out = schedule_items(
@@ -930,6 +1033,16 @@ class Scheduler:
         the cycle worker only)."""
         if self._cycle_stats is None:
             return
+        # the flight record's pipeline breadcrumb (solve_s: the sub-solves,
+        # the device wait and the COO read-back)
+        self._last_pipeline = {
+            "solve_s": round(st.dispatch_s + st.wait_s + st.finalize_s
+                             + st.spread_s + st.big_s, 6),
+            "chunks": st.chunks,
+            "cancelled": st.cancelled,
+            "scheduled": st.scheduled,
+            "failures": dict(st.failures),
+        }
         self._cycle_stats.chunks += st.chunks
         for k in _STAGES:
             setattr(self._cycle_stats, k,
@@ -1023,6 +1136,14 @@ class Scheduler:
                 f"device backend degraded to {self.backend} after a hung "
                 "cycle (mid-serve death guard)", origin="scheduler",
                 cycle_id=self._cycle_id)
+        obs_incidents.trigger(
+            obs_incidents.TRIGGER_BACKEND_DEGRADE,
+            f"device backend degraded to {self.backend} after a hung cycle",
+            detail={"to": self.backend,
+                    "streak": self._degrade_streak,
+                    "timeout_s": self.device_cycle_timeout_s,
+                    "recover_cycles": self.device_recover_cycles,
+                    "cycle_id": self._cycle_id})
         recover = self.device_recover_cycles
         fate = ("permanently" if not recover else
                 f"for ~{recover * (2 ** (self._degrade_streak - 1))} "

@@ -17,8 +17,10 @@ than copy.deepcopy on the loop's objects) and shares their immutable
 Quantities.
 
 Thread-safe; watch delivery is synchronous, in resourceVersion order, so
-a deterministic pump and a threaded runtime share the machinery.
-Persistence is not part of the port yet.
+a deterministic pump and a threaded runtime share the machinery.  The
+chaos seam `store.watch` sits between a write and its delivery
+(WatchBus.publish: drop, dup, stall, reorder; `flush_held` delivers what
+a fault held back).  Persistence lives in store/persistence.py.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import copy
 import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+from karmada_tpu_torch.chaos import plane as _chaos
 
 from karmada_tpu_torch.models.meta import TypedObject, new_uid, now
 
@@ -100,6 +104,9 @@ class WatchBus:
     def __init__(self) -> None:
         self._subs: List[Tuple[Optional[str], Callable[[Event], None]]] = []
         self._lock = threading.Lock()
+        # guarded-by: _lock -- chaos-held events ("stall" / "reorder"
+        # faults, chaos/): flushed around the next delivered publish
+        self._held: List[Tuple[str, Event]] = []
 
     def subscribe(self, handler: Callable[[Event], None],
                   kind: Optional[str] = None) -> None:
@@ -112,11 +119,51 @@ class WatchBus:
             self._subs = [(k, h) for (k, h) in self._subs if h != handler]
 
     def publish(self, event: Event) -> None:
+        """Deliver to every subscriber.  The chaos seam (store.watch)
+        sits between the store write and delivery: drop discards the
+        event, dup delivers it twice, stall holds it until the next
+        publish (delivered BEFORE it -- delayed, order kept), reorder
+        holds it and delivers it AFTER the next event (order inverted).
+        Disarmed cost: one list read plus one empty-list check."""
+        events = [event]
+        if _chaos.armed():
+            f = _chaos.fire(_chaos.SITE_STORE_WATCH, kind=event.kind,
+                            type=event.type)
+            if f is not None:
+                if f.mode == "drop":
+                    events = []
+                elif f.mode == "dup":
+                    events = [event, event]
+                elif f.mode in ("stall", "reorder"):
+                    with self._lock:
+                        self._held.append((f.mode, event))
+                    return
+        pre: List[Event] = []
+        post: List[Event] = []
+        if self._held:
+            with self._lock:
+                held, self._held = self._held, []
+            pre = [e for mode, e in held if mode == "stall"]
+            post = [e for mode, e in held if mode == "reorder"]
         with self._lock:
             subs = list(self._subs)
-        for kind, handler in subs:
-            if kind is None or kind == event.kind:
-                handler(event)
+        for ev in pre + events + post:
+            for kind, handler in subs:
+                if kind is None or kind == ev.kind:
+                    handler(ev)
+
+    def flush_held(self) -> int:
+        """Deliver any chaos-held events now (end-of-soak hygiene: a
+        stalled event must never outlive the fault window silently).
+        Returns the number delivered."""
+        with self._lock:
+            held, self._held = self._held, []
+            subs = list(self._subs)
+        for _mode, ev in held:
+            for kind, handler in subs:
+                if kind is None or kind == ev.kind:
+                    handler(ev)
+        return len(held)
 
 
 class ObjectStore:

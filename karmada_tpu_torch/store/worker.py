@@ -11,9 +11,12 @@ runs off a de-duplicating work queue (AsyncWorker) in one of two modes:
 
 A reconcile that raises is requeued with a retry budget, as the
 reference's rate-limited workqueue does.  The raise is contained, so it
-is counted: `AsyncWorker.reconcile_errors` per worker and
-`Runtime.reconcile_errors()` over all of them (a kernel failure inside a
-reconcile shows there, never only as a requeue).
+is counted: `AsyncWorker.reconcile_errors` per worker,
+`Runtime.reconcile_errors()` over all of them and
+karmada_worker_reconcile_errors_total (a kernel failure inside a
+reconcile shows there, never only as a requeue).  The chaos seam
+`worker.reconcile` raises in front of the reconcile, so an injected fault
+takes the same path.
 
 With the flight recorder armed (obs.TRACER), every reconcile runs inside
 a "reconcile.<worker>" span carrying its key and queue dwell: the root
@@ -42,7 +45,23 @@ import zlib
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Optional
 
-from karmada_tpu_torch import obs
+from karmada_tpu_torch import chaos, obs
+from karmada_tpu_torch.utils.metrics import REGISTRY, exponential_buckets
+
+RECONCILE_ERRORS = REGISTRY.counter(
+    "karmada_worker_reconcile_errors_total",
+    "Reconcile (or periodic-hook) invocations that raised, by worker — "
+    "the retry/backoff machinery's input signal",
+    ("worker",),
+)
+
+WORKER_BACKOFF = REGISTRY.histogram(
+    "karmada_worker_backoff_seconds",
+    "Idle-poll backoff sleeps taken by serve-mode worker threads "
+    "(full-jitter exponential; soaks read this as retry pressure)",
+    ("worker",),
+    buckets=exponential_buckets(0.001, 2, 12),
+)
 
 
 class AsyncWorker:
@@ -116,6 +135,11 @@ class AsyncWorker:
         requeue = False
         tracer = obs.TRACER
         try:
+            if chaos.armed():
+                # chaos seam: an injected reconcile fault takes the SAME
+                # requeue / backoff path a real controller raise would
+                chaos.raise_if(chaos.SITE_WORKER_RECONCILE,
+                               worker=self.name, key=key)
             if tracer.enabled:
                 span = tracer.start_span(
                     obs.SPAN_RECONCILE_PREFIX + self.name,
@@ -130,6 +154,7 @@ class AsyncWorker:
             requeue = result is False
         except Exception:  # noqa: BLE001 — controller loops never die
             self.reconcile_errors += 1
+            RECONCILE_ERRORS.inc(worker=self.name)
             traceback.print_exc()
             requeue = True
         self._done(key, requeue)
@@ -336,6 +361,7 @@ class Runtime:
                     fn()
                 except Exception:  # noqa: BLE001 — periodic hooks never die
                     self.periodic_errors += 1
+                    RECONCILE_ERRORS.inc(worker="periodic")
                     traceback.print_exc()
 
     def _run_worker(self, w: AsyncWorker) -> None:
@@ -348,7 +374,9 @@ class Runtime:
             if w.process_one(block=True):
                 attempt = 0
             else:
-                time.sleep(rng.uniform(0.0, min(cap, base * (2 ** attempt))))
+                delay = rng.uniform(0.0, min(cap, base * (2 ** attempt)))
+                WORKER_BACKOFF.observe(delay, worker=w.name)
+                time.sleep(delay)
                 attempt = min(attempt + 1, 10)
 
     def stop(self) -> None:

@@ -28,8 +28,8 @@ for the device backend runs on the card only when the probe answered with
 an accelerator, and otherwise takes the fastest working host backend
 (native, else serial), always saying why in ``diag["degraded"]``.
 
-The port has no metrics registry yet, so the probe history lives in
-``last_probe()`` alone; the JAX package's probe gauges wait for it.
+The probe history lives in ``last_probe()`` and in the JAX package's
+karmada_device_probe_* families.
 """
 
 from __future__ import annotations
@@ -40,6 +40,27 @@ import sys
 import threading
 import time
 from pathlib import Path
+
+from karmada_tpu_torch.utils.metrics import REGISTRY
+
+PROBE_ATTEMPTS = REGISTRY.counter(
+    "karmada_device_probe_attempts_total",
+    "Device-backend health probe attempts by outcome",
+    ("ok",),
+)
+PROBE_LAST_OK = REGISTRY.gauge(
+    "karmada_device_probe_last_ok",
+    "1 when the most recent device probe answered, else 0",
+)
+PROBE_LAST_ELAPSED = REGISTRY.gauge(
+    "karmada_device_probe_last_elapsed_seconds",
+    "Wall time of the most recent device probe attempt",
+)
+PROBE_CONSECUTIVE_FAILURES = REGISTRY.gauge(
+    "karmada_device_probe_consecutive_failures",
+    "Probe failures since the last success (the chip-never-answered "
+    "trajectory)",
+)
 
 _LAST_LOCK = threading.Lock()
 # guarded-by: _LAST_LOCK
@@ -68,6 +89,12 @@ def record_probe(diag: dict) -> None:
         )
         _LAST["consecutive_failures"] = (
             0 if ok else _LAST["consecutive_failures"] + 1)
+        streak = _LAST["consecutive_failures"]
+    PROBE_ATTEMPTS.inc(ok=str(ok).lower())
+    PROBE_LAST_OK.set(1.0 if ok else 0.0)
+    if last.get("s") is not None:
+        PROBE_LAST_ELAPSED.set(float(last["s"]))
+    PROBE_CONSECUTIVE_FAILURES.set(streak)
 
 
 def last_probe() -> dict:

@@ -8,11 +8,17 @@ on temporary plane directories, in process (`cli.main`), tolerance 0.
   taken it, ROADMAP Queue A item 9) and its reconciles would show in the
   tick's count.
 - `serve`'s argument errors: the same exit code and stderr.
-- `loadgen`: the catalog equal; `loadgen steady`'s SOAK JSON equal but
-  for `wall_s` and the seconds of `stage_utilization` (its span names
-  and counts stay; tests/torch_soak.comparable), each run into a fresh
-  process ledger with the Schedulers' host clock still (the e2e samples
-  are floored at a cycle's wall seconds: tests/torch_soak).
+- `loadgen`: the catalog equal; `loadgen steady`'s, `chaos`'s and
+  `hotspot`'s SOAK JSON equal but for `wall_s`, the seconds of
+  `stage_utilization` (its span names and counts stay) and the chaos
+  fire log's wall-clock stamps (tests/torch_soak.comparable; the
+  rebalance and resident sections without the keys one package alone
+  reports, named in tests/torch_soak.cross_comparable), each run
+  into a fresh process ledger with the Schedulers' host clock still (the
+  e2e samples are floored at a cycle's wall seconds: tests/torch_soak).
+- `serve --chaos SPEC --telemetry RING --slo-deadline S` on a host
+  backend arms the chaos, telemetry and incident planes, serves until
+  interrupted and exits 0.
 - Every verb and flag the port refuses exits 1 and names its ROADMAP
   Queue A item.
 - `estimate` against a port FacadeService over TCP: both CLIs get the
@@ -28,7 +34,12 @@ import threading
 import pytest
 
 from torch_fixtures import collect_jax_planes  # noqa: F401 — autouse
-from torch_soak import comparable, fresh_ledger, frozen_cycle_clock
+from torch_soak import (
+    comparable,
+    cross_comparable,
+    fresh_ledger,
+    frozen_cycle_clock,
+)
 
 PKGS = ("karmada_tpu", "karmada_tpu_torch")
 CLI = {pkg: importlib.import_module(f"{pkg}.cli") for pkg in PKGS}
@@ -152,6 +163,8 @@ SERVE_ERRORS = [
     ["serve", "--rebalance", "soon"],
     ["serve", "--loadgen", "no-such-scenario"],
     ["serve", "--facade", "nowhere"],
+    ["serve", "--chaos", "nope.site:raise"],
+    ["serve", "--chaos", "estimator.rpc:error@2.0"],
     ["serve", "--no-such-flag"],
     ["bogus-verb"],
 ]
@@ -185,13 +198,30 @@ def test_loadgen_steady_json_equal(capsys):
 
 
 def test_loadgen_unknown_and_chaotic(capsys):
+    """An unknown scenario exits 1 on both CLIs; the chaotic ones (chaos,
+    hotspot) run on both, the chaos plane armed and disarmed, and print
+    the same SOAK JSON (the fire log's wall-clock stamps aside), its
+    `chaos` and `safety_audit` sections included."""
     j, p = (run(pkg, ["loadgen", "no-such-scenario"], capsys)
             for pkg in PKGS)
     assert p == j and p[0] == 1
     for name in ("chaos", "hotspot"):
-        rc, out, err = run("karmada_tpu_torch", ["loadgen", name], capsys)
-        assert rc == 1 and not out and "chaos plane" in err
-        assert "item 7" in err
+        out = {}
+        for pkg in PKGS:
+            # the port asks for the CPU (its hotspot slice's rebalance
+            # plane runs K13's plain version there)
+            argv = ["loadgen", name, "--seed", "3"] + (
+                ["--device", "cpu"] if pkg == "karmada_tpu_torch" else [])
+            with fresh_ledger(pkg), frozen_cycle_clock():
+                rc, text, err = run(pkg, argv, capsys)
+            assert rc == 0, err
+            out[pkg] = json.loads(text)
+            assert not importlib.import_module(f"{pkg}.chaos").armed()
+        j, p = cross_comparable(out["karmada_tpu"], out["karmada_tpu_torch"])
+        assert p == j, name
+        out["karmada_tpu"] = j
+        assert "safety_audit" in out["karmada_tpu"]
+        assert out["karmada_tpu"]["chaos"]["fired_total"] > 0
 
 
 REFUSED = [
@@ -216,10 +246,7 @@ REFUSED = [
     (["loadgen", "--endpoint", "http://x"], 7),
     (["serve", "--metrics-port", "0"], 7),
     (["serve", "--api-port", "0"], 9),
-    (["serve", "--telemetry"], 7),
-    (["serve", "--slo-deadline", "2"], 7),
-    (["serve", "--chaos", "device.cycle:hang:1"], 7),
-    (["serve", "--check-invariants"], 7),
+    (["serve", "--check-invariants"], 9),
     (["serve", "--mesh", "2x4"], 10),
 ]
 
@@ -249,6 +276,53 @@ def test_every_missing_entry_is_reachable():
         head = what.split()[0]
         assert head in verbs or head in flags or head in (
             "--server", "--cluster"), what
+
+
+def test_serve_arms_chaos_telemetry_and_incidents(tmp_path, capsys,
+                                                  monkeypatch):
+    """`serve --chaos SPEC --telemetry RING --slo-deadline S` on the
+    serial backend: the chaos plane armed with SPEC, the telemetry ring
+    sampling on the scheduler's clock with the SLO evaluator judging it,
+    the incident plane armed under DIR/incidents; SIGINT (here an
+    interrupt of the main thread) stops it with exit 0."""
+    import _thread
+
+    monkeypatch.chdir(tmp_path)
+    cli = "karmada_tpu_torch"
+    assert run(cli, ["--dir", "plane", "init"], capsys)[0] == 0
+    assert run(cli, ["--dir", "plane", "join", "m1", "--cpu", "8"],
+               capsys)[0] == 0
+    chaos = importlib.import_module(f"{cli}.chaos")
+    ts = importlib.import_module(f"{cli}.obs.timeseries")
+    slo = importlib.import_module(f"{cli}.obs.slo")
+    incidents = importlib.import_module(f"{cli}.obs.incidents")
+    timer = threading.Timer(3.0, _thread.interrupt_main)
+    timer.start()
+    try:
+        rc, out, err = run(cli, [
+            "--dir", "plane", "serve", "--backend", "serial",
+            "--chaos", "worker.reconcile:error#1", "--chaos-seed", "4",
+            "--telemetry", "64", "--telemetry-interval", "0",
+            "--slo-deadline", "2", "--sync-period", "0.05"], capsys)
+        assert rc == 0, err
+        assert "CHAOS PLANE ARMED (seed 4): worker.reconcile:error#1" in out
+        assert "telemetry plane armed: 64-sample" in out
+        assert "incident plane armed" in out
+        plane = chaos.active()
+        assert chaos.armed() and plane.seed == 4
+        assert [(r["site"], r["mode"], r["count"])
+                for r in plane.state()["rules"]] == [
+                    ("worker.reconcile", "error", 1)]
+        assert len(ts.active()) > 0 and ts.active().capacity == 64
+        judged = slo.state_payload()
+        assert judged["enabled"]
+        assert {o["name"] for o in judged["objectives"]} >= {
+            "schedule_p99", "conservation"}
+        assert incidents.active() is None  # disarmed at exit
+    finally:
+        timer.cancel()
+        chaos.disarm()
+        ts.disarm()
 
 
 def test_incident_plane_named_in_the_serve_help():

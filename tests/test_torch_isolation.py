@@ -12,7 +12,9 @@ points -- ControlPlane among them -- never drift to the CPU unless asked.
 The sustained-traffic slice -- the flight recorder, the metrics and the
 ledger (obs/, utils/metrics, utils/events, scheduler/metrics), loadgen/,
 printers and the port CLI -- runs a compressed soak, the CLI's catalog
-and a plane flow with neither in sys.modules either.  The cycle's
+and a plane flow with neither in sys.modules either, and so does the
+faults and telemetry slice (chaos/, analysis/guards, obs/incidents,
+obs/slo, obs/timeseries) over the hotspot soak.  The cycle's
 encode and decode run through the port's C paths (native/), whose loaded
 libraries are the port's own builds: no port module names the JAX
 package's native directory, and no library of it is mapped into the
@@ -197,6 +199,68 @@ def test_traffic_slice_loads_no_jax_subprocess():
                           env=env, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+_FAULTS = r"""
+import contextlib, io, sys, tempfile
+sys.path.insert(0, {root!r})
+from karmada_tpu_torch import chaos, cli
+from karmada_tpu_torch.analysis import guards
+from karmada_tpu_torch.chaos import audit, plane
+from karmada_tpu_torch.facade import metrics as fmetrics
+from karmada_tpu_torch.obs import incidents, slo, timeseries
+from karmada_tpu_torch.loadgen import (
+    LoadDriver, ServeSlice, ServiceModel, VirtualClock, get_scenario)
+timeseries.configure(capacity=64)
+slo.configure()
+incidents.configure(tempfile.mkdtemp())
+guards.arm()
+scenario = get_scenario("hotspot")
+clock, model = VirtualClock(), ServiceModel()
+plane = ServeSlice(scenario, clock, model, device="cpu")
+p = LoadDriver(plane, scenario, clock=clock, model=model, seed=1).run()
+assert p["safety_audit"]["violations"] == [], p["safety_audit"]
+assert p["chaos"]["fired_by_site"] == {{"rebalance.plan": 1}}
+assert p["slo"]["enabled"] and p["incidents"]["enabled"]
+assert not chaos.armed()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_fault_planes_load_no_jax_subprocess():
+    """The faults and telemetry slice -- chaos/ with its auditor,
+    analysis/guards armed, obs/incidents, obs/slo, obs/timeseries and the
+    facade's metrics -- runs the hotspot soak with neither jax nor the JAX
+    package in sys.modules."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c",
+                           _FAULTS.format(root=str(ROOT))],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_fault_entry_points_refuse_cpu_drift(capsys):
+    """The chaotic scenarios' entry points ask for the card unless told
+    the CPU: `loadgen hotspot` without --device exits 1 naming the
+    missing card, and a guarded device slice raises, with no card."""
+    from karmada_tpu_torch import cli
+    from karmada_tpu_torch.loadgen import (
+        ServeSlice, ServiceModel, VirtualClock, get_scenario)
+
+    if torch.cuda.is_available():
+        return
+    assert cli.main(["loadgen", "hotspot"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeSlice(get_scenario("chaos"), VirtualClock(), ServiceModel(),
+                   backend="device", resident=True,
+                   device_cycle_timeout_s=2.0, device_recover_cycles=2)
 
 
 def test_cycle_loads_no_jax_subprocess():

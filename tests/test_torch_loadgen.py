@@ -22,7 +22,9 @@ the JAX package's, tolerance 0.
   floored at a cycle's wall seconds, which would tie them to the host's
   load).
 - The whatif soak's placements equal a control run without its queries.
-- The chaotic scenarios (chaos, hotspot) refused by name.
+- The chaotic scenarios (chaos, hotspot): their SOAK payloads with the
+  chaos plane and the safety auditor are held against the JAX package's
+  in tests/test_torch_chaos.py.
 - The ADMISSION, SCHEDULE_ATTEMPTS and BATCH_SIZE families: the same
   deltas over the same run.
 """
@@ -132,18 +134,6 @@ def test_catalog_equal():
         assert p[name].chaotic == j[name].chaotic
         assert p[name].admission_limit() == j[name].admission_limit()
     assert {n for n, s in p.items() if s.chaotic} == {"chaos", "hotspot"}
-
-
-@pytest.mark.parametrize("name", ["chaos", "hotspot"])
-def test_chaotic_scenarios_refused_by_name(name):
-    scenario = get_scenario(name)
-    clock = VirtualClock()
-    # device="cpu": hotspot arms the rebalance plane, whose detect runs
-    # on a device whatever the Scheduler's backend
-    plane = ServeSlice(scenario, clock, ServiceModel(), device="cpu")
-    with pytest.raises(ValueError, match="chaos plane.*item 7"):
-        LoadDriver(plane, scenario, clock=clock)
-    assert load_state() == {"enabled": False}
 
 
 # -- the compressed tests of test_loadgen_soak.py, on the port ----------------

@@ -28,7 +28,8 @@ import contextlib
 import dataclasses
 import importlib
 import json
-import time
+
+from tools import soak_hold
 
 PKGS = ("karmada_tpu", "karmada_tpu_torch")
 
@@ -37,30 +38,21 @@ def mod(pkg, name):
     return importlib.import_module(f"{pkg}.{name}")
 
 
-class _StillPerfCounter:
-    """The time module with perf_counter standing still."""
-
-    def __getattr__(self, name):
-        return getattr(time, name)
-
-    @staticmethod
-    def perf_counter() -> float:
-        return 0.0
+def _services():
+    return [mod(pkg, "scheduler.service") for pkg in PKGS]
 
 
-@contextlib.contextmanager
 def frozen_cycle_clock():
     """Both packages' scheduler/service modules read a still
-    perf_counter inside the block (module docstring)."""
-    mods = [mod(pkg, "scheduler.service") for pkg in PKGS]
-    prev = [m.time for m in mods]
-    for m in mods:
-        m.time = _StillPerfCounter()
-    try:
-        yield
-    finally:
-        for m, t in zip(mods, prev):
-            m.time = t
+    perf_counter inside the block (module docstring;
+    tools/soak_hold.still_cycle_clock)."""
+    return soak_hold.still_cycle_clock(*_services())
+
+
+def held_cut_timers():
+    """Both packages' Schedulers arm no wall-clock deferred-cut timer
+    inside the block (tools/soak_hold.held_cut_timers)."""
+    return soak_hold.held_cut_timers(*_services())
 
 
 @contextlib.contextmanager
@@ -94,12 +86,15 @@ def soak(pkg, name, backend="serial", seed=5, strip_events=False,
 
 
 def comparable(payload):
-    """The payload without `wall_s` and with `stage_utilization` reduced
-    to span name -> count."""
+    """The payload without `wall_s`, with `stage_utilization` reduced to
+    span name -> count, and with a chaos soak's fire log without its
+    wall-clock stamps (`ts`)."""
     out = json.loads(json.dumps(payload, default=str))
     out.pop("wall_s")
     out["stage_utilization"] = {
         k: v["count"] for k, v in out["stage_utilization"].items()}
+    for rec in (out.get("chaos") or {}).get("recent", ()):
+        rec.pop("ts", None)
     return out
 
 
@@ -107,3 +102,62 @@ def placements(plane):
     return {(rb.metadata.namespace, rb.metadata.name): tuple(sorted(
         (t.name, t.replicas) for t in rb.spec.clusters))
         for rb in plane.store.list("ResourceBinding")}
+
+
+#: keys of a SOAK section that only the port reports, as paths under the
+#: section: dropped from the port's side.  Every key not named here or in
+#: JAX_ONLY must be in both packages' section (cross_comparable asserts it).
+PORT_ONLY = {
+    "rebalance": (
+        "device",                       # the card the plane scores on
+        "cycle_faults",                 # faulted cycles by kind (chaos_skip)
+        "evictions_by_cluster",         # evictions per source cluster
+        "budget/granted_by_consumer",   # the budget is shared with the
+        "budget/denied_by_consumer",    # descheduler: counts per consumer
+    ),
+    "resident": ("device",),            # the card the mirrors live on
+}
+#: keys that only the JAX package reports, dropped from its side
+JAX_ONLY = {
+    "resident": (
+        "device_plane",     # its device plane can break and fall back to
+        "fused/available",  # the host; the port's kernels raise instead
+        "fused/gather_s",   # wall seconds of the fused gather
+        "last_audit/ts",    # the audit's wall-clock stamp
+    ),
+}
+
+
+def _drop(section, paths):
+    for path in paths:
+        *head, last = path.split("/")
+        d = section
+        for k in head:
+            d = d.get(k) if isinstance(d, dict) else None
+        if isinstance(d, dict):
+            d.pop(last, None)
+
+
+def key_paths(d, pre=""):
+    """Every key path under `d` ("a/b/c")."""
+    out = set()
+    if isinstance(d, dict):
+        for k, v in d.items():
+            out.add(f"{pre}{k}")
+            out |= key_paths(v, f"{pre}{k}/")
+    return out
+
+
+def cross_comparable(j_payload, p_payload):
+    """Both packages' SOAK payloads, comparable (`comparable`), without
+    the keys PORT_ONLY and JAX_ONLY name; every other key of those
+    sections is asserted present on both sides."""
+    j, p = comparable(j_payload), comparable(p_payload)
+    for k in set(PORT_ONLY) | set(JAX_ONLY):
+        if isinstance(p.get(k), dict):
+            _drop(p[k], PORT_ONLY.get(k, ()))
+        if isinstance(j.get(k), dict):
+            _drop(j[k], JAX_ONLY.get(k, ()))
+        jk, pk = key_paths(j.get(k)), key_paths(p.get(k))
+        assert jk == pk, (k, sorted(jk - pk), sorted(pk - jk))
+    return j, p

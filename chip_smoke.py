@@ -249,10 +249,20 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      CLI_MEMBERS joins, apply -f of a Deployment and its
      PropagationPolicy, tick --backend device, get ResourceBinding
      showing the placement; then serve --backend device --facade :0
-     --loadgen steady --loadgen-rate 50 --trace-buffer 256 for
-     SERVE_SECONDS, estimate --facade-addr against it, SIGINT: exit 0,
-     the banner's backend=device, the checkpoint reloading with every
-     loadgen binding scheduled.  Launch counts are reset just before
+     --loadgen steady --loadgen-rate 10 --trace-buffer 256
+     --metrics-port 0 --resident --rebalance 2 --explain 1 --telemetry
+     256 --check-invariants for at least SERVE_SECONDS, estimate
+     --facade-addr against it; against its debug server
+     (utils/httpserve): a PROFILE_SECONDS /debug/profile window on the
+     card naming K15 and a serving kernel (SERVING_KERNELS) while a
+     second capture answers 409, every route's status and payload shape,
+     a /whatif placement query moving no placement, each verb that reads
+     the server (events, describe, explain, trace, resident, rebalance,
+     whatif, incidents, loadgen --endpoint, profile) exit 0, 0 lock
+     inversions and 0 watchdog trips; SIGINT: exit 0, the banner's
+     backend=device, the checkpoint reloading with every loadgen binding
+     scheduled (and web-deployment where /whatif found it when the
+     rebalance plane evicted nothing).  Launch counts are reset just before
      each soak's driver run and read just after it (soak_run), and
      summed over the soaks of (a) and of (b) (the what-if control run
      not counted).
@@ -284,8 +294,9 @@ native=False (phases 3 and 8 also if no row went through decode_coo):
      two-cluster device slice: the poisoned copy of K3's index plane
      raises InvariantViolation through analysis/guards.check_d2h, the
      cycle fault is contained and the binding re-queued and scheduled.
-     The JAX soak's race-detector leg (analysis/guards armed with
-     utils/locks' watchdog and inversion counters) waits for utils/locks.
+     17a runs with the JAX chaos soak test's race-detector leg:
+     analysis/guards armed and a utils/locks LockWatchdog polling, 0
+     order inversions and 0 watchdog trips.
      Launch counts are reset just before each soak's driver run (after
      its warm-up) and just before (d)'s cycles, and read just after.
 
@@ -6436,8 +6447,17 @@ RESOLVE_EVERY = 8          # 16b: every 8th cycle re-solved on ops/serial
 SOAK_TRACES = 1 << 17
 CLI_MEMBERS = 8            # 16c's joins
 CLI_PODS = 2_000           # their pods: the load never runs a member full
-SERVE_SECONDS = 20.0       # 16c's serve --loadgen window
+SERVE_SECONDS = 40.0       # 16c's serve window: the 320 arrivals at 10/s
 CLI_TIMEOUT_S = 240.0
+PROFILE_SECONDS = 4        # 16c's /debug/profile window
+#: the kernels of a serving cycle (ops/csrc's __global__ functions but
+#: K14's probe, K15's marker, K12's dirty pass and K4's floor test): a
+#: profile window over a serving plane must name one
+SERVING_KERNELS = (
+    "capacity_kernel", "schedule_rows_prepare", "schedule_rows_finish",
+    "webster_rows", "compact_kernel", "explain_rows", "scatter_kernel",
+    "gather_kernel", "rebalance_score_kernel", "spread_group_info_kernel",
+    "spread_pick_kernel", "shortlist_topk", "group_sums")
 
 
 def soak_comparable(payload: dict) -> dict:
@@ -6841,15 +6861,222 @@ def cli(plane_dir: str, *argv, timeout: float = CLI_TIMEOUT_S) -> str:
     return proc.stdout
 
 
+def http_get(base: str, path: str, timeout: float = 60.0) -> tuple:
+    """(status, body) of one GET on the debug server: a JSON body parsed,
+    a text one as text."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base + path, timeout=timeout) as r:
+            code, ctype, raw = r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        code, ctype, raw = e.code, e.headers["Content-Type"], e.read()
+    text = raw.decode()
+    return code, (json.loads(text) if ctype == "application/json"
+                  else text)
+
+
+def debug_route_checks(base: str) -> list:
+    """Every route of the serve process's debug server: its status and the
+    shape of its payload (the planes serve arms: the resident, rebalance,
+    explain, telemetry, incident, facade, load and flight-recorder ones;
+    chaos disarmed).  Returns the failed checks."""
+    bad = []
+
+    def check(path, code, ok=lambda b: True):
+        got, body = http_get(base, path)
+        try:
+            fine = got == code and ok(body)
+        except (KeyError, TypeError, IndexError, AttributeError):
+            fine = False
+        if not fine:
+            bad.append(f"{path}: {got} {str(body)[:300]}")
+        return body
+
+    check("/metrics", 200, lambda b: "karmada_scheduler_" in b
+          and "karmada_lock_hold_seconds" in b)
+    check("/healthz", 200, lambda b: b == "ok")
+    check("/readyz", 200)
+    check("/debug/state", 200, lambda b: {
+        "objects_by_kind", "events", "device_probe", "aot", "mesh",
+        "resident", "shortlist", "locks", "traces", "explain"} <= set(b)
+        and b["resident"]["enabled"] and b["traces"] is not None
+        and b["explain"] is not None and b["locks"]["armed"]
+        and b["mesh"]["devices"] == 1)
+    traces = check("/debug/traces", 200,
+                   lambda b: b["enabled"] and b["summaries"])
+    check("/debug/traces/slow", 200, lambda b: b["enabled"])
+    if isinstance(traces, dict) and traces.get("summaries"):
+        # the newest: the ring is oldest-first, and its oldest trace is the
+        # next the loadgen traffic evicts
+        tid = traces["summaries"][-1]["trace_id"]
+        check(f"/debug/traces/{tid}", 200,
+              lambda b: isinstance(b, str) and "|" in b)
+        check(f"/debug/traces/{tid}?format=json", 200,
+              lambda b: b["trace_id"] == tid)
+    check("/debug/traces/nosuchtrace", 404, lambda b: b["error"])
+    check("/debug/load", 200,
+          lambda b: b["enabled"] and b["scenario"] == "steady")
+    check("/debug/resident?recent=4", 200,
+          lambda b: b["enabled"] and b["device"].startswith("cuda")
+          and isinstance(b["recent_cycles"], list))
+    check("/debug/chaos", 200, lambda b: b == {"enabled": False})
+    check("/debug/rebalance", 200,
+          lambda b: b["enabled"] and b["device"].startswith("cuda"))
+    check("/debug/facade", 200, lambda b: b["enabled"])
+    check("/debug/timeseries?points=0", 200,
+          lambda b: b["enabled"] and b["series"])
+    check("/debug/timeseries?n=4&prefix=karmada_scheduler", 200,
+          lambda b: b["enabled"])
+    check("/debug/slo", 200, lambda b: b["enabled"] and b["objectives"])
+    check("/debug/incidents", 200, lambda b: b["enabled"])
+    check("/debug/incidents/inc-nosuch", 404, lambda b: b["error"])
+    check("/debug/events?n=8", 200, lambda b: b["recent"])
+    check("/debug/events/default/web-deployment", 200,
+          lambda b: b["binding"]["clusters"])
+    explain = check("/debug/explain", 200,
+                    lambda b: b["enabled"] and b["decisions"])
+    if isinstance(explain, dict) and explain.get("decisions"):
+        key = explain["decisions"][-1]["key"]
+        check(f"/debug/explain/{key}", 200, lambda b: b["key"] == key
+              and b["clusters"])
+    check("/debug/explain/default/nosuchbinding", 404, lambda b: b["error"])
+    check("/whatif?query=bogus", 400, lambda b: b["error"])
+    check("/debug/nosuchendpoint", 404, lambda b: b["error"])
+    return bad
+
+
+def debug_server_phase(d: str, base: str) -> dict:
+    """16c's debug-server part, against the serving plane: a
+    PROFILE_SECONDS /debug/profile window on the card while the loadgen
+    traffic and the rebalance plane run, naming K15 and a serving kernel,
+    with a second capture answering 409 while it runs; every route
+    (debug_route_checks); a /whatif placement query that moves no
+    placement (web-deployment's, read before and after through
+    /debug/events/default/web-deployment); each verb that reads the
+    server, exit 0; 0 lock inversions and 0 watchdog trips in
+    /debug/state.  Returns what it saw (the profile's kernels, the
+    placement, the rebalance plane's evictions, the walls)."""
+    bad = []
+    t0 = time.perf_counter()
+    first: dict = {}
+
+    def capture():
+        first["answer"] = http_get(
+            base, f"/debug/profile?seconds={PROFILE_SECONDS}", timeout=300)
+
+    th = threading.Thread(target=capture, name="phase-16c-profile")
+    th.start()
+    time.sleep(1.0)
+    busy = http_get(base, "/debug/profile?seconds=1", timeout=300)
+    th.join(timeout=300)
+    profile_s = time.perf_counter() - t0
+    code, rec = first.get("answer", (None, {}))
+    kernels = rec.get("kernels") or {} if isinstance(rec, dict) else {}
+    serving = {k: n for k, n in kernels.items()
+               if any(name in k for name in SERVING_KERNELS)}
+    if code != 200 or not any("marker_affine" in k for k in kernels):
+        bad.append(f"/debug/profile: {code} {str(rec)[:400]}")
+    if not serving:
+        bad.append(f"/debug/profile names no serving kernel: {kernels}")
+    if busy[0] != 409:
+        bad.append(f"a second /debug/profile answered {busy[0]}, not 409: "
+                   f"{str(busy[1])[:200]}")
+    t0 = time.perf_counter()
+    bad += debug_route_checks(base)
+    routes_s = time.perf_counter() - t0
+
+    def web_placement():
+        code, body = http_get(base, "/debug/events/default/web-deployment")
+        b = body["binding"]
+        return code, (b["generation"], sorted(
+            (c["name"], c["replicas"]) for c in b["clusters"]))
+
+    before = web_placement()
+    code, answer = http_get(
+        base, "/whatif?query=placement&replicas=12&cpu=500m", timeout=120)
+    after = web_placement()
+    if code != 200 or answer["result"]["outcome"] != "scheduled" or sum(
+            a["replicas"] for a in answer["result"]["assignments"]) != 12:
+        bad.append(f"/whatif placement: {code} {str(answer)[:300]}")
+    if before != after or before[0] != 200:
+        bad.append(f"/whatif moved web-deployment: {before} -> {after}")
+    def newest_decision() -> str:
+        # the explain ring keeps the last 256 decisions, which the loadgen
+        # traffic turns over in well under 16c's window: web-deployment's
+        # may be gone by the time the verbs run
+        code, body = http_get(base, "/debug/explain")
+        if code != 200 or not body.get("decisions"):
+            raise AssertionError(f"/debug/explain before the explain verb: "
+                                 f"{code} {str(body)[:300]}")
+        return body["decisions"][-1]["key"]
+
+    t0 = time.perf_counter()
+    # an argument that is a function is called just before its verb runs
+    verbs = [
+        ("events", "--endpoint", base),
+        ("events", "default/web-deployment", "--endpoint", base),
+        ("describe", "default/web-deployment", "--endpoint", base),
+        ("explain", "--endpoint", base),
+        ("explain", newest_decision, "--endpoint", base),
+        ("trace", "--endpoint", base),
+        ("trace", "--endpoint", base, "--slow"),
+        ("resident", "--endpoint", base, "--recent", "4"),
+        ("rebalance", "--endpoint", base),
+        ("whatif", "--endpoint", base, "--query", "headroom", "--cpu",
+         "1000m"),
+        ("incidents", "--endpoint", base),
+        ("loadgen", "--endpoint", base),
+        ("profile", "--endpoint", base, "--seconds", "1"),
+    ]
+    for argv in verbs:
+        try:
+            cli(d, *(a() if callable(a) else a for a in argv))
+        except AssertionError as e:
+            bad.append(str(e)[:400])
+    verbs_s = time.perf_counter() - t0
+    code, reb = http_get(base, "/debug/rebalance")
+    evictions = reb.get("evictions") if code == 200 else None
+    if evictions == 0 and web_placement() != before:
+        bad.append("the verbs moved web-deployment's placement")
+    code, state = http_get(base, "/debug/state")
+    locks = state["locks"] if code == 200 else {}
+    inversions = locks.get("inversions", {}).get("total")
+    trips = locks.get("watchdog", {}).get("trips_total")
+    if inversions != 0 or trips != 0 or not locks.get("armed") \
+            or not locks.get("watchdog", {}).get("running"):
+        bad.append(f"locks: armed {locks.get('armed')}, inversions "
+                   f"{inversions} ({locks.get('inversions')}), watchdog "
+                   f"{locks.get('watchdog')}")
+    if bad:
+        raise AssertionError(f"phase 16c debug server: {len(bad)} failed "
+                             "checks: " + "; ".join(bad))
+    return {"kernels": kernels, "serving": serving,
+            "windows": rec.get("windows"), "lost": rec.get("lost_windows"),
+            "placement": before[1][1], "whatif": answer["result"][
+                "assignments"], "evictions": evictions,
+            "locks": len(locks.get("locks", ())),
+            "edges": locks.get("order_edges"),
+            "walls": {"routes_s": round(routes_s, 2),
+                      "profile_s": round(profile_s, 2),
+                      "verbs_s": round(verbs_s, 2)}}
+
+
 def phase_entry_points(box: dict) -> None:
     """16c (on a thread, EntryPoints): the port CLI as a user runs it, in
     subprocesses on a temporary plane directory -- init, CLI_MEMBERS
     joins, apply of a Deployment and its PropagationPolicy, tick on the
     card, get ResourceBinding showing the placement -- then serve on the
-    card with the facade, steady loadgen traffic and the flight recorder
-    for SERVE_SECONDS, estimate against it, SIGINT: exit 0, the banner's
-    backend=device, and the checkpoint reloading with every loadgen
-    binding scheduled.  Fills `box` with the walls, or its error."""
+    card with the facade, steady loadgen traffic, the flight recorder,
+    the debug server (--metrics-port 0), the resident, rebalance,
+    explain and telemetry planes and --check-invariants; estimate
+    against it, the debug server's routes, /whatif, a profile window and
+    the verbs that read it (debug_server_phase), serving for at least
+    SERVE_SECONDS; SIGINT: exit 0, the banner's backend=device, and the
+    checkpoint reloading with every loadgen binding scheduled and
+    web-deployment where /whatif found it.  Fills `box` with the walls,
+    or its error."""
     import signal
 
     t_all = time.perf_counter()
@@ -6888,8 +7115,10 @@ def phase_entry_points(box: dict) -> None:
             proc = subprocess.Popen(
                 [sys.executable, "-m", "karmada_tpu_torch.cli", "--dir", d,
                  "serve", "--backend", "device", "--facade", ":0",
-                 "--loadgen", "steady", "--loadgen-rate", "50",
-                 "--trace-buffer", "256"],
+                 "--loadgen", "steady", "--loadgen-rate", "10",
+                 "--trace-buffer", "256", "--metrics-port", "0",
+                 "--resident", "--rebalance", "2", "--explain", "1",
+                 "--telemetry", "256", "--check-invariants"],
                 stdout=out, stderr=subprocess.STDOUT, text=True,
                 cwd=os.path.dirname(os.path.abspath(__file__)),
                 start_new_session=True)
@@ -6902,16 +7131,19 @@ def phase_entry_points(box: dict) -> None:
         # a failing run elsewhere must not leave the plane serving
         atexit.register(kill_serve)
         try:
-            addr, deadline = None, time.time() + CLI_TIMEOUT_S
+            addr, base = None, None
+            deadline = time.time() + CLI_TIMEOUT_S
             while time.time() < deadline and proc.poll() is None:
                 text = open(out_path).read()
                 if "ctrl-c to stop" in text:
                     for ln in text.splitlines():
                         if ln.startswith("facade plane armed at "):
                             addr = ln.split()[4]
+                        if ln.startswith("observability endpoint at "):
+                            base = ln.split()[3]
                     break
                 time.sleep(0.5)
-            if addr is None:
+            if addr is None or base is None:
                 raise AssertionError("serve did not come up: "
                                      + open(out_path).read()[-2000:])
             t_up = time.perf_counter() - t0
@@ -6921,6 +7153,9 @@ def phase_entry_points(box: dict) -> None:
             if est["outcome"] != "scheduled" or sum(
                     a["replicas"] for a in est["assignments"]) != 4:
                 raise AssertionError(f"estimate answered {est}")
+            t1 = time.perf_counter()
+            seen = debug_server_phase(d, base)
+            walls["debug_server_s"] = time.perf_counter() - t1
             time.sleep(max(0.0, SERVE_SECONDS - (time.perf_counter() - t0
                                                  - t_up)))
             proc.send_signal(signal.SIGINT)
@@ -6946,12 +7181,32 @@ def phase_entry_points(box: dict) -> None:
         if not lg or unsched:
             raise AssertionError(f"the checkpoint holds {len(lg)} loadgen "
                                  f"bindings, unscheduled: {unsched[:5]}")
+        web = store.get("ResourceBinding", "default", "web-deployment")
+        # the rebalance plane may drain it; with no eviction it stays put
+        if seen["evictions"] == 0 and sorted(
+                (t.name, t.replicas)
+                for t in web.spec.clusters) != seen["placement"]:
+            raise AssertionError(
+                f"the checkpoint's web-deployment {web.spec.clusters} is "
+                f"not where /whatif found it: {seen['placement']}")
         log(f"phase 16c: serve --backend device up in {t_up:.1f} s "
             f"({banner[0]}); estimate via {addr}: {est['assignments']} "
             f"(batch {est.get('batchId')}); SIGINT: exit 0 after "
             f"{walls['serve_s']:.1f} s; the checkpoint reloads with "
             f"{len(lg)} loadgen bindings, all scheduled")
+        log(f"phase 16c debug server at {base}: every route answered "
+            f"({seen['walls']}); /whatif placement {seen['whatif']} moved "
+            f"no placement (web-deployment {seen['placement']}; "
+            f"rebalance evictions {seen['evictions']}, the checkpoint "
+            "compared when 0); /debug/profile "
+            f"({seen['windows']} window(s), {seen['lost']} lost) kernels "
+            f"{seen['kernels']}, "
+            f"serving {sorted(seen['serving'])}; a second capture 409; "
+            f"every verb exit 0; --check-invariants: {seen['locks']} "
+            f"VetLocks, {seen['edges']} order edges, 0 inversions, 0 "
+            "watchdog trips")
         box["walls"] = walls
+        box["debug_server"] = seen
     except Exception as e:  # noqa: BLE001 — raised on the main thread
         box["error"] = e
     finally:
@@ -7055,7 +7310,7 @@ def check_launched(label: str, launches: dict, names) -> None:
 def check_chaos_soak(label: str, p: dict, backend: str,
                      circuit_tos: Optional[set] = None) -> None:
     """The JAX package's chaos soak test's checks, on one SOAK payload
-    (its race-detector leg aside).  `circuit_tos`: the circuit's target
+    (its race-detector leg is phase_chaos_soak's).  `circuit_tos`: the circuit's target
     states seen in the run, when its bounded transition log (the last
     256) cannot hold them all."""
     from karmada_tpu_torch import chaos
@@ -7104,9 +7359,32 @@ def check_chaos_soak(label: str, p: dict, backend: str,
 
 
 def phase_chaos_soak(dev, refs) -> dict:
-    """17a: the catalog chaos soak, uncut, on the card."""
+    """17a: the catalog chaos soak, uncut, on the card, with the race
+    detector armed (the JAX chaos soak test's leg): analysis/guards and
+    the VetLocks' ownership and order recording, a LockWatchdog polling;
+    no order inversion and no watchdog trip."""
+    from karmada_tpu_torch.analysis import guards
+    from karmada_tpu_torch.utils import locks
+
     torch.cuda.synchronize()
-    r = soak_run("chaos", dev, FAULT_SEED, plane_kw=CHAOS_PLANE, warm=True)
+    locks.reset_for_tests()
+    inv0, trips0 = locks._INVERSIONS.total(), locks._TRIPS.total()  # noqa: SLF001
+    guards.arm()
+    watchdog = locks.LockWatchdog(threshold_s=5.0, poll_s=0.2).start()
+    try:
+        r = soak_run("chaos", dev, FAULT_SEED, plane_kw=CHAOS_PLANE,
+                     warm=True)
+    finally:
+        watchdog.stop()
+        guards.arm(False)
+    lock_state = locks.state_payload()
+    inversions = locks._INVERSIONS.total() - inv0  # noqa: SLF001
+    trips = locks._TRIPS.total() - trips0  # noqa: SLF001
+    if inversions or trips:
+        raise AssertionError(
+            f"phase 17a chaos: the race detector saw {inversions} order "
+            f"inversion(s) {lock_state['inversions']['recent']} and "
+            f"{trips} watchdog trip(s)")
     t0 = time.perf_counter()
     torch.cuda.synchronize()  # after the re-arm: must not hang
     sync_s = time.perf_counter() - t0
@@ -7126,7 +7404,10 @@ def phase_chaos_soak(dev, refs) -> dict:
         f"{r['backend']}; synchronize after the re-arm {sync_s:.4f} s; "
         f"card {r['wall']:.2f} s, CPU replay {cpu['wall']:.2f} s; equal to "
         "the CPU replay but for the fire log's wall-clock stamps; the "
-        "race-detector leg (utils/locks) is not part of the port yet")
+        f"race-detector leg (guards armed, LockWatchdog polling): "
+        f"{len(lock_state['locks'])} VetLocks, "
+        f"{lock_state['order_edges']} order edges, 0 inversions, 0 "
+        "watchdog trips")
     check_launched("17a", launches, MAIN_KERNELS + ("scatter_lanes",))
     return launches
 
@@ -7579,7 +7860,9 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"peak resident memory: {peak_rss_gib():.2f} GiB (this process)")
-    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the report")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s to the report "
+        f"(16c took {entry_points.box.get('wall', float('nan')):.1f} s on "
+        "its thread)")
     log(f"card: {power}")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,8 @@
 
 Counterpart of the JAX package's ``agent.py``.  Left out of the port: the
 agent's endpointslice collection (it waits with the port's multi-cluster
-services, ``controllers/mcs.py``) and its `recorder` argument (the events
-recorder waits with the port's observability plane).
+services, ``controllers/mcs.py``).  Its `recorder` is the control plane's
+events recorder, handed to the agent's execution and status controllers.
 
 Reference: cmd/agent/app/agent.go:140-145 — in pull mode the member
 cluster is unreachable from the control plane; an agent INSIDE the member
@@ -55,6 +55,7 @@ class KarmadaAgent:
         member: FakeMemberCluster,
         runtime: Runtime,
         interpreter: Optional[ResourceInterpreter] = None,
+        recorder=None,
         clock=None,
     ) -> None:
         self.member = member
@@ -67,12 +68,12 @@ class KarmadaAgent:
         # these registrations.
         with runtime.ungoverned():
             self.execution = ExecutionController(
-                control_store, runtime, scoped, interpreter)
+                control_store, runtime, scoped, interpreter, recorder=recorder)
             self.work_status = WorkStatusController(
                 control_store, runtime, scoped, interpreter
             )
             self.cluster_status = ClusterStatusController(
-                control_store, runtime, scoped)
+                control_store, runtime, scoped, recorder=recorder)
             # the agent rotates ITS OWN credential (the reference runs the
             # rotation controller inside the agent binary)
             self.cert_rotation = CertRotationController(

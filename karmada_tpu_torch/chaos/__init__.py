@@ -12,7 +12,7 @@ Public surface:
   parse_spec(spec) / SITES / SITE_*
       the fault grammar and the injection-site catalog
   state_payload()
-      the chaos state payload (the JAX package's /debug/chaos)
+      the chaos state payload (/debug/chaos, utils/httpserve)
   capture_baseline() / audit_soak(driver, baseline)
       the conservation/accountability/recovery auditor (chaos/audit.py)
 

@@ -40,11 +40,11 @@ no seam adds a device synchronisation or changes a kernel's arguments.
 from __future__ import annotations
 
 import random
-import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from karmada_tpu_torch.utils.locks import VetLock
 from karmada_tpu_torch.utils.metrics import REGISTRY
 
 INJECTIONS = REGISTRY.counter(
@@ -211,7 +211,7 @@ class ChaosPlane:
 
     def __init__(self, seed: int = 0, log_cap: int = 256) -> None:
         self.seed = seed
-        self._lock = threading.Lock()
+        self._lock = VetLock("chaos.plane")
         self._rules: List[FaultRule] = []  # guarded-by: _lock
         self._next_index = 0  # guarded-by: _lock
         # guarded-by: _lock — bounded fire log (site, mode, seq, ts)

@@ -44,30 +44,12 @@ MISSING = {
     "logs": ("the members' pod plane and the cluster proxy", 9),
     "exec": ("the members' pod plane and the cluster proxy", 9),
     "attach": ("the members' pod plane and the cluster proxy", 9),
-    "top": ("the members' pod plane, the metrics adapter and the debug "
-            "server (utils/httpserve, /debug/timeseries)", 9),
+    "top": ("the members' pod plane and the metrics adapter "
+            "(search/metrics_adapter)", 9),
     "--cluster": ("the cluster proxy (search/, ControlPlane.proxy)", 9),
     "--server": ("the query plane (search/httpapi)", 9),
     "vet": ("analysis/ (the vet passes)", 9),
-    "events": ("the debug server (utils/httpserve, /debug/events)", 7),
-    "describe --endpoint": ("the debug server (utils/httpserve, "
-                            "/debug/events)", 7),
-    "explain": ("the debug server (utils/httpserve, /debug/explain)", 7),
-    "trace": ("the debug server (utils/httpserve, /debug/traces)", 7),
-    "resident": ("the debug server (utils/httpserve, /debug/resident)", 7),
-    "rebalance": ("the debug server (utils/httpserve, /debug/rebalance)",
-                  7),
-    "profile": ("the debug server (utils/httpserve, /debug/profile)", 7),
-    "incidents": ("the debug server (utils/httpserve, /debug/incidents)",
-                  7),
-    "whatif": ("the debug server's /whatif endpoint (utils/httpserve)", 7),
-    "loadgen --endpoint": ("the debug server (utils/httpserve, "
-                           "/debug/load)", 7),
-    "--metrics-port": ("the debug server (utils/httpserve)", 7),
     "--api-port": ("the query plane (search/httpapi)", 9),
-    "--check-invariants": ("utils/locks (the lock watchdog and the "
-                           "order-inversion detector the flag arms beside "
-                           "analysis/guards)", 9),
     "--mesh": ("the solver mesh (ops/meshing)", 10),
 }
 
@@ -480,16 +462,203 @@ def cmd_interpret(args) -> int:
     return 0
 
 
+def _fetch_json(base: str, path: str):
+    """GET one JSON payload from an observability endpoint; raises
+    SystemExit-style (None, errcode) tuples are avoided — returns the
+    payload or prints the error and returns None."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(base.rstrip("/") + path, timeout=10) as r:
+            return json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            msg = json.loads(e.read().decode()).get("error", str(e))
+        except Exception:  # noqa: BLE001 — non-JSON error body
+            msg = str(e)
+        print(f"server error ({e.code}): {msg}", file=sys.stderr)
+        return None
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return None
+
+
+def _event_age(evd: dict, now: float) -> str:
+    age = max(0.0, now - float(evd.get("last_timestamp") or 0.0))
+    if age < 120:
+        return f"{age:.0f}s"
+    if age < 7200:
+        return f"{age / 60:.0f}m"
+    return f"{age / 3600:.1f}h"
+
+
+def _event_rows(events, now: float, with_object: bool = True):
+    rows = []
+    for evd in events:
+        obj = (f"{evd.get('kind')}/"
+               + ("/".join(p for p in (evd.get("namespace"),
+                                       evd.get("name")) if p)))
+        link = []
+        if evd.get("cycle_id") is not None:
+            link.append(f"cycle={evd['cycle_id']}")
+        if evd.get("trace_id"):
+            link.append(f"trace={evd['trace_id']}")
+        if evd.get("decision_id") is not None:
+            link.append(f"decision={evd['decision_id']}")
+        row = [
+            _event_age(evd, now),
+            evd.get("type", ""),
+            evd.get("reason", ""),
+        ]
+        if with_object:
+            row.append(obj)
+        row += [
+            str(evd.get("count", 1)),
+            (evd.get("message") or "")[:72],
+            ",".join(link) or "-",
+        ]
+        rows.append(row)
+    return rows
+
+
+def _render_describe(payload: dict) -> None:
+    """Kube-style `karmadactl describe ns/binding --endpoint` rendering:
+    status summary + the event timeline + the last explain verdict."""
+    import time as _time
+
+    print(f"NAME: {payload.get('key')}  ({payload.get('kind')})")
+    binding = payload.get("binding")
+    if binding:
+        cond = binding.get("scheduled_condition") or {}
+        where = ", ".join(f"{c['name']}({c['replicas']})"
+                          for c in binding.get("clusters", []))
+        print(f"STATUS: Scheduled={cond.get('status', 'Unknown')}"
+              + (f" ({cond.get('reason')})" if cond.get("reason") else "")
+              + (f" — {cond.get('message')}" if cond.get("message") else ""))
+        print(f"REPLICAS: {binding.get('replicas')}  "
+              f"CLUSTERS: {where or '-'}  "
+              f"GENERATION: {binding.get('observed_generation')}"
+              f"/{binding.get('generation')}")
+        for t in binding.get("eviction_tasks", []):
+            print(f"EVICTING: {t['from_cluster']} "
+                  f"(reason={t['reason']}, producer={t['producer']})")
+    else:
+        print("STATUS: binding not present in the live store")
+    decision = payload.get("decision")
+    if decision:
+        print(f"LAST VERDICT: {decision.get('outcome')}"
+              + (f" ({decision.get('reason')})"
+                 if decision.get("reason") else "")
+              + f" — {decision.get('message')}")
+        print("  (full verdict table: `karmadactl explain "
+              f"{payload.get('key')} --endpoint URL`)")
+    events = payload.get("events") or []
+    print(f"\nEvents ({len(events)}):")
+    rows = _event_rows(events, _time.time(), with_object=False)
+    _print_table(rows or [["-"] * 6],
+                 ["AGE", "TYPE", "REASON", "COUNT", "MESSAGE", "LINKS"])
+
+
 def cmd_events(args) -> int:
-    return _refuse('events')
+    """The lifecycle ledger's front door (obs/events, /debug/events):
+
+      karmadactl events --endpoint URL            recent-event table
+      karmadactl events ns/name --endpoint URL    one binding's timeline
+      karmadactl events --endpoint URL --watch    follow new events
+    """
+    import time as _time
+
+    base = args.endpoint
+    if args.target:
+        if "/" not in args.target:
+            print("expected namespace/name (e.g. default/app-deployment)",
+                  file=sys.stderr)
+            return 1
+        payload = _fetch_json(base, f"/debug/events/{args.target}")
+        if payload is None:
+            return 1
+        _render_describe(payload)
+        return 0
+    since = None
+    first = True
+    while True:
+        # ctrl-c must exit cleanly wherever it lands — mid-fetch (the
+        # 10s urlopen is most of each cycle against a slow endpoint) as
+        # much as mid-sleep
+        try:
+            path = f"/debug/events?n={args.limit}"
+            if since is not None:
+                path += f"&since={since}"
+            payload = _fetch_json(base, path)
+            if payload is None:
+                return 1
+            events = payload.get("recent") or []
+            if first:
+                stats = payload.get("stats") or {}
+                print(f"ledger: {stats.get('recorded')} recorded, "
+                      f"{stats.get('coalesced')} coalesced, "
+                      f"{stats.get('evicted')} evicted, "
+                      f"{stats.get('retained')} retained over "
+                      f"{stats.get('objects')} object(s)")
+            rows = _event_rows(events, _time.time())
+            if rows or first:
+                _print_table(rows or [["-"] * 7],
+                             ["AGE", "TYPE", "REASON", "OBJECT", "COUNT",
+                              "MESSAGE", "LINKS"])
+            first = False
+            for evd in events:
+                # the ACTIVITY cursor (not the event id): a coalesced
+                # repeat bumps last_seq, so a shed storm collapsing onto
+                # one tail entry keeps surfacing; the server pages
+                # OLDEST-first past the cursor, so a burst wider than
+                # --limit drains over successive polls instead of being
+                # skipped
+                since = max(since or 0, int(evd.get("last_seq") or 0))
+            if not args.watch:
+                return 0
+            if len(events) < args.limit:
+                _time.sleep(max(args.interval, 0.2))
+        except KeyboardInterrupt:
+            return 0
 
 
 def cmd_describe(args) -> int:
     """Detailed single-object view incl. recorded events
-    (pkg/karmadactl/describe).  The live view (--endpoint) and the
-    cluster proxy (--cluster) are refused: the port has neither plane."""
+    (pkg/karmadactl/describe).  With --endpoint, `karmadactl describe
+    ns/binding --endpoint URL` renders a live serve plane's kube-style
+    view instead: status + the lifecycle-ledger timeline
+    (/debug/events/{ns}/{name}) + the last explain verdict.  The cluster
+    proxy (--cluster) is refused: the port has not taken it."""
     if getattr(args, "endpoint", ""):
-        return _refuse("describe --endpoint")
+        if (args.kind or "").lower() in ("incident", "incidents"):
+            # `karmadactl describe incident inc-0001-... --endpoint URL`:
+            # dump the one forensic bundle (the incidents-command twin)
+            if not args.name:
+                print("describe incident expects an incident ID "
+                      "(see `karmadactl incidents --endpoint URL`)",
+                      file=sys.stderr)
+                return 1
+            bundle = _fetch_json(args.endpoint,
+                                 f"/debug/incidents/{args.name}")
+            if bundle is None:
+                return 1
+            print(json.dumps(bundle, indent=2, default=str))
+            return 0
+        target = args.kind if "/" in (args.kind or "") else (
+            f"{args.namespace}/{args.name}"
+            if args.name and args.namespace else "")
+        ns, _, nm = target.partition("/")
+        if not ns or not nm:
+            print("describe --endpoint expects namespace/name "
+                  "(e.g. karmadactl describe default/app-deployment "
+                  "--endpoint URL)", file=sys.stderr)
+            return 1
+        payload = _fetch_json(args.endpoint, f"/debug/events/{target}")
+        if payload is None:
+            return 1
+        _render_describe(payload)
+        return 0
     if args.cluster:
         return _refuse("--cluster")
     if not args.name:
@@ -628,8 +797,138 @@ def cmd_api_resources(args) -> int:
     return 0
 
 
+def _render_decision(d: dict) -> None:
+    """Render one explain-plane Decision: the kube-scheduler-style
+    one-liner plus the per-cluster verdict table."""
+    from karmada_tpu_torch.obs.decisions import REASON_LABEL
+
+    print(f"BINDING: {d['key']}")
+    print(f"OUTCOME: {d['outcome']}"
+          + (f" (dominant reason: {d['reason']})" if d.get("reason") else ""))
+    print(f"MESSAGE: {d.get('message', '')}")
+    if d.get("trace_id"):
+        print(f"TRACE:   {d['trace_id']}  (karmadactl trace --endpoint "
+              f"URL {d['trace_id']})")
+    print(f"BACKEND: {d.get('backend', '?')}")
+    rows = []
+    for c in d.get("clusters", []):
+        reasons = ", ".join(REASON_LABEL.get(r, r) for r in c.get("reasons", []))
+        rows.append([
+            c["name"],
+            str(c.get("replicas", 0)),
+            "ok" if not c.get("verdict") else f"0x{c['verdict']:x}",
+            reasons or "-",
+            "-" if c.get("score") is None else str(c["score"]),
+            "-" if c.get("avail") is None else str(c["avail"]),
+            "-" if c.get("static_weight") is None else str(c["static_weight"]),
+            "-" if c.get("plugin_score") is None else str(c["plugin_score"]),
+        ])
+    if rows:
+        _print_table(rows, ["CLUSTER", "REPLICAS", "VERDICT", "REASONS",
+                            "SCORE", "AVAIL", "STATIC_W", "PLUGIN"])
+    if d.get("clusters_omitted"):
+        print(f"({d['clusters_omitted']} more rejected cluster(s) omitted; "
+              "reason_counts cover the whole fleet)")
+    if d.get("reason_counts"):
+        counts = ", ".join(f"{r}={n}" for r, n in
+                           sorted(d["reason_counts"].items()))
+        print(f"REJECTIONS: {counts}")
+
+
+def _explain_remote(args) -> int:
+    """`karmadactl explain <namespace>/<binding> --endpoint URL`: fetch a
+    placement decision from a serve process's explain plane
+    (`serve --explain --metrics-port ...`) and render it; with no binding
+    argument, list the recent decisions + the unschedulable shelf."""
+    import urllib.error
+    import urllib.request
+
+    base = args.endpoint.rstrip("/")
+    path = ("/debug/explain" if not args.kind
+            else f"/debug/explain/{args.kind}")
+    try:
+        with urllib.request.urlopen(base + path, timeout=10) as r:
+            payload = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            msg = json.loads(e.read().decode()).get("error", str(e))
+        except Exception:  # noqa: BLE001 — non-JSON error body
+            msg = str(e)
+        print(f"server error ({e.code}): {msg}", file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return 1
+    if args.kind:
+        _render_decision(payload)
+        return 0
+    if not payload.get("enabled", False):
+        print("explain plane is disabled on the server "
+              "(serve --explain to arm it)", file=sys.stderr)
+        return 1
+    rows = [
+        [d["key"], d["outcome"], d.get("reason") or "-",
+         (d.get("message") or "")[:60]]
+        for d in payload.get("unschedulable", []) + payload.get("decisions", [])
+    ]
+    _print_table(rows or [["-"] * 4],
+                 ["BINDING", "OUTCOME", "REASON", "MESSAGE"])
+    return 0
+
+
 def cmd_explain(args) -> int:
-    return _refuse('explain')
+    """Two modes (pkg/karmadactl/explain + the explain plane):
+
+    * `karmadactl explain <Kind>` — field documentation from the
+      dataclass tree, as before;
+    * `karmadactl explain <namespace>/<binding> --endpoint URL` — the
+      per-binding placement verdict from a serve process's explain plane
+      (why it landed where it did / why it is unschedulable).
+    """
+    import dataclasses
+    import typing
+
+    if getattr(args, "endpoint", "") or (args.kind and "/" in args.kind):
+        if not getattr(args, "endpoint", ""):
+            print("explaining a binding decision needs --endpoint URL "
+                  "(the serve process's observability endpoint)",
+                  file=sys.stderr)
+            return 1
+        return _explain_remote(args)
+    if not args.kind:
+        print("usage: karmadactl explain <Kind> | "
+              "karmadactl explain <namespace>/<binding> --endpoint URL",
+              file=sys.stderr)
+        return 1
+
+    registry = _model_registry()
+    cls = registry.get(args.kind)
+    if cls is None:
+        print(f"unknown kind {args.kind}; see `karmadactl api-resources`",
+              file=sys.stderr)
+        return 1
+
+    def walk(c, indent: int, seen) -> None:
+        if c in seen or indent > 3 * 2:
+            return
+        seen = seen | {c}
+        try:
+            hints = typing.get_type_hints(c)
+        # vet: ignore[exception-hygiene] unresolvable hints degrade to declared field types
+        except Exception:  # noqa: BLE001 — unresolvable forward refs
+            hints = {}
+        for f in dataclasses.fields(c):
+            t = hints.get(f.name, f.type)
+            name = getattr(t, "__name__", None) or str(t)
+            print(" " * indent + f"{f.name}\t<{name}>")
+            origin = typing.get_origin(t)
+            sub = typing.get_args(t) if origin else (t,)
+            for s in sub:
+                if dataclasses.is_dataclass(s):
+                    walk(s, indent + 2, seen)
+    print(f"KIND: {args.kind}")
+    walk(cls, 0, frozenset())
+    return 0
 
 
 def cmd_token(args) -> int:
@@ -825,12 +1124,8 @@ def cmd_tick(args) -> int:
 
 def _refused_serve_flag(args) -> Optional[str]:
     """The first serve flag set whose plane the port lacks (None: none)."""
-    if args.metrics_port >= 0:
-        return "--metrics-port"
     if args.api_port >= 0:
         return "--api-port"
-    if args.check_invariants:
-        return "--check-invariants"
     if args.mesh not in ("off", ""):
         return "--mesh"
     return None
@@ -843,14 +1138,31 @@ def cmd_serve(args) -> int:
     A flag whose plane the port has not taken is refused before the plane
     loads.  The incident plane is armed by default (bundles under
     DIR/incidents), as in the JAX CLI; --chaos, --telemetry and
-    --slo-deadline arm the chaos and telemetry planes, whose state the
-    debug server would publish (not part of the port yet)."""
+    --slo-deadline arm the chaos and telemetry planes, and --metrics-port
+    serves every plane's state (utils/httpserve).  --check-invariants
+    arms the runtime guards and the lock race detector and watchdog
+    (analysis/guards, utils/locks) before the plane loads; they are
+    disarmed again when serve stops."""
+    import os
     import signal
     import time as _time
 
     refused = _refused_serve_flag(args)
     if refused is not None:
         return _refuse(refused)
+    if args.check_invariants:
+        # arm BEFORE the plane loads: rehydration may already run solves
+        from karmada_tpu_torch.analysis import guards
+        from karmada_tpu_torch.utils import locks as locks_mod
+
+        guards.arm()
+        # the lock watchdog rides the same arming flag: over-threshold
+        # holds trip karmada_lock_watchdog_trips_total and show in the
+        # /debug/state locks block instead of wedging silently
+        locks_mod.start_watchdog()
+        print("runtime invariant guards armed "
+              "(solver entry + d2h boundaries; analysis/guards) + "
+              "lock race detector / deadlock watchdog (utils/locks)")
     explain_rate = 0.0
     if args.explain:
         try:
@@ -957,10 +1269,8 @@ def cmd_serve(args) -> int:
         return 1
     if args.chaos:
         print(f"CHAOS PLANE ARMED (seed {args.chaos_seed}): {args.chaos} -- "
-              "deterministic faults will fire at the named seams; the "
-              "state payload is chaos.state_payload() (no /debug/chaos: "
-              "the debug server is not part of the port yet, ROADMAP "
-              "Queue A item 7)")
+              "deterministic faults will fire at the named seams; state "
+              "at /debug/chaos")
     if args.aot_cache != "off" and cp.scheduler.backend == "device":
         # the port's warm hook (ops/aotcache): build the kernels and the
         # native paths and run each pow2 shape x variant this
@@ -988,7 +1298,9 @@ def cmd_serve(args) -> int:
     if rebalance_interval is not None:
         print(f"rebalance plane armed: drain-and-re-place cycle every "
               f"{rebalance_interval:g}s (graceful evictions under the "
-              "shared pacing budget, re-placed with origin=rebalance)")
+              "shared pacing budget, re-placed with origin=rebalance); "
+              "state at /debug/rebalance, render with "
+              "`karmadactl rebalance --endpoint URL`")
     if args.resident:
         if cp.scheduler.backend == "device":
             fused_note = (" + FUSED device gather (binding rows never "
@@ -996,7 +1308,8 @@ def cmd_serve(args) -> int:
             print("resident-state plane armed: cluster tensors stay "
                   "device-resident between cycles, advanced by watch "
                   f"deltas (parity audit every {args.resident_audit} "
-                  f"cycle(s)){fused_note}")
+                  f"cycle(s)){fused_note}; state at /debug/resident, "
+                  "render with `karmadactl resident --endpoint URL`")
         else:
             print(f"WARNING: --resident needs the device backend (running "
                   f"backend={cp.scheduler.backend}); the resident plane "
@@ -1010,16 +1323,24 @@ def cmd_serve(args) -> int:
                   f"above {cp.scheduler.shortlist.min_cells} dense cells "
                   "run the two-tier solve (K8 candidate lanes -> the "
                   "dense solver over the candidate union); fallbacks are "
-                  "counted (ops/shortlist.FALLBACKS)")
+                  "counted in karmada_shortlist_fallbacks_total; state in "
+                  "/debug/state shortlist section")
         else:
             print(f"WARNING: --shortlist needs the device backend "
                   f"(running backend={cp.scheduler.backend}); the "
                   "shortlist plane is not armed", file=sys.stderr)
     if explain_rate > 0:
-        pct = f"{explain_rate:.0%}" if explain_rate < 1 else "every"
-        print(f"explain plane armed ({pct} cycle(s) sampled): decisions "
-              "in the Scheduler's recorder (no /debug/explain in the "
-              "port: ROADMAP Queue A item 7)")
+        if args.metrics_port >= 0:
+            pct = f"{explain_rate:.0%}" if explain_rate < 1 else "every"
+            print(f"explain plane armed ({pct} cycle(s) sampled): "
+                  "per-binding placement verdicts at /debug/explain; "
+                  "render with `karmadactl explain NAMESPACE/BINDING "
+                  "--endpoint URL`")
+        else:
+            print("WARNING: --explain is armed but --metrics-port is "
+                  "disabled, so /debug/explain is unreachable; add "
+                  "--metrics-port PORT to read the decisions",
+                  file=sys.stderr)
     if ring_cap is not None:
         from karmada_tpu_torch.obs import slo as slo_mod
         from karmada_tpu_torch.obs import timeseries as ts_mod
@@ -1030,17 +1351,19 @@ def cmd_serve(args) -> int:
             schedule_deadline_s=args.slo_deadline))
         print(f"telemetry plane armed: {ring_cap}-sample metric ring on "
               f"the scheduler cycle clock (min interval "
-              f"{args.telemetry_interval:g}s), SLO burn rates "
-              f"(schedule/dwell p99 bound {args.slo_deadline:g}s); "
-              "regression watchdog off (no baseline envelope given); no "
-              "/debug/timeseries or /debug/slo: the debug server is not "
-              "part of the port yet (ROADMAP Queue A item 7)")
+              f"{args.telemetry_interval:g}s), SLO burn rates at "
+              f"/debug/slo (schedule/dwell p99 bound "
+              f"{args.slo_deadline:g}s); regression watchdog off (no "
+              "baseline envelope given); ring at /debug/timeseries")
+        if args.metrics_port < 0:
+            print("WARNING: --telemetry is armed but --metrics-port is "
+                  "disabled, so /debug/timeseries and /debug/slo are "
+                  "unreachable (the karmada_slo_* gauges still update)",
+                  file=sys.stderr)
     if not args.no_incidents:
         # incident plane (obs/incidents), armed by default: every
         # detector's trigger captures a rate-limited forensic bundle
         # under the plane dir
-        import os
-
         from karmada_tpu_torch.obs import incidents as incidents_mod
 
         incidents_mod.configure(
@@ -1049,8 +1372,8 @@ def cmd_serve(args) -> int:
         print("incident plane armed: trigger-driven forensic bundles "
               f"under {os.path.join(args.dir, 'incidents')} "
               f"(cooldown {max(args.incident_cooldown, 0.0):g}s per "
-              "trigger); no /debug/incidents: the debug server is not "
-              "part of the port yet (ROADMAP Queue A item 7)")
+              "trigger); index at /debug/incidents, render with "
+              "`karmadactl incidents --endpoint URL`")
     if args.feature_gates:
         cp.gates.set_from_string(args.feature_gates)
     cp.runtime._periodic_interval_s = args.sync_period  # noqa: SLF001
@@ -1060,9 +1383,39 @@ def cmd_serve(args) -> int:
         from karmada_tpu_torch import obs as obs_mod
 
         obs_mod.TRACER.configure(capacity=args.trace_buffer)
-        print(f"flight recorder on: last {args.trace_buffer} traces in "
-              "process (obs.TRACER.recorder; no /debug/traces in the "
-              "port: ROADMAP Queue A item 7)")
+        if args.metrics_port >= 0:
+            print(f"flight recorder on: last {args.trace_buffer} traces at "
+                  "/debug/traces (+ /debug/traces/slow, /debug/traces/ID); "
+                  "fetch with `karmadactl trace --endpoint URL`")
+        else:
+            print("WARNING: --trace-buffer is armed but --metrics-port is "
+                  "disabled, so /debug/traces is unreachable; add "
+                  "--metrics-port PORT to read the recorder",
+                  file=sys.stderr)
+    # bind the observability endpoint BEFORE starting controller threads:
+    # a port clash must fail fast, not skip the shutdown/checkpoint path
+    obs = None
+    if args.metrics_port >= 0:
+        from karmada_tpu_torch.utils.httpserve import ObservabilityServer
+
+        obs = ObservabilityServer(
+            store=cp.store,
+            # the port's explain plane is the Scheduler's own recorder
+            decisions=cp.scheduler.decisions,
+            # /debug/profile artifacts land under the plane dir so a
+            # capture survives the process (the profileflag contract),
+            # captured on the Scheduler's card
+            profile_dir=os.path.join(args.dir, "profiles"),
+            device=cp.scheduler.device)
+        try:
+            url = obs.start(port=args.metrics_port)
+        except OSError as e:
+            print(f"--metrics-port cannot bind {args.metrics_port}: {e}",
+                  file=sys.stderr)
+            return 1
+        print(f"observability endpoint at {url} "
+              "(/metrics /healthz /readyz /debug/state /debug/traces)",
+              flush=True)
     facade_service = None
     if facade_addr is not None:
         # the facade plane (facade/): scheduler-as-a-service over the
@@ -1079,13 +1432,17 @@ def cmd_serve(args) -> int:
             print(f"--facade cannot bind {facade_addr[0]}:"
                   f"{facade_addr[1]}: {e}", file=sys.stderr)
             facade_service.close()
+            if obs is not None:
+                obs.stop()
             return 1
         facade_mod.set_active(facade_service)
         print(f"facade plane armed at {fh}:{fp} "
               f"(SelectClusters/AssignReplicas/WhatIf, batch window "
               f"{facade_service.batch_window}, deadline "
-              f"{facade_service.batch_deadline_s:g}s); `python -m "
-              f"karmada_tpu_torch.cli estimate --facade-addr {fh}:{fp}`",
+              f"{facade_service.batch_deadline_s:g}s); counters at "
+              "/debug/facade, capacity queries at /whatif "
+              "(`karmadactl whatif --endpoint URL`, `python -m "
+              f"karmada_tpu_torch.cli estimate --facade-addr {fh}:{fp}`)",
               flush=True)
     cp.runtime.serve()
     loadgen_driver = None
@@ -1100,7 +1457,8 @@ def cmd_serve(args) -> int:
         ).start()
         print(f"load generator running: scenario {loadgen_scenario.name} "
               f"(~{args.loadgen_rate:.0f} arrivals/s, "
-              f"{len(loadgen_driver._arrivals)} total)")  # noqa: SLF001
+              f"{len(loadgen_driver._arrivals)} total); "  # noqa: SLF001
+              "live state at /debug/load")
     print(f"serving control plane from {args.dir} "
           f"(backend={cp.scheduler.backend}, {len(cp.members)} members); "
           "ctrl-c to stop", flush=True)
@@ -1125,12 +1483,20 @@ def cmd_serve(args) -> int:
 
             facade_mod.set_active(None)
             facade_service.close()
+        if obs is not None:
+            obs.stop()
         if not args.no_incidents:
             from karmada_tpu_torch.obs import incidents as incidents_mod
 
             incidents_mod.disarm()
         cp.runtime.stop()
         cp.checkpoint()
+        if args.check_invariants:
+            from karmada_tpu_torch.analysis import guards
+            from karmada_tpu_torch.utils import locks as locks_mod
+
+            locks_mod.stop_watchdog()
+            guards.arm(False)
     return 0
 
 
@@ -1147,14 +1513,32 @@ def cmd_loadgen(args) -> int:
                                               scheduler slice; prints the
                                               SOAK payload JSON
 
-    The live view (--endpoint) needs the debug server, which the port
-    lacks.  The chaotic scenarios (chaos, hotspot) arm the chaos plane and
-    end with the safety auditor (the payload's `chaos` / `safety_audit`).
+      karmadactl loadgen --endpoint URL       live /debug/load state of a
+                                              serve process (started with
+                                              serve --loadgen SCENARIO)
+
+    The chaotic scenarios (chaos, hotspot) arm the chaos plane and end
+    with the safety auditor (the payload's `chaos` / `safety_audit`).
     """
-    from karmada_tpu_torch.loadgen import SCENARIOS
+    import urllib.error
+    import urllib.request
+
+    from karmada_tpu_torch.loadgen import SCENARIOS, report
 
     if args.endpoint:
-        return _refuse("loadgen --endpoint")
+        base = args.endpoint.rstrip("/")
+        try:
+            with urllib.request.urlopen(base + "/debug/load", timeout=10) as r:
+                state = json.loads(r.read().decode())
+        except urllib.error.HTTPError as e:
+            print(f"server error ({e.code}): {e.read().decode()[:200]}",
+                  file=sys.stderr)
+            return 1
+        except urllib.error.URLError as e:
+            print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+            return 1
+        print(report.render_load_state(state))
+        return 0
     if not args.scenario:
         rows = [[s.name, str(s.n_bindings), f"{s.load_factor:g}x",
                  "yes" if s.slow else "no", s.description]
@@ -1185,11 +1569,110 @@ def cmd_loadgen(args) -> int:
 
 
 def cmd_rebalance(args) -> int:
-    return _refuse('rebalance')
+    """Render a live serve process's rebalance plane (/debug/rebalance):
+    last detect cycle's per-cluster overcommit/divergence scores,
+    eviction and conservation totals, and the shared pacing-budget
+    state — whether the drain loop is converged at a glance."""
+    import urllib.error
+    import urllib.request
+
+    from karmada_tpu_torch.rebalance import render_state
+
+    base = args.endpoint.rstrip("/")
+    try:
+        with urllib.request.urlopen(base + "/debug/rebalance",
+                                    timeout=10) as r:
+            state = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        print(f"server error ({e.code}): {e.read().decode()[:200]}",
+              file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return 1
+    print(render_state(state))
+    return 0
 
 
 def cmd_whatif(args) -> int:
-    return _refuse('whatif')
+    """Ask a live serve process's facade plane a capacity-planning
+    question (/whatif, facade/): a hypothetical solve on a
+    copy-on-write fork of live state — placements never move.
+
+      karmadactl whatif --endpoint URL --query placement --replicas 500
+      karmadactl whatif --endpoint URL --query cluster-loss
+      karmadactl whatif --endpoint URL --query headroom --cpu 1000m
+    """
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    params = {"query": args.query, "replicas": str(args.replicas),
+              "limit": str(args.limit)}
+    if args.cpu:
+        params["cpu"] = args.cpu
+    if args.memory:
+        params["memory"] = args.memory
+    if args.cluster:
+        params["cluster"] = args.cluster
+    if args.duplicated:
+        params["divided"] = "false"
+    base = args.endpoint.rstrip("/")
+    url = base + "/whatif?" + urllib.parse.urlencode(params)
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            payload = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            payload = json.loads(e.read().decode())
+        except json.JSONDecodeError:
+            payload = {"error": str(e)}
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return 1
+    if payload.get("error"):
+        print(payload["error"], file=sys.stderr)
+        return 1
+    if args.format == "json":
+        print(json.dumps(payload, indent=2))
+        return 0
+    print(_render_whatif(payload))
+    return 0
+
+
+def _render_whatif(payload: dict) -> str:
+    """Human rendering of one /whatif answer (whatif.py documents the
+    per-query result shapes)."""
+    res = payload.get("result", {})
+    lines = [f"what-if {payload.get('query')} "
+             f"(forked from {payload.get('source')} state)"]
+    query = payload.get("query")
+    if query == "placement":
+        lines.append(f"  replicas requested: {res.get('replicas')}")
+        lines.append(f"  outcome: {res.get('outcome')}"
+                     + (f" — {res['message']}" if res.get("message") else ""))
+        for a in res.get("assignments", []):
+            lines.append(f"    {a['cluster']:<24} {a['replicas']} replicas")
+    elif query == "cluster-loss":
+        lines.append(f"  worst single loss: {res.get('worst') or '(none)'}")
+        lines.append(f"  {'CLUSTER':<24} {'HOSTED':>8} {'REPLICAS':>9} "
+                     f"{'STRANDED':>9} {'REPLICAS':>9}")
+        for row in res.get("ranking", []):
+            trunc = (f"  (+{row['truncated']} unprobed)"
+                     if row.get("truncated") else "")
+            lines.append(
+                f"  {row['cluster']:<24} {row['bindings']:>8} "
+                f"{row['replicas']:>9} {row['stranded_bindings']:>9} "
+                f"{row['stranded_replicas']:>9}{trunc}")
+    elif query == "headroom":
+        lines.append(f"  max replicas that still fully schedule: "
+                     f"{res.get('max_replicas')} "
+                     f"({res.get('probes')} probe solves)")
+        for a in res.get("assignments", []):
+            lines.append(f"    {a['cluster']:<24} {a['replicas']} replicas")
+    else:
+        lines.append(f"  {json.dumps(res)}")
+    return "\n".join(lines)
 
 
 def cmd_estimate(args) -> int:
@@ -1247,19 +1730,163 @@ def cmd_estimate(args) -> int:
 
 
 def cmd_resident(args) -> int:
-    return _refuse('resident')
+    """Render a live serve process's resident-state plane
+    (/debug/resident): generation, vocabulary sizes, row-cache hit rate,
+    rebuild reasons, and the last parity-audit outcome — whether the
+    plane is running resident or rebuild-per-cycle at a glance."""
+    import urllib.error
+    import urllib.request
+
+    from karmada_tpu_torch.resident import render_state
+
+    base = args.endpoint.rstrip("/")
+    url = base + "/debug/resident"
+    if args.recent:
+        url += f"?recent={args.recent}"
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            state = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        print(f"server error ({e.code}): {e.read().decode()[:200]}",
+              file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return 1
+    print(render_state(state))
+    return 0
 
 
 def cmd_incidents(args) -> int:
-    return _refuse('incidents')
+    """Render a live serve process's incident plane (/debug/incidents):
+    flight-ring stats, capture/suppression totals by trigger, and the
+    bundle index.  With an ID, dump that one forensic bundle as JSON
+    (also available via `karmadactl describe incident ID`)."""
+    if args.id:
+        bundle = _fetch_json(args.endpoint, f"/debug/incidents/{args.id}")
+        if bundle is None:
+            return 1
+        print(json.dumps(bundle, indent=2, default=str))
+        return 0
+    state = _fetch_json(args.endpoint, "/debug/incidents")
+    if state is None:
+        return 1
+    if not state.get("enabled"):
+        flight = state.get("flight") or {}
+        print("incident plane disarmed (serve arms it automatically); "
+              f"flight ring: {flight.get('retained', 0)} record(s) "
+              f"retained of {flight.get('recorded', 0)} recorded")
+        return 0
+    flight = state.get("flight") or {}
+    print(f"captured {state.get('captured', 0)} incident(s), "
+          f"cooldown {state.get('cooldown_s', 0):g}s per trigger; "
+          f"flight ring {flight.get('retained', 0)}/"
+          f"{flight.get('capacity', 0)} record(s)")
+    by_trigger = state.get("by_trigger") or {}
+    suppressed = state.get("suppressed") or {}
+    if by_trigger or suppressed:
+        print("trigger totals:")
+        for kind in sorted(set(by_trigger) | set(suppressed)):
+            print(f"  {kind:<22} captured {by_trigger.get(kind, 0):<4} "
+                  f"suppressed {suppressed.get(kind, 0)}")
+    incidents = state.get("incidents") or []
+    if not incidents:
+        print("no incident bundles captured")
+        return 0
+    print(f"{'ID':<32} {'TRIGGER':<22} {'CAPTURE':>9}  SUMMARY")
+    for e in incidents:
+        print(f"{e.get('id', ''):<32} {e.get('trigger', ''):<22} "
+              f"{e.get('capture_s', 0.0):>8.3f}s  "
+              f"{(e.get('summary') or '')[:60]}")
+    return 0
 
 
 def cmd_profile(args) -> int:
-    return _refuse('profile')
+    """Open one on-demand torch.profiler capture window on a live serve
+    process (/debug/profile, obs/devprof: K15 markers on the serve
+    process's card) and report the chrome trace it wrote under the
+    plane's profile dir and the device kernels the window recorded:
+
+      karmadactl profile --endpoint http://127.0.0.1:8080 --seconds 2
+    """
+    import urllib.error
+    import urllib.request
+
+    base = args.endpoint.rstrip("/")
+    url = f"{base}/debug/profile?seconds={args.seconds:g}"
+    # the server holds the window open for the full capture (at least
+    # 4 s on a card, a lost window taken again): the client budget is
+    # the window plus generous grace, never less
+    timeout = max(30.0, args.seconds + 120.0)
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            rec = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        try:
+            rec = json.loads(e.read().decode())
+        except json.JSONDecodeError:
+            rec = {"ok": False, "error": str(e)}
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return 1
+    if not rec.get("ok"):
+        print(f"capture failed: {rec.get('error')}", file=sys.stderr)
+        return 1
+    print(f"captured {rec.get('seconds')}s profiler window "
+          f"({rec.get('wall_s')}s wall) -> {rec.get('dir')}")
+    for f in rec.get("files", []):
+        print(f"  {f['path']}  {f['bytes']} bytes")
+    kernels = rec.get("kernels") or {}
+    if kernels:
+        print("device kernels: " + ", ".join(
+            f"{name} x{n}" for name, n in kernels.items()))
+    print(f"total {rec.get('total_bytes')} bytes; open the chrome trace "
+          "in Perfetto or chrome://tracing")
+    return 0
 
 
 def cmd_trace(args) -> int:
-    return _refuse('trace')
+    """Fetch flight-recorder traces from a serve process's observability
+    endpoint (`serve --metrics-port ... --trace-buffer N`) and render them:
+    a summary table without arguments, a text waterfall for one trace id.
+    Rendering happens client-side (obs/export) so the server ships plain
+    JSON."""
+    import urllib.error
+    import urllib.request
+
+    from karmada_tpu_torch.obs import export
+
+    base = args.endpoint.rstrip("/")
+    path = "/debug/traces/slow" if args.slow else "/debug/traces"
+    if args.trace_id:
+        path = f"/debug/traces/{args.trace_id}?format=json"
+    try:
+        with urllib.request.urlopen(base + path, timeout=10) as r:
+            payload = json.loads(r.read().decode())
+    except urllib.error.HTTPError as e:
+        print(f"server error ({e.code}): {e.read().decode()[:200]}",
+              file=sys.stderr)
+        return 1
+    except urllib.error.URLError as e:
+        print(f"cannot reach {base}: {e.reason}", file=sys.stderr)
+        return 1
+    if args.trace_id:
+        print(export.render_waterfall(payload))
+        return 0
+    if not payload.get("enabled", False):
+        print("tracing is disabled on the server "
+              "(serve --trace-buffer N to arm it)", file=sys.stderr)
+        return 1
+    rows = [
+        [s["trace_id"], s["root"], str(s["spans"]),
+         f"{s['duration_ms']:.2f}", str(s["cancelled"]).lower()]
+        for s in payload.get("summaries", [])
+    ]
+    _print_table(rows or [["-"] * 5],
+                 ["TRACE", "ROOT", "SPANS", "DURATION_MS", "CANCELLED"])
+    if payload.get("dropped"):
+        print(f"({payload['dropped']} older traces dropped from the ring)")
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -7,14 +7,13 @@ member-side fields and ConflictResolution overwrite/abort).  The member
 "API server" here is a FakeMemberCluster; real clients slot in behind the
 same apply interface.
 
-Counterpart of the JAX package's ``controllers/execution.py``.  Where the
-JAX controller records a SyncWorkloadFailed event and a latency metric,
-this one counts the Work syncs that hit an apply error
+Counterpart of the JAX package's ``controllers/execution.py``.  Every
+sync records the JAX controller's SyncSucceed / SyncFailed event on the
+Work and is observed on karmada_work_sync_workload_duration_seconds; the
+port also counts the syncs that hit an apply error
 (`ExecutionController.sync_failures`, and by cluster in
 `sync_failures_by_cluster`; the errors stand in the Work's
-Applied=False condition), and every sync is observed on
-karmada_work_sync_workload_duration_seconds.  The events recorder waits
-with the loop's events.
+Applied=False condition).
 The reconcile reads the Work, its Cluster and binding, and the member's
 object as stored (ObjectStore.peek): it only looks, and writes through
 the member's apply and the store's mutate.
@@ -38,6 +37,7 @@ from karmada_tpu_torch.models.meta import Condition, deep_get, set_condition
 from karmada_tpu_torch.models.work import COND_WORK_APPLIED, ResourceBinding, Work
 from karmada_tpu_torch.store.store import DELETED, Event, ObjectStore
 from karmada_tpu_torch.store.worker import AsyncWorker, Runtime
+from karmada_tpu_torch.utils import events as ev
 from karmada_tpu_torch.utils.metrics import REGISTRY, exponential_buckets
 
 # execution_controller.go:154 metrics.ObserveSyncWorkloadLatency
@@ -110,9 +110,11 @@ class ExecutionController:
         runtime: Runtime,
         members: Dict[str, FakeMemberCluster],
         interpreter: Optional[ResourceInterpreter] = None,
+        recorder: Optional[ev.EventRecorder] = None,
     ) -> None:
         self.store = store
         self.members = members
+        self.recorder = recorder if recorder is not None else ev.EventRecorder()
         #: Work syncs that hit an apply error (the Work is marked
         #: Applied=False and requeued), in all and by cluster
         self.sync_failures = 0
@@ -199,4 +201,11 @@ class ExecutionController:
             self.sync_failures += 1
             self.sync_failures_by_cluster[cluster_name] = (
                 self.sync_failures_by_cluster.get(cluster_name, 0) + 1)
+            self.recorder.event(work, ev.TYPE_WARNING,
+                                ev.REASON_SYNC_WORKLOAD_FAILED, "; ".join(errors))
+        else:
+            self.recorder.event(
+                work, ev.TYPE_NORMAL, ev.REASON_SYNC_WORKLOAD_SUCCEED,
+                f"Successfully applied manifests to cluster {cluster_name}.",
+            )
         return None if not errors else False

@@ -15,10 +15,10 @@ monitor flips the cluster's Ready condition to Unknown
 not-ready taint exactly as for an observed failure.
 
 `renew_cluster_lease` carries the chaos seam `lease.heartbeat` (drop: the
-renewal is skipped, so the lease ages as a dead collector's would).  Left
-out of the port: the monitor's ClusterStatusUnknown event (its `recorder`
-argument), which waits with the loop's events.  The monitor reads the stored objects without copying (ObjectStore.peek /
-visit).
+renewal is skipped, so the lease ages as a dead collector's would).  The
+monitor records a ClusterStatusUnknown event on each degrade (its
+`recorder`), and reads the stored objects without copying
+(ObjectStore.peek / visit).
 """
 
 from __future__ import annotations
@@ -105,14 +105,20 @@ class ClusterLeaseMonitor:
         runtime,
         grace_multiplier: float = 4.0,
         clock: Callable[[], float] = time.time,
+        recorder=None,
     ) -> None:
+        from karmada_tpu_torch.utils.events import EventRecorder
+
         self.store = store
         self.runtime = runtime
         self.grace_multiplier = grace_multiplier
         self.clock = clock
+        self.recorder = recorder if recorder is not None else EventRecorder()
         runtime.register_periodic(self.check_all, name="cluster-lease")
 
     def check_all(self) -> None:
+        from karmada_tpu_torch.utils import events as ev
+
         now = self.clock()
         # renewals happen once per periodic round: a sync period longer
         # than the lease duration must widen the grace window, or a slow
@@ -140,6 +146,11 @@ class ClusterLeaseMonitor:
                     message="cluster status collector stopped heartbeating",
                 ))
             try:
-                self.store.mutate(Cluster.KIND, "", name, degrade)
+                stored = self.store.mutate(Cluster.KIND, "", name, degrade)
             except NotFoundError:
                 continue
+            self.recorder.event(
+                stored, ev.TYPE_WARNING, ev.REASON_CLUSTER_STATUS_UNKNOWN,
+                f"lease for cluster {name} not renewed within grace period",
+                origin="cluster-lease",
+            )

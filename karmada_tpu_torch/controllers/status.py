@@ -263,9 +263,16 @@ class ClusterStatusController:
         store: ObjectStore,
         runtime: Runtime,
         members: Dict[str, FakeMemberCluster],
+        recorder=None,
     ) -> None:
+        from karmada_tpu_torch.utils.events import EventRecorder
+
         self.store = store
         self.members = members
+        self.recorder = recorder if recorder is not None else EventRecorder()
+        # name -> the member's health at its last collect: a change is a
+        # ClusterReady / ClusterNotReady event
+        self._last_ready: Dict[str, bool] = {}
         # name -> (the member's state_key, the Cluster's resourceVersion)
         # after its last collect: the update is a function of the two, so
         # while both hold it would write nothing again
@@ -316,3 +323,20 @@ class ClusterStatusController:
         stored = self.store.mutate(Cluster.KIND, "", name, update)
         self._collected[name] = (key, stored.metadata.resource_version)
         _export_gauges(stored)
+        # a skipped collect saw the same state_key, health included, so
+        # every readiness transition reaches this point
+        ready = member.healthy
+        if self._last_ready.get(name) != ready:
+            from karmada_tpu_torch.utils import events as ev
+
+            self._last_ready[name] = ready
+            if ready:
+                self.recorder.event(
+                    stored, ev.TYPE_NORMAL, ev.REASON_CLUSTER_READY,
+                    f"cluster {name} readiness is now True",
+                    origin="cluster-status")
+            else:
+                self.recorder.event(
+                    stored, ev.TYPE_WARNING, ev.REASON_CLUSTER_NOT_READY,
+                    f"cluster {name} readiness is now False",
+                    origin="cluster-status")

@@ -27,3 +27,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def mesh_info() -> dict:
+    """The `mesh` block of /debug/state: the JAX package's
+    ``ops/meshing.mesh_info()`` single-device fallback.  The port runs on
+    one card (a solver mesh is ROADMAP Queue A item 10), so no mesh plan
+    is ever active; reading it touches no device."""
+    return {"enabled": False, "shape": None, "devices": 1,
+            "platform": None}

@@ -62,7 +62,7 @@ Scheduler (chaos/: the nine seams, the safety auditor), as in the JAX
 ControlPlane.
 
 Not part of the port yet, by argument: mesh_shape; by method:
-enable_dns_detector, proxy, metrics_dump; and the
+enable_dns_detector, proxy; and the
 controllers behind them: the search cache / unified auth / cluster
 proxy / metrics provider, the FederatedHPA family (FederatedHPA,
 CronFederatedHPA, the scale-target marker, the replicas syncer, the HPA
@@ -273,7 +273,8 @@ class ControlPlane:
         self.binding_controller = BindingController(
             self.store, self.runtime, self.interpreter)
         self.execution = ExecutionController(
-            self.store, self.runtime, self.push_members, self.interpreter)
+            self.store, self.runtime, self.push_members, self.interpreter,
+            recorder=self.recorder)
         self.work_status = WorkStatusController(
             self.store, self.runtime, self.push_members, self.interpreter)
         self.binding_status = BindingStatusController(
@@ -282,8 +283,10 @@ class ControlPlane:
         # lease staleness monitor reads it too (a dead collector / agent
         # degrades its cluster to Ready=Unknown), as in the JAX package
         self.cluster_status = ClusterStatusController(
-            self.store, self.runtime, self.push_members)
-        self.lease_monitor = ClusterLeaseMonitor(self.store, self.runtime)
+            self.store, self.runtime, self.push_members,
+            recorder=self.recorder)
+        self.lease_monitor = ClusterLeaseMonitor(self.store, self.runtime,
+                                                 recorder=self.recorder)
         self.cluster_taints = ClusterTaintController(self.store, self.runtime,
                                                      clock=self.clock)
         # taint-driven evictions pace through the rate-limited queue
@@ -376,7 +379,7 @@ class ControlPlane:
             bootstrap_agent_csr(self.store, name)
             self.agents[name] = KarmadaAgent(
                 self.store, member, self.runtime, self.interpreter,
-                clock=self.clock)
+                recorder=self.recorder, clock=self.clock)
         else:
             # work_status shares the push_members dict by reference; only
             # the member-informer subscription needs per-member wiring
@@ -454,6 +457,13 @@ class ControlPlane:
 
     def delete(self, kind: str, namespace: str, name: str) -> None:
         self.store.delete(kind, namespace, name)
+
+    # -- observability ------------------------------------------------------
+    def metrics_dump(self) -> str:
+        """Prometheus text exposition of every registered metric."""
+        from karmada_tpu_torch.utils.metrics import REGISTRY
+
+        return REGISTRY.dump()
 
     def events(self, kind=None, namespace=None, name=None):
         """The plane's recorded events (the process ledger), filtered."""

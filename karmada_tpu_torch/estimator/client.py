@@ -47,6 +47,7 @@ from karmada_tpu_torch.estimator.wire import (
 )
 from karmada_tpu_torch.models.cluster import Cluster
 from karmada_tpu_torch.models.work import ReplicaRequirements, TargetCluster
+from karmada_tpu_torch.utils.locks import VetLock
 
 RPC_SKIPPED = REGISTRY.counter(
     "karmada_estimator_rpc_skipped_total",
@@ -149,7 +150,7 @@ class CircuitBreaker:
         self.failure_threshold = max(1, failure_threshold)
         self.reset_timeout_s = reset_timeout_s
         self.clock = clock if clock is not None else time.monotonic
-        self._lock = threading.Lock()
+        self._lock = VetLock("estimator.breaker")
         self._state: Dict[str, str] = {}  # guarded-by: _lock
         self._failures: Dict[str, int] = {}  # guarded-by: _lock
         self._opened_at: Dict[str, float] = {}  # guarded-by: _lock
@@ -303,7 +304,7 @@ class AccurateEstimatorClient:
         self.retries: Dict[str, int] = {}  # guarded-by: _count_lock
         #: RPCs the rv-keyed memo answered instead, by method
         self.rpc_skipped: Dict[str, int] = {}  # guarded-by: _count_lock
-        self._memo_lock = threading.Lock()
+        self._memo_lock = VetLock("estimator.memo")
         # guarded-by: _memo_lock -- per (method, cluster): the cluster
         # resourceVersion the memoized answers were observed at, and the
         # successful answers keyed by request signature.  A cluster whose
@@ -524,7 +525,7 @@ class SnapshotEstimator:
                           else 6 * refresh_interval_s)
         self._snapshots: Dict[str, CapacitySnapshotResponse] = {}
         self._fetched_at: Dict[str, float] = {}
-        self._lock = threading.Lock()
+        self._lock = VetLock("estimator.capacity")
 
     def refresh(self, cluster: str, force: bool = False) -> None:
         transport = self.client.transports.get(cluster)

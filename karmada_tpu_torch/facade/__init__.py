@@ -20,9 +20,9 @@ over the wire tier (estimator/wire.py's length-prefixed frames):
 
 The process-wide registry below: one armed service, read lazily; a
 disarmed plane reports ``{"enabled": False}``.  The karmada_facade_*
-families live in facade/metrics.py; the JAX package's /debug/facade and
-/whatif endpoints and the CLI verbs reading them are not part of the
-port yet (they wait for the debug server).
+families live in facade/metrics.py; `serve --facade[=ADDR]` arms the
+plane, and the debug server (utils/httpserve) publishes it at
+/debug/facade and /whatif (`karmadactl whatif --endpoint`).
 """
 
 from __future__ import annotations
@@ -65,8 +65,8 @@ def active() -> Optional[FacadeService]:
 
 
 def state_payload() -> dict:
-    """The armed service's coalescing / what-if counters, or the
-    disarmed sentinel."""
+    """/debug/facade: the armed service's coalescing / what-if counters,
+    or the disarmed sentinel."""
     svc = active()
     if svc is None:
         return {"enabled": False}
@@ -74,11 +74,13 @@ def state_payload() -> dict:
 
 
 def whatif_payload(params: dict) -> dict:
-    """Run one capacity-planning query from query parameters against the
-    armed service (params -> WhatIfRequest -> hypothetical solve)."""
+    """/whatif: run one capacity-planning query from query parameters
+    against the armed service (params -> WhatIfRequest -> hypothetical
+    solve)."""
     svc = active()
     if svc is None:
-        return {"enabled": False, "error": "facade plane not armed"}
+        return {"enabled": False,
+                "error": "facade plane not armed (serve --facade)"}
     try:
         req = WhatIfRequest.from_params(params)
         return svc.whatif(req).to_json()

@@ -47,6 +47,7 @@ from karmada_tpu_torch.obs import events as obs_events
 from karmada_tpu_torch.obs import incidents as obs_incidents
 from karmada_tpu_torch.ops import serial
 from karmada_tpu_torch.scheduler.core import ClusterView
+from karmada_tpu_torch.utils.locks import VetLock
 
 OUTCOME_SCHEDULED = "scheduled"
 OUTCOME_UNSCHEDULABLE = "unschedulable"
@@ -100,7 +101,7 @@ class FacadeService:
         self.batch_window = int(batch_window or scheduler.batch_window)
         self.batch_deadline_s = float(batch_deadline_s)
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = VetLock("facade.state")
         self._cond = threading.Condition(self._lock)
         # _cond wraps _lock: waiters and counter updates share one mutex
         self._pending: List[_Pending] = []  # guarded-by: _cond
@@ -118,7 +119,7 @@ class FacadeService:
         # serializes every detached solve this service issues (assign
         # batches and what-if probes) -- detached solves are safe against
         # the live cycle worker but not against each other
-        self._solve_lock = threading.Lock()
+        self._solve_lock = VetLock("facade.solve")
         # the coalesced solves' copy of the Clusters and its (name,
         # resourceVersion) list
         self._view: Optional[ClusterView] = None  # guarded-by: _solve_lock
@@ -374,7 +375,7 @@ class FacadeService:
                                         result=OUTCOME_SCHEDULED)
         return resp
 
-    # -- the JAX package's /debug/facade payload ------------------------------
+    # -- the /debug/facade payload ---------------------------------------------
     def state_payload(self) -> dict:
         with self._lock:
             calls, batches = self._calls, self._batches

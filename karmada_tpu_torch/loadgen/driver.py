@@ -28,9 +28,8 @@ Two execution modes:
   * realtime: wall clock, no wrapping — arrivals are paced by a daemon
     thread against a live serve plane (`karmadactl serve --loadgen`).
 
-The active driver registers itself process-wide (`set_active`), and
-`load_state()` reads its live state (the JAX package's /debug/load
-payload).
+The active driver registers itself process-wide (`set_active`) so
+/debug/load (utils/httpserve) can publish live state (`load_state()`).
 """
 
 from __future__ import annotations
@@ -74,6 +73,7 @@ from karmada_tpu_torch.scheduler.service import Scheduler
 from karmada_tpu_torch.obs import events as obs_events
 from karmada_tpu_torch.store.store import DELETED, Event, NotFoundError, ObjectStore
 from karmada_tpu_torch.store.worker import Runtime
+from karmada_tpu_torch.utils.locks import VetLock
 from karmada_tpu_torch.utils.quantity import Quantity
 
 LOADGEN_NS = "loadgen"
@@ -87,7 +87,7 @@ class VirtualClock:
 
     def __init__(self, start: float = 1_000_000.0) -> None:
         self._t = start  # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = VetLock("loadgen.clock")
 
     def now(self) -> float:
         return self._t
@@ -423,7 +423,7 @@ class _Flight:
 
 # -- /debug/load registry -----------------------------------------------------
 _ACTIVE: Optional["LoadDriver"] = None  # guarded-by: _ACTIVE_LOCK
-_ACTIVE_LOCK = threading.Lock()
+_ACTIVE_LOCK = VetLock("loadgen.active")
 
 
 def set_active(driver: Optional["LoadDriver"]) -> None:
@@ -502,7 +502,7 @@ class LoadDriver:
         self._arr_idx = 0
         self._evt_idx = 0
         self._n_injected = 0
-        self._lock = threading.Lock()
+        self._lock = VetLock("loadgen.flight")
         self._flight: Dict[Tuple[str, str], _Flight] = {}  # guarded-by: _lock
         self._max_depth: Dict[str, int] = {}  # guarded-by: _lock
         self._max_oldest: Dict[str, float] = {}  # guarded-by: _lock

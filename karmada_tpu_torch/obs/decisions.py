@@ -192,6 +192,9 @@ class DecisionRecorder:
     def record(self, decision: dict) -> None:
         with self._lock:
             self._next_id += 1
+            # the Decision's identity for the lifecycle ledger's
+            # cross-reference (events carry decision_id, decisions carry
+            # event_id once the outcome event links back)
             decision["id"] = self._next_id
             if len(self._ring) == self.capacity:
                 self._dropped += 1
@@ -219,6 +222,24 @@ class DecisionRecorder:
                 if d["key"] == key:
                     return d
             return self._failed.get(key)
+
+    def link_event(self, key: str, event_id: int) -> Optional[int]:
+        """Stamp the lifecycle-ledger event id onto the latest decision
+        for `key`; returns that decision's id so the caller can stamp it
+        back onto the event (obs/events.link_decision) -- the timeline
+        and /debug/explain/{ns}/{name} then cross-reference."""
+        with self._lock:
+            target = None
+            for d in reversed(self._ring):
+                if d["key"] == key:
+                    target = d
+                    break
+            if target is None:
+                target = self._failed.get(key)
+            if target is None:
+                return None
+            target["event_id"] = event_id
+            return target.get("id")
 
     @property
     def dropped(self) -> int:

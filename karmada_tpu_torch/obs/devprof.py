@@ -29,6 +29,7 @@ Counterpart of the JAX package's ``obs/devprof.py``, with its contract:
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
@@ -269,6 +270,9 @@ def capture_profile(seconds: float, out_dir: str, device=None) -> dict:
             "markers": marks,
             "device_kernels": len(names),
             "marker_kernels": seen,
+            # the window's device kernels by name (the 32 most launched):
+            # K15's marker and whatever the serving cycles launched
+            "kernels": dict(collections.Counter(names).most_common(32)),
             "files": files,
             "total_bytes": sum(f["bytes"] for f in files),
         }

@@ -45,13 +45,13 @@ Every ``reason`` at a ``record``/``emit`` call site is one of the
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import Counter as _Counter
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
+from karmada_tpu_torch.utils.locks import VetLock
 from karmada_tpu_torch.utils.metrics import REGISTRY
 
 TYPE_NORMAL = "Normal"
@@ -207,7 +207,7 @@ class EventLedger:
         self.capacity = max(1, int(capacity))
         self.now = now
         self.export_metrics = bool(export_metrics)
-        self._lock = threading.Lock()
+        self._lock = VetLock("obs.events")
         # guarded-by: _lock; mutators: record,link_decision
         self._events: Dict[int, LedgerEvent] = {}
         # guarded-by: _lock — global FIFO of event ids (eviction order)

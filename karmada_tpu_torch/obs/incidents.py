@@ -3,7 +3,8 @@
 
 Every detection plane this repo has grown — SLO burn verdicts and the
 RegressionWatchdog (obs/slo), the incremental dense audit
-(scheduler/incremental), chaos SafetyAuditor violations (chaos/audit), backend
+(scheduler/incremental), the LockWatchdog and order-inversion detector
+(utils/locks), chaos SafetyAuditor violations (chaos/audit), backend
 degrade and cycle-fault containment (scheduler/service), and the
 InvariantViolation guards (analysis/guards) — fires a counter and then
 throws away the context it fired in.  This module keeps that context:
@@ -26,12 +27,12 @@ throws away the context it fired in.  This module keeps that context:
 * **Incident bundles** — on an admitted trigger the store captures a
   self-contained JSON bundle: the flight ring, the last N MetricRing
   samples plus the SLO verdict, the lifecycle-ledger timelines of the
-  implicated bindings, the trigger's own detail payload (e.g. the
-  incremental audit divergence diff), and an optional bounded
-  ``torch.profiler`` capture (obs/devprof).  Bundles are written under
-  ``<dir>/<id>.json`` and indexed in memory (``state_payload`` /
-  ``bundle_payload``).  The JAX bundle's ``locks`` block (utils/locks) is
-  not part of the port.
+  implicated bindings, the ``/debug/state`` locks block, the trigger's
+  own detail payload (e.g. the incremental audit divergence diff), and
+  an optional bounded ``torch.profiler`` capture (obs/devprof).  Bundles
+  are written under ``<dir>/<id>.json`` and indexed in memory for
+  ``/debug/incidents[/{id}]`` (utils/httpserve) / ``karmadactl
+  incidents``.
 
 Capture is deliberately defensive: every section is independently
 guarded, a failing plane records a ``capture_errors`` entry instead of
@@ -177,6 +178,8 @@ class IncidentStore:
         self.keep = max(1, int(keep))
         self.profile_s = float(profile_s)
         self._clock = clock
+        # plain Lock BY DESIGN: triggers fire from inside utils/locks'
+        # own bookkeeping -- a VetLock here would self-trace
         self._lock = threading.Lock()
         self._seq = 0  # guarded-by: _lock
         self._last_fire: Dict[str, float] = {}  # guarded-by: _lock
@@ -270,6 +273,13 @@ class IncidentStore:
 
         bundle["slo"] = guard("slo", _slo_block)
 
+        def _locks_block():
+            from karmada_tpu_torch.utils import locks
+
+            return locks.state_payload()
+
+        bundle["locks"] = guard("locks", _locks_block)
+
         def _timelines_block():
             from karmada_tpu_torch.obs import events as obs_events
 
@@ -345,8 +355,8 @@ class IncidentStore:
         return None
 
     def state_payload(self) -> dict:
-        """The incident index plus capture / suppression totals (the JAX
-        package's /debug/incidents; bundles are one fetch deeper)."""
+        """/debug/incidents: the index plus capture/suppression totals
+        (bundles themselves are one fetch deeper)."""
         with self._lock:
             index = list(self._index)
             by_trigger = dict(self._by_trigger)
@@ -417,7 +427,7 @@ def trigger(kind: str, summary: str = "", *,
 
 
 def state_payload() -> dict:
-    """The incident payload (module form): {"enabled": False} plus flight
+    """/debug/incidents (module form): {"enabled": False} plus flight
     stats when no store is armed -- pollable unconditionally."""
     store = _STORE[0]
     if store is None:

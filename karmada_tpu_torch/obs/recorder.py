@@ -18,8 +18,9 @@ exported through stats() into /debug/state and /debug/traces.
 from __future__ import annotations
 
 import collections
-import threading
 from typing import List, Optional
+
+from karmada_tpu_torch.utils.locks import VetLock
 
 
 class TraceRecorder:
@@ -32,7 +33,7 @@ class TraceRecorder:
         # guarded-by: _lock (ascending duration; [0] is fastest)
         self._slow: List[dict] = []
         self._dropped = 0  # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = VetLock("obs.recorder")
 
     def record(self, trace: dict) -> None:
         with self._lock:

@@ -456,7 +456,7 @@ def disarm() -> None:
 
 
 def state_payload() -> dict:
-    """The SLO payload (the JAX package's /debug/slo): the most recent
+    """/debug/slo: the SLO payload -- the most recent
     evaluation, or the disarmed marker so it can be polled
     unconditionally."""
     ev = active()

@@ -244,7 +244,7 @@ def maybe_sample(now: float) -> bool:
 def state_payload(n: Optional[int] = None,
                   prefix: Optional[str] = None,
                   include_points: bool = True) -> dict:
-    """The time-series payload (the JAX package's /debug/timeseries).
+    """/debug/timeseries: the time-series payload.
     include_points=False strips the per-series point lists and keeps only
     the window aggregates (delta / last) -- a dashboard summary must not
     serialize the whole ring per poll."""

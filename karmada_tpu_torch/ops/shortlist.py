@@ -36,7 +36,6 @@ JAX package's karmada_shortlist_* registry families.
 
 from __future__ import annotations
 
-import threading
 from array import array
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -65,6 +64,7 @@ from karmada_tpu_torch.ops.solver import (
     _zeros_used,
     capacity_plain,
 )
+from karmada_tpu_torch.utils.locks import VetLock
 
 # packed score-key geometry: prev-assignment bit above a 34-bit capacity
 # field above a 5-bit coarse group-rank field above the 21-bit lane field
@@ -332,12 +332,12 @@ def group_sums(group_id, cap_proxy, n_groups: int):
 # aggregates once per such run.  The memo pins the source arrays it keyed
 # on, so a collected id can never alias a fresh plane.
 _AGG_MEMO: List[Optional[dict]] = [None]
-_AGG_LOCK = threading.Lock()
+_AGG_LOCK = VetLock("shortlist.agg")
 # per-profile tier-1 memo (see _dispatch_profiles): one master-set slot,
 # {(placement, gvk, class, k) -> (cand_row, fcount)} under it, a bounded
 # LRU; same pinning discipline
 _T1_MEMO: List[Optional[dict]] = [None]
-_T1_LOCK = threading.Lock()
+_T1_LOCK = VetLock("shortlist.t1")
 _T1_ROWS_CAP = 4096  # LRU bound on cached profile rows per master epoch
 
 
@@ -350,6 +350,8 @@ def reset_for_tests() -> None:
     for d in (COUNTS, FALLBACKS):
         for k in d:
             d[k] = 0
+    with _AGG_LOCK:
+        _LAST.clear()
 
 
 def cycle_aggregates(batch, device=None) -> dict:
@@ -395,6 +397,31 @@ def cycle_aggregates(batch, device=None) -> dict:
     return memo
 
 
+# /debug/state shortlist block: last-chunk snapshot + lifetime counters
+# guarded-by: _AGG_LOCK; mutators: _note,reset_for_tests
+_LAST: Dict[str, object] = {}
+
+
+def _note(**kw) -> None:
+    with _AGG_LOCK:
+        _LAST.update(kw)
+
+
+def state_payload() -> dict:
+    """The `shortlist` section of /debug/state (utils/httpserve reads it
+    through sys.modules: a plane that never imported the tier pays
+    nothing)."""
+    with _AGG_LOCK:
+        last = dict(_LAST)
+    return {
+        "dispatches": int(SHORTLIST_DISPATCHES.value()),
+        "rows": int(SHORTLIST_ROWS.value()),
+        "widenings": int(SHORTLIST_WIDENINGS.value()),
+        "fallbacks": int(SHORTLIST_FALLBACKS.total()),
+        "last": last,
+    }
+
+
 def _fallback(reason: str, detail: str) -> Tuple[None, dict]:
     """The counted dense-fallback path (a count and a lifecycle-ledger
     event): a shortlisted chunk never changes width silently."""
@@ -403,6 +430,7 @@ def _fallback(reason: str, detail: str) -> Tuple[None, dict]:
     ev.emit(_LEDGER_REF, ev.TYPE_WARNING, ev.REASON_SHORTLIST_FALLBACK,
             f"chunk fell back to the dense solve ({reason}): {detail}",
             origin="shortlist")
+    _note(fallback_reason=reason)
     return None, {"fallback": reason, "detail": detail}
 
 
@@ -621,6 +649,7 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
                         "routed to the per-binding dense residual: "
                         + _row_names(part, residual),
                         origin="shortlist")
+                _note(residual=len(residual))
                 active = valid & ~drop
                 worst = int(need[active].max()) if bool(active.any()) else 0
             else:
@@ -664,6 +693,9 @@ def shrink_chunk(batch, cfg: ShortlistConfig, allow_truncate: bool = True,
             "residual": residual,
             "cells_solve": batch.B * sub.C,
             "cells_dense": batch.B * batch.C}
+    _note(k=k, widened=widened, union=int(lanes.size), sub_c=sub.C,
+          b=batch.B, c=batch.C, profiles=int(prof_keys.shape[0]),
+          fallback_reason=None)
     return sub, info
 
 

@@ -5,12 +5,18 @@
   pacing.py   EvictionBudget -- the shared per-cluster eviction-pacing
               ledger
 
-Armed by `Scheduler(rebalance=INTERVAL_S)` (scheduler/service.py).
-Counterpart of the JAX package's ``karmada_tpu/rebalance``; its debug
-endpoint and `karmadactl rebalance` wait for the port's debug server.
+Armed by `Scheduler(rebalance=INTERVAL_S)` / `serve --rebalance`.
+Counterpart of the JAX package's ``karmada_tpu/rebalance``.  The active
+plane registers process-wide so /debug/rebalance (utils/httpserve) and
+`karmadactl rebalance` can publish it without plumbing.  The LATEST armed
+plane wins the registry; a process that builds a second scheduler
+without --rebalance keeps the previous plane visible -- harnesses that
+need a clean slate call set_active(None).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 from karmada_tpu_torch.rebalance.pacing import EvictionBudget  # noqa: F401
 from karmada_tpu_torch.rebalance.plane import (  # noqa: F401
@@ -18,10 +24,35 @@ from karmada_tpu_torch.rebalance.plane import (  # noqa: F401
     RebalanceConfig,
     RebalancePlane,
 )
+from karmada_tpu_torch.utils.locks import VetLock
+
+_ACTIVE: Optional[RebalancePlane] = None  # guarded-by: _ACTIVE_LOCK
+_ACTIVE_LOCK = VetLock("rebalance.active")
+
+
+def set_active(plane: Optional[RebalancePlane]) -> None:
+    global _ACTIVE
+    with _ACTIVE_LOCK:
+        _ACTIVE = plane
+
+
+def active() -> Optional[RebalancePlane]:
+    with _ACTIVE_LOCK:
+        return _ACTIVE
+
+
+def state_payload() -> dict:
+    """The /debug/rebalance payload; {"enabled": false} when no plane is
+    armed so dashboards can poll unconditionally."""
+    plane = active()
+    if plane is None:
+        return {"enabled": False}
+    return plane.stats()
 
 
 def render_state(state: dict) -> str:
-    """Human one-screen rendering of a RebalancePlane.stats() payload."""
+    """Human one-screen rendering of a /debug/rebalance payload
+    (karmadactl rebalance --endpoint)."""
     if not state.get("enabled"):
         return ("no rebalance plane is armed on this plane "
                 "(serve --rebalance[=INTERVAL] to arm one)")

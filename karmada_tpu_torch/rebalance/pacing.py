@@ -13,10 +13,10 @@ injected clock.
 
 from __future__ import annotations
 
-import threading
 import time
 from typing import Callable, Dict
 
+from karmada_tpu_torch.utils.locks import VetLock
 from karmada_tpu_torch.utils.metrics import REGISTRY
 
 BUDGET_SPENT = REGISTRY.counter(
@@ -44,7 +44,7 @@ class EvictionBudget:
         self.per_cluster = max(1, int(per_cluster))
         self.interval_s = float(interval_s)
         self.clock = clock
-        self._lock = threading.Lock()
+        self._lock = VetLock("rebalance.budget")
         self._window_start = clock()
         # per-cluster spend in the current window
         self._spent: Dict[str, int] = {}

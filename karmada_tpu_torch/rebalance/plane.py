@@ -37,7 +37,6 @@ CUDA-event time on a card).
 
 from __future__ import annotations
 
-import threading
 import time
 import traceback
 from dataclasses import dataclass
@@ -57,6 +56,7 @@ from karmada_tpu_torch.ops.tensors import fleet_capacity
 from karmada_tpu_torch.rebalance.pacing import EvictionBudget
 from karmada_tpu_torch.store.store import NotFoundError
 from karmada_tpu_torch.utils import events as ev
+from karmada_tpu_torch.utils.locks import VetLock
 from karmada_tpu_torch.utils.metrics import REGISTRY
 
 PRODUCER = "rebalance"
@@ -146,7 +146,7 @@ class RebalancePlane:
         self.budget = budget if budget is not None else EvictionBudget(
             per_cluster=self.cfg.budget_per_cluster,
             interval_s=self.cfg.budget_interval_s, clock=self.clock)
-        self._lock = threading.Lock()
+        self._lock = VetLock("rebalance.plane")
         # fleet_capacity's (name -> (rv, pods)) memo: one per plane, as an
         # rv names one cluster state only within one store
         self._cap_memo: Dict[str, Tuple[int, int]] = {}

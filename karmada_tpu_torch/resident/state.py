@@ -31,12 +31,16 @@ The fallbacks taken by design are counted: explain-armed chunks take the
 host assemble (gather_fallbacks["explain"]), structural changes rebuild
 (rebuilds), an audit mismatch adopts the fresh batch (audit_mismatches).
 
-Driven single-threaded from one cycle loop; stats are plain ints.
+Driven single-threaded from one cycle loop; its counters are read from
+the debug server's threads under one plain lock (`stats()`,
+`recent_cycles()`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -317,6 +321,10 @@ class AuditMismatch(Exception):
         self.fields = fields
 
 
+#: encode_cycle records kept for /debug/resident?recent=N
+CYCLE_LOG_CAP = 512
+
+
 class ResidentState:
     """The resident state plane of one scheduler's device path, on
     `device` (the first CUDA card by default; "cpu" runs the kernels'
@@ -379,16 +387,24 @@ class ResidentState:
 
         self.generation = 0
         self.cycles = 0
-        self.fused_cycles = 0
-        self.host_cycles = 0
-        self.gather_fallbacks: Dict[str, int] = {}
-        self.hits = 0
-        self.misses = 0
-        self.rebuilds: Dict[str, int] = {}
-        self.audits_ok = 0
-        self.audit_mismatches = 0
-        self.last_audit: Optional[dict] = None
-        self.last_deltas: dict = {}
+        # the counters below are written by the scheduler's cycle thread
+        # and read by /debug/resident's handler threads (stats(),
+        # recent_cycles()): host-side bookkeeping under one plain lock,
+        # never the device mirrors
+        self._stats_lock = threading.Lock()
+        self.fused_cycles = 0  # guarded-by: _stats_lock
+        self.host_cycles = 0  # guarded-by: _stats_lock
+        self.gather_fallbacks: Dict[str, int] = {}  # guarded-by: _stats_lock
+        self.hits = 0  # guarded-by: _stats_lock
+        self.misses = 0  # guarded-by: _stats_lock
+        self.rebuilds: Dict[str, int] = {}  # guarded-by: _stats_lock
+        self.audits_ok = 0  # guarded-by: _stats_lock
+        self.audit_mismatches = 0  # guarded-by: _stats_lock
+        self.last_audit: Optional[dict] = None  # guarded-by: _stats_lock
+        self.last_deltas: dict = {}  # guarded-by: _stats_lock
+        # guarded-by: _stats_lock -- one record an encode_cycle call
+        # (/debug/resident?recent=N)
+        self.cycle_log: deque = deque(maxlen=CYCLE_LOG_CAP)
 
     # -- lifecycle -----------------------------------------------------------
     def fork_clusters(self) -> List:
@@ -500,7 +516,8 @@ class ResidentState:
         self.generation += 1
         RESIDENT_GENERATION.set(float(self.generation))
         RESIDENT_REBUILDS.inc(reason=reason)
-        self.rebuilds[reason] = self.rebuilds.get(reason, 0) + 1
+        with self._stats_lock:
+            self.rebuilds[reason] = self.rebuilds.get(reason, 0) + 1
 
     # -- delta application ---------------------------------------------------
     def _apply(self, deltas: CycleDeltas) -> None:
@@ -525,9 +542,10 @@ class ResidentState:
             self._apply_capacity(sorted(set(cap_lanes)), by_lane)
         if api_lanes:
             self._apply_api(sorted(set(api_lanes)), by_lane)
-        self.last_deltas = {"capacity": len(cap_lanes),
-                            "api": len(api_lanes),
-                            "binding_events": deltas.binding_events}
+        with self._stats_lock:
+            self.last_deltas = {"capacity": len(cap_lanes),
+                                "api": len(api_lanes),
+                                "binding_events": deltas.binding_events}
 
     def _apply_capacity(self, lanes: List[int],
                         by_lane: Dict[int, object]) -> None:
@@ -667,7 +685,9 @@ class ResidentState:
                                          explain=explain)
             self._adopt(batch, items, tokens)
             RESIDENT_LOOKUPS.inc(n, result="miss")
-            self.misses += n
+            with self._stats_lock:
+                self.misses += n
+            self._log_cycle(n, hits=0, misses=n, rebuilt=True)
             self.sync_device()
             return batch
 
@@ -697,19 +717,24 @@ class ResidentState:
                 if explain:
                     # the explain planes decode host-side per row
                     RESIDENT_GATHER_FALLBACKS.inc(reason="explain")
-                    self.gather_fallbacks["explain"] = \
-                        self.gather_fallbacks.get("explain", 0) + 1
+                    with self._stats_lock:
+                        self.gather_fallbacks["explain"] = \
+                            self.gather_fallbacks.get("explain", 0) + 1
                 else:
                     batch = self._assemble_fused(slots, n)
             if batch is None:
                 batch = self._assemble(items, slots, n, explain)
-                self.host_cycles += 1
+                with self._stats_lock:
+                    self.host_cycles += 1
             else:
-                self.fused_cycles += 1
+                with self._stats_lock:
+                    self.fused_cycles += 1
         RESIDENT_LOOKUPS.inc(hits, result="hit")
         RESIDENT_LOOKUPS.inc(len(miss_pos), result="miss")
-        self.hits += hits
-        self.misses += len(miss_pos)
+        with self._stats_lock:
+            self.hits += hits
+            self.misses += len(miss_pos)
+        self._log_cycle(n, hits=hits, misses=len(miss_pos), rebuilt=False)
         run_audit = (audit if audit is not None
                      else (self.audit_interval > 0
                            and self.cycles % self.audit_interval == 0))
@@ -1163,12 +1188,13 @@ class ResidentState:
             mismatches = compare_batches(batch, fresh)
         outcome = "mismatch" if mismatches else "ok"
         RESIDENT_AUDITS.inc(outcome=outcome)
-        if mismatches:
-            self.audit_mismatches += 1
-        else:
-            self.audits_ok += 1
-        self.last_audit = {"cycle": self.cycles, "outcome": outcome,
-                           "fields": mismatches[:8]}
+        with self._stats_lock:
+            if mismatches:
+                self.audit_mismatches += 1
+            else:
+                self.audits_ok += 1
+            self.last_audit = {"cycle": self.cycles, "outcome": outcome,
+                               "fields": mismatches[:8]}
         if not mismatches:
             return None
         # incident trigger (obs/incidents): divergence adoption is a
@@ -1184,6 +1210,7 @@ class ResidentState:
                     "cycle": self.cycles, "items": len(items)})
         self._reset(self.clusters, "audit-mismatch")
         self._adopt(fresh, items, tokens)
+        self._log_cycle(len(items), hits=0, misses=len(items), rebuilt=True)
         self.sync_device()
         return fresh
 
@@ -1203,6 +1230,13 @@ class ResidentState:
         self._dirty = {}
 
     # -- introspection -------------------------------------------------------
+    def _log_cycle(self, n: int, hits: int, misses: int,
+                   rebuilt: bool) -> None:
+        with self._stats_lock:
+            self.cycle_log.append({"cycle": self.cycles, "items": n,
+                                   "hits": hits, "misses": misses,
+                                   "rebuilt": rebuilt})
+
     def _update_vocab_gauges(self) -> None:
         RESIDENT_VOCAB.set(float(self.nC), axis="clusters")
         RESIDENT_VOCAB.set(float(len(self.placements)), axis="placements")
@@ -1212,42 +1246,55 @@ class ResidentState:
         RESIDENT_ROWS.set(float(len(self.rows)))
 
     def stats(self) -> dict:
-        """Counts of the plane: generation, vocabulary sizes, rows cached,
-        hits and misses, rebuilds, audits, the fused path's cycles."""
-        total = self.hits + self.misses
-        return {
-            "enabled": True,
-            "device": str(self.device),
-            "generation": self.generation,
-            "resident": self.plane is not None,
-            "cycles": self.cycles,
-            "vocab": {
-                "clusters": self.nC,
-                "placements": len(self.placements),
-                "classes": len(self.class_keys),
-                "resources": len(self.res_names),
-                "gvks": len(self.gvk_keys),
-                "cluster_lanes": self.C,
-            },
-            "rows_cached": len(self.rows),
-            "row_hits": self.hits,
-            "row_misses": self.misses,
-            "hit_rate": round(self.hits / total, 4) if total else None,
-            "rebuilds": dict(self.rebuilds),
-            "audits": {"ok": self.audits_ok,
-                       "mismatch": self.audit_mismatches},
-            "last_audit": self.last_audit,
-            "last_deltas": self.last_deltas,
-            "device_primed": self._device_primed,
-            "fused": {
-                "armed": self.fused,
-                "cycles": self.fused_cycles,
-                "host_cycles": self.host_cycles,
-                "fallbacks": dict(self.gather_fallbacks),
-                "rows_synced": (self.device_rows is not None
-                                and self._rows_dirty is None),
-            },
-        }
+        """Counts of the plane for /debug/resident and the SOAK report:
+        generation, vocabulary sizes, rows cached, hits and misses,
+        rebuilds, audits, the fused path's cycles.  The counters are read
+        under their lock; the plane fields (generation, vocab sizes,
+        rows) belong to the scheduler's cycle thread, so a poll racing a
+        rebuild may pair a fresh generation with the retiring vocabulary
+        for one read -- diagnostics only, never read by the solve path,
+        and never a read of the device mirrors."""
+        with self._stats_lock:
+            hits, misses = self.hits, self.misses
+            total = hits + misses
+            return {
+                "enabled": True,
+                "device": str(self.device),
+                "generation": self.generation,
+                "resident": self.plane is not None,
+                "cycles": self.cycles,
+                "vocab": {
+                    "clusters": self.nC,
+                    "placements": len(self.placements),
+                    "classes": len(self.class_keys),
+                    "resources": len(self.res_names),
+                    "gvks": len(self.gvk_keys),
+                    "cluster_lanes": self.C,
+                },
+                "rows_cached": len(self.rows),
+                "row_hits": hits,
+                "row_misses": misses,
+                "hit_rate": round(hits / total, 4) if total else None,
+                "rebuilds": dict(self.rebuilds),
+                "audits": {"ok": self.audits_ok,
+                           "mismatch": self.audit_mismatches},
+                "last_audit": self.last_audit,
+                "last_deltas": self.last_deltas,
+                "device_primed": self._device_primed,
+                "fused": {
+                    "armed": self.fused,
+                    "cycles": self.fused_cycles,
+                    "host_cycles": self.host_cycles,
+                    "fallbacks": dict(self.gather_fallbacks),
+                    "rows_synced": (self.device_rows is not None
+                                    and self._rows_dirty is None),
+                },
+            }
+
+    def recent_cycles(self, limit: int = 64) -> List[dict]:
+        with self._stats_lock:
+            log = list(self.cycle_log)
+        return log[-limit:]
 
 
 class _Missing:

@@ -57,6 +57,7 @@ from karmada_tpu_torch.ops import dirty as dirty_mod
 from karmada_tpu_torch.ops import tensors as T
 from karmada_tpu_torch.resident.state import RowToken
 from karmada_tpu_torch.scheduler import pipeline
+from karmada_tpu_torch.utils.locks import OwnerThread
 from karmada_tpu_torch.utils.metrics import REGISTRY
 
 INC_CYCLES = REGISTRY.counter(
@@ -171,6 +172,10 @@ class IncrementalSolver:
         # groups never break exactness, over-merging disjoint regions
         # widens the union until the shortlist falls back to dense
         self._lane_budget = (8 * shortlist.k) if shortlist else None
+        # single-threaded by contract: adopt / cycle / write_back run on
+        # the one scheduler worker (utils/locks.OwnerThread: the first
+        # caller owns the plane, any other thread raises while armed)
+        self._owner = OwnerThread("scheduler.incremental")
         self.ledger: T.CarryState = T.CarryState()
         self.keys: List[str] = []
         self.key_pos: Dict[str, int] = {}
@@ -288,6 +293,7 @@ class IncrementalSolver:
     # -- lifecycle ------------------------------------------------------------
     def adopt(self, clusters: Sequence, bindings: Sequence) -> CycleReport:
         """First cycle: full solve, roster + ledger + slot store built."""
+        self._owner.check("adopt()")
         t0 = time.perf_counter()
         self.cycles += 1
         self._rebuild_roster(
@@ -305,6 +311,7 @@ class IncrementalSolver:
         """One watch-driven cycle: advance the plane by `deltas`, re-solve
         the dirty set, audit on cadence.  `bindings` is the full roster
         (append-only against the previous cycle, or a full solve runs)."""
+        self._owner.check("cycle()")
         t0 = time.perf_counter()
         self.cycles += 1
         state = self.state
@@ -540,6 +547,7 @@ class IncrementalSolver:
         last applied one writes nothing, which ends the self-churn loop.
         Visits only positions whose result changed since the last
         write_back.  Returns the number of bindings written."""
+        self._owner.check("write_back()")
         changed = 0
         for pos in self._since_wb:
             res = self.results.get(pos)

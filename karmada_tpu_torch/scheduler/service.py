@@ -135,6 +135,7 @@ from karmada_tpu_torch.scheduler.queue import QueuedBindingInfo, SchedulingQueue
 from karmada_tpu_torch.store.store import Event, ObjectStore
 from karmada_tpu_torch.store.worker import AsyncWorker, Runtime
 from karmada_tpu_torch.webhook.admission import AdmissionDenied
+from karmada_tpu_torch.utils.locks import VetLock
 
 REASON_SUCCESS = "BindingScheduled"
 REASON_NO_FIT = "NoClusterFit"
@@ -337,6 +338,12 @@ class Scheduler:
                           if self.explain > 0 else None)
         # a deterministic sampling stream (tests replay it)
         self._explain_rng = random.Random(0x5EED)
+        # the recorder of the CURRENT cycle's explain sample (None on
+        # unsampled cycles): the decision <-> event cross-link binds
+        # outcomes only to decisions THIS cycle produced, never to a
+        # stale verdict of an earlier sampled cycle (owned by the cycle
+        # worker)
+        self._cycle_explain = None
         # capacity-contention waves per solver chunk (ops/solver.py)
         self.waves = max(1, waves)
         self.pipeline_chunk = max(1, pipeline_chunk)
@@ -345,7 +352,7 @@ class Scheduler:
                           if shortlist_k and backend == "device" else None)
         # the queue is touched from publisher threads (_on_event) and the
         # cycle worker; one lock guards every queue operation
-        self._queue_lock = threading.Lock()
+        self._queue_lock = VetLock("scheduler.queue")
         self.queue = (queue if queue is not None
                       else SchedulingQueue(max_resident=admission_limit))
         # guarded-by: _queue_lock -- the pending deferred-cut wakeup
@@ -390,6 +397,7 @@ class Scheduler:
         runtime.register_periodic(self._periodic_flush, name="scheduler")
         self.rebalance_plane = None
         if rebalance:
+            from karmada_tpu_torch import rebalance as rebalance_mod
             from karmada_tpu_torch.rebalance import (
                 RebalanceConfig,
                 RebalancePlane,
@@ -404,11 +412,14 @@ class Scheduler:
                 device=self.device)
             runtime.register_periodic(self.rebalance_plane.maybe_run,
                                       name="scheduler-rebalance")
+            # /debug/rebalance publishes the latest armed plane
+            rebalance_mod.set_active(self.rebalance_plane)
         store.bus.subscribe(self._on_event)
 
     def _arm_resident(self) -> None:
         """A new resident plane and its DeltaTracker (at construction and
         at a re-arm)."""
+        from karmada_tpu_torch import resident as resident_mod
         from karmada_tpu_torch.resident import DeltaTracker, ResidentState
 
         self._resident = ResidentState(
@@ -417,14 +428,19 @@ class Scheduler:
         # taps the same bus; its window drains at each solve
         self._delta_tracker = DeltaTracker()
         self.store.bus.subscribe(self._delta_tracker.on_event)
+        # /debug/resident publishes the armed plane
+        resident_mod.set_active(self._resident)
 
     def _detach_resident(self) -> None:
         """Drop the resident plane (a degrade: the zombie may still be
         inside it, and the host backends build no SolverBatch)."""
+        from karmada_tpu_torch import resident as resident_mod
+
         if self._delta_tracker is not None:
             self.store.bus.unsubscribe(self._delta_tracker.on_event)
         self._resident = None
         self._delta_tracker = None
+        resident_mod.set_active(None)
 
     # -- event wiring -------------------------------------------------------
     def _on_event(self, event: Event) -> None:
@@ -909,6 +925,8 @@ class Scheduler:
         affinity_name: Dict[int, str] = {}
         # one sampling decision a cycle: every affinity round records
         explain_rec = None if detached else self._explain_sample()
+        if not detached:
+            self._cycle_explain = explain_rec
         keys_all = [f"{rb.namespace}/{rb.name}" for rb in bindings]
         tokens_all = None
         if self._resident is not None and not detached:
@@ -1283,6 +1301,20 @@ class Scheduler:
         return handled
 
     # -- result patch-back (patchScheduleResultForResourceBinding :664) -----
+    def _link_decision(self, rb: ResourceBinding,
+                       event_id: Optional[int]) -> None:
+        """Cross-reference the outcome event with the explain plane's
+        Decision for the same binding: the Decision gets the event id,
+        the event the decision id, so /debug/explain/{ns}/{name} and the
+        timeline point at each other.  Only on an explain-sampled cycle
+        (_cycle_explain)."""
+        if self._cycle_explain is None or event_id is None:
+            return
+        did = self._cycle_explain.link_event(f"{rb.namespace}/{rb.name}",
+                                             event_id)
+        if did is not None:
+            self.recorder.link_decision(event_id, did)
+
     def _apply_result(self, rb: ResourceBinding, res, affinity_name: str):
         """Patch the schedule outcome back; returns it."""
         if res is None:
@@ -1304,10 +1336,11 @@ class Scheduler:
             # reason from the explain classifier
             dom = (classify_unschedulable(res)
                    if isinstance(res, serial.UnschedulableError) else None)
-            self.recorder.event(
+            eid = self.recorder.event(
                 rb, ev.TYPE_WARNING, ev.REASON_SCHEDULE_BINDING_FAILED,
                 (f"{res} (dominant reason: {dom})" if dom else str(res)),
                 origin="scheduler", cycle_id=self._cycle_id)
+            self._link_decision(rb, eid)
             return res
         # success: patch spec.clusters, then record the STORED generation
         # in status -- two steps, as the reference does
@@ -1338,11 +1371,12 @@ class Scheduler:
         self.store.mutate(ResourceBinding.KIND, rb.namespace, rb.name,
                           patch_status)
         where = ", ".join(f"{t.name}({t.replicas})" for t in targets)
-        self.recorder.event(
+        eid = self.recorder.event(
             rb, ev.TYPE_NORMAL, ev.REASON_SCHEDULE_BINDING_SUCCEED,
             "Binding has been scheduled successfully"
             + (f" to {where}." if where else "."),
             origin="scheduler", cycle_id=self._cycle_id)
+        self._link_decision(rb, eid)
         return res
 
     def faults(self) -> Dict[str, int]:

@@ -27,8 +27,8 @@ tolerance 0.
   InvariantViolation on the same bad inputs.
 - The registry: every family the port registers equals the JAX
   package's by name, type, labels, help and buckets, and every JAX
-  family but those of utils/locks and ops/meshing (not part of the port)
-  is registered by the port.
+  family but those of ops/meshing (not part of the port) is registered
+  by the port.
 
 Marked `gpu` (skipped here inside the test): a chaos soak on the card,
 and the corruption travelling to the card's mirror through K10.
@@ -636,9 +636,8 @@ def test_guards_arm_from_the_environment():
 # -- the registry ------------------------------------------------------------------
 
 #: JAX modules whose families the port does not register: their planes are
-#: not part of the port (utils/locks: ROADMAP Queue A item 9; ops/meshing:
-#: item 10)
-LEFT_OUT = ("karmada_tpu.utils.locks", "karmada_tpu.ops.meshing")
+#: not part of the port (ops/meshing: ROADMAP Queue A item 10)
+LEFT_OUT = ("karmada_tpu.ops.meshing",)
 
 #: the port modules that register the families
 PORT_FAMILY_MODULES = (
@@ -648,7 +647,8 @@ PORT_FAMILY_MODULES = (
     "ops.shortlist", "ops.solver", "ops.tensors", "ops.dirty",
     "ops.resident_gather", "scheduler.incremental", "store.worker",
     "controllers.execution", "obs.decisions", "obs.devprof",
-    "ops.aotcache", "utils.deviceprobe", "controllers.status")
+    "ops.aotcache", "utils.deviceprobe", "controllers.status",
+    "utils.locks")
 
 
 def _families(pkg, modules):
@@ -666,8 +666,7 @@ def test_registry_families_equal():
     j = _families("karmada_tpu", [f"karmada_tpu.{m}"
                                   for m in PORT_FAMILY_MODULES] + list(
                                       LEFT_OUT))
-    left = {name for name in j
-            if name.startswith(("karmada_lock", "karmada_mesh"))}
+    left = {name for name in j if name.startswith("karmada_mesh")}
     assert set(p) == set(j) - left
     for name in p:
         assert p[name] == j[name], name

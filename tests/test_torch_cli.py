@@ -15,12 +15,16 @@ on temporary plane directories, in process (`cli.main`), tolerance 0.
   rebalance and resident sections without the keys one package alone
   reports, named in tests/torch_soak.cross_comparable), each run
   into a fresh process ledger with the Schedulers' host clock still (the
-  e2e samples are floored at a cycle's wall seconds: tests/torch_soak).
+  e2e samples are floored at a cycle's wall seconds: tests/torch_soak)
+  and their deferred-cut timers held back.
 - `serve --chaos SPEC --telemetry RING --slo-deadline S` on a host
   backend arms the chaos, telemetry and incident planes, serves until
   interrupted and exits 0.
 - Every verb and flag the port refuses exits 1 and names its ROADMAP
   Queue A item.
+- The verbs that read a serve process's debug server, pointed at a closed
+  port: both CLIs exit 1 with the same message; `explain KIND` prints the
+  same field tree.
 - `estimate` against a port FacadeService over TCP: both CLIs get the
   same answer (trace and batch ids masked).
 """
@@ -39,6 +43,7 @@ from torch_soak import (
     cross_comparable,
     fresh_ledger,
     frozen_cycle_clock,
+    held_cut_timers,
 )
 
 PKGS = ("karmada_tpu", "karmada_tpu_torch")
@@ -188,7 +193,7 @@ def test_loadgen_catalog_equal(capsys):
 def test_loadgen_steady_json_equal(capsys):
     out = {}
     for pkg in PKGS:
-        with fresh_ledger(pkg), frozen_cycle_clock():
+        with fresh_ledger(pkg), frozen_cycle_clock(), held_cut_timers():
             rc, text, _ = run(pkg, ["loadgen", "steady", "--seed", "3"],
                               capsys)
         assert rc == 0
@@ -212,7 +217,7 @@ def test_loadgen_unknown_and_chaotic(capsys):
             # plane runs K13's plain version there)
             argv = ["loadgen", name, "--seed", "3"] + (
                 ["--device", "cpu"] if pkg == "karmada_tpu_torch" else [])
-            with fresh_ledger(pkg), frozen_cycle_clock():
+            with fresh_ledger(pkg), frozen_cycle_clock(), held_cut_timers():
                 rc, text, err = run(pkg, argv, capsys)
             assert rc == 0, err
             out[pkg] = json.loads(text)
@@ -234,19 +239,7 @@ REFUSED = [
     (["--server", "http://x", "get", "Cluster"], 9),
     (["get", "Deployment", "--cluster", "m1"], 9),
     (["describe", "Deployment", "x", "--cluster", "m1"], 9),
-    (["events", "--endpoint", "http://x"], 7),
-    (["describe", "ns/x", "--endpoint", "http://x"], 7),
-    (["explain", "ResourceBinding"], 7),
-    (["trace", "--endpoint", "http://x"], 7),
-    (["resident", "--endpoint", "http://x"], 7),
-    (["rebalance", "--endpoint", "http://x"], 7),
-    (["profile", "--endpoint", "http://x"], 7),
-    (["incidents", "--endpoint", "http://x"], 7),
-    (["whatif", "--endpoint", "http://x"], 7),
-    (["loadgen", "--endpoint", "http://x"], 7),
-    (["serve", "--metrics-port", "0"], 7),
     (["serve", "--api-port", "0"], 9),
-    (["serve", "--check-invariants"], 9),
     (["serve", "--mesh", "2x4"], 10),
 ]
 
@@ -263,6 +256,59 @@ def test_refused_verbs_and_flags_name_their_item(argv, item, tmp_path,
     assert f"ROADMAP Queue A item {item})" in err
     # refused before any plane loads
     assert not (tmp_path / "plane").exists()
+
+
+#: the verbs that read a serve process's debug server (utils/httpserve),
+#: each pointed at ENDPOINT (a closed port on this host)
+DEBUG_VERBS = [
+    ["events", "--endpoint", "ENDPOINT"],
+    ["events", "ns/x", "--endpoint", "ENDPOINT"],
+    ["describe", "ns/x", "--endpoint", "ENDPOINT"],
+    ["describe", "incident", "inc-1", "--endpoint", "ENDPOINT"],
+    ["explain", "ns/x", "--endpoint", "ENDPOINT"],
+    ["explain", "--endpoint", "ENDPOINT"],
+    ["trace", "--endpoint", "ENDPOINT"],
+    ["resident", "--endpoint", "ENDPOINT"],
+    ["rebalance", "--endpoint", "ENDPOINT"],
+    ["profile", "--endpoint", "ENDPOINT"],
+    ["incidents", "--endpoint", "ENDPOINT"],
+    ["whatif", "--endpoint", "ENDPOINT"],
+    ["loadgen", "--endpoint", "ENDPOINT"],
+]
+
+
+def _closed_port_url():
+    """http://127.0.0.1:PORT with nothing listening on PORT."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    return f"http://127.0.0.1:{port}"
+
+
+@pytest.mark.parametrize("argv", DEBUG_VERBS, ids=" ".join)
+def test_debug_verbs_without_a_server_equal(argv, tmp_path, capsys,
+                                            monkeypatch):
+    """Each verb that reads the debug server, pointed at a closed port:
+    both CLIs exit 1 with the same "cannot reach" message, and none of
+    them loads a plane (their answers against live servers are in
+    tests/test_torch_httpserve.py)."""
+    monkeypatch.chdir(tmp_path)
+    url = _closed_port_url()
+    argv = [url if a == "ENDPOINT" else a for a in argv]
+    j, p = (run(pkg, ["--dir", "plane", *argv], capsys) for pkg in PKGS)
+    assert p == j
+    assert p[0] == 1 and f"cannot reach {url}" in p[2]
+    assert not (tmp_path / "plane").exists()
+
+
+def test_explain_kind_documents_its_fields(capsys):
+    """`explain KIND` (no --endpoint) prints the field tree on both CLIs."""
+    j, p = (run(pkg, ["explain", "ResourceBinding"], capsys)
+            for pkg in PKGS)
+    assert p == j and p[0] == 0
+    assert p[1].startswith("KIND: ResourceBinding")
 
 
 def test_every_missing_entry_is_reachable():

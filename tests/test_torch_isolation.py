@@ -14,7 +14,10 @@ ledger (obs/, utils/metrics, utils/events, scheduler/metrics), loadgen/,
 printers and the port CLI -- runs a compressed soak, the CLI's catalog
 and a plane flow with neither in sys.modules either, and so does the
 faults and telemetry slice (chaos/, analysis/guards, obs/incidents,
-obs/slo, obs/timeseries) over the hotspot soak.  The cycle's
+obs/slo, obs/timeseries) over the hotspot soak, and the debug server
+(utils/httpserve) with the lock race detector (utils/locks) armed over
+a resident slice, whose card-reaching routes refuse to drift to the CPU
+too.  The cycle's
 encode and decode run through the port's C paths (native/), whose loaded
 libraries are the port's own builds: no port module names the JAX
 package's native directory, and no library of it is mapped into the
@@ -261,6 +264,93 @@ def test_fault_entry_points_refuse_cpu_drift(capsys):
         ServeSlice(get_scenario("chaos"), VirtualClock(), ServiceModel(),
                    backend="device", resident=True,
                    device_cycle_timeout_s=2.0, device_recover_cycles=2)
+
+
+_DEBUG = r"""
+import json, sys, tempfile, threading, urllib.request
+sys.path.insert(0, {root!r})
+from karmada_tpu_torch import cli, facade, resident
+from karmada_tpu_torch.analysis import guards
+from karmada_tpu_torch.loadgen import (
+    LoadDriver, ServeSlice, ServiceModel, VirtualClock, get_scenario)
+from karmada_tpu_torch.utils import locks
+from karmada_tpu_torch.utils.httpserve import ObservabilityServer
+guards.arm()
+wd = locks.start_watchdog(poll_s=0.1)
+scenario = get_scenario("steady")
+clock, model = VirtualClock(), ServiceModel()
+plane = ServeSlice(scenario, clock, model, backend="device", device="cpu",
+                   resident=True)
+LoadDriver(plane, scenario, clock=clock, model=model, seed=1).run()
+svc = facade.FacadeService(plane.scheduler, plane.store)
+facade.set_active(svc)
+srv = ObservabilityServer(store=plane.store, device="cpu",
+                          profile_dir=tempfile.mkdtemp())
+base = srv.start()
+def get(path):
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return json.loads(r.read().decode())
+state = get("/debug/state")
+assert state["locks"]["armed"] and state["resident"]["enabled"]
+assert get("/debug/resident?recent=2")["device"] == "cpu"
+assert get("/whatif?query=placement&replicas=4")["result"]["outcome"] == \
+    "scheduled"
+assert get("/debug/profile?seconds=0.1")["ok"]
+assert cli.main(["resident", "--endpoint", base]) == 0
+assert locks.state_payload()["inversions"]["recent"] == []
+srv.stop()
+svc.close()
+locks.stop_watchdog()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "karmada_tpu"))
+print("LOADED", bad)
+assert not bad, bad
+"""
+
+
+def test_debug_server_loads_no_jax_subprocess():
+    """The debug server (utils/httpserve) with the lock race detector
+    (utils/locks) armed over a resident device slice on the CPU: its
+    state, resident, what-if and profile routes and a CLI verb run with
+    neither jax nor the JAX package in sys.modules."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, "-c",
+                           _DEBUG.format(root=str(ROOT))],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_debug_routes_refuse_cpu_drift():
+    """The debug server's routes that reach the card ask for it unless
+    told the CPU: with no card /debug/profile answers a JSON 500 naming
+    the missing card, and the facade /whatif solves through is built on a
+    Scheduler that raises without device="cpu"."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from karmada_tpu_torch.loadgen import (
+        ServeSlice, ServiceModel, VirtualClock, get_scenario)
+    from karmada_tpu_torch.utils.httpserve import ObservabilityServer
+
+    if torch.cuda.is_available():
+        return
+    srv = ObservabilityServer()
+    base = srv.start()
+    try:
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            urllib.request.urlopen(base + "/debug/profile?seconds=0.1",
+                                   timeout=60)
+        assert ei.value.code == 500
+        assert "no CUDA device" in json.loads(ei.value.read())["error"]
+    finally:
+        srv.stop()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeSlice(get_scenario("steady"), VirtualClock(), ServiceModel(),
+                   backend="device")
 
 
 def test_cycle_loads_no_jax_subprocess():

@@ -14,7 +14,9 @@ attributes (the strides included) and the span name -> count equal.
 The soaks run through tests/torch_soak.soak, which holds the
 Schedulers' host clock still: both Schedulers floor each binding's e2e
 sample at its cycle's wall seconds, which would make the samples depend
-on the host's load.
+on the host's load.  It also holds back their wall-clock deferred-cut
+timer, which would add a no-op cycle at a point the host's load sets;
+`test_soak_starts_no_cut_timer` pins that.
 """
 
 import json
@@ -374,6 +376,51 @@ def test_serve_slice_cycle_spans_equal(name):
                           "dwell_stride", "e2e_samples", "e2e_stride",
                           "overload"} <= set(a) for a in attrs)
     assert [t["root"] for t in p] == [t["root"] for t in j]
+
+
+class _CountingTimers:
+    """A threading module whose Timer only counts its start() calls (a
+    stand-in put into both packages' scheduler/service modules)."""
+
+    def __init__(self):
+        import threading
+
+        self._threading = threading
+        self.started = 0
+        outer = self
+
+        class Timer:
+            daemon = True
+
+            def __init__(self, *args, **kwargs):
+                pass
+
+            def start(self):
+                outer.started += 1
+
+            def cancel(self):
+                pass
+
+        self.Timer = Timer
+
+    def __getattr__(self, name):
+        return getattr(self._threading, name)
+
+
+def test_soak_starts_no_cut_timer(monkeypatch):
+    """A storm soak through tests/torch_soak.soak arms the Schedulers'
+    wall-clock deferred-cut timer in neither package: the soak holds it
+    back, so a loaded host cannot add a no-op cycle (the storm case of
+    test_serve_slice_cycle_spans_equal).  Without the hold each package
+    starts at least one timer here."""
+    counting = _CountingTimers()
+    for pkg in PKGS:
+        monkeypatch.setattr(mod(pkg, "scheduler.service"), "threading",
+                            counting)
+    for pkg in PKGS:
+        payload = soak(pkg, "storm")[0]
+        assert payload["scheduled"] > 0
+    assert counting.started == 0
 
 
 def test_device_cycle_spans_cover_the_pipeline_stages():

@@ -18,7 +18,10 @@ With the clock still, every cycle's wall reads 0 and the payloads are a
 function of the traffic alone.  Only the `time` the scheduler/service
 module sees is replaced (its perf_counter stands still; everything else
 is the real module): the spans, the driver and the virtual clocks keep
-their own.
+their own.  Each run also holds back the Schedulers' wall-clock
+deferred-cut timer (`held_cut_timers`): in a compressed soak whose wall
+outlasts the batch deadline it would add a no-op cycle at a point the
+host's load sets (tools/soak_hold.py).
 
 `comparable` masks what the payloads may differ in: `wall_s` and the
 seconds of `stage_utilization` (its span names and counts stay).
@@ -80,7 +83,7 @@ def soak(pkg, name, backend="serial", seed=5, strip_events=False,
     plane = L.ServeSlice(scenario, clock, model, backend=backend, **plane_kw)
     driver = L.LoadDriver(plane, scenario, clock=clock, model=model,
                           seed=seed)
-    with fresh_ledger(pkg), frozen_cycle_clock():
+    with fresh_ledger(pkg), frozen_cycle_clock(), held_cut_timers():
         payload = driver.run()
     return payload, driver, plane
 
